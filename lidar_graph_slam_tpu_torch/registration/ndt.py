@@ -1,0 +1,178 @@
+"""Voxelized Normal Distributions Transform registration (ndt_omp equivalent).
+
+Port of `lidar_graph_slam_tpu/registration/ndt.py`: iteratively-reweighted Gauss-Newton
+on Magnusson's exponential score against a voxel-Gaussian map (`ops.voxel`). Each
+iteration transforms the source, gathers the DIRECT7 neighbor Gaussians and accumulates
+the 6x6 normal equations (`ops.kernels.ndt_accumulate`: the CUDA kernel on the card).
+
+Loop structure: the reference's `lax.while_loop` becomes a Python loop that reads the
+device's `done` flag once per iteration (one host sync per iteration); the two polish
+iterations then run unconditionally, even after convergence, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.core.config import NdtConfig
+from lidar_graph_slam_tpu_torch.ops import kernels
+from lidar_graph_slam_tpu_torch.ops.voxel import (
+    NdtVoxelMap,
+    as_f32,
+    build_ndt_map,
+    build_ndt_pyramid,
+    lookup_direct7,
+)
+from lidar_graph_slam_tpu_torch.registration.base import (
+    RegistrationResult,
+    cap_step,
+    norm,
+    solve_damped,
+)
+
+
+def magnusson_constants(resolution, outlier_ratio: float):
+    """d1/d2 of the NDT mixture score (Magnusson 2009, as parameterized by ndt_omp),
+    in float32 as the reference computes them."""
+    res = torch.as_tensor(resolution, dtype=torch.float32)
+    c1 = 10.0 * (1.0 - outlier_ratio)
+    c2 = outlier_ratio / (res ** 3)
+    d3 = -torch.log(c2)
+    d1 = -torch.log(c1 + c2) - d3
+    e = torch.exp(torch.full((), -0.5, dtype=torch.float32, device=res.device))
+    d2 = -2.0 * torch.log((-torch.log(c1 * e + c2) - d3) / d1)
+    return d1, d2
+
+
+def ndt_align(
+    vmap: NdtVoxelMap,
+    source_points: torch.Tensor,
+    source_mask: torch.Tensor,
+    init_transform: torch.Tensor,
+    step_size: float = 0.1,
+    transform_epsilon: float = 0.01,
+    outlier_ratio: float = 0.55,
+    max_iterations: int = 64,
+    polish_iterations: int = 2,
+    line_search: bool = False,
+) -> RegistrationResult:
+    """Align a masked source cloud to an NDT voxel map. Returns source->map transform.
+
+    `line_search=True` adds the reference's backtracking step-length search: each GN
+    step is evaluated at alpha in {1, 1/2, 1/4} on the Magnusson score over the current
+    correspondences and the best-scoring scale is taken. Off by default."""
+    d1, d2 = magnusson_constants(vmap.leaf, outlier_ratio)
+    w_scale = -d1 * d2  # > 0: d1 < 0 by construction
+    n = source_points.shape[0]
+    dtype, dev = source_points.dtype, source_points.device
+    damping = as_f32(1e-6, source_points)
+
+    def body(T, done, iters):
+        p = se3.transform_points(T, source_points)                   # [N, 3]
+        means, icovs, hit = lookup_direct7(vmap, p)                  # [N, 7, ...]
+        valid = hit & source_mask[:, None]
+        e = p[:, None, :] - means                                    # [N, 7, 3]
+
+        K = n * 7
+        p_rep = p[:, None, :].expand(n, 7, 3).reshape(K, 3)
+        H, g, _sum_w, n_hit = kernels.ndt_accumulate(
+            e.reshape(K, 3), icovs.reshape(K, 3, 3).contiguous(), p_rep.contiguous(),
+            valid.reshape(K), d2, w_scale,
+        )
+        n_inliers = n_hit.to(torch.int32)
+
+        delta = cap_step(solve_damped(H, g, damping), step_size)
+        if line_search:
+            # Backtracking on the fixed-correspondence Magnusson score, evaluated
+            # against the means/icovs gathered this iteration (no re-gather).
+            alphas = torch.tensor([1.0, 0.5, 0.25], dtype=dtype, device=dev)
+            scores = []
+            for a in alphas:
+                pc = se3.transform_points(se3.se3_exp(a * delta) @ T, source_points)
+                ec = pc[:, None, :] - means
+                md2c = torch.einsum("kni,knij,knj->kn", ec, icovs, ec)
+                scores.append(torch.sum(torch.where(valid, torch.exp(-0.5 * d2 * md2c), 0.0)))
+            delta = alphas[torch.argmax(torch.stack(scores))] * delta
+        # Mean squared distance to the matched voxel means (diagnostic fitness).
+        d2_center = torch.sum(e[:, 0, :] ** 2, dim=-1)
+        center_valid = valid[:, 0]
+        fitness = torch.sum(torch.where(center_valid, d2_center, 0.0)) / torch.clamp(
+            torch.sum(center_valid.to(torch.int32)), min=1)
+
+        step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
+        delta = torch.where(step_ok, delta, 0.0)
+        T_new = se3.se3_exp(delta) @ T
+        newly_done = norm(delta) < transform_epsilon
+        return T_new, done | newly_done, iters + 1, fitness, n_inliers
+
+    T = init_transform.to(dtype)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    fitness = torch.full((), torch.inf, dtype=dtype, device=dev)
+    inliers = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(max_iterations):
+        T, done, iters, fitness, inliers = body(T, done, iters)
+        if bool(done):  # the one host read per iteration
+            break
+    # Polish: UNCONDITIONAL Gauss-Newton iterations after the early exit, so the result
+    # is a function of (target, scan) rather than of where the epsilon stop landed.
+    T_p, fitness_p, inliers_p = T, fitness, inliers
+    for _ in range(polish_iterations):
+        T_p, _, _, fitness_p, inliers_p = body(T_p, done, iters)
+    # PCL parity: hasConverged() is true whenever the convergence criteria stopped the
+    # loop — epsilon OR max-iterations; the caller's inlier gate guards quality.
+    converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
+                 & torch.isfinite(T_p).all())
+    return RegistrationResult(transform=T_p, converged=converged, iterations=iters,
+                              fitness=fitness_p, num_inliers=inliers_p)
+
+
+def make_ndt_matcher(cfg: NdtConfig, map_capacity: int):
+    """Bundle map-build + align closures for the front end's matcher slot.
+
+    When `cfg.coarse_resolution` > 0 the target is a two-level pyramid and alignment
+    runs coarse-then-fine. An integer coarse/fine ratio derives the coarse map by
+    merging the fine map's raw voxel moments (`build_ndt_pyramid`); other ratios build
+    the two maps independently."""
+    use_pyramid = cfg.coarse_resolution > 0.0
+    factor = round(cfg.coarse_resolution / cfg.resolution) if use_pyramid else 0
+    fused_pyramid = use_pyramid and factor >= 2 and abs(
+        factor * cfg.resolution - cfg.coarse_resolution) < 1e-6
+
+    def build_target(points, mask):
+        if fused_pyramid:
+            return build_ndt_pyramid(points, mask, cfg.resolution, factor,
+                                     capacity=map_capacity, coarse_capacity=map_capacity // 2)
+        fine = build_ndt_map(points, mask, cfg.resolution, capacity=map_capacity)
+        if not use_pyramid:
+            return fine
+        coarse = build_ndt_map(points, mask, cfg.coarse_resolution, capacity=map_capacity // 2)
+        return (coarse, fine)
+
+    def align(target_map, points, mask, init_T):
+        if use_pyramid:
+            coarse, fine = target_map
+            # Coarse stage: larger step bound, strided source subsample, no polish — it
+            # only has to land inside the fine stage's convergence basin.
+            stride = max(int(cfg.coarse_subsample), 1)
+            pre = ndt_align(
+                coarse, points[::stride], mask[::stride], init_T,
+                step_size=cfg.step_size * 4.0,
+                transform_epsilon=cfg.transform_epsilon,
+                outlier_ratio=cfg.outlier_ratio,
+                max_iterations=cfg.coarse_iterations,
+                polish_iterations=0,
+            )
+            init_T = pre.transform
+        else:
+            fine = target_map
+        return ndt_align(
+            fine, points, mask, init_T,
+            step_size=cfg.step_size,
+            transform_epsilon=cfg.transform_epsilon,
+            outlier_ratio=cfg.outlier_ratio,
+            max_iterations=cfg.max_iterations,
+        )
+
+    return build_target, align

@@ -1,0 +1,136 @@
+"""The PyTorch port on a CUDA card: the hand-written `ndt_accumulate` kernel against its
+plain PyTorch version and a float64 evaluation, and the loops-off pipeline on the card
+against the same pipeline on the CPU.
+
+Every test here is marked `cuda` and skips without a card. This file imports no JAX
+(the card's machine has none), so it also runs there without the suite's conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: per output, max |kernel - reference| <= 1e-5 * max |reference| + 2e-3 (both
+sum ~1e5 float32 terms in different orders), hit counts exact; two launches on the same
+inputs bit-identical. Pipeline poses: card vs CPU within 1 cm and 1 mrad per frame.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lidar_graph_slam_tpu_torch.core.config import PipelineConfig, apply_cli_overrides
+from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence
+from lidar_graph_slam_tpu_torch.ops import kernels as tk
+from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
+
+pytestmark = pytest.mark.cuda
+
+REL, ABS = 1e-5, 2e-3
+# K = 7 x filtered points: the fine stage at the default capacity, the coarse stage
+# (stride 4), a small one, a single row and none.
+SIZES = [7 * 32768, 7 * 8192, 7 * 300, 1, 0]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(K, device, seed=0, hit_rate=0.7):
+    rng = np.random.default_rng(seed)
+    e = rng.normal(size=(K, 3)).astype(np.float32)
+    A = rng.normal(size=(K, 3, 3)).astype(np.float32)
+    icovs = A @ np.swapaxes(A, 1, 2) + 0.5 * np.eye(3, dtype=np.float32)
+    p = (rng.normal(size=(K, 3)) * 5.0).astype(np.float32)
+    hit = rng.random(K) < hit_rate
+    return [torch.as_tensor(x, device=device) for x in (e, icovs, p, hit)]
+
+
+def _assert_close(out, ref):
+    for name, a, c in zip(("H", "g", "sum_w", "n_hit"), out, ref):
+        a, c = a.double(), c.double()
+        bound = 0.0 if name == "n_hit" else REL * float(c.abs().max()) + ABS
+        err = float((a - c).abs().max())
+        assert err <= bound, f"{name}: max err {err} > {bound}"
+
+
+@pytest.mark.parametrize("K", SIZES)
+def test_kernel_matches_plain_and_float64(cuda, K):
+    args = _inputs(K, cuda)
+    d2 = torch.tensor(0.25, device=cuda)
+    ws = torch.tensor(1.05, device=cuda)
+    before = tk.ndt_accumulate.launches
+    out = tk.ndt_accumulate(*args, d2, ws)
+    again = tk.ndt_accumulate(*args, d2, ws)
+    torch.cuda.synchronize()
+    assert tk.ndt_accumulate.launches == before + 2
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    assert out[0].shape == (6, 6) and out[1].shape == (6,)
+    assert torch.equal(out[0], out[0].T)
+    _assert_close(out, tk.ndt_accumulate_plain(*args, d2, ws))
+    e, icovs, p, hit = args
+    f64 = tk.ndt_accumulate_plain(e.double(), icovs.double(), p.double(), hit, 0.25, 1.05)
+    _assert_close(out, f64)
+
+
+def test_kernel_scalars_by_pointer_or_value(cuda):
+    """d2 and w_scale read from device tensors or passed as numbers: the same bits."""
+    args = _inputs(7 * 1000, cuda, seed=1)
+    by_ptr = tk.ndt_accumulate(*args, torch.tensor(0.5, device=cuda),
+                               torch.tensor(2.0, device=cuda))
+    by_val = tk.ndt_accumulate(*args, 0.5, 2.0)
+    for a, b in zip(by_ptr, by_val):
+        assert torch.equal(a, b)
+
+
+def test_kernel_all_miss_is_zero(cuda):
+    args = _inputs(7 * 1000, cuda, seed=2, hit_rate=0.0)
+    H, g, sw, nh = tk.ndt_accumulate(*args, 0.25, 1.05)
+    assert not H.any() and not g.any() and float(sw) == 0.0 and float(nh) == 0.0
+
+
+def test_kernel_rejects_bad_inputs(cuda):
+    e, icovs, p, hit = _inputs(70, cuda)
+    bad = [
+        (e[:, :2].contiguous(), icovs, p, hit, 0.25),          # shape
+        (e.double(), icovs, p, hit, 0.25),                      # dtype
+        (e, icovs.transpose(1, 2), p, hit, 0.25),               # not contiguous
+        (e, icovs, p.cpu(), hit, 0.25),                         # device
+        (e, icovs, p, hit.to(torch.uint8), 0.25),               # mask dtype
+        (e, icovs, p, hit, torch.tensor(0.25)),                 # scalar on the host
+    ]
+    before = tk.ndt_accumulate.launches
+    for e_, ic_, p_, hit_, d2 in bad:
+        with pytest.raises(ValueError):
+            tk.ndt_accumulate(e_, ic_, p_, hit_, d2, 1.0)
+    assert tk.ndt_accumulate.launches == before
+
+
+def test_pipeline_card_matches_cpu(cuda):
+    """Five frames of the loops-off pipeline at a small capacity on the card and on the
+    CPU (plain versions): poses within 1 cm / 1 mrad, the same keyframes, and the kernel
+    launched by the card's run."""
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "enable_loop_closure=False", "prefilter.leaf_size=0.3", "prefilter.mean_k=10",
+        "capacity.raw_points=16384", "capacity.filtered_points=4096",
+        "capacity.voxel_capacity=32768", "scan_matcher.max_scan_accumulate_num=5"])
+    seq = SyntheticSequence(n_frames=5, seed=3, max_points=8192, radius=30.0,
+                            laps=1.1 * 5 / 90)
+    scans = [s for s, _ in seq]
+    results = {}
+    for device in ("cuda", "cpu"):
+        before = tk.ndt_accumulate.launches
+        pipe = SlamPipeline(cfg, device=device)
+        for s in scans:
+            pipe.process_scan(s)
+        results[device] = pipe.result()
+        launched = tk.ndt_accumulate.launches - before
+        assert (launched > 0) if device == "cuda" else (launched == 0)
+    a, b = results["cuda"], results["cpu"]
+    assert a.odometry_poses.shape == b.odometry_poses.shape == (5, 4, 4)
+    np.testing.assert_array_equal(a.keyframe_frame_indices, b.keyframe_frame_indices)
+    for x, y in zip(a.odometry_poses, b.odometry_poses):
+        assert np.linalg.norm(x[:3, 3] - y[:3, 3]) < 0.01
+        chord = np.linalg.norm(x[:3, :3].astype(np.float64) - y[:3, :3].astype(np.float64))
+        assert 2.0 * np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)) < 1e-3
