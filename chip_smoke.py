@@ -2,8 +2,10 @@
 
 Drives `lidar_graph_slam_tpu_torch` through its entry points at the default capacities
 (131,072 raw points, 32,768 filtered, a 20-keyframe ring = 655,360 map points, two
-16 MB dense voxel tables per target) on the HDL-64-class dense course of
-`bench.py:bench_e2e_dense` (~70-90k points per frame), loop closure off. Phases:
+16 MB dense voxel tables per target): the front end on the HDL-64-class dense course of
+`bench.py:bench_e2e_dense` (~70-90k points per frame) with loop closure off, then the
+default pipeline (loop closure on, asynchronous back end) on the three-lap drift course
+of `bench.py:bench_e2e`. Phases:
 
   1. refuse without CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernel from `lidar_graph_slam_tpu_torch/csrc/` (nvcc), print seconds;
@@ -15,7 +17,18 @@ Drives `lidar_graph_slam_tpu_torch` through its entry points at the default capa
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
      max(0.05 x travelled, 0.35) m, the kernel launched on the main path; p50 frame ms;
-  7. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure).
+  7. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure);
+  8. the loop course: `SlamPipeline` with the default config on the 360-frame drift
+     course, then again with loops off — all frames converge, loops are accepted, and
+     keyframe ATE with loops on is below ATE with loops off; the kernel's launches on
+     the verify path are counted;
+  9. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
+     course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
+ 10. one verification, card against CPU, from the same keyframes: the same decision, and
+     its coarse NDT pre-align alone: the same iteration count and transform; the kernel
+     against its plain version on the pre-align's own correspondences (K = 114,688
+     against the 4 m map, at the identity guess and at the pre-align's result);
+ 11. the CLI with its default (loops on), 100 frames.
 
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
@@ -34,13 +47,19 @@ import numpy as np
 import torch
 
 from lidar_graph_slam_tpu_torch.core.config import PipelineConfig, apply_cli_overrides
-from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
+from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
+from lidar_graph_slam_tpu_torch.graph.slam import (
+    PRE_ALIGN_OUTLIER_RATIO,
+    GraphBasedSLAM,
+    loop_pre_align,
+)
 from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence, make_world, simulate_scan
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
-from lidar_graph_slam_tpu_torch.ops.voxel import NdtVoxelMap, lookup_direct7
+from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
+from lidar_graph_slam_tpu_torch.ops.voxel import NdtVoxelMap, lookup_direct7, voxel_downsample
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
@@ -51,6 +70,12 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # ~1e5 float32 terms in different orders (measured: ~1e-7 of the scale).
 REL, ABS = 1e-5, 2e-3
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
+# Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
+NN_RTOL = 1e-6
+# One verification, card vs CPU on the same inputs: the same decision, fitness to rtol
+# 1e-3 and the transform to atol 1e-3 (entries of the 4x4: ~1 mm, ~1 mrad). Up to ~120
+# float32 NDT and ICP iterations, whose reductions sum in different orders.
+VERIFY_FIT_RTOL, VERIFY_T_ATOL = 1e-3, 1e-3
 
 
 def say(phase: str, **numbers) -> None:
@@ -224,12 +249,154 @@ def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
                 iterations_mean=float(np.mean([r["iterations"] for r in frames])))
 
 
-def run_cli(out_dir: str, frames: int, extra=()) -> dict:
+def drift_course(n_frames: int = 360, max_points: int = 131072):
+    """The three-lap drift course of `bench.py:bench_e2e`, seed 1: a sparse world (~9k
+    points per frame) at ~1.9 m per frame, where NDT odometry drifts and loop closure
+    has work to do. Returns (scans, ground-truth poses relative to the first)."""
+    seq = SyntheticSequence(n_frames=n_frames, seed=1, extent=60.0, radius=35.0,
+                            max_points=max_points, noise=0.02, laps=3.05,
+                            n_azimuth=2048, n_elevation=64)
+    scans = [scan for scan, _ in seq]
+    T0_inv = np.linalg.inv(seq.poses[0])
+    return scans, np.stack([(T0_inv @ p).astype(np.float32) for p in seq.poses])
+
+
+def run_loop_course(cfg: PipelineConfig, scans, gt, device):
+    """Every scan through `SlamPipeline`; all frames must converge. Returns (pipeline,
+    result, numbers)."""
+    pipe = SlamPipeline(cfg, device=device)
+    walls = []
+    for s in scans:
+        a = time.perf_counter()
+        pipe.process_scan(s)
+        walls.append(time.perf_counter() - a)
+    res = pipe.result()
+    frames = [r for r in pipe.metrics_writer.records if "frame" in r and "event" not in r]
+    if len(frames) != len(scans) or not all(r["converged"] for r in frames):
+        raise AssertionError(f"loop course: {sum(not r['converged'] for r in frames)} frames "
+                             f"did not converge")
+    kf = res.keyframe_frame_indices
+    return pipe, res, dict(
+        frames=len(scans), keyframes=len(kf),
+        ate_keyframes_m=ate_rmse(res.keyframe_poses, gt[kf], align=False),
+        p50_frame_ms=1000 * float(np.median(walls[1:])),
+        loops_attempted=sum(r["candidate"] >= 0 for r in res.loop_log),
+        loops_accepted=res.num_loop_closures,
+        iterations_mean=float(np.mean([r["iterations"] for r in frames])),
+        stage_p50_ms={k: round(v["p50_ms"], 3) for k, v in res.metrics.items()})
+
+
+def grid_nn_card_vs_cpu(back: GraphBasedSLAM, rec: dict, devices=("cuda", "cpu")) -> dict:
+    """`build_hash_grid` + `nearest` at the verifier's shapes (2 m cells, 7 cells, bucket
+    16) on the loop submap of attempt `rec`, queried with its latest keyframe's cloud:
+    the same filtered submap goes to both devices; idx and found must be equal."""
+    cap = back.capacity
+    submap = back._assemble_submap(rec["candidate"], back.cfg.search_key_frame_num,
+                                   max_points=cap.loop_submap_points)
+    sub = PointCloud.from_array(submap, capacity=cap.loop_submap_points)
+    filt = voxel_downsample(sub.points, sub.mask, back.cfg.loop_submap_leaf,
+                            capacity=cap.loop_submap_points)
+    T = back._poses_host[rec["latest"]]
+    src = PointCloud.from_array(back._cloud(rec["latest"]) @ T[:3, :3].T + T[:3, 3],
+                                capacity=cap.keyframe_points)
+    out, ms = [], []
+    for device in devices:
+        grid = build_hash_grid(filt.points.to(device), filt.mask.to(device), 2.0)
+        q = src.points.to(device)
+        out.append([t.cpu() for t in nearest(grid, q, bucket_cap=16, neighborhood=7)])
+        if device == "cuda":
+            ms.append(median_ms(nearest, grid, q, 16, 7, calls=20))
+        else:
+            t0 = time.perf_counter()
+            nearest(grid, q, bucket_cap=16, neighborhood=7)
+            ms.append(1000 * (time.perf_counter() - t0))
+    (ci, cd, cf), (pi, pd, pf) = out
+    if not (torch.equal(ci, pi) and torch.equal(cf, pf)):
+        raise AssertionError(f"grid NN: idx or found differ ({int((ci != pi).sum())} idx, "
+                             f"{int((cf != pf).sum())} found)")
+    rel = float(((cd[cf] - pd[pf]).abs() / pd[pf].abs().clamp(min=1e-12)).max())
+    if not rel <= NN_RTOL:
+        raise AssertionError(f"grid NN: d2 relative error {rel} > {NN_RTOL}")
+    return dict(submap_points=int(filt.mask.sum()), queries=int(src.mask.sum()),
+                found=int(cf.sum()), candidates_per_query=7 * 16, d2_max_rel_err=rel,
+                card_ms=ms[0], cpu_ms=round(ms[1], 3))
+
+
+def pre_align_kernel_check(pre_map: NdtVoxelMap, src_p, src_m, T_pre) -> dict:
+    """The kernel against its plain version at the verify path's own shapes: the
+    pre-align's correspondences against the 4 m map (K = keyframe_points x 7) with that
+    map's Magnusson constants, at the identity guess (its first iteration) and at its
+    result (its last); median time of 50 calls each on the first."""
+    md1, md2 = magnusson_constants(pre_map.leaf, PRE_ALIGN_OUTLIER_RATIO)
+    w_scale = -md1 * md2
+    moved = torch.where(src_m[:, None], src_p @ T_pre[:3, :3].T + T_pre[:3, 3], src_p)
+    first = map_correspondences(pre_map, src_p, src_m, 1)
+    last = map_correspondences(pre_map, moved, src_m, 1)
+    K = first[0].shape[0]
+    err = max(compare_kernel(f"verify-pre-identity-K{K}", first, md2, w_scale),
+              compare_kernel(f"verify-pre-result-K{K}", last, md2, w_scale))
+    return dict(kernel_K=K, kernel_max_abs_err=err,
+                kernel_ms=median_ms(kernels.ndt_accumulate, *first, md2, w_scale),
+                kernel_plain_ms=median_ms(kernels.ndt_accumulate_plain, *first, md2, w_scale))
+
+
+def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict,
+                       devices=("cuda", "cpu")) -> dict:
+    """One `_build_verify_inputs` + verification on each device, from the keyframes the
+    pipeline had at attempt `rec` (the first, so no loop factor has moved them yet).
+    The coarse NDT pre-align is also run alone on each device: its iteration count must
+    be equal and its transform agree to VERIFY_T_ATOL; on the card the kernel is held
+    against its plain version at the pre-align's shapes (`pre_align_kernel_check`)."""
+    recs, launches, ms, pre, check = [], [], [], [], {}
+    for device in devices:
+        b = GraphBasedSLAM(cfg.graph_slam, cfg.capacity, device=device)
+        for k in range(rec["latest"] + 1):
+            cloud = back._cloud(k)
+            b.add_keyframe({"pose": back.kf_front_poses[k], "cloud": cloud,
+                            "cloud_mask": np.ones(cloud.shape[0], bool),
+                            "accum_distance": back.kf_accum_dist[k]})
+        inp = b._build_verify_inputs()
+        _grid, pre_map, _extra = inp["targets"][0]
+        src_p, src_m = inp["source"]
+        p = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
+        pre.append((p.transform.cpu().numpy(), int(p.iterations)))
+        if device == "cuda":
+            check = pre_align_kernel_check(pre_map, src_p, src_m, p.transform)
+        t0 = time.perf_counter()
+        b._consume_verify(b.begin_loop_attempt())
+        ms.append(1000 * (time.perf_counter() - t0))
+        recs.append(b.loop_log[-1])
+        launches.append(b.verify_launches)
+    a, c = recs
+    if (a["candidate"], a["accepted"], a["converged"]) != (c["candidate"], c["accepted"],
+                                                          c["converged"]):
+        raise AssertionError(f"verify: card {a} vs CPU {c}")
+    if a["candidate"] != rec["candidate"]:
+        raise AssertionError(f"verify: candidate {a['candidate']}, pipeline had {rec}")
+    dfit = abs(a["fitness"] - c["fitness"])
+    dT = float(np.abs(a["transform"] - c["transform"]).max())
+    if not (dfit <= VERIFY_FIT_RTOL * abs(c["fitness"]) and dT <= VERIFY_T_ATOL):
+        raise AssertionError(f"verify: fitness {a['fitness']} vs {c['fitness']}, "
+                             f"transform max diff {dT}")
+    if [n > 0 for n in launches] != [d == "cuda" for d in devices]:
+        raise AssertionError(f"verify: kernel launches {launches} on {devices}")
+    (pa, ia), (pc, ic) = pre
+    dpre = float(np.abs(pa - pc).max())
+    if not (ia == ic and dpre <= VERIFY_T_ATOL):
+        raise AssertionError(f"verify pre-align: {ia} vs {ic} iterations, transform max "
+                             f"diff {dpre}")
+    return dict(latest=rec["latest"], candidate=a["candidate"], accepted=a["accepted"],
+                fitness_card=a["fitness"], fitness_cpu=c["fitness"], transform_max_diff=dT,
+                pre_iterations=ia, pre_transform_max_diff=dpre, **check,
+                kernel_launches=launches[0], card_ms=round(ms[0], 3), cpu_ms=round(ms[1], 3))
+
+
+def run_cli(out_dir: str, frames: int, loops: bool = False) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
-         "synthetic", "--frames", str(frames), "--no-loop-closure", "--output", out_dir,
-         "--progress-every", "0", *extra],
+         "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
+         *([] if loops else ["--no-loop-closure"])],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
@@ -238,7 +405,8 @@ def run_cli(out_dir: str, frames: int, extra=()) -> dict:
     if summary["frames"] != frames:
         raise AssertionError(f"CLI summary: {summary}")
     return dict(seconds=round(time.perf_counter() - t0, 3), frames=summary["frames"],
-                keyframes=summary["keyframes"], device=summary["device"],
+                keyframes=summary["keyframes"], loop_closures=summary["loop_closures"],
+                device=summary["device"],
                 ate_odometry_m=summary["ate_odometry_m"],
                 ate_keyframes_m=summary["ate_keyframes_m"])
 
@@ -316,6 +484,52 @@ def main() -> int:
         raise AssertionError(f"CLI ran on {cli['device']}")
     say("cli", **cli)
 
+    # -- 8. the loop course: the default pipeline (loops on); launches counted here only --
+    t0 = time.perf_counter()
+    dscans, dgt = drift_course()
+    say("drift-course", frames=len(dscans), seconds=round(time.perf_counter() - t0, 3),
+        mean_raw_points=int(np.mean([len(s) for s in dscans])))
+    cfg_on = PipelineConfig()
+    kernels.ndt_accumulate.launches = 0
+    pipe_on, res_on, on = run_loop_course(cfg_on, dscans, dgt, "cuda")
+    torch.cuda.synchronize()
+    launches_course = kernels.ndt_accumulate.launches
+    back = pipe_on.back
+    launches_verify = back.verify_launches
+    _, res_off, off = run_loop_course(loops_off_config(), dscans, dgt, "cuda")
+    if not (on["loops_accepted"] >= 1 and launches_verify > 0
+            and on["ate_keyframes_m"] < off["ate_keyframes_m"]):
+        raise AssertionError(f"loop course: loops on {on}, off {off}, verify launches "
+                             f"{launches_verify}")
+    odom_diff = float(np.abs(res_on.odometry_poses - res_off.odometry_poses).max())
+    say("loop-course", p50_frame_ms=on["p50_frame_ms"], p50_frame_ms_loops_off=off["p50_frame_ms"],
+        loops_accepted=on["loops_accepted"], loops_attempted=on["loops_attempted"],
+        ate_keyframes_on_m=on["ate_keyframes_m"], ate_keyframes_off_m=off["ate_keyframes_m"],
+        keyframes=on["keyframes"], iterations_mean_on=on["iterations_mean"],
+        iterations_mean_off=off["iterations_mean"],
+        stage_p50_ms_on=json.dumps(on["stage_p50_ms"], separators=(",", ":")),
+        stage_p50_ms_off=json.dumps(off["stage_p50_ms"], separators=(",", ":")),
+        verify_ms_p50=1000 * float(np.median(back.verify_seconds)),
+        verify_ms_max=1000 * float(np.max(back.verify_seconds)),
+        solve_ms_p50=1000 * float(np.median([r["seconds"] for r in back.solve_log])),
+        solve_ms_max=1000 * float(np.max([r["seconds"] for r in back.solve_log])),
+        solves=len(back.solve_log), solves_device_lm=sum(r["device_lm"] for r in back.solve_log),
+        ndt_launches_verify=launches_verify, ndt_launches_total=launches_course,
+        odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
+
+    # -- 9-10. grid NN and one verification, card against CPU -------------------------------
+    first = next(r for r in back.loop_log if r["candidate"] >= 0)
+    say("grid-nn", **grid_nn_card_vs_cpu(back, first))
+    ver = verify_card_vs_cpu(cfg_on, back, first)
+    max_err = max(max_err, ver["kernel_max_abs_err"])
+    say("verify", **ver)
+
+    # -- 11. the CLI's default run: loops on ---------------------------------------------------
+    cli_on = run_cli(os.path.join(OUT_DIR, "cli_loops"), 100, loops=True)
+    if cli_on["device"] != "cuda":
+        raise AssertionError(f"CLI ran on {cli_on['device']}")
+    say("cli-loops", **cli_on)
+
     print(json.dumps({"kernels": [{
         "name": "ndt_accumulate",
         "route": "cuda",
@@ -323,6 +537,8 @@ def main() -> int:
         "replaces": "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
         "replaces_commit": "4350000^",
         "launches": launches,
+        "launches_verify": launches_verify,
+        "launches_loop_course": launches_course,
         "max_abs_err": max_err,
         "ms": timing[fine_K][0],
         "plain_ms": timing[fine_K][1],
@@ -330,6 +546,9 @@ def main() -> int:
         "ms_coarse": timing[coarse_K][0],
         "plain_ms_coarse": timing[coarse_K][1],
         "K_coarse": coarse_K,
+        "ms_verify": ver["kernel_ms"],
+        "plain_ms_verify": ver["kernel_plain_ms"],
+        "K_verify": ver["kernel_K"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,44 @@
-"""Graph-based SLAM back end — the keyframe store.
+"""Graph-based SLAM back end: keyframe graph, loop closure, global correction, map export.
 
-Port of the part of `lidar_graph_slam_tpu/graph/slam.py` that the pipeline runs with
-loop closure off: keyframe insertion with host pose chaining (`add_keyframe`), lazy
-keyframe clouds (`_LazyCloud`, `_cloud`, `drain_lazy_clouds`) and the outputs
-(`optimized_poses`, `assemble_map`, `save_map`). With no loop factors the optimized
-poses are the chained odometry, so no device pose graph is kept. Loop detection,
-verification and the pose-graph solve are not ported yet.
+Port of `lidar_graph_slam_tpu/graph/slam.py` (the `graph_based_slam` node's behavior):
+keyframe insertion with host pose chaining, loop detection (accumulated-distance gap +
+Euclidean gate; the dormant radius and accum detectors), loop verification (coarse NDT
+pre-align, then the ICP or NDT verifier, then the PCL fitness gate), loop factors, the
+hybrid f64-host / f32-device pose-graph solve, and map assembly.
+
+Concurrency, as in the reference's concurrent back end:
+  * Verification runs in a worker thread on its own CUDA stream (on a CUDA device),
+    which waits on the main stream's input builds. Its NDT and ICP loops read a flag
+    back once per iteration, so a plain call would block the frame for the whole
+    verification. `_consume_verify` joins the thread at the frame at which the reference
+    reads its dispatched program's results (`loop_verify_lag_frames`), so which frame a
+    loop factor lands on does not depend on timing. A failure in the thread is raised
+    in the caller.
+  * The solve runs in a `threading.Thread` over numpy (f64), as in the reference.
+  * `async_backend=False` runs the same verification inline — the deterministic path.
+
+Not ported yet: the GICP verifier and the FPFH+RANSAC global initial guess (both raise
+NotImplementedError at construction), and the reference's mesh and sharded cloud store.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from lidar_graph_slam_tpu_torch.core.config import CapacityConfig, GraphSlamConfig
 from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
+from lidar_graph_slam_tpu_torch.graph import refine64, solver
 from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
-from lidar_graph_slam_tpu_torch.ops.voxel import voxel_downsample
+from lidar_graph_slam_tpu_torch.ops import kernels
+from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid
+from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map, voxel_downsample
+from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
+from lidar_graph_slam_tpu_torch.registration import ndt as ndt_mod
 
 
 class _LazyCloud:
@@ -39,22 +60,142 @@ class _LazyCloud:
         return self._np
 
 
+PRE_ALIGN_OUTLIER_RATIO = 0.55
+
+
+def loop_pre_align(pre_map, src_p, src_m, guess):
+    """Stage 1 of every loop verification: coarse NDT against the 4 m submap map."""
+    return ndt_mod.ndt_align(pre_map, src_p, src_m, guess, step_size=0.4,
+                             outlier_ratio=PRE_ALIGN_OUTLIER_RATIO, max_iterations=16)
+
+
+def make_verify_one(cfg: GraphSlamConfig, method: str):
+    """Single-candidate loop-verification function: coarse NDT pre-align -> configured
+    verifier -> uniform PCL-style fitness. Returns (transform [4,4], fitness, ok) tensors.
+
+    The NN grid cell is the configured correspondence distance capped at 2 m: the NDT
+    pre-align brings correspondences within ~a cell, so the 7-cell neighborhood suffices.
+    """
+    if method == "GICP":
+        raise NotImplementedError(
+            "the GICP loop verifier is not ported to the PyTorch package yet: use "
+            "graph_slam.registration_method=ICP or NDT")
+    corr_dist = min(cfg.icp.max_correspondence_distance, 2.0)
+
+    def one(grid, pre_map, extra, guess, src_p, src_m):
+        # Stage 1: coarse NDT pre-align from `guess` (identity: the reference's ICP guess).
+        pre = loop_pre_align(pre_map, src_p, src_m, guess)
+        # Stage 2: refine with the configured verifier.
+        if method == "ICP":
+            res = icp_mod.icp_align(
+                grid, src_p, src_m, pre.transform,
+                max_correspondence_distance=corr_dist,
+                max_iterations=cfg.icp.max_iterations,
+                transform_epsilon=max(cfg.icp.transform_epsilon, 1e-7),
+                euclidean_fitness_epsilon=cfg.icp.euclidean_fitness_epsilon,
+                bucket_cap=16, neighborhood=7,
+            )
+        else:  # NDT
+            res = ndt_mod.ndt_align(
+                extra, src_p, src_m, pre.transform,
+                step_size=cfg.ndt.step_size,
+                transform_epsilon=cfg.ndt.transform_epsilon,
+                outlier_ratio=cfg.ndt.outlier_ratio,
+                max_iterations=cfg.ndt.max_iterations,
+            )
+        # The decision quantity is always the PCL-style fitness, so the 0.3 gate means
+        # the same for every method; too sparse a match fails the convergence flag.
+        score, frac = icp_mod.fitness_and_match_fraction(
+            grid, src_p, src_m, res.transform, max_range=corr_dist,
+            bucket_cap=16, neighborhood=7, mode=cfg.fitness_mode,
+        )
+        ok = res.converged & (frac >= cfg.min_loop_match_fraction)
+        return res.transform, score, ok
+
+    return one
+
+
 class GraphBasedSLAM:
-    """Host-side back end: keyframe clouds, accumulated distances and poses."""
+    """Host-side back end. Keyframe clouds are kept host-side (numpy) and shipped to the
+    device only for loop verification and map assembly. The pose graph lives twice: on
+    the device (the f32 LM fallback) and as host f64 mirrors feeding the refinement tier
+    (`_host_view`)."""
+
+    _FLUSH_BATCH = 32
 
     def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, device=None):
         self.cfg = cfg
         self.capacity = capacity
-        self.device = device
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.method = cfg.registration_method.upper()
+        if self.method not in ("ICP", "GICP", "NDT"):
+            raise ValueError(f"unknown loop registration_method {cfg.registration_method!r}")
+        self._verify_one = make_verify_one(cfg, self.method)
+        if cfg.use_global_init:
+            raise NotImplementedError(
+                "use_global_init (FPFH+RANSAC) is not ported to the PyTorch package yet")
+        # Keyframe inserts into the device graph are deferred and flushed in batches;
+        # `self.graph` (property) flushes on read.
+        self._pending_kf: list = []
+        self.graph = solver.init_graph(capacity.max_keyframes, capacity.max_loop_factors,
+                                       cfg.odom_noise_var, device=self.device)
         self.kf_clouds: list = []  # [n_i, 3] numpy sensor-frame clouds or _LazyCloud
         self.kf_accum_dist: list[float] = []
         self.kf_stamps: list[Optional[float]] = []
         self.kf_front_poses: list[np.ndarray] = []  # front-end (odometry) poses
-        self._poses_host: list[np.ndarray] = []      # chained keyframe estimates
+        self._poses_host: list[np.ndarray] = []      # optimized keyframe estimates
+        self._host_odoms: list[np.ndarray] = []
+        self._host_loops: list[tuple] = []           # (i, j, Z [4,4], info [6])
+        self._host_prior: np.ndarray = np.eye(4, dtype=np.float64)
+        self.loop_log: list[dict] = []
         self.n_keyframes = 0
+        self.n_loops = 0
+        self._frames_since_loop_check = 0
+        self.is_loop_closed = False
+        self.async_enabled = cfg.async_backend
+        self._pending_verify = None
+        self._verify_stream = None
+        self._solve_thread = None
+        self._solve_result = None
+        self._solve_error: Optional[BaseException] = None
+        self._solve_epoch = 0
         self._lazy_pending: list = []
         self.keyframe_overflow = False
+        self.loop_overflow = False
+        # Telemetry: kernel launches made by verifications, the wall seconds of each
+        # verification (in its thread), and per solve its wall seconds, f64 iterations
+        # and whether the device f32 LM had to run.
+        self.verify_launches = 0
+        self.verify_seconds: list[float] = []
+        self.solve_log: list[dict] = []
         self._map_cache = None
+
+    # -- deferred device-graph population ------------------------------------------------
+
+    @property
+    def graph(self) -> solver.PoseGraph:
+        """Device pose graph with all pending keyframe inserts applied."""
+        self._flush_graph()
+        return self._graph
+
+    @graph.setter
+    def graph(self, g: solver.PoseGraph) -> None:
+        self._graph = g
+
+    def _flush_graph(self) -> None:
+        while self._pending_kf:
+            chunk = self._pending_kf[: self._FLUSH_BATCH]
+            self._pending_kf = self._pending_kf[self._FLUSH_BATCH:]
+            B = self._FLUSH_BATCH
+            poses = np.zeros((B, 4, 4), np.float32)
+            odoms = np.zeros((B, 4, 4), np.float32)
+            for i, (p, o) in enumerate(chunk):
+                poses[i], odoms[i] = p, o
+            self._graph = solver.graph_add_keyframes_batch(
+                self._graph, torch.as_tensor(poses, device=self.device),
+                torch.as_tensor(odoms, device=self.device), len(chunk))
+
+    # -- keyframe insertion ---------------------------------------------------------------
 
     def add_keyframe(self, kf) -> None:
         """Insert a front-end keyframe record (`core.msgs.KeyFrame` or a mapping with
@@ -69,16 +210,20 @@ class GraphBasedSLAM:
         else:
             prev = self.kf_front_poses[-1]
             odom = (np.linalg.inv(prev) @ pose).astype(np.float32)
-            # Chain the measurement onto the previous estimate (iSAM2's initialization
-            # of new keys from composed odometry).
+            # Chain the measurement onto the *optimized* previous pose (iSAM2's
+            # initialization of new keys from composed odometry).
             prev_opt = self._poses_host[self.n_keyframes - 1]
             pose = (prev_opt @ odom).astype(np.float32)
+        self._pending_kf.append((pose, odom))
+        self._host_odoms.append(odom)
+        if self.n_keyframes == 0:
+            self._host_prior = np.asarray(pose, np.float64)
         if isinstance(kf["cloud"], np.ndarray):
             cloud = np.asarray(kf["cloud"])[np.asarray(kf["cloud_mask"])]
             self.kf_clouds.append(cloud.astype(np.float32))
         else:
             # Tensors handed over by the fused driver: the numpy conversion waits for
-            # `drain_lazy_clouds` (a couple of keyframes later) or a map read.
+            # `drain_lazy_clouds` (a couple of keyframes later) or a loop attempt.
             self.kf_clouds.append(_LazyCloud(kf["cloud"], kf["cloud_mask"]))
             self._lazy_pending.append(self.n_keyframes)
         self.kf_accum_dist.append(float(kf["accum_distance"]))
@@ -87,6 +232,79 @@ class GraphBasedSLAM:
         self.kf_front_poses.append(np.asarray(kf["pose"], dtype=np.float32))
         self._poses_host.append(pose)
         self.n_keyframes += 1
+
+    # -- loop detection ---------------------------------------------------------------------
+
+    def detect_loop(self, mode: str = "inline") -> Optional[int]:
+        """A loop candidate for the latest keyframe, or None.
+
+        mode="inline": the active detector — accumulated-distance gap AND Euclidean gate
+          (`search_for_candidate_threshold`), keep the nearest.
+        mode="radius": the dormant kd-tree variant — `search_radius` with the same gap,
+          plus the `temporal_gate_sec` gate when keyframes carry stamps.
+        mode="accum": the dormant accumulated-distance-only variant (no Euclidean gate).
+        """
+        cands = self.detect_loop_topk(1, mode=mode)
+        return cands[0] if cands else None
+
+    def detect_loop_topk(self, k: int, mode: str = "inline") -> list:
+        """The k nearest gated candidates, closest first, with successive picks separated
+        by at least `search_key_frame_num` keyframes."""
+        if self.n_keyframes < 2:
+            return []
+        latest = self.n_keyframes - 1
+        positions = np.stack([T[:3, 3] for T in self._poses_host])
+        cur_pos = positions[latest]
+        cur_accum = self.kf_accum_dist[latest]
+        accum = np.asarray(self.kf_accum_dist[: self.n_keyframes])
+        d = np.linalg.norm(positions - cur_pos[None, :], axis=1)
+
+        gate = (cur_accum - accum) >= self.cfg.accumulate_distance_threshold
+        if mode == "inline":
+            gate &= d < self.cfg.search_for_candidate_threshold
+        elif mode == "radius":
+            gate &= d < self.cfg.search_radius
+            # Unstamped keyframes (stamp None) pass the temporal gate.
+            cur_stamp = self.kf_stamps[latest]
+            if cur_stamp is not None and self.cfg.temporal_gate_sec > 0:
+                ages = np.array([
+                    np.inf if s is None else cur_stamp - s
+                    for s in self.kf_stamps[: self.n_keyframes]
+                ])
+                gate &= ages > self.cfg.temporal_gate_sec
+        elif mode != "accum":
+            raise ValueError(f"unknown loop detection mode {mode!r}")
+        if not gate.any():
+            return []
+        order = np.argsort(np.where(gate, d, np.inf))
+        chosen: list[int] = []
+        min_sep = max(1, self.cfg.search_key_frame_num)
+        for idx in order:
+            if not gate[idx]:
+                break
+            if all(abs(int(idx) - c) >= min_sep for c in chosen):
+                chosen.append(int(idx))
+            if len(chosen) >= k:
+                break
+        return chosen
+
+    # -- loop verification + factor insertion ---------------------------------------------
+
+    def _assemble_submap(self, center: int, half_window: int,
+                         max_points: Optional[int] = None) -> np.ndarray:
+        """Map-frame concat of keyframes [center-w, center+w] under current estimates.
+        An over-budget submap is UNIFORM-STRIDE subsampled to exactly `max_points`, so it
+        still spans the full window (head truncation would keep only its left edge)."""
+        lo = max(0, center - half_window)
+        hi = min(self.n_keyframes, center + half_window + 1)
+        chunks = []
+        for k, T in zip(range(lo, hi), self._poses_host[lo:hi]):
+            chunks.append(self._cloud(k) @ T[:3, :3].T + T[:3, 3])
+        out = np.concatenate(chunks).astype(np.float32)
+        if max_points is not None and out.shape[0] > max_points:
+            idx = np.linspace(0, out.shape[0] - 1, max_points).astype(np.int64)
+            out = np.ascontiguousarray(out[idx])
+        return out
 
     def _cloud(self, k: int) -> np.ndarray:
         """Keyframe k's sensor/base-frame cloud (materialized on first access)."""
@@ -105,6 +323,332 @@ class GraphBasedSLAM:
             self._cloud(self._lazy_pending.pop(0))
             drained += 1
 
+    def try_close_loop(self) -> bool:
+        """One SYNCHRONOUS loop-closure attempt for the latest keyframe: verify the top-k
+        gated candidates, add a factor per accepted candidate, then re-optimize once.
+        Returns True if any factor was added."""
+        pending = self.begin_loop_attempt()
+        if pending is None:
+            return False
+        if not self._consume_verify(pending):
+            return False
+        self._run_optimize()
+        self.is_loop_closed = True
+        return True
+
+    def _build_verify_inputs(self):
+        """Detection + verification-input builds for the latest keyframe (on the back
+        end's device, on the calling thread's stream). Returns None (gated/capacity) or a
+        dict with the per-candidate `targets` (grid, pre-align map, verifier map), the
+        source cloud and attempt metadata."""
+        if self.n_loops >= self.capacity.max_loop_factors:
+            # Refuse at capacity and surface it (the device graph drops the write).
+            if not self.loop_overflow:
+                self.loop_log.append({
+                    "latest": self.n_keyframes - 1, "candidate": -1, "fitness": np.inf,
+                    "converged": False, "accepted": False, "overflow": True,
+                })
+            self.loop_overflow = True
+            return None
+        cands = self.detect_loop_topk(max(1, self.cfg.loop_topk))
+        if not cands:
+            return None
+        latest = self.n_keyframes - 1
+        dev = self.device
+
+        # Latest keyframe cloud in the map frame under the current estimate.
+        T_latest = self._poses_host[latest]
+        src = self._cloud(latest) @ T_latest[:3, :3].T + T_latest[:3, 3]
+        src_cloud = PointCloud.from_array(src, capacity=self.capacity.keyframe_points,
+                                          device=dev)
+        corr_dist = min(self.cfg.icp.max_correspondence_distance, 2.0)
+        targets = []
+        for cand in cands:
+            submap = self._assemble_submap(cand, self.cfg.search_key_frame_num,
+                                           max_points=self.capacity.loop_submap_points)
+            sub_cloud = PointCloud.from_array(submap, capacity=self.capacity.loop_submap_points,
+                                              device=dev)
+            filtered = voxel_downsample(sub_cloud.points, sub_cloud.mask,
+                                        self.cfg.loop_submap_leaf,
+                                        capacity=self.capacity.loop_submap_points)
+            grid = build_hash_grid(filtered.points, filtered.mask, corr_dist)
+            pre_map = build_ndt_map(filtered.points, filtered.mask, 4.0,
+                                    capacity=self.capacity.voxel_capacity // 4)
+            extra = None
+            if self.method == "NDT":
+                extra = build_ndt_map(filtered.points, filtered.mask, self.cfg.ndt.resolution,
+                                      capacity=self.capacity.voxel_capacity // 4)
+            targets.append((grid, pre_map, extra))
+        return {
+            "cands": cands, "latest": latest, "T_latest": T_latest,
+            "targets": targets, "source": (src_cloud.points, src_cloud.mask),
+        }
+
+    def _verify(self, inp) -> dict:
+        """Run every candidate's verification (the reference's vmap over candidates: each
+        one is independent). Returns host results and this thread's kernel launches."""
+        t0 = time.perf_counter()
+        src_p, src_m = inp["source"]
+        guess = torch.eye(4, dtype=torch.float32, device=src_p.device)
+        before = kernels.thread_launches()
+        Ts, scores, convs = [], [], []
+        for grid, pre_map, extra in inp["targets"]:
+            T, score, ok = self._verify_one(grid, pre_map, extra, guess, src_p, src_m)
+            Ts.append(T)
+            scores.append(score)
+            convs.append(ok)
+        out = {"Ts": torch.stack(Ts).cpu().numpy(), "scores": torch.stack(scores).cpu().numpy(),
+               "convs": torch.stack(convs).cpu().numpy()}
+        out["launches"] = kernels.thread_launches() - before
+        out["seconds"] = time.perf_counter() - t0
+        return out
+
+    def begin_loop_attempt(self):
+        """Detect + start verification for the latest keyframe; returns a pending record
+        (or None if gated/at capacity). With `async_enabled` the verification runs in a
+        worker thread (on its own CUDA stream on a card) and `_consume_verify` joins it;
+        otherwise it runs inline here."""
+        inp = self._build_verify_inputs()
+        if inp is None:
+            return None
+        pending = {k: inp[k] for k in ("cands", "latest", "T_latest")}
+        pending["age"] = 0
+        if not self.async_enabled:
+            pending["results"] = self._verify(inp)
+            return pending
+
+        stream = None
+        if self.device.type == "cuda":
+            if self._verify_stream is None:
+                self._verify_stream = torch.cuda.Stream(self.device)
+            stream = self._verify_stream
+            # The inputs were built on this thread's stream. The worker holds `inp` until
+            # its own stream is synchronized, so no input buffer is freed (and reused by
+            # this stream) while the verification may still read it.
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+
+        def run():
+            if stream is None:
+                return self._verify(inp)
+            try:
+                with torch.cuda.stream(stream):
+                    return self._verify(inp)
+            finally:
+                stream.synchronize()
+
+        def work():
+            try:
+                pending["results"] = run()
+            except BaseException as e:  # noqa: BLE001 — relayed to the joining thread
+                pending["error"] = e
+
+        pending["thread"] = threading.Thread(target=work, name="loop-verify", daemon=True)
+        pending["thread"].start()
+        return pending
+
+    def _consume_verify(self, pending) -> bool:
+        """Join a started verification and insert a loop factor per accepted candidate.
+        Returns True if any factor was added. A failure in the verification is raised."""
+        thread = pending.pop("thread", None)
+        if thread is not None:
+            thread.join()
+        if "error" in pending:
+            raise pending.pop("error")
+        res = pending["results"]
+        self.verify_launches += res["launches"]
+        self.verify_seconds.append(res["seconds"])
+        cands, latest, T_latest = pending["cands"], pending["latest"], pending["T_latest"]
+
+        any_accepted = False
+        for b, cand in enumerate(cands):
+            fitness = float(res["scores"][b])
+            converged = bool(res["convs"][b])
+            record = {
+                "latest": latest,
+                "candidate": cand,
+                "fitness": fitness,
+                "converged": converged,
+                "accepted": False,
+                "transform": res["Ts"][b],  # verifier's map-frame correction
+            }
+            self.loop_log.append(record)
+            if not converged or fitness >= self.cfg.score_threshold:
+                continue
+            if self.n_loops >= self.capacity.max_loop_factors:
+                record["overflow"] = True
+                self.loop_overflow = True
+                continue
+            # Loop factor: corrected latest pose vs candidate pose. The verifier maps the
+            # current-map-frame latest cloud onto the candidate submap, so the corrected
+            # latest pose is T_b @ T_latest.
+            T_corrected = res["Ts"][b] @ T_latest
+            Z = (np.linalg.inv(T_corrected) @ self._poses_host[cand]).astype(np.float32)
+            info = np.full((6,), 1.0 / max(fitness, 1e-6), dtype=np.float32)
+            self.graph = solver.graph_add_loop(
+                self.graph, latest, cand, torch.as_tensor(Z, device=self.device),
+                torch.as_tensor(info, device=self.device))
+            self._host_loops.append(
+                (latest, cand, Z.astype(np.float64), info.astype(np.float64)))
+            self.n_loops += 1
+            record["accepted"] = True
+            any_accepted = True
+        return any_accepted
+
+    def _host_view(self) -> refine64.GraphView:
+        """f64 `GraphView` assembled from the HOST factor mirrors — no device read."""
+        n = self.n_keyframes
+        if self._host_loops:
+            li, lj, lz, linfo = zip(*self._host_loops)
+            lz = np.stack(lz)
+            linfo = np.stack(linfo)
+        else:
+            li, lj = (), ()
+            lz = np.zeros((0, 4, 4), np.float64)
+            linfo = np.zeros((0, 6), np.float64)
+        return refine64.GraphView(
+            np.stack(self._poses_host), np.stack(self._host_odoms[:n]),
+            self._host_prior,
+            1.0 / np.asarray(self.cfg.odom_noise_var, np.float64),
+            li, lj, lz, linfo,
+            robust_delta=self.cfg.loop_robust_delta,
+        )
+
+    def _bucket_size(self) -> int:
+        """Active-size bucket for the device solve: the smallest power of two >=
+        n_keyframes (min 256), capped at capacity, so its cost tracks the live graph."""
+        b = 256
+        while b < self.n_keyframes:
+            b *= 2
+        return min(b, self.capacity.max_keyframes)
+
+    def _bucket_graph(self) -> solver.PoseGraph:
+        """A snapshot of the device graph cut to the active-size bucket. Graph updates
+        build new tensors (`solver.graph_add_*`, `set_poses`), so views are a snapshot."""
+        B = self._bucket_size()
+        g = self.graph
+        return g.replace(poses=g.poses[:B], pose_mask=g.pose_mask[:B], odom_meas=g.odom_meas[:B])
+
+    def _make_device_lm(self, gb: solver.PoseGraph):
+        """Escalation-ladder device callback: the f32 LM on the bucketed graph `gb`.
+        Shared by the synchronous and threaded solve paths."""
+
+        def device_lm(poses64):
+            gd = solver.optimize(solver.set_poses(gb, poses64), max_iterations=30)
+            return gd.poses[: poses64.shape[0]].cpu().numpy().astype(np.float64)
+
+        return device_lm
+
+    def _solve(self, view: refine64.GraphView, device_lm):
+        """The escalation ladder (`solver.escalate_f64`), logged in `solve_log`."""
+        t0 = time.perf_counter()
+        poses64, info = solver.escalate_f64(view, device_lm, tail_iterations=6)
+        self.solve_log.append({"seconds": time.perf_counter() - t0,
+                               "iterations": info["iterations"],
+                               "device_lm": info["device_lm"]})
+        return poses64, info
+
+    def _apply_solved(self, new_host: list) -> None:
+        """Write solved (and re-chained) host poses into the mirrors and the device graph."""
+        self._poses_host = new_host
+        self.graph = solver.set_poses(self.graph, np.stack(new_host))
+        self._solve_epoch += 1
+
+    def _run_optimize(self) -> None:
+        """Global re-solve after factor insertion: host f64 Gauss-Newton from the current
+        estimates, with the device f32 LM only if f64 stalls (`solver.escalate_f64`);
+        poses are written back into the full-capacity graph."""
+        poses64, _info = self._solve(self._host_view(), self._make_device_lm(self._bucket_graph()))
+        p32 = poses64.astype(np.float32)
+        self._apply_solved([p32[k] for k in range(p32.shape[0])])
+
+    # -- concurrent back end (async verification + threaded solve) ----------------------
+
+    def _start_solve_async(self) -> None:
+        """Launch the escalation-ladder solve on a snapshot of the graph in a worker
+        thread; the front end keeps appending keyframes meanwhile, and `_finish_solve`
+        re-chains those onto the solved poses."""
+        view = self._host_view()
+        device_lm = self._make_device_lm(self._bucket_graph())
+
+        def work():
+            # Capture, don't swallow: `_finish_solve` re-raises with the real traceback.
+            try:
+                self._solve_result = self._solve(view, device_lm)
+            except BaseException as e:  # noqa: BLE001 — relayed, not suppressed
+                self._solve_error = e
+
+        self._solve_error = None
+        self._solve_thread = threading.Thread(target=work, name="pose-graph-solve",
+                                              daemon=True)
+        self._solve_thread.start()
+
+    def _finish_solve(self) -> None:
+        """Join the solve thread and apply its result: solved poses for the snapshot's
+        keyframes, composed odometry re-chaining for keyframes appended while it ran."""
+        self._solve_thread.join()
+        self._solve_thread = None
+        if self._solve_error is not None:
+            err, self._solve_error = self._solve_error, None
+            raise err
+        poses64, _info = self._solve_result
+        self._solve_result = None
+        p32 = poses64.astype(np.float32)
+        new_host = [p32[k] for k in range(p32.shape[0])]
+        for k in range(len(new_host), self.n_keyframes):
+            new_host.append((new_host[k - 1] @ self._host_odoms[k]).astype(np.float32))
+        self._apply_solved(new_host)
+        self.is_loop_closed = True
+
+    def poll_async(self) -> None:
+        """Advance the concurrent back end by one frame: harvest a finished solve
+        (non-blocking), then consume a lagged verification and kick off its solve."""
+        if self._solve_thread is not None and not self._solve_thread.is_alive():
+            self._finish_solve()
+        if self._pending_verify is not None and self._solve_thread is None:
+            self._pending_verify["age"] += 1
+            if self._pending_verify["age"] > max(0, self.cfg.loop_verify_lag_frames):
+                pending = self._pending_verify
+                self._pending_verify = None
+                if self._consume_verify(pending):
+                    self._start_solve_async()
+
+    def finish_async(self) -> None:
+        """Drain the concurrent back end: join any in-flight solve, then consume a
+        still-pending verification synchronously. Called by the pipeline's flush."""
+        if self._solve_thread is not None:
+            self._finish_solve()
+        if self._pending_verify is not None:
+            pending = self._pending_verify
+            self._pending_verify = None
+            if self._consume_verify(pending):
+                self._run_optimize()
+                self.is_loop_closed = True
+
+    def on_frame(self) -> bool:
+        """Per-frame cadence hook: a loop check every `loop_search_period_frames` (<= 0
+        derives it from `rate` at the nominal 10 Hz sensor). With `async_backend` the
+        check only starts verification; factors land `loop_verify_lag_frames` later and
+        the solve overlaps later frames. Returns True the frame a solve's corrections
+        were applied."""
+        closed_before = self._solve_epoch
+        self.drain_lazy_clouds()
+        if self.async_enabled:
+            self.poll_async()
+        period = self.cfg.loop_search_period_frames
+        if period <= 0:
+            period = max(1, int(round(10.0 / max(self.cfg.rate, 1e-6))))
+        self._frames_since_loop_check += 1
+        if self._frames_since_loop_check >= period:
+            self._frames_since_loop_check = 0
+            if not self.async_enabled:
+                return self.try_close_loop()
+            # Skip the tick while the previous attempt is still in flight.
+            if self._pending_verify is None and self._solve_thread is None:
+                self._pending_verify = self.begin_loop_attempt()
+        return self._solve_epoch != closed_before
+
+    # -- outputs ------------------------------------------------------------------------
+
     def optimized_poses(self) -> np.ndarray:
         if self.n_keyframes == 0:
             return np.zeros((0, 4, 4), dtype=np.float32)
@@ -112,11 +656,11 @@ class GraphBasedSLAM:
 
     def assemble_map(self, resolution: float = 0.0, max_points: Optional[int] = None) -> np.ndarray:
         """All keyframe clouds under optimized poses; optional voxel filter at `resolution`
-        (run on the back end's device). Cached per (keyframes, resolution): with no loop
-        factors, poses change only by keyframe appends."""
+        (run on the back end's device). Cached per (keyframes, loops, solve epoch,
+        resolution, max_points): poses change only through keyframe appends or solves."""
         if self.n_keyframes == 0:
             return np.zeros((0, 3), dtype=np.float32)
-        key = (self.n_keyframes, float(resolution), max_points)
+        key = (self.n_keyframes, self.n_loops, self._solve_epoch, float(resolution), max_points)
         if self._map_cache is not None and self._map_cache[0] == key:
             return self._map_cache[1]
         poses = self.optimized_poses()

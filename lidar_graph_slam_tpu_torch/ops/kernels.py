@@ -10,6 +10,10 @@ Beside it, `ndt_accumulate_plain` is the plain PyTorch version — the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
 (`lidar_graph_slam_tpu/registration/base.py:38-64`). The wrapper takes it for CPU tensors
 only; on a CUDA tensor it launches the kernel or raises.
+
+Launch counts: `ndt_accumulate.launches` counts every launch in the process (odometry on
+the main thread and loop verification in its worker thread both launch the kernel), and
+`thread_launches()` counts the calling thread's, so a caller can tell the two paths apart.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -31,7 +36,15 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 _MAX_BLOCKS = 1024
 
 _lib = None  # the loaded shared library (built at first use)
+_lib_lock = threading.Lock()
 build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or load
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
+def thread_launches() -> int:
+    """Kernel launches made by the calling thread since it started."""
+    return getattr(_thread_counts, "launches", 0)
 
 
 def point_jacobian_blocks(p_transformed: torch.Tensor) -> torch.Tensor:
@@ -90,6 +103,11 @@ def load_library():
     stale build is never loaded. `build_info` records the path, the build seconds (0.0
     when an existing build was loaded) and the compiler's output.
     """
+    with _lib_lock:
+        return _load_library_locked()
+
+
+def _load_library_locked():
     global _lib
     if _lib is not None:
         return _lib
@@ -176,7 +194,9 @@ def ndt_accumulate(e, icovs, p, hit, d2, w_scale):
     if err != 0:
         raise RuntimeError(f"ndt_accumulate launch failed: "
                            f"{lib.lgs_cuda_error_string(err).decode()} ({err})")
-    ndt_accumulate.launches += 1
+    with _count_lock:
+        ndt_accumulate.launches += 1
+    _thread_counts.launches = thread_launches() + 1
     return out[:36].view(6, 6), out[36:42], out[42], out[43]
 
 

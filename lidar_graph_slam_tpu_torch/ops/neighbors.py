@@ -1,14 +1,16 @@
 """Sorted-grid neighborhoods — the engine's replacement for kd-trees.
 
-Port of the odometry slice of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build
-(`HashGrid`, `build_hash_grid`) and the same-cloud sliding-window neighborhoods that
-statistical outlier removal uses. Points are keyed by cell and stably sorted, so the
-points of one cell are consecutive and a +-window over the sorted order covers each
-cell's neighborhood (up to window truncation in very dense cells) — a sorted-window
-approximation of kNN that the port reproduces as it is.
+Port of `lidar_graph_slam_tpu/ops/neighbors.py` without the GICP/FPFH helpers: the grid
+build (`HashGrid`, `build_hash_grid`), the nearest-neighbor query that ICP and the loop
+fitness use (`_candidate_scan`, `nearest`), and the same-cloud sliding-window
+neighborhoods that statistical outlier removal uses. Points are keyed by cell and stably
+sorted, so the points of one cell are consecutive: a query gathers a bounded bucket of
+consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over the sorted
+order covers each cell's neighborhood (up to window truncation in very dense cells) — a
+sorted-window approximation of kNN that the port reproduces as it is.
 
-The grid-query functions (`_candidate_scan`, `knn`, `nearest`, `window_covariances`)
-serve ICP and GICP only and are not ported yet.
+`knn`, `window_covariances` and `radius_mask` serve GICP and FPFH and wait for the GICP
+slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,10 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import pad_points
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     INVALID_KEY,
     TABLE_DIMS,
+    _NX,
+    _NY,
+    _NZ,
+    _flat_table_index,
     as_f32,
     build_dense_table,
     const,
@@ -28,6 +34,9 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     pack_key,
     voxel_coords,
 )
+
+_27_OFFSETS = tuple((x, y, z) for x in (-1, 0, 1) for y in (-1, 0, 1) for z in (-1, 0, 1))
+_7_OFFSETS = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
 
 
 @dataclass
@@ -71,6 +80,63 @@ def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> Hash
         num=torch.sum(mask.to(torch.int32)),
         table=build_dense_table(keys_sorted, first & valid, TABLE_DIMS),
     )
+
+
+def _offsets_for(neighborhood: int, device) -> torch.Tensor:
+    if neighborhood == 27:
+        return const(_27_OFFSETS, torch.int32, device)
+    if neighborhood == 7:
+        return const(_7_OFFSETS, torch.int32, device)
+    raise ValueError(f"neighborhood must be 7 or 27, got {neighborhood}")
+
+
+def _candidate_scan(grid: HashGrid, queries: torch.Tensor, offsets: torch.Tensor,
+                    bucket_cap: int):
+    """Candidate squared distances and flat row indices for every (query, cell, slot).
+
+    Returns (d2 [Q, C*B] with +inf for invalid, cand_idx [Q, C*B] int64 row indices).
+    Everything a candidate needs (x, y, z, cell key) comes from one packed 4-float row.
+    Out-of-table cells read start -1, as the reference's overflow slot does, so a row
+    with no candidate at all still indexes the rows of its first cell's clamped start.
+    """
+    n = grid.keys.shape[0]
+    q = queries.shape[0]
+    C = offsets.shape[0]
+    dev = queries.device
+    coords = voxel_coords(queries, grid.origin, 1.0 / grid.cell_size)       # [Q, 3]
+    ncoords = coords[:, None, :] + offsets[None, :, :]                       # [Q, C, 3]
+    hi = const((_NX - 1, _NY - 1, _NZ - 1), torch.int32, dev)
+    cell_keys = pack_key(torch.minimum(torch.clamp(ncoords, min=0), hi))     # [Q, C]
+    flat, in_range = _flat_table_index(ncoords, TABLE_DIMS)
+    flat, in_range = flat.reshape(-1), in_range.reshape(-1)
+    size = grid.table.shape[0]
+    start = torch.where(in_range, grid.table[flat.clamp(max=size - 1).long()], -1)
+    cell_hit = (start >= 0) & in_range
+    start = torch.clamp(start.long(), min=0, max=n - bucket_cap)             # [Q*C]
+
+    slots = torch.arange(bucket_cap, dtype=torch.int64, device=dev)
+    cand_idx = (start[:, None] + slots).reshape(-1)
+    rows = grid.packed[cand_idx]                                             # [Q*C*B, 4]
+    keys_run = rows[:, 3].contiguous().view(torch.int32).reshape(q, C, bucket_cap)
+    same_cell = (keys_run == cell_keys[..., None]) & cell_hit.reshape(q, C)[..., None]
+    diff = rows[:, :3].reshape(q, C, bucket_cap, 3) - queries[:, None, None, :]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+    d2 = torch.where(same_cell, d2, torch.inf)
+    return d2.reshape(q, -1), cand_idx.reshape(q, -1)
+
+
+def nearest(grid: HashGrid, queries: torch.Tensor, bucket_cap: int = 32,
+            neighborhood: int = 27):
+    """Single nearest neighbor within one cell ring: (idx [Q], dist2 [Q], found [Q]).
+
+    `argmin` takes the first minimum, so a row whose candidates are all +inf gives
+    idx = cand_idx[:, 0] and found = False, as the reference does."""
+    d2, cand_idx = _candidate_scan(grid, queries, _offsets_for(neighborhood, queries.device),
+                                   bucket_cap)
+    j = torch.argmin(d2, dim=1, keepdim=True)
+    best = torch.gather(d2, 1, j)[:, 0]
+    idx = torch.gather(cand_idx, 1, j)[:, 0]
+    return idx, best, torch.isfinite(best)
 
 
 def window_neighbor_d2(grid: HashGrid, window: int) -> torch.Tensor:

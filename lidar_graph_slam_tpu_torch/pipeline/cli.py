@@ -2,8 +2,8 @@
 
 Port of `lidar_graph_slam_tpu/pipeline/cli.py`: one command producing trajectory files
 (TUM + KITTI), the map PCD, a bird's-eye PNG (when matplotlib is installed) and a metrics
-JSON. Loop closure is not ported yet, so `--no-loop-closure` is required; the KITTI
-reader, `--multihost` and `--live-render` are not ported yet either.
+JSON. Loop closure is on by default, as in the reference; `--no-loop-closure` switches it
+off. The KITTI reader, `--multihost` and `--live-render` are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,15 +26,11 @@ def main(argv=None) -> int:
                     help="config overrides, e.g. --set capacity.raw_points=65536")
     ap.add_argument("--output", default="out", help="output directory")
     ap.add_argument("--map-resolution", type=float, default=0.5)
-    ap.add_argument("--no-loop-closure", action="store_true",
-                    help="required: loop closure is not ported yet")
+    ap.add_argument("--no-loop-closure", action="store_true")
     ap.add_argument("--progress-every", type=int, default=20)
     ap.add_argument("--metrics-jsonl", default=None,
                     help="write per-frame structured metrics to this JSONL file")
     args = ap.parse_args(argv)
-    if not args.no_loop_closure:
-        ap.error("loop closure is not ported to the PyTorch package yet; "
-                 "pass --no-loop-closure")
 
     from lidar_graph_slam_tpu_torch.core.config import apply_cli_overrides, load_config
     from lidar_graph_slam_tpu_torch.io.pcd import write_kitti_trajectory, write_tum_trajectory
@@ -43,7 +39,8 @@ def main(argv=None) -> int:
     from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse, rpe
 
     cfg = load_config(args.config)
-    cfg = apply_cli_overrides(cfg, ["enable_loop_closure=False"])
+    if args.no_loop_closure:
+        cfg = apply_cli_overrides(cfg, ["enable_loop_closure=False"])
     if args.set:
         cfg = apply_cli_overrides(cfg, args.set)
 
@@ -71,10 +68,17 @@ def main(argv=None) -> int:
     else:
         from lidar_graph_slam_tpu_torch.utils.viz import render_run
 
+        log = result.loop_log
         render_run(
             os.path.join(args.output, "map.png"),
             pipe.back.assemble_map(max(args.map_resolution, 0.3)),
-            result.odometry_poses, result.keyframe_poses, gt_poses=gt,
+            result.odometry_poses, result.keyframe_poses,
+            loop_pairs=[(rec["latest"], rec["candidate"]) for rec in log if rec["accepted"]],
+            rejected_pairs=[
+                (rec["latest"], rec["candidate"]) for rec in log
+                if not rec["accepted"] and not rec.get("overflow") and rec["candidate"] >= 0
+            ],
+            gt_poses=gt,
         )
 
     summary = {

@@ -1,14 +1,15 @@
-"""End-to-end SLAM pipeline driver (fused front end, loop closure off).
+"""End-to-end SLAM pipeline driver (fused front end + graph back end).
 
 Port of the fused driver of `lidar_graph_slam_tpu/pipeline/runner.py`: each frame runs
 the fused front-end step (`odometry/fused.py`) on the device, and the host reads frame
 t's outputs AFTER dispatching frame t+1 (lagged readback). A frame's outputs are copied
 to pinned host memory with non-blocking copies started right after its step; the
 consume waits on that frame's event only. `process_scan` therefore returns the
-PREVIOUS frame's record; `flush()` / `result()` drain.
+PREVIOUS frame's record; `flush()` / `result()` drain the frames in flight and settle
+the concurrent back end (loop verification and solve, `graph/slam.py`).
 
-Not ported yet: loop closure (`enable_loop_closure=True`) and the classic stage-by-stage
-driver (`fused_frontend=False`) — both raise NotImplementedError at construction.
+Not ported yet: the classic stage-by-stage driver (`fused_frontend=False`), which
+raises NotImplementedError at construction.
 """
 
 from __future__ import annotations
@@ -83,10 +84,6 @@ class SlamPipeline:
 
     def __init__(self, cfg: PipelineConfig, metrics_path: Optional[str] = None,
                  extrinsic_provider=None, device=None):
-        if cfg.enable_loop_closure:
-            raise NotImplementedError(
-                "loop closure is not ported to the PyTorch package yet: set "
-                "enable_loop_closure=False (CLI: --no-loop-closure)")
         if not cfg.fused_frontend:
             raise NotImplementedError(
                 "the classic stage-by-stage driver (fused_frontend=False) is not ported "
@@ -103,6 +100,7 @@ class SlamPipeline:
         self.raw_truncation_count = 0
         self.odometry_poses: list[np.ndarray] = []
         self.kf_frame_indices: list[int] = []
+        self._loop_attempts_emitted = 0
 
         init_state, self._step, aux = make_fused_frontend(
             cfg.scan_matcher, cfg.prefilter, cap, device=self.device)
@@ -125,6 +123,25 @@ class SlamPipeline:
         # stamps; the result rides into the step as (imu_R, use_imu).
         self._imu_queue: list = []
         self._last_dispatch_stamp = None
+
+    def _emit_loop_attempts(self, frame_idx: int) -> None:
+        """Stream every loop-closure attempt (accepted AND rejected) into the metrics."""
+        while self._loop_attempts_emitted < len(self.back.loop_log):
+            rec = self.back.loop_log[self._loop_attempts_emitted]
+            self._loop_attempts_emitted += 1
+            self.metrics_writer.emit({
+                "event": "loop_attempt",
+                "frame": frame_idx,
+                "latest": rec.get("latest"),
+                "candidate": rec.get("candidate"),
+                "fitness": float(rec.get("fitness", np.inf)),
+                "converged": bool(rec.get("converged", False)),
+                "accepted": bool(rec.get("accepted", False)),
+                "overflow": bool(rec.get("overflow", False)),
+            })
+
+    def _loops_accepted(self) -> int:
+        return sum(1 for rec in self.back.loop_log if rec["accepted"])
 
     # -- fused driver -------------------------------------------------------------------
 
@@ -155,7 +172,11 @@ class SlamPipeline:
                 frame_index=frame_idx, stamp=stamp,
             ))
             self.kf_frame_indices.append(frame_idx)
-        self.back.drain_lazy_clouds()
+        if self.cfg.enable_loop_closure:
+            self.back.on_frame()
+        else:
+            self.back.drain_lazy_clouds()
+        self._emit_loop_attempts(frame_idx)
         t3 = time.perf_counter()
 
         self.odometry_poses.append(pose)
@@ -168,7 +189,7 @@ class SlamPipeline:
             "iterations": info["iterations"],
             "is_keyframe": info["is_keyframe"],
             "n_keyframes": self.back.n_keyframes,
-            "loops_accepted": 0,
+            "loops_accepted": self._loops_accepted(),
             "register_ms": 1000 * (t2 - t1),
             "backend_ms": 1000 * (t3 - t2),
         })
@@ -242,9 +263,13 @@ class SlamPipeline:
         }
 
     def flush(self) -> None:
-        """Drain in-flight frames."""
+        """Drain in-flight frames and settle the concurrent back end (join any solve
+        thread, consume a pending verification)."""
         while self._pending:
             self._consume_fused(self._pending.popleft())
+        if self.cfg.enable_loop_closure:
+            self.back.finish_async()
+            self._emit_loop_attempts(len(self.odometry_poses))
 
     # -- public API ---------------------------------------------------------------------
 
@@ -265,7 +290,8 @@ class SlamPipeline:
             scan = item[0] if isinstance(item, tuple) else item
             self.process_scan(np.asarray(scan))
             if progress_every and (i + 1) % progress_every == 0:
-                print(f"[slam-torch] frame {i + 1}, keyframes={self.back.n_keyframes}")
+                print(f"[slam-torch] frame {i + 1}, keyframes={self.back.n_keyframes}, "
+                      f"loops={self._loops_accepted()}")
         return self.result()
 
     def result(self) -> PipelineResult:
@@ -283,8 +309,8 @@ class SlamPipeline:
                             else np.zeros((0, 4, 4))),
             keyframe_poses=self.back.optimized_poses(),
             keyframe_frame_indices=np.asarray(self.kf_frame_indices, dtype=np.int64),
-            num_loop_closures=0,
-            loop_log=[],
+            num_loop_closures=self._loops_accepted(),
+            loop_log=self.back.loop_log,
             metrics=metrics,
         )
 

@@ -8,7 +8,12 @@ state the JAX package reached:
     (`front_pose`, `front_last_motion`, `front_last_kf_pose`, `front_accum`,
     `front_n_keyframes`, `ring_clouds`, `ring_masks`, `ring_poses`, `ring_used`);
   * voxel map: the `NdtVoxelMap` field names (`keys`, `means`, `inv_covs`, `valid`,
-    `origin`, `leaf`, `num_voxels`, `table`, `packed`).
+    `origin`, `leaf`, `num_voxels`, `table`, `packed`);
+  * NN grid: the `HashGrid` field names (`keys`, `points`, `packed`, `order`, `starts`,
+    `origin`, `cell_size`, `num`, `table`);
+  * pose graph: the `PoseGraph` field names (`poses`, `pose_mask`, `odom_meas`,
+    `prior_pose`, `odom_info`, `loop_i`, `loop_j`, `loop_meas`, `loop_info`,
+    `loop_mask`, `num_poses`, `num_loops`).
 """
 
 from __future__ import annotations
@@ -18,8 +23,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from lidar_graph_slam_tpu_torch.graph.solver import PoseGraph
 from lidar_graph_slam_tpu_torch.odometry.fused import FrontEndState
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import SubmapRing
+from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid
 from lidar_graph_slam_tpu_torch.ops.voxel import NdtVoxelMap
 
 
@@ -50,9 +57,27 @@ _MAP_DTYPES = {"keys": torch.int32, "valid": torch.bool, "num_voxels": torch.int
                "table": torch.int32}
 
 
-def ndt_map_from_numpy(arrays, device=None) -> NdtVoxelMap:
-    fields = [f.name for f in dataclasses.fields(NdtVoxelMap)]
-    return NdtVoxelMap(**{
-        name: _t(arrays[name], _MAP_DTYPES.get(name, torch.float32), device)
-        for name in fields
+_GRID_DTYPES = {"keys": torch.int32, "order": torch.int64, "starts": torch.int64,
+                "num": torch.int32, "table": torch.int32}
+_GRAPH_DTYPES = {"pose_mask": torch.bool, "loop_i": torch.int64, "loop_j": torch.int64,
+                 "loop_mask": torch.bool, "num_poses": torch.int64, "num_loops": torch.int64}
+
+
+def _from_numpy(cls, dtypes: dict, arrays, device):
+    return cls(**{
+        f.name: _t(arrays[f.name], dtypes.get(f.name, torch.float32), device)
+        for f in dataclasses.fields(cls)
     })
+
+
+def ndt_map_from_numpy(arrays, device=None) -> NdtVoxelMap:
+    return _from_numpy(NdtVoxelMap, _MAP_DTYPES, arrays, device)
+
+
+def hash_grid_from_numpy(arrays, device=None) -> HashGrid:
+    """`packed` keeps its bits: column 3 is the int32 cell key stored as float32."""
+    return _from_numpy(HashGrid, _GRID_DTYPES, arrays, device)
+
+
+def pose_graph_from_numpy(arrays, device=None) -> PoseGraph:
+    return _from_numpy(PoseGraph, _GRAPH_DTYPES, arrays, device)

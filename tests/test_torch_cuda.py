@@ -1,6 +1,7 @@
 """The PyTorch port on a CUDA card: the hand-written `ndt_accumulate` kernel against its
-plain PyTorch version and a float64 evaluation, and the loops-off pipeline on the card
-against the same pipeline on the CPU.
+plain PyTorch version and a float64 evaluation, the loops-off pipeline, the grid
+nearest-neighbor query and one loop verification on the card against the same on the
+CPU.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -9,16 +10,32 @@ Every test here is marked `cuda` and skips without a card. This file imports no 
 
 Tolerances: per output, max |kernel - reference| <= 1e-5 * max |reference| + 2e-3 (both
 sum ~1e5 float32 terms in different orders), hit counts exact; two launches on the same
-inputs bit-identical. Pipeline poses: card vs CPU within 1 cm and 1 mrad per frame.
+inputs bit-identical. Pipeline poses: card vs CPU within 1 cm and 1 mrad per frame. Grid
+NN: idx and found equal, d2 to rtol 1e-6. Verification: the same candidate and decision,
+fitness to rtol 1e-3, transform to atol 1e-3.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lidar_graph_slam_tpu_torch.core.config import PipelineConfig, apply_cli_overrides
-from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence
+from lidar_graph_slam_tpu_torch.core.config import (
+    CapacityConfig,
+    GraphSlamConfig,
+    IcpConfig,
+    PipelineConfig,
+    apply_cli_overrides,
+)
+from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
+from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
+from lidar_graph_slam_tpu_torch.io.synthetic import (
+    SyntheticSequence,
+    make_loop_trajectory,
+    make_world,
+    simulate_scan,
+)
 from lidar_graph_slam_tpu_torch.ops import kernels as tk
+from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +151,65 @@ def test_pipeline_card_matches_cpu(cuda):
         assert np.linalg.norm(x[:3, 3] - y[:3, 3]) < 0.01
         chord = np.linalg.norm(x[:3, :3].astype(np.float64) - y[:3, :3].astype(np.float64))
         assert 2.0 * np.arcsin(min(chord / (2.0 * np.sqrt(2.0)), 1.0)) < 1e-3
+
+
+@pytest.mark.parametrize("neighborhood,bucket_cap", [(7, 16), (27, 32)])
+def test_nearest_card_matches_cpu(cuda, neighborhood, bucket_cap):
+    rng = np.random.default_rng(5)
+    world = make_world(rng, extent=40.0, density=3.0)
+    target = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=8192)
+    tc = PointCloud.from_array(target, capacity=8192)
+    q = np.concatenate([target[:3000] + rng.normal(scale=0.3, size=(3000, 3)),
+                        rng.uniform(500.0, 5000.0, size=(64, 3))]).astype(np.float32)
+    out = []
+    for device in (cuda, torch.device("cpu")):
+        grid = build_hash_grid(tc.points.to(device), tc.mask.to(device), 2.0)
+        out.append([t.cpu() for t in nearest(grid, torch.as_tensor(q, device=device),
+                                             bucket_cap=bucket_cap, neighborhood=neighborhood)])
+    (ci, cd, cf), (pi, pd, pf) = out
+    assert torch.equal(ci, pi) and torch.equal(cf, pf)
+    assert cf[:3000].float().mean() > 0.9 and not cf[3000:].any()
+    torch.testing.assert_close(cd[cf], pd[pf], rtol=1e-6, atol=0.0)
+
+
+def _loop_backend(device, async_backend):
+    """The verifier fixture of `tests/test_loop_verifiers.py:build_loop_backend("ICP")`:
+    31 keyframes on a ~128 m loop, the latest reported with 0.6 m / 0.03 rad of drift."""
+    cfg = GraphSlamConfig(accumulate_distance_threshold=100.0,
+                          search_for_candidate_threshold=15.0,
+                          icp=IcpConfig(max_iterations=40), async_backend=async_backend)
+    cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
+                         loop_submap_points=65536, voxel_capacity=32768)
+    back = GraphBasedSLAM(cfg, cap, device=device)
+    rng = np.random.default_rng(7)
+    world = make_world(rng, extent=40.0, density=2.0)
+    traj = make_loop_trajectory(31, radius=20.0, laps=1.02)
+    err = np.eye(4, dtype=np.float32)
+    err[:2, :2] = [[np.cos(0.03), -np.sin(0.03)], [np.sin(0.03), np.cos(0.03)]]
+    err[:2, 3] = [0.6, -0.4]
+    accum = 0.0
+    for k in range(31):
+        accum += float(np.linalg.norm(traj[k][:3, 3] - traj[k - 1][:3, 3])) if k else 0.0
+        scan = simulate_scan(world, traj[k], rng, max_points=4096, noise=0.01)
+        back.add_keyframe({"pose": traj[k] if k < 30 else (traj[k] @ err).astype(np.float32),
+                           "cloud": scan, "cloud_mask": np.ones(scan.shape[0], bool),
+                           "accum_distance": accum if k < 30 else accum + 110.0})
+    return back
+
+
+def test_verification_card_matches_cpu(cuda):
+    """One loop verification through the asynchronous path (worker thread, own stream)
+    on the card against the synchronous one on the CPU: the same decision, and the card
+    launched the kernel in the verification's NDT pre-align."""
+    rec = {}
+    for device, async_backend in ((cuda, True), (torch.device("cpu"), False)):
+        back = _loop_backend(device, async_backend)
+        assert back.try_close_loop()
+        rec[device.type] = (back.loop_log[-1], back.verify_launches, back.optimized_poses())
+    (a, launches, pa), (c, cpu_launches, pc) = rec["cuda"], rec["cpu"]
+    assert (a["candidate"], a["accepted"], a["converged"]) == (c["candidate"], c["accepted"],
+                                                              c["converged"])
+    assert launches > 0 and cpu_launches == 0
+    np.testing.assert_allclose(a["fitness"], c["fitness"], rtol=1e-3)
+    np.testing.assert_allclose(a["transform"], c["transform"], atol=1e-3)
+    np.testing.assert_allclose(pa, pc, atol=1e-3)

@@ -1,5 +1,7 @@
 """PyTorch port vs the JAX reference: the fused front-end step, the loops-off pipeline,
-its lagged readback, the copied config, the CLI, and the port's independence from JAX.
+its lagged readback, the copied config, the CLI (loops on and off), and the port's
+independence from JAX. The pipeline with loop closure on is held against the reference
+in `tests/test_torch_loop_pipeline.py`.
 
 Tolerances: a single fused step started from the reference's state — pose to atol 1e-4,
 flags, iterations and inlier counts exact. The 5-frame pipeline — per-frame translation
@@ -234,9 +236,19 @@ def test_map_export(torch_run, tmp_path):
 
 def test_unported_modes_raise(cfg):
     with pytest.raises(NotImplementedError):
-        TorchPipeline(_torch_config(replace(cfg, enable_loop_closure=True)), device="cpu")
-    with pytest.raises(NotImplementedError):
         TorchPipeline(_torch_config(replace(cfg, fused_frontend=False)), device="cpu")
+
+
+def test_loop_closure_constructs_and_runs(course, cfg):
+    """Loop closure on (the default) with the asynchronous back end: the pipeline runs,
+    and the result carries the back end's loop log (this 5-frame course is too short
+    for the 100 m gate, so no attempt is made)."""
+    pipe = TorchPipeline(_torch_config(replace(cfg, enable_loop_closure=True)), device="cpu")
+    assert pipe.back.async_enabled
+    res = pipe.run(course)
+    assert res.odometry_poses.shape == (N_FRAMES, 4, 4)
+    assert res.loop_log is pipe.back.loop_log and res.num_loop_closures == 0
+    assert pipe.back._pending_verify is None and pipe.back._solve_thread is None
 
 
 def test_cli_runs_on_cpu(tmp_path):
@@ -253,9 +265,14 @@ def test_cli_runs_on_cpu(tmp_path):
     assert summary["ate_odometry_m"] < 0.5
     for name in ("odometry_tum.txt", "odometry_kitti.txt", "keyframes_tum.txt", "map.pcd"):
         assert (out / name).exists(), name
-    refused = subprocess.run(cmd[:5] + ["--output", str(tmp_path / "r")], cwd=REPO,
-                             capture_output=True, text=True, timeout=300)
-    assert refused.returncode != 0 and "--no-loop-closure" in refused.stderr
+    # The default run has loop closure on and reports it.
+    loops_on = tmp_path / "loops_on"
+    default = [a for a in cmd if a != "--no-loop-closure"]
+    default[default.index(str(out))] = str(loops_on)
+    proc = subprocess.run(default, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads((loops_on / "metrics.json").read_text())
+    assert summary["frames"] == 3 and summary["loop_closures"] == 0
 
 
 def test_port_imports_no_jax():
