@@ -8,31 +8,43 @@ default pipeline (loop closure on, asynchronous back end) on the three-lap drift
 of `bench.py:bench_e2e`. Phases:
 
   1. refuse without CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernel from `lidar_graph_slam_tpu_torch/csrc/` (nvcc), print seconds;
-  3. the kernel against its plain PyTorch version on the card at the main path's shapes
-     (K = 229,376 fine, 57,344 coarse), on random inputs and on correspondences from a
-     real map; bit-identical reruns; median time of 50 calls each;
+  2. build the CUDA kernels from `lidar_graph_slam_tpu_torch/csrc/` (nvcc), print seconds
+     and ptxas's registers per kernel;
+  3. both kernels against their plain PyTorch versions on the card at the main path's
+     shapes: `ndt_accumulate` on random rows (K = 229,376 fine, 57,344 coarse) and on a
+     real map's correspondences, `ndt_direct7_accumulate` on the same map and source (N =
+     32,768 against the 2 m map, 8,192 against the 4 m map); counts exact, bit-identical
+     reruns; per kernel and shape, device and host time per call (`split_times`), the
+     plain version's time, the bound and the share of the bound;
   4. `build_ndt_pyramid` twice on a full 20 x 32,768 ring: bit-identical maps;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
-     max(0.05 x travelled, 0.35) m, the kernel launched on the main path; p50 frame ms;
-  7. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure);
-  8. the loop course: `SlamPipeline` with the default config on the 360-frame drift
+     max(0.05 x travelled, 0.35) m, the fused kernel launched on the main path and the
+     gathered-rows one not; p50 frame ms;
+  7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
+     device kernel launches, device ms and wall ms per NDT body; with `--parent DIR` (the
+     parent commit unpacked by `git archive`) also that tree's, on the same input;
+  8. `ndt_accumulate`'s own path, `ndt_align(line_search=True)`: one launch per body;
+  9. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure);
+ 10. the loop course: `SlamPipeline` with the default config on the 360-frame drift
      course, then again with loops off — all frames converge, loops are accepted, and
-     keyframe ATE with loops on is below ATE with loops off; the kernel's launches on
-     the verify path are counted;
-  9. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
+     keyframe ATE with loops on is below ATE with loops off; the fused kernel's launches
+     on the verify path are counted;
+ 11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
- 10. one verification, card against CPU, from the same keyframes: the same decision, and
-     its coarse NDT pre-align alone: the same iteration count and transform; the kernel
-     against its plain version on the pre-align's own correspondences (K = 114,688
-     against the 4 m map, at the identity guess and at the pre-align's result);
- 11. the CLI with its default (loops on), 100 frames.
+ 12. one verification, card against CPU, from the same keyframes: the same decision, and
+     its coarse NDT pre-align alone: the same iteration count and transform; both kernels
+     against their plain versions on the pre-align's own inputs (16,384 points, K =
+     114,688, against the 4 m map, at the identity guess and at the pre-align's result),
+     and their times at that shape;
+ 13. the CLI with its default (loops on), 100 frames.
 
+Each path's launches are counted from 0 just before it runs and read just after.
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
+`python3 chip_smoke.py --parent DIR` adds the parent tree's profile to phase 7.
 """
 
 from __future__ import annotations
@@ -56,19 +68,29 @@ from lidar_graph_slam_tpu_torch.graph.slam import (
 )
 from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence, make_world, simulate_scan
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
-from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ring_insert
+from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
-from lidar_graph_slam_tpu_torch.ops.voxel import NdtVoxelMap, lookup_direct7, voxel_downsample
+from lidar_graph_slam_tpu_torch.ops.voxel import (
+    DIRECT7_OFFSETS,
+    TABLE_DIMS,
+    NdtVoxelMap,
+    lookup_direct7,
+    voxel_coords,
+    voxel_downsample,
+)
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
-from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
+from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants, ndt_align
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # Kernel vs plain: max |kernel - plain| <= REL * max|plain| + ABS, per output. Both sum
-# ~1e5 float32 terms in different orders (measured: ~1e-7 of the scale).
+# ~1e5 float32 terms in different orders (measured: ~1e-7 of the scale). Hit and centre
+# counts exact.
 REL, ABS = 1e-5, 2e-3
+DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
+KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -102,7 +124,8 @@ def dense_course(n_frames: int, max_points: int = 131072):
 
 
 def median_ms(fn, *args, calls: int = 50, warmup: int = 5) -> float:
-    """Median of `calls` single-call times, each between CUDA events after a sync."""
+    """Median of `calls` single-call times, each between CUDA events after a sync. The
+    device idles while the host runs the call, so this is host time plus device time."""
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
@@ -116,6 +139,60 @@ def median_ms(fn, *args, calls: int = 50, warmup: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def split_times(fn, *args, calls: int = 200, warmup: int = 10) -> dict:
+    """Time per call of `fn` on fixed inputs, split into device and host time:
+      device_us  one CUDA event pair around `calls` back-to-back calls, / calls. A spin
+                 kernel (`torch.cuda._sleep`) holds the stream while the host enqueues
+                 them, so the device runs them back to back and the pair reads device
+                 time, not the host's enqueue (the spin is lengthened until it outlasts
+                 the enqueue);
+      host_us    the host clock around the same enqueue (no synchronize inside), / calls;
+      single_ms  the median of 50 single calls between events (`median_ms`).
+    No profiler runs here: a profiler session in the process that later drives the
+    main path may change its host timings."""
+    for _ in range(warmup):
+        fn(*args)
+    torch.cuda.synchronize()
+    spin_cycles = 20_000_000
+    for _ in range(6):
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        held.record()
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        host_s = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        if held.elapsed_time(start) > 1000 * host_s:  # the spin outlasted the enqueue
+            return dict(device_us=1000 * start.elapsed_time(end) / calls,
+                        host_us=1e6 * host_s / calls, single_ms=median_ms(fn, *args))
+        spin_cycles *= 4
+    raise RuntimeError("split_times: the spin kernel never outlasted the host's enqueue")
+
+
+# The card's peaks for a bound (on-chip-measurement guide, section 4: H100 SXM, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Float operations per hit correspondence in the accumulation, an FMA counted as two:
+# W e (15), e^T W e (5), the weight (4, exp as one), W A (27), the 18 entries of J^T W J's
+# first three rows (54), the 21 weighted sums of H (42), g (21), sum_w and n_hit (2).
+ACCUM_FLOPS_PER_HIT = 170
+
+
+def accumulate_bound_us(hit: torch.Tensor) -> dict:
+    """The least time for `ndt_accumulate` on these inputs: it must read every hit flag
+    (1 B) and, for each hit row only, e, W and p (60 B), and write 44 floats; and it does
+    ACCUM_FLOPS_PER_HIT per hit row. Returns bound_us, bytes, flops and bound_by."""
+    n_hit = int(hit.sum())
+    nbytes = hit.numel() + 60 * n_hit + 4 * 44
+    flops = ACCUM_FLOPS_PER_HIT * n_hit
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def compare_kernel(label: str, args, d2, w_scale) -> float:
@@ -137,6 +214,80 @@ def compare_kernel(label: str, args, d2, w_scale) -> float:
     say("kernel-check", case=label, K=args[0].shape[0], max_abs_err=err,
         H_scale=float(ref[0].abs().max()), bit_identical=True)
     return err
+
+
+def compare_direct7(label: str, vmap: NdtVoxelMap, p, mask, d2, w_scale) -> float:
+    """The fused kernel vs its plain version on the same card tensors, plus a
+    bit-identical rerun; returns the max abs error."""
+    out = kernels.ndt_direct7_accumulate(vmap, p, mask, d2, w_scale)
+    again = kernels.ndt_direct7_accumulate(vmap, p, mask, d2, w_scale)
+    ref = kernels.ndt_direct7_accumulate_plain(vmap, p, mask, d2, w_scale)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b, c in zip(DIRECT7_OUT, out, again, ref):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: {name} differs between two launches")
+        e = float((a - c).abs().max())
+        exact = name in ("n_hit", "centre_count")
+        bound = 0.0 if exact else REL * float(c.abs().max()) + ABS
+        if not e <= bound:
+            raise AssertionError(f"{label}: {name} max err {e} > {bound}")
+        err = max(err, e)
+    say("direct7-check", case=label, N=p.shape[0], n_hit=int(ref[3]),
+        centre_count=int(ref[5]), max_abs_err=err, H_scale=float(ref[0].abs().max()),
+        bit_identical=True)
+    return err
+
+
+def direct7_bound_us(vmap: NdtVoxelMap, p, mask, n_hit: float, n_centre: float) -> dict:
+    """The least time for `ndt_direct7_accumulate` on these inputs, counted on the card
+    from this run's data. Bytes: the mask (1 B a point), each masked-in point (12 B), each
+    distinct table cell its in-range neighbours read (4 B), each distinct row those cells
+    name (52 B of mean, inv_cov and valid for a valid voxel, the 4 B flag for another),
+    the scalars (24 B) and the 46 output floats. Operations: the cell arithmetic (6 a
+    pair), ACCUM_FLOPS_PER_HIT a hit, 7 a centre hit."""
+    src = p[mask]
+    offsets = torch.tensor(DIRECT7_OFFSETS, dtype=torch.int32, device=p.device)
+    nc = voxel_coords(src, vmap.origin, 1.0 / vmap.leaf)[:, None, :] + offsets
+    in_range = ((nc >= 0) & (nc < torch.tensor(TABLE_DIMS, device=p.device))).all(-1)
+    _, dy, dz = TABLE_DIMS
+    cells = torch.unique(((nc[..., 0] * dy + nc[..., 1]) * dz + nc[..., 2])[in_range])
+    rows = torch.unique(vmap.table[cells.long()])
+    rows = rows[rows >= 0].long()
+    n_valid = int((vmap.packed[rows, 12] > 0.5).sum())
+    nbytes = (p.shape[0] + 12 * src.shape[0] + 4 * cells.numel() + 52 * n_valid
+              + 4 * (rows.numel() - n_valid) + 24 + 4 * 46)
+    flops = 6 * 7 * src.shape[0] + ACCUM_FLOPS_PER_HIT * n_hit + 7 * n_centre
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                table_cells=cells.numel(), rows=rows.numel(), valid_rows=n_valid)
+
+
+def kernel_timings(shape: str, vmap: NdtVoxelMap, src, msk, rows, d2, w_scale,
+                   card: str) -> dict:
+    """Both kernels on one shape of the path: `split_times`, the plain version's
+    single-call ms, the bound and the share of the bound; one line each. `src`, `msk` are
+    the source the fused kernel takes, `rows` the (e, icovs, p, hit) it gathers."""
+    fused = kernels.ndt_direct7_accumulate(vmap, src, msk, d2, w_scale)
+    inv_leaf = 1.0 / vmap.leaf
+    cases = {
+        "ndt_direct7_accumulate": (
+            kernels.ndt_direct7_accumulate, kernels.ndt_direct7_accumulate_plain,
+            (vmap, src, msk, d2, w_scale, inv_leaf),
+            direct7_bound_us(vmap, src, msk, float(fused[3]), float(fused[5]))),
+        "ndt_accumulate": (kernels.ndt_accumulate, kernels.ndt_accumulate_plain,
+                           (*rows, d2, w_scale), accumulate_bound_us(rows[3])),
+    }
+    out = {}
+    for name, (fn, plain, args, bound) in cases.items():
+        t = split_times(fn, *args)
+        t.update(plain_ms=median_ms(plain, *args), **bound,
+                 share_of_bound=bound["bound_us"] / t["device_us"])
+        say("kernel-time", kernel=name, shape=shape, N=src.shape[0], K=rows[0].shape[0],
+            **{k: v for k, v in t.items()}, card=json.dumps(card))
+        out[name] = t
+    return out
 
 
 def random_inputs(K: int, dev, seed: int):
@@ -322,31 +473,37 @@ def grid_nn_card_vs_cpu(back: GraphBasedSLAM, rec: dict, devices=("cuda", "cpu")
                 card_ms=ms[0], cpu_ms=round(ms[1], 3))
 
 
-def pre_align_kernel_check(pre_map: NdtVoxelMap, src_p, src_m, T_pre) -> dict:
-    """The kernel against its plain version at the verify path's own shapes: the
-    pre-align's correspondences against the 4 m map (K = keyframe_points x 7) with that
-    map's Magnusson constants, at the identity guess (its first iteration) and at its
-    result (its last); median time of 50 calls each on the first."""
+def pre_align_kernel_check(pre_map: NdtVoxelMap, src_p, src_m, T_pre, card: str) -> dict:
+    """Both kernels against their plain versions at the verify path's own shapes: the
+    pre-align's source (16,384 keyframe points; K = 114,688 correspondences) against the
+    4 m map with that map's Magnusson constants, at the identity guess (its first
+    iteration) and at its result (its last); `kernel_timings` on the first."""
     md1, md2 = magnusson_constants(pre_map.leaf, PRE_ALIGN_OUTLIER_RATIO)
     w_scale = -md1 * md2
     moved = torch.where(src_m[:, None], src_p @ T_pre[:3, :3].T + T_pre[:3, 3], src_p)
     first = map_correspondences(pre_map, src_p, src_m, 1)
     last = map_correspondences(pre_map, moved, src_m, 1)
     K = first[0].shape[0]
-    err = max(compare_kernel(f"verify-pre-identity-K{K}", first, md2, w_scale),
-              compare_kernel(f"verify-pre-result-K{K}", last, md2, w_scale))
+    err = {"ndt_accumulate": max(
+        compare_kernel(f"verify-pre-identity-K{K}", first, md2, w_scale),
+        compare_kernel(f"verify-pre-result-K{K}", last, md2, w_scale))}
+    err["ndt_direct7_accumulate"] = max(
+        compare_direct7(f"verify-pre-identity-N{src_p.shape[0]}", pre_map,
+                        src_p.contiguous(), src_m, md2, w_scale),
+        compare_direct7(f"verify-pre-result-N{src_p.shape[0]}", pre_map,
+                        moved.contiguous(), src_m, md2, w_scale))
     return dict(kernel_K=K, kernel_max_abs_err=err,
-                kernel_ms=median_ms(kernels.ndt_accumulate, *first, md2, w_scale),
-                kernel_plain_ms=median_ms(kernels.ndt_accumulate_plain, *first, md2, w_scale))
+                timing=kernel_timings("verify", pre_map, src_p.contiguous(), src_m, first,
+                                      md2, w_scale, card))
 
 
-def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict,
+def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, card: str,
                        devices=("cuda", "cpu")) -> dict:
     """One `_build_verify_inputs` + verification on each device, from the keyframes the
     pipeline had at attempt `rec` (the first, so no loop factor has moved them yet).
     The coarse NDT pre-align is also run alone on each device: its iteration count must
-    be equal and its transform agree to VERIFY_T_ATOL; on the card the kernel is held
-    against its plain version at the pre-align's shapes (`pre_align_kernel_check`)."""
+    be equal and its transform agree to VERIFY_T_ATOL; on the card the kernels are held
+    against their plain versions at the pre-align's shapes (`pre_align_kernel_check`)."""
     recs, launches, ms, pre, check = [], [], [], [], {}
     for device in devices:
         b = GraphBasedSLAM(cfg.graph_slam, cfg.capacity, device=device)
@@ -361,7 +518,7 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict,
         p = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
         pre.append((p.transform.cpu().numpy(), int(p.iterations)))
         if device == "cuda":
-            check = pre_align_kernel_check(pre_map, src_p, src_m, p.transform)
+            check = pre_align_kernel_check(pre_map, src_p, src_m, p.transform, card)
         t0 = time.perf_counter()
         b._consume_verify(b.begin_loop_attempt())
         ms.append(1000 * (time.perf_counter() - t0))
@@ -391,6 +548,101 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict,
                 kernel_launches=launches[0], card_ms=round(ms[0], 3), cpu_ms=round(ms[1], 3))
 
 
+def reset_counts() -> None:
+    """Set every kernel's launch count to 0, just before a path is driven."""
+    for name in KERNELS:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts() -> dict:
+    """Every kernel's launches since `reset_counts`, read just after a path ran."""
+    torch.cuda.synchronize()
+    return {name: getattr(kernels, name).launches for name in KERNELS}
+
+
+def perturbed(T: np.ndarray) -> np.ndarray:
+    """`T` moved by (0.3, -0.2, 0.05) m and 0.01 rad of yaw: an initial guess that NDT
+    has a few iterations of work to correct."""
+    c, s = np.cos(0.01), np.sin(0.01)
+    D = np.eye(4, dtype=np.float32)
+    D[:2, :2] = [[c, -s], [s, c]]
+    D[:3, 3] = [0.3, -0.2, 0.05]
+    return (T @ D).astype(np.float32)
+
+
+def profile_ndt_align(cfg: PipelineConfig, ring, last, T_last: np.ndarray,
+                      parent: str | None) -> dict:
+    """One fine-stage `ndt_align` on the dense course under torch.profiler, by
+    `scripts/torch_profile_ndt.py` in a subprocess: the last ring scan against the full
+    ring's map from a perturbed guess. With `parent` (the parent commit unpacked by `git
+    archive`) the same input goes through both trees in turns (this, parent, parent,
+    this), and this tree must launch at least 40 fewer device kernels per NDT body."""
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "ndt_profile_input.npz")
+    np.savez(path, points=points.cpu().numpy(), mask=mask.cpu().numpy(),
+             source=last.points.cpu().numpy(), source_mask=last.mask.cpu().numpy(),
+             init=perturbed(T_last))
+    out = {}
+    order = [("this", REPO)] if parent is None else [
+        ("this", REPO), ("parent", parent), ("parent", parent), ("this", REPO)]
+    try:
+        for tree, root in order:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(REPO, "scripts", "torch_profile_ndt.py"),
+                 "--input", path, "--root", os.path.abspath(root)],
+                cwd=os.path.abspath(root), capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"ndt profile ({tree}) failed:\n{proc.stderr[-3000:]}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            out.setdefault(tree, []).append(rec)
+            rec = {k: v for k, v in rec.items() if k not in ("root", "transform")}
+            say("ndt-profile", tree=tree, **{
+                k: json.dumps(v, separators=(",", ":")) if isinstance(v, (list, dict)) else v
+                for k, v in rec.items()})
+    finally:
+        os.remove(path)
+    this = out["this"][0]
+    if not all(r["converged"] and r["wrapper_launches_per_body"].get(
+            "ndt_direct7_accumulate") == 1.0 for r in out["this"]):
+        raise AssertionError(f"ndt profile: {out['this']}")
+    summary = {tree: {k: float(np.mean([r[k] for r in runs])) for k in
+                      ("launches_per_body", "device_ms_per_body", "wall_ms_per_body")}
+               for tree, runs in out.items()}
+    if "parent" in out:
+        par = out["parent"][0]
+        fewer = par["launches_per_body"] - this["launches_per_body"]
+        dT = float(np.abs(np.asarray(par["transform"]) - np.asarray(this["transform"])).max())
+        say("ndt-profile", fewer_launches_per_body=fewer, transform_max_diff=dT,
+            mean=json.dumps(summary, separators=(",", ":")))
+        if not (fewer >= 40 and dT <= 1e-3):
+            raise AssertionError(f"ndt profile: {fewer} fewer launches per body, transform "
+                                 f"diff {dT}")
+    return summary
+
+
+def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> dict:
+    """`ndt_accumulate`'s own path: `ndt_align` with `line_search` (it keeps the gathered
+    rows for the step search) on the dense course's fine map, counts set to 0 just before
+    and read just after: one launch of it per NDT body, none of the fused kernel."""
+    ndt_cfg = cfg.scan_matcher.ndt
+    init = torch.as_tensor(perturbed(T_last), device=last.points.device)
+    reset_counts()
+    res = ndt_align(fine, last.points, last.mask, init, step_size=ndt_cfg.step_size,
+                    transform_epsilon=ndt_cfg.transform_epsilon,
+                    outlier_ratio=ndt_cfg.outlier_ratio,
+                    max_iterations=ndt_cfg.max_iterations, line_search=True)
+    counts = read_counts()
+    bodies = int(res.iterations) + 2
+    if not (bool(res.converged) and counts == {"ndt_direct7_accumulate": 0,
+                                                "ndt_accumulate": bodies}):
+        raise AssertionError(f"line search: converged {bool(res.converged)}, {bodies} "
+                             f"bodies, launches {counts}")
+    err = float(np.abs(res.transform.cpu().numpy() - T_last).max())
+    return dict(iterations=int(res.iterations), bodies=bodies,
+                launches=counts["ndt_accumulate"], transform_vs_truth_max=err)
+
+
 def run_cli(out_dir: str, frames: int, loops: bool = False) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -411,7 +663,38 @@ def run_cli(out_dir: str, frames: int, loops: bool = False) -> dict:
                 ate_keyframes_m=summary["ate_keyframes_m"])
 
 
-def main() -> int:
+def kernel_record(name: str, timing: dict, max_err: float, **launches) -> dict:
+    """One kernel's entry of the JSON record: times at the fine shape (the others by
+    shape), launches per path."""
+    t = timing["fine"][name]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
+        "replaces": "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
+        "replaces_commit": "4350000^",
+        **launches,
+        "max_abs_err": max_err,
+        "ms": t["device_us"] / 1000,
+        "host_ms": t["host_us"] / 1000,
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_us"] / 1000,
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "shapes": {shape: {k: v[name][k] for k in ("device_us", "host_us", "single_ms",
+                                                   "plain_ms", "bound_us", "bytes",
+                                                   "share_of_bound")}
+                   for shape, v in timing.items()},
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
+    ap.add_argument("--parent", default=None,
+                    help="a tree of the parent commit (git archive): phase 7 profiles it too")
+    args = ap.parse_args(argv)
     # -- 1. the card ------------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs a CUDA card",
@@ -431,10 +714,10 @@ def main() -> int:
     say("build", seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=round(kernels.build_info["seconds"], 3), library=kernels.build_info["path"])
     for line in kernels.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
 
-    # -- 3. kernel vs plain at the main path's shapes ------------------------------------
+    # -- 3. both kernels vs their plain versions at the main path's shapes, and times -----
     cfg = loops_off_config()
     ndt_cfg = cfg.scan_matcher.ndt
     t0 = time.perf_counter()
@@ -443,25 +726,28 @@ def main() -> int:
     fine_K = cfg.capacity.filtered_points * 7
     coarse_K = (cfg.capacity.filtered_points // ndt_cfg.coarse_subsample) * 7
     d2, w_scale = torch.tensor(0.25, device=dev), torch.tensor(1.05, device=dev)
-    max_err, timing = 0.0, {}
+    max_err = dict.fromkeys(KERNELS, 0.0)
     for K, seed in ((fine_K, 0), (coarse_K, 1)):
-        args = random_inputs(K, dev, seed)
-        max_err = max(max_err, compare_kernel(f"random-K{K}", args, d2, w_scale))
-        timing[K] = (median_ms(kernels.ndt_accumulate, *args, d2, w_scale),
-                     median_ms(kernels.ndt_accumulate_plain, *args, d2, w_scale))
-        say("kernel-time", K=K, kernel_ms=timing[K][0], plain_ms=timing[K][1], calls=50,
-            card=json.dumps(card))
+        args_ = random_inputs(K, dev, seed)
+        max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"],
+                                        compare_kernel(f"random-K{K}", args_, d2, w_scale))
     aux, ring, last = full_ring(cfg, scans, gt, dev)
     coarse, fine = aux["rebuild"](ring)
     # The last ring scan in the map frame, as the NDT iterations see it at convergence.
-    T = torch.as_tensor(gt[aux["window"] - 1], device=dev)
+    T_last = gt[aux["window"] - 1]
+    T = torch.as_tensor(T_last, device=dev)
     pts = torch.where(last.mask[:, None], last.points @ T[:3, :3].T + T[:3, 3], last.points)
-    for label, vmap, stride in (("map-fine", fine, 1),
-                                ("map-coarse", coarse, ndt_cfg.coarse_subsample)):
+    timing = {}
+    for label, vmap, stride in (("fine", fine, 1),
+                                ("coarse", coarse, ndt_cfg.coarse_subsample)):
         md1, md2 = magnusson_constants(vmap.leaf, ndt_cfg.outlier_ratio)
-        args = map_correspondences(vmap, pts, last.mask, stride)
-        max_err = max(max_err, compare_kernel(f"{label}-K{args[0].shape[0]}", args, md2,
-                                              -md1 * md2))
+        rows = map_correspondences(vmap, pts, last.mask, stride)
+        src, msk = pts[::stride].contiguous(), last.mask[::stride].contiguous()
+        max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"], compare_kernel(
+            f"map-{label}-K{rows[0].shape[0]}", rows, md2, -md1 * md2))
+        max_err["ndt_direct7_accumulate"] = max(max_err["ndt_direct7_accumulate"], compare_direct7(
+            f"map-{label}-N{src.shape[0]}", vmap, src, msk, md2, -md1 * md2))
+        timing[label] = kernel_timings(label, vmap, src, msk, rows, md2, -md1 * md2, card)
 
     # -- 4. deterministic map build on the full ring -------------------------------------
     say("map-build", **map_build_twice(aux, ring, dev))
@@ -469,38 +755,47 @@ def main() -> int:
     # -- 5. card vs the CPU plain path, first 3 frames -----------------------------------
     say("card-vs-cpu", **first_frames_agree(cfg, scans, ("cuda", "cpu")))
 
-    # -- 6. the main path on the card; the kernel's launches are counted here only --------
-    kernels.ndt_accumulate.launches = 0
+    # -- 6. the main path on the card; launches counted here only --------------------------
+    reset_counts()
     stats = run_pipeline(cfg, scans, gt, "cuda")
-    torch.cuda.synchronize()
-    launches = kernels.ndt_accumulate.launches
-    if launches <= 0:
-        raise AssertionError("the main path never launched the ndt_accumulate kernel")
-    say("pipeline", **stats, kernel_launches=launches, card=json.dumps(card))
+    launches = read_counts()
+    if launches["ndt_direct7_accumulate"] <= 0 or launches["ndt_accumulate"] != 0:
+        raise AssertionError(f"the main path's kernel launches: {launches}")
+    say("pipeline", **stats, kernel_launches=launches["ndt_direct7_accumulate"],
+        card=json.dumps(card))
 
-    # -- 7. the CLI ------------------------------------------------------------------------
+    # -- 7. one ndt_align under the profiler (and the parent's, given --parent) ----------
+    prof = profile_ndt_align(cfg, ring, last, T_last, args.parent)
+
+    # -- 8. ndt_accumulate's own path: ndt_align with line search; counted here only ------
+    ls = line_search_path(cfg, fine, last, T_last)
+    say("line-search", **ls)
+
+    # -- 9. the CLI ------------------------------------------------------------------------
     cli = run_cli(os.path.join(OUT_DIR, "cli"), 60)
     if cli["device"] != "cuda":
         raise AssertionError(f"CLI ran on {cli['device']}")
     say("cli", **cli)
 
-    # -- 8. the loop course: the default pipeline (loops on); launches counted here only --
+    # -- 10. the loop course: the default pipeline (loops on); launches counted here only --
     t0 = time.perf_counter()
     dscans, dgt = drift_course()
     say("drift-course", frames=len(dscans), seconds=round(time.perf_counter() - t0, 3),
         mean_raw_points=int(np.mean([len(s) for s in dscans])))
     cfg_on = PipelineConfig()
-    kernels.ndt_accumulate.launches = 0
+    reset_counts()
     pipe_on, res_on, on = run_loop_course(cfg_on, dscans, dgt, "cuda")
-    torch.cuda.synchronize()
-    launches_course = kernels.ndt_accumulate.launches
+    launches_course = read_counts()
     back = pipe_on.back
+    # The verify path launches only the fused kernel (the line search is off), so the
+    # verify thread's launches are all of it; ndt_accumulate must not have launched.
     launches_verify = back.verify_launches
     _, res_off, off = run_loop_course(loops_off_config(), dscans, dgt, "cuda")
     if not (on["loops_accepted"] >= 1 and launches_verify > 0
+            and launches_course["ndt_accumulate"] == 0
             and on["ate_keyframes_m"] < off["ate_keyframes_m"]):
-        raise AssertionError(f"loop course: loops on {on}, off {off}, verify launches "
-                             f"{launches_verify}")
+        raise AssertionError(f"loop course: loops on {on}, off {off}, launches "
+                             f"{launches_course}, verify {launches_verify}")
     odom_diff = float(np.abs(res_on.odometry_poses - res_off.odometry_poses).max())
     say("loop-course", p50_frame_ms=on["p50_frame_ms"], p50_frame_ms_loops_off=off["p50_frame_ms"],
         loops_accepted=on["loops_accepted"], loops_attempted=on["loops_attempted"],
@@ -514,42 +809,39 @@ def main() -> int:
         solve_ms_p50=1000 * float(np.median([r["seconds"] for r in back.solve_log])),
         solve_ms_max=1000 * float(np.max([r["seconds"] for r in back.solve_log])),
         solves=len(back.solve_log), solves_device_lm=sum(r["device_lm"] for r in back.solve_log),
-        ndt_launches_verify=launches_verify, ndt_launches_total=launches_course,
+        ndt_launches_verify=launches_verify,
+        ndt_launches_total=launches_course["ndt_direct7_accumulate"],
         odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
 
-    # -- 9-10. grid NN and one verification, card against CPU -------------------------------
+    # -- 11-12. grid NN and one verification, card against CPU ------------------------------
     first = next(r for r in back.loop_log if r["candidate"] >= 0)
     say("grid-nn", **grid_nn_card_vs_cpu(back, first))
-    ver = verify_card_vs_cpu(cfg_on, back, first)
-    max_err = max(max_err, ver["kernel_max_abs_err"])
+    ver = verify_card_vs_cpu(cfg_on, back, first, card)
+    timing["verify"] = ver.pop("timing")
+    for name, err in ver.pop("kernel_max_abs_err").items():
+        max_err[name] = max(max_err[name], err)
     say("verify", **ver)
 
-    # -- 11. the CLI's default run: loops on ---------------------------------------------------
+    # -- 13. the CLI's default run: loops on ---------------------------------------------------
     cli_on = run_cli(os.path.join(OUT_DIR, "cli_loops"), 100, loops=True)
     if cli_on["device"] != "cuda":
         raise AssertionError(f"CLI ran on {cli_on['device']}")
     say("cli-loops", **cli_on)
 
-    print(json.dumps({"kernels": [{
-        "name": "ndt_accumulate",
-        "route": "cuda",
-        "source": "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
-        "replaces": "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
-        "replaces_commit": "4350000^",
-        "launches": launches,
-        "launches_verify": launches_verify,
-        "launches_loop_course": launches_course,
-        "max_abs_err": max_err,
-        "ms": timing[fine_K][0],
-        "plain_ms": timing[fine_K][1],
-        "K": fine_K,
-        "ms_coarse": timing[coarse_K][0],
-        "plain_ms_coarse": timing[coarse_K][1],
-        "K_coarse": coarse_K,
-        "ms_verify": ver["kernel_ms"],
-        "plain_ms_verify": ver["kernel_plain_ms"],
-        "K_verify": ver["kernel_K"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        kernel_record(
+            "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
+            launches=launches["ndt_direct7_accumulate"], launches_verify=launches_verify,
+            launches_loop_course=launches_course["ndt_direct7_accumulate"],
+            fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)",
+            device_launches_per_ndt_body=prof["this"]["launches_per_body"],
+            parent_device_launches_per_ndt_body=(prof["parent"]["launches_per_body"]
+                                                 if "parent" in prof else None)),
+        kernel_record(
+            "ndt_accumulate", timing, max_err["ndt_accumulate"], launches=ls["launches"],
+            path="ndt_align(line_search=True)", launches_main_path=launches["ndt_accumulate"],
+            launches_verify=0, launches_loop_course=launches_course["ndt_accumulate"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel `ndt_accumulate` / `_ndt_accum_kernel` of
 // lidar_graph_slam_tpu/ops/pallas_kernels.py (deleted in commit 4350000; its live
 // reference is `ndt_accumulate_xla`, same file, which `ops/kernels.py` ports as the plain
-// PyTorch version this kernel is tested against).
+// PyTorch version these kernels are tested against).
 //
 // Per correspondence k (residual e, inverse covariance W, transformed point p, hit):
 //   md2 = e^T W e,  w = w_scale * exp(-0.5 * d2 * md2) if hit else 0,
@@ -12,16 +12,39 @@
 // g_w = p x (W e), g_v = W e. H is symmetric for symmetric W; the 21 upper-triangle
 // entries are accumulated and mirrored.
 //
-// What bounds it on this card: each row reads 61 bytes (e 12, W 36, p 12, hit 1) for
-// about 80 flops and one expf — about 1.3 flop/byte, far below the H100's ~20 flop/byte
-// f32 ridge, so it is bound by memory bytes at large K and by launch time at small K.
-// Design: one streaming pass, grid-stride rows per thread, 29 float accumulators in
-// registers (21 of H, 6 of g, sum_w, n_hit); a warp-shuffle + shared-memory block
-// reduction writes one partial row per block; a second single-block launch sums the
-// partials in a fixed order. No float atomics anywhere: for a given K the result is the
-// same bit for bit from run to run, which the odometry loop needs (it amplifies FP-level
-// noise). d2 and w_scale are read from device pointers (or passed by value), so no host
-// sync is needed per iteration.
+// Two entry points share that per-row routine (`accumulate_row`) and one epilogue:
+//
+//  * `ndt_direct7_kernel` takes the transformed points and the voxel map and does the
+//    DIRECT7 gather itself (the port of `lookup_direct7`, ops/voxel.py): one thread per
+//    (point, neighbour) pair computes the point's voxel cell, the neighbour cell and its
+//    in-range test, reads the dense table and the 64-byte packed row (mean | inv_cov |
+//    valid) as four 16-byte loads, and accumulates the row; the pair at offset 0 also
+//    sums the centre residual's |e|^2 and count (NDT's fitness). The N x 7
+//    correspondences never reach device memory. The voxel arithmetic is done with
+//    __fsub_rn / __fmul_rn and a round-down conversion, the same float32 operations as
+//    the plain version's `floor((p - origin) * inv_leaf)`, so nvcc cannot contract them
+//    into an FMA and a point on a cell border lands in the same cell on both paths.
+//  * `ndt_rows_kernel` takes gathered rows (e, W, p, hit), the reference's interface; the
+//    NDT line search and GICP use it.
+//
+// What bounds it on this card. The gathered-rows form reads 61 bytes per row for about
+// 110 flops and one expf: far below the H100's ~20 flop/byte f32 ridge, so bytes at
+// large K. The fused form streams only p and the mask (13 bytes per point); the table
+// (16.8 MB) and the packed rows (4.2 MB at 65,536 voxels) are read at random but fit in
+// the 50 MB L2. At the path's sizes (N <= 32,768) its bytes take ~1 us at 3.35 TB/s, so
+// the launch and the gathers' latency set its time: 7 threads per point give 7N
+// threads (896 blocks of 256 at N = 32,768) to hide that latency. Tensor cores and TMA
+// do not help a random gather feeding a 31-sum reduction.
+//
+// Epilogue (both): 31 float accumulators in registers (21 of H, 6 of g, sum_w, n_hit,
+// and the centre sums), a warp-shuffle + shared-memory block reduction, one partial row
+// per block, then __threadfence() and a ticket on a counter; the block that draws the
+// last ticket sums every block's partials in a fixed order, writes the output and
+// resets the counter. One launch per call, no float atomics: for a given N (or K) the
+// result is the same bit for bit from run to run, which the odometry loop needs (it
+// amplifies FP-level noise). The partials and the counter are the caller's scratch, one
+// set per CUDA stream. d2 and w_scale are read from device pointers (or passed by
+// value), so no host sync is needed per iteration.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,7 +53,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 29;  // 21 H upper triangle + 6 g + sum_w + n_hit
+constexpr int kQ = 31;    // 21 H upper triangle + 6 g + sum_w + n_hit + centre |e|^2, count
+constexpr int kOut = 46;  // H (36, row-major) | g (6) | sum_w | n_hit | centre |e|^2, count
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -38,74 +62,62 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ndt_partials_kernel(const float* __restrict__ e, const float* __restrict__ icov,
-                    const float* __restrict__ p, const uint8_t* __restrict__ hit,
-                    const float* __restrict__ d2_ptr, float d2_val,
-                    const float* __restrict__ ws_ptr, float ws_val, long long K,
-                    float* __restrict__ partials) {
-  const float d2 = d2_ptr ? *d2_ptr : d2_val;
-  const float ws = ws_ptr ? *ws_ptr : ws_val;
+// Adds one hit row's weighted terms to acc[0..27].
+__device__ __forceinline__ void accumulate_row(float* acc, float ex, float ey, float ez,
+                                               const float (&W)[3][3], float x, float y,
+                                               float z, float d2, float ws) {
+  float We[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) We[r] = W[r][0] * ex + W[r][1] * ey + W[r][2] * ez;
+  const float md2 = ex * We[0] + ey * We[1] + ez * We[2];
+  const float w = ws * expf(-0.5f * d2 * md2);
 
-  float acc[kQ];
+  // WA = W A with A = -hat(p): columns of A are (0,-z,y), (z,0,-x), (-y,x,0).
+  float WA[3][3];
 #pragma unroll
-  for (int q = 0; q < kQ; ++q) acc[q] = 0.f;
-
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x; k < K; k += stride) {
-    if (!hit[k]) continue;  // w = 0: the row adds nothing, and is not a hit
-    const float ex = e[3 * k], ey = e[3 * k + 1], ez = e[3 * k + 2];
-    const float x = p[3 * k], y = p[3 * k + 1], z = p[3 * k + 2];
-    float W[3][3];
-#pragma unroll
-    for (int i = 0; i < 9; ++i) W[i / 3][i % 3] = icov[9 * k + i];
-
-    float We[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) We[r] = W[r][0] * ex + W[r][1] * ey + W[r][2] * ez;
-    const float md2 = ex * We[0] + ey * We[1] + ez * We[2];
-    const float w = ws * expf(-0.5f * d2 * md2);
-
-    // WA = W A with A = -hat(p): columns of A are (0,-z,y), (z,0,-x), (-y,x,0).
-    float WA[3][3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      WA[r][0] = -W[r][1] * z + W[r][2] * y;
-      WA[r][1] = W[r][0] * z - W[r][2] * x;
-      WA[r][2] = -W[r][0] * y + W[r][1] * x;
-    }
-    // Rows 0..2 of J^T: A^T M for any 3-column block M.
-    float Hw[3][6];  // H rows 0..2: [H_ww | H_wv]
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      Hw[0][c] = -z * WA[1][c] + y * WA[2][c];
-      Hw[1][c] = z * WA[0][c] - x * WA[2][c];
-      Hw[2][c] = -y * WA[0][c] + x * WA[1][c];
-      Hw[0][3 + c] = -z * W[1][c] + y * W[2][c];
-      Hw[1][3 + c] = z * W[0][c] - x * W[2][c];
-      Hw[2][3 + c] = -y * W[0][c] + x * W[1][c];
-    }
-    int q = 0;
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = i; j < 6; ++j) acc[q++] += w * Hw[i][j];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = i; j < 3; ++j) acc[q++] += w * W[i][j];
-    // g_w = p x We, g_v = We.
-    acc[21] += w * (y * We[2] - z * We[1]);
-    acc[22] += w * (z * We[0] - x * We[2]);
-    acc[23] += w * (x * We[1] - y * We[0]);
-    acc[24] += w * We[0];
-    acc[25] += w * We[1];
-    acc[26] += w * We[2];
-    acc[27] += w;
-    acc[28] += 1.f;
+  for (int r = 0; r < 3; ++r) {
+    WA[r][0] = -W[r][1] * z + W[r][2] * y;
+    WA[r][1] = W[r][0] * z - W[r][2] * x;
+    WA[r][2] = -W[r][0] * y + W[r][1] * x;
   }
+  // Rows 0..2 of J^T: A^T M for any 3-column block M.
+  float Hw[3][6];  // H rows 0..2: [H_ww | H_wv]
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    Hw[0][c] = -z * WA[1][c] + y * WA[2][c];
+    Hw[1][c] = z * WA[0][c] - x * WA[2][c];
+    Hw[2][c] = -y * WA[0][c] + x * WA[1][c];
+    Hw[0][3 + c] = -z * W[1][c] + y * W[2][c];
+    Hw[1][3 + c] = z * W[0][c] - x * W[2][c];
+    Hw[2][3 + c] = -y * W[0][c] + x * W[1][c];
+  }
+  int q = 0;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j) acc[q++] += w * Hw[i][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 3; ++j) acc[q++] += w * W[i][j];
+  // g_w = p x We, g_v = We.
+  acc[21] += w * (y * We[2] - z * We[1]);
+  acc[22] += w * (z * We[0] - x * We[2]);
+  acc[23] += w * (x * We[1] - y * We[0]);
+  acc[24] += w * We[0];
+  acc[25] += w * We[1];
+  acc[26] += w * We[2];
+  acc[27] += w;
+  acc[28] += 1.f;
+}
 
-  __shared__ float red[kQ][kWarps];
+__device__ __forceinline__ int tri_index(int a, int b) {  // a <= b < 6, row-major upper
+  return a * 6 - a * (a - 1) / 2 + (b - a);
+}
+
+// Sums each acc[q] over the block's threads in a fixed order (warp shuffles, then the
+// warps in order through `red`); thread q < kQ returns quantity q's sum.
+__device__ __forceinline__ float block_sum(const float* acc, float (&red)[kQ][kWarps]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
@@ -113,38 +125,137 @@ ndt_partials_kernel(const float* __restrict__ e, const float* __restrict__ icov,
     if (lane == 0) red[q][warp] = v;
   }
   __syncthreads();
+  float s = 0.f;
   if (threadIdx.x < kQ) {
-    float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi) s += red[threadIdx.x][wi];
-    partials[(long long)threadIdx.x * gridDim.x + blockIdx.x] = s;  // [kQ][nblocks]
   }
+  return s;
 }
 
-__device__ __forceinline__ int tri_index(int a, int b) {  // a <= b < 6, row-major upper
-  return a * 6 - a * (a - 1) / 2 + (b - a);
-}
-
-// One block: warp `wi` sums quantities wi, wi + kWarps, ... over the blocks' partials,
-// lanes striding the blocks, then a warp shuffle — a fixed order for a given nblocks.
-__global__ void __launch_bounds__(kThreads)
-ndt_finalize_kernel(const float* __restrict__ partials, int nblocks, float* __restrict__ out) {
+// One partial row per block ([kQ][gridDim.x] in `partials`), then the block that draws
+// the last ticket sums all rows into `out`: thread t adds blocks t, t + kThreads, ... of
+// every quantity (31 independent loads in flight per step), then `block_sum` — a fixed
+// order for a given number of blocks. `counter` is 0 on entry and is left 0.
+__device__ __forceinline__ void reduce_and_finish(const float* acc, float* partials,
+                                                  unsigned int* counter, float* out) {
+  __shared__ float red[kQ][kWarps];
   __shared__ float tot[kQ];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int q = warp; q < kQ; q += kWarps) {
-    float s = 0.f;
-    for (int b = lane; b < nblocks; b += 32) s += partials[(long long)q * nblocks + b];
-    s = warp_sum(s);
-    if (lane == 0) tot[q] = s;
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  const int nblocks = gridDim.x;
+  const float s = block_sum(acc, red);
+  if (t < kQ) {
+    partials[(long long)t * nblocks + blockIdx.x] = s;
+    __threadfence();  // the partial is visible device-wide before the ticket is drawn
   }
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t < 36) {  // H [6, 6] row-major, mirrored from the upper triangle
+  if (t == 0) last = atomicAdd(counter, 1u) == (unsigned int)(nblocks - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float part[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) part[q] = 0.f;
+  for (int b = t; b < nblocks; b += kThreads) {  // __ldcg reads past L1: the rows are new
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) part[q] += __ldcg(&partials[(long long)q * nblocks + b]);
+  }
+  const float total = block_sum(part, red);
+  if (t < kQ) tot[t] = total;
+  __syncthreads();
+  if (t < 36) {  // H [6, 6], mirrored from the upper triangle
     const int i = t / 6, j = t % 6;
     out[t] = tot[tri_index(i < j ? i : j, i < j ? j : i)];
-  } else if (t < 44) {  // g [6], sum_w, n_hit
+  } else if (t < kOut) {  // g [6], sum_w, n_hit, centre |e|^2, centre count
     out[t] = tot[21 + (t - 36)];
   }
+  if (t == 0) *counter = 0u;  // ready for the next launch on this stream
+}
+
+__global__ void __launch_bounds__(kThreads)
+ndt_rows_kernel(const float* __restrict__ e, const float* __restrict__ icov,
+                const float* __restrict__ p, const uint8_t* __restrict__ hit,
+                const float* __restrict__ d2_ptr, float d2_val,
+                const float* __restrict__ ws_ptr, float ws_val, long long K,
+                float* __restrict__ partials, unsigned int* __restrict__ counter,
+                float* __restrict__ out) {
+  const float d2 = d2_ptr ? *d2_ptr : d2_val;
+  const float ws = ws_ptr ? *ws_ptr : ws_val;
+  float acc[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) acc[q] = 0.f;
+
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x; k < K; k += stride) {
+    if (!hit[k]) continue;  // w = 0: the row adds nothing, and is not a hit
+    float W[3][3];
+#pragma unroll
+    for (int i = 0; i < 9; ++i) W[i / 3][i % 3] = icov[9 * k + i];
+    accumulate_row(acc, e[3 * k], e[3 * k + 1], e[3 * k + 2], W, p[3 * k], p[3 * k + 1],
+                   p[3 * k + 2], d2, ws);
+  }
+  reduce_and_finish(acc, partials, counter, out);
+}
+
+struct Grid {
+  int dx, dy, dz;  // dense table dims (ops/voxel.py:TABLE_DIMS)
+  int hx, hy, hz;  // largest packable voxel coordinate per axis (voxel_coords' clamp)
+};
+
+__device__ __forceinline__ int voxel_coord(float v, float o, float inv_leaf, int hi) {
+  // floor((v - o) * inv_leaf) in float32, converted rounding down (saturating), then
+  // clamped to [0, hi] as in ops/voxel.py:voxel_coords.
+  const int c = __float2int_rd(__fmul_rn(__fsub_rn(v, o), inv_leaf));
+  return min(max(c, 0), hi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ndt_direct7_kernel(const float* __restrict__ p, const uint8_t* __restrict__ mask,
+                   const int* __restrict__ table, const float4* __restrict__ packed,
+                   const float* __restrict__ origin, const float* __restrict__ inv_leaf_ptr,
+                   Grid grid, const float* __restrict__ d2_ptr, float d2_val,
+                   const float* __restrict__ ws_ptr, float ws_val, long long N,
+                   float* __restrict__ partials, unsigned int* __restrict__ counter,
+                   float* __restrict__ out) {
+  const float d2 = d2_ptr ? *d2_ptr : d2_val;
+  const float ws = ws_ptr ? *ws_ptr : ws_val;
+  const float inv_leaf = *inv_leaf_ptr;
+  const float ox = origin[0], oy = origin[1], oz = origin[2];
+  float acc[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) acc[q] = 0.f;
+
+  const long long K = 7 * N;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x; k < K; k += stride) {
+    const long long i = k / 7;
+    const int o = (int)(k - 7 * i);
+    if (!mask[i]) continue;
+    const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
+    // DIRECT7 offset o, in the order of ops/voxel.py:DIRECT7_OFFSETS: (0,0,0), (+-1,0,0),
+    // (0,+-1,0), (0,0,+-1).
+    const int cx = voxel_coord(x, ox, inv_leaf, grid.hx) + (o == 1) - (o == 2);
+    const int cy = voxel_coord(y, oy, inv_leaf, grid.hy) + (o == 3) - (o == 4);
+    const int cz = voxel_coord(z, oz, inv_leaf, grid.hz) + (o == 5) - (o == 6);
+    if (cx < 0 || cx >= grid.dx || cy < 0 || cy >= grid.dy || cz < 0 || cz >= grid.dz)
+      continue;  // outside the table: the reference's overflow slot, which reads -1
+    const int idx = __ldg(&table[(cx * grid.dy + cy) * grid.dz + cz]);
+    if (idx < 0) continue;  // empty cell
+    const float4* row = packed + 4 * (long long)idx;
+    const float4 r3 = __ldg(row + 3);  // valid | pad
+    if (!(r3.x > 0.5f)) continue;      // fewer than min_points
+    const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+    // Row layout: mean (0..2) | inv_cov row-major (3..11) | valid (12) | pad.
+    const float W[3][3] = {{r0.w, r1.x, r1.y}, {r1.z, r1.w, r2.x}, {r2.y, r2.z, r2.w}};
+    const float ex = x - r0.x, ey = y - r0.y, ez = z - r0.z;
+    accumulate_row(acc, ex, ey, ez, W, x, y, z, d2, ws);
+    if (o == 0) {
+      acc[29] += ex * ex + ey * ey + ez * ez;
+      acc[30] += 1.f;
+    }
+  }
+  reduce_and_finish(acc, partials, counter, out);
 }
 
 }  // namespace
@@ -155,18 +266,32 @@ int lgs_ndt_threads() { return kThreads; }
 
 int lgs_ndt_quantities() { return kQ; }
 
-// Launches both kernels on `stream`. partials: [29 * nblocks] f32 scratch; out: [44] f32
-// = H (36, row-major) | g (6) | sum_w | n_hit. Returns cudaGetLastError() after the
-// launches (0 = success).
+int lgs_ndt_outputs() { return kOut; }
+
+// Both launch one kernel of `nblocks` blocks on `stream`. partials: [kQ * nblocks] f32
+// scratch; counter: one u32, 0 between launches (the kernel leaves it 0); out: [kOut] f32.
+// Return cudaGetLastError() after the launch (0 = success).
 int lgs_ndt_accumulate(const float* e, const float* icov, const float* p, const uint8_t* hit,
                        const float* d2_ptr, float d2_val, const float* ws_ptr, float ws_val,
-                       long long K, float* partials, int nblocks, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ndt_partials_kernel<<<nblocks, kThreads, 0, s>>>(e, icov, p, hit, d2_ptr, d2_val, ws_ptr,
-                                                   ws_val, K, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ndt_finalize_kernel<<<1, kThreads, 0, s>>>(partials, nblocks, out);
+                       long long K, float* partials, unsigned int* counter, int nblocks,
+                       float* out, void* stream) {
+  ndt_rows_kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      e, icov, p, hit, d2_ptr, d2_val, ws_ptr, ws_val, K, partials, counter, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed: [rows, 16] f32, 16-byte aligned; table: [dx * dy * dz] i32; origin: [3] f32;
+// inv_leaf: one f32 — all on the device.
+int lgs_ndt_direct7_accumulate(const float* p, const uint8_t* mask, const int* table,
+                               const float* packed, const float* origin,
+                               const float* inv_leaf, int dx, int dy, int dz, int hx, int hy,
+                               int hz, const float* d2_ptr, float d2_val, const float* ws_ptr,
+                               float ws_val, long long N, float* partials,
+                               unsigned int* counter, int nblocks, float* out, void* stream) {
+  const Grid grid{dx, dy, dz, hx, hy, hz};
+  ndt_direct7_kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, mask, table, reinterpret_cast<const float4*>(packed), origin, inv_leaf, grid,
+      d2_ptr, d2_val, ws_ptr, ws_val, N, partials, counter, out);
   return static_cast<int>(cudaGetLastError());
 }
 

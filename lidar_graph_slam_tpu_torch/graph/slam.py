@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lidar_graph_slam_tpu_torch.core.config import CapacityConfig, GraphSlamConfig
+from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
 from lidar_graph_slam_tpu_torch.graph import refine64, solver
 from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
@@ -119,14 +120,15 @@ class GraphBasedSLAM:
     """Host-side back end. Keyframe clouds are kept host-side (numpy) and shipped to the
     device only for loop verification and map assembly. The pose graph lives twice: on
     the device (the f32 LM fallback) and as host f64 mirrors feeding the refinement tier
-    (`_host_view`)."""
+    (`_host_view`). Runs on the CUDA card unless `device` names another
+    (`core/device.py`)."""
 
     _FLUSH_BATCH = 32
 
     def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, device=None):
         self.cfg = cfg
         self.capacity = capacity
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.method = cfg.registration_method.upper()
         if self.method not in ("ICP", "GICP", "NDT"):
             raise ValueError(f"unknown loop registration_method {cfg.registration_method!r}")

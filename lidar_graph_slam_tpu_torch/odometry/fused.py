@@ -24,6 +24,7 @@ import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.core.config import CapacityConfig, PrefilterConfig, ScanMatcherConfig
+from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, init_ring, ring_insert
@@ -65,7 +66,8 @@ def make_fused_frontend(
     capacity: CapacityConfig,
     device=None,
 ) -> Tuple[Callable[[], FrontEndState], Callable, dict]:
-    """Build (init_state, step, aux) for the fused front end on `device`.
+    """Build (init_state, step, aux) for the fused front end on `device` (None: the CUDA
+    card, `core/device.py`); every tensor the front end allocates lives there.
 
     step(state, raw_points [R,3], target, imu_R [3,3], use_imu: bool, T_ext [4,4],
          use_ext: bool) -> (state', FrameOut)
@@ -73,6 +75,7 @@ def make_fused_frontend(
     aux = {"init_ring", "rebuild", "insert_and_rebuild", "window"}: the ring/target
     functions for the host to drive.
     """
+    device = resolve_device(device)
     method = cfg.registration_method.upper()
     if method != "NDT":
         raise NotImplementedError(

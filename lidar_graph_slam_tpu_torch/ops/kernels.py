@@ -1,19 +1,29 @@
 """NDT/GICP normal-equation accumulation — the registration hot loop's reduction.
 
-`ndt_accumulate` is the port of the TPU kernel `ndt_accumulate` of
+Both wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
-`ndt_accumulate_xla`, same file): a hand-written CUDA kernel for Hopper
-(`csrc/ndt_accumulate.cu`, its header says what bounds it and how it is built for that),
-compiled with nvcc at first use into `build/` and bound with ctypes.
+`ndt_accumulate_xla`, same file) as hand-written CUDA kernels for Hopper in one source,
+`csrc/ndt_accumulate.cu` (its header says what bounds them and how they are built for
+that), compiled with nvcc at first use into `build/` and bound with ctypes:
 
-Beside it, `ndt_accumulate_plain` is the plain PyTorch version — the port of
+* `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
+  reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
+  accumulation, and the centre-residual sums of NDT's fitness. `ndt_align` calls it.
+* `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
+  rows, for NDT's line search (which needs the gathered means) and GICP.
+
+Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
-(`lidar_graph_slam_tpu/registration/base.py:38-64`). The wrapper takes it for CPU tensors
-only; on a CUDA tensor it launches the kernel or raises.
+(`lidar_graph_slam_tpu/registration/base.py:38-64`); `ndt_direct7_accumulate_plain` is
+`lookup_direct7` followed by it (`direct7_gathered`). A wrapper takes its plain version
+for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 
-Launch counts: `ndt_accumulate.launches` counts every launch in the process (odometry on
-the main thread and loop verification in its worker thread both launch the kernel), and
-`thread_launches()` counts the calling thread's, so a caller can tell the two paths apart.
+Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
+on the main thread and loop verification in its worker thread both launch), and
+`thread_launches()` the calling thread's, so a caller can tell the two paths apart.
+Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
+a ticket counter; there is one such pair per CUDA stream, made at the stream's first
+launch, because the odometry and the verification thread launch at once on two streams.
 """
 
 from __future__ import annotations
@@ -28,24 +38,37 @@ import time
 
 import torch
 
+from lidar_graph_slam_tpu_torch.ops.voxel import COORD_MAX, TABLE_DIMS, lookup_direct7
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "ndt_accumulate.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _MAX_BLOCKS = 1024
+_TABLE_SIZE = TABLE_DIMS[0] * TABLE_DIMS[1] * TABLE_DIMS[2]
 
 _lib = None  # the loaded shared library (built at first use)
 _lib_lock = threading.Lock()
 build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or load
+_consts: dict = {}     # the library's threads per block, accumulators and outputs
+_scratch: dict = {}    # (device index, stream handle) -> (partials f32, counter i32)
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
 
 
 def thread_launches() -> int:
-    """Kernel launches made by the calling thread since it started."""
+    """Kernel launches (of both kernels) made by the calling thread since it started."""
     return getattr(_thread_counts, "launches", 0)
 
+
+def _count(wrapper) -> None:
+    with _count_lock:
+        wrapper.launches += 1
+    _thread_counts.launches = thread_launches() + 1
+
+
+# -- plain versions ----------------------------------------------------------------------
 
 def point_jacobian_blocks(p_transformed: torch.Tensor) -> torch.Tensor:
     """J = [ -hat(p), I ] (3x6) for residual e = (T p) - q under left perturbation."""
@@ -85,6 +108,36 @@ def ndt_accumulate_plain(e, icovs, p, hit, d2, w_scale):
     return H, g, torch.sum(w), torch.sum(hit.to(torch.float32))
 
 
+def direct7_gathered(vmap, p, source_mask, d2, w_scale, accumulate):
+    """One NDT iteration's reduction over gathered correspondences: `lookup_direct7`, the
+    source mask, e = p - mean, then `accumulate` (`ndt_accumulate` or its plain version)
+    over the N x 7 rows and the centre residuals' sums.
+
+    Returns ((H, g, sum_w, n_hit, centre_d2_sum, centre_count), (means, icovs, valid)):
+    the line search reuses the gathered rows."""
+    means, icovs, hit = lookup_direct7(vmap, p)                  # [N, 7, ...]
+    valid = hit & source_mask[:, None]
+    e = p[:, None, :] - means                                    # [N, 7, 3]
+    n = p.shape[0]
+    K = n * 7
+    p_rep = p[:, None, :].expand(n, 7, 3).reshape(K, 3)
+    H, g, sum_w, n_hit = accumulate(e.reshape(K, 3), icovs.reshape(K, 3, 3).contiguous(),
+                                    p_rep.contiguous(), valid.reshape(K), d2, w_scale)
+    centre_valid = valid[:, 0]
+    centre_d2 = torch.sum(torch.where(centre_valid, torch.sum(e[:, 0, :] ** 2, dim=-1), 0.0))
+    centre_count = torch.sum(centre_valid.to(torch.float32))
+    return (H, g, sum_w, n_hit, centre_d2, centre_count), (means, icovs, valid)
+
+
+def ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale, inv_leaf=None):
+    """Plain PyTorch version of `ndt_direct7_accumulate` (`inv_leaf` is not needed:
+    `lookup_direct7` computes the same `1.0 / vmap.leaf`)."""
+    del inv_leaf
+    return direct7_gathered(vmap, p, source_mask, d2, w_scale, ndt_accumulate_plain)[0]
+
+
+# -- the library -------------------------------------------------------------------------
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -103,6 +156,8 @@ def load_library():
     stale build is never loaded. `build_info` records the path, the build seconds (0.0
     when an existing build was loaded) and the compiler's output.
     """
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         return _load_library_locked()
 
@@ -127,19 +182,36 @@ def _load_library_locked():
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
-    vp = ctypes.c_void_p
-    lib.lgs_ndt_accumulate.argtypes = [vp, vp, vp, vp, vp, ctypes.c_float, vp, ctypes.c_float,
-                                       ctypes.c_longlong, vp, ctypes.c_int, vp, vp]
-    lib.lgs_ndt_accumulate.restype = ctypes.c_int
-    lib.lgs_ndt_threads.argtypes = []
-    lib.lgs_ndt_threads.restype = ctypes.c_int
-    lib.lgs_ndt_quantities.argtypes = []
-    lib.lgs_ndt_quantities.restype = ctypes.c_int
+    vp, f32, i32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+    lib.lgs_ndt_accumulate.argtypes = [vp, vp, vp, vp, vp, f32, vp, f32, i64, vp, vp, i32,
+                                       vp, vp]
+    lib.lgs_ndt_direct7_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                               i32, i32, vp, f32, vp, f32, i64, vp, vp, i32,
+                                               vp, vp]
+    for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate):
+        fn.restype = ctypes.c_int
+    for name in ("threads", "quantities", "outputs"):
+        fn = getattr(lib, f"lgs_ndt_{name}")
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        _consts[name] = fn()
     lib.lgs_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lgs_cuda_error_string.restype = ctypes.c_char_p
     build_info.update(path=so_path, seconds=seconds, log=log)
     _lib = lib
     return lib
+
+
+# -- wrappers ----------------------------------------------------------------------------
+
+def _check(wrapper: str, device, **tensors) -> None:
+    """Each keyword is (tensor, shape, dtype): on `device`, of that shape and dtype, and
+    contiguous; raises ValueError otherwise."""
+    for name, (t, shape, dtype) in tensors.items():
+        if t.device != device or tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{wrapper}: {name} must be {dtype} {shape} on {device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{wrapper}: {name} must be contiguous")
 
 
 def _scalar_arg(x, device):
@@ -152,8 +224,34 @@ def _scalar_arg(x, device):
     return None, float(x)
 
 
+def _launch_args(device, rows: int):
+    """(stream handle, partials pointer, counter pointer, blocks, fresh output) for one
+    launch over `rows` work items on the current stream of `device`."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    scratch = _scratch.get(key)
+    if scratch is None:
+        with _lib_lock:
+            scratch = _scratch.get(key)
+            if scratch is None:  # zeroed on this stream, before its first launch
+                scratch = _scratch[key] = (
+                    torch.empty(_consts["quantities"] * _MAX_BLOCKS, dtype=torch.float32,
+                                device=device),
+                    torch.zeros(1, dtype=torch.int32, device=device))
+    threads = _consts["threads"]
+    nblocks = min(max(-(-rows // threads), 1), _MAX_BLOCKS)
+    out = torch.empty(_consts["outputs"], dtype=torch.float32, device=device)
+    return stream, scratch[0].data_ptr(), scratch[1].data_ptr(), nblocks, out
+
+
+def _raise_on(err: int, wrapper: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{wrapper} launch failed: "
+                           f"{_lib.lgs_cuda_error_string(err).decode()} ({err})")
+
+
 def ndt_accumulate(e, icovs, p, hit, d2, w_scale):
-    """Weighted 6x6 normal-equation accumulation over correspondences.
+    """Weighted 6x6 normal-equation accumulation over gathered correspondences.
 
     e:     [K, 3] f32 residuals (p - mean) per correspondence
     icovs: [K, 3, 3] f32
@@ -170,34 +268,67 @@ def ndt_accumulate(e, icovs, p, hit, d2, w_scale):
     if e.device.type != "cuda":
         raise ValueError(f"ndt_accumulate: unsupported device {e.device}")
     K = e.shape[0]
-    expect = {"e": (e, (K, 3), torch.float32), "icovs": (icovs, (K, 3, 3), torch.float32),
-              "p": (p, (K, 3), torch.float32), "hit": (hit, (K,), torch.bool)}
-    for name, (t, shape, dtype) in expect.items():
-        if t.device != e.device or tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"ndt_accumulate: {name} must be {dtype} {shape} on {e.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"ndt_accumulate: {name} must be contiguous")
+    _check("ndt_accumulate", e.device, e=(e, (K, 3), torch.float32),
+           icovs=(icovs, (K, 3, 3), torch.float32), p=(p, (K, 3), torch.float32),
+           hit=(hit, (K,), torch.bool))
     d2_ptr, d2_val = _scalar_arg(d2, e.device)
     ws_ptr, ws_val = _scalar_arg(w_scale, e.device)
-
     lib = load_library()
-    threads = lib.lgs_ndt_threads()
-    nblocks = min(max(-(-K // threads), 1), _MAX_BLOCKS)
-    partials = torch.empty(lib.lgs_ndt_quantities() * nblocks, dtype=torch.float32,
-                           device=e.device)
-    out = torch.empty(44, dtype=torch.float32, device=e.device)
-    stream = torch.cuda.current_stream(e.device).cuda_stream
-    err = lib.lgs_ndt_accumulate(
+    stream, partials, counter, nblocks, out = _launch_args(e.device, K)
+    _raise_on(lib.lgs_ndt_accumulate(
         e.data_ptr(), icovs.data_ptr(), p.data_ptr(), hit.data_ptr(), d2_ptr, d2_val,
-        ws_ptr, ws_val, K, partials.data_ptr(), nblocks, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"ndt_accumulate launch failed: "
-                           f"{lib.lgs_cuda_error_string(err).decode()} ({err})")
-    with _count_lock:
-        ndt_accumulate.launches += 1
-    _thread_counts.launches = thread_launches() + 1
+        ws_ptr, ws_val, K, partials, counter, nblocks, out.data_ptr(), stream),
+        "ndt_accumulate")
+    _count(ndt_accumulate)
     return out[:36].view(6, 6), out[36:42], out[42], out[43]
 
 
+def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale, inv_leaf=None):
+    """One NDT iteration's reduction against a voxel map, gather included.
+
+    vmap:        `ops.voxel.NdtVoxelMap` (its dense table, packed rows, origin and leaf)
+    p:           [N, 3] f32 transformed source points
+    source_mask: [N] bool
+    d2, w_scale: 0-d f32 tensors on the same device, or numbers
+    inv_leaf:    `1.0 / vmap.leaf` (a 0-d f32 tensor on the device), for callers that
+                 make many calls against one map; computed here when None.
+    Returns (H [6,6], g [6], sum_w, n_hit, centre_d2_sum, centre_count), f32 on the
+    device: the accumulation over the N x 7 DIRECT7 correspondences (hit = neighbour
+    cell in the table, occupied, valid voxel, source row masked in) and, over the hits
+    at offset 0, the sum of |p - mean|^2 and their count (NDT's fitness is their ratio).
+
+    CPU tensors take `ndt_direct7_accumulate_plain`; CUDA tensors launch the kernel
+    (counted in `ndt_direct7_accumulate.launches`) or raise.
+    """
+    if p.device.type == "cpu":
+        return ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale)
+    if p.device.type != "cuda":
+        raise ValueError(f"ndt_direct7_accumulate: unsupported device {p.device}")
+    dev, n = p.device, p.shape[0]
+    if inv_leaf is None:
+        inv_leaf = 1.0 / vmap.leaf
+    _check("ndt_direct7_accumulate", dev, p=(p, (n, 3), torch.float32),
+           source_mask=(source_mask, (n,), torch.bool),
+           table=(vmap.table, (_TABLE_SIZE,), torch.int32),
+           packed=(vmap.packed, (vmap.packed.shape[0], 16), torch.float32),
+           origin=(vmap.origin, (3,), torch.float32))
+    if vmap.packed.data_ptr() % 16:
+        raise ValueError("ndt_direct7_accumulate: packed rows must be 16-byte aligned")
+    d2_ptr, d2_val = _scalar_arg(d2, dev)
+    ws_ptr, ws_val = _scalar_arg(w_scale, dev)
+    inv_ptr, _ = _scalar_arg(inv_leaf, dev)
+    if inv_ptr is None:
+        raise ValueError("ndt_direct7_accumulate: inv_leaf must be a tensor on the device")
+    lib = load_library()
+    stream, partials, counter, nblocks, out = _launch_args(dev, 7 * n)
+    _raise_on(lib.lgs_ndt_direct7_accumulate(
+        p.data_ptr(), source_mask.data_ptr(), vmap.table.data_ptr(), vmap.packed.data_ptr(),
+        vmap.origin.data_ptr(), inv_ptr, *TABLE_DIMS, *COORD_MAX, d2_ptr, d2_val, ws_ptr,
+        ws_val, n, partials, counter, nblocks, out.data_ptr(), stream),
+        "ndt_direct7_accumulate")
+    _count(ndt_direct7_accumulate)
+    return out[:36].view(6, 6), out[36:42], out[42], out[43], out[44], out[45]
+
+
 ndt_accumulate.launches = 0
+ndt_direct7_accumulate.launches = 0

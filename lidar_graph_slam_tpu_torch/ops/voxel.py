@@ -27,6 +27,7 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, pad_points
 
 _BITS_X, _BITS_Y, _BITS_Z = 11, 11, 8
 _NX, _NY, _NZ = 1 << _BITS_X, 1 << _BITS_Y, 1 << _BITS_Z
+COORD_MAX = (_NX - 1, _NY - 1, _NZ - 1)  # largest packable voxel coordinate per axis
 INVALID_KEY = 2**31 - 1
 _INT32_MIN = -(2**31)
 
@@ -99,7 +100,7 @@ def build_dense_table(keys: torch.Tensor, row_valid: torch.Tensor, dims) -> torc
 def voxel_coords(points: torch.Tensor, origin: torch.Tensor, inv_leaf) -> torch.Tensor:
     """Integer voxel coords [N, 3] relative to `origin`, clamped into the packable range."""
     c = torch.floor((points - origin) * inv_leaf).to(torch.int32)
-    hi = const((_NX - 1, _NY - 1, _NZ - 1), torch.int32, points.device)
+    hi = const(COORD_MAX, torch.int32, points.device)
     return torch.minimum(torch.clamp(c, min=0), hi)
 
 

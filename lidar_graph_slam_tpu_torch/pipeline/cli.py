@@ -3,7 +3,9 @@
 Port of `lidar_graph_slam_tpu/pipeline/cli.py`: one command producing trajectory files
 (TUM + KITTI), the map PCD, a bird's-eye PNG (when matplotlib is installed) and a metrics
 JSON. Loop closure is on by default, as in the reference; `--no-loop-closure` switches it
-off. The KITTI reader, `--multihost` and `--live-render` are not ported yet.
+off. It runs on the CUDA card; `--device cpu` runs it on the CPU (the counterpart of the
+reference's platform choice). The KITTI reader, `--multihost` and `--live-render` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ def main(argv=None) -> int:
     ap.add_argument("--output", default="out", help="output directory")
     ap.add_argument("--map-resolution", type=float, default=0.5)
     ap.add_argument("--no-loop-closure", action="store_true")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the pipeline runs (default: the CUDA card; no fallback)")
     ap.add_argument("--progress-every", type=int, default=20)
     ap.add_argument("--metrics-jsonl", default=None,
                     help="write per-frame structured metrics to this JSONL file")
@@ -50,7 +54,7 @@ def main(argv=None) -> int:
                             laps=min(1.08, 1.08 * args.frames / 100.0))
     gt_all = seq.poses
 
-    pipe = SlamPipeline(cfg, metrics_path=args.metrics_jsonl)  # cuda when available
+    pipe = SlamPipeline(cfg, metrics_path=args.metrics_jsonl, device=args.device)
     os.makedirs(args.output, exist_ok=True)
     result = pipe.run(seq, progress_every=args.progress_every)
     write_tum_trajectory(os.path.join(args.output, "odometry_tum.txt"), result.odometry_poses)

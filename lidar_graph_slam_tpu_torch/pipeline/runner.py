@@ -24,6 +24,7 @@ import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.core.config import PipelineConfig
+from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.msgs import KeyFrame
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
@@ -40,10 +41,6 @@ class PipelineResult:
     num_loop_closures: int
     loop_log: list
     metrics: dict = field(default_factory=dict)
-
-
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 class _HostCopy:
@@ -80,7 +77,8 @@ def _pack_scalars(out) -> torch.Tensor:
 
 
 class SlamPipeline:
-    """Host driver: feed raw scans, get trajectories, map, and metrics."""
+    """Host driver: feed raw scans, get trajectories, map, and metrics. Runs on the CUDA
+    card unless `device` names another (`core/device.py`)."""
 
     def __init__(self, cfg: PipelineConfig, metrics_path: Optional[str] = None,
                  extrinsic_provider=None, device=None):
@@ -88,7 +86,7 @@ class SlamPipeline:
             raise NotImplementedError(
                 "the classic stage-by-stage driver (fused_frontend=False) is not ported "
                 "to the PyTorch package yet")
-        self.device = torch.device(device) if device is not None else default_device()
+        self.device = resolve_device(device)
         self.metrics_writer = MetricsWriter(metrics_path)
         self.cfg = cfg
         # Per-frame sensor->base extrinsic hook: callable stamp -> [4,4] | None (None

@@ -2,8 +2,11 @@
 
 Port of `lidar_graph_slam_tpu/registration/ndt.py`: iteratively-reweighted Gauss-Newton
 on Magnusson's exponential score against a voxel-Gaussian map (`ops.voxel`). Each
-iteration transforms the source, gathers the DIRECT7 neighbor Gaussians and accumulates
-the 6x6 normal equations (`ops.kernels.ndt_accumulate`: the CUDA kernel on the card).
+iteration transforms the source, then gathers the DIRECT7 neighbor Gaussians and
+accumulates the 6x6 normal equations and the fitness sums in one step
+(`ops.kernels.ndt_direct7_accumulate`: one CUDA kernel launch on the card), then solves.
+With `line_search` the gathered rows are kept for the step search, so that path gathers
+with `lookup_direct7` and accumulates with `ops.kernels.ndt_accumulate`.
 
 Loop structure: the reference's `lax.while_loop` becomes a Python loop that reads the
 device's `done` flag once per iteration (one host sync per iteration); the two polish
@@ -22,7 +25,6 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     as_f32,
     build_ndt_map,
     build_ndt_pyramid,
-    lookup_direct7,
 )
 from lidar_graph_slam_tpu_torch.registration.base import (
     RegistrationResult,
@@ -64,22 +66,22 @@ def ndt_align(
     correspondences and the best-scoring scale is taken. Off by default."""
     d1, d2 = magnusson_constants(vmap.leaf, outlier_ratio)
     w_scale = -d1 * d2  # > 0: d1 < 0 by construction
-    n = source_points.shape[0]
     dtype, dev = source_points.dtype, source_points.device
     damping = as_f32(1e-6, source_points)
+    inv_leaf = 1.0 / vmap.leaf  # the float32 `lookup_direct7` uses, made once per align
+    source_mask = source_mask.contiguous()  # a strided subsample is copied once, here
 
     def body(T, done, iters):
         p = se3.transform_points(T, source_points)                   # [N, 3]
-        means, icovs, hit = lookup_direct7(vmap, p)                  # [N, 7, ...]
-        valid = hit & source_mask[:, None]
-        e = p[:, None, :] - means                                    # [N, 7, 3]
-
-        K = n * 7
-        p_rep = p[:, None, :].expand(n, 7, 3).reshape(K, 3)
-        H, g, _sum_w, n_hit = kernels.ndt_accumulate(
-            e.reshape(K, 3), icovs.reshape(K, 3, 3).contiguous(), p_rep.contiguous(),
-            valid.reshape(K), d2, w_scale,
-        )
+        if line_search:
+            # The line search evaluates the score against the gathered means and
+            # inverse covariances, so this path gathers them and accumulates the rows.
+            sums, (means, icovs, valid) = kernels.direct7_gathered(
+                vmap, p, source_mask, d2, w_scale, kernels.ndt_accumulate)
+        else:
+            sums = kernels.ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale,
+                                                  inv_leaf=inv_leaf)
+        H, g, _sum_w, n_hit, centre_d2, centre_count = sums
         n_inliers = n_hit.to(torch.int32)
 
         delta = cap_step(solve_damped(H, g, damping), step_size)
@@ -95,10 +97,7 @@ def ndt_align(
                 scores.append(torch.sum(torch.where(valid, torch.exp(-0.5 * d2 * md2c), 0.0)))
             delta = alphas[torch.argmax(torch.stack(scores))] * delta
         # Mean squared distance to the matched voxel means (diagnostic fitness).
-        d2_center = torch.sum(e[:, 0, :] ** 2, dim=-1)
-        center_valid = valid[:, 0]
-        fitness = torch.sum(torch.where(center_valid, d2_center, 0.0)) / torch.clamp(
-            torch.sum(center_valid.to(torch.int32)), min=1)
+        fitness = centre_d2 / torch.clamp(centre_count, min=1.0)
 
         step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
         delta = torch.where(step_ok, delta, 0.0)

@@ -116,7 +116,7 @@ def test_capacity_refusals_match_reference():
     are refused and flagged; the device graph agrees."""
     cap = dict(max_keyframes=4, max_loop_factors=2, keyframe_points=256,
                loop_submap_points=1024, voxel_capacity=1024)
-    jb, tb = JBack(JCfg(), JCap(**cap)), TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap))
+    jb, tb = JBack(JCfg(), JCap(**cap)), TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap), device="cpu")
     for kf in _line(6):
         jb.add_keyframe(kf)
         tb.add_keyframe(kf)
@@ -125,7 +125,7 @@ def test_capacity_refusals_match_reference():
     np.testing.assert_array_equal(tb.graph.poses.numpy(), np.asarray(jb.graph.poses))
 
     cap["max_keyframes"], cap["max_loop_factors"] = 16, 0
-    jb, tb = JBack(JCfg(), JCap(**cap)), TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap))
+    jb, tb = JBack(JCfg(), JCap(**cap)), TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap), device="cpu")
     for kf in _line(3):
         jb.add_keyframe(kf)
         tb.add_keyframe(kf)
@@ -138,13 +138,15 @@ def test_backend_validates_its_configuration():
     """An unknown verifier is a ValueError, as in the reference; the verifiers and the
     global initial guess that are not ported yet refuse at construction."""
     with pytest.raises(ValueError):
-        TBack(tcfg.GraphSlamConfig(registration_method="VGICP"), tcfg.CapacityConfig())
+        TBack(tcfg.GraphSlamConfig(registration_method="VGICP"), tcfg.CapacityConfig(),
+              device="cpu")
     with pytest.raises(NotImplementedError):
-        TBack(tcfg.GraphSlamConfig(registration_method="GICP"), tcfg.CapacityConfig())
+        TBack(tcfg.GraphSlamConfig(registration_method="GICP"), tcfg.CapacityConfig(),
+              device="cpu")
     with pytest.raises(NotImplementedError):
-        TBack(tcfg.GraphSlamConfig(use_global_init=True), tcfg.CapacityConfig())
+        TBack(tcfg.GraphSlamConfig(use_global_init=True), tcfg.CapacityConfig(), device="cpu")
     assert TBack(tcfg.GraphSlamConfig(registration_method="ndt"),
-                 tcfg.CapacityConfig()).method == "NDT"
+                 tcfg.CapacityConfig(), device="cpu").method == "NDT"
 
 
 @pytest.fixture(scope="module")
@@ -269,7 +271,7 @@ def test_submap_subsamples_to_budget_matches_reference():
     """Uniform-stride subsampling of an over-budget loop submap, as in the reference."""
     cap = dict(max_keyframes=64, max_loop_factors=8, keyframe_points=4096)
     jb = JBack(JCfg(), JCap(**cap))
-    tb = TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap))
+    tb = TBack(tcfg.GraphSlamConfig(), tcfg.CapacityConfig(**cap), device="cpu")
     rng = np.random.default_rng(0)
     for k in range(21):
         kf = _keyframe(2.0 * k, 0.0, 2.0 * k)

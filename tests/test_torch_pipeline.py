@@ -24,7 +24,9 @@ from lidar_graph_slam_tpu.core import config as jcfg
 from lidar_graph_slam_tpu.io.synthetic import SyntheticSequence
 from lidar_graph_slam_tpu.pipeline.runner import SlamPipeline as JaxPipeline
 from lidar_graph_slam_tpu_torch.core import config as tcfg
+from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+from lidar_graph_slam_tpu_torch.pipeline import cli
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline as TorchPipeline
 from lidar_graph_slam_tpu_torch.utils.state import (
     front_end_state_from_numpy,
@@ -254,14 +256,14 @@ def test_loop_closure_constructs_and_runs(course, cfg):
 def test_cli_runs_on_cpu(tmp_path):
     out = tmp_path / "run"
     cmd = [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--frames", "3",
-           "--no-loop-closure", "--output", str(out), "--progress-every", "0",
+           "--device", "cpu", "--no-loop-closure", "--output", str(out), "--progress-every", "0",
            "--set", "prefilter.leaf_size=0.3", "--set", "prefilter.mean_k=10",
            "--set", "capacity.raw_points=16384", "--set", "capacity.filtered_points=4096",
            "--set", "capacity.voxel_capacity=32768"]
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads((out / "metrics.json").read_text())
-    assert summary["frames"] == 3 and summary["keyframes"] >= 1
+    assert summary["frames"] == 3 and summary["keyframes"] >= 1 and summary["device"] == "cpu"
     assert summary["ate_odometry_m"] < 0.5
     for name in ("odometry_tum.txt", "odometry_kitti.txt", "keyframes_tum.txt", "map.pcd"):
         assert (out / name).exists(), name
@@ -273,6 +275,35 @@ def test_cli_runs_on_cpu(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     summary = json.loads((loops_on / "metrics.json").read_text())
     assert summary["frames"] == 3 and summary["loop_closures"] == 0
+
+
+ENTRY_POINTS = {
+    "SlamPipeline": lambda c: TorchPipeline(c),
+    "GraphBasedSLAM": lambda c: GraphBasedSLAM(c.graph_slam, c.capacity),
+    "make_fused_frontend": lambda c: make_fused_frontend(c.scan_matcher, c.prefilter,
+                                                         c.capacity),
+    "cli": lambda c: cli.main(["--frames", "1", "--no-loop-closure"]),
+    "SlamPipeline-cuda": lambda c: TorchPipeline(c, device="cuda"),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_need_a_card_unless_asked(monkeypatch, tmp_path, cfg, entry):
+    """Without CUDA, an entry point given no device (the CLI: no --device) raises a clear
+    error instead of falling back to the CPU; named "cpu", it builds."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    tc = _torch_config(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ENTRY_POINTS[entry](tc)
+    if entry == "SlamPipeline":
+        assert TorchPipeline(tc, device="cpu").device.type == "cpu"
+    elif entry == "GraphBasedSLAM":
+        assert GraphBasedSLAM(tc.graph_slam, tc.capacity, device="cpu").device.type == "cpu"
+    elif entry == "make_fused_frontend":
+        init_state, _, aux = make_fused_frontend(tc.scan_matcher, tc.prefilter, tc.capacity,
+                                                 device="cpu")
+        assert init_state().pose.device.type == aux["init_ring"]().clouds.device.type == "cpu"
 
 
 def test_port_imports_no_jax():
