@@ -174,7 +174,7 @@ def split_times(fn, *args, calls: int = 200, warmup: int = 10) -> dict:
     raise RuntimeError("split_times: the spin kernel never outlasted the host's enqueue")
 
 
-# The card's peaks for a bound (on-chip-measurement guide, section 4: H100 SXM, 700 W).
+# The card's peak rates for a bound (H100 SXM at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # Float operations per hit correspondence in the accumulation, an FMA counted as two:
