@@ -177,10 +177,18 @@ def split_times(fn, *args, calls: int = 200, warmup: int = 10) -> dict:
 # The card's peak rates for a bound (H100 SXM at 700 W).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# Float operations per hit correspondence in the accumulation, an FMA counted as two:
-# W e (15), e^T W e (5), the weight (4, exp as one), W A (27), the 18 entries of J^T W J's
-# first three rows (54), the 21 weighted sums of H (42), g (21), sum_w and n_hit (2).
-ACCUM_FLOPS_PER_HIT = 170
+# Float operations per hit correspondence in the accumulation that the 21 upper-triangle
+# entries of H need, an FMA counted as two: W e (15), e^T W e (5), the weight (3: the
+# scale by -d2/2, exp as one, w_scale), the 8 entries of W A that H_ww's upper triangle
+# reads (24), H_ww's 6 upper entries (18), H_wv's 9 (27), the 21 weighted sums of H (42),
+# g (21), sum_w and n_hit (2). The fused form adds e = p - mean (3).
+ACCUM_FLOPS_PER_HIT = 157
+RESIDUAL_FLOPS_PER_HIT = 3
+# Per masked-in point, the fused form's cell arithmetic floor((p - origin) * inv_leaf):
+# 3 subtractions and 3 products (the neighbour offsets are integer adds). Per centre
+# hit, |e|^2 (5) and its sum and count (2).
+CELL_FLOPS_PER_POINT = 6
+CENTRE_FLOPS_PER_HIT = 7
 
 
 def accumulate_bound_us(hit: torch.Tensor) -> dict:
@@ -244,11 +252,12 @@ def direct7_bound_us(vmap: NdtVoxelMap, p, mask, n_hit: float, n_centre: float) 
     from this run's data. Bytes: the mask (1 B a point), each masked-in point (12 B), each
     distinct table cell its in-range neighbours read (4 B), each distinct row those cells
     name (52 B of mean, inv_cov and valid for a valid voxel, the 4 B flag for another),
-    the scalars (24 B) and the 46 output floats. Operations: the cell arithmetic (6 a
-    pair), ACCUM_FLOPS_PER_HIT a hit, 7 a centre hit."""
+    the scalars (24 B) and the 46 output floats. Operations: CELL_FLOPS_PER_POINT a
+    masked-in point, ACCUM_FLOPS_PER_HIT + RESIDUAL_FLOPS_PER_HIT a hit,
+    CENTRE_FLOPS_PER_HIT a centre hit."""
     src = p[mask]
     offsets = torch.tensor(DIRECT7_OFFSETS, dtype=torch.int32, device=p.device)
-    nc = voxel_coords(src, vmap.origin, 1.0 / vmap.leaf)[:, None, :] + offsets
+    nc = voxel_coords(src, vmap.origin, vmap.inv_leaf)[:, None, :] + offsets
     in_range = ((nc >= 0) & (nc < torch.tensor(TABLE_DIMS, device=p.device))).all(-1)
     _, dy, dz = TABLE_DIMS
     cells = torch.unique(((nc[..., 0] * dy + nc[..., 1]) * dz + nc[..., 2])[in_range])
@@ -257,37 +266,47 @@ def direct7_bound_us(vmap: NdtVoxelMap, p, mask, n_hit: float, n_centre: float) 
     n_valid = int((vmap.packed[rows, 12] > 0.5).sum())
     nbytes = (p.shape[0] + 12 * src.shape[0] + 4 * cells.numel() + 52 * n_valid
               + 4 * (rows.numel() - n_valid) + 24 + 4 * 46)
-    flops = 6 * 7 * src.shape[0] + ACCUM_FLOPS_PER_HIT * n_hit + 7 * n_centre
+    flops = (CELL_FLOPS_PER_POINT * src.shape[0]
+             + (ACCUM_FLOPS_PER_HIT + RESIDUAL_FLOPS_PER_HIT) * n_hit
+             + CENTRE_FLOPS_PER_HIT * n_centre)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 table_cells=cells.numel(), rows=rows.numel(), valid_rows=n_valid)
 
 
-def kernel_timings(shape: str, vmap: NdtVoxelMap, src, msk, rows, d2, w_scale,
-                   card: str) -> dict:
-    """Both kernels on one shape of the path: `split_times`, the plain version's
-    single-call ms, the bound and the share of the bound; one line each. `src`, `msk` are
-    the source the fused kernel takes, `rows` the (e, icovs, p, hit) it gathers."""
-    fused = kernels.ndt_direct7_accumulate(vmap, src, msk, d2, w_scale)
-    inv_leaf = 1.0 / vmap.leaf
-    cases = {
-        "ndt_direct7_accumulate": (
-            kernels.ndt_direct7_accumulate, kernels.ndt_direct7_accumulate_plain,
-            (vmap, src, msk, d2, w_scale, inv_leaf),
-            direct7_bound_us(vmap, src, msk, float(fused[3]), float(fused[5]))),
-        "ndt_accumulate": (kernels.ndt_accumulate, kernels.ndt_accumulate_plain,
-                           (*rows, d2, w_scale), accumulate_bound_us(rows[3])),
-    }
+def kernel_timings(kern, shape: str, vmap: NdtVoxelMap, src, msk, d2, w_scale,
+                   rounds: int = 1) -> dict:
+    """Each kernel wrapper of the module `kern` (this tree's `ops.kernels`, or another
+    tree's: one without the fused kernel times only `ndt_accumulate`) on one shape of the
+    path: `split_times` (the median of each number over `rounds` rounds), the plain
+    version's single-call ms, the bound and the share of the bound. `src`, `msk` are the
+    source the fused kernel takes; `ndt_accumulate` gets the rows it gathers. Returns
+    {kernel name: record}."""
+    rows = map_correspondences(vmap, src, msk, 1)
+    cases = {"ndt_accumulate": (kern.ndt_accumulate, kern.ndt_accumulate_plain,
+                                (*rows, d2, w_scale), accumulate_bound_us(rows[3]))}
+    if hasattr(kern, "ndt_direct7_accumulate"):
+        fused = kern.ndt_direct7_accumulate(vmap, src, msk, d2, w_scale)
+        cases = {"ndt_direct7_accumulate": (
+            kern.ndt_direct7_accumulate, kern.ndt_direct7_accumulate_plain,
+            (vmap, src, msk, d2, w_scale),
+            direct7_bound_us(vmap, src, msk, float(fused[3]), float(fused[5]))), **cases}
     out = {}
     for name, (fn, plain, args, bound) in cases.items():
-        t = split_times(fn, *args)
+        runs = [split_times(fn, *args) for _ in range(rounds)]
+        t = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
         t.update(plain_ms=median_ms(plain, *args), **bound,
                  share_of_bound=bound["bound_us"] / t["device_us"])
-        say("kernel-time", kernel=name, shape=shape, N=src.shape[0], K=rows[0].shape[0],
-            **{k: v for k, v in t.items()}, card=json.dumps(card))
-        out[name] = t
+        out[name] = dict(kernel=name, shape=shape, N=src.shape[0], K=rows[0].shape[0], **t)
     return out
+
+
+def say_timings(timing: dict, card: str) -> dict:
+    """One `kernel-time` line per record of `kernel_timings`; returns `timing`."""
+    for rec in timing.values():
+        say("kernel-time", **rec, card=json.dumps(card))
+    return timing
 
 
 def random_inputs(K: int, dev, seed: int):
@@ -492,9 +511,8 @@ def pre_align_kernel_check(pre_map: NdtVoxelMap, src_p, src_m, T_pre, card: str)
                         src_p.contiguous(), src_m, md2, w_scale),
         compare_direct7(f"verify-pre-result-N{src_p.shape[0]}", pre_map,
                         moved.contiguous(), src_m, md2, w_scale))
-    return dict(kernel_K=K, kernel_max_abs_err=err,
-                timing=kernel_timings("verify", pre_map, src_p.contiguous(), src_m, first,
-                                      md2, w_scale, card))
+    return dict(kernel_K=K, kernel_max_abs_err=err, timing=say_timings(kernel_timings(
+        kernels, "verify", pre_map, src_p.contiguous(), src_m, md2, w_scale), card))
 
 
 def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, card: str,
@@ -747,7 +765,8 @@ def main(argv=None) -> int:
             f"map-{label}-K{rows[0].shape[0]}", rows, md2, -md1 * md2))
         max_err["ndt_direct7_accumulate"] = max(max_err["ndt_direct7_accumulate"], compare_direct7(
             f"map-{label}-N{src.shape[0]}", vmap, src, msk, md2, -md1 * md2))
-        timing[label] = kernel_timings(label, vmap, src, msk, rows, md2, -md1 * md2, card)
+        timing[label] = say_timings(kernel_timings(kernels, label, vmap, src, msk, md2,
+                                                   -md1 * md2), card)
 
     # -- 4. deterministic map build on the full ring -------------------------------------
     say("map-build", **map_build_twice(aux, ring, dev))

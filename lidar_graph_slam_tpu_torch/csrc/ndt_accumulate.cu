@@ -27,8 +27,8 @@
 //  * `ndt_rows_kernel` takes gathered rows (e, W, p, hit), the reference's interface; the
 //    NDT line search and GICP use it.
 //
-// What bounds it on this card. The gathered-rows form reads 61 bytes per row for about
-// 110 flops and one expf: far below the H100's ~20 flop/byte f32 ridge, so bytes at
+// What bounds it on this card. The gathered-rows form reads 61 bytes per hit row for
+// about 157 flops and one expf: far below the H100's ~20 flop/byte f32 ridge, so bytes at
 // large K. The fused form streams only p and the mask (13 bytes per point); the table
 // (16.8 MB) and the packed rows (4.2 MB at 65,536 voxels) are read at random but fit in
 // the 50 MB L2. At the path's sizes (N <= 32,768) its bytes take ~1 us at 3.35 TB/s, so

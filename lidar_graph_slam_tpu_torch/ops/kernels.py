@@ -129,10 +129,8 @@ def direct7_gathered(vmap, p, source_mask, d2, w_scale, accumulate):
     return (H, g, sum_w, n_hit, centre_d2, centre_count), (means, icovs, valid)
 
 
-def ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale, inv_leaf=None):
-    """Plain PyTorch version of `ndt_direct7_accumulate` (`inv_leaf` is not needed:
-    `lookup_direct7` computes the same `1.0 / vmap.leaf`)."""
-    del inv_leaf
+def ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale):
+    """Plain PyTorch version of `ndt_direct7_accumulate`."""
     return direct7_gathered(vmap, p, source_mask, d2, w_scale, ndt_accumulate_plain)[0]
 
 
@@ -283,15 +281,14 @@ def ndt_accumulate(e, icovs, p, hit, d2, w_scale):
     return out[:36].view(6, 6), out[36:42], out[42], out[43]
 
 
-def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale, inv_leaf=None):
+def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale):
     """One NDT iteration's reduction against a voxel map, gather included.
 
-    vmap:        `ops.voxel.NdtVoxelMap` (its dense table, packed rows, origin and leaf)
+    vmap:        `ops.voxel.NdtVoxelMap` (its dense table, packed rows, origin and
+                 `inv_leaf`, the float32 `lookup_direct7` uses)
     p:           [N, 3] f32 transformed source points
     source_mask: [N] bool
     d2, w_scale: 0-d f32 tensors on the same device, or numbers
-    inv_leaf:    `1.0 / vmap.leaf` (a 0-d f32 tensor on the device), for callers that
-                 make many calls against one map; computed here when None.
     Returns (H [6,6], g [6], sum_w, n_hit, centre_d2_sum, centre_count), f32 on the
     device: the accumulation over the N x 7 DIRECT7 correspondences (hit = neighbour
     cell in the table, occupied, valid voxel, source row masked in) and, over the hits
@@ -305,25 +302,21 @@ def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale, inv_leaf=None):
     if p.device.type != "cuda":
         raise ValueError(f"ndt_direct7_accumulate: unsupported device {p.device}")
     dev, n = p.device, p.shape[0]
-    if inv_leaf is None:
-        inv_leaf = 1.0 / vmap.leaf
     _check("ndt_direct7_accumulate", dev, p=(p, (n, 3), torch.float32),
            source_mask=(source_mask, (n,), torch.bool),
            table=(vmap.table, (_TABLE_SIZE,), torch.int32),
            packed=(vmap.packed, (vmap.packed.shape[0], 16), torch.float32),
-           origin=(vmap.origin, (3,), torch.float32))
+           origin=(vmap.origin, (3,), torch.float32),
+           inv_leaf=(vmap.inv_leaf, (), torch.float32))
     if vmap.packed.data_ptr() % 16:
         raise ValueError("ndt_direct7_accumulate: packed rows must be 16-byte aligned")
     d2_ptr, d2_val = _scalar_arg(d2, dev)
     ws_ptr, ws_val = _scalar_arg(w_scale, dev)
-    inv_ptr, _ = _scalar_arg(inv_leaf, dev)
-    if inv_ptr is None:
-        raise ValueError("ndt_direct7_accumulate: inv_leaf must be a tensor on the device")
     lib = load_library()
     stream, partials, counter, nblocks, out = _launch_args(dev, 7 * n)
     _raise_on(lib.lgs_ndt_direct7_accumulate(
         p.data_ptr(), source_mask.data_ptr(), vmap.table.data_ptr(), vmap.packed.data_ptr(),
-        vmap.origin.data_ptr(), inv_ptr, *TABLE_DIMS, *COORD_MAX, d2_ptr, d2_val, ws_ptr,
+        vmap.origin.data_ptr(), vmap.inv_leaf.data_ptr(), *TABLE_DIMS, *COORD_MAX, d2_ptr, d2_val, ws_ptr,
         ws_val, n, partials, counter, nblocks, out.data_ptr(), stream),
         "ndt_direct7_accumulate")
     _count(ndt_direct7_accumulate)

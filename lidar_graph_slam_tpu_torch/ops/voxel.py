@@ -19,7 +19,7 @@ reference's keys.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -202,7 +202,9 @@ class NdtVoxelMap:
     """Sorted voxel-Gaussian map for NDT registration (ndt_omp's TargetGrid equivalent).
 
     Field names are the reference's (`lidar_graph_slam_tpu/ops/voxel.py:160-179`);
-    `utils/state.py` builds one from the reference's arrays.
+    `utils/state.py` builds one from the reference's arrays. `inv_leaf` is the port's
+    own: `1.0 / leaf`, made once with the map, so that `lookup_direct7` and the fused
+    NDT kernel take the same float32 for the voxel arithmetic.
     """
 
     keys: torch.Tensor        # [capacity] int32 sorted, INVALID_KEY padding
@@ -214,6 +216,10 @@ class NdtVoxelMap:
     num_voxels: torch.Tensor  # 0-d int32
     table: torch.Tensor       # [prod(TABLE_DIMS)] int32 dense cell -> voxel row (-1 empty)
     packed: torch.Tensor      # [capacity, 16] f32: mean(3) | inv_cov row-major(9) | valid | pad
+    inv_leaf: torch.Tensor = field(init=False)  # 0-d f32, 1.0 / leaf
+
+    def __post_init__(self):
+        self.inv_leaf = 1.0 / self.leaf
 
 
 def _eigh3x3(A: torch.Tensor):
@@ -416,7 +422,7 @@ def lookup_direct7(vmap: NdtVoxelMap, query_points: torch.Tensor):
     """
     q = query_points.shape[0]
     offsets = const(DIRECT7_OFFSETS, torch.int32, query_points.device)
-    coords = voxel_coords(query_points, vmap.origin, 1.0 / vmap.leaf)   # [Q, 3]
+    coords = voxel_coords(query_points, vmap.origin, vmap.inv_leaf)     # [Q, 3]
     ncoords = coords[:, None, :] + offsets[None, :, :]                   # [Q, 7, 3]
     flat, in_range = _flat_table_index(ncoords, TABLE_DIMS)
     # Out-of-range cells index the overflow slot in the reference, which reads -1; here

@@ -68,7 +68,6 @@ def ndt_align(
     w_scale = -d1 * d2  # > 0: d1 < 0 by construction
     dtype, dev = source_points.dtype, source_points.device
     damping = as_f32(1e-6, source_points)
-    inv_leaf = 1.0 / vmap.leaf  # the float32 `lookup_direct7` uses, made once per align
     source_mask = source_mask.contiguous()  # a strided subsample is copied once, here
 
     def body(T, done, iters):
@@ -79,8 +78,7 @@ def ndt_align(
             sums, (means, icovs, valid) = kernels.direct7_gathered(
                 vmap, p, source_mask, d2, w_scale, kernels.ndt_accumulate)
         else:
-            sums = kernels.ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale,
-                                                  inv_leaf=inv_leaf)
+            sums = kernels.ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)
         H, g, _sum_w, n_hit, centre_d2, centre_count = sums
         n_inliers = n_hit.to(torch.int32)
 

@@ -64,9 +64,11 @@ _GRAPH_DTYPES = {"pose_mask": torch.bool, "loop_i": torch.int64, "loop_j": torch
 
 
 def _from_numpy(cls, dtypes: dict, arrays, device):
+    """`cls` from the arrays of its fields; a field derived in `__post_init__` (such as
+    `NdtVoxelMap.inv_leaf`) is made there."""
     return cls(**{
         f.name: _t(arrays[f.name], dtypes.get(f.name, torch.float32), device)
-        for f in dataclasses.fields(cls)
+        for f in dataclasses.fields(cls) if f.init
     })
 
 

@@ -11,12 +11,12 @@ NDT iterations see it near convergence. Three shapes of the path:
   coarse  every 4th point against the 4 m map (K = 57,344);
   verify  every 2nd point against the 4 m map: the loop verification's pre-align shape
           (16,384 keyframe points x 7 = K 114,688 against a 4 m map).
-For each kernel wrapper of `ops/kernels.py` and each shape it prints one JSON line:
-`chip_smoke.split_times` (device_us, host_us, single_ms; the median of `--rounds` rounds),
-the plain version's single-call ms, the bound (`chip_smoke.*_bound_us`) and the share of
-the bound (bound_us / device_us). The card's name and power limit come first. `--root` times the
-package of another tree (such as the parent commit unpacked by `git archive`) with the
-same inputs and the same measurement.
+For each kernel wrapper of `ops/kernels.py` and each shape it prints one JSON line, the
+record of `chip_smoke.kernel_timings` (the measurement `chip_smoke.py` makes, with the
+median of `--rounds` rounds): device_us, host_us, single_ms, the plain version's
+single-call ms, the bound and the share of the bound (bound_us / device_us). The card's
+name and power limit come first. `--root` times the package of another tree (such as the
+parent commit unpacked by `git archive`) with the same inputs and the same measurement.
 """
 
 from __future__ import annotations
@@ -26,8 +26,6 @@ import json
 import os
 import subprocess
 import sys
-
-import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,38 +44,6 @@ def path_inputs(chip_smoke, torch, dev):
             for name, m, stride in SHAPES]
 
 
-def rounds_of(chip_smoke, rounds, fn, *args) -> dict:
-    """`split_times` `rounds` times; the median of each number."""
-    runs = [chip_smoke.split_times(fn, *args) for _ in range(rounds)]
-    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
-
-
-def time_kernels(chip_smoke, kernels, shape, vmap, src, msk, rounds) -> list:
-    """One line per kernel wrapper the tree has, on one shape."""
-    from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
-
-    d1, d2 = magnusson_constants(vmap.leaf, chip_smoke.loops_off_config().scan_matcher.ndt
-                                 .outlier_ratio)
-    ws = -d1 * d2
-    rows = chip_smoke.map_correspondences(vmap, src, msk, 1)
-    cases = [("ndt_accumulate", kernels.ndt_accumulate, kernels.ndt_accumulate_plain,
-              (*rows, d2, ws), chip_smoke.accumulate_bound_us(rows[3]))]
-    if hasattr(kernels, "ndt_direct7_accumulate"):
-        fused = kernels.ndt_direct7_accumulate(vmap, src, msk, d2, ws)
-        cases.insert(0, ("ndt_direct7_accumulate", kernels.ndt_direct7_accumulate,
-                         kernels.ndt_direct7_accumulate_plain,
-                         (vmap, src, msk, d2, ws, 1.0 / vmap.leaf),
-                         chip_smoke.direct7_bound_us(vmap, src, msk, float(fused[3]),
-                                                     float(fused[5]))))
-    lines = []
-    for name, fn, plain, args, b in cases:
-        t = rounds_of(chip_smoke, rounds, fn, *args)
-        lines.append(dict(kernel=name, shape=shape, N=src.shape[0], K=rows[0].shape[0], **t,
-                          plain_ms=chip_smoke.median_ms(plain, *args), **b,
-                          share_of_bound=b["bound_us"] / t["device_us"]))
-    return lines
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=REPO, help="the package tree to time")
@@ -90,6 +56,7 @@ def main() -> int:
     import torch
 
     from lidar_graph_slam_tpu_torch.ops import kernels
+    from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
 
     # This checkout's chip_smoke.py (another tree has its own), on that tree's package.
     spec = importlib.util.spec_from_file_location("chip_smoke",
@@ -107,9 +74,13 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels.load_library()
     tree = os.path.relpath(os.path.abspath(args.root), REPO)
+    outlier_ratio = chip_smoke.loops_off_config().scan_matcher.ndt.outlier_ratio
     lines = []
     for name, vmap, src, msk in path_inputs(chip_smoke, torch, dev):
-        for line in time_kernels(chip_smoke, kernels, name, vmap, src, msk, args.rounds):
+        d1, d2 = magnusson_constants(vmap.leaf, outlier_ratio)
+        timing = chip_smoke.kernel_timings(kernels, name, vmap, src, msk, d2, -d1 * d2,
+                                           rounds=args.rounds)
+        for line in timing.values():
             lines.append(dict(line, tree=tree, card=card))
             print(json.dumps(lines[-1]), flush=True)
     if args.json:

@@ -140,13 +140,27 @@ def test_plain_direct7_equals_parent_body_bitwise(maps, case):
         assert torch.equal(got, ref)
 
 
+def test_map_inv_leaf_is_float32_reciprocal(maps):
+    """`NdtVoxelMap.inv_leaf`, which the fused kernel reads for its voxel arithmetic, is
+    the float32 `1.0 / leaf`: on a map carried across, on both maps the port builds, and on
+    a copy with a field replaced."""
+    _, tmap, scan = maps
+    pts = torch.as_tensor(scan)
+    coarse, fine = tv.build_ndt_pyramid(pts, torch.ones(pts.shape[0], dtype=torch.bool),
+                                        2.0, 2, 4096, 1024)
+    for m in (tmap, coarse, fine, dataclasses.replace(tmap, packed=tmap.packed.clone())):
+        assert m.inv_leaf.dtype == torch.float32 and m.inv_leaf.shape == ()
+        assert torch.equal(m.inv_leaf, 1.0 / m.leaf)
+    assert float(coarse.inv_leaf) == 0.25 and float(fine.inv_leaf) == 0.5
+
+
 def test_direct7_wrapper_takes_plain_version_on_cpu(maps):
     _, tmap, scan = maps
     p, mask = query("scan", scan, tmap.origin.numpy(), float(tmap.leaf))
     pt, mt = torch.as_tensor(p), torch.as_tensor(mask)
     d2, ws = _constants(tmap)
     before, before_thread = tk.ndt_direct7_accumulate.launches, tk.thread_launches()
-    out = tk.ndt_direct7_accumulate(tmap, pt, mt, d2, ws, inv_leaf=1.0 / tmap.leaf)
+    out = tk.ndt_direct7_accumulate(tmap, pt, mt, d2, ws)
     assert tk.ndt_direct7_accumulate.launches == before  # no kernel launch for CPU tensors
     assert tk.thread_launches() == before_thread
     for a, b in zip(out, tk.ndt_direct7_accumulate_plain(tmap, pt, mt, d2, ws)):
