@@ -38,17 +38,40 @@ of `bench.py:bench_e2e`. Phases:
      against their plain versions on the pre-align's own inputs (16,384 points, K =
      114,688, against the 4 m map, at the identity guess and at the pre-align's result),
      and their times at that shape;
- 13. the CLI with its default (loops on), 100 frames.
+ 13. the CLI with its default (loops on), 100 frames;
+ 14. `ndt_accumulate` on GICP's own rows: the front end's (a GICP target of phase 3's
+     full ring, the last ring scan at its ground-truth pose, N = K = 32,768) and the
+     verifier's (a GICP target of a loop submap of phase 10, its 16,384-point keyframe at
+     the coarse pre-align's result), each with unmatched rows whose residuals are
+     padding-sized (~1e6); held against the plain version (REL/ABS, hit counts exact,
+     bit-identical reruns), with device and host time, the bound and its share;
+ 15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
+     first 3 frames card against CPU (1 cm / 1 mrad), then the whole course —
+     `ndt_accumulate` launched on this path, `ndt_direct7_accumulate` not; phase 6's
+     assertions; keyframe ATE, p50 frame;
+ 16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
+     then ICP, each with phase 6's assertions; each stage's p50 for both;
+ 17. the GICP loop verifier: the default pipeline with
+     `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
+     ATE below phase 10's loops-off ATE, `ndt_accumulate` launched by the verify thread
+     (the odometry launches only the fused kernel); verify p50;
+ 18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
+     60 frames: it runs on the card, with that driver and matcher.
 
 Each path's launches are counted from 0 just before it runs and read just after.
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
 `python3 chip_smoke.py --parent DIR` adds the parent tree's profile to phase 7.
+
+CPU rehearsal: import this module and call the phase functions with device "cpu" at a
+small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
+max_points=12000), "cpu")`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -80,6 +103,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     voxel_downsample,
 )
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
+from lidar_graph_slam_tpu_torch.registration import gicp
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants, ndt_align
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
 
@@ -394,8 +418,8 @@ def first_frames_agree(cfg: PipelineConfig, scans, devices, n: int = 3) -> dict:
 
 
 def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
-    """The main path: every scan through `SlamPipeline`; all frames must converge and the
-    keyframe ATE stay within max(0.05 x travelled, 0.35) m."""
+    """A front-end path: every scan through `SlamPipeline` (either driver); all frames
+    must converge and the keyframe ATE stay within max(0.05 x travelled, 0.35) m."""
     pipe = SlamPipeline(cfg, device=device)
     walls = []
     for s in scans:
@@ -413,10 +437,13 @@ def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
     if not (np.isfinite(res.odometry_poses).all() and ate < bound):
         raise AssertionError(f"keyframe ATE {ate} m >= {bound} m")
     p50 = 1000 * float(np.median(walls[1:]))
-    return dict(frames=len(scans), keyframes=len(kf), ate_keyframes_m=ate, ate_bound_m=bound,
-                travelled_m=travelled, p50_frame_ms=p50, fps=1000.0 / p50,
+    return dict(driver="fused" if pipe.fused else "classic", frames=len(scans),
+                keyframes=len(kf),
+                ate_keyframes_m=ate, ate_bound_m=bound, travelled_m=travelled,
+                p50_frame_ms=p50, fps=1000.0 / p50,
                 mean_raw_points=int(np.mean([len(s) for s in scans])),
-                iterations_mean=float(np.mean([r["iterations"] for r in frames])))
+                iterations_mean=float(np.mean([r["iterations"] for r in frames])),
+                stage_p50_ms={k: round(v["p50_ms"], 3) for k, v in res.metrics.items()})
 
 
 def drift_course(n_frames: int = 360, max_points: int = 131072):
@@ -532,7 +559,7 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, car
                             "accum_distance": back.kf_accum_dist[k]})
         inp = b._build_verify_inputs()
         _grid, pre_map, _extra = inp["targets"][0]
-        src_p, src_m = inp["source"]
+        src_p, src_m, _ = inp["source"]
         p = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
         pre.append((p.transform.cpu().numpy(), int(p.iterations)))
         if device == "cuda":
@@ -564,6 +591,79 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, car
                 fitness_card=a["fitness"], fitness_cpu=c["fitness"], transform_max_diff=dT,
                 pre_iterations=ia, pre_transform_max_diff=dpre, **check,
                 kernel_launches=launches[0], card_ms=round(ms[0], 3), cpu_ms=round(ms[1], 3))
+
+
+def gicp_rows(target, src_p, src_m, src_covs, T: torch.Tensor, corr_dist: float):
+    """The (e, M, p, matched) rows one GICP iteration at `T` hands `ndt_accumulate`
+    (`registration/gicp.py:gicp_align`'s body): every source row, matched or not."""
+    p = src_p @ T[:3, :3].T + T[:3, 3]
+    idx, _d2, matched = gicp.match(target, p, src_m, corr_dist * corr_dist)
+    e, M = gicp.residual_rows(target, idx, p, T[:3, :3], src_covs)
+    return [e, M, p, matched]
+
+
+def gicp_rows_check(label: str, rows, card: str):
+    """`ndt_accumulate` on GICP rows (d2 = 0, w_scale = 1) against its plain version, and
+    its times at that shape. The rows must include unmatched ones with padding-sized
+    residuals, which the kernel has to weigh 0. Returns (max abs err, timing record)."""
+    K = rows[0].shape[0]
+    far = int(((rows[0].abs().amax(dim=1) > 1e5) & ~rows[3]).sum())
+    if far == 0 or not bool(rows[3].any()):
+        raise AssertionError(f"gicp rows {label}: {far} padding-sized unmatched rows, "
+                             f"{int(rows[3].sum())} matched")
+    err = compare_kernel(f"gicp-{label}-K{K}", rows, 0.0, 1.0)
+    out = kernels.ndt_accumulate(*rows, 0.0, 1.0)
+    if not (all(bool(torch.isfinite(t).all()) for t in out)
+            and float(out[2]) == float(out[3]) == float(rows[3].sum())):
+        raise AssertionError(f"gicp rows {label}: sum_w {float(out[2])}, n_hit "
+                             f"{float(out[3])}, matched {int(rows[3].sum())}")
+    t = split_times(kernels.ndt_accumulate, *rows, 0.0, 1.0)
+    bound = accumulate_bound_us(rows[3])
+    rec = dict(kernel="ndt_accumulate", shape=label, N=K, K=K, matched=int(rows[3].sum()),
+               padding_rows=far, **t,
+               plain_ms=median_ms(kernels.ndt_accumulate_plain, *rows, 0.0, 1.0), **bound,
+               share_of_bound=bound["bound_us"] / t["device_us"])
+    say("kernel-time", **rec, card=json.dumps(card))
+    return err, {"ndt_accumulate": rec}
+
+
+def gicp_front_rows(cfg: PipelineConfig, ring, last, T_last: np.ndarray):
+    """The front end's GICP rows: the target the GICP front end builds from the full ring,
+    the last ring scan (N = 32,768) at its ground-truth pose with its own covariances.
+    Its last 512 rows are made padding (as a scan with fewer points has), whose residuals
+    are then ~1e6."""
+    g = cfg.scan_matcher.gicp
+    build_target, _ = gicp.make_gicp_matcher(g)
+    target = build_target(*assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride))
+    pts, msk = last.points.clone(), last.mask.clone()
+    pts[-512:], msk[-512:] = PAD_VALUE, False
+    covs, _ = gicp.estimate_covariances(pts, msk, g.max_correspondence_distance,
+                                        k=g.correspondence_randomness)
+    T = torch.as_tensor(T_last, device=pts.device)
+    return gicp_rows(target, pts, msk, covs, T, g.max_correspondence_distance)
+
+
+def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
+    """The GICP verifier's rows for attempt `rec` of a back end: its inputs built by a
+    GICP back end fed the same keyframes (the candidate's GICP target, the latest
+    keyframe at 16,384 points with its covariances), at the coarse pre-align's result —
+    the verifier's first GICP iteration. Its last 512 rows are made padding, as in
+    `gicp_front_rows` (a drift-course keyframe holds ~9k points, so most are already)."""
+    cfg = dataclasses.replace(back.cfg, registration_method="GICP", async_backend=False)
+    b = GraphBasedSLAM(cfg, back.capacity, device=back.device)
+    for k in range(rec["latest"] + 1):
+        cloud = back._cloud(k)
+        b.add_keyframe({"pose": back.kf_front_poses[k], "cloud": cloud,
+                        "cloud_mask": np.ones(cloud.shape[0], bool),
+                        "accum_distance": back.kf_accum_dist[k]})
+    inp = b._build_verify_inputs()
+    _grid, pre_map, target = inp["targets"][0]
+    src_p, src_m, src_covs = inp["source"]
+    pre = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
+    src_p, src_m = src_p.clone(), src_m.clone()
+    src_p[-512:], src_m[-512:] = PAD_VALUE, False
+    return gicp_rows(target, src_p, src_m, src_covs, pre.transform,
+                     cfg.gicp.max_correspondence_distance)
 
 
 def reset_counts() -> None:
@@ -661,12 +761,12 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
                 launches=counts["ndt_accumulate"], transform_vs_truth_max=err)
 
 
-def run_cli(out_dir: str, frames: int, loops: bool = False) -> dict:
+def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
          "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
-         *([] if loops else ["--no-loop-closure"])],
+         *([] if loops else ["--no-loop-closure"]), *(a for v in sets for a in ("--set", v))],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
@@ -676,15 +776,18 @@ def run_cli(out_dir: str, frames: int, loops: bool = False) -> dict:
         raise AssertionError(f"CLI summary: {summary}")
     return dict(seconds=round(time.perf_counter() - t0, 3), frames=summary["frames"],
                 keyframes=summary["keyframes"], loop_closures=summary["loop_closures"],
-                device=summary["device"],
+                device=summary["device"], fused_frontend=summary["fused_frontend"],
+                registration_method=summary["registration_method"],
+                loop_verifier=summary["loop_verifier"],
                 ate_odometry_m=summary["ate_odometry_m"],
                 ate_keyframes_m=summary["ate_keyframes_m"])
 
 
-def kernel_record(name: str, timing: dict, max_err: float, **launches) -> dict:
-    """One kernel's entry of the JSON record: times at the fine shape (the others by
-    shape), launches per path."""
-    t = timing["fine"][name]
+def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
+                  **launches) -> dict:
+    """One kernel's entry of the JSON record: times at `shape`, its main path's (the
+    others by shape), launches per path."""
+    t = timing[shape][name]
     return {
         "name": name,
         "route": "cuda",
@@ -699,10 +802,11 @@ def kernel_record(name: str, timing: dict, max_err: float, **launches) -> dict:
         "bound_ms": t["bound_us"] / 1000,
         "bound_by": t["bound_by"],
         "library_ms": None,
-        "shapes": {shape: {k: v[name][k] for k in ("device_us", "host_us", "single_ms",
-                                                   "plain_ms", "bound_us", "bytes",
-                                                   "share_of_bound")}
-                   for shape, v in timing.items()},
+        "shape": shape,
+        "shapes": {s: {k: v[name][k] for k in ("device_us", "host_us", "single_ms",
+                                               "plain_ms", "bound_us", "bytes",
+                                               "share_of_bound")}
+                   for s, v in timing.items() if name in v},
     }
 
 
@@ -847,6 +951,76 @@ def main(argv=None) -> int:
         raise AssertionError(f"CLI ran on {cli_on['device']}")
     say("cli-loops", **cli_on)
 
+    # -- 14. ndt_accumulate on GICP's own rows: front-end and verify shapes ----------------
+    for label, rows in (("gicp_front", gicp_front_rows(cfg, ring, last, T_last)),
+                        ("gicp_verify", gicp_verify_rows(back, first))):
+        err, timing[label] = gicp_rows_check(label, rows, card)
+        max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"], err)
+    del ring
+
+    # -- 15. the GICP front end (fused driver, loops off); launches counted here only -----
+    cfg_gicp = loops_off_config(["scan_matcher.registration_method=GICP"])
+    say("gicp-card-vs-cpu", **first_frames_agree(cfg_gicp, scans, ("cuda", "cpu")))
+    reset_counts()
+    # The JAX package holds phase 6's bound with GICP and with classic ICP on this
+    # course (`scripts/jax_reference_dense.py`), so phases 15-16 assert it too.
+    gicp_front = run_pipeline(cfg_gicp, scans, gt, "cuda")
+    launches_gicp = read_counts()
+    if launches_gicp["ndt_accumulate"] <= 0 or launches_gicp["ndt_direct7_accumulate"] != 0:
+        raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
+    say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["ndt_accumulate"],
+        card=json.dumps(card))
+
+    # -- 16. the classic driver: NDT (phase 6's assertions), then ICP --------------------
+    reset_counts()
+    classic_ndt = run_pipeline(loops_off_config(["fused_frontend=False"]), scans, gt, "cuda")
+    launches_classic = read_counts()
+    classic_icp = run_pipeline(loops_off_config(["fused_frontend=False",
+                                                 "scan_matcher.registration_method=ICP"]),
+                               scans, gt, "cuda")
+    if not (classic_ndt["driver"] == classic_icp["driver"] == "classic"
+            and launches_classic["ndt_direct7_accumulate"] > 0):
+        raise AssertionError(f"classic driver: {classic_ndt}, {classic_icp}, launches "
+                             f"{launches_classic}")
+    for name, st in (("ndt", classic_ndt), ("icp", classic_icp)):
+        say("classic", method=name, **{k: json.dumps(v, separators=(",", ":"))
+                                       if isinstance(v, dict) else v for k, v in st.items()},
+            card=json.dumps(card))
+
+    # -- 17. the GICP loop verifier on the drift course; launches counted here only --------
+    reset_counts()
+    pipe_g, res_g, gv = run_loop_course(
+        apply_cli_overrides(PipelineConfig(), ["graph_slam.registration_method=GICP"]),
+        dscans, dgt, "cuda")
+    launches_gv = read_counts()
+    # The odometry (NDT) launches only the fused kernel: every ndt_accumulate launch of
+    # this run is the verify thread's.
+    if not (gv["loops_accepted"] >= 1 and gv["ate_keyframes_m"] < off["ate_keyframes_m"]
+            and launches_gv["ndt_accumulate"] > 0
+            and pipe_g.back.verify_launches >= launches_gv["ndt_accumulate"]):
+        raise AssertionError(f"GICP verifier: {gv}, loops off {off['ate_keyframes_m']}, "
+                             f"launches {launches_gv}, verify {pipe_g.back.verify_launches}")
+    say("gicp-verify", loops_accepted=gv["loops_accepted"],
+        loops_attempted=gv["loops_attempted"], ate_keyframes_m=gv["ate_keyframes_m"],
+        ate_keyframes_off_m=off["ate_keyframes_m"], ate_keyframes_icp_m=on["ate_keyframes_m"],
+        p50_frame_ms=gv["p50_frame_ms"],
+        stage_p50_ms=json.dumps(gv["stage_p50_ms"], separators=(",", ":")),
+        verify_ms_p50=1000 * float(np.median(pipe_g.back.verify_seconds)),
+        verify_ms_max=1000 * float(np.max(pipe_g.back.verify_seconds)),
+        ndt_accumulate_launches_verify=launches_gv["ndt_accumulate"],
+        verify_launches_all=pipe_g.back.verify_launches,
+        odometry_vs_loops_off_max_diff=float(
+            np.abs(res_g.odometry_poses - res_off.odometry_poses).max()),
+        card=json.dumps(card))
+
+    # -- 18. the CLI: classic driver, GICP front end --------------------------------------
+    cli_g = run_cli(os.path.join(OUT_DIR, "cli_classic_gicp"), 60, loops=True,
+                    sets=("fused_frontend=false", "scan_matcher.registration_method=GICP"))
+    if not (cli_g["device"] == "cuda" and cli_g["fused_frontend"] is False
+            and cli_g["registration_method"] == "GICP"):
+        raise AssertionError(f"CLI classic GICP: {cli_g}")
+    say("cli-classic-gicp", **cli_g)
+
     print(json.dumps({"kernels": [
         kernel_record(
             "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
@@ -857,9 +1031,13 @@ def main(argv=None) -> int:
             parent_device_launches_per_ndt_body=(prof["parent"]["launches_per_body"]
                                                  if "parent" in prof else None)),
         kernel_record(
-            "ndt_accumulate", timing, max_err["ndt_accumulate"], launches=ls["launches"],
-            path="ndt_align(line_search=True)", launches_main_path=launches["ndt_accumulate"],
-            launches_verify=0, launches_loop_course=launches_course["ndt_accumulate"]),
+            "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",
+            launches=launches_gicp["ndt_accumulate"], path="GICP front end (phase 15)",
+            launches_gicp_front_end=launches_gicp["ndt_accumulate"],
+            launches_gicp_verify=launches_gv["ndt_accumulate"],
+            launches_line_search=ls["launches"],
+            launches_ndt_main_path=launches["ndt_accumulate"],
+            launches_icp_loop_course=launches_course["ndt_accumulate"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

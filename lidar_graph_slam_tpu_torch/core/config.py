@@ -319,7 +319,9 @@ def load_config(path: Optional[str] = None, overrides: Optional[dict] = None) ->
 
 
 def apply_cli_overrides(cfg: PipelineConfig, pairs: list) -> PipelineConfig:
-    """Apply `a.b.c=value` strings (CLI `--set`) onto the config tree."""
+    """Apply `a.b.c=value` strings (CLI `--set`) onto the config tree. Values are Python
+    literals; `true` / `false` in any case are booleans too (as a bare word they would
+    stay the string "false", which is truthy)."""
     import ast
 
     nested: dict = {}
@@ -328,7 +330,7 @@ def apply_cli_overrides(cfg: PipelineConfig, pairs: list) -> PipelineConfig:
         try:
             value = ast.literal_eval(raw)
         except (ValueError, SyntaxError):
-            value = raw
+            value = {"true": True, "false": False}.get(raw.strip().lower(), raw)
         node = nested
         parts = key.strip().split(".")
         for part in parts[:-1]:

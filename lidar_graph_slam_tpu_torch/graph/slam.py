@@ -3,7 +3,7 @@
 Port of `lidar_graph_slam_tpu/graph/slam.py` (the `graph_based_slam` node's behavior):
 keyframe insertion with host pose chaining, loop detection (accumulated-distance gap +
 Euclidean gate; the dormant radius and accum detectors), loop verification (coarse NDT
-pre-align, then the ICP or NDT verifier, then the PCL fitness gate), loop factors, the
+pre-align, then the ICP, NDT or GICP verifier, then the PCL fitness gate), loop factors, the
 hybrid f64-host / f32-device pose-graph solve, and map assembly.
 
 Concurrency, as in the reference's concurrent back end:
@@ -17,8 +17,8 @@ Concurrency, as in the reference's concurrent back end:
   * The solve runs in a `threading.Thread` over numpy (f64), as in the reference.
   * `async_backend=False` runs the same verification inline — the deterministic path.
 
-Not ported yet: the GICP verifier and the FPFH+RANSAC global initial guess (both raise
-NotImplementedError at construction), and the reference's mesh and sharded cloud store.
+Not ported yet: the FPFH+RANSAC global initial guess (it raises NotImplementedError at
+construction), and the reference's mesh and sharded cloud store.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map, voxel_downsample
+from lidar_graph_slam_tpu_torch.registration import gicp as gicp_mod
 from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
 from lidar_graph_slam_tpu_torch.registration import ndt as ndt_mod
 
@@ -76,14 +77,12 @@ def make_verify_one(cfg: GraphSlamConfig, method: str):
 
     The NN grid cell is the configured correspondence distance capped at 2 m: the NDT
     pre-align brings correspondences within ~a cell, so the 7-cell neighborhood suffices.
+    `extra` is the verifier's own target (the NDT map, the `GicpTarget`, None for ICP);
+    `src_covs` the source's GICP covariances (None for the other verifiers).
     """
-    if method == "GICP":
-        raise NotImplementedError(
-            "the GICP loop verifier is not ported to the PyTorch package yet: use "
-            "graph_slam.registration_method=ICP or NDT")
     corr_dist = min(cfg.icp.max_correspondence_distance, 2.0)
 
-    def one(grid, pre_map, extra, guess, src_p, src_m):
+    def one(grid, pre_map, extra, guess, src_p, src_m, src_covs=None):
         # Stage 1: coarse NDT pre-align from `guess` (identity: the reference's ICP guess).
         pre = loop_pre_align(pre_map, src_p, src_m, guess)
         # Stage 2: refine with the configured verifier.
@@ -95,6 +94,13 @@ def make_verify_one(cfg: GraphSlamConfig, method: str):
                 transform_epsilon=max(cfg.icp.transform_epsilon, 1e-7),
                 euclidean_fitness_epsilon=cfg.icp.euclidean_fitness_epsilon,
                 bucket_cap=16, neighborhood=7,
+            )
+        elif method == "GICP":
+            res = gicp_mod.gicp_align(
+                extra, src_p, src_m, pre.transform, src_covs,
+                max_correspondence_distance=cfg.gicp.max_correspondence_distance,
+                transform_epsilon=max(cfg.gicp.transform_epsilon, 1e-7),
+                max_iterations=cfg.gicp.max_iterations,
             )
         else:  # NDT
             res = ndt_mod.ndt_align(
@@ -380,22 +386,33 @@ class GraphBasedSLAM:
             if self.method == "NDT":
                 extra = build_ndt_map(filtered.points, filtered.mask, self.cfg.ndt.resolution,
                                       capacity=self.capacity.voxel_capacity // 4)
+            elif self.method == "GICP":
+                extra = gicp_mod.build_gicp_target(
+                    filtered.points, filtered.mask, self.cfg.gicp.max_correspondence_distance,
+                    k=self.cfg.gicp.correspondence_randomness)
             targets.append((grid, pre_map, extra))
+        src_covs = None
+        if self.method == "GICP":
+            # The source's covariances, once per attempt, shared by every candidate.
+            src_covs, _ = gicp_mod.estimate_covariances(
+                src_cloud.points, src_cloud.mask, self.cfg.gicp.max_correspondence_distance,
+                k=self.cfg.gicp.correspondence_randomness)
         return {
-            "cands": cands, "latest": latest, "T_latest": T_latest,
-            "targets": targets, "source": (src_cloud.points, src_cloud.mask),
+            "cands": cands, "latest": latest, "T_latest": T_latest, "targets": targets,
+            "source": (src_cloud.points, src_cloud.mask, src_covs),
         }
 
     def _verify(self, inp) -> dict:
         """Run every candidate's verification (the reference's vmap over candidates: each
         one is independent). Returns host results and this thread's kernel launches."""
         t0 = time.perf_counter()
-        src_p, src_m = inp["source"]
+        src_p, src_m, src_covs = inp["source"]
         guess = torch.eye(4, dtype=torch.float32, device=src_p.device)
         before = kernels.thread_launches()
         Ts, scores, convs = [], [], []
         for grid, pre_map, extra in inp["targets"]:
-            T, score, ok = self._verify_one(grid, pre_map, extra, guess, src_p, src_m)
+            T, score, ok = self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
+                                            src_covs)
             Ts.append(T)
             scores.append(score)
             convs.append(ok)

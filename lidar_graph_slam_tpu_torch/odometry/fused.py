@@ -1,6 +1,7 @@
 """Fused front end: prefilter + align + keyframe decision in one step over device state.
 
-Port of `lidar_graph_slam_tpu/odometry/fused.py` (NDT matcher). Per frame:
+Port of `lidar_graph_slam_tpu/odometry/fused.py`, with its three matchers (NDT, GICP,
+ICP). Per frame:
 
     raw scan -> prefilter -> align(target) -> health gate -> masked pose update
              -> keyframe decision (displacement trigger, accum distance)
@@ -27,8 +28,13 @@ from lidar_graph_slam_tpu_torch.core.config import CapacityConfig, PrefilterConf
 from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
-from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, init_ring, ring_insert
-from lidar_graph_slam_tpu_torch.registration import ndt
+from lidar_graph_slam_tpu_torch.odometry.scan_matcher import (
+    assemble_submap,
+    init_ring,
+    make_matcher,
+    make_register,
+    ring_insert,
+)
 from lidar_graph_slam_tpu_torch.registration.base import norm
 
 
@@ -77,17 +83,16 @@ def make_fused_frontend(
     """
     device = resolve_device(device)
     method = cfg.registration_method.upper()
-    if method != "NDT":
-        raise NotImplementedError(
-            f"registration_method {cfg.registration_method!r}: only NDT is ported to the "
-            "PyTorch front end yet")
+    if method not in ("NDT", "GICP", "ICP"):
+        raise ValueError(f"unknown registration_method {cfg.registration_method!r}")
 
     prefilter = make_prefilter(
         prefilter_cfg,
         capacity_out=capacity.filtered_points,
         voxel_capacity=min(capacity.raw_points, 2 * capacity.filtered_points),
     )
-    build_target, align = ndt.make_ndt_matcher(cfg.ndt, capacity.voxel_capacity)
+    build_target, align = make_matcher(cfg, capacity.voxel_capacity)
+    register = make_register(cfg, align)
     window = cfg.max_scan_accumulate_num
     n_filtered = capacity.filtered_points
 
@@ -121,12 +126,12 @@ def make_fused_frontend(
         if use_imu:
             guess[:3, :3] = state.pose[:3, :3] @ imu_R
 
-        res = align(target, filtered.points, filtered.mask, guess)
+        res = register(target, filtered.points, filtered.mask, guess)
 
         # Health gate: converged with almost no matched points is a silent failure;
         # NDT counts 7 correspondences per point (DIRECT7).
         n_valid = torch.clamp(torch.sum(filtered.mask.to(torch.int32)), min=1)
-        denom = n_valid * 7
+        denom = n_valid * 7 if method == "NDT" else n_valid
         healthy = res.converged & (
             res.num_inliers.to(torch.float32) >= cfg.min_inlier_fraction * denom.to(torch.float32))
         ok = healthy & torch.logical_not(bootstrap)

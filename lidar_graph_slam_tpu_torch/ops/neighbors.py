@@ -1,16 +1,13 @@
 """Sorted-grid neighborhoods — the engine's replacement for kd-trees.
 
-Port of `lidar_graph_slam_tpu/ops/neighbors.py` without the GICP/FPFH helpers: the grid
-build (`HashGrid`, `build_hash_grid`), the nearest-neighbor query that ICP and the loop
-fitness use (`_candidate_scan`, `nearest`), and the same-cloud sliding-window
-neighborhoods that statistical outlier removal uses. Points are keyed by cell and stably
-sorted, so the points of one cell are consecutive: a query gathers a bounded bucket of
-consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over the sorted
-order covers each cell's neighborhood (up to window truncation in very dense cells) — a
-sorted-window approximation of kNN that the port reproduces as it is.
-
-`knn`, `window_covariances` and `radius_mask` serve GICP and FPFH and wait for the GICP
-slice.
+Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
+`build_hash_grid`), the grid queries (`_candidate_scan`, `nearest` for ICP, GICP and the
+loop fitness, `knn`), the same-cloud sliding-window neighborhoods that statistical outlier
+removal and GICP's covariances use, and the dense `radius_mask`. Points are keyed by cell
+and stably sorted, so the points of one cell are consecutive: a query gathers a bounded
+bucket of consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over
+the sorted order covers each cell's neighborhood (up to window truncation in very dense
+cells) — a sorted-window approximation of kNN that the port reproduces as it is.
 """
 
 from __future__ import annotations
@@ -139,6 +136,21 @@ def nearest(grid: HashGrid, queries: torch.Tensor, bucket_cap: int = 32,
     return idx, best, torch.isfinite(best)
 
 
+def knn(grid: HashGrid, queries: torch.Tensor, k: int, bucket_cap: int = 32,
+        neighborhood: int = 27):
+    """k nearest neighbors within the neighborhood cells of each query.
+
+    Returns (idx [Q, k] int64 into grid.points, dist2 [Q, k], valid [Q, k]). Padded query
+    rows (at PAD_VALUE) return all-invalid results. The selection is a stable sort of the
+    candidates by distance, so ties keep the candidates' scan order."""
+    d2, cand_idx = _candidate_scan(grid, queries, _offsets_for(neighborhood, queries.device),
+                                   bucket_cap)
+    d2_sorted, perm = torch.sort(d2, dim=1, stable=True)
+    top_d2 = d2_sorted[:, :k]
+    idx = torch.gather(cand_idx, 1, perm[:, :k])
+    return idx, top_d2, torch.isfinite(top_d2)
+
+
 def window_neighbor_d2(grid: HashGrid, window: int) -> torch.Tensor:
     """Squared distances from every sorted row to its +-window sorted neighbors, masked to
     same-cell pairs: [N, 2*window], +inf where invalid.
@@ -169,3 +181,56 @@ def window_mean_knn_distance(grid: HashGrid, k: int, window: int = 24):
     n_found = torch.sum(found.to(torch.int32), dim=1)
     mean_d = torch.sum(dk, dim=1) / torch.clamp(n_found, min=1)
     return mean_d, n_found
+
+
+def window_covariances(grid: HashGrid, window: int = 16):
+    """Per sorted row: mean/covariance over its same-cell window neighborhood (self
+    included): (mu [N, 3], cov [N, 3, 3], count [N]).
+
+    The reference's arithmetic, in its order: raw first and second moments in world
+    coordinates, the row itself first, then shifts +1, -1, +2, -2, ... (row i's shift-s
+    neighbor is row (i - s) mod N, as `torch.roll` gives it), and E[xx^T] - mu mu^T at the
+    end. The reference's compiled program contracts each second-moment step
+    s2 + (w x_i) x_j and the final s2 / n - mu_i mu_j into fused multiply-adds; these
+    terms cancel (|x|^2 ~ 1600 m^2 at 40 m against patch variances ~0.01 m^2), so the
+    port rounds them the same way: the product is exact in float64 and the sum is
+    rounded once to float32. The sums accumulate in place, so one shifted copy of the
+    cloud is alive at a time, not 2 x window of them."""
+    pts = grid.points
+    f64 = torch.float64
+    comps = [pts[:, c] for c in range(3)]
+    keys = grid.keys
+    valid_self = keys != INVALID_KEY
+    cnt = valid_self.to(pts.dtype)
+    s1 = [torch.where(valid_self, c, 0.0) for c in comps]
+    s2 = {(i, j): torch.where(valid_self, comps[i] * comps[j], 0.0)
+          for i in range(3) for j in range(i, 3)}
+    for s in range(1, window + 1):
+        for shift in (s, -s):
+            w = ((torch.roll(keys, shift) == keys) & valid_self).to(pts.dtype)
+            shifted = torch.roll(pts, shift, dims=0)
+            shifted64 = shifted.to(f64)
+            cnt += w
+            for i in range(3):
+                ws = w * shifted[:, i]
+                s1[i] += ws
+                ws64 = ws.to(f64)
+                for j in range(i, 3):
+                    s2[(i, j)].copy_(torch.addcmul(s2[(i, j)], ws64, shifted64[:, j]))
+    denom = torch.clamp(cnt, min=1.0)
+    mu = torch.stack([s1[i] / denom for i in range(3)], dim=-1)
+    mu64 = mu.to(f64)
+    cov = torch.empty((pts.shape[0], 3, 3), dtype=pts.dtype, device=pts.device)
+    for (i, j), s2ij in s2.items():
+        cij = torch.addcmul(s2ij / denom, mu64[:, i], mu64[:, j], value=-1.0)
+        cov[:, i, j] = cij
+        cov[:, j, i] = cij
+    return mu, cov, cnt
+
+
+def radius_mask(positions: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,
+                radius) -> torch.Tensor:
+    """Dense radius search over a small point set (keyframe positions): `mask` and
+    squared distance to `query` below `radius`^2."""
+    d2 = torch.sum((positions - query[None, :]) ** 2, dim=-1)
+    return mask & (d2 < radius * radius)

@@ -4,7 +4,11 @@ Port of `lidar_graph_slam_tpu/pipeline/cli.py`: one command producing trajectory
 (TUM + KITTI), the map PCD, a bird's-eye PNG (when matplotlib is installed) and a metrics
 JSON. Loop closure is on by default, as in the reference; `--no-loop-closure` switches it
 off. It runs on the CUDA card; `--device cpu` runs it on the CPU (the counterpart of the
-reference's platform choice). The KITTI reader, `--multihost` and `--live-render` are not
+reference's platform choice). The front-end driver and the registration methods come from
+the config, as in the reference: `--set fused_frontend=false` runs the classic
+stage-by-stage driver, `--set scan_matcher.registration_method=GICP` (or ICP) the front
+end's matcher, `--set graph_slam.registration_method=GICP` (or NDT) the loop verifier; the
+summary names all three. The KITTI reader, `--multihost` and `--live-render` are not
 ported yet.
 """
 
@@ -90,6 +94,9 @@ def main(argv=None) -> int:
         "keyframes": int(result.keyframe_poses.shape[0]),
         "loop_closures": result.num_loop_closures,
         "device": str(pipe.device),
+        "fused_frontend": pipe.fused,
+        "registration_method": cfg.scan_matcher.registration_method,
+        "loop_verifier": cfg.graph_slam.registration_method,
         "stage_timings": result.metrics,
     }
     summary["ate_odometry_m"] = ate_rmse(result.odometry_poses, gt, align=False)

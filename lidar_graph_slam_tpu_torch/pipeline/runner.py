@@ -1,15 +1,19 @@
-"""End-to-end SLAM pipeline driver (fused front end + graph back end).
+"""End-to-end SLAM pipeline driver (front end + graph back end).
 
-Port of the fused driver of `lidar_graph_slam_tpu/pipeline/runner.py`: each frame runs
-the fused front-end step (`odometry/fused.py`) on the device, and the host reads frame
-t's outputs AFTER dispatching frame t+1 (lagged readback). A frame's outputs are copied
-to pinned host memory with non-blocking copies started right after its step; the
-consume waits on that frame's event only. `process_scan` therefore returns the
-PREVIOUS frame's record; `flush()` / `result()` drain the frames in flight and settle
-the concurrent back end (loop verification and solve, `graph/slam.py`).
+Port of `lidar_graph_slam_tpu/pipeline/runner.py`, with its two front-end drivers:
 
-Not ported yet: the classic stage-by-stage driver (`fused_frontend=False`), which
-raises NotImplementedError at construction.
+  * fused (default): each frame runs the fused front-end step (`odometry/fused.py`) on
+    the device, and the host reads frame t's outputs AFTER dispatching frame t+1
+    (lagged readback). A frame's outputs are copied to pinned host memory with
+    non-blocking copies started right after its step; the consume waits on that frame's
+    event only. `process_scan` therefore returns the PREVIOUS frame's record.
+  * classic (`fused_frontend=False`): stage by stage — prefilter, then
+    `odometry/scan_matcher.py:ScanMatcher` (one batched read per frame, the target
+    rebuilt at once on a keyframe), then the back end — with per-stage wall times; the
+    prefilter stage waits for the card's stream, as the reference blocks on its output.
+
+`flush()` / `result()` drain the frames in flight and settle the concurrent back end
+(loop verification and solve, `graph/slam.py`).
 """
 
 from __future__ import annotations
@@ -26,10 +30,11 @@ from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.core.config import PipelineConfig
 from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.msgs import KeyFrame
-from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
+from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
+from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
-from lidar_graph_slam_tpu_torch.odometry.scan_matcher import integrate_gyro
+from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher, integrate_gyro
 from lidar_graph_slam_tpu_torch.utils.telemetry import MetricsWriter
 
 
@@ -82,10 +87,6 @@ class SlamPipeline:
 
     def __init__(self, cfg: PipelineConfig, metrics_path: Optional[str] = None,
                  extrinsic_provider=None, device=None):
-        if not cfg.fused_frontend:
-            raise NotImplementedError(
-                "the classic stage-by-stage driver (fused_frontend=False) is not ported "
-                "to the PyTorch package yet")
         self.device = resolve_device(device)
         self.metrics_writer = MetricsWriter(metrics_path)
         self.cfg = cfg
@@ -99,7 +100,20 @@ class SlamPipeline:
         self.odometry_poses: list[np.ndarray] = []
         self.kf_frame_indices: list[int] = []
         self._loop_attempts_emitted = 0
-
+        self.fused = cfg.fused_frontend
+        if not self.fused:
+            # The voxel stage's output capacity bounds the SOR working set: twice the
+            # final budget, as in the fused step.
+            self.prefilter = make_prefilter(
+                cfg.prefilter, capacity_out=cap.filtered_points,
+                voxel_capacity=min(cap.raw_points, 2 * cap.filtered_points))
+            self.front = ScanMatcher(cfg.scan_matcher, scan_capacity=cap.filtered_points,
+                                     map_voxel_capacity=cap.voxel_capacity,
+                                     device=self.device)
+            self.front.extrinsic_provider = extrinsic_provider
+            self._kf_consumed = 0
+            return
+        self.front = None
         init_state, self._step, aux = make_fused_frontend(
             cfg.scan_matcher, cfg.prefilter, cap, device=self.device)
         self._state = init_state()
@@ -261,26 +275,75 @@ class SlamPipeline:
         }
 
     def flush(self) -> None:
-        """Drain in-flight frames and settle the concurrent back end (join any solve
-        thread, consume a pending verification)."""
-        while self._pending:
+        """Drain in-flight frames (fused driver) and settle the concurrent back end (join
+        any solve thread, consume a pending verification)."""
+        while self.fused and self._pending:
             self._consume_fused(self._pending.popleft())
         if self.cfg.enable_loop_closure:
             self.back.finish_async()
             self._emit_loop_attempts(len(self.odometry_poses))
 
+    # -- classic driver -----------------------------------------------------------------
+
+    def _process_classic(self, scan: np.ndarray, stamp: Optional[float]) -> dict:
+        t0 = time.perf_counter()
+        raw = PointCloud.from_array(scan, capacity=self.cfg.capacity.raw_points,
+                                    device=self.device)
+        filtered = self.prefilter(raw.points, raw.mask)
+        if self.device.type == "cuda":  # the stage's time includes its device work
+            torch.cuda.current_stream(self.device).synchronize()
+        t1 = time.perf_counter()
+
+        out = self.front.process(filtered, stamp=stamp)
+        t2 = time.perf_counter()
+
+        # Hand new keyframes to the back end.
+        while self._kf_consumed < len(self.front.keyframe_log):
+            kf = self.front.keyframe_log[self._kf_consumed]
+            self.back.add_keyframe(kf)
+            self.kf_frame_indices.append(kf["frame_index"])
+            self._kf_consumed += 1
+        if self.cfg.enable_loop_closure:
+            self.back.on_frame()
+        self._emit_loop_attempts(len(self.odometry_poses))
+        t3 = time.perf_counter()
+
+        self.timings["prefilter"].append(t1 - t0)
+        self.timings["register"].append(t2 - t1)
+        self.timings["backend"].append(t3 - t2)
+        self.odometry_poses.append(out["pose"])
+        self.metrics_writer.emit({
+            "frame": len(self.odometry_poses) - 1,
+            "converged": out["converged"],
+            "fitness": out["fitness"],
+            "iterations": out["iterations"],
+            "is_keyframe": out["is_keyframe"],
+            "n_keyframes": self.front.n_keyframes,
+            "loops_accepted": self._loops_accepted(),
+            "prefilter_ms": 1000 * (t1 - t0),
+            "register_ms": 1000 * (t2 - t1),
+            "backend_ms": 1000 * (t3 - t2),
+        })
+        return out
+
     # -- public API ---------------------------------------------------------------------
 
     def add_imu(self, stamp: float, angular_velocity, linear_acceleration=None) -> None:
-        """Queue an IMU sample; only the gyro is used (rotation prediction)."""
-        del linear_acceleration
+        """Queue an IMU sample; only the gyro is used (rotation prediction). The classic
+        driver hands it to `ScanMatcher`; the fused one integrates it on the host between
+        dispatched frames."""
+        if not self.fused:
+            self.front.add_imu(stamp, angular_velocity, linear_acceleration)
+            return
         self._imu_queue.append((float(stamp), np.asarray(angular_velocity, dtype=np.float64)))
         if len(self._imu_queue) > 2000:
             self._imu_queue = self._imu_queue[-1000:]
 
     def process_scan(self, scan: np.ndarray, stamp: Optional[float] = None) -> dict:
-        """Feed one raw sensor-frame scan [n, 3]. The returned dict describes the
-        PREVIOUS frame (one frame of readback lag); call flush() to drain."""
+        """Feed one raw sensor-frame scan [n, 3]. With the fused driver the returned dict
+        describes the PREVIOUS frame (one frame of readback lag); call flush() to drain."""
+        if not self.fused:
+            return self._process_classic(scan, stamp)
         return self._process_fused(scan, stamp)
 
     def run(self, scans: Iterable, progress_every: int = 0) -> PipelineResult:

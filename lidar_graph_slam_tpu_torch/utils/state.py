@@ -11,6 +11,7 @@ state the JAX package reached:
     `origin`, `leaf`, `num_voxels`, `table`, `packed`);
   * NN grid: the `HashGrid` field names (`keys`, `points`, `packed`, `order`, `starts`,
     `origin`, `cell_size`, `num`, `table`);
+  * GICP target: the grid's field names plus `covs` and `valid`;
   * pose graph: the `PoseGraph` field names (`poses`, `pose_mask`, `odom_meas`,
     `prior_pose`, `odom_info`, `loop_i`, `loop_j`, `loop_meas`, `loop_info`,
     `loop_mask`, `num_poses`, `num_loops`).
@@ -28,6 +29,7 @@ from lidar_graph_slam_tpu_torch.odometry.fused import FrontEndState
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import SubmapRing
 from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid
 from lidar_graph_slam_tpu_torch.ops.voxel import NdtVoxelMap
+from lidar_graph_slam_tpu_torch.registration.gicp import GicpTarget
 
 
 def _t(a, dtype, device) -> torch.Tensor:
@@ -79,6 +81,13 @@ def ndt_map_from_numpy(arrays, device=None) -> NdtVoxelMap:
 def hash_grid_from_numpy(arrays, device=None) -> HashGrid:
     """`packed` keeps its bits: column 3 is the int32 cell key stored as float32."""
     return _from_numpy(HashGrid, _GRID_DTYPES, arrays, device)
+
+
+def gicp_target_from_numpy(arrays, device=None) -> GicpTarget:
+    """`arrays`: the `HashGrid` fields of `GicpTarget.grid`, plus `covs` and `valid`."""
+    return GicpTarget(grid=hash_grid_from_numpy(arrays, device),
+                      covs=_t(arrays["covs"], torch.float32, device),
+                      valid=_t(arrays["valid"], torch.bool, device))
 
 
 def pose_graph_from_numpy(arrays, device=None) -> PoseGraph:

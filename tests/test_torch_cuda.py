@@ -2,8 +2,9 @@
 rows) against its plain PyTorch version and a float64 evaluation, and
 `ndt_direct7_accumulate` (DIRECT7 gather fused in) against its plain version on real
 maps and edge cases; both launched at once from two threads on two streams; the
-loops-off pipeline, the grid nearest-neighbor query and one loop verification on the
-card against the same on the CPU.
+loops-off pipeline, the grid nearest-neighbor query, one loop verification (ICP and
+GICP) and `gicp_align` on the card against the same on the CPU; `ndt_accumulate` on
+GICP's own rows, unmatched padding rows included; the classic driver's device default.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -14,7 +15,8 @@ Tolerances: per output, max |kernel - reference| <= 1e-5 * max |reference| + 2e-
 sum ~1e5 float32 terms in different orders), hit and centre counts exact; two launches on
 the same inputs bit-identical, and so are launches made concurrently on two streams. Pipeline poses: card vs CPU within 1 cm and 1 mrad per frame. Grid
 NN: idx and found equal, d2 to rtol 1e-6. Verification: the same candidate and decision,
-fitness to rtol 1e-3, transform to atol 1e-3.
+fitness to rtol 1e-3, transform to atol 1e-3. `gicp_align`: transform to atol 1e-4,
+iterations and converged equal, num_inliers within 1%.
 """
 
 import dataclasses
@@ -33,6 +35,7 @@ from lidar_graph_slam_tpu_torch.core.config import (
 )
 from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
+from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher
 from lidar_graph_slam_tpu_torch.io.synthetic import (
     SyntheticSequence,
     make_loop_trajectory,
@@ -41,9 +44,11 @@ from lidar_graph_slam_tpu_torch.io.synthetic import (
 )
 from lidar_graph_slam_tpu_torch.ops import kernels as tk
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
+from lidar_graph_slam_tpu_torch.registration import gicp
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
+from lidar_graph_slam_tpu_torch.utils.state import gicp_target_from_numpy
 
 pytestmark = pytest.mark.cuda
 
@@ -310,11 +315,110 @@ def test_nearest_card_matches_cpu(cuda, neighborhood, bucket_cap):
     torch.testing.assert_close(cd[cf], pd[pf], rtol=1e-6, atol=0.0)
 
 
-def _loop_backend(device, async_backend):
+def _gicp_problem(device, n=8192, seed=7):
+    """The registration fixture of `tests/test_registration.py` on `device`: a GICP target
+    of one scan and the other scan moved by a perturbation, with its covariances; both
+    clouds hold padding rows (capacity above the scan). Returns (target, source, mask,
+    covs)."""
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, extent=40.0, density=3.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [5.0, -3.0, 1.5]
+    tgt = simulate_scan(world, pose, rng, max_range=45.0, max_points=n, noise=0.01)
+    src = simulate_scan(world, pose, rng, max_range=45.0, max_points=n, noise=0.01)
+    tc = PointCloud.from_array(tgt, capacity=2 * n, device=device)
+    sc = PointCloud.from_array(src, capacity=n + 1024, device=device)
+    c, s_ = np.cos(0.03), np.sin(0.03)
+    T = torch.tensor([[c, -s_, 0.0, 0.3], [s_, c, 0.0, -0.2], [0.0, 0.0, 1.0, 0.05],
+                      [0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+    moved = torch.where(sc.mask[:, None], sc.points @ T[:3, :3].T + T[:3, 3], sc.points)
+    target = gicp.build_gicp_target(tc.points, tc.mask, 2.0)
+    covs, _ = gicp.estimate_covariances(sc.points, sc.mask, 2.0)
+    return target, moved.contiguous(), sc.mask, covs
+
+
+def test_kernel_on_gicp_rows(cuda):
+    """`ndt_accumulate` on the rows of a GICP iteration (d2 = 0, w_scale = 1): matched
+    rows, unmatched ones, and rows far off (source padding at 1e6 and points 500 m away,
+    whose nearest target row may be padding: |e| up to ~1.7e6). Unmatched rows get weight
+    exactly 0 — the outputs equal those of the matched rows alone — and never a NaN."""
+    target, src, mask, covs = _gicp_problem(cuda)
+    src[:500] += 500.0
+    R = torch.eye(3, device=cuda)
+    idx, _d2, matched = gicp.match(target, src, mask, 4.0)
+    e, M = gicp.residual_rows(target, idx, src, R, covs)
+    assert float(e[~mask].abs().max()) > 1e5 and bool(matched.any())
+    assert int((~matched).sum()) > 1000
+    before = tk.ndt_accumulate.launches
+    out = tk.ndt_accumulate(e, M, src, matched, 0.0, 1.0)
+    again = tk.ndt_accumulate(e, M, src, matched, 0.0, 1.0)
+    torch.cuda.synchronize()
+    assert tk.ndt_accumulate.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    _assert_close(out, tk.ndt_accumulate_plain(e, M, src, matched, 0.0, 1.0))
+    sel = matched
+    only = tk.ndt_accumulate(e[sel].contiguous(), M[sel].contiguous(), src[sel].contiguous(),
+                             torch.ones(int(sel.sum()), dtype=torch.bool, device=cuda), 0.0, 1.0)
+    _assert_close(out, only)
+    assert float(out[2]) == float(out[3]) == float(sel.sum())  # weight 1 per matched row
+
+
+def test_gicp_align_card_matches_cpu(cuda):
+    """One `gicp_align` from the same target and covariances on the card (one kernel
+    launch per iteration) and on the CPU (plain version), with and without reciprocal."""
+    target, src, mask, covs = _gicp_problem(cuda)
+    cpu = torch.device("cpu")
+    target_cpu = gicp.GicpTarget(grid=type(target.grid)(**{
+        k: v.to(cpu) for k, v in vars(target.grid).items()}), covs=target.covs.to(cpu),
+        valid=target.valid.to(cpu))
+    for reciprocal in (False, True):
+        res = {}
+        for dev, tgt in ((cuda, target), (cpu, target_cpu)):
+            p, m, c = src.to(dev), mask.to(dev), covs.to(dev)
+            kw = dict(reciprocal=True, source_grid=build_hash_grid(p, m, 2.0)) if reciprocal else {}
+            before = tk.ndt_accumulate.launches
+            r = gicp.gicp_align(tgt, p, m, torch.eye(4, device=dev), c, **kw)
+            launched = tk.ndt_accumulate.launches - before
+            assert launched == (int(r.iterations) if dev.type == "cuda" else 0)
+            res[dev.type] = r
+        a, b = res["cuda"], res["cpu"]
+        np.testing.assert_allclose(a.transform.cpu().numpy(), b.transform.numpy(), atol=1e-4)
+        assert int(a.iterations) == int(b.iterations) and bool(a.converged) == bool(b.converged)
+        assert abs(int(a.num_inliers) - int(b.num_inliers)) <= 0.01 * int(b.num_inliers)
+        assert bool(a.converged) and int(a.num_inliers) > 1000
+
+
+def test_gicp_target_round_trips(cuda):
+    target, *_ = _gicp_problem(cuda, n=2048)
+    arrays = {k: v.cpu().numpy() for k, v in vars(target.grid).items()}
+    arrays.update(covs=target.covs.cpu().numpy(), valid=target.valid.cpu().numpy())
+    back = gicp_target_from_numpy(arrays, device=cuda)
+    for k, v in vars(target.grid).items():
+        got = getattr(back.grid, k)
+        if v.dtype == torch.float32:  # bit for bit: `packed` holds int32 keys (NaN bits)
+            got, v = got.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(got, v), k
+    assert torch.equal(back.covs, target.covs) and torch.equal(back.valid, target.valid)
+    assert back.covs.device.type == "cuda"
+
+
+def test_scan_matcher_defaults_to_the_card(cuda, monkeypatch):
+    from lidar_graph_slam_tpu_torch.core.config import ScanMatcherConfig
+
+    sm = ScanMatcher(ScanMatcherConfig(registration_method="GICP"), 512)
+    assert sm.device.type == "cuda" and sm.ring.clouds.device.type == "cuda"
+    assert ScanMatcher(ScanMatcherConfig(), 512, device="cpu").ring.clouds.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ScanMatcher(ScanMatcherConfig(), 512)
+
+
+def _loop_backend(device, async_backend, method="ICP"):
     """The verifier fixture of `tests/test_loop_verifiers.py:build_loop_backend("ICP")`:
     31 keyframes on a ~128 m loop, the latest reported with 0.6 m / 0.03 rad of drift."""
     cfg = GraphSlamConfig(accumulate_distance_threshold=100.0,
-                          search_for_candidate_threshold=15.0,
+                          search_for_candidate_threshold=15.0, registration_method=method,
                           icp=IcpConfig(max_iterations=40), async_backend=async_backend)
     cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
                          loop_submap_points=65536, voxel_capacity=32768)
@@ -335,15 +439,20 @@ def _loop_backend(device, async_backend):
     return back
 
 
-def test_verification_card_matches_cpu(cuda):
+@pytest.mark.parametrize("method", ["ICP", "GICP"])
+def test_verification_card_matches_cpu(cuda, method):
     """One loop verification through the asynchronous path (worker thread, own stream)
     on the card against the synchronous one on the CPU: the same decision, and the card
-    launched the kernel in the verification's NDT pre-align."""
+    launched the kernels in the verification's NDT pre-align (and, for GICP, in every
+    GICP iteration)."""
     rec = {}
     for device, async_backend in ((cuda, True), (torch.device("cpu"), False)):
-        back = _loop_backend(device, async_backend)
+        before = tk.ndt_accumulate.launches
+        back = _loop_backend(device, async_backend, method)
         assert back.try_close_loop()
         rec[device.type] = (back.loop_log[-1], back.verify_launches, back.optimized_poses())
+        rows = tk.ndt_accumulate.launches - before
+        assert (rows > 0) == (device.type == "cuda" and method == "GICP"), rows
     (a, launches, pa), (c, cpu_launches, pc) = rec["cuda"], rec["cpu"]
     assert (a["candidate"], a["accepted"], a["converged"]) == (c["candidate"], c["accepted"],
                                                               c["converged"])

@@ -2,8 +2,8 @@
 loop factors, the solve, the concurrent back end, and map assembly.
 
 Tolerances: loop detection and capacity refusals exact. `try_close_loop` on the
-verifier fixture of `tests/test_loop_verifiers.py`: the same candidate and accept
-decision, fitness to rtol 1e-4, the verifier's transform to atol 1e-4 and the optimized
+verifier fixture of `tests/test_loop_verifiers.py`, with the ICP, NDT and GICP
+verifiers: the same candidate and accept decision, fitness to rtol 1e-4, the verifier's transform to atol 1e-4 and the optimized
 poses to atol 1e-4. The port's asynchronous back end against its synchronous one, alone
 and in the pipeline on a 30-frame closed-loop course: the same decisions and poses to
 atol 1e-4 (the reference's own bound for that comparison).
@@ -135,14 +135,13 @@ def test_capacity_refusals_match_reference():
 
 
 def test_backend_validates_its_configuration():
-    """An unknown verifier is a ValueError, as in the reference; the verifiers and the
-    global initial guess that are not ported yet refuse at construction."""
+    """An unknown verifier is a ValueError, as in the reference; the global initial
+    guess, not ported yet, refuses at construction."""
     with pytest.raises(ValueError):
         TBack(tcfg.GraphSlamConfig(registration_method="VGICP"), tcfg.CapacityConfig(),
               device="cpu")
-    with pytest.raises(NotImplementedError):
-        TBack(tcfg.GraphSlamConfig(registration_method="GICP"), tcfg.CapacityConfig(),
-              device="cpu")
+    assert TBack(tcfg.GraphSlamConfig(registration_method="gicp"), tcfg.CapacityConfig(),
+                 device="cpu").method == "GICP"
     with pytest.raises(NotImplementedError):
         TBack(tcfg.GraphSlamConfig(use_global_init=True), tcfg.CapacityConfig(), device="cpu")
     assert TBack(tcfg.GraphSlamConfig(registration_method="ndt"),
@@ -152,10 +151,10 @@ def test_backend_validates_its_configuration():
 @pytest.fixture(scope="module")
 def verifier_backends():
     """The reference's `build_loop_backend(method)` before and after `try_close_loop`,
-    for ICP and NDT: {method: (reference back end after the closure, its optimized poses
-    before it, a port back end fed the same keyframes)}."""
+    for ICP, NDT and GICP: {method: (reference back end after the closure, its optimized
+    poses before it, a port back end fed the same keyframes)}."""
     out = {}
-    for method in ("ICP", "NDT"):
+    for method in ("ICP", "NDT", "GICP"):
         jb, _ = build_loop_backend(method)
         before = jb.optimized_poses()
         fresh = _port_backend(jb, async_backend=False)  # fed before the closure
@@ -164,7 +163,7 @@ def verifier_backends():
     return out
 
 
-@pytest.mark.parametrize("method", ["ICP", "NDT"])
+@pytest.mark.parametrize("method", ["ICP", "NDT", "GICP"])
 def test_try_close_loop_matches_reference(verifier_backends, method):
     jb, before, tb = verifier_backends[method]
     np.testing.assert_array_equal(tb.optimized_poses(), before)

@@ -113,6 +113,18 @@ def test_config_dataclasses_equal_reference():
             == dataclasses.asdict(jcfg.apply_cli_overrides(jcfg.PipelineConfig(), pairs)))
 
 
+@pytest.mark.parametrize("raw,want", [("false", False), ("False", False), ("FALSE", False),
+                                      ("true", True), ("True", True), ("0", 0)])
+def test_cli_overrides_parse_booleans(raw, want):
+    """`--set fused_frontend=false` must select the classic driver: the reference's
+    parser keeps a bare `false` as the (truthy) string "false"."""
+    cfg = tcfg.apply_cli_overrides(tcfg.PipelineConfig(), [f"fused_frontend={raw}"])
+    assert cfg.fused_frontend == want and type(cfg.fused_frontend) is type(want)
+    cfg = tcfg.apply_cli_overrides(tcfg.PipelineConfig(), [
+        "scan_matcher.registration_method=GICP", "graph_slam.registration_method=GICP"])
+    assert cfg.scan_matcher.registration_method == cfg.graph_slam.registration_method == "GICP"
+
+
 @pytest.mark.parametrize("frame", [1, 3, 4])
 def test_fused_step_from_reference_state(jax_run, cfg, frame):
     """One fused step started from exactly the reference's state and target (carried
@@ -236,9 +248,28 @@ def test_map_export(torch_run, tmp_path):
     assert pts.shape[0] > 100 and np.isfinite(pts).all() and np.abs(pts).max() < 200.0
 
 
-def test_unported_modes_raise(cfg):
-    with pytest.raises(NotImplementedError):
-        TorchPipeline(_torch_config(replace(cfg, fused_frontend=False)), device="cpu")
+def test_unported_modes_raise(course, cfg):
+    """The modes that raised before their slice was ported now construct and run on the
+    CPU: the classic driver (`fused_frontend=False`), and the fused front end with the
+    GICP and ICP matchers. One intra-op thread: GICP's many small ops thrash an OpenMP
+    pool per core when the suite runs its files in parallel processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for overrides in (["fused_frontend=False"],
+                          ["scan_matcher.registration_method=GICP"],
+                          ["scan_matcher.registration_method=ICP"]):
+            tc = tcfg.apply_cli_overrides(_torch_config(cfg), overrides)
+            pipe = TorchPipeline(tc, device="cpu")
+            assert pipe.fused == tc.fused_frontend
+            res = pipe.run(course[:3])
+            assert res.odometry_poses.shape == (3, 4, 4), overrides
+            assert np.isfinite(res.odometry_poses).all()
+            frames = [r for r in pipe.metrics_writer.records
+                      if "frame" in r and "event" not in r]
+            assert [r["converged"] for r in frames] == [True] * 3, overrides
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_loop_closure_constructs_and_runs(course, cfg):
@@ -267,6 +298,20 @@ def test_cli_runs_on_cpu(tmp_path):
     assert summary["ate_odometry_m"] < 0.5
     for name in ("odometry_tum.txt", "odometry_kitti.txt", "keyframes_tum.txt", "map.pcd"):
         assert (out / name).exists(), name
+    assert summary["fused_frontend"] is True and summary["registration_method"] == "NDT"
+    # The classic driver with the GICP front end and verifier, chosen by --set.
+    classic = tmp_path / "classic"
+    args = [a if a != str(out) else str(classic) for a in cmd]
+    proc = subprocess.run(args + ["--set", "fused_frontend=false",
+                                  "--set", "scan_matcher.registration_method=GICP",
+                                  "--set", "graph_slam.registration_method=GICP"],
+                          cwd=REPO, capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    summary = json.loads((classic / "metrics.json").read_text())
+    assert summary["frames"] == 3 and summary["fused_frontend"] is False
+    assert summary["registration_method"] == summary["loop_verifier"] == "GICP"
+    assert summary["ate_odometry_m"] < 0.5
     # The default run has loop closure on and reports it.
     loops_on = tmp_path / "loops_on"
     default = [a for a in cmd if a != "--no-loop-closure"]
