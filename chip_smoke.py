@@ -56,7 +56,30 @@ of `bench.py:bench_e2e`. Phases:
      ATE below phase 10's loops-off ATE, `ndt_accumulate` launched by the verify thread
      (the odometry launches only the fused kernel); verify p50;
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
-     60 frames: it runs on the card, with that driver and matcher.
+     60 frames: it runs on the card, with that driver and matcher;
+ 19. `global_register` (FPFH + RANSAC, default `GlobalRegConfig`: 8,192 keypoints, 2,048
+     hypotheses, fpfh_k 32) on an 8,192-point scan moved by 150 deg / (18, -9, 0.3) m and
+     by 75 deg / (-12, 20, -0.2) m: ok, rotation error < 5 deg, translation error < 1 m, on
+     the card and on the CPU; ms per call, and the time of its batched 3x3 SVDs and of its
+     [Q, M] feature product alone;
+ 20. loop verification from the global guess: the 31-keyframe fixture with 0.4 rad /
+     (4.0, -4.2) m of drift on the latest keyframe — with `use_global_init` the loop
+     closes and the corrected pose lies within 0.3 m of truth, the identity guess misses
+     it or reads a worse fitness; the fused kernel's launches on this path (the pre-align
+     from the global guess) are counted from 0; `ransac_families` is in the log. Then the
+     default pipeline with `graph_slam.use_global_init=true` on the drift course: loops
+     accepted, keyframe ATE below phase 10's loops-off ATE, verify p50 beside phase 10's;
+ 21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
+     continued — the classic driver equals the uninterrupted run to 1e-4 with the same
+     keyframe schedule, the fused driver to 5e-2 with the same schedule; file size, save
+     and load ms;
+ 22. KITTI layout: the 40 dense frames written as velodyne .bin files with poses and
+     calib, the native library built (`native.available()`, no numpy fallback), the scans
+     from the read-ahead equal to `np.fromfile`'s, and the CLI in a subprocess with
+     `--dataset kitti --live-render 20`: frames, keyframes, ATE from the poses file, the
+     output files;
+ 23. `trace("frame", profile_dir=...)` around a few frames in a subprocess
+     (`scripts/torch_trace_frames.py`): a trace file exists and `trace.last_ms` is set.
 
 Each path's launches are counted from 0 just before it runs and read just after.
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
@@ -72,8 +95,10 @@ max_points=12000), "cpu")`.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -81,7 +106,15 @@ import time
 import numpy as np
 import torch
 
-from lidar_graph_slam_tpu_torch.core.config import PipelineConfig, apply_cli_overrides
+from lidar_graph_slam_tpu_torch import native
+from lidar_graph_slam_tpu_torch.core.config import (
+    CapacityConfig,
+    GlobalRegConfig,
+    GraphSlamConfig,
+    IcpConfig,
+    PipelineConfig,
+    apply_cli_overrides,
+)
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.graph.slam import (
@@ -89,7 +122,13 @@ from lidar_graph_slam_tpu_torch.graph.slam import (
     GraphBasedSLAM,
     loop_pre_align,
 )
-from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence, make_world, simulate_scan
+from lidar_graph_slam_tpu_torch.io.kitti import KittiSequence
+from lidar_graph_slam_tpu_torch.io.synthetic import (
+    SyntheticSequence,
+    make_loop_trajectory,
+    make_world,
+    simulate_scan,
+)
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
@@ -103,8 +142,9 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     voxel_downsample,
 )
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
-from lidar_graph_slam_tpu_torch.registration import gicp
+from lidar_graph_slam_tpu_torch.registration import features, gicp
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants, ndt_align
+from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -122,6 +162,14 @@ NN_RTOL = 1e-6
 # 1e-3 and the transform to atol 1e-3 (entries of the 4x4: ~1 mm, ~1 mrad). Up to ~120
 # float32 NDT and ICP iterations, whose reductions sum in different orders.
 VERIFY_FIT_RTOL, VERIFY_T_ATOL = 1e-3, 1e-3
+# Global registration: the limits of the reference's own test of it.
+GLOBAL_ROT_DEG, GLOBAL_TRANS_M = 5.0, 1.0
+GLOBAL_OFFSETS = ((150.0, (18.0, -9.0, 0.3)), (75.0, (-12.0, 20.0, -0.2)))
+# Loop verification from the global guess: the corrected pose against truth.
+GLOBAL_LOOP_TRANS_M = 0.3
+# Resume against the uninterrupted run: classic driver, fused driver (its one-frame submap
+# lag collapses at the checkpoint).
+RESUME_ATOL = {False: 1e-4, True: 5e-2}
 
 
 def say(phase: str, **numbers) -> None:
@@ -558,7 +606,7 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, car
                             "cloud_mask": np.ones(cloud.shape[0], bool),
                             "accum_distance": back.kf_accum_dist[k]})
         inp = b._build_verify_inputs()
-        _grid, pre_map, _extra = inp["targets"][0]
+        _grid, pre_map, _extra, _guess = inp["targets"][0]
         src_p, src_m, _ = inp["source"]
         p = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
         pre.append((p.transform.cpu().numpy(), int(p.iterations)))
@@ -657,7 +705,7 @@ def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
                         "cloud_mask": np.ones(cloud.shape[0], bool),
                         "accum_distance": back.kf_accum_dist[k]})
     inp = b._build_verify_inputs()
-    _grid, pre_map, target = inp["targets"][0]
+    _grid, pre_map, target, _guess = inp["targets"][0]
     src_p, src_m, src_covs = inp["source"]
     pre = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
     src_p, src_m = src_p.clone(), src_m.clone()
@@ -781,6 +829,274 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 loop_verifier=summary["loop_verifier"],
                 ate_odometry_m=summary["ate_odometry_m"],
                 ate_keyframes_m=summary["ate_keyframes_m"])
+
+
+def global_register_check(dev, card: str) -> dict:
+    """`global_register` at the default `GlobalRegConfig` on an 8,192-point scan and its
+    copy moved by each of GLOBAL_OFFSETS, on the card and on the CPU: ok, and the
+    recovered transform within GLOBAL_ROT_DEG / GLOBAL_TRANS_M of the truth. Times on the
+    card: the whole call, and alone the SVDs it runs (one batch of 2,048 3x3 matrices and
+    two single ones) and its [Q, M] feature product on its own features."""
+    gr = GlobalRegConfig()
+    rng = np.random.default_rng(0)
+    world = make_world(rng, extent=40.0, density=3.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (8.0, -3.0, 1.5)
+    tgt = simulate_scan(world, pose, rng, max_points=8192, noise=0.015)
+    kw = dict(keypoint_leaf=gr.keypoint_leaf, normal_k=gr.normal_k, fpfh_k=gr.fpfh_k,
+              hypotheses=gr.hypotheses, inlier_threshold=gr.inlier_threshold,
+              min_occupancy=gr.min_occupancy, max_keypoints=gr.max_keypoints,
+              tgt_viewpoint=np.zeros(3, np.float32))
+    out = dict(points=len(tgt), keypoints=gr.max_keypoints, hypotheses=gr.hypotheses)
+    for i, (yaw_deg, offset) in enumerate(GLOBAL_OFFSETS):
+        a = np.deg2rad(yaw_deg)
+        R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]],
+                     np.float32)
+        t = np.asarray(offset, np.float32)
+        src = ((tgt - t) @ R).astype(np.float32)
+        sc = PointCloud.from_array(src, capacity=8192)
+        tc = PointCloud.from_array(tgt, capacity=8192)
+        for device in (dev, torch.device("cpu")):
+            args = [x.to(device) for x in (sc.points, sc.mask, tc.points, tc.mask)]
+            t0 = time.perf_counter()
+            T, hits, ok, diag = features.global_register(*args, **kw, return_diag=True)
+            T = T.cpu().numpy()
+            seconds = time.perf_counter() - t0
+            rot = float(np.rad2deg(np.arccos(np.clip(
+                (np.trace(T[:3, :3].T @ R) - 1.0) / 2.0, -1.0, 1.0))))
+            trans = float(np.linalg.norm(T[:3, 3] - t))
+            if not (bool(ok) and rot < GLOBAL_ROT_DEG and trans < GLOBAL_TRANS_M):
+                raise AssertionError(f"global_register on {device}, offset {i}: ok "
+                                     f"{bool(ok)}, {rot} deg, {trans} m, {int(hits)} hits")
+            tag = f"offset{i}_{device.type}"
+            out.update({f"{tag}_rot_deg": rot, f"{tag}_trans_m": trans,
+                        f"{tag}_hits": int(hits), f"{tag}_first_call_s": round(seconds, 3),
+                        f"{tag}_families": json.dumps(
+                            {k: int(v) for k, v in diag.items()}, separators=(",", ":"))})
+        if i == 0:
+            args = [x.to(dev) for x in (sc.points, sc.mask, tc.points, tc.mask)]
+            out["call_ms"] = median_ms(lambda: features.global_register(*args, **kw),
+                                       calls=10, warmup=2)
+            S = torch.randn((gr.hypotheses, 3, 3), device=dev)
+
+            def svds():
+                torch.linalg.svd(S)
+                torch.linalg.svd(S[0])
+                torch.linalg.svd(S[1])
+
+            out["svd_ms"] = median_ms(svds, calls=10, warmup=2)
+            f_s = features.keypoint_features(args[0], args[1], gr.keypoint_leaf, gr.normal_k,
+                                             gr.fpfh_k, gr.max_keypoints)[3]
+            f_t = features.keypoint_features(args[2], args[3], gr.keypoint_leaf, gr.normal_k,
+                                             gr.fpfh_k, gr.max_keypoints)[3]
+            out["product_ms"] = median_ms(lambda: f_s @ f_t.T, calls=10, warmup=2)
+            out["svd_share"] = out["svd_ms"] / out["call_ms"]
+            out["product_share"] = out["product_ms"] / out["call_ms"]
+    out["card"] = json.dumps(card)
+    return out
+
+
+def loop_fixture_keyframes(err_yaw: float = 0.4, err_xy=(4.0, -4.2), n_kf: int = 31):
+    """The loop verifier fixture of the reference's tests: 31 keyframes of 4,096 points
+    round a 20 m circle (1.02 laps), the last one reported with `err_yaw` / `err_xy` of
+    drift. Returns (keyframe records, the last keyframe's true pose)."""
+    rng = np.random.default_rng(7)
+    world = make_world(rng, extent=40.0, density=2.0)
+    traj = make_loop_trajectory(n_kf, radius=20.0, laps=1.02)
+    err = np.eye(4, dtype=np.float32)
+    err[:2, :2] = [[np.cos(err_yaw), -np.sin(err_yaw)], [np.sin(err_yaw), np.cos(err_yaw)]]
+    err[0, 3], err[1, 3] = err_xy
+    accum, prev, records = 0.0, traj[0], []
+    for k in range(n_kf):
+        true_pose = traj[k]
+        accum += float(np.linalg.norm(true_pose[:3, 3] - prev[:3, 3])) if k else 0.0
+        prev = true_pose
+        scan = simulate_scan(world, true_pose, rng, max_points=4096, noise=0.01)
+        last = k == n_kf - 1
+        records.append({
+            "pose": ((true_pose @ err) if last else true_pose).astype(np.float32),
+            "cloud": scan, "cloud_mask": np.ones(scan.shape[0], bool),
+            "accum_distance": accum + 110.0 if last else accum})
+    return records, traj[-1]
+
+
+def global_init_loop(device) -> dict:
+    """One synchronous `try_close_loop` on the large-drift fixture, from the identity
+    guess and from the FPFH+RANSAC guess, at the fixture's capacities and the default
+    `GlobalRegConfig`. The fused kernel's launches on the global-init path are counted
+    from 0 just before it and read just after."""
+    records, true_last = loop_fixture_keyframes()
+    cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
+                         loop_submap_points=65536, voxel_capacity=32768)
+    backs = {}
+    for use in (False, True):
+        cfg = GraphSlamConfig(registration_method="ICP", accumulate_distance_threshold=100.0,
+                              search_for_candidate_threshold=15.0,
+                              icp=IcpConfig(max_iterations=40), use_global_init=use,
+                              async_backend=False)
+        b = GraphBasedSLAM(cfg, cap, device=device)
+        for kf in records:
+            b.add_keyframe(kf)
+        backs[use] = b
+    plain, glob = backs[False], backs[True]
+    drifted = glob.optimized_poses()[-1]
+    closed_plain = plain.try_close_loop()
+    reset_counts()
+    t0 = time.perf_counter()
+    closed_glob = glob.try_close_loop()
+    seconds = time.perf_counter() - t0
+    counts = read_counts() if torch.device(device).type == "cuda" else dict.fromkeys(KERNELS, 0)
+    rec = glob.loop_log[-1]
+    err = float(np.linalg.norm((rec["transform"] @ drifted)[:3, 3] - true_last[:3, 3]))
+    plain_fit = plain.loop_log[-1]["fitness"]
+    if not (closed_glob and err < GLOBAL_LOOP_TRANS_M and "ransac_families" in rec
+            and (not closed_plain or rec["fitness"] <= plain_fit)):
+        raise AssertionError(f"global-init loop: closed {closed_glob}, corrected pose "
+                             f"{err} m from truth, identity guess closed {closed_plain} "
+                             f"({plain_fit}), log {glob.loop_log}")
+    if torch.device(device).type == "cuda" and not (
+            counts["ndt_direct7_accumulate"] > 0 and counts["ndt_accumulate"] == 0
+            and glob.verify_launches == counts["ndt_direct7_accumulate"]):
+        raise AssertionError(f"global-init loop: launches {counts}, verify thread "
+                             f"{glob.verify_launches}")
+    return dict(closed=closed_glob, corrected_pose_err_m=err, fitness=rec["fitness"],
+                drift_m=float(np.linalg.norm(drifted[:3, 3] - true_last[:3, 3])),
+                identity_closed=closed_plain, identity_fitness=plain_fit,
+                ransac_families=json.dumps(rec["ransac_families"], separators=(",", ":")),
+                kernel_launches=counts["ndt_direct7_accumulate"],
+                attempt_ms=round(1000 * seconds, 3))
+
+
+def resume_check(cfg: PipelineConfig, scans, cut: int, device, path: str) -> dict:
+    """The course straight through, and cut at `cut`: saved, loaded onto `device`,
+    continued. The resumed run must equal the uninterrupted one to RESUME_ATOL of its
+    driver, with the same keyframe schedule."""
+    whole = SlamPipeline(cfg, device=device)
+    for s in scans:
+        whole.process_scan(s)
+    res_a = whole.result()
+    first = SlamPipeline(cfg, device=device)
+    for s in scans[:cut]:
+        first.process_scan(s)
+    t0 = time.perf_counter()
+    checkpoint.save_pipeline(first, path)
+    t1 = time.perf_counter()
+    resumed = checkpoint.load_pipeline(path, device=device)
+    t2 = time.perf_counter()
+    for s in scans[cut:]:
+        resumed.process_scan(s)
+    res_c = resumed.result()
+    atol = RESUME_ATOL[cfg.fused_frontend]
+    diff = float(np.abs(res_c.odometry_poses - res_a.odometry_poses).max())
+    kf_diff = float(np.abs(res_c.keyframe_poses - res_a.keyframe_poses).max()) \
+        if res_c.keyframe_poses.shape == res_a.keyframe_poses.shape else float("inf")
+    same = np.array_equal(res_c.keyframe_frame_indices, res_a.keyframe_frame_indices)
+    if not (str(resumed.device) == str(whole.device) and same and diff <= atol
+            and kf_diff <= atol):
+        raise AssertionError(f"resume ({'fused' if cfg.fused_frontend else 'classic'}): "
+                             f"odometry max diff {diff}, keyframes {kf_diff}, same "
+                             f"schedule {same} (limit {atol})")
+    return dict(driver="fused" if cfg.fused_frontend else "classic", frames=len(scans),
+                cut=cut, keyframes=len(res_a.keyframe_frame_indices), device=str(resumed.device),
+                odometry_max_diff=diff, keyframes_max_diff=kf_diff, limit=atol,
+                file_mb=round(os.path.getsize(path) / 2**20, 3),
+                save_ms=round(1000 * (t1 - t0), 3), load_ms=round(1000 * (t2 - t1), 3))
+
+
+def write_kitti_layout(root: str, scans, gt) -> None:
+    """`scans` and their poses in KITTI's odometry layout: velodyne/NNNNNN.bin (float32
+    x, y, z, intensity), poses/00.txt (3x4 rows) and an identity `Tr` calib."""
+    velo = os.path.join(root, "sequences", "00", "velodyne")
+    os.makedirs(velo)
+    os.makedirs(os.path.join(root, "poses"))
+    for i, scan in enumerate(scans):
+        rec = np.zeros((scan.shape[0], 4), np.float32)
+        rec[:, :3] = scan
+        rec.tofile(os.path.join(velo, f"{i:06d}.bin"))
+    np.savetxt(os.path.join(root, "poses", "00.txt"),
+               np.stack([np.asarray(p, np.float64)[:3].reshape(-1) for p in gt]))
+    with open(os.path.join(root, "sequences", "00", "calib.txt"), "w") as f:
+        f.write("Tr: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+
+
+def kitti_cli_run(scans, gt, out_dir: str) -> dict:
+    """The KITTI path: the native library must be built (no numpy fallback), the
+    read-ahead's scans equal `np.fromfile`'s, and the CLI reads the sequence in a
+    subprocess with `--live-render`; its ATE comes from the poses file."""
+    if not native.available():
+        raise AssertionError("the native IO library did not build: g++ failed or is missing")
+    root = os.path.join(REPO, ".chip_scratch", "kitti")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_kitti_layout(root, scans, gt)
+        cap = PipelineConfig().capacity.raw_points
+        t0 = time.perf_counter()
+        seq = KittiSequence(root, "00", max_points=cap)
+        read = list(seq)  # through the native read-ahead
+        read_s = time.perf_counter() - t0
+        n_read = len(read)
+        for i, ((scan, pose), f) in enumerate(zip(read, seq.files)):
+            raw = np.fromfile(f, dtype=np.float32).reshape(-1, 4)[:cap, :3]
+            if not (np.array_equal(scan, raw) and pose is not None):
+                raise AssertionError(f"prefetcher: scan {i} differs from np.fromfile")
+        del read
+        if n_read != len(scans):
+            raise AssertionError(f"prefetcher: {n_read} of {len(scans)} scans")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
+             "kitti", "--kitti-root", root, "--sequence", "00", "--frames", str(len(scans)),
+             "--output", out_dir, "--progress-every", "0", "--no-loop-closure",
+             "--live-render", "20"], cwd=REPO, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"KITTI CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        m = json.load(f)
+    travelled = float(np.sum(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0), axis=1)))
+    bound = max(0.05 * travelled, 0.35)
+    # The PNGs need matplotlib; without it the CLI says so once and carries on.
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    wanted = ["odometry_tum.txt", "odometry_kitti.txt", "keyframes_tum.txt", "map.pcd",
+              "metrics.json"] + (["map.png", "live.png"] if have_mpl else [])
+    missing = [f for f in wanted if not os.path.exists(os.path.join(out_dir, f))]
+    if not (m["frames"] == len(scans) and m["device"] == "cuda" and m["keyframes"] >= 2
+            and m["native_io"] is True and m["ate_keyframes_m"] < bound and not missing):
+        raise AssertionError(f"KITTI CLI: {m}, missing {missing}, ATE bound {bound}")
+    return dict(frames=m["frames"], keyframes=m["keyframes"], native_io=m["native_io"],
+                native_built_here=native.build_info["built"],
+                ate_keyframes_m=m["ate_keyframes_m"], ate_odometry_m=m["ate_odometry_m"],
+                ate_bound_m=bound, files=len(wanted), matplotlib=have_mpl,
+                prefetch_read_ms_per_scan=round(1000 * read_s / n_read, 3),
+                mean_raw_points=int(np.mean([len(s) for s in scans])),
+                seconds=round(seconds, 3))
+
+
+def trace_frames(frames: int = 5) -> dict:
+    """`utils.telemetry.trace("frame", profile_dir=...)` round a few frames, in a
+    subprocess (`scripts/torch_trace_frames.py`): a profiler session can leave its
+    process slower, and this process's frame times are read. The trace (tens of MB) is
+    checked and removed."""
+    out_dir = os.path.join(REPO, ".chip_scratch", "trace")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.join(REPO, "scripts", "torch_trace_frames.py"),
+             "--frames", str(frames), "--profile-dir", out_dir],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"trace failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        if not (rec["last_ms"] > 0 and os.path.exists(rec["trace_file"])
+                and os.path.getsize(rec["trace_file"]) == rec["trace_bytes"] > 0
+                and rec["device"] == "cuda" and rec["span_events"] >= 1):
+            raise AssertionError(f"trace: {rec}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec["trace_file"] = os.path.relpath(rec["trace_file"], REPO)
+    return rec
 
 
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
@@ -1021,11 +1337,68 @@ def main(argv=None) -> int:
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
 
+    # -- 19. FPFH + RANSAC global registration, card and CPU --------------------------------
+    say("global-register", **global_register_check(dev, card))
+
+    # -- 20. loop verification from the global guess; launches counted inside ---------------
+    gl = global_init_loop("cuda")
+    say("global-init-loop", **gl, card=json.dumps(card))
+    reset_counts()
+    pipe_gi, res_gi, gi = run_loop_course(
+        apply_cli_overrides(PipelineConfig(), ["graph_slam.use_global_init=true"]),
+        dscans, dgt, "cuda")
+    launches_gi = read_counts()
+    gi_log = [r for r in res_gi.loop_log if r["candidate"] >= 0]
+    if not (gi["loops_accepted"] >= 1 and gi["ate_keyframes_m"] < off["ate_keyframes_m"]
+            and pipe_gi.back.verify_launches > 0 and launches_gi["ndt_accumulate"] == 0
+            and all("ransac_families" in r for r in gi_log)):
+        raise AssertionError(f"global-init course: {gi}, loops off {off['ate_keyframes_m']}, "
+                             f"launches {launches_gi}, verify {pipe_gi.back.verify_launches}")
+    say("global-init-course", loops_accepted=gi["loops_accepted"],
+        loops_attempted=gi["loops_attempted"], ate_keyframes_m=gi["ate_keyframes_m"],
+        ate_keyframes_off_m=off["ate_keyframes_m"], ate_keyframes_identity_m=on["ate_keyframes_m"],
+        p50_frame_ms=gi["p50_frame_ms"], p50_frame_ms_identity=on["p50_frame_ms"],
+        stage_p50_ms=json.dumps(gi["stage_p50_ms"], separators=(",", ":")),
+        verify_ms_p50=1000 * float(np.median(pipe_gi.back.verify_seconds)),
+        verify_ms_max=1000 * float(np.max(pipe_gi.back.verify_seconds)),
+        verify_ms_p50_identity=1000 * float(np.median(back.verify_seconds)),
+        attempts_with_hypotheses=sum(r["ransac_families"]["n_3pt_valid"] + r["ransac_families"]["n_yaw_valid"]
+                       > 0 for r in gi_log),
+        best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
+        ndt_launches_verify=pipe_gi.back.verify_launches,
+        ndt_launches_total=launches_gi["ndt_direct7_accumulate"],
+        odometry_vs_loops_off_max_diff=float(
+            np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
+        card=json.dumps(card))
+    pipe_gi_verify_launches = pipe_gi.back.verify_launches
+    del pipe_gi, res_gi
+
+    # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
+    os.makedirs(OUT_DIR, exist_ok=True)
+    ckpt_path = os.path.join(REPO, ".chip_scratch", "chip_smoke_state.npz")
+    os.makedirs(os.path.dirname(ckpt_path), exist_ok=True)
+    try:
+        for overrides in (["fused_frontend=False"], []):
+            say("checkpoint", **resume_check(loops_off_config(overrides), scans, 20, "cuda",
+                                             ckpt_path), card=json.dumps(card))
+    finally:
+        if os.path.exists(ckpt_path):
+            os.remove(ckpt_path)
+
+    # -- 22. KITTI layout, native read-ahead, the CLI with --live-render ---------------------
+    say("kitti-cli", **kitti_cli_run(scans, gt, os.path.join(OUT_DIR, "cli_kitti")),
+        card=json.dumps(card))
+
+    # -- 23. the profiler span, in a subprocess ----------------------------------------------
+    say("trace", **trace_frames())
+
     print(json.dumps({"kernels": [
         kernel_record(
             "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
             launches=launches["ndt_direct7_accumulate"], launches_verify=launches_verify,
             launches_loop_course=launches_course["ndt_direct7_accumulate"],
+            launches_global_init_loop=gl["kernel_launches"],
+            launches_global_init_course_verify=pipe_gi_verify_launches,
             fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)",
             device_launches_per_ndt_body=prof["this"]["launches_per_body"],
             parent_device_launches_per_ndt_body=(prof["parent"]["launches_per_body"]

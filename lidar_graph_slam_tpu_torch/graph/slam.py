@@ -17,8 +17,15 @@ Concurrency, as in the reference's concurrent back end:
   * The solve runs in a `threading.Thread` over numpy (f64), as in the reference.
   * `async_backend=False` runs the same verification inline — the deterministic path.
 
-Not ported yet: the FPFH+RANSAC global initial guess (it raises NotImplementedError at
-construction), and the reference's mesh and sharded cloud store.
+With `use_global_init` each candidate's verification starts from its own FPFH+RANSAC
+guess (`registration/features.py`), computed with the other verification inputs on the
+frame's thread and stream before the worker's stream waits on it. The caller reads
+nothing of the guess back, but on a CUDA device `torch.linalg.svd` reads its status on
+the host (three calls a guess), so the frame's thread waits for the device once per
+candidate at a loop tick, outside `verify_seconds`. The RANSAC family counts are read
+with the results, in the worker.
+
+Not ported yet: the reference's mesh and sharded cloud store.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map, voxel_downsample
 from lidar_graph_slam_tpu_torch.registration import gicp as gicp_mod
 from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
+from lidar_graph_slam_tpu_torch.registration.features import global_register
 from lidar_graph_slam_tpu_torch.registration import ndt as ndt_mod
 
 
@@ -83,7 +91,8 @@ def make_verify_one(cfg: GraphSlamConfig, method: str):
     corr_dist = min(cfg.icp.max_correspondence_distance, 2.0)
 
     def one(grid, pre_map, extra, guess, src_p, src_m, src_covs=None):
-        # Stage 1: coarse NDT pre-align from `guess` (identity: the reference's ICP guess).
+        # Stage 1: coarse NDT pre-align from `guess` (identity, the reference's ICP guess,
+        # or the candidate's FPFH+RANSAC guess).
         pre = loop_pre_align(pre_map, src_p, src_m, guess)
         # Stage 2: refine with the configured verifier.
         if method == "ICP":
@@ -139,9 +148,6 @@ class GraphBasedSLAM:
         if self.method not in ("ICP", "GICP", "NDT"):
             raise ValueError(f"unknown loop registration_method {cfg.registration_method!r}")
         self._verify_one = make_verify_one(cfg, self.method)
-        if cfg.use_global_init:
-            raise NotImplementedError(
-                "use_global_init (FPFH+RANSAC) is not ported to the PyTorch package yet")
         # Keyframe inserts into the device graph are deferred and flushed in batches;
         # `self.graph` (property) flushes on read.
         self._pending_kf: list = []
@@ -347,8 +353,9 @@ class GraphBasedSLAM:
     def _build_verify_inputs(self):
         """Detection + verification-input builds for the latest keyframe (on the back
         end's device, on the calling thread's stream). Returns None (gated/capacity) or a
-        dict with the per-candidate `targets` (grid, pre-align map, verifier map), the
-        source cloud and attempt metadata."""
+        dict with the per-candidate `targets` (grid, pre-align map, verifier map, initial
+        guess), the source cloud, the per-candidate RANSAC diagnostics (`global_diags`,
+        device tensors; empty without `use_global_init`) and attempt metadata."""
         if self.n_loops >= self.capacity.max_loop_factors:
             # Refuse at capacity and surface it (the device graph drops the write).
             if not self.loop_overflow:
@@ -370,7 +377,8 @@ class GraphBasedSLAM:
         src_cloud = PointCloud.from_array(src, capacity=self.capacity.keyframe_points,
                                           device=dev)
         corr_dist = min(self.cfg.icp.max_correspondence_distance, 2.0)
-        targets = []
+        targets, global_diags = [], []
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
         for cand in cands:
             submap = self._assemble_submap(cand, self.cfg.search_key_frame_num,
                                            max_points=self.capacity.loop_submap_points)
@@ -379,6 +387,23 @@ class GraphBasedSLAM:
             filtered = voxel_downsample(sub_cloud.points, sub_cloud.mask,
                                         self.cfg.loop_submap_leaf,
                                         capacity=self.capacity.loop_submap_points)
+            # Stage 0 (optional): FPFH+RANSAC global initial guess — recovers candidates
+            # whose drift lies far outside any local verifier's basin. The select stays
+            # on the device: no host branch on `ok`.
+            guess = eye
+            if self.cfg.use_global_init:
+                gr = self.cfg.global_reg
+                T_g, _, g_ok, g_diag = global_register(
+                    src_cloud.points, src_cloud.mask, filtered.points, filtered.mask,
+                    keypoint_leaf=gr.keypoint_leaf, normal_k=gr.normal_k, fpfh_k=gr.fpfh_k,
+                    hypotheses=gr.hypotheses, inlier_threshold=gr.inlier_threshold,
+                    min_occupancy=gr.min_occupancy, max_keypoints=gr.max_keypoints,
+                    src_viewpoint=T_latest[:3, 3],
+                    tgt_viewpoint=self._poses_host[cand][:3, 3],
+                    return_diag=True,
+                )
+                guess = torch.where(g_ok, T_g, eye)
+                global_diags.append(g_diag)
             grid = build_hash_grid(filtered.points, filtered.mask, corr_dist)
             pre_map = build_ndt_map(filtered.points, filtered.mask, 4.0,
                                     capacity=self.capacity.voxel_capacity // 4)
@@ -390,7 +415,7 @@ class GraphBasedSLAM:
                 extra = gicp_mod.build_gicp_target(
                     filtered.points, filtered.mask, self.cfg.gicp.max_correspondence_distance,
                     k=self.cfg.gicp.correspondence_randomness)
-            targets.append((grid, pre_map, extra))
+            targets.append((grid, pre_map, extra, guess))
         src_covs = None
         if self.method == "GICP":
             # The source's covariances, once per attempt, shared by every candidate.
@@ -400,6 +425,7 @@ class GraphBasedSLAM:
         return {
             "cands": cands, "latest": latest, "T_latest": T_latest, "targets": targets,
             "source": (src_cloud.points, src_cloud.mask, src_covs),
+            "global_diags": global_diags,
         }
 
     def _verify(self, inp) -> dict:
@@ -407,10 +433,9 @@ class GraphBasedSLAM:
         one is independent). Returns host results and this thread's kernel launches."""
         t0 = time.perf_counter()
         src_p, src_m, src_covs = inp["source"]
-        guess = torch.eye(4, dtype=torch.float32, device=src_p.device)
         before = kernels.thread_launches()
         Ts, scores, convs = [], [], []
-        for grid, pre_map, extra in inp["targets"]:
+        for grid, pre_map, extra, guess in inp["targets"]:
             T, score, ok = self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
                                             src_covs)
             Ts.append(T)
@@ -418,6 +443,11 @@ class GraphBasedSLAM:
             convs.append(ok)
         out = {"Ts": torch.stack(Ts).cpu().numpy(), "scores": torch.stack(scores).cpu().numpy(),
                "convs": torch.stack(convs).cpu().numpy()}
+        # The RANSAC family counts are read here, with the results, not on the frame's
+        # thread: the read waits for the device.
+        out["global_diags"] = [
+            {"n_3pt_valid": int(d["n_3pt_valid"]), "n_yaw_valid": int(d["n_yaw_valid"]),
+             "best_is_yaw": bool(d["best_is_yaw"])} for d in inp["global_diags"]]
         out["launches"] = kernels.thread_launches() - before
         out["seconds"] = time.perf_counter() - t0
         return out
@@ -490,6 +520,8 @@ class GraphBasedSLAM:
                 "accepted": False,
                 "transform": res["Ts"][b],  # verifier's map-frame correction
             }
+            if res["global_diags"]:
+                record["ransac_families"] = res["global_diags"][b]
             self.loop_log.append(record)
             if not converged or fitness >= self.cfg.score_threshold:
                 continue

@@ -13,7 +13,9 @@ Port of `lidar_graph_slam_tpu/pipeline/runner.py`, with its two front-end driver
     prefilter stage waits for the card's stream, as the reference blocks on its output.
 
 `flush()` / `result()` drain the frames in flight and settle the concurrent back end
-(loop verification and solve, `graph/slam.py`).
+(loop verification and solve, `graph/slam.py`). `utils/checkpoint.py` saves a pipeline and
+resumes it. The reference's mesh pipeline (`parallel.use_mesh`) is not ported yet and is
+refused at construction.
 """
 
 from __future__ import annotations
@@ -88,6 +90,13 @@ class SlamPipeline:
     def __init__(self, cfg: PipelineConfig, metrics_path: Optional[str] = None,
                  extrinsic_provider=None, device=None):
         self.device = resolve_device(device)
+        if cfg.parallel.use_mesh:
+            # Refused by name, not ignored: without this the run would look like a mesh
+            # run while it is a single-device one.
+            raise NotImplementedError(
+                "parallel.use_mesh=True: the mesh pipeline (sharded loop verification and "
+                "the Schur back-end solve of the reference's `parallel/` package) is not "
+                "ported to the PyTorch package yet; leave parallel.use_mesh at False")
         self.metrics_writer = MetricsWriter(metrics_path)
         self.cfg = cfg
         # Per-frame sensor->base extrinsic hook: callable stamp -> [4,4] | None (None
@@ -127,8 +136,9 @@ class SlamPipeline:
         self._eye3 = torch.eye(3, dtype=torch.float32, device=self.device)
         self._ring = aux["init_ring"]()
         self._insert_and_rebuild = aux["insert_and_rebuild"]
+        self._rebuild = aux["rebuild"]
         self._window = aux["window"]
-        self._target = aux["rebuild"](self._ring)  # empty map; frame 0 bootstraps
+        self._target = self._rebuild(self._ring)  # empty map; frame 0 bootstraps
         self._pending: deque = deque()  # (frame_idx, wall_t0, stamp, FrameOut, _HostCopy)
         self._last_out: dict = {}
         # Gyro samples queue here and integrate host-side between consecutive scan

@@ -4,7 +4,9 @@ rows) against its plain PyTorch version and a float64 evaluation, and
 maps and edge cases; both launched at once from two threads on two streams; the
 loops-off pipeline, the grid nearest-neighbor query, one loop verification (ICP and
 GICP) and `gicp_align` on the card against the same on the CPU; `ndt_accumulate` on
-GICP's own rows, unmatched padding rows included; the classic driver's device default.
+GICP's own rows, unmatched padding rows included; the classic driver's device default;
+`match_features` under the float32 pin, `argmax`'s first maximum, `global_register` card
+and CPU, and a checkpoint carried from the card to the CPU and back.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -460,3 +462,130 @@ def test_verification_card_matches_cpu(cuda, method):
     np.testing.assert_allclose(a["fitness"], c["fitness"], rtol=1e-3)
     np.testing.assert_allclose(a["transform"], c["transform"], atol=1e-3)
     np.testing.assert_allclose(pa, pc, atol=1e-3)
+
+
+# -- FPFH + RANSAC global registration, and the checkpoint, on the card ------------------
+# `match_features` under the package's float32 pin: against a float64 evaluation the card's
+# distances agree to 1e-5 (a TF32 product would be off by ~1e-3 on these L1-normalised
+# vectors) and its matches equal the CPU's on 99.5% of rows. `global_register` card
+# against CPU: both recover the offset within 5 deg / 1 m (the streams of the two
+# generators differ, so the transforms are not compared with each other). A checkpoint
+# saved on the card and loaded on the CPU, and back, holds the same arrays.
+
+def _feature_pair(n=2048, seed=0):
+    rng = np.random.default_rng(seed)
+    f = rng.random((n, 33)).astype(np.float32) ** 4
+    f = (f.reshape(n, 3, 11) / f.reshape(n, 3, 11).sum(-1, keepdims=True)).reshape(n, 33)
+    g = f[rng.permutation(n)] + rng.normal(scale=2e-3, size=(n, 33)).astype(np.float32)
+    valid_f, valid_g = rng.random(n) > 0.1, rng.random(n) > 0.1
+    return f, valid_f, g.astype(np.float32), valid_g
+
+
+def test_match_features_keeps_full_float32(cuda):
+    from lidar_graph_slam_tpu_torch.registration import features
+
+    f, vf, g, vg = _feature_pair()
+    seen = {}
+    real_matmul = torch.Tensor.__matmul__
+
+    def spy(a, b):
+        seen["precision"] = torch.get_float32_matmul_precision()
+        seen["tf32"] = torch.backends.cuda.matmul.allow_tf32
+        return real_matmul(a, b)
+
+    torch.Tensor.__matmul__ = spy
+    try:
+        idx, ok = features.match_features(*(torch.as_tensor(x, device=cuda)
+                                            for x in (f, vf, g, vg)))
+    finally:
+        torch.Tensor.__matmul__ = real_matmul
+    assert seen == {"precision": "highest", "tf32": False}
+    # The product itself, against float64: full float32, not TF32.
+    fc, gc = torch.as_tensor(f, device=cuda), torch.as_tensor(g, device=cuda)
+    exact = (fc.double() @ gc.double().T)
+    assert float((fc @ gc.T - exact).abs().max()) < 1e-6
+    c_idx, c_ok = features.match_features(*(torch.as_tensor(x) for x in (f, vf, g, vg)))
+    assert float((ok.cpu() == c_ok).float().mean()) >= 0.995 and int(c_ok.sum()) > 100
+    both = ok.cpu() & c_ok
+    assert torch.equal(idx.cpu()[both], c_idx[both])
+
+
+def test_argmax_takes_the_first_maximum(cuda):
+    """RANSAC's integer scores tie often; the winner must be the first maximum, as on the
+    CPU and in the reference."""
+    rng = np.random.default_rng(0)
+    for n in (2048, 100_000):
+        score = torch.as_tensor(rng.integers(0, 40, size=n).astype(np.int32))
+        first = int(torch.nonzero(score == score.max())[0])
+        assert int(torch.argmax(score)) == first
+        assert int(torch.argmax(score.to(cuda))) == first
+    d2 = torch.as_tensor(rng.integers(0, 5, size=(512, 512)).astype(np.float32))
+    assert torch.equal(torch.argmin(d2.to(cuda), dim=1).cpu(), torch.argmin(d2, dim=1))
+    assert torch.equal(torch.min(d2.to(cuda), dim=1).indices.cpu(), torch.argmin(d2, dim=1))
+
+
+def _offset_pair(yaw_deg, offset, n=8192):
+    rng = np.random.default_rng(0)
+    world = make_world(rng, extent=40.0, density=3.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = (8.0, -3.0, 1.5)
+    tgt = simulate_scan(world, pose, rng, max_points=n, noise=0.015)
+    a = np.deg2rad(yaw_deg)
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]], np.float32)
+    t = np.asarray(offset, np.float32)
+    return ((tgt - t) @ R).astype(np.float32), tgt, R, t
+
+
+@pytest.mark.parametrize("yaw_deg,offset", [(150.0, (18.0, -9.0, 0.3)),
+                                            (75.0, (-12.0, 20.0, -0.2))])
+def test_global_register_card_and_cpu(cuda, yaw_deg, offset):
+    from lidar_graph_slam_tpu_torch.registration.features import global_register
+
+    src, tgt, R, t = _offset_pair(yaw_deg, offset)
+    sc, tc = PointCloud.from_array(src, capacity=8192), PointCloud.from_array(tgt, capacity=8192)
+    for device in (cuda, torch.device("cpu")):
+        args = [x.to(device) for x in (sc.points, sc.mask, tc.points, tc.mask)]
+        T, hits, ok, diag = global_register(*args, tgt_viewpoint=np.zeros(3, np.float32),
+                                            return_diag=True)
+        again = global_register(*args, tgt_viewpoint=np.zeros(3, np.float32))
+        assert T.device.type == device.type and torch.equal(T, again[0])
+        T = T.cpu().numpy()
+        rot = np.rad2deg(np.arccos(np.clip((np.trace(T[:3, :3].T @ R) - 1) / 2, -1, 1)))
+        assert bool(ok) and rot < 5.0 and np.linalg.norm(T[:3, 3] - t) < 1.0, (device, rot)
+        assert int(diag["n_3pt_valid"]) + int(diag["n_yaw_valid"]) > 0
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_checkpoint_card_to_cpu_and_back(cuda, tmp_path, fused):
+    from lidar_graph_slam_tpu_torch.utils import checkpoint
+
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "prefilter.leaf_size=0.3", "prefilter.mean_k=10", "capacity.raw_points=8192",
+        "capacity.filtered_points=4096", "capacity.keyframe_points=4096",
+        "capacity.loop_submap_points=65536", "capacity.max_keyframes=256",
+        "capacity.voxel_capacity=32768", "capacity.max_loop_factors=16",
+        f"fused_frontend={fused}"])
+    scans = [s for s, _ in SyntheticSequence(n_frames=8, seed=6, max_points=4096,
+                                             laps=0.25 * 8 / 24)]
+    pipe = SlamPipeline(cfg)
+    assert pipe.device.type == "cuda"
+    for s in scans[:5]:
+        pipe.process_scan(s)
+    on_card, on_cpu = str(tmp_path / "card.npz"), str(tmp_path / "cpu.npz")
+    checkpoint.save_pipeline(pipe, on_card)
+    cpu_pipe = checkpoint.load_pipeline(on_card, device="cpu")
+    assert cpu_pipe.device.type == "cpu" and cpu_pipe.back.graph.poses.device.type == "cpu"
+    checkpoint.save_pipeline(cpu_pipe, on_cpu)
+    a, b = np.load(on_card), np.load(on_cpu)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    back = checkpoint.load_pipeline(on_cpu)  # onto the card, the default
+    assert back.device.type == "cuda" and back.back.graph.poses.device.type == "cuda"
+    for s in scans[5:]:
+        pipe.process_scan(s)
+        back.process_scan(s)
+    res, res_b = pipe.result(), back.result()
+    np.testing.assert_array_equal(res_b.keyframe_frame_indices, res.keyframe_frame_indices)
+    np.testing.assert_allclose(res_b.odometry_poses, res.odometry_poses,
+                               atol=5e-2 if fused else 1e-4)

@@ -6,7 +6,11 @@ verifier fixture of `tests/test_loop_verifiers.py`, with the ICP, NDT and GICP
 verifiers: the same candidate and accept decision, fitness to rtol 1e-4, the verifier's transform to atol 1e-4 and the optimized
 poses to atol 1e-4. The port's asynchronous back end against its synchronous one, alone
 and in the pipeline on a 30-frame closed-loop course: the same decisions and poses to
-atol 1e-4 (the reference's own bound for that comparison).
+atol 1e-4 (the reference's own bound for that comparison). The FPFH+RANSAC initial guess
+(`use_global_init`) draws its hypotheses from another generator than the reference, so it
+is held to the reference test's own limits (`tests/test_loop_verifiers.py:90-108`): the
+large-drift loop closes, the corrected pose lies within 0.3 m of truth, and the identity
+guess misses the loop or reads a worse fitness.
 """
 
 import dataclasses
@@ -136,14 +140,15 @@ def test_capacity_refusals_match_reference():
 
 def test_backend_validates_its_configuration():
     """An unknown verifier is a ValueError, as in the reference; the global initial
-    guess, not ported yet, refuses at construction."""
+    guess constructs."""
     with pytest.raises(ValueError):
         TBack(tcfg.GraphSlamConfig(registration_method="VGICP"), tcfg.CapacityConfig(),
               device="cpu")
     assert TBack(tcfg.GraphSlamConfig(registration_method="gicp"), tcfg.CapacityConfig(),
                  device="cpu").method == "GICP"
-    with pytest.raises(NotImplementedError):
-        TBack(tcfg.GraphSlamConfig(use_global_init=True), tcfg.CapacityConfig(), device="cpu")
+    back = TBack(tcfg.GraphSlamConfig(use_global_init=True), tcfg.CapacityConfig(),
+                 device="cpu")
+    assert back.cfg.use_global_init and back.cfg.global_reg.hypotheses == 2048
     assert TBack(tcfg.GraphSlamConfig(registration_method="ndt"),
                  tcfg.CapacityConfig(), device="cpu").method == "NDT"
 
@@ -315,3 +320,93 @@ def test_async_pipeline_matches_sync():
     np.testing.assert_allclose([r["fitness"] for r in asyn.loop_log],
                                [r["fitness"] for r in sync.loop_log], rtol=1e-4)
     np.testing.assert_allclose(asyn.keyframe_poses, sync.keyframe_poses, atol=1e-4)
+
+
+# -- the FPFH+RANSAC initial guess (`use_global_init`) --------------------------------------
+
+BIG_DRIFT = dict(err_yaw=0.4, err_xy=(4.0, -4.2))
+# The fast lane's global registration: half the default keypoint capacity and a quarter
+# of the default hypotheses (the [H, Q, 3] scoring tensor is 24 MiB instead of 192 MiB).
+REDUCED_REG = tcfg.GlobalRegConfig(max_keypoints=4096, hypotheses=512)
+
+
+@pytest.fixture(scope="module")
+def big_drift_reference():
+    """`build_loop_backend` with ~5.8 m / 23 deg of drift on the latest keyframe (never
+    closed: it only holds the keyframes that the port back ends are fed)."""
+    return build_loop_backend("ICP", **BIG_DRIFT)
+
+
+def _global_init_recovers(jb, true_last, global_reg):
+    plain = _port_backend(jb, async_backend=False)
+    glob = _port_backend(jb, async_backend=False, use_global_init=True, global_reg=global_reg)
+    drifted = plain.optimized_poses()[-1]
+    assert np.linalg.norm(drifted[:3, 3] - true_last[:3, 3]) > 5.0
+    closed_plain = plain.try_close_loop()
+    assert glob.try_close_loop(), f"global-init verification failed ({glob.loop_log})"
+    rec = glob.loop_log[-1]
+    corrected = rec["transform"] @ drifted
+    assert np.linalg.norm(corrected[:3, 3] - true_last[:3, 3]) < 0.3
+    assert not closed_plain or rec["fitness"] <= plain.loop_log[-1]["fitness"]
+    fam = rec["ransac_families"]
+    assert set(fam) == {"n_3pt_valid", "n_yaw_valid", "best_is_yaw"}
+    assert isinstance(fam["n_3pt_valid"], int) and isinstance(fam["best_is_yaw"], bool)
+    assert fam["n_3pt_valid"] + fam["n_yaw_valid"] > 0
+    assert "ransac_families" not in plain.loop_log[-1]
+    return closed_plain
+
+
+def test_global_init_recovers_large_drift_reduced(big_drift_reference):
+    """`try_close_loop` from the global guess closes the large-drift loop on the CPU, at
+    the reduced registration size."""
+    _global_init_recovers(*big_drift_reference, REDUCED_REG)
+
+
+@pytest.mark.slow
+def test_global_init_recovers_large_drift(big_drift_reference):
+    """`tests/test_loop_verifiers.py:test_global_init_recovers_large_drift` on the port,
+    at the default `GlobalRegConfig` (8,192 keypoints, 2,048 hypotheses)."""
+    _global_init_recovers(*big_drift_reference, tcfg.GlobalRegConfig())
+
+
+def test_each_candidate_gets_its_own_guess(big_drift_reference):
+    """With `loop_topk=2` the two candidates' verifications start from two different
+    guesses, each from its own submap, and each record carries its own RANSAC counts;
+    with the option off both start from the identity."""
+    jb, _ = big_drift_reference
+    seen = []
+    for use in (True, False):
+        back = _port_backend(jb, async_backend=False, use_global_init=use, loop_topk=2,
+                             search_key_frame_num=3, global_reg=REDUCED_REG)
+        verify_one, guesses = back._verify_one, []
+
+        def spy(grid, pre_map, extra, guess, *rest, _inner=verify_one, _out=guesses):
+            _out.append(guess.clone())
+            return _inner(grid, pre_map, extra, guess, *rest)
+
+        back._verify_one = spy
+        back.try_close_loop()
+        assert len(guesses) == 2 and len(back.loop_log) == 2
+        assert back.loop_log[0]["candidate"] != back.loop_log[1]["candidate"]
+        seen.append(guesses)
+        assert all(("ransac_families" in rec) == use for rec in back.loop_log)
+    eye = torch.eye(4)
+    assert all(torch.equal(g, eye) for g in seen[1])
+    a, b = seen[0]
+    assert not torch.equal(a, b)
+    assert not torch.equal(a, eye) or not torch.equal(b, eye)
+
+
+def test_global_init_in_the_async_backend(big_drift_reference):
+    """The guess is built on the caller's thread with the other inputs; the worker
+    thread reads the RANSAC counts with the results."""
+    jb, true_last = big_drift_reference
+    back = _port_backend(jb, async_backend=True, use_global_init=True, global_reg=REDUCED_REG)
+    drifted = back.optimized_poses()[-1]
+    pending = back.begin_loop_attempt()
+    assert pending is not None and "thread" in pending
+    assert back._consume_verify(pending)
+    rec = back.loop_log[-1]
+    assert rec["accepted"] and "ransac_families" in rec
+    corrected = rec["transform"] @ drifted
+    assert np.linalg.norm(corrected[:3, 3] - true_last[:3, 3]) < 0.3

@@ -272,6 +272,18 @@ def test_unported_modes_raise(course, cfg):
         torch.set_num_threads(threads)
 
 
+def test_mesh_option_is_refused_by_name(cfg):
+    """`parallel.use_mesh=True` raises at construction and names the option (the mesh
+    pipeline is not ported); it is not silently ignored. The other `parallel` keys alone
+    change nothing and construct."""
+    tc = tcfg.apply_cli_overrides(_torch_config(cfg), ["parallel.use_mesh=true"])
+    assert tc.parallel.use_mesh is True
+    with pytest.raises(NotImplementedError, match=r"parallel\.use_mesh"):
+        TorchPipeline(tc, device="cpu")
+    tc = tcfg.apply_cli_overrides(_torch_config(cfg), ["parallel.mesh_devices=4"])
+    assert TorchPipeline(tc, device="cpu").device.type == "cpu"
+
+
 def test_loop_closure_constructs_and_runs(course, cfg):
     """Loop closure on (the default) with the asynchronous back end: the pipeline runs,
     and the result carries the back end's loop log (this 5-frame course is too short
