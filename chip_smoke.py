@@ -79,7 +79,26 @@ of `bench.py:bench_e2e`. Phases:
      `--dataset kitti --live-render 20`: frames, keyframes, ATE from the poses file, the
      output files;
  23. `trace("frame", profile_dir=...)` around a few frames in a subprocess
-     (`scripts/torch_trace_frames.py`): a trace file exists and `trace.last_ms` is set.
+     (`scripts/torch_trace_frames.py`): a trace file exists and `trace.last_ms` is set;
+ 24. the batched fused kernel (`ndt_direct7_accumulate_batched`) at B = 4, N = 32,768
+     against four dense-course-like maps (the dense world at seeds 2-5, a full 20-frame
+     ring each): against its plain version, and row b bit-equal to the single kernel on
+     sequence b; device and host time beside four single launches', the bound;
+ 25. `parallel.multi_sequence.batch_odometry` on those four 40-frame sequences at the
+     default `ScanMatcherConfig` (20 x 32,768 ring points a sequence): ATE within the
+     dense bound each, keyframes, the batch equal to four runs of one bit for bit, the
+     first 3 frames card against CPU to 1e-4; frames per second, launches, and the
+     device's idle share (`scripts/torch_profile_batch.py` in a subprocess);
+ 26. the mesh solves on `Mesh((cuda:0,) * 4)` at the capacity K = 4096: Schur and chain
+     steps against the single-device step, `mesh_optimize` (both) against `optimize`
+     (the slots run one after another on one card: no multi-card speed);
+ 27. the mesh pipeline on the drift course: `parallel.use_mesh=true` (one slot on one
+     card) against phase 10's run, and a 4-slot mesh of the card with `loop_topk=4`
+     against the unmeshed `loop_topk=4` run: the same loops, keyframes within 0.02 m,
+     fitness within 1e-4; frame p50s;
+ 28. `batch_slam` on four drift-course-like sequences (seeds 1, 6, 7, 8; 130 frames, 1.1
+     laps) on a 4-slot mesh, loop attempts every 4 keyframes: >= 1 loop, and each
+     sequence's optimized ATE <= 1.2 x its odometry's + 0.05 m.
 
 Each path's launches are counted from 0 just before it runs and read just after.
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
@@ -146,6 +165,16 @@ from lidar_graph_slam_tpu_torch.registration import features, gicp
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants, ndt_align
 from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
+from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.graph import solver as gsolver
+from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
+from lidar_graph_slam_tpu_torch.parallel.distributed import (
+    Mesh,
+    distributed_graph_step,
+    mesh_optimize,
+)
+from lidar_graph_slam_tpu_torch.parallel.multi_sequence import batch_odometry, batch_slam
+from lidar_graph_slam_tpu_torch.parallel.schur import schur_graph_step
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
@@ -154,7 +183,7 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # counts exact.
 REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
-KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate")
+KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -170,6 +199,9 @@ GLOBAL_LOOP_TRANS_M = 0.3
 # Resume against the uninterrupted run: classic driver, fused driver (its one-frame submap
 # lag collapses at the checkpoint).
 RESUME_ATOL = {False: 1e-4, True: 5e-2}
+# The multi-sequence phases' worlds: dense-course-like (24-25) and drift-course-like (28).
+BATCH_SEEDS = (2, 3, 4, 5)
+SLAM_SEEDS = (1, 6, 7, 8)
 
 
 def say(phase: str, **numbers) -> None:
@@ -180,13 +212,14 @@ def loops_off_config(overrides=()) -> PipelineConfig:
     return apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=False", *overrides])
 
 
-def dense_course(n_frames: int, max_points: int = 131072):
-    """The HDL-64-class urban-canyon course of `bench.py:bench_e2e_dense`, seed 2.
-    Returns (scans, ground-truth poses relative to the first)."""
-    rng = np.random.default_rng(2)
+def dense_course(n_frames: int, max_points: int = 131072, seed: int = 2):
+    """The HDL-64-class urban-canyon course of `bench.py:bench_e2e_dense`, seed 2 (another
+    seed: another world, the same trajectory). Returns (scans, ground-truth poses relative
+    to the first)."""
+    rng = np.random.default_rng(seed)
     world = make_world(rng, extent=60.0, density=60.0, wall_height=12.0,
                        box_height=(6.0, 25.0), n_boxes=60)
-    seq = SyntheticSequence(n_frames=n_frames, seed=2, radius=35.0, laps=0.25,
+    seq = SyntheticSequence(n_frames=n_frames, seed=seed, radius=35.0, laps=0.25,
                             max_points=max_points, n_azimuth=2048, n_elevation=64)
     scans = [simulate_scan(world, seq.poses[i], rng, max_points=max_points,
                            n_azimuth=2048, n_elevation=64) for i in range(n_frames)]
@@ -494,22 +527,25 @@ def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
                 stage_p50_ms={k: round(v["p50_ms"], 3) for k, v in res.metrics.items()})
 
 
-def drift_course(n_frames: int = 360, max_points: int = 131072):
+def drift_course(n_frames: int = 360, max_points: int = 131072, seed: int = 1,
+                 laps: float = 3.05):
     """The three-lap drift course of `bench.py:bench_e2e`, seed 1: a sparse world (~9k
     points per frame) at ~1.9 m per frame, where NDT odometry drifts and loop closure
-    has work to do. Returns (scans, ground-truth poses relative to the first)."""
-    seq = SyntheticSequence(n_frames=n_frames, seed=1, extent=60.0, radius=35.0,
-                            max_points=max_points, noise=0.02, laps=3.05,
+    has work to do (another seed: another world). Returns (scans, ground-truth poses
+    relative to the first)."""
+    seq = SyntheticSequence(n_frames=n_frames, seed=seed, extent=60.0, radius=35.0,
+                            max_points=max_points, noise=0.02, laps=laps,
                             n_azimuth=2048, n_elevation=64)
     scans = [scan for scan, _ in seq]
     T0_inv = np.linalg.inv(seq.poses[0])
     return scans, np.stack([(T0_inv @ p).astype(np.float32) for p in seq.poses])
 
 
-def run_loop_course(cfg: PipelineConfig, scans, gt, device):
-    """Every scan through `SlamPipeline`; all frames must converge. Returns (pipeline,
-    result, numbers)."""
-    pipe = SlamPipeline(cfg, device=device)
+def run_loop_course(cfg: PipelineConfig, scans, gt, device, mesh=None):
+    """Every scan through `SlamPipeline` (with `mesh`, that mesh in place of the one
+    `cfg.parallel` would build); all frames must converge. Returns (pipeline, result,
+    numbers)."""
+    pipe = SlamPipeline(cfg, device=device, mesh=mesh)
     walls = []
     for s in scans:
         a = time.perf_counter()
@@ -801,7 +837,8 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
     counts = read_counts()
     bodies = int(res.iterations) + 2
     if not (bool(res.converged) and counts == {"ndt_direct7_accumulate": 0,
-                                                "ndt_accumulate": bodies}):
+                                                "ndt_accumulate": bodies,
+                                                "ndt_direct7_accumulate_batched": 0}):
         raise AssertionError(f"line search: converged {bool(res.converged)}, {bodies} "
                              f"bodies, launches {counts}")
     err = float(np.abs(res.transform.cpu().numpy() - T_last).max())
@@ -1099,6 +1136,315 @@ def trace_frames(frames: int = 5) -> dict:
     return rec
 
 
+def dense_courses(seeds, n_frames: int, max_points: int):
+    """`dense_course` at each seed, in one spawned process a seed (a course takes ~0.75 s
+    of CPU a frame to simulate)."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            len(seeds), mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(dense_course, n_frames, max_points, s) for s in seeds]
+        return [f.result() for f in futures]
+
+
+def stack_course(courses, n: int):
+    """Courses [(scans, gt)] as [B, F, n, 3] scans (padding PAD_VALUE), [B, F, n] masks and
+    the ground truths."""
+    B, F = len(courses), len(courses[0][0])
+    scans = np.full((B, F, n, 3), PAD_VALUE, np.float32)
+    masks = np.zeros((B, F, n), bool)
+    for b, (sc, _) in enumerate(courses):
+        for f, scan in enumerate(sc):
+            k = min(len(scan), n)
+            scans[b, f, :k], masks[b, f, :k] = scan[:k], True
+    return scans, masks, [gt for _, gt in courses]
+
+
+def batched_kernel_check(scans, masks, gts, card: str, dev=torch.device("cuda")) -> tuple:
+    """The batched fused kernel at the multi-sequence odometry's shape: four sequences'
+    fine maps (2 m, capacity 32,768) of a full 20-keyframe ring of their first frames at
+    ground truth, each with its next frame (N = 32,768) at ground truth as the source.
+    Against its plain version (REL/ABS, counts exact), row b against
+    `ndt_direct7_accumulate` on sequence b bit for bit, two launches bit-identical; its
+    device and host time beside four single launches', the plain version's, and the bound
+    (the four sequences' bytes and operations, counted as `direct7_bound_us` does).
+    Returns (max abs err, timing record); on the CPU (a rehearsal) no times."""
+    cfg = PipelineConfig().scan_matcher
+    W, B = cfg.max_scan_accumulate_num, scans.shape[0]
+    maps, pts, msk = [], [], []
+    for b in range(B):
+        T = torch.as_tensor(gts[b][:W + 1], device=dev)
+        ring = torch.as_tensor(scans[b, :W], device=dev)
+        m = torch.as_tensor(masks[b, :W], device=dev)
+        world = torch.where(m[..., None], ring @ T[:W, :3, :3].transpose(-1, -2)
+                            + T[:W, None, :3, 3], ring)
+        maps.append(build_ndt_map(world.reshape(-1, 3), m.reshape(-1), cfg.ndt.resolution,
+                                  capacity=32768))
+        src = torch.as_tensor(scans[b, W], device=dev)
+        sm = torch.as_tensor(masks[b, W], device=dev)
+        pts.append(torch.where(sm[:, None], src @ T[W, :3, :3].T + T[W, :3, 3], src))
+        msk.append(sm)
+    vmaps, p, m = kernels.stack_maps(maps), torch.stack(pts), torch.stack(msk)
+    md1, md2 = magnusson_constants(vmaps.leaf, cfg.ndt.outlier_ratio)
+    ws = -md1 * md2
+    fn = kernels.ndt_direct7_accumulate_batched
+    out, again = fn(vmaps, p, m, md2, ws), fn(vmaps, p, m, md2, ws)
+    ref = kernels.ndt_direct7_accumulate_batched_plain(vmaps, p, m, md2, ws)
+    err, rel = 0.0, 0.0
+    for name, a, c, r in zip(DIRECT7_OUT, out, again, ref):
+        if not torch.equal(a, c):
+            raise AssertionError(f"batched kernel: {name} differs between two launches")
+        for b in range(B):
+            e = float((a[b] - r[b]).abs().max())
+            exact = name in ("n_hit", "centre_count")
+            bound = 0.0 if exact else REL * float(r[b].abs().max()) + ABS
+            if not e <= bound:
+                raise AssertionError(f"batched kernel, sequence {b}: {name} max err {e} > {bound}")
+            err = max(err, e)
+            rel = max(rel, e / max(float(r[b].abs().max()), 1e-30))
+    singles = [kernels.ndt_direct7_accumulate(maps[b], p[b], m[b], md2[b], ws[b])
+               for b in range(B)]
+    for b in range(B):
+        if not all(torch.equal(x[b], y) for x, y in zip(out, singles[b])):
+            raise AssertionError(f"batched kernel: row {b} differs from the single launch")
+    bounds = [direct7_bound_us(maps[b], p[b], m[b], float(out[3][b]), float(out[5][b]))
+              for b in range(B)]
+    nbytes, flops = sum(x["bytes"] for x in bounds), sum(x["flops"] for x in bounds)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    if dev.type != "cuda":
+        return err, dict(B=B, n_hit=[int(x) for x in out[3]], bytes=nbytes, flops=flops)
+    t = split_times(fn, vmaps, p, m, md2, ws)
+    t_single = split_times(lambda: [kernels.ndt_direct7_accumulate(maps[b], p[b], m[b],
+                                                                   md2[b], ws[b])
+                                    for b in range(B)])
+    rec = dict(kernel="ndt_direct7_accumulate_batched", shape="batch", B=B, N=p.shape[1],
+               n_hit=[int(x) for x in out[3]], **t,
+               plain_ms=median_ms(kernels.ndt_direct7_accumulate_batched_plain, vmaps, p, m,
+                                  md2, ws, calls=10, warmup=2),
+               bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               singles_device_us=t_single["device_us"], singles_host_us=t_single["host_us"],
+               max_rel_err=rel, rows_bit_equal_single=True, bit_identical=True)
+    rec["share_of_bound"] = rec["bound_us"] / rec["device_us"]
+    say("kernel-time", **{k: json.dumps(v) if isinstance(v, list) else v
+                          for k, v in rec.items()}, card=json.dumps(card))
+    return err, rec
+
+
+def batch_odometry_check(scans, masks, gts, card: str) -> dict:
+    """`batch_odometry` at full width: B sequences of F frames of N points under the default
+    `ScanMatcherConfig` (20-keyframe ring, 2 m / 4 m), map capacity 32,768, counts set to 0
+    just before and read just after. Every sequence's ATE within max(0.05 x travelled,
+    0.35) m, frame 0 a keyframe, >= 2 keyframes; the batch equals B runs of one bit for
+    bit; the first 3 frames agree with the CPU's to 1e-4 (`tests/test_torch_multi_sequence.py`
+    against the reference). Frames per second over the batch, and the device's idle share
+    from `scripts/torch_profile_batch.py` in a subprocess."""
+    cfg = PipelineConfig().scan_matcher
+    B, F = scans.shape[:2]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    final, outs = batch_odometry(scans, masks, cfg, map_capacity=32768, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if not (counts["ndt_direct7_accumulate_batched"] > 0
+            and counts["ndt_direct7_accumulate"] == counts["ndt_accumulate"] == 0):
+        raise AssertionError(f"batch odometry: launches {counts}")
+    poses = outs["pose"].cpu().numpy()
+    ates, bounds = [], []
+    for b in range(B):
+        travelled = float(np.sum(np.linalg.norm(np.diff(gts[b][:, :3, 3], axis=0), axis=1)))
+        ates.append(ate_rmse(poses[b], gts[b], align=False))
+        bounds.append(max(0.05 * travelled, 0.35))
+    kf = outs["is_keyframe"].cpu().numpy()
+    if not (all(a < bd for a, bd in zip(ates, bounds)) and kf[:, 0].all()
+            and bool((final.kf_count >= 2).all()) and bool(outs["converged"][:, 1:].all())):
+        raise AssertionError(f"batch odometry: ATE {ates} (bounds {bounds}), keyframes "
+                             f"{kf.sum(axis=1)}, converged {outs['converged'].sum(dim=1)}")
+    for b in range(B):
+        _, one = batch_odometry(scans[b:b + 1], masks[b:b + 1], cfg, map_capacity=32768,
+                                device="cuda")
+        if not all(torch.equal(v[b], one[k][0]) for k, v in outs.items()):
+            raise AssertionError(f"batch odometry: sequence {b} differs from its run alone")
+    t0 = time.perf_counter()
+    _, cpu = batch_odometry(scans[:, :3], masks[:, :3], cfg, map_capacity=32768, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    dpose = float(np.abs(poses[:, :3] - cpu["pose"].numpy()).max())
+    if not (dpose <= 1e-4 and np.array_equal(kf[:, :3], cpu["is_keyframe"].numpy())):
+        raise AssertionError(f"batch odometry: card vs CPU first 3 frames {dpose}")
+    path = os.path.join(REPO, ".chip_scratch", "batch_profile_input.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, scans=scans[:, :6], masks=masks[:, :6])
+    try:
+        proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts",
+                                                            "torch_profile_batch.py"),
+                               "--input", path], cwd=REPO, capture_output=True, text=True,
+                              timeout=600)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"batch profile failed:\n{proc.stderr[-3000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    return dict(B=B, frames=F, points=scans.shape[2], ring_points=20 * scans.shape[2],
+                ate_m=json.dumps([round(a, 5) for a in ates]),
+                ate_bound_m=json.dumps([round(x, 3) for x in bounds]),
+                keyframes=json.dumps(kf.sum(axis=1).tolist()),
+                seconds=round(wall, 3), fps_over_batch=B * F / wall,
+                frames_per_second_per_sequence=F / wall,
+                launches=counts["ndt_direct7_accumulate_batched"],
+                card_vs_cpu_first3_max=dpose, cpu_first3_s=round(cpu_s, 3),
+                batch_equals_single_runs=True, profile=json.dumps(prof, separators=(",", ":")))
+
+
+def step_graph(kind: str, K: int, device):
+    """The graph of the reference's test of each mesh step, at capacity K (the poses past
+    its chain are inactive identity blocks of the K-block system): "schur"
+    (`tests/test_schur.py`: 24 poses, 1 m steps with 0.01 rad of rotation noise, one loop
+    (2, 23) at information 1e4) or "chain" (`tests/test_distributed.py`: 20 poses, one
+    loop (0, 19))."""
+    rng = np.random.default_rng(9 if kind == "schur" else 5)
+    n, loop = (24, (2, 23)) if kind == "schur" else (20, (0, 19))
+    g = gsolver.init_graph(K, 4, (1e-4,) * 6, device=device)
+    T = torch.eye(4, device=device)
+    g = gsolver.graph_add_keyframe(g, T, torch.eye(4, device=device))
+    for _ in range(1, n):
+        xi = np.concatenate([rng.normal(size=3) * 0.01,
+                             [1.0, 0, 0.1] if kind == "schur" else [1.0, 0, 0]])
+        meas = se3.se3_exp(torch.as_tensor(xi, dtype=torch.float32, device=device))
+        T = T @ meas
+        g = gsolver.graph_add_keyframe(g, T, meas)
+    return gsolver.graph_add_loop(g, loop[0], loop[1], torch.eye(4, device=device),
+                                  torch.full((6,), 1e4, device=device)), n
+
+
+def drifted_line_graph(K: int, device, n: int = 128, n_loops: int = 8, seed: int = 0):
+    """A drifted chain at capacity K: n poses 1 m apart (0.1 m of climb a step) whose
+    odometry carries 3e-4 rad of rotation noise a step, and `n_loops` loop factors from
+    poses along it back to pose 0, measured from the noise-free trajectory, at
+    information 1e4. Returns (graph, the noise-free poses)."""
+    rng = np.random.default_rng(seed)
+    step = se3.se3_exp(torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.1])).numpy().astype(np.float64)
+    truth, est, odo = [np.eye(4)], [np.eye(4)], [np.eye(4)]
+    for _ in range(1, n):
+        xi = torch.as_tensor(np.concatenate([rng.normal(size=3) * 3e-4, [0.0, 0.0, 0.0]]))
+        meas = step @ se3.se3_exp(xi).numpy()
+        truth.append(truth[-1] @ step)
+        est.append(est[-1] @ meas)
+        odo.append(meas)
+    f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)  # noqa: E731
+    g = gsolver.init_graph(K, n_loops, (1e-4,) * 6, device=device)
+    g = gsolver.graph_add_keyframes_batch(g, f32(est), f32(odo), n)
+    for i in np.linspace(n // 8, n - 1, n_loops).astype(int):
+        g = gsolver.graph_add_loop(g, int(i), 0, f32(np.linalg.inv(truth[i]) @ truth[0]),
+                                   torch.full((6,), 1e4, device=device))
+    return g, np.stack(truth)
+
+
+def mesh_solve_check(device, slots: int = 4, K: int = 4096) -> dict:
+    """The mesh solves at the capacity default K on a `slots`-slot mesh of one device
+    (1,024 blocks a slot): one Schur step and one chain step on their reference tests'
+    graphs (`step_graph`) against `solver._solve_step`, to those tests' tolerances (5e-3
+    and 5e-4 on the poses); then `mesh_optimize` with each against `solver.optimize` on a
+    drifted 128-pose chain (`drifted_line_graph`) to 1e-3, each below the start's cost.
+    ms per step and per solve (the slots run one after another: no multi-card speed). A
+    longer active chain is not compared: the float32 steps of the cyclic-reduction and
+    blocked solves (the reference's algorithms, single-device and per slot alike) lose
+    all digits there, which is why the back end solves in float64 on the host first."""
+    dev = torch.device(device)
+    mesh = Mesh((dev,) * slots, "pose")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    timed = dev.type == "cuda"
+    damping = torch.tensor(1e-4, device=dev)
+    out = dict(K=K, slots=slots, device=str(dev))
+    for name, step, tol in (("schur", schur_graph_step, 5e-3),
+                            ("chain", distributed_graph_step, 5e-4)):
+        g, n = step_graph(name, K, dev)
+        single = g.poses @ se3.se3_exp(gsolver._solve_step(g, g.poses, damping))
+        poses = step(mesh, g, 1e-4)
+        diff = float((poses[:n] - single[:n]).abs().max())
+        if not (diff <= tol and float(gsolver.graph_cost(g, poses))
+                < float(gsolver.graph_cost(g, g.poses))):
+            raise AssertionError(f"mesh {name} step vs single: {diff} > {tol}")
+        out[f"{name}_step_vs_single"] = diff
+        out[f"{name}_step_ms"] = median_ms(step, mesh, g, 1e-4, calls=5, warmup=1) if timed else None
+        out[f"single_step_ms_{name}_graph"] = median_ms(
+            gsolver._solve_step, g, g.poses, damping, calls=5, warmup=1) if timed else None
+    g, truth = drifted_line_graph(K, dev)
+    sync()
+    t0 = time.perf_counter()
+    ref = gsolver.optimize(g, max_iterations=15)
+    sync()
+    out["optimize_ms"] = 1000 * (time.perf_counter() - t0)
+    cost0 = float(gsolver.graph_cost(g, g.poses))
+    for name in ("schur", "chain"):
+        sync()
+        t0 = time.perf_counter()
+        res = mesh_optimize(mesh, g, max_iterations=15, solver=name)
+        sync()
+        diff = float((res.poses - ref.poses).abs().max())
+        cost = float(gsolver.graph_cost(g, res.poses))
+        if not (diff <= 1e-3 and cost < cost0):
+            raise AssertionError(f"mesh_optimize {name}: {diff} from optimize, cost {cost} "
+                                 f"(start {cost0})")
+        out[f"mesh_optimize_{name}_vs_optimize"] = diff
+        out[f"mesh_optimize_{name}_ms"] = 1000 * (time.perf_counter() - t0)
+    n = truth.shape[0]
+    out.update(cost_start=cost0, optimize_cost=float(gsolver.graph_cost(g, ref.poses)),
+               drift_m=float(np.abs(g.poses[n - 1, :3, 3].cpu().numpy() - truth[-1, :3, 3]).max()),
+               optimized_err_m=float(np.abs(ref.poses[:n, :3, 3].cpu().numpy()
+                                            - truth[:, :3, 3]).max()))
+    return out
+
+
+def same_loops(ref, res, label: str) -> dict:
+    """Two pipeline results hold the same attempts and decisions, fitness to 1e-4, and the
+    same keyframes within 0.02 m (`tests/test_pipeline_mesh.py:140-149`)."""
+    a = [(r["candidate"], r["accepted"]) for r in ref.loop_log]
+    b = [(r["candidate"], r["accepted"]) for r in res.loop_log]
+    dfit = max((abs(x["fitness"] - y["fitness"]) for x, y in zip(ref.loop_log, res.loop_log)
+                if np.isfinite(x["fitness"])), default=0.0)
+    dt = (float(np.linalg.norm(ref.keyframe_poses[:, :3, 3] - res.keyframe_poses[:, :3, 3],
+                               axis=1).max())
+          if ref.keyframe_poses.shape == res.keyframe_poses.shape else float("inf"))
+    if not (a == b and ref.num_loop_closures == res.num_loop_closures and dfit <= 1e-4
+            and dt <= 0.02):
+        raise AssertionError(f"{label}: loops {res.num_loop_closures} vs "
+                             f"{ref.num_loop_closures}, same decisions {a == b}, fitness "
+                             f"{dfit}, keyframes {dt} m")
+    return dict(loops_accepted=res.num_loop_closures, attempts=len(b),
+                fitness_max_diff=dfit, keyframes_max_diff_m=dt)
+
+
+def batch_slam_check(courses, n: int, card: str, dev=torch.device("cuda")) -> dict:
+    """`batch_slam` on drift-course-like sequences on a 4-slot mesh of the card, loop
+    attempts every 4 keyframes: >= 1 loop in all, and per sequence the optimized keyframe
+    ATE <= 1.2 x the odometry's + 0.05 m (`tests/test_multi_sequence.py:97-99`)."""
+    scans, masks, gts = stack_course(courses, n)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = batch_slam(scans, masks, PipelineConfig().scan_matcher, map_capacity=32768,
+                         mesh=Mesh((dev,) * len(courses), "seq"), loop_every_keyframes=4)
+    seconds = time.perf_counter() - t0
+    counts = read_counts() if dev.type == "cuda" else {}
+    loops, opt, odom = 0, [], []
+    for b, res in enumerate(results):
+        kf = res["keyframe_frame_indices"]
+        opt.append(ate_rmse(res["keyframe_poses"], gts[b][kf], align=False))
+        odom.append(ate_rmse(res["odometry_poses"][kf], gts[b][kf], align=False))
+        loops += res["num_loop_closures"]
+    if not (loops >= 1 and all(o <= 1.2 * d + 0.05 for o, d in zip(opt, odom))):
+        raise AssertionError(f"batch_slam: {loops} loops, ATE {opt} vs odometry {odom}")
+    return dict(B=len(results), frames=scans.shape[1], points=n, loops_accepted=loops,
+                loops_per_sequence=json.dumps([r["num_loop_closures"] for r in results]),
+                attempts=sum(len(r["loop_log"]) for r in results),
+                ate_optimized_m=json.dumps([round(x, 5) for x in opt]),
+                ate_odometry_m=json.dumps([round(x, 5) for x in odom]),
+                seconds=round(seconds, 3),
+                launches=json.dumps(counts, separators=(",", ":")), card=json.dumps(card))
+
+
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
                   **launches) -> dict:
     """One kernel's entry of the JSON record: times at `shape`, its main path's (the
@@ -1392,6 +1738,49 @@ def main(argv=None) -> int:
     # -- 23. the profiler span, in a subprocess ----------------------------------------------
     say("trace", **trace_frames())
 
+    # -- 24. the batched fused kernel at the multi-sequence shape ----------------------------
+    t0 = time.perf_counter()
+    bscans, bmasks, bgts = stack_course(dense_courses(BATCH_SEEDS, 40, 32768), 32768)
+    say("batch-course", B=bscans.shape[0], frames=bscans.shape[1], points=bscans.shape[2],
+        mean_points=float(bmasks.sum(axis=2).mean()), seconds=round(time.perf_counter() - t0, 3))
+    err, rec = batched_kernel_check(bscans, bmasks, bgts, card)
+    max_err["ndt_direct7_accumulate_batched"] = err
+    timing["batch"] = {"ndt_direct7_accumulate_batched": rec}
+
+    # -- 25. batch_odometry at full width; launches counted inside ---------------------------
+    bo = batch_odometry_check(bscans, bmasks, bgts, card)
+    say("batch-odometry", **bo, card=json.dumps(card))
+    del bscans, bmasks
+
+    # -- 26. the mesh solves on a 4-slot mesh of the card -----------------------------------
+    say("mesh-solve", **mesh_solve_check("cuda"), card=json.dumps(card))
+
+    # -- 27. the mesh pipeline on the drift course ------------------------------------------
+    cfg_mesh = apply_cli_overrides(PipelineConfig(), ["parallel.use_mesh=true"])
+    pipe_m1, res_m1, m1 = run_loop_course(cfg_mesh, dscans, dgt, "cuda")
+    if pipe_m1.mesh.size != 1:
+        raise AssertionError(f"mesh_devices=0 on one card: {pipe_m1.mesh}")
+    say("mesh-pipeline", slots=1, loop_topk=1, **same_loops(res_on, res_m1, "mesh, 1 slot"),
+        p50_frame_ms=m1["p50_frame_ms"], p50_frame_ms_phase10=on["p50_frame_ms"],
+        card=json.dumps(card))
+    del pipe_m1, res_m1
+    topk = ["graph_slam.loop_topk=4"]
+    _, res_k4, k4 = run_loop_course(apply_cli_overrides(PipelineConfig(), topk),
+                                    dscans, dgt, "cuda")
+    _, res_m4, m4 = run_loop_course(apply_cli_overrides(cfg_mesh, topk), dscans, dgt, "cuda",
+                                    mesh=Mesh((dev,) * 4, "scan"))
+    say("mesh-pipeline", slots=4, loop_topk=4, **same_loops(res_k4, res_m4, "mesh, 4 slots"),
+        loops_accepted_topk1=on["loops_accepted"], ate_keyframes_m=m4["ate_keyframes_m"],
+        ate_keyframes_topk1_m=on["ate_keyframes_m"], p50_frame_ms=m4["p50_frame_ms"],
+        p50_frame_ms_unmeshed_topk4=k4["p50_frame_ms"],
+        p50_frame_ms_phase10=on["p50_frame_ms"], card=json.dumps(card))
+    del res_k4, res_m4
+
+    # -- 28. batch_slam on drift-course-like sequences, a 4-slot mesh; launches inside -------
+    bs = batch_slam_check([drift_course(130, 16384, seed=s_, laps=1.1) for s_ in SLAM_SEEDS],
+                          16384, card)
+    say("batch-slam", **bs)
+
     print(json.dumps({"kernels": [
         kernel_record(
             "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
@@ -1411,6 +1800,13 @@ def main(argv=None) -> int:
             launches_line_search=ls["launches"],
             launches_ndt_main_path=launches["ndt_accumulate"],
             launches_icp_loop_course=launches_course["ndt_accumulate"]),
+        kernel_record(
+            "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
+            shape="batch", launches=bo["launches"], path="batch_odometry (phase 25)",
+            launches_batch_slam=json.loads(bs["launches"])["ndt_direct7_accumulate_batched"],
+            max_rel_err=rec["max_rel_err"], rows_bit_equal_single=True,
+            singles_device_ms=rec["singles_device_us"] / 1000,
+            singles_host_ms=rec["singles_host_us"] / 1000),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

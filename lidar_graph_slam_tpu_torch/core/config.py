@@ -249,17 +249,18 @@ class ParallelConfig:
     """Mesh parallelism for the live pipeline (no reference counterpart — the reference's
     only scaling is OpenMP threads + three OS processes, SURVEY.md §2.3).
 
-    With `use_mesh` on, SlamPipeline builds a `jax.sharding.Mesh` and routes:
-      * the back-end pose-graph solve through the Schur-complement domain-decomposed
-        block-tridiagonal solve (`parallel/schur.py`) — each device eliminates its
-        contiguous pose segment, one psum of separator blocks rides ICI;
-      * batched top-k loop verification (`GraphSlamConfig.loop_topk`) with the candidate
-        batch axis sharded over the mesh.
-    Identical trajectories to the single-chip path (same math, same factors) — verified
-    by tests/test_pipeline_mesh.py on the 8-virtual-device CPU mesh."""
+    With `use_mesh` on, SlamPipeline builds a `parallel.distributed.Mesh` of slots and
+    routes:
+      * the back-end device LM through the Schur-complement domain-decomposed
+        block-tridiagonal solve (`parallel/schur.py`) — each slot eliminates its
+        contiguous pose segment, one psum of separator blocks — or the psum-reduced chain;
+      * batched top-k loop verification (`GraphSlamConfig.loop_topk`) with the candidates
+        laid out over the slots.
+    The same trajectories as the single-device path (same math, same factors) — held by
+    tests/test_torch_pipeline_mesh.py on an 8-slot CPU mesh."""
 
     use_mesh: bool = False
-    mesh_devices: int = 0           # 0 = all local devices
+    mesh_devices: int = 0           # 0 = all visible cards (one slot on the CPU)
     backend_solver: str = "schur"   # "schur" | "chain" (psum-reduced replicated solve)
 
 

@@ -12,7 +12,7 @@
 // g_w = p x (W e), g_v = W e. H is symmetric for symmetric W; the 21 upper-triangle
 // entries are accumulated and mirrored.
 //
-// Two entry points share that per-row routine (`accumulate_row`) and one epilogue:
+// Two kernels share that per-row routine (`accumulate_row`) and one epilogue:
 //
 //  * `ndt_direct7_kernel` takes the transformed points and the voxel map and does the
 //    DIRECT7 gather itself (the port of `lookup_direct7`, ops/voxel.py): one thread per
@@ -24,6 +24,11 @@
 //    __fsub_rn / __fmul_rn and a round-down conversion, the same float32 operations as
 //    the plain version's `floor((p - origin) * inv_leaf)`, so nvcc cannot contract them
 //    into an FMA and a point on a cell border lands in the same cell on both paths.
+//    It takes a batch axis on the grid's y dimension: B sequences, each with its own map
+//    and points, in one launch, one output row per sequence (entry point
+//    `lgs_ndt_direct7_accumulate_batched`, for the multi-sequence odometry); the
+//    single-sequence entry point is the same kernel with B = 1, so a batch row equals
+//    the single launch on that sequence bit for bit.
 //  * `ndt_rows_kernel` takes gathered rows (e, W, p, hit), the reference's interface; the
 //    NDT line search and GICP use it.
 //
@@ -210,17 +215,34 @@ __device__ __forceinline__ int voxel_coord(float v, float o, float inv_leaf, int
   return min(max(c, 0), hi);
 }
 
+// Sequence b = blockIdx.y of a batch of gridDim.y: its points, mask, table, packed rows,
+// origin and inv_leaf start at the given strides (in elements) times b, and its partials,
+// counter and output row are its own. The single-sequence entry point is this kernel with
+// one sequence, so row b of a batch is the same computation, bit for bit, as a launch on
+// sequence b alone with the same number of blocks.
+struct Batch {
+  long long p, mask, table, packed4, origin;  // per-sequence strides
+  int scalars;                                // 1: d2 / w_scale pointers hold one value per
+                                              // sequence; 0: one shared value
+};
+
 __global__ void __launch_bounds__(kThreads)
 ndt_direct7_kernel(const float* __restrict__ p, const uint8_t* __restrict__ mask,
                    const int* __restrict__ table, const float4* __restrict__ packed,
                    const float* __restrict__ origin, const float* __restrict__ inv_leaf_ptr,
-                   Grid grid, const float* __restrict__ d2_ptr, float d2_val,
+                   Grid grid, Batch bs, const float* __restrict__ d2_ptr, float d2_val,
                    const float* __restrict__ ws_ptr, float ws_val, long long N,
                    float* __restrict__ partials, unsigned int* __restrict__ counter,
                    float* __restrict__ out) {
-  const float d2 = d2_ptr ? *d2_ptr : d2_val;
-  const float ws = ws_ptr ? *ws_ptr : ws_val;
-  const float inv_leaf = *inv_leaf_ptr;
+  const long long b = blockIdx.y;
+  p += b * bs.p;
+  mask += b * bs.mask;
+  table += b * bs.table;
+  packed += b * bs.packed4;
+  origin += b * bs.origin;
+  const float d2 = d2_ptr ? d2_ptr[b * bs.scalars] : d2_val;
+  const float ws = ws_ptr ? ws_ptr[b * bs.scalars] : ws_val;
+  const float inv_leaf = inv_leaf_ptr[b];
   const float ox = origin[0], oy = origin[1], oz = origin[2];
   float acc[kQ];
 #pragma unroll
@@ -255,7 +277,7 @@ ndt_direct7_kernel(const float* __restrict__ p, const uint8_t* __restrict__ mask
       acc[30] += 1.f;
     }
   }
-  reduce_and_finish(acc, partials, counter, out);
+  reduce_and_finish(acc, partials + b * kQ * gridDim.x, counter + b, out + b * kOut);
 }
 
 }  // namespace
@@ -280,6 +302,27 @@ int lgs_ndt_accumulate(const float* e, const float* icov, const float* p, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// B sequences in one launch (grid nblocks x B): p [B, N, 3] f32, mask [B, N] u8, table
+// [B, dx * dy * dz] i32, packed [B, rows, 16] f32 (16-byte aligned), origin [B, 3] f32,
+// inv_leaf [B] f32; d2 / ws: by value, or pointers to one f32 (scalars_per_sequence 0) or
+// to B of them (1). partials: [B * kQ * nblocks] f32; counter: B u32, 0 between launches;
+// out: [B, kOut] f32. `rows` is the packed rows' count per sequence.
+int lgs_ndt_direct7_accumulate_batched(const float* p, const uint8_t* mask, const int* table,
+                                       const float* packed, const float* origin,
+                                       const float* inv_leaf, int dx, int dy, int dz, int hx,
+                                       int hy, int hz, long long rows, int B,
+                                       const float* d2_ptr, float d2_val, const float* ws_ptr,
+                                       float ws_val, long long N, int scalars_per_sequence,
+                                       float* partials, unsigned int* counter, int nblocks,
+                                       float* out, void* stream) {
+  const Grid grid{dx, dy, dz, hx, hy, hz};
+  const Batch bs{3 * N, N, (long long)dx * dy * dz, 4 * rows, 3, scalars_per_sequence};
+  ndt_direct7_kernel<<<dim3(nblocks, B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, mask, table, reinterpret_cast<const float4*>(packed), origin, inv_leaf, grid, bs,
+      d2_ptr, d2_val, ws_ptr, ws_val, N, partials, counter, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // packed: [rows, 16] f32, 16-byte aligned; table: [dx * dy * dz] i32; origin: [3] f32;
 // inv_leaf: one f32 — all on the device.
 int lgs_ndt_direct7_accumulate(const float* p, const uint8_t* mask, const int* table,
@@ -288,11 +331,10 @@ int lgs_ndt_direct7_accumulate(const float* p, const uint8_t* mask, const int* t
                                int hz, const float* d2_ptr, float d2_val, const float* ws_ptr,
                                float ws_val, long long N, float* partials,
                                unsigned int* counter, int nblocks, float* out, void* stream) {
-  const Grid grid{dx, dy, dz, hx, hy, hz};
-  ndt_direct7_kernel<<<nblocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, mask, table, reinterpret_cast<const float4*>(packed), origin, inv_leaf, grid,
-      d2_ptr, d2_val, ws_ptr, ws_val, N, partials, counter, out);
-  return static_cast<int>(cudaGetLastError());
+  return lgs_ndt_direct7_accumulate_batched(p, mask, table, packed, origin, inv_leaf, dx, dy,
+                                            dz, hx, hy, hz, 0, 1, d2_ptr, d2_val, ws_ptr,
+                                            ws_val, N, 0, partials, counter, nblocks, out,
+                                            stream);
 }
 
 const char* lgs_cuda_error_string(int err) {

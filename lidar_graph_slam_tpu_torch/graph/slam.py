@@ -25,11 +25,17 @@ the host (three calls a guess), so the frame's thread waits for the device once 
 candidate at a loop tick, outside `verify_seconds`. The RANSAC family counts are read
 with the results, in the worker.
 
-Not ported yet: the reference's mesh and sharded cloud store.
+With a mesh (`parallel/distributed.py:Mesh`, from `ParallelConfig.use_mesh`), the top-k
+candidates are laid out over the mesh's slots (`shard_batch`) and each slot's candidates
+are verified on that slot's device, still in the worker thread, on one stream per device;
+and the device f32 LM of the escalation ladder is `mesh_optimize` (Schur-decomposed or
+chain steps, `ParallelConfig.backend_solver`). Not ported yet: the reference's sharded
+cloud store (multi-host).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Optional
@@ -45,6 +51,7 @@ from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map, voxel_downsample
+from lidar_graph_slam_tpu_torch.parallel.distributed import mesh_optimize, shard_batch
 from lidar_graph_slam_tpu_torch.registration import gicp as gicp_mod
 from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
 from lidar_graph_slam_tpu_torch.registration.features import global_register
@@ -140,13 +147,29 @@ class GraphBasedSLAM:
 
     _FLUSH_BATCH = 32
 
-    def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, device=None):
+    def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, device=None,
+                 mesh=None, backend_solver: str = "schur"):
         self.cfg = cfg
         self.capacity = capacity
         self.device = resolve_device(device)
         self.method = cfg.registration_method.upper()
         if self.method not in ("ICP", "GICP", "NDT"):
             raise ValueError(f"unknown loop registration_method {cfg.registration_method!r}")
+        # Mesh routing: the device LM runs over the mesh and the verification batch is laid
+        # out over its slots.
+        self.mesh = mesh
+        self.backend_solver = backend_solver
+        if backend_solver not in ("schur", "chain"):
+            raise ValueError(f"unknown parallel.backend_solver {backend_solver!r}: "
+                             f"'schur' or 'chain'")
+        if mesh is not None and (capacity.max_keyframes % mesh.size != 0
+                                 or capacity.max_keyframes // mesh.size < 2):
+            # Divisibility AND >= 2 poses per slot: the Schur interior elimination indexes
+            # U_loc[m-2], so m = 1 would wrap around to a wrong solve.
+            raise ValueError(
+                f"capacity.max_keyframes={capacity.max_keyframes} must be a multiple of "
+                f"the mesh size {mesh.size} with at least 2 keyframes per slot for the "
+                f"Schur domain decomposition")
         self._verify_one = make_verify_one(cfg, self.method)
         # Keyframe inserts into the device graph are deferred and flushed in batches;
         # `self.graph` (property) flushes on read.
@@ -168,7 +191,7 @@ class GraphBasedSLAM:
         self.is_loop_closed = False
         self.async_enabled = cfg.async_backend
         self._pending_verify = None
-        self._verify_stream = None
+        self._verify_streams: dict = {}  # device -> the verification worker's stream
         self._solve_thread = None
         self._solve_result = None
         self._solve_error: Optional[BaseException] = None
@@ -428,21 +451,32 @@ class GraphBasedSLAM:
             "global_diags": global_diags,
         }
 
-    def _verify(self, inp) -> dict:
+    def _verify(self, inp, streams=None) -> dict:
         """Run every candidate's verification (the reference's vmap over candidates: each
-        one is independent). Returns host results and this thread's kernel launches."""
+        one is independent), each on its own device (`inp["sources"]` holds its source
+        there) and, given `streams`, on that device's stream. Returns host results and
+        this thread's kernel launches."""
         t0 = time.perf_counter()
-        src_p, src_m, src_covs = inp["source"]
         before = kernels.thread_launches()
-        Ts, scores, convs = [], [], []
-        for grid, pre_map, extra, guess in inp["targets"]:
-            T, score, ok = self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
-                                            src_covs)
-            Ts.append(T)
-            scores.append(score)
-            convs.append(ok)
-        out = {"Ts": torch.stack(Ts).cpu().numpy(), "scores": torch.stack(scores).cpu().numpy(),
-               "convs": torch.stack(convs).cpu().numpy()}
+
+        def on_stream(dev):
+            return torch.cuda.stream(streams[dev]) if streams else contextlib.nullcontext()
+
+        sources = inp.get("sources") or [inp["source"]] * len(inp["targets"])
+        results = []
+        for (grid, pre_map, extra, guess), (src_p, src_m, src_covs) in zip(
+                inp["targets"], sources):
+            with on_stream(src_p.device):
+                results.append(self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
+                                                src_covs))
+        # Each result is read on the stream that computed it: another stream of the
+        # thread would not wait for it.
+        host = []
+        for res, (src_p, _, _) in zip(results, sources):
+            with on_stream(src_p.device):
+                host.append([x.cpu() for x in res])
+        out = {name: torch.stack([h[i] for h in host]).numpy()
+               for i, name in enumerate(("Ts", "scores", "convs"))}
         # The RANSAC family counts are read here, with the results, not on the frame's
         # thread: the read waits for the device.
         out["global_diags"] = [
@@ -462,28 +496,34 @@ class GraphBasedSLAM:
             return None
         pending = {k: inp[k] for k in ("cands", "latest", "T_latest")}
         pending["age"] = 0
+        if self.mesh is not None:
+            # Each slot's candidates (and a copy of the source) on the slot's device.
+            inp["targets"], inp["sources"], pending["slots"] = shard_batch(
+                self.mesh, inp["targets"], inp["source"])
         if not self.async_enabled:
             pending["results"] = self._verify(inp)
             return pending
 
-        stream = None
-        if self.device.type == "cuda":
-            if self._verify_stream is None:
-                self._verify_stream = torch.cuda.Stream(self.device)
-            stream = self._verify_stream
-            # The inputs were built on this thread's stream. The worker holds `inp` until
-            # its own stream is synchronized, so no input buffer is freed (and reused by
-            # this stream) while the verification may still read it.
-            stream.wait_stream(torch.cuda.current_stream(self.device))
+        streams = {}
+        for src in inp.get("sources") or [inp["source"]]:
+            dev = src[0].device
+            if dev.type == "cuda" and dev not in streams:
+                if dev not in self._verify_streams:
+                    self._verify_streams[dev] = torch.cuda.Stream(dev)
+                streams[dev] = self._verify_streams[dev]
+                # The inputs were built (or placed) on this thread's stream. The worker
+                # holds `inp` until its streams are synchronized, so no input buffer is
+                # freed (and reused by that stream) while the verification may read it.
+                streams[dev].wait_stream(torch.cuda.current_stream(dev))
 
         def run():
-            if stream is None:
+            if not streams:
                 return self._verify(inp)
             try:
-                with torch.cuda.stream(stream):
-                    return self._verify(inp)
+                return self._verify(inp, streams)
             finally:
-                stream.synchronize()
+                for stream in streams.values():
+                    stream.synchronize()
 
         def work():
             try:
@@ -570,7 +610,15 @@ class GraphBasedSLAM:
         b = 256
         while b < self.n_keyframes:
             b *= 2
-        return min(b, self.capacity.max_keyframes)
+        cap = self.capacity.max_keyframes
+        if self.mesh is not None:
+            n = self.mesh.size
+            # Schur needs divisibility + >= 2 poses per slot. The capacity has both (checked
+            # at construction), so doubling stops there at the latest: a mesh size that is
+            # not a power of two never divides a doubled 256 (the reference loops forever).
+            while (b % n or b // n < 2) and b < cap:
+                b *= 2
+        return min(b, cap)
 
     def _bucket_graph(self) -> solver.PoseGraph:
         """A snapshot of the device graph cut to the active-size bucket. Graph updates
@@ -580,11 +628,17 @@ class GraphBasedSLAM:
         return g.replace(poses=g.poses[:B], pose_mask=g.pose_mask[:B], odom_meas=g.odom_meas[:B])
 
     def _make_device_lm(self, gb: solver.PoseGraph):
-        """Escalation-ladder device callback: the f32 LM on the bucketed graph `gb`.
+        """Escalation-ladder device callback: the f32 LM on the bucketed graph `gb` —
+        over the mesh (`mesh_optimize` with the configured solver) when there is one.
         Shared by the synchronous and threaded solve paths."""
 
         def device_lm(poses64):
-            gd = solver.optimize(solver.set_poses(gb, poses64), max_iterations=30)
+            gd = solver.set_poses(gb, poses64)
+            if self.mesh is not None:
+                gd = mesh_optimize(self.mesh, gd, max_iterations=30,
+                                   solver=self.backend_solver)
+            else:
+                gd = solver.optimize(gd, max_iterations=30)
             return gd.poses[: poses64.shape[0]].cpu().numpy().astype(np.float64)
 
         return device_lm

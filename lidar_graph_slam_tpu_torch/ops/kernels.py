@@ -9,21 +9,29 @@ that), compiled with nvcc at first use into `build/` and bound with ctypes:
 * `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
   reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
   accumulation, and the centre-residual sums of NDT's fitness. `ndt_align` calls it.
+* `ndt_direct7_accumulate_batched(vmaps, p, source_mask, d2, w_scale)`: the same
+  reduction for B sequences in one launch, each against its own map (the maps' tensors
+  stacked on a leading batch axis, `stack_maps`), one output row per sequence — the
+  multi-sequence odometry's (`parallel/multi_sequence.py`). Row b equals
+  `ndt_direct7_accumulate` on sequence b alone bit for bit (the same kernel, the same
+  number of blocks per sequence).
 * `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
   rows, for NDT's line search (which needs the gathered means) and GICP.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
 (`lidar_graph_slam_tpu/registration/base.py:38-64`); `ndt_direct7_accumulate_plain` is
-`lookup_direct7` followed by it (`direct7_gathered`). A wrapper takes its plain version
+`lookup_direct7` followed by it (`direct7_gathered`); `ndt_direct7_accumulate_batched_plain`
+loops that over the batch. A wrapper takes its plain version
 for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 
 Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
 on the main thread and loop verification in its worker thread both launch), and
 `thread_launches()` the calling thread's, so a caller can tell the two paths apart.
 Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
-a ticket counter; there is one such pair per CUDA stream, made at the stream's first
-launch, because the odometry and the verification thread launch at once on two streams.
+a ticket counter (one per sequence of a batch); there is one such pair per CUDA stream,
+made at the stream's first launch (and grown for a larger batch), because the odometry
+and the verification thread launch at once on two streams.
 """
 
 from __future__ import annotations
@@ -38,7 +46,12 @@ import time
 
 import torch
 
-from lidar_graph_slam_tpu_torch.ops.voxel import COORD_MAX, TABLE_DIMS, lookup_direct7
+from lidar_graph_slam_tpu_torch.ops.voxel import (
+    COORD_MAX,
+    TABLE_DIMS,
+    NdtVoxelMap,
+    lookup_direct7,
+)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "ndt_accumulate.cu")
@@ -52,7 +65,7 @@ _lib = None  # the loaded shared library (built at first use)
 _lib_lock = threading.Lock()
 build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or load
 _consts: dict = {}     # the library's threads per block, accumulators and outputs
-_scratch: dict = {}    # (device index, stream handle) -> (partials f32, counter i32)
+_scratch: dict = {}    # (device index, stream handle) -> (partials f32, counters i32)
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
 
@@ -134,6 +147,34 @@ def ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale):
     return direct7_gathered(vmap, p, source_mask, d2, w_scale, ndt_accumulate_plain)[0]
 
 
+_MAP_FIELDS = ("keys", "means", "inv_covs", "valid", "origin", "leaf", "num_voxels", "table",
+               "packed")
+
+
+def stack_maps(vmaps) -> NdtVoxelMap:
+    """B voxel maps of one capacity as one `NdtVoxelMap` whose tensors carry a leading
+    batch axis (`inv_leaf` [B] included) — the batched kernel's map argument."""
+    return NdtVoxelMap(**{f: torch.stack([getattr(v, f) for v in vmaps]) for f in _MAP_FIELDS})
+
+
+def map_at(vmaps: NdtVoxelMap, b: int) -> NdtVoxelMap:
+    """Sequence b's map of a `stack_maps` batch."""
+    return NdtVoxelMap(**{f: getattr(vmaps, f)[b] for f in _MAP_FIELDS})
+
+
+def _scalar_at(x, b: int):
+    return x[b] if isinstance(x, torch.Tensor) and x.dim() == 1 else x
+
+
+def ndt_direct7_accumulate_batched_plain(vmaps, p, source_mask, d2, w_scale):
+    """Plain PyTorch version of `ndt_direct7_accumulate_batched`: the plain
+    single-sequence version on each sequence, stacked."""
+    rows = [ndt_direct7_accumulate_plain(map_at(vmaps, b), p[b], source_mask[b],
+                                         _scalar_at(d2, b), _scalar_at(w_scale, b))
+            for b in range(p.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
 # -- the library -------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -186,7 +227,11 @@ def _load_library_locked():
     lib.lgs_ndt_direct7_accumulate.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                                i32, i32, vp, f32, vp, f32, i64, vp, vp, i32,
                                                vp, vp]
-    for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate):
+    lib.lgs_ndt_direct7_accumulate_batched.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i32, vp, f32, vp, f32, i64,
+        i32, vp, vp, i32, vp, vp]
+    for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
+               lib.lgs_ndt_direct7_accumulate_batched):
         fn.restype = ctypes.c_int
     for name in ("threads", "quantities", "outputs"):
         fn = getattr(lib, f"lgs_ndt_{name}")
@@ -222,23 +267,29 @@ def _scalar_arg(x, device):
     return None, float(x)
 
 
-def _launch_args(device, rows: int):
-    """(stream handle, partials pointer, counter pointer, blocks, fresh output) for one
-    launch over `rows` work items on the current stream of `device`."""
+def _launch_args(device, rows: int, batch: int | None = None):
+    """(stream handle, partials pointer, counters pointer, blocks, fresh output) for one
+    launch over `rows` work items (per sequence of `batch`, whose output then has a
+    leading batch axis) on the current stream of `device`. The block count depends on
+    `rows` only, so a sequence of a batch is reduced in the same order as alone."""
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (device.index, stream)
     scratch = _scratch.get(key)
-    if scratch is None:
+    need = batch or 1
+    if scratch is None or scratch[1].numel() < need:
         with _lib_lock:
             scratch = _scratch.get(key)
-            if scratch is None:  # zeroed on this stream, before its first launch
+            if scratch is None or scratch[1].numel() < need:
+                # Zeroed on this stream, before its first launch that uses them; a smaller
+                # pair it replaces is freed in this stream's order.
                 scratch = _scratch[key] = (
-                    torch.empty(_consts["quantities"] * _MAX_BLOCKS, dtype=torch.float32,
-                                device=device),
-                    torch.zeros(1, dtype=torch.int32, device=device))
+                    torch.empty(_consts["quantities"] * _MAX_BLOCKS * need,
+                                dtype=torch.float32, device=device),
+                    torch.zeros(need, dtype=torch.int32, device=device))
     threads = _consts["threads"]
     nblocks = min(max(-(-rows // threads), 1), _MAX_BLOCKS)
-    out = torch.empty(_consts["outputs"], dtype=torch.float32, device=device)
+    shape = (_consts["outputs"],) if batch is None else (batch, _consts["outputs"])
+    out = torch.empty(shape, dtype=torch.float32, device=device)
     return stream, scratch[0].data_ptr(), scratch[1].data_ptr(), nblocks, out
 
 
@@ -323,5 +374,63 @@ def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale):
     return out[:36].view(6, 6), out[36:42], out[42], out[43], out[44], out[45]
 
 
+def _batched_scalar_arg(x, device, batch: int):
+    """(device pointer, host value, one value per sequence) for d2 / w_scale of the batched
+    kernel: a number, a 0-d f32 tensor, or a [batch] f32 tensor."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1:
+        _check("ndt_direct7_accumulate_batched", device, scalars=(x, (batch,), torch.float32))
+        return x.data_ptr(), 0.0, 1
+    ptr, val = _scalar_arg(x, device)
+    return ptr, val, 0
+
+
+def ndt_direct7_accumulate_batched(vmaps, p, source_mask, d2, w_scale):
+    """`ndt_direct7_accumulate` for B sequences in one launch.
+
+    vmaps:       B maps of one capacity C stacked by `stack_maps` (table [B, 4,194,304]
+                 i32, packed [B, C, 16] f32, origin [B, 3] f32, inv_leaf [B] f32)
+    p:           [B, N, 3] f32 transformed source points
+    source_mask: [B, N] bool
+    d2, w_scale: numbers, 0-d f32 tensors, or [B] f32 tensors (one per sequence)
+    Returns (H [B,6,6], g [B,6], sum_w [B], n_hit [B], centre_d2_sum [B], centre_count
+    [B]), f32 on the device: row b is `ndt_direct7_accumulate(map b, p[b], mask[b], ...)`,
+    bit for bit on the card.
+
+    CPU tensors take `ndt_direct7_accumulate_batched_plain`; CUDA tensors launch the kernel
+    (counted in `ndt_direct7_accumulate_batched.launches`) or raise.
+    """
+    if p.device.type == "cpu":
+        return ndt_direct7_accumulate_batched_plain(vmaps, p, source_mask, d2, w_scale)
+    if p.device.type != "cuda":
+        raise ValueError(f"ndt_direct7_accumulate_batched: unsupported device {p.device}")
+    dev, (B, n) = p.device, p.shape[:2]
+    C = vmaps.packed.shape[1]
+    _check("ndt_direct7_accumulate_batched", dev, p=(p, (B, n, 3), torch.float32),
+           source_mask=(source_mask, (B, n), torch.bool),
+           table=(vmaps.table, (B, _TABLE_SIZE), torch.int32),
+           packed=(vmaps.packed, (B, C, 16), torch.float32),
+           origin=(vmaps.origin, (B, 3), torch.float32),
+           inv_leaf=(vmaps.inv_leaf, (B,), torch.float32))
+    if vmaps.packed.data_ptr() % 16:
+        raise ValueError("ndt_direct7_accumulate_batched: packed rows must be 16-byte aligned")
+    d2_ptr, d2_val, per_seq = _batched_scalar_arg(d2, dev, B)
+    ws_ptr, ws_val, per_seq_ws = _batched_scalar_arg(w_scale, dev, B)
+    if d2_ptr is not None and ws_ptr is not None and per_seq != per_seq_ws:
+        raise ValueError("ndt_direct7_accumulate_batched: d2 and w_scale must both be "
+                         "per-sequence tensors or both shared")
+    lib = load_library()
+    stream, partials, counters, nblocks, out = _launch_args(dev, 7 * n, B)
+    _raise_on(lib.lgs_ndt_direct7_accumulate_batched(
+        p.data_ptr(), source_mask.data_ptr(), vmaps.table.data_ptr(), vmaps.packed.data_ptr(),
+        vmaps.origin.data_ptr(), vmaps.inv_leaf.data_ptr(), *TABLE_DIMS, *COORD_MAX, C, B,
+        d2_ptr, d2_val, ws_ptr, ws_val, n, max(per_seq, per_seq_ws), partials, counters,
+        nblocks, out.data_ptr(), stream),
+        "ndt_direct7_accumulate_batched")
+    _count(ndt_direct7_accumulate_batched)
+    return (out[:, :36].view(B, 6, 6), out[:, 36:42], out[:, 42], out[:, 43], out[:, 44],
+            out[:, 45])
+
+
 ndt_accumulate.launches = 0
 ndt_direct7_accumulate.launches = 0
+ndt_direct7_accumulate_batched.launches = 0

@@ -14,8 +14,10 @@ Port of `lidar_graph_slam_tpu/pipeline/runner.py`, with its two front-end driver
 
 `flush()` / `result()` drain the frames in flight and settle the concurrent back end
 (loop verification and solve, `graph/slam.py`). `utils/checkpoint.py` saves a pipeline and
-resumes it. The reference's mesh pipeline (`parallel.use_mesh`) is not ported yet and is
-refused at construction.
+resumes it. With `parallel.use_mesh` the back end gets a mesh
+(`parallel/distributed.py:make_mesh(parallel.mesh_devices or None)` on the pipeline's
+device): loop candidates are verified over its slots and the device LM runs over it with
+`parallel.backend_solver`; the front end stays on one device, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher, integrate_gyro
+from lidar_graph_slam_tpu_torch.parallel.distributed import make_mesh
 from lidar_graph_slam_tpu_torch.utils.telemetry import MetricsWriter
 
 
@@ -88,22 +91,21 @@ class SlamPipeline:
     card unless `device` names another (`core/device.py`)."""
 
     def __init__(self, cfg: PipelineConfig, metrics_path: Optional[str] = None,
-                 extrinsic_provider=None, device=None):
+                 extrinsic_provider=None, device=None, mesh=None):
+        """`mesh` (a `parallel.distributed.Mesh`) replaces the one `parallel.use_mesh`
+        builds, e.g. several slots on one card."""
         self.device = resolve_device(device)
-        if cfg.parallel.use_mesh:
-            # Refused by name, not ignored: without this the run would look like a mesh
-            # run while it is a single-device one.
-            raise NotImplementedError(
-                "parallel.use_mesh=True: the mesh pipeline (sharded loop verification and "
-                "the Schur back-end solve of the reference's `parallel/` package) is not "
-                "ported to the PyTorch package yet; leave parallel.use_mesh at False")
+        self.mesh = mesh
+        if mesh is None and cfg.parallel.use_mesh:
+            self.mesh = make_mesh(cfg.parallel.mesh_devices or None, device=self.device)
         self.metrics_writer = MetricsWriter(metrics_path)
         self.cfg = cfg
         # Per-frame sensor->base extrinsic hook: callable stamp -> [4,4] | None (None
         # falls back to the static config extrinsic, then identity).
         self.extrinsic_provider = extrinsic_provider
         cap = cfg.capacity
-        self.back = GraphBasedSLAM(cfg.graph_slam, cap, device=self.device)
+        self.back = GraphBasedSLAM(cfg.graph_slam, cap, device=self.device, mesh=self.mesh,
+                                   backend_solver=cfg.parallel.backend_solver)
         self.timings: dict[str, list] = {"prefilter": [], "register": [], "backend": []}
         self.raw_truncation_count = 0
         self.odometry_poses: list[np.ndarray] = []

@@ -11,6 +11,15 @@ with `lookup_direct7` and accumulates with `ops.kernels.ndt_accumulate`.
 Loop structure: the reference's `lax.while_loop` becomes a Python loop that reads the
 device's `done` flag once per iteration (one host sync per iteration); the two polish
 iterations then run unconditionally, even after convergence, as in the reference.
+
+`ndt_align_batched` is the reference's `jax.vmap(ndt_align)` over B sequences, each
+against its own map: one launch of `ops.kernels.ndt_direct7_accumulate_batched` per
+iteration for the whole batch, one host read of the B `done` flags per iteration, and a
+sequence's carry (transform, done, iterations, fitness, inliers) frozen from the
+iteration it is done on, as the vmapped `while_loop` selects a finished lane's carry
+back. The step from the sums runs per sequence with `ndt_align`'s own operations, so
+sequence b's result equals `ndt_align` on it alone — bit for bit on the card, where the
+batched kernel's row b equals the single launch.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     build_ndt_map,
     build_ndt_pyramid,
 )
+from lidar_graph_slam_tpu_torch.ops.kernels import map_at
 from lidar_graph_slam_tpu_torch.registration.base import (
     RegistrationResult,
     cap_step,
@@ -72,20 +82,18 @@ def ndt_align(
 
     def body(T, done, iters):
         p = se3.transform_points(T, source_points)                   # [N, 3]
-        if line_search:
-            # The line search evaluates the score against the gathered means and
-            # inverse covariances, so this path gathers them and accumulates the rows.
-            sums, (means, icovs, valid) = kernels.direct7_gathered(
-                vmap, p, source_mask, d2, w_scale, kernels.ndt_accumulate)
-        else:
+        if not line_search:
             sums = kernels.ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)
-        H, g, _sum_w, n_hit, centre_d2, centre_count = sums
-        n_inliers = n_hit.to(torch.int32)
+            return _step_from_sums(sums, T, done, iters, step_size, transform_epsilon,
+                                   damping)
+        # The line search evaluates the score against the gathered means and inverse
+        # covariances, so this path gathers them and accumulates the rows.
+        sums, (means, icovs, valid) = kernels.direct7_gathered(
+            vmap, p, source_mask, d2, w_scale, kernels.ndt_accumulate)
 
-        delta = cap_step(solve_damped(H, g, damping), step_size)
-        if line_search:
-            # Backtracking on the fixed-correspondence Magnusson score, evaluated
-            # against the means/icovs gathered this iteration (no re-gather).
+        def backtrack(delta):
+            # Backtracking on the fixed-correspondence Magnusson score, evaluated against
+            # the means/icovs gathered this iteration (no re-gather).
             alphas = torch.tensor([1.0, 0.5, 0.25], dtype=dtype, device=dev)
             scores = []
             for a in alphas:
@@ -93,15 +101,10 @@ def ndt_align(
                 ec = pc[:, None, :] - means
                 md2c = torch.einsum("kni,knij,knj->kn", ec, icovs, ec)
                 scores.append(torch.sum(torch.where(valid, torch.exp(-0.5 * d2 * md2c), 0.0)))
-            delta = alphas[torch.argmax(torch.stack(scores))] * delta
-        # Mean squared distance to the matched voxel means (diagnostic fitness).
-        fitness = centre_d2 / torch.clamp(centre_count, min=1.0)
+            return alphas[torch.argmax(torch.stack(scores))] * delta
 
-        step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
-        delta = torch.where(step_ok, delta, 0.0)
-        T_new = se3.se3_exp(delta) @ T
-        newly_done = norm(delta) < transform_epsilon
-        return T_new, done | newly_done, iters + 1, fitness, n_inliers
+        return _step_from_sums(sums, T, done, iters, step_size, transform_epsilon, damping,
+                               backtrack)
 
     T = init_transform.to(dtype)
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -121,6 +124,89 @@ def ndt_align(
     # loop — epsilon OR max-iterations; the caller's inlier gate guards quality.
     converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
                  & torch.isfinite(T_p).all())
+    return RegistrationResult(transform=T_p, converged=converged, iterations=iters,
+                              fitness=fitness_p, num_inliers=inliers_p)
+
+
+def _step_from_sums(sums, T, done, iters, step_size, transform_epsilon, damping,
+                    refine=None):
+    """One Gauss-Newton step from an iteration's reduction (`ndt_direct7_accumulate`'s
+    outputs): the damped solve, the step cap (then `refine`, the line search, if given),
+    the fitness, the guarded update and the convergence test. Returns the next carry
+    (T, done, iterations, fitness, inliers)."""
+    H, g, _sum_w, n_hit, centre_d2, centre_count = sums
+    n_inliers = n_hit.to(torch.int32)
+    delta = cap_step(solve_damped(H, g, damping), step_size)
+    if refine is not None:
+        delta = refine(delta)
+    # Mean squared distance to the matched voxel means (diagnostic fitness).
+    fitness = centre_d2 / torch.clamp(centre_count, min=1.0)
+    step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
+    delta = torch.where(step_ok, delta, 0.0)
+    T_new = se3.se3_exp(delta) @ T
+    newly_done = norm(delta) < transform_epsilon
+    return T_new, done | newly_done, iters + 1, fitness, n_inliers
+
+
+def ndt_align_batched(
+    vmaps: NdtVoxelMap,
+    source_points: torch.Tensor,
+    source_mask: torch.Tensor,
+    init_transforms: torch.Tensor,
+    step_size: float = 0.1,
+    transform_epsilon: float = 0.01,
+    outlier_ratio: float = 0.55,
+    max_iterations: int = 64,
+    polish_iterations: int = 2,
+) -> RegistrationResult:
+    """`ndt_align` over B sequences at once (the reference's `jax.vmap(ndt_align)`).
+
+    vmaps: B maps of one capacity stacked by `ops.kernels.stack_maps`; source_points
+    [B, N, 3]; source_mask [B, N]; init_transforms [B, 4, 4]. Returns a
+    `RegistrationResult` whose fields carry a leading batch axis. A sequence's carry stops
+    changing once it is done (or at `max_iterations`); the loop ends when every sequence
+    is; the polish iterations then run for every sequence."""
+    B = source_points.shape[0]
+    d1, d2 = magnusson_constants(vmaps.leaf, outlier_ratio)          # [B] each
+    w_scale = -d1 * d2
+    dtype, dev = source_points.dtype, source_points.device
+    damping = as_f32(1e-6, source_points)
+    source_mask = source_mask.contiguous()
+    T = [init_transforms[b].to(dtype) for b in range(B)]
+    done = [torch.zeros((), dtype=torch.bool, device=dev) for _ in range(B)]
+    iters = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(B)]
+    fitness = [torch.full((), torch.inf, dtype=dtype, device=dev) for _ in range(B)]
+    inliers = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(B)]
+    moved = [None] * B  # each sequence's last transformed source
+
+    def body(Ts, lanes, mask):
+        """The next carry of each sequence in `lanes` (the others' rows are not read)."""
+        for b in lanes:
+            moved[b] = se3.transform_points(Ts[b], source_points[b])
+        sums = kernels.ndt_direct7_accumulate_batched(vmaps, torch.stack(moved), mask, d2,
+                                                      w_scale)
+        return {b: _step_from_sums(tuple(x[b] for x in sums), Ts[b], done[b], iters[b],
+                                   step_size, transform_epsilon, damping) for b in lanes}
+
+    active = list(range(B))
+    for _ in range(max_iterations):
+        # A finished sequence's points are masked out, so it costs the kernel no gathers.
+        live = ~torch.stack(done)
+        for b, carry in body(T, active, source_mask & live[:, None]).items():
+            T[b], done[b], iters[b], fitness[b], inliers[b] = carry
+        flags = torch.stack([done[b] for b in active]).tolist()  # the one host read
+        active = [b for b, f in zip(active, flags) if not f]
+        if not active:
+            break
+    # Polish, for every sequence from its frozen carry, as `ndt_align`'s.
+    T_p, fitness_p, inliers_p = list(T), list(fitness), list(inliers)
+    for _ in range(polish_iterations):
+        for b, carry in body(T_p, range(B), source_mask).items():
+            T_p[b], _, _, fitness_p[b], inliers_p[b] = carry
+    T_p, done, iters = torch.stack(T_p), torch.stack(done), torch.stack(iters)
+    fitness_p, inliers_p = torch.stack(fitness_p), torch.stack(inliers_p)
+    converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
+                 & torch.isfinite(T_p).flatten(1).all(dim=1))
     return RegistrationResult(transform=T_p, converged=converged, iterations=iters,
                               fitness=fitness_p, num_inliers=inliers_p)
 

@@ -12,7 +12,7 @@ rebuilt from the ring), so the resumed trajectory may differ by a small, damped 
 the keyframe schedule is the same.
 
 Not ported yet: the reference refuses to checkpoint a multi-host pipeline (sharded
-keyframe store); the port has no such store until its `parallel/` modules exist.
+keyframe store); the port has no such store until `parallel/multihost.py` is ported.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ rows) against its plain PyTorch version and a float64 evaluation, and
 maps and edge cases; both launched at once from two threads on two streams; the
 loops-off pipeline, the grid nearest-neighbor query, one loop verification (ICP and
 GICP) and `gicp_align` on the card against the same on the CPU; `ndt_accumulate` on
-GICP's own rows, unmatched padding rows included; the classic driver's device default;
+GICP's own rows, unmatched padding rows included; the batched fused kernel against its
+plain version, row by row against the single kernel, masked, on two streams, and
+`batch_odometry` card against CPU and against single-sequence runs; one verification
+with a mesh of the card against the unmeshed one; the classic driver's device default;
 `match_features` under the float32 pin, `argmax`'s first maximum, `global_register` card
 and CPU, and a checkpoint carried from the card to the CPU and back.
 
@@ -48,6 +51,7 @@ from lidar_graph_slam_tpu_torch.ops import kernels as tk
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
 from lidar_graph_slam_tpu_torch.registration import gicp
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
+from lidar_graph_slam_tpu_torch.parallel.distributed import Mesh
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
 from lidar_graph_slam_tpu_torch.utils.state import gicp_target_from_numpy
@@ -267,6 +271,127 @@ def test_both_kernels_on_two_streams_at_once(cuda):
             assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
 
 
+def _batched_inputs(B, n, cuda):
+    """B sequences of `_direct7_inputs` (seeds 0..B-1: each its own map and points)."""
+    seqs = [_direct7_inputs(n, 2.0, cuda, seed=b) for b in range(B)]
+    vmaps = tk.stack_maps([s[0] for s in seqs])
+    p = torch.stack([s[1] for s in seqs])
+    mask = torch.stack([s[2] for s in seqs])
+    return seqs, vmaps, p, mask, seqs[0][3], seqs[0][4]
+
+
+@pytest.mark.parametrize("B", [4, 1])
+def test_batched_direct7_matches_plain_and_single_rows(cuda, B):
+    """The batched kernel at the multi-sequence odometry's shape (N = 32,768 a sequence):
+    against its plain version to the kernel tolerance, row b equal to
+    `ndt_direct7_accumulate` on sequence b bit for bit, two launches bit-identical."""
+    seqs, vmaps, p, mask, d2, ws = _batched_inputs(B, 32768, cuda)
+    before = tk.ndt_direct7_accumulate_batched.launches
+    out = tk.ndt_direct7_accumulate_batched(vmaps, p, mask, d2, ws)
+    again = tk.ndt_direct7_accumulate_batched(vmaps, p, mask, d2, ws)
+    torch.cuda.synchronize()
+    assert tk.ndt_direct7_accumulate_batched.launches == before + 2
+    assert out[0].shape == (B, 6, 6) and out[5].shape == (B,)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = tk.ndt_direct7_accumulate_batched_plain(vmaps, p, mask, d2, ws)
+    for b, (vmap, pb, mb, _, _) in enumerate(seqs):
+        _assert_direct7_close([x[b] for x in out], [x[b] for x in ref])
+        single = tk.ndt_direct7_accumulate(vmap, pb, mb, d2, ws)
+        assert all(torch.equal(x[b], y) for x, y in zip(out, single)), b
+
+
+def test_batched_direct7_masked_sequence_and_per_sequence_scalars(cuda):
+    """An all-masked sequence gives an exact zero row and leaves the others' rows as they
+    are; d2 / w_scale given one per sequence equal the shared ones row by row."""
+    seqs, vmaps, p, mask, d2, ws = _batched_inputs(3, 4096, cuda)
+    full = tk.ndt_direct7_accumulate_batched(vmaps, p, mask, d2, ws)
+    cut = mask.clone()
+    cut[1] = False
+    out = tk.ndt_direct7_accumulate_batched(vmaps, p, cut, d2, ws)
+    assert all(not x[1].any() for x in out)
+    for b in (0, 2):
+        assert all(torch.equal(x[b], y[b]) for x, y in zip(out, full))
+    per = tk.ndt_direct7_accumulate_batched(vmaps, p, mask, d2.expand(3).contiguous(),
+                                            ws.expand(3).contiguous())
+    assert all(torch.equal(x, y) for x, y in zip(per, full))
+
+
+def test_batched_direct7_rejects_bad_inputs(cuda):
+    _, vmaps, p, mask, d2, ws = _batched_inputs(2, 300, cuda)
+    bad = [(p[:1], mask), (p, mask[:, :10].contiguous()), (p.double(), mask),
+           (p, mask.cpu())]
+    before = tk.ndt_direct7_accumulate_batched.launches
+    for p_, m_ in bad:
+        with pytest.raises(ValueError):
+            tk.ndt_direct7_accumulate_batched(vmaps, p_, m_, d2, ws)
+    with pytest.raises(ValueError):  # one d2 per sequence, but 3 for 2 sequences
+        tk.ndt_direct7_accumulate_batched(vmaps, p, mask, torch.full((3,), 0.2, device=cuda), ws)
+    assert tk.ndt_direct7_accumulate_batched.launches == before
+
+
+def test_batched_direct7_on_two_streams_at_once(cuda):
+    """Two threads on two streams launch the batched kernel (B = 4) and the single one 30
+    times each at once: every result equals the serial one bit for bit (each stream's
+    partials and per-sequence ticket counters are its own)."""
+    seqs, vmaps, p, mask, d2, ws = _batched_inputs(4, 8192, cuda)
+    calls = {"batched": lambda: tk.ndt_direct7_accumulate_batched(vmaps, p, mask, d2, ws),
+             "single": lambda: tk.ndt_direct7_accumulate(seqs[2][0], p[2], mask[2], d2, ws)}
+    serial = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2, timeout=60)
+    results, errors = {}, []
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [(k, calls[k]()) for _ in range(30) for k in calls]
+            stream.synchronize()
+            results[t] = outs
+        except BaseException as e:  # noqa: BLE001 — raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in results.values():
+        for k, out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
+    """`batch_odometry` on the card (B = 2, 4 frames of 4,096 points): the first frames
+    agree with the CPU's to 1 cm / 1e-3 (pose entries), `is_keyframe` equal, and the batch
+    equals two runs of one bit for bit; the batched kernel launched, the single not."""
+    from lidar_graph_slam_tpu_torch.core.config import NdtConfig, ScanMatcherConfig
+    from lidar_graph_slam_tpu_torch.parallel.multi_sequence import batch_odometry
+
+    B, F, N = 2, 4, 4096
+    scans = np.full((B, F, N, 3), 1.0e6, np.float32)
+    masks = np.zeros((B, F, N), bool)
+    for b in range(B):
+        for f, (scan, _) in enumerate(SyntheticSequence(n_frames=F, seed=10 + b, max_points=N,
+                                                        laps=0.1, radius=30.0 + 2 * b)):
+            scans[b, f, :len(scan)], masks[b, f, :len(scan)] = scan, True
+    cfg = ScanMatcherConfig(max_scan_accumulate_num=3, ndt=NdtConfig(max_iterations=32))
+    before = (tk.ndt_direct7_accumulate_batched.launches, tk.ndt_direct7_accumulate.launches)
+    _, card = batch_odometry(scans, masks, cfg, map_capacity=8192, device=cuda)
+    assert tk.ndt_direct7_accumulate_batched.launches > before[0]
+    assert tk.ndt_direct7_accumulate.launches == before[1]
+    _, cpu = batch_odometry(scans, masks, cfg, map_capacity=8192, device="cpu")
+    np.testing.assert_allclose(card["pose"].cpu().numpy(), cpu["pose"].numpy(), atol=1e-2)
+    assert torch.equal(card["is_keyframe"].cpu(), cpu["is_keyframe"])
+    for b in range(B):
+        _, one = batch_odometry(scans[b:b + 1], masks[b:b + 1], cfg, map_capacity=8192,
+                                device=cuda)
+        assert all(torch.equal(v[b], one[k][0]) for k, v in card.items())
+
+
 def test_pipeline_card_matches_cpu(cuda):
     """Five frames of the loops-off pipeline at a small capacity on the card and on the
     CPU (plain versions): poses within 1 cm / 1 mrad, the same keyframes, and the fused
@@ -416,7 +541,7 @@ def test_scan_matcher_defaults_to_the_card(cuda, monkeypatch):
         ScanMatcher(ScanMatcherConfig(), 512)
 
 
-def _loop_backend(device, async_backend, method="ICP"):
+def _loop_backend(device, async_backend, method="ICP", mesh=None):
     """The verifier fixture of `tests/test_loop_verifiers.py:build_loop_backend("ICP")`:
     31 keyframes on a ~128 m loop, the latest reported with 0.6 m / 0.03 rad of drift."""
     cfg = GraphSlamConfig(accumulate_distance_threshold=100.0,
@@ -424,7 +549,7 @@ def _loop_backend(device, async_backend, method="ICP"):
                           icp=IcpConfig(max_iterations=40), async_backend=async_backend)
     cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
                          loop_submap_points=65536, voxel_capacity=32768)
-    back = GraphBasedSLAM(cfg, cap, device=device)
+    back = GraphBasedSLAM(cfg, cap, device=device, mesh=mesh)
     rng = np.random.default_rng(7)
     world = make_world(rng, extent=40.0, density=2.0)
     traj = make_loop_trajectory(31, radius=20.0, laps=1.02)
@@ -462,6 +587,22 @@ def test_verification_card_matches_cpu(cuda, method):
     np.testing.assert_allclose(a["fitness"], c["fitness"], rtol=1e-3)
     np.testing.assert_allclose(a["transform"], c["transform"], atol=1e-3)
     np.testing.assert_allclose(pa, pc, atol=1e-3)
+
+
+def test_verification_on_a_card_mesh_matches_unmeshed(cuda):
+    """The asynchronous verification with a mesh of the card (the candidate and the source
+    placed by `shard_batch`, each result read back on the stream that computed it) makes
+    the unmeshed back end's decision, fitness and transform."""
+    logs = []
+    for mesh in (None, Mesh((cuda,))):
+        back = _loop_backend(cuda, True, mesh=mesh)
+        assert back.try_close_loop()
+        logs.append(back.loop_log[-1])
+    a, b = logs
+    assert (a["candidate"], a["accepted"], a["converged"]) == (b["candidate"], b["accepted"],
+                                                              b["converged"])
+    assert abs(a["fitness"] - b["fitness"]) < 1e-4
+    np.testing.assert_allclose(a["transform"], b["transform"], atol=1e-4)
 
 
 # -- FPFH + RANSAC global registration, and the checkpoint, on the card ------------------

@@ -273,15 +273,28 @@ def test_unported_modes_raise(course, cfg):
 
 
 def test_mesh_option_is_refused_by_name(cfg):
-    """`parallel.use_mesh=True` raises at construction and names the option (the mesh
-    pipeline is not ported); it is not silently ignored. The other `parallel` keys alone
-    change nothing and construct."""
+    """`parallel.use_mesh=True` is not silently ignored: the pipeline builds a mesh of
+    `parallel.mesh_devices` slots (one on the CPU when 0) and hands it, with
+    `parallel.backend_solver`, to the back end. What is refused by name is an unknown
+    `backend_solver` and a mesh the graph capacity does not divide. The other `parallel`
+    keys alone change nothing."""
     tc = tcfg.apply_cli_overrides(_torch_config(cfg), ["parallel.use_mesh=true"])
     assert tc.parallel.use_mesh is True
-    with pytest.raises(NotImplementedError, match=r"parallel\.use_mesh"):
-        TorchPipeline(tc, device="cpu")
+    pipe = TorchPipeline(tc, device="cpu")
+    assert pipe.mesh.size == 1 and pipe.back.mesh is pipe.mesh
+    tc = tcfg.apply_cli_overrides(_torch_config(cfg), [
+        "parallel.use_mesh=true", "parallel.mesh_devices=4", "parallel.backend_solver=chain"])
+    pipe = TorchPipeline(tc, device="cpu")
+    assert pipe.mesh.size == 4 and pipe.back.backend_solver == "chain"
+    bad = tcfg.apply_cli_overrides(tc, ["parallel.backend_solver=dense"])
+    with pytest.raises(ValueError, match=r"parallel\.backend_solver"):
+        TorchPipeline(bad, device="cpu")
+    odd = tcfg.apply_cli_overrides(tc, ["parallel.mesh_devices=3"])
+    with pytest.raises(ValueError, match="multiple of the mesh size 3"):
+        TorchPipeline(odd, device="cpu")
     tc = tcfg.apply_cli_overrides(_torch_config(cfg), ["parallel.mesh_devices=4"])
-    assert TorchPipeline(tc, device="cpu").device.type == "cpu"
+    pipe = TorchPipeline(tc, device="cpu")
+    assert pipe.device.type == "cpu" and pipe.mesh is None
 
 
 def test_loop_closure_constructs_and_runs(course, cfg):
