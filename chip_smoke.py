@@ -94,11 +94,20 @@ of `bench.py:bench_e2e`. Phases:
      (the slots run one after another on one card: no multi-card speed);
  27. the mesh pipeline on the drift course: `parallel.use_mesh=true` (one slot on one
      card) against phase 10's run, and a 4-slot mesh of the card with `loop_topk=4`
-     against the unmeshed `loop_topk=4` run: the same loops, keyframes within 0.02 m,
-     fitness within 1e-4; frame p50s;
+     against the unmeshed `loop_topk=4` run on the course's first 130 frames (>= 1 loop):
+     the same loops, keyframes within 0.02 m, fitness within 1e-4; frame p50s;
  28. `batch_slam` on four drift-course-like sequences (seeds 1, 6, 7, 8; 130 frames, 1.1
      laps) on a 4-slot mesh, loop attempts every 4 keyframes: >= 1 loop, and each
-     sequence's optimized ATE <= 1.2 x its odometry's + 0.05 m.
+     sequence's optimized ATE <= 1.2 x its odometry's + 0.05 m;
+ 29. multi-host, two processes on the one card joined by a gloo process group
+     (`parallel/multihost.py`, `LGS_*` on localhost): (a) phase 13's CLI run again as two
+     `--multihost` processes on `cuda:0` — both exit 0, their trajectory files are equal,
+     the keyframes and loops are phase 13's and the keyframe poses within 1e-4 of its,
+     each process owns part of the keyframe clouds and launched the fused kernel; each
+     process's seconds, frame p50 and launches beside phase 13's; (b) the Schur and chain
+     steps at K = 4096 on phase 26's graphs over 2 processes x 2 slots of `cuda:0`
+     (`python3 chip_smoke.py --mesh-worker OUT` is one such process) against the
+     one-process 4-slot mesh: max difference 0.0 asserted, ms a step.
 
 Each path's launches are counted from 0 just before it runs and read just after.
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
@@ -201,6 +210,9 @@ GLOBAL_LOOP_TRANS_M = 0.3
 RESUME_ATOL = {False: 1e-4, True: 5e-2}
 # The multi-sequence phases' worlds: dense-course-like (24-25) and drift-course-like (28).
 BATCH_SEEDS = (2, 3, 4, 5)
+# Phase 27's top-4 pair runs the drift course's first frames only, up to and past its
+# first loop, so that the whole run with phase 29 stays under 900 s (PERF.md section 4).
+TOPK_PAIR_FRAMES = 130
 SLAM_SEEDS = (1, 6, 7, 8)
 
 
@@ -846,13 +858,16 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
                 launches=counts["ndt_accumulate"], transform_vs_truth_max=err)
 
 
+def cli_command(out_dir: str, frames: int, loops: bool = False, sets=()) -> list:
+    return [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
+            "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
+            *([] if loops else ["--no-loop-closure"]), *(a for v in sets for a in ("--set", v))]
+
+
 def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
-         "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
-         *([] if loops else ["--no-loop-closure"]), *(a for v in sets for a in ("--set", v))],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
+    proc = subprocess.run(cli_command(out_dir, frames, loops, sets),
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"CLI failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
     with open(os.path.join(out_dir, "metrics.json")) as f:
@@ -865,7 +880,9 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 registration_method=summary["registration_method"],
                 loop_verifier=summary["loop_verifier"],
                 ate_odometry_m=summary["ate_odometry_m"],
-                ate_keyframes_m=summary["ate_keyframes_m"])
+                ate_keyframes_m=summary["ate_keyframes_m"],
+                frame_p50_ms=summary["frame_p50_ms"],
+                ndt_direct7_launches=summary["kernel_launches"]["ndt_direct7_accumulate"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -1445,6 +1462,176 @@ def batch_slam_check(courses, n: int, card: str, dev=torch.device("cuda")) -> di
                 launches=json.dumps(counts, separators=(",", ":")), card=json.dumps(card))
 
 
+MULTIHOST_PROCESSES = 2
+# Two `--multihost` CLI runs against phase 13's: the reference's bound on the poses
+# (`tests/multihost_worker.py:134`), metres and quaternion entries of the TUM rows.
+MULTIHOST_POSE_ATOL = 1e-4
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_env(port: int, rank: int) -> dict:
+    """The `LGS_*` variables of process `rank` of a process group on localhost, and an
+    equal share of the host's cores for its thread pools, as `torchrun` gives several
+    processes on one host: two pools of every core each spin against each other (a
+    12-frame CPU rehearsal took 57 s a process instead of 8 s alone)."""
+    threads = max(1, (os.cpu_count() or 1) // MULTIHOST_PROCESSES)
+    return {**os.environ, "LGS_COORDINATOR": f"127.0.0.1:{port}",
+            "LGS_NUM_PROCESSES": str(MULTIHOST_PROCESSES), "LGS_PROCESS_ID": str(rank),
+            "OMP_NUM_THREADS": str(threads)}
+
+
+def run_processes(cmds, envs, logs, timeout: float) -> list:
+    """Start every command at once (output to its log file), wait for all, and return
+    each one's seconds from the common start. All are killed when one overruns its
+    `timeout` or fails: the others would wait in a collective."""
+    t0 = time.perf_counter()
+    files = [open(path, "w") for path in logs]
+    procs = [subprocess.Popen(cmd, cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
+                              text=True) for cmd, env, f in zip(cmds, envs, files)]
+    seconds = [None] * len(procs)
+    try:
+        while None in seconds:
+            for i, p in enumerate(procs):
+                if seconds[i] is None and p.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+                    if p.returncode != 0:
+                        raise AssertionError(f"process {i} exited {p.returncode}: see {logs[i]}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"processes overran {timeout} s: see {logs}")
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    return seconds
+
+
+def read_tum(path: str) -> np.ndarray:
+    """[N, 7]: tx ty tz qx qy qz qw of each TUM row (the stamp dropped)."""
+    return np.loadtxt(path, ndmin=2)[:, 1:]
+
+
+def multihost_cli(out_dir: str, frames: int, ref_dir: str, ref: dict, device: str = "cuda",
+                  sets=()) -> dict:
+    """Phase 13's CLI run again as two `--multihost` processes on `cuda:0` with `LGS_*`
+    set: both exit 0; both trajectories equal; the keyframes and loops those of phase 13's
+    run (`ref`, written to `ref_dir`) and the keyframe poses within MULTIHOST_POSE_ATOL
+    of it. A multi-process run forces the synchronous back end, phase 13's is the
+    asynchronous one. Each process's seconds, frame p50 and owned clouds."""
+    port = free_port()
+    outs = [out_dir] + [f"{out_dir}-p{r}" for r in range(1, MULTIHOST_PROCESSES)]
+    cmd = cli_command(out_dir, frames, True, sets) + ["--multihost", "--device", device]
+    seconds = run_processes(
+        [cmd] * MULTIHOST_PROCESSES,
+        [multihost_env(port, r) for r in range(MULTIHOST_PROCESSES)],
+        [f"{o}.log" for o in outs], timeout=600)
+    summaries = []
+    for o in outs:
+        with open(os.path.join(o, "metrics.json")) as f:
+            summaries.append(json.load(f))
+    texts = {name: [open(os.path.join(o, name)).read() for o in outs]
+             for name in ("keyframes_tum.txt", "odometry_tum.txt", "odometry_kitti.txt")}
+    ref_kf = read_tum(os.path.join(ref_dir, "keyframes_tum.txt"))
+    kf = read_tum(os.path.join(out_dir, "keyframes_tum.txt"))
+    pose_diff = float(np.abs(kf - ref_kf).max()) if kf.shape == ref_kf.shape else float("inf")
+    s0 = summaries[0]
+    owned = [s["keyframe_clouds_owned"] for s in summaries]
+    if not (all(len(set(t)) == 1 for t in texts.values())
+            and all(s["processes"] == MULTIHOST_PROCESSES and s["device"] == device
+                    for s in summaries)
+            and s0["keyframes"] == ref["keyframes"] and sum(owned) == s0["keyframes"]
+            and s0["loop_closures"] == ref["loop_closures"] and 0 < owned[0] < s0["keyframes"]
+            and all(s["kernel_launches"]["ndt_direct7_accumulate"] > 0 or device == "cpu"
+                    for s in summaries)
+            and pose_diff <= MULTIHOST_POSE_ATOL):
+        raise AssertionError(f"multihost CLI: {summaries}, phase 13 {ref}, keyframe pose "
+                             f"max diff {pose_diff}, equal files "
+                             f"{ {k: len(set(t)) == 1 for k, t in texts.items()} }")
+    out = dict(processes=MULTIHOST_PROCESSES, frames=frames, keyframes=s0["keyframes"],
+               loop_closures=s0["loop_closures"],
+               keyframe_pose_max_diff_vs_phase13=pose_diff,
+               ate_keyframes_m=s0["ate_keyframes_m"],
+               ate_keyframes_phase13_m=ref["ate_keyframes_m"],
+               seconds_phase13=ref["seconds"], frame_p50_ms_phase13=ref["frame_p50_ms"],
+               ndt_direct7_launches_phase13=ref["ndt_direct7_launches"])
+    for r, (sec, s) in enumerate(zip(seconds, summaries)):
+        out[f"seconds_p{r}"] = round(sec, 3)
+        out[f"frame_p50_ms_p{r}"] = s["frame_p50_ms"]
+        out[f"owned_clouds_p{r}"] = f"{s['keyframe_clouds_owned']}/{s['keyframes']}"
+        out[f"ndt_direct7_launches_p{r}"] = s["kernel_launches"]["ndt_direct7_accumulate"]
+    return out
+
+
+def mesh_step_worker(out_path: str, device: str = "cuda", K: int = 4096) -> int:
+    """One process of phase 29 (b): join the process group from `LGS_*`, span a mesh of
+    two slots of `cuda:0` a process, and run the Schur and chain steps at K on phase 26's
+    graphs (`step_graph`); writes the poses and the ms of each step to `out_path`."""
+    from lidar_graph_slam_tpu_torch.parallel import multihost
+    from lidar_graph_slam_tpu_torch.parallel.distributed import span_processes
+
+    if not multihost.initialize_from_env():
+        raise RuntimeError("mesh worker: no process group configured in LGS_*")
+    dev = torch.device(device)
+    mesh = span_processes((dev, dev), "pose")
+    out = {}
+    for name, step in (("schur", schur_graph_step), ("chain", distributed_graph_step)):
+        g, _ = step_graph(name, K, dev)
+        out[name] = step(mesh, g, 1e-4).cpu().numpy()
+        if dev.type == "cuda":
+            out[f"{name}_ms"] = median_ms(step, mesh, g, 1e-4, calls=5, warmup=1)
+    np.savez(out_path, **out)
+    return 0
+
+
+def multihost_mesh_steps(dev, K: int = 4096) -> dict:
+    """Phase 29 (b): the chain and Schur steps at K on phase 26's graphs over two
+    processes x two slots of `cuda:0` (`span_processes`, gloo collectives of host
+    tensors) against the one-process 4-slot mesh of the card: the max difference of each
+    process's poses (expected 0.0: the same sums in the same order) and the ms of a step
+    in each process, beside the one-process mesh's."""
+    dev = torch.device(dev)
+    timed = dev.type == "cuda"
+    ref, out = {}, dict(K=K, processes=MULTIHOST_PROCESSES, slots=4)
+    mesh4 = Mesh((dev,) * 4, "pose")
+    for name, step in (("schur", schur_graph_step), ("chain", distributed_graph_step)):
+        g, _ = step_graph(name, K, dev)
+        ref[name] = step(mesh4, g, 1e-4).cpu().numpy()
+        out[f"{name}_step_ms_one_process"] = (
+            median_ms(step, mesh4, g, 1e-4, calls=5, warmup=1) if timed else None)
+    work = os.path.join(REPO, ".chip_scratch", "multihost_steps")
+    os.makedirs(work, exist_ok=True)
+    port = free_port()
+    paths = [os.path.join(work, f"p{r}.npz") for r in range(MULTIHOST_PROCESSES)]
+    seconds = run_processes(
+        [[sys.executable, os.path.abspath(__file__), "--mesh-worker", p, dev.type, str(K)]
+         for p in paths],
+        [multihost_env(port, r) for r in range(MULTIHOST_PROCESSES)],
+        [p.replace(".npz", ".log") for p in paths], timeout=300)
+    res = [dict(np.load(p)) for p in paths]
+    for name in ("schur", "chain"):
+        diff = max(float(np.abs(r[name] - ref[name]).max()) for r in res)
+        if not (diff == 0.0 and np.array_equal(res[0][name], res[1][name])):
+            raise AssertionError(f"cross-process {name} step: {diff} from the one-process "
+                                 f"4-slot mesh")
+        out[f"{name}_max_diff_vs_one_process"] = diff
+        for r, rr in enumerate(res):
+            out[f"{name}_step_ms_p{r}"] = float(rr[f"{name}_ms"]) if timed else None
+    out["seconds"] = round(max(seconds), 3)
+    return out
+
+
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
                   **launches) -> dict:
     """One kernel's entry of the JSON record: times at `shape`, its main path's (the
@@ -1478,7 +1665,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
                     help="a tree of the parent commit (git archive): phase 7 profiles it too")
+    ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
+                    help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
+    if args.mesh_worker:
+        out_path, device, K = args.mesh_worker
+        return mesh_step_worker(out_path, device, int(K))
     # -- 1. the card ------------------------------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this needs a CUDA card",
@@ -1765,14 +1957,16 @@ def main(argv=None) -> int:
         card=json.dumps(card))
     del pipe_m1, res_m1
     topk = ["graph_slam.loop_topk=4"]
+    cut = slice(0, TOPK_PAIR_FRAMES)
     _, res_k4, k4 = run_loop_course(apply_cli_overrides(PipelineConfig(), topk),
-                                    dscans, dgt, "cuda")
-    _, res_m4, m4 = run_loop_course(apply_cli_overrides(cfg_mesh, topk), dscans, dgt, "cuda",
-                                    mesh=Mesh((dev,) * 4, "scan"))
-    say("mesh-pipeline", slots=4, loop_topk=4, **same_loops(res_k4, res_m4, "mesh, 4 slots"),
-        loops_accepted_topk1=on["loops_accepted"], ate_keyframes_m=m4["ate_keyframes_m"],
-        ate_keyframes_topk1_m=on["ate_keyframes_m"], p50_frame_ms=m4["p50_frame_ms"],
-        p50_frame_ms_unmeshed_topk4=k4["p50_frame_ms"],
+                                    dscans[cut], dgt[cut], "cuda")
+    _, res_m4, m4 = run_loop_course(apply_cli_overrides(cfg_mesh, topk), dscans[cut],
+                                    dgt[cut], "cuda", mesh=Mesh((dev,) * 4, "scan"))
+    if k4["loops_accepted"] < 1:
+        raise AssertionError(f"the top-4 pair's {TOPK_PAIR_FRAMES} frames closed no loop")
+    say("mesh-pipeline", slots=4, loop_topk=4, frames=TOPK_PAIR_FRAMES,
+        **same_loops(res_k4, res_m4, "mesh, 4 slots"), ate_keyframes_m=m4["ate_keyframes_m"],
+        p50_frame_ms=m4["p50_frame_ms"], p50_frame_ms_unmeshed_topk4=k4["p50_frame_ms"],
         p50_frame_ms_phase10=on["p50_frame_ms"], card=json.dumps(card))
     del res_k4, res_m4
 
@@ -1781,11 +1975,20 @@ def main(argv=None) -> int:
                           16384, card)
     say("batch-slam", **bs)
 
+    # -- 29. multi-host: two processes on the card (gloo process group) ----------------------
+    mh_cli = multihost_cli(os.path.join(OUT_DIR, "cli_multihost"), 100,
+                           os.path.join(OUT_DIR, "cli_loops"), cli_on)
+    say("multihost-cli", **mh_cli, card=json.dumps(card))
+    say("multihost-mesh-steps", **multihost_mesh_steps(dev), card=json.dumps(card))
+
     print(json.dumps({"kernels": [
         kernel_record(
             "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
             launches=launches["ndt_direct7_accumulate"], launches_verify=launches_verify,
             launches_loop_course=launches_course["ndt_direct7_accumulate"],
+            launches_cli_loops=cli_on["ndt_direct7_launches"],
+            launches_multihost_cli_p0=mh_cli["ndt_direct7_launches_p0"],
+            launches_multihost_cli_p1=mh_cli["ndt_direct7_launches_p1"],
             launches_global_init_loop=gl["kernel_launches"],
             launches_global_init_course_verify=pipe_gi_verify_launches,
             fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)",

@@ -29,8 +29,15 @@ With a mesh (`parallel/distributed.py:Mesh`, from `ParallelConfig.use_mesh`), th
 candidates are laid out over the mesh's slots (`shard_batch`) and each slot's candidates
 are verified on that slot's device, still in the worker thread, on one stream per device;
 and the device f32 LM of the escalation ladder is `mesh_optimize` (Schur-decomposed or
-chain steps, `ParallelConfig.backend_solver`). Not ported yet: the reference's sharded
-cloud store (multi-host).
+chain steps, `ParallelConfig.backend_solver`).
+
+Multi-process (`parallel/multihost.py`): with a `HostShardedKeyframeStore` each process
+keeps only the keyframe clouds it owns, and every cloud read (the latest keyframe, a loop
+submap, the map) goes through the store's all-gather; poses and factors replicate. Every
+process must then issue the same collectives in the same order, so with more than one
+process the verification and the solve run inline (`async_enabled` is off), and on a mesh
+that spans processes each process verifies its own slots' candidates and the results are
+all-gathered (`parallel/distributed.py:gather_slot_items`).
 """
 
 from __future__ import annotations
@@ -51,7 +58,12 @@ from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map, voxel_downsample
-from lidar_graph_slam_tpu_torch.parallel.distributed import mesh_optimize, shard_batch
+from lidar_graph_slam_tpu_torch.parallel.distributed import (
+    gather_slot_items,
+    mesh_optimize,
+    process_count,
+    shard_batch,
+)
 from lidar_graph_slam_tpu_torch.registration import gicp as gicp_mod
 from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
 from lidar_graph_slam_tpu_torch.registration.features import global_register
@@ -75,6 +87,14 @@ class _LazyCloud:
             self._np = c[m].astype(np.float32)
             self._dev = self._mask = None  # release the buffers
         return self._np
+
+
+def _host_cloud(kf) -> np.ndarray:
+    """A keyframe record's valid points as float32 numpy (numpy or tensor payloads)."""
+    cloud, mask = kf["cloud"], kf["cloud_mask"]
+    if isinstance(cloud, torch.Tensor):
+        cloud, mask = cloud.cpu().numpy(), mask.cpu().numpy()
+    return np.asarray(cloud)[np.asarray(mask)].astype(np.float32)
 
 
 PRE_ALIGN_OUTLIER_RATIO = 0.55
@@ -148,10 +168,15 @@ class GraphBasedSLAM:
     _FLUSH_BATCH = 32
 
     def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, device=None,
-                 mesh=None, backend_solver: str = "schur"):
+                 mesh=None, backend_solver: str = "schur", cloud_store=None):
         self.cfg = cfg
         self.capacity = capacity
         self.device = resolve_device(device)
+        # Multi-process keyframe-cloud sharding (`parallel/multihost.py`): with a
+        # `HostShardedKeyframeStore` each process keeps only the clouds it owns and every
+        # cloud read goes through the store's all-gather. Every process must make the same
+        # decisions (SPMD), which feeding each the same scan stream gives.
+        self.cloud_store = cloud_store
         self.method = cfg.registration_method.upper()
         if self.method not in ("ICP", "GICP", "NDT"):
             raise ValueError(f"unknown loop registration_method {cfg.registration_method!r}")
@@ -189,7 +214,11 @@ class GraphBasedSLAM:
         self.n_loops = 0
         self._frames_since_loop_check = 0
         self.is_loop_closed = False
-        self.async_enabled = cfg.async_backend
+        # Collectives (the store's gathers, a mesh that spans processes) must be issued
+        # in lockstep by every process; the concurrent back end starts work by thread
+        # liveness, which differs between processes. So with more than one process the
+        # synchronous path runs.
+        self.async_enabled = cfg.async_backend and process_count() == 1
         self._pending_verify = None
         self._verify_streams: dict = {}  # device -> the verification worker's stream
         self._solve_thread = None
@@ -255,9 +284,12 @@ class GraphBasedSLAM:
         self._host_odoms.append(odom)
         if self.n_keyframes == 0:
             self._host_prior = np.asarray(pose, np.float64)
-        if isinstance(kf["cloud"], np.ndarray):
-            cloud = np.asarray(kf["cloud"])[np.asarray(kf["cloud_mask"])]
-            self.kf_clouds.append(cloud.astype(np.float32))
+        if self.cloud_store is not None:
+            # The owner stores the materialized cloud; the others only the metadata.
+            owns = self.cloud_store.owns(self.n_keyframes)
+            self.cloud_store.add(self.n_keyframes, _host_cloud(kf) if owns else None)
+        elif isinstance(kf["cloud"], np.ndarray):
+            self.kf_clouds.append(_host_cloud(kf))
         else:
             # Tensors handed over by the fused driver: the numpy conversion waits for
             # `drain_lazy_clouds` (a couple of keyframes later) or a loop attempt.
@@ -334,17 +366,23 @@ class GraphBasedSLAM:
         still spans the full window (head truncation would keep only its left edge)."""
         lo = max(0, center - half_window)
         hi = min(self.n_keyframes, center + half_window + 1)
-        chunks = []
-        for k, T in zip(range(lo, hi), self._poses_host[lo:hi]):
-            chunks.append(self._cloud(k) @ T[:3, :3].T + T[:3, 3])
-        out = np.concatenate(chunks).astype(np.float32)
+        if self.cloud_store is not None:
+            out = self.cloud_store.assemble_submap(lo, hi, np.stack(self._poses_host))
+        else:
+            chunks = []
+            for k, T in zip(range(lo, hi), self._poses_host[lo:hi]):
+                chunks.append(self._cloud(k) @ T[:3, :3].T + T[:3, 3])
+            out = np.concatenate(chunks).astype(np.float32)
         if max_points is not None and out.shape[0] > max_points:
             idx = np.linspace(0, out.shape[0] - 1, max_points).astype(np.int64)
             out = np.ascontiguousarray(out[idx])
         return out
 
     def _cloud(self, k: int) -> np.ndarray:
-        """Keyframe k's sensor/base-frame cloud (materialized on first access)."""
+        """Keyframe k's sensor/base-frame cloud (all-gathered when sharded, a collective;
+        materialized on first access when lazily stored)."""
+        if self.cloud_store is not None:
+            return self.cloud_store.get_cloud(k)
         c = self.kf_clouds[k]
         if isinstance(c, _LazyCloud):
             c = c.get()
@@ -454,27 +492,33 @@ class GraphBasedSLAM:
     def _verify(self, inp, streams=None) -> dict:
         """Run every candidate's verification (the reference's vmap over candidates: each
         one is independent), each on its own device (`inp["sources"]` holds its source
-        there) and, given `streams`, on that device's stream. Returns host results and
-        this thread's kernel launches."""
+        there) and, given `streams`, on that device's stream. On a mesh that spans
+        processes this process verifies its own slots' candidates and the others' results
+        are all-gathered. Returns host results and this thread's kernel launches."""
         t0 = time.perf_counter()
         before = kernels.thread_launches()
 
         def on_stream(dev):
             return torch.cuda.stream(streams[dev]) if streams else contextlib.nullcontext()
 
-        sources = inp.get("sources") or [inp["source"]] * len(inp["targets"])
-        results = []
-        for (grid, pre_map, extra, guess), (src_p, src_m, src_covs) in zip(
-                inp["targets"], sources):
+        n = len(inp["targets"])
+        sources = inp.get("sources") or [inp["source"]] * n
+        slots = inp.get("slots") or [None] * n
+        local = set(self.mesh.local_slots) if self.mesh is not None else set()
+        mine = [i for i in range(n) if slots[i] is None or slots[i] in local]
+        results = {}
+        for i in mine:
+            (grid, pre_map, extra, guess), (src_p, src_m, src_covs) = inp["targets"][i], sources[i]
             with on_stream(src_p.device):
-                results.append(self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
-                                                src_covs))
+                results[i] = self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
+                                              src_covs)
         # Each result is read on the stream that computed it: another stream of the
         # thread would not wait for it.
-        host = []
-        for res, (src_p, _, _) in zip(results, sources):
-            with on_stream(src_p.device):
-                host.append([x.cpu() for x in res])
+        for i in mine:
+            with on_stream(sources[i][0].device):
+                results[i] = tuple(x.cpu() for x in results[i])
+        host = (gather_slot_items(self.mesh, slots, results) if self.mesh is not None
+                else [results[i] for i in range(n)])
         out = {name: torch.stack([h[i] for h in host]).numpy()
                for i, name in enumerate(("Ts", "scores", "convs"))}
         # The RANSAC family counts are read here, with the results, not on the frame's
@@ -498,8 +542,9 @@ class GraphBasedSLAM:
         pending["age"] = 0
         if self.mesh is not None:
             # Each slot's candidates (and a copy of the source) on the slot's device.
-            inp["targets"], inp["sources"], pending["slots"] = shard_batch(
+            inp["targets"], inp["sources"], inp["slots"] = shard_batch(
                 self.mesh, inp["targets"], inp["source"])
+            pending["slots"] = inp["slots"]
         if not self.async_enabled:
             pending["results"] = self._verify(inp)
             return pending
@@ -769,11 +814,14 @@ class GraphBasedSLAM:
         if self._map_cache is not None and self._map_cache[0] == key:
             return self._map_cache[1]
         poses = self.optimized_poses()
-        chunks = [
-            self._cloud(k) @ poses[k][:3, :3].T + poses[k][:3, 3]
-            for k in range(self.n_keyframes)
-        ]
-        pts = np.concatenate(chunks).astype(np.float32)
+        if self.cloud_store is not None:
+            pts = self.cloud_store.assemble_submap(0, self.n_keyframes, poses)
+        else:
+            chunks = [
+                self._cloud(k) @ poses[k][:3, :3].T + poses[k][:3, 3]
+                for k in range(self.n_keyframes)
+            ]
+            pts = np.concatenate(chunks).astype(np.float32)
         if resolution > 0.0:
             cap = max_points or pts.shape[0]
             cloud = PointCloud.from_array(pts, capacity=pts.shape[0], device=self.device)

@@ -16,6 +16,14 @@ The slots run one after another from one host thread, so several slots on one de
 as many cards would, without their parallel speed. `make_mesh` gives n slots on the CPU
 (the counterpart of the reference tests' 8 virtual devices) or the visible cards.
 
+Under a process group of more than one process (`parallel/multihost.py`), `make_mesh` spans
+every process's slots in process order, as the reference's `jax.devices()` does, and
+`Mesh.owners` names the process of each slot. A shard program then runs only this
+process's slots; `all_slots` all-gathers every slot's value as host tensors (gloo), and
+`psum` / `ppermute` work on the gathered values in slot order, so every process holds the
+same bits, equal to those of a one-process mesh of as many slots. Every process must
+issue the same collectives in the same order.
+
   * **Batched registration** (`batched_icp`, `batched_ndt`): a [B, N, 3] batch of sources
     against one shared target, the batch split over the slots.
   * **Distributed pose-graph step** (`distributed_graph_step`): each slot linearizes its
@@ -33,6 +41,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.core.device import resolve_device
@@ -43,27 +52,80 @@ from lidar_graph_slam_tpu_torch.registration.icp import icp_align
 from lidar_graph_slam_tpu_torch.registration.ndt import ndt_align_batched
 
 
+def process_count() -> int:
+    """Processes in the process group (1 without one)."""
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the process group (0 without one)."""
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 @dataclass(frozen=True)
 class Mesh:
     """A one-axis mesh of slots: `devices[i]` runs slot i's part of a shard program.
-    Several slots may share a device."""
+    Several slots may share a device. `owners[i]` is the process that runs slot i (empty:
+    this process runs every slot); a mesh that spans processes gives each the same
+    number of slots, in process order."""
 
     devices: tuple
     axis: str = "scan"
+    owners: tuple = ()
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def local_slots(self) -> tuple:
+        """The slots this process runs, in slot order."""
+        if not self.owners:
+            return tuple(range(self.size))
+        rank = process_index()
+        return tuple(i for i, p in enumerate(self.owners) if p == rank)
+
+    @property
+    def spans_processes(self) -> bool:
+        return len(set(self.owners)) > 1
+
+
+def _local_devices(n_devices: int | None, device) -> tuple:
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return (torch.device("cpu"),) * (n_devices or 1)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return tuple(cards[: n_devices or len(cards)])
+
 
 def make_mesh(n_devices: int | None = None, axis: str = "scan", device=None) -> Mesh:
     """`n_devices` slots: on the CPU (`device="cpu"`) n slots on the CPU (1 when None);
-    on CUDA the visible cards, the first `n_devices` of them (all when None)."""
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        return Mesh((torch.device("cpu"),) * (n_devices or 1), axis)
-    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return Mesh(tuple(cards[: n_devices or len(cards)]), axis)
+    on CUDA the visible cards, the first `n_devices` of them (all when None).
+
+    Under a process group of more than one process the mesh spans them all: each process
+    contributes `n_devices / processes` slots built as above (its default when None),
+    joined by `span_processes` — a collective, so every process calls it together."""
+    n_proc = process_count()
+    if n_proc <= 1:
+        return Mesh(_local_devices(n_devices, device), axis)
+    if n_devices is not None and n_devices % n_proc:
+        raise ValueError(f"a mesh of {n_devices} slots does not divide over {n_proc} "
+                         f"processes")
+    return span_processes(_local_devices(n_devices // n_proc if n_devices else None, device),
+                          axis)
+
+
+def span_processes(local_devices: tuple, axis: str = "scan") -> Mesh:
+    """One mesh over every process's `local_devices` (this process's slots, e.g. two slots
+    of one card), in process order: the slot lists are all-gathered, so every process
+    calls it together, each with as many slots."""
+    per_process = [None] * process_count()
+    dist.all_gather_object(per_process, [str(d) for d in local_devices])
+    if len({len(p) for p in per_process}) != 1:
+        raise ValueError(f"processes contribute unequal slot counts: "
+                         f"{[len(p) for p in per_process]}")
+    return Mesh(tuple(torch.device(d) for p in per_process for d in p), axis,
+                tuple(r for r, p in enumerate(per_process) for _ in p))
 
 
 # --- collectives and placement -----------------------------------------------------------
@@ -84,10 +146,61 @@ def tree_to(x, device):
     return x
 
 
+def all_gather_host(t: torch.Tensor) -> list:
+    """Every process's `t` (one shape and dtype on all of them) as CPU tensors, in rank
+    order: one all-gather of host tensors. A collective: every process calls it."""
+    t = t.detach().cpu().contiguous()
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(out, t)
+    return out
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [x for f in dataclasses.fields(tree) if f.init
+                for x in _leaves(getattr(tree, f.name))]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return []
+
+
+def _rebuild(tree, leaves):
+    """`tree` with its tensor leaves taken in order from the iterator `leaves`."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: _rebuild(getattr(tree, f.name), leaves)
+                                            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, leaves) for v in tree)
+    return tree
+
+
+def all_slots(mesh: Mesh, local: list) -> list:
+    """Every slot's value, in slot order, from this process's slots' values (`local`, one
+    tree a slot in `mesh.local_slots` order; tensors, tuples, lists, dataclasses). On a
+    mesh that spans processes every tensor leaf is all-gathered as host tensors, so the
+    trees must have one structure and shape a slot; a collective then. Otherwise `local`
+    is every slot's already."""
+    if not mesh.spans_processes:
+        return list(local)
+    per_slot = [_leaves(t) for t in local]
+    gathered = [torch.cat(all_gather_host(torch.stack([ls[j].cpu() for ls in per_slot])))
+                for j in range(len(per_slot[0]))]
+    return [_rebuild(local[0], iter([g[i] for g in gathered])) for i in range(mesh.size)]
+
+
 def psum(mesh: Mesh, parts: list) -> list:
-    """The slots' partials (one tensor, or tuple of tensors, per slot) summed slot 0
-    first, on slot 0's device; returns one copy per slot on its device."""
-    dev0 = mesh.devices[0]
+    """The slots' partials (one tensor, or tuple of tensors, a local slot) summed slot 0
+    first, on the device of this process's first slot; returns one copy per local slot
+    on its device. On a mesh that spans processes every slot's partial is all-gathered
+    first (`all_slots`), so every process sums the same values in the same order: the
+    sums are bit-equal on every process and to a one-process mesh of as many slots."""
+    local = mesh.local_slots
+    parts = all_slots(mesh, parts)
+    dev0 = mesh.devices[local[0]]
 
     def total(xs):
         acc = xs[0].to(dev0)
@@ -99,13 +212,15 @@ def psum(mesh: Mesh, parts: list) -> list:
         summed = tuple(total(list(xs)) for xs in zip(*parts))
     else:
         summed = total(parts)
-    return [tree_to(summed, d) for d in mesh.devices]
+    return [tree_to(summed, mesh.devices[i]) for i in local]
 
 
 def ppermute(mesh: Mesh, values: list) -> list:
-    """Rotation by one slot: slot i's value arrives at slot (i + 1) % n."""
+    """Rotation by one slot: slot i's value arrives at slot (i + 1) % n. `values` holds
+    one tensor a local slot; returns the local slots' arrivals."""
+    values = all_slots(mesh, values)
     n = mesh.size
-    return [values[(i - 1) % n].to(mesh.devices[i]) for i in range(n)]
+    return [values[(i - 1) % n].to(mesh.devices[i]) for i in mesh.local_slots]
 
 
 def _split(mesh: Mesh, batch: int) -> int:
@@ -127,30 +242,36 @@ def _stack_results(results: list, device) -> RegistrationResult:
 
 def batched_icp(mesh: Mesh, target_grid, sources, masks, init_Ts, **kw) -> RegistrationResult:
     """Align a [B, N, 3] batch of sources against one shared target grid, the batch split
-    over the slots (each slot's sources one after another with `icp_align`). Returns a
-    `RegistrationResult` with leading axis B, on the sources' device."""
+    over the slots (each local slot's sources one after another with `icp_align`; the
+    slots' results gathered with `all_slots`). Returns a `RegistrationResult` with
+    leading axis B, on the sources' device."""
     per = _split(mesh, sources.shape[0])
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s in mesh.local_slots:
+        dev = mesh.devices[s]
         grid = tree_to(target_grid, dev)
+        items = []
         for i in range(s * per, (s + 1) * per):
             r = icp_align(grid, sources[i].to(dev), masks[i].to(dev), init_Ts[i].to(dev), **kw)
-            out.append(RegistrationResult(**{f.name: getattr(r, f.name)[None] for f in
-                                             dataclasses.fields(RegistrationResult)}))
-    return _stack_results(out, sources.device)
+            items.append(RegistrationResult(**{f.name: getattr(r, f.name)[None] for f in
+                                               dataclasses.fields(RegistrationResult)}))
+        out.append(_stack_results(items, dev))
+    return _stack_results(all_slots(mesh, out), sources.device)
 
 
 def batched_ndt(mesh: Mesh, vmap_target, sources, masks, init_Ts, **kw) -> RegistrationResult:
-    """`batched_icp` for NDT against a shared voxel map: each slot aligns its part of the
-    batch at once with `ndt_align_batched` (one batched kernel launch per iteration)."""
+    """`batched_icp` for NDT against a shared voxel map: each local slot aligns its part of
+    the batch at once with `ndt_align_batched` (one batched kernel launch per
+    iteration)."""
     per = _split(mesh, sources.shape[0])
     out = []
-    for s, dev in enumerate(mesh.devices):
+    for s in mesh.local_slots:
+        dev = mesh.devices[s]
         lo, hi = s * per, (s + 1) * per
         vm = stack_maps([tree_to(vmap_target, dev)] * per)
         out.append(ndt_align_batched(vm, sources[lo:hi].to(dev), masks[lo:hi].to(dev),
                                      init_Ts[lo:hi].to(dev), **kw))
-    return _stack_results(out, sources.device)
+    return _stack_results(all_slots(mesh, out), sources.device)
 
 
 # --- distributed pose-graph step --------------------------------------------------------
@@ -184,16 +305,17 @@ def distributed_graph_step(mesh: Mesh, g: gsolver.PoseGraph, damping=1e-4) -> to
     """One distributed damped-GN step on the pose graph: each slot linearizes its shard of
     the odometry chain, the block systems are `psum`-reduced, and the prior, masking,
     damping and the tridiagonal solve with the loop factors run once on the reduced
-    system. Returns the updated poses [K, 4, 4] on the graph's device."""
+    system (on every process of a mesh that spans processes, on bit-equal values).
+    Returns the updated poses [K, 4, 4] on the graph's device."""
     K = g.poses.shape[0]
     shard = -(-K // mesh.size)  # factors per slot (ceil)
     parts = []
-    for idx, dev in enumerate(mesh.devices):
-        gd = tree_to(g, dev)
+    for idx in mesh.local_slots:
+        gd = tree_to(g, mesh.devices[idx])
         parts.append(_local_chain_blocks(gd.poses, gd.odom_meas, gd.pose_mask,
                                          gd.odom_info, idx * shard, shard, K))
     D, U, b = psum(mesh, parts)[0]
-    g0 = tree_to(g, mesh.devices[0])
+    g0 = tree_to(g, mesh.devices[mesh.local_slots[0]])
     dtype = g0.poses.dtype
     # Prior factor + masking + damping (replicated in the reference, once here).
     r0 = se3.se3_log(se3.inverse(g0.prior_pose) @ g0.poses[0])
@@ -288,20 +410,44 @@ def shard_batch(mesh: Mesh, batched: list, shared):
     """Lay a verification batch out on the mesh: `batched` holds one tree per item (the
     batch axis), `shared` the tree every item reads. When the batch divides the mesh,
     item i goes to slot i // (batch / n)'s device with a copy of `shared` there; a batch
-    that does not divide it is left where it is (a sub-mesh batch gains nothing).
+    that does not divide it is left where it is (a sub-mesh batch gains nothing). On a
+    mesh that spans processes the items of another process's slots are left where they
+    are too: that process verifies them (`gather_slot_items` brings their results).
     Returns (items, shared per item, slot per item — None when left alone)."""
     n = mesh.size
     if len(batched) % n:
         return list(batched), [shared] * len(batched), [None] * len(batched)
     per = len(batched) // n
+    local = set(mesh.local_slots)
     copies = {}
     items, shares, slots = [], [], []
     for i, item in enumerate(batched):
         s = i // per
+        slots.append(s)
+        if s not in local:
+            items.append(item)
+            shares.append(shared)
+            continue
         dev = mesh.devices[s]
         if dev not in copies:
             copies[dev] = tree_to(shared, dev)
         items.append(tree_to(item, dev))
         shares.append(copies[dev])
-        slots.append(s)
     return items, shares, slots
+
+
+def gather_slot_items(mesh: Mesh, slots: list, local_results: dict) -> list:
+    """The results of a batch laid out by `shard_batch`, in item order: `local_results`
+    maps each item of this process's slots to its result (a tree of host tensors of one
+    shape an item); on a mesh that spans processes the other slots' results are
+    all-gathered (`all_slots`), otherwise every item is local already."""
+    if not mesh.spans_processes or slots[0] is None:
+        return [local_results[i] for i in range(len(slots))]
+    per = len(slots) // mesh.size
+    by_slot = [stack_pytrees([local_results[i] for i in range(s * per, (s + 1) * per)])
+               for s in mesh.local_slots]
+    items = []
+    for tree in all_slots(mesh, by_slot):  # each leaf stacked [per, ...]
+        leaves = _leaves(tree)
+        items += [_rebuild(tree, iter([leaf[k] for leaf in leaves])) for k in range(per)]
+    return items

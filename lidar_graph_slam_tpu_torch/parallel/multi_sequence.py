@@ -40,7 +40,12 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
 from lidar_graph_slam_tpu_torch.graph import refine64, solver
 from lidar_graph_slam_tpu_torch.ops.kernels import stack_maps
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
-from lidar_graph_slam_tpu_torch.parallel.distributed import Mesh, shard_batch
+from lidar_graph_slam_tpu_torch.parallel.distributed import (
+    Mesh,
+    all_slots,
+    gather_slot_items,
+    shard_batch,
+)
 from lidar_graph_slam_tpu_torch.registration.base import norm
 from lidar_graph_slam_tpu_torch.registration.ndt import ndt_align_batched
 
@@ -178,7 +183,9 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
 
     With `mesh`, the batch axis is split over the mesh's slots (the batch must divide it,
     as the reference's sharded inputs must), each slot's sequences on its device; slots
-    that share a device run as one batch there, which gives the same answer. Returns
+    that share a device run as one batch there, which gives the same answer. On a mesh
+    that spans processes each process runs its own slots' sequences and the results are
+    all-gathered (`all_slots`), so every process returns the whole batch. Returns
     (final_state, outs): outs["pose"] [B, F, 4, 4], "is_keyframe", "converged",
     "fitness", "accum_dist" [B, F].
     """
@@ -194,10 +201,10 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
         raise ValueError(f"a batch of {B} sequences does not divide the mesh's {mesh.size} "
                          f"slots")
     per = B // mesh.size
-    groups: dict = {}  # device -> the sequences of its slots, in slot order
-    for s, dev in enumerate(mesh.devices):
-        groups.setdefault(dev, []).extend(range(s * per, (s + 1) * per))
-    dev0 = mesh.devices[0]
+    groups: dict = {}  # device -> the sequences of this process's slots, in slot order
+    for s in mesh.local_slots:
+        groups.setdefault(mesh.devices[s], []).extend(range(s * per, (s + 1) * per))
+    dev0 = mesh.devices[mesh.local_slots[0]]
     parts = []
     for dev, seqs in groups.items():
         idx = torch.as_tensor(seqs)
@@ -209,7 +216,22 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
         for f in fields(BatchFrontState)})
     outs = {k: torch.cat([o[k].to(dev0) for _, (_, o) in parts])[order.to(dev0)]
             for k in parts[0][1][1]}
+    if mesh.spans_processes:
+        keys = list(outs)
+        per_slot = [(_take(final, j * per, (j + 1) * per),
+                     tuple(outs[k][j * per:(j + 1) * per] for k in keys))
+                    for j in range(len(mesh.local_slots))]
+        slots = all_slots(mesh, per_slot)
+        final = BatchFrontState(**{
+            f.name: torch.cat([getattr(st, f.name) for st, _ in slots]).to(dev0)
+            for f in fields(BatchFrontState)})
+        outs = {k: torch.cat([o[i] for _, o in slots]).to(dev0) for i, k in enumerate(keys)}
     return final, outs
+
+
+def _take(state: BatchFrontState, lo: int, hi: int) -> BatchFrontState:
+    return BatchFrontState(**{f.name: getattr(state, f.name)[lo:hi]
+                              for f in fields(BatchFrontState)})
 
 
 # --- multi-sequence SLAM ------------------------------------------------------------------
@@ -231,13 +253,18 @@ def _batched_loop_attempts(backs, due, mesh: Mesh | None) -> None:
         return
     items = [(target, inp["source"]) for _, inp in inputs for target in inp["targets"]]
     slots = [None] * len(items)
+    local = set()
     if mesh is not None:
         items, _, slots = shard_batch(mesh, items, None)
+        local = set(mesh.local_slots)
     verify = backs[inputs[0][0]]._verify_one
-    results = []
-    for target, (src_p, src_m, src_covs) in items:
-        results.append(verify(*target, src_p, src_m, src_covs))
-    Ts, scores, convs = (torch.stack([r[i].cpu() for r in results]).numpy() for i in range(3))
+    results = {}
+    for i, (target, (src_p, src_m, src_covs)) in enumerate(items):
+        if slots[i] is None or slots[i] in local:  # another process verifies the rest
+            results[i] = tuple(x.cpu() for x in verify(*target, src_p, src_m, src_covs))
+    host = (gather_slot_items(mesh, slots, results) if mesh is not None
+            else [results[i] for i in range(len(items))])
+    Ts, scores, convs = (torch.stack([h[i] for h in host]).numpy() for i in range(3))
 
     accepted, off = [], 0
     for b, inp in inputs:
@@ -308,7 +335,7 @@ def batch_slam(scans, masks, cfg: ScanMatcherConfig, graph_cfg=None, capacity=No
     capacity = capacity or CapacityConfig()
     scans_np = np.asarray(scans, np.float32)
     masks_np = np.asarray(masks, bool)
-    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    dev = mesh.devices[mesh.local_slots[0]] if mesh is not None else resolve_device(device)
     _, outs = batch_odometry(scans_np, masks_np, cfg, map_capacity, mesh, dev)
     outs = {k: v.cpu().numpy() for k, v in outs.items()}
     B = scans_np.shape[0]

@@ -11,7 +11,9 @@ system decomposes across the mesh's slots (`parallel/distributed.py:Mesh`):
   * each slot back-substitutes its interior.
 
 One `psum` of n x 6 x 6 blocks (and the right-hand sides) is the only reduction; one
-`ppermute` hands each slot its predecessor's coupling block. Loop factors compose on top
+`ppermute` hands each slot its predecessor's coupling block. On a mesh that spans
+processes each process eliminates its own slots' interiors, and the slots' solutions are
+all-gathered at the end, so every process returns the whole solution. Loop factors compose on top
 through the same Woodbury identity as the single-device solver. The assembly, the solve
 and the finish run as plain calls one after the other (the reference separates its
 assembly and solve into two compiled programs only to avoid a miscompile of its CPU
@@ -24,7 +26,13 @@ import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.graph import solver as gsolver
-from lidar_graph_slam_tpu_torch.parallel.distributed import Mesh, ppermute, psum, tree_to
+from lidar_graph_slam_tpu_torch.parallel.distributed import (
+    Mesh,
+    all_slots,
+    ppermute,
+    psum,
+    tree_to,
+)
 
 
 def _local_tridiag_solve(D, U, B):
@@ -47,16 +55,16 @@ def schur_tridiag_solve(mesh: Mesh, D_blocks, U_blocks, B):
     m = K // n_dev
     M = B.shape[-1]
     dtype = D_blocks.dtype
-    D_loc = [D_blocks[d * m:(d + 1) * m].to(dev) for d, dev in enumerate(mesh.devices)]
-    U_loc = [U_blocks[d * m:(d + 1) * m].to(dev) for d, dev in enumerate(mesh.devices)]
-    B_loc = [B[d * m:(d + 1) * m].to(dev) for d, dev in enumerate(mesh.devices)]
+    slots = mesh.local_slots
+    U_loc = [U_blocks[d * m:(d + 1) * m].to(mesh.devices[d]) for d in slots]
     # Coupling from the previous separator into each slot's first interior pose.
     U_prev_last = ppermute(mesh, [u[m - 1] for u in U_loc])
 
     parts, local = [], []
-    for d, dev in enumerate(mesh.devices):
-        Dl, Ul, Bl = D_loc[d], U_loc[d], B_loc[d]
-        U_prev = U_prev_last[d] if d > 0 else torch.zeros((6, 6), dtype=dtype, device=dev)
+    for j, d in enumerate(slots):
+        dev = mesh.devices[d]
+        Dl, Ul, Bl = D_blocks[d * m:(d + 1) * m].to(dev), U_loc[j], B[d * m:(d + 1) * m].to(dev)
+        U_prev = U_prev_last[j] if d > 0 else torch.zeros((6, 6), dtype=dtype, device=dev)
         # Interior system: poses 0..m-2; separator: pose m-1.
         D_int = Dl[: m - 1]
         U_int = Ul[: m - 2] if m > 2 else torch.zeros((0, 6, 6), dtype=dtype, device=dev)
@@ -93,13 +101,13 @@ def schur_tridiag_solve(mesh: Mesh, D_blocks, U_blocks, B):
     x_sep = tree_to(_local_tridiag_solve(S_diag, S_off[: n_dev - 1], S_rhs), D_blocks.device)
 
     out = []
-    for d, (y, W_C, W_B) in enumerate(local):
+    for d, (y, W_C, W_B) in zip(slots, local):
         x_sep_d = x_sep.to(y.device)
         x_prev = x_sep_d[d - 1] if d > 0 else torch.zeros((6, M), dtype=dtype, device=y.device)
         x_own = x_sep_d[d]
         x_int = y - W_C @ x_prev - W_B @ x_own
-        out.append(torch.cat([x_int, x_own[None]]).to(D_blocks.device))
-    return torch.cat(out)
+        out.append(torch.cat([x_int, x_own[None]]))
+    return torch.cat([x.to(D_blocks.device) for x in all_slots(mesh, out)])
 
 
 def _schur_assemble(g: gsolver.PoseGraph, damping):

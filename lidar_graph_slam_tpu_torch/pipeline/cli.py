@@ -10,8 +10,12 @@ stage-by-stage driver, `--set scan_matcher.registration_method=GICP` (or ICP) th
 end's matcher, `--set graph_slam.registration_method=GICP` (or NDT) the loop verifier; the
 summary names all three. `--dataset kitti --kitti-root DIR --sequence NN` reads a KITTI
 odometry sequence through the native read-ahead (`io/kitti.py`, `native/`);
-`--live-render N` re-renders `<output>/live.png` every N frames. `--multihost` is not
-ported: it waits for the port of the reference's `parallel/` package.
+`--live-render N` re-renders `<output>/live.png` every N frames. `--multihost` joins the
+process group named by `LGS_COORDINATOR` (host:port of process 0), `LGS_NUM_PROCESSES` and
+`LGS_PROCESS_ID` (`parallel/multihost.py`) and runs the pipeline SPMD: every process reads
+the same scans, keyframe clouds shard over the processes, process 0 writes `<output>` and
+process r writes `<output>-p<r>`. Without those variables it runs single-process, as the
+reference does; a configured group that cannot form is an error.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -45,10 +50,32 @@ def main(argv=None) -> int:
     ap.add_argument("--live-render", type=int, default=0, metavar="N",
                     help="re-render <output>/live.png every N frames during the run (map, "
                          "trajectories, accepted AND rejected loop candidates); 0 disables")
+    ap.add_argument("--multihost", action="store_true",
+                    help="join the process group of LGS_COORDINATOR / LGS_NUM_PROCESSES / "
+                         "LGS_PROCESS_ID and run the pipeline SPMD across processes with the "
+                         "keyframe-cloud store sharded per process. Every process must "
+                         "receive the same scan stream; process 0 writes --output, process "
+                         "r writes <output>-p<r>.")
     args = ap.parse_args(argv)
+
+    from lidar_graph_slam_tpu_torch.parallel.distributed import process_count, process_index
+
+    if args.multihost:
+        from lidar_graph_slam_tpu_torch.parallel.multihost import initialize_from_env
+
+        if not initialize_from_env():
+            print("[slam-torch] --multihost: no LGS_* coordinator env, running single-process")
+        else:
+            rank = process_index()
+            print(f"[slam-torch] multihost: process {rank}/{process_count()}")
+            if rank != 0:
+                # Every process runs the whole SPMD pipeline (map assembly is a collective);
+                # the others write their (identical) outputs beside process 0's.
+                args.output = f"{args.output}-p{rank}"
 
     from lidar_graph_slam_tpu_torch.core.config import apply_cli_overrides, load_config
     from lidar_graph_slam_tpu_torch.io.pcd import write_kitti_trajectory, write_tum_trajectory
+    from lidar_graph_slam_tpu_torch.ops import kernels
     from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
     from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse, rpe
 
@@ -92,26 +119,26 @@ def main(argv=None) -> int:
 
     pipe = SlamPipeline(cfg, metrics_path=args.metrics_jsonl, device=args.device)
     os.makedirs(args.output, exist_ok=True)
-    if args.live_render > 0:
-        live_path = os.path.join(args.output, "live.png")
-        for i, item in enumerate(seq):
-            scan = item[0] if isinstance(item, tuple) else item
-            pipe.process_scan(np.asarray(scan))
-            if render_run is not None and (i + 1) % args.live_render == 0 \
-                    and pipe.odometry_poses:
-                render_run(
-                    live_path,
-                    pipe.back.assemble_map(max(args.map_resolution, 0.3)),
-                    np.stack(pipe.odometry_poses),
-                    pipe.back.optimized_poses(),
-                    **loop_pairs(pipe.back.loop_log),
-                )
-            if args.progress_every and (i + 1) % args.progress_every == 0:
-                print(f"[slam-torch] frame {i + 1}, keyframes={pipe.back.n_keyframes}, "
-                      f"loops={sum(1 for rec in pipe.back.loop_log if rec['accepted'])}")
-        result = pipe.result()
-    else:
-        result = pipe.run(seq, progress_every=args.progress_every)
+    live_path = os.path.join(args.output, "live.png")
+    frame_s = []  # host wall time of each process_scan
+    for i, item in enumerate(seq):
+        scan = item[0] if isinstance(item, tuple) else item
+        t0 = time.perf_counter()
+        pipe.process_scan(np.asarray(scan))
+        frame_s.append(time.perf_counter() - t0)
+        if render_run is not None and args.live_render > 0 \
+                and (i + 1) % args.live_render == 0 and pipe.odometry_poses:
+            render_run(
+                live_path,
+                pipe.back.assemble_map(max(args.map_resolution, 0.3)),
+                np.stack(pipe.odometry_poses),
+                pipe.back.optimized_poses(),
+                **loop_pairs(pipe.back.loop_log),
+            )
+        if args.progress_every and (i + 1) % args.progress_every == 0:
+            print(f"[slam-torch] frame {i + 1}, keyframes={pipe.back.n_keyframes}, "
+                  f"loops={sum(1 for rec in pipe.back.loop_log if rec['accepted'])}")
+    result = pipe.result()
     write_tum_trajectory(os.path.join(args.output, "odometry_tum.txt"), result.odometry_poses)
     write_kitti_trajectory(os.path.join(args.output, "odometry_kitti.txt"), result.odometry_poses)
     write_tum_trajectory(os.path.join(args.output, "keyframes_tum.txt"), result.keyframe_poses)
@@ -139,7 +166,15 @@ def main(argv=None) -> int:
         "registration_method": cfg.scan_matcher.registration_method,
         "loop_verifier": cfg.graph_slam.registration_method,
         "stage_timings": result.metrics,
+        # Every frame but the bootstrap frame 0 (`PERF.md` section 2).
+        "frame_p50_ms": 1000 * float(np.median(frame_s[1:])) if len(frame_s) > 1 else 0.0,
+        "kernel_launches": {name: getattr(kernels, name).launches for name in (
+            "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched")},
+        "processes": process_count(),
     }
+    store = pipe.back.cloud_store
+    if store is not None:
+        summary["keyframe_clouds_owned"] = len(store.local_ids())
     if args.dataset == "kitti":
         from lidar_graph_slam_tpu_torch import native
 

@@ -18,6 +18,12 @@ resumes it. With `parallel.use_mesh` the back end gets a mesh
 (`parallel/distributed.py:make_mesh(parallel.mesh_devices or None)` on the pipeline's
 device): loop candidates are verified over its slots and the device LM runs over it with
 `parallel.backend_solver`; the front end stays on one device, as in the reference.
+
+Multi-process runs are detected, as the reference's are: once a process group of more
+than one process is up (the CLI's `--multihost`, or `parallel/multihost.py:
+initialize_from_env()`), every process feeds the same scan stream, the keyframe clouds
+shard over the processes (`HostShardedKeyframeStore`), and the mesh of `parallel.use_mesh`
+spans every process's slots.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher, integrate_gyro
-from lidar_graph_slam_tpu_torch.parallel.distributed import make_mesh
+from lidar_graph_slam_tpu_torch.parallel.distributed import make_mesh, process_count
+from lidar_graph_slam_tpu_torch.parallel.multihost import HostShardedKeyframeStore
 from lidar_graph_slam_tpu_torch.utils.telemetry import MetricsWriter
 
 
@@ -104,8 +111,12 @@ class SlamPipeline:
         # falls back to the static config extrinsic, then identity).
         self.extrinsic_provider = extrinsic_provider
         cap = cfg.capacity
+        cloud_store = None
+        if process_count() > 1:
+            cloud_store = HostShardedKeyframeStore(pad_points=cap.keyframe_points)
         self.back = GraphBasedSLAM(cfg.graph_slam, cap, device=self.device, mesh=self.mesh,
-                                   backend_solver=cfg.parallel.backend_solver)
+                                   backend_solver=cfg.parallel.backend_solver,
+                                   cloud_store=cloud_store)
         self.timings: dict[str, list] = {"prefilter": [], "register": [], "backend": []}
         self.raw_truncation_count = 0
         self.odometry_poses: list[np.ndarray] = []

@@ -11,8 +11,8 @@ lag collapses at the checkpoint (`flush()` drains the frames in flight and the t
 rebuilt from the ring), so the resumed trajectory may differ by a small, damped amount;
 the keyframe schedule is the same.
 
-Not ported yet: the reference refuses to checkpoint a multi-host pipeline (sharded
-keyframe store); the port has no such store until `parallel/multihost.py` is ported.
+A multi-process pipeline (sharded keyframe store, `parallel/multihost.py`) is refused, as
+the reference refuses it: each process holds only its share of the clouds.
 """
 
 from __future__ import annotations
@@ -48,6 +48,11 @@ def save_pipeline(pipe: SlamPipeline, path: str) -> None:
     deferred keyframe inserts are flushed into the device graph before it is read."""
     pipe.flush()
     back = pipe.back
+    if back.cloud_store is not None:
+        raise NotImplementedError(
+            "checkpointing a multi-host pipeline (sharded keyframe store) is not "
+            "supported: each host holds only its cloud shard — save the map via "
+            "save_map() (allgathers) or checkpoint from a single-host run")
     back.finish_async()  # flush() settles the back end only with loop closure enabled
     g = back.graph       # the property applies the pending keyframe inserts
     n_kf = back.n_keyframes
