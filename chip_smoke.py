@@ -16,20 +16,30 @@ of `bench.py:bench_e2e`. Phases:
      32,768 against the 2 m map, 8,192 against the 4 m map); counts exact, bit-identical
      reruns; per kernel and shape, device and host time per call (`split_times`), the
      plain version's time, the bound and the share of the bound;
+ 3b. ndt-loop: the NDT loop kernel `ndt_iteration` (`ndt_align_loop`: one launch an
+     iteration, the step in its last block, the carry on the device) against the plain
+     loop on the same card tensors — the last ring scan from a perturbed guess at the
+     fine (N = 32,768, 2 m) and the coarse stage (N = 8,192, 4 m, no polish), and a fine
+     loop cut at 3 iterations: T within 1e-4, the same iterations and done, bit-identical
+     reruns; `ndt_iteration_batched` at B = 4 (four guesses, one at the true pose) row by
+     row bit-equal to single loops; device us of a working and of an early-exit launch,
+     host and device us of an align stage, the bound; then 5 dense frames of the fused
+     step under `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
   4. `build_ndt_pyramid` twice on a full 20 x 32,768 ring: bit-identical maps;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
-     max(0.05 x travelled, 0.35) m, the fused kernel launched on the main path and the
-     gathered-rows one not; p50 frame ms;
+     max(0.05 x travelled, 0.35) m, the NDT loop kernel launched 16 + 64 + 2 times a
+     frame (and how many of those did work), the accumulate kernels not; p50 frame ms;
   7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
-     device kernel launches, device ms and wall ms per NDT body; with `--parent DIR` (the
-     parent commit unpacked by `git archive`) also that tree's, on the same input;
+     device kernel launches, device ms and wall ms per align and per NDT body; with
+     `--parent DIR` (the parent commit unpacked by `git archive`) also that tree's, on the
+     same input, in turns;
   8. `ndt_accumulate`'s own path, `ndt_align(line_search=True)`: one launch per body;
   9. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure);
  10. the loop course: `SlamPipeline` with the default config on the 360-frame drift
      course, then again with loops off — all frames converge, loops are accepted, and
-     keyframe ATE with loops on is below ATE with loops off; the fused kernel's launches
+     keyframe ATE with loops on is below ATE with loops off; the loop kernel's launches
      on the verify path are counted;
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
@@ -65,8 +75,9 @@ of `bench.py:bench_e2e`. Phases:
  20. loop verification from the global guess: the 31-keyframe fixture with 0.4 rad /
      (4.0, -4.2) m of drift on the latest keyframe — with `use_global_init` the loop
      closes and the corrected pose lies within 0.3 m of truth, the identity guess misses
-     it or reads a worse fitness; the fused kernel's launches on this path (the pre-align
-     from the global guess) are counted from 0; `ransac_families` is in the log. Then the
+     it or reads a worse fitness; the loop kernel's launches on this path (the pre-align
+     from the global guess) are counted from 0, with those that did work; the guess is
+     built in the verify worker; `ransac_families` is in the log. Then the
      default pipeline with `graph_slam.use_global_init=true` on the drift course: loops
      accepted, keyframe ATE below phase 10's loops-off ATE, verify p50 beside phase 10's;
  21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
@@ -103,13 +114,14 @@ of `bench.py:bench_e2e`. Phases:
      (`parallel/multihost.py`, `LGS_*` on localhost): (a) phase 13's CLI run again as two
      `--multihost` processes on `cuda:0` — both exit 0, their trajectory files are equal,
      the keyframes and loops are phase 13's and the keyframe poses within 1e-4 of its,
-     each process owns part of the keyframe clouds and launched the fused kernel; each
+     each process owns part of the keyframe clouds and launched the loop kernel; each
      process's seconds, frame p50 and launches beside phase 13's; (b) the Schur and chain
      steps at K = 4096 on phase 26's graphs over 2 processes x 2 slots of `cuda:0`
      (`python3 chip_smoke.py --mesh-worker OUT` is one such process) against the
      one-process 4-slot mesh: max difference 0.0 asserted, ms a step.
 
-Each path's launches are counted from 0 just before it runs and read just after.
+Each path's launches are counted from 0 just before it runs and read just after (and the
+device's count of the loop kernels' launches that did work).
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
@@ -171,7 +183,11 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
 )
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration import features, gicp
-from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants, ndt_align
+from lidar_graph_slam_tpu_torch.registration.ndt import (
+    magnusson_constants,
+    ndt_align,
+    ndt_align_batched,
+)
 from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
 from lidar_graph_slam_tpu_torch.core import se3
@@ -192,7 +208,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 # counts exact.
 REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
-KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched")
+KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
+           "ndt_align_loop", "ndt_align_loop_batched")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -654,7 +671,7 @@ def verify_card_vs_cpu(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict, car
                             "cloud_mask": np.ones(cloud.shape[0], bool),
                             "accum_distance": back.kf_accum_dist[k]})
         inp = b._build_verify_inputs()
-        _grid, pre_map, _extra, _guess = inp["targets"][0]
+        _grid, pre_map, _extra, _glob = inp["targets"][0]
         src_p, src_m, _ = inp["source"]
         p = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
         pre.append((p.transform.cpu().numpy(), int(p.iterations)))
@@ -753,7 +770,7 @@ def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
                         "cloud_mask": np.ones(cloud.shape[0], bool),
                         "accum_distance": back.kf_accum_dist[k]})
     inp = b._build_verify_inputs()
-    _grid, pre_map, target, _guess = inp["targets"][0]
+    _grid, pre_map, target, _glob = inp["targets"][0]
     src_p, src_m, src_covs = inp["source"]
     pre = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
     src_p, src_m = src_p.clone(), src_m.clone()
@@ -763,15 +780,22 @@ def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, just before a path is driven."""
+    """Set every kernel's launch count to 0, and the device's count of the loop kernels'
+    working launches, just before a path is driven."""
     for name in KERNELS:
         getattr(kernels, name).launches = 0
+    if torch.cuda.is_available():
+        kernels.worked_launches(reset=True)
 
 
 def read_counts() -> dict:
-    """Every kernel's launches since `reset_counts`, read just after a path ran."""
+    """Every kernel's launches since `reset_counts`, read just after a path ran, and
+    `ndt_iteration_worked`: how many of the loop kernels' launches (one per sequence of a
+    batch) did work rather than exit on a finished carry."""
     torch.cuda.synchronize()
-    return {name: getattr(kernels, name).launches for name in KERNELS}
+    counts = {name: getattr(kernels, name).launches for name in KERNELS}
+    counts["ndt_iteration_worked"] = kernels.worked_launches()
+    return counts
 
 
 def perturbed(T: np.ndarray) -> np.ndarray:
@@ -788,9 +812,11 @@ def profile_ndt_align(cfg: PipelineConfig, ring, last, T_last: np.ndarray,
                       parent: str | None) -> dict:
     """One fine-stage `ndt_align` on the dense course under torch.profiler, by
     `scripts/torch_profile_ndt.py` in a subprocess: the last ring scan against the full
-    ring's map from a perturbed guess. With `parent` (the parent commit unpacked by `git
+    ring's map from a perturbed guess; this tree's align is one loop call of
+    max_iterations + 2 launches. With `parent` (the parent commit unpacked by `git
     archive`) the same input goes through both trees in turns (this, parent, parent,
-    this), and this tree must launch at least 40 fewer device kernels per NDT body."""
+    this): this tree must launch fewer device kernels per align and give its transform to
+    1e-3."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", "ndt_profile_input.npz")
@@ -817,20 +843,23 @@ def profile_ndt_align(cfg: PipelineConfig, ring, last, T_last: np.ndarray,
     finally:
         os.remove(path)
     this = out["this"][0]
-    if not all(r["converged"] and r["wrapper_launches_per_body"].get(
-            "ndt_direct7_accumulate") == 1.0 for r in out["this"]):
+    loop_launches = cfg.scan_matcher.ndt.max_iterations + 2
+    if not all(r["converged"] and r["wrapper_launches_per_align"] == {
+            "ndt_accumulate": 0, "ndt_direct7_accumulate": 0, "ndt_align_loop": loop_launches}
+               for r in out["this"]):
         raise AssertionError(f"ndt profile: {out['this']}")
     summary = {tree: {k: float(np.mean([r[k] for r in runs])) for k in
-                      ("launches_per_body", "device_ms_per_body", "wall_ms_per_body")}
+                      ("launches_per_align", "device_ms_per_align", "wall_ms_per_align",
+                       "launches_per_body", "device_ms_per_body", "wall_ms_per_body")}
                for tree, runs in out.items()}
     if "parent" in out:
         par = out["parent"][0]
-        fewer = par["launches_per_body"] - this["launches_per_body"]
+        fewer = par["launches_per_align"] - this["launches_per_align"]
         dT = float(np.abs(np.asarray(par["transform"]) - np.asarray(this["transform"])).max())
-        say("ndt-profile", fewer_launches_per_body=fewer, transform_max_diff=dT,
+        say("ndt-profile", fewer_launches_per_align=fewer, transform_max_diff=dT,
             mean=json.dumps(summary, separators=(",", ":")))
-        if not (fewer >= 40 and dT <= 1e-3):
-            raise AssertionError(f"ndt profile: {fewer} fewer launches per body, transform "
+        if not (fewer > 0 and dT <= 1e-3):
+            raise AssertionError(f"ndt profile: {fewer} fewer launches per align, transform "
                                  f"diff {dT}")
     return summary
 
@@ -850,12 +879,257 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
     bodies = int(res.iterations) + 2
     if not (bool(res.converged) and counts == {"ndt_direct7_accumulate": 0,
                                                 "ndt_accumulate": bodies,
-                                                "ndt_direct7_accumulate_batched": 0}):
+                                                "ndt_direct7_accumulate_batched": 0,
+                                                "ndt_align_loop": 0,
+                                                "ndt_align_loop_batched": 0,
+                                                "ndt_iteration_worked": 0}):
         raise AssertionError(f"line search: converged {bool(res.converged)}, {bodies} "
                              f"bodies, launches {counts}")
     err = float(np.abs(res.transform.cpu().numpy() - T_last).max())
     return dict(iterations=int(res.iterations), bodies=bodies,
                 launches=counts["ndt_accumulate"], transform_vs_truth_max=err)
+
+
+# -- the NDT loop on the device (the ndt-loop phase) ---------------------------------------
+
+# The loop kernel against its plain loop (torch ops, the carry frozen after done) on the
+# same card tensors: T within LOOP_T_ATOL and the same iterations and done. Both sum in
+# float32 in different orders, and the kernel's in-register transform rounds differently
+# from cuBLAS's `points @ R^T`. Batched rows bit-equal to single loops.
+LOOP_T_ATOL = 1e-4
+# Float operations a working launch adds to `ndt_direct7_accumulate`'s: the transform of a
+# masked-in point (9 products, 9 additions and 3 translations: 21) and the step in one
+# thread (the damping 14, the LU factorization with its pivot search ~140, the two
+# substitutions 66, the cap 20, se3_exp ~110, the 3x4 by 4x4 product 84, the fitness and
+# the test ~25): ~460.
+TRANSFORM_FLOPS_PER_POINT = 21
+STEP_FLOPS = 460
+# The carry a working launch reads and writes (T 64 B, done 1, iterations 4, fitness 4,
+# inliers 4) and the damping (4 B).
+CARRY_BYTES = 81
+
+
+def loop_args(vmap: NdtVoxelMap, points, mask, T0, ndt_cfg, coarse: bool,
+              max_iterations: int | None = None):
+    """`ndt_align_loop`'s arguments for one align stage as `make_ndt_matcher` runs it: the
+    fine stage (every point, the configured step, max_iterations, 2 polish) or the coarse
+    one (every `coarse_subsample`-th point, 4x the step, coarse_iterations, no polish)."""
+    d1, d2 = magnusson_constants(vmap.leaf, ndt_cfg.outlier_ratio)
+    stride = ndt_cfg.coarse_subsample if coarse else 1
+    its = ndt_cfg.coarse_iterations if coarse else ndt_cfg.max_iterations
+    return (vmap, points[::stride].contiguous(), mask[::stride].contiguous(), T0, d2,
+            -d1 * d2, ndt_cfg.step_size * (4.0 if coarse else 1.0), ndt_cfg.transform_epsilon,
+            torch.full((), 1e-6, device=points.device),
+            its if max_iterations is None else max_iterations, 0 if coarse else 2)
+
+
+def compare_loop(label: str, args) -> dict:
+    """The kernel loop vs its plain loop on the same card tensors, plus a bit-identical
+    rerun; returns the numbers of the comparison."""
+    out = kernels.ndt_align_loop(*args)
+    again = kernels.ndt_align_loop(*args)
+    ref = kernels.ndt_align_loop_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{label}: two kernel loops differ")
+    err = float((out[0] - ref[0]).abs().max())
+    rec = dict(case=label, N=args[1].shape[0], max_iterations=args[9], polish=args[10],
+               iterations=int(out[2]), iterations_plain=int(ref[2]), done=bool(out[1]),
+               done_plain=bool(ref[1]), T_max_abs_err=err, inliers=int(out[4]),
+               inliers_plain=int(ref[4]), fitness=float(out[3]),
+               fitness_plain=float(ref[3]), bit_identical=True)
+    say("ndt-loop-check", **rec)
+    if not (err <= LOOP_T_ATOL and rec["iterations"] == rec["iterations_plain"]
+            and rec["done"] == rec["done_plain"]):
+        raise AssertionError(f"{label}: kernel loop vs plain {rec}")
+    return rec
+
+
+def loop_bound_us(args) -> dict:
+    """The least time for one working launch of the loop kernel on these inputs: the
+    bytes and operations of `ndt_direct7_accumulate` at the stage's T0 (counted on the
+    card from this run's data, `direct7_bound_us`), plus the transform, the step and the
+    carry."""
+    vmap, src, msk, T0, d2, ws = args[:6]
+    moved = torch.where(msk[:, None], se3.transform_points(T0, src), src).contiguous()
+    sums = kernels.ndt_direct7_accumulate(vmap, moved, msk, d2, ws)
+    b = direct7_bound_us(vmap, moved, msk, float(sums[3]), float(sums[5]))
+    nbytes = b["bytes"] + CARRY_BYTES
+    flops = b["flops"] + TRANSFORM_FLOPS_PER_POINT * int(msk.sum()) + STEP_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def loop_timings(args, align, batched: bool = False) -> dict:
+    """Device us per working launch and per early-exit launch of the loop kernel, and the
+    host and device us of a whole align stage (`align`, no arguments), `split_times` on
+    fixed inputs: a loop of 20 launches that all work (epsilon 0), a loop of 1 working
+    launch, and one of 1 working and 40 early-exit launches (epsilon 1e9: done after the
+    first), the carry's set-up cancelling in the differences. Few calls per timing, so
+    that the launches queued behind the spin kernel stay a few hundred."""
+    wrapper = kernels.ndt_align_loop_batched if batched else kernels.ndt_align_loop
+
+    def loop(eps, its):
+        return lambda: wrapper(*args[:7], eps, args[8], its, 0)
+
+    work = split_times(loop(0.0, 20), calls=10, warmup=2)
+    one = split_times(loop(1e9, 1), calls=40, warmup=2)
+    dead = split_times(loop(1e9, 41), calls=5, warmup=2)
+    stage = split_times(align, calls=3, warmup=2)
+    return dict(working_launch_us=(work["device_us"] - one["device_us"]) / 19,
+                early_exit_launch_us=(dead["device_us"] - one["device_us"]) / 40,
+                loop_host_us_20=work["host_us"], stage_host_us=stage["host_us"],
+                stage_device_us=stage["device_us"], stage_single_ms=stage["single_ms"])
+
+
+def plain_launch_ms(args) -> float:
+    """The plain version's time for one working launch's work: the transform, the plain
+    gather and accumulation, and `ndt_carry_update`, on the card."""
+    vmap, src, msk, T0, d2, ws, step, eps, damping = args[:9]
+    dev = src.device
+    carry = (T0, torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev))
+
+    def one():
+        sums = kernels.ndt_direct7_accumulate_plain(
+            vmap, se3.transform_points(T0, src), msk, d2, ws)
+        return kernels.ndt_carry_update(sums, carry, step, eps, damping, False)
+
+    return median_ms(one, calls=20)
+
+
+def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, last,
+                   T_last: np.ndarray, card: str) -> dict:
+    """The ndt-loop phase: `ndt_iteration` (`ndt_align_loop`) and `ndt_iteration_batched`
+    against the plain loop on the dense course's fixtures — the last ring scan (N =
+    32,768 fine, 8,192 coarse) from a perturbed guess, and a fine loop cut at 3
+    iterations (it reaches max_iterations) — and the batched loop at B = 4 (four guesses
+    of the same scan, one at the true pose) row by row against single loops, bit for bit;
+    the device us of a working and of an early-exit launch, the host us of an align stage
+    and the bound. Returns {"err", "timing", "records"}."""
+    ndt_cfg = cfg.scan_matcher.ndt
+    dev = last.points.device
+    init = torch.as_tensor(perturbed(T_last), device=dev)
+    stages = {"fine": loop_args(fine, last.points, last.mask, init, ndt_cfg, False),
+              "coarse": loop_args(coarse, last.points, last.mask, init, ndt_cfg, True)}
+    recs = [compare_loop(f"{k}-perturbed", a) for k, a in stages.items()]
+    recs.append(compare_loop("fine-max-iterations",
+                             loop_args(fine, last.points, last.mask, init, ndt_cfg, False, 3)))
+    if not (recs[-1]["iterations"] == 3 and not recs[-1]["done"]
+            and all(r["done"] for r in recs[:2])):
+        raise AssertionError(f"ndt loop fixtures: {recs}")
+    err = max(r["T_max_abs_err"] for r in recs)
+
+    timing = {}
+    for k, a in stages.items():
+        def align(a=a):
+            return ndt_align(a[0], a[1], a[2], a[3], step_size=a[6], transform_epsilon=a[7],
+                             outlier_ratio=ndt_cfg.outlier_ratio, max_iterations=a[9],
+                             polish_iterations=a[10])
+        t = loop_timings(a, align)
+        t.update(loop_bound_us(a), plain_ms=plain_launch_ms(a), N=a[1].shape[0])
+        t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
+                 single_ms=t["stage_single_ms"],
+                 share_of_bound=t["bound_us"] / t["working_launch_us"])
+        say("ndt-loop-time", stage=k, **t, card=json.dumps(card))
+        timing[f"loop_{k}"] = {"ndt_iteration": t}
+
+    # Batched: four guesses of the same scan against four copies of the fine map.
+    offsets = [np.eye(4, dtype=np.float32), perturbed(np.eye(4, dtype=np.float32))]
+    for yaw, xy in ((-0.02, (-0.25, 0.3)), (0.015, (0.2, 0.35))):
+        D = np.eye(4, dtype=np.float32)
+        D[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        D[:2, 3] = xy
+        offsets.append(D)
+    T0s = torch.as_tensor(np.stack([T_last @ D for D in offsets]).astype(np.float32),
+                          device=dev)
+    B = T0s.shape[0]
+    fa = stages["fine"]
+    vmaps = kernels.stack_maps([fine] * B)
+    src = fa[1].expand(B, -1, -1).contiguous()
+    msk = fa[2].expand(B, -1).contiguous()
+    d2, ws = fa[4].expand(B).contiguous(), fa[5].expand(B).contiguous()
+    bargs = (vmaps, src, msk, T0s, d2, ws, *fa[6:])
+    out = kernels.ndt_align_loop_batched(*bargs)
+    ref = kernels.ndt_align_loop_batched_plain(*bargs)
+    singles = [kernels.ndt_align_loop(fine, fa[1], fa[2], T0s[b], fa[4], fa[5], *fa[6:])
+               for b in range(B)]
+    torch.cuda.synchronize()
+    berr = float((out[0] - ref[0]).abs().max())
+    rows_equal = all(torch.equal(x[b], y) for b in range(B) for x, y in zip(out, singles[b]))
+    iters = out[2].tolist()
+    if not (rows_equal and berr <= LOOP_T_ATOL and iters == ref[2].tolist()
+            and bool(out[1].all()) and iters[0] == min(iters) < max(iters)):
+        raise AssertionError(f"batched ndt loop: rows equal to single {rows_equal}, T err "
+                             f"{berr}, iterations {iters} vs plain {ref[2].tolist()}")
+    say("ndt-loop-batched-check", B=B, N=src.shape[1], iterations=json.dumps(iters),
+        T_max_abs_err=berr, rows_bit_equal_single=True)
+
+    def balign():
+        return ndt_align_batched(vmaps, src, msk, T0s, step_size=fa[6],
+                                 transform_epsilon=fa[7], outlier_ratio=ndt_cfg.outlier_ratio,
+                                 max_iterations=fa[9], polish_iterations=fa[10])
+
+    t = loop_timings(bargs, balign, batched=True)
+    bounds = [loop_bound_us((fine, fa[1], fa[2], T0s[b], fa[4], fa[5])) for b in range(B)]
+    nbytes, flops = sum(x["bytes"] for x in bounds), sum(x["flops"] for x in bounds)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t.update(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+             bound_by="bytes" if t_bytes >= t_ops else "operations", B=B, N=src.shape[1],
+             plain_ms=B * timing["loop_fine"]["ndt_iteration"]["plain_ms"])
+    t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
+             single_ms=t["stage_single_ms"],
+             share_of_bound=t["bound_us"] / t["working_launch_us"])
+    say("ndt-loop-time", stage="fine-batched", **t, card=json.dumps(card))
+    timing["loop_batch"] = {"ndt_iteration_batched": t}
+    return dict(err=err, batched_err=berr, timing=timing, records=recs)
+
+
+def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: int = 20,
+                          frames: int = 5) -> dict:
+    """The fused step (NDT) on `frames` dense-course frames after `first`, against the
+    target of the full ring of frames 0..first-1, from the state the ring's last frame
+    leaves (its ground-truth pose, constant velocity): one warm-up step, then `frames`
+    steps under `torch.cuda.set_sync_debug_mode("error")`, which raises at the first
+    synchronous read. Their inputs are uploaded first, and their outputs read after."""
+    init_state, step, _ = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
+                                              device=dev)
+    T = torch.as_tensor(gt, device=dev)
+    state = dataclasses.replace(
+        init_state(), pose=T[first - 1], last_motion=se3.inverse(T[first - 2]) @ T[first - 1],
+        last_kf_pose=T[first - 1], n_keyframes=torch.full((), first, dtype=torch.int32,
+                                                          device=dev))
+    raws = []
+    for s_ in scans[first - 1:first + frames]:
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:min(len(s_), cfg.capacity.raw_points)] = s_[:cfg.capacity.raw_points]
+        raws.append(torch.as_tensor(raw, device=dev))
+    eye3, eye4 = torch.eye(3, device=dev), torch.eye(4, device=dev)
+    state, _ = step(state, raws[0], target, eye3, False, eye4, False)  # warm-up
+    torch.cuda.synchronize()
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for raw in raws[1:]:
+            state, out = step(state, raw, target, eye3, False, eye4, False)
+            outs.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = 1000 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    total_ms = 1000 * (time.perf_counter() - t0)
+    poses = np.stack([o.pose.cpu().numpy() for o in outs])
+    err = np.linalg.norm(poses[:, :3, 3] - gt[first:first + frames, :3, 3], axis=1)
+    conv = [bool(o.converged) for o in outs]
+    if not (np.isfinite(poses).all() and all(conv)):
+        raise AssertionError(f"fused steps: converged {conv}, pose errors {err}")
+    return dict(frames=frames, sync_reads=0, converged=sum(conv),
+                iterations=json.dumps([int(o.iterations) for o in outs]),
+                pose_err_m=json.dumps([round(float(e), 5) for e in err]),
+                enqueue_ms_per_frame=enqueue_ms / frames, wall_ms_per_frame=total_ms / frames)
 
 
 def cli_command(out_dir: str, frames: int, loops: bool = False, sets=()) -> list:
@@ -882,7 +1156,8 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ate_odometry_m=summary["ate_odometry_m"],
                 ate_keyframes_m=summary["ate_keyframes_m"],
                 frame_p50_ms=summary["frame_p50_ms"],
-                ndt_direct7_launches=summary["kernel_launches"]["ndt_direct7_accumulate"])
+                ndt_loop_launches=summary["kernel_launches"]["ndt_align_loop"],
+                ndt_loop_worked=summary["kernel_launches"]["ndt_iteration_worked"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -977,8 +1252,9 @@ def loop_fixture_keyframes(err_yaw: float = 0.4, err_xy=(4.0, -4.2), n_kf: int =
 def global_init_loop(device) -> dict:
     """One synchronous `try_close_loop` on the large-drift fixture, from the identity
     guess and from the FPFH+RANSAC guess, at the fixture's capacities and the default
-    `GlobalRegConfig`. The fused kernel's launches on the global-init path are counted
-    from 0 just before it and read just after."""
+    `GlobalRegConfig`. The loop kernel's launches on the global-init path (the pre-align
+    from the global guess) are counted from 0 just before it and read just after, with
+    how many of them did work."""
     records, true_last = loop_fixture_keyframes()
     cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
                          loop_submap_points=65536, voxel_capacity=32768)
@@ -1009,15 +1285,18 @@ def global_init_loop(device) -> dict:
                              f"{err} m from truth, identity guess closed {closed_plain} "
                              f"({plain_fit}), log {glob.loop_log}")
     if torch.device(device).type == "cuda" and not (
-            counts["ndt_direct7_accumulate"] > 0 and counts["ndt_accumulate"] == 0
-            and glob.verify_launches == counts["ndt_direct7_accumulate"]):
+            counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
+            and counts["ndt_direct7_accumulate"] == 0
+            and glob.verify_launches == counts["ndt_align_loop"]
+            and 0 < counts["ndt_iteration_worked"] <= counts["ndt_align_loop"]):
         raise AssertionError(f"global-init loop: launches {counts}, verify thread "
                              f"{glob.verify_launches}")
     return dict(closed=closed_glob, corrected_pose_err_m=err, fitness=rec["fitness"],
                 drift_m=float(np.linalg.norm(drifted[:3, 3] - true_last[:3, 3])),
                 identity_closed=closed_plain, identity_fitness=plain_fit,
                 ransac_families=json.dumps(rec["ransac_families"], separators=(",", ":")),
-                kernel_launches=counts["ndt_direct7_accumulate"],
+                kernel_launches=counts["ndt_align_loop"],
+                kernel_launches_worked=counts["ndt_iteration_worked"],
                 attempt_ms=round(1000 * seconds, 3))
 
 
@@ -1252,11 +1531,12 @@ def batched_kernel_check(scans, masks, gts, card: str, dev=torch.device("cuda"))
 def batch_odometry_check(scans, masks, gts, card: str) -> dict:
     """`batch_odometry` at full width: B sequences of F frames of N points under the default
     `ScanMatcherConfig` (20-keyframe ring, 2 m / 4 m), map capacity 32,768, counts set to 0
-    just before and read just after. Every sequence's ATE within max(0.05 x travelled,
-    0.35) m, frame 0 a keyframe, >= 2 keyframes; the batch equals B runs of one bit for
-    bit; the first 3 frames agree with the CPU's to 1e-4 (`tests/test_torch_multi_sequence.py`
-    against the reference). Frames per second over the batch, and the device's idle share
-    from `scripts/torch_profile_batch.py` in a subprocess."""
+    just before and read just after (the batched loop kernel's). Every sequence's ATE
+    within max(0.05 x travelled, 0.35) m, frame 0 a keyframe, >= 2 keyframes; the batch
+    equals B runs of one bit for bit; the first 3 frames agree with the CPU's to 1e-4
+    (`tests/test_torch_multi_sequence.py` against the reference). Frames per second over
+    the batch, and the device's idle share from `scripts/torch_profile_batch.py` in a
+    subprocess."""
     cfg = PipelineConfig().scan_matcher
     B, F = scans.shape[:2]
     torch.cuda.synchronize()
@@ -1266,7 +1546,8 @@ def batch_odometry_check(scans, masks, gts, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    if not (counts["ndt_direct7_accumulate_batched"] > 0
+    if not (counts["ndt_align_loop_batched"] > 0 and counts["ndt_align_loop"] == 0
+            and counts["ndt_direct7_accumulate_batched"] == 0
             and counts["ndt_direct7_accumulate"] == counts["ndt_accumulate"] == 0):
         raise AssertionError(f"batch odometry: launches {counts}")
     poses = outs["pose"].cpu().numpy()
@@ -1310,7 +1591,8 @@ def batch_odometry_check(scans, masks, gts, card: str) -> dict:
                 keyframes=json.dumps(kf.sum(axis=1).tolist()),
                 seconds=round(wall, 3), fps_over_batch=B * F / wall,
                 frames_per_second_per_sequence=F / wall,
-                launches=counts["ndt_direct7_accumulate_batched"],
+                launches=counts["ndt_align_loop_batched"],
+                launches_worked=counts["ndt_iteration_worked"],
                 card_vs_cpu_first3_max=dpose, cpu_first3_s=round(cpu_s, 3),
                 batch_equals_single_runs=True, profile=json.dumps(prof, separators=(",", ":")))
 
@@ -1553,7 +1835,7 @@ def multihost_cli(out_dir: str, frames: int, ref_dir: str, ref: dict, device: st
                     for s in summaries)
             and s0["keyframes"] == ref["keyframes"] and sum(owned) == s0["keyframes"]
             and s0["loop_closures"] == ref["loop_closures"] and 0 < owned[0] < s0["keyframes"]
-            and all(s["kernel_launches"]["ndt_direct7_accumulate"] > 0 or device == "cpu"
+            and all(s["kernel_launches"]["ndt_align_loop"] > 0 or device == "cpu"
                     for s in summaries)
             and pose_diff <= MULTIHOST_POSE_ATOL):
         raise AssertionError(f"multihost CLI: {summaries}, phase 13 {ref}, keyframe pose "
@@ -1565,12 +1847,14 @@ def multihost_cli(out_dir: str, frames: int, ref_dir: str, ref: dict, device: st
                ate_keyframes_m=s0["ate_keyframes_m"],
                ate_keyframes_phase13_m=ref["ate_keyframes_m"],
                seconds_phase13=ref["seconds"], frame_p50_ms_phase13=ref["frame_p50_ms"],
-               ndt_direct7_launches_phase13=ref["ndt_direct7_launches"])
+               ndt_loop_launches_phase13=ref["ndt_loop_launches"],
+               ndt_loop_worked_phase13=ref["ndt_loop_worked"])
     for r, (sec, s) in enumerate(zip(seconds, summaries)):
         out[f"seconds_p{r}"] = round(sec, 3)
         out[f"frame_p50_ms_p{r}"] = s["frame_p50_ms"]
         out[f"owned_clouds_p{r}"] = f"{s['keyframe_clouds_owned']}/{s['keyframes']}"
-        out[f"ndt_direct7_launches_p{r}"] = s["kernel_launches"]["ndt_direct7_accumulate"]
+        out[f"ndt_loop_launches_p{r}"] = s["kernel_launches"]["ndt_align_loop"]
+        out[f"ndt_loop_worked_p{r}"] = s["kernel_launches"]["ndt_iteration_worked"]
     return out
 
 
@@ -1633,6 +1917,7 @@ def multihost_mesh_steps(dev, K: int = 4096) -> dict:
 
 
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
+                  source: str = "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
                   **launches) -> dict:
     """One kernel's entry of the JSON record: times at `shape`, its main path's (the
     others by shape), launches per path."""
@@ -1640,7 +1925,7 @@ def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
     return {
         "name": name,
         "route": "cuda",
-        "source": "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
+        "source": source,
         "replaces": "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
         "replaces_commit": "4350000^",
         **launches,
@@ -1726,6 +2011,13 @@ def main(argv=None) -> int:
         timing[label] = say_timings(kernel_timings(kernels, label, vmap, src, msk, md2,
                                                    -md1 * md2), card)
 
+    # -- 3b. ndt-loop: the loop kernels against the plain loop, the step without a read ---
+    loop = ndt_loop_phase(cfg, fine, coarse, last, T_last, card)
+    max_err.update(ndt_iteration=loop["err"], ndt_iteration_batched=loop["batched_err"])
+    timing.update(loop["timing"])
+    say("ndt-loop-fused-steps", **fused_steps_sync_free(cfg, scans, gt, (coarse, fine), dev),
+        card=json.dumps(card))
+
     # -- 4. deterministic map build on the full ring -------------------------------------
     say("map-build", **map_build_twice(aux, ring, dev))
 
@@ -1736,10 +2028,15 @@ def main(argv=None) -> int:
     reset_counts()
     stats = run_pipeline(cfg, scans, gt, "cuda")
     launches = read_counts()
-    if launches["ndt_direct7_accumulate"] <= 0 or launches["ndt_accumulate"] != 0:
+    # The NDT loop kernel is the main path's; the accumulate kernels are not on it.
+    per_frame = ndt_cfg.coarse_iterations + ndt_cfg.max_iterations + 2
+    if not (launches["ndt_align_loop"] == per_frame * stats["frames"]
+            and 0 < launches["ndt_iteration_worked"] < launches["ndt_align_loop"]
+            and launches["ndt_direct7_accumulate"] == launches["ndt_accumulate"] == 0):
         raise AssertionError(f"the main path's kernel launches: {launches}")
-    say("pipeline", **stats, kernel_launches=launches["ndt_direct7_accumulate"],
-        card=json.dumps(card))
+    say("pipeline", **stats, kernel_launches=launches["ndt_align_loop"],
+        kernel_launches_worked=launches["ndt_iteration_worked"],
+        kernel_launches_per_frame=per_frame, card=json.dumps(card))
 
     # -- 7. one ndt_align under the profiler (and the parent's, given --parent) ----------
     prof = profile_ndt_align(cfg, ring, last, T_last, args.parent)
@@ -1770,6 +2067,7 @@ def main(argv=None) -> int:
     _, res_off, off = run_loop_course(loops_off_config(), dscans, dgt, "cuda")
     if not (on["loops_accepted"] >= 1 and launches_verify > 0
             and launches_course["ndt_accumulate"] == 0
+            and launches_course["ndt_direct7_accumulate"] == 0
             and on["ate_keyframes_m"] < off["ate_keyframes_m"]):
         raise AssertionError(f"loop course: loops on {on}, off {off}, launches "
                              f"{launches_course}, verify {launches_verify}")
@@ -1787,7 +2085,8 @@ def main(argv=None) -> int:
         solve_ms_max=1000 * float(np.max([r["seconds"] for r in back.solve_log])),
         solves=len(back.solve_log), solves_device_lm=sum(r["device_lm"] for r in back.solve_log),
         ndt_launches_verify=launches_verify,
-        ndt_launches_total=launches_course["ndt_direct7_accumulate"],
+        ndt_launches_total=launches_course["ndt_align_loop"],
+        ndt_launches_worked=launches_course["ndt_iteration_worked"],
         odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
 
     # -- 11-12. grid NN and one verification, card against CPU ------------------------------
@@ -1820,7 +2119,8 @@ def main(argv=None) -> int:
     # course (`scripts/jax_reference_dense.py`), so phases 15-16 assert it too.
     gicp_front = run_pipeline(cfg_gicp, scans, gt, "cuda")
     launches_gicp = read_counts()
-    if launches_gicp["ndt_accumulate"] <= 0 or launches_gicp["ndt_direct7_accumulate"] != 0:
+    if (launches_gicp["ndt_accumulate"] <= 0 or launches_gicp["ndt_direct7_accumulate"] != 0
+            or launches_gicp["ndt_align_loop"] != 0):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
     say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["ndt_accumulate"],
         card=json.dumps(card))
@@ -1833,7 +2133,8 @@ def main(argv=None) -> int:
                                                  "scan_matcher.registration_method=ICP"]),
                                scans, gt, "cuda")
     if not (classic_ndt["driver"] == classic_icp["driver"] == "classic"
-            and launches_classic["ndt_direct7_accumulate"] > 0):
+            and launches_classic["ndt_align_loop"] > 0
+            and launches_classic["ndt_direct7_accumulate"] == 0):
         raise AssertionError(f"classic driver: {classic_ndt}, {classic_icp}, launches "
                              f"{launches_classic}")
     for name, st in (("ndt", classic_ndt), ("icp", classic_icp)):
@@ -1904,7 +2205,8 @@ def main(argv=None) -> int:
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
         ndt_launches_verify=pipe_gi.back.verify_launches,
-        ndt_launches_total=launches_gi["ndt_direct7_accumulate"],
+        ndt_launches_total=launches_gi["ndt_align_loop"],
+        ndt_launches_worked=launches_gi["ndt_iteration_worked"],
         odometry_vs_loops_off_max_diff=float(
             np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
         card=json.dumps(card))
@@ -1981,20 +2283,48 @@ def main(argv=None) -> int:
     say("multihost-cli", **mh_cli, card=json.dumps(card))
     say("multihost-mesh-steps", **multihost_mesh_steps(dev), card=json.dumps(card))
 
+    loop_src = "lidar_graph_slam_tpu_torch/csrc/ndt_loop.cu"
+    loop_fine = timing["loop_fine"]["ndt_iteration"]
+    loop_batch = timing["loop_batch"]["ndt_iteration_batched"]
     print(json.dumps({"kernels": [
         kernel_record(
-            "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
-            launches=launches["ndt_direct7_accumulate"], launches_verify=launches_verify,
-            launches_loop_course=launches_course["ndt_direct7_accumulate"],
-            launches_cli_loops=cli_on["ndt_direct7_launches"],
-            launches_multihost_cli_p0=mh_cli["ndt_direct7_launches_p0"],
-            launches_multihost_cli_p1=mh_cli["ndt_direct7_launches_p1"],
+            "ndt_iteration", timing, max_err["ndt_iteration"], shape="loop_fine",
+            source=loop_src, launches=launches["ndt_align_loop"],
+            launches_worked=launches["ndt_iteration_worked"],
+            path="every NDT iteration: fused and classic front ends, verify pre-align "
+                 "(phase 6 counts the fused front end)",
+            launches_verify=launches_verify,
+            launches_loop_course=launches_course["ndt_align_loop"],
+            launches_loop_course_worked=launches_course["ndt_iteration_worked"],
+            launches_cli_loops=cli_on["ndt_loop_launches"],
+            launches_cli_loops_worked=cli_on["ndt_loop_worked"],
+            launches_multihost_cli_p0=mh_cli["ndt_loop_launches_p0"],
+            launches_multihost_cli_p1=mh_cli["ndt_loop_launches_p1"],
             launches_global_init_loop=gl["kernel_launches"],
+            launches_global_init_loop_worked=gl["kernel_launches_worked"],
             launches_global_init_course_verify=pipe_gi_verify_launches,
-            fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)",
-            device_launches_per_ndt_body=prof["this"]["launches_per_body"],
-            parent_device_launches_per_ndt_body=(prof["parent"]["launches_per_body"]
-                                                 if "parent" in prof else None)),
+            loop_of="lidar_graph_slam_tpu/registration/ndt.py:135 (lax.while_loop)",
+            fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7), the body's step "
+                  "(registration/ndt.py:94-122)",
+            early_exit_launch_ms=loop_fine["early_exit_launch_us"] / 1000,
+            device_launches_per_align=prof["this"]["launches_per_align"],
+            parent_device_launches_per_align=(prof["parent"]["launches_per_align"]
+                                              if "parent" in prof else None)),
+        kernel_record(
+            "ndt_iteration_batched", timing, max_err["ndt_iteration_batched"],
+            shape="loop_batch", source=loop_src, launches=bo["launches"],
+            launches_worked=bo["launches_worked"], path="batch_odometry (phase 25)",
+            launches_batch_slam=json.loads(bs["launches"])["ndt_align_loop_batched"],
+            loop_of="lidar_graph_slam_tpu/registration/ndt.py:135 (lax.while_loop)",
+            rows_bit_equal_single=True,
+            early_exit_launch_ms=loop_batch["early_exit_launch_us"] / 1000),
+        kernel_record(
+            "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
+            launches=launches["ndt_direct7_accumulate"],
+            path="none since the NDT loop kernel (PR 8) runs its gather and accumulation; "
+                 "measured in phases 3 and 12",
+            launches_loop_course=launches_course["ndt_direct7_accumulate"],
+            fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)"),
         kernel_record(
             "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",
             launches=launches_gicp["ndt_accumulate"], path="GICP front end (phase 15)",
@@ -2005,7 +2335,8 @@ def main(argv=None) -> int:
             launches_icp_loop_course=launches_course["ndt_accumulate"]),
         kernel_record(
             "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
-            shape="batch", launches=bo["launches"], path="batch_odometry (phase 25)",
+            shape="batch", launches=0,
+            path="none since the batched NDT loop kernel (PR 8); measured in phase 24",
             launches_batch_slam=json.loads(bs["launches"])["ndt_direct7_accumulate_batched"],
             max_rel_err=rec["max_rel_err"], rows_bit_equal_single=True,
             singles_device_ms=rec["singles_device_us"] / 1000,

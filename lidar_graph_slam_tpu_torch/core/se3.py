@@ -150,13 +150,13 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
 
 
 def make_transform(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """Assemble [..., 4, 4] from rotation [..., 3, 3] and translation [..., 3]."""
+    """Assemble [..., 4, 4] from rotation [..., 3, 3] and translation [..., 3]. Built by
+    concatenation: writing a Python number into a CUDA tensor by index copies it from the
+    host and syncs the stream."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def identity(dtype=torch.float32, batch: tuple = (), device=None) -> torch.Tensor:

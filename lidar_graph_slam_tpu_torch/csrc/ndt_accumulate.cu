@@ -12,7 +12,8 @@
 // g_w = p x (W e), g_v = W e. H is symmetric for symmetric W; the 21 upper-triangle
 // entries are accumulated and mirrored.
 //
-// Two kernels share that per-row routine (`accumulate_row`) and one epilogue:
+// Two kernels share that per-row routine (`accumulate_row`) and one epilogue, both in
+// `ndt_common.cuh`, which `ndt_loop.cu` (one whole NDT iteration a launch) shares:
 //
 //  * `ndt_direct7_kernel` takes the transformed points and the voxel map and does the
 //    DIRECT7 gather itself (the port of `lookup_direct7`, ops/voxel.py): one thread per
@@ -51,131 +52,23 @@
 // set per CUDA stream. d2 and w_scale are read from device pointers (or passed by
 // value), so no host sync is needed per iteration.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ndt_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 31;    // 21 H upper triangle + 6 g + sum_w + n_hit + centre |e|^2, count
-constexpr int kOut = 46;  // H (36, row-major) | g (6) | sum_w | n_hit | centre |e|^2, count
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Adds one hit row's weighted terms to acc[0..27].
-__device__ __forceinline__ void accumulate_row(float* acc, float ex, float ey, float ez,
-                                               const float (&W)[3][3], float x, float y,
-                                               float z, float d2, float ws) {
-  float We[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) We[r] = W[r][0] * ex + W[r][1] * ey + W[r][2] * ez;
-  const float md2 = ex * We[0] + ey * We[1] + ez * We[2];
-  const float w = ws * expf(-0.5f * d2 * md2);
-
-  // WA = W A with A = -hat(p): columns of A are (0,-z,y), (z,0,-x), (-y,x,0).
-  float WA[3][3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    WA[r][0] = -W[r][1] * z + W[r][2] * y;
-    WA[r][1] = W[r][0] * z - W[r][2] * x;
-    WA[r][2] = -W[r][0] * y + W[r][1] * x;
-  }
-  // Rows 0..2 of J^T: A^T M for any 3-column block M.
-  float Hw[3][6];  // H rows 0..2: [H_ww | H_wv]
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    Hw[0][c] = -z * WA[1][c] + y * WA[2][c];
-    Hw[1][c] = z * WA[0][c] - x * WA[2][c];
-    Hw[2][c] = -y * WA[0][c] + x * WA[1][c];
-    Hw[0][3 + c] = -z * W[1][c] + y * W[2][c];
-    Hw[1][3 + c] = z * W[0][c] - x * W[2][c];
-    Hw[2][3 + c] = -y * W[0][c] + x * W[1][c];
-  }
-  int q = 0;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = i; j < 6; ++j) acc[q++] += w * Hw[i][j];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = i; j < 3; ++j) acc[q++] += w * W[i][j];
-  // g_w = p x We, g_v = We.
-  acc[21] += w * (y * We[2] - z * We[1]);
-  acc[22] += w * (z * We[0] - x * We[2]);
-  acc[23] += w * (x * We[1] - y * We[0]);
-  acc[24] += w * We[0];
-  acc[25] += w * We[1];
-  acc[26] += w * We[2];
-  acc[27] += w;
-  acc[28] += 1.f;
-}
-
-__device__ __forceinline__ int tri_index(int a, int b) {  // a <= b < 6, row-major upper
-  return a * 6 - a * (a - 1) / 2 + (b - a);
-}
-
-// Sums each acc[q] over the block's threads in a fixed order (warp shuffles, then the
-// warps in order through `red`); thread q < kQ returns quantity q's sum.
-__device__ __forceinline__ float block_sum(const float* acc, float (&red)[kQ][kWarps]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int q = 0; q < kQ; ++q) {
-    const float v = warp_sum(acc[q]);
-    if (lane == 0) red[q][warp] = v;
-  }
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x < kQ) {
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) s += red[threadIdx.x][wi];
-  }
-  return s;
-}
-
-// One partial row per block ([kQ][gridDim.x] in `partials`), then the block that draws
-// the last ticket sums all rows into `out`: thread t adds blocks t, t + kThreads, ... of
-// every quantity (31 independent loads in flight per step), then `block_sum` — a fixed
-// order for a given number of blocks. `counter` is 0 on entry and is left 0.
+// One launch's epilogue: the fixed-order cross-block reduction, then the totals as the
+// kOut outputs.
 __device__ __forceinline__ void reduce_and_finish(const float* acc, float* partials,
                                                   unsigned int* counter, float* out) {
-  __shared__ float red[kQ][kWarps];
   __shared__ float tot[kQ];
-  __shared__ bool last;
+  if (!reduce_partials(acc, partials, counter, tot)) return;
   const int t = threadIdx.x;
-  const int nblocks = gridDim.x;
-  const float s = block_sum(acc, red);
-  if (t < kQ) {
-    partials[(long long)t * nblocks + blockIdx.x] = s;
-    __threadfence();  // the partial is visible device-wide before the ticket is drawn
-  }
-  __syncthreads();
-  if (t == 0) last = atomicAdd(counter, 1u) == (unsigned int)(nblocks - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float part[kQ];
-#pragma unroll
-  for (int q = 0; q < kQ; ++q) part[q] = 0.f;
-  for (int b = t; b < nblocks; b += kThreads) {  // __ldcg reads past L1: the rows are new
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) part[q] += __ldcg(&partials[(long long)q * nblocks + b]);
-  }
-  const float total = block_sum(part, red);
-  if (t < kQ) tot[t] = total;
-  __syncthreads();
   if (t < 36) {  // H [6, 6], mirrored from the upper triangle
     const int i = t / 6, j = t % 6;
     out[t] = tot[tri_index(i < j ? i : j, i < j ? j : i)];
   } else if (t < kOut) {  // g [6], sum_w, n_hit, centre |e|^2, centre count
     out[t] = tot[21 + (t - 36)];
   }
-  if (t == 0) *counter = 0u;  // ready for the next launch on this stream
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -202,29 +95,6 @@ ndt_rows_kernel(const float* __restrict__ e, const float* __restrict__ icov,
   }
   reduce_and_finish(acc, partials, counter, out);
 }
-
-struct Grid {
-  int dx, dy, dz;  // dense table dims (ops/voxel.py:TABLE_DIMS)
-  int hx, hy, hz;  // largest packable voxel coordinate per axis (voxel_coords' clamp)
-};
-
-__device__ __forceinline__ int voxel_coord(float v, float o, float inv_leaf, int hi) {
-  // floor((v - o) * inv_leaf) in float32, converted rounding down (saturating), then
-  // clamped to [0, hi] as in ops/voxel.py:voxel_coords.
-  const int c = __float2int_rd(__fmul_rn(__fsub_rn(v, o), inv_leaf));
-  return min(max(c, 0), hi);
-}
-
-// Sequence b = blockIdx.y of a batch of gridDim.y: its points, mask, table, packed rows,
-// origin and inv_leaf start at the given strides (in elements) times b, and its partials,
-// counter and output row are its own. The single-sequence entry point is this kernel with
-// one sequence, so row b of a batch is the same computation, bit for bit, as a launch on
-// sequence b alone with the same number of blocks.
-struct Batch {
-  long long p, mask, table, packed4, origin;  // per-sequence strides
-  int scalars;                                // 1: d2 / w_scale pointers hold one value per
-                                              // sequence; 0: one shared value
-};
 
 __global__ void __launch_bounds__(kThreads)
 ndt_direct7_kernel(const float* __restrict__ p, const uint8_t* __restrict__ mask,
@@ -254,28 +124,8 @@ ndt_direct7_kernel(const float* __restrict__ p, const uint8_t* __restrict__ mask
     const long long i = k / 7;
     const int o = (int)(k - 7 * i);
     if (!mask[i]) continue;
-    const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
-    // DIRECT7 offset o, in the order of ops/voxel.py:DIRECT7_OFFSETS: (0,0,0), (+-1,0,0),
-    // (0,+-1,0), (0,0,+-1).
-    const int cx = voxel_coord(x, ox, inv_leaf, grid.hx) + (o == 1) - (o == 2);
-    const int cy = voxel_coord(y, oy, inv_leaf, grid.hy) + (o == 3) - (o == 4);
-    const int cz = voxel_coord(z, oz, inv_leaf, grid.hz) + (o == 5) - (o == 6);
-    if (cx < 0 || cx >= grid.dx || cy < 0 || cy >= grid.dy || cz < 0 || cz >= grid.dz)
-      continue;  // outside the table: the reference's overflow slot, which reads -1
-    const int idx = __ldg(&table[(cx * grid.dy + cy) * grid.dz + cz]);
-    if (idx < 0) continue;  // empty cell
-    const float4* row = packed + 4 * (long long)idx;
-    const float4 r3 = __ldg(row + 3);  // valid | pad
-    if (!(r3.x > 0.5f)) continue;      // fewer than min_points
-    const float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
-    // Row layout: mean (0..2) | inv_cov row-major (3..11) | valid (12) | pad.
-    const float W[3][3] = {{r0.w, r1.x, r1.y}, {r1.z, r1.w, r2.x}, {r2.y, r2.z, r2.w}};
-    const float ex = x - r0.x, ey = y - r0.y, ez = z - r0.z;
-    accumulate_row(acc, ex, ey, ez, W, x, y, z, d2, ws);
-    if (o == 0) {
-      acc[29] += ex * ex + ey * ey + ez * ez;
-      acc[30] += 1.f;
-    }
+    direct7_pair(acc, p[3 * i], p[3 * i + 1], p[3 * i + 2], o, table, packed, ox, oy, oz,
+                 inv_leaf, grid, d2, ws);
   }
   reduce_and_finish(acc, partials + b * kQ * gridDim.x, counter + b, out + b * kOut);
 }

@@ -32,8 +32,8 @@ def distance_filter(points: torch.Tensor, mask: torch.Tensor, min_distance,
 
 def crop_filter(points: torch.Tensor, mask: torch.Tensor, min_xyz, max_xyz) -> torch.Tensor:
     """Axis-aligned crop box (the reference's dormant `crop`)."""
-    lo = torch.as_tensor(min_xyz, dtype=points.dtype, device=points.device)
-    hi = torch.as_tensor(max_xyz, dtype=points.dtype, device=points.device)
+    lo = voxel.const(tuple(min_xyz), points.dtype, points.device)
+    hi = voxel.const(tuple(max_xyz), points.dtype, points.device)
     inside = torch.all((points >= lo) & (points <= hi), dim=-1)
     return mask & inside
 

@@ -8,22 +8,21 @@ hybrid f64-host / f32-device pose-graph solve, and map assembly.
 
 Concurrency, as in the reference's concurrent back end:
   * Verification runs in a worker thread on its own CUDA stream (on a CUDA device),
-    which waits on the main stream's input builds. Its NDT and ICP loops read a flag
-    back once per iteration, so a plain call would block the frame for the whole
-    verification. `_consume_verify` joins the thread at the frame at which the reference
-    reads its dispatched program's results (`loop_verify_lag_frames`), so which frame a
-    loop factor lands on does not depend on timing. A failure in the thread is raised
-    in the caller.
+    which waits on the main stream's input builds. Its ICP loop reads a flag back once
+    per iteration (the NDT pre-align reads nothing), so a plain call would block the
+    frame for the whole verification. `_consume_verify` joins the thread at the frame at
+    which the reference reads its dispatched program's results (`loop_verify_lag_frames`),
+    so which frame a loop factor lands on does not depend on timing. A failure in the
+    thread is raised in the caller.
   * The solve runs in a `threading.Thread` over numpy (f64), as in the reference.
   * `async_backend=False` runs the same verification inline — the deterministic path.
 
 With `use_global_init` each candidate's verification starts from its own FPFH+RANSAC
-guess (`registration/features.py`), computed with the other verification inputs on the
-frame's thread and stream before the worker's stream waits on it. The caller reads
-nothing of the guess back, but on a CUDA device `torch.linalg.svd` reads its status on
-the host (three calls a guess), so the frame's thread waits for the device once per
-candidate at a loop tick, outside `verify_seconds`. The RANSAC family counts are read
-with the results, in the worker.
+guess (`registration/features.py`), built by `_verify` ahead of the pre-align: in the
+worker thread, on the candidate's stream, with the asynchronous back end (inline with the
+synchronous one). On a CUDA device `torch.linalg.svd` reads its status on the host (three
+calls a guess), so that wait falls on the worker, inside `verify_seconds`, and not on the
+frame's thread. The RANSAC family counts are read with the results, on the same stream.
 
 With a mesh (`parallel/distributed.py:Mesh`, from `ParallelConfig.use_mesh`), the top-k
 candidates are laid out over the mesh's slots (`shard_batch`) and each slot's candidates
@@ -98,6 +97,8 @@ def _host_cloud(kf) -> np.ndarray:
 
 
 PRE_ALIGN_OUTLIER_RATIO = 0.55
+# `global_register`'s RANSAC family diagnostics, in the order `_verify` carries them.
+_RANSAC_COUNTS = ("n_3pt_valid", "n_yaw_valid", "best_is_yaw")
 
 
 def loop_pre_align(pre_map, src_p, src_m, guess):
@@ -156,6 +157,18 @@ def make_verify_one(cfg: GraphSlamConfig, method: str):
         return res.transform, score, ok
 
     return one
+
+
+def host_results(host) -> dict:
+    """The verification results of a batch (`_verify_candidate`'s outputs per item, as
+    host tensors, in item order) as numpy arrays: Ts, scores, convs, and `global_diags`,
+    one dict of RANSAC family counts per item (empty without `use_global_init`)."""
+    out = {name: torch.stack([h[i] for h in host]).numpy()
+           for i, name in enumerate(("Ts", "scores", "convs", "counts")[:len(host[0])])}
+    out["global_diags"] = [
+        {"n_3pt_valid": int(c[0]), "n_yaw_valid": int(c[1]), "best_is_yaw": bool(c[2])}
+        for c in out.pop("counts", ())]
+    return out
 
 
 class GraphBasedSLAM:
@@ -415,8 +428,9 @@ class GraphBasedSLAM:
         """Detection + verification-input builds for the latest keyframe (on the back
         end's device, on the calling thread's stream). Returns None (gated/capacity) or a
         dict with the per-candidate `targets` (grid, pre-align map, verifier map, initial
-        guess), the source cloud, the per-candidate RANSAC diagnostics (`global_diags`,
-        device tensors; empty without `use_global_init`) and attempt metadata."""
+        guess's inputs: None, or with `use_global_init` the candidate's filtered submap
+        and viewpoint, from which `_verify` builds the FPFH+RANSAC guess), the source
+        cloud and attempt metadata."""
         if self.n_loops >= self.capacity.max_loop_factors:
             # Refuse at capacity and surface it (the device graph drops the write).
             if not self.loop_overflow:
@@ -438,8 +452,7 @@ class GraphBasedSLAM:
         src_cloud = PointCloud.from_array(src, capacity=self.capacity.keyframe_points,
                                           device=dev)
         corr_dist = min(self.cfg.icp.max_correspondence_distance, 2.0)
-        targets, global_diags = [], []
-        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        targets = []
         for cand in cands:
             submap = self._assemble_submap(cand, self.cfg.search_key_frame_num,
                                            max_points=self.capacity.loop_submap_points)
@@ -448,23 +461,11 @@ class GraphBasedSLAM:
             filtered = voxel_downsample(sub_cloud.points, sub_cloud.mask,
                                         self.cfg.loop_submap_leaf,
                                         capacity=self.capacity.loop_submap_points)
-            # Stage 0 (optional): FPFH+RANSAC global initial guess — recovers candidates
-            # whose drift lies far outside any local verifier's basin. The select stays
-            # on the device: no host branch on `ok`.
-            guess = eye
+            # Stage 0's inputs (optional): the FPFH+RANSAC global guess is built by
+            # `_verify`, off the frame's thread when the back end is asynchronous.
+            glob = None
             if self.cfg.use_global_init:
-                gr = self.cfg.global_reg
-                T_g, _, g_ok, g_diag = global_register(
-                    src_cloud.points, src_cloud.mask, filtered.points, filtered.mask,
-                    keypoint_leaf=gr.keypoint_leaf, normal_k=gr.normal_k, fpfh_k=gr.fpfh_k,
-                    hypotheses=gr.hypotheses, inlier_threshold=gr.inlier_threshold,
-                    min_occupancy=gr.min_occupancy, max_keypoints=gr.max_keypoints,
-                    src_viewpoint=T_latest[:3, 3],
-                    tgt_viewpoint=self._poses_host[cand][:3, 3],
-                    return_diag=True,
-                )
-                guess = torch.where(g_ok, T_g, eye)
-                global_diags.append(g_diag)
+                glob = (filtered.points, filtered.mask, self._poses_host[cand][:3, 3])
             grid = build_hash_grid(filtered.points, filtered.mask, corr_dist)
             pre_map = build_ndt_map(filtered.points, filtered.mask, 4.0,
                                     capacity=self.capacity.voxel_capacity // 4)
@@ -476,7 +477,7 @@ class GraphBasedSLAM:
                 extra = gicp_mod.build_gicp_target(
                     filtered.points, filtered.mask, self.cfg.gicp.max_correspondence_distance,
                     k=self.cfg.gicp.correspondence_randomness)
-            targets.append((grid, pre_map, extra, guess))
+            targets.append((grid, pre_map, extra, glob))
         src_covs = None
         if self.method == "GICP":
             # The source's covariances, once per attempt, shared by every candidate.
@@ -486,15 +487,47 @@ class GraphBasedSLAM:
         return {
             "cands": cands, "latest": latest, "T_latest": T_latest, "targets": targets,
             "source": (src_cloud.points, src_cloud.mask, src_covs),
-            "global_diags": global_diags,
         }
+
+    def _verify_candidate(self, target, source, T_latest):
+        """One candidate's verification from its `_build_verify_inputs` target and the
+        source, on the caller's thread and stream: `_initial_guess`, then the verifier.
+        Returns device tensors (transform, fitness, ok), then the RANSAC family counts
+        with `use_global_init`."""
+        grid, pre_map, extra, glob = target
+        src_p, src_m, src_covs = source
+        guess, counts = self._initial_guess(glob, src_p, src_m, T_latest)
+        return (*self._verify_one(grid, pre_map, extra, guess, src_p, src_m, src_covs),
+                *counts)
+
+    def _initial_guess(self, glob, src_p, src_m, T_latest):
+        """Stage 0 of a verification, on the caller's thread and stream: the identity, or
+        with `use_global_init` the FPFH+RANSAC global initial guess — it recovers
+        candidates whose drift lies far outside any local verifier's basin. The select
+        stays on the device: no host branch on `ok`. Returns (guess [4,4], the RANSAC
+        family counts as a tuple of one int64 [3] tensor, empty without the option)."""
+        eye = torch.eye(4, dtype=torch.float32, device=src_p.device)
+        if glob is None:
+            return eye, ()
+        tgt_p, tgt_m, tgt_viewpoint = glob
+        gr = self.cfg.global_reg
+        T_g, _, g_ok, diag = global_register(
+            src_p, src_m, tgt_p, tgt_m, keypoint_leaf=gr.keypoint_leaf,
+            normal_k=gr.normal_k, fpfh_k=gr.fpfh_k, hypotheses=gr.hypotheses,
+            inlier_threshold=gr.inlier_threshold, min_occupancy=gr.min_occupancy,
+            max_keypoints=gr.max_keypoints, src_viewpoint=T_latest[:3, 3],
+            tgt_viewpoint=tgt_viewpoint, return_diag=True)
+        counts = torch.stack([diag[k].to(torch.int64) for k in _RANSAC_COUNTS])
+        return torch.where(g_ok, T_g, eye), (counts,)
 
     def _verify(self, inp, streams=None) -> dict:
         """Run every candidate's verification (the reference's vmap over candidates: each
         one is independent), each on its own device (`inp["sources"]` holds its source
         there) and, given `streams`, on that device's stream. On a mesh that spans
         processes this process verifies its own slots' candidates and the others' results
-        are all-gathered. Returns host results and this thread's kernel launches."""
+        are all-gathered. Each verification starts from `_initial_guess` (with
+        `use_global_init`, the FPFH+RANSAC guess, built here on the candidate's stream).
+        Returns host results and this thread's kernel launches."""
         t0 = time.perf_counter()
         before = kernels.thread_launches()
 
@@ -508,10 +541,9 @@ class GraphBasedSLAM:
         mine = [i for i in range(n) if slots[i] is None or slots[i] in local]
         results = {}
         for i in mine:
-            (grid, pre_map, extra, guess), (src_p, src_m, src_covs) = inp["targets"][i], sources[i]
-            with on_stream(src_p.device):
-                results[i] = self._verify_one(grid, pre_map, extra, guess, src_p, src_m,
-                                              src_covs)
+            with on_stream(sources[i][0].device):
+                results[i] = self._verify_candidate(inp["targets"][i], sources[i],
+                                                    inp["T_latest"])
         # Each result is read on the stream that computed it: another stream of the
         # thread would not wait for it.
         for i in mine:
@@ -519,13 +551,7 @@ class GraphBasedSLAM:
                 results[i] = tuple(x.cpu() for x in results[i])
         host = (gather_slot_items(self.mesh, slots, results) if self.mesh is not None
                 else [results[i] for i in range(n)])
-        out = {name: torch.stack([h[i] for h in host]).numpy()
-               for i, name in enumerate(("Ts", "scores", "convs"))}
-        # The RANSAC family counts are read here, with the results, not on the frame's
-        # thread: the read waits for the device.
-        out["global_diags"] = [
-            {"n_3pt_valid": int(d["n_3pt_valid"]), "n_yaw_valid": int(d["n_yaw_valid"]),
-             "best_is_yaw": bool(d["best_is_yaw"])} for d in inp["global_diags"]]
+        out = host_results(host)
         out["launches"] = kernels.thread_launches() - before
         out["seconds"] = time.perf_counter() - t0
         return out

@@ -1,33 +1,48 @@
-"""NDT/GICP normal-equation accumulation — the registration hot loop's reduction.
+"""NDT/GICP normal-equation accumulation and the whole NDT Gauss-Newton loop.
 
-Both wrappers port the TPU kernel `ndt_accumulate` of
+The wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
-`ndt_accumulate_xla`, same file) as hand-written CUDA kernels for Hopper in one source,
-`csrc/ndt_accumulate.cu` (its header says what bounds them and how they are built for
-that), compiled with nvcc at first use into `build/` and bound with ctypes:
+`ndt_accumulate_xla`, same file) and the NDT `lax.while_loop` around it
+(`lidar_graph_slam_tpu/registration/ndt.py:81-147`) as hand-written CUDA kernels for
+Hopper in two sources that share one header (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
+`csrc/ndt_common.cuh`; each source's header says what bounds its kernels), compiled with
+nvcc into one library at first use in `build/` and bound with ctypes:
 
+* `ndt_align_loop(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
+  transform_epsilon, damping, max_iterations, polish_iterations)`: the NDT loop of
+  `ndt_align` (line search off) — one C call enqueues `max_iterations` launches of the
+  `ndt_iteration` kernel (transform, DIRECT7 gather, accumulation and the 6x6 step in one
+  launch, the carry in device memory; a launch that finds the carry done exits at once),
+  then the polish launches. Nothing is read back.
+* `ndt_align_loop_batched(...)`: the same for B sequences, one launch of
+  `ndt_iteration_batched` an iteration (`parallel/multi_sequence.py`); row b equals the
+  single loop on sequence b bit for bit on the card.
 * `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
   reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
-  accumulation, and the centre-residual sums of NDT's fitness. `ndt_align` calls it.
+  accumulation, and the centre-residual sums of NDT's fitness. The loop kernel runs the
+  same gather and reduction; this entry point stays for measurement against it.
 * `ndt_direct7_accumulate_batched(vmaps, p, source_mask, d2, w_scale)`: the same
   reduction for B sequences in one launch, each against its own map (the maps' tensors
-  stacked on a leading batch axis, `stack_maps`), one output row per sequence — the
-  multi-sequence odometry's (`parallel/multi_sequence.py`). Row b equals
-  `ndt_direct7_accumulate` on sequence b alone bit for bit (the same kernel, the same
-  number of blocks per sequence).
+  stacked on a leading batch axis, `stack_maps`), one output row per sequence. Row b
+  equals `ndt_direct7_accumulate` on sequence b alone bit for bit (the same kernel, the
+  same number of blocks per sequence).
 * `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
   rows, for NDT's line search (which needs the gathered means) and GICP.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
 (`lidar_graph_slam_tpu/registration/base.py:38-64`); `ndt_direct7_accumulate_plain` is
-`lookup_direct7` followed by it (`direct7_gathered`); `ndt_direct7_accumulate_batched_plain`
-loops that over the batch. A wrapper takes its plain version
-for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
+`lookup_direct7` followed by it (`direct7_gathered`); `ndt_align_loop_plain` is the
+reference's body (`ndt_direct7_accumulate_plain`, then `ndt_step_plain`) with the carry
+frozen after `done`; the batched plain versions loop the single ones over the batch. A
+wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches its
+kernel or raises.
 
 Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
 on the main thread and loop verification in its worker thread both launch), and
-`thread_launches()` the calling thread's, so a caller can tell the two paths apart.
+`thread_launches()` the calling thread's, so a caller can tell the two paths apart. A loop
+wrapper counts every launch it enqueues; `worked_launches()` reads how many of them did
+work (a device counter, read with a device-wide synchronize: for measurement only).
 Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
 a ticket counter (one per sequence of a batch); there is one such pair per CUDA stream,
 made at the stream's first launch (and grown for a larger batch), because the odometry
@@ -46,15 +61,20 @@ import time
 
 import torch
 
+from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     COORD_MAX,
     TABLE_DIMS,
     NdtVoxelMap,
     lookup_direct7,
 )
+from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_damped
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "ndt_accumulate.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+# Built together into one library; the header is part of the digest too.
+_SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu")]
+_HEADERS = [os.path.join(_CSRC, "ndt_common.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -71,14 +91,14 @@ _thread_counts = threading.local()
 
 
 def thread_launches() -> int:
-    """Kernel launches (of both kernels) made by the calling thread since it started."""
+    """Kernel launches (of every kernel) made by the calling thread since it started."""
     return getattr(_thread_counts, "launches", 0)
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, n: int = 1) -> None:
     with _count_lock:
-        wrapper.launches += 1
-    _thread_counts.launches = thread_launches() + 1
+        wrapper.launches += n
+    _thread_counts.launches = thread_launches() + n
 
 
 # -- plain versions ----------------------------------------------------------------------
@@ -175,6 +195,83 @@ def ndt_direct7_accumulate_batched_plain(vmaps, p, source_mask, d2, w_scale):
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
+def ndt_step_plain(sums, T, done, iters, step_size, transform_epsilon, damping,
+                   refine=None):
+    """One Gauss-Newton step from an iteration's reduction (`ndt_direct7_accumulate`'s
+    outputs), the reference's body after its accumulation: the damped solve, the step cap
+    (then `refine`, the line search, if given), the fitness, the guarded update and the
+    convergence test. Returns the next carry (T, done, iterations, fitness, inliers)."""
+    H, g, _sum_w, n_hit, centre_d2, centre_count = sums
+    n_inliers = n_hit.to(torch.int32)
+    delta = cap_step(solve_damped(H, g, damping), step_size)
+    if refine is not None:
+        delta = refine(delta)
+    # Mean squared distance to the matched voxel means (diagnostic fitness).
+    fitness = centre_d2 / torch.clamp(centre_count, min=1.0)
+    step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
+    delta = torch.where(step_ok, delta, 0.0)
+    T_new = se3.se3_exp(delta) @ T
+    newly_done = norm(delta) < transform_epsilon
+    return T_new, done | newly_done, iters + 1, fitness, n_inliers
+
+
+def ndt_carry_update(sums, carry, step_size, transform_epsilon, damping, polish: bool):
+    """Plain version of what one `ndt_iteration` launch does to the carry (T, done,
+    iterations, fitness, inliers) given the iteration's reduction `sums`: a non-polish
+    launch whose carry is done leaves it as it is (the while_loop's cond), otherwise takes
+    `ndt_step_plain`'s carry; a polish launch updates T, fitness and inliers and keeps done
+    and iterations. Returns the next carry."""
+    T, done, iters, _, _ = carry
+    new = ndt_step_plain(sums, T, done, iters, step_size, transform_epsilon, damping)
+    if polish:
+        return new[0], done, iters, new[3], new[4]
+    return tuple(torch.where(done, old, n) for old, n in zip(carry, new))
+
+
+def ndt_align_loop_plain(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
+                         transform_epsilon, damping, max_iterations, polish_iterations,
+                         stop_early=None):
+    """Plain PyTorch version of `ndt_align_loop`: the reference's `while_loop` as
+    `max_iterations` torch-op bodies whose carry is frozen from the iteration that finds
+    it done (the cond's semantics), then `polish_iterations` bodies that update only T,
+    fitness and inliers (`ndt_carry_update`). `stop_early` (default: on the CPU, where
+    reading `done` costs nothing) ends the loop at the first `done` instead; a frozen carry
+    gives the same result bit for bit. Returns (T, done, iterations, fitness, inliers)."""
+    dev = source_points.device
+    if stop_early is None:
+        stop_early = dev.type == "cpu"
+
+    def launch(carry, polish):
+        p = se3.transform_points(carry[0], source_points)
+        sums = ndt_direct7_accumulate_plain(vmap, p, source_mask, d2, w_scale)
+        return ndt_carry_update(sums, carry, step_size, transform_epsilon, damping, polish)
+
+    carry = (T0.to(torch.float32), torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.full((), torch.inf, dtype=torch.float32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    for _ in range(max_iterations):
+        if stop_early and bool(carry[1]):
+            break
+        carry = launch(carry, polish=False)
+    for _ in range(polish_iterations):
+        carry = launch(carry, polish=True)
+    return carry
+
+
+def ndt_align_loop_batched_plain(vmaps, source_points, source_mask, T0, d2, w_scale,
+                                 step_size, transform_epsilon, damping, max_iterations,
+                                 polish_iterations, stop_early=None):
+    """Plain PyTorch version of `ndt_align_loop_batched`: `ndt_align_loop_plain` on each
+    sequence against its own map, each carry stacked on a leading batch axis."""
+    rows = [ndt_align_loop_plain(map_at(vmaps, b), source_points[b], source_mask[b], T0[b],
+                                 _scalar_at(d2, b), _scalar_at(w_scale, b), step_size,
+                                 transform_epsilon, damping, max_iterations,
+                                 polish_iterations, stop_early)
+            for b in range(source_points.shape[0])]
+    return tuple(torch.stack(x) for x in zip(*rows))
+
+
 # -- the library -------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -184,16 +281,17 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "csrc/ndt_accumulate.cu")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the "
+                       "kernels of csrc/")
 
 
 def load_library():
     """Build (once per source version) and load the kernel library; returns it.
 
-    The library is named by a hash of the source, so an edited source is rebuilt and a
-    stale build is never loaded. `build_info` records the path, the build seconds (0.0
-    when an existing build was loaded) and the compiler's output.
+    The library is named by a hash of the sources and the header they share, so an
+    edited file is rebuilt and a stale build is never loaded. `build_info` records the
+    path, the build seconds (0.0 when an existing build was loaded) and the compiler's
+    output.
     """
     if _lib is not None:
         return _lib
@@ -205,15 +303,18 @@ def _load_library_locked():
     global _lib
     if _lib is not None:
         return _lib
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    for path in _SOURCES + _HEADERS:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    digest = h.hexdigest()[:16]
     so_path = os.path.join(_BUILD_DIR, f"libndt_accumulate-{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(so_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, *_SOURCES],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
@@ -230,9 +331,18 @@ def _load_library_locked():
     lib.lgs_ndt_direct7_accumulate_batched.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i32, vp, f32, vp, f32, i64,
         i32, vp, vp, i32, vp, vp]
+    lib.lgs_ndt_align_loop.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, vp, f32, vp, f32, i64, f32, f32,
+        vp, f32, vp, vp, vp, vp, vp, i32, i32, vp, vp, i32, vp]
+    lib.lgs_ndt_align_loop_batched.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i32, vp, f32, vp, f32, i64,
+        i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, i32, vp, vp, i32, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
-               lib.lgs_ndt_direct7_accumulate_batched):
+               lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
+               lib.lgs_ndt_align_loop_batched):
         fn.restype = ctypes.c_int
+    lib.lgs_ndt_worked_launches.argtypes = [i32]
+    lib.lgs_ndt_worked_launches.restype = i64
     for name in ("threads", "quantities", "outputs"):
         fn = getattr(lib, f"lgs_ndt_{name}")
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -374,11 +484,11 @@ def ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale):
     return out[:36].view(6, 6), out[36:42], out[42], out[43], out[44], out[45]
 
 
-def _batched_scalar_arg(x, device, batch: int):
-    """(device pointer, host value, one value per sequence) for d2 / w_scale of the batched
+def _batched_scalar_arg(x, device, batch: int, wrapper: str = "ndt_direct7_accumulate_batched"):
+    """(device pointer, host value, one value per sequence) for d2 / w_scale of a batched
     kernel: a number, a 0-d f32 tensor, or a [batch] f32 tensor."""
     if isinstance(x, torch.Tensor) and x.dim() == 1:
-        _check("ndt_direct7_accumulate_batched", device, scalars=(x, (batch,), torch.float32))
+        _check(wrapper, device, scalars=(x, (batch,), torch.float32))
         return x.data_ptr(), 0.0, 1
     ptr, val = _scalar_arg(x, device)
     return ptr, val, 0
@@ -431,6 +541,140 @@ def ndt_direct7_accumulate_batched(vmaps, p, source_mask, d2, w_scale):
             out[:, 45])
 
 
+def _loop_carry(T0, batch: tuple):
+    """The loop's carry, allocated once per call: (T f32 copy of T0, done, iterations,
+    fitness, inliers), each with the leading `batch` shape."""
+    dev = T0.device
+    return (T0.to(dtype=torch.float32, copy=True).contiguous(),
+            torch.zeros(batch, dtype=torch.bool, device=dev),
+            torch.zeros(batch, dtype=torch.int32, device=dev),
+            torch.full(batch, torch.inf, dtype=torch.float32, device=dev),
+            torch.zeros(batch, dtype=torch.int32, device=dev))
+
+
+def _check_transform(wrapper: str, dev, T0, lead: tuple) -> None:
+    if T0.device != dev or tuple(T0.shape) != lead + (4, 4) or not T0.is_floating_point():
+        raise ValueError(f"{wrapper}: T0 must be a float {lead + (4, 4)} tensor on {dev}, got "
+                         f"{T0.dtype} {tuple(T0.shape)} on {T0.device}")
+
+
+def _check_map(wrapper: str, dev, vmap, lead: tuple) -> None:
+    C = vmap.packed.shape[len(lead)]
+    _check(wrapper, dev, table=(vmap.table, lead + (_TABLE_SIZE,), torch.int32),
+           packed=(vmap.packed, lead + (C, 16), torch.float32),
+           origin=(vmap.origin, lead + (3,), torch.float32),
+           inv_leaf=(vmap.inv_leaf, lead, torch.float32))
+    if vmap.packed.data_ptr() % 16:
+        raise ValueError(f"{wrapper}: packed rows must be 16-byte aligned")
+
+
+def ndt_align_loop(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
+                   transform_epsilon, damping, max_iterations, polish_iterations):
+    """The whole NDT Gauss-Newton loop of `registration/ndt.py:ndt_align` (line search
+    off) against a voxel map, as the reference's `lax.while_loop` runs it on the device.
+
+    vmap:          `ops.voxel.NdtVoxelMap` (as `ndt_direct7_accumulate` takes it)
+    source_points: [N, 3] f32 source points (untransformed), source_mask: [N] bool
+    T0:            [4, 4] initial transform
+    d2, w_scale, damping: 0-d f32 tensors on the device, or numbers
+    step_size, transform_epsilon: numbers (rounded to float32, as the reference's)
+    Returns the device carry (T, done, iterations, fitness, inliers): T [4,4] f32 after
+    the polish, done bool, iterations i32 (the bodies that ran before `done`, at most
+    `max_iterations`), fitness f32 and inliers i32 of the last body (polish included).
+    Nothing is read back.
+
+    CPU tensors take `ndt_align_loop_plain`. On CUDA tensors one C call enqueues
+    `max_iterations` launches of the `ndt_iteration` kernel (`csrc/ndt_loop.cu`: the
+    transform, gather, accumulation and the step in one launch; a launch that finds the
+    carry done exits at once), then `polish_iterations` polish launches, on the current
+    stream, counted in `ndt_align_loop.launches`; it raises if the kernel fails to build
+    or a launch is refused.
+    """
+    if source_points.device.type == "cpu":
+        return ndt_align_loop_plain(vmap, source_points, source_mask, T0, d2, w_scale,
+                                    step_size, transform_epsilon, damping, max_iterations,
+                                    polish_iterations)
+    dev = source_points.device
+    if dev.type != "cuda":
+        raise ValueError(f"ndt_align_loop: unsupported device {dev}")
+    n = source_points.shape[0]
+    _check("ndt_align_loop", dev, source_points=(source_points, (n, 3), torch.float32),
+           source_mask=(source_mask, (n,), torch.bool))
+    _check_transform("ndt_align_loop", dev, T0, ())
+    _check_map("ndt_align_loop", dev, vmap, ())
+    d2_ptr, d2_val = _scalar_arg(d2, dev)
+    ws_ptr, ws_val = _scalar_arg(w_scale, dev)
+    dp_ptr, dp_val = _scalar_arg(damping, dev)
+    lib = load_library()
+    stream, partials, counter, nblocks, _ = _launch_args(dev, 7 * n)
+    carry = _loop_carry(T0, ())
+    _raise_on(lib.lgs_ndt_align_loop(
+        source_points.data_ptr(), source_mask.data_ptr(), vmap.table.data_ptr(),
+        vmap.packed.data_ptr(), vmap.origin.data_ptr(), vmap.inv_leaf.data_ptr(), *TABLE_DIMS,
+        *COORD_MAX, d2_ptr, d2_val, ws_ptr, ws_val, n, step_size, transform_epsilon, dp_ptr,
+        dp_val, *(x.data_ptr() for x in carry), max_iterations, polish_iterations, partials,
+        counter, nblocks, stream), "ndt_align_loop")
+    _count(ndt_align_loop, max_iterations + polish_iterations)
+    return carry
+
+
+def ndt_align_loop_batched(vmaps, source_points, source_mask, T0, d2, w_scale, step_size,
+                           transform_epsilon, damping, max_iterations, polish_iterations):
+    """`ndt_align_loop` for B sequences in one launch an iteration, each against its own
+    map (`stack_maps`): source_points [B, N, 3] f32, source_mask [B, N] bool, T0 [B, 4, 4];
+    d2 and w_scale numbers, 0-d or [B] f32 tensors; damping a number or a 0-d f32 tensor.
+    Returns the carry with a leading batch axis. A finished sequence's blocks exit on its
+    own `done`; row b equals `ndt_align_loop` on sequence b alone bit for bit on the card.
+
+    CPU tensors take `ndt_align_loop_batched_plain`; CUDA tensors launch the
+    `ndt_iteration_batched` kernel (counted in `ndt_align_loop_batched.launches`) or
+    raise.
+    """
+    if source_points.device.type == "cpu":
+        return ndt_align_loop_batched_plain(vmaps, source_points, source_mask, T0, d2,
+                                            w_scale, step_size, transform_epsilon, damping,
+                                            max_iterations, polish_iterations)
+    dev = source_points.device
+    if dev.type != "cuda":
+        raise ValueError(f"ndt_align_loop_batched: unsupported device {dev}")
+    B, n = source_points.shape[:2]
+    name = "ndt_align_loop_batched"
+    _check(name, dev, source_points=(source_points, (B, n, 3), torch.float32),
+           source_mask=(source_mask, (B, n), torch.bool))
+    _check_transform(name, dev, T0, (B,))
+    _check_map(name, dev, vmaps, (B,))
+    d2_ptr, d2_val, per_seq = _batched_scalar_arg(d2, dev, B, name)
+    ws_ptr, ws_val, per_seq_ws = _batched_scalar_arg(w_scale, dev, B, name)
+    if d2_ptr is not None and ws_ptr is not None and per_seq != per_seq_ws:
+        raise ValueError(f"{name}: d2 and w_scale must both be per-sequence tensors or both "
+                         "shared")
+    dp_ptr, dp_val = _scalar_arg(damping, dev)
+    lib = load_library()
+    stream, partials, counters, nblocks, _ = _launch_args(dev, 7 * n, B)
+    carry = _loop_carry(T0, (B,))
+    _raise_on(lib.lgs_ndt_align_loop_batched(
+        source_points.data_ptr(), source_mask.data_ptr(), vmaps.table.data_ptr(),
+        vmaps.packed.data_ptr(), vmaps.origin.data_ptr(), vmaps.inv_leaf.data_ptr(),
+        *TABLE_DIMS, *COORD_MAX, vmaps.packed.shape[1], B, d2_ptr, d2_val, ws_ptr, ws_val, n,
+        max(per_seq, per_seq_ws), step_size, transform_epsilon, dp_ptr, dp_val,
+        *(x.data_ptr() for x in carry), max_iterations, polish_iterations, partials, counters,
+        nblocks, stream), name)
+    _count(ndt_align_loop_batched, max_iterations + polish_iterations)
+    return carry
+
+
+def worked_launches(reset: bool = False) -> int:
+    """The `ndt_iteration` launches (single and batched; one per sequence of a batch) that
+    did work rather than exit on a finished carry, since the last reset, on the current
+    card. Synchronizes the whole device: for measurement only, never on a hot path."""
+    n = load_library().lgs_ndt_worked_launches(int(reset))
+    if n < 0:
+        _raise_on(-n, "worked_launches")
+    return n
+
+
 ndt_accumulate.launches = 0
 ndt_direct7_accumulate.launches = 0
 ndt_direct7_accumulate_batched.launches = 0
+ndt_align_loop.launches = 0
+ndt_align_loop_batched.launches = 0

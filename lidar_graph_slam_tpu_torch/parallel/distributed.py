@@ -262,7 +262,7 @@ def batched_icp(mesh: Mesh, target_grid, sources, masks, init_Ts, **kw) -> Regis
 def batched_ndt(mesh: Mesh, vmap_target, sources, masks, init_Ts, **kw) -> RegistrationResult:
     """`batched_icp` for NDT against a shared voxel map: each local slot aligns its part of
     the batch at once with `ndt_align_batched` (one batched kernel launch per
-    iteration)."""
+    iteration, no host read)."""
     per = _split(mesh, sources.shape[0])
     out = []
     for s in mesh.local_slots:

@@ -10,8 +10,9 @@ step of a Python loop over frames for the whole batch:
     after another, and stacked for the batched kernel; a frame's maps are dropped when
     it ends;
   * the coarse and the fine alignment run for the whole batch at once
-    (`registration/ndt.py:ndt_align_batched`: one launch of the batched fused NDT kernel
-    per iteration, one host read of the B `done` flags per iteration);
+    (`registration/ndt.py:ndt_align_batched`: one launch of the batched NDT iteration
+    kernel per iteration, no host read; a finished sequence's blocks exit on its own
+    `done`);
   * keyframing is a masked state update, per sequence: every frame computes the would-be
     ring insert and applies it behind the displacement trigger.
 
@@ -248,37 +249,36 @@ def _batched_loop_attempts(backs, due, mesh: Mesh | None) -> None:
     its last candidate to shard it evenly; here the slots run one after another, so a pad
     would only cost time). Sequences are independent, so batching changes no decision.
     Every sequence that accepts a factor is then solved in `_solve_block_diagonal`."""
+    from lidar_graph_slam_tpu_torch.graph.slam import host_results
+
     inputs = [(b, inp) for b in due if (inp := backs[b]._build_verify_inputs()) is not None]
     if not inputs:
         return
-    items = [(target, inp["source"]) for _, inp in inputs for target in inp["targets"]]
+    items = [(target, inp["source"], inp["T_latest"])
+             for _, inp in inputs for target in inp["targets"]]
     slots = [None] * len(items)
     local = set()
     if mesh is not None:
         items, _, slots = shard_batch(mesh, items, None)
         local = set(mesh.local_slots)
-    verify = backs[inputs[0][0]]._verify_one
+    verify = backs[inputs[0][0]]._verify_candidate
     results = {}
-    for i, (target, (src_p, src_m, src_covs)) in enumerate(items):
+    for i, item in enumerate(items):
         if slots[i] is None or slots[i] in local:  # another process verifies the rest
-            results[i] = tuple(x.cpu() for x in verify(*target, src_p, src_m, src_covs))
+            results[i] = tuple(x.cpu() for x in verify(*item))
     host = (gather_slot_items(mesh, slots, results) if mesh is not None
             else [results[i] for i in range(len(items))])
-    Ts, scores, convs = (torch.stack([h[i] for h in host]).numpy() for i in range(3))
+    res = host_results(host)
 
     accepted, off = [], 0
     for b, inp in inputs:
         k = len(inp["cands"])
+        part = slice(off, off + k)
         pend = {"cands": inp["cands"], "latest": inp["latest"], "T_latest": inp["T_latest"],
                 "results": {
-                    "Ts": Ts[off:off + k], "scores": scores[off:off + k],
-                    "convs": convs[off:off + k], "launches": 0, "seconds": 0.0,
-                    "slots": slots[off:off + k],
-                    "global_diags": [
-                        {"n_3pt_valid": int(d["n_3pt_valid"]),
-                         "n_yaw_valid": int(d["n_yaw_valid"]),
-                         "best_is_yaw": bool(d["best_is_yaw"])}
-                        for d in inp["global_diags"]]}}
+                    "Ts": res["Ts"][part], "scores": res["scores"][part],
+                    "convs": res["convs"][part], "launches": 0, "seconds": 0.0,
+                    "slots": slots[part], "global_diags": res["global_diags"][part]}}
         off += k
         if backs[b]._consume_verify(pend):
             accepted.append(b)

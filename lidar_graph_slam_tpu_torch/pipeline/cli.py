@@ -169,9 +169,14 @@ def main(argv=None) -> int:
         # Every frame but the bootstrap frame 0 (`PERF.md` section 2).
         "frame_p50_ms": 1000 * float(np.median(frame_s[1:])) if len(frame_s) > 1 else 0.0,
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
-            "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched")},
+            "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
+            "ndt_align_loop", "ndt_align_loop_batched")},
         "processes": process_count(),
     }
+    # How many of the NDT loop's launches did work (a device count; 0 without a loop).
+    looped = kernels.ndt_align_loop.launches + kernels.ndt_align_loop_batched.launches
+    summary["kernel_launches"]["ndt_iteration_worked"] = (
+        kernels.worked_launches() if pipe.device.type == "cuda" and looped else 0)
     store = pipe.back.cloud_store
     if store is not None:
         summary["keyframe_clouds_owned"] = len(store.local_ids())

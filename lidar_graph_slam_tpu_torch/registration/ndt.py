@@ -2,24 +2,27 @@
 
 Port of `lidar_graph_slam_tpu/registration/ndt.py`: iteratively-reweighted Gauss-Newton
 on Magnusson's exponential score against a voxel-Gaussian map (`ops.voxel`). Each
-iteration transforms the source, then gathers the DIRECT7 neighbor Gaussians and
-accumulates the 6x6 normal equations and the fitness sums in one step
-(`ops.kernels.ndt_direct7_accumulate`: one CUDA kernel launch on the card), then solves.
-With `line_search` the gathered rows are kept for the step search, so that path gathers
-with `lookup_direct7` and accumulates with `ops.kernels.ndt_accumulate`.
+iteration transforms the source, gathers the DIRECT7 neighbor Gaussians, accumulates the
+6x6 normal equations and the fitness sums, solves the damped step and applies it.
 
-Loop structure: the reference's `lax.while_loop` becomes a Python loop that reads the
-device's `done` flag once per iteration (one host sync per iteration); the two polish
-iterations then run unconditionally, even after convergence, as in the reference.
+Loop structure: the reference's `lax.while_loop` runs on the device. `ndt_align` makes one
+call per align, `ops.kernels.ndt_align_loop`: on the card one C call enqueues
+`max_iterations` launches of the `ndt_iteration` kernel (the whole body, the 6x6 step in
+its last block, the carry in device memory; a launch that finds the carry done exits at
+once, as the while_loop stops running its body), then the polish launches. The host reads
+nothing back, so the align makes no synchronous read. The two polish iterations run
+unconditionally, even after convergence, as in the reference.
+
+With `line_search` (off by default) the gathered rows are kept for the step search, so that
+path keeps a host loop: it gathers with `lookup_direct7`, accumulates with
+`ops.kernels.ndt_accumulate` and reads the device's `done` flag once per iteration.
 
 `ndt_align_batched` is the reference's `jax.vmap(ndt_align)` over B sequences, each
-against its own map: one launch of `ops.kernels.ndt_direct7_accumulate_batched` per
-iteration for the whole batch, one host read of the B `done` flags per iteration, and a
-sequence's carry (transform, done, iterations, fitness, inliers) frozen from the
-iteration it is done on, as the vmapped `while_loop` selects a finished lane's carry
-back. The step from the sums runs per sequence with `ndt_align`'s own operations, so
-sequence b's result equals `ndt_align` on it alone — bit for bit on the card, where the
-batched kernel's row b equals the single launch.
+against its own map: one call of `ops.kernels.ndt_align_loop_batched` (one launch of the
+batched kernel an iteration for the whole batch), in which a finished sequence's blocks
+exit on its own `done` — its carry frozen from the iteration it is done on, as the vmapped
+`while_loop` selects a finished lane's carry back. Sequence b's result equals `ndt_align`
+on it alone, bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -35,13 +38,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     build_ndt_map,
     build_ndt_pyramid,
 )
-from lidar_graph_slam_tpu_torch.ops.kernels import map_at
-from lidar_graph_slam_tpu_torch.registration.base import (
-    RegistrationResult,
-    cap_step,
-    norm,
-    solve_damped,
-)
+from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
 
 
 def magnusson_constants(resolution, outlier_ratio: float):
@@ -71,21 +68,41 @@ def ndt_align(
 ) -> RegistrationResult:
     """Align a masked source cloud to an NDT voxel map. Returns source->map transform.
 
-    `line_search=True` adds the reference's backtracking step-length search: each GN
-    step is evaluated at alpha in {1, 1/2, 1/4} on the Magnusson score over the current
-    correspondences and the best-scoring scale is taken. Off by default."""
+    Without `line_search` the loop is one call of `ops.kernels.ndt_align_loop` (on the
+    card: no host read). `line_search=True` adds the reference's backtracking step-length
+    search: each GN step is evaluated at alpha in {1, 1/2, 1/4} on the Magnusson score
+    over the current correspondences and the best-scoring scale is taken; that path keeps
+    a host loop with one read of `done` an iteration. Off by default."""
     d1, d2 = magnusson_constants(vmap.leaf, outlier_ratio)
     w_scale = -d1 * d2  # > 0: d1 < 0 by construction
-    dtype, dev = source_points.dtype, source_points.device
     damping = as_f32(1e-6, source_points)
     source_mask = source_mask.contiguous()  # a strided subsample is copied once, here
+    if line_search:
+        T_p, done, iters, fitness_p, inliers_p = _line_search_loop(
+            vmap, source_points, source_mask, init_transform, d2, w_scale, step_size,
+            transform_epsilon, damping, max_iterations, polish_iterations)
+    else:
+        T_p, done, iters, fitness_p, inliers_p = kernels.ndt_align_loop(
+            vmap, source_points.contiguous(), source_mask, init_transform, d2, w_scale,
+            step_size, transform_epsilon, damping, max_iterations, polish_iterations)
+    # PCL parity: hasConverged() is true whenever the convergence criteria stopped the
+    # loop — epsilon OR max-iterations; the caller's inlier gate guards quality.
+    converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
+                 & torch.isfinite(T_p).all())
+    return RegistrationResult(transform=T_p, converged=converged, iterations=iters,
+                              fitness=fitness_p, num_inliers=inliers_p)
+
+
+def _line_search_loop(vmap, source_points, source_mask, init_transform, d2, w_scale,
+                      step_size, transform_epsilon, damping, max_iterations,
+                      polish_iterations):
+    """`ndt_align`'s loop with the line search: a host loop that reads `done` once per
+    iteration, then the polish. Returns the carry (T, done, iterations, fitness,
+    inliers)."""
+    dtype, dev = source_points.dtype, source_points.device
 
     def body(T, done, iters):
         p = se3.transform_points(T, source_points)                   # [N, 3]
-        if not line_search:
-            sums = kernels.ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)
-            return _step_from_sums(sums, T, done, iters, step_size, transform_epsilon,
-                                   damping)
         # The line search evaluates the score against the gathered means and inverse
         # covariances, so this path gathers them and accumulates the rows.
         sums, (means, icovs, valid) = kernels.direct7_gathered(
@@ -103,8 +120,8 @@ def ndt_align(
                 scores.append(torch.sum(torch.where(valid, torch.exp(-0.5 * d2 * md2c), 0.0)))
             return alphas[torch.argmax(torch.stack(scores))] * delta
 
-        return _step_from_sums(sums, T, done, iters, step_size, transform_epsilon, damping,
-                               backtrack)
+        return kernels.ndt_step_plain(sums, T, done, iters, step_size, transform_epsilon,
+                                      damping, backtrack)
 
     T = init_transform.to(dtype)
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -117,35 +134,9 @@ def ndt_align(
             break
     # Polish: UNCONDITIONAL Gauss-Newton iterations after the early exit, so the result
     # is a function of (target, scan) rather than of where the epsilon stop landed.
-    T_p, fitness_p, inliers_p = T, fitness, inliers
     for _ in range(polish_iterations):
-        T_p, _, _, fitness_p, inliers_p = body(T_p, done, iters)
-    # PCL parity: hasConverged() is true whenever the convergence criteria stopped the
-    # loop — epsilon OR max-iterations; the caller's inlier gate guards quality.
-    converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
-                 & torch.isfinite(T_p).all())
-    return RegistrationResult(transform=T_p, converged=converged, iterations=iters,
-                              fitness=fitness_p, num_inliers=inliers_p)
-
-
-def _step_from_sums(sums, T, done, iters, step_size, transform_epsilon, damping,
-                    refine=None):
-    """One Gauss-Newton step from an iteration's reduction (`ndt_direct7_accumulate`'s
-    outputs): the damped solve, the step cap (then `refine`, the line search, if given),
-    the fitness, the guarded update and the convergence test. Returns the next carry
-    (T, done, iterations, fitness, inliers)."""
-    H, g, _sum_w, n_hit, centre_d2, centre_count = sums
-    n_inliers = n_hit.to(torch.int32)
-    delta = cap_step(solve_damped(H, g, damping), step_size)
-    if refine is not None:
-        delta = refine(delta)
-    # Mean squared distance to the matched voxel means (diagnostic fitness).
-    fitness = centre_d2 / torch.clamp(centre_count, min=1.0)
-    step_ok = torch.isfinite(delta).all() & (n_inliers > 0)
-    delta = torch.where(step_ok, delta, 0.0)
-    T_new = se3.se3_exp(delta) @ T
-    newly_done = norm(delta) < transform_epsilon
-    return T_new, done | newly_done, iters + 1, fitness, n_inliers
+        T, _, _, fitness, inliers = body(T, done, iters)
+    return T, done, iters, fitness, inliers
 
 
 def ndt_align_batched(
@@ -164,47 +155,14 @@ def ndt_align_batched(
     vmaps: B maps of one capacity stacked by `ops.kernels.stack_maps`; source_points
     [B, N, 3]; source_mask [B, N]; init_transforms [B, 4, 4]. Returns a
     `RegistrationResult` whose fields carry a leading batch axis. A sequence's carry stops
-    changing once it is done (or at `max_iterations`); the loop ends when every sequence
-    is; the polish iterations then run for every sequence."""
-    B = source_points.shape[0]
+    changing once it is done (or at `max_iterations`); the polish iterations then run for
+    every sequence. One call of `ops.kernels.ndt_align_loop_batched`: no host read."""
     d1, d2 = magnusson_constants(vmaps.leaf, outlier_ratio)          # [B] each
     w_scale = -d1 * d2
-    dtype, dev = source_points.dtype, source_points.device
     damping = as_f32(1e-6, source_points)
-    source_mask = source_mask.contiguous()
-    T = [init_transforms[b].to(dtype) for b in range(B)]
-    done = [torch.zeros((), dtype=torch.bool, device=dev) for _ in range(B)]
-    iters = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(B)]
-    fitness = [torch.full((), torch.inf, dtype=dtype, device=dev) for _ in range(B)]
-    inliers = [torch.zeros((), dtype=torch.int32, device=dev) for _ in range(B)]
-    moved = [None] * B  # each sequence's last transformed source
-
-    def body(Ts, lanes, mask):
-        """The next carry of each sequence in `lanes` (the others' rows are not read)."""
-        for b in lanes:
-            moved[b] = se3.transform_points(Ts[b], source_points[b])
-        sums = kernels.ndt_direct7_accumulate_batched(vmaps, torch.stack(moved), mask, d2,
-                                                      w_scale)
-        return {b: _step_from_sums(tuple(x[b] for x in sums), Ts[b], done[b], iters[b],
-                                   step_size, transform_epsilon, damping) for b in lanes}
-
-    active = list(range(B))
-    for _ in range(max_iterations):
-        # A finished sequence's points are masked out, so it costs the kernel no gathers.
-        live = ~torch.stack(done)
-        for b, carry in body(T, active, source_mask & live[:, None]).items():
-            T[b], done[b], iters[b], fitness[b], inliers[b] = carry
-        flags = torch.stack([done[b] for b in active]).tolist()  # the one host read
-        active = [b for b, f in zip(active, flags) if not f]
-        if not active:
-            break
-    # Polish, for every sequence from its frozen carry, as `ndt_align`'s.
-    T_p, fitness_p, inliers_p = list(T), list(fitness), list(inliers)
-    for _ in range(polish_iterations):
-        for b, carry in body(T_p, range(B), source_mask).items():
-            T_p[b], _, _, fitness_p[b], inliers_p[b] = carry
-    T_p, done, iters = torch.stack(T_p), torch.stack(done), torch.stack(iters)
-    fitness_p, inliers_p = torch.stack(fitness_p), torch.stack(inliers_p)
+    T_p, done, iters, fitness_p, inliers_p = kernels.ndt_align_loop_batched(
+        vmaps, source_points.contiguous(), source_mask.contiguous(), init_transforms, d2,
+        w_scale, step_size, transform_epsilon, damping, max_iterations, polish_iterations)
     converged = ((done | (iters >= max_iterations)) & (inliers_p > 0)
                  & torch.isfinite(T_p).flatten(1).all(dim=1))
     return RegistrationResult(transform=T_p, converged=converged, iterations=iters,

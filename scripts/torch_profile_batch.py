@@ -53,14 +53,14 @@ def main() -> int:
     t0 = time.perf_counter()
     run()
     wall_ms = 1000 * (time.perf_counter() - t0)
-    before = kernels.ndt_direct7_accumulate_batched.launches
+    before = kernels.ndt_align_loop_batched.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
-    batched = kernels.ndt_direct7_accumulate_batched.launches - before
+    batched = kernels.ndt_align_loop_batched.launches - before
     ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
           and not e.key.startswith(("Memcpy", "Memset"))]
     device_ms = sum(e.self_device_time_total for e in ka) / 1000
-    ndt = [e for e in ka if "ndt_direct7" in e.key]
+    ndt = [e for e in ka if "ndt_iteration" in e.key]
     ndt_us = sum(e.self_device_time_total for e in ndt) / max(sum(e.count for e in ndt), 1)
     top = sorted(ka, key=lambda e: -e.self_device_time_total)[:6]
     print(json.dumps(dict(

@@ -8,12 +8,13 @@ initial guess (`init`). The package under `--root` (default: this checkout) buil
 default config's target from the submap, and one `ndt_align` runs against its fine map
 at the fine stage's settings: once to warm up, `--repeats` times unprofiled (wall time
 between synchronizes), then once under `torch.profiler`. Prints one JSON line: NDT bodies
-(iterations + 2 polish), device kernel launches per body (the profiler's kernel events;
-copies and memsets are not counted), device ms per body, wall ms per body, the device's
-idle share, each kernel wrapper's launches per body, the kernels launched most, the
-iterations and the transform. `--root` points
-the same measurement at another tree of the package, such as the parent commit unpacked
-with `git archive`.
+(iterations + 2 polish), device kernel launches per align and per body (the profiler's
+kernel events; copies and memsets are not counted), device ms and wall ms per align and
+per body, the device's idle share, each kernel wrapper's launches per align (a loop
+wrapper counts every launch it enqueues, the early-exit ones included), the kernels
+launched most (per body), the iterations and the transform. `--root` points the same
+measurement at another tree of the package, such as the parent commit unpacked with
+`git archive`.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wrappers = [w for w in (getattr(kernels, n, None) for n in
-                            ("ndt_accumulate", "ndt_direct7_accumulate")) if w is not None]
+                            ("ndt_accumulate", "ndt_direct7_accumulate", "ndt_align_loop"))
+                if w is not None]
     before = {w.__name__: w.launches for w in wrappers}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         align()
@@ -85,11 +87,12 @@ def main() -> int:
     top = sorted(ka, key=lambda e: -e.count)[:8]
     print(json.dumps(dict(
         root=os.path.abspath(args.root), bodies=bodies, iterations=int(res.iterations),
-        converged=bool(res.converged), launches=launches, launches_per_body=launches / bodies,
-        device_ms_per_body=device_ms / bodies, wall_ms_per_body=wall_ms / bodies,
-        idle_share=1.0 - device_ms / wall_ms,
-        wrapper_launches_per_body={w.__name__: (w.launches - before[w.__name__]) / bodies
-                                   for w in wrappers},
+        converged=bool(res.converged), launches=launches, launches_per_align=launches,
+        device_ms_per_align=device_ms, wall_ms_per_align=wall_ms,
+        launches_per_body=launches / bodies, device_ms_per_body=device_ms / bodies,
+        wall_ms_per_body=wall_ms / bodies, idle_share=1.0 - device_ms / wall_ms,
+        wrapper_launches_per_align={w.__name__: w.launches - before[w.__name__]
+                                    for w in wrappers},
         top=[[e.key[:60], e.count / bodies] for e in top],
         transform=res.transform.cpu().numpy().tolist())), flush=True)
     return 0

@@ -364,10 +364,199 @@ def test_batched_direct7_on_two_streams_at_once(cuda):
             assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
 
 
+# -- the NDT loop kernel (`ndt_iteration`, `csrc/ndt_loop.cu`) -----------------------------
+
+LOOP_FIELDS = ("T", "done", "iterations", "fitness", "inliers")
+
+
+def _loop_inputs(n, leaf, device, seed=0, offset=(0.4, -0.3, 0.1), yaw=0.03):
+    """A source cloud of `n` points sampled from a dense synthetic scan, its map, and an
+    initial guess off the true (identity) pose by `offset` m and `yaw` rad."""
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, extent=60.0, density=40.0)
+    scan = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=65536)
+    pts = torch.as_tensor(scan, device=device)
+    vmap = build_ndt_map(pts, torch.ones(pts.shape[0], dtype=torch.bool, device=device),
+                         leaf, capacity=65536)
+    src = scan[rng.integers(0, scan.shape[0], n)] + rng.normal(scale=0.02, size=(n, 3))
+    mask = rng.random(n) > 0.1
+    T0 = np.eye(4, dtype=np.float32)
+    c, s = np.cos(yaw), np.sin(yaw)
+    T0[:2, :2] = [[c, -s], [s, c]]
+    T0[:3, 3] = offset
+    d1, d2 = magnusson_constants(vmap.leaf, 0.55)
+    return (vmap, torch.as_tensor(src.astype(np.float32), device=device),
+            torch.as_tensor(mask, device=device), torch.as_tensor(T0, device=device), d2,
+            -d1 * d2)
+
+
+def _loop_call(inputs, step_size=0.1, max_iterations=64, polish=2):
+    vmap, src, mask, T0, d2, ws = inputs
+    damping = torch.full((), 1e-6, device=src.device)
+    return (vmap, src, mask, T0, d2, ws, step_size, 0.01, damping, max_iterations, polish)
+
+
+# (N, leaf, step, max_iterations, polish): the fine stage, the coarse stage (stride 4, 4 m
+# map, 4x the step, no polish), one that runs out of iterations, a small one.
+LOOP_SIZES = [(32768, 2.0, 0.1, 64, 2), (8192, 4.0, 0.4, 16, 0), (32768, 2.0, 0.1, 3, 2),
+              (300, 2.0, 0.1, 64, 2)]
+
+
+@pytest.mark.parametrize("n,leaf,step,iters,polish", LOOP_SIZES)
+def test_loop_kernel_matches_plain_loop(cuda, n, leaf, step, iters, polish):
+    """The kernel loop against the plain loop (torch ops, carry frozen after done) on the
+    same card tensors: T to 1e-4, the same iterations, done and inliers; fitness to rtol
+    1e-4. Two runs bit-identical; one C call enqueues max_iterations + polish launches."""
+    args = _loop_call(_loop_inputs(n, leaf, cuda), step, iters, polish)
+    before = tk.ndt_align_loop.launches
+    out = tk.ndt_align_loop(*args)
+    again = tk.ndt_align_loop(*args)
+    torch.cuda.synchronize()
+    assert tk.ndt_align_loop.launches == before + 2 * (iters + polish)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    ref = tk.ndt_align_loop_plain(*args)
+    T, done, it, fit, inl = out
+    assert float((T - ref[0]).abs().max()) <= 1e-4
+    assert (bool(done), int(it)) == (bool(ref[1]), int(ref[2]))
+    assert abs(int(inl) - int(ref[4])) <= 0.001 * int(ref[4])
+    np.testing.assert_allclose(float(fit), float(ref[3]), rtol=1e-4)
+    if iters == 3:
+        assert int(it) == 3 and not bool(done)
+    else:
+        assert bool(done) and int(it) < iters
+
+
+def test_loop_kernel_early_exit_and_worked_count(cuda):
+    """A loop whose carry is done after k iterations does work in k + polish launches
+    only; the others exit at once (the device count of working launches)."""
+    args = _loop_call(_loop_inputs(32768, 2.0, cuda, seed=2))
+    tk.worked_launches(reset=True)
+    out = tk.ndt_align_loop(*args)
+    worked = tk.worked_launches(reset=True)
+    assert worked == int(out[2]) + 2 < 64 + 2
+
+
+@pytest.mark.parametrize("B", [4, 1])
+def test_batched_loop_matches_plain_and_single_rows(cuda, B):
+    """The batched loop kernel at B = 4 x 32,768 (the multi-sequence odometry's shape),
+    one sequence from its true pose (it finishes first): row b equal to the single loop
+    on sequence b bit for bit, and to the plain loop to the single kernel's tolerance."""
+    seqs = [_loop_inputs(32768, 2.0, cuda, seed=b,
+                         offset=(0.0, 0.0, 0.0) if b == 1 else (0.4, -0.3, 0.1))
+            for b in range(B)]
+    vmaps = tk.stack_maps([s[0] for s in seqs])
+    src = torch.stack([s[1] for s in seqs])
+    mask = torch.stack([s[2] for s in seqs])
+    T0 = torch.stack([s[3] for s in seqs])
+    d2 = torch.stack([s[4] for s in seqs])
+    ws = torch.stack([s[5] for s in seqs])
+    damping = torch.full((), 1e-6, device=cuda)
+    before = tk.ndt_align_loop_batched.launches
+    out = tk.ndt_align_loop_batched(vmaps, src, mask, T0, d2, ws, 0.1, 0.01, damping, 64, 2)
+    torch.cuda.synchronize()
+    assert tk.ndt_align_loop_batched.launches == before + 66
+    ref = tk.ndt_align_loop_batched_plain(vmaps, src, mask, T0, d2, ws, 0.1, 0.01, damping,
+                                          64, 2)
+    for b in range(B):
+        single = tk.ndt_align_loop(*_loop_call(seqs[b]))
+        assert all(torch.equal(x[b], y) for x, y in zip(out, single)), b
+        assert float((out[0][b] - ref[0][b]).abs().max()) <= 1e-4
+        assert int(out[2][b]) == int(ref[2][b]) and bool(out[1][b])
+    if B == 4:
+        assert int(out[2][1]) < min(int(out[2][b]) for b in (0, 2, 3))
+
+
+def test_loop_kernels_on_two_streams_at_once(cuda):
+    """Two threads, each on its own stream, run the single and the batched loop 10 times
+    each at the same time: every result equals the serial one bit for bit (each stream
+    has its own partials and ticket counters)."""
+    seqs = [_loop_inputs(32768, 2.0, cuda, seed=b) for b in range(2)]
+    batched = (tk.stack_maps([s[0] for s in seqs]), *(torch.stack([s[i] for s in seqs])
+                                                       for i in range(1, 6)))
+    damping = torch.full((), 1e-6, device=cuda)
+    calls = {"single": lambda: tk.ndt_align_loop(*_loop_call(seqs[0])),
+             "batched": lambda: tk.ndt_align_loop_batched(*batched, 0.1, 0.01, damping, 64, 2)}
+    serial = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2, timeout=60)
+    results, errors = {}, []
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [(k, calls[k]()) for _ in range(10) for k in calls]
+            stream.synchronize()
+            results[t] = outs
+        except BaseException as e:  # noqa: BLE001 — raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in results.values():
+        for k, out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+def test_loop_rejects_bad_inputs(cuda):
+    args = list(_loop_call(_loop_inputs(300, 2.0, cuda)))
+    bad = {1: args[1].double(), 2: args[2].cpu(), 3: args[3][:3], 4: torch.tensor(0.25)}
+    before = tk.ndt_align_loop.launches
+    for i, x in bad.items():
+        with pytest.raises(ValueError):
+            tk.ndt_align_loop(*args[:i], x, *args[i + 1:])
+    assert tk.ndt_align_loop.launches == before
+
+
+def test_fused_step_makes_no_synchronous_read(cuda):
+    """`odometry/fused.py`'s step with NDT, given its inputs on the card, makes no
+    synchronous read: three frames under `torch.cuda.set_sync_debug_mode("error")`
+    (after one warm-up frame, which builds the library and the cached constants), with a
+    real target rebuilt from the ring."""
+    from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
+    from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "prefilter.leaf_size=0.3", "prefilter.mean_k=10", "capacity.raw_points=16384",
+        "capacity.filtered_points=4096", "capacity.voxel_capacity=32768",
+        "scan_matcher.max_scan_accumulate_num=5"])
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=cuda)
+    seq = SyntheticSequence(n_frames=4, seed=3, max_points=8192, radius=30.0,
+                            laps=1.1 * 4 / 90)
+    raws = []
+    for scan, _ in seq:
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:len(scan)] = scan
+        raws.append(torch.as_tensor(raw, device=cuda))
+    eye3 = torch.eye(3, device=cuda)
+    eye4 = torch.eye(4, device=cuda)
+    state, ring = init_state(), aux["init_ring"]()
+    state, out = step(state, raws[0], aux["rebuild"](ring), eye3, False, eye4, False)
+    ring, target = aux["insert_and_rebuild"](ring, 0, out.kf_cloud, out.kf_mask, out.pose)
+    torch.cuda.synchronize()
+    outs = []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for raw in raws[1:]:
+            state, out = step(state, raw, target, eye3, False, eye4, False)
+            outs.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(o.converged) for o in outs)
+    assert all(int(o.iterations) > 0 for o in outs)
+
+
 def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
     """`batch_odometry` on the card (B = 2, 4 frames of 4,096 points): the first frames
     agree with the CPU's to 1 cm / 1e-3 (pose entries), `is_keyframe` equal, and the batch
-    equals two runs of one bit for bit; the batched kernel launched, the single not."""
+    equals two runs of one bit for bit; the batched loop kernel launched, the single not."""
     from lidar_graph_slam_tpu_torch.core.config import NdtConfig, ScanMatcherConfig
     from lidar_graph_slam_tpu_torch.parallel.multi_sequence import batch_odometry
 
@@ -379,10 +568,10 @@ def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
                                                         laps=0.1, radius=30.0 + 2 * b)):
             scans[b, f, :len(scan)], masks[b, f, :len(scan)] = scan, True
     cfg = ScanMatcherConfig(max_scan_accumulate_num=3, ndt=NdtConfig(max_iterations=32))
-    before = (tk.ndt_direct7_accumulate_batched.launches, tk.ndt_direct7_accumulate.launches)
+    before = (tk.ndt_align_loop_batched.launches, tk.ndt_align_loop.launches)
     _, card = batch_odometry(scans, masks, cfg, map_capacity=8192, device=cuda)
-    assert tk.ndt_direct7_accumulate_batched.launches > before[0]
-    assert tk.ndt_direct7_accumulate.launches == before[1]
+    assert tk.ndt_align_loop_batched.launches > before[0]
+    assert tk.ndt_align_loop.launches == before[1]
     _, cpu = batch_odometry(scans, masks, cfg, map_capacity=8192, device="cpu")
     np.testing.assert_allclose(card["pose"].cpu().numpy(), cpu["pose"].numpy(), atol=1e-2)
     assert torch.equal(card["is_keyframe"].cpu(), cpu["is_keyframe"])
@@ -394,9 +583,9 @@ def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
 
 def test_pipeline_card_matches_cpu(cuda):
     """Five frames of the loops-off pipeline at a small capacity on the card and on the
-    CPU (plain versions): poses within 1 cm / 1 mrad, the same keyframes, and the fused
-    kernel launched by the card's run (the gathered-rows kernel not at all: only NDT's
-    line search uses it)."""
+    CPU (plain versions): poses within 1 cm / 1 mrad, the same keyframes, and the NDT
+    loop kernel launched by the card's run (the gathered-rows kernel not at all: only
+    NDT's line search uses it)."""
     cfg = apply_cli_overrides(PipelineConfig(), [
         "enable_loop_closure=False", "prefilter.leaf_size=0.3", "prefilter.mean_k=10",
         "capacity.raw_points=16384", "capacity.filtered_points=4096",
@@ -406,12 +595,12 @@ def test_pipeline_card_matches_cpu(cuda):
     scans = [s for s, _ in seq]
     results = {}
     for device in ("cuda", "cpu"):
-        before = tk.ndt_direct7_accumulate.launches, tk.ndt_accumulate.launches
+        before = tk.ndt_align_loop.launches, tk.ndt_accumulate.launches
         pipe = SlamPipeline(cfg, device=device)
         for s in scans:
             pipe.process_scan(s)
         results[device] = pipe.result()
-        fused = tk.ndt_direct7_accumulate.launches - before[0]
+        fused = tk.ndt_align_loop.launches - before[0]
         assert (fused > 0) if device == "cuda" else (fused == 0)
         assert tk.ndt_accumulate.launches == before[1]
     a, b = results["cuda"], results["cpu"]

@@ -398,8 +398,8 @@ def test_each_candidate_gets_its_own_guess(big_drift_reference):
 
 
 def test_global_init_in_the_async_backend(big_drift_reference):
-    """The guess is built on the caller's thread with the other inputs; the worker
-    thread reads the RANSAC counts with the results."""
+    """The guess is built in the worker thread, ahead of the verification, which reads
+    the RANSAC counts with the results."""
     jb, true_last = big_drift_reference
     back = _port_backend(jb, async_backend=True, use_global_init=True, global_reg=REDUCED_REG)
     drifted = back.optimized_poses()[-1]
@@ -410,3 +410,37 @@ def test_global_init_in_the_async_backend(big_drift_reference):
     assert rec["accepted"] and "ransac_families" in rec
     corrected = rec["transform"] @ drifted
     assert np.linalg.norm(corrected[:3, 3] - true_last[:3, 3]) < 0.3
+
+
+def test_global_guess_is_built_in_the_verify_worker(big_drift_reference, monkeypatch):
+    """With the asynchronous back end the FPFH+RANSAC guess is built in the verify worker
+    (on the CPU its thread; on a card also its stream), not on the frame's thread; with
+    the synchronous one it runs inline. Both give the same decisions, RANSAC counts and
+    transforms (the module's async-vs-sync bound, atol 1e-4)."""
+    jb, _ = big_drift_reference
+    threads = []
+    real = tslam.global_register
+
+    def spy(*args, **kwargs):
+        threads.append(threading.current_thread().name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tslam, "global_register", spy)
+    logs = {}
+    for async_backend in (False, True):
+        back = _port_backend(jb, async_backend=async_backend, use_global_init=True,
+                             global_reg=REDUCED_REG, loop_topk=2, search_key_frame_num=3)
+        threads.clear()
+        pending = back.begin_loop_attempt()
+        assert ("thread" in pending) == async_backend
+        assert threads == ([] if async_backend else [threading.current_thread().name] * 2)
+        back._consume_verify(pending)
+        assert threads == ["loop-verify" if async_backend else threading.current_thread().name] * 2
+        logs[async_backend] = back.loop_log
+    assert len(logs[True]) == len(logs[False]) == 2
+    for a, s in zip(logs[True], logs[False]):
+        assert (a["candidate"], a["converged"], a["accepted"], a["ransac_families"]) == \
+               (s["candidate"], s["converged"], s["accepted"], s["ransac_families"])
+        np.testing.assert_allclose(a["transform"], s["transform"], atol=1e-4)
+        np.testing.assert_allclose(a["fitness"], s["fitness"], rtol=1e-4)
+    assert any(r["accepted"] for r in logs[True])
