@@ -20,11 +20,13 @@ of `bench.py:bench_e2e`. Phases:
      iteration, the step in its last block, the carry on the device) against the plain
      loop on the same card tensors — the last ring scan from a perturbed guess at the
      fine (N = 32,768, 2 m) and the coarse stage (N = 8,192, 4 m, no polish), and a fine
-     loop cut at 3 iterations: T within 1e-4, the same iterations and done, bit-identical
-     reruns; `ndt_iteration_batched` at B = 4 (four guesses, one at the true pose) row by
+     loop cut at 3 iterations: T within 1e-4, the same iterations and done, inliers within
+     0.1% and fitness within rtol 1e-4, bit-identical reruns; `ndt_iteration_batched` at B = 4 (four guesses, one at the true pose) row by
      row bit-equal to single loops; device us of a working and of an early-exit launch,
-     host and device us of an align stage, the bound; then 5 dense frames of the fused
-     step under `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
+     host and device us of an align stage, the bound, the kernel's registers, shared
+     memory and blocks; with `--parent DIR` the same times of that tree's kernel, in
+     turns (this, parent, parent, this); then 5 dense frames of the fused step under
+     `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
   4. `build_ndt_pyramid` twice on a full 20 x 32,768 ring: bit-identical maps;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
@@ -125,7 +127,8 @@ device's count of the loop kernels' launches that did work).
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
-`python3 chip_smoke.py --parent DIR` adds the parent tree's profile to phase 7.
+`python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
+3b and its profile to phase 7, in turns with this tree's.
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -183,10 +186,10 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
 )
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration import features, gicp
+from lidar_graph_slam_tpu_torch.registration import ndt as ndt_module
 from lidar_graph_slam_tpu_torch.registration.ndt import (
     magnusson_constants,
     ndt_align,
-    ndt_align_batched,
 )
 from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
@@ -815,8 +818,8 @@ def profile_ndt_align(cfg: PipelineConfig, ring, last, T_last: np.ndarray,
     ring's map from a perturbed guess; this tree's align is one loop call of
     max_iterations + 2 launches. With `parent` (the parent commit unpacked by `git
     archive`) the same input goes through both trees in turns (this, parent, parent,
-    this): this tree must launch fewer device kernels per align and give its transform to
-    1e-3."""
+    this): this tree must launch as many device kernels per align as the parent (the loop
+    kernel's redesign keeps its launches) and give its transform to 1e-3."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", "ndt_profile_input.npz")
@@ -858,7 +861,7 @@ def profile_ndt_align(cfg: PipelineConfig, ring, last, T_last: np.ndarray,
         dT = float(np.abs(np.asarray(par["transform"]) - np.asarray(this["transform"])).max())
         say("ndt-profile", fewer_launches_per_align=fewer, transform_max_diff=dT,
             mean=json.dumps(summary, separators=(",", ":")))
-        if not (fewer > 0 and dT <= 1e-3):
+        if not (fewer == 0 and dT <= 1e-3):
             raise AssertionError(f"ndt profile: {fewer} fewer launches per align, transform "
                                  f"diff {dT}")
     return summary
@@ -895,8 +898,11 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
 # The loop kernel against its plain loop (torch ops, the carry frozen after done) on the
 # same card tensors: T within LOOP_T_ATOL and the same iterations and done. Both sum in
 # float32 in different orders, and the kernel's in-register transform rounds differently
-# from cuBLAS's `points @ R^T`. Batched rows bit-equal to single loops.
+# from cuBLAS's `points @ R^T`; inliers within LOOP_INLIERS_RTOL and fitness within
+# LOOP_FITNESS_RTOL of the plain loop's. Batched rows bit-equal to single loops.
 LOOP_T_ATOL = 1e-4
+LOOP_INLIERS_RTOL = 1e-3
+LOOP_FITNESS_RTOL = 1e-4
 # Float operations a working launch adds to `ndt_direct7_accumulate`'s: the transform of a
 # masked-in point (9 products, 9 additions and 3 translations: 21) and the step in one
 # thread (the damping 14, the LU factorization with its pivot search ~140, the two
@@ -940,7 +946,11 @@ def compare_loop(label: str, args) -> dict:
                fitness_plain=float(ref[3]), bit_identical=True)
     say("ndt-loop-check", **rec)
     if not (err <= LOOP_T_ATOL and rec["iterations"] == rec["iterations_plain"]
-            and rec["done"] == rec["done_plain"]):
+            and rec["done"] == rec["done_plain"]
+            and abs(rec["inliers"] - rec["inliers_plain"]) <= LOOP_INLIERS_RTOL
+            * rec["inliers_plain"]
+            and abs(rec["fitness"] - rec["fitness_plain"]) <= LOOP_FITNESS_RTOL
+            * abs(rec["fitness_plain"])):
         raise AssertionError(f"{label}: kernel loop vs plain {rec}")
     return rec
 
@@ -961,14 +971,41 @@ def loop_bound_us(args) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def loop_timings(args, align, batched: bool = False) -> dict:
-    """Device us per working launch and per early-exit launch of the loop kernel, and the
-    host and device us of a whole align stage (`align`, no arguments), `split_times` on
-    fixed inputs: a loop of 20 launches that all work (epsilon 0), a loop of 1 working
-    launch, and one of 1 working and 40 early-exit launches (epsilon 1e9: done after the
-    first), the carry's set-up cancelling in the differences. Few calls per timing, so
-    that the launches queued behind the spin kernel stay a few hundred."""
-    wrapper = kernels.ndt_align_loop_batched if batched else kernels.ndt_align_loop
+def tree_kernels(root: str, name: str = "parent_kernels"):
+    """The `ops.kernels` module of another tree of the package (such as the parent commit
+    unpacked by `git archive`), loaded beside this tree's under `name`: it builds that
+    tree's `csrc/` into that tree's `build/`, and its other imports are this tree's."""
+    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "ops",
+                        "kernels.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tree_ndt(root: str, kern, name: str = "parent_ndt"):
+    """The `registration.ndt` module of another tree, loaded beside this tree's under
+    `name`, its loop calls bound to `kern` (that tree's `ops.kernels`, `tree_kernels`);
+    its other imports are this tree's."""
+    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "registration",
+                        "ndt.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.kernels = kern
+    return mod
+
+
+def loop_timings(args, align, batched: bool = False, kern=kernels, ndt=ndt_module) -> dict:
+    """Device us per working launch and per early-exit launch of the loop kernel of the
+    module `kern` (this tree's `ops.kernels`, or another tree's), and the host and device
+    us of a whole align stage (`align(ndt)`, `ndt` the `registration.ndt` module whose
+    `ndt_align` runs on `kern`), `split_times` on fixed inputs: a
+    loop of 20 launches that all work (epsilon 0), a loop of 1 working launch, and one of
+    1 working and 40 early-exit launches (epsilon 1e9: done after the first), the carry's
+    set-up cancelling in the differences. Few calls per timing, so that the launches
+    queued behind the spin kernel stay a few hundred."""
+    wrapper = kern.ndt_align_loop_batched if batched else kern.ndt_align_loop
 
     def loop(eps, its):
         return lambda: wrapper(*args[:7], eps, args[8], its, 0)
@@ -976,7 +1013,7 @@ def loop_timings(args, align, batched: bool = False) -> dict:
     work = split_times(loop(0.0, 20), calls=10, warmup=2)
     one = split_times(loop(1e9, 1), calls=40, warmup=2)
     dead = split_times(loop(1e9, 41), calls=5, warmup=2)
-    stage = split_times(align, calls=3, warmup=2)
+    stage = split_times(lambda: align(ndt), calls=3, warmup=2)
     return dict(working_launch_us=(work["device_us"] - one["device_us"]) / 19,
                 early_exit_launch_us=(dead["device_us"] - one["device_us"]) / 40,
                 loop_host_us_20=work["host_us"], stage_host_us=stage["host_us"],
@@ -1000,17 +1037,50 @@ def plain_launch_ms(args) -> float:
     return median_ms(one, calls=20)
 
 
+def timed_in_turns(stage: str, args, align, batched: bool, parent, card: str) -> dict:
+    """`loop_timings` of this tree's loop kernel; with `parent` (another tree's
+    (`ops.kernels`, `registration.ndt`) pair) in turns, this, parent, parent, this, on the
+    same inputs. Prints the parent's and this tree's means and returns this tree's, with
+    the parent's under `parent_<key>`."""
+    if parent is None:
+        return loop_timings(args, align, batched)
+    runs = {}
+    this = (kernels, ndt_module)
+    for tree, mods in (("this", this), ("parent", parent), ("parent", parent),
+                       ("this", this)):
+        runs.setdefault(tree, []).append(loop_timings(args, align, batched, *mods))
+    mean = {tree: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
+            for tree, rs in runs.items()}
+    for tree, m in mean.items():
+        say("ndt-loop-turns", stage=stage, tree=tree, turns=json.dumps(
+            [round(r["working_launch_us"], 3) for r in runs[tree]]), **m,
+            card=json.dumps(card))
+    return {**mean["this"], **{f"parent_{k}": v for k, v in mean["parent"].items()}}
+
+
 def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, last,
-                   T_last: np.ndarray, card: str) -> dict:
+                   T_last: np.ndarray, card: str, parent: str | None = None) -> dict:
     """The ndt-loop phase: `ndt_iteration` (`ndt_align_loop`) and `ndt_iteration_batched`
     against the plain loop on the dense course's fixtures — the last ring scan (N =
     32,768 fine, 8,192 coarse) from a perturbed guess, and a fine loop cut at 3
     iterations (it reaches max_iterations) — and the batched loop at B = 4 (four guesses
     of the same scan, one at the true pose) row by row against single loops, bit for bit;
     the device us of a working and of an early-exit launch, the host us of an align stage
-    and the bound. Returns {"err", "timing", "records"}."""
+    and the bound; the kernel's registers, shared memory and blocks. With `parent` (the
+    parent commit unpacked by `git archive`) the same timings of that tree's kernel, in
+    turns with this tree's. Returns {"err", "timing", "records"}."""
     ndt_cfg = cfg.scan_matcher.ndt
     dev = last.points.device
+    n_coarse = last.points[::ndt_cfg.coarse_subsample].shape[0]
+    resources = dict(kernels.loop_kernel_attributes(dev),
+                     blocks_fine=kernels.loop_grid(dev, last.points.shape[0]),
+                     blocks_coarse=kernels.loop_grid(dev, n_coarse))
+    say("ndt-loop-kernel", **resources)
+    if parent:
+        par_kernels = tree_kernels(parent)
+        par = (par_kernels, tree_ndt(parent, par_kernels))
+    else:
+        par = None
     init = torch.as_tensor(perturbed(T_last), device=dev)
     stages = {"fine": loop_args(fine, last.points, last.mask, init, ndt_cfg, False),
               "coarse": loop_args(coarse, last.points, last.mask, init, ndt_cfg, True)}
@@ -1024,11 +1094,11 @@ def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, 
 
     timing = {}
     for k, a in stages.items():
-        def align(a=a):
-            return ndt_align(a[0], a[1], a[2], a[3], step_size=a[6], transform_epsilon=a[7],
-                             outlier_ratio=ndt_cfg.outlier_ratio, max_iterations=a[9],
-                             polish_iterations=a[10])
-        t = loop_timings(a, align)
+        def align(ndt, a=a):
+            return ndt.ndt_align(a[0], a[1], a[2], a[3], step_size=a[6],
+                                 transform_epsilon=a[7], outlier_ratio=ndt_cfg.outlier_ratio,
+                                 max_iterations=a[9], polish_iterations=a[10])
+        t = timed_in_turns(k, a, align, False, par, card)
         t.update(loop_bound_us(a), plain_ms=plain_launch_ms(a), N=a[1].shape[0])
         t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
                  single_ms=t["stage_single_ms"],
@@ -1060,19 +1130,29 @@ def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, 
     berr = float((out[0] - ref[0]).abs().max())
     rows_equal = all(torch.equal(x[b], y) for b in range(B) for x, y in zip(out, singles[b]))
     iters = out[2].tolist()
+    inl, inl_ref = out[4].double(), ref[4].double()
+    fit_ok = bool(((out[3] - ref[3]).abs() <= LOOP_FITNESS_RTOL * ref[3].abs()).all())
+    inl_ok = bool(((inl - inl_ref).abs() <= LOOP_INLIERS_RTOL * inl_ref).all())
     if not (rows_equal and berr <= LOOP_T_ATOL and iters == ref[2].tolist()
-            and bool(out[1].all()) and iters[0] == min(iters) < max(iters)):
-        raise AssertionError(f"batched ndt loop: rows equal to single {rows_equal}, T err "
-                             f"{berr}, iterations {iters} vs plain {ref[2].tolist()}")
+            and bool(out[1].all()) and bool(ref[1].all()) and fit_ok and inl_ok
+            and iters[0] == min(iters) < max(iters)):
+        raise AssertionError(
+            f"batched ndt loop: rows equal to single {rows_equal}, T err {berr}, iterations "
+            f"{iters} vs plain {ref[2].tolist()}, done {out[1].tolist()} vs "
+            f"{ref[1].tolist()}, fitness {out[3].tolist()} vs {ref[3].tolist()}, inliers "
+            f"{out[4].tolist()} vs {ref[4].tolist()}")
     say("ndt-loop-batched-check", B=B, N=src.shape[1], iterations=json.dumps(iters),
-        T_max_abs_err=berr, rows_bit_equal_single=True)
+        T_max_abs_err=berr, inliers=json.dumps(out[4].tolist()),
+        inliers_plain=json.dumps(ref[4].tolist()), fitness=json.dumps(out[3].tolist()),
+        fitness_plain=json.dumps(ref[3].tolist()), rows_bit_equal_single=True)
 
-    def balign():
-        return ndt_align_batched(vmaps, src, msk, T0s, step_size=fa[6],
-                                 transform_epsilon=fa[7], outlier_ratio=ndt_cfg.outlier_ratio,
-                                 max_iterations=fa[9], polish_iterations=fa[10])
+    def balign(ndt):
+        return ndt.ndt_align_batched(vmaps, src, msk, T0s, step_size=fa[6],
+                                     transform_epsilon=fa[7],
+                                     outlier_ratio=ndt_cfg.outlier_ratio,
+                                     max_iterations=fa[9], polish_iterations=fa[10])
 
-    t = loop_timings(bargs, balign, batched=True)
+    t = timed_in_turns("fine-batched", bargs, balign, True, par, card)
     bounds = [loop_bound_us((fine, fa[1], fa[2], T0s[b], fa[4], fa[5])) for b in range(B)]
     nbytes, flops = sum(x["bytes"] for x in bounds), sum(x["flops"] for x in bounds)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
@@ -1084,7 +1164,7 @@ def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, 
              share_of_bound=t["bound_us"] / t["working_launch_us"])
     say("ndt-loop-time", stage="fine-batched", **t, card=json.dumps(card))
     timing["loop_batch"] = {"ndt_iteration_batched": t}
-    return dict(err=err, batched_err=berr, timing=timing, records=recs)
+    return dict(err=err, batched_err=berr, timing=timing, records=recs, resources=resources)
 
 
 def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: int = 20,
@@ -1916,6 +1996,12 @@ def multihost_mesh_steps(dev, K: int = 4096) -> dict:
     return out
 
 
+def parent_ms(t: dict):
+    """The parent tree's working-launch ms of a phase 3b timing, or None without one."""
+    us = t.get("parent_working_launch_us")
+    return None if us is None else us / 1000
+
+
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
                   source: str = "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
                   **launches) -> dict:
@@ -1949,7 +2035,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
-                    help="a tree of the parent commit (git archive): phase 7 profiles it too")
+                    help="a tree of the parent commit (git archive): phases 3b and 7 "
+                         "time and profile it too, in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
@@ -2012,7 +2099,7 @@ def main(argv=None) -> int:
                                                    -md1 * md2), card)
 
     # -- 3b. ndt-loop: the loop kernels against the plain loop, the step without a read ---
-    loop = ndt_loop_phase(cfg, fine, coarse, last, T_last, card)
+    loop = ndt_loop_phase(cfg, fine, coarse, last, T_last, card, args.parent)
     max_err.update(ndt_iteration=loop["err"], ndt_iteration_batched=loop["batched_err"])
     timing.update(loop["timing"])
     say("ndt-loop-fused-steps", **fused_steps_sync_free(cfg, scans, gt, (coarse, fine), dev),
@@ -2307,6 +2394,8 @@ def main(argv=None) -> int:
             fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7), the body's step "
                   "(registration/ndt.py:94-122)",
             early_exit_launch_ms=loop_fine["early_exit_launch_us"] / 1000,
+            parent_ms=parent_ms(loop_fine),
+            kernel_resources=loop["resources"],
             device_launches_per_align=prof["this"]["launches_per_align"],
             parent_device_launches_per_align=(prof["parent"]["launches_per_align"]
                                               if "parent" in prof else None)),
@@ -2317,7 +2406,8 @@ def main(argv=None) -> int:
             launches_batch_slam=json.loads(bs["launches"])["ndt_align_loop_batched"],
             loop_of="lidar_graph_slam_tpu/registration/ndt.py:135 (lax.while_loop)",
             rows_bit_equal_single=True,
-            early_exit_launch_ms=loop_batch["early_exit_launch_us"] / 1000),
+            early_exit_launch_ms=loop_batch["early_exit_launch_us"] / 1000,
+            parent_ms=parent_ms(loop_batch)),
         kernel_record(
             "ndt_direct7_accumulate", timing, max_err["ndt_direct7_accumulate"],
             launches=launches["ndt_direct7_accumulate"],

@@ -1,8 +1,9 @@
 // Device functions shared by the NDT kernels of `ndt_accumulate.cu` and `ndt_loop.cu`:
-// the per-row accumulation of the 6x6 normal equations, the DIRECT7 gather of one
-// (point, neighbour) pair, and the fixed-order block and cross-block reductions.
-// Both sources include this header, so the accumulate kernels and the loop kernel run
-// the same arithmetic in the same order.
+// the per-row accumulation of the 6x6 normal equations and the voxel cell arithmetic
+// (both sources), the DIRECT7 gather of one (point, neighbour) pair and the fixed-order
+// block and cross-block reductions (the accumulate kernels; the loop kernel gathers a
+// whole point a thread and reduces in its own order, `ndt_loop.cu`). So every kernel
+// accumulates a row with the same arithmetic.
 
 #pragma once
 

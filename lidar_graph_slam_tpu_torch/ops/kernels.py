@@ -46,7 +46,9 @@ work (a device counter, read with a device-wide synchronize: for measurement onl
 Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
 a ticket counter (one per sequence of a batch); there is one such pair per CUDA stream,
 made at the stream's first launch (and grown for a larger batch), because the odometry
-and the verification thread launch at once on two streams.
+and the verification thread launch at once on two streams. The accumulate kernels take
+one block per 256 work items (at most 1,024); the loop kernels a persistent grid of one
+block per tile of 128 points, at most what the card holds at once (`loop_blocks`).
 """
 
 from __future__ import annotations
@@ -84,8 +86,10 @@ _TABLE_SIZE = TABLE_DIMS[0] * TABLE_DIMS[1] * TABLE_DIMS[2]
 _lib = None  # the loaded shared library (built at first use)
 _lib_lock = threading.Lock()
 build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or load
-_consts: dict = {}     # the library's threads per block, accumulators and outputs
+_consts: dict = {}     # the library's threads per block, accumulators, outputs, loop tile
+                       # and loop partial row
 _scratch: dict = {}    # (device index, stream handle) -> (partials f32, counters i32)
+_occupancy: dict = {}  # device index -> (SMs, the loop kernel's resident blocks per SM)
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
 
@@ -343,7 +347,9 @@ def _load_library_locked():
         fn.restype = ctypes.c_int
     lib.lgs_ndt_worked_launches.argtypes = [i32]
     lib.lgs_ndt_worked_launches.restype = i64
-    for name in ("threads", "quantities", "outputs"):
+    lib.lgs_ndt_loop_blocks_per_sm.argtypes, lib.lgs_ndt_loop_blocks_per_sm.restype = [], i32
+    lib.lgs_ndt_loop_attributes.argtypes, lib.lgs_ndt_loop_attributes.restype = [vp], i32
+    for name in ("threads", "quantities", "outputs", "loop_tile", "loop_row"):
         fn = getattr(lib, f"lgs_ndt_{name}")
         fn.argtypes, fn.restype = [], ctypes.c_int
         _consts[name] = fn()
@@ -377,30 +383,67 @@ def _scalar_arg(x, device):
     return None, float(x)
 
 
-def _launch_args(device, rows: int, batch: int | None = None):
-    """(stream handle, partials pointer, counters pointer, blocks, fresh output) for one
-    launch over `rows` work items (per sequence of `batch`, whose output then has a
-    leading batch axis) on the current stream of `device`. The block count depends on
-    `rows` only, so a sequence of a batch is reduced in the same order as alone."""
+def loop_blocks(n: int, sms: int, blocks_per_sm: int, tile: int) -> int:
+    """Blocks of one sequence in a launch of the loop kernel (`ndt_iteration`): one per
+    tile of `tile` source points, at most the blocks the card holds at once (`sms` x the
+    kernel's resident `blocks_per_sm`) and 1,024, at least 1. A function of N and the card
+    only, never of the batch, so row b of a batch is reduced in the same order as the
+    single loop on sequence b."""
+    return max(1, min(-(-n // tile), sms * blocks_per_sm, _MAX_BLOCKS))
+
+
+def _loop_occupancy(device) -> tuple[int, int]:
+    """(SMs, the loop kernel's resident blocks per SM) of `device` (read once per card)."""
+    occ = _occupancy.get(device.index)
+    if occ is None:
+        with torch.cuda.device(device):
+            per_sm = load_library().lgs_ndt_loop_blocks_per_sm()
+        _raise_on(max(-per_sm, 0), "ndt_iteration occupancy")
+        if per_sm == 0:
+            raise RuntimeError("ndt_iteration: no block of it fits on an SM")
+        occ = _occupancy[device.index] = (
+            torch.cuda.get_device_properties(device).multi_processor_count, per_sm)
+    return occ
+
+
+def loop_grid(device, n: int) -> int:
+    """`loop_blocks` for N = n on the CUDA `device`: the blocks of one sequence in each
+    launch of the loop kernel there."""
+    return loop_blocks(n, *_loop_occupancy(device), _consts["loop_tile"])
+
+
+def _stream_scratch(device, batch: int = 1):
+    """(stream handle, partials pointer, counters pointer) on the current stream of
+    `device`, for `batch` sequences: a row of partials per block (at most `_MAX_BLOCKS`),
+    wide enough for the accumulate and the loop kernels, and one ticket counter per
+    sequence."""
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (device.index, stream)
     scratch = _scratch.get(key)
-    need = batch or 1
-    if scratch is None or scratch[1].numel() < need:
+    if scratch is None or scratch[1].numel() < batch:
         with _lib_lock:
             scratch = _scratch.get(key)
-            if scratch is None or scratch[1].numel() < need:
+            if scratch is None or scratch[1].numel() < batch:
                 # Zeroed on this stream, before its first launch that uses them; a smaller
                 # pair it replaces is freed in this stream's order.
                 scratch = _scratch[key] = (
-                    torch.empty(_consts["quantities"] * _MAX_BLOCKS * need,
-                                dtype=torch.float32, device=device),
-                    torch.zeros(need, dtype=torch.int32, device=device))
-    threads = _consts["threads"]
-    nblocks = min(max(-(-rows // threads), 1), _MAX_BLOCKS)
+                    torch.empty(max(_consts["quantities"], _consts["loop_row"])
+                                * _MAX_BLOCKS * batch, dtype=torch.float32, device=device),
+                    torch.zeros(batch, dtype=torch.int32, device=device))
+    return stream, scratch[0].data_ptr(), scratch[1].data_ptr()
+
+
+def _launch_args(device, rows: int, batch: int | None = None):
+    """(stream handle, partials pointer, counters pointer, blocks, fresh output) for one
+    launch of an accumulate kernel over `rows` work items (per sequence of `batch`, whose
+    output then has a leading batch axis) on the current stream of `device`. The block
+    count depends on `rows` only, so a sequence of a batch is reduced in the same order as
+    alone."""
+    stream, partials, counters = _stream_scratch(device, batch or 1)
+    nblocks = min(max(-(-rows // _consts["threads"]), 1), _MAX_BLOCKS)
     shape = (_consts["outputs"],) if batch is None else (batch, _consts["outputs"])
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    return stream, scratch[0].data_ptr(), scratch[1].data_ptr(), nblocks, out
+    return stream, partials, counters, nblocks, out
 
 
 def _raise_on(err: int, wrapper: str) -> None:
@@ -606,14 +649,14 @@ def ndt_align_loop(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
     ws_ptr, ws_val = _scalar_arg(w_scale, dev)
     dp_ptr, dp_val = _scalar_arg(damping, dev)
     lib = load_library()
-    stream, partials, counter, nblocks, _ = _launch_args(dev, 7 * n)
+    stream, partials, counter = _stream_scratch(dev)
     carry = _loop_carry(T0, ())
     _raise_on(lib.lgs_ndt_align_loop(
         source_points.data_ptr(), source_mask.data_ptr(), vmap.table.data_ptr(),
         vmap.packed.data_ptr(), vmap.origin.data_ptr(), vmap.inv_leaf.data_ptr(), *TABLE_DIMS,
         *COORD_MAX, d2_ptr, d2_val, ws_ptr, ws_val, n, step_size, transform_epsilon, dp_ptr,
         dp_val, *(x.data_ptr() for x in carry), max_iterations, polish_iterations, partials,
-        counter, nblocks, stream), "ndt_align_loop")
+        counter, loop_grid(dev, n), stream), "ndt_align_loop")
     _count(ndt_align_loop, max_iterations + polish_iterations)
     return carry
 
@@ -650,7 +693,7 @@ def ndt_align_loop_batched(vmaps, source_points, source_mask, T0, d2, w_scale, s
                          "shared")
     dp_ptr, dp_val = _scalar_arg(damping, dev)
     lib = load_library()
-    stream, partials, counters, nblocks, _ = _launch_args(dev, 7 * n, B)
+    stream, partials, counters = _stream_scratch(dev, B)
     carry = _loop_carry(T0, (B,))
     _raise_on(lib.lgs_ndt_align_loop_batched(
         source_points.data_ptr(), source_mask.data_ptr(), vmaps.table.data_ptr(),
@@ -658,9 +701,20 @@ def ndt_align_loop_batched(vmaps, source_points, source_mask, T0, d2, w_scale, s
         *TABLE_DIMS, *COORD_MAX, vmaps.packed.shape[1], B, d2_ptr, d2_val, ws_ptr, ws_val, n,
         max(per_seq, per_seq_ws), step_size, transform_epsilon, dp_ptr, dp_val,
         *(x.data_ptr() for x in carry), max_iterations, polish_iterations, partials, counters,
-        nblocks, stream), name)
+        loop_grid(dev, n), stream), name)
     _count(ndt_align_loop_batched, max_iterations + polish_iterations)
     return carry
+
+
+def loop_kernel_attributes(device) -> dict:
+    """The loop kernel's registers per thread, static shared memory and local memory
+    bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block, and
+    the SMs of the CUDA `device` with the kernel's resident blocks per SM there."""
+    out = (ctypes.c_int * 3)()
+    _raise_on(load_library().lgs_ndt_loop_attributes(out), "loop_kernel_attributes")
+    sms, per_sm = _loop_occupancy(device)
+    return dict(registers=out[0], smem_bytes=out[1], local_bytes=out[2],
+                tile=_consts["loop_tile"], sms=sms, blocks_per_sm=per_sm)
 
 
 def worked_launches(reset: bool = False) -> int:

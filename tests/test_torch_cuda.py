@@ -9,7 +9,11 @@ plain version, row by row against the single kernel, masked, on two streams, and
 `batch_odometry` card against CPU and against single-sequence runs; one verification
 with a mesh of the card against the unmeshed one; the classic driver's device default;
 `match_features` under the float32 pin, `argmax`'s first maximum, `global_register` card
-and CPU, and a checkpoint carried from the card to the CPU and back.
+and CPU, and a checkpoint carried from the card to the CPU and back. The NDT loop kernel
+against the plain loop: the dense course's stages, ragged sizes around its tile (N = 1,
+300, 4,097, 50,000), steps with no inliers or a singular system, batches of 1, 3, 4 and 5
+row by row against single loops, a block count that does not depend on the batch, two
+streams at once.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -396,30 +400,44 @@ def _loop_call(inputs, step_size=0.1, max_iterations=64, polish=2):
     return (vmap, src, mask, T0, d2, ws, step_size, 0.01, damping, max_iterations, polish)
 
 
-# (N, leaf, step, max_iterations, polish): the fine stage, the coarse stage (stride 4, 4 m
-# map, 4x the step, no polish), one that runs out of iterations, a small one.
-LOOP_SIZES = [(32768, 2.0, 0.1, 64, 2), (8192, 4.0, 0.4, 16, 0), (32768, 2.0, 0.1, 3, 2),
-              (300, 2.0, 0.1, 64, 2)]
-
-
-@pytest.mark.parametrize("n,leaf,step,iters,polish", LOOP_SIZES)
-def test_loop_kernel_matches_plain_loop(cuda, n, leaf, step, iters, polish):
-    """The kernel loop against the plain loop (torch ops, carry frozen after done) on the
-    same card tensors: T to 1e-4, the same iterations, done and inliers; fitness to rtol
-    1e-4. Two runs bit-identical; one C call enqueues max_iterations + polish launches."""
-    args = _loop_call(_loop_inputs(n, leaf, cuda), step, iters, polish)
-    before = tk.ndt_align_loop.launches
+def _loop_matches_plain(args):
+    """The kernel loop (run twice: bit-identical) against the plain loop (torch ops, carry
+    frozen after done) on the same card tensors: T to 1e-4, the same iterations and done,
+    inliers within 0.1%, fitness to rtol 1e-4. Returns the kernel loop's carry."""
     out = tk.ndt_align_loop(*args)
     again = tk.ndt_align_loop(*args)
-    torch.cuda.synchronize()
-    assert tk.ndt_align_loop.launches == before + 2 * (iters + polish)
-    assert all(torch.equal(a, b) for a, b in zip(out, again))
     ref = tk.ndt_align_loop_plain(*args)
-    T, done, it, fit, inl = out
-    assert float((T - ref[0]).abs().max()) <= 1e-4
-    assert (bool(done), int(it)) == (bool(ref[1]), int(ref[2]))
-    assert abs(int(inl) - int(ref[4])) <= 0.001 * int(ref[4])
-    np.testing.assert_allclose(float(fit), float(ref[3]), rtol=1e-4)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-4
+    assert (bool(out[1]), int(out[2])) == (bool(ref[1]), int(ref[2]))
+    assert abs(int(out[4]) - int(ref[4])) <= 0.001 * int(ref[4])
+    np.testing.assert_allclose(float(out[3]), float(ref[3]), rtol=1e-4)
+    return out
+
+
+# (N, leaf, step, max_iterations, polish, damping): the fine stage, the coarse stage
+# (stride 4, 4 m map, 4x the step, no polish), one that runs out of iterations, and sizes
+# around the loop kernel's tile of 128 source points: a ragged third block, one point, a
+# ragged last tile, and more tiles than the card holds at once (391 at 50,000: persistent
+# blocks run two). One point's H has rank 3, so it damps by 0.5 to keep the 6x6 solve
+# well conditioned for the comparison with cuSOLVER's.
+LOOP_SIZES = [(32768, 2.0, 0.1, 64, 2, 1e-6), (8192, 4.0, 0.4, 16, 0, 1e-6),
+              (32768, 2.0, 0.1, 3, 2, 1e-6), (300, 2.0, 0.1, 64, 2, 1e-6),
+              (1, 2.0, 0.1, 64, 2, 0.5), (4097, 2.0, 0.1, 64, 2, 1e-6),
+              (50000, 2.0, 0.1, 64, 2, 1e-6)]
+
+
+@pytest.mark.parametrize("n,leaf,step,iters,polish,damping", LOOP_SIZES)
+def test_loop_kernel_matches_plain_loop(cuda, n, leaf, step, iters, polish, damping):
+    """The kernel loop against the plain loop (`_loop_matches_plain`); one C call enqueues
+    max_iterations + polish launches."""
+    args = list(_loop_call(_loop_inputs(n, leaf, cuda), step, iters, polish))
+    args[8] = torch.full((), damping, device=cuda)
+    before = tk.ndt_align_loop.launches
+    _, done, it, _, inl = _loop_matches_plain(args)
+    assert tk.ndt_align_loop.launches == before + 2 * (iters + polish)
+    assert int(inl) > 0
     if iters == 3:
         assert int(it) == 3 and not bool(done)
     else:
@@ -436,7 +454,7 @@ def test_loop_kernel_early_exit_and_worked_count(cuda):
     assert worked == int(out[2]) + 2 < 64 + 2
 
 
-@pytest.mark.parametrize("B", [4, 1])
+@pytest.mark.parametrize("B", [4, 1, 3, 5])
 def test_batched_loop_matches_plain_and_single_rows(cuda, B):
     """The batched loop kernel at B = 4 x 32,768 (the multi-sequence odometry's shape),
     one sequence from its true pose (it finishes first): row b equal to the single loop
@@ -502,6 +520,57 @@ def test_loop_kernels_on_two_streams_at_once(cuda):
     for outs in results.values():
         for k, out in outs:
             assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+@pytest.mark.parametrize("case", ["all-masked", "outside-the-table", "singular"])
+def test_loop_kernel_degenerate_steps(cuda, case):
+    """No inliers (every point masked out, or every point past the dense table's far
+    end), or a singular system (w_scale 0 and damping 0: H = 0, so the LU divides 0 by a
+    zero pivot): the step is zeroed, T stays T0 bit for bit, and the loop is done after
+    one iteration, as in the plain loop."""
+    vmap, src, mask, T0, d2, ws = _loop_inputs(4096, 2.0, cuda, seed=7)
+    args = list(_loop_call((vmap, src, mask, T0, d2, ws)))
+    if case == "all-masked":
+        args[2] = torch.zeros_like(mask)
+    elif case == "outside-the-table":
+        args[1] = src + vmap.origin + 900.0
+    else:
+        args[5], args[8] = 0.0, torch.zeros((), device=cuda)
+    out = _loop_matches_plain(args)
+    assert torch.equal(out[0], T0)
+    assert bool(out[1]) and int(out[2]) == 1
+    assert (int(out[4]) > 0) == (case == "singular")
+
+
+def test_loop_block_count_does_not_depend_on_the_batch(cuda, monkeypatch):
+    """The single loop and the batched loop at B = 1, 3 and 5 launch the same persistent
+    grid per sequence: `loop_blocks` of N and the card (SMs x the kernel's occupancy)."""
+    seqs = [_loop_inputs(32768, 2.0, cuda, seed=b) for b in range(5)]
+    lib, seen = tk.load_library(), []
+
+    class Spy:  # the library, recording the block count each loop call passes
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name not in ("lgs_ndt_align_loop", "lgs_ndt_align_loop_batched"):
+                return fn
+
+            def call(*a):
+                seen.append(a[-2])
+                return fn(*a)
+            return call
+
+    monkeypatch.setattr(tk, "load_library", Spy)
+    damping = torch.full((), 1e-6, device=cuda)
+    tk.ndt_align_loop(*_loop_call(seqs[0]))
+    for B in (1, 3, 5):
+        tk.ndt_align_loop_batched(tk.stack_maps([s[0] for s in seqs[:B]]),
+                                  *(torch.stack([s[i] for s in seqs[:B]]) for i in range(1, 6)),
+                                  0.1, 0.01, damping, 64, 2)
+    torch.cuda.synchronize()
+    per_sm = lib.lgs_ndt_loop_blocks_per_sm()
+    want = tk.loop_blocks(32768, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                          per_sm, lib.lgs_ndt_loop_tile())
+    assert per_sm >= 1 and seen == [want] * 4
 
 
 def test_loop_rejects_bad_inputs(cuda):

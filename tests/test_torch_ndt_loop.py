@@ -13,7 +13,11 @@ tested on a card by `tests/test_torch_cuda.py`.
   fitness to rtol 1e-6, done, iterations and inliers exact.
 - The batched plain loop: row b equals the single loop bit for bit.
 - The wrappers take the plain version for CPU tensors and refuse other devices.
+- The loop kernel's block count (`loop_blocks`) is a function of N, the card's SM count
+  and the kernel's occupancy only.
 """
+
+import inspect
 
 import numpy as np
 import jax.numpy as jnp
@@ -279,3 +283,21 @@ def test_loop_wrappers_refuse_other_devices(problems):
     with pytest.raises(ValueError, match="unsupported device meta"):
         tk.ndt_align_loop_batched(args[0], args[1][None], args[2][None], args[3][None],
                                   *args[4:])
+
+
+@pytest.mark.parametrize("n,sms,per_sm,want", [
+    (32768, 132, 2, 256),   # the fine stage: one tile of 128 points a block
+    (8192, 132, 2, 64),     # the coarse stage
+    (300, 132, 2, 3),       # a ragged last tile
+    (1, 132, 2, 1),
+    (0, 132, 2, 1),         # no point: one block still takes the step
+    (65536, 132, 2, 264),   # more tiles than the card holds at once: persistent blocks
+    (65536, 132, 1, 132),
+    (10**7, 132, 16, 1024),  # the partials' cap
+])
+def test_loop_blocks_is_a_function_of_n_and_the_card(n, sms, per_sm, want):
+    """The persistent grid: one block per tile, at most SMs x resident blocks; it takes no
+    batch argument, so a batch row reduces in the single loop's order."""
+    assert tk.loop_blocks(n, sms, per_sm, 128) == want
+    assert list(inspect.signature(tk.loop_blocks).parameters) == [
+        "n", "sms", "blocks_per_sm", "tile"]
