@@ -51,24 +51,40 @@ of `bench.py:bench_e2e`. Phases:
      114,688, against the 4 m map, at the identity guess and at the pre-align's result),
      and their times at that shape;
  13. the CLI with its default (loops on), 100 frames;
- 14. `ndt_accumulate` on GICP's own rows: the front end's (a GICP target of phase 3's
-     full ring, the last ring scan at its ground-truth pose, N = K = 32,768) and the
-     verifier's (a GICP target of a loop submap of phase 10, its 16,384-point keyframe at
-     the coarse pre-align's result), each with unmatched rows whose residuals are
-     padding-sized (~1e6); held against the plain version (REL/ABS, hit counts exact,
-     bit-identical reruns), with device and host time, the bound and its share;
+ 14. `ndt_accumulate` on GICP's own rows (GICP no longer launches it; kept as a
+     measurement): the front end's (a GICP target of phase 3's full ring, the last ring
+     scan at its ground-truth pose, N = K = 32,768) and the verifier's (a GICP target of
+     a loop submap of phase 10, its 16,384-point keyframe at the coarse pre-align's
+     result), each with unmatched rows whose residuals are padding-sized (~1e6); held
+     against the plain version (REL/ABS, hit counts exact, bit-identical reruns), with
+     device and host time, the bound and its share;
+ 14b. gicp-loop, GICP's counterpart of 3b: the GICP loop kernel `gicp_iteration`
+     (`gicp_align_loop`: one launch an iteration — the grid-NN match, the plane-to-plane
+     rows, the sums and the 6x6 step — the carry on the device) against the plain loop
+     on the same card tensors, on phase 14's fixtures without padding: the front end's
+     from a perturbed guess, cut at one iteration (inliers exact) and with the reciprocal
+     test, and the verifier's from its pre-align's result: T within 1e-4, the same
+     iterations and done, inliers within 0.1%, fitness within rtol 1e-4, bit-identical
+     reruns; device us of a working and of an early-exit launch, host and device us of an
+     align stage, the bound, the plain version's ms, the kernel's registers, shared
+     memory and blocks; with `--parent DIR` the parent's `gicp_align` stage against this
+     tree's, in turns; then 5 dense frames of the fused GICP step under
+     `torch.cuda.set_sync_debug_mode("error")`;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
-     first 3 frames card against CPU (1 cm / 1 mrad), then the whole course —
-     `ndt_accumulate` launched on this path, `ndt_direct7_accumulate` not; phase 6's
-     assertions; keyframe ATE, p50 frame;
+     first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
+     loop kernel launched 64 times a frame (and how many did work), `ndt_accumulate`,
+     `ndt_direct7_accumulate` and the NDT loop kernel not; phase 6's assertions; keyframe
+     ATE, p50 frame;
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
      then ICP, each with phase 6's assertions; each stage's p50 for both;
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
-     ATE below phase 10's loops-off ATE, `ndt_accumulate` launched by the verify thread
-     (the odometry launches only the fused kernel); verify p50;
+     ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
+     thread (the odometry launches only the NDT loop kernel) and `ndt_accumulate` not;
+     verify p50;
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
-     60 frames: it runs on the card, with that driver and matcher;
+     60 frames: it runs on the card, with that driver and matcher, launching the GICP
+     loop kernel and not `ndt_accumulate`;
  19. `global_register` (FPFH + RANSAC, default `GlobalRegConfig`: 8,192 keypoints, 2,048
      hypotheses, fpfh_k 32) on an 8,192-point scan moved by 150 deg / (18, -9, 0.3) m and
      by 75 deg / (-12, 20, -0.2) m: ok, rotation error < 5 deg, translation error < 1 m, on
@@ -128,7 +144,8 @@ Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
 `python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
-3b and its profile to phase 7, in turns with this tree's.
+3b, its profile to phase 7 and its `gicp_align` stage to phase 14b, in turns with this
+tree's.
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -212,7 +229,7 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-           "ndt_align_loop", "ndt_align_loop_batched")
+           "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -743,15 +760,25 @@ def gicp_rows_check(label: str, rows, card: str):
     return err, {"ndt_accumulate": rec}
 
 
-def gicp_front_rows(cfg: PipelineConfig, ring, last, T_last: np.ndarray):
-    """The front end's GICP rows: the target the GICP front end builds from the full ring,
-    the last ring scan (N = 32,768) at its ground-truth pose with its own covariances.
-    Its last 512 rows are made padding (as a scan with fewer points has), whose residuals
-    are then ~1e6."""
+def gicp_front_inputs(cfg: PipelineConfig, ring, last):
+    """The GICP front end's inputs on the dense course: the target it builds from the full
+    ring and the last ring scan (N = 32,768) with its own covariances. Returns (target,
+    points, mask, covs)."""
     g = cfg.scan_matcher.gicp
     build_target, _ = gicp.make_gicp_matcher(g)
     target = build_target(*assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride))
-    pts, msk = last.points.clone(), last.mask.clone()
+    covs, _ = gicp.estimate_covariances(last.points, last.mask, g.max_correspondence_distance,
+                                        k=g.correspondence_randomness)
+    return target, last.points, last.mask, covs
+
+
+def gicp_front_rows(cfg: PipelineConfig, inputs, T_last: np.ndarray):
+    """The front end's GICP rows (`gicp_front_inputs`) at the last ring scan's
+    ground-truth pose. Its last 512 rows are made padding (as a scan with fewer points
+    has), whose residuals are then ~1e6, and its covariances are estimated again."""
+    g = cfg.scan_matcher.gicp
+    target, points, mask, _ = inputs
+    pts, msk = points.clone(), mask.clone()
     pts[-512:], msk[-512:] = PAD_VALUE, False
     covs, _ = gicp.estimate_covariances(pts, msk, g.max_correspondence_distance,
                                         k=g.correspondence_randomness)
@@ -759,12 +786,11 @@ def gicp_front_rows(cfg: PipelineConfig, ring, last, T_last: np.ndarray):
     return gicp_rows(target, pts, msk, covs, T, g.max_correspondence_distance)
 
 
-def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
-    """The GICP verifier's rows for attempt `rec` of a back end: its inputs built by a
-    GICP back end fed the same keyframes (the candidate's GICP target, the latest
-    keyframe at 16,384 points with its covariances), at the coarse pre-align's result —
-    the verifier's first GICP iteration. Its last 512 rows are made padding, as in
-    `gicp_front_rows` (a drift-course keyframe holds ~9k points, so most are already)."""
+def gicp_verify_inputs(back: GraphBasedSLAM, rec: dict):
+    """The GICP verifier's inputs for attempt `rec` of a back end: built by a GICP back
+    end fed the same keyframes (the candidate's GICP target, the latest keyframe at 16,384
+    points with its covariances) and the coarse pre-align's result, where the verifier's
+    GICP loop starts. Returns (target, points, mask, covs, T_pre, the GICP config)."""
     cfg = dataclasses.replace(back.cfg, registration_method="GICP", async_backend=False)
     b = GraphBasedSLAM(cfg, back.capacity, device=back.device)
     for k in range(rec["latest"] + 1):
@@ -776,10 +802,17 @@ def gicp_verify_rows(back: GraphBasedSLAM, rec: dict):
     _grid, pre_map, target, _glob = inp["targets"][0]
     src_p, src_m, src_covs = inp["source"]
     pre = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
+    return target, src_p, src_m, src_covs, pre.transform, cfg.gicp
+
+
+def gicp_verify_rows(inputs):
+    """The GICP verifier's rows (`gicp_verify_inputs`) at the coarse pre-align's result —
+    the verifier's first GICP iteration. Its last 512 rows are made padding, as in
+    `gicp_front_rows` (a drift-course keyframe holds ~9k points, so most are already)."""
+    target, src_p, src_m, src_covs, T_pre, g = inputs
     src_p, src_m = src_p.clone(), src_m.clone()
     src_p[-512:], src_m[-512:] = PAD_VALUE, False
-    return gicp_rows(target, src_p, src_m, src_covs, pre.transform,
-                     cfg.gicp.max_correspondence_distance)
+    return gicp_rows(target, src_p, src_m, src_covs, T_pre, g.max_correspondence_distance)
 
 
 def reset_counts() -> None:
@@ -793,11 +826,13 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launches since `reset_counts`, read just after a path ran, and
-    `ndt_iteration_worked`: how many of the loop kernels' launches (one per sequence of a
-    batch) did work rather than exit on a finished carry."""
+    `ndt_iteration_worked` / `gicp_iteration_worked`: how many of each loop kernel's
+    launches (one per sequence of a batch) did work rather than exit on a finished
+    carry."""
     torch.cuda.synchronize()
     counts = {name: getattr(kernels, name).launches for name in KERNELS}
-    counts["ndt_iteration_worked"] = kernels.worked_launches()
+    for name in ("ndt_iteration", "gicp_iteration"):
+        counts[f"{name}_worked"] = kernels.worked_launches(kernel=name)
     return counts
 
 
@@ -885,7 +920,9 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
                                                 "ndt_direct7_accumulate_batched": 0,
                                                 "ndt_align_loop": 0,
                                                 "ndt_align_loop_batched": 0,
-                                                "ndt_iteration_worked": 0}):
+                                                "gicp_align_loop": 0,
+                                                "ndt_iteration_worked": 0,
+                                                "gicp_iteration_worked": 0}):
         raise AssertionError(f"line search: converged {bool(res.converged)}, {bodies} "
                              f"bodies, launches {counts}")
     err = float(np.abs(res.transform.cpu().numpy() - T_last).max())
@@ -983,14 +1020,15 @@ def tree_kernels(root: str, name: str = "parent_kernels"):
     return mod
 
 
-def tree_ndt(root: str, kern, name: str = "parent_ndt"):
-    """The `registration.ndt` module of another tree, loaded beside this tree's under
-    `name`, its loop calls bound to `kern` (that tree's `ops.kernels`, `tree_kernels`);
-    its other imports are this tree's."""
+def tree_registration(root: str, module: str, kern, name: str):
+    """The `registration.<module>` module (`ndt`, `gicp`) of another tree, loaded beside
+    this tree's under `name`, its kernel calls bound to `kern` (that tree's `ops.kernels`,
+    `tree_kernels`); its other imports are this tree's."""
     path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "registration",
-                        "ndt.py")
+                        f"{module}.py")
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # its dataclasses look their module up while they are made
     spec.loader.exec_module(mod)
     mod.kernels = kern
     return mod
@@ -1078,7 +1116,7 @@ def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, 
     say("ndt-loop-kernel", **resources)
     if parent:
         par_kernels = tree_kernels(parent)
-        par = (par_kernels, tree_ndt(parent, par_kernels))
+        par = (par_kernels, tree_registration(parent, "ndt", par_kernels, "parent_ndt"))
     else:
         par = None
     init = torch.as_tensor(perturbed(T_last), device=dev)
@@ -1169,8 +1207,9 @@ def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, 
 
 def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: int = 20,
                           frames: int = 5) -> dict:
-    """The fused step (NDT) on `frames` dense-course frames after `first`, against the
-    target of the full ring of frames 0..first-1, from the state the ring's last frame
+    """The fused step (the config's matcher) on `frames` dense-course frames after
+    `first`, against the target of the full ring of frames 0..first-1, from the state the
+    ring's last frame
     leaves (its ground-truth pose, constant velocity): one warm-up step, then `frames`
     steps under `torch.cuda.set_sync_debug_mode("error")`, which raises at the first
     synchronous read. Their inputs are uploaded first, and their outputs read after."""
@@ -1212,6 +1251,208 @@ def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: in
                 enqueue_ms_per_frame=enqueue_ms / frames, wall_ms_per_frame=total_ms / frames)
 
 
+# -- the GICP loop on the device (the gicp-loop phase) -------------------------------------
+
+# The GICP loop kernel against its plain loop on the same card tensors, to the NDT loop's
+# bounds (LOOP_T_ATOL, LOOP_INLIERS_RTOL, LOOP_FITNESS_RTOL: float32 sums in other orders,
+# and the kernel's in-register transform against cuBLAS's `points @ R^T`); a loop cut at
+# one iteration has exactly the plain loop's inliers (the query's d2 is the plain
+# version's float32 arithmetic in its order, the first minimum as argmin takes it).
+# Float operations of a working launch: per masked-in point the transform and its cell
+# (TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT); per candidate whose key is its cell's,
+# d2 and the comparison (9); per matched row R Cp R^T + Cq (99), the adjugate inverse (42),
+# e = p - q (3), the accumulation (ACCUM_FLOPS_PER_HIT) and the fitness sums (2); the step.
+CANDIDATE_FLOPS = 9
+GICP_ROW_FLOPS = 99 + 42 + 3 + ACCUM_FLOPS_PER_HIT + 2
+GICP_VARIANT = (7, 32, False)  # the path's query: 7 cells, 32-row buckets, no reciprocal
+
+
+def gicp_loop_args(inputs, T0, g, max_iterations: int | None = None, source_grid=None):
+    """`gicp_align_loop`'s arguments as `gicp_align` passes them for GICP config `g`."""
+    target, points, mask, covs = inputs[:4]
+    d = g.max_correspondence_distance
+    return (target, points, mask, covs, T0, d * d, g.transform_epsilon,
+            torch.full((), 1e-6, device=points.device),
+            g.max_iterations if max_iterations is None else max_iterations, 32, 7,
+            source_grid)
+
+
+def compare_gicp_loop(label: str, args, exact_inliers: bool = False) -> dict:
+    """The GICP kernel loop vs its plain loop on the same card tensors, plus a
+    bit-identical rerun; returns the numbers of the comparison."""
+    out = kernels.gicp_align_loop(*args)
+    again = kernels.gicp_align_loop(*args)
+    ref = kernels.gicp_align_loop_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{label}: two GICP kernel loops differ")
+    rec = dict(case=label, N=args[1].shape[0], max_iterations=args[8],
+               reciprocal=args[11] is not None, iterations=int(out[2]),
+               iterations_plain=int(ref[2]), done=bool(out[1]), done_plain=bool(ref[1]),
+               T_max_abs_err=float((out[0] - ref[0]).abs().max()), inliers=int(out[4]),
+               inliers_plain=int(ref[4]), fitness=float(out[3]), fitness_plain=float(ref[3]),
+               bit_identical=True)
+    say("gicp-loop-check", **rec)
+    inl_tol = 0 if exact_inliers else LOOP_INLIERS_RTOL * rec["inliers_plain"]
+    if not (rec["T_max_abs_err"] <= LOOP_T_ATOL
+            and rec["iterations"] == rec["iterations_plain"]
+            and rec["done"] == rec["done_plain"]
+            and abs(rec["inliers"] - rec["inliers_plain"]) <= inl_tol
+            and rec["inliers_plain"] > 0
+            and abs(rec["fitness"] - rec["fitness_plain"]) <= LOOP_FITNESS_RTOL
+            * abs(rec["fitness_plain"])):
+        raise AssertionError(f"{label}: GICP kernel loop vs plain {rec}")
+    return rec
+
+
+def gicp_loop_bound_us(args) -> dict:
+    """The least time for one working launch of the GICP loop kernel on these inputs at
+    T0, counted on the card from this run's data. Bytes: the mask (1 B a point), each
+    masked-in point (12 B), each distinct in-table cell its query reads (4 B), each
+    distinct candidate row whose key is that cell's (16 B), each matched point's source
+    covariance (36 B) and each distinct matched target row's covariance and flag (37 B),
+    the carry and the damping. Operations: the per-point, per-candidate and per-row
+    counts above, and the step."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as nb
+
+    target, src, msk, _covs, T0, corr2 = args[:6]
+    bucket_cap, neighborhood = args[9], args[10]
+    p = se3.transform_points(T0, src)
+    q = p[msk]
+    grid = target.grid
+    offsets = nb._offsets_for(neighborhood, q.device)
+    d2, cand = nb._candidate_scan(grid, q, offsets, bucket_cap)
+    real = torch.isfinite(d2)
+    n_cand = int(real.sum())
+    rows = torch.unique(cand[real]).numel()
+    nc = voxel_coords(q, grid.origin, 1.0 / grid.cell_size)[:, None, :] + offsets
+    in_range = ((nc >= 0) & (nc < torch.tensor(TABLE_DIMS, device=q.device))).all(-1)
+    _, dy, dz = TABLE_DIMS
+    cells = torch.unique(((nc[..., 0] * dy + nc[..., 1]) * dz + nc[..., 2])[in_range]).numel()
+    idx, _d2, matched = kernels.gicp_match(target, p, msk, corr2, bucket_cap, neighborhood)
+    n_match = int(matched.sum())
+    trows = torch.unique(idx[matched]).numel()
+    n_pts = q.shape[0]
+    nbytes = (src.shape[0] + 12 * n_pts + 4 * cells + 16 * rows + 36 * n_match + 37 * trows
+              + CARRY_BYTES)
+    flops = ((TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT) * n_pts
+             + CANDIDATE_FLOPS * n_cand + GICP_ROW_FLOPS * n_match + STEP_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations", candidates=n_cand,
+                candidate_rows=rows, table_cells=cells, matched=n_match)
+
+
+def gicp_loop_timings(args, align) -> dict:
+    """Device us per working launch and per early-exit launch of the GICP loop kernel,
+    and the host and device us of a whole align stage (`align()`), as `loop_timings`
+    measures NDT's: a loop of 20 launches that all work (epsilon 0), one of 1 working
+    launch, and one of 1 working and 40 early-exit launches (epsilon 1e9)."""
+    def loop(eps, its):
+        return lambda: kernels.gicp_align_loop(*args[:6], eps, args[7], its, *args[9:])
+
+    work = split_times(loop(0.0, 20), calls=10, warmup=2)
+    one = split_times(loop(1e9, 1), calls=40, warmup=2)
+    dead = split_times(loop(1e9, 41), calls=5, warmup=2)
+    stage = split_times(align, calls=3, warmup=2)
+    return dict(working_launch_us=(work["device_us"] - one["device_us"]) / 19,
+                early_exit_launch_us=(dead["device_us"] - one["device_us"]) / 40,
+                loop_host_us_20=work["host_us"], stage_host_us=stage["host_us"],
+                stage_device_us=stage["device_us"], stage_single_ms=stage["single_ms"])
+
+
+def gicp_plain_launch_ms(args) -> float:
+    """The plain version's time for one working launch's work on the card: the
+    transform, match, rows and accumulation (`gicp_sums_plain`) and `gicp_carry_update`."""
+    target, src, msk, covs, T0, corr2, eps, damping = args[:8]
+    dev = src.device
+    carry = (T0, torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), device=dev), torch.zeros((), dtype=torch.int32, device=dev))
+
+    def one():
+        sums = kernels.gicp_sums_plain(target, src, msk, covs, T0, corr2, *args[9:])
+        return kernels.gicp_carry_update(sums, carry, eps, damping)
+
+    return median_ms(one, calls=20)
+
+
+def gicp_stage_turns(stage: str, inputs, T0, g, parent, card: str) -> dict:
+    """One `gicp_align` stage of this tree and of `parent` (another tree's
+    `registration.gicp`, whose loop reads `done` back every iteration) on the same inputs,
+    in turns (this, parent, parent, this): the median of single calls between events
+    after a sync (`median_ms`: the host's enqueue and waits plus the device). Prints both
+    trees' turns and means; returns {"ms", "parent_ms"}."""
+    target, points, mask, covs = inputs[:4]
+    runs = {}
+    for tree, mod in (("this", gicp), ("parent", parent), ("parent", parent), ("this", gicp)):
+        def align(mod=mod):
+            return mod.gicp_align(target, points, mask, T0, covs,
+                                  max_correspondence_distance=g.max_correspondence_distance,
+                                  transform_epsilon=g.transform_epsilon,
+                                  max_iterations=g.max_iterations)
+        runs.setdefault(tree, []).append(median_ms(align, calls=10, warmup=2))
+    mean = {tree: float(np.mean(r)) for tree, r in runs.items()}
+    say("gicp-loop-turns", stage=stage, turns_ms=json.dumps(runs), this_ms=mean["this"],
+        parent_ms=mean["parent"], card=json.dumps(card))
+    return dict(ms=mean["this"], parent_ms=mean["parent"])
+
+
+def gicp_loop_phase(cfg: PipelineConfig, front_in, verify_in, T_last: np.ndarray, card: str,
+                    parent: str | None = None) -> dict:
+    """The gicp-loop phase: `gicp_iteration` (`gicp_align_loop`) against the plain loop on
+    phase 14's fixtures — the front end's (the ring's target, the last ring scan, N =
+    32,768) from a perturbed guess, the same cut at one iteration (inliers exact) and with
+    the reciprocal test, and the verifier's (N = 16,384) from its pre-align's result; the
+    device us of a working and of an early-exit launch, the host and device us of an align
+    stage, the bound and the plain version's ms; the kernel's registers, shared memory and
+    blocks. With `parent` (the parent commit unpacked by `git archive`) the align stage of
+    that tree's `gicp_align`, in turns with this tree's. Returns {"err", "timing",
+    "records", "resources"}."""
+    g = cfg.scan_matcher.gicp
+    dev = front_in[1].device
+    resources = dict(kernels.loop_kernel_attributes(dev, GICP_VARIANT),
+                     blocks_front=kernels.loop_grid(dev, front_in[1].shape[0], GICP_VARIANT),
+                     blocks_verify=kernels.loop_grid(dev, verify_in[1].shape[0], GICP_VARIANT))
+    say("gicp-loop-kernel", **resources)
+    init = torch.as_tensor(perturbed(T_last), device=dev)
+    vg = verify_in[5]
+    stages = {"front": (front_in, gicp_loop_args(front_in, init, g), g),
+              "verify": (verify_in, gicp_loop_args(verify_in, verify_in[4], vg), vg)}
+    recs = [compare_gicp_loop(f"{k}-perturbed", a) for k, (_, a, _) in stages.items()]
+    recs.append(compare_gicp_loop("front-one-iteration", gicp_loop_args(front_in, init, g, 1),
+                                  exact_inliers=True))
+    grid = build_hash_grid(front_in[1], front_in[2], g.max_correspondence_distance)
+    recs.append(compare_gicp_loop("front-reciprocal", gicp_loop_args(
+        front_in, init, g, source_grid=grid)))
+    if not (recs[0]["done"] and recs[1]["done"] and recs[2]["iterations"] == 1):
+        raise AssertionError(f"gicp loop fixtures: {recs}")
+    err = max(r["T_max_abs_err"] for r in recs)
+
+    par = None
+    if parent:
+        par = tree_registration(parent, "gicp", tree_kernels(parent, "parent_kernels_gicp"),
+                                "parent_gicp")
+    timing = {}
+    for k, (inputs, a, gk) in stages.items():
+        def align(a=a, gk=gk):
+            return gicp.gicp_align(a[0], a[1], a[2], a[4], a[3],
+                                   max_correspondence_distance=gk.max_correspondence_distance,
+                                   transform_epsilon=gk.transform_epsilon,
+                                   max_iterations=gk.max_iterations)
+        t = gicp_loop_timings(a, align)
+        t.update(gicp_loop_bound_us(a), plain_ms=gicp_plain_launch_ms(a), N=a[1].shape[0])
+        t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
+                 single_ms=t["stage_single_ms"],
+                 share_of_bound=t["bound_us"] / t["working_launch_us"])
+        if par is not None:
+            turns = gicp_stage_turns(k, inputs, a[4], gk, par, card)
+            t.update(stage_turns_ms=turns["ms"], parent_stage_ms=turns["parent_ms"])
+        say("gicp-loop-time", stage=k, **t, card=json.dumps(card))
+        timing[f"gicp_loop_{k}"] = {"gicp_iteration": t}
+    return dict(err=err, timing=timing, records=recs, resources=resources)
+
+
 def cli_command(out_dir: str, frames: int, loops: bool = False, sets=()) -> list:
     return [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
             "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
@@ -1237,7 +1478,10 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ate_keyframes_m=summary["ate_keyframes_m"],
                 frame_p50_ms=summary["frame_p50_ms"],
                 ndt_loop_launches=summary["kernel_launches"]["ndt_align_loop"],
-                ndt_loop_worked=summary["kernel_launches"]["ndt_iteration_worked"])
+                ndt_loop_worked=summary["kernel_launches"]["ndt_iteration_worked"],
+                gicp_loop_launches=summary["kernel_launches"]["gicp_align_loop"],
+                gicp_loop_worked=summary["kernel_launches"]["gicp_iteration_worked"],
+                ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -2035,7 +2279,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
-                    help="a tree of the parent commit (git archive): phases 3b and 7 "
+                    help="a tree of the parent commit (git archive): phases 3b, 7 and 14b "
                          "time and profile it too, in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
@@ -2192,24 +2436,40 @@ def main(argv=None) -> int:
     say("cli-loops", **cli_on)
 
     # -- 14. ndt_accumulate on GICP's own rows: front-end and verify shapes ----------------
-    for label, rows in (("gicp_front", gicp_front_rows(cfg, ring, last, T_last)),
-                        ("gicp_verify", gicp_verify_rows(back, first))):
+    front_in = gicp_front_inputs(cfg, ring, last)
+    verify_in = gicp_verify_inputs(back, first)
+    for label, rows in (("gicp_front", gicp_front_rows(cfg, front_in, T_last)),
+                        ("gicp_verify", gicp_verify_rows(verify_in))):
         err, timing[label] = gicp_rows_check(label, rows, card)
         max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"], err)
     del ring
 
-    # -- 15. the GICP front end (fused driver, loops off); launches counted here only -----
+    # -- 14b. gicp-loop: the GICP loop kernel against the plain loop; the step without a read
+    gloop = gicp_loop_phase(cfg, front_in, verify_in, T_last, card, args.parent)
+    max_err["gicp_iteration"] = gloop["err"]
+    timing.update(gloop["timing"])
     cfg_gicp = loops_off_config(["scan_matcher.registration_method=GICP"])
+    say("gicp-loop-fused-steps", **fused_steps_sync_free(cfg_gicp, scans, gt, front_in[0], dev),
+        card=json.dumps(card))
+    del front_in, verify_in
+
+    # -- 15. the GICP front end (fused driver, loops off); launches counted here only -----
     say("gicp-card-vs-cpu", **first_frames_agree(cfg_gicp, scans, ("cuda", "cpu")))
     reset_counts()
     # The JAX package holds phase 6's bound with GICP and with classic ICP on this
     # course (`scripts/jax_reference_dense.py`), so phases 15-16 assert it too.
     gicp_front = run_pipeline(cfg_gicp, scans, gt, "cuda")
     launches_gicp = read_counts()
-    if (launches_gicp["ndt_accumulate"] <= 0 or launches_gicp["ndt_direct7_accumulate"] != 0
-            or launches_gicp["ndt_align_loop"] != 0):
+    # The GICP loop kernel is this path's: max_iterations launches a frame (the
+    # bootstrap frame's too, whose empty target matches nothing), none of the NDT kernels.
+    g_its = cfg_gicp.scan_matcher.gicp.max_iterations
+    if not (launches_gicp["gicp_align_loop"] == g_its * gicp_front["frames"]
+            and 0 < launches_gicp["gicp_iteration_worked"] < launches_gicp["gicp_align_loop"]
+            and launches_gicp["ndt_accumulate"] == launches_gicp["ndt_direct7_accumulate"]
+            == launches_gicp["ndt_align_loop"] == 0):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
-    say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["ndt_accumulate"],
+    say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["gicp_align_loop"],
+        kernel_launches_worked=launches_gicp["gicp_iteration_worked"],
         card=json.dumps(card))
 
     # -- 16. the classic driver: NDT (phase 6's assertions), then ICP --------------------
@@ -2235,11 +2495,12 @@ def main(argv=None) -> int:
         apply_cli_overrides(PipelineConfig(), ["graph_slam.registration_method=GICP"]),
         dscans, dgt, "cuda")
     launches_gv = read_counts()
-    # The odometry (NDT) launches only the fused kernel: every ndt_accumulate launch of
-    # this run is the verify thread's.
+    # The odometry (NDT) launches only the NDT loop kernel: every GICP loop launch of this
+    # run is the verify thread's, and nothing launches ndt_accumulate.
     if not (gv["loops_accepted"] >= 1 and gv["ate_keyframes_m"] < off["ate_keyframes_m"]
-            and launches_gv["ndt_accumulate"] > 0
-            and pipe_g.back.verify_launches >= launches_gv["ndt_accumulate"]):
+            and launches_gv["gicp_align_loop"] > 0 and launches_gv["gicp_iteration_worked"] > 0
+            and launches_gv["ndt_accumulate"] == 0
+            and pipe_g.back.verify_launches >= launches_gv["gicp_align_loop"]):
         raise AssertionError(f"GICP verifier: {gv}, loops off {off['ate_keyframes_m']}, "
                              f"launches {launches_gv}, verify {pipe_g.back.verify_launches}")
     say("gicp-verify", loops_accepted=gv["loops_accepted"],
@@ -2249,7 +2510,9 @@ def main(argv=None) -> int:
         stage_p50_ms=json.dumps(gv["stage_p50_ms"], separators=(",", ":")),
         verify_ms_p50=1000 * float(np.median(pipe_g.back.verify_seconds)),
         verify_ms_max=1000 * float(np.max(pipe_g.back.verify_seconds)),
-        ndt_accumulate_launches_verify=launches_gv["ndt_accumulate"],
+        gicp_loop_launches_verify=launches_gv["gicp_align_loop"],
+        gicp_loop_launches_verify_worked=launches_gv["gicp_iteration_worked"],
+        ndt_accumulate_launches=launches_gv["ndt_accumulate"],
         verify_launches_all=pipe_g.back.verify_launches,
         odometry_vs_loops_off_max_diff=float(
             np.abs(res_g.odometry_poses - res_off.odometry_poses).max()),
@@ -2259,7 +2522,8 @@ def main(argv=None) -> int:
     cli_g = run_cli(os.path.join(OUT_DIR, "cli_classic_gicp"), 60, loops=True,
                     sets=("fused_frontend=false", "scan_matcher.registration_method=GICP"))
     if not (cli_g["device"] == "cuda" and cli_g["fused_frontend"] is False
-            and cli_g["registration_method"] == "GICP"):
+            and cli_g["registration_method"] == "GICP" and cli_g["gicp_loop_launches"] > 0
+            and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0):
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
 
@@ -2416,10 +2680,32 @@ def main(argv=None) -> int:
             launches_loop_course=launches_course["ndt_direct7_accumulate"],
             fuses="lidar_graph_slam_tpu/ops/voxel.py:447 (lookup_direct7)"),
         kernel_record(
+            "gicp_iteration", timing, max_err["gicp_iteration"], shape="gicp_loop_front",
+            source="lidar_graph_slam_tpu_torch/csrc/gicp_loop.cu",
+            launches=launches_gicp["gicp_align_loop"],
+            launches_worked=launches_gicp["gicp_iteration_worked"],
+            path="every GICP iteration: the fused GICP front end (phase 15), the GICP "
+                 "verifier (phase 17), the classic GICP CLI (phase 18)",
+            launches_gicp_verify=launches_gv["gicp_align_loop"],
+            launches_gicp_verify_worked=launches_gv["gicp_iteration_worked"],
+            launches_cli_classic_gicp=cli_g["gicp_loop_launches"],
+            launches_cli_classic_gicp_worked=cli_g["gicp_loop_worked"],
+            loop_of="lidar_graph_slam_tpu/registration/gicp.py:191 (lax.while_loop)",
+            fuses="lidar_graph_slam_tpu/ops/neighbors.py:103-177 (_candidate_scan, "
+                  "nearest), the body's rows and step (registration/gicp.py:146-178)",
+            early_exit_launch_ms=timing["gicp_loop_front"]["gicp_iteration"][
+                "early_exit_launch_us"] / 1000,
+            parent_stage_ms=timing["gicp_loop_front"]["gicp_iteration"].get(
+                "parent_stage_ms"),
+            kernel_resources=gloop["resources"]),
+        kernel_record(
             "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",
-            launches=launches_gicp["ndt_accumulate"], path="GICP front end (phase 15)",
+            launches=ls["launches"],
+            path="the NDT line search (phase 8); GICP no longer launches it (phases 15, "
+                 "17, 18 count 0); measured on GICP's rows in phase 14",
             launches_gicp_front_end=launches_gicp["ndt_accumulate"],
             launches_gicp_verify=launches_gv["ndt_accumulate"],
+            launches_cli_classic_gicp=cli_g["ndt_accumulate_launches"],
             launches_line_search=ls["launches"],
             launches_ndt_main_path=launches["ndt_accumulate"],
             launches_icp_loop_course=launches_course["ndt_accumulate"]),

@@ -31,7 +31,8 @@
 //    single-sequence entry point is the same kernel with B = 1, so a batch row equals
 //    the single launch on that sequence bit for bit.
 //  * `ndt_rows_kernel` takes gathered rows (e, W, p, hit), the reference's interface; the
-//    NDT line search and GICP use it.
+//    NDT line search uses it (GICP did until its loop kernel, `gicp_loop.cu`, which runs
+//    the same `accumulate_row` on the rows it forms itself).
 //
 // What bounds it on this card. The gathered-rows form reads 61 bytes per hit row for
 // about 157 flops and one expf: far below the H100's ~20 flop/byte f32 ridge, so bytes at

@@ -1,12 +1,14 @@
-"""NDT/GICP normal-equation accumulation and the whole NDT Gauss-Newton loop.
+"""NDT/GICP normal-equation accumulation and the whole NDT and GICP Gauss-Newton loops.
 
 The wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
-`ndt_accumulate_xla`, same file) and the NDT `lax.while_loop` around it
-(`lidar_graph_slam_tpu/registration/ndt.py:81-147`) as hand-written CUDA kernels for
-Hopper in two sources that share one header (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
-`csrc/ndt_common.cuh`; each source's header says what bounds its kernels), compiled with
-nvcc into one library at first use in `build/` and bound with ctypes:
+`ndt_accumulate_xla`, same file) and the `lax.while_loop`s around it
+(`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`) as
+hand-written CUDA kernels for Hopper in three sources (`csrc/ndt_accumulate.cu`,
+`csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`; the headers `csrc/ndt_common.cuh` and
+`csrc/loop_common.cuh` hold what they share; each source's header says what bounds its
+kernels), compiled with nvcc into one library at first use in `build/` and bound with
+ctypes:
 
 * `ndt_align_loop(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
   transform_epsilon, damping, max_iterations, polish_iterations)`: the NDT loop of
@@ -17,6 +19,13 @@ nvcc into one library at first use in `build/` and bound with ctypes:
 * `ndt_align_loop_batched(...)`: the same for B sequences, one launch of
   `ndt_iteration_batched` an iteration (`parallel/multi_sequence.py`); row b equals the
   single loop on sequence b bit for bit on the card.
+* `gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
+  transform_epsilon, damping, max_iterations, bucket_cap, neighborhood, source_grid)`: the
+  GICP loop of `registration/gicp.py:gicp_align` — one C call enqueues `max_iterations`
+  launches of the `gicp_iteration` kernel (transform, the grid-NN match, with the
+  reciprocal test when `source_grid` is given, the plane-to-plane rows, accumulation and
+  the 6x6 step in one launch; a launch that finds the carry done exits at once). Nothing
+  is read back.
 * `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
   reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
   accumulation, and the centre-residual sums of NDT's fitness. The loop kernel runs the
@@ -27,22 +36,24 @@ nvcc into one library at first use in `build/` and bound with ctypes:
   equals `ndt_direct7_accumulate` on sequence b alone bit for bit (the same kernel, the
   same number of blocks per sequence).
 * `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
-  rows, for NDT's line search (which needs the gathered means) and GICP.
+  rows, for NDT's line search (which needs the gathered means).
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
 (`lidar_graph_slam_tpu/registration/base.py:38-64`); `ndt_direct7_accumulate_plain` is
 `lookup_direct7` followed by it (`direct7_gathered`); `ndt_align_loop_plain` is the
 reference's body (`ndt_direct7_accumulate_plain`, then `ndt_step_plain`) with the carry
-frozen after `done`; the batched plain versions loop the single ones over the batch. A
-wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches its
-kernel or raises.
+frozen after `done`; `gicp_align_loop_plain` is GICP's body (`gicp_sums_plain`: `nearest`,
+`gicp_match`, `gicp_residual_rows` and `ndt_accumulate_plain`; then `gicp_step_plain`), the
+same way; the batched plain versions loop the single ones over the batch. A wrapper takes
+its plain version for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
 
 Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
 on the main thread and loop verification in its worker thread both launch), and
 `thread_launches()` the calling thread's, so a caller can tell the two paths apart. A loop
 wrapper counts every launch it enqueues; `worked_launches()` reads how many of them did
-work (a device counter, read with a device-wide synchronize: for measurement only).
+work (a device counter per loop kernel, read with a device-wide synchronize: for
+measurement only).
 Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
 a ticket counter (one per sequence of a batch); there is one such pair per CUDA stream,
 made at the stream's first launch (and grown for a larger batch), because the odometry
@@ -64,7 +75,10 @@ import time
 import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.ops.neighbors import nearest
 from lidar_graph_slam_tpu_torch.ops.voxel import (
+    _BITS_Y,
+    _BITS_Z,
     COORD_MAX,
     TABLE_DIMS,
     NdtVoxelMap,
@@ -74,9 +88,10 @@ from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_d
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
-# Built together into one library; the header is part of the digest too.
-_SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu")]
-_HEADERS = [os.path.join(_CSRC, "ndt_common.cuh")]
+# Built together into one library; the headers are part of the digest too.
+_SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
+                                              "gicp_loop.cu")]
+_HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -89,7 +104,8 @@ build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or l
 _consts: dict = {}     # the library's threads per block, accumulators, outputs, loop tile
                        # and loop partial row
 _scratch: dict = {}    # (device index, stream handle) -> (partials f32, counters i32)
-_occupancy: dict = {}  # device index -> (SMs, the loop kernel's resident blocks per SM)
+_occupancy: dict = {}  # (device index, GICP variant or None) -> (SMs, a loop kernel's
+                       # resident blocks per SM)
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
 
@@ -276,6 +292,122 @@ def ndt_align_loop_batched_plain(vmaps, source_points, source_mask, T0, d2, w_sc
     return tuple(torch.stack(x) for x in zip(*rows))
 
 
+def inv3x3(A: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse via the adjugate. A determinant below 1e-12 in
+    magnitude is replaced by +1e-12 (its sign dropped), as in the reference."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-12, 1e-12, det)
+    adj = torch.stack([
+        torch.stack([A11, A12, A13], dim=-1),
+        torch.stack([A21, A22, A23], dim=-1),
+        torch.stack([A31, A32, A33], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+def gicp_match(target, p: torch.Tensor, source_mask: torch.Tensor, corr2,
+               bucket_cap: int = 32, neighborhood: int = 7):
+    """Forward correspondences of the transformed source `p` in a `GicpTarget`: (idx [N]
+    into the target's sorted rows, d2 [N], matched [N]) — NN found, source row valid,
+    within the distance gate (`corr2` is its square) and a valid target covariance."""
+    idx, d2, found = nearest(target.grid, p, bucket_cap=bucket_cap, neighborhood=neighborhood)
+    return idx, d2, found & source_mask & (d2 < corr2) & target.valid[idx]
+
+
+def gicp_residual_rows(target, idx: torch.Tensor, p: torch.Tensor, R: torch.Tensor,
+                       source_covs: torch.Tensor):
+    """(e [N, 3], M [N, 3, 3]): the residual p - q and the plane-to-plane metric
+    (C_q + R C_p R^T)^-1 of every row, matched or not — the rows the accumulation takes."""
+    M = inv3x3(target.covs[idx] + R @ source_covs @ R.T)
+    return p - target.grid.points[idx], M
+
+
+def gicp_sums_plain(target, source_points, source_mask, source_covs, T, corr2,
+                    bucket_cap: int = 32, neighborhood: int = 7, source_grid=None):
+    """One GICP iteration's reduction at T (the reference's body before its solve): the
+    match (with PCL's reciprocal test when `source_grid`, the untransformed source's grid,
+    is given: the backward NN of T^-1 q must be the source row itself), the rows, and
+    `ndt_accumulate_plain` with d2 = 0 and w_scale = 1, where the weight is the match mask.
+    Returns (H, g, sum_w, n_hit, sum of the matched d2, matched count): the layout of
+    `ndt_direct7_accumulate`'s outputs, the fitness being the ratio of the last two."""
+    p = se3.transform_points(T, source_points)
+    idx, d2, matched = gicp_match(target, p, source_mask, corr2, bucket_cap, neighborhood)
+    if source_grid is not None:
+        q_back = se3.transform_points(se3.inverse(T), target.grid.points[idx])
+        bidx, _bd2, bfound = nearest(source_grid, q_back, bucket_cap=bucket_cap,
+                                     neighborhood=neighborhood)
+        rows = torch.arange(p.shape[0], device=p.device)
+        matched = matched & bfound & (source_grid.order[bidx] == rows)
+    e, M = gicp_residual_rows(target, idx, p, T[:3, :3], source_covs)
+    # Unmatched rows (e up to ~1e6 at padding) get weight exactly 0.
+    H, g, sum_w, n_hit = ndt_accumulate_plain(e, M, p, matched, 0.0, 1.0)
+    d2_sum = torch.sum(torch.where(matched, d2, 0.0))
+    return H, g, sum_w, n_hit, d2_sum, torch.sum(matched.to(torch.float32))
+
+
+def gicp_step_plain(sums, T, done, iters, transform_epsilon, damping):
+    """GICP's step from one iteration's reduction (`gicp_sums_plain`), the reference's
+    body after its accumulation: the damped solve (no cap), zeroed when it is not finite
+    or has fewer than 6 inliers, T <- se3_exp(delta) T, the fitness sum(d2) / max(inliers,
+    1) and the convergence test. Returns the next carry (T, done, iterations, fitness,
+    inliers)."""
+    H, g, _sum_w, n_hit, d2_sum, _count = sums
+    n_inl = n_hit.to(torch.int32)
+    delta = solve_damped(H, g, damping)
+    ok = torch.isfinite(delta).all() & (n_inl >= 6)
+    delta = torch.where(ok, delta, 0.0)
+    T_new = se3.se3_exp(delta) @ T
+    fitness = d2_sum / torch.clamp(n_inl, min=1)
+    newly_done = norm(delta) < transform_epsilon
+    return T_new, done | newly_done, iters + 1, fitness, n_inl
+
+
+def gicp_carry_update(sums, carry, transform_epsilon, damping):
+    """Plain version of what one `gicp_iteration` launch does to the carry (T, done,
+    iterations, fitness, inliers) given the iteration's reduction `sums`: a carry that is
+    done stays as it is (the while_loop's cond), otherwise `gicp_step_plain`'s."""
+    T, done, iters, _, _ = carry
+    new = gicp_step_plain(sums, T, done, iters, transform_epsilon, damping)
+    return tuple(torch.where(done, old, n) for old, n in zip(carry, new))
+
+
+def gicp_align_loop_plain(target, source_points, source_mask, source_covs, T0, corr2,
+                          transform_epsilon, damping, max_iterations, bucket_cap: int = 32,
+                          neighborhood: int = 7, source_grid=None, stop_early=None):
+    """Plain PyTorch version of `gicp_align_loop`: the reference's `while_loop` as
+    `max_iterations` torch-op bodies (`gicp_sums_plain`, `gicp_carry_update`) whose carry
+    is frozen from the iteration that finds it done. `stop_early` (default: on the CPU,
+    where reading `done` costs nothing) ends the loop at the first `done` instead; a
+    frozen carry gives the same result bit for bit. Returns (T, done, iterations,
+    fitness, inliers)."""
+    dev = source_points.device
+    if stop_early is None:
+        stop_early = dev.type == "cpu"
+    carry = (T0.to(torch.float32), torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.full((), torch.inf, dtype=torch.float32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    for _ in range(max_iterations):
+        if stop_early and bool(carry[1]):
+            break
+        sums = gicp_sums_plain(target, source_points, source_mask, source_covs, carry[0],
+                               corr2, bucket_cap, neighborhood, source_grid)
+        carry = gicp_carry_update(sums, carry, transform_epsilon, damping)
+    return carry
+
+
 # -- the library -------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -341,14 +473,22 @@ def _load_library_locked():
     lib.lgs_ndt_align_loop_batched.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i64, i32, vp, f32, vp, f32, i64,
         i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, i32, vp, vp, i32, vp]
+    lib.lgs_gicp_align_loop.argtypes = [
+        vp, vp, vp, i64, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, i32, i32, i32,
+        i32, i32, i32, i32, i32, i32, i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, vp, vp,
+        i32, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
-               lib.lgs_ndt_align_loop_batched):
+               lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop):
         fn.restype = ctypes.c_int
-    lib.lgs_ndt_worked_launches.argtypes = [i32]
-    lib.lgs_ndt_worked_launches.restype = i64
+    for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches):
+        fn.argtypes, fn.restype = [i32], i64
     lib.lgs_ndt_loop_blocks_per_sm.argtypes, lib.lgs_ndt_loop_blocks_per_sm.restype = [], i32
     lib.lgs_ndt_loop_attributes.argtypes, lib.lgs_ndt_loop_attributes.restype = [vp], i32
+    lib.lgs_gicp_loop_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.lgs_gicp_loop_blocks_per_sm.restype = i32
+    lib.lgs_gicp_loop_attributes.argtypes = [i32, i32, i32, vp]
+    lib.lgs_gicp_loop_attributes.restype = i32
     for name in ("threads", "quantities", "outputs", "loop_tile", "loop_row"):
         fn = getattr(lib, f"lgs_ndt_{name}")
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -392,24 +532,31 @@ def loop_blocks(n: int, sms: int, blocks_per_sm: int, tile: int) -> int:
     return max(1, min(-(-n // tile), sms * blocks_per_sm, _MAX_BLOCKS))
 
 
-def _loop_occupancy(device) -> tuple[int, int]:
-    """(SMs, the loop kernel's resident blocks per SM) of `device` (read once per card)."""
-    occ = _occupancy.get(device.index)
+def _loop_occupancy(device, gicp=None) -> tuple[int, int]:
+    """(SMs, resident blocks per SM) of the NDT loop kernel on `device`, or with `gicp` =
+    (neighborhood, bucket_cap, reciprocal) of that instantiation of the GICP loop kernel
+    (read once per card and kernel)."""
+    key = (device.index, gicp)
+    occ = _occupancy.get(key)
     if occ is None:
+        name = "ndt_iteration" if gicp is None else "gicp_iteration"
         with torch.cuda.device(device):
-            per_sm = load_library().lgs_ndt_loop_blocks_per_sm()
-        _raise_on(max(-per_sm, 0), "ndt_iteration occupancy")
+            lib = load_library()
+            per_sm = (lib.lgs_ndt_loop_blocks_per_sm() if gicp is None
+                      else lib.lgs_gicp_loop_blocks_per_sm(*map(int, gicp)))
+        _raise_on(max(-per_sm, 0), f"{name} occupancy")
         if per_sm == 0:
-            raise RuntimeError("ndt_iteration: no block of it fits on an SM")
-        occ = _occupancy[device.index] = (
+            raise RuntimeError(f"{name}: no block of it fits on an SM")
+        occ = _occupancy[key] = (
             torch.cuda.get_device_properties(device).multi_processor_count, per_sm)
     return occ
 
 
-def loop_grid(device, n: int) -> int:
+def loop_grid(device, n: int, gicp=None) -> int:
     """`loop_blocks` for N = n on the CUDA `device`: the blocks of one sequence in each
-    launch of the loop kernel there."""
-    return loop_blocks(n, *_loop_occupancy(device), _consts["loop_tile"])
+    launch of the NDT loop kernel there, or with `gicp` = (neighborhood, bucket_cap,
+    reciprocal) of that GICP loop kernel."""
+    return loop_blocks(n, *_loop_occupancy(device, gicp), _consts["loop_tile"])
 
 
 def _stream_scratch(device, batch: int = 1):
@@ -706,25 +853,136 @@ def ndt_align_loop_batched(vmaps, source_points, source_mask, T0, d2, w_scale, s
     return carry
 
 
-def loop_kernel_attributes(device) -> dict:
-    """The loop kernel's registers per thread, static shared memory and local memory
+GICP_NEIGHBORHOODS = (7, 27)
+GICP_BUCKET_CAPS = (16, 32)
+
+
+def _check_grid(wrapper: str, dev, label: str, grid, bucket_cap: int) -> None:
+    """A `HashGrid` the GICP loop kernel reads: packed [n, 4] f32 16-byte aligned with n >=
+    bucket_cap, the dense table, origin [3] f32, cell_size 0-d f32, order [n] i64."""
+    n = grid.packed.shape[0]
+    _check(wrapper, dev, **{f"{label}.packed": (grid.packed, (n, 4), torch.float32),
+                            f"{label}.table": (grid.table, (_TABLE_SIZE,), torch.int32),
+                            f"{label}.origin": (grid.origin, (3,), torch.float32),
+                            f"{label}.cell_size": (grid.cell_size, (), torch.float32),
+                            f"{label}.order": (grid.order, (n,), torch.int64)})
+    if grid.packed.data_ptr() % 16:
+        raise ValueError(f"{wrapper}: {label}.packed rows must be 16-byte aligned")
+    if not bucket_cap <= n < 2**31:
+        raise ValueError(f"{wrapper}: {label} holds {n} rows, outside [bucket_cap, 2**31)")
+
+
+def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
+                    transform_epsilon, damping, max_iterations, bucket_cap: int = 32,
+                    neighborhood: int = 7, source_grid=None):
+    """The whole GICP Gauss-Newton loop of `registration/gicp.py:gicp_align`, as the
+    reference's `lax.while_loop` runs it on the device.
+
+    target:        `registration.gicp.GicpTarget` (its grid, covs [n, 3, 3] f32 and valid
+                   [n] bool in the grid's sorted order)
+    source_points: [N, 3] f32 source points (untransformed), source_mask: [N] bool,
+    source_covs:   [N, 3, 3] f32
+    T0:            [4, 4] initial transform
+    corr2:         the squared correspondence distance (a number, rounded to float32)
+    transform_epsilon: a number (rounded to float32); damping: a number or a 0-d f32
+                   tensor on the device
+    bucket_cap, neighborhood: the grid query's (16 or 32, 7 or 27)
+    source_grid:   the untransformed source's `HashGrid` for PCL's reciprocal test, or None
+    Returns the device carry (T [4,4] f32, done bool, iterations i32 (the bodies that ran
+    before `done`, at most `max_iterations`), fitness f32 and inliers i32 of the last
+    body). Nothing is read back.
+
+    Refuses a `bucket_cap` or `neighborhood` the kernel does not take, on every device.
+    CPU tensors take `gicp_align_loop_plain`. On CUDA tensors one C call enqueues
+    `max_iterations` launches of the `gicp_iteration` kernel (`csrc/gicp_loop.cu`; a launch
+    that finds the carry done exits at once) on the current stream, counted in
+    `gicp_align_loop.launches`; it raises if the kernel fails to build or a launch is
+    refused.
+    """
+    name = "gicp_align_loop"
+    if neighborhood not in GICP_NEIGHBORHOODS:
+        raise ValueError(f"{name}: neighborhood must be one of {GICP_NEIGHBORHOODS}, got "
+                         f"{neighborhood}")
+    if bucket_cap not in GICP_BUCKET_CAPS:
+        raise ValueError(f"{name}: bucket_cap must be one of {GICP_BUCKET_CAPS}, got "
+                         f"{bucket_cap}")
+    if source_points.device.type == "cpu":
+        return gicp_align_loop_plain(target, source_points, source_mask, source_covs, T0,
+                                     corr2, transform_epsilon, damping, max_iterations,
+                                     bucket_cap, neighborhood, source_grid)
+    dev = source_points.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = source_points.shape[0]
+    _check(name, dev, source_points=(source_points, (n, 3), torch.float32),
+           source_mask=(source_mask, (n,), torch.bool),
+           source_covs=(source_covs, (n, 3, 3), torch.float32))
+    _check_transform(name, dev, T0, ())
+    _check_grid(name, dev, "target.grid", target.grid, bucket_cap)
+    rows = target.grid.packed.shape[0]
+    _check(name, dev, **{"target.covs": (target.covs, (rows, 3, 3), torch.float32),
+                         "target.valid": (target.valid, (rows,), torch.bool)})
+    grids = [target.grid]
+    if source_grid is not None:
+        _check_grid(name, dev, "source_grid", source_grid, bucket_cap)
+        grids.append(source_grid)
+    dp_ptr, dp_val = _scalar_arg(damping, dev)
+    lib = load_library()
+    stream, partials, counter = _stream_scratch(dev)
+    carry = _loop_carry(T0, ())
+    # The float32 reciprocal of the cell that `ops/neighbors.py:_candidate_scan` computes.
+    inv_cells = [1.0 / g.cell_size for g in grids]
+    grid_args = [(g.table.data_ptr(), g.packed.data_ptr(), g.origin.data_ptr(),
+                  inv.data_ptr(), g.packed.shape[0]) for g, inv in zip(grids, inv_cells)]
+    src_grid_args = ((*grid_args[1], source_grid.order.data_ptr()) if source_grid is not None
+                     else (None, None, None, None, 0, None))
+    variant = (neighborhood, bucket_cap, source_grid is not None)
+    _raise_on(lib.lgs_gicp_align_loop(
+        source_points.data_ptr(), source_mask.data_ptr(), source_covs.data_ptr(), n,
+        *grid_args[0], target.covs.data_ptr(), target.valid.data_ptr(), *src_grid_args,
+        *TABLE_DIMS, *COORD_MAX, _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap,
+        corr2, transform_epsilon, dp_ptr, dp_val, *(x.data_ptr() for x in carry),
+        max_iterations, partials, counter, loop_grid(dev, n, variant), stream), name)
+    _count(gicp_align_loop, max_iterations)
+    return carry
+
+
+def loop_kernel_attributes(device, gicp=None) -> dict:
+    """The NDT loop kernel's registers per thread, static shared memory and local memory
     bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block, and
-    the SMs of the CUDA `device` with the kernel's resident blocks per SM there."""
+    the SMs of the CUDA `device` with the kernel's resident blocks per SM there; with
+    `gicp` = (neighborhood, bucket_cap, reciprocal), those of that GICP loop kernel."""
     out = (ctypes.c_int * 3)()
-    _raise_on(load_library().lgs_ndt_loop_attributes(out), "loop_kernel_attributes")
-    sms, per_sm = _loop_occupancy(device)
+    lib = load_library()
+    err = (lib.lgs_ndt_loop_attributes(out) if gicp is None
+           else lib.lgs_gicp_loop_attributes(*map(int, gicp), out))
+    _raise_on(err, "loop_kernel_attributes")
+    sms, per_sm = _loop_occupancy(device, gicp)
     return dict(registers=out[0], smem_bytes=out[1], local_bytes=out[2],
                 tile=_consts["loop_tile"], sms=sms, blocks_per_sm=per_sm)
 
 
-def worked_launches(reset: bool = False) -> int:
-    """The `ndt_iteration` launches (single and batched; one per sequence of a batch) that
-    did work rather than exit on a finished carry, since the last reset, on the current
-    card. Synchronizes the whole device: for measurement only, never on a hot path."""
-    n = load_library().lgs_ndt_worked_launches(int(reset))
-    if n < 0:
-        _raise_on(-n, "worked_launches")
-    return n
+_WORKED = {"ndt_iteration": "lgs_ndt_worked_launches",
+           "gicp_iteration": "lgs_gicp_worked_launches"}
+
+
+def worked_launches(reset: bool = False, kernel: str | None = None) -> int:
+    """The loop kernels' launches (`ndt_iteration` single and batched, one per sequence of
+    a batch, and `gicp_iteration`) that did work rather than exit on a finished carry,
+    since the last reset, on the current card: both kernels' sum, or with `kernel` one of
+    those names, that kernel's (`reset` then resets only its count). Synchronizes the
+    whole device: for measurement only, never on a hot path."""
+    if kernel is not None and kernel not in _WORKED:
+        raise ValueError(f"worked_launches: kernel must be one of {tuple(_WORKED)}")
+    lib = load_library()
+    total = 0
+    for name, fn in _WORKED.items():
+        if kernel in (None, name):
+            n = getattr(lib, fn)(int(reset))
+            if n < 0:
+                _raise_on(-n, "worked_launches")
+            total += n
+    return total
 
 
 ndt_accumulate.launches = 0
@@ -732,3 +990,4 @@ ndt_direct7_accumulate.launches = 0
 ndt_direct7_accumulate_batched.launches = 0
 ndt_align_loop.launches = 0
 ndt_align_loop_batched.launches = 0
+gicp_align_loop.launches = 0

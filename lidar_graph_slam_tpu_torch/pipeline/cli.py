@@ -170,13 +170,16 @@ def main(argv=None) -> int:
         "frame_p50_ms": 1000 * float(np.median(frame_s[1:])) if len(frame_s) > 1 else 0.0,
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
             "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-            "ndt_align_loop", "ndt_align_loop_batched")},
+            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop")},
         "processes": process_count(),
     }
-    # How many of the NDT loop's launches did work (a device count; 0 without a loop).
-    looped = kernels.ndt_align_loop.launches + kernels.ndt_align_loop_batched.launches
-    summary["kernel_launches"]["ndt_iteration_worked"] = (
-        kernels.worked_launches() if pipe.device.type == "cuda" and looped else 0)
+    # How many of each loop kernel's launches did work (a device count; 0 without a loop).
+    looped = {"ndt_iteration": kernels.ndt_align_loop.launches
+              + kernels.ndt_align_loop_batched.launches,
+              "gicp_iteration": kernels.gicp_align_loop.launches}
+    for name, n in looped.items():
+        summary["kernel_launches"][f"{name}_worked"] = (
+            kernels.worked_launches(kernel=name) if pipe.device.type == "cuda" and n else 0)
     store = pipe.back.cloud_store
     if store is not None:
         summary["keyframe_clouds_owned"] = len(store.local_ids())

@@ -4,9 +4,10 @@ into its parts on one CUDA card, by timing variants of the kernel that stop earl
     python3 scripts/torch_ndt_loop_split.py [--json PATH]
 
 For each variant the script copies this checkout's `csrc/` and `ops/kernels.py` into
-`.chip_scratch/ndt_loop_split/<variant>/`, edits the copy of `ndt_loop.cu` there (the
-package itself is never changed), builds it with the package's own nvcc flags and loads
-it beside the others:
+`.chip_scratch/ndt_loop_split/<variant>/`, edits the copies of `ndt_loop.cu` and of
+`loop_common.cuh` (the reduction and the step it shares with the GICP loop kernel) there
+(the package itself is never changed), builds it with the package's own nvcc flags and
+loads it beside the others:
 
   full       the kernel as it is;
   no_step    the last block writes one total instead of taking the step;
@@ -46,10 +47,13 @@ PKG = "lidar_graph_slam_tpu_torch"
 
 ROUNDS = 3
 
-# (anchor, replacement) edits of ndt_loop.cu per variant.
+# (anchor, replacement) edits per variant, each made in the one of EDITED that holds the
+# anchor.
+EDITED = ("ndt_loop.cu", "loop_common.cuh")
 _EXIT = "  if (!polish && *done) return;  // the loop's cond: this sequence is finished\n"
-_STEP_CALL = ("  gn_step_warp(tot, Ts, damping, done0, iters0, T, done, carry.iters + b, "
-              "carry.fitness + b,\n               carry.inliers + b, st, polish);")
+_STEP_CALL = ("  gn_step_warp<kCap, kMinInliers>(tot, Ts, damping, done0, iters0, T, done, "
+              "carry.iters + b,\n                                  carry.fitness + b, "
+              "carry.inliers + b, st, polish);")
 _TICKET = "  if (t == 0) last = ticket(counter + b) == gridDim.x - 1;"
 _SCATTER = "  red[warp][lane] = warp_reduce_scatter(acc);"
 _NO_REDUCE = """  {
@@ -71,20 +75,24 @@ ORDER = ("full", "no_step", "no_tail", "no_reduce", "exit")
 
 def make_variant(out: str, edits) -> str:
     """Copies this checkout's csrc/ and ops/kernels.py under out/ with `edits` applied to
-    ndt_loop.cu; returns out."""
+    the files of EDITED; returns out."""
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(os.path.join(REPO, PKG, "csrc"), os.path.join(out, PKG, "csrc"))
     os.makedirs(os.path.join(out, PKG, "ops"))
     shutil.copy(os.path.join(REPO, PKG, "ops", "kernels.py"), os.path.join(out, PKG, "ops"))
-    path = os.path.join(out, PKG, "csrc", "ndt_loop.cu")
-    with open(path) as f:
-        src = f.read()
+    paths = [os.path.join(out, PKG, "csrc", name) for name in EDITED]
+    srcs = {}
+    for path in paths:
+        with open(path) as f:
+            srcs[path] = f.read()
     for anchor, new in edits:
-        if src.count(anchor) != 1:
+        holders = [p for p in paths if srcs[p].count(anchor) == 1]
+        if len(holders) != 1 or sum(srcs[p].count(anchor) for p in paths) != 1:
             raise SystemExit(f"torch_ndt_loop_split: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, new)
-    with open(path, "w") as f:
-        f.write(src)
+        srcs[holders[0]] = srcs[holders[0]].replace(anchor, new)
+    for path, src in srcs.items():
+        with open(path, "w") as f:
+            f.write(src)
     return out
 
 

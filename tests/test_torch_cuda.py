@@ -749,29 +749,236 @@ def test_kernel_on_gicp_rows(cuda):
     assert float(out[2]) == float(out[3]) == float(sel.sum())  # weight 1 per matched row
 
 
+def _gicp_to(target, device):
+    return gicp.GicpTarget(grid=type(target.grid)(**{
+        k: v.to(device) for k, v in vars(target.grid).items()}), covs=target.covs.to(device),
+        valid=target.valid.to(device))
+
+
 def test_gicp_align_card_matches_cpu(cuda):
-    """One `gicp_align` from the same target and covariances on the card (one kernel
-    launch per iteration) and on the CPU (plain version), with and without reciprocal."""
+    """One `gicp_align` from the same target and covariances on the card (one C call of
+    max_iterations launches of the GICP loop kernel, and no `ndt_accumulate`) and on the
+    CPU (plain version, no launch), with and without reciprocal."""
     target, src, mask, covs = _gicp_problem(cuda)
     cpu = torch.device("cpu")
-    target_cpu = gicp.GicpTarget(grid=type(target.grid)(**{
-        k: v.to(cpu) for k, v in vars(target.grid).items()}), covs=target.covs.to(cpu),
-        valid=target.valid.to(cpu))
+    target_cpu = _gicp_to(target, cpu)
     for reciprocal in (False, True):
         res = {}
         for dev, tgt in ((cuda, target), (cpu, target_cpu)):
             p, m, c = src.to(dev), mask.to(dev), covs.to(dev)
             kw = dict(reciprocal=True, source_grid=build_hash_grid(p, m, 2.0)) if reciprocal else {}
-            before = tk.ndt_accumulate.launches
+            before = (tk.gicp_align_loop.launches, tk.ndt_accumulate.launches)
             r = gicp.gicp_align(tgt, p, m, torch.eye(4, device=dev), c, **kw)
-            launched = tk.ndt_accumulate.launches - before
-            assert launched == (int(r.iterations) if dev.type == "cuda" else 0)
+            launched = (tk.gicp_align_loop.launches - before[0],
+                        tk.ndt_accumulate.launches - before[1])
+            assert launched == ((64, 0) if dev.type == "cuda" else (0, 0))
             res[dev.type] = r
         a, b = res["cuda"], res["cpu"]
         np.testing.assert_allclose(a.transform.cpu().numpy(), b.transform.numpy(), atol=1e-4)
         assert int(a.iterations) == int(b.iterations) and bool(a.converged) == bool(b.converged)
         assert abs(int(a.num_inliers) - int(b.num_inliers)) <= 0.01 * int(b.num_inliers)
         assert bool(a.converged) and int(a.num_inliers) > 1000
+
+
+# -- the GICP loop kernel (`gicp_iteration`, `csrc/gicp_loop.cu`) ---------------------------
+
+
+def _gicp_loop_args(problem, max_iterations=64, bucket_cap=32, neighborhood=7,
+                    reciprocal=False, T0=None):
+    target, src, mask, covs = problem
+    grid = build_hash_grid(src, mask, 2.0) if reciprocal else None
+    T0 = torch.eye(4, device=src.device) if T0 is None else T0
+    return [target, src, mask, covs, T0, 4.0, 0.01, torch.full((), 1e-6, device=src.device),
+            max_iterations, bucket_cap, neighborhood, grid]
+
+
+def _gicp_loop_matches_plain(args):
+    """The GICP kernel loop (run twice: bit-identical) against the plain loop on the same
+    card tensors: T to 1e-4, the same iterations and done, inliers within 0.1%, fitness
+    to rtol 1e-4. Returns the kernel loop's carry."""
+    out = tk.gicp_align_loop(*args)
+    again = tk.gicp_align_loop(*args)
+    ref = tk.gicp_align_loop_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-4
+    assert (bool(out[1]), int(out[2])) == (bool(ref[1]), int(ref[2]))
+    assert abs(int(out[4]) - int(ref[4])) <= 0.001 * int(ref[4])
+    np.testing.assert_allclose(float(out[3]), float(ref[3]), rtol=1e-4)
+    return out
+
+
+# (neighborhood, bucket_cap, reciprocal): every instantiation of the kernel but one.
+GICP_VARIANTS = [(7, 32, False), (7, 32, True), (7, 16, False), (7, 16, True),
+                 (27, 32, False), (27, 16, False), (27, 32, True)]
+
+
+@pytest.mark.parametrize("neighborhood,bucket_cap,reciprocal", GICP_VARIANTS)
+def test_gicp_loop_kernel_matches_plain_loop(cuda, neighborhood, bucket_cap, reciprocal):
+    """The GICP loop kernel against the plain loop (`_gicp_loop_matches_plain`); one C
+    call enqueues max_iterations launches; a loop cut at one iteration has exactly the
+    plain loop's inliers (the same matches)."""
+    problem = _gicp_problem(cuda)
+    args = _gicp_loop_args(problem, 64, bucket_cap, neighborhood, reciprocal)
+    before = tk.gicp_align_loop.launches
+    _, done, it, _, inl = _gicp_loop_matches_plain(args)
+    assert tk.gicp_align_loop.launches == before + 2 * 64
+    assert bool(done) and 0 < int(it) < 64 and int(inl) > 1000
+    args[8] = 1
+    one, ref = tk.gicp_align_loop(*args), tk.gicp_align_loop_plain(*args)
+    assert int(one[4]) == int(ref[4]) and int(one[2]) == 1
+
+
+@pytest.mark.parametrize("n", [1, 300, 50000])
+def test_gicp_loop_kernel_ragged_sizes(cuda, n):
+    """Source sizes around the kernel's tile of 128 points and beyond the resident grid
+    (391 tiles at 50,000: persistent blocks take two): the kernel against the plain loop.
+    One point matches at most one row: fewer than 6 inliers zero the step."""
+    target, src, mask, covs = _gicp_problem(cuda)
+    idx = torch.arange(n, device=cuda) % src.shape[0]
+    problem = (target, src[idx].contiguous(), mask[idx].contiguous(), covs[idx].contiguous())
+    out = _gicp_loop_matches_plain(_gicp_loop_args(problem))
+    if n == 1:
+        assert int(out[2]) == 1 and torch.equal(out[0], torch.eye(4, device=cuda))
+
+
+def test_gicp_loop_kernel_early_exit_and_worked_count(cuda):
+    """A loop that is done after k iterations does work in k launches only; the others
+    exit at once (the device count of the GICP kernel's working launches, apart from the
+    NDT loop kernel's)."""
+    args = _gicp_loop_args(_gicp_problem(cuda))
+    tk.worked_launches(reset=True)
+    out = tk.gicp_align_loop(*args)
+    worked = tk.worked_launches(kernel="gicp_iteration")
+    assert worked == int(out[2]) < 64
+    assert tk.worked_launches(kernel="ndt_iteration") == 0
+    assert tk.worked_launches(reset=True) == worked
+
+
+@pytest.mark.parametrize("case", ["all-masked", "far-away"])
+def test_gicp_loop_kernel_degenerate_steps(cuda, case):
+    """No inliers (every point masked out, or every point 500 m from the target): the
+    step is zeroed, T stays T0 bit for bit, and the loop is done after one iteration with
+    0 inliers, as in the plain loop."""
+    target, src, mask, covs = _gicp_problem(cuda)
+    if case == "all-masked":
+        mask = torch.zeros_like(mask)
+    else:
+        src = src + 500.0
+    T0 = torch.eye(4, device=cuda)
+    out = _gicp_loop_matches_plain(_gicp_loop_args((target, src, mask, covs), T0=T0))
+    assert torch.equal(out[0], T0) and bool(out[1]) and int(out[2]) == 1
+    assert int(out[4]) == 0
+
+
+def test_gicp_loop_on_two_streams_at_once(cuda):
+    """Two threads, each on its own stream, run the GICP loop and the NDT loop 10 times
+    each at the same time: every result equals the serial one bit for bit."""
+    gargs = _gicp_loop_args(_gicp_problem(cuda), reciprocal=True)
+    nargs = _loop_call(_loop_inputs(32768, 2.0, cuda, seed=3))
+    calls = {"gicp": lambda: tk.gicp_align_loop(*gargs),
+             "ndt": lambda: tk.ndt_align_loop(*nargs)}
+    serial = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2, timeout=60)
+    results, errors = {}, []
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [(k, calls[k]()) for _ in range(10) for k in calls]
+            stream.synchronize()
+            results[t] = outs
+        except BaseException as e:  # noqa: BLE001 — raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in results.values():
+        for k, out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+def test_gicp_loop_rejects_bad_inputs(cuda):
+    problem = _gicp_problem(cuda, n=1024)
+    args = _gicp_loop_args(problem)
+    target = problem[0]
+    bad = {1: args[1].double(), 2: args[2].cpu(), 3: args[3][:, :2], 4: args[4][:3],
+           7: torch.tensor(1e-6), 9: 8, 10: 9,
+           0: gicp.GicpTarget(grid=target.grid, covs=target.covs[:-1], valid=target.valid)}
+    before = tk.gicp_align_loop.launches
+    for i, x in bad.items():
+        with pytest.raises(ValueError):
+            tk.gicp_align_loop(*args[:i], x, *args[i + 1:])
+    assert tk.gicp_align_loop.launches == before
+
+
+def test_gicp_align_makes_no_synchronous_read(cuda):
+    """`make_gicp_matcher`'s align (the classic driver's GICP alignment: its source grid
+    when reciprocal, and one loop call) under `torch.cuda.set_sync_debug_mode("error")`,
+    after a warm-up align that builds the library and the cached constants."""
+    from lidar_graph_slam_tpu_torch.core.config import GicpConfig
+
+    target, src, mask, covs = _gicp_problem(cuda)
+    for use_reciprocal in (False, True):
+        _, align = gicp.make_gicp_matcher(GicpConfig(use_reciprocal=use_reciprocal))
+        T0 = torch.eye(4, device=cuda)
+        align(target, src, mask, T0, covs)
+        torch.cuda.synchronize()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            res = align(target, src, mask, T0, covs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert bool(res.converged) and int(res.num_inliers) > 1000
+
+
+def test_fused_gicp_step_makes_no_synchronous_read(cuda):
+    """`odometry/fused.py`'s step with GICP (its covariances and the GICP loop) makes no
+    synchronous read: three frames under `torch.cuda.set_sync_debug_mode("error")` after
+    one warm-up frame, against a real target rebuilt from the ring; the GICP loop kernel
+    launched, `ndt_accumulate` not."""
+    from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
+    from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "prefilter.leaf_size=0.3", "prefilter.mean_k=10", "capacity.raw_points=16384",
+        "capacity.filtered_points=4096", "capacity.voxel_capacity=32768",
+        "scan_matcher.max_scan_accumulate_num=5", "scan_matcher.registration_method=GICP"])
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=cuda)
+    seq = SyntheticSequence(n_frames=4, seed=3, max_points=8192, radius=30.0,
+                            laps=1.1 * 4 / 90)
+    raws = []
+    for scan, _ in seq:
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:len(scan)] = scan
+        raws.append(torch.as_tensor(raw, device=cuda))
+    eye3 = torch.eye(3, device=cuda)
+    eye4 = torch.eye(4, device=cuda)
+    state, ring = init_state(), aux["init_ring"]()
+    state, out = step(state, raws[0], aux["rebuild"](ring), eye3, False, eye4, False)
+    ring, target = aux["insert_and_rebuild"](ring, 0, out.kf_cloud, out.kf_mask, out.pose)
+    torch.cuda.synchronize()
+    before = (tk.gicp_align_loop.launches, tk.ndt_accumulate.launches)
+    outs = []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for raw in raws[1:]:
+            state, out = step(state, raw, target, eye3, False, eye4, False)
+            outs.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(o.converged) for o in outs)
+    assert tk.gicp_align_loop.launches == before[0] + 3 * cfg.scan_matcher.gicp.max_iterations
+    assert tk.ndt_accumulate.launches == before[1]
 
 
 def test_gicp_target_round_trips(cuda):
@@ -828,16 +1035,17 @@ def _loop_backend(device, async_backend, method="ICP", mesh=None):
 def test_verification_card_matches_cpu(cuda, method):
     """One loop verification through the asynchronous path (worker thread, own stream)
     on the card against the synchronous one on the CPU: the same decision, and the card
-    launched the kernels in the verification's NDT pre-align (and, for GICP, in every
-    GICP iteration)."""
+    launched the kernels in the verification's NDT pre-align (and, for GICP, the GICP
+    loop kernel; `ndt_accumulate` not at all)."""
     rec = {}
     for device, async_backend in ((cuda, True), (torch.device("cpu"), False)):
-        before = tk.ndt_accumulate.launches
+        before = (tk.gicp_align_loop.launches, tk.ndt_accumulate.launches)
         back = _loop_backend(device, async_backend, method)
         assert back.try_close_loop()
         rec[device.type] = (back.loop_log[-1], back.verify_launches, back.optimized_poses())
-        rows = tk.ndt_accumulate.launches - before
-        assert (rows > 0) == (device.type == "cuda" and method == "GICP"), rows
+        loops = tk.gicp_align_loop.launches - before[0]
+        assert (loops > 0) == (device.type == "cuda" and method == "GICP"), loops
+        assert tk.ndt_accumulate.launches == before[1]
     (a, launches, pa), (c, cpu_launches, pc) = rec["cuda"], rec["cpu"]
     assert (a["candidate"], a["accepted"], a["converged"]) == (c["candidate"], c["accepted"],
                                                               c["converged"])
