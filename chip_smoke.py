@@ -59,17 +59,21 @@ of `bench.py:bench_e2e`. Phases:
      against the plain version (REL/ABS, hit counts exact, bit-identical reruns), with
      device and host time, the bound and its share;
  14b. gicp-loop, GICP's counterpart of 3b: the GICP loop kernel `gicp_iteration`
-     (`gicp_align_loop`: one launch an iteration — the grid-NN match, the plane-to-plane
-     rows, the sums and the 6x6 step — the carry on the device) against the plain loop
-     on the same card tensors, on phase 14's fixtures without padding: the front end's
-     from a perturbed guess, cut at one iteration (inliers exact) and with the reciprocal
-     test, and the verifier's from its pre-align's result: T within 1e-4, the same
-     iterations and done, inliers within 0.1%, fitness within rtol 1e-4, bit-identical
-     reruns; device us of a working and of an early-exit launch, host and device us of an
-     align stage, the bound, the plain version's ms, the kernel's registers, shared
-     memory and blocks; with `--parent DIR` the parent's `gicp_align` stage against this
-     tree's, in turns; then 5 dense frames of the fused GICP step under
-     `torch.cuda.set_sync_debug_mode("error")`;
+     (`gicp_align_loop`: one launch an iteration — the grid-NN match from a tile's
+     staged cell runs, the plane-to-plane rows, the sums and the 6x6 step — the carry on
+     the device) against the plain loop on the same card tensors, on phase 14's fixtures
+     without padding: the front end's from a perturbed guess, cut at one iteration
+     (inliers exact) and with the reciprocal test, and the verifier's from its
+     pre-align's result: T within 1e-4, the same iterations and done, inliers within
+     0.1%, fitness within rtol 1e-4, bit-identical reruns; what a working launch stages
+     at each fixture (distinct cells, runs and candidate rows a tile, p50 and max, and
+     the runs past the stage); device us of a working and of an early-exit launch, host
+     and device us of an align stage, the bound, the plain version's ms, the kernel's
+     registers, shared memory, blocks and warps an SM and the runs its stage holds; with
+     `--parent DIR` the parent tree's kernel on both fixtures and with the reciprocal
+     test: its carry bit-identical to this tree's after the whole loop and after one
+     iteration, and its times in turns with this tree's; then 5 dense frames of the
+     fused GICP step under `torch.cuda.set_sync_debug_mode("error")`;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
      loop kernel launched 64 times a frame (and how many did work), `ndt_accumulate`,
@@ -144,8 +148,8 @@ Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
 `python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
-3b, its profile to phase 7 and its `gicp_align` stage to phase 14b, in turns with this
-tree's.
+3b, its profile to phase 7 and its GICP loop kernel to phase 14b (the carry bit for bit,
+the times in turns with this tree's).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -1075,25 +1079,32 @@ def plain_launch_ms(args) -> float:
     return median_ms(one, calls=20)
 
 
-def timed_in_turns(stage: str, args, align, batched: bool, parent, card: str) -> dict:
-    """`loop_timings` of this tree's loop kernel; with `parent` (another tree's
-    (`ops.kernels`, `registration.ndt`) pair) in turns, this, parent, parent, this, on the
-    same inputs. Prints the parent's and this tree's means and returns this tree's, with
-    the parent's under `parent_<key>`."""
+def in_turns(label: str, stage: str, measure, this, parent, card: str) -> dict:
+    """`measure(mods)` of this tree's modules `this`; with `parent` (the same modules of
+    another tree) in turns, this, parent, parent, this, on the same inputs. Prints the
+    parent's and this tree's means under `label` and returns this tree's, with the
+    parent's under `parent_<key>`."""
     if parent is None:
-        return loop_timings(args, align, batched)
+        return measure(this)
     runs = {}
-    this = (kernels, ndt_module)
     for tree, mods in (("this", this), ("parent", parent), ("parent", parent),
                        ("this", this)):
-        runs.setdefault(tree, []).append(loop_timings(args, align, batched, *mods))
+        runs.setdefault(tree, []).append(measure(mods))
     mean = {tree: {k: float(np.mean([r[k] for r in rs])) for k in rs[0]}
             for tree, rs in runs.items()}
     for tree, m in mean.items():
-        say("ndt-loop-turns", stage=stage, tree=tree, turns=json.dumps(
+        say(label, stage=stage, tree=tree, turns=json.dumps(
             [round(r["working_launch_us"], 3) for r in runs[tree]]), **m,
             card=json.dumps(card))
     return {**mean["this"], **{f"parent_{k}": v for k, v in mean["parent"].items()}}
+
+
+def timed_in_turns(stage: str, args, align, batched: bool, parent, card: str) -> dict:
+    """`loop_timings` of this tree's loop kernel; with `parent` (another tree's
+    (`ops.kernels`, `registration.ndt`) pair) in turns with it (`in_turns`)."""
+    return in_turns("ndt-loop-turns", stage,
+                    lambda mods: loop_timings(args, align, batched, *mods),
+                    (kernels, ndt_module), parent, card)
 
 
 def ndt_loop_phase(cfg: PipelineConfig, fine: NdtVoxelMap, coarse: NdtVoxelMap, last,
@@ -1265,6 +1276,7 @@ def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: in
 CANDIDATE_FLOPS = 9
 GICP_ROW_FLOPS = 99 + 42 + 3 + ACCUM_FLOPS_PER_HIT + 2
 GICP_VARIANT = (7, 32, False)  # the path's query: 7 cells, 32-row buckets, no reciprocal
+LOOP_TILE = 128  # source points a block of the loop kernels takes at once (kLoopThreads)
 
 
 def gicp_loop_args(inputs, T0, g, max_iterations: int | None = None, source_grid=None):
@@ -1343,13 +1355,63 @@ def gicp_loop_bound_us(args) -> dict:
                 candidate_rows=rows, table_cells=cells, matched=n_match)
 
 
-def gicp_loop_timings(args, align) -> dict:
-    """Device us per working launch and per early-exit launch of the GICP loop kernel,
-    and the host and device us of a whole align stage (`align()`), as `loop_timings`
-    measures NDT's: a loop of 20 launches that all work (epsilon 0), one of 1 working
-    launch, and one of 1 working and 40 early-exit launches (epsilon 1e9)."""
+def stage_counts(args, stage_runs: int) -> dict:
+    """What one working launch of the GICP loop kernel stages, tile by tile (128 source
+    points, the kernel's), on these inputs at T0, counted with torch ops on the card: the
+    distinct in-table cells the masked-in points' neighbourhoods name (`cells`, empty ones
+    too), the distinct runs of B rows the stage copies (one a non-empty cell, from its
+    table start: `runs`), the distinct candidate rows among them whose key is the cell's
+    (`rows`); p50 and max over the tiles that hold a point, the bytes of the largest run
+    set, and the runs past `stage_runs` (a tile's stage; they are read from global memory
+    instead): their sum over the tiles and the tiles that have any."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as nb
+    from lidar_graph_slam_tpu_torch.ops.voxel import _flat_table_index
+
+    target, src, msk, _covs, T0 = args[:5]
+    bucket_cap, neighborhood = args[9], args[10]
+    grid = target.grid
+    dev = src.device
+    n, size = grid.packed.shape[0], grid.table.shape[0]
+    p = se3.transform_points(T0, src)
+    offsets = nb._offsets_for(neighborhood, dev)
+    nc = voxel_coords(p, grid.origin, 1.0 / grid.cell_size)[:, None, :] + offsets
+    flat, in_range = _flat_table_index(nc, TABLE_DIMS)
+    start = torch.where(in_range & msk[:, None], grid.table[flat.clamp(max=size - 1).long()], -1)
+    live, named = start >= 0, in_range & msk[:, None]
+    tile = torch.arange(src.shape[0], device=dev) // LOOP_TILE
+    tiles = int(tile[-1]) + 1
+    tile_c = tile[:, None].expand_as(start)
+    d2, cand = nb._candidate_scan(grid, p, offsets, bucket_cap)
+    real = torch.isfinite(d2) & msk[:, None]
+
+    def per_tile(t, key, stride):
+        return torch.bincount(torch.unique(t * stride + key) // stride, minlength=tiles)
+
+    counts = {
+        "cells": per_tile(tile_c[named], flat[named].long(), size),
+        "runs": per_tile(tile_c[live], start[live].long(), n),
+        "rows": per_tile(tile[:, None].expand_as(cand)[real], cand[real], n),
+    }
+    held = torch.bincount(tile[msk], minlength=tiles) > 0
+    out = {}
+    for k, v in counts.items():
+        v = v[held].float()
+        out[f"{k}_p50"], out[f"{k}_max"] = float(v.median()), int(v.max())
+    over = (counts["runs"] - stage_runs).clamp(min=0)
+    out.update(tiles=int(held.sum()), run_bytes_max=out["runs_max"] * bucket_cap * 16,
+               stage_runs=stage_runs, overflow_runs=int(over.sum()),
+               overflow_tiles=int((over > 0).sum()))
+    return out
+
+
+def gicp_loop_timings(args, align, kern=kernels) -> dict:
+    """Device us per working launch and per early-exit launch of the GICP loop kernel of
+    the module `kern` (this tree's `ops.kernels`, or another tree's), and the host and
+    device us of a whole align stage (`align()`), as `loop_timings` measures NDT's: a loop
+    of 20 launches that all work (epsilon 0), one of 1 working launch, and one of 1
+    working and 40 early-exit launches (epsilon 1e9)."""
     def loop(eps, its):
-        return lambda: kernels.gicp_align_loop(*args[:6], eps, args[7], its, *args[9:])
+        return lambda: kern.gicp_align_loop(*args[:6], eps, args[7], its, *args[9:])
 
     work = split_times(loop(0.0, 20), calls=10, warmup=2)
     one = split_times(loop(1e9, 1), calls=40, warmup=2)
@@ -1359,6 +1421,23 @@ def gicp_loop_timings(args, align) -> dict:
                 early_exit_launch_us=(dead["device_us"] - one["device_us"]) / 40,
                 loop_host_us_20=work["host_us"], stage_host_us=stage["host_us"],
                 stage_device_us=stage["device_us"], stage_single_ms=stage["single_ms"])
+
+
+def same_carry_as_parent(label: str, args, parent_kern) -> dict:
+    """This tree's GICP loop kernel against `parent_kern`'s (another tree's `ops.kernels`)
+    on the same card tensors: the whole loop and the loop cut at one iteration leave
+    bit-identical carries (the same matches, rows and sums in the same order). Raises
+    otherwise."""
+    rec = {}
+    for its in (args[8], 1):
+        a = (*args[:8], its, *args[9:])
+        out, ref = kernels.gicp_align_loop(*a), parent_kern.gicp_align_loop(*a)
+        torch.cuda.synchronize()
+        rec[f"bit_identical_{its}"] = all(torch.equal(x, y) for x, y in zip(out, ref))
+    say("gicp-loop-vs-parent", case=label, **rec)
+    if not all(rec.values()):
+        raise AssertionError(f"{label}: the GICP kernel's carry differs from the parent's {rec}")
+    return rec
 
 
 def gicp_plain_launch_ms(args) -> float:
@@ -1377,77 +1456,67 @@ def gicp_plain_launch_ms(args) -> float:
     return median_ms(one, calls=20)
 
 
-def gicp_stage_turns(stage: str, inputs, T0, g, parent, card: str) -> dict:
-    """One `gicp_align` stage of this tree and of `parent` (another tree's
-    `registration.gicp`, whose loop reads `done` back every iteration) on the same inputs,
-    in turns (this, parent, parent, this): the median of single calls between events
-    after a sync (`median_ms`: the host's enqueue and waits plus the device). Prints both
-    trees' turns and means; returns {"ms", "parent_ms"}."""
-    target, points, mask, covs = inputs[:4]
-    runs = {}
-    for tree, mod in (("this", gicp), ("parent", parent), ("parent", parent), ("this", gicp)):
-        def align(mod=mod):
-            return mod.gicp_align(target, points, mask, T0, covs,
-                                  max_correspondence_distance=g.max_correspondence_distance,
-                                  transform_epsilon=g.transform_epsilon,
-                                  max_iterations=g.max_iterations)
-        runs.setdefault(tree, []).append(median_ms(align, calls=10, warmup=2))
-    mean = {tree: float(np.mean(r)) for tree, r in runs.items()}
-    say("gicp-loop-turns", stage=stage, turns_ms=json.dumps(runs), this_ms=mean["this"],
-        parent_ms=mean["parent"], card=json.dumps(card))
-    return dict(ms=mean["this"], parent_ms=mean["parent"])
-
-
 def gicp_loop_phase(cfg: PipelineConfig, front_in, verify_in, T_last: np.ndarray, card: str,
                     parent: str | None = None) -> dict:
     """The gicp-loop phase: `gicp_iteration` (`gicp_align_loop`) against the plain loop on
     phase 14's fixtures — the front end's (the ring's target, the last ring scan, N =
     32,768) from a perturbed guess, the same cut at one iteration (inliers exact) and with
-    the reciprocal test, and the verifier's (N = 16,384) from its pre-align's result; the
-    device us of a working and of an early-exit launch, the host and device us of an align
-    stage, the bound and the plain version's ms; the kernel's registers, shared memory and
-    blocks. With `parent` (the parent commit unpacked by `git archive`) the align stage of
-    that tree's `gicp_align`, in turns with this tree's. Returns {"err", "timing",
-    "records", "resources"}."""
+    the reciprocal test, and the verifier's (N = 16,384) from its pre-align's result; what
+    a working launch stages at each fixture (`stage_counts`); the device us of a working
+    and of an early-exit launch, the host and device us of an align stage, the bound and
+    the plain version's ms; the kernel's registers, shared memory, blocks and warps an SM
+    and the runs its stage holds. With `parent` (the parent commit unpacked by `git
+    archive`) that tree's kernel on both fixtures: its carry bit-identical to this tree's,
+    and its times in turns with this tree's. Returns {"err", "timing", "records",
+    "resources"}."""
     g = cfg.scan_matcher.gicp
     dev = front_in[1].device
     resources = dict(kernels.loop_kernel_attributes(dev, GICP_VARIANT),
                      blocks_front=kernels.loop_grid(dev, front_in[1].shape[0], GICP_VARIANT),
                      blocks_verify=kernels.loop_grid(dev, verify_in[1].shape[0], GICP_VARIANT))
+    resources["warps_per_sm"] = resources["blocks_per_sm"] * LOOP_TILE // 32
     say("gicp-loop-kernel", **resources)
     init = torch.as_tensor(perturbed(T_last), device=dev)
     vg = verify_in[5]
-    stages = {"front": (front_in, gicp_loop_args(front_in, init, g), g),
-              "verify": (verify_in, gicp_loop_args(verify_in, verify_in[4], vg), vg)}
-    recs = [compare_gicp_loop(f"{k}-perturbed", a) for k, (_, a, _) in stages.items()]
+    stages = {"front": (gicp_loop_args(front_in, init, g), g),
+              "verify": (gicp_loop_args(verify_in, verify_in[4], vg), vg)}
+    recs = [compare_gicp_loop(f"{k}-perturbed", a) for k, (a, _) in stages.items()]
     recs.append(compare_gicp_loop("front-one-iteration", gicp_loop_args(front_in, init, g, 1),
                                   exact_inliers=True))
     grid = build_hash_grid(front_in[1], front_in[2], g.max_correspondence_distance)
-    recs.append(compare_gicp_loop("front-reciprocal", gicp_loop_args(
-        front_in, init, g, source_grid=grid)))
+    recip = gicp_loop_args(front_in, init, g, source_grid=grid)
+    recs.append(compare_gicp_loop("front-reciprocal", recip))
     if not (recs[0]["done"] and recs[1]["done"] and recs[2]["iterations"] == 1):
         raise AssertionError(f"gicp loop fixtures: {recs}")
     err = max(r["T_max_abs_err"] for r in recs)
 
     par = None
     if parent:
-        par = tree_registration(parent, "gicp", tree_kernels(parent, "parent_kernels_gicp"),
-                                "parent_gicp")
+        pk = tree_kernels(parent, "parent_kernels_gicp")
+        par = (pk, tree_registration(parent, "gicp", pk, "parent_gicp"))
+        for k, (a, _) in stages.items():
+            same_carry_as_parent(k, a, pk)
+        same_carry_as_parent("front-reciprocal", recip, pk)
     timing = {}
-    for k, (inputs, a, gk) in stages.items():
-        def align(a=a, gk=gk):
-            return gicp.gicp_align(a[0], a[1], a[2], a[4], a[3],
-                                   max_correspondence_distance=gk.max_correspondence_distance,
-                                   transform_epsilon=gk.transform_epsilon,
-                                   max_iterations=gk.max_iterations)
-        t = gicp_loop_timings(a, align)
-        t.update(gicp_loop_bound_us(a), plain_ms=gicp_plain_launch_ms(a), N=a[1].shape[0])
+    for k, (a, gk) in stages.items():
+        staged = stage_counts(a, resources["stage_runs"])
+        say("gicp-loop-stage", stage=k, **staged)
+
+        def align(mod, a=a, gk=gk):
+            return mod.gicp_align(a[0], a[1], a[2], a[4], a[3],
+                                  max_correspondence_distance=gk.max_correspondence_distance,
+                                  transform_epsilon=gk.transform_epsilon,
+                                  max_iterations=gk.max_iterations)
+        t = in_turns("gicp-loop-turns", k,
+                     lambda mods, a=a, align=align: gicp_loop_timings(
+                         a, lambda: align(mods[1]), mods[0]),
+                     (kernels, gicp), par, card)
+        t.update(gicp_loop_bound_us(a), plain_ms=gicp_plain_launch_ms(a), N=a[1].shape[0],
+                 stage_runs_p50=staged["runs_p50"], stage_runs_max=staged["runs_max"],
+                 stage_overflow_runs=staged["overflow_runs"])
         t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
                  single_ms=t["stage_single_ms"],
                  share_of_bound=t["bound_us"] / t["working_launch_us"])
-        if par is not None:
-            turns = gicp_stage_turns(k, inputs, a[4], gk, par, card)
-            t.update(stage_turns_ms=turns["ms"], parent_stage_ms=turns["parent_ms"])
         say("gicp-loop-time", stage=k, **t, card=json.dumps(card))
         timing[f"gicp_loop_{k}"] = {"gicp_iteration": t}
     return dict(err=err, timing=timing, records=recs, resources=resources)
@@ -2695,8 +2764,8 @@ def main(argv=None) -> int:
                   "nearest), the body's rows and step (registration/gicp.py:146-178)",
             early_exit_launch_ms=timing["gicp_loop_front"]["gicp_iteration"][
                 "early_exit_launch_us"] / 1000,
-            parent_stage_ms=timing["gicp_loop_front"]["gicp_iteration"].get(
-                "parent_stage_ms"),
+            parent_ms=parent_ms(timing["gicp_loop_front"]["gicp_iteration"]),
+            parent_ms_verify=parent_ms(timing["gicp_loop_verify"]["gicp_iteration"]),
             kernel_resources=gloop["resources"]),
         kernel_record(
             "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",

@@ -12,29 +12,29 @@
 //      launch that finds `done` returns at once (as `ndt_iteration` does, ndt_loop.cu).
 //   2. A block takes tiles of kLoopThreads source points (`fetch_tile`, loop_common.cuh),
 //      one point a thread: p = R x + t from the carry's T.
-//   3. The forward grid-NN query, a warp at a time (`warp_nearest`): each lane computes its
-//      point's cell (`voxel_coord`: the float32 operations of `voxel_coords`, so a point on
-//      a cell border lands in the same cell as on the torch path) and loads the dense
-//      table's start of each of the C = 7 or 27 neighbour cells (all in flight; out of the
-//      table: -1, no candidate) into shared memory. Then the warp takes its points two a
-//      round, half a warp (16 lanes) a point: lane s of a point reads slots s and s + 16
-//      (B = 32; slot s at B = 16) of each cell's run of B packed rows from the start
-//      clamped to [0, n - B] (coalesced 256-byte runs), keeps a row only if its key is
-//      the cell's (a clamped start reads other cells' rows first), computes d2 = ((dx dx)
-//      + (dy dy)) + dz dz with __fsub_rn / __fmul_rn / __fadd_rn (the plain version's
-//      operations in its order, no FMA) for each of its candidates without a branch, and
-//      takes their first minimum in flat order (cell, then slot) by a tree of compares
-//      rather than a chain; two reductions over the half warp (redux.sync) on the d2 bits,
-//      then on
-//      the flat index c B + slot among the lanes that hold the least d2, give the first
-//      minimum over the flattened candidates, which is what `torch.argmin` returns. The
-//      rounds are software pipelined: a chunk's candidate loads are issued before the
-//      previous chunk is consumed. matched = found & mask & d2 < corr^2 & valid[row]; the
+//   3. The forward grid-NN query, a tile at a time (`stage_nearest`): each thread computes
+//      its point's cell (`voxel_coord`: the float32 operations of `voxel_coords`, so a
+//      point on a cell border lands in the same cell as on the torch path) and loads the
+//      dense table's start of each of the C = 7 or 27 neighbour cells (all in flight; out
+//      of the table: -1, no candidate). The block de-duplicates those starts in a
+//      shared-memory hash and copies each distinct cell's run of B rows once into shared
+//      memory, every row a cp.async, all in flight (`Stage`; runs past the stage's size
+//      are read from global memory, the same rows). Each thread then scans its point's
+//      own cell from the stage; the neighbour cells whose rows can still be as near as
+//      that (a bound from the point's distance to the cell's face, `face_gap`) go on a
+//      list that the block's threads scan a pair each. A cell is walked eight slots at a
+//      time: a row counts only if its key is the cell's, d2 = ((dx dx) + (dy dy)) + dz dz
+//      with __fsub_rn / __fmul_rn / __fadd_rn (the plain version's operations in its
+//      order, no FMA), and the walk ends at the first batch that leaves the cell's
+//      consecutive rows. A point keeps the least (d2, flat index (cell, slot)) of its
+//      cells, packed into one 64-bit word (a shared-memory atomicMin merges the list's
+//      results): the first minimum over the flattened candidates, which is what
+//      `torch.argmin` returns. matched = found & mask & d2 < corr^2 & valid[row]; the
 //      row's coordinates are read once, after the scan.
 //   4. With kRecip (PCL's reciprocal correspondences, `gicp.py:154-160`): the same query of
 //      T^-1 q against the untransformed source's grid, and the match survives only if
 //      that grid's `order` of the row found is the point's own index.
-//   5. Each matched lane forms its row: e = p - q, M = adj(Cq + R Cp R^T) / det with the
+//   5. Each matched thread forms its row: e = p - q, M = adj(Cq + R Cp R^T) / det with the
 //      1e-12 floor of |det| (the plain version's `inv3x3`; all nine entries of the sum
 //      are read, it is not bitwise symmetric), and `accumulate_row` (ndt_common.cuh) with
 //      d2 = 0 and w_scale = 1, whose weight is exp(-0) = 1 for a finite row and NaN as in
@@ -48,25 +48,26 @@
 //
 // What bounds it on this card. A working launch at the front end's shape (N = 32,768
 // against a 655,360-row target) must read the source (13 bytes a point), the table
-// entries and candidate rows its points' cells name (16 bytes a row, ~10 MB of packed rows
-// and 17 MB of table that mostly stay in the 50 MB L2) and, per matched point, two
-// covariances (72 bytes); its operations are ~9 a candidate and ~300 a matched row: a
-// bound of about a microsecond (operations at the front end's shape, where many points
-// share cells; bytes at the verifier's). It is latency-bound, as `ndt_iteration` is: each
-// warp walks its 32 queries in 16 rounds, one after another, each round a chunk of
-// candidate loads, their arithmetic and the half-warp reductions, then the reduction and
-// the step (`scripts/torch_gicp_loop_split.py` times the scan, the rows and the tail
-// apart; the candidates' bytes are a small part of the scan). The design spreads a query's
-// candidates over half a warp, so a round is 2 C coalesced loads in flight a lane where
-// one thread per point would walk C x B rows; keeps the table's starts in shared memory
-// (one round trip for all 32 points of a warp); overlaps each chunk's loads with the
-// previous chunk's arithmetic; and never writes the N x C x B candidate tensor (117 MB an
-// iteration at the front end's shape) that the torch path gathers. Half-warp queries ran
-// faster than whole-warp ones (B lanes a query, 32 rounds) at the front end's shape, at
-// more registers a thread: two blocks an SM, which the path's grid (256 blocks at N =
-// 32,768) does not exceed; and so did a branch-free consume with a tree minimum against
-// a branch and a compare chained through a lane's candidates. Not used: TMA and wgmma
-// (scattered 256-byte runs and float32 arithmetic, as in the NDT kernels).
+// entries and candidate rows its points' cells name (16 bytes a row: ~32,700 distinct rows,
+// 0.5 MB, for ~5.1 million candidates, since neighbouring points share cells) and, per
+// matched point, two covariances (72 bytes); its operations are ~9 a candidate and ~300 a
+// matched row: a bound of about a microsecond, by operations at the front end's shape and
+// by bytes at the verifier's. It is latency-bound, as `ndt_iteration` is. The kernel's
+// first design walked a warp's 32 queries in 16 dependent rounds of half a warp a query,
+// each round a chunk of candidate loads from L2, their arithmetic and two half-warp
+// reductions (`scripts/torch_gicp_loop_split.py`: ~8 us of its ~19 us scan in the loads,
+// ~1.1 us in each round after a warp's first). This design takes the loads out of the
+// scan: a tile's 128 points name few distinct cells (p50 79 at the front end, 56 at the
+// verifier, at C = 7), so the block stages them in one pass (two dependent round trips a
+// tile: the table, the runs; the copy moves ~10 MB an iteration from L2 at the front
+// end); and it takes most of the candidates out: a point's nearest row is nearly always
+// in its own cell, and a neighbour cell whose face lies farther than that row is not
+// scanned. The tail is `ndt_iteration`'s (loop_common.cuh). The block count stays
+// `loop_blocks` of N and the kernel's occupancy (two blocks an SM, set by the stage's
+// shared memory), and each point's match, row and sum stay in its own thread in the same
+// order, so the carry is bit-identical to the first design's on the same inputs. Not used:
+// TMA and wgmma (scattered 512-byte runs, float32 arithmetic), more threads than points a
+// block (the reduction takes one point a thread).
 
 #include "loop_common.cuh"
 
@@ -120,179 +121,322 @@ __device__ __forceinline__ int key_offset(int c) {
   return o.x * (1 << kKeyX) + o.y * (1 << kKeyY) + o.z;
 }
 
-// A query takes a segment of kSegment lanes (half a warp): two queries a round. Lane s of
-// a segment reads slots s, s + 16, ... of each cell's run: S = B / 16 rows a cell.
-constexpr int kSegment = 16;
+// Runs of B rows a tile's stage holds: every run of the front end's and the verifier's
+// tiles at C = 7 (at most 122 and 96, `chip_smoke.stage_counts`), and most of the largest
+// run sets at C = 27 (at most 199), within two blocks an SM.
+__host__ __device__ constexpr int stage_runs(int, int B) { return 128 * 32 / B; }
 
-// Cells whose candidate loads a lane keeps in flight at once, at S rows a cell.
-template <int C, int S>
-__host__ __device__ constexpr int cell_chunk() {
-  return C == 7 ? 7 : (S == 1 ? 9 : 3);
-}
-
-template <int C>
-struct ScanSmem {
-  int start[kLoopWarps][32][C];  // per warp and lane: each cell's table start, or -1
-  float d2[kLoopWarps][32];      // per warp and lane: its query's result
-  int row[kLoopWarps][32];
+// The stage of one query of a tile. A run is the B rows from a cell's table start (rows
+// past the table's end read as no cell's); it holds every row of the cell that the plain
+// version's scan reads (B rows from the start clamped to [0, n - B]). Each
+// distinct run the tile's points name is staged once (kRuns of them; a tile's runs past
+// kRuns are read from global memory instead); a staged run takes B + 1 rows, so that the
+// same slot of different runs falls on different banks. The hash of the de-duplication,
+// kHash slots of a table start and its run's id, shares its bytes with the staged rows:
+// it is done with before the copy starts. `work` lists the (point, neighbour cell) pairs
+// left to scan after each point's own cell, `best` each point's first minimum so far.
+template <int C, int B>
+struct Stage {
+  static constexpr int kRuns = stage_runs(C, B);
+  static constexpr int kStride = B + 1;
+  static constexpr int kHashBits = C == 7 ? 11 : 13;
+  static constexpr int kHash = 1 << kHashBits;  // at least twice 128 C
+  static constexpr unsigned short kNone = 0xffff;
+  int start[C][kLoopThreads];           // cell c's table start of point t, or -1
+  unsigned short sid[C][kLoopThreads];  // the id of its run (kNone: no run)
+  float q[3][kLoopThreads];             // point t's query
+  int qkey[kLoopThreads];               // its cell's key
+  unsigned long long best[kLoopThreads];  // its least (d2 bits, flat index), packed
+  unsigned short work[(C - 1) * kLoopThreads];  // t * 32 + c: point t's cell c to scan
+  int runs[kRuns];  // the table start of each staged run
+  int nruns;        // the tile's distinct runs, staged or not
+  int warp_total[kLoopWarps];
+  union {
+    float4 rows[kRuns * kStride];
+    struct {
+      int key[kHash];  // a table start, or -1
+      unsigned short id[kHash];
+    } hash;
+  };
+  static_assert(sizeof(hash) <= sizeof(rows), "the hash takes the staged rows' bytes");
+  static_assert(kHash >= 2 * kLoopThreads * C, "the hash is at most half full");
 };
 
-// One load step of a warp's scan: chunk `ch` (cells ch K .. ch K + K - 1) of the query of
-// lane j: for each cell, the start clamped to [0, n - B] (or -1: no such cell) and this
-// lane's S slots of its run.
-template <int C, int B, int K>
-__device__ __forceinline__ void load_chunk(const NnGrid& g, const ScanSmem<C>& sm, int warp,
-                                          int j, int ch, int lane16, int (&s)[K],
-                                          float4 (&v)[K][B / kSegment]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int s0 = sm.start[warp][j][ch * K + k];
-    s[k] = s0 < 0 ? -1 : min(s0, g.n - B);  // clamp(start, 0, n - B)
-#pragma unroll
-    for (int t = 0; t < B / kSegment; ++t)
-      v[k][t] = s0 < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                       : __ldg(g.packed + s[k] + lane16 + kSegment * t);
+// The hash slot of a table start (Fibonacci hashing: the product's top bits).
+template <int kBits>
+__device__ __forceinline__ int hash_slot(int r) {
+  return static_cast<int>((static_cast<unsigned>(r) * 0x9e3779b1u) >> (32 - kBits));
+}
+
+// cp.async of 16 bytes from global to shared memory, through L2 only.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(gmem) : "memory");
+}
+
+// A row that is no cell's: its key is -1.
+__device__ __forceinline__ float4 no_row() {
+  return make_float4(0.f, 0.f, 0.f, __int_as_float(-1));
+}
+
+// Every staged run's B rows into the stage, all copies in flight at once (a row past the
+// table's end is written as no cell's); returns when this thread's have landed (the
+// caller's barrier then makes all of them visible).
+template <int B, typename S>
+__device__ __forceinline__ void copy_runs(S& sm, const float4* __restrict__ packed, int n,
+                                          int staged) {
+  for (int j = threadIdx.x; j < staged * B; j += kLoopThreads) {
+    const int run = j / B, row = sm.runs[run] + j % B;
+    float4* dst = &sm.rows[run * S::kStride + j % B];
+    if (row < n)
+      cp_async16(dst, packed + row);
+    else
+      *dst = no_row();
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The least (d2, flat) over the lanes of a segment, d2 >= 0 or +inf (whose bits order as
-// unsigned integers): the least d2, then among the lanes holding it the least flat index
-// — two warp reductions (redux.sync), each segment with its own mask. Returns (d2, flat)
-// in every lane of the segment.
-__device__ __forceinline__ void segment_argmin(float& best, int& bflat, int seg) {
-  const unsigned mask = 0xffffu << (kSegment * seg);
-  const unsigned bits = __float_as_uint(best);
-  const unsigned least = __reduce_min_sync(mask, bits);
-  bflat = (int)__reduce_min_sync(mask, bits == least ? (unsigned)bflat : UINT_MAX);
-  best = __uint_as_float(least);
+// (d2, flat) packed so that the least unsigned value is the least d2 (d2 >= 0 or +inf,
+// whose bits order as unsigned integers), then the least flat index among its holders.
+__device__ __forceinline__ unsigned long long pack_best(float d2, int flat) {
+  return (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
+         static_cast<unsigned>(flat);
 }
 
-// The nearest row of grid g to every lane's query (x, y, z) that is `active`, among the
+// One cell's candidates for each lane's query (px, py, pz) that `wants` the cell: the B
+// slots of its run from its table start (the stage's copy, or with kGlobal a lane's own
+// choice of it or of the packed rows, `limit` of which are left), U at a time without a
+// branch: a slot whose key is not the cell's reads +inf. Their first minimum by a tree
+// of compares (the left of two equal ones has the lower slot). A lane's walk ends with
+// the first batch whose last slot is not the cell's: the cell's rows are consecutive
+// from its table start, so every later slot's key differs too. The warp walks in step
+// while any lane walks. d2 = ((dx dx) + (dy dy)) + dz dz with __fsub_rn / __fmul_rn /
+// __fadd_rn, the plain version's operations in its order, no FMA. Returns the cell's
+// least (d2, slot) packed, the slot counted from the table start.
+template <int B, bool kGlobal>
+__device__ __forceinline__ unsigned long long scan_run(const float4* run, int limit, bool wants,
+                                                       int key, float px, float py,
+                                                       float pz) {
+  constexpr int U = 8;
+  unsigned long long best = pack_best(INFINITY, 0);
+  bool walking = wants;
+  for (int s = 0; s < B && __any_sync(kFull, walking); s += U) {
+    float d[U];
+    int at[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float4 v = !kGlobal || s + u < limit ? run[s + u] : no_row();
+      const float dx = __fsub_rn(v.x, px), dy = __fsub_rn(v.y, py), dz = __fsub_rn(v.z, pz);
+      const float d2 =
+          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      d[u] = __float_as_int(v.w) == key ? d2 : INFINITY;
+      at[u] = u;
+    }
+    const bool last = d[U - 1] < INFINITY;  // the batch's last slot is the cell's
+#pragma unroll
+    for (int w = 1; w < U; w *= 2) {
+#pragma unroll
+      for (int i = 0; i + w < U; i += 2 * w) {
+        const bool right = d[i + w] < d[i];
+        d[i] = right ? d[i + w] : d[i];
+        at[i] = right ? at[i + w] : at[i];
+      }
+    }
+    const unsigned long long mine = pack_best(d[0], s + at[0]);
+    best = walking && mine < best ? mine : best;
+    walking = walking && last;
+  }
+  return best;
+}
+
+// The least distance from p, along one axis, to the rows of the neighbour cell at offset
+// o (-1, 0, +1) of p's cell k (origin org, cell size cell): 0 for o = 0, else p's distance
+// to that cell's near face, moved toward p by a margin that covers the float32 rounding of
+// the rows' cells (`voxel_coord`) and of the face itself, so that every row of the cell
+// lies at least this far away and each candidate's d2, rounded as the scan rounds it, is
+// at least the bound's, rounded alike.
+__device__ __forceinline__ float face_gap(int o, int k, float p, float org, float cell) {
+  if (o == 0) return 0.f;
+  const float face = org + (o > 0 ? k + 1 : k) * cell;
+  const float margin = 1e-3f + 1e-5f * (fabsf(org) + (k + 1) * cell);
+  const float gap = o > 0 ? __fsub_rn(face - margin, p) : __fsub_rn(p, face + margin);
+  return gap > 0.f ? gap : 0.f;
+}
+
+// Point p's cell c scanned (the staged run from shared memory; a run past the stage from
+// global memory, the warp taking that path if any lane needs it): its least (d2, flat)
+// packed, flat = c B + the slot of the plain version's run, which starts at the table
+// start clamped to [0, n - B].
+template <int C, int B, typename S>
+__device__ __forceinline__ unsigned long long scan_cell(const S& sm, const NnGrid& g, int p,
+                                                        int c, bool wants) {
+  const int s0 = sm.start[c][p];
+  const int id = sm.sid[c][p];
+  const bool staged = !wants || id < S::kRuns;
+  const int key = sm.qkey[p] + key_offset<C>(c);
+  const float px = sm.q[0][p], py = sm.q[1][p], pz = sm.q[2][p];
+  const float4* run = &sm.rows[(staged && wants ? id : 0) * S::kStride];
+  unsigned long long best;
+  if (__any_sync(kFull, !staged))
+    best = scan_run<B, true>(staged ? run : g.packed + s0, staged ? B : g.n - s0, wants, key,
+                             px, py, pz);
+  else
+    best = scan_run<B, false>(run, B, wants, key, px, py, pz);
+  // The slot from the table start, as a flat index of the plain version's candidates.
+  return best + (c * B + s0 - min(s0, g.n - B));
+}
+
+// The nearest row of grid g to every thread's query (x, y, z) that is `active`, among the
 // rows of the C cells around it (ops/neighbors.py:nearest at neighborhood C and bucket_cap
-// B). Every lane of the warp calls it. Returns the squared distance (+inf when no row was
-// found or the lane is not active) and, when found, the sorted row in `row`.
+// B). Every thread of the block calls it. Returns the squared distance (+inf when no row
+// was found or the thread is not active) and, when found, the sorted row in `row`.
 //
-// The table's starts of every lane's cells are loaded first (all in flight) into `sm`;
-// then the warp walks its queries two a round (a half-warp segment each, S = B / 16 rows
-// of each cell a lane), each round in chunks of K cells, and loads the next chunk's
-// candidates while it consumes this one's (software pipelined: one load latency a chunk,
-// overlapped with the previous chunk's arithmetic and the round's argmin). A lane keeps
-// only its least d2, the cell and slot it came from and the row; the row's coordinates
-// are read once, after the scan.
-template <int C, int B>
-__device__ __forceinline__ float warp_nearest(const NnGrid& g, float inv, float ox, float oy,
-                                              float oz, const Grid& dm, float x, float y,
-                                              float z, bool active, ScanSmem<C>& sm,
-                                              int& row) {
-  constexpr int P = 32 / kSegment;  // queries a round
-  constexpr int S = B / kSegment;   // rows of a cell a lane reads
-  constexpr int K = cell_chunk<C, S>();
-  constexpr int NCH = C / K;  // chunks a round
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int seg = lane / kSegment, lane16 = lane % kSegment;
+//   1. Each thread computes its cell (`voxel_coord`: the float32 operations of
+//      `voxel_coords`, so a point on a cell border lands in the same cell as on the torch
+//      path) and loads the table's start of each of its C cells, all in flight (out of
+//      the table: -1, no candidate), while the block clears the hash.
+//   2. The tile's distinct table starts go into the hash: a lane inserts a start unless
+//      the lane before it names the same one (neighbouring points share cells), all its
+//      atomicCAS at once (linear probing after a collision); a lane that fills a slot
+//      numbers its run (a warp draws its block of numbers with one atomicAdd: the
+//      numbering varies from run to run, the rows a number stands for do not). Then each
+//      lane takes its cells' run ids from the lanes that inserted them.
+//   3. The first kRuns runs are copied into the stage, every 16-byte row a cp.async, all
+//      in flight: one round trip to L2 for the tile.
+//   4. Each thread scans its own cell (`scan_cell`). Then it lists its neighbour cells
+//      whose rows can be as near as that cell's best (`face_gap`: a cell whose bound
+//      exceeds the best holds no first minimum); the block's threads share the list and
+//      scan a pair each, merging into the point's best with a shared-memory atomicMin on
+//      the packed (d2, flat): the least d2, then the least flat index (cell, then slot)
+//      among its holders, which is what `torch.argmin` returns, whatever the order.
+template <int C, int B, typename S>
+__device__ __forceinline__ float stage_nearest(const NnGrid& g, float inv, float ox, float oy,
+                                               float oz, const Grid& dm, float x, float y,
+                                               float z, bool active, S& sm, int& row) {
+  constexpr int kOwn = C == 7 ? 0 : 13;  // the offset (0, 0, 0)
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int bx = voxel_coord(x, ox, inv, dm.hx);
   const int by = voxel_coord(y, oy, inv, dm.hy);
   const int bz = voxel_coord(z, oz, inv, dm.hz);
-  const int base_key = (bx << kKeyX) | (by << kKeyY) | bz;
-  __syncwarp();  // every lane has read the last query's results out of `sm`
+  int start[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     const int3 o = cell_offset<C>(c);
     const int cx = bx + o.x, cy = by + o.y, cz = bz + o.z;
     const bool in = active && cx >= 0 && cx < dm.dx && cy >= 0 && cy < dm.dy && cz >= 0 &&
                     cz < dm.dz;  // outside: the reference's overflow slot, which reads -1
-    sm.start[warp][lane][c] = in ? __ldg(&g.table[(cx * dm.dy + cy) * dm.dz + cz]) : -1;
+    start[c] = in ? __ldg(&g.table[(cx * dm.dy + cy) * dm.dz + cz]) : -1;
   }
-  __syncwarp();
-  // The rounds that hold a query (warp-uniform), in order.
-  const unsigned act = __ballot_sync(kFull, active);
-  unsigned todo = 0;
+  // A block none of whose threads queries stops here; the barrier also ends the block's
+  // use of the last query's stage.
+  if (!__syncthreads_or(active)) return INFINITY;
+  for (int j = t; j < S::kHash; j += kLoopThreads) sm.hash.key[j] = -1;
+  if (t == 0) sm.nruns = 0;
+  sm.q[0][t] = x;
+  sm.q[1][t] = y;
+  sm.q[2][t] = z;
+  sm.qkey[t] = (bx << kKeyX) | (by << kKeyY) | bz;
+  __syncthreads();
+  int h[C], old[C];
+  bool head[C];
 #pragma unroll
-  for (int r = 0; r < 32 / P; ++r)
-    if ((act >> (r * P)) & ((1u << P) - 1u)) todo |= 1u << r;
-  if (todo != 0) {
-    int r = __ffs(todo) - 1, ch = 0;
-    todo &= todo - 1;
-    int s[K];
-    float4 v[K][S];
-    load_chunk<C, B, K>(g, sm, warp, r * P + seg, 0, lane16, s, v);
-    float best = INFINITY;
-    int bflat = INT_MAX, brow = 0;
-    while (true) {
-      // The next chunk: this round's next, or the next round's first (nr < 0: none).
-      int nr = r, nch = ch + 1;
-      if (nch == NCH) {
-        nch = 0;
-        nr = todo ? __ffs(todo) - 1 : -1;
-        todo &= todo - 1;
-      }
-      int ns[K];
-      float4 nv[K][S];
-      if (nr >= 0) load_chunk<C, B, K>(g, sm, warp, nr * P + seg, nch, lane16, ns, nv);
-      const int j = r * P + seg;  // the lane whose query this segment takes this round
-      const float px = __shfl_sync(kFull, x, j), py = __shfl_sync(kFull, y, j),
-                  pz = __shfl_sync(kFull, z, j);
-      const int jkey = __shfl_sync(kFull, base_key, j);
-      // The chunk's K S candidates of this lane, in flat order (cell, then slot), without
-      // a branch: one that is not its cell's row reads +inf. Then their first minimum by a
-      // tree (the left of two equal ones has the lower flat index), merged with the
-      // running one of earlier chunks.
-      float d[K * S];
-      int at[K * S], rw[K * S];
+  for (int c = 0; c < C; ++c) {
+    sm.start[c][t] = start[c];
+    const int prev = __shfl_up_sync(kFull, start[c], 1);  // every lane takes part
+    head[c] = start[c] >= 0 && (lane == 0 || prev != start[c]);
+    h[c] = hash_slot<S::kHashBits>(start[c]);
+    old[c] = head[c] ? atomicCAS(&sm.hash.key[h[c]], -1, start[c]) : start[c];
+  }
+  int fills = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int key = jkey + key_offset<C>(ch * K + k);
+  for (int c = 0; c < C; ++c) {
+    while (head[c] && old[c] != -1 && old[c] != start[c]) {  // a collision: the next slot
+      h[c] = (h[c] + 1) & (S::kHash - 1);
+      old[c] = atomicCAS(&sm.hash.key[h[c]], -1, start[c]);
+    }
+    fills += head[c] && old[c] == -1;
+  }
+  // The runs this thread's heads filled slots for are numbered after the warp's lanes
+  // before it, the warp's block of numbers drawn by one atomicAdd.
+  int filled = fills;  // the warp's fills up to this lane
 #pragma unroll
-        for (int t = 0; t < S; ++t) {
-          const float dx = __fsub_rn(v[k][t].x, px), dy = __fsub_rn(v[k][t].y, py),
-                      dz = __fsub_rn(v[k][t].z, pz);
-          const float d2 =
-              __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-          const bool ok = s[k] >= 0 && __float_as_int(v[k][t].w) == key;
-          d[k * S + t] = ok ? d2 : INFINITY;
-          at[k * S + t] = k * S + t;
-          rw[k * S + t] = s[k] + lane16 + kSegment * t;
-        }
-      }
+  for (int d = 1; d < 32; d *= 2) {
+    const int up = __shfl_up_sync(kFull, filled, d);
+    filled += lane >= d ? up : 0;
+  }
+  int id = 0;
+  if (lane == 31) id = atomicAdd(&sm.nruns, filled);
+  id = __shfl_sync(kFull, id, 31) + filled - fills;
 #pragma unroll
-      for (int w = 1; w < K * S; w *= 2) {
-#pragma unroll
-        for (int i = 0; i + w < K * S; i += 2 * w) {
-          const bool right = d[i + w] < d[i];
-          d[i] = right ? d[i + w] : d[i];
-          at[i] = right ? at[i + w] : at[i];
-          rw[i] = right ? rw[i + w] : rw[i];
-        }
-      }
-      if (d[0] < best) {  // strict: earlier chunks hold lower flat indices
-        best = d[0];
-        bflat = (ch * K + at[0] / S) * B + lane16 + kSegment * (at[0] % S);
-        brow = rw[0];
-      }
-      if (ch == NCH - 1) {  // the round's last chunk: its first minimum over (cell, slot)
-        float least = best;
-        int flat = bflat;
-        segment_argmin(least, flat, seg);
-        if (lane16 == 0) sm.d2[warp][j] = least;
-        if (least < INFINITY && flat == bflat) sm.row[warp][j] = brow;  // the finder
-        best = INFINITY;
-        bflat = INT_MAX;
-      }
-      if (nr < 0) break;
-      r = nr;
-      ch = nch;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        s[k] = ns[k];
-#pragma unroll
-        for (int t = 0; t < S; ++t) v[k][t] = nv[k][t];
-      }
+  for (int c = 0; c < C; ++c) {
+    if (head[c] && old[c] == -1) {
+      sm.hash.id[h[c]] = static_cast<unsigned short>(id);
+      if (id < S::kRuns) sm.runs[id] = start[c];
+      ++id;
     }
   }
-  __syncwarp();
-  if (!active) return INFINITY;
-  row = sm.row[warp][lane];
-  return sm.d2[warp][lane];
+  __syncthreads();
+  // A lane takes its cell's run id from its group's head: the nearest head lane at or
+  // before it (the lanes between name the same start).
+  const unsigned upto = lane == 31 ? kFull : (2u << lane) - 1u;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const unsigned heads = __ballot_sync(kFull, head[c]) & upto;
+    const int from = heads ? 31 - __clz(heads) : lane;
+    const int run = __shfl_sync(kFull, head[c] ? sm.hash.id[h[c]] : 0, from);
+    sm.sid[c][t] = start[c] < 0 ? S::kNone : static_cast<unsigned short>(run);
+  }
+  const int total = sm.nruns;
+  __syncthreads();  // the hash is read: its bytes take the staged rows
+  copy_runs<B>(sm, g.packed, g.n, min(total, S::kRuns));
+  __syncthreads();
+
+  // The own cell, then the list of neighbour cells that can hold the first minimum.
+  const unsigned long long own = scan_cell<C, B>(sm, g, t, kOwn, start[kOwn] >= 0);
+  const float best = __uint_as_float(static_cast<unsigned>(own >> 32));
+  const float cell = 1.0f / inv;
+  unsigned wanted = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int3 o = cell_offset<C>(c);
+    const float hx = face_gap(o.x, bx, x, ox, cell);
+    const float hy = face_gap(o.y, by, y, oy, cell);
+    const float hz = face_gap(o.z, bz, z, oz, cell);
+    const float bound =
+        __fadd_rn(__fadd_rn(__fmul_rn(hx, hx), __fmul_rn(hy, hy)), __fmul_rn(hz, hz));
+    if (c != kOwn && start[c] >= 0 && !(bound > best)) wanted |= 1u << c;
+  }
+  sm.best[t] = own;
+  const int mine = __popc(wanted);
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int up = __shfl_up_sync(kFull, incl, d);
+    incl += lane >= d ? up : 0;
+  }
+  if (lane == 31) sm.warp_total[warp] = incl;
+  __syncthreads();
+  int at = incl - mine, nwork = 0;
+#pragma unroll
+  for (int w = 0; w < kLoopWarps; ++w) {
+    at += w < warp ? sm.warp_total[w] : 0;
+    nwork += sm.warp_total[w];
+  }
+  for (; wanted; wanted &= wanted - 1) sm.work[at++] = t * 32 + __ffs(wanted) - 1;
+  __syncthreads();
+  for (int j0 = 0; j0 < nwork; j0 += kLoopThreads) {
+    const int j = j0 + t;
+    const int w = j < nwork ? sm.work[j] : 0;
+    const unsigned long long b = scan_cell<C, B>(sm, g, w >> 5, w & 31, j < nwork);
+    if (j < nwork) atomicMin(&sm.best[w >> 5], b);
+  }
+  __syncthreads();
+  const unsigned long long b = sm.best[t];
+  const float d2 = __uint_as_float(static_cast<unsigned>(b >> 32));
+  const int flat = static_cast<int>(b & 0xffffffffu), c = flat / B;
+  row = min(sm.start[c][t], g.n - B) + flat % B;
+  return active ? d2 : INFINITY;
 }
 
 // M = A^-1 by the adjugate, as the plain version's `inv3x3` (ops/kernels.py): a
@@ -347,7 +491,8 @@ __global__ void __launch_bounds__(kLoopThreads) gicp_iteration_kernel(const Gicp
   __shared__ float damping;
   __shared__ int iters0;
   __shared__ bool last;
-  __shared__ ScanSmem<C> sm;
+  extern __shared__ __align__(16) unsigned char stage_bytes[];
+  Stage<C, B>& sm = *reinterpret_cast<Stage<C, B>*>(stage_bytes);
   const int t = threadIdx.x;
   const float* Tg = a.carry.T;
   if (t < 16) Ts[t] = Tg[t];
@@ -388,8 +533,7 @@ __global__ void __launch_bounds__(kLoopThreads) gicp_iteration_kernel(const Gicp
     const float y = Ts[4] * sx + Ts[5] * sy + Ts[6] * sz + Ts[7];
     const float z = Ts[8] * sx + Ts[9] * sy + Ts[10] * sz + Ts[11];
     int row = 0;
-    const float d2 =
-        warp_nearest<C, B>(a.tgt, tinv, tox, toy, toz, a.dims, x, y, z, mine, sm, row);
+    float d2 = stage_nearest<C, B>(a.tgt, tinv, tox, toy, toz, a.dims, x, y, z, mine, sm, row);
     bool cand = d2 < a.corr2;  // found, masked in, within the gate
     float qx = 0.f, qy = 0.f, qz = 0.f;
     if (cand) {
@@ -403,8 +547,8 @@ __global__ void __launch_bounds__(kLoopThreads) gicp_iteration_kernel(const Gicp
       const float uy = Tinv[4] * qx + Tinv[5] * qy + Tinv[6] * qz + Tinv[7];
       const float uz = Tinv[8] * qx + Tinv[9] * qy + Tinv[10] * qz + Tinv[11];
       int brow = 0;
-      const float bd2 =
-          warp_nearest<C, B>(a.sgrid, sinv, sox, soy, soz, a.dims, ux, uy, uz, cand, sm, brow);
+      const float bd2 = stage_nearest<C, B>(a.sgrid, sinv, sox, soy, soz, a.dims, ux, uy, uz,
+                                            cand, sm, brow);
       cand = cand && bd2 < INFINITY && __ldg(&a.sorder[brow]) == i;
     }
     if (cand) {
@@ -426,41 +570,54 @@ __global__ void __launch_bounds__(kLoopThreads) gicp_iteration_kernel(const Gicp
                             iters0, a.carry.T, a.carry.done, a.carry, a.st, 0);
 }
 
+// An instantiation and the dynamic shared memory (its stage) a block of it takes.
+struct Variant {
+  const void* fn;
+  int smem;
+};
+
 template <int C, int B, bool kRecip>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(&gicp_iteration_kernel<C, B, kRecip>);
+Variant variant_of() {
+  return {reinterpret_cast<const void*>(&gicp_iteration_kernel<C, B, kRecip>),
+          static_cast<int>(sizeof(Stage<C, B>))};
 }
 
-// The instantiation for (neighborhood, bucket_cap, reciprocal), or nullptr.
-const void* gicp_kernel(int neighborhood, int bucket_cap, int reciprocal) {
+// The instantiation for (neighborhood, bucket_cap, reciprocal) with its stage's bytes
+// allowed on the current device (`*err`), or {nullptr, 0} (cudaErrorInvalidValue).
+Variant gicp_kernel(int neighborhood, int bucket_cap, int reciprocal, cudaError_t* err) {
   const bool r = reciprocal != 0;
+  Variant v = {nullptr, 0};
   if (neighborhood == 7 && bucket_cap == 32)
-    return r ? kernel_of<7, 32, true>() : kernel_of<7, 32, false>();
-  if (neighborhood == 7 && bucket_cap == 16)
-    return r ? kernel_of<7, 16, true>() : kernel_of<7, 16, false>();
-  if (neighborhood == 27 && bucket_cap == 32)
-    return r ? kernel_of<27, 32, true>() : kernel_of<27, 32, false>();
-  if (neighborhood == 27 && bucket_cap == 16)
-    return r ? kernel_of<27, 16, true>() : kernel_of<27, 16, false>();
-  return nullptr;
+    v = r ? variant_of<7, 32, true>() : variant_of<7, 32, false>();
+  else if (neighborhood == 7 && bucket_cap == 16)
+    v = r ? variant_of<7, 16, true>() : variant_of<7, 16, false>();
+  else if (neighborhood == 27 && bucket_cap == 32)
+    v = r ? variant_of<27, 32, true>() : variant_of<27, 32, false>();
+  else if (neighborhood == 27 && bucket_cap == 16)
+    v = r ? variant_of<27, 16, true>() : variant_of<27, 16, false>();
+  *err = v.fn == nullptr ? cudaErrorInvalidValue
+                         : cudaFuncSetAttribute(v.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                v.smem);
+  return v;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The kernel's registers per thread, static shared memory bytes and local memory bytes
-// per thread (out[0..2]) for (neighborhood, bucket_cap, reciprocal); returns the CUDA
-// error (0 = success).
+// The kernel's registers per thread, shared memory bytes a block (static and its stage)
+// and local memory bytes per thread (out[0..2]), and the runs its stage holds (out[3]),
+// for (neighborhood, bucket_cap, reciprocal); returns the CUDA error (0 = success).
 int lgs_gicp_loop_attributes(int neighborhood, int bucket_cap, int reciprocal, int* out) {
-  const void* fn = gicp_kernel(neighborhood, bucket_cap, reciprocal);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const Variant v = gicp_kernel(neighborhood, bucket_cap, reciprocal, &err);
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, v.fn);
   if (err == cudaSuccess) {
     out[0] = attr.numRegs;
-    out[1] = static_cast<int>(attr.sharedSizeBytes);
+    out[1] = static_cast<int>(attr.sharedSizeBytes) + v.smem;
     out[2] = static_cast<int>(attr.localSizeBytes);
+    out[3] = stage_runs(neighborhood, bucket_cap);
   }
   return static_cast<int>(err);
 }
@@ -468,11 +625,11 @@ int lgs_gicp_loop_attributes(int neighborhood, int bucket_cap, int reciprocal, i
 // Resident blocks per SM of the kernel for (neighborhood, bucket_cap, reciprocal) on the
 // current device, or -(CUDA error).
 int lgs_gicp_loop_blocks_per_sm(int neighborhood, int bucket_cap, int reciprocal) {
-  const void* fn = gicp_kernel(neighborhood, bucket_cap, reciprocal);
-  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const Variant v = gicp_kernel(neighborhood, bucket_cap, reciprocal, &err);
   int n = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kLoopThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, v.fn, kLoopThreads, v.smem);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
@@ -499,9 +656,10 @@ int lgs_gicp_align_loop(const float* src, const uint8_t* mask, const float* src_
                         uint8_t* done, int* iters, float* fitness, int* inliers,
                         int max_iterations, float* partials, unsigned int* counter,
                         int nblocks, void* stream) {
-  const void* fn = gicp_kernel(neighborhood, bucket_cap, s_table != nullptr);
-  if (fn == nullptr || key_sx != kKeyX || key_sy != kKeyY)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (key_sx != kKeyX || key_sy != kKeyY) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const Variant v = gicp_kernel(neighborhood, bucket_cap, s_table != nullptr, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   GicpArgs a;
   a.src = src;
   a.mask = mask;
@@ -526,13 +684,14 @@ int lgs_gicp_align_loop(const float* src, const uint8_t* mask, const float* src_
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(nblocks);
   cfg.blockDim = dim3(kLoopThreads);
+  cfg.dynamicSmemBytes = v.smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
   void* args[] = {&a};
   for (int it = 0; it < max_iterations; ++it) {
-    cudaLaunchKernelExC(&cfg, fn, args);
-    const cudaError_t err = cudaGetLastError();
+    cudaLaunchKernelExC(&cfg, v.fn, args);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

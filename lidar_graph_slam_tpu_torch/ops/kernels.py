@@ -948,18 +948,20 @@ def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
 
 
 def loop_kernel_attributes(device, gicp=None) -> dict:
-    """The NDT loop kernel's registers per thread, static shared memory and local memory
-    bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block, and
-    the SMs of the CUDA `device` with the kernel's resident blocks per SM there; with
-    `gicp` = (neighborhood, bucket_cap, reciprocal), those of that GICP loop kernel."""
-    out = (ctypes.c_int * 3)()
+    """The NDT loop kernel's registers per thread, shared memory bytes a block and local
+    memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
+    and the SMs of the CUDA `device` with the kernel's resident blocks per SM there; with
+    `gicp` = (neighborhood, bucket_cap, reciprocal), those of that GICP loop kernel (its
+    shared memory with its stage) and the runs of B rows its stage holds (`stage_runs`)."""
+    out = (ctypes.c_int * 4)()
     lib = load_library()
     err = (lib.lgs_ndt_loop_attributes(out) if gicp is None
            else lib.lgs_gicp_loop_attributes(*map(int, gicp), out))
     _raise_on(err, "loop_kernel_attributes")
     sms, per_sm = _loop_occupancy(device, gicp)
+    extra = {} if gicp is None else {"stage_runs": out[3]}
     return dict(registers=out[0], smem_bytes=out[1], local_bytes=out[2],
-                tile=_consts["loop_tile"], sms=sms, blocks_per_sm=per_sm)
+                tile=_consts["loop_tile"], sms=sms, blocks_per_sm=per_sm, **extra)
 
 
 _WORKED = {"ndt_iteration": "lgs_ndt_worked_launches",

@@ -52,9 +52,15 @@ from lidar_graph_slam_tpu_torch.io.synthetic import (
     simulate_scan,
 )
 from lidar_graph_slam_tpu_torch.ops import kernels as tk
-from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
+from lidar_graph_slam_tpu_torch.ops.neighbors import _offsets_for, build_hash_grid, nearest
 from lidar_graph_slam_tpu_torch.registration import gicp
-from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
+from lidar_graph_slam_tpu_torch.ops.voxel import (
+    TABLE_DIMS,
+    _flat_table_index,
+    build_ndt_map,
+    pack_key,
+    voxel_coords,
+)
 from lidar_graph_slam_tpu_torch.parallel.distributed import Mesh
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration.ndt import magnusson_constants
@@ -808,38 +814,149 @@ def _gicp_loop_matches_plain(args):
     return out
 
 
+def _tile_runs(problem, bucket_cap=32, neighborhood=7, tile=128):
+    """Per tile of `tile` source points at T = I: the distinct runs (table starts clamped
+    to [0, n - B]) its masked-in points' cells name, and their base cells' distinct keys
+    (what the kernel stages a tile; `chip_smoke.stage_counts`)."""
+    target, src, mask, _ = problem
+    grid = target.grid
+    n, size = grid.packed.shape[0], grid.table.shape[0]
+    base = voxel_coords(src, grid.origin, 1.0 / grid.cell_size)
+    nc = base[:, None, :] + _offsets_for(neighborhood, src.device)
+    flat, in_range = _flat_table_index(nc, TABLE_DIMS)
+    start = torch.where(in_range & mask[:, None], grid.table[flat.clamp(max=size - 1).long()],
+                        -1)
+    keys = pack_key(base)
+    runs, cells = [], []
+    for t in range(0, src.shape[0], tile):
+        live = start[t:t + tile] >= 0
+        if bool(mask[t:t + tile].any()):
+            runs.append(torch.unique(start[t:t + tile][live].clamp(max=n - bucket_cap)).numel())
+            cells.append(torch.unique(keys[t:t + tile][mask[t:t + tile]]).numel())
+    return runs, cells
+
+
+def _gicp_case_problem(device, case):
+    """A GICP problem whose tiles stress the kernel's stage, with the comparison's
+    iterations. `scan`: `_gicp_problem`. `one_cell`: a tile of 128 for each 2 m cell of the
+    target's grid that holds at least 32 masked-in source rows, those rows repeated. `overflow`: its
+    masked-in source rows in a seeded random order, so that a tile's points spread over
+    the scan and name more runs than the stage holds (read from global memory). `ties`:
+    a source on a 3 m lattice and a target that holds, for each source point p, two rows
+    at the same distance (p +- 0.5 m along x, or +- 0.375 m along y; in two cells or in
+    two slots of one cell) and eight filler rows each (0.625 m or more further out, so
+    that a row's cell holds enough rows for a covariance), every coordinate a multiple of
+    1/8 m: exact distances, so the first of the two in flat order must win; compared at
+    one iteration (from T = I, where the kernel's transform and the plain one are
+    exact)."""
+    if case == "ties":
+        rng = np.random.default_rng(21)
+        g = np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(4), indexing="ij"), -1)
+        q = g.reshape(-1, 3) * 3.0 + 1.5 + np.round(rng.uniform(-0.6, 0.6, (1024, 3)) * 8) / 8
+        along = np.where(np.arange(1024)[:, None] % 2 == 0, [[0.5, 0.0, 0.0]],
+                         [[0.0, 0.375, 0.0]])
+        flip = np.where(rng.random((1024, 1)) < 0.5, 1.0, -1.0)
+        rows = np.concatenate([q + flip * along, q - flip * along])
+        out = np.sign(np.concatenate([flip * along, -flip * along])) * 0.625
+        perp = np.concatenate([along[:, [1, 0, 2]]] * 2) > 0  # y for x-pairs, x for y
+        a, z = perp * 0.625, np.array([0.0, 0.0, 0.625])
+        fill = [rows + out, rows + 2 * out, rows + out + a, rows + out - a, rows + out + z,
+                rows + out - z, rows + z, rows - z]
+        tgt = np.concatenate([rows] + fill).astype(np.float32)
+        tc = torch.as_tensor(tgt, device=device)
+        target = gicp.build_gicp_target(tc, torch.ones(len(tgt), dtype=torch.bool,
+                                                       device=device), 2.0)
+        src = torch.as_tensor(q.astype(np.float32), device=device)
+        mask = torch.ones(len(q), dtype=torch.bool, device=device)
+        covs, _ = gicp.estimate_covariances(src, mask, 2.0)
+        return (target, src, mask, covs), 1
+    problem = _gicp_problem(device)
+    if case == "scan":
+        return problem, 64
+    target, src, mask, covs = problem
+    rows = torch.nonzero(mask)[:, 0]
+    if case == "overflow":
+        g = torch.Generator().manual_seed(5)
+        rows = rows[torch.randperm(rows.numel(), generator=g).to(device)]
+    else:  # one_cell: a tile for each cell of at least 32 rows, its rows repeated
+        key = pack_key(voxel_coords(src[rows], target.grid.origin,
+                                    1.0 / target.grid.cell_size))
+        key, order = torch.sort(key, stable=True)
+        _, counts = torch.unique_consecutive(key, return_counts=True)
+        first = torch.cumsum(counts, 0) - counts
+        rows = torch.cat([rows[order[f + torch.arange(128, device=device) % c]]
+                          for f, c in zip(first.tolist(), counts.tolist()) if c >= 32])
+    return (target, src[rows].contiguous(), mask[rows].contiguous(),
+            covs[rows].contiguous()), 64
+
+
 # (neighborhood, bucket_cap, reciprocal): every instantiation of the kernel but one.
 GICP_VARIANTS = [(7, 32, False), (7, 32, True), (7, 16, False), (7, 16, True),
                  (27, 32, False), (27, 16, False), (27, 32, True)]
+# Each stage case at the path's query and at the largest stage (27 cells, 32 rows).
+GICP_STAGE_CASES = [pytest.param(case, *v, id=f"{case}-{v[0]}-{v[1]}-{v[2]}")
+                    for case in ("one_cell", "overflow", "ties")
+                    for v in ((7, 32, False), (27, 32, False))]
+GICP_LOOP_CASES = [pytest.param("scan", *v, id="-".join(map(str, v)))
+                   for v in GICP_VARIANTS] + GICP_STAGE_CASES
 
 
-@pytest.mark.parametrize("neighborhood,bucket_cap,reciprocal", GICP_VARIANTS)
-def test_gicp_loop_kernel_matches_plain_loop(cuda, neighborhood, bucket_cap, reciprocal):
+@pytest.mark.parametrize("case,neighborhood,bucket_cap,reciprocal", GICP_LOOP_CASES)
+def test_gicp_loop_kernel_matches_plain_loop(cuda, case, neighborhood, bucket_cap, reciprocal):
     """The GICP loop kernel against the plain loop (`_gicp_loop_matches_plain`); one C
     call enqueues max_iterations launches; a loop cut at one iteration has exactly the
-    plain loop's inliers (the same matches)."""
-    problem = _gicp_problem(cuda)
-    args = _gicp_loop_args(problem, 64, bucket_cap, neighborhood, reciprocal)
+    plain loop's inliers (the same matches). On the real scan and on the stage's cases
+    (`_gicp_case_problem`): tiles in one cell, tiles whose runs overflow the stage, and
+    planted ties."""
+    problem, its = _gicp_case_problem(cuda, case)
+    runs, cells = _tile_runs(problem, bucket_cap, neighborhood)
+    stage = tk.loop_kernel_attributes(cuda, (neighborhood, bucket_cap, reciprocal))["stage_runs"]
+    if case == "one_cell":
+        assert len(cells) >= 2 and max(cells) == 1
+    if case == "overflow":
+        assert max(runs) > stage
+    args = _gicp_loop_args(problem, its, bucket_cap, neighborhood, reciprocal)
     before = tk.gicp_align_loop.launches
     _, done, it, _, inl = _gicp_loop_matches_plain(args)
-    assert tk.gicp_align_loop.launches == before + 2 * 64
-    assert bool(done) and 0 < int(it) < 64 and int(inl) > 1000
+    assert tk.gicp_align_loop.launches == before + 2 * its
+    if case == "scan":
+        assert bool(done) and 0 < int(it) < 64 and int(inl) > 1000
+    else:
+        assert int(inl) > 100
     args[8] = 1
     one, ref = tk.gicp_align_loop(*args), tk.gicp_align_loop_plain(*args)
     assert int(one[4]) == int(ref[4]) and int(one[2]) == 1
 
 
-@pytest.mark.parametrize("n", [1, 300, 50000])
-def test_gicp_loop_kernel_ragged_sizes(cuda, n):
+@pytest.mark.parametrize("case,n", [pytest.param("scan", n, id=str(n)) for n in (1, 300, 50000)]
+                         + [pytest.param(c, 300, id=f"{c}-300")
+                            for c in ("one_cell", "overflow", "ties")])
+def test_gicp_loop_kernel_ragged_sizes(cuda, case, n):
     """Source sizes around the kernel's tile of 128 points and beyond the resident grid
-    (391 tiles at 50,000: persistent blocks take two): the kernel against the plain loop.
-    One point matches at most one row: fewer than 6 inliers zero the step."""
-    target, src, mask, covs = _gicp_problem(cuda)
+    (391 tiles at 50,000: persistent blocks take two): the kernel against the plain loop;
+    also the stage's cases cut to 300 points (a ragged last tile). One point matches at
+    most one row: fewer than 6 inliers zero the step."""
+    (target, src, mask, covs), its = _gicp_case_problem(cuda, case)
     idx = torch.arange(n, device=cuda) % src.shape[0]
     problem = (target, src[idx].contiguous(), mask[idx].contiguous(), covs[idx].contiguous())
-    out = _gicp_loop_matches_plain(_gicp_loop_args(problem))
+    out = _gicp_loop_matches_plain(_gicp_loop_args(problem, its))
     if n == 1:
         assert int(out[2]) == 1 and torch.equal(out[0], torch.eye(4, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["scan", "overflow", "ties"])
+@pytest.mark.parametrize("its", [1, 64])
+def test_gicp_loop_kernel_reruns_bit_identical(cuda, case, its):
+    """The kernel's carry after one and after 64 launches is the same bit for bit in two
+    runs on the same inputs (no float atomics; the stage's numbering of runs may differ
+    between runs, its rows do not)."""
+    problem, _ = _gicp_case_problem(cuda, case)
+    for reciprocal in (False, True):
+        args = _gicp_loop_args(problem, its, reciprocal=reciprocal)
+        first = [x.clone() for x in tk.gicp_align_loop(*args)]
+        again = tk.gicp_align_loop(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def test_gicp_loop_kernel_early_exit_and_worked_count(cuda):

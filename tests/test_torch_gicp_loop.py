@@ -18,7 +18,17 @@ by `tests/test_torch_cuda.py`.
   singular system and a step far past NDT's cap (GICP takes it whole).
 - The wrapper takes the plain version for CPU tensors, and refuses other devices and a
   `neighborhood` or `bucket_cap` the kernel does not take.
+- A plain model of the kernel's staged grid-NN query (`staged_nearest`: a tile's runs
+  de-duplicated and copied into a stage, runs past the stage read from the grid's rows,
+  each point's cells walked in flat order eight slots at a time until a batch leaves the
+  cell, a strict-less merge) bit-equal to the plain `nearest` (idx, d2 and found), and
+  equal to the JAX `nearest` (idx and found exact, d2 to rtol 1e-6, as
+  `tests/test_torch_icp.py` holds the plain one), at C 7/27 and B 16/32: tiles that lie
+  in one cell, tiles whose runs overflow a small stage, and planted ties (equal d2 in
+  two cells and in two slots of one cell, where the lower flat index must win).
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -30,9 +40,15 @@ from lidar_graph_slam_tpu.registration import gicp as jgicp
 from lidar_graph_slam_tpu_torch.core.config import GicpConfig as TGicpConfig
 from lidar_graph_slam_tpu_torch.ops import kernels as tk
 from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+from lidar_graph_slam_tpu_torch.ops.voxel import (
+    TABLE_DIMS,
+    _flat_table_index,
+    pack_key,
+    voxel_coords,
+)
 from lidar_graph_slam_tpu_torch.registration import gicp as tgicp
 from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
-from lidar_graph_slam_tpu_torch.utils.state import gicp_target_from_numpy
+from lidar_graph_slam_tpu_torch.utils.state import gicp_target_from_numpy, hash_grid_from_numpy
 from tests.test_registration import perturbation
 from tests.test_torch_gicp import (  # noqa: F401  (fixtures)
     GICP_CASES,
@@ -300,3 +316,196 @@ def test_other_queries_take_the_plain_version_on_cpu(gicp_problem, neighborhood,
     assert bool(got[1]) and int(got[4]) > 1000
     err = got[0].numpy() @ T_true
     assert np.linalg.norm(err[:3, 3]) < 0.1
+
+
+# -- the kernel's staged grid-NN query, modelled in plain PyTorch --------------------------
+
+STAGE_TILE = 128  # points a block of the kernel takes at once
+STAGE_BATCH = 8   # slots a thread evaluates at once
+
+
+def _face_gap(o: int, k, p, org, cell):
+    """The kernel's `face_gap`: the least distance along one axis from p to the rows of
+    the neighbour cell at offset o of p's cell k, less a margin for float32 rounding."""
+    if o == 0:
+        return torch.zeros_like(p)
+    face = org + (k + 1 if o > 0 else k).to(torch.float32) * cell
+    margin = 1e-3 + 1e-5 * (torch.abs(org) + (k + 1).to(torch.float32) * cell)
+    gap = (face - margin) - p if o > 0 else p - (face + margin)
+    return torch.clamp(gap, min=0.0)
+
+
+def _scan_cells(rows, p, key, walking, flat0):
+    """The kernel's `scan_run` for one cell of each query: the B slots of its run `rows`
+    [P, B, 4] from the cell's table start, STAGE_BATCH at a time while the query walks (a
+    slot counts if its key is the cell's; the walk ends after a batch whose last slot is
+    not the cell's), each batch's first minimum by a left-biased tree. Returns the least
+    (d2, flat) of each query, flat = flat0 + the slot, or (+inf, flat0)."""
+    q, B = rows.shape[0], rows.shape[1]
+    best = torch.full((q,), torch.inf)
+    flat = flat0.clone()
+    for s in range(0, B, STAGE_BATCH):
+        v = rows[:, s:s + STAGE_BATCH]
+        diff = v[..., :3] - p[:, None, :]
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] + diff[..., 2] * diff[..., 2]
+        same = v[..., 3].contiguous().view(torch.int32) == key[:, None]
+        d = torch.where(same, d2, torch.inf)
+        at = torch.arange(STAGE_BATCH).expand(q, -1).clone()
+        w = 1
+        while w < STAGE_BATCH:
+            for i in range(0, STAGE_BATCH - w, 2 * w):
+                right = d[:, i + w] < d[:, i]
+                d[:, i] = torch.where(right, d[:, i + w], d[:, i])
+                at[:, i] = torch.where(right, at[:, i + w], at[:, i])
+            w *= 2
+        take = walking & ((d[:, 0] < best) | ((d[:, 0] == best) & (flat0 + s + at[:, 0] < flat)))
+        best = torch.where(take, d[:, 0], best)
+        flat = torch.where(take, flat0 + s + at[:, 0], flat)
+        walking = walking & same[:, -1]
+    return best, flat
+
+
+def staged_nearest(grid, queries, bucket_cap: int, neighborhood: int, stage_runs: int):
+    """The GICP loop kernel's grid-NN query (`stage_nearest`, `csrc/gicp_loop.cu`) in
+    plain PyTorch. Per tile of STAGE_TILE queries: each query's C table starts, the
+    tile's distinct runs (B rows from a table start; rows past the grid's end are no
+    cell's), the first `stage_runs` of them copied into a stage, any other read from the
+    grid's rows. Each query scans its own cell (`_scan_cells`), then the neighbour cells
+    whose face bound does not exceed that cell's best; the least (d2, flat index) over
+    them, flat = c B + the slot of the plain version's run (from the start clamped to
+    [0, n - B]). Returns (idx, d2, found) as `nearest` does (a miss takes the first
+    cell's clamped start, `nearest`'s convention; the kernel reads no row of a miss) and
+    counts: the runs a tile names, the (query, cell) pairs scanned from the stage and
+    from the rows, the neighbour pairs skipped by their bound, and the starts that the
+    plain version clamps."""
+    B, C = bucket_cap, neighborhood
+    n, size = grid.packed.shape[0], grid.table.shape[0]
+    inv = 1.0 / grid.cell_size
+    cell = 1.0 / inv
+    base = voxel_coords(queries, grid.origin, inv)
+    offsets = tnb._offsets_for(C, queries.device)
+    nc = base[:, None, :] + offsets
+    flat, in_range = _flat_table_index(nc, TABLE_DIMS)
+    start = torch.where(in_range, grid.table[flat.clamp(max=size - 1).long()], -1).long()
+    key = pack_key(nc.clamp(min=0))
+    lo = start - start.clamp(0, n - B)  # the table start's slot in the plain version's run
+    slots = torch.arange(B)
+    padded = torch.cat([grid.packed, torch.tensor([[0.0, 0.0, 0.0, -1.0]]).expand(B, -1)])
+    padded[n:, 3] = torch.tensor(-1, dtype=torch.int32).view(torch.float32)
+    q = queries.shape[0]
+    best = torch.full((q,), torch.inf)
+    bflat = torch.zeros(q, dtype=torch.int64)
+    counts = dict(runs=[], staged=0, read_from_rows=0, skipped=0,
+                  clamped=int(((start >= 0) & (lo > 0)).sum()))
+    own = 0 if C == 7 else 13
+    for t0 in range(0, q, STAGE_TILE):
+        sl = slice(t0, min(t0 + STAGE_TILE, q))
+        live = start[sl] >= 0
+        runs = torch.unique(start[sl][live])
+        counts["runs"].append(runs.numel())
+        staged = runs[:stage_runs]
+        stage = padded[staged[:, None] + slots]  # the copy, [S, B, 4]
+        eq = start[sl][..., None] == staged
+        in_stage = live & eq.any(-1)
+        from_stage = stage[eq.to(torch.int64).argmax(-1)] if staged.numel() else 0
+        rows = torch.where(in_stage[..., None, None], from_stage,
+                           padded[start[sl].clamp(min=0)[..., None] + slots])  # [P, C, B, 4]
+        p, k = queries[sl], base[sl]
+
+        def scan(c, walking):
+            counts["staged"] += int((walking & in_stage[:, c]).sum())
+            counts["read_from_rows"] += int((walking & ~in_stage[:, c]).sum())
+            return _scan_cells(rows[:, c], p, key[sl, c], walking, c * B + lo[sl, c])
+
+        bs, bf = scan(own, live[:, own])
+        for c in range(C):
+            if c == own:
+                continue
+            o = offsets[c].tolist()
+            h = [_face_gap(o[a], k[:, a], p[:, a], grid.origin[a], cell) for a in range(3)]
+            bound = h[0] * h[0] + h[1] * h[1] + h[2] * h[2]
+            wants = live[:, c] & ~(bound > bs)
+            counts["skipped"] += int((live[:, c] & ~wants).sum())
+            d, f = scan(c, wants)
+            take = (d < bs) | ((d == bs) & (f < bf))
+            bs, bf = torch.where(take, d, bs), torch.where(take, f, bf)
+        best[sl], bflat[sl] = bs, bf
+    found = torch.isfinite(best)
+    c = (bflat // B).clamp(0, C - 1)
+    row = start.clamp(0, n - B).gather(1, c[:, None])[:, 0] + bflat % B
+    return torch.where(found, row, start[:, 0].clamp(0, n - B)), best, found, counts
+
+
+def _dyadic(x, step=1.0 / 64):
+    return (np.round(np.asarray(x) / step) * step).astype(np.float32)
+
+
+def _staged_case(case: str):
+    """(grid points [n, 3], queries [Q, 3], stage runs) of a staged-scan case, made from a
+    seed with numpy; every coordinate a multiple of 1/64 m, so that distances are exact.
+    one_cell: two tiles (128 and 41 queries), each inside one 2 m cell of a 2,000-point
+    cloud; overflow: 300 queries spread over the cloud against a stage of 3 runs; ties:
+    queries on a 3 m lattice, each with two planted rows at equal distance (+-0.5 m along
+    x or +-0.375 m along y), in two cells or in two slots of one cell, nothing else
+    within 2 m."""
+    rng = np.random.default_rng({"one_cell": 3, "overflow": 4, "ties": 5}[case])
+    if case == "ties":
+        g = np.stack(np.meshgrid(np.arange(6), np.arange(6), np.arange(3), indexing="ij"), -1)
+        q = _dyadic(g.reshape(-1, 3) * 3.0 + 1.5 + rng.uniform(-0.6, 0.6, (108, 3)), 1 / 8)
+        along = np.where(np.arange(108)[:, None] % 2 == 0, [[0.5, 0.0, 0.0]], [[0.0, 0.375, 0.0]])
+        flip = np.where(rng.random((108, 1)) < 0.5, 1.0, -1.0)
+        pts = np.concatenate([q + flip * along, q - flip * along]).astype(np.float32)
+        return pts, q, 128
+    pts = _dyadic(rng.uniform([0, 0, 0], [16, 16, 8], (2000, 3)))
+    if case == "overflow":
+        return pts, _dyadic(rng.uniform([-1, -1, -1], [17, 17, 9], (300, 3))), 3
+    origin = pts.min(axis=0) - 2.0
+    cells = np.floor((pts[[0, 1000]] - origin) / 2.0)
+    q = [origin + 2.0 * (c + rng.uniform(0.05, 0.95, (m, 3))) for c, m in zip(cells, (128, 41))]
+    return pts, _dyadic(np.concatenate(q)), 128
+
+
+STAGED_QUERIES = [(7, 32), (7, 16), (27, 32), (27, 16)]
+
+
+@pytest.mark.parametrize("case", ["one_cell", "overflow", "ties"])
+@pytest.mark.parametrize("neighborhood,bucket_cap", STAGED_QUERIES,
+                         ids=[f"C{c}-B{b}" for c, b in STAGED_QUERIES])
+def test_staged_scan_model_matches_nearest(case, neighborhood, bucket_cap):
+    pts, q, stage_runs = _staged_case(case)
+    mask = np.ones(len(pts), bool)
+    jg = jnb.build_hash_grid(jnp.asarray(pts), jnp.asarray(mask), 2.0)
+    grid = hash_grid_from_numpy({f.name: np.array(getattr(jg, f.name))
+                                 for f in dataclasses.fields(jg)})
+    qt = torch.as_tensor(q)
+    idx, d2, found, counts = staged_nearest(grid, qt, bucket_cap, neighborhood, stage_runs)
+    pidx, pd2, pfound = tnb.nearest(grid, qt, bucket_cap=bucket_cap, neighborhood=neighborhood)
+    assert torch.equal(idx, pidx) and torch.equal(found, pfound)
+    assert torch.equal(d2.view(torch.int32), pd2.view(torch.int32))
+    jidx, jd2, jfound = jnb.nearest(jg, jnp.asarray(q), bucket_cap=bucket_cap,
+                                    neighborhood=neighborhood)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(found.numpy(), np.asarray(jfound))
+    np.testing.assert_allclose(d2.numpy(), np.asarray(jd2), rtol=1e-6)
+    assert bool(found.any())
+    if case == "one_cell":
+        base = pack_key(voxel_coords(qt, grid.origin, 1.0 / grid.cell_size))
+        assert [torch.unique(base[t:t + STAGE_TILE]).numel() for t in (0, STAGE_TILE)] == [1, 1]
+        assert max(counts["runs"]) <= neighborhood and counts["read_from_rows"] == 0
+        assert counts["skipped"] > 0
+    elif case == "overflow":
+        assert counts["read_from_rows"] > 0 and counts["staged"] > 0 and counts["clamped"] > 0
+        assert max(counts["runs"]) > stage_runs
+    else:
+        # Every query ties: its two planted rows at the least d2, the one of lower flat
+        # index found; some pairs lie in two cells, some in two slots of one cell.
+        d2_all, cand = tnb._candidate_scan(grid, qt, tnb._offsets_for(neighborhood, "cpu"),
+                                           bucket_cap)
+        ties = d2_all == d2[:, None]
+        assert bool(found.all()) and bool((ties.sum(1) == 2).all())
+        first = ties.to(torch.int64).argmax(1)
+        assert torch.equal(idx, cand[torch.arange(len(q)), first])
+        cells = torch.nonzero(ties)[:, 1].reshape(-1, 2) // bucket_cap
+        two_cells = cells[:, 0] != cells[:, 1]
+        assert bool(two_cells.any()) and bool((~two_cells).any())
+        np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
