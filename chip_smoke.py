@@ -27,12 +27,23 @@ of `bench.py:bench_e2e`. Phases:
      memory and blocks; with `--parent DIR` the same times of that tree's kernel, in
      turns (this, parent, parent, this); then 5 dense frames of the fused step under
      `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
-  4. `build_ndt_pyramid` twice on a full 20 x 32,768 ring: bit-identical maps;
+  4. the target rebuild (`build_ndt_pyramid`) on a full 20 x 32,768 ring: twice,
+     bit-identical maps; `ndt_finalize` against `_finalize_ndt_plain` on the ring's fine
+     (C = 65,536) and merged coarse (32,768) moments and `eigh3x3` against `_eigh3x3` on
+     GICP's window covariances (the ring's 655,360 points, the last ring scan's 32,768),
+     bit for bit with reruns; each kernel's device and host us, the plain version's ms,
+     `torch.linalg.eigh`'s ms on the same matrices (where cuSOLVER takes the batch), the
+     bound; the wrappers' launches a rebuild; the rebuild and `insert_and_rebuild` under
+     `torch.cuda.set_sync_debug_mode("error")` (where one synchronizes, the lines that do);
+     `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on the kernel
+     path, the plain path and, with `--parent DIR`, the parent tree's, in turns, and each
+     one's device kernel launches and device ms under torch.profiler;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
      max(0.05 x travelled, 0.35) m, the NDT loop kernel launched 16 + 64 + 2 times a
-     frame (and how many of those did work), the accumulate kernels not; p50 frame ms;
+     frame (and how many of those did work), the accumulate kernels not, `ndt_finalize`
+     twice a target build, `eigh3x3` not; p50 frame ms;
   7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
      device kernel launches, device ms and wall ms per align and per NDT body; with
      `--parent DIR` (the parent commit unpacked by `git archive`) also that tree's, on the
@@ -42,7 +53,7 @@ of `bench.py:bench_e2e`. Phases:
  10. the loop course: `SlamPipeline` with the default config on the 360-frame drift
      course, then again with loops off — all frames converge, loops are accepted, and
      keyframe ATE with loops on is below ATE with loops off; the loop kernel's launches
-     on the verify path are counted;
+     on the verify path are counted; the back-end stage p50 with loops on and off;
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
  12. one verification, card against CPU, from the same keyframes: the same decision, and
@@ -76,9 +87,10 @@ of `bench.py:bench_e2e`. Phases:
      fused GICP step under `torch.cuda.set_sync_debug_mode("error")`;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
-     loop kernel launched 64 times a frame (and how many did work), `ndt_accumulate`,
-     `ndt_direct7_accumulate` and the NDT loop kernel not; phase 6's assertions; keyframe
-     ATE, p50 frame;
+     loop kernel launched 64 times a frame (and how many did work), `eigh3x3` at least
+     once a frame, `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize` and the NDT
+     loop kernel not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter`
+     stage p50 (the host's enqueue of the step);
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
      then ICP, each with phase 6's assertions; each stage's p50 for both;
  17. the GICP loop verifier: the default pipeline with
@@ -166,6 +178,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -196,6 +209,7 @@ from lidar_graph_slam_tpu_torch.io.synthetic import (
 from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
+from lidar_graph_slam_tpu_torch.ops import voxel
 from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     DIRECT7_OFFSETS,
@@ -233,7 +247,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-           "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop")
+           "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "ndt_finalize",
+           "eigh3x3")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -523,6 +538,181 @@ def map_build_twice(aux, ring, dev) -> dict:
     return dict(ring_points=int(ring.masks.sum()), ring_capacity=ring.masks.numel(),
                 fine_voxels=int(first[1].num_voxels), coarse_voxels=int(first[0].num_voxels),
                 rebuild_ms=round(build_ms, 3), bit_identical=True)
+
+
+# -- the target build's voxel finalize and the 3x3 eigensolve (phase 4) -----------------
+
+FINALIZE_OUT = ("keys", "means", "inv_covs", "valid", "packed")
+# `build_ndt_pyramid`'s default, which the NDT matcher builds with.
+MIN_POINTS = 6
+# A voxel row of `ndt_finalize` reads 57 B (key, count, 3 sums, 9 outer sums, the occupied
+# flag) and writes 117 B (key, mean, inverse, valid, the 64 B packed row); 851 float
+# operations (`csrc/voxel_finalize.cu`: 738 the Jacobi's, 113 the moments, the floor and
+# the inverse). A matrix of `eigh3x3` reads 36 B, writes 48 B, 738 operations.
+FINALIZE_BYTES_PER_ROW, FINALIZE_FLOPS_PER_ROW = 57 + 117, 851
+EIGH_BYTES_PER_MATRIX, EIGH_FLOPS_PER_MATRIX = 36 + 48, 738
+
+
+def rows_bound_us(rows: int, bytes_per_row: int, flops_per_row: int) -> dict:
+    """The least time for a one-thread-a-row kernel over `rows` rows: every row's bytes
+    once over the HBM rate, or its operations over the f32 rate, the larger."""
+    nbytes, flops = rows * bytes_per_row, rows * flops_per_row
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_finalize_inputs(cfg: PipelineConfig, ring) -> dict:
+    """The two `ndt_finalize` calls of a rebuild of `ring`: the fine map's moments and
+    the coarse map's merged ones, as `build_ndt_pyramid` makes them."""
+    ndt_cfg, cap = cfg.scan_matcher.ndt, cfg.capacity.voxel_capacity
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    res = voxel.as_f32(ndt_cfg.resolution, points)
+    keys, counts, sums, outer, origin, _, occ = voxel._sorted_voxel_stats(points, mask, res, cap)
+    factor = round(ndt_cfg.coarse_resolution / ndt_cfg.resolution)
+    ckeys, ccounts, csums, couter, _, cocc = voxel._coarse_voxel_stats(
+        keys, counts, sums, outer, occ, res, factor, cap // 2)
+    return {"finalize_fine": (keys, counts, sums, outer, occ, origin, res, MIN_POINTS),
+            "finalize_coarse": (ckeys, ccounts, csums, couter, cocc, origin, res * factor,
+                                MIN_POINTS)}
+
+
+def same_bits(label: str, names, out, again, ref) -> None:
+    """Two launches and the plain version on the same card tensors: equal bit for bit."""
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(names, out, again, ref):
+        if not (torch.equal(a, b) and torch.equal(a, c)
+                and torch.equal(a.reshape(-1).view(torch.uint8),
+                                c.reshape(-1).view(torch.uint8))):
+            raise AssertionError(f"{label}: {name} not bit-equal to the plain version")
+
+
+def sync_sites(fn) -> dict:
+    """`fn()` under `torch.cuda.set_sync_debug_mode("error")` (after a warm call); if it
+    raises, `fn()` again under "warn", which names every synchronizing call's line. No
+    site may lie in `ops/kernels.py` (the kernel wrappers read nothing back)."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        fn()
+        return dict(sync_free=True, sync_sites="[]")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            torch.cuda.set_sync_debug_mode("warn")
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = sorted({f"{os.path.relpath(w.filename, REPO)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message)})
+    if any(site.startswith(os.path.join("lidar_graph_slam_tpu_torch", "ops", "kernels.py"))
+           for site in sites):
+        raise AssertionError(f"a kernel wrapper synchronizes: {sites}")
+    return dict(sync_free=False, sync_sites=json.dumps(sites))
+
+
+def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None) -> dict:
+    """The target build of the full ring by `scripts/torch_profile_rebuild.py` in a
+    subprocess: wall ms a build on the kernel path, the plain path and (with `parent`)
+    the parent tree's, in turns; device kernel launches, device ms and wrapper launches of
+    one build of each under torch.profiler. The kernel path must launch fewer device
+    kernels than the plain path, and build the same maps bit for bit."""
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "rebuild_profile_input.npz")
+    np.savez(path, points=points.cpu().numpy(), mask=mask.cpu().numpy())
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_rebuild.py"),
+           "--input", path]
+    if parent is not None:
+        cmd += ["--parent", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"rebuild profile failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 2
+            and rec["kernel"]["launches"] < rec["plain"]["launches"]):
+        raise AssertionError(f"rebuild profile: {rec}")
+    return rec
+
+
+def rebuild_phase(cfg: PipelineConfig, aux, ring, last, card: str,
+                  parent: str | None) -> dict:
+    """Phase 4: the full ring's target rebuilt twice, bit-identical; `ndt_finalize`
+    against its plain version on the ring's fine and coarse moments and `eigh3x3` against
+    `_eigh3x3` on GICP's matrices at the front end's shapes (the ring's 655,360-point
+    target, the last ring scan's 32,768), bit for bit, with reruns; each kernel's device
+    and host us, the plain version's ms, torch.linalg.eigh's ms on the same matrices, the
+    bound; the wrappers' launches a rebuild; the synchronizing calls of the rebuild and of
+    `insert_and_rebuild`; the profile of `profile_rebuild`. Returns the kernels' timings
+    and the numbers."""
+    dev = ring.masks.device
+    out = map_build_twice(aux, ring, dev)
+    before = kernels.thread_launches()
+    aux["rebuild"](ring)
+    out["wrapper_launches_per_rebuild"] = kernels.thread_launches() - before
+    finalize_in = ring_finalize_inputs(cfg, ring)
+    cell = cfg.scan_matcher.gicp.max_correspondence_distance
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    eigh_in = {"eigh_target": gicp.safe_window_covariances(points, mask, cell)[1],
+               "eigh_source": gicp.safe_window_covariances(last.points, last.mask, cell)[1]}
+    for label, args in finalize_in.items():
+        same_bits(label, FINALIZE_OUT, kernels.ndt_finalize(*args), kernels.ndt_finalize(*args),
+                  voxel._finalize_ndt_plain(*args))
+        out[f"{label}_valid"] = int(voxel._finalize_ndt_plain(*args)[3].sum())
+    for label, A in eigh_in.items():
+        same_bits(label, ("w", "V"), kernels.eigh3x3(A), kernels.eigh3x3(A), voxel._eigh3x3(A))
+    out["bit_equal"] = True
+    timing = {}
+    for label, args in finalize_in.items():
+        rows = args[1].shape[0]
+        t = split_times(kernels.ndt_finalize, *args)
+        t.update(plain_ms=median_ms(voxel._finalize_ndt_plain, *args, calls=20),
+                 library_ms=None, rows=rows,
+                 **rows_bound_us(rows, FINALIZE_BYTES_PER_ROW, FINALIZE_FLOPS_PER_ROW))
+        timing[label] = {"ndt_finalize": dict(kernel="ndt_finalize", shape=label, **t)}
+    for label, A in eigh_in.items():
+        rows = A.shape[0]
+        t = split_times(kernels.eigh3x3, A)
+        try:  # one library call on the same matrices, where cuSOLVER takes the batch
+            library_ms = median_ms(torch.linalg.eigh, A, calls=10, warmup=2)
+        except RuntimeError as e:
+            library_ms = None
+            t["library_error"] = json.dumps(str(e).split("\n")[0][:120])
+        t.update(plain_ms=median_ms(voxel._eigh3x3, A, calls=20), library_ms=library_ms,
+                 rows=rows, **rows_bound_us(rows, EIGH_BYTES_PER_MATRIX, EIGH_FLOPS_PER_MATRIX))
+        timing[label] = {"eigh3x3": dict(kernel="eigh3x3", shape=label, **t)}
+    for rec in timing.values():
+        for r in rec.values():
+            r["share_of_bound"] = r["bound_us"] / r["device_us"]
+            say("kernel-time", **r, card=json.dumps(card))
+    # The rebuild, and the whole keyframe step the back end calls (slot 0 written again
+    # with its own contents, which leaves the ring as it was).
+    for label, fn in (("rebuild", lambda: aux["rebuild"](ring)),
+                      ("insert_and_rebuild", lambda: aux["insert_and_rebuild"](
+                          ring, 0, ring.clouds[0].clone(), ring.masks[0].clone(),
+                          ring.poses[0].clone()))):
+        out.update({f"{label}_{k}": v for k, v in sync_sites(fn).items()})
+    prof = profile_rebuild(cfg, ring, parent)
+    for path in ("kernel", "plain", "parent"):
+        if path in prof:
+            say("rebuild-profile", path=path, **{k: json.dumps(v, separators=(",", ":"))
+                                                 if isinstance(v, list) else v
+                                                 for k, v in prof[path].items()},
+                card=json.dumps(card))
+    out.update(launches_per_rebuild=prof["kernel"]["launches"],
+               plain_launches_per_rebuild=prof["plain"]["launches"],
+               rebuild_wall_ms=prof["kernel"]["wall_ms"],
+               plain_rebuild_wall_ms=prof["plain"]["wall_ms"],
+               parent_rebuild_wall_ms=prof.get("parent", {}).get("wall_ms"))
+    return dict(timing=timing, numbers=out)
 
 
 def rotation_angle(A: np.ndarray, B: np.ndarray) -> float:
@@ -919,14 +1109,8 @@ def line_search_path(cfg: PipelineConfig, fine: NdtVoxelMap, last, T_last) -> di
                     max_iterations=ndt_cfg.max_iterations, line_search=True)
     counts = read_counts()
     bodies = int(res.iterations) + 2
-    if not (bool(res.converged) and counts == {"ndt_direct7_accumulate": 0,
-                                                "ndt_accumulate": bodies,
-                                                "ndt_direct7_accumulate_batched": 0,
-                                                "ndt_align_loop": 0,
-                                                "ndt_align_loop_batched": 0,
-                                                "gicp_align_loop": 0,
-                                                "ndt_iteration_worked": 0,
-                                                "gicp_iteration_worked": 0}):
+    if not (bool(res.converged)
+            and counts == {**dict.fromkeys(counts, 0), "ndt_accumulate": bodies}):
         raise AssertionError(f"line search: converged {bool(res.converged)}, {bodies} "
                              f"bodies, launches {counts}")
     err = float(np.abs(res.transform.cpu().numpy() - T_last).max())
@@ -1550,7 +1734,9 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ndt_loop_worked=summary["kernel_launches"]["ndt_iteration_worked"],
                 gicp_loop_launches=summary["kernel_launches"]["gicp_align_loop"],
                 gicp_loop_worked=summary["kernel_launches"]["gicp_iteration_worked"],
-                ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"])
+                ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"],
+                finalize_launches=summary["kernel_launches"]["ndt_finalize"],
+                eigh3x3_launches=summary["kernel_launches"]["eigh3x3"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -1647,7 +1833,8 @@ def global_init_loop(device) -> dict:
     guess and from the FPFH+RANSAC guess, at the fixture's capacities and the default
     `GlobalRegConfig`. The loop kernel's launches on the global-init path (the pre-align
     from the global guess) are counted from 0 just before it and read just after, with
-    how many of them did work."""
+    how many of them did work; the verify thread launches those and the FPFH normals'
+    `eigh3x3`, nothing else."""
     records, true_last = loop_fixture_keyframes()
     cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
                          loop_submap_points=65536, voxel_capacity=32768)
@@ -1680,7 +1867,8 @@ def global_init_loop(device) -> dict:
     if torch.device(device).type == "cuda" and not (
             counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
             and counts["ndt_direct7_accumulate"] == 0
-            and glob.verify_launches == counts["ndt_align_loop"]
+            and glob.verify_launches == counts["ndt_align_loop"] + counts["eigh3x3"]
+            and counts["eigh3x3"] > 0
             and 0 < counts["ndt_iteration_worked"] <= counts["ndt_align_loop"]):
         raise AssertionError(f"global-init loop: launches {counts}, verify thread "
                              f"{glob.verify_launches}")
@@ -1690,7 +1878,7 @@ def global_init_loop(device) -> dict:
                 ransac_families=json.dumps(rec["ransac_families"], separators=(",", ":")),
                 kernel_launches=counts["ndt_align_loop"],
                 kernel_launches_worked=counts["ndt_iteration_worked"],
-                attempt_ms=round(1000 * seconds, 3))
+                eigh3x3_launches=counts["eigh3x3"], attempt_ms=round(1000 * seconds, 3))
 
 
 def resume_check(cfg: PipelineConfig, scans, cut: int, device, path: str) -> dict:
@@ -2317,7 +2505,8 @@ def parent_ms(t: dict):
 
 def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
                   source: str = "lidar_graph_slam_tpu_torch/csrc/ndt_accumulate.cu",
-                  **launches) -> dict:
+                  replaces: str = "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
+                  replaces_commit: str | None = "4350000^", **launches) -> dict:
     """One kernel's entry of the JSON record: times at `shape`, its main path's (the
     others by shape), launches per path."""
     t = timing[shape][name]
@@ -2325,8 +2514,8 @@ def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
         "name": name,
         "route": "cuda",
         "source": source,
-        "replaces": "lidar_graph_slam_tpu/ops/pallas_kernels.py:160",
-        "replaces_commit": "4350000^",
+        "replaces": replaces,
+        "replaces_commit": replaces_commit,
         **launches,
         "max_abs_err": max_err,
         "ms": t["device_us"] / 1000,
@@ -2334,7 +2523,7 @@ def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_us"] / 1000,
         "bound_by": t["bound_by"],
-        "library_ms": None,
+        "library_ms": t.get("library_ms"),
         "shape": shape,
         "shapes": {s: {k: v[name][k] for k in ("device_us", "host_us", "single_ms",
                                                "plain_ms", "bound_us", "bytes",
@@ -2418,8 +2607,10 @@ def main(argv=None) -> int:
     say("ndt-loop-fused-steps", **fused_steps_sync_free(cfg, scans, gt, (coarse, fine), dev),
         card=json.dumps(card))
 
-    # -- 4. deterministic map build on the full ring -------------------------------------
-    say("map-build", **map_build_twice(aux, ring, dev))
+    # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
+    rb = rebuild_phase(cfg, aux, ring, last, card, args.parent)
+    timing.update(rb["timing"])
+    say("map-build", **rb["numbers"], card=json.dumps(card))
 
     # -- 5. card vs the CPU plain path, first 3 frames -----------------------------------
     say("card-vs-cpu", **first_frames_agree(cfg, scans, ("cuda", "cpu")))
@@ -2430,13 +2621,18 @@ def main(argv=None) -> int:
     launches = read_counts()
     # The NDT loop kernel is the main path's; the accumulate kernels are not on it.
     per_frame = ndt_cfg.coarse_iterations + ndt_cfg.max_iterations + 2
+    # Every target rebuild (the bootstrap frame's and each keyframe's) launches
+    # `ndt_finalize` once a map; nothing on the NDT path launches `eigh3x3`.
     if not (launches["ndt_align_loop"] == per_frame * stats["frames"]
             and 0 < launches["ndt_iteration_worked"] < launches["ndt_align_loop"]
-            and launches["ndt_direct7_accumulate"] == launches["ndt_accumulate"] == 0):
+            and launches["ndt_direct7_accumulate"] == launches["ndt_accumulate"] == 0
+            and launches["ndt_finalize"] == 2 * (stats["keyframes"] + 1)
+            and launches["eigh3x3"] == 0):
         raise AssertionError(f"the main path's kernel launches: {launches}")
     say("pipeline", **stats, kernel_launches=launches["ndt_align_loop"],
         kernel_launches_worked=launches["ndt_iteration_worked"],
-        kernel_launches_per_frame=per_frame, card=json.dumps(card))
+        kernel_launches_per_frame=per_frame, finalize_launches=launches["ndt_finalize"],
+        card=json.dumps(card))
 
     # -- 7. one ndt_align under the profiler (and the parent's, given --parent) ----------
     prof = profile_ndt_align(cfg, ring, last, T_last, args.parent)
@@ -2472,7 +2668,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"loop course: loops on {on}, off {off}, launches "
                              f"{launches_course}, verify {launches_verify}")
     odom_diff = float(np.abs(res_on.odometry_poses - res_off.odometry_poses).max())
+    if not launches_course["ndt_finalize"] > 0:
+        raise AssertionError(f"loop course: no ndt_finalize launch: {launches_course}")
     say("loop-course", p50_frame_ms=on["p50_frame_ms"], p50_frame_ms_loops_off=off["p50_frame_ms"],
+        backend_p50_ms_on=on["stage_p50_ms"]["backend"],
+        backend_p50_ms_off=off["stage_p50_ms"]["backend"],
+        finalize_launches=launches_course["ndt_finalize"],
         loops_accepted=on["loops_accepted"], loops_attempted=on["loops_attempted"],
         ate_keyframes_on_m=on["ate_keyframes_m"], ate_keyframes_off_m=off["ate_keyframes_m"],
         keyframes=on["keyframes"], iterations_mean_on=on["iterations_mean"],
@@ -2532,13 +2733,17 @@ def main(argv=None) -> int:
     # The GICP loop kernel is this path's: max_iterations launches a frame (the
     # bootstrap frame's too, whose empty target matches nothing), none of the NDT kernels.
     g_its = cfg_gicp.scan_matcher.gicp.max_iterations
+    # `eigh3x3` once a frame for the source's covariances and once a target rebuild.
     if not (launches_gicp["gicp_align_loop"] == g_its * gicp_front["frames"]
             and 0 < launches_gicp["gicp_iteration_worked"] < launches_gicp["gicp_align_loop"]
             and launches_gicp["ndt_accumulate"] == launches_gicp["ndt_direct7_accumulate"]
-            == launches_gicp["ndt_align_loop"] == 0):
+            == launches_gicp["ndt_align_loop"] == launches_gicp["ndt_finalize"] == 0
+            and launches_gicp["eigh3x3"] >= gicp_front["frames"]):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
     say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["gicp_align_loop"],
         kernel_launches_worked=launches_gicp["gicp_iteration_worked"],
+        eigh3x3_launches=launches_gicp["eigh3x3"],
+        prefilter_p50_ms=gicp_front["stage_p50_ms"]["prefilter"],
         card=json.dumps(card))
 
     # -- 16. the classic driver: NDT (phase 6's assertions), then ICP --------------------
@@ -2592,7 +2797,8 @@ def main(argv=None) -> int:
                     sets=("fused_frontend=false", "scan_matcher.registration_method=GICP"))
     if not (cli_g["device"] == "cuda" and cli_g["fused_frontend"] is False
             and cli_g["registration_method"] == "GICP" and cli_g["gicp_loop_launches"] > 0
-            and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0):
+            and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0
+            and cli_g["eigh3x3_launches"] > 0):
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
 
@@ -2624,13 +2830,16 @@ def main(argv=None) -> int:
         attempts_with_hypotheses=sum(r["ransac_families"]["n_3pt_valid"] + r["ransac_families"]["n_yaw_valid"]
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
-        ndt_launches_verify=pipe_gi.back.verify_launches,
+        ndt_launches_verify=pipe_gi.back.verify_launches - launches_gi["eigh3x3"],
+        eigh3x3_launches_verify=launches_gi["eigh3x3"],
         ndt_launches_total=launches_gi["ndt_align_loop"],
         ndt_launches_worked=launches_gi["ndt_iteration_worked"],
         odometry_vs_loops_off_max_diff=float(
             np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
         card=json.dumps(card))
-    pipe_gi_verify_launches = pipe_gi.back.verify_launches
+    # The verify thread's launches: the loop kernel's, and the FPFH normals' `eigh3x3`
+    # (launched nowhere else on this NDT course).
+    pipe_gi_verify_launches = pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
     del pipe_gi, res_gi
 
     # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
@@ -2704,6 +2913,7 @@ def main(argv=None) -> int:
     say("multihost-mesh-steps", **multihost_mesh_steps(dev), card=json.dumps(card))
 
     loop_src = "lidar_graph_slam_tpu_torch/csrc/ndt_loop.cu"
+    finalize_src = "lidar_graph_slam_tpu_torch/csrc/voxel_finalize.cu"
     loop_fine = timing["loop_fine"]["ndt_iteration"]
     loop_batch = timing["loop_batch"]["ndt_iteration_batched"]
     print(json.dumps({"kernels": [
@@ -2778,6 +2988,32 @@ def main(argv=None) -> int:
             launches_line_search=ls["launches"],
             launches_ndt_main_path=launches["ndt_accumulate"],
             launches_icp_loop_course=launches_course["ndt_accumulate"]),
+        kernel_record(
+            "ndt_finalize", timing, max_err["ndt_finalize"], shape="finalize_fine",
+            source=finalize_src, replaces="lidar_graph_slam_tpu/ops/voxel.py:300",
+            replaces_commit=None, launches=launches["ndt_finalize"],
+            path="every NDT target build: the front ends' rebuilds, each loop attempt's "
+                 "maps, batch_odometry (phase 6 counts the fused front end)",
+            ports="the jitted programs build_ndt_map / build_ndt_pyramid "
+                  "(lidar_graph_slam_tpu/ops/voxel.py:341,360): _finalize_ndt :300 with "
+                  "regularize_covariance :246 and _eigh3x3 :182; no Pallas kernel",
+            launches_loop_course=launches_course["ndt_finalize"],
+            launches_cli_loops=cli_on["finalize_launches"],
+            bit_equal_plain=True, **{k: rb["numbers"][k] for k in (
+                "wrapper_launches_per_rebuild", "launches_per_rebuild",
+                "plain_launches_per_rebuild", "rebuild_wall_ms", "plain_rebuild_wall_ms",
+                "parent_rebuild_wall_ms")}),
+        kernel_record(
+            "eigh3x3", timing, max_err["eigh3x3"], shape="eigh_target", source=finalize_src,
+            replaces="lidar_graph_slam_tpu/ops/voxel.py:182", replaces_commit=None,
+            launches=launches_gicp["eigh3x3"],
+            path="GICP's covariances (each frame's source, each target build) and the FPFH "
+                 "normals (phase 15 counts the fused GICP front end)",
+            ports="_eigh3x3 (lidar_graph_slam_tpu/ops/voxel.py:182) inside the jitted "
+                  "estimate_covariances (registration/gicp.py:61) and the FPFH normals "
+                  "(registration/features.py:58); no Pallas kernel",
+            launches_global_init_loop=gl["eigh3x3_launches"],
+            launches_cli_classic_gicp=cli_g["eigh3x3_launches"], bit_equal_plain=True),
         kernel_record(
             "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
             shape="batch", launches=0,

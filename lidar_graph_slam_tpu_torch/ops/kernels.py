@@ -1,12 +1,15 @@
-"""NDT/GICP normal-equation accumulation and the whole NDT and GICP Gauss-Newton loops.
+"""NDT/GICP normal-equation accumulation, the whole NDT and GICP Gauss-Newton loops, and
+the NDT target's voxel finalize with its 3x3 eigensolve.
 
 The wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
-`ndt_accumulate_xla`, same file) and the `lax.while_loop`s around it
-(`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`) as
-hand-written CUDA kernels for Hopper in three sources (`csrc/ndt_accumulate.cu`,
-`csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`; the headers `csrc/ndt_common.cuh` and
-`csrc/loop_common.cuh` hold what they share; each source's header says what bounds its
+`ndt_accumulate_xla`, same file), the `lax.while_loop`s around it
+(`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`) and
+the voxel finalize of the jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:
+182-339`) as hand-written CUDA kernels for Hopper in four sources
+(`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`,
+`csrc/voxel_finalize.cu`; the headers `csrc/ndt_common.cuh`, `csrc/loop_common.cuh` and
+`csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
 kernels), compiled with nvcc into one library at first use in `build/` and bound with
 ctypes:
 
@@ -37,6 +40,12 @@ ctypes:
   same number of blocks per sequence).
 * `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
   rows, for NDT's line search (which needs the gathered means).
+* `ndt_finalize(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
+  min_points)`: an NDT map's rows from its raw voxel moments in one launch (the sample
+  covariance, the Jacobi eigensolve, the floored inverse, the packed row) — what
+  `ops/voxel.py:_finalize_ndt` builds a map from, once a map of every target build.
+* `eigh3x3(A)`: the batched symmetric 3x3 eigensolve in one launch, for GICP's
+  covariances and the FPFH normals.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
@@ -45,8 +54,10 @@ Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 reference's body (`ndt_direct7_accumulate_plain`, then `ndt_step_plain`) with the carry
 frozen after `done`; `gicp_align_loop_plain` is GICP's body (`gicp_sums_plain`: `nearest`,
 `gicp_match`, `gicp_residual_rows` and `ndt_accumulate_plain`; then `gicp_step_plain`), the
-same way; the batched plain versions loop the single ones over the batch. A wrapper takes
-its plain version for CPU tensors only; on a CUDA tensor it launches its kernel or raises.
+same way; the batched plain versions loop the single ones over the batch;
+`ops/voxel.py:_finalize_ndt_plain` and `_eigh3x3` are the last two's, bit for bit on the
+card. A wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
+its kernel or raises.
 
 Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
 on the main thread and loop verification in its worker thread both launch), and
@@ -82,6 +93,8 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     COORD_MAX,
     TABLE_DIMS,
     NdtVoxelMap,
+    _eigh3x3,
+    _finalize_ndt_plain,
     lookup_direct7,
 )
 from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_damped
@@ -90,8 +103,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 # Built together into one library; the headers are part of the digest too.
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
-                                              "gicp_loop.cu")]
-_HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh")]
+                                              "gicp_loop.cu", "voxel_finalize.cu")]
+_HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
+                                              "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
                "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -477,9 +491,13 @@ def _load_library_locked():
         vp, vp, vp, i64, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, i32, i32, i32,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, vp, vp,
         i32, vp]
+    lib.lgs_ndt_finalize.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp, vp, vp, f32, i32, i32,
+                                     i32, i32, i64, vp, vp, vp, vp, vp, vp]
+    lib.lgs_eigh3x3.argtypes = [vp, i64, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
-               lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop):
+               lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_ndt_finalize,
+               lib.lgs_eigh3x3):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches):
         fn.argtypes, fn.restype = [i32], i64
@@ -947,6 +965,90 @@ def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
     return carry
 
 
+def _check_rows(wrapper: str, device, C: int, **tensors) -> None:
+    """Each keyword is (tensor, row shape): float32 [C, *row shape] on `device`, each row
+    contiguous (the rows may be a column slice of a wider tensor, at any row stride);
+    raises ValueError otherwise."""
+    for name, (t, row) in tensors.items():
+        if (t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (C, *row)
+                or (C and not t[0].is_contiguous())):
+            raise ValueError(f"{wrapper}: {name} must be float32 rows {row} x {C} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} strides "
+                             f"{t.stride()} on {t.device}")
+
+
+def ndt_finalize(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
+                 min_points: int):
+    """Raw per-voxel moments -> an NDT map's rows, in one launch.
+
+    seg_keys:   [C] i32 packed voxel keys
+    counts:     [C] f32, sums [C, 3] f32, outer_sums [C, 3, 3] f32: the voxel-local
+                moments (`ops/voxel.py:_sorted_voxel_stats`); each may be a column slice
+                of one [C, 13] tensor (each row contiguous, any row stride)
+    occupied:   [C] bool
+    origin:     [3] f32; resolution: 0-d f32 (read on the device)
+    min_points: a voxel with fewer points is invalid
+    Returns (keys [C] i32, means [C, 3], inv_covs [C, 3, 3], valid [C] bool, packed
+    [C, 16]) as `ops/voxel.py:_finalize_ndt_plain`, bit for bit on the card.
+
+    CPU tensors take `_finalize_ndt_plain`; CUDA tensors launch the `ndt_finalize` kernel
+    (counted in `ndt_finalize.launches`; none for C = 0) or raise. Nothing is read back.
+    """
+    dev = counts.device
+    if dev.type == "cpu":
+        return _finalize_ndt_plain(seg_keys, counts, sums, outer_sums, occupied, origin,
+                                   resolution, min_points)
+    if dev.type != "cuda":
+        raise ValueError(f"ndt_finalize: unsupported device {dev}")
+    C = seg_keys.shape[0] if seg_keys.dim() == 1 else -1
+    _check_rows("ndt_finalize", dev, C, counts=(counts, ()), sums=(sums, (3,)),
+                outer_sums=(outer_sums, (3, 3)))
+    _check("ndt_finalize", dev, seg_keys=(seg_keys, (C,), torch.int32),
+           occupied=(occupied, (C,), torch.bool), origin=(origin, (3,), torch.float32),
+           resolution=(resolution, (), torch.float32))
+    keys = torch.empty((C,), dtype=torch.int32, device=dev)
+    means = torch.empty((C, 3), dtype=torch.float32, device=dev)
+    inv_covs = torch.empty((C, 3, 3), dtype=torch.float32, device=dev)
+    valid = torch.empty((C,), dtype=torch.bool, device=dev)
+    packed = torch.empty((C, 16), dtype=torch.float32, device=dev)
+    if C:
+        lib = load_library()
+        _raise_on(lib.lgs_ndt_finalize(
+            seg_keys.data_ptr(), counts.data_ptr(), counts.stride(0), sums.data_ptr(),
+            sums.stride(0), outer_sums.data_ptr(), outer_sums.stride(0), occupied.data_ptr(),
+            origin.data_ptr(), resolution.data_ptr(), float(min_points), _BITS_Y + _BITS_Z,
+            _BITS_Z, COORD_MAX[1], COORD_MAX[2], C, keys.data_ptr(), means.data_ptr(),
+            inv_covs.data_ptr(), valid.data_ptr(), packed.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "ndt_finalize")
+        _count(ndt_finalize)
+    return keys, means, inv_covs, valid, packed
+
+
+def eigh3x3(A):
+    """Batched symmetric 3x3 eigendecomposition, one launch: A [M, 3, 3] f32 (its upper
+    triangle is read) -> (w [M, 3] ascending, V [M, 3, 3] with eigenvector columns), as
+    `ops/voxel.py:_eigh3x3`, bit for bit on the card.
+
+    CPU tensors take `_eigh3x3`; CUDA tensors launch the `eigh3x3` kernel (counted in
+    `eigh3x3.launches`; none for M = 0) or raise. Nothing is read back.
+    """
+    if A.device.type == "cpu":
+        return _eigh3x3(A)
+    if A.device.type != "cuda":
+        raise ValueError(f"eigh3x3: unsupported device {A.device}")
+    M = A.shape[0] if A.dim() == 3 else -1
+    _check("eigh3x3", A.device, A=(A, (M, 3, 3), torch.float32))
+    w = torch.empty((M, 3), dtype=torch.float32, device=A.device)
+    V = torch.empty((M, 3, 3), dtype=torch.float32, device=A.device)
+    if M:
+        lib = load_library()
+        _raise_on(lib.lgs_eigh3x3(A.data_ptr(), M, w.data_ptr(), V.data_ptr(),
+                                  torch.cuda.current_stream(A.device).cuda_stream),
+                  "eigh3x3")
+        _count(eigh3x3)
+    return w, V
+
+
 def loop_kernel_attributes(device, gicp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
@@ -993,3 +1095,5 @@ ndt_direct7_accumulate_batched.launches = 0
 ndt_align_loop.launches = 0
 ndt_align_loop_batched.launches = 0
 gicp_align_loop.launches = 0
+ndt_finalize.launches = 0
+eigh3x3.launches = 0

@@ -11,6 +11,11 @@ feed FP-level noise into the odometry loop (`lidar_graph_slam_tpu/odometry/fused
 docstring). The dense table is an integer scatter-min, whose result does not depend on
 order.
 
+A map's rows come from its raw moments through `ops/kernels.py:ndt_finalize`: one
+hand-written kernel launch on the card, `_finalize_ndt_plain` (the reference's arithmetic,
+op for op) on the CPU; `kernels.eigh3x3` serves `_eigh3x3` to GICP and the FPFH normals the
+same way. `ops/kernels.py` imports this module, so `_finalize_ndt` imports it inside.
+
 Key packing uses (11, 11, 8) bits for (x, y, z) relative to the batch min corner; out-of-
 range points clamp to border cells. Key arithmetic stays in float32 tensors, as the
 reference's does (`1.0 / leaf` in f32, not in Python f64), so border points get the
@@ -275,16 +280,23 @@ def _eigh3x3(A: torch.Tensor):
     return W, V
 
 
+def _scaled_gram(V: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """V diag(d) V^T for [..., 3, 3] V and [..., 3] d: entry (i, j) is the sum over k =
+    0, 1, 2, in that order, of (V[i, k] d[k]) V[j, k], each product and sum rounded once —
+    the `ndt_finalize` kernel's order on every device (a batched `@` sums in the order of
+    its library: cuBLAS's on the card, another on the CPU)."""
+    M = V * d[..., None, :]
+    terms = [M[..., :, k, None] * V[..., None, :, k] for k in range(3)]
+    return (terms[0] + terms[1]) + terms[2]
+
+
 def regularize_covariance(cov: torch.Tensor, min_eig_ratio: float = 1e-2):
     """Inflate small eigenvalues to `min_eig_ratio * lambda_max` (ndt_omp-style) and return
     (cov_reg, inv_cov_reg)."""
     w, V = _eigh3x3(cov)
     w_max = torch.clamp(w[..., 2:3], min=1e-9)
     w_reg = torch.maximum(w, min_eig_ratio * w_max)
-    Vt = V.transpose(-1, -2)
-    cov_reg = (V * w_reg[..., None, :]) @ Vt
-    inv = (V * (1.0 / w_reg)[..., None, :]) @ Vt
-    return cov_reg, inv
+    return _scaled_gram(V, w_reg), _scaled_gram(V, 1.0 / w_reg)
 
 
 def _sorted_voxel_stats(points, mask, resolution, capacity: int):
@@ -311,12 +323,13 @@ def _sorted_voxel_stats(points, mask, resolution, capacity: int):
     return seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied
 
 
-def _finalize_ndt(
-    seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
-    resolution, capacity: int, min_points: int, dtype,
-) -> NdtVoxelMap:
-    """Raw per-voxel moments -> NdtVoxelMap (means, regularized inverse covariances,
-    dense lookup table). Voxels with fewer than `min_points` points are invalid."""
+def _finalize_ndt_plain(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
+                        min_points: int):
+    """Plain version of the `ndt_finalize` kernel (`ops/kernels.py`): raw per-voxel
+    moments -> the map's rows (keys, means, inv_covs, valid, packed). Means and the
+    regularized inverse covariances; voxels with fewer than `min_points` points are
+    invalid."""
+    dtype, capacity = sums.dtype, sums.shape[0]
     cnt = torch.clamp(counts, min=1.0)[:, None]
     means_local = sums / cnt
     seg_corner = origin + torch.stack(unpack_key(seg_keys), dim=-1).to(dtype) * resolution
@@ -338,15 +351,26 @@ def _finalize_ndt(
     packed[:, 0:3] = means_out
     packed[:, 3:12] = inv_covs.reshape(capacity, 9)
     packed[:, 12] = valid.to(dtype)
+    return keys_out, means_out, inv_covs, valid, packed
+
+
+def _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
+                  resolution, min_points: int) -> NdtVoxelMap:
+    """Raw per-voxel moments -> NdtVoxelMap: the rows from `kernels.ndt_finalize` (its
+    kernel on the card, `_finalize_ndt_plain` on the CPU), then the dense lookup table."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    keys, means, inv_covs, valid, packed = kernels.ndt_finalize(
+        seg_keys, counts, sums, outer_sums, occupied, origin, resolution, min_points)
     return NdtVoxelMap(
-        keys=keys_out,
-        means=means_out,
+        keys=keys,
+        means=means,
         inv_covs=inv_covs,
         valid=valid,
         origin=origin,
         leaf=as_f32(resolution, means),
         num_voxels=num_voxels,
-        table=build_dense_table(keys_out, valid, TABLE_DIMS),
+        table=build_dense_table(keys, valid, TABLE_DIMS),
         packed=packed,
     )
 
@@ -356,25 +380,16 @@ def build_ndt_map(points, mask, resolution, capacity: int, min_points: int = 6) 
     cloud (see `_sorted_voxel_stats` / `_finalize_ndt` for the numerics)."""
     resolution = as_f32(resolution, points)
     stats = _sorted_voxel_stats(points, mask, resolution, capacity)
-    return _finalize_ndt(*stats, resolution, capacity, min_points, points.dtype)
+    return _finalize_ndt(*stats, resolution, min_points)
 
 
-def build_ndt_pyramid(points, mask, resolution, factor: int, capacity: int,
-                      coarse_capacity: int, min_points: int = 6):
-    """Build (coarse, fine) NDT maps with ONE pass over the points.
-
-    The fine map is exactly `build_ndt_map(points, mask, resolution, capacity)`. The
-    coarse map (leaf = factor * resolution, same origin) merges the fine map's raw voxel
-    moments: shifting each fine voxel's local moments by its corner offset inside the
-    parent coarse voxel is exact, so the merge sorts `capacity` stat rows instead of
-    re-sorting every point."""
-    dtype = points.dtype
-    resolution = as_f32(resolution, points)
-    seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied = _sorted_voxel_stats(
-        points, mask, resolution, capacity)
-    fine = _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
-                         resolution, capacity, min_points, dtype)
-
+def _coarse_voxel_stats(seg_keys, counts, sums, outer_sums, occupied, resolution,
+                        factor: int, coarse_capacity: int):
+    """The coarse map's raw moments (seg_keys, counts, sums, outer_sums, num_voxels,
+    occupied) from the fine map's: shifting each fine voxel's local moments by its corner
+    offset inside the parent coarse voxel is exact, so the merge sorts the fine stat rows
+    instead of re-sorting every point."""
+    dtype, capacity = sums.dtype, sums.shape[0]
     # Shift fine-local moments to coarse-local: x_c = x_f + o with o = (child corner -
     # parent corner); sum(x_c) = sum + n*o; sum(x_c x_c^T) = outer + o sum^T + sum o^T
     # + n o o^T. Exact in every entry.
@@ -401,10 +416,27 @@ def build_ndt_pyramid(points, mask, resolution, factor: int, capacity: int,
     couters = stats[:, 4:13].reshape(coarse_capacity, 3, 3)
     cseg_keys = _segment_keys(ck_s, starts, lengths, coarse_capacity)
     cnum = torch.sum(first_c.to(torch.int32))
-    coccupied = torch.arange(coarse_capacity, device=points.device) < torch.clamp(
+    coccupied = torch.arange(coarse_capacity, device=sums.device) < torch.clamp(
         cnum, max=coarse_capacity)
+    return cseg_keys, ccounts, csums, couters, cnum, coccupied
+
+
+def build_ndt_pyramid(points, mask, resolution, factor: int, capacity: int,
+                      coarse_capacity: int, min_points: int = 6):
+    """Build (coarse, fine) NDT maps with ONE pass over the points.
+
+    The fine map is exactly `build_ndt_map(points, mask, resolution, capacity)`. The
+    coarse map (leaf = factor * resolution, same origin) merges the fine map's raw voxel
+    moments (`_coarse_voxel_stats`)."""
+    resolution = as_f32(resolution, points)
+    seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied = _sorted_voxel_stats(
+        points, mask, resolution, capacity)
+    fine = _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
+                         resolution, min_points)
+    cseg_keys, ccounts, csums, couters, cnum, coccupied = _coarse_voxel_stats(
+        seg_keys, counts, sums, outer_sums, occupied, resolution, factor, coarse_capacity)
     coarse = _finalize_ndt(cseg_keys, ccounts, csums, couters, origin, cnum, coccupied,
-                           resolution * factor, coarse_capacity, min_points, dtype)
+                           resolution * factor, min_points)
     return coarse, fine
 
 

@@ -170,7 +170,8 @@ def main(argv=None) -> int:
         "frame_p50_ms": 1000 * float(np.median(frame_s[1:])) if len(frame_s) > 1 else 0.0,
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
             "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop")},
+            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "ndt_finalize",
+            "eigh3x3")},
         "processes": process_count(),
     }
     # How many of each loop kernel's launches did work (a device count; 0 without a loop).

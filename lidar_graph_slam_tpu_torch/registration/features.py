@@ -32,11 +32,11 @@ import math
 
 import torch
 
+from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid, build_hash_grid, knn
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     INVALID_KEY,
     TABLE_DIMS,
-    _eigh3x3,
     _flat_table_index,
     as_f32,
     build_dense_table,
@@ -66,7 +66,7 @@ def estimate_normals(grid: HashGrid, queries: torch.Tensor, qmask: torch.Tensor,
     ok = qmask & (torch.sum(nvalid, dim=1) >= 3)
     eye = torch.eye(3, dtype=cov.dtype, device=cov.device)
     cov = torch.where(ok[:, None, None], cov, eye)
-    _, vecs = _eigh3x3(cov)
+    _, vecs = kernels.eigh3x3(cov)
     n = vecs[..., 0]                                          # smallest-eigenvalue column
     if viewpoint is None:
         vp = torch.zeros(3, dtype=queries.dtype, device=queries.device)

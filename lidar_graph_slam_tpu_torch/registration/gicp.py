@@ -34,8 +34,20 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import (
     build_hash_grid,
     window_covariances,
 )
-from lidar_graph_slam_tpu_torch.ops.voxel import INVALID_KEY, _eigh3x3, as_f32, const
+from lidar_graph_slam_tpu_torch.ops.voxel import INVALID_KEY, as_f32, const
 from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
+
+
+def safe_window_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size,
+                            window: int = 16):
+    """The matrices `estimate_covariances` hands the eigensolve: the sorted-grid window
+    covariances of a cloud, the identity where the window holds fewer than 5 points.
+    Returns (grid, covariances [N, 3, 3], ok [N]) in the grid's sorted order."""
+    grid = build_hash_grid(points, mask, cell_size)
+    _mu, cov_s, cnt_s = window_covariances(grid, window=window)
+    ok_s = cnt_s >= 5.0
+    eye = torch.eye(3, dtype=points.dtype, device=points.device).expand(cov_s.shape)
+    return grid, torch.where(ok_s[:, None, None], cov_s, eye), ok_s
 
 
 def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size, k: int = 20,
@@ -47,15 +59,11 @@ def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size, k:
     interface parity with fast_gicp's correspondence_randomness. Returns (covs [N, 3, 3]
     in the ORIGINAL row order, valid [N])."""
     del k
-    grid = build_hash_grid(points, mask, cell_size)
-    _mu, cov_s, cnt_s = window_covariances(grid, window=window)
-    ok_s = cnt_s >= 5.0
-    eye = torch.eye(3, dtype=points.dtype, device=points.device).expand(cov_s.shape)
-    cov_safe = torch.where(ok_s[:, None, None], cov_s, eye)
-    _w, V = _eigh3x3(cov_safe)
+    grid, cov_safe, ok_s = safe_window_covariances(points, mask, cell_size, window)
+    _w, V = kernels.eigh3x3(cov_safe)
     target = const((1e-3, 1.0, 1.0), points.dtype, points.device)  # ascending eigenvalues
     cov_reg = (V * target[None, None, :]) @ V.transpose(-1, -2)
-    cov_reg = torch.where(ok_s[:, None, None], cov_reg, eye)
+    cov_reg = torch.where(ok_s[:, None, None], cov_reg, cov_safe)  # the identity where not ok
     # Back to the original row order: `order` is a permutation, so this is exact.
     n = points.shape[0]
     covs = torch.empty((n, 3, 3), dtype=points.dtype, device=points.device)

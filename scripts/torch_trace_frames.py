@@ -13,10 +13,11 @@ the trace file, its size, the number of events named after the span, the number 
 kernel events, and `stages`: the fused driver's back-end stage split into its parts —
 the ring insert and target rebuild, the keyframe hand-over (`add_keyframe`), the loop
 tick (`on_frame`) and the rest — each part's host ms a frame (marked in the trace with
-`record_function`), the device ms of the work it enqueued, the CUDA runtime calls it made
-(the host's synchronous waits on the device among them: synchronizes, copies, frees and
-allocations) and its CPU operators, beside the stage timers' p50s over the traced
-frames. Run it in a process of its own: a profiler session can
+`record_function`), the device ms of the work it enqueued and its kernels' own ms (the
+kernels that take most named), the CUDA runtime calls it made (the host's synchronous
+waits on the device among them: synchronizes, copies, frees and allocations, each wait
+also by the chain of CPU operators that made it) and its CPU operators, beside the stage timers'
+p50s over the traced frames. Run it in a process of its own: a profiler session can
 leave the process slower afterwards.
 """
 
@@ -63,35 +64,50 @@ def annotate(pipe: SlamPipeline) -> None:
 
 def stage_breakdown(events: list, frames: int) -> dict:
     """Per part, a frame: the host ms of its `record_function` spans, the device ms of the
-    work they enqueued (the profiler's GPU-side spans of the same name), the ms of the
-    CUDA runtime calls made inside them by name (the synchronous waits among them
-    summed apart), and the number of CPU operators they ran."""
-    def inside(e, spans):
-        return any(s["tid"] == e["tid"] and s["ts"] <= e["ts"] <= s["ts"] + s["dur"]
-                   for s in spans)
+    work they enqueued (the profiler's GPU-side spans of the same name, first kernel to
+    last, gaps included) and the kernels' own ms inside those spans with the kernels that
+    take most, the ms of the CUDA runtime calls made inside the host spans by name (the
+    synchronous waits among them summed apart, and by the chain of CPU operators that
+    made them), and the number of CPU operators they ran."""
+    def inside(e, spans, same_thread=True):
+        return any((not same_thread or s["tid"] == e["tid"])
+                   and s["ts"] <= e["ts"] <= s["ts"] + s["dur"] for s in spans)
 
     def per_frame(evs):
         return sum(e["dur"] for e in evs) / 1000 / frames
 
+    def top(evs, key, n=6):
+        acc = {}
+        for e in evs:
+            acc[key(e)] = acc.get(key(e), 0.0) + e["dur"] / 1000 / frames
+        return {k: round(v, 3) for k, v in sorted(acc.items(), key=lambda kv: -kv[1])[:n]}
+
+    def op_chain(e):
+        """The CPU operators enclosing runtime call `e`, outermost first."""
+        holders = [o for o in ops if o["tid"] == e["tid"]
+                   and o["ts"] <= e["ts"] <= o["ts"] + o["dur"]]
+        return " > ".join(o["name"] for o in sorted(holders, key=lambda o: -o["dur"])) or "(none)"
+
     timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
     runtime = [e for e in timed if e.get("cat") == "cuda_runtime"]
     ops = [e for e in timed if e.get("cat") == "cpu_op"]
+    kernels = [e for e in timed if e.get("cat") == "kernel"]
     out = {}
     for part in STAGE_PARTS:
         name = f"stage.{part}"
         host = [e for e in timed if e["name"] == name and e.get("cat") == "user_annotation"]
         dev = [e for e in timed if e["name"] == name and e.get("cat") == "gpu_user_annotation"]
         calls = [e for e in runtime if inside(e, host)]
-        by_call = {}
-        for e in calls:
-            by_call[e["name"]] = by_call.get(e["name"], 0.0) + e["dur"] / 1000 / frames
+        waits = [e for e in calls if any(w in e["name"] for w in WAITS)]
+        ran = [e for e in kernels if inside(e, dev, same_thread=False)]
         out[part] = {
             "calls": len(host), "host_ms_per_frame": per_frame(host),
             "device_ms_per_frame": per_frame(dev),
-            "wait_ms_per_frame": per_frame([e for e in calls
-                                            if any(w in e["name"] for w in WAITS)]),
-            "runtime_ms_per_frame": {k: round(v, 3) for k, v in sorted(
-                by_call.items(), key=lambda kv: -kv[1])[:6]},
+            "kernel_ms_per_frame": per_frame(ran),
+            "top_kernels_ms_per_frame": top(ran, lambda e: e["name"][:60], 4),
+            "wait_ms_per_frame": per_frame(waits),
+            "waits_by_op_ms_per_frame": top(waits, op_chain, 4),
+            "runtime_ms_per_frame": top(calls, lambda e: e["name"]),
             "cpu_ops_per_frame": sum(inside(e, host) for e in ops) / frames}
     return out
 

@@ -1,0 +1,123 @@
+"""Trajectories of one tree of the port on a CUDA card, and their comparison with another's.
+
+    python3 scripts/torch_trajectories.py --root DIR --out FILE.npz
+    python3 scripts/torch_trajectories.py --compare A.npz B.npz [C.npz ...]
+
+With `--root`, the package and `chip_smoke.py` under DIR (this checkout, or a parent
+commit unpacked with `git archive`) run four of `chip_smoke.py`'s courses on the card at
+the default config: the 40-frame dense course through the fused front end with loops
+off, NDT (phase 6) and GICP (phase 15), and the 360-frame drift course with loops on,
+with the ICP verifier (phase 10) and with the GICP verifier (phase 17). It writes each
+run's odometry and keyframe poses, its loop attempts (candidate, accepted, fitness), its
+keyframe ATE, the loop kernels' launches that did work, and the p50 ms of the frame and
+of the pipeline's stages (`prefilter`: the host's enqueue of the fused step; `backend`:
+the ring insert and target rebuild of a keyframe and the loop back end). With
+`--compare`, per course and file: whether its poses and loop attempts equal the first
+file's bit for bit, the poses' largest difference from them, and its numbers; one JSON
+line. Trees in turns (this, parent, parent, this) give the stage times a pairing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
+NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked")
+STAGES = ("frame", "prefilter", "register", "backend")
+
+
+def run_tree(root: str, out: str) -> int:
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from lidar_graph_slam_tpu_torch.core.config import PipelineConfig, apply_cli_overrides
+    from lidar_graph_slam_tpu_torch.ops import kernels
+    from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
+    from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    dense, drift = chip_smoke.dense_course(40), chip_smoke.drift_course()
+    runs = {"dense": (chip_smoke.loops_off_config(), dense),
+            "dense_gicp": (chip_smoke.loops_off_config(
+                ["scan_matcher.registration_method=GICP"]), dense),
+            "drift_icp": (PipelineConfig(), drift),
+            "drift_gicp": (apply_cli_overrides(PipelineConfig(),
+                                               ["graph_slam.registration_method=GICP"]),
+                           drift)}
+    arrays = {}
+    for name in COURSES:
+        cfg, (scans, gt) = runs[name]
+        kernels.load_library()
+        kernels.worked_launches(reset=True)
+        pipe = SlamPipeline(cfg, device="cuda")
+        walls = []
+        for scan in scans:
+            t0 = time.perf_counter()
+            pipe.process_scan(scan)
+            walls.append(time.perf_counter() - t0)
+        res = pipe.result()
+        torch.cuda.synchronize()
+        kf = np.asarray(res.keyframe_frame_indices)
+        loops = np.array([(r["candidate"], r["accepted"], r["fitness"]) for r in res.loop_log
+                          if r["candidate"] >= 0], np.float64).reshape(-1, 3)
+        arrays.update({
+            f"{name}_odometry": res.odometry_poses, f"{name}_keyframes": res.keyframe_poses,
+            f"{name}_loops": loops,
+            f"{name}_numbers": np.array([
+                ate_rmse(res.keyframe_poses, gt[kf], align=False), res.num_loop_closures,
+                kernels.worked_launches(kernel="ndt_iteration"),
+                kernels.worked_launches(kernel="gicp_iteration")], np.float64),
+            f"{name}_ms": np.array([1000 * np.median(walls[1:])] + [
+                res.metrics[k]["p50_ms"] for k in STAGES[1:]], np.float64)})
+    np.savez(out, **arrays)
+    return 0
+
+
+def compare(paths) -> int:
+    import numpy as np
+
+    files = [np.load(p) for p in paths]
+    labels = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+    out = {}
+    for name in COURSES:
+        first = files[0]
+        rows = {}
+        for label, f in zip(labels, files):
+            same = all(f[f"{name}_{k}"].shape == first[f"{name}_{k}"].shape
+                       and np.array_equal(f[f"{name}_{k}"], first[f"{name}_{k}"])
+                       for k in ("odometry", "keyframes", "loops"))
+            a, b = f[f"{name}_odometry"], first[f"{name}_odometry"]
+            rows[label] = {
+                "bit_equal_first": bool(same),
+                "odometry_max_diff_first": (float(np.abs(a - b).max())
+                                            if a.shape == b.shape else None),
+                **{k: float(v) for k, v in zip(NUMBERS, f[f"{name}_numbers"])},
+                **{f"{k}_p50_ms": round(float(v), 3) for k, v in zip(STAGES, f[f"{name}_ms"])}}
+        out[name] = rows
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root")
+    ap.add_argument("--out")
+    ap.add_argument("--compare", nargs="+", metavar="NPZ")
+    args = ap.parse_args()
+    if args.compare:
+        return compare(args.compare)
+    if not (args.root and args.out):
+        ap.error("--root and --out, or --compare NPZ ...")
+    return run_tree(args.root, args.out)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

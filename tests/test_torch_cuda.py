@@ -13,7 +13,11 @@ and CPU, and a checkpoint carried from the card to the CPU and back. The NDT loo
 against the plain loop: the dense course's stages, ragged sizes around its tile (N = 1,
 300, 4,097, 50,000), steps with no inliers or a singular system, batches of 1, 3, 4 and 5
 row by row against single loops, a block count that does not depend on the batch, two
-streams at once.
+streams at once. The voxel finalize `ndt_finalize` and `eigh3x3` (`csrc/voxel_finalize.cu`)
+against `_finalize_ndt_plain` and `_eigh3x3`, bit for bit: random moments at the fine and
+coarse capacities, a real ring's fine and merged coarse moments, min_points 1, the empty
+ring, GICP's window covariances; the pyramid, the GICP covariances and the FPFH normals
+through them; refusals, no synchronous read, two streams at once.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -1313,3 +1317,273 @@ def test_checkpoint_card_to_cpu_and_back(cuda, tmp_path, fused):
     np.testing.assert_array_equal(res_b.keyframe_frame_indices, res.keyframe_frame_indices)
     np.testing.assert_allclose(res_b.odometry_poses, res.odometry_poses,
                                atol=5e-2 if fused else 1e-4)
+
+
+# -- the voxel finalize and the 3x3 eigensolve (csrc/voxel_finalize.cu) -------------------
+
+FINALIZE_OUT = ("keys", "means", "inv_covs", "valid", "packed")
+
+
+def _random_moments(C, device, seed=0):
+    """Raw voxel moments of C rows as `_sorted_voxel_stats` lays them out (columns of one
+    [C, 13] tensor): ~90% occupied, counts 0-40 (many at and around min_points = 6, and
+    1-point voxels), local points inside a 2 m voxel, keys of coordinates up to
+    COORD_MAX, a far-away origin."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import COORD_MAX
+
+    rng = np.random.default_rng(seed)
+    n = np.concatenate([rng.integers(0, 41, C - C // 4), rng.integers(4, 8, C // 8),
+                        np.ones(C - (C - C // 4) - C // 8, np.int64)])
+    rng.shuffle(n)
+    occupied = np.arange(C) < int(0.9 * C)
+    n = np.where(occupied, n, 0)
+    stats = np.zeros((C, 13), np.float32)
+    for r in np.nonzero(n)[0][:4096]:  # exact moments of real points for some rows
+        loc = rng.uniform(0.0, 2.0, (n[r], 3)).astype(np.float32)
+        loc[:, 2] *= rng.uniform(0.001, 1.0)  # planar ones too: the floor is active
+        stats[r] = np.concatenate([[n[r]], loc.sum(0), (loc[:, :, None] * loc[:, None, :])
+                                   .sum(0).ravel()])
+    rest = np.nonzero(n)[0][4096:]
+    mean = rng.uniform(0.0, 2.0, (rest.size, 3)).astype(np.float32)
+    A = rng.normal(size=(rest.size, 3, 3)).astype(np.float32) * 0.4
+    cov = A @ np.swapaxes(A, 1, 2)
+    nr = n[rest].astype(np.float32)
+    stats[rest, 0] = nr
+    stats[rest, 1:4] = nr[:, None] * mean
+    stats[rest, 4:] = ((nr[:, None, None] - 1) * cov + nr[:, None, None]
+                       * mean[:, :, None] * mean[:, None, :]).reshape(-1, 9)
+    coords = np.stack([rng.integers(0, c + 1, C) for c in COORD_MAX], 1).astype(np.int32)
+    keys = np.where(occupied, pack_key(torch.as_tensor(coords)).numpy(), -2**31)
+    s = torch.as_tensor(stats, device=device)
+    return (torch.as_tensor(keys.astype(np.int32), device=device), s[:, 0], s[:, 1:4],
+            s[:, 4:13].reshape(C, 3, 3), torch.as_tensor(occupied, device=device),
+            torch.tensor([-812.5, 433.25, -21.0], device=device),
+            torch.tensor(2.0, device=device))
+
+
+def _ring_moments(device, coarse):
+    """A real ring's moments at the default capacities: five 16,384-point scans of the
+    loop course at their poses, the fine map's (C = 65,536) or the coarse map's merged
+    ones (C = 32,768)."""
+    from lidar_graph_slam_tpu_torch.ops import voxel as tv
+
+    seq = SyntheticSequence(n_frames=5, seed=3, max_points=16384, radius=30.0, laps=0.05)
+    pts = np.concatenate([scan @ gt[:3, :3].T + gt[:3, 3] for scan, gt in seq])
+    p = torch.as_tensor(pts.astype(np.float32), device=device)
+    m = torch.ones(p.shape[0], dtype=torch.bool, device=device)
+    res = tv.as_f32(2.0, p)
+    keys, counts, sums, outer, origin, _, occupied = tv._sorted_voxel_stats(p, m, res, 65536)
+    if coarse:
+        keys, counts, sums, outer, _, occupied = tv._coarse_voxel_stats(
+            keys, counts, sums, outer, occupied, res, 2, 32768)
+        res = res * 2
+    return keys, counts, sums, outer, occupied, origin, res
+
+
+def _assert_finalize_bit_equal(args, min_points=6):
+    from lidar_graph_slam_tpu_torch.ops.voxel import _finalize_ndt_plain
+
+    before = tk.ndt_finalize.launches
+    out = tk.ndt_finalize(*args, min_points)
+    again = tk.ndt_finalize(*args, min_points)
+    ref = _finalize_ndt_plain(*args, min_points)
+    torch.cuda.synchronize()
+    assert tk.ndt_finalize.launches == before + 2
+    for name, a, b, c in zip(FINALIZE_OUT, out, again, ref):
+        assert torch.equal(a, b), name
+        assert a.dtype == c.dtype and a.shape == c.shape, name
+        assert torch.equal(a, c), (name, float((a.double() - c.double()).abs().max()))
+        assert torch.equal(a.view(-1).view(torch.uint8), c.view(-1).view(torch.uint8)), name
+    return out
+
+
+@pytest.mark.parametrize("case", ["random-fine", "random-coarse", "ring-fine", "ring-coarse",
+                                  "min_points-1", "tiny"])
+def test_ndt_finalize_bit_equal_to_plain(cuda, case):
+    """The kernel's rows equal `_finalize_ndt_plain`'s on the card bit for bit (signed
+    zeros included), on random moments at the fine and coarse capacities and on a real
+    ring's moments, fine and merged coarse (strided columns of the [C, 13] stats)."""
+    if case.startswith("random"):
+        args = _random_moments(65536 if case.endswith("fine") else 32768, cuda)
+    elif case.startswith("ring"):
+        args = _ring_moments(cuda, coarse=case.endswith("coarse"))
+    else:
+        args = _random_moments(65536 if case == "min_points-1" else 3, cuda, seed=1)
+    out = _assert_finalize_bit_equal(args, 1 if case == "min_points-1" else 6)
+    valid = out[3]
+    if case != "tiny":
+        assert 0 < int(valid.sum()) < valid.numel()
+
+
+def test_ndt_finalize_empty_ring(cuda):
+    """The bootstrap target: no occupied voxel; every row invalid, padded, the identity,
+    one launch a map on the pyramid's path; C = 0 launches nothing."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_pyramid
+
+    args = _random_moments(4096, cuda)
+    args = (args[0], args[1] * 0, args[2] * 0, args[3] * 0, torch.zeros_like(args[4]),
+            *args[5:])
+    out = _assert_finalize_bit_equal(args)
+    assert not out[3].any() and torch.equal(out[2], torch.eye(3, device=cuda).expand(4096, 3, 3))
+    before = tk.ndt_finalize.launches
+    pts = torch.full((512, 3), 1.0e6, device=cuda)
+    coarse, fine = build_ndt_pyramid(pts, torch.zeros(512, dtype=torch.bool, device=cuda), 2.0,
+                                     2, capacity=1024, coarse_capacity=512)
+    assert tk.ndt_finalize.launches == before + 2
+    assert int((fine.table >= 0).sum()) == int((coarse.table >= 0).sum()) == 0
+    empty = [a[:0] for a in args[:5]] + list(args[5:])
+    rows = tk.ndt_finalize(*empty, 6)
+    assert tk.ndt_finalize.launches == before + 2 and all(r.shape[0] == 0 for r in rows)
+
+
+def test_pyramid_on_the_card_equals_its_plain_rows(cuda, monkeypatch):
+    """`build_ndt_pyramid` on the card launches `ndt_finalize` once a map, and its maps
+    equal the same build with the plain rows, every field bit for bit."""
+    from lidar_graph_slam_tpu_torch.ops import voxel as tv
+
+    seq = SyntheticSequence(n_frames=3, seed=5, max_points=16384, radius=30.0, laps=0.05)
+    pts = np.concatenate([scan @ gt[:3, :3].T + gt[:3, 3] for scan, gt in seq])
+    p = torch.as_tensor(pts.astype(np.float32), device=cuda)
+    m = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
+    before = tk.ndt_finalize.launches
+    maps = tv.build_ndt_pyramid(p, m, 2.0, 2, capacity=65536, coarse_capacity=32768)
+    assert tk.ndt_finalize.launches == before + 2
+    monkeypatch.setattr(tk, "ndt_finalize", tv._finalize_ndt_plain)
+    plain = tv.build_ndt_pyramid(p, m, 2.0, 2, capacity=65536, coarse_capacity=32768)
+    for a, b in zip(maps, plain):
+        for name in tv.NdtVoxelMap.__dataclass_fields__:
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+def _window_covariances(device, n=32768, seed=3):
+    """GICP's matrices for the eigensolve (`gicp.safe_window_covariances`) of a
+    synthetic scan."""
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, extent=40.0, density=20.0)
+    scan = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=n)
+    p = torch.as_tensor(scan, device=device)
+    return gicp.safe_window_covariances(
+        p, torch.ones(p.shape[0], dtype=torch.bool, device=device), 2.0)[1]
+
+
+def test_eigh3x3_bit_equal_to_plain(cuda):
+    """`eigh3x3` equals `_eigh3x3` on the card bit for bit: GICP's window covariances,
+    random symmetric matrices (non-symmetric input: only the upper triangle is read),
+    diagonal and tau = 0 ones, and a single matrix."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import _eigh3x3
+
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(4096, 3, 3)).astype(np.float32)
+    tau0 = np.array([[2.0, 1.0, 0.0], [1.0, 2.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    cases = [_window_covariances(cuda), torch.as_tensor(A @ A.transpose(0, 2, 1), device=cuda),
+             torch.as_tensor(A, device=cuda),
+             torch.as_tensor(np.stack([np.diag(rng.normal(size=3)) for _ in range(64)]
+                                      + [tau0] * 4).astype(np.float32), device=cuda),
+             torch.as_tensor(tau0[None], device=cuda)]
+    for M in cases:
+        before = tk.eigh3x3.launches
+        w, V = tk.eigh3x3(M)
+        w2, V2 = tk.eigh3x3(M)
+        rw, rV = _eigh3x3(M)
+        torch.cuda.synchronize()
+        assert tk.eigh3x3.launches == before + 2
+        assert torch.equal(w, w2) and torch.equal(V, V2)
+        assert torch.equal(w, rw) and torch.equal(V, rV)
+        assert torch.equal(V.view(torch.int32), rV.view(torch.int32))
+
+
+def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
+    """`estimate_covariances` and the FPFH normals launch `eigh3x3` once a call on the
+    card, and equal the same calls with the plain eigensolve bit for bit."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import _eigh3x3
+    from lidar_graph_slam_tpu_torch.registration import features
+
+    rng = np.random.default_rng(1)
+    world = make_world(rng, extent=30.0, density=5.0)
+    scan = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=8192)
+    p = torch.as_tensor(scan, device=cuda)
+    m = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
+
+    def run():
+        covs, ok = gicp.estimate_covariances(p, m, 1.0)
+        normals, nok = features.estimate_normals(build_hash_grid(p, m, 1.0), p[:2048], m[:2048])
+        return covs, ok, normals, nok
+
+    before = tk.eigh3x3.launches
+    out = run()
+    assert tk.eigh3x3.launches == before + 2
+    monkeypatch.setattr(tk, "eigh3x3", _eigh3x3)
+    for a, b in zip(out, run()):
+        assert torch.equal(a, b)
+    assert bool(out[1].any()) and bool(out[3].any())
+
+
+def test_voxel_finalize_kernels_reject_bad_inputs(cuda):
+    args = list(_random_moments(256, cuda))
+    A = torch.eye(3, device=cuda).expand(8, 3, 3).contiguous()
+    bad_finalize = []
+    for i, wrong in ((0, args[0].long()), (1, args[1].double()), (2, args[2][:, :2]),
+                     (3, args[3].transpose(1, 2)), (4, args[4].to(torch.uint8)),
+                     (5, args[5].cpu()), (6, args[6][None]), (2, args[2][:128])):
+        a = list(args)
+        a[i] = wrong
+        bad_finalize.append(a)
+    before = (tk.ndt_finalize.launches, tk.eigh3x3.launches)
+    for a in bad_finalize:
+        with pytest.raises(ValueError):
+            tk.ndt_finalize(*a, 6)
+    for bad in (A.double(), A[:, :2], A.transpose(1, 2), A.reshape(8, 9), A[0]):
+        with pytest.raises(ValueError):
+            tk.eigh3x3(bad)
+    assert (tk.ndt_finalize.launches, tk.eigh3x3.launches) == before
+
+
+def test_voxel_finalize_kernels_make_no_synchronous_read(cuda):
+    """Both wrappers, and a whole `build_ndt_map`'s finalize, under
+    `torch.cuda.set_sync_debug_mode("error")` after a warm-up call."""
+    args = _random_moments(32768, cuda)
+    A = _window_covariances(cuda, n=4096)
+    tk.ndt_finalize(*args, 6)
+    tk.eigh3x3(A)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        rows = tk.ndt_finalize(*args, 6)
+        w, _ = tk.eigh3x3(A)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(rows[3].sum()) > 0 and bool(torch.isfinite(w).all())
+
+
+def test_voxel_finalize_kernels_on_two_streams_at_once(cuda):
+    """Two threads, each on its own stream, launch both entry points 20 times each at the
+    same time: every result equals the serial one bit for bit."""
+    args = _random_moments(65536, cuda, seed=2)
+    A = _window_covariances(cuda, n=16384)
+    calls = {"finalize": lambda: tk.ndt_finalize(*args, 6), "eigh": lambda: tk.eigh3x3(A)}
+    serial = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2, timeout=60)
+    results, errors = {}, []
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [(k, calls[k]()) for _ in range(20) for k in calls]
+            stream.synchronize()
+            results[t] = outs
+        except BaseException as e:  # noqa: BLE001 — raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in results.values():
+        for k, out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
