@@ -9,7 +9,8 @@ of `bench.py:bench_e2e`. Phases:
 
   1. refuse without CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `lidar_graph_slam_tpu_torch/csrc/` (nvcc), print seconds
-     and ptxas's registers per kernel;
+     and ptxas's registers per kernel; the SM clock and `eigh3x3`'s SASS instructions a
+     matrix (`cuobjdump -sass`);
   3. both kernels against their plain PyTorch versions on the card at the main path's
      shapes: `ndt_accumulate` on random rows (K = 229,376 fine, 57,344 coarse) and on a
      real map's correspondences, `ndt_direct7_accumulate` on the same map and source (N =
@@ -28,16 +29,23 @@ of `bench.py:bench_e2e`. Phases:
      turns (this, parent, parent, this); then 5 dense frames of the fused step under
      `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
   4. the target rebuild (`build_ndt_pyramid`) on a full 20 x 32,768 ring: twice,
-     bit-identical maps; `ndt_finalize` against `_finalize_ndt_plain` on the ring's fine
-     (C = 65,536) and merged coarse (32,768) moments and `eigh3x3` against `_eigh3x3` on
-     GICP's window covariances (the ring's 655,360 points, the last ring scan's 32,768),
-     bit for bit with reruns; each kernel's device and host us, the plain version's ms,
-     `torch.linalg.eigh`'s ms on the same matrices (where cuSOLVER takes the batch), the
-     bound; the wrappers' launches a rebuild; the rebuild and `insert_and_rebuild` under
-     `torch.cuda.set_sync_debug_mode("error")` (where one synchronizes, the lines that do);
-     `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on the kernel
-     path, the plain path and, with `--parent DIR`, the parent tree's, in turns, and each
-     one's device kernel launches and device ms under torch.profiler;
+     bit-identical maps; `ndt_finalize` on the ring's two levels (the fine one from the
+     sorted points, C = 65,536; the coarse one from the merged fine moments, 32,768)
+     against `ndt_finalize_plain`, moments and rows bit for bit with reruns, and its rows
+     against the parent tree's moments-plus-finalize on the same rows (`--parent`);
+     `eigh3x3` against `_eigh3x3` on GICP's window covariances (the ring's 655,360
+     points, the last ring scan's 32,768), bit for bit with reruns; each kernel's device
+     and host us (with `--parent`, `ndt_finalize`'s in turns with the parent's
+     moments-plus-finalize), the plain version's ms, `torch.linalg.eigh`'s ms on the same
+     matrices (where cuSOLVER takes the batch), the bound (bytes, and issue slots: the
+     summed points or rows, and `eigh3x3`'s SASS instructions a matrix, `sass_fast_path`,
+     for each valid row); the wrappers' launches a rebuild; the rebuild and
+     `insert_and_rebuild` under `torch.cuda.set_sync_debug_mode("error")`, both
+     sync-free; `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on
+     the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
+     turns, and each one's device kernel launches (fewer than 216 on the kernel path),
+     `segment_reduce` launches (none on the kernel path) and device ms under
+     torch.profiler;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
@@ -54,6 +62,8 @@ of `bench.py:bench_e2e`. Phases:
      course, then again with loops off — all frames converge, loops are accepted, and
      keyframe ATE with loops on is below ATE with loops off; the loop kernel's launches
      on the verify path are counted; the back-end stage p50 with loops on and off;
+ 10b. `ndt_finalize` on the course's last ring (~28% of its rows valid) as in phase 4,
+     and its rebuild profile;
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
  12. one verification, card against CPU, from the same keyframes: the same decision, and
@@ -174,6 +184,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -542,39 +553,125 @@ def map_build_twice(aux, ring, dev) -> dict:
 
 # -- the target build's voxel finalize and the 3x3 eigensolve (phase 4) -----------------
 
-FINALIZE_OUT = ("keys", "means", "inv_covs", "valid", "packed")
+FINALIZE_OUT = ("seg_keys", "stats", "keys", "means", "inv_covs", "valid", "packed")
 # `build_ndt_pyramid`'s default, which the NDT matcher builds with.
 MIN_POINTS = 6
-# A voxel row of `ndt_finalize` reads 57 B (key, count, 3 sums, 9 outer sums, the occupied
-# flag) and writes 117 B (key, mean, inverse, valid, the 64 B packed row); 851 float
-# operations (`csrc/voxel_finalize.cu`: 738 the Jacobi's, 113 the moments, the floor and
-# the inverse). A matrix of `eigh3x3` reads 36 B, writes 48 B, 738 operations.
-FINALIZE_BYTES_PER_ROW, FINALIZE_FLOPS_PER_ROW = 57 + 117, 851
-EIGH_BYTES_PER_MATRIX, EIGH_FLOPS_PER_MATRIX = 36 + 48, 738
+# Bytes `ndt_finalize` must move: each point of a fine run read once (its xyz, 12 B), each
+# fine moment row of a coarse run (its order index, key and 13 moments, 64 B), each run
+# (start and length, 16 B), the key of each occupied run (4 B: one key names a run); each
+# row written (seg_key, 13 moments, key, mean, inverse, valid and the 64 B packed row:
+# 173 B). Float instructions a summed point (3 subtractions, 6 products, 10 adds) and a
+# merged fine row (the shift: 3 + 6 + 63, and 13 adds); a valid row's eigensolve takes
+# `eigh3x3`'s SASS instructions a matrix (`sass_fast_path`). `eigh3x3` reads 36 B and
+# writes 48 B a matrix.
+FINALIZE_POINT_BYTES, FINALIZE_MERGED_ROW_BYTES = 12, 64
+FINALIZE_RUN_BYTES, FINALIZE_RUN_KEY_BYTES, FINALIZE_ROW_BYTES = 16, 4, 173
+FINALIZE_POINT_OPS, FINALIZE_MERGED_ROW_OPS = 19, 85
+EIGH_BYTES_PER_MATRIX = 36 + 48
+# The issue rate of the H100 SXM: one warp instruction a cycle on each of 4 schedulers of
+# each of its 132 SMs, at the SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).
+SMS, SCHEDULERS_PER_SM, WARP = 132, 4, 32
 
 
-def rows_bound_us(rows: int, bytes_per_row: int, flops_per_row: int) -> dict:
-    """The least time for a one-thread-a-row kernel over `rows` rows: every row's bytes
-    once over the HBM rate, or its operations over the f32 rate, the larger."""
-    nbytes, flops = rows * bytes_per_row, rows * flops_per_row
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+def issue_us(instructions: float, clock_mhz: float) -> float:
+    """The least time for `instructions` thread instructions: WARP a warp instruction,
+    one warp instruction a cycle per scheduler."""
+    return instructions / WARP / (SMS * SCHEDULERS_PER_SM * clock_mhz)
+
+
+def bound_us(nbytes: float, instructions: float, clock_mhz: float) -> dict:
+    """The larger of the bytes over the HBM rate and the instructions over the issue
+    rate, with both counts and which one bounds."""
+    t_bytes, t_ops = 1e6 * nbytes / HBM_BYTES_PER_S, issue_us(instructions, clock_mhz)
+    return dict(bound_us=max(t_bytes, t_ops), bytes=nbytes, instructions=instructions,
+                bytes_us=t_bytes, issue_us=t_ops,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+SASS_TARGET = re.compile(r"(0x[0-9a-f]+)\s*$")
+
+
+def sass_fast_path(sass: str, kernel: str, trips: int) -> dict:
+    """The SASS instructions a thread of `kernel` (part of a function name in `sass`, the
+    output of `cuobjdump -sass`) issues on its fast path: the function's own code (up to
+    its first called subroutine, the IEEE divide's and square root's slow paths), its one
+    loop counted `trips` times, and the code a conditional forward branch skips to call a
+    slow path left out. Raises if the function has no loop or more than one."""
+    funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise AssertionError(f"sass: {len(funcs)} functions named like {kernel}")
+    ops = [(int(m.group(1), 16), m.group(2).strip())
+           for m in SASS_INSTRUCTION.finditer(funcs[0])]
+    index = {addr: i for i, (addr, _) in enumerate(ops)}
+
+    def target(op):
+        t = SASS_TARGET.search(op)
+        return None if t is None else index.get(int(t.group(1), 16))
+
+    ends = [target(op) for _, op in ops if "CALL" in op]
+    ends += [i for i, (_, op) in enumerate(ops) if "BRA" in op and target(op) == i]
+    end = min([e for e in ends if e is not None] + [len(ops)])
+    counted, loops = [True] * end, []
+    for i in range(end):
+        op = ops[i][1]
+        j = target(op) if "BRA" in op else None
+        if j is None:
+            continue
+        if j <= i:
+            loops.append((j, i))
+        elif op.startswith("@") and any("CALL" in o for _, o in ops[i + 1:j]):
+            counted[i + 1:j] = [False] * (j - i - 1)
+    if len(loops) != 1:
+        raise AssertionError(f"sass: {kernel} has {len(loops)} loops: {loops}")
+    j, i = loops[0]
+    return dict(instructions=sum(counted) + (trips - 1) * sum(counted[j:i + 1]),
+                static=end, loop_body=sum(counted[j:i + 1]), skipped=end - sum(counted))
+
+
+def library_sass() -> str:
+    """`cuobjdump -sass` of the kernel library this process built or loaded."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", kernels.build_info["path"]], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def flat(out):
+    """`ndt_finalize`'s ((seg_keys, stats), rows) as one tuple, in FINALIZE_OUT's order."""
+    return (*out[0], *out[1])
+
+
 def ring_finalize_inputs(cfg: PipelineConfig, ring) -> dict:
-    """The two `ndt_finalize` calls of a rebuild of `ring`: the fine map's moments and
-    the coarse map's merged ones, as `build_ndt_pyramid` makes them."""
+    """The two `ndt_finalize` calls of a rebuild of `ring`, (args, kwargs) each: the fine
+    level's sorted points and the coarse level's runs over the fine moments, as
+    `build_ndt_pyramid` makes them."""
     ndt_cfg, cap = cfg.scan_matcher.ndt, cfg.capacity.voxel_capacity
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     res = voxel.as_f32(ndt_cfg.resolution, points)
-    keys, counts, sums, outer, origin, _, occ = voxel._sorted_voxel_stats(points, mask, res, cap)
+    origin, runs, pts_sorted, num_voxels = voxel._sorted_points(points, mask, res, cap)
     factor = round(ndt_cfg.coarse_resolution / ndt_cfg.resolution)
-    ckeys, ccounts, csums, couter, _, cocc = voxel._coarse_voxel_stats(
-        keys, counts, sums, outer, occ, res, factor, cap // 2)
-    return {"finalize_fine": (keys, counts, sums, outer, occ, origin, res, MIN_POINTS),
-            "finalize_coarse": (ckeys, ccounts, csums, couter, cocc, origin, res * factor,
-                                MIN_POINTS)}
+    fine_moments, _ = kernels.ndt_finalize(runs, origin, res, MIN_POINTS, points=pts_sorted)
+    occupied = torch.arange(cap, device=points.device) < torch.clamp(num_voxels, max=cap)
+    cruns, order, _ = voxel._coarse_runs(fine_moments, occupied, factor, cap // 2)
+    return {"fine": ((runs, origin, res), {"points": pts_sorted}),
+            "coarse": ((cruns, origin, res * factor),
+                       {"merge": (order, fine_moments, res, factor)})}
+
+
+def parent_finalize(parent_kern, args, kw):
+    """The parent tree's work on the same sorted rows: the moments by the plain column
+    block and `torch.segment_reduce` (`ops/voxel.py:_point_moments` / `_merged_moments`,
+    the parent's operations), then its `ndt_finalize` (another tree's `ops.kernels`) over
+    them. Returns its rows."""
+    runs, origin, res = args
+    if "points" in kw:
+        seg_keys, stats = voxel._point_moments(runs, kw["points"], origin, res)
+    else:
+        seg_keys, stats = voxel._merged_moments(runs, *kw["merge"])
+    C = stats.shape[0]
+    return parent_kern.ndt_finalize(seg_keys, stats[:, 0], stats[:, 1:4],
+                                    stats[:, 4:13].reshape(C, 3, 3), runs[2][:C] > 0, origin,
+                                    res, MIN_POINTS)
 
 
 def same_bits(label: str, names, out, again, ref) -> None:
@@ -585,6 +682,61 @@ def same_bits(label: str, names, out, again, ref) -> None:
                 and torch.equal(a.reshape(-1).view(torch.uint8),
                                 c.reshape(-1).view(torch.uint8))):
             raise AssertionError(f"{label}: {name} not bit-equal to the plain version")
+
+
+def finalize_phase(tag: str, cfg: PipelineConfig, ring, card: str, parent_kern,
+                   eigh_instructions: int, clock_mhz: float) -> dict:
+    """`ndt_finalize` on a ring's two levels (fine from the sorted points, coarse from the
+    merged fine moments): bit for bit against `ndt_finalize_plain` with a rerun, and its
+    rows against the parent tree's moments-plus-finalize on the same rows; device and
+    host us (`split_times`), with `parent_kern` in turns (this, parent, parent, this); the
+    plain version's ms; the bound from this ring's runs (bytes, and issue slots: points
+    or merged rows summed and `eigh_instructions` a valid row). Returns {label: timing}."""
+    timing = {}
+    for level, (args, kw) in ring_finalize_inputs(cfg, ring).items():
+        label = f"finalize_{level}" + ("" if tag == "dense" else f"_{tag}")
+
+        def this(args=args, kw=kw):
+            return kernels.ndt_finalize(*args, MIN_POINTS, **kw)
+
+        ref = flat(voxel.ndt_finalize_plain(*args, MIN_POINTS, **kw))
+        same_bits(label, FINALIZE_OUT, flat(this()), flat(this()), ref)
+        turns = {"this": this}
+        if parent_kern is not None:
+            same_bits(f"{label} parent rows", FINALIZE_OUT[2:], flat(this())[2:],
+                      flat(this())[2:], parent_finalize(parent_kern, args, kw))
+            turns["parent"] = lambda args=args, kw=kw: parent_finalize(parent_kern, args, kw)
+        times = {name: [] for name in turns}
+        for name in ("this", "parent", "parent", "this"):
+            if name in turns:
+                times[name].append(split_times(turns[name], calls=20, warmup=3))
+        t = {k: float(np.mean([r[k] for r in times["this"]])) for k in times["this"][0]}
+        if "parent" in times:
+            t.update({f"parent_{k}": float(np.mean([r[k] for r in times["parent"]]))
+                      for k in times["parent"][0]},
+                     device_us_turns=json.dumps([round(r["device_us"], 3)
+                                                 for name in ("this", "parent")
+                                                 for r in times[name]]))
+        runs = args[0]
+        C = runs[2].shape[0] - 1
+        summed, valid_rows = int(runs[2][:C].sum()), int(ref[5].sum())
+        occupied = int((runs[2][:C] > 0).sum())
+        merged = "merge" in kw
+        nbytes = (summed * (FINALIZE_MERGED_ROW_BYTES if merged else FINALIZE_POINT_BYTES)
+                  + occupied * FINALIZE_RUN_KEY_BYTES
+                  + C * (FINALIZE_RUN_BYTES + FINALIZE_ROW_BYTES))
+        instructions = (summed * (FINALIZE_MERGED_ROW_OPS if merged else FINALIZE_POINT_OPS)
+                        + valid_rows * eigh_instructions)
+        t.update(plain_ms=median_ms(lambda args=args, kw=kw: voxel.ndt_finalize_plain(
+                     *args, MIN_POINTS, **kw), calls=10, warmup=2),
+                 library_ms=None, rows=C, summed=summed, valid_rows=valid_rows,
+                 occupied_rows=occupied,
+                 max_run=int(runs[2][:C].max()) if C else 0,
+                 **bound_us(nbytes, instructions, clock_mhz))
+        t["share_of_bound"] = t["bound_us"] / t["device_us"]
+        say("kernel-time", kernel="ndt_finalize", shape=label, **t, card=json.dumps(card))
+        timing[label] = {"ndt_finalize": dict(kernel="ndt_finalize", shape=label, **t)}
+    return timing
 
 
 def sync_sites(fn) -> dict:
@@ -616,15 +768,17 @@ def sync_sites(fn) -> dict:
     return dict(sync_free=False, sync_sites=json.dumps(sites))
 
 
-def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None) -> dict:
-    """The target build of the full ring by `scripts/torch_profile_rebuild.py` in a
-    subprocess: wall ms a build on the kernel path, the plain path and (with `parent`)
-    the parent tree's, in turns; device kernel launches, device ms and wrapper launches of
-    one build of each under torch.profiler. The kernel path must launch fewer device
-    kernels than the plain path, and build the same maps bit for bit."""
+def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
+                    tag: str = "dense") -> dict:
+    """The target build of `ring` by `scripts/torch_profile_rebuild.py` in a subprocess:
+    wall ms a build on the kernel path, the plain path and (with `parent`) the parent
+    tree's, in turns; device kernel launches, device ms, `segment_reduce`'s launches and
+    wrapper launches of one build of each under torch.profiler, one `rebuild-profile` line
+    a path. The kernel path must launch fewer device kernels than the plain path, no
+    `segment_reduce`, and build the same maps bit for bit (the parent's too)."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
-    path = os.path.join(REPO, ".chip_scratch", "rebuild_profile_input.npz")
+    path = os.path.join(REPO, ".chip_scratch", f"rebuild_profile_input_{tag}.npz")
     np.savez(path, points=points.cpu().numpy(), mask=mask.cpu().numpy())
     cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_rebuild.py"),
            "--input", path]
@@ -638,61 +792,80 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None) -> dict:
         raise AssertionError(f"rebuild profile failed:\n{proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 2
-            and rec["kernel"]["launches"] < rec["plain"]["launches"]):
+            and rec["kernel"]["launches"] < rec["plain"]["launches"]
+            and rec["kernel"]["segment_reduce_launches"] == 0):
         raise AssertionError(f"rebuild profile: {rec}")
+    for name in ("kernel", "plain", "parent"):
+        if name in rec:
+            say("rebuild-profile", ring=tag, path=name,
+                **{k: json.dumps(v, separators=(",", ":")) if isinstance(v, list) else v
+                   for k, v in rec[name].items()}, card=json.dumps(card))
     return rec
 
 
+EIGH_CHUNK = 4096
+
+
+def eigh_library_ms(A) -> tuple:
+    """The ms of one library call that solves A's eigenproblems: `torch.linalg.eigh`
+    (cuSOLVER's batched solver); where that raises, the same under
+    `torch.backends.cuda.preferred_linalg_library("magma")`; where that raises too,
+    `torch.linalg.eigh` over chunks of EIGH_CHUNK matrices in one timed call. Returns
+    (ms or None, the route that ran or None, {route: its error})."""
+    routes = (("cusolver", "default", lambda: torch.linalg.eigh(A)),
+              ("magma", "magma", lambda: torch.linalg.eigh(A)),
+              ("cusolver_chunks", "default",
+               lambda: [torch.linalg.eigh(c) for c in A.split(EIGH_CHUNK)]))
+    errors = {}
+    for name, backend, fn in routes:
+        before = torch.backends.cuda.preferred_linalg_library()
+        try:
+            torch.backends.cuda.preferred_linalg_library(backend)
+            return median_ms(fn, calls=5, warmup=1), name, errors
+        except RuntimeError as e:
+            errors[name] = str(e).split("\n")[0][:100]
+        finally:
+            torch.backends.cuda.preferred_linalg_library(before)
+    return None, None, errors
+
+
 def rebuild_phase(cfg: PipelineConfig, aux, ring, last, card: str,
-                  parent: str | None) -> dict:
-    """Phase 4: the full ring's target rebuilt twice, bit-identical; `ndt_finalize`
-    against its plain version on the ring's fine and coarse moments and `eigh3x3` against
-    `_eigh3x3` on GICP's matrices at the front end's shapes (the ring's 655,360-point
-    target, the last ring scan's 32,768), bit for bit, with reruns; each kernel's device
-    and host us, the plain version's ms, torch.linalg.eigh's ms on the same matrices, the
-    bound; the wrappers' launches a rebuild; the synchronizing calls of the rebuild and of
-    `insert_and_rebuild`; the profile of `profile_rebuild`. Returns the kernels' timings
-    and the numbers."""
+                  parent: str | None, sass: dict, clock_mhz: float) -> dict:
+    """Phase 4: the full ring's target rebuilt twice, bit-identical; `ndt_finalize` on the
+    ring's two levels (`finalize_phase`); `eigh3x3` against `_eigh3x3` on GICP's matrices
+    at the front end's shapes (the ring's 655,360-point target, the last ring scan's
+    32,768), bit for bit, with reruns, its device and host us, the plain version's ms,
+    torch.linalg.eigh's ms on the same matrices, the bound (bytes, and `sass`'s
+    instructions a matrix); the wrappers' launches a rebuild; the rebuild and
+    `insert_and_rebuild` make no synchronous read; the profile of `profile_rebuild`:
+    fewer than 216 device launches a rebuild (the moments-in build's count), none of them
+    `segment_reduce`.
+    Returns the kernels' timings and the numbers."""
     dev = ring.masks.device
     out = map_build_twice(aux, ring, dev)
     before = kernels.thread_launches()
     aux["rebuild"](ring)
     out["wrapper_launches_per_rebuild"] = kernels.thread_launches() - before
-    finalize_in = ring_finalize_inputs(cfg, ring)
+    parent_kern = None if parent is None else tree_kernels(parent, "parent_kernels_finalize")
+    timing = finalize_phase("dense", cfg, ring, card, parent_kern,
+                            sass["eigh3x3"]["instructions"], clock_mhz)
     cell = cfg.scan_matcher.gicp.max_correspondence_distance
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     eigh_in = {"eigh_target": gicp.safe_window_covariances(points, mask, cell)[1],
                "eigh_source": gicp.safe_window_covariances(last.points, last.mask, cell)[1]}
-    for label, args in finalize_in.items():
-        same_bits(label, FINALIZE_OUT, kernels.ndt_finalize(*args), kernels.ndt_finalize(*args),
-                  voxel._finalize_ndt_plain(*args))
-        out[f"{label}_valid"] = int(voxel._finalize_ndt_plain(*args)[3].sum())
     for label, A in eigh_in.items():
         same_bits(label, ("w", "V"), kernels.eigh3x3(A), kernels.eigh3x3(A), voxel._eigh3x3(A))
-    out["bit_equal"] = True
-    timing = {}
-    for label, args in finalize_in.items():
-        rows = args[1].shape[0]
-        t = split_times(kernels.ndt_finalize, *args)
-        t.update(plain_ms=median_ms(voxel._finalize_ndt_plain, *args, calls=20),
-                 library_ms=None, rows=rows,
-                 **rows_bound_us(rows, FINALIZE_BYTES_PER_ROW, FINALIZE_FLOPS_PER_ROW))
-        timing[label] = {"ndt_finalize": dict(kernel="ndt_finalize", shape=label, **t)}
-    for label, A in eigh_in.items():
         rows = A.shape[0]
         t = split_times(kernels.eigh3x3, A)
-        try:  # one library call on the same matrices, where cuSOLVER takes the batch
-            library_ms = median_ms(torch.linalg.eigh, A, calls=10, warmup=2)
-        except RuntimeError as e:
-            library_ms = None
-            t["library_error"] = json.dumps(str(e).split("\n")[0][:120])
+        library_ms, route, errors = eigh_library_ms(A)
+        t.update(library_route=route, library_errors=json.dumps(errors))
         t.update(plain_ms=median_ms(voxel._eigh3x3, A, calls=20), library_ms=library_ms,
-                 rows=rows, **rows_bound_us(rows, EIGH_BYTES_PER_MATRIX, EIGH_FLOPS_PER_MATRIX))
+                 rows=rows, **bound_us(rows * EIGH_BYTES_PER_MATRIX,
+                                       rows * sass["eigh3x3"]["instructions"], clock_mhz))
+        t["share_of_bound"] = t["bound_us"] / t["device_us"]
+        say("kernel-time", kernel="eigh3x3", shape=label, **t, card=json.dumps(card))
         timing[label] = {"eigh3x3": dict(kernel="eigh3x3", shape=label, **t)}
-    for rec in timing.values():
-        for r in rec.values():
-            r["share_of_bound"] = r["bound_us"] / r["device_us"]
-            say("kernel-time", **r, card=json.dumps(card))
+    out["bit_equal"] = True
     # The rebuild, and the whole keyframe step the back end calls (slot 0 written again
     # with its own contents, which leaves the ring as it was).
     for label, fn in (("rebuild", lambda: aux["rebuild"](ring)),
@@ -700,18 +873,17 @@ def rebuild_phase(cfg: PipelineConfig, aux, ring, last, card: str,
                           ring, 0, ring.clouds[0].clone(), ring.masks[0].clone(),
                           ring.poses[0].clone()))):
         out.update({f"{label}_{k}": v for k, v in sync_sites(fn).items()})
-    prof = profile_rebuild(cfg, ring, parent)
-    for path in ("kernel", "plain", "parent"):
-        if path in prof:
-            say("rebuild-profile", path=path, **{k: json.dumps(v, separators=(",", ":"))
-                                                 if isinstance(v, list) else v
-                                                 for k, v in prof[path].items()},
-                card=json.dumps(card))
+    prof = profile_rebuild(cfg, ring, parent, card)
     out.update(launches_per_rebuild=prof["kernel"]["launches"],
                plain_launches_per_rebuild=prof["plain"]["launches"],
                rebuild_wall_ms=prof["kernel"]["wall_ms"],
+               rebuild_device_ms=prof["kernel"]["device_ms"],
                plain_rebuild_wall_ms=prof["plain"]["wall_ms"],
-               parent_rebuild_wall_ms=prof.get("parent", {}).get("wall_ms"))
+               parent_rebuild_wall_ms=prof.get("parent", {}).get("wall_ms"),
+               parent_rebuild_device_ms=prof.get("parent", {}).get("device_ms"))
+    if not (out["rebuild_sync_free"] and out["insert_and_rebuild_sync_free"]
+            and out["launches_per_rebuild"] < 216):
+        raise AssertionError(f"rebuild: {out}")
     return dict(timing=timing, numbers=out)
 
 
@@ -2566,6 +2738,12 @@ def main(argv=None) -> int:
     for line in kernels.build_info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("  ptxas:", line.strip(), flush=True)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+    sass = {"eigh3x3": sass_fast_path(library_sass(), "eigh3x3_kernel", 6)}
+    say("sass", clock_max_sm_mhz=clock_mhz,
+        **{f"eigh3x3_{k}": v for k, v in sass["eigh3x3"].items()})
 
     # -- 3. both kernels vs their plain versions at the main path's shapes, and times -----
     cfg = loops_off_config()
@@ -2608,7 +2786,7 @@ def main(argv=None) -> int:
         card=json.dumps(card))
 
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
-    rb = rebuild_phase(cfg, aux, ring, last, card, args.parent)
+    rb = rebuild_phase(cfg, aux, ring, last, card, args.parent, sass, clock_mhz)
     timing.update(rb["timing"])
     say("map-build", **rb["numbers"], card=json.dumps(card))
 
@@ -2689,6 +2867,13 @@ def main(argv=None) -> int:
         ndt_launches_total=launches_course["ndt_align_loop"],
         ndt_launches_worked=launches_course["ndt_iteration_worked"],
         odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
+
+    # -- 10b. `ndt_finalize` on the drift course's last ring (~28% of its rows valid) -------
+    drift_parent = None if args.parent is None else tree_kernels(args.parent,
+                                                                 "parent_kernels_drift")
+    timing.update(finalize_phase("drift", cfg_on, pipe_on._ring, card, drift_parent,
+                                 sass["eigh3x3"]["instructions"], clock_mhz))
+    drift_prof = profile_rebuild(cfg_on, pipe_on._ring, args.parent, card, tag="drift")
 
     # -- 11-12. grid NN and one verification, card against CPU ------------------------------
     first = next(r for r in back.loop_log if r["candidate"] >= 0)
@@ -2995,14 +3180,19 @@ def main(argv=None) -> int:
             path="every NDT target build: the front ends' rebuilds, each loop attempt's "
                  "maps, batch_odometry (phase 6 counts the fused front end)",
             ports="the jitted programs build_ndt_map / build_ndt_pyramid "
-                  "(lidar_graph_slam_tpu/ops/voxel.py:341,360): _finalize_ndt :300 with "
-                  "regularize_covariance :246 and _eigh3x3 :182; no Pallas kernel",
+                  "(lidar_graph_slam_tpu/ops/voxel.py:341,360): the moments of "
+                  "_sorted_voxel_stats :257 and the coarse merge :360-436, _finalize_ndt "
+                  ":300 with regularize_covariance :246 and _eigh3x3 :182; no Pallas kernel",
             launches_loop_course=launches_course["ndt_finalize"],
             launches_cli_loops=cli_on["finalize_launches"],
             bit_equal_plain=True, **{k: rb["numbers"][k] for k in (
                 "wrapper_launches_per_rebuild", "launches_per_rebuild",
-                "plain_launches_per_rebuild", "rebuild_wall_ms", "plain_rebuild_wall_ms",
-                "parent_rebuild_wall_ms")}),
+                "plain_launches_per_rebuild", "rebuild_wall_ms", "rebuild_device_ms",
+                "plain_rebuild_wall_ms", "parent_rebuild_wall_ms",
+                "parent_rebuild_device_ms")},
+            drift_rebuild_device_ms=drift_prof["kernel"]["device_ms"],
+            drift_parent_rebuild_device_ms=drift_prof.get("parent", {}).get("device_ms"),
+            drift_launches_per_rebuild=drift_prof["kernel"]["launches"]),
         kernel_record(
             "eigh3x3", timing, max_err["eigh3x3"], shape="eigh_target", source=finalize_src,
             replaces="lidar_graph_slam_tpu/ops/voxel.py:182", replaces_commit=None,

@@ -6,12 +6,14 @@
 // elementwise programs and the plain PyTorch version runs as ~950 eager operations.
 //
 // Bit-equal to the plain version. Every float operation is the plain version's, in its
-// order, rounded once: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __fsqrt_rn, so
-// nvcc contracts nothing into an FMA (its default -fmad=true would) and no reciprocal or
-// square root is approximated. The constants are the float32 values torch converts the
-// plain version's Python scalars to (2.0f, 1.0f). `x / y` of two tensors and `1.0 / x`
-// (`reciprocal`, then `* 1.0`) both round the true quotient once; torch's `sqrt` is the
-// correctly rounded one on the card and on the CPU.
+// order, rounded once: __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn / __frcp_rn /
+// __fsqrt_rn, so nvcc contracts nothing into an FMA (its default -fmad=true would) and no
+// reciprocal or square root is approximated. The constants are the float32 values torch
+// converts the plain version's Python scalars to (2.0f, 1.0f). `x / y` of two tensors and
+// `1.0 / x` (`reciprocal`, then `* 1.0`) both round the true quotient once, so a quotient
+// of 1 or -1 is the correctly rounded reciprocal `__frcp_rn`, a shorter instruction
+// sequence than the general divide's; torch's `sqrt` is the correctly rounded one on the
+// card and on the CPU.
 
 #pragma once
 
@@ -38,11 +40,11 @@ __device__ __forceinline__ void jacobi_rotate(float (&a)[6], float (&v)[3][3]) {
   const float app = a[P], aqq = a[Q], apq = a[sym(P, Q)];
   const bool nz = fabsf(apq) > 0.0f;
   const float tau = __fdiv_rn(__fsub_rn(aqq, app), __fmul_rn(2.0f, nz ? apq : 1.0f));
-  const float sgn = tau >= 0.0f ? 1.0f : -1.0f;
-  float t = __fdiv_rn(sgn, __fadd_rn(fabsf(tau),
-                                     __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(tau, tau)))));
-  t = nz ? t : 0.0f;
-  const float c = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(t, t))));
+  // sgn / d as +-(1 / d): round to nearest is symmetric, so the same value.
+  const float r = __frcp_rn(
+      __fadd_rn(fabsf(tau), __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(tau, tau)))));
+  const float t = nz ? (tau >= 0.0f ? r : -r) : 0.0f;
+  const float c = __frcp_rn(__fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(t, t))));
   const float s = __fmul_rn(t, c);
   const float apr = a[sym(P, R)], aqr = a[sym(Q, R)];
   a[P] = __fsub_rn(app, __fmul_rn(t, apq));

@@ -67,11 +67,13 @@ def init_ring(window: int, n_points: int, device=None) -> SubmapRing:
 
 def ring_insert(ring: SubmapRing, slot: int, points, mask, pose) -> SubmapRing:
     """Write a keyframe into `slot` IN PLACE (the reference donates the ring to an
-    out-of-place update; here the ring's buffers are updated and the same ring returned)."""
+    out-of-place update; here the ring's buffers are updated and the same ring returned).
+    The used flag is a fill on the device, as the reference's `.at[slot].set(True)`: an
+    assignment of a Python bool copies it in from the host and synchronizes."""
     ring.clouds[slot] = points
     ring.masks[slot] = mask
     ring.poses[slot] = pose
-    ring.used[slot] = True
+    ring.used[slot].fill_(True)
     return ring
 
 

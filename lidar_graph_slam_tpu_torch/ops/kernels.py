@@ -40,10 +40,11 @@ ctypes:
   same number of blocks per sequence).
 * `ndt_accumulate(e, icovs, p, hit, d2, w_scale)`: the reference's interface over gathered
   rows, for NDT's line search (which needs the gathered means).
-* `ndt_finalize(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
-  min_points)`: an NDT map's rows from its raw voxel moments in one launch (the sample
-  covariance, the Jacobi eigensolve, the floored inverse, the packed row) — what
-  `ops/voxel.py:_finalize_ndt` builds a map from, once a map of every target build.
+* `ndt_finalize(runs, origin, resolution, min_points, points=..., merge=...)`: one level
+  of an NDT map from its rows sorted by voxel key in one launch — each voxel's run summed
+  in order (the fine level's points, or a coarse level's shifted fine moments), then the
+  sample covariance, the Jacobi eigensolve, the floored inverse and the packed row; what
+  `ops/voxel.py:build_ndt_map` and `build_ndt_pyramid` build every target from.
 * `eigh3x3(A)`: the batched symmetric 3x3 eigensolve in one launch, for GICP's
   covariances and the FPFH normals.
 
@@ -55,8 +56,9 @@ reference's body (`ndt_direct7_accumulate_plain`, then `ndt_step_plain`) with th
 frozen after `done`; `gicp_align_loop_plain` is GICP's body (`gicp_sums_plain`: `nearest`,
 `gicp_match`, `gicp_residual_rows` and `ndt_accumulate_plain`; then `gicp_step_plain`), the
 same way; the batched plain versions loop the single ones over the batch;
-`ops/voxel.py:_finalize_ndt_plain` and `_eigh3x3` are the last two's, bit for bit on the
-card. A wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
+`ops/voxel.py:ndt_finalize_plain` (the sorted rows' run sums by `torch.segment_reduce`,
+then `_finalize_ndt_plain`) and `_eigh3x3` are the last two's, bit for bit on the card. A
+wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
 Launch counts: `<wrapper>.launches` counts a kernel's launches in the process (odometry
@@ -94,8 +96,8 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     TABLE_DIMS,
     NdtVoxelMap,
     _eigh3x3,
-    _finalize_ndt_plain,
     lookup_direct7,
+    ndt_finalize_plain,
 )
 from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_damped
 
@@ -491,8 +493,8 @@ def _load_library_locked():
         vp, vp, vp, i64, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, i32, i32, i32,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, vp, vp,
         i32, vp]
-    lib.lgs_ndt_finalize.argtypes = [vp, vp, i64, vp, i64, vp, i64, vp, vp, vp, f32, i32, i32,
-                                     i32, i32, i64, vp, vp, vp, vp, vp, vp]
+    lib.lgs_ndt_finalize.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, vp, i32, vp, vp, f32,
+                                     i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.lgs_eigh3x3.argtypes = [vp, i64, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
@@ -965,47 +967,59 @@ def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
     return carry
 
 
-def _check_rows(wrapper: str, device, C: int, **tensors) -> None:
-    """Each keyword is (tensor, row shape): float32 [C, *row shape] on `device`, each row
-    contiguous (the rows may be a column slice of a wider tensor, at any row stride);
-    raises ValueError otherwise."""
-    for name, (t, row) in tensors.items():
-        if (t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (C, *row)
-                or (C and not t[0].is_contiguous())):
-            raise ValueError(f"{wrapper}: {name} must be float32 rows {row} x {C} on "
-                             f"{device}, got {t.dtype} {tuple(t.shape)} strides "
-                             f"{t.stride()} on {t.device}")
+def ndt_finalize(runs, origin, resolution, min_points: int, points=None, merge=None):
+    """One level of an NDT map from its rows sorted by voxel key, in one launch: each run's
+    moments summed in order, then the map's rows.
 
-
-def ndt_finalize(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
-                 min_points: int):
-    """Raw per-voxel moments -> an NDT map's rows, in one launch.
-
-    seg_keys:   [C] i32 packed voxel keys
-    counts:     [C] f32, sums [C, 3] f32, outer_sums [C, 3, 3] f32: the voxel-local
-                moments (`ops/voxel.py:_sorted_voxel_stats`); each may be a column slice
-                of one [C, 13] tensor (each row contiguous, any row stride)
-    occupied:   [C] bool
-    origin:     [3] f32; resolution: 0-d f32 (read on the device)
+    runs:       (keys_sorted [N] i32, starts [C+1] i64, lengths [C+1] i64): row r < C is
+                the run keys_sorted[starts[r] : starts[r] + lengths[r]] (`ops/voxel.py:
+                _sorted_runs`; run C, the invalid rows and the voxels past C, is not read)
+    points:     pts_sorted [N, 3] f32, the fine level's points in the keys' order; or
+    merge:      (order [N] i64, fine_moments, fine_resolution, factor) for a coarse level:
+                its runs are over the fine level's rows (`ops/voxel.py:_coarse_runs`),
+                fine_moments = (seg_keys [C_f] i32, stats [C_f, 13] f32) as this returns
+    origin:     [3] f32; resolution, fine_resolution: 0-d f32 (read on the device)
     min_points: a voxel with fewer points is invalid
-    Returns (keys [C] i32, means [C, 3], inv_covs [C, 3, 3], valid [C] bool, packed
-    [C, 16]) as `ops/voxel.py:_finalize_ndt_plain`, bit for bit on the card.
+    Returns (moments, rows): moments = (seg_keys [C] i32, stats [C, 13] f32: count | sums
+    | outer sums), rows = (keys [C] i32, means [C, 3], inv_covs [C, 3, 3], valid [C] bool,
+    packed [C, 16]), as `ops/voxel.py:ndt_finalize_plain`, bit for bit on the card.
 
-    CPU tensors take `_finalize_ndt_plain`; CUDA tensors launch the `ndt_finalize` kernel
+    CPU tensors take `ndt_finalize_plain`; CUDA tensors launch the `ndt_finalize` kernel
     (counted in `ndt_finalize.launches`; none for C = 0) or raise. Nothing is read back.
     """
-    dev = counts.device
+    keys_sorted, starts, lengths = runs
+    dev = starts.device
     if dev.type == "cpu":
-        return _finalize_ndt_plain(seg_keys, counts, sums, outer_sums, occupied, origin,
-                                   resolution, min_points)
+        return ndt_finalize_plain(runs, origin, resolution, min_points, points, merge)
     if dev.type != "cuda":
         raise ValueError(f"ndt_finalize: unsupported device {dev}")
-    C = seg_keys.shape[0] if seg_keys.dim() == 1 else -1
-    _check_rows("ndt_finalize", dev, C, counts=(counts, ()), sums=(sums, (3,)),
-                outer_sums=(outer_sums, (3, 3)))
-    _check("ndt_finalize", dev, seg_keys=(seg_keys, (C,), torch.int32),
-           occupied=(occupied, (C,), torch.bool), origin=(origin, (3,), torch.float32),
-           resolution=(resolution, (), torch.float32))
+    if (points is None) == (merge is None):
+        raise ValueError("ndt_finalize: give exactly one of points and merge")
+    N = keys_sorted.shape[0] if keys_sorted.dim() == 1 else -1
+    C = starts.shape[0] - 1 if starts.dim() == 1 else -1
+    _check("ndt_finalize", dev, keys_sorted=(keys_sorted, (N,), torch.int32),
+           starts=(starts, (C + 1,), torch.int64), lengths=(lengths, (C + 1,), torch.int64),
+           origin=(origin, (3,), torch.float32), resolution=(resolution, (), torch.float32))
+    if C < 0:
+        raise ValueError("ndt_finalize: runs need C >= 0")
+    if points is not None:
+        _check("ndt_finalize", dev, points=(points, (N, 3), torch.float32))
+        if points.data_ptr() % 16:
+            raise ValueError("ndt_finalize: points must be 16-byte aligned")
+        src = (points.data_ptr(), None, None, None, None, 0)
+    else:
+        order, (fine_keys, fine_stats), fine_res, factor = merge
+        Cf = fine_keys.shape[0] if fine_keys.dim() == 1 else -1
+        _check("ndt_finalize", dev, order=(order, (N,), torch.int64),
+               fine_keys=(fine_keys, (Cf,), torch.int32),
+               fine_stats=(fine_stats, (Cf, 13), torch.float32),
+               fine_resolution=(fine_res, (), torch.float32))
+        if int(factor) < 1:
+            raise ValueError(f"ndt_finalize: factor must be >= 1, got {factor}")
+        src = (None, order.data_ptr(), fine_keys.data_ptr(), fine_stats.data_ptr(),
+               fine_res.data_ptr(), int(factor))
+    seg_keys = torch.empty((C,), dtype=torch.int32, device=dev)
+    stats = torch.empty((C, 13), dtype=torch.float32, device=dev)
     keys = torch.empty((C,), dtype=torch.int32, device=dev)
     means = torch.empty((C, 3), dtype=torch.float32, device=dev)
     inv_covs = torch.empty((C, 3, 3), dtype=torch.float32, device=dev)
@@ -1014,14 +1028,13 @@ def ndt_finalize(seg_keys, counts, sums, outer_sums, occupied, origin, resolutio
     if C:
         lib = load_library()
         _raise_on(lib.lgs_ndt_finalize(
-            seg_keys.data_ptr(), counts.data_ptr(), counts.stride(0), sums.data_ptr(),
-            sums.stride(0), outer_sums.data_ptr(), outer_sums.stride(0), occupied.data_ptr(),
+            keys_sorted.data_ptr(), starts.data_ptr(), lengths.data_ptr(), C, *src,
             origin.data_ptr(), resolution.data_ptr(), float(min_points), _BITS_Y + _BITS_Z,
-            _BITS_Z, COORD_MAX[1], COORD_MAX[2], C, keys.data_ptr(), means.data_ptr(),
-            inv_covs.data_ptr(), valid.data_ptr(), packed.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream), "ndt_finalize")
+            _BITS_Z, COORD_MAX[1], COORD_MAX[2], seg_keys.data_ptr(), stats.data_ptr(),
+            keys.data_ptr(), means.data_ptr(), inv_covs.data_ptr(), valid.data_ptr(),
+            packed.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "ndt_finalize")
         _count(ndt_finalize)
-    return keys, means, inv_covs, valid, packed
+    return (seg_keys, stats), (keys, means, inv_covs, valid, packed)
 
 
 def eigh3x3(A):

@@ -4,17 +4,19 @@ Port of `lidar_graph_slam_tpu/ops/voxel.py`. Points are keyed by integer voxel
 coordinates packed into one monotone int32, stably sorted, and reduced per voxel over
 the sorted runs; NDT's DIRECT7 lookup indexes a dense cell table directly.
 
-Determinism: the per-voxel sums go through `torch.segment_reduce` over run lengths,
-which adds each run's rows in order on every device — no float `index_add_` /
-`scatter_add_` atomics, whose order (and so whose map) would change from run to run and
-feed FP-level noise into the odometry loop (`lidar_graph_slam_tpu/odometry/fused.py`
-docstring). The dense table is an integer scatter-min, whose result does not depend on
-order.
+Determinism: the per-voxel sums add each run's rows in order on every device — no float
+`index_add_` / `scatter_add_` atomics, whose order (and so whose map) would change from run
+to run and feed FP-level noise into the odometry loop
+(`lidar_graph_slam_tpu/odometry/fused.py` docstring). The dense table is an integer
+scatter-min, whose result does not depend on order.
 
-A map's rows come from its raw moments through `ops/kernels.py:ndt_finalize`: one
-hand-written kernel launch on the card, `_finalize_ndt_plain` (the reference's arithmetic,
-op for op) on the CPU; `kernels.eigh3x3` serves `_eigh3x3` to GICP and the FPFH normals the
-same way. `ops/kernels.py` imports this module, so `_finalize_ndt` imports it inside.
+An NDT map level goes from its rows sorted by voxel key to its finished rows through
+`ops/kernels.py:ndt_finalize`: one hand-written kernel launch on the card that sums the
+runs itself, `ndt_finalize_plain` on the CPU (the run sums by `torch.segment_reduce` over
+the run lengths, then `_finalize_ndt_plain`, the reference's arithmetic op for op);
+`kernels.eigh3x3` serves `_eigh3x3` to GICP and the FPFH normals the same way. The centroid
+downsample (`voxel_downsample`) keeps `torch.segment_reduce`. `ops/kernels.py` imports this
+module, so the map builders import it inside.
 
 Key packing uses (11, 11, 8) bits for (x, y, z) relative to the batch min corner; out-of-
 range points clamp to border cells. Key arithmetic stays in float32 tensors, as the
@@ -299,41 +301,90 @@ def regularize_covariance(cov: torch.Tensor, min_eig_ratio: float = 1e-2):
     return _scaled_gram(V, w_reg), _scaled_gram(V, 1.0 / w_reg)
 
 
-def _sorted_voxel_stats(points, mask, resolution, capacity: int):
-    """Per-voxel raw moments via one stable sort: (seg_keys, counts, sums, outer_sums,
-    origin, num_voxels, occupied). Moments are accumulated in VOXEL-LOCAL coordinates
-    (point minus its voxel's corner), which bounds every term by O(leaf^2); world-frame
-    float32 moments cancel catastrophically once |x| >> leaf."""
+def _sorted_points(points, mask, resolution, capacity: int):
+    """One stable sort of a masked cloud by voxel key: (origin, runs, pts_sorted,
+    num_voxels), with runs = (keys_sorted [N] i32, starts [capacity+1] i64, lengths
+    [capacity+1] i64) of `_sorted_runs`."""
     origin = min_corner(points, mask) - resolution
     keys_sorted, pts_sorted = _sort_points(points, mask, origin, 1.0 / resolution)
-    valid_sorted = keys_sorted != INVALID_KEY
     first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
+    num_voxels = torch.sum(first.to(torch.int32))
+    return origin, (keys_sorted, starts, lengths), pts_sorted, num_voxels
 
-    row_coords = torch.stack(unpack_key(torch.where(valid_sorted, keys_sorted, 0)), dim=-1)
-    row_corner = origin + row_coords.to(points.dtype) * resolution
+
+def _row_corners(keys, origin, resolution):
+    """The corner of each key's voxel, origin + coord * resolution, in float32."""
+    return origin + torch.stack(unpack_key(keys), dim=-1).to(origin.dtype) * resolution
+
+
+def _point_moments(runs, pts_sorted, origin, resolution):
+    """Each run's raw moments over its sorted points, in VOXEL-LOCAL coordinates (point
+    minus its voxel's corner), which bounds every term by O(leaf^2); world-frame float32
+    moments cancel catastrophically once |x| >> leaf. Returns (seg_keys [C] i32, stats
+    [C, 13] f32: count | sums (3) | outer sums (9, row-major)), each run summed in order
+    from 0.0 (`_segment_sum`)."""
+    keys_sorted, starts, lengths = runs
+    capacity = lengths.shape[0] - 1
+    valid_sorted = keys_sorted != INVALID_KEY
+    row_corner = _row_corners(torch.where(valid_sorted, keys_sorted, 0), origin, resolution)
     loc = torch.where(valid_sorted[:, None], pts_sorted - row_corner, 0.0)
     outer = (loc[:, :, None] * loc[:, None, :]).reshape(-1, 9)
-    cols = torch.cat([valid_sorted.to(points.dtype)[:, None], loc, outer], dim=1)
-    stats = _segment_sum(cols, lengths, capacity)
-    counts, sums, outer_sums = stats[:, 0], stats[:, 1:4], stats[:, 4:13].reshape(capacity, 3, 3)
-    seg_keys = _segment_keys(keys_sorted, starts, lengths, capacity)
+    cols = torch.cat([valid_sorted.to(pts_sorted.dtype)[:, None], loc, outer], dim=1)
+    return (_segment_keys(keys_sorted, starts, lengths, capacity),
+            _segment_sum(cols, lengths, capacity))
 
-    num_voxels = torch.sum(first.to(torch.int32))
-    occupied = torch.arange(capacity, device=points.device) < torch.clamp(num_voxels, max=capacity)
-    return seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied
+
+def _coarse_runs(fine_moments, occupied, factor: int, coarse_capacity: int):
+    """The coarse level's runs over the fine map's stat rows: each occupied fine voxel
+    keyed by its parent coarse voxel, one stable sort. Returns ((ck_sorted, starts,
+    lengths), order [C_f] i64, num_voxels)."""
+    seg_keys, stats = fine_moments
+    coords = torch.stack(unpack_key(torch.where(occupied, seg_keys, 0)), dim=-1)
+    live = occupied & (stats[:, 0] > 0)
+    ckeys = torch.where(live, pack_key(coords // factor), INVALID_KEY)
+    ck_sorted, order = torch.sort(ckeys, stable=True)
+    first, _, lengths, starts = _sorted_runs(ck_sorted, coarse_capacity)
+    return (ck_sorted, starts, lengths), order, torch.sum(first.to(torch.int32))
+
+
+def _merged_moments(runs, order, fine_moments, fine_resolution, factor: int):
+    """The coarse level's raw moments from the fine level's (`_point_moments`'s layout):
+    shifting each fine voxel's local moments by its corner offset inside the parent coarse
+    voxel is exact, x_c = x_f + o with o = (child corner - parent corner): sum(x_c) = sum
+    + n o, sum(x_c x_c^T) = outer + o sum^T + sum o^T + n o o^T. The shifted rows are
+    then summed over the coarse runs (of `_coarse_runs`) in order, as `_point_moments`
+    sums points."""
+    ck_sorted, starts, lengths = runs
+    capacity = lengths.shape[0] - 1
+    seg_keys, stats = fine_moments
+    counts, sums = stats[:, 0], stats[:, 1:4]
+    outer_sums = stats[:, 4:13].reshape(-1, 3, 3)
+    # A dead fine row's key is INT32_MIN; its shifted moments sort into the overflow
+    # segment with it and are cut off.
+    coords = torch.stack(unpack_key(seg_keys), dim=-1)
+    off = (coords - (coords // factor) * factor).to(stats.dtype) * fine_resolution  # [C, 3]
+    sums_c = sums + counts[:, None] * off
+    outer_c = (
+        outer_sums
+        + off[:, :, None] * sums[:, None, :]
+        + sums[:, :, None] * off[:, None, :]
+        + counts[:, None, None] * off[:, :, None] * off[:, None, :]
+    )
+    rows = torch.cat([counts[:, None], sums_c, outer_c.reshape(-1, 9)], dim=1)[order]
+    rows = torch.where((ck_sorted != INVALID_KEY)[:, None], rows, 0.0)
+    return (_segment_keys(ck_sorted, starts, lengths, capacity),
+            _segment_sum(rows, lengths, capacity))
 
 
 def _finalize_ndt_plain(seg_keys, counts, sums, outer_sums, occupied, origin, resolution,
                         min_points: int):
-    """Plain version of the `ndt_finalize` kernel (`ops/kernels.py`): raw per-voxel
-    moments -> the map's rows (keys, means, inv_covs, valid, packed). Means and the
-    regularized inverse covariances; voxels with fewer than `min_points` points are
-    invalid."""
+    """Raw per-voxel moments -> the map's rows (keys, means, inv_covs, valid, packed):
+    means and the regularized inverse covariances; voxels with fewer than `min_points`
+    points are invalid."""
     dtype, capacity = sums.dtype, sums.shape[0]
     cnt = torch.clamp(counts, min=1.0)[:, None]
     means_local = sums / cnt
-    seg_corner = origin + torch.stack(unpack_key(seg_keys), dim=-1).to(dtype) * resolution
-    means = seg_corner + means_local
+    means = _row_corners(seg_keys, origin, resolution) + means_local
     # Sample covariance (ndt_omp divides by n-1); translation-invariant, so local
     # moments give it exactly.
     cov = (
@@ -354,14 +405,30 @@ def _finalize_ndt_plain(seg_keys, counts, sums, outer_sums, occupied, origin, re
     return keys_out, means_out, inv_covs, valid, packed
 
 
-def _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
-                  resolution, min_points: int) -> NdtVoxelMap:
-    """Raw per-voxel moments -> NdtVoxelMap: the rows from `kernels.ndt_finalize` (its
-    kernel on the card, `_finalize_ndt_plain` on the CPU), then the dense lookup table."""
-    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+def ndt_finalize_plain(runs, origin, resolution, min_points: int, points=None, merge=None):
+    """Plain version of the `ndt_finalize` kernel (`ops/kernels.py`): one level of an NDT
+    map from its sorted rows. `runs` = (keys_sorted, starts, lengths) over C voxel rows;
+    either `points` (pts_sorted [N, 3], the fine level: `_point_moments`) or `merge` =
+    (order, fine_moments, fine_resolution, factor) (a coarse level: `_merged_moments`).
+    Returns (moments, rows): moments = (seg_keys [C] i32, stats [C, 13] f32) and rows =
+    `_finalize_ndt_plain`'s (keys, means, inv_covs, valid, packed). A row is occupied
+    where its run is not empty."""
+    if (points is None) == (merge is None):
+        raise ValueError("ndt_finalize: give exactly one of points and merge")
+    if points is not None:
+        seg_keys, stats = _point_moments(runs, points, origin, resolution)
+    else:
+        seg_keys, stats = _merged_moments(runs, *merge)
+    C = stats.shape[0]
+    rows = _finalize_ndt_plain(seg_keys, stats[:, 0], stats[:, 1:4],
+                               stats[:, 4:13].reshape(C, 3, 3), runs[2][:C] > 0, origin,
+                               resolution, min_points)
+    return (seg_keys, stats), rows
 
-    keys, means, inv_covs, valid, packed = kernels.ndt_finalize(
-        seg_keys, counts, sums, outer_sums, occupied, origin, resolution, min_points)
+
+def _voxel_map(rows, origin, resolution, num_voxels) -> NdtVoxelMap:
+    """An NdtVoxelMap from a level's finished rows and its dense lookup table."""
+    keys, means, inv_covs, valid, packed = rows
     return NdtVoxelMap(
         keys=keys,
         means=means,
@@ -377,48 +444,14 @@ def _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupi
 
 def build_ndt_map(points, mask, resolution, capacity: int, min_points: int = 6) -> NdtVoxelMap:
     """Build per-voxel Gaussians (mean + regularized inverse covariance) from a masked
-    cloud (see `_sorted_voxel_stats` / `_finalize_ndt` for the numerics)."""
+    cloud: one sort (`_sorted_points`), then the run sums and the rows in one
+    `kernels.ndt_finalize` (its kernel on the card, `ndt_finalize_plain` on the CPU)."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
     resolution = as_f32(resolution, points)
-    stats = _sorted_voxel_stats(points, mask, resolution, capacity)
-    return _finalize_ndt(*stats, resolution, min_points)
-
-
-def _coarse_voxel_stats(seg_keys, counts, sums, outer_sums, occupied, resolution,
-                        factor: int, coarse_capacity: int):
-    """The coarse map's raw moments (seg_keys, counts, sums, outer_sums, num_voxels,
-    occupied) from the fine map's: shifting each fine voxel's local moments by its corner
-    offset inside the parent coarse voxel is exact, so the merge sorts the fine stat rows
-    instead of re-sorting every point."""
-    dtype, capacity = sums.dtype, sums.shape[0]
-    # Shift fine-local moments to coarse-local: x_c = x_f + o with o = (child corner -
-    # parent corner); sum(x_c) = sum + n*o; sum(x_c x_c^T) = outer + o sum^T + sum o^T
-    # + n o o^T. Exact in every entry.
-    coords = torch.stack(unpack_key(torch.where(occupied, seg_keys, 0)), dim=-1)
-    ccoords = coords // factor
-    off = (coords - ccoords * factor).to(dtype) * resolution          # [C, 3]
-    live = occupied & (counts > 0)
-    ckeys = torch.where(live, pack_key(ccoords), INVALID_KEY)
-    sums_c = sums + counts[:, None] * off
-    outer_c = (
-        outer_sums
-        + off[:, :, None] * sums[:, None, :]
-        + sums[:, :, None] * off[:, None, :]
-        + counts[:, None, None] * off[:, :, None] * off[:, None, :]
-    )
-
-    # Merge stat rows by coarse key: stable sort, then the sorted run sums.
-    ck_s, order = torch.sort(ckeys, stable=True)
-    valid_s = ck_s != INVALID_KEY
-    rows = torch.cat([counts[:, None], sums_c, outer_c.reshape(capacity, 9)], dim=1)[order]
-    first_c, _, lengths, starts = _sorted_runs(ck_s, coarse_capacity)
-    stats = _segment_sum(torch.where(valid_s[:, None], rows, 0.0), lengths, coarse_capacity)
-    ccounts, csums = stats[:, 0], stats[:, 1:4]
-    couters = stats[:, 4:13].reshape(coarse_capacity, 3, 3)
-    cseg_keys = _segment_keys(ck_s, starts, lengths, coarse_capacity)
-    cnum = torch.sum(first_c.to(torch.int32))
-    coccupied = torch.arange(coarse_capacity, device=sums.device) < torch.clamp(
-        cnum, max=coarse_capacity)
-    return cseg_keys, ccounts, csums, couters, cnum, coccupied
+    origin, runs, pts_sorted, num_voxels = _sorted_points(points, mask, resolution, capacity)
+    _, rows = kernels.ndt_finalize(runs, origin, resolution, min_points, points=pts_sorted)
+    return _voxel_map(rows, origin, resolution, num_voxels)
 
 
 def build_ndt_pyramid(points, mask, resolution, factor: int, capacity: int,
@@ -427,17 +460,21 @@ def build_ndt_pyramid(points, mask, resolution, factor: int, capacity: int,
 
     The fine map is exactly `build_ndt_map(points, mask, resolution, capacity)`. The
     coarse map (leaf = factor * resolution, same origin) merges the fine map's raw voxel
-    moments (`_coarse_voxel_stats`)."""
+    moments (`_coarse_runs`, `_merged_moments`): one `kernels.ndt_finalize` a level."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
     resolution = as_f32(resolution, points)
-    seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied = _sorted_voxel_stats(
-        points, mask, resolution, capacity)
-    fine = _finalize_ndt(seg_keys, counts, sums, outer_sums, origin, num_voxels, occupied,
-                         resolution, min_points)
-    cseg_keys, ccounts, csums, couters, cnum, coccupied = _coarse_voxel_stats(
-        seg_keys, counts, sums, outer_sums, occupied, resolution, factor, coarse_capacity)
-    coarse = _finalize_ndt(cseg_keys, ccounts, csums, couters, origin, cnum, coccupied,
-                           resolution * factor, min_points)
-    return coarse, fine
+    origin, runs, pts_sorted, num_voxels = _sorted_points(points, mask, resolution, capacity)
+    fine_moments, rows = kernels.ndt_finalize(runs, origin, resolution, min_points,
+                                              points=pts_sorted)
+    fine = _voxel_map(rows, origin, resolution, num_voxels)
+    occupied = torch.arange(capacity, device=points.device) < torch.clamp(num_voxels,
+                                                                          max=capacity)
+    cruns, order, cnum = _coarse_runs(fine_moments, occupied, factor, coarse_capacity)
+    coarse_resolution = resolution * factor
+    _, crows = kernels.ndt_finalize(cruns, origin, coarse_resolution, min_points,
+                                    merge=(order, fine_moments, resolution, factor))
+    return _voxel_map(crows, origin, coarse_resolution, cnum), fine
 
 
 # DIRECT7 neighborhood: the voxel containing the point plus its 6 face-adjacent voxels

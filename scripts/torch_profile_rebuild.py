@@ -3,22 +3,25 @@
     python3 scripts/torch_profile_rebuild.py --input NPZ [--parent DIR] [--repeats 10]
 
 `--input` holds an assembled submap (`points`, `mask`) as `chip_smoke.py` writes it from
-the dense course's full ring. The default config's target (`make_ndt_matcher`'s
-`build_target`: `build_ndt_pyramid`, a 2 m fine map of 65,536 voxels and a 4 m coarse one
-of 32,768) is built on three paths:
+a course's ring (the dense course's full ring, the drift course's last). The default
+config's target (`make_ndt_matcher`'s `build_target`: `build_ndt_pyramid`, a 2 m fine map
+of 65,536 voxels and a 4 m coarse one of 32,768) is built on three paths:
 
-  kernel  this checkout: `ndt_finalize` launched once a map;
+  kernel  this checkout: `ndt_finalize` launched once a map, from the sorted rows;
   plain   this checkout with `ops.kernels.ndt_finalize` replaced by its plain version
-          (`ops/voxel.py:_finalize_ndt_plain`, ~1,050 ATen operations a map);
-  parent  with `--parent DIR`, that tree's `ops/voxel.py:build_ndt_pyramid` (a parent
-          commit unpacked with `git archive`), loaded beside this checkout's.
+          (`ops/voxel.py:ndt_finalize_plain`: the run sums by `torch.segment_reduce`,
+          then ~1,050 ATen operations a map);
+  parent  with `--parent DIR`, that tree's `ops/voxel.py:build_ndt_pyramid` and
+          `ops/kernels.py` (a parent commit unpacked with `git archive`), loaded beside
+          this checkout's; the parent's target build calls its own kernels.
 
 Wall ms a build (host clock between synchronizes, the median of `--repeats`), in turns
 (kernel, plain, parent, parent, plain, kernel); then one build of each under
-`torch.profiler`: device kernel launches (the profiler's kernel events; copies and
+`torch.profiler` (after a session thrown away): device kernel launches (the profiler's kernel events; copies and
 memsets not counted), device ms, the device's idle share, the kernel wrappers' launches
-(`thread_launches`), and the kernels launched most. The kernel path's maps must equal the
-plain path's bit for bit. Prints one JSON line.
+(`thread_launches`), the launches and device ms of `segment_reduce`, and the kernels
+launched most and those that took most device time. The kernel path's maps must equal the
+plain path's, and the parent's, bit for bit. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -63,20 +66,28 @@ def main() -> int:
     factor = round(cfg.coarse_resolution / cfg.resolution)
     kernel_finalize = kernels.ndt_finalize
 
-    def on_path(name):
-        kernels.ndt_finalize = voxel._finalize_ndt_plain if name == "plain" else kernel_finalize
-
     builds = {"kernel": lambda: build_target(points, mask),
               "plain": lambda: build_target(points, mask)}
+    ops_pkg = sys.modules["lidar_graph_slam_tpu_torch.ops"]
     if args.parent:
-        spec = importlib.util.spec_from_file_location(
-            "parent_voxel", os.path.join(args.parent, "lidar_graph_slam_tpu_torch", "ops",
-                                         "voxel.py"))
-        parent = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(parent)
+        def tree_module(name, rel):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(args.parent, "lidar_graph_slam_tpu_torch", "ops", rel))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        parent = tree_module("parent_voxel", "voxel.py")
+        parent_kernels = tree_module("parent_kernels", "kernels.py")
         builds["parent"] = lambda: parent.build_ndt_pyramid(
             points, mask, cfg.resolution, factor, capacity=capacity,
             coarse_capacity=capacity // 2)
+
+    def on_path(name):
+        # The parent's map builders import `ops.kernels` when they run: the package's
+        # attribute names the parent tree's module while the parent builds.
+        ops_pkg.kernels = parent_kernels if name == "parent" else kernels
+        kernels.ndt_finalize = voxel.ndt_finalize_plain if name == "plain" else kernel_finalize
 
     def run(name):
         on_path(name)
@@ -87,10 +98,11 @@ def main() -> int:
 
     maps = {name: run(name) for name in builds}  # warm-up: builds the library
     torch.cuda.synchronize()
-    for a, b in zip(maps["kernel"], maps["plain"]):
-        for field in voxel.NdtVoxelMap.__dataclass_fields__:
-            if not torch.equal(getattr(a, field), getattr(b, field)):
-                raise AssertionError(f"kernel and plain maps differ: {field}")
+    for other in [name for name in builds if name != "kernel"]:
+        for a, b in zip(maps["kernel"], maps[other]):
+            for field in voxel.NdtVoxelMap.__dataclass_fields__:
+                if not torch.equal(getattr(a, field), getattr(b, field)):
+                    raise AssertionError(f"kernel and {other} maps differ: {field}")
     order = ["kernel", "plain"] + (["parent", "parent"] if args.parent else []) + ["plain",
                                                                                   "kernel"]
     walls = {name: [] for name in builds}
@@ -105,24 +117,34 @@ def main() -> int:
     for name in builds:
         on_path(name)
         try:
-            before = kernels.thread_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                builds[name]()
-                torch.cuda.synchronize()
-            wrapper = kernels.thread_launches() - before
+            # Twice, the first session thrown away: a process's first session can miss
+            # kernel events (a dense-ring build once showed 74 of its 158 launches).
+            for _ in range(2):
+                before = kernels.thread_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    builds[name]()
+                    torch.cuda.synchronize()
+                wrapper = kernels.thread_launches() - before
         finally:
             on_path("kernel")
         ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
               and not e.key.startswith(("Memcpy", "Memset"))]
         device_ms = sum(e.self_device_time_total for e in ka) / 1000
         wall = float(np.median(walls[name]))
+        segment = [e for e in ka if "segment_reduce" in e.key]
         out[name] = dict(wall_ms=wall, wall_ms_turns=[round(w, 3) for w in walls[name]],
                          launches=sum(e.count for e in ka), device_ms=device_ms,
                          idle_share=1.0 - device_ms / wall, wrapper_launches=wrapper,
-                         top=[[e.key[:60], e.count] for e in sorted(ka, key=lambda e: -e.count)[:6]])
+                         segment_reduce_launches=sum(e.count for e in segment),
+                         segment_reduce_device_ms=sum(e.self_device_time_total
+                                                      for e in segment) / 1000,
+                         top=[[e.key[:60], e.count] for e in sorted(ka, key=lambda e: -e.count)[:6]],
+                         top_device_ms=[[e.key[:60], e.self_device_time_total / 1000]
+                                        for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:4]])
     print(json.dumps(dict(fine_voxels=int(maps["kernel"][1].num_voxels),
                           coarse_voxels=int(maps["kernel"][0].num_voxels),
-                          bit_equal_kernel_plain=True, **out)), flush=True)
+                          bit_equal_kernel_plain=True,
+                          bit_equal_kernel_parent="parent" in builds, **out)), flush=True)
     return 0
 
 

@@ -14,10 +14,12 @@ against the plain loop: the dense course's stages, ragged sizes around its tile 
 300, 4,097, 50,000), steps with no inliers or a singular system, batches of 1, 3, 4 and 5
 row by row against single loops, a block count that does not depend on the batch, two
 streams at once. The voxel finalize `ndt_finalize` and `eigh3x3` (`csrc/voxel_finalize.cu`)
-against `_finalize_ndt_plain` and `_eigh3x3`, bit for bit: random moments at the fine and
-coarse capacities, a real ring's fine and merged coarse moments, min_points 1, the empty
-ring, GICP's window covariances; the pyramid, the GICP covariances and the FPFH normals
-through them; refusals, no synchronous read, two streams at once.
+against `ndt_finalize_plain` and `_eigh3x3`, bit for bit: the fine level from sorted
+points and the coarse one from the merged fine moments, on a real ring, the ring ~28%
+valid, a run longer than the shared stage, voxels past C, no valid point, one point,
+capacities of 3 and 1,000, a far origin with keys up to COORD_MAX, at min_points 6 and 1; `segment_reduce`'s run sums in order on the card; the empty ring,
+GICP's window covariances; the pyramid, the GICP covariances and the FPFH normals through
+them; refusals, no synchronous read, two streams at once.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -1321,98 +1323,153 @@ def test_checkpoint_card_to_cpu_and_back(cuda, tmp_path, fused):
 
 # -- the voxel finalize and the 3x3 eigensolve (csrc/voxel_finalize.cu) -------------------
 
-FINALIZE_OUT = ("keys", "means", "inv_covs", "valid", "packed")
+FINALIZE_OUT = ("seg_keys", "stats", "keys", "means", "inv_covs", "valid", "packed")
 
 
-def _random_moments(C, device, seed=0):
-    """Raw voxel moments of C rows as `_sorted_voxel_stats` lays them out (columns of one
-    [C, 13] tensor): ~90% occupied, counts 0-40 (many at and around min_points = 6, and
-    1-point voxels), local points inside a 2 m voxel, keys of coordinates up to
-    COORD_MAX, a far-away origin."""
-    from lidar_graph_slam_tpu_torch.ops.voxel import COORD_MAX
+def _flat(out):
+    """`ndt_finalize`'s ((seg_keys, stats), rows) as one tuple, in FINALIZE_OUT's order."""
+    return (*out[0], *out[1])
 
+
+def _ring_points(seed=3, n_frames=5, max_points=16384):
+    """A real ring's points: scans of the loop course at their poses."""
+    seq = SyntheticSequence(n_frames=n_frames, seed=seed, max_points=max_points, radius=30.0,
+                            laps=0.05)
+    return np.concatenate([scan @ gt[:3, :3].T + gt[:3, 3] for scan, gt in seq]).astype(
+        np.float32)
+
+
+# The far case's offset: the cloud's min corner lies far from the world origin.
+FAR_ORIGIN = np.array([-812.5, 433.25, -21.0], np.float32)
+
+
+def _finalize_cloud(kind, seed=0):
+    """(points, mask, capacity) of a card case: `ring` (five 16,384-point scans, fine C =
+    65,536), `ring28` (the same ring, ~28% of its rows valid as on the drift course, the
+    rest padding spread through it), `long_run` (6,000 points in one 2 m voxel, longer
+    than a warp's stage of two 128-point rounds, among a few hundred others), `over_capacity` (a
+    uniform 40 m cube, ~7 points a voxel, at C = 1,024: voxels past C), `no_valid` (every
+    row padding), `one_point`, `tiny` (six voxels of 1 and 8 points at C = 3, coarse C = 1:
+    a partial last block in both modes), `odd_capacity` (the ring at C = 1,000, coarse C =
+    500: partial last blocks, voxels past C) and `far` (a quarter of the ring moved to
+    FAR_ORIGIN, with 2,000 points spread over 4.2 km x 4.2 km x 520 m from it, so the keys
+    reach COORD_MAX on every axis; C = 12,345, coarse C = 6,172)."""
     rng = np.random.default_rng(seed)
-    n = np.concatenate([rng.integers(0, 41, C - C // 4), rng.integers(4, 8, C // 8),
-                        np.ones(C - (C - C // 4) - C // 8, np.int64)])
-    rng.shuffle(n)
-    occupied = np.arange(C) < int(0.9 * C)
-    n = np.where(occupied, n, 0)
-    stats = np.zeros((C, 13), np.float32)
-    for r in np.nonzero(n)[0][:4096]:  # exact moments of real points for some rows
-        loc = rng.uniform(0.0, 2.0, (n[r], 3)).astype(np.float32)
-        loc[:, 2] *= rng.uniform(0.001, 1.0)  # planar ones too: the floor is active
-        stats[r] = np.concatenate([[n[r]], loc.sum(0), (loc[:, :, None] * loc[:, None, :])
-                                   .sum(0).ravel()])
-    rest = np.nonzero(n)[0][4096:]
-    mean = rng.uniform(0.0, 2.0, (rest.size, 3)).astype(np.float32)
-    A = rng.normal(size=(rest.size, 3, 3)).astype(np.float32) * 0.4
-    cov = A @ np.swapaxes(A, 1, 2)
-    nr = n[rest].astype(np.float32)
-    stats[rest, 0] = nr
-    stats[rest, 1:4] = nr[:, None] * mean
-    stats[rest, 4:] = ((nr[:, None, None] - 1) * cov + nr[:, None, None]
-                       * mean[:, :, None] * mean[:, None, :]).reshape(-1, 9)
-    coords = np.stack([rng.integers(0, c + 1, C) for c in COORD_MAX], 1).astype(np.int32)
-    keys = np.where(occupied, pack_key(torch.as_tensor(coords)).numpy(), -2**31)
-    s = torch.as_tensor(stats, device=device)
-    return (torch.as_tensor(keys.astype(np.int32), device=device), s[:, 0], s[:, 1:4],
-            s[:, 4:13].reshape(C, 3, 3), torch.as_tensor(occupied, device=device),
-            torch.tensor([-812.5, 433.25, -21.0], device=device),
-            torch.tensor(2.0, device=device))
+    if kind in ("ring", "ring28", "odd_capacity"):
+        pts = _ring_points()
+        mask = rng.random(len(pts)) < 0.28 if kind == "ring28" else np.ones(len(pts), bool)
+        cap = 1000 if kind == "odd_capacity" else 65536
+        return np.where(mask[:, None], pts, 1.0e6).astype(np.float32), mask, cap
+    if kind == "far":
+        spread = rng.uniform(0.0, 1.0, (2000, 3)) * np.array([4200.0, 4200.0, 520.0])
+        quarter = _ring_points()[::4]
+        pts = np.concatenate([quarter - quarter.min(0), spread])
+        pts = (pts + FAR_ORIGIN).astype(np.float32)
+        return pts, np.ones(len(pts), bool), 12345
+    if kind == "tiny":
+        centres = np.array([[1.0, 1.0, 1.0], [1.0, 1.0, 5.0], [11.0, 3.0, 1.0],
+                            [21.0, 1.0, 5.0], [31.0, 7.0, 1.0]])
+        pts = np.concatenate([np.full((1, 3), -20.0)]
+                             + [c + rng.uniform(-0.3, 0.3, (8, 3)) for c in centres])
+        return pts.astype(np.float32), np.ones(len(pts), bool), 3
+    if kind == "long_run":
+        # The anchor at (-20, -20, -20) puts the voxel borders on even coordinates.
+        pts = np.concatenate([np.full((1, 3), -20.0), rng.uniform(40.1, 41.9, (6000, 3)),
+                              rng.uniform(-20.0, 20.0, (500, 3))]).astype(np.float32)
+        return pts, np.ones(len(pts), bool), 4096
+    if kind == "over_capacity":
+        pts = rng.uniform(-20.0, 20.0, (60000, 3)).astype(np.float32)
+        return pts, np.ones(len(pts), bool), 1024
+    n = 4096
+    pts = rng.uniform(-30.0, 30.0, (n, 3)).astype(np.float32)
+    mask = np.zeros(n, bool)
+    if kind == "one_point":
+        mask[1234] = True
+    return np.where(mask[:, None], pts, 1.0e6).astype(np.float32), mask, 1024
 
 
-def _ring_moments(device, coarse):
-    """A real ring's moments at the default capacities: five 16,384-point scans of the
-    loop course at their poses, the fine map's (C = 65,536) or the coarse map's merged
-    ones (C = 32,768)."""
+def _level_inputs(device, kind="ring", coarse=False, seed=0):
+    """`ndt_finalize`'s arguments (args, kwargs) for one level of `_finalize_cloud(kind)`
+    as `build_ndt_pyramid` makes them: the fine level's sorted points, or the coarse
+    level's runs over the fine moments (those of the plain version)."""
     from lidar_graph_slam_tpu_torch.ops import voxel as tv
 
-    seq = SyntheticSequence(n_frames=5, seed=3, max_points=16384, radius=30.0, laps=0.05)
-    pts = np.concatenate([scan @ gt[:3, :3].T + gt[:3, 3] for scan, gt in seq])
-    p = torch.as_tensor(pts.astype(np.float32), device=device)
-    m = torch.ones(p.shape[0], dtype=torch.bool, device=device)
+    pts, mask, cap = _finalize_cloud(kind, seed)
+    p, m = torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device)
     res = tv.as_f32(2.0, p)
-    keys, counts, sums, outer, origin, _, occupied = tv._sorted_voxel_stats(p, m, res, 65536)
-    if coarse:
-        keys, counts, sums, outer, _, occupied = tv._coarse_voxel_stats(
-            keys, counts, sums, outer, occupied, res, 2, 32768)
-        res = res * 2
-    return keys, counts, sums, outer, occupied, origin, res
+    origin, runs, pts_sorted, num_voxels = tv._sorted_points(p, m, res, cap)
+    if not coarse:
+        return (runs, origin, res), {"points": pts_sorted}
+    fine_moments, _ = tv.ndt_finalize_plain(runs, origin, res, 6, points=pts_sorted)
+    occupied = torch.arange(cap, device=device) < torch.clamp(num_voxels, max=cap)
+    cruns, order, _ = tv._coarse_runs(fine_moments, occupied, 2, cap // 2)
+    return (cruns, origin, res * 2), {"merge": (order, fine_moments, res, 2)}
 
 
-def _assert_finalize_bit_equal(args, min_points=6):
-    from lidar_graph_slam_tpu_torch.ops.voxel import _finalize_ndt_plain
+def _assert_finalize_bit_equal(level, min_points=6):
+    from lidar_graph_slam_tpu_torch.ops.voxel import ndt_finalize_plain
 
+    args, kwargs = level
     before = tk.ndt_finalize.launches
-    out = tk.ndt_finalize(*args, min_points)
-    again = tk.ndt_finalize(*args, min_points)
-    ref = _finalize_ndt_plain(*args, min_points)
+    out = _flat(tk.ndt_finalize(*args, min_points, **kwargs))
+    again = _flat(tk.ndt_finalize(*args, min_points, **kwargs))
+    ref = _flat(ndt_finalize_plain(*args, min_points, **kwargs))
     torch.cuda.synchronize()
     assert tk.ndt_finalize.launches == before + 2
     for name, a, b, c in zip(FINALIZE_OUT, out, again, ref):
         assert torch.equal(a, b), name
         assert a.dtype == c.dtype and a.shape == c.shape, name
         assert torch.equal(a, c), (name, float((a.double() - c.double()).abs().max()))
-        assert torch.equal(a.view(-1).view(torch.uint8), c.view(-1).view(torch.uint8)), name
-    return out
+        assert torch.equal(a.reshape(-1).view(torch.uint8), c.reshape(-1).view(torch.uint8)), name
+    return dict(zip(FINALIZE_OUT, out))
 
 
-@pytest.mark.parametrize("case", ["random-fine", "random-coarse", "ring-fine", "ring-coarse",
-                                  "min_points-1", "tiny"])
-def test_ndt_finalize_bit_equal_to_plain(cuda, case):
-    """The kernel's rows equal `_finalize_ndt_plain`'s on the card bit for bit (signed
-    zeros included), on random moments at the fine and coarse capacities and on a real
-    ring's moments, fine and merged coarse (strided columns of the [C, 13] stats)."""
-    if case.startswith("random"):
-        args = _random_moments(65536 if case.endswith("fine") else 32768, cuda)
-    elif case.startswith("ring"):
-        args = _ring_moments(cuda, coarse=case.endswith("coarse"))
-    else:
-        args = _random_moments(65536 if case == "min_points-1" else 3, cuda, seed=1)
-    out = _assert_finalize_bit_equal(args, 1 if case == "min_points-1" else 6)
-    valid = out[3]
-    if case != "tiny":
-        assert 0 < int(valid.sum()) < valid.numel()
+@pytest.mark.parametrize("min_points", [6, 1])
+@pytest.mark.parametrize("case", ["ring", "ring28", "long_run", "over_capacity", "no_valid",
+                                  "one_point", "tiny", "odd_capacity", "far"])
+def test_ndt_finalize_bit_equal_to_plain(cuda, case, min_points):
+    """The kernel's moments and rows equal `ndt_finalize_plain`'s on the card bit for bit
+    (signed zeros included), fine (the sorted points) and coarse (the merged fine
+    moments): a real ring, the same ring ~28% valid, a run longer than the shared stage,
+    more voxels than C, no valid point and one point, capacities of 3 and 1,000 (partial
+    last blocks), a far origin with keys up to COORD_MAX, at min_points 6 and 1."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import COORD_MAX, unpack_key
+
+    for coarse in (False, True):
+        out = _assert_finalize_bit_equal(_level_inputs(cuda, case, coarse), min_points)
+        valid, counts = out["valid"], out["stats"][:, 0]
+        if case == "no_valid":
+            assert not valid.any() and not counts.any()
+        elif case == "one_point":
+            assert int((counts > 0).sum()) == 1 and int(valid.sum()) == (min_points == 1)
+        elif case == "tiny":  # the coarse row holds the 1-point voxel alone
+            assert counts.tolist() == ([1.0] if coarse else [1.0, 8.0, 8.0])
+            assert int(valid.sum()) == (min_points == 1) + (0 if coarse else 2)
+        elif case in ("over_capacity", "odd_capacity"):
+            assert bool(valid.any()) and (coarse or bool((counts > 0).all()))
+        elif case == "far":
+            assert bool(valid.any()) and int(valid.sum()) < valid.numel()
+            if not coarse:
+                coords = torch.stack(unpack_key(out["keys"][counts > 0]), -1)
+                assert coords.amax(0).tolist() == list(COORD_MAX)
+        else:
+            assert 0 < int(valid.sum()) < valid.numel()
+        if case == "long_run":
+            assert float(counts.max()) == 6000.0
+
+
+def test_segment_sum_adds_runs_in_order_on_the_card(cuda):
+    """`torch.segment_reduce`, the plain version's run sums, adds each run in order on the
+    card as on the CPU (where `tests/test_torch_voxel_finalize.py` holds it to an in-order
+    loop): the ring's [N, 13] columns, bit for bit."""
+    from lidar_graph_slam_tpu_torch.ops import voxel as tv
+
+    (runs, origin, res), kw = _level_inputs(cuda, "ring28")
+    card = tv._point_moments(runs, kw["points"], origin, res)
+    cpu = tv._point_moments(tuple(x.cpu() for x in runs), kw["points"].cpu(), origin.cpu(),
+                            res.cpu())
+    for a, b in zip(card, cpu):
+        assert torch.equal(a.cpu().reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def test_ndt_finalize_empty_ring(cuda):
@@ -1420,35 +1477,32 @@ def test_ndt_finalize_empty_ring(cuda):
     one launch a map on the pyramid's path; C = 0 launches nothing."""
     from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_pyramid
 
-    args = _random_moments(4096, cuda)
-    args = (args[0], args[1] * 0, args[2] * 0, args[3] * 0, torch.zeros_like(args[4]),
-            *args[5:])
-    out = _assert_finalize_bit_equal(args)
-    assert not out[3].any() and torch.equal(out[2], torch.eye(3, device=cuda).expand(4096, 3, 3))
+    out = _assert_finalize_bit_equal(_level_inputs(cuda, "no_valid"))
+    assert not out["valid"].any() and torch.equal(
+        out["inv_covs"], torch.eye(3, device=cuda).expand(1024, 3, 3))
     before = tk.ndt_finalize.launches
     pts = torch.full((512, 3), 1.0e6, device=cuda)
     coarse, fine = build_ndt_pyramid(pts, torch.zeros(512, dtype=torch.bool, device=cuda), 2.0,
                                      2, capacity=1024, coarse_capacity=512)
     assert tk.ndt_finalize.launches == before + 2
     assert int((fine.table >= 0).sum()) == int((coarse.table >= 0).sum()) == 0
-    empty = [a[:0] for a in args[:5]] + list(args[5:])
-    rows = tk.ndt_finalize(*empty, 6)
-    assert tk.ndt_finalize.launches == before + 2 and all(r.shape[0] == 0 for r in rows)
+    (runs, origin, res), kw = _level_inputs(cuda, "no_valid")
+    empty = (runs[0], runs[1][:1], runs[2][:1])
+    out = tk.ndt_finalize(empty, origin, res, 6, **kw)
+    assert tk.ndt_finalize.launches == before + 2 and all(r.shape[0] == 0 for r in _flat(out))
 
 
 def test_pyramid_on_the_card_equals_its_plain_rows(cuda, monkeypatch):
     """`build_ndt_pyramid` on the card launches `ndt_finalize` once a map, and its maps
-    equal the same build with the plain rows, every field bit for bit."""
+    equal the same build with the plain version, every field bit for bit."""
     from lidar_graph_slam_tpu_torch.ops import voxel as tv
 
-    seq = SyntheticSequence(n_frames=3, seed=5, max_points=16384, radius=30.0, laps=0.05)
-    pts = np.concatenate([scan @ gt[:3, :3].T + gt[:3, 3] for scan, gt in seq])
-    p = torch.as_tensor(pts.astype(np.float32), device=cuda)
+    p = torch.as_tensor(_ring_points(seed=5, n_frames=3), device=cuda)
     m = torch.ones(p.shape[0], dtype=torch.bool, device=cuda)
     before = tk.ndt_finalize.launches
     maps = tv.build_ndt_pyramid(p, m, 2.0, 2, capacity=65536, coarse_capacity=32768)
     assert tk.ndt_finalize.launches == before + 2
-    monkeypatch.setattr(tk, "ndt_finalize", tv._finalize_ndt_plain)
+    monkeypatch.setattr(tk, "ndt_finalize", tv.ndt_finalize_plain)
     plain = tv.build_ndt_pyramid(p, m, 2.0, 2, capacity=65536, coarse_capacity=32768)
     for a, b in zip(maps, plain):
         for name in tv.NdtVoxelMap.__dataclass_fields__:
@@ -1519,19 +1573,32 @@ def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
 
 
 def test_voxel_finalize_kernels_reject_bad_inputs(cuda):
-    args = list(_random_moments(256, cuda))
+    (runs, origin, res), kw = _level_inputs(cuda, "over_capacity")
+    (cruns, _, cres), ckw = _level_inputs(cuda, "over_capacity", coarse=True)
+    order, (fkeys, fstats), fres, factor = ckw["merge"]
+    pts = kw["points"]
+    misaligned = torch.empty(pts.numel() + 1, device=cuda)[1:].view(-1, 3).copy_(pts)
     A = torch.eye(3, device=cuda).expand(8, 3, 3).contiguous()
-    bad_finalize = []
-    for i, wrong in ((0, args[0].long()), (1, args[1].double()), (2, args[2][:, :2]),
-                     (3, args[3].transpose(1, 2)), (4, args[4].to(torch.uint8)),
-                     (5, args[5].cpu()), (6, args[6][None]), (2, args[2][:128])):
-        a = list(args)
-        a[i] = wrong
-        bad_finalize.append(a)
+    bad_finalize = [
+        ((runs[0].long(), *runs[1:]), origin, res, kw),
+        ((runs[0], runs[1].int(), runs[2]), origin, res, kw),
+        ((runs[0], runs[1], runs[2][:-1]), origin, res, kw),
+        (runs, origin.cpu(), res, kw),
+        (runs, origin, res[None], kw),
+        (runs, origin, res, {"points": pts[:, :2]}),
+        (runs, origin, res, {"points": pts.double()}),
+        (runs, origin, res, {"points": misaligned}),
+        (runs, origin, res, {}),
+        (runs, origin, res, {"points": pts, "merge": ckw["merge"]}),
+        (cruns, origin, cres, {"merge": (order.int(), (fkeys, fstats), fres, factor)}),
+        (cruns, origin, cres, {"merge": (order, (fkeys, fstats[:, :12]), fres, factor)}),
+        (cruns, origin, cres, {"merge": (order, (fkeys.long(), fstats), fres, factor)}),
+        (cruns, origin, cres, {"merge": (order, (fkeys, fstats), fres, 0)}),
+    ]
     before = (tk.ndt_finalize.launches, tk.eigh3x3.launches)
-    for a in bad_finalize:
+    for r, o, rs, k in bad_finalize:
         with pytest.raises(ValueError):
-            tk.ndt_finalize(*a, 6)
+            tk.ndt_finalize(r, o, rs, 6, **k)
     for bad in (A.double(), A[:, :2], A.transpose(1, 2), A.reshape(8, 9), A[0]):
         with pytest.raises(ValueError):
             tk.eigh3x3(bad)
@@ -1539,28 +1606,31 @@ def test_voxel_finalize_kernels_reject_bad_inputs(cuda):
 
 
 def test_voxel_finalize_kernels_make_no_synchronous_read(cuda):
-    """Both wrappers, and a whole `build_ndt_map`'s finalize, under
+    """Both wrappers, both modes of `ndt_finalize`, under
     `torch.cuda.set_sync_debug_mode("error")` after a warm-up call."""
-    args = _random_moments(32768, cuda)
+    (runs, origin, res), kw = _level_inputs(cuda, "ring28")
+    (cruns, _, cres), ckw = _level_inputs(cuda, "ring28", coarse=True)
     A = _window_covariances(cuda, n=4096)
-    tk.ndt_finalize(*args, 6)
+    tk.ndt_finalize(runs, origin, res, 6, **kw)
     tk.eigh3x3(A)
     torch.cuda.synchronize()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        rows = tk.ndt_finalize(*args, 6)
+        _, rows = tk.ndt_finalize(runs, origin, res, 6, **kw)
+        _, crows = tk.ndt_finalize(cruns, origin, cres, 6, **ckw)
         w, _ = tk.eigh3x3(A)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert int(rows[3].sum()) > 0 and bool(torch.isfinite(w).all())
+    assert int(rows[3].sum()) > 0 and int(crows[3].sum()) > 0 and bool(torch.isfinite(w).all())
 
 
 def test_voxel_finalize_kernels_on_two_streams_at_once(cuda):
     """Two threads, each on its own stream, launch both entry points 20 times each at the
     same time: every result equals the serial one bit for bit."""
-    args = _random_moments(65536, cuda, seed=2)
+    (runs, origin, res), kw = _level_inputs(cuda, "ring", seed=2)
     A = _window_covariances(cuda, n=16384)
-    calls = {"finalize": lambda: tk.ndt_finalize(*args, 6), "eigh": lambda: tk.eigh3x3(A)}
+    calls = {"finalize": lambda: _flat(tk.ndt_finalize(runs, origin, res, 6, **kw)),
+             "eigh": lambda: tk.eigh3x3(A)}
     serial = {k: fn() for k, fn in calls.items()}
     torch.cuda.synchronize()
     barrier = threading.Barrier(2, timeout=60)

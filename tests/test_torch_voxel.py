@@ -86,12 +86,14 @@ def test_build_ndt_map_matches_reference(cloud, capacity):
                       tv.build_ndt_map(tp, tm, 2.0, capacity=capacity))
     # The raw per-voxel moments: keys and counts exact, sums to atol 1e-5.
     js = _jax_voxel_stats(jp, jm, jnp.float32(2.0), capacity)
-    ts = tv._sorted_voxel_stats(tp, tm, tv.as_f32(2.0, tp), capacity)
+    res = tv.as_f32(2.0, tp)
+    origin, runs, pts_sorted, _ = tv._sorted_points(tp, tm, res, capacity)
+    seg_keys, stats = tv._point_moments(runs, pts_sorted, origin, res)
     occupied = np.asarray(js[6])
-    np.testing.assert_array_equal(ts[6].numpy(), occupied)
-    np.testing.assert_array_equal(ts[0].numpy()[occupied], np.asarray(js[0])[occupied])
-    np.testing.assert_array_equal(ts[1].numpy(), np.asarray(js[1]))
-    np.testing.assert_allclose(ts[2].numpy(), np.asarray(js[2]), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal((runs[2][:capacity] > 0).numpy(), occupied)
+    np.testing.assert_array_equal(seg_keys.numpy()[occupied], np.asarray(js[0])[occupied])
+    np.testing.assert_array_equal(stats[:, 0].numpy(), np.asarray(js[1]))
+    np.testing.assert_allclose(stats[:, 1:4].numpy(), np.asarray(js[2]), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("cloud", list(CLOUDS))
