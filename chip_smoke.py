@@ -60,8 +60,10 @@ of `bench.py:bench_e2e`. Phases:
   9. the CLI in a subprocess on the synthetic course (60 frames, --no-loop-closure);
  10. the loop course: `SlamPipeline` with the default config on the 360-frame drift
      course, then again with loops off — all frames converge, loops are accepted, and
-     keyframe ATE with loops on is below ATE with loops off; the loop kernel's launches
-     on the verify path are counted; the back-end stage p50 with loops on and off;
+     keyframe ATE with loops on is below ATE with loops off; the loop kernels' launches
+     on the verify path are counted (the NDT pre-align's, `icp_iteration`'s — and how
+     many of those did work — and `icp_fitness`'s); the back-end stage p50 with loops on
+     and off, verify p50 and max;
  10b. `ndt_finalize` on the course's last ring (~28% of its rows valid) as in phase 4,
      and its rebuild profile;
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
@@ -95,6 +97,23 @@ of `bench.py:bench_e2e`. Phases:
      test: its carry bit-identical to this tree's after the whole loop and after one
      iteration, and its times in turns with this tree's; then 5 dense frames of the
      fused GICP step under `torch.cuda.set_sync_debug_mode("error")`;
+ 14c. icp-loop, ICP's counterpart of 3b and 14b: `icp_iteration` (`icp_align_loop`: one
+     launch an iteration — the grid-NN match from a tile's staged cell runs, the sums
+     about the align's anchor, the closed-form step with its 3x3 SVD and stop test in the
+     last block — the carry on the device) against the plain loop on the same card
+     tensors: the verifier's fixture (phase 12's loop submap grid, 2 m cells, 7 cells,
+     bucket 16, its 16,384-point keyframe from the pre-align's result) and the ICP front
+     end's (the full ring's grid, the last ring scan, N = 32,768, bucket 32, from a
+     perturbed guess), and the latter cut at one iteration (inliers exact): T within
+     1e-4, the same iterations and done, inliers within 0.1%, fitness within rtol 1e-4,
+     bit-identical reruns; `icp_fitness` against its plain version in both modes (counts
+     exact, score and fraction to rtol 1e-6); device us of a working and an early-exit
+     launch, host and device us of an align stage, the bounds, the plain versions' ms,
+     the kernels' registers, shared memory and blocks; each fixture's `icp_align` under
+     torch.profiler (`scripts/torch_profile_icp.py`), with `--parent DIR` in turns with
+     that tree's host loop (wall and device ms, launches, its iterations and transform);
+     then one whole verification and 5 dense frames of the fused ICP step under
+     `torch.cuda.set_sync_debug_mode("error")`;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
      loop kernel launched 64 times a frame (and how many did work), `eigh3x3` at least
@@ -102,7 +121,10 @@ of `bench.py:bench_e2e`. Phases:
      loop kernel not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter`
      stage p50 (the host's enqueue of the step);
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
-     then ICP, each with phase 6's assertions; each stage's p50 for both;
+     then ICP, each with phase 6's assertions, ICP launching `icp_iteration`; each
+     stage's p50 for both; with `--parent DIR`, phase 10's course (verify p50 and max)
+     and this classic ICP run (register p50) through `scripts/torch_trajectories.py` for
+     this tree and that one in turns;
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
      ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
@@ -170,8 +192,9 @@ Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
 `python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
-3b, its profile to phase 7 and its GICP loop kernel to phase 14b (the carry bit for bit,
-the times in turns with this tree's).
+3b, its profile to phase 7, its GICP loop kernel to phase 14b (the carry bit for bit,
+the times in turns with this tree's), its ICP aligns to phase 14c and its verifications
+and classic ICP front end to phase 16 (in turns).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -182,6 +205,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -232,6 +256,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
 )
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.registration import features, gicp
+from lidar_graph_slam_tpu_torch.registration import icp as icp_module
 from lidar_graph_slam_tpu_torch.registration import ndt as ndt_module
 from lidar_graph_slam_tpu_torch.registration.ndt import (
     magnusson_constants,
@@ -258,8 +283,8 @@ OUT_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-           "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "ndt_finalize",
-           "eigh3x3")
+           "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
+           "icp_fitness", "ndt_finalize", "eigh3x3")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -659,10 +684,13 @@ def ring_finalize_inputs(cfg: PipelineConfig, ring) -> dict:
 
 
 def parent_finalize(parent_kern, args, kw):
-    """The parent tree's work on the same sorted rows: the moments by the plain column
-    block and `torch.segment_reduce` (`ops/voxel.py:_point_moments` / `_merged_moments`,
-    the parent's operations), then its `ndt_finalize` (another tree's `ops.kernels`) over
-    them. Returns its rows."""
+    """The parent tree's work on the same sorted rows: its `ndt_finalize` (another tree's
+    `ops.kernels`) on them when it takes sorted rows too; for a tree whose kernel took
+    moments, the moments by the plain column block and `torch.segment_reduce`
+    (`ops/voxel.py:_point_moments` / `_merged_moments`, that tree's operations), then its
+    `ndt_finalize` over them. Returns its rows."""
+    if next(iter(inspect.signature(parent_kern.ndt_finalize).parameters)) == "runs":
+        return parent_kern.ndt_finalize(*args, MIN_POINTS, **kw)[1]
     runs, origin, res = args
     if "points" in kw:
         seg_keys, stats = voxel._point_moments(runs, kw["points"], origin, res)
@@ -1192,12 +1220,12 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every kernel's launches since `reset_counts`, read just after a path ran, and
-    `ndt_iteration_worked` / `gicp_iteration_worked`: how many of each loop kernel's
-    launches (one per sequence of a batch) did work rather than exit on a finished
-    carry."""
+    `ndt_iteration_worked` / `gicp_iteration_worked` / `icp_iteration_worked`: how many of
+    each loop kernel's launches (one per sequence of a batch) did work rather than exit on
+    a finished carry."""
     torch.cuda.synchronize()
     counts = {name: getattr(kernels, name).launches for name in KERNELS}
-    for name in ("ndt_iteration", "gicp_iteration"):
+    for name in ("ndt_iteration", "gicp_iteration", "icp_iteration"):
         counts[f"{name}_worked"] = kernels.worked_launches(kernel=name)
     return counts
 
@@ -1673,42 +1701,52 @@ def compare_gicp_loop(label: str, args, exact_inliers: bool = False) -> dict:
     return rec
 
 
-def gicp_loop_bound_us(args) -> dict:
-    """The least time for one working launch of the GICP loop kernel on these inputs at
-    T0, counted on the card from this run's data. Bytes: the mask (1 B a point), each
-    masked-in point (12 B), each distinct in-table cell its query reads (4 B), each
-    distinct candidate row whose key is that cell's (16 B), each matched point's source
-    covariance (36 B) and each distinct matched target row's covariance and flag (37 B),
-    the carry and the damping. Operations: the per-point, per-candidate and per-row
-    counts above, and the step."""
+def nn_query_counts(grid, src, msk, T, bucket_cap: int, neighborhood: int) -> dict:
+    """What one grid-NN query of the masked-in points of `src` moved by T reads, counted
+    with torch ops on the card from this run's data: the points, the distinct in-table
+    cells their neighbourhoods name (4 B of table each), the candidates whose key is their
+    cell's and the distinct rows among them (16 B each)."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as nb
 
-    target, src, msk, _covs, T0, corr2 = args[:6]
-    bucket_cap, neighborhood = args[9], args[10]
-    p = se3.transform_points(T0, src)
-    q = p[msk]
-    grid = target.grid
+    q = se3.transform_points(T, src)[msk]
     offsets = nb._offsets_for(neighborhood, q.device)
     d2, cand = nb._candidate_scan(grid, q, offsets, bucket_cap)
     real = torch.isfinite(d2)
-    n_cand = int(real.sum())
-    rows = torch.unique(cand[real]).numel()
     nc = voxel_coords(q, grid.origin, 1.0 / grid.cell_size)[:, None, :] + offsets
     in_range = ((nc >= 0) & (nc < torch.tensor(TABLE_DIMS, device=q.device))).all(-1)
     _, dy, dz = TABLE_DIMS
     cells = torch.unique(((nc[..., 0] * dy + nc[..., 1]) * dz + nc[..., 2])[in_range]).numel()
-    idx, _d2, matched = kernels.gicp_match(target, p, msk, corr2, bucket_cap, neighborhood)
-    n_match = int(matched.sum())
-    trows = torch.unique(idx[matched]).numel()
-    n_pts = q.shape[0]
-    nbytes = (src.shape[0] + 12 * n_pts + 4 * cells + 16 * rows + 36 * n_match + 37 * trows
-              + CARRY_BYTES)
-    flops = ((TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT) * n_pts
-             + CANDIDATE_FLOPS * n_cand + GICP_ROW_FLOPS * n_match + STEP_FLOPS)
+    return dict(points=q.shape[0], candidates=int(real.sum()),
+                candidate_rows=torch.unique(cand[real]).numel(), table_cells=cells)
+
+
+def bound_of(nbytes: float, flops: float, **counts) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     return dict(bound_us=1e6 * max(t_bytes, t_ops), bytes=nbytes, flops=flops,
-                bound_by="bytes" if t_bytes >= t_ops else "operations", candidates=n_cand,
-                candidate_rows=rows, table_cells=cells, matched=n_match)
+                bound_by="bytes" if t_bytes >= t_ops else "operations", **counts)
+
+
+def gicp_loop_bound_us(args) -> dict:
+    """The least time for one working launch of the GICP loop kernel on these inputs at
+    T0, counted on the card from this run's data. Bytes: the mask (1 B a point), each
+    masked-in point (12 B), the query's table cells (4 B) and candidate rows (16 B,
+    `nn_query_counts`), each matched point's source covariance (36 B) and each distinct
+    matched target row's covariance and flag (37 B), the carry and the damping.
+    Operations: the per-point, per-candidate and per-row counts above, and the step."""
+    target, src, msk, _covs, T0, corr2 = args[:6]
+    bucket_cap, neighborhood = args[9], args[10]
+    c = nn_query_counts(target.grid, src, msk, T0, bucket_cap, neighborhood)
+    idx, _d2, matched = kernels.gicp_match(target, se3.transform_points(T0, src), msk, corr2,
+                                           bucket_cap, neighborhood)
+    n_match = int(matched.sum())
+    trows = torch.unique(idx[matched]).numel()
+    nbytes = (src.shape[0] + 12 * c["points"] + 4 * c["table_cells"]
+              + 16 * c["candidate_rows"] + 36 * n_match + 37 * trows + CARRY_BYTES)
+    flops = ((TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT) * c["points"]
+             + CANDIDATE_FLOPS * c["candidates"] + GICP_ROW_FLOPS * n_match + STEP_FLOPS)
+    return bound_of(nbytes, flops, candidates=c["candidates"],
+                    candidate_rows=c["candidate_rows"], table_cells=c["table_cells"],
+                    matched=n_match)
 
 
 def stage_counts(args, stage_runs: int) -> dict:
@@ -1878,6 +1916,373 @@ def gicp_loop_phase(cfg: PipelineConfig, front_in, verify_in, T_last: np.ndarray
     return dict(err=err, timing=timing, records=recs, resources=resources)
 
 
+# -- the ICP loop on the device (the icp-loop phase) ---------------------------------------
+
+# `icp_iteration` against its plain loop (the reference's body in torch ops, the carry
+# frozen after done) on the same card tensors, to the NDT loop's bounds (LOOP_T_ATOL,
+# LOOP_INLIERS_RTOL, LOOP_FITNESS_RTOL: float32 sums in other orders, the step from moments
+# about an anchor and a one-sided Jacobi SVD against cuSOLVER's, the in-register transform
+# against cuBLAS's `points @ R^T`); a loop cut at one iteration has exactly the plain loop's
+# inliers (the same matches). `icp_fitness` against its plain version: the matched and
+# valid counts exact, score and fraction to ICP_FITNESS_RTOL (sums in other orders).
+ICP_FITNESS_RTOL = 1e-6
+# Float operations of a working `icp_iteration` launch: per masked-in point the transform,
+# its cell, the fitness term (a min and a sum) and the valid count (TRANSFORM_FLOPS_PER_POINT
+# + CELL_FLOPS_PER_POINT + ICP_POINT_FLOPS); per candidate whose key is its cell's, d2 and
+# the comparison (CANDIDATE_FLOPS); per matched point p - c and q - c (6), the nine products
+# (9) and the 16 sums (ICP_MATCH_FLOPS); the step in one thread: six sweeps of three Jacobi
+# rotations (~45 each), the rotation from the two pairs (~60), the means and the
+# cross-covariance (~40), se3_log (~120) and the update (~40): ~1,100 (ICP_STEP_FLOPS). An
+# `icp_fitness` launch: per point the transform, the cell, a min and three sums; per
+# matched point a count and a sum. Bytes beyond the query's: the carry (CARRY_BYTES) and
+# the anchor (12 B); the fitness launch's T (64 B) and outputs (8 B).
+ICP_POINT_FLOPS = 3
+ICP_MATCH_FLOPS = 31
+ICP_STEP_FLOPS = 1100
+ICP_FIT_POINT_FLOPS = 4
+ICP_FIT_MATCH_FLOPS = 2
+ICP_VERIFY_QUERY = (7, 16)  # the verifier's: 7 cells, 16-row buckets (graph/slam.py)
+ICP_FRONT_QUERY = (7, 32)   # the ICP front end's (registration/icp.py:make_icp_matcher)
+
+
+def icp_front_inputs(cfg: PipelineConfig, ring, last) -> dict:
+    """The ICP front end's inputs on the dense course: the grid `make_icp_matcher` builds
+    from the full ring (its cell the GICP config's correspondence distance, as
+    `odometry/scan_matcher.py` passes it) and the last ring scan (N = 32,768), with the
+    cloud the grid was built from."""
+    g = cfg.scan_matcher.gicp
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    build_target, _ = icp_module.make_icp_matcher(g, cell_size=g.max_correspondence_distance)
+    return dict(grid=build_target(points, mask), cloud=(points, mask), points=last.points,
+                mask=last.mask, cell=g.max_correspondence_distance)
+
+
+def icp_front_args(cfg: PipelineConfig, inputs: dict, T0, max_iterations: int | None = None):
+    """`icp_align_loop`'s arguments as the front end's `make_icp_matcher` align passes them."""
+    g = cfg.scan_matcher.gicp
+    d = min(g.max_correspondence_distance, inputs["cell"])
+    return (inputs["grid"], inputs["points"], inputs["mask"], T0, d * d,
+            max(g.transform_epsilon, 1e-7), 0.0,
+            g.max_iterations if max_iterations is None else max_iterations, *ICP_FRONT_QUERY[::-1])
+
+
+def icp_verify_inputs(back: GraphBasedSLAM, rec: dict) -> dict:
+    """The ICP verifier's inputs for attempt `rec` of a back end (phase 12's): built by an
+    ICP back end fed the same keyframes (the candidate's loop submap grid at 2 m cells and
+    its pre-align map, the latest keyframe at 16,384 points) and the coarse pre-align's
+    result, where the verifier's ICP loop starts."""
+    cfg = dataclasses.replace(back.cfg, registration_method="ICP", async_backend=False)
+    b = GraphBasedSLAM(cfg, back.capacity, device=back.device)
+    for k in range(rec["latest"] + 1):
+        cloud = back._cloud(k)
+        b.add_keyframe({"pose": back.kf_front_poses[k], "cloud": cloud,
+                        "cloud_mask": np.ones(cloud.shape[0], bool),
+                        "accum_distance": back.kf_accum_dist[k]})
+    inp = b._build_verify_inputs()
+    grid, pre_map, _extra, _glob = inp["targets"][0]
+    src_p, src_m, _ = inp["source"]
+    pre = loop_pre_align(pre_map, src_p, src_m, torch.eye(4, device=src_p.device))
+    mask = grid.keys != voxel.INVALID_KEY
+    return dict(grid=grid, pre_map=pre_map, cloud=(grid.points, mask), points=src_p,
+                mask=src_m, T_pre=pre.transform, cfg=cfg,
+                cell=min(cfg.icp.max_correspondence_distance, 2.0))
+
+
+def icp_verify_args(inputs: dict, max_iterations: int | None = None):
+    """`icp_align_loop`'s arguments as `graph/slam.py:make_verify_one` passes them."""
+    icp_cfg = inputs["cfg"].icp
+    d = inputs["cell"]
+    return (inputs["grid"], inputs["points"], inputs["mask"], inputs["T_pre"], d * d,
+            max(icp_cfg.transform_epsilon, 1e-7), icp_cfg.euclidean_fitness_epsilon,
+            icp_cfg.max_iterations if max_iterations is None else max_iterations,
+            *ICP_VERIFY_QUERY[::-1])
+
+
+def compare_icp_loop(label: str, args, exact_inliers: bool = False) -> dict:
+    """The ICP kernel loop vs its plain loop on the same card tensors, plus a
+    bit-identical rerun; returns the numbers of the comparison."""
+    out = kernels.icp_align_loop(*args)
+    again = kernels.icp_align_loop(*args)
+    ref = kernels.icp_align_loop_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{label}: two ICP kernel loops differ")
+    rec = dict(case=label, N=args[1].shape[0], max_iterations=args[7], iterations=int(out[2]),
+               iterations_plain=int(ref[2]), done=bool(out[1]), done_plain=bool(ref[1]),
+               T_max_abs_err=float((out[0] - ref[0]).abs().max()), inliers=int(out[4]),
+               inliers_plain=int(ref[4]), fitness=float(out[3]), fitness_plain=float(ref[3]),
+               bit_identical=True)
+    say("icp-loop-check", **rec)
+    inl_tol = 0 if exact_inliers else LOOP_INLIERS_RTOL * rec["inliers_plain"]
+    if not (rec["T_max_abs_err"] <= LOOP_T_ATOL
+            and rec["iterations"] == rec["iterations_plain"]
+            and rec["done"] == rec["done_plain"]
+            and abs(rec["inliers"] - rec["inliers_plain"]) <= inl_tol
+            and rec["inliers_plain"] > 0
+            and abs(rec["fitness"] - rec["fitness_plain"]) <= LOOP_FITNESS_RTOL
+            * abs(rec["fitness_plain"])):
+        raise AssertionError(f"{label}: ICP kernel loop vs plain {rec}")
+    return rec
+
+
+def icp_loop_bound_us(args) -> dict:
+    """The least time for one working launch of `icp_iteration` on these inputs at T0:
+    the mask (1 B a point), each masked-in point (12 B), the query's table cells and
+    candidate rows (`nn_query_counts`), the carry and the anchor; the operations above."""
+    grid, src, msk, T0, corr2 = args[:5]
+    bucket_cap, neighborhood = args[8], args[9]
+    c = nn_query_counts(grid, src, msk, T0, bucket_cap, neighborhood)
+    matched = kernels.icp_match(grid, se3.transform_points(T0, src), msk, corr2, bucket_cap,
+                                neighborhood)[3]
+    n_match = int(matched.sum())
+    nbytes = (src.shape[0] + 12 * c["points"] + 4 * c["table_cells"] + 16 * c["candidate_rows"]
+              + CARRY_BYTES + 12)
+    flops = ((TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT + ICP_POINT_FLOPS) * c["points"]
+             + CANDIDATE_FLOPS * c["candidates"] + ICP_MATCH_FLOPS * n_match + ICP_STEP_FLOPS)
+    return bound_of(nbytes, flops, matched=n_match, **c)
+
+
+def icp_fitness_bound_us(grid, pts, msk, T, max_range: float, bucket_cap: int,
+                         neighborhood: int) -> dict:
+    """The least time for one `icp_fitness` launch on these inputs: the query's bytes as
+    in `icp_loop_bound_us`, T and the two outputs; the operations above."""
+    c = nn_query_counts(grid, pts, msk, T, bucket_cap, neighborhood)
+    matched = kernels.icp_match(grid, se3.transform_points(T, pts), msk,
+                                max_range * max_range, bucket_cap, neighborhood)[3]
+    n_match = int(matched.sum())
+    nbytes = (pts.shape[0] + 12 * c["points"] + 4 * c["table_cells"] + 16 * c["candidate_rows"]
+              + 64 + 8)
+    flops = ((TRANSFORM_FLOPS_PER_POINT + CELL_FLOPS_PER_POINT + ICP_FIT_POINT_FLOPS)
+             * c["points"] + CANDIDATE_FLOPS * c["candidates"] + ICP_FIT_MATCH_FLOPS * n_match)
+    return bound_of(nbytes, flops, matched=n_match, **c)
+
+
+def icp_loop_timings(args, align) -> dict:
+    """Device us per working launch and per early-exit launch of `icp_iteration`, and the
+    host and device us of a whole align stage (`align()`), as `loop_timings` measures
+    NDT's: a loop of 20 launches that all work (both epsilons 0), one of 1 working launch,
+    and one of 1 working and 40 early-exit launches (epsilon 1e9)."""
+    def loop(eps, its):
+        return lambda: kernels.icp_align_loop(*args[:5], eps, 0.0, its, *args[8:])
+
+    work = split_times(loop(0.0, 20), calls=10, warmup=2)
+    one = split_times(loop(1e9, 1), calls=40, warmup=2)
+    dead = split_times(loop(1e9, 41), calls=5, warmup=2)
+    stage = split_times(align, calls=3, warmup=2)
+    return dict(working_launch_us=(work["device_us"] - one["device_us"]) / 19,
+                early_exit_launch_us=(dead["device_us"] - one["device_us"]) / 40,
+                loop_host_us_20=work["host_us"], stage_host_us=stage["host_us"],
+                stage_device_us=stage["device_us"], stage_single_ms=stage["single_ms"])
+
+
+def icp_plain_launch_ms(args) -> float:
+    """The plain version's time for one working launch's work on the card: one
+    `icp_body_plain` (the transform, `nearest`, the SVD step with its host read, the
+    fitness and the test) and the frozen carry's select."""
+    grid, src, msk, T0, corr2, eps, fit_eps, _its, bucket_cap, neighborhood = args
+    dev = src.device
+    carry = (T0, torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.full((), torch.inf, device=dev), torch.zeros((), dtype=torch.int32, device=dev))
+
+    def one():
+        new = kernels.icp_body_plain(grid, src, msk, carry, corr2, eps, fit_eps, bucket_cap,
+                                     neighborhood)
+        return tuple(torch.where(carry[1], old, n) for old, n in zip(carry, new))
+
+    return median_ms(one, calls=20)
+
+
+def icp_fitness_check(label: str, grid, pts, msk, T, max_range: float, card: str) -> tuple:
+    """`icp_fitness` against `icp_fitness_plain` at the verifier's query in both modes, on
+    the same card tensors: the matched and valid counts exact (the fraction times the valid
+    count), score and fraction to ICP_FITNESS_RTOL, a bit-identical rerun; device and host
+    us a launch (`split_times`), the plain version's ms, the bound. Returns (max abs err,
+    the "pcl" mode's timing record)."""
+    nvalid = int(msk.sum())
+    err, recs = 0.0, {}
+    for mode in ("pcl", "penalized"):
+        call = (grid, pts, msk, T, max_range, *ICP_VERIFY_QUERY[::-1], mode)
+        out, again = kernels.icp_fitness(*call), kernels.icp_fitness(*call)
+        ref = kernels.icp_fitness_plain(*call)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"{label}: two icp_fitness launches differ ({mode})")
+        score, frac, rscore, rfrac = (float(x) for x in (*out, *ref))
+        matched, rmatched = round(frac * nvalid), round(rfrac * nvalid)
+        ok = (matched == rmatched and abs(frac - rfrac) <= ICP_FITNESS_RTOL * abs(rfrac)
+              and (score == rscore or abs(score - rscore) <= ICP_FITNESS_RTOL * abs(rscore)))
+        say("icp-fitness-check", case=label, mode=mode, valid=nvalid, matched=matched,
+            matched_plain=rmatched, score=score, score_plain=rscore, frac=frac,
+            frac_plain=rfrac, bit_identical=True)
+        if not ok:
+            raise AssertionError(f"{label}: icp_fitness vs plain ({mode}): {out} vs {ref}")
+        if np.isfinite(rscore):
+            err = max(err, abs(score - rscore), abs(frac - rfrac))
+        t = split_times(kernels.icp_fitness, *call, calls=50, warmup=5)
+        t.update(icp_fitness_bound_us(grid, pts, msk, T, max_range, *ICP_VERIFY_QUERY[::-1]),
+                 plain_ms=median_ms(kernels.icp_fitness_plain, *call, calls=20), N=pts.shape[0],
+                 mode=mode, library_ms=None)
+        t.update(share_of_bound=t["bound_us"] / t["device_us"])
+        say("icp-fitness-time", case=label, **t, card=json.dumps(card))
+        recs[mode] = t
+    return err, recs["pcl"]
+
+
+def profile_icp_in_turns(label: str, inputs: dict, args, parent: str | None, card: str) -> dict:
+    """One `icp_align` on a fixture under torch.profiler by `scripts/torch_profile_icp.py`
+    in a subprocess: this tree's (one loop call, max_iterations launches, and the
+    fitness's none), and with `parent` (the parent commit unpacked by `git archive`, whose
+    ICP loop runs on the host) that tree's on the same input, in turns (this, parent,
+    parent, this): wall and device ms, device launches, iterations and the transforms'
+    largest difference. Returns the means by tree."""
+    points, mask = inputs["cloud"]
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", f"icp_profile_{label}.npz")
+    np.savez(path, points=points.cpu().numpy(), mask=mask.cpu().numpy(), cell=inputs["cell"],
+             source=args[1].cpu().numpy(), source_mask=args[2].cpu().numpy(),
+             init=args[3].cpu().numpy(),
+             settings=np.array([np.sqrt(args[4]), args[7], args[5], args[6], args[8], args[9]]))
+    order = [("this", REPO)] if parent is None else [
+        ("this", REPO), ("parent", parent), ("parent", parent), ("this", REPO)]
+    out = {}
+    try:
+        for tree, root in order:
+            proc = subprocess.run(
+                [sys.executable, os.path.join(REPO, "scripts", "torch_profile_icp.py"),
+                 "--input", path, "--root", os.path.abspath(root)],
+                cwd=os.path.abspath(root), capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"icp profile ({tree}) failed:\n{proc.stderr[-3000:]}")
+            out.setdefault(tree, []).append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    finally:
+        os.remove(path)
+    summary = {tree: {k: float(np.mean([r[k] for r in runs])) for k in
+                      ("wall_ms_per_align", "device_ms_per_align", "launches_per_align",
+                       "idle_share", "iterations")}
+               for tree, runs in out.items()}
+    this = out["this"][0]
+    extra = {}
+    if "parent" in out:
+        par = out["parent"][0]
+        extra = dict(parent_iterations=par["iterations"], transform_max_diff_parent=float(
+            np.abs(np.asarray(par["transform"]) - np.asarray(this["transform"])).max()))
+    say("icp-profile", case=label, iterations=this["iterations"], **extra,
+        mean=json.dumps(summary, separators=(",", ":")), card=json.dumps(card))
+    if not all(r["converged"] for rs in out.values() for r in rs):
+        raise AssertionError(f"icp profile {label}: {out}")
+    return dict(summary, **extra)
+
+
+def trajectories_in_turns(parent: str, courses) -> dict:
+    """`scripts/torch_trajectories.py --courses ...` for this tree and `parent` (the parent
+    commit unpacked by `git archive`) in turns (this, parent, parent, this), each in a
+    subprocess, then `--compare`: per course and run (`0_this`, `1_parent`, `2_parent`,
+    `3_this`) its bit-equality with the first run, its ATE, loops, stage p50s and verify
+    p50 and max ms."""
+    script = os.path.join(REPO, "scripts", "torch_trajectories.py")
+    d = os.path.join(REPO, ".chip_scratch", "trajectories")
+    os.makedirs(d, exist_ok=True)
+    files = []
+    for i, (tree, root) in enumerate((("this", REPO), ("parent", parent), ("parent", parent),
+                                      ("this", REPO))):
+        path = os.path.join(d, f"{i}_{tree}.npz")
+        proc = subprocess.run([sys.executable, script, "--root", os.path.abspath(root), "--out",
+                               path, "--courses", *courses], cwd=os.path.abspath(root),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"trajectories ({tree}) failed:\n{proc.stderr[-3000:]}")
+        files.append(path)
+    proc = subprocess.run([sys.executable, script, "--compare", *files], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"trajectories --compare failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def verification_sync_free(inputs: dict) -> dict:
+    """One whole verification with the ICP verifier (`graph/slam.py:make_verify_one`: the
+    coarse NDT pre-align, the ICP loop, the gate's fitness) on phase 12's inputs from the
+    identity, after a warm-up one, under `torch.cuda.set_sync_debug_mode("error")`, which
+    raises at the first synchronous read; its launches counted there."""
+    from lidar_graph_slam_tpu_torch.graph.slam import make_verify_one
+
+    verify = make_verify_one(inputs["cfg"], "ICP")
+    call = (inputs["grid"], inputs["pre_map"], None,
+            torch.eye(4, device=inputs["points"].device), inputs["points"], inputs["mask"])
+    verify(*call)
+    torch.cuda.synchronize()
+    before = (kernels.icp_align_loop.launches, kernels.icp_fitness.launches)
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        T, score, ok = verify(*call)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = 1000 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    total_ms = 1000 * (time.perf_counter() - t0)
+    return dict(sync_reads=0, ok=bool(ok), fitness=float(score),
+                icp_iteration_launches=kernels.icp_align_loop.launches - before[0],
+                icp_fitness_launches=kernels.icp_fitness.launches - before[1],
+                enqueue_ms=enqueue_ms, wall_ms=total_ms)
+
+
+def icp_loop_phase(cfg: PipelineConfig, front: dict, verify: dict, T_last: np.ndarray,
+                   card: str, parent: str | None = None) -> dict:
+    """The icp-loop phase: `icp_iteration` (`icp_align_loop`) against the plain loop on the
+    verifier's fixture (phase 12's loop submap grid and 16,384-point keyframe, from the
+    pre-align's result) and the front end's (the full ring's grid and the last ring scan,
+    N = 32,768, from a perturbed guess), and the front end's cut at one iteration (inliers
+    exact); `icp_fitness` against its plain version at the verifier's result in both
+    modes; per kernel the device us of a working (and an early-exit) launch, the host and
+    device us of an align stage, the bound and the plain version's ms; the kernels'
+    registers, shared memory and blocks; each fixture's align profiled, with `parent` in
+    turns with the parent tree's host loop. Returns {"err", "fit_err", "timing",
+    "records", "resources"}."""
+    dev = front["points"].device
+    resources = {
+        name: dict(kernels.loop_kernel_attributes(dev, icp=(*q, fit)),
+                   blocks=kernels.loop_grid(dev, n, icp=(*q, fit)))
+        for name, q, fit, n in (
+            ("icp_iteration_verify", ICP_VERIFY_QUERY, 0, verify["points"].shape[0]),
+            ("icp_iteration_front", ICP_FRONT_QUERY, 0, front["points"].shape[0]),
+            ("icp_fitness_verify", ICP_VERIFY_QUERY, 1, verify["points"].shape[0]))}
+    for name, r in resources.items():
+        say("icp-loop-kernel", kernel=name, **r)
+    init = torch.as_tensor(perturbed(T_last), device=dev)
+    stages = {"verify": icp_verify_args(verify), "front": icp_front_args(cfg, front, init)}
+    recs = [compare_icp_loop(f"{k}-{'pre-align' if k == 'verify' else 'perturbed'}", a)
+            for k, a in stages.items()]
+    recs.append(compare_icp_loop("front-one-iteration", icp_front_args(cfg, front, init, 1),
+                                 exact_inliers=True))
+    if not (recs[0]["done"] and recs[1]["done"] and recs[2]["iterations"] == 1):
+        raise AssertionError(f"icp loop fixtures: {recs}")
+    err = max(r["T_max_abs_err"] for r in recs)
+    out = kernels.icp_align_loop(*stages["verify"])
+    fit_err, fit_t = icp_fitness_check("verify", verify["grid"], verify["points"],
+                                       verify["mask"], out[0], verify["cell"], card)
+    timing = {"icp_fitness_verify": {"icp_fitness": fit_t}}
+    for k, a in stages.items():
+        def align(a=a):
+            return icp_module.icp_align(
+                a[0], a[1], a[2], a[3], max_correspondence_distance=float(np.sqrt(a[4])),
+                max_iterations=a[7], transform_epsilon=a[5], euclidean_fitness_epsilon=a[6],
+                bucket_cap=a[8], neighborhood=a[9])
+        t = icp_loop_timings(a, align)
+        t.update(icp_loop_bound_us(a), plain_ms=icp_plain_launch_ms(a), N=a[1].shape[0],
+                 library_ms=None)
+        t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
+                 single_ms=t["stage_single_ms"],
+                 share_of_bound=t["bound_us"] / t["working_launch_us"])
+        prof = profile_icp_in_turns(k, front if k == "front" else verify, a, parent, card)
+        t.update(profile=prof)
+        say("icp-loop-time", stage=k, **{x: (json.dumps(v, separators=(",", ":"))
+                                            if isinstance(v, dict) else v)
+                                         for x, v in t.items()}, card=json.dumps(card))
+        timing[f"icp_loop_{k}"] = {"icp_iteration": t}
+    return dict(err=err, fit_err=fit_err, timing=timing, records=recs, resources=resources)
+
 def cli_command(out_dir: str, frames: int, loops: bool = False, sets=()) -> list:
     return [sys.executable, "-m", "lidar_graph_slam_tpu_torch.pipeline.cli", "--dataset",
             "synthetic", "--frames", str(frames), "--output", out_dir, "--progress-every", "0",
@@ -1906,6 +2311,9 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ndt_loop_worked=summary["kernel_launches"]["ndt_iteration_worked"],
                 gicp_loop_launches=summary["kernel_launches"]["gicp_align_loop"],
                 gicp_loop_worked=summary["kernel_launches"]["gicp_iteration_worked"],
+                icp_loop_launches=summary["kernel_launches"]["icp_align_loop"],
+                icp_loop_worked=summary["kernel_launches"]["icp_iteration_worked"],
+                icp_fitness_launches=summary["kernel_launches"]["icp_fitness"],
                 ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"],
                 finalize_launches=summary["kernel_launches"]["ndt_finalize"],
                 eigh3x3_launches=summary["kernel_launches"]["eigh3x3"])
@@ -2040,7 +2448,9 @@ def global_init_loop(device) -> dict:
             counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
             and counts["ndt_direct7_accumulate"] == 0
             and glob.verify_launches == counts["ndt_align_loop"] + counts["eigh3x3"]
-            and counts["eigh3x3"] > 0
+            + counts["icp_align_loop"] + counts["icp_fitness"]
+            and counts["eigh3x3"] > 0 and counts["icp_align_loop"] > 0
+            and counts["icp_fitness"] == 1
             and 0 < counts["ndt_iteration_worked"] <= counts["ndt_align_loop"]):
         raise AssertionError(f"global-init loop: launches {counts}, verify thread "
                              f"{glob.verify_launches}")
@@ -2709,8 +3119,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
-                    help="a tree of the parent commit (git archive): phases 3b, 7 and 14b "
-                         "time and profile it too, in turns")
+                    help="a tree of the parent commit (git archive): phases 3b, 7, 14b, 14c "
+                         "and 16 time and profile it too, in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
@@ -2839,9 +3249,14 @@ def main(argv=None) -> int:
     # verify thread's launches are all of it; ndt_accumulate must not have launched.
     launches_verify = back.verify_launches
     _, res_off, off = run_loop_course(loops_off_config(), dscans, dgt, "cuda")
+    # The odometry is NDT's: every ICP kernel launch of the course is the verify thread's.
     if not (on["loops_accepted"] >= 1 and launches_verify > 0
             and launches_course["ndt_accumulate"] == 0
             and launches_course["ndt_direct7_accumulate"] == 0
+            and launches_course["icp_align_loop"] > 0 and launches_course["icp_fitness"] > 0
+            and 0 < launches_course["icp_iteration_worked"] < launches_course["icp_align_loop"]
+            and launches_verify >= launches_course["icp_align_loop"]
+            + launches_course["icp_fitness"]
             and on["ate_keyframes_m"] < off["ate_keyframes_m"]):
         raise AssertionError(f"loop course: loops on {on}, off {off}, launches "
                              f"{launches_course}, verify {launches_verify}")
@@ -2863,7 +3278,11 @@ def main(argv=None) -> int:
         solve_ms_p50=1000 * float(np.median([r["seconds"] for r in back.solve_log])),
         solve_ms_max=1000 * float(np.max([r["seconds"] for r in back.solve_log])),
         solves=len(back.solve_log), solves_device_lm=sum(r["device_lm"] for r in back.solve_log),
-        ndt_launches_verify=launches_verify,
+        ndt_launches_verify=launches_verify - launches_course["icp_align_loop"]
+        - launches_course["icp_fitness"],
+        icp_iteration_launches_verify=launches_course["icp_align_loop"],
+        icp_iteration_launches_verify_worked=launches_course["icp_iteration_worked"],
+        icp_fitness_launches_verify=launches_course["icp_fitness"],
         ndt_launches_total=launches_course["ndt_align_loop"],
         ndt_launches_worked=launches_course["ndt_iteration_worked"],
         odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
@@ -2892,6 +3311,7 @@ def main(argv=None) -> int:
 
     # -- 14. ndt_accumulate on GICP's own rows: front-end and verify shapes ----------------
     front_in = gicp_front_inputs(cfg, ring, last)
+    icp_front = icp_front_inputs(cfg, ring, last)
     verify_in = gicp_verify_inputs(back, first)
     for label, rows in (("gicp_front", gicp_front_rows(cfg, front_in, T_last)),
                         ("gicp_verify", gicp_verify_rows(verify_in))):
@@ -2907,6 +3327,22 @@ def main(argv=None) -> int:
     say("gicp-loop-fused-steps", **fused_steps_sync_free(cfg_gicp, scans, gt, front_in[0], dev),
         card=json.dumps(card))
     del front_in, verify_in
+
+    # -- 14c. icp-loop: the ICP loop kernel and the fitness against their plain versions;
+    # a verification and the fused ICP step without a read ------------------------------
+    icp_verify = icp_verify_inputs(back, first)
+    iloop = icp_loop_phase(cfg, icp_front, icp_verify, T_last, card, args.parent)
+    max_err.update(icp_iteration=iloop["err"], icp_fitness=iloop["fit_err"])
+    timing.update(iloop["timing"])
+    ver_sync = verification_sync_free(icp_verify)
+    if not (ver_sync["ok"] and ver_sync["icp_fitness_launches"] == 1
+            and ver_sync["icp_iteration_launches"] == icp_verify["cfg"].icp.max_iterations):
+        raise AssertionError(f"icp verification without a read: {ver_sync}")
+    say("icp-loop-verification", **ver_sync, card=json.dumps(card))
+    cfg_icp = loops_off_config(["scan_matcher.registration_method=ICP"])
+    say("icp-loop-fused-steps", **fused_steps_sync_free(cfg_icp, scans, gt, icp_front["grid"],
+                                                        dev), card=json.dumps(card))
+    del icp_front, icp_verify
 
     # -- 15. the GICP front end (fused driver, loops off); launches counted here only -----
     say("gicp-card-vs-cpu", **first_frames_agree(cfg_gicp, scans, ("cuda", "cpu")))
@@ -2935,18 +3371,37 @@ def main(argv=None) -> int:
     reset_counts()
     classic_ndt = run_pipeline(loops_off_config(["fused_frontend=False"]), scans, gt, "cuda")
     launches_classic = read_counts()
+    reset_counts()
     classic_icp = run_pipeline(loops_off_config(["fused_frontend=False",
                                                  "scan_matcher.registration_method=ICP"]),
                                scans, gt, "cuda")
+    launches_cicp = read_counts()
     if not (classic_ndt["driver"] == classic_icp["driver"] == "classic"
             and launches_classic["ndt_align_loop"] > 0
-            and launches_classic["ndt_direct7_accumulate"] == 0):
+            and launches_classic["ndt_direct7_accumulate"] == 0
+            and launches_cicp["icp_align_loop"] > 0
+            and 0 < launches_cicp["icp_iteration_worked"] < launches_cicp["icp_align_loop"]
+            and launches_cicp["gicp_align_loop"] == 0):
         raise AssertionError(f"classic driver: {classic_ndt}, {classic_icp}, launches "
-                             f"{launches_classic}")
+                             f"{launches_classic}, {launches_cicp}")
+    classic_icp.update(icp_iteration_launches=launches_cicp["icp_align_loop"],
+                       icp_iteration_launches_worked=launches_cicp["icp_iteration_worked"])
     for name, st in (("ndt", classic_ndt), ("icp", classic_icp)):
         say("classic", method=name, **{k: json.dumps(v, separators=(",", ":"))
                                        if isinstance(v, dict) else v for k, v in st.items()},
             card=json.dumps(card))
+    if args.parent:
+        # Phase 10's verifications and phase 16's classic ICP against the parent tree's
+        # (its ICP loop on the host), in turns.
+        turns = trajectories_in_turns(args.parent, ("drift_icp", "dense_icp_classic"))
+        for course, keys in (("drift_icp", ("verify_p50_ms", "verify_max_ms", "frame_p50_ms",
+                                             "backend_p50_ms", "loops_accepted",
+                                             "ate_keyframes_m", "bit_equal_first")),
+                             ("dense_icp_classic", ("register_p50_ms", "frame_p50_ms",
+                                                    "ate_keyframes_m", "bit_equal_first"))):
+            say("icp-vs-parent", course=course, **{
+                f"{k}_{run}": v[k] for run, v in turns[course].items() for k in keys},
+                card=json.dumps(card))
 
     # -- 17. the GICP loop verifier on the drift course; launches counted here only --------
     reset_counts()
@@ -3015,16 +3470,19 @@ def main(argv=None) -> int:
         attempts_with_hypotheses=sum(r["ransac_families"]["n_3pt_valid"] + r["ransac_families"]["n_yaw_valid"]
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
-        ndt_launches_verify=pipe_gi.back.verify_launches - launches_gi["eigh3x3"],
+        ndt_launches_verify=pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
+        - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"],
+        icp_iteration_launches_verify=launches_gi["icp_align_loop"],
         eigh3x3_launches_verify=launches_gi["eigh3x3"],
         ndt_launches_total=launches_gi["ndt_align_loop"],
         ndt_launches_worked=launches_gi["ndt_iteration_worked"],
         odometry_vs_loops_off_max_diff=float(
             np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
         card=json.dumps(card))
-    # The verify thread's launches: the loop kernel's, and the FPFH normals' `eigh3x3`
-    # (launched nowhere else on this NDT course).
-    pipe_gi_verify_launches = pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
+    # The verify thread's NDT loop launches: all of its launches but the FPFH normals'
+    # `eigh3x3` and the ICP verifier's kernels (launched nowhere else on this NDT course).
+    pipe_gi_verify_launches = (pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
+                               - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"])
     del pipe_gi, res_gi
 
     # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
@@ -3162,6 +3620,34 @@ def main(argv=None) -> int:
             parent_ms=parent_ms(timing["gicp_loop_front"]["gicp_iteration"]),
             parent_ms_verify=parent_ms(timing["gicp_loop_verify"]["gicp_iteration"]),
             kernel_resources=gloop["resources"]),
+        kernel_record(
+            "icp_iteration", timing, max_err["icp_iteration"], shape="icp_loop_verify",
+            source="lidar_graph_slam_tpu_torch/csrc/icp_loop.cu",
+            replaces="lidar_graph_slam_tpu/registration/icp.py:47", replaces_commit=None,
+            launches=launches_course["icp_align_loop"],
+            launches_worked=launches_course["icp_iteration_worked"],
+            path="every ICP iteration: the default loop verifier (phase 10 counts its verify "
+                 "thread), the classic and fused ICP front ends (phases 16, 14c)",
+            ports="the jitted lax.while_loop of icp_align (lidar_graph_slam_tpu/registration/"
+                  "icp.py:114, body :73-101, _umeyama_step :30) around nearest "
+                  "(ops/neighbors.py:103-177); no Pallas kernel",
+            launches_classic_icp=launches_cicp["icp_align_loop"],
+            launches_classic_icp_worked=launches_cicp["icp_iteration_worked"],
+            launches_cli_loops=cli_on.get("icp_loop_launches"),
+            early_exit_launch_ms=timing["icp_loop_verify"]["icp_iteration"][
+                "early_exit_launch_us"] / 1000,
+            kernel_resources=iloop["resources"]),
+        kernel_record(
+            "icp_fitness", timing, max_err["icp_fitness"], shape="icp_fitness_verify",
+            source="lidar_graph_slam_tpu_torch/csrc/icp_loop.cu",
+            replaces="lidar_graph_slam_tpu/registration/icp.py:155", replaces_commit=None,
+            launches=launches_course["icp_fitness"],
+            path="every loop verification's gate, whatever the verifier (phase 10 counts the "
+                 "drift course's)",
+            ports="fitness_and_match_fraction inside the jitted verification "
+                  "(lidar_graph_slam_tpu/graph/slam.py:152-155); no Pallas kernel",
+            launches_gicp_verify=launches_gv["icp_fitness"],
+            launches_cli_loops=cli_on.get("icp_fitness_launches")),
         kernel_record(
             "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",
             launches=ls["launches"],

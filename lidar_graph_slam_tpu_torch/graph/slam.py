@@ -8,9 +8,10 @@ hybrid f64-host / f32-device pose-graph solve, and map assembly.
 
 Concurrency, as in the reference's concurrent back end:
   * Verification runs in a worker thread on its own CUDA stream (on a CUDA device),
-    which waits on the main stream's input builds. Its ICP loop reads a flag back once
-    per iteration (the NDT pre-align reads nothing), so a plain call would block the
-    frame for the whole verification. `_consume_verify` joins the thread at the frame at
+    which waits on the main stream's input builds. Its loops (the NDT pre-align, then the
+    ICP, NDT or GICP verifier) and the fitness read nothing back; the thread's one wait is
+    the read of its results, which would otherwise block the frame for the whole
+    verification. `_consume_verify` joins the thread at the frame at
     which the reference reads its dispatched program's results (`loop_verify_lag_frames`),
     so which frame a loop factor lands on does not depend on timing. A failure in the
     thread is raised in the caller.

@@ -7,12 +7,12 @@ ICP). Per frame:
              -> keyframe decision (displacement trigger, accum distance)
 
 The reference's data-dependent branches (first-scan bootstrap, convergence drop,
-displacement keyframe trigger) stay masked selects on device tensors, and the NDT loop
-runs on the device (`ops.kernels.ndt_align_loop`: its early stop is a kernel that exits on
-the carry's `done`), so the step, given its inputs on the card, makes no synchronous read:
-the host dispatches frame t+1 and reads frame t's compact outputs afterwards
-(`pipeline/runner.py`, lagged readback), as in the reference. The GICP and ICP matchers
-still read their `done` flag once per iteration.
+displacement keyframe trigger) stay masked selects on device tensors, and each matcher's
+loop runs on the device (`ops.kernels.ndt_align_loop`, `gicp_align_loop`,
+`icp_align_loop`: its early stop is a kernel that exits on the carry's `done`), so the
+step, given its inputs on the card, makes no synchronous read: the host dispatches frame
+t+1 and reads frame t's compact outputs afterwards (`pipeline/runner.py`, lagged
+readback), as in the reference.
 
 The submap ring and target rebuild stay OUTSIDE the step, driven by the host after it
 reads a keyframe flag, exactly as in the reference: the target therefore lags the newest

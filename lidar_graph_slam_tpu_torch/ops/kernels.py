@@ -1,17 +1,18 @@
-"""NDT/GICP normal-equation accumulation, the whole NDT and GICP Gauss-Newton loops, and
-the NDT target's voxel finalize with its 3x3 eigensolve.
+"""NDT/GICP normal-equation accumulation, the whole NDT, GICP and ICP loops, the ICP loop
+gate's fitness, and the NDT target's voxel finalize with its 3x3 eigensolve.
 
 The wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
 `ndt_accumulate_xla`, same file), the `lax.while_loop`s around it
-(`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`) and
-the voxel finalize of the jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:
-182-339`) as hand-written CUDA kernels for Hopper in four sources
-(`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`,
-`csrc/voxel_finalize.cu`; the headers `csrc/ndt_common.cuh`, `csrc/loop_common.cuh` and
-`csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
-kernels), compiled with nvcc into one library at first use in `build/` and bound with
-ctypes:
+(`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`), ICP's
+(`registration/icp.py:47-122`) and its fitness (`:155-188`), and the voxel finalize of the
+jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`) as hand-written CUDA
+kernels for Hopper in five sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
+`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`; the headers
+`csrc/ndt_common.cuh`, `csrc/loop_common.cuh`, `csrc/nn_stage.cuh` (the grid-NN query)
+and `csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
+kernels), compiled with nvcc (one process a source, all at once) into one library at
+first use in `build/` and bound with ctypes:
 
 * `ndt_align_loop(vmap, source_points, source_mask, T0, d2, w_scale, step_size,
   transform_epsilon, damping, max_iterations, polish_iterations)`: the NDT loop of
@@ -29,6 +30,14 @@ ctypes:
   reciprocal test when `source_grid` is given, the plane-to-plane rows, accumulation and
   the 6x6 step in one launch; a launch that finds the carry done exits at once). Nothing
   is read back.
+* `icp_align_loop(grid, source_points, source_mask, T0, corr2, transform_epsilon,
+  euclidean_fitness_epsilon, max_iterations, bucket_cap, neighborhood)`: the ICP loop of
+  `registration/icp.py:icp_align` — one C call enqueues `max_iterations` launches of the
+  `icp_iteration` kernel (transform, the grid-NN match, the sums about an anchor, and the
+  closed-form step with its 3x3 SVD and stop test in the last block). Nothing is read
+  back.
+* `icp_fitness(grid, points, mask, transform, max_range, bucket_cap, neighborhood, mode)`:
+  `fitness_and_match_fraction`'s score and matched fraction in one launch.
 * `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
   reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
   accumulation, and the centre-residual sums of NDT's fitness. The loop kernel runs the
@@ -55,7 +64,10 @@ Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 reference's body (`ndt_direct7_accumulate_plain`, then `ndt_step_plain`) with the carry
 frozen after `done`; `gicp_align_loop_plain` is GICP's body (`gicp_sums_plain`: `nearest`,
 `gicp_match`, `gicp_residual_rows` and `ndt_accumulate_plain`; then `gicp_step_plain`), the
-same way; the batched plain versions loop the single ones over the batch;
+same way; `icp_align_loop_plain` is ICP's body (`icp_match`, `umeyama_step`, the
+guarded update and the stop test, `icp_body_plain`) and `icp_fitness_plain`
+`fitness_and_match_fraction`'s; the batched plain versions loop the single ones over the
+batch;
 `ops/voxel.py:ndt_finalize_plain` (the sorted rows' run sums by `torch.segment_reduce`,
 then `_finalize_ndt_plain`) and `_eigh3x3` are the last two's, bit for bit on the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
@@ -105,12 +117,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 # Built together into one library; the headers are part of the digest too.
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
-                                              "gicp_loop.cu", "voxel_finalize.cu")]
+                                              "gicp_loop.cu", "icp_loop.cu",
+                                              "voxel_finalize.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
-                                              "eigh3x3.cuh")]
+                                              "nn_stage.cuh", "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Each source compiled to an object by its own nvcc, all at once; then one link.
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _MAX_BLOCKS = 1024
 _TABLE_SIZE = TABLE_DIMS[0] * TABLE_DIMS[1] * TABLE_DIMS[2]
 
@@ -120,8 +134,8 @@ build_info: dict = {}  # {"path", "seconds", "log"} of this process's build or l
 _consts: dict = {}     # the library's threads per block, accumulators, outputs, loop tile
                        # and loop partial row
 _scratch: dict = {}    # (device index, stream handle) -> (partials f32, counters i32)
-_occupancy: dict = {}  # (device index, GICP variant or None) -> (SMs, a loop kernel's
-                       # resident blocks per SM)
+_occupancy: dict = {}  # (device index, kernel, variant) -> (SMs, a loop kernel's resident
+                       # blocks per SM)
 _count_lock = threading.Lock()
 _thread_counts = threading.local()
 
@@ -424,6 +438,213 @@ def gicp_align_loop_plain(target, source_points, source_mask, source_covs, T0, c
     return carry
 
 
+# -- ICP: the loop verifier and the ICP front end ----------------------------------------
+
+def umeyama_step(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
+    """Optimal R, t minimizing sum w ||R src + t - dst||^2 (closed form): the reference's
+    `_umeyama_step` (`lidar_graph_slam_tpu/registration/icp.py:31-45`) — the weighted
+    means, the centred cross-covariance and a 3x3 SVD with the det(U V^T) sign."""
+    wsum = torch.clamp(torch.sum(w), min=1e-9)
+    mu_s = torch.sum(src * w[:, None], dim=0) / wsum
+    mu_d = torch.sum(dst * w[:, None], dim=0) / wsum
+    sc = src - mu_s
+    dc = dst - mu_d
+    Sigma = torch.einsum("ni,nj,n->ij", dc, sc, w) / wsum
+    U, _, Vt = torch.linalg.svd(Sigma)
+    det = torch.linalg.det(U @ Vt)
+    D = torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det), det]))
+    R = U @ D @ Vt
+    t = mu_d - R @ mu_s
+    return R, t
+
+
+def icp_match(grid, p: torch.Tensor, source_mask: torch.Tensor, corr2, bucket_cap: int = 32,
+              neighborhood: int = 27):
+    """ICP's correspondences of the transformed source `p` in the target `HashGrid`: (idx
+    [N] into its sorted rows, d2 [N], found [N], matched [N]) — matched: NN found, source
+    row valid, within the distance gate (`corr2` is its square)."""
+    idx, d2, found = nearest(grid, p, bucket_cap=bucket_cap, neighborhood=neighborhood)
+    return idx, d2, found, found & source_mask & (d2 < corr2)
+
+
+def icp_body_plain(grid, source_points, source_mask, carry, corr2, transform_epsilon,
+                   euclidean_fitness_epsilon: float = 0.0, bucket_cap: int = 32,
+                   neighborhood: int = 27):
+    """One iteration of the reference's ICP body (`registration/icp.py:73-101`) on the
+    carry (T, done, iterations, fitness, inliers): the match, `umeyama_step`, the step
+    taken with 3 or more inliers when finite (else the identity), T <- dT T, the fitness
+    (min(d2, corr2) of each valid point, corr2 when unmatched, averaged) and the stop test
+    (|se3_log(dT)| below `transform_epsilon`, or with a positive
+    `euclidean_fitness_epsilon` a fitness change below it). Returns the next carry."""
+    T, done, iters, fitness_prev, _ = carry
+    dtype, dev = source_points.dtype, source_points.device
+    pen = torch.full((), corr2, dtype=dtype, device=dev)
+    nvalid = torch.clamp(torch.sum(source_mask.to(torch.int64)), min=1)
+    p = se3.transform_points(T, source_points)
+    idx, d2, found, matched = icp_match(grid, p, source_mask, corr2, bucket_cap, neighborhood)
+    w = matched.to(dtype)
+    R, t = umeyama_step(p, grid.points[idx], w)
+    delta_T = se3.make_transform(R, t)
+    n_inl = torch.sum(matched.to(torch.int32))
+    ok = (n_inl >= 3) & torch.isfinite(delta_T).all()
+    delta_T = torch.where(ok, delta_T, torch.eye(4, dtype=dtype, device=dev))
+    T_new = delta_T @ T
+    per_pt = torch.where(found, torch.minimum(d2, pen), pen)
+    fitness = torch.sum(torch.where(source_mask, per_pt, 0.0)) / nvalid
+    newly_done = norm(se3.se3_log(delta_T)) < transform_epsilon
+    if euclidean_fitness_epsilon > 0.0:
+        newly_done = newly_done | (torch.abs(fitness_prev - fitness) < euclidean_fitness_epsilon)
+    return T_new, done | newly_done, iters + 1, fitness, n_inl
+
+
+def icp_align_loop_plain(grid, source_points, source_mask, T0, corr2, transform_epsilon,
+                         euclidean_fitness_epsilon, max_iterations, bucket_cap: int = 32,
+                         neighborhood: int = 27, stop_early=None):
+    """Plain PyTorch version of `icp_align_loop`: the reference's `while_loop` as
+    `max_iterations` `icp_body_plain`s whose carry is frozen from the iteration that finds
+    it done (the cond's semantics). `stop_early` (default: on the CPU, where reading `done`
+    costs nothing) ends the loop at the first `done` instead; a frozen carry gives the
+    same result bit for bit. Returns (T, done, iterations, fitness, inliers)."""
+    dev = source_points.device
+    if stop_early is None:
+        stop_early = dev.type == "cpu"
+    carry = (T0.to(source_points.dtype), torch.zeros((), dtype=torch.bool, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.full((), torch.inf, dtype=source_points.dtype, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
+    for _ in range(max_iterations):
+        if stop_early and bool(carry[1]):
+            break
+        new = icp_body_plain(grid, source_points, source_mask, carry, corr2,
+                             transform_epsilon, euclidean_fitness_epsilon, bucket_cap,
+                             neighborhood)
+        carry = tuple(torch.where(carry[1], old, n) for old, n in zip(carry, new))
+    return carry
+
+
+def icp_fitness_plain(grid, points, mask, transform, max_range, bucket_cap: int = 16,
+                      neighborhood: int = 27, mode: str = "penalized"):
+    """Plain PyTorch version of `icp_fitness`: the reference's
+    `fitness_and_match_fraction` (`registration/icp.py:155-188`) from one NN query —
+    "pcl": the mean d2 of the matched points (d2 < max_range^2), +inf with none;
+    "penalized": min(d2, max_range^2) of each valid point, max_range^2 when unmatched,
+    averaged; and the matched fraction of the valid points. Returns (score, frac)."""
+    p = se3.transform_points(transform, points)
+    _, d2, found = nearest(grid, p, bucket_cap=bucket_cap, neighborhood=neighborhood)
+    pen = max_range * max_range
+    matched = found & mask & (d2 < pen)
+    frac = torch.sum(matched.to(torch.int64)) / torch.clamp(
+        torch.sum(mask.to(torch.int64)), min=1)
+    if mode == "pcl":
+        n = torch.sum(matched.to(torch.int64))
+        score = torch.where(
+            n > 0,
+            torch.sum(torch.where(matched, d2, 0.0)) / torch.clamp(n, min=1),
+            torch.full((), torch.inf, dtype=p.dtype, device=p.device),
+        )
+        return score, frac
+    per_pt = torch.where(found, torch.clamp(d2, max=pen), pen)
+    nvalid = torch.clamp(torch.sum(mask.to(torch.int64)), min=1)
+    return torch.sum(torch.where(mask, per_pt, 0.0)) / nvalid, frac
+
+
+# The `icp_iteration` kernel's own step, in torch ops: the CPU tests hold it against the
+# reference's `_umeyama_step` on the inputs where a closed-form step is fragile (planar,
+# near-collinear, reflected, far from the origin).
+
+def icp_anchor(source_points, source_mask, T0):
+    """The origin of `icp_iteration`'s sums for an align: the masked source centroid moved
+    by T0 ([3]; the origin itself when nothing is masked in). Inside the cloud, so the
+    moments about it are of the cloud's spread and do not cancel as world-coordinate
+    moments would far from the origin."""
+    m = source_mask.to(source_points.dtype)
+    centroid = torch.sum(source_points * m[:, None], dim=0) / torch.clamp(torch.sum(m), min=1.0)
+    return T0[:3, :3] @ centroid + T0[:3, 3]
+
+
+def icp_moments_plain(p, q, matched, anchor):
+    """The sums one `icp_iteration` launch reduces, over the matched rows of p [N, 3]
+    (transformed source) and q [N, 3] (their targets): (n, S_p [3], S_q [3], S_qp [3, 3])
+    of 1, p - c, q - c and (q - c)_i (p - c)_j about the anchor c."""
+    w = matched.to(p.dtype)
+    pc, qc = p - anchor, q - anchor
+    return (torch.sum(w), torch.sum(pc * w[:, None], dim=0), torch.sum(qc * w[:, None], dim=0),
+            torch.einsum("ni,nj,n->ij", qc, pc, w))
+
+
+def _dot3(a, b):
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def _cross3(a, b):
+    return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0]]
+
+
+def rotation_of_plain(S: torch.Tensor) -> torch.Tensor:
+    """The rotation R maximizing trace(R^T S) over SO(3) for S [..., 3, 3], as the kernel's
+    `rotation_of` (`csrc/icp_loop.cu`) computes it, elementwise: six sweeps of the
+    one-sided Jacobi SVD (the columns of S V orthogonalized in place, pairs (0, 1), (0,
+    2), (1, 2)), the two largest singular pairs (ties: the lower column), u2 made
+    orthogonal to u1, and R = u1 v1^T + u2 v2^T + (u1 x u2)(v1 x v2)^T — `umeyama_step`'s
+    U diag(1, 1, det(U V^T)) V^T without the signs of U and V."""
+    one = torch.ones_like(S[..., 0, 0])
+    zero = torch.zeros_like(one)
+    a = [[S[..., i, k] for i in range(3)] for k in range(3)]  # a[k]: column k of S V
+    v = [[one if i == k else zero for i in range(3)] for k in range(3)]
+    for _ in range(6):
+        for p_, q_ in ((0, 1), (0, 2), (1, 2)):
+            alpha, beta, gamma = _dot3(a[p_], a[p_]), _dot3(a[q_], a[q_]), _dot3(a[p_], a[q_])
+            nz = torch.abs(gamma) > 0
+            zeta = (beta - alpha) / (2.0 * torch.where(nz, gamma, one))
+            r = 1.0 / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(nz, torch.where(zeta >= 0, r, -r), zero)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            a[p_], a[q_] = ([c * x - s * y for x, y in zip(a[p_], a[q_])],
+                            [s * x + c * y for x, y in zip(a[p_], a[q_])])
+            v[p_], v[q_] = ([c * x - s * y for x, y in zip(v[p_], v[q_])],
+                            [s * x + c * y for x, y in zip(v[p_], v[q_])])
+    sig = [torch.sqrt(_dot3(col, col)) for col in a]
+    k1 = torch.where(sig[1] > sig[0], 1, 0)
+    k1 = torch.where(sig[2] > torch.where(k1 == 1, sig[1], sig[0]), 2, k1)
+    k2 = torch.where(k1 == 0, 1, 0)
+    other = torch.where(k1 == 2, 1, 2)
+
+    def pick(k, cols):
+        return [torch.where(k == 0, cols[0][i], torch.where(k == 1, cols[1][i], cols[2][i]))
+                for i in range(3)]
+
+    def at(k, xs):
+        return torch.where(k == 0, xs[0], torch.where(k == 1, xs[1], xs[2]))
+
+    k2 = torch.where(at(other, sig) > at(k2, sig), other, k2)
+    s1 = at(k1, sig)
+    u1 = [x / s1 for x in pick(k1, a)]
+    a2 = pick(k2, a)
+    proj = _dot3(u1, a2)
+    u2 = [x - proj * y for x, y in zip(a2, u1)]
+    n2 = torch.sqrt(_dot3(u2, u2))
+    u2 = [x / n2 for x in u2]
+    v1, v2 = pick(k1, v), pick(k2, v)
+    u3, v3 = _cross3(u1, u2), _cross3(v1, v2)
+    return torch.stack([torch.stack([(u1[i] * v1[j] + u2[i] * v2[j]) + u3[i] * v3[j]
+                                     for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+
+
+def umeyama_from_moments(moments, anchor):
+    """`umeyama_step` as `icp_iteration`'s last block takes it from `icp_moments_plain`'s
+    sums about the anchor c: W = max(n, 1e-9), the means m = S / W, the centred
+    cross-covariance S_qp / W - m_q m_p^T, R = `rotation_of_plain`, t = mu_d - R mu_s with
+    mu = c + m. Returns (R, t)."""
+    n, Sp, Sq, Sqp = moments
+    wsum = torch.clamp(n, min=1e-9)
+    mp, mq = Sp / wsum, Sq / wsum
+    R = rotation_of_plain(Sqp / wsum - mq[:, None] * mp[None, :])
+    mu_s, mu_d = anchor + mp, anchor + mq
+    t = mu_d - torch.stack([_dot3([R[i, j] for j in range(3)], mu_s) for i in range(3)])
+    return R, t
+
+
 # -- the library -------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -465,13 +686,26 @@ def _load_library_locked():
     if not os.path.exists(so_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in _SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", tmp, *_SOURCES],
-                              capture_output=True, text=True)
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *_NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                                  capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode != 0 else []
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        log = "".join(outs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
     vp, f32, i32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
@@ -493,15 +727,22 @@ def _load_library_locked():
         vp, vp, vp, i64, vp, vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp, i32, i32, i32,
         i32, i32, i32, i32, i32, i32, i32, f32, f32, vp, f32, vp, vp, vp, vp, vp, i32, vp, vp,
         i32, vp]
+    lib.lgs_icp_align_loop.argtypes = [
+        vp, vp, i64, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+        f32, f32, f32, vp, vp, vp, vp, vp, i32, vp, vp, i32, vp]
+    lib.lgs_icp_fitness.argtypes = [
+        vp, vp, i64, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+        f32, i32, vp, vp, vp, i32, vp]
     lib.lgs_ndt_finalize.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, vp, i32, vp, vp, f32,
                                      i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.lgs_eigh3x3.argtypes = [vp, i64, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
-               lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_ndt_finalize,
-               lib.lgs_eigh3x3):
+               lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
+               lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3):
         fn.restype = ctypes.c_int
-    for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches):
+    for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
+               lib.lgs_icp_worked_launches):
         fn.argtypes, fn.restype = [i32], i64
     lib.lgs_ndt_loop_blocks_per_sm.argtypes, lib.lgs_ndt_loop_blocks_per_sm.restype = [], i32
     lib.lgs_ndt_loop_attributes.argtypes, lib.lgs_ndt_loop_attributes.restype = [vp], i32
@@ -509,6 +750,10 @@ def _load_library_locked():
     lib.lgs_gicp_loop_blocks_per_sm.restype = i32
     lib.lgs_gicp_loop_attributes.argtypes = [i32, i32, i32, vp]
     lib.lgs_gicp_loop_attributes.restype = i32
+    lib.lgs_icp_loop_blocks_per_sm.argtypes = [i32, i32, i32]
+    lib.lgs_icp_loop_blocks_per_sm.restype = i32
+    lib.lgs_icp_loop_attributes.argtypes = [i32, i32, i32, vp]
+    lib.lgs_icp_loop_attributes.restype = i32
     for name in ("threads", "quantities", "outputs", "loop_tile", "loop_row"):
         fn = getattr(lib, f"lgs_ndt_{name}")
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -552,18 +797,24 @@ def loop_blocks(n: int, sms: int, blocks_per_sm: int, tile: int) -> int:
     return max(1, min(-(-n // tile), sms * blocks_per_sm, _MAX_BLOCKS))
 
 
-def _loop_occupancy(device, gicp=None) -> tuple[int, int]:
+def _loop_occupancy(device, gicp=None, icp=None) -> tuple[int, int]:
     """(SMs, resident blocks per SM) of the NDT loop kernel on `device`, or with `gicp` =
-    (neighborhood, bucket_cap, reciprocal) of that instantiation of the GICP loop kernel
-    (read once per card and kernel)."""
-    key = (device.index, gicp)
+    (neighborhood, bucket_cap, reciprocal) of that instantiation of the GICP loop kernel,
+    or with `icp` = (neighborhood, bucket_cap, fitness) of `icp_iteration` (fitness 0) or
+    `icp_fitness` (1) (read once per card and kernel)."""
+    key = (device.index, gicp, icp)
     occ = _occupancy.get(key)
     if occ is None:
-        name = "ndt_iteration" if gicp is None else "gicp_iteration"
+        name = ("ndt_iteration" if gicp is None and icp is None else
+                "gicp_iteration" if icp is None else ("icp_iteration", "icp_fitness")[icp[2]])
         with torch.cuda.device(device):
             lib = load_library()
-            per_sm = (lib.lgs_ndt_loop_blocks_per_sm() if gicp is None
-                      else lib.lgs_gicp_loop_blocks_per_sm(*map(int, gicp)))
+            if icp is not None:
+                per_sm = lib.lgs_icp_loop_blocks_per_sm(*map(int, icp))
+            elif gicp is not None:
+                per_sm = lib.lgs_gicp_loop_blocks_per_sm(*map(int, gicp))
+            else:
+                per_sm = lib.lgs_ndt_loop_blocks_per_sm()
         _raise_on(max(-per_sm, 0), f"{name} occupancy")
         if per_sm == 0:
             raise RuntimeError(f"{name}: no block of it fits on an SM")
@@ -572,11 +823,12 @@ def _loop_occupancy(device, gicp=None) -> tuple[int, int]:
     return occ
 
 
-def loop_grid(device, n: int, gicp=None) -> int:
+def loop_grid(device, n: int, gicp=None, icp=None) -> int:
     """`loop_blocks` for N = n on the CUDA `device`: the blocks of one sequence in each
     launch of the NDT loop kernel there, or with `gicp` = (neighborhood, bucket_cap,
-    reciprocal) of that GICP loop kernel."""
-    return loop_blocks(n, *_loop_occupancy(device, gicp), _consts["loop_tile"])
+    reciprocal) of that GICP loop kernel, or with `icp` = (neighborhood, bucket_cap,
+    fitness) of that ICP kernel."""
+    return loop_blocks(n, *_loop_occupancy(device, gicp, icp), _consts["loop_tile"])
 
 
 def _stream_scratch(device, batch: int = 1):
@@ -873,8 +1125,19 @@ def ndt_align_loop_batched(vmaps, source_points, source_mask, T0, d2, w_scale, s
     return carry
 
 
+# The grid-NN queries the matching loop kernels take (`csrc/nn_stage.cuh`).
 GICP_NEIGHBORHOODS = (7, 27)
 GICP_BUCKET_CAPS = (16, 32)
+
+
+def _check_query(name: str, bucket_cap: int, neighborhood: int) -> None:
+    """Refuses a `neighborhood` or `bucket_cap` the grid-NN kernels do not take."""
+    if neighborhood not in GICP_NEIGHBORHOODS:
+        raise ValueError(f"{name}: neighborhood must be one of {GICP_NEIGHBORHOODS}, got "
+                         f"{neighborhood}")
+    if bucket_cap not in GICP_BUCKET_CAPS:
+        raise ValueError(f"{name}: bucket_cap must be one of {GICP_BUCKET_CAPS}, got "
+                         f"{bucket_cap}")
 
 
 def _check_grid(wrapper: str, dev, label: str, grid, bucket_cap: int) -> None:
@@ -890,6 +1153,15 @@ def _check_grid(wrapper: str, dev, label: str, grid, bucket_cap: int) -> None:
         raise ValueError(f"{wrapper}: {label}.packed rows must be 16-byte aligned")
     if not bucket_cap <= n < 2**31:
         raise ValueError(f"{wrapper}: {label} holds {n} rows, outside [bucket_cap, 2**31)")
+
+
+def _grid_args(grid):
+    """The C entry points' target-grid arguments: table, packed rows, origin, the float32
+    reciprocal of the cell that `ops/neighbors.py:_candidate_scan` computes (a fresh
+    device tensor, kept alive by the caller), rows."""
+    inv_cell = 1.0 / grid.cell_size
+    return (grid.table.data_ptr(), grid.packed.data_ptr(), grid.origin.data_ptr(),
+            inv_cell.data_ptr(), grid.packed.shape[0]), inv_cell
 
 
 def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
@@ -920,12 +1192,7 @@ def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
     refused.
     """
     name = "gicp_align_loop"
-    if neighborhood not in GICP_NEIGHBORHOODS:
-        raise ValueError(f"{name}: neighborhood must be one of {GICP_NEIGHBORHOODS}, got "
-                         f"{neighborhood}")
-    if bucket_cap not in GICP_BUCKET_CAPS:
-        raise ValueError(f"{name}: bucket_cap must be one of {GICP_BUCKET_CAPS}, got "
-                         f"{bucket_cap}")
+    _check_query(name, bucket_cap, neighborhood)
     if source_points.device.type == "cpu":
         return gicp_align_loop_plain(target, source_points, source_mask, source_covs, T0,
                                      corr2, transform_epsilon, damping, max_iterations,
@@ -942,29 +1209,126 @@ def gicp_align_loop(target, source_points, source_mask, source_covs, T0, corr2,
     rows = target.grid.packed.shape[0]
     _check(name, dev, **{"target.covs": (target.covs, (rows, 3, 3), torch.float32),
                          "target.valid": (target.valid, (rows,), torch.bool)})
-    grids = [target.grid]
     if source_grid is not None:
         _check_grid(name, dev, "source_grid", source_grid, bucket_cap)
-        grids.append(source_grid)
     dp_ptr, dp_val = _scalar_arg(damping, dev)
     lib = load_library()
     stream, partials, counter = _stream_scratch(dev)
     carry = _loop_carry(T0, ())
-    # The float32 reciprocal of the cell that `ops/neighbors.py:_candidate_scan` computes.
-    inv_cells = [1.0 / g.cell_size for g in grids]
-    grid_args = [(g.table.data_ptr(), g.packed.data_ptr(), g.origin.data_ptr(),
-                  inv.data_ptr(), g.packed.shape[0]) for g, inv in zip(grids, inv_cells)]
-    src_grid_args = ((*grid_args[1], source_grid.order.data_ptr()) if source_grid is not None
-                     else (None, None, None, None, 0, None))
+    tgt_args, _tgt_inv_cell = _grid_args(target.grid)
+    src_grid_args, _src_inv_cell = (None, None, None, None, 0, None), None
+    if source_grid is not None:
+        s_args, _src_inv_cell = _grid_args(source_grid)
+        src_grid_args = (*s_args, source_grid.order.data_ptr())
     variant = (neighborhood, bucket_cap, source_grid is not None)
     _raise_on(lib.lgs_gicp_align_loop(
         source_points.data_ptr(), source_mask.data_ptr(), source_covs.data_ptr(), n,
-        *grid_args[0], target.covs.data_ptr(), target.valid.data_ptr(), *src_grid_args,
+        *tgt_args, target.covs.data_ptr(), target.valid.data_ptr(), *src_grid_args,
         *TABLE_DIMS, *COORD_MAX, _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap,
         corr2, transform_epsilon, dp_ptr, dp_val, *(x.data_ptr() for x in carry),
         max_iterations, partials, counter, loop_grid(dev, n, variant), stream), name)
     _count(gicp_align_loop, max_iterations)
     return carry
+
+
+def icp_align_loop(grid, source_points, source_mask, T0, corr2, transform_epsilon,
+                   euclidean_fitness_epsilon, max_iterations, bucket_cap: int = 32,
+                   neighborhood: int = 27):
+    """The whole ICP loop of `registration/icp.py:icp_align`, as the reference's
+    `lax.while_loop` runs it on the device.
+
+    grid:          the target's `HashGrid` (its cell bounds the search, one cell ring)
+    source_points: [N, 3] f32 source points (untransformed), source_mask: [N] bool
+    T0:            [4, 4] initial transform
+    corr2:         the squared correspondence distance (a number, rounded to float32)
+    transform_epsilon, euclidean_fitness_epsilon: numbers (rounded to float32; the
+                   second's stop is off at 0)
+    bucket_cap, neighborhood: the grid query's (16 or 32, 7 or 27)
+    Returns the device carry (T [4,4] f32, done bool, iterations i32 (the bodies that ran
+    before `done`, at most `max_iterations`), fitness f32 and inliers i32 of the last
+    body). Nothing is read back.
+
+    Refuses a `bucket_cap` or `neighborhood` the kernel does not take, on every device.
+    CPU tensors take `icp_align_loop_plain`. On CUDA tensors one C call enqueues
+    `max_iterations` launches of the `icp_iteration` kernel (`csrc/icp_loop.cu`; a launch
+    that finds the carry done exits at once) on the current stream, counted in
+    `icp_align_loop.launches`, after a few torch operations that make the sums' anchor
+    (`icp_anchor`); it raises if the kernel fails to build or a launch is refused.
+    """
+    name = "icp_align_loop"
+    _check_query(name, bucket_cap, neighborhood)
+    if source_points.device.type == "cpu":
+        return icp_align_loop_plain(grid, source_points, source_mask, T0, corr2,
+                                    transform_epsilon, euclidean_fitness_epsilon,
+                                    max_iterations, bucket_cap, neighborhood)
+    dev = source_points.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = source_points.shape[0]
+    _check(name, dev, source_points=(source_points, (n, 3), torch.float32),
+           source_mask=(source_mask, (n,), torch.bool))
+    _check_transform(name, dev, T0, ())
+    _check_grid(name, dev, "grid", grid, bucket_cap)
+    lib = load_library()
+    stream, partials, counter = _stream_scratch(dev)
+    carry = _loop_carry(T0, ())
+    anchor = icp_anchor(source_points, source_mask, carry[0]).contiguous()
+    gargs, _inv_cell = _grid_args(grid)
+    _raise_on(lib.lgs_icp_align_loop(
+        source_points.data_ptr(), source_mask.data_ptr(), n, *gargs, *TABLE_DIMS, *COORD_MAX,
+        _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap, anchor.data_ptr(), corr2,
+        transform_epsilon, euclidean_fitness_epsilon, *(x.data_ptr() for x in carry),
+        max_iterations, partials, counter, loop_grid(dev, n, icp=(neighborhood, bucket_cap, 0)),
+        stream), name)
+    _count(icp_align_loop, max_iterations)
+    return carry
+
+
+ICP_FITNESS_MODES = ("pcl", "penalized")
+
+
+def icp_fitness(grid, points, mask, transform, max_range, bucket_cap: int = 16,
+                neighborhood: int = 27, mode: str = "penalized"):
+    """The loop gate's fitness of `registration/icp.py:fitness_and_match_fraction` in one
+    launch: (score, matched fraction) as 0-d f32 tensors on the device — "pcl": the mean
+    d2 of the matched points (d2 < max_range^2), +inf with none; "penalized":
+    min(d2, max_range^2) of each valid point, max_range^2 when unmatched, averaged.
+
+    grid: the target's `HashGrid`; points [N, 3] f32, mask [N] bool; transform [4, 4];
+    max_range a number (its square rounded to float32); bucket_cap, neighborhood: the
+    grid query's (16 or 32, 7 or 27).
+
+    Refuses an unknown `mode` and a `bucket_cap` or `neighborhood` the kernel does not
+    take, on every device. CPU tensors take `icp_fitness_plain`; CUDA tensors launch the
+    `icp_fitness` kernel (`csrc/icp_loop.cu`, counted in `icp_fitness.launches`) or raise.
+    Nothing is read back.
+    """
+    name = "icp_fitness"
+    if mode not in ICP_FITNESS_MODES:
+        raise ValueError(f"unknown fitness mode {mode!r}")
+    _check_query(name, bucket_cap, neighborhood)
+    if points.device.type == "cpu":
+        return icp_fitness_plain(grid, points, mask, transform, max_range, bucket_cap,
+                                 neighborhood, mode)
+    dev = points.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = points.shape[0]
+    _check(name, dev, points=(points, (n, 3), torch.float32), mask=(mask, (n,), torch.bool))
+    _check_transform(name, dev, transform, ())
+    _check_grid(name, dev, "grid", grid, bucket_cap)
+    T = transform.to(torch.float32).contiguous()
+    lib = load_library()
+    stream, partials, counter = _stream_scratch(dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    gargs, _inv_cell = _grid_args(grid)
+    _raise_on(lib.lgs_icp_fitness(
+        points.data_ptr(), mask.data_ptr(), n, *gargs, *TABLE_DIMS, *COORD_MAX,
+        _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap, T.data_ptr(),
+        max_range * max_range, int(mode == "pcl"), out.data_ptr(), partials, counter,
+        loop_grid(dev, n, icp=(neighborhood, bucket_cap, 1)), stream), name)
+    _count(icp_fitness)
+    return out[0], out[1]
 
 
 def ndt_finalize(runs, origin, resolution, min_points: int, points=None, merge=None):
@@ -1062,33 +1426,40 @@ def eigh3x3(A):
     return w, V
 
 
-def loop_kernel_attributes(device, gicp=None) -> dict:
+def loop_kernel_attributes(device, gicp=None, icp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
     and the SMs of the CUDA `device` with the kernel's resident blocks per SM there; with
     `gicp` = (neighborhood, bucket_cap, reciprocal), those of that GICP loop kernel (its
-    shared memory with its stage) and the runs of B rows its stage holds (`stage_runs`)."""
+    shared memory with its stage) and the runs of B rows its stage holds (`stage_runs`);
+    with `icp` = (neighborhood, bucket_cap, fitness), those of `icp_iteration` (fitness 0)
+    or `icp_fitness` (1)."""
     out = (ctypes.c_int * 4)()
     lib = load_library()
-    err = (lib.lgs_ndt_loop_attributes(out) if gicp is None
-           else lib.lgs_gicp_loop_attributes(*map(int, gicp), out))
+    if icp is not None:
+        err = lib.lgs_icp_loop_attributes(*map(int, icp), out)
+    elif gicp is not None:
+        err = lib.lgs_gicp_loop_attributes(*map(int, gicp), out)
+    else:
+        err = lib.lgs_ndt_loop_attributes(out)
     _raise_on(err, "loop_kernel_attributes")
-    sms, per_sm = _loop_occupancy(device, gicp)
-    extra = {} if gicp is None else {"stage_runs": out[3]}
+    sms, per_sm = _loop_occupancy(device, gicp, icp)
+    extra = {} if gicp is None and icp is None else {"stage_runs": out[3]}
     return dict(registers=out[0], smem_bytes=out[1], local_bytes=out[2],
                 tile=_consts["loop_tile"], sms=sms, blocks_per_sm=per_sm, **extra)
 
 
 _WORKED = {"ndt_iteration": "lgs_ndt_worked_launches",
-           "gicp_iteration": "lgs_gicp_worked_launches"}
+           "gicp_iteration": "lgs_gicp_worked_launches",
+           "icp_iteration": "lgs_icp_worked_launches"}
 
 
 def worked_launches(reset: bool = False, kernel: str | None = None) -> int:
     """The loop kernels' launches (`ndt_iteration` single and batched, one per sequence of
-    a batch, and `gicp_iteration`) that did work rather than exit on a finished carry,
-    since the last reset, on the current card: both kernels' sum, or with `kernel` one of
-    those names, that kernel's (`reset` then resets only its count). Synchronizes the
-    whole device: for measurement only, never on a hot path."""
+    a batch, `gicp_iteration` and `icp_iteration`) that did work rather than exit on a
+    finished carry, since the last reset, on the current card: the kernels' sum, or with
+    `kernel` one of those names, that kernel's (`reset` then resets only its count).
+    Synchronizes the whole device: for measurement only, never on a hot path."""
     if kernel is not None and kernel not in _WORKED:
         raise ValueError(f"worked_launches: kernel must be one of {tuple(_WORKED)}")
     lib = load_library()
@@ -1108,5 +1479,7 @@ ndt_direct7_accumulate_batched.launches = 0
 ndt_align_loop.launches = 0
 ndt_align_loop_batched.launches = 0
 gicp_align_loop.launches = 0
+icp_align_loop.launches = 0
+icp_fitness.launches = 0
 ndt_finalize.launches = 0
 eigh3x3.launches = 0

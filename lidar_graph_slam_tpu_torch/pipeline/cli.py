@@ -170,14 +170,15 @@ def main(argv=None) -> int:
         "frame_p50_ms": 1000 * float(np.median(frame_s[1:])) if len(frame_s) > 1 else 0.0,
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
             "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
-            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "ndt_finalize",
-            "eigh3x3")},
+            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
+            "icp_fitness", "ndt_finalize", "eigh3x3")},
         "processes": process_count(),
     }
     # How many of each loop kernel's launches did work (a device count; 0 without a loop).
     looped = {"ndt_iteration": kernels.ndt_align_loop.launches
               + kernels.ndt_align_loop_batched.launches,
-              "gicp_iteration": kernels.gicp_align_loop.launches}
+              "gicp_iteration": kernels.gicp_align_loop.launches,
+              "icp_iteration": kernels.icp_align_loop.launches}
     for name, n in looped.items():
         summary["kernel_launches"][f"{name}_worked"] = (
             kernels.worked_launches(kernel=name) if pipe.device.type == "cuda" and n else 0)

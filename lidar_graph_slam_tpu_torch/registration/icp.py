@@ -7,33 +7,24 @@ reference's loop pipeline configures it). Correspondences come from the sorted-g
 squared correspondence distance), with unmatched source points contributing a capped
 penalty in the "penalized" mode.
 
-Loop structure: the reference's `lax.while_loop` becomes a Python loop that reads the
-device's `done` flag once per iteration, as `registration/ndt.py` does.
+Loop structure: the reference's `lax.while_loop` is `ops.kernels.icp_align_loop`, one call
+an alignment. On the card it enqueues one launch of the `icp_iteration` kernel an
+iteration (the match, the sums and the closed-form step with its 3x3 SVD and stop test in
+one launch, the carry on the device; a launch that finds the carry done exits at once)
+and reads nothing back; on the CPU it runs the reference's body in torch ops
+(`icp_align_loop_plain`). The loop gate's fitness is `ops.kernels.icp_fitness`, one launch
+on the card. The body's pieces (`umeyama_step`, `icp_match`, `icp_body_plain`) live beside
+the kernels in `ops/kernels.py`, which this module may import but not the other way round.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lidar_graph_slam_tpu_torch.core import se3
-from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid, build_hash_grid, nearest
-from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult, norm
-
-
-def _umeyama_step(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
-    """Optimal R, t minimizing sum w ||R src + t - dst||^2 (closed form)."""
-    wsum = torch.clamp(torch.sum(w), min=1e-9)
-    mu_s = torch.sum(src * w[:, None], dim=0) / wsum
-    mu_d = torch.sum(dst * w[:, None], dim=0) / wsum
-    sc = src - mu_s
-    dc = dst - mu_d
-    Sigma = torch.einsum("ni,nj,n->ij", dc, sc, w) / wsum
-    U, _, Vt = torch.linalg.svd(Sigma)
-    det = torch.linalg.det(U @ Vt)
-    D = torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det), det]))
-    R = U @ D @ Vt
-    t = mu_d - R @ mu_s
-    return R, t
+from lidar_graph_slam_tpu_torch.ops import kernels
+from lidar_graph_slam_tpu_torch.ops.kernels import umeyama_step as _umeyama_step  # noqa: F401
+from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid, build_hash_grid
+from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
 
 
 def icp_align(
@@ -54,46 +45,10 @@ def icp_align(
     `euclidean_fitness_epsilon` is PCL's absolute-MSE stop: iteration stops when the
     fitness change between consecutive iterations falls below it; 0 disables.
     """
-    corr2 = max_correspondence_distance * max_correspondence_distance
-    dtype, dev = source_points.dtype, source_points.device
-    pen = torch.full((), corr2, dtype=dtype, device=dev)
-    nvalid = torch.clamp(torch.sum(source_mask.to(torch.int64)), min=1)
-    eye = torch.eye(4, dtype=dtype, device=dev)
-
-    def body(T, done, iters, fitness_prev):
-        p = se3.transform_points(T, source_points)
-        idx, d2, found = nearest(target_grid, p, bucket_cap=bucket_cap,
-                                 neighborhood=neighborhood)
-        matched = found & source_mask & (d2 < corr2)
-        w = matched.to(dtype)
-        q = target_grid.points[idx]
-        R, t = _umeyama_step(p, q, w)
-        delta_T = se3.make_transform(R, t)
-        n_inl = torch.sum(matched.to(torch.int32))
-        ok = (n_inl >= 3) & torch.isfinite(delta_T).all()
-        delta_T = torch.where(ok, delta_T, eye)
-        T_new = delta_T @ T
-
-        # PCL-style fitness: mean squared NN distance over valid source points; points
-        # with no neighbor in the search ring contribute the capped radius squared.
-        per_pt = torch.where(found, torch.minimum(d2, pen), pen)
-        fitness = torch.sum(torch.where(source_mask, per_pt, 0.0)) / nvalid
-
-        newly_done = norm(se3.se3_log(delta_T)) < transform_epsilon
-        if euclidean_fitness_epsilon > 0.0:
-            newly_done = newly_done | (
-                torch.abs(fitness_prev - fitness) < euclidean_fitness_epsilon)
-        return T_new, done | newly_done, iters + 1, fitness, n_inl
-
-    T = init_transform.to(dtype)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    fitness = torch.full((), torch.inf, dtype=dtype, device=dev)
-    n_inl = torch.zeros((), dtype=torch.int32, device=dev)
-    for _ in range(max_iterations):
-        T, done, iters, fitness, n_inl = body(T, done, iters, fitness)
-        if bool(done):  # the one host read per iteration
-            break
+    T, done, iters, fitness, n_inl = kernels.icp_align_loop(
+        target_grid, source_points, source_mask, init_transform,
+        max_correspondence_distance * max_correspondence_distance, transform_epsilon,
+        euclidean_fitness_epsilon, max_iterations, bucket_cap, neighborhood)
     # PCL parity: `hasConverged()` is true whenever the convergence criteria stopped the
     # loop — epsilon OR max-iterations — with a valid final solve (>= 3 inliers, finite).
     converged = ((done | (iters >= max_iterations)) & (n_inl >= 3)
@@ -117,27 +72,10 @@ def fitness_score(target_grid: HashGrid, points, mask, transform, max_range: flo
 def fitness_and_match_fraction(target_grid: HashGrid, points, mask, transform,
                                max_range: float, bucket_cap: int = 16,
                                neighborhood: int = 27, mode: str = "penalized"):
-    """(fitness, matched-source fraction) from ONE NN query. The fraction is the loop
-    gate's backstop for the matched-only "pcl" fitness."""
-    if mode not in ("pcl", "penalized"):
-        raise ValueError(f"unknown fitness mode {mode!r}")
-    p = se3.transform_points(transform, points)
-    _, d2, found = nearest(target_grid, p, bucket_cap=bucket_cap, neighborhood=neighborhood)
-    pen = max_range * max_range
-    matched = found & mask & (d2 < pen)
-    frac = torch.sum(matched.to(torch.int64)) / torch.clamp(
-        torch.sum(mask.to(torch.int64)), min=1)
-    if mode == "pcl":
-        n = torch.sum(matched.to(torch.int64))
-        score = torch.where(
-            n > 0,
-            torch.sum(torch.where(matched, d2, 0.0)) / torch.clamp(n, min=1),
-            torch.full((), torch.inf, dtype=p.dtype, device=p.device),
-        )
-        return score, frac
-    per_pt = torch.where(found, torch.clamp(d2, max=pen), pen)
-    nvalid = torch.clamp(torch.sum(mask.to(torch.int64)), min=1)
-    return torch.sum(torch.where(mask, per_pt, 0.0)) / nvalid, frac
+    """(fitness, matched-source fraction) from ONE NN query (`ops.kernels.icp_fitness`).
+    The fraction is the loop gate's backstop for the matched-only "pcl" fitness."""
+    return kernels.icp_fitness(target_grid, points, mask, transform, max_range,
+                               bucket_cap=bucket_cap, neighborhood=neighborhood, mode=mode)
 
 
 def make_icp_matcher(cfg, cell_size: float = 2.0):

@@ -99,7 +99,7 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     kernels.load_library()
-    libs = build_all(kernels._nvcc(), kernels._NVCC_FLAGS)
+    libs = build_all(kernels._nvcc(), [*kernels._NVCC_FLAGS, "-shared"])
     cfg = cs.loops_off_config()
     scans, gt = cs.dense_course(40)
     _, ring, _ = cs.full_ring(cfg, scans, gt, dev)

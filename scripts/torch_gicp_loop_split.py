@@ -5,8 +5,9 @@ into its parts on one CUDA card, by timing variants of the kernel that skip a pa
 
 For each variant the script copies the `csrc/` and `ops/kernels.py` of a tree (this
 checkout, or with `--root` another one, such as the parent commit unpacked by `git
-archive`) into `.chip_scratch/gicp_loop_split/<variant>/`, edits the copy of
-`gicp_loop.cu` there (the tree itself is never changed), builds it with that tree's nvcc
+archive`) into `.chip_scratch/gicp_loop_split/<variant>/`, edits the copies of
+`gicp_loop.cu` and `nn_stage.cuh` (the grid-NN query it shares with ICP's kernels) there
+(the tree itself is never changed), builds it with that tree's nvcc
 flags (one nvcc per variant, all at once) and loads it beside the others. The edits are
 anchored on the kernel's text; the script knows two kernels and takes the one whose
 anchors the tree's `gicp_loop.cu` holds.
@@ -70,7 +71,11 @@ PKG = "lidar_graph_slam_tpu_torch"
 
 ROUNDS = 3
 
-# (anchor, replacement) edits of gicp_loop.cu per variant, for each kernel the script
+# The sources the edits are made in: the kernel, and the grid-NN query's header (a tree
+# before that header held the query in gicp_loop.cu).
+EDITED = ("gicp_loop.cu", "nn_stage.cuh")
+
+# (anchor, replacement) edits of EDITED per variant, for each kernel the script
 # knows: its name, a line only that kernel's text holds, its variants in order, and its
 # parts as differences of variants.
 _EXIT = "  if (*a.carry.done) return;  // the loop's cond: the alignment is finished\n"
@@ -142,20 +147,21 @@ def kernel_of(root: str) -> dict:
 
 def make_variant(root: str, out: str, edits) -> str:
     """Copies the csrc/ and ops/kernels.py of the tree at `root` under out/ with `edits`
-    applied to gicp_loop.cu; returns out."""
+    applied, each to the one of EDITED that holds its anchor; returns out."""
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(os.path.join(root, PKG, "csrc"), os.path.join(out, PKG, "csrc"))
     os.makedirs(os.path.join(out, PKG, "ops"))
     shutil.copy(os.path.join(root, PKG, "ops", "kernels.py"), os.path.join(out, PKG, "ops"))
-    path = os.path.join(out, PKG, "csrc", "gicp_loop.cu")
-    with open(path) as f:
-        src = f.read()
+    paths = [os.path.join(out, PKG, "csrc", name) for name in EDITED]
+    srcs = {p: open(p).read() for p in paths if os.path.exists(p)}
     for anchor, new in edits:
-        if src.count(anchor) != 1:
+        holders = [p for p, src in srcs.items() if src.count(anchor) == 1]
+        if len(holders) != 1 or sum(src.count(anchor) for src in srcs.values()) != 1:
             raise SystemExit(f"torch_gicp_loop_split: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, new)
-    with open(path, "w") as f:
-        f.write(src)
+        srcs[holders[0]] = srcs[holders[0]].replace(anchor, new)
+    for path, src in srcs.items():
+        with open(path, "w") as f:
+            f.write(src)
     return out
 
 

@@ -61,6 +61,7 @@ from lidar_graph_slam_tpu_torch.ops import kernels as tk
 from lidar_graph_slam_tpu_torch.ops.neighbors import _offsets_for, build_hash_grid, nearest
 from lidar_graph_slam_tpu_torch.registration import gicp
 from lidar_graph_slam_tpu_torch.ops.voxel import (
+    INVALID_KEY,
     TABLE_DIMS,
     _flat_table_index,
     build_ndt_map,
@@ -1657,3 +1658,309 @@ def test_voxel_finalize_kernels_on_two_streams_at_once(cuda):
     for outs in results.values():
         for k, out in outs:
             assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+# -- the ICP loop kernel and the loop gate's fitness (`csrc/icp_loop.cu`) --------------------
+# `icp_iteration` against the plain loop (the reference's body in torch ops, the carry
+# frozen after done) on the same card tensors: T to 1e-4, the same iterations and done,
+# inliers within 0.1%, fitness to rtol 1e-4 (float32 sums in other orders, the step from
+# moments about an anchor and a one-sided Jacobi SVD against cuSOLVER's); a loop cut at one
+# iteration has exactly the plain loop's inliers (the same matches). 1 km from the origin
+# the kernel is held to the same registration at the origin, moved there, no worse than
+# the plain loop. `icp_fitness` against its plain version: score and fraction to rtol
+# 1e-6.
+
+
+def _icp_problem(device, n=8192, seed=7, far=0.0):
+    """The registration fixture of `_gicp_problem` for ICP: the target's grid (2 m cells)
+    and the source moved by the same perturbation, both clouds `far` m along each axis
+    (the perturbation about the source's own position). Returns (grid, source, mask)."""
+    rng = np.random.default_rng(seed)
+    world = make_world(rng, extent=40.0, density=3.0)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [5.0, -3.0, 1.5]
+    tgt = simulate_scan(world, pose, rng, max_range=45.0, max_points=n, noise=0.01) + far
+    src = simulate_scan(world, pose, rng, max_range=45.0, max_points=n, noise=0.01)
+    tc = PointCloud.from_array(tgt.astype(np.float32), capacity=2 * n, device=device)
+    sc = PointCloud.from_array(src, capacity=n + 1024, device=device)
+    c, s_ = np.cos(0.03), np.sin(0.03)
+    T = torch.tensor([[c, -s_, 0.0, 0.3], [s_, c, 0.0, -0.2], [0.0, 0.0, 1.0, 0.05],
+                      [0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=device)
+    moved = torch.where(sc.mask[:, None], sc.points @ T[:3, :3].T + T[:3, 3] + far, sc.points)
+    return build_hash_grid(tc.points, tc.mask, 2.0), moved.contiguous(), sc.mask
+
+
+def _icp_loop_args(problem, max_iterations=40, bucket_cap=16, neighborhood=7,
+                   transform_epsilon=1e-7, fitness_epsilon=1e-6, T0=None):
+    grid, src, mask = problem
+    T0 = torch.eye(4, device=src.device) if T0 is None else T0
+    return [grid, src, mask, T0, 4.0, transform_epsilon, fitness_epsilon, max_iterations,
+            bucket_cap, neighborhood]
+
+
+def _icp_loop_matches_plain(args):
+    """The ICP kernel loop (run twice: bit-identical) against the plain loop on the same
+    card tensors. Returns the kernel loop's carry."""
+    out = tk.icp_align_loop(*args)
+    again = tk.icp_align_loop(*args)
+    ref = tk.icp_align_loop_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-4
+    assert (bool(out[1]), int(out[2])) == (bool(ref[1]), int(ref[2]))
+    assert abs(int(out[4]) - int(ref[4])) <= 0.001 * int(ref[4])
+    np.testing.assert_allclose(float(out[3]), float(ref[3]), rtol=1e-4)
+    return out
+
+
+# (neighborhood, bucket_cap, transform epsilon, fitness epsilon): the verifier's query and
+# stops, the ICP front end's, and the other two instantiations.
+ICP_VARIANTS = [(7, 16, 1e-7, 1e-6), (7, 32, 0.01, 0.0), (27, 16, 1e-6, 0.0),
+                (27, 32, 1e-7, 1e-6)]
+
+
+@pytest.mark.parametrize("neighborhood,bucket_cap,eps,fit_eps", ICP_VARIANTS,
+                         ids=[f"{v[0]}-{v[1]}" for v in ICP_VARIANTS])
+def test_icp_loop_kernel_matches_plain_loop(cuda, neighborhood, bucket_cap, eps, fit_eps):
+    """Every instantiation of `icp_iteration` against the plain loop; one C call enqueues
+    max_iterations launches; the loop converges before max_iterations; a loop cut at one
+    iteration has exactly the plain loop's inliers."""
+    args = _icp_loop_args(_icp_problem(cuda), 40, bucket_cap, neighborhood, eps, fit_eps)
+    before = tk.icp_align_loop.launches
+    _, done, it, _, inl = _icp_loop_matches_plain(args)
+    assert tk.icp_align_loop.launches == before + 2 * 40
+    assert bool(done) and 0 < int(it) < 40 and int(inl) > 1000
+    args[7] = 1
+    one, ref = tk.icp_align_loop(*args), tk.icp_align_loop_plain(*args)
+    assert int(one[4]) == int(ref[4]) and int(one[2]) == 1
+    assert float((one[0] - ref[0]).abs().max()) <= 1e-4
+
+
+def test_icp_loop_kernel_far_from_the_origin(cuda):
+    """Both clouds 1 km from the origin, where a float32 coordinate's spacing is 6.1e-5 m:
+    the same registration as at the origin, moved there (C T C^-1), is the yardstick. The
+    kernel loop (its sums about the anchor) lands no farther from it than the plain loop
+    (the reference's float32 means of world coordinates) does, plus 1e-4; the rotations
+    agree to 1e-4 and the inliers to 0.1%; both loops converge."""
+    args = _icp_loop_args(_icp_problem(cuda, far=1000.0))
+    far, ref = tk.icp_align_loop(*args), tk.icp_align_loop_plain(*args)
+    near = tk.icp_align_loop(*_icp_loop_args(_icp_problem(cuda)))
+    C = torch.eye(4, dtype=torch.float64, device=cuda)
+    C[:3, 3] = 1000.0
+    want = C @ near[0].double() @ torch.linalg.inv(C)
+    err, err_plain = (float((x[0].double() - want).abs().max()) for x in (far, ref))
+    assert err <= err_plain + 1e-4, (err, err_plain)
+    assert float((far[0][:3, :3] - ref[0][:3, :3]).abs().max()) <= 1e-4
+    assert abs(int(far[4]) - int(ref[4])) <= 0.001 * int(ref[4])
+    assert bool(far[1]) and bool(ref[1]) and int(far[4]) > 1000
+
+
+@pytest.mark.parametrize("n", [1, 300, 50000])
+def test_icp_loop_kernel_ragged_sizes(cuda, n):
+    """Source sizes around the kernel's tile of 128 points and beyond the resident grid:
+    the kernel against the plain loop. One point matches at most one row: fewer than 3
+    inliers take the identity step, which ends the loop."""
+    grid, src, mask = _icp_problem(cuda)
+    idx = torch.arange(n, device=cuda) % src.shape[0]
+    out = _icp_loop_matches_plain(_icp_loop_args((grid, src[idx].contiguous(),
+                                                  mask[idx].contiguous())))
+    if n == 1:
+        assert int(out[2]) == 1 and torch.equal(out[0], torch.eye(4, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["all-masked", "far-away"])
+def test_icp_loop_kernel_degenerate_steps(cuda, case):
+    """No inliers (every point masked out, or every point 500 m from the target): T stays
+    T0 bit for bit, the loop is done after one iteration with 0 inliers, and the fitness
+    is the plain loop's (0 with no valid point, the capped penalty when nothing matches)."""
+    grid, src, mask = _icp_problem(cuda)
+    if case == "all-masked":
+        mask = torch.zeros_like(mask)
+    else:
+        src = src + 500.0
+    T0 = torch.eye(4, device=cuda)
+    out = _icp_loop_matches_plain(_icp_loop_args((grid, src, mask), T0=T0))
+    assert torch.equal(out[0], T0) and bool(out[1]) and int(out[2]) == 1
+    assert int(out[4]) == 0 and float(out[3]) == (0.0 if case == "all-masked" else 4.0)
+
+
+def test_icp_loop_kernel_early_exit_and_worked_count(cuda):
+    """A loop that is done after k iterations does work in k launches only (the device
+    count of `icp_iteration`'s working launches, apart from the other loop kernels')."""
+    args = _icp_loop_args(_icp_problem(cuda))
+    tk.worked_launches(reset=True)
+    out = tk.icp_align_loop(*args)
+    worked = tk.worked_launches(kernel="icp_iteration")
+    assert worked == int(out[2]) < 40
+    assert tk.worked_launches(kernel="gicp_iteration") == 0
+    assert tk.worked_launches(reset=True) == worked
+
+
+def test_icp_loop_kernel_reruns_and_two_streams(cuda):
+    """Two threads, each on its own stream, run the ICP loop and the fitness 10 times each
+    at once: every result equals the serial one bit for bit."""
+    problem = _icp_problem(cuda)
+    args = _icp_loop_args(problem)
+    T = tk.icp_align_loop(*args)[0]
+    calls = {"loop": lambda: tk.icp_align_loop(*args),
+             "fitness": lambda: tk.icp_fitness(*problem, T, 2.0, 16, 7, "pcl")}
+    serial = {k: fn() for k, fn in calls.items()}
+    torch.cuda.synchronize()
+    barrier = threading.Barrier(2, timeout=60)
+    results, errors = {}, []
+
+    def run(t):
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                barrier.wait()
+                outs = [(k, calls[k]()) for _ in range(10) for k in calls]
+            stream.synchronize()
+            results[t] = outs
+        except BaseException as e:  # noqa: BLE001 — raised in the test thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,), daemon=True) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    for outs in results.values():
+        for k, out in outs:
+            assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+@pytest.mark.parametrize("mode", ["pcl", "penalized"])
+@pytest.mark.parametrize("neighborhood,bucket_cap", [(7, 16), (7, 32), (27, 16), (27, 32)])
+def test_icp_fitness_kernel_matches_plain(cuda, mode, neighborhood, bucket_cap):
+    """`icp_fitness` against its plain version at the aligned and at the initial
+    transform, and on a source that matches nothing: the matched count exact, score and
+    fraction to rtol 1e-6; one launch a call."""
+    grid, src, mask = _icp_problem(cuda)
+    T = tk.icp_align_loop(*_icp_loop_args((grid, src, mask)))[0]
+    nvalid = int(mask.sum())
+    for pts, tr in ((src, T), (src, torch.eye(4, device=cuda)), (src + 500.0, T)):
+        before = tk.icp_fitness.launches
+        out = tk.icp_fitness(grid, pts, mask, tr, 2.0, bucket_cap, neighborhood, mode)
+        ref = tk.icp_fitness_plain(grid, pts, mask, tr, 2.0, bucket_cap, neighborhood, mode)
+        assert tk.icp_fitness.launches == before + 1
+        assert round(float(out[1]) * nvalid) == round(float(ref[1]) * nvalid)
+        np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=1e-6)
+        if np.isinf(float(ref[0])):
+            assert float(out[0]) == float(ref[0])
+        else:
+            np.testing.assert_allclose(float(out[0]), float(ref[0]), rtol=1e-6)
+
+
+def test_icp_kernels_reject_bad_inputs(cuda):
+    problem = _icp_problem(cuda, n=1024)
+    args = _icp_loop_args(problem)
+    bad = {1: args[1].double(), 2: args[2].cpu(), 3: args[3][:3], 8: 8, 9: 9}
+    before = (tk.icp_align_loop.launches, tk.icp_fitness.launches)
+    for i, x in bad.items():
+        with pytest.raises(ValueError):
+            tk.icp_align_loop(*args[:i], x, *args[i + 1:])
+    grid, src, mask = problem
+    for kw in (dict(points=src[:, :2]), dict(mask=mask.cpu()), dict(mode="other"),
+               dict(bucket_cap=8)):
+        call = dict(grid=grid, points=src, mask=mask, transform=args[3], max_range=2.0)
+        call.update(kw)
+        with pytest.raises(ValueError):
+            tk.icp_fitness(**call)
+    assert (tk.icp_align_loop.launches, tk.icp_fitness.launches) == before
+
+
+def test_icp_verification_makes_no_synchronous_read(cuda):
+    """One loop verification with the ICP verifier (`graph/slam.py:make_verify_one`: the
+    coarse NDT pre-align, the ICP loop, the gate's fitness) under
+    `torch.cuda.set_sync_debug_mode("error")`, after a warm-up verification: one
+    `icp_align_loop` call (max_iterations launches) and one `icp_fitness` launch."""
+    from lidar_graph_slam_tpu_torch.graph.slam import make_verify_one
+
+    grid, src, mask = _icp_problem(cuda)
+    pts = grid.points
+    pre_map = build_ndt_map(pts, grid.keys != INVALID_KEY, 4.0,
+                            capacity=16384)
+    cfg = GraphSlamConfig(icp=IcpConfig(max_iterations=40))
+    verify = make_verify_one(cfg, "ICP")
+    eye = torch.eye(4, device=cuda)
+    verify(grid, pre_map, None, eye, src, mask)
+    torch.cuda.synchronize()
+    before = (tk.icp_align_loop.launches, tk.icp_fitness.launches)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        T, score, ok = verify(grid, pre_map, None, eye, src, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tk.icp_align_loop.launches, tk.icp_fitness.launches) == (before[0] + 40,
+                                                                     before[1] + 1)
+    assert bool(ok) and float(score) < 0.3
+
+
+def test_fused_icp_step_makes_no_synchronous_read(cuda):
+    """`odometry/fused.py`'s step with ICP makes no synchronous read: three frames under
+    `torch.cuda.set_sync_debug_mode("error")` after one warm-up frame, against a real
+    target rebuilt from the ring; the ICP loop kernel launched, the others not."""
+    from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
+    from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "prefilter.leaf_size=0.3", "prefilter.mean_k=10", "capacity.raw_points=16384",
+        "capacity.filtered_points=4096", "capacity.voxel_capacity=32768",
+        "scan_matcher.max_scan_accumulate_num=5", "scan_matcher.registration_method=ICP"])
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=cuda)
+    seq = SyntheticSequence(n_frames=4, seed=3, max_points=8192, radius=30.0,
+                            laps=1.1 * 4 / 90)
+    raws = []
+    for scan, _ in seq:
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:len(scan)] = scan
+        raws.append(torch.as_tensor(raw, device=cuda))
+    eye3 = torch.eye(3, device=cuda)
+    eye4 = torch.eye(4, device=cuda)
+    state, ring = init_state(), aux["init_ring"]()
+    state, out = step(state, raws[0], aux["rebuild"](ring), eye3, False, eye4, False)
+    ring, target = aux["insert_and_rebuild"](ring, 0, out.kf_cloud, out.kf_mask, out.pose)
+    torch.cuda.synchronize()
+    before = (tk.icp_align_loop.launches, tk.gicp_align_loop.launches,
+              tk.ndt_align_loop.launches)
+    outs = []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for raw in raws[1:]:
+            state, out = step(state, raw, target, eye3, False, eye4, False)
+            outs.append(out)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(o.converged) for o in outs)
+    its = cfg.scan_matcher.gicp.max_iterations
+    assert (tk.icp_align_loop.launches, tk.gicp_align_loop.launches,
+            tk.ndt_align_loop.launches) == (before[0] + 3 * its, before[1], before[2])
+
+
+def test_gicp_loop_carry_equals_the_parent_tree(cuda):
+    """With `LGS_PARENT_TREE` naming another tree of the package (the parent commit
+    unpacked by `git archive`), that tree's GICP loop kernel leaves the carry of this
+    tree's bit for bit, after one iteration and after the whole loop, with the reciprocal
+    test and without: the grid-NN query moved into `csrc/nn_stage.cuh` unchanged."""
+    import importlib.util
+    import os
+
+    root = os.environ.get("LGS_PARENT_TREE")
+    if not root:
+        pytest.skip("LGS_PARENT_TREE names no parent tree")
+    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "ops",
+                        "kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels_test", path)
+    parent = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(parent)
+    problem = _gicp_problem(cuda)
+    for reciprocal in (False, True):
+        for its in (1, 64):
+            args = _gicp_loop_args(problem, its, reciprocal=reciprocal)
+            out, ref = tk.gicp_align_loop(*args), parent.gicp_align_loop(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, ref)), (reciprocal, its)

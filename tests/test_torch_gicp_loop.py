@@ -298,7 +298,7 @@ def test_wrapper_refuses_other_devices_and_unsupported_queries(gicp_problem):
         with pytest.raises(ValueError, match=word):
             tk.gicp_align_loop(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError, match="kernel must be one of"):
-        tk.worked_launches(kernel="icp_iteration")
+        tk.worked_launches(kernel="ndt_finalize")
 
 
 @pytest.mark.parametrize("neighborhood,bucket_cap", [(7, 16), (27, 32)])
