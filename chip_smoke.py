@@ -108,12 +108,14 @@ of `bench.py:bench_e2e`. Phases:
      1e-4, the same iterations and done, inliers within 0.1%, fitness within rtol 1e-4,
      bit-identical reruns; `icp_fitness` against its plain version in both modes (counts
      exact, score and fraction to rtol 1e-6); device us of a working and an early-exit
-     launch, host and device us of an align stage, the bounds, the plain versions' ms,
-     the kernels' registers, shared memory and blocks; each fixture's `icp_align` under
-     torch.profiler (`scripts/torch_profile_icp.py`), with `--parent DIR` in turns with
-     that tree's host loop (wall and device ms, launches, its iterations and transform);
-     then one whole verification and 5 dense frames of the fused ICP step under
-     `torch.cuda.set_sync_debug_mode("error")`;
+     launch, host and device us of an align stage, at the verifier the device us of an
+     `icp_fitness` call and of the whole align + gate, the bounds, the plain versions'
+     ms, the kernels' registers, shared memory and blocks; each fixture's `icp_align`
+     under torch.profiler (`scripts/torch_profile_icp.py`); with `--parent DIR` all of
+     these in turns with that tree's (wall and device ms, launches, its iterations and
+     transform), and `scripts/torch_sass_diff.py`'s check that every NDT and GICP loop
+     kernel's SASS is the parent's; then one whole verification and 5 dense frames of the
+     fused ICP step under `torch.cuda.set_sync_debug_mode("error")`;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
      loop kernel launched 64 times a frame (and how many did work), `eigh3x3` at least
@@ -193,8 +195,8 @@ result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
 `python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
 3b, its profile to phase 7, its GICP loop kernel to phase 14b (the carry bit for bit,
-the times in turns with this tree's), its ICP aligns to phase 14c and its verifications
-and classic ICP front end to phase 16 (in turns).
+the times in turns with this tree's), its ICP kernels' times, aligns and SASS check to
+phase 14c and its verifications and classic ICP front end to phase 16 (in turns).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -2057,13 +2059,14 @@ def icp_fitness_bound_us(grid, pts, msk, T, max_range: float, bucket_cap: int,
     return bound_of(nbytes, flops, matched=n_match, **c)
 
 
-def icp_loop_timings(args, align) -> dict:
-    """Device us per working launch and per early-exit launch of `icp_iteration`, and the
-    host and device us of a whole align stage (`align()`), as `loop_timings` measures
-    NDT's: a loop of 20 launches that all work (both epsilons 0), one of 1 working launch,
-    and one of 1 working and 40 early-exit launches (epsilon 1e9)."""
+def icp_loop_timings(args, align, kern=kernels) -> dict:
+    """Device us per working launch and per early-exit launch of `icp_iteration` of the
+    module `kern` (this tree's `ops.kernels`, or another tree's), and the host and device
+    us of a whole align stage (`align()`), as `loop_timings` measures NDT's: a loop of 20
+    launches that all work (both epsilons 0), one of 1 working launch, and one of 1
+    working and 40 early-exit launches (epsilon 1e9)."""
     def loop(eps, its):
-        return lambda: kernels.icp_align_loop(*args[:5], eps, 0.0, its, *args[8:])
+        return lambda: kern.icp_align_loop(*args[:5], eps, 0.0, its, *args[8:])
 
     work = split_times(loop(0.0, 20), calls=10, warmup=2)
     one = split_times(loop(1e9, 1), calls=40, warmup=2)
@@ -2132,10 +2135,10 @@ def icp_fitness_check(label: str, grid, pts, msk, T, max_range: float, card: str
 def profile_icp_in_turns(label: str, inputs: dict, args, parent: str | None, card: str) -> dict:
     """One `icp_align` on a fixture under torch.profiler by `scripts/torch_profile_icp.py`
     in a subprocess: this tree's (one loop call, max_iterations launches, and the
-    fitness's none), and with `parent` (the parent commit unpacked by `git archive`, whose
-    ICP loop runs on the host) that tree's on the same input, in turns (this, parent,
-    parent, this): wall and device ms, device launches, iterations and the transforms'
-    largest difference. Returns the means by tree."""
+    fitness's none), and with `parent` (the parent commit unpacked by `git archive`; a
+    tree from before PR 14 runs its ICP loop on the host) that tree's on the same input,
+    in turns (this, parent, parent, this): wall and device ms, device launches,
+    iterations and the transforms' largest difference. Returns the means by tree."""
     points, mask = inputs["cloud"]
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", f"icp_profile_{label}.npz")
@@ -2228,6 +2231,41 @@ def verification_sync_free(inputs: dict) -> dict:
                 enqueue_ms=enqueue_ms, wall_ms=total_ms)
 
 
+def align_and_gate(mod, a, cell: float):
+    """The verifier's ICP stage on `icp_align_loop` arguments `a` through the registration
+    module `mod` (`registration.icp` of a tree): `icp_align`, then the gate's
+    `fitness_and_match_fraction` at its result ("pcl", the verifier's query)."""
+    res = mod.icp_align(a[0], a[1], a[2], a[3], max_correspondence_distance=float(np.sqrt(a[4])),
+                        max_iterations=a[7], transform_epsilon=a[5],
+                        euclidean_fitness_epsilon=a[6], bucket_cap=a[8], neighborhood=a[9])
+    return mod.fitness_and_match_fraction(a[0], a[1], a[2], res.transform, cell,
+                                          bucket_cap=16, neighborhood=7, mode="pcl")
+
+
+def loop_sass_vs_parent(parent_kern) -> dict:
+    """`scripts/torch_sass_diff.py`'s check on the two trees' built libraries (this tree's
+    and `parent_kern`'s, both loaded): per NDT and GICP loop kernel the instruction counts
+    and the lines that differ. Raises unless every such kernel's SASS is the parent's."""
+    kernels.load_library()
+    parent_kern.load_library()
+    spec = importlib.util.spec_from_file_location(
+        "torch_sass_diff", os.path.join(REPO, "scripts", "torch_sass_diff.py"))
+    diff = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(diff)
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    dumps = [diff.functions(subprocess.run([tool, "-sass", m.build_info["path"]], check=True,
+                                           capture_output=True, text=True).stdout,
+                            diff.KERNELS) for m in (kernels, parent_kern)]
+    report = {name[:60]: dict(this=len(dumps[0].get(name, [])),
+                              parent=len(dumps[1].get(name, [])),
+                              differing=diff.differing(dumps[0].get(name, []),
+                                                       dumps[1].get(name, [])))
+              for name in sorted(set(dumps[0]) | set(dumps[1]))}
+    if not report or any(r["differing"] or not r["this"] for r in report.values()):
+        raise AssertionError(f"NDT and GICP loop kernels' SASS against the parent's: {report}")
+    return report
+
+
 def icp_loop_phase(cfg: PipelineConfig, front: dict, verify: dict, T_last: np.ndarray,
                    card: str, parent: str | None = None) -> dict:
     """The icp-loop phase: `icp_iteration` (`icp_align_loop`) against the plain loop on the
@@ -2236,10 +2274,14 @@ def icp_loop_phase(cfg: PipelineConfig, front: dict, verify: dict, T_last: np.nd
     N = 32,768, from a perturbed guess), and the front end's cut at one iteration (inliers
     exact); `icp_fitness` against its plain version at the verifier's result in both
     modes; per kernel the device us of a working (and an early-exit) launch, the host and
-    device us of an align stage, the bound and the plain version's ms; the kernels'
-    registers, shared memory and blocks; each fixture's align profiled, with `parent` in
-    turns with the parent tree's host loop. Returns {"err", "fit_err", "timing",
-    "records", "resources"}."""
+    device us of an align stage, the bound and the plain version's ms; at the verifier
+    also the device us of an `icp_fitness` call and of the whole align + gate
+    (`align_and_gate`); the kernels' registers, shared memory and blocks; each fixture's
+    align profiled. With `parent` (the parent commit unpacked by `git archive`) those
+    times and profiles in turns with the parent tree's (this, parent, parent, this), and
+    the parent's NDT and GICP loop kernels' SASS against this tree's
+    (`loop_sass_vs_parent`). Returns {"err", "fit_err", "timing", "records",
+    "resources"}."""
     dev = front["points"].device
     resources = {
         name: dict(kernels.loop_kernel_attributes(dev, icp=(*q, fit)),
@@ -2263,13 +2305,30 @@ def icp_loop_phase(cfg: PipelineConfig, front: dict, verify: dict, T_last: np.nd
     fit_err, fit_t = icp_fitness_check("verify", verify["grid"], verify["points"],
                                        verify["mask"], out[0], verify["cell"], card)
     timing = {"icp_fitness_verify": {"icp_fitness": fit_t}}
+    par = None
+    if parent:
+        pk = tree_kernels(parent, "parent_kernels_icp")
+        par = (pk, tree_registration(parent, "icp", pk, "parent_icp"))
+        say("icp-loop-sass-vs-parent", **{k: json.dumps(v, separators=(",", ":"))
+                                          for k, v in loop_sass_vs_parent(pk).items()})
+    fit_call = (verify["grid"], verify["points"], verify["mask"], out[0], verify["cell"],
+                *ICP_VERIFY_QUERY[::-1], "pcl")
     for k, a in stages.items():
-        def align(a=a):
-            return icp_module.icp_align(
-                a[0], a[1], a[2], a[3], max_correspondence_distance=float(np.sqrt(a[4])),
-                max_iterations=a[7], transform_epsilon=a[5], euclidean_fitness_epsilon=a[6],
-                bucket_cap=a[8], neighborhood=a[9])
-        t = icp_loop_timings(a, align)
+        def measure(mods, a=a, k=k):
+            def align():
+                return mods[1].icp_align(
+                    a[0], a[1], a[2], a[3], max_correspondence_distance=float(np.sqrt(a[4])),
+                    max_iterations=a[7], transform_epsilon=a[5],
+                    euclidean_fitness_epsilon=a[6], bucket_cap=a[8], neighborhood=a[9])
+            t = icp_loop_timings(a, align, mods[0])
+            if k == "verify":
+                t.update(fitness_device_us=split_times(mods[0].icp_fitness, *fit_call,
+                                                       calls=50, warmup=5)["device_us"],
+                         align_gate_device_us=split_times(
+                             lambda: align_and_gate(mods[1], a, verify["cell"]), calls=3,
+                             warmup=2)["device_us"])
+            return t
+        t = in_turns("icp-loop-turns", k, measure, (kernels, icp_module), par, card)
         t.update(icp_loop_bound_us(a), plain_ms=icp_plain_launch_ms(a), N=a[1].shape[0],
                  library_ms=None)
         t.update(device_us=t["working_launch_us"], host_us=t["stage_host_us"],
@@ -2281,6 +2340,9 @@ def icp_loop_phase(cfg: PipelineConfig, front: dict, verify: dict, T_last: np.nd
                                             if isinstance(v, dict) else v)
                                          for x, v in t.items()}, card=json.dumps(card))
         timing[f"icp_loop_{k}"] = {"icp_iteration": t}
+    v = timing["icp_loop_verify"]["icp_iteration"]
+    fit_t.update(device_us_in_turns=v["fitness_device_us"],
+                 parent_device_us=v.get("parent_fitness_device_us"))
     return dict(err=err, fit_err=fit_err, timing=timing, records=recs, resources=resources)
 
 def cli_command(out_dir: str, frames: int, loops: bool = False, sets=()) -> list:
@@ -3636,6 +3698,13 @@ def main(argv=None) -> int:
             launches_cli_loops=cli_on.get("icp_loop_launches"),
             early_exit_launch_ms=timing["icp_loop_verify"]["icp_iteration"][
                 "early_exit_launch_us"] / 1000,
+            parent_ms=parent_ms(timing["icp_loop_verify"]["icp_iteration"]),
+            parent_ms_front=parent_ms(timing["icp_loop_front"]["icp_iteration"]),
+            align_gate_device_ms=timing["icp_loop_verify"]["icp_iteration"][
+                "align_gate_device_us"] / 1000,
+            parent_align_gate_device_ms=(lambda us: None if us is None else us / 1000)(
+                timing["icp_loop_verify"]["icp_iteration"].get(
+                    "parent_align_gate_device_us")),
             kernel_resources=iloop["resources"]),
         kernel_record(
             "icp_fitness", timing, max_err["icp_fitness"], shape="icp_fitness_verify",
@@ -3647,7 +3716,10 @@ def main(argv=None) -> int:
             ports="fitness_and_match_fraction inside the jitted verification "
                   "(lidar_graph_slam_tpu/graph/slam.py:152-155); no Pallas kernel",
             launches_gicp_verify=launches_gv["icp_fitness"],
-            launches_cli_loops=cli_on.get("icp_fitness_launches")),
+            launches_cli_loops=cli_on.get("icp_fitness_launches"),
+            ms_in_turns=timing["icp_fitness_verify"]["icp_fitness"]["device_us_in_turns"] / 1000,
+            parent_ms=(lambda us: None if us is None else us / 1000)(
+                timing["icp_fitness_verify"]["icp_fitness"]["parent_device_us"])),
         kernel_record(
             "ndt_accumulate", timing, max_err["ndt_accumulate"], shape="gicp_front",
             launches=ls["launches"],

@@ -34,10 +34,11 @@ first use in `build/` and bound with ctypes:
   euclidean_fitness_epsilon, max_iterations, bucket_cap, neighborhood)`: the ICP loop of
   `registration/icp.py:icp_align` — one C call enqueues `max_iterations` launches of the
   `icp_iteration` kernel (transform, the grid-NN match, the sums about an anchor, and the
-  closed-form step with its 3x3 SVD and stop test in the last block). Nothing is read
-  back.
+  closed-form step with its 3x3 SVD and stop test in the last block's warp 0). Nothing is
+  read back.
 * `icp_fitness(grid, points, mask, transform, max_range, bucket_cap, neighborhood, mode)`:
-  `fitness_and_match_fraction`'s score and matched fraction in one launch.
+  `fitness_and_match_fraction`'s score and matched fraction in one launch (a programmatic
+  dependent of the launch before it).
 * `ndt_direct7_accumulate(vmap, p, source_mask, d2, w_scale)`: one NDT iteration's
   reduction in one launch — the DIRECT7 gather of `ops/voxel.py:lookup_direct7`, the
   accumulation, and the centre-residual sums of NDT's fitness. The loop kernel runs the
@@ -580,33 +581,48 @@ def _cross3(a, b):
     return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0]]
 
 
-def rotation_of_plain(S: torch.Tensor) -> torch.Tensor:
+# The kernel's one-sided Jacobi: at most ICP_SVD_SWEEPS sweeps, ended by the first that
+# finds every pair of columns orthogonal, gamma^2 <= ICP_ORTHO2 alpha beta (the cosine of
+# their angle within float32's epsilon, 2^-23): `kSvdSweeps` and `kOrtho2` of
+# `csrc/icp_loop.cu`.
+ICP_SVD_SWEEPS = 6
+ICP_ORTHO2 = 2.0 ** -46
+
+
+def rotation_of_plain(S: torch.Tensor, return_sweeps: bool = False):
     """The rotation R maximizing trace(R^T S) over SO(3) for S [..., 3, 3], as the kernel's
-    `rotation_of` (`csrc/icp_loop.cu`) computes it, elementwise: six sweeps of the
-    one-sided Jacobi SVD (the columns of S V orthogonalized in place, pairs (0, 1), (0,
-    2), (1, 2)), the two largest singular pairs (ties: the lower column), u2 made
-    orthogonal to u1, and R = u1 v1^T + u2 v2^T + (u1 x u2)(v1 x v2)^T — `umeyama_step`'s
-    U diag(1, 1, det(U V^T)) V^T without the signs of U and V."""
+    `rotation_of` (`csrc/icp_loop.cu`) computes it, elementwise: sweeps of the one-sided
+    Jacobi SVD (the columns of S V orthogonalized in place, pairs (0, 1), (0, 2), (1, 2);
+    a pair already orthogonal to float32 is not turned, and the sweeps end at the first
+    that turns none), each divide one reciprocal, 1 / sqrt one `rsqrt`; the two largest
+    singular pairs by squared norm (ties: the lower column), u2 made orthogonal to u1, and
+    R = u1 v1^T + u2 v2^T + (u1 x u2)(v1 x v2)^T — `umeyama_step`'s U diag(1, 1, det(U
+    V^T)) V^T without the signs of U and V. With `return_sweeps`, also the sweeps each
+    matrix ran (int32, the last one the sweep that found the columns orthogonal)."""
     one = torch.ones_like(S[..., 0, 0])
-    zero = torch.zeros_like(one)
     a = [[S[..., i, k] for i in range(3)] for k in range(3)]  # a[k]: column k of S V
-    v = [[one if i == k else zero for i in range(3)] for k in range(3)]
-    for _ in range(6):
+    v = [[one if i == k else torch.zeros_like(one) for i in range(3)] for k in range(3)]
+    active = torch.ones_like(one, dtype=torch.bool)
+    sweeps = torch.zeros_like(one, dtype=torch.int32)
+    for _ in range(ICP_SVD_SWEEPS):
+        sweeps = sweeps + active.to(torch.int32)
+        turned = torch.zeros_like(active)
         for p_, q_ in ((0, 1), (0, 2), (1, 2)):
             alpha, beta, gamma = _dot3(a[p_], a[p_]), _dot3(a[q_], a[q_]), _dot3(a[p_], a[q_])
-            nz = torch.abs(gamma) > 0
-            zeta = (beta - alpha) / (2.0 * torch.where(nz, gamma, one))
-            r = 1.0 / (torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
-            t = torch.where(nz, torch.where(zeta >= 0, r, -r), zero)
-            c = 1.0 / torch.sqrt(1.0 + t * t)
+            turn = active & (gamma * gamma > ICP_ORTHO2 * (alpha * beta))
+            zeta = (beta - alpha) * torch.reciprocal(2.0 * torch.where(turn, gamma, one))
+            r = torch.reciprocal(torch.abs(zeta) + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(zeta >= 0, r, -r)
+            c = torch.rsqrt(1.0 + t * t)
             s = t * c
-            a[p_], a[q_] = ([c * x - s * y for x, y in zip(a[p_], a[q_])],
-                            [s * x + c * y for x, y in zip(a[p_], a[q_])])
-            v[p_], v[q_] = ([c * x - s * y for x, y in zip(v[p_], v[q_])],
-                            [s * x + c * y for x, y in zip(v[p_], v[q_])])
-    sig = [torch.sqrt(_dot3(col, col)) for col in a]
-    k1 = torch.where(sig[1] > sig[0], 1, 0)
-    k1 = torch.where(sig[2] > torch.where(k1 == 1, sig[1], sig[0]), 2, k1)
+            for m in (a, v):
+                m[p_], m[q_] = ([torch.where(turn, c * x - s * y, x) for x, y in zip(m[p_], m[q_])],
+                                [torch.where(turn, s * x + c * y, y) for x, y in zip(m[p_], m[q_])])
+            turned = turned | turn
+        active = active & turned
+    n2 = [_dot3(col, col) for col in a]
+    k1 = torch.where(n2[1] > n2[0], 1, 0)
+    k1 = torch.where(n2[2] > torch.where(k1 == 1, n2[1], n2[0]), 2, k1)
     k2 = torch.where(k1 == 0, 1, 0)
     other = torch.where(k1 == 2, 1, 2)
 
@@ -617,29 +633,30 @@ def rotation_of_plain(S: torch.Tensor) -> torch.Tensor:
     def at(k, xs):
         return torch.where(k == 0, xs[0], torch.where(k == 1, xs[1], xs[2]))
 
-    k2 = torch.where(at(other, sig) > at(k2, sig), other, k2)
-    s1 = at(k1, sig)
-    u1 = [x / s1 for x in pick(k1, a)]
+    k2 = torch.where(at(other, n2) > at(k2, n2), other, k2)
+    inv1 = torch.rsqrt(at(k1, n2))
+    u1 = [x * inv1 for x in pick(k1, a)]
     a2 = pick(k2, a)
     proj = _dot3(u1, a2)
     u2 = [x - proj * y for x, y in zip(a2, u1)]
-    n2 = torch.sqrt(_dot3(u2, u2))
-    u2 = [x / n2 for x in u2]
+    inv2 = torch.rsqrt(_dot3(u2, u2))
+    u2 = [x * inv2 for x in u2]
     v1, v2 = pick(k1, v), pick(k2, v)
     u3, v3 = _cross3(u1, u2), _cross3(v1, v2)
-    return torch.stack([torch.stack([(u1[i] * v1[j] + u2[i] * v2[j]) + u3[i] * v3[j]
-                                     for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    R = torch.stack([torch.stack([(u1[i] * v1[j] + u2[i] * v2[j]) + u3[i] * v3[j]
+                                  for j in range(3)], dim=-1) for i in range(3)], dim=-2)
+    return (R, sweeps) if return_sweeps else R
 
 
 def umeyama_from_moments(moments, anchor):
     """`umeyama_step` as `icp_iteration`'s last block takes it from `icp_moments_plain`'s
-    sums about the anchor c: W = max(n, 1e-9), the means m = S / W, the centred
-    cross-covariance S_qp / W - m_q m_p^T, R = `rotation_of_plain`, t = mu_d - R mu_s with
-    mu = c + m. Returns (R, t)."""
+    sums about the anchor c: W = max(n, 1e-9), the means m = S (1 / W) (one reciprocal),
+    the centred cross-covariance S_qp (1 / W) - m_q m_p^T, R = `rotation_of_plain`, t =
+    mu_d - R mu_s with mu = c + m. Returns (R, t)."""
     n, Sp, Sq, Sqp = moments
-    wsum = torch.clamp(n, min=1e-9)
-    mp, mq = Sp / wsum, Sq / wsum
-    R = rotation_of_plain(Sqp / wsum - mq[:, None] * mp[None, :])
+    inv_w = torch.reciprocal(torch.clamp(n, min=1e-9))
+    mp, mq = Sp * inv_w, Sq * inv_w
+    R = rotation_of_plain(Sqp * inv_w - mq[:, None] * mp[None, :])
     mu_s, mu_d = anchor + mp, anchor + mq
     t = mu_d - torch.stack([_dot3([R[i, j] for j in range(3)], mu_s) for i in range(3)])
     return R, t
@@ -1155,6 +1172,14 @@ def _check_grid(wrapper: str, dev, label: str, grid, bucket_cap: int) -> None:
         raise ValueError(f"{wrapper}: {label} holds {n} rows, outside [bucket_cap, 2**31)")
 
 
+def _icp_grid_args(grid):
+    """The ICP kernels' target-grid arguments: table, packed rows, origin, cell size (the
+    kernels take its float32 reciprocal themselves, so no torch operation runs between a
+    loop launch and the next kernel), rows."""
+    return (grid.table.data_ptr(), grid.packed.data_ptr(), grid.origin.data_ptr(),
+            grid.cell_size.data_ptr(), grid.packed.shape[0])
+
+
 def _grid_args(grid):
     """The C entry points' target-grid arguments: table, packed rows, origin, the float32
     reciprocal of the cell that `ops/neighbors.py:_candidate_scan` computes (a fresh
@@ -1251,9 +1276,11 @@ def icp_align_loop(grid, source_points, source_mask, T0, corr2, transform_epsilo
     Refuses a `bucket_cap` or `neighborhood` the kernel does not take, on every device.
     CPU tensors take `icp_align_loop_plain`. On CUDA tensors one C call enqueues
     `max_iterations` launches of the `icp_iteration` kernel (`csrc/icp_loop.cu`; a launch
-    that finds the carry done exits at once) on the current stream, counted in
-    `icp_align_loop.launches`, after a few torch operations that make the sums' anchor
-    (`icp_anchor`); it raises if the kernel fails to build or a launch is refused.
+    that finds the carry done exits at once; each after the first a programmatic
+    dependent of the one before it) on the current stream, counted in
+    `icp_align_loop.launches`, after a few torch operations that make the carry and the
+    sums' anchor (`icp_anchor`); it raises if the kernel fails to build or a launch is
+    refused.
     """
     name = "icp_align_loop"
     _check_query(name, bucket_cap, neighborhood)
@@ -1273,9 +1300,9 @@ def icp_align_loop(grid, source_points, source_mask, T0, corr2, transform_epsilo
     stream, partials, counter = _stream_scratch(dev)
     carry = _loop_carry(T0, ())
     anchor = icp_anchor(source_points, source_mask, carry[0]).contiguous()
-    gargs, _inv_cell = _grid_args(grid)
     _raise_on(lib.lgs_icp_align_loop(
-        source_points.data_ptr(), source_mask.data_ptr(), n, *gargs, *TABLE_DIMS, *COORD_MAX,
+        source_points.data_ptr(), source_mask.data_ptr(), n, *_icp_grid_args(grid),
+        *TABLE_DIMS, *COORD_MAX,
         _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap, anchor.data_ptr(), corr2,
         transform_epsilon, euclidean_fitness_epsilon, *(x.data_ptr() for x in carry),
         max_iterations, partials, counter, loop_grid(dev, n, icp=(neighborhood, bucket_cap, 0)),
@@ -1300,8 +1327,10 @@ def icp_fitness(grid, points, mask, transform, max_range, bucket_cap: int = 16,
 
     Refuses an unknown `mode` and a `bucket_cap` or `neighborhood` the kernel does not
     take, on every device. CPU tensors take `icp_fitness_plain`; CUDA tensors launch the
-    `icp_fitness` kernel (`csrc/icp_loop.cu`, counted in `icp_fitness.launches`) or raise.
-    Nothing is read back.
+    `icp_fitness` kernel (`csrc/icp_loop.cu`, counted in `icp_fitness.launches`) or raise:
+    no torch operation runs before it, and it is a programmatic dependent of the launch
+    before it (right after a loop kernel it starts while that launch ends and reads T
+    after it). Nothing is read back.
     """
     name = "icp_fitness"
     if mode not in ICP_FITNESS_MODES:
@@ -1321,9 +1350,8 @@ def icp_fitness(grid, points, mask, transform, max_range, bucket_cap: int = 16,
     lib = load_library()
     stream, partials, counter = _stream_scratch(dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)
-    gargs, _inv_cell = _grid_args(grid)
     _raise_on(lib.lgs_icp_fitness(
-        points.data_ptr(), mask.data_ptr(), n, *gargs, *TABLE_DIMS, *COORD_MAX,
+        points.data_ptr(), mask.data_ptr(), n, *_icp_grid_args(grid), *TABLE_DIMS, *COORD_MAX,
         _BITS_Y + _BITS_Z, _BITS_Z, neighborhood, bucket_cap, T.data_ptr(),
         max_range * max_range, int(mode == "pcl"), out.data_ptr(), partials, counter,
         loop_grid(dev, n, icp=(neighborhood, bucket_cap, 1)), stream), name)

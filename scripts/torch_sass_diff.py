@@ -37,6 +37,13 @@ def functions(sass: str, names) -> dict:
     return out
 
 
+def differing(a, b) -> int:
+    """The instruction lines that differ between two instruction streams (0: the same
+    code)."""
+    return sum(1 for line in difflib.unified_diff(a, b, lineterm="", n=0)
+               if line[:1] in "+-" and not line.startswith(("+++", "---")))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True)
@@ -56,9 +63,7 @@ def main() -> int:
     report = {}
     for name in sorted(set(dumps[0]) | set(dumps[1])):
         a, b = dumps[0].get(name, []), dumps[1].get(name, [])
-        changed = sum(1 for line in difflib.unified_diff(a, b, lineterm="", n=0)
-                      if line[:1] in "+-" and not line.startswith(("+++", "---")))
-        report[name[:90]] = dict(this=len(a), other=len(b), lines_differing=changed)
+        report[name[:90]] = dict(this=len(a), other=len(b), lines_differing=differing(a, b))
     print(json.dumps(report), flush=True)
     return 0
 

@@ -19,7 +19,12 @@ points and the coarse one from the merged fine moments, on a real ring, the ring
 valid, a run longer than the shared stage, voxels past C, no valid point, one point,
 capacities of 3 and 1,000, a far origin with keys up to COORD_MAX, at min_points 6 and 1; `segment_reduce`'s run sums in order on the card; the empty ring,
 GICP's window covariances; the pyramid, the GICP covariances and the FPFH normals through
-them; refusals, no synchronous read, two streams at once.
+them; refusals, no synchronous read, two streams at once. The ICP kernels (`icp_iteration`,
+`icp_fitness`, `csrc/icp_loop.cu`) against the plain loop and fitness: every
+instantiation, the verifier's and the front end's shapes, 1 km from the origin, ragged
+sizes, no inliers; two aligns and a fitness back to back on one stream, and the fitness
+right after each loop kernel, bit for bit as each alone (their loads before the
+programmatic wait read nothing a launch before them writes).
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -1830,6 +1835,81 @@ def test_icp_loop_kernel_reruns_and_two_streams(cuda):
     for outs in results.values():
         for k, out in outs:
             assert all(torch.equal(a, b) for a, b in zip(out, serial[k])), k
+
+
+@pytest.mark.parametrize("n,bucket_cap,eps,fit_eps", [(16384, 16, 1e-7, 1e-6),
+                                                     (32768, 32, 0.01, 0.0)],
+                         ids=["verifier", "front-end"])
+def test_icp_loop_kernel_at_the_path_shapes(cuda, n, bucket_cap, eps, fit_eps):
+    """The loop verifier's shape (N = 16,384, 7 cells, bucket 16, PCL's fitness stop) and
+    the ICP front end's (N = 32,768, bucket 32): the kernel loop against the plain loop,
+    converged before max_iterations; cut at one iteration, the plain loop's inliers
+    exactly."""
+    args = _icp_loop_args(_icp_problem(cuda, n=n), 64, bucket_cap, 7, eps, fit_eps)
+    _, done, it, _, inl = _icp_loop_matches_plain(args)
+    assert bool(done) and 0 < int(it) < 64 and int(inl) > 1000
+    args[7] = 1
+    one, ref = tk.icp_align_loop(*args), tk.icp_align_loop_plain(*args)
+    assert int(one[4]) == int(ref[4]) and int(one[2]) == 1
+    assert float((one[0] - ref[0]).abs().max()) <= 1e-4
+
+
+def _alone(fn):
+    """fn()'s outputs with the stream idle before and after it (cloned)."""
+    torch.cuda.synchronize()
+    out = [x.clone() for x in fn()]
+    torch.cuda.synchronize()
+    return out
+
+
+def test_icp_aligns_and_fitness_back_to_back_on_one_stream(cuda):
+    """Two aligns from different sources and initial transforms, then a fitness launch at
+    the second's result, enqueued back to back on one stream three times over (a launch
+    reads its source, anchor and grid before its programmatic wait, while the launch
+    before it ends): each result equals the one its call leaves alone, bit for bit — no
+    launch read a carry, partial row or ticket counter the one before it had not
+    finished."""
+    grid, src, mask = _icp_problem(cuda)
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(src.shape[0]), device=cuda)
+    src2, mask2 = src[perm].contiguous(), mask[perm].contiguous()
+    c, s_ = np.cos(-0.02), np.sin(-0.02)
+    T1 = torch.tensor([[c, -s_, 0.0, -0.2], [s_, c, 0.0, 0.1], [0.0, 0.0, 1.0, 0.02],
+                       [0.0, 0.0, 0.0, 1.0]], dtype=torch.float32, device=cuda)
+    a1 = _icp_loop_args((grid, src, mask))
+    a2 = _icp_loop_args((grid, src2, mask2), transform_epsilon=1e-6, fitness_epsilon=0.0,
+                        T0=T1)
+    ref1 = _alone(lambda: tk.icp_align_loop(*a1))
+    ref2 = _alone(lambda: tk.icp_align_loop(*a2))
+    reff = _alone(lambda: tk.icp_fitness(grid, src2, mask2, ref2[0], 2.0, 16, 7, "pcl"))
+    assert not torch.equal(ref1[0], ref2[0])
+    for _ in range(3):
+        o1 = tk.icp_align_loop(*a1)
+        o2 = tk.icp_align_loop(*a2)
+        f = tk.icp_fitness(grid, src2, mask2, o2[0], 2.0, 16, 7, "pcl")
+        torch.cuda.synchronize()
+        for out, ref in ((o1, ref1), (o2, ref2), (f, reff)):
+            assert all(torch.equal(x, y) for x, y in zip(out, ref))
+
+
+def test_icp_fitness_right_after_each_loop_kernel(cuda):
+    """`icp_fitness` enqueued right after the last launch of the ICP, the GICP and the NDT
+    loop kernel on one stream (its prologue runs while that launch ends) equals the
+    fitness launched alone, bit for bit, in both modes."""
+    grid, src, mask = _icp_problem(cuda)
+    iargs = _icp_loop_args((grid, src, mask))
+    T = _alone(lambda: tk.icp_align_loop(*iargs))[0]
+    gargs = _gicp_loop_args(_gicp_problem(cuda))
+    nargs = _loop_call(_loop_inputs(8192, 2.0, cuda))
+    for mode in ("pcl", "penalized"):
+        ref = _alone(lambda: tk.icp_fitness(grid, src, mask, T, 2.0, 16, 7, mode))
+        for name, loop in (("icp", lambda: tk.icp_align_loop(*iargs)),
+                           ("gicp", lambda: tk.gicp_align_loop(*gargs)),
+                           ("ndt", lambda: tk.ndt_align_loop(*nargs))):
+            torch.cuda.synchronize()
+            loop()
+            out = tk.icp_fitness(grid, src, mask, T, 2.0, 16, 7, mode)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(out, ref)), (mode, name)
 
 
 @pytest.mark.parametrize("mode", ["pcl", "penalized"])

@@ -17,14 +17,18 @@ versions on the CPU; the kernels themselves (`icp_iteration`, `icp_fitness`,
   `max_iterations` stop; fewer than 3 inliers take the identity step (and end the loop,
   as the reference's test of the identity's zero twist does).
 - The kernel's own step, written in torch ops (`icp_moments_plain` about the align's
-  anchor, `umeyama_from_moments`, `rotation_of_plain`: the one-sided Jacobi SVD and the
-  rotation from the two largest singular pairs), against the JAX `_umeyama_step` on
+  anchor, `umeyama_from_moments`, `rotation_of_plain`: the one-sided Jacobi SVD, its
+  sweeps ended at convergence, and the rotation from the two largest singular pairs),
+  against the JAX `_umeyama_step` on
   random, planar (rank-2), near-collinear and reflected pairs: R and t to atol 1e-5, the
   bound `tests/test_torch_icp.py` holds the plain step to; each also within 1e-5 of a
   float64 evaluation (R) and no farther from it than the reference's own step plus 1e-5
   (t). At 1 km from the origin R keeps 1e-5 against JAX, and t is held to the float64
   evaluation only (no farther from it than the reference's step plus 1e-5): the
   reference's float32 means round at the coordinates' spacing there, several times 1e-5.
+  On each of those cases the sweeps stop before the cap of six, the rotation still within
+  1e-5 of the JAX step's; over a batch each matrix stops on its own (a diagonal one after
+  one sweep, a zero one with non-finite entries).
 - `icp_fitness_plain` against the JAX `fitness_and_match_fraction` at the verifier's query
   (7 cells, bucket 16) in both modes, on a nudged source, a half-matched one and one that
   matches nothing: score and fraction to rtol 1e-6.
@@ -222,6 +226,41 @@ def test_kernel_step_formula_matches_reference(case):
                                      tol=1e-3) == 2
     if case == "reflected":
         assert np.linalg.det(np.diag([1.0, 1.0, -1.0])) < 0 < np.linalg.det(R)
+
+
+@pytest.mark.parametrize("case", ["random", "planar", "near_collinear", "reflected",
+                                  "far_origin"])
+def test_jacobi_stops_before_six_sweeps(case):
+    """The kernel's one-sided Jacobi ends at the first sweep that turns no pair of columns
+    (each orthogonal to float32): on every step case that is before the cap of six sweeps,
+    and the rotation is still the reference's `_umeyama_step` one to 1e-5."""
+    src, dst, w = _step_pair(case)
+    s, d, wt = torch.as_tensor(src), torch.as_tensor(dst), torch.as_tensor(w)
+    anchor = tk.icp_anchor(s, wt > 0, torch.eye(4))
+    n, Sp, Sq, Sqp = tk.icp_moments_plain(s, d, wt > 0, anchor)
+    inv_w = torch.reciprocal(torch.clamp(n, min=1e-9))
+    R, sweeps = tk.rotation_of_plain(Sqp * inv_w - (Sq * inv_w)[:, None] * (Sp * inv_w)[None, :],
+                                     return_sweeps=True)
+    assert 1 < int(sweeps) < tk.ICP_SVD_SWEEPS
+    jR, _ = jicp._umeyama_step(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w))
+    np.testing.assert_allclose(R.numpy(), np.asarray(jR), atol=1e-5)
+
+
+def test_jacobi_sweeps_per_matrix():
+    """Over a batch each matrix runs its own sweeps: a diagonal S (orthogonal columns)
+    one sweep and the identity; random ones between two and the cap, with R equal to the
+    same matrix alone; a zero S one sweep and non-finite entries."""
+    rng = np.random.default_rng(4)
+    S = torch.as_tensor(rng.normal(size=(200, 3, 3)).astype(np.float32))
+    S[0] = torch.diag(torch.tensor([3.0, 2.0, 0.5]))
+    S[1] = 0.0
+    R, sweeps = tk.rotation_of_plain(S, return_sweeps=True)
+    assert int(sweeps[0]) == 1 and torch.equal(R[0], torch.eye(3))
+    assert int(sweeps[1]) == 1 and not bool(torch.isfinite(R[1]).any())
+    assert 2 <= int(sweeps[2:].min()) and int(sweeps[2:].max()) <= tk.ICP_SVD_SWEEPS
+    for b in (2, int(torch.argmax(sweeps)), int(torch.argmin(sweeps[2:])) + 2):
+        alone, n = tk.rotation_of_plain(S[b], return_sweeps=True)
+        assert torch.equal(alone, R[b]) and int(n) == int(sweeps[b])
 
 
 def test_rotation_of_plain_batched_and_degenerate():
