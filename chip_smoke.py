@@ -51,7 +51,8 @@ of `bench.py:bench_e2e`. Phases:
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
      max(0.05 x travelled, 0.35) m, the NDT loop kernel launched 16 + 64 + 2 times a
      frame (and how many of those did work), the accumulate kernels not, `ndt_finalize`
-     twice a target build, `eigh3x3` not; p50 frame ms;
+     twice a target build, `eigh3x3` not, `voxel_centroids` and `sor_window_stats` once
+     a frame (the prefilter); p50 frame ms;
   7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
      device kernel launches, device ms and wall ms per align and per NDT body; with
      `--parent DIR` (the parent commit unpacked by `git archive`) also that tree's, on the
@@ -66,6 +67,20 @@ of `bench.py:bench_e2e`. Phases:
      and off, verify p50 and max;
  10b. `ndt_finalize` on the course's last ring (~28% of its rows valid) as in phase 4,
      and its rebuild profile;
+ 10c. the prefilter's kernels on the dense course's first frame (its 131,072-row bucket)
+     and the drift course's frame 100 (an 8,192-row bucket; the phase prints each
+     bucket's rows): `voxel_centroids` (C = 65,536) and `sor_window_stats` (N = 65,536)
+     against `voxel_centroids_plain` and `sor_window_stats_plain` on the same card
+     tensors, bit for bit with reruns, and so `voxel_centroids` on the loop path's shapes
+     too: the first loop attempt's submap (0.5 m leaf, C = 131,072) and its FPFH
+     keypoints (1.0 m leaf, C = 8,192); each kernel's device and host us, the plain
+     version's ms, `torch.segment_reduce`'s ms on the same C runs (the centroid sums'
+     yardstick), the bound and its share; one
+     `prefilter` call under `torch.cuda.set_sync_debug_mode("error")`;
+     `scripts/torch_profile_prefilter.py` in a subprocess: wall and enqueue ms a call on
+     the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
+     turns, and each one's device launches, device ms, `segment_reduce` launches and
+     [N, 48] row sorts (none of either on the kernel path);
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
  12. one verification, card against CPU, from the same keyframes: the same decision, and
@@ -229,8 +244,12 @@ from lidar_graph_slam_tpu_torch.core.config import (
     PipelineConfig,
     apply_cli_overrides,
 )
-from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
-from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
+from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud, pad_points
+from lidar_graph_slam_tpu_torch.filters.prefilter import (
+    distance_filter,
+    make_prefilter,
+    sor_cell_size,
+)
 from lidar_graph_slam_tpu_torch.graph.slam import (
     PRE_ALIGN_OUTLIER_RATIO,
     GraphBasedSLAM,
@@ -247,7 +266,15 @@ from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops import voxel
-from lidar_graph_slam_tpu_torch.ops.neighbors import build_hash_grid, nearest
+from lidar_graph_slam_tpu_torch.ops.neighbors import (
+    SOR_WINDOW,
+    CellSort,
+    build_hash_grid,
+    nearest,
+    sor_window_stats_plain,
+    sort_by_cell,
+    window_neighbor_d2,
+)
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     DIRECT7_OFFSETS,
     TABLE_DIMS,
@@ -286,7 +313,7 @@ REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
-           "icp_fitness", "ndt_finalize", "eigh3x3")
+           "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -831,6 +858,225 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
                 **{k: json.dumps(v, separators=(",", ":")) if isinstance(v, list) else v
                    for k, v in rec[name].items()}, card=json.dumps(card))
     return rec
+
+
+# -- the prefilter's kernels (phase 10c) -----------------------------------------------------
+
+# The drift course's frame whose scan phase 10c filters (mid-course, ~7k points, an
+# 8,192-row bucket).
+PREFILTER_DRIFT_FRAME = 100
+PREFILTER_KERNELS = ("voxel_centroids", "sor_window_stats")
+# `voxel_centroids`' least traffic: each summed point read once (12 B); an occupied row's
+# start and its run's key (8 + 4 B); every row's length (8 B), its centroid and mask
+# written (13 B). Its operations: per summed point the count and 3 offsets added, 3
+# subtractions (7), per occupied row the corner (6), the mean and centroid (6).
+CENTROID_POINT_BYTES, CENTROID_OCCUPIED_BYTES, CENTROID_ROW_BYTES = 12, 8 + 4, 8 + 13
+CENTROID_POINT_OPS, CENTROID_RUN_OPS = 7, 12
+# `sor_window_stats`' least traffic: every row's key and order read (12 B) and its mean_d
+# and n_found written (12 B), a valid row's xyz read (12 B). Its operations: a valid row's
+# 48 key tests and its mean (1), a same-cell pair's d^2 (8), a found neighbour's root and
+# add (2), and the k-smallest selection's compare-exchanges (2 each) that work on two of
+# the row's 48 distances (`sor_network_exchanges`).
+SOR_ROW_BYTES, SOR_VALID_BYTES = 12 + 12, 12
+SOR_PAIR_OPS, SOR_ROOT_OPS = 8, 2
+
+
+def sor_network_exchanges(width: int = 64, values: int = 48) -> int:
+    """The compare-exchanges of `sor_window_stats`' bitonic network (`csrc/prefilter.cu`,
+    `width` wide, `values` distances then +inf pads) whose two inputs can both hold a
+    distance: a pair of pads, or a distance and a pad, needs no work (the min is the
+    distance, the max the pad), and the pad's new slot is known when the kernel is built."""
+    pad = [i >= values for i in range(width)]
+    count, size = 0, 2
+    while size <= width:
+        stride = size // 2
+        while stride:
+            for a in range(width):
+                b = a ^ stride
+                if b < a or (pad[a] and pad[b]):
+                    continue
+                if not (pad[a] or pad[b]):
+                    count += 1
+                else:  # the distance goes to the min's slot, the pad to the max's
+                    up = (a & size) == 0
+                    pad[a], pad[b] = not up, up
+            stride //= 2
+        size *= 2
+    return count
+
+
+def raw_bucket(scan: np.ndarray, raw_points: int) -> np.ndarray:
+    """A scan padded to its bucket as `SlamPipeline._pad_bucket` pads it: the smallest
+    power of two >= 8192 that holds it, at most `raw_points`, PAD_VALUE rows after it."""
+    n = min(len(scan), raw_points)
+    b = 8192
+    while b < n:
+        b *= 2
+    out = np.full((min(b, raw_points), 3), PAD_VALUE, np.float32)
+    out[:n] = scan[:n]
+    return out
+
+
+def prefilter_kernel_inputs(cfg: PipelineConfig, raw: torch.Tensor) -> dict:
+    """Each prefilter kernel's arguments as the default prefilter (`make_prefilter`) makes
+    them from the raw bucket `raw`: the downsample's sorted runs, and the SOR's rows sorted
+    by cell (from the plain downsample's output)."""
+    pf, cap = cfg.prefilter, cfg.capacity
+    mask = distance_filter(raw, raw[:, 0] < 0.5 * PAD_VALUE, pf.min_distance, pf.max_distance)
+    points = pad_points(raw, mask)
+    voxel_capacity = min(cap.raw_points, 2 * cap.filtered_points)
+    runs, _ = voxel.centroid_runs(points, mask, pf.leaf_size, voxel_capacity)
+    grid_pts, grid_mask = voxel.voxel_centroids_plain(*runs)
+    cells = sort_by_cell(grid_pts, grid_mask, sor_cell_size(pf))
+    return {"voxel_centroids": runs, "sor_window_stats": (cells.keys, cells.points,
+                                                          cells.order, pf.mean_k)}
+
+
+def prefilter_bound(name: str, args, clock_mhz: float) -> dict:
+    """The least time for one call of `name` on `args` (`prefilter_kernel_inputs`): the
+    bytes it must move over the HBM rate, or its operations over the issue rate."""
+    if name == "voxel_centroids":
+        lengths = args[3]
+        C = lengths.shape[0] - 1
+        summed, occupied = int(lengths[:C].sum()), int((lengths[:C] > 0).sum())
+        nbytes = (summed * CENTROID_POINT_BYTES + occupied * CENTROID_OCCUPIED_BYTES
+                  + C * CENTROID_ROW_BYTES)
+        ops = summed * CENTROID_POINT_OPS + occupied * CENTROID_RUN_OPS
+        return dict(rows=C, summed=summed, occupied_rows=occupied,
+                    **bound_us(nbytes, ops, clock_mhz))
+    keys, points, order, k = args
+    d2 = window_neighbor_d2(CellSort(keys, points, order), SOR_WINDOW)
+    finite = torch.isfinite(d2).sum(dim=1)
+    valid = int((keys != voxel.INVALID_KEY).sum())
+    pairs, roots = int(finite.sum()), int(finite.clamp(max=k).sum())
+    exchanges = sor_network_exchanges(2 * SOR_WINDOW + 16, 2 * SOR_WINDOW)
+    ops = (valid * (2 * SOR_WINDOW + 1 + 2 * exchanges) + pairs * SOR_PAIR_OPS
+           + roots * SOR_ROOT_OPS)
+    nbytes = keys.shape[0] * SOR_ROW_BYTES + valid * SOR_VALID_BYTES
+    return dict(rows=keys.shape[0], valid_rows=valid, same_cell_pairs=pairs, roots=roots,
+                network_exchanges=exchanges, **bound_us(nbytes, ops, clock_mhz))
+
+
+def segment_sum_library_ms(runs) -> float:
+    """The centroid sums' library yardstick: one `torch.segment_reduce` of the sorted
+    points over the same C runs (the sums alone, without the centroids), the overflow run
+    and the rows past it cut off on the host first, as the kernel never reads them."""
+    _, pts_sorted, starts, lengths, _, _ = runs
+    C = lengths.shape[0] - 1
+    pts, lens = pts_sorted[:int(starts[C])], lengths[:C]
+    return median_ms(lambda: torch.segment_reduce(pts, "sum", lengths=lens, axis=0,
+                                                  unsafe=True, initial=0.0), calls=20)
+
+
+def loop_centroid_inputs(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict) -> dict:
+    """`voxel_centroids`' arguments on the loop path, from the keyframes the back end
+    `back` had at loop attempt `rec`: the candidate's submap as `graph/slam.py`'s attempt
+    downsamples it (`loop_submap_leaf`, `loop_submap_points` rows), and the FPFH keypoints
+    of that downsample as `registration/features.py:keypoint_features` takes them
+    (`global_reg.keypoint_leaf`, `max_keypoints`)."""
+    gs, cap = cfg.graph_slam, cfg.capacity
+    b = GraphBasedSLAM(gs, cap, device=back.device)
+    for k in range(rec["latest"] + 1):
+        cloud = back._cloud(k)
+        b.add_keyframe({"pose": back.kf_front_poses[k], "cloud": cloud,
+                        "cloud_mask": np.ones(cloud.shape[0], bool),
+                        "accum_distance": back.kf_accum_dist[k]})
+    submap = b._assemble_submap(rec["candidate"], gs.search_key_frame_num,
+                                max_points=cap.loop_submap_points)
+    sub = PointCloud.from_array(submap, capacity=cap.loop_submap_points, device=back.device)
+    runs, _ = voxel.centroid_runs(sub.points, sub.mask, gs.loop_submap_leaf,
+                                  cap.loop_submap_points)
+    filtered, mask = voxel.voxel_centroids_plain(*runs)
+    keypoints, _ = voxel.centroid_runs(filtered, mask, gs.global_reg.keypoint_leaf,
+                                       gs.global_reg.max_keypoints)
+    return {"loop_submap": runs, "fpfh_keypoints": keypoints}
+
+
+def prefilter_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float) -> dict:
+    """One prefilter kernel at one shape: against its plain version on the same card
+    tensors bit for bit with a rerun, its device and host us (`split_times`), the plain
+    version's ms, the library yardstick's, the bound and its share."""
+    plain = {"voxel_centroids": voxel.voxel_centroids_plain,
+             "sor_window_stats": sor_window_stats_plain}[name]
+    kernel = getattr(kernels, name)
+    same_bits(f"{name} {label}", ("out", "mask_or_count"), kernel(*args), kernel(*args),
+              plain(*args))
+    t = split_times(kernel, *args)
+    t.update(plain_ms=median_ms(plain, *args, calls=20),
+             library_ms=segment_sum_library_ms(args) if name == "voxel_centroids" else None,
+             **prefilter_bound(name, args, clock_mhz))
+    t["share_of_bound"] = t["bound_us"] / t["device_us"]
+    say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
+    return dict(kernel=name, **t)
+
+
+def profile_prefilter(raws: dict, parent: str | None, card: str) -> dict:
+    """`scripts/torch_profile_prefilter.py` in a subprocess on the raw buckets `raws`
+    ({label: [R, 3] array}): wall and enqueue ms a call on the kernel path, the plain path
+    and (with `parent`) the parent tree's, in turns; device kernel launches, device ms,
+    `segment_reduce` launches and the [N, 48] row sorts of one call of each under
+    torch.profiler, one `prefilter-profile` line a frame and path. The kernel path must
+    launch each kernel once, no `segment_reduce` and no row sort, fewer device kernels than
+    the plain path, and equal the plain path bit for bit."""
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "prefilter_profile_input.npz")
+    np.savez(path, **{f"raw_{label}": raw for label, raw in raws.items()})
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_prefilter.py"),
+           "--input", path]
+    if parent is not None:
+        cmd += ["--parent", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"prefilter profile failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, row in rec.items():
+        k = row["kernel"]
+        if not (row["bit_equal_kernel_plain"] and k["wrapper_launches"] == 2
+                and k["segment_reduce_launches"] == 0 and k["row_sorts"] == 0
+                and k["launches"] < row["plain"]["launches"]):
+            raise AssertionError(f"prefilter profile, {label}: {row}")
+        for name in ("kernel", "plain", "parent"):
+            if name in row:
+                say("prefilter-profile", frame=label, path=name, raw_points=row["raw_points"],
+                    filtered_points=row["filtered_points"],
+                    **{key: json.dumps(v, separators=(",", ":"))
+                       if isinstance(v, (list, dict)) else v
+                       for key, v in row[name].items()}, card=json.dumps(card))
+    return rec
+
+
+def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: str,
+                    parent: str | None, clock_mhz: float, dev=torch.device("cuda")) -> dict:
+    """Phase 10c: the prefilter's kernels on the raw buckets of `scans` ({label: scan}),
+    and `voxel_centroids` on the loop path's `loop_inputs` ({label: runs},
+    `loop_centroid_inputs`), each as `prefilter_kernel_timing` takes it; one `prefilter`
+    call a bucket under `torch.cuda.set_sync_debug_mode("error")`; the profile of
+    `profile_prefilter`. The SOR statistics have no one-call library equivalent.
+    Returns {"timing": {shape: {kernel: timing}}, "profile": ...}."""
+    raws = {label: raw_bucket(scan, cfg.capacity.raw_points) for label, scan in scans.items()}
+    prefilter = make_prefilter(cfg.prefilter, cfg.capacity.filtered_points,
+                               min(cfg.capacity.raw_points, 2 * cfg.capacity.filtered_points))
+    timing = {}
+    for label, raw_np in raws.items():
+        raw = torch.as_tensor(raw_np, device=dev)
+        say("prefilter-bucket", frame=label, raw_rows=raw.shape[0],
+            raw_points=int(min(len(scans[label]), cfg.capacity.raw_points)))
+        inputs = prefilter_kernel_inputs(cfg, raw)
+        timing[f"prefilter_{label}"] = {
+            name: prefilter_kernel_timing(name, f"prefilter_{label}", inputs[name], card,
+                                          clock_mhz) for name in PREFILTER_KERNELS}
+        mask = raw[:, 0] < 0.5 * PAD_VALUE
+        sync = sync_sites(lambda raw=raw, mask=mask: prefilter(raw, mask))
+        if not sync["sync_free"]:
+            raise AssertionError(f"prefilter on the {label} frame reads the device: {sync}")
+        say("prefilter-sync", frame=label, **sync, card=json.dumps(card))
+    for label, runs in loop_inputs.items():
+        timing[label] = {"voxel_centroids": prefilter_kernel_timing(
+            "voxel_centroids", label, runs, card, clock_mhz)}
+    return dict(timing=timing, profile=profile_prefilter(raws, parent, card))
 
 
 EIGH_CHUNK = 4096
@@ -2494,11 +2740,16 @@ def global_init_loop(device) -> dict:
     drifted = glob.optimized_poses()[-1]
     closed_plain = plain.try_close_loop()
     reset_counts()
+    logged = len(glob.loop_log)
     t0 = time.perf_counter()
     closed_glob = glob.try_close_loop()
     seconds = time.perf_counter() - t0
     counts = read_counts() if torch.device(device).type == "cuda" else dict.fromkeys(KERNELS, 0)
     rec = glob.loop_log[-1]
+    # Each verified candidate's global guess downsamples the source and the target to
+    # their FPFH keypoints in the verify thread (`voxel_centroids` twice); its input
+    # build's filter launches it once more on the calling thread.
+    verified = sum(r["candidate"] >= 0 for r in glob.loop_log[logged:])
     err = float(np.linalg.norm((rec["transform"] @ drifted)[:3, 3] - true_last[:3, 3]))
     plain_fit = plain.loop_log[-1]["fitness"]
     if not (closed_glob and err < GLOBAL_LOOP_TRANS_M and "ransac_families" in rec
@@ -2510,7 +2761,8 @@ def global_init_loop(device) -> dict:
             counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
             and counts["ndt_direct7_accumulate"] == 0
             and glob.verify_launches == counts["ndt_align_loop"] + counts["eigh3x3"]
-            + counts["icp_align_loop"] + counts["icp_fitness"]
+            + counts["icp_align_loop"] + counts["icp_fitness"] + 2 * verified
+            and counts["voxel_centroids"] == 3 * verified and counts["sor_window_stats"] == 0
             and counts["eigh3x3"] > 0 and counts["icp_align_loop"] > 0
             and counts["icp_fitness"] == 1
             and 0 < counts["ndt_iteration_worked"] <= counts["ndt_align_loop"]):
@@ -3277,12 +3529,15 @@ def main(argv=None) -> int:
             and 0 < launches["ndt_iteration_worked"] < launches["ndt_align_loop"]
             and launches["ndt_direct7_accumulate"] == launches["ndt_accumulate"] == 0
             and launches["ndt_finalize"] == 2 * (stats["keyframes"] + 1)
-            and launches["eigh3x3"] == 0):
+            and launches["eigh3x3"] == 0
+            # The prefilter launches each of its kernels once a frame.
+            and launches["voxel_centroids"] == launches["sor_window_stats"] == stats["frames"]):
         raise AssertionError(f"the main path's kernel launches: {launches}")
     say("pipeline", **stats, kernel_launches=launches["ndt_align_loop"],
         kernel_launches_worked=launches["ndt_iteration_worked"],
         kernel_launches_per_frame=per_frame, finalize_launches=launches["ndt_finalize"],
-        card=json.dumps(card))
+        voxel_centroids_launches=launches["voxel_centroids"],
+        sor_window_stats_launches=launches["sor_window_stats"], card=json.dumps(card))
 
     # -- 7. one ndt_align under the profiler (and the parent's, given --parent) ----------
     prof = profile_ndt_align(cfg, ring, last, T_last, args.parent)
@@ -3356,8 +3611,15 @@ def main(argv=None) -> int:
                                  sass["eigh3x3"]["instructions"], clock_mhz))
     drift_prof = profile_rebuild(cfg_on, pipe_on._ring, args.parent, card, tag="drift")
 
-    # -- 11-12. grid NN and one verification, card against CPU ------------------------------
+    # -- 10c. the prefilter's kernels on the dense course's first frame and a drift frame;
+    # `voxel_centroids` on the first loop attempt's submap and its FPFH keypoints ---------
     first = next(r for r in back.loop_log if r["candidate"] >= 0)
+    pf = prefilter_phase(cfg, {"dense": scans[0], "drift": dscans[PREFILTER_DRIFT_FRAME]},
+                         loop_centroid_inputs(cfg_on, back, first), card, args.parent,
+                         clock_mhz)
+    timing.update(pf["timing"])
+
+    # -- 11-12. grid NN and one verification, card against CPU ------------------------------
     say("grid-nn", **grid_nn_card_vs_cpu(back, first))
     ver = verify_card_vs_cpu(cfg_on, back, first, card)
     timing["verify"] = ver.pop("timing")
@@ -3533,7 +3795,7 @@ def main(argv=None) -> int:
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
         ndt_launches_verify=pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
-        - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"],
+        - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"] - 2 * len(gi_log),
         icp_iteration_launches_verify=launches_gi["icp_align_loop"],
         eigh3x3_launches_verify=launches_gi["eigh3x3"],
         ndt_launches_total=launches_gi["ndt_align_loop"],
@@ -3542,9 +3804,11 @@ def main(argv=None) -> int:
             np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
         card=json.dumps(card))
     # The verify thread's NDT loop launches: all of its launches but the FPFH normals'
-    # `eigh3x3` and the ICP verifier's kernels (launched nowhere else on this NDT course).
+    # `eigh3x3`, the ICP verifier's kernels (launched nowhere else on this NDT course) and
+    # each verified candidate's two keypoint downsamples (`voxel_centroids`).
     pipe_gi_verify_launches = (pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
-                               - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"])
+                               - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"]
+                               - 2 * len(gi_log))
     del pipe_gi, res_gi
 
     # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
@@ -3762,6 +4026,28 @@ def main(argv=None) -> int:
                   "(registration/features.py:58); no Pallas kernel",
             launches_global_init_loop=gl["eigh3x3_launches"],
             launches_cli_classic_gicp=cli_g["eigh3x3_launches"], bit_equal_plain=True),
+        *[kernel_record(
+            name, timing, max_err[name], shape="prefilter_dense",
+            source="lidar_graph_slam_tpu_torch/csrc/prefilter.cu",
+            replaces=replaces, replaces_commit=None, launches=launches[name],
+            path="every prefilter call: each frame of both drivers (phase 6 counts the fused "
+                 "front end: once a frame)" + extra,
+            ports=ports, launches_loop_course=launches_course[name],
+            bit_equal_plain=True,
+            profile={label: {p_: {k: row[p_][k] for k in (
+                "launches", "device_ms", "wall_ms", "enqueue_ms", "segment_reduce_launches",
+                "row_sorts")} for p_ in ("kernel", "plain", "parent") if p_ in row}
+                for label, row in pf["profile"].items()})
+          for name, replaces, ports, extra in (
+              ("voxel_centroids", "lidar_graph_slam_tpu/ops/voxel.py:110",
+               "the segment sums, segment_max and centroids of the jitted voxel_downsample "
+               "(lidar_graph_slam_tpu/ops/voxel.py:110-157); no Pallas kernel",
+               ", the loop verifier's input, the map export, the FPFH keypoints"),
+              ("sor_window_stats", "lidar_graph_slam_tpu/ops/neighbors.py:179",
+               "window_neighbor_d2 + window_mean_knn_distance "
+               "(lidar_graph_slam_tpu/ops/neighbors.py:179-209) and the scatter back "
+               "(filters/prefilter.py:62-65) inside the jitted prefilter; no Pallas kernel",
+               ""))],
         kernel_record(
             "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
             shape="batch", launches=0,

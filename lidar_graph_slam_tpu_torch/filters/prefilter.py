@@ -4,7 +4,10 @@ Port of `lidar_graph_slam_tpu/filters/prefilter.py`: min-distance filter -> [opt
 crop box] -> voxel-grid downsample -> statistical outlier removal (SOR) -> [optional
 random sample] -> compaction. Filters mark rows invalid in the mask; one stable
 compaction hands the next stage a fixed-capacity cloud, so nothing here reads a count
-back from the device.
+back from the device. The downsample's centroid sums and the SOR's window statistics are
+hand-written kernels on the card (`ops/kernels.py:voxel_centroids`, `sor_window_stats`);
+the sorts, the SOR's threshold (two global sums), the masks and the compaction are
+PyTorch operators.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 
 from lidar_graph_slam_tpu_torch.core.config import PrefilterConfig
 from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud, compact, pad_points
-from lidar_graph_slam_tpu_torch.ops import neighbors, voxel
+from lidar_graph_slam_tpu_torch.ops import kernels, neighbors, voxel
 
 
 def _range(points: torch.Tensor) -> torch.Tensor:
@@ -39,22 +42,18 @@ def crop_filter(points: torch.Tensor, mask: torch.Tensor, min_xyz, max_xyz) -> t
 
 
 def statistical_outlier_mask(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
-                             stddev_mult, cell_size=1.0, window: int = 24) -> torch.Tensor:
+                             stddev_mult, cell_size=1.0) -> torch.Tensor:
     """pcl::StatisticalOutlierRemoval semantics: mean distance to k nearest neighbors,
     global mean/std over the cloud, drop points above mean + stddev_mult * std.
 
-    Neighborhoods come from the sorted-grid sliding window (`window_mean_knn_distance`).
-    Points with < 2 window neighbors are outliers outright.
+    Neighborhoods come from the sorted-grid sliding window (+-`neighbors.SOR_WINDOW` rows,
+    the reference's default) over the rows sorted by cell (`neighbors.sort_by_cell`); `kernels.sor_window_stats` gives each row's statistics in
+    the original row order (one launch on the card; on the CPU `sor_window_stats_plain`:
+    `window_mean_knn_distance` and the scatter back). Points with < 2 window neighbors are
+    outliers outright.
     """
-    grid = neighbors.build_hash_grid(points, mask, cell_size)
-    mean_d_sorted, n_found_sorted = neighbors.window_mean_knn_distance(
-        grid, k=mean_k, window=window)
-    # Map per-sorted-row stats back to the original row order (a permutation scatter).
-    n = points.shape[0]
-    mean_d = torch.zeros((n,), dtype=points.dtype, device=points.device)
-    mean_d[grid.order] = mean_d_sorted
-    n_found = torch.zeros((n,), dtype=n_found_sorted.dtype, device=points.device)
-    n_found[grid.order] = n_found_sorted
+    cells = neighbors.sort_by_cell(points, mask, cell_size)
+    mean_d, n_found = kernels.sor_window_stats(cells.keys, cells.points, cells.order, mean_k)
     has_neighbors = n_found >= 2
 
     contributes = mask & has_neighbors
@@ -78,6 +77,12 @@ def random_sample_mask(points: torch.Tensor, mask: torch.Tensor, num: int,
     return mask & (rank < num)
 
 
+def sor_cell_size(cfg: PrefilterConfig) -> float:
+    """The SOR's neighborhood cell: ~10 voxel leaves covers pcl's k=30 neighborhood at
+    typical post-voxel densities while keeping buckets small."""
+    return max(cfg.leaf_size * 10.0, 0.5)
+
+
 def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int):
     """Build a scan -> filtered-scan function for a fixed config.
 
@@ -94,11 +99,9 @@ def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int)
         pts, msk = grid.points, grid.mask
 
         if cfg.use_outlier_filter:
-            # SOR neighborhood cell: ~10 voxel leaves covers pcl's k=30 neighborhood at
-            # typical post-voxel densities while keeping buckets small.
-            cell = max(cfg.leaf_size * 10.0, 0.5)
             msk = statistical_outlier_mask(pts, msk, cfg.mean_k,
-                                           voxel.as_f32(cfg.stddev, pts), cell_size=cell)
+                                           voxel.as_f32(cfg.stddev, pts),
+                                           cell_size=sor_cell_size(cfg))
             pts = pad_points(pts, msk)
 
         if cfg.use_random_sampling:

@@ -5,10 +5,13 @@ The wrappers port the TPU kernel `ndt_accumulate` of
 `lidar_graph_slam_tpu/ops/pallas_kernels.py` (deleted in commit 4350000; live reference
 `ndt_accumulate_xla`, same file), the `lax.while_loop`s around it
 (`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`), ICP's
-(`registration/icp.py:47-122`) and its fitness (`:155-188`), and the voxel finalize of the
-jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`) as hand-written CUDA
-kernels for Hopper in five sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
-`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`; the headers
+(`registration/icp.py:47-122`) and its fitness (`:155-188`), the voxel finalize of the
+jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`), and the centroid sums
+and the outlier filter's window statistics of the jitted prefilter
+(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`) as hand-written CUDA kernels for
+Hopper in six sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
+`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`, `csrc/prefilter.cu`;
+the headers
 `csrc/ndt_common.cuh`, `csrc/loop_common.cuh`, `csrc/nn_stage.cuh` (the grid-NN query)
 and `csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
 kernels), compiled with nvcc (one process a source, all at once) into one library at
@@ -57,6 +60,13 @@ first use in `build/` and bound with ctypes:
   `ops/voxel.py:build_ndt_map` and `build_ndt_pyramid` build every target from.
 * `eigh3x3(A)`: the batched symmetric 3x3 eigensolve in one launch, for GICP's
   covariances and the FPFH normals.
+* `voxel_centroids(keys_sorted, pts_sorted, starts, lengths, origin, leaf)`: the
+  centroid of each voxel from the rows sorted by voxel key in one launch, for every
+  `ops/voxel.py:voxel_downsample` (the prefilter, the loop verifier's input, the map
+  export, the FPFH keypoints).
+* `sor_window_stats(keys, points, order, k)`: the outlier filter's per-row mean
+  distance to its k nearest same-cell rows within +-`SOR_WINDOW` sorted rows and their
+  count, in the original row order, in one launch.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
@@ -70,7 +80,9 @@ guarded update and the stop test, `icp_body_plain`) and `icp_fitness_plain`
 `fitness_and_match_fraction`'s; the batched plain versions loop the single ones over the
 batch;
 `ops/voxel.py:ndt_finalize_plain` (the sorted rows' run sums by `torch.segment_reduce`,
-then `_finalize_ndt_plain`) and `_eigh3x3` are the last two's, bit for bit on the card. A
+then `_finalize_ndt_plain`) and `_eigh3x3` are the finalize's and the eigensolve's,
+`ops/voxel.py:voxel_centroids_plain` and `ops/neighbors.py:sor_window_stats_plain` the
+prefilter kernels', all bit for bit on the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -101,7 +113,7 @@ import time
 import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
-from lidar_graph_slam_tpu_torch.ops.neighbors import nearest
+from lidar_graph_slam_tpu_torch.ops.neighbors import SOR_WINDOW, nearest, sor_window_stats_plain
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     _BITS_Y,
     _BITS_Z,
@@ -111,6 +123,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     _eigh3x3,
     lookup_direct7,
     ndt_finalize_plain,
+    voxel_centroids_plain,
 )
 from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_damped
 
@@ -119,7 +132,7 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 # Built together into one library; the headers are part of the digest too.
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
                                               "gicp_loop.cu", "icp_loop.cu",
-                                              "voxel_finalize.cu")]
+                                              "voxel_finalize.cu", "prefilter.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
                                               "nn_stage.cuh", "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -753,10 +766,14 @@ def _load_library_locked():
     lib.lgs_ndt_finalize.argtypes = [vp, vp, vp, i64, vp, vp, vp, vp, vp, i32, vp, vp, f32,
                                      i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.lgs_eigh3x3.argtypes = [vp, i64, vp, vp, vp]
+    lib.lgs_voxel_centroids.argtypes = [vp, vp, vp, vp, i64, vp, vp, i32, i32, i32, i32, vp,
+                                        vp, vp]
+    lib.lgs_sor_window_stats.argtypes = [vp, vp, vp, i64, i32, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
                lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
-               lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3):
+               lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3,
+               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
                lib.lgs_icp_worked_launches):
@@ -1454,6 +1471,87 @@ def eigh3x3(A):
     return w, V
 
 
+def voxel_centroids(keys_sorted, pts_sorted, starts, lengths, origin, leaf):
+    """The centroid of each voxel row from the rows sorted by voxel key, in one launch.
+
+    keys_sorted: [N] i32 sorted voxel keys (INVALID_KEY rows last)
+    pts_sorted:  [N, 3] f32 in the keys' order
+    starts, lengths: [C+1] i64 (`ops/voxel.py:_sorted_runs`): row r < C is the run
+                 keys_sorted[starts[r] : starts[r] + lengths[r]]; run C, the invalid rows
+                 and the voxels past C, is not read
+    origin:      [3] f32; leaf: 0-d f32 (read on the device)
+    Returns (points [C, 3] f32: each occupied row's centroid, corner + sums / count with
+    the sums of the offsets from the voxel corner, PAD_VALUE where empty; mask [C] bool),
+    as `ops/voxel.py:voxel_centroids_plain`, bit for bit on the card.
+
+    CPU tensors take `voxel_centroids_plain`; CUDA tensors launch the `voxel_centroids`
+    kernel (`csrc/prefilter.cu`, counted in `voxel_centroids.launches`; none for C = 0)
+    or raise. Nothing is read back.
+    """
+    dev = starts.device
+    if dev.type == "cpu":
+        return voxel_centroids_plain(keys_sorted, pts_sorted, starts, lengths, origin, leaf)
+    if dev.type != "cuda":
+        raise ValueError(f"voxel_centroids: unsupported device {dev}")
+    N = keys_sorted.shape[0] if keys_sorted.dim() == 1 else -1
+    C = starts.shape[0] - 1 if starts.dim() == 1 else -1
+    _check("voxel_centroids", dev, keys_sorted=(keys_sorted, (N,), torch.int32),
+           pts_sorted=(pts_sorted, (N, 3), torch.float32),
+           starts=(starts, (C + 1,), torch.int64), lengths=(lengths, (C + 1,), torch.int64),
+           origin=(origin, (3,), torch.float32), leaf=(leaf, (), torch.float32))
+    if C < 0:
+        raise ValueError("voxel_centroids: runs need C >= 0")
+    points = torch.empty((C, 3), dtype=torch.float32, device=dev)
+    mask = torch.empty((C,), dtype=torch.bool, device=dev)
+    if C:
+        lib = load_library()
+        _raise_on(lib.lgs_voxel_centroids(
+            keys_sorted.data_ptr(), pts_sorted.data_ptr(), starts.data_ptr(),
+            lengths.data_ptr(), C, origin.data_ptr(), leaf.data_ptr(), _BITS_Y + _BITS_Z,
+            _BITS_Z, COORD_MAX[1], COORD_MAX[2], points.data_ptr(), mask.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "voxel_centroids")
+        _count(voxel_centroids)
+    return points, mask
+
+
+def sor_window_stats(keys, points, order, k: int):
+    """The statistical outlier filter's per-row statistics in one launch: for each row
+    sorted by cell key, the mean distance to its k nearest same-cell rows among the
+    +-SOR_WINDOW (24) sorted rows around it (wrapping at the ends, as `torch.roll` does)
+    and their count, written at the row's original index.
+
+    keys:   [N] i32 ascending cell keys (INVALID_KEY rows last)
+    points: [N, 3] f32 in the keys' order
+    order:  [N] i64 each sorted row's original index (a permutation)
+    Returns (mean_d [N] f32, n_found [N] i64) in the original row order, as
+    `ops/neighbors.py:sor_window_stats_plain`, bit for bit on the card.
+
+    CPU tensors take `sor_window_stats_plain`; CUDA tensors launch the `sor_window_stats`
+    kernel (`csrc/prefilter.cu`, counted in `sor_window_stats.launches`; none for N = 0)
+    or raise. Nothing is read back.
+    """
+    dev = keys.device
+    if dev.type == "cpu":
+        return sor_window_stats_plain(keys, points, order, k)
+    if dev.type != "cuda":
+        raise ValueError(f"sor_window_stats: unsupported device {dev}")
+    N = keys.shape[0] if keys.dim() == 1 else -1
+    _check("sor_window_stats", dev, keys=(keys, (N,), torch.int32),
+           points=(points, (N, 3), torch.float32), order=(order, (N,), torch.int64))
+    if int(k) < 0:
+        raise ValueError(f"sor_window_stats: k must be >= 0, got {k}")
+    mean_d = torch.empty((N,), dtype=torch.float32, device=dev)
+    n_found = torch.empty((N,), dtype=torch.int64, device=dev)
+    if N:
+        lib = load_library()
+        _raise_on(lib.lgs_sor_window_stats(
+            keys.data_ptr(), points.data_ptr(), order.data_ptr(), N,
+            min(int(k), 2 * SOR_WINDOW), mean_d.data_ptr(), n_found.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), "sor_window_stats")
+        _count(sor_window_stats)
+    return mean_d, n_found
+
+
 def loop_kernel_attributes(device, gicp=None, icp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
@@ -1511,3 +1609,5 @@ icp_align_loop.launches = 0
 icp_fitness.launches = 0
 ndt_finalize.launches = 0
 eigh3x3.launches = 0
+voxel_centroids.launches = 0
+sor_window_stats.launches = 0

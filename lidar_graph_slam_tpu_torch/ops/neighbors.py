@@ -3,7 +3,8 @@
 Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
 `build_hash_grid`), the grid queries (`_candidate_scan`, `nearest` for ICP, GICP and the
 loop fitness, `knn`), the same-cloud sliding-window neighborhoods that statistical outlier
-removal and GICP's covariances use, and the dense `radius_mask`. Points are keyed by cell
+removal (over `sort_by_cell`'s rows: the grid's keys, points and order without its lookup
+structures) and GICP's covariances use, and the dense `radius_mask`. Points are keyed by cell
 and stably sorted, so the points of one cell are consecutive: a query gathers a bounded
 bucket of consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over
 the sorted order covers each cell's neighborhood (up to window truncation in very dense
@@ -34,6 +35,9 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
 
 _27_OFFSETS = tuple((x, y, z) for x in (-1, 0, 1) for y in (-1, 0, 1) for z in (-1, 0, 1))
 _7_OFFSETS = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))
+# The statistical outlier filter's window: +-24 sorted rows (the reference's default; the
+# `sor_window_stats` kernel, `csrc/prefilter.cu:kWindow`, is built for it).
+SOR_WINDOW = 24
 
 
 @dataclass
@@ -51,26 +55,49 @@ class HashGrid:
     table: torch.Tensor      # [prod(TABLE_DIMS)] int32 dense cell -> first sorted row (-1)
 
 
-def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> HashGrid:
+@dataclass
+class CellSort:
+    """Points sorted by packed cell key, without the lookup structures of `HashGrid`: what
+    the same-cloud window neighborhoods read (statistical outlier removal)."""
+
+    keys: torch.Tensor       # [N] int32, ascending, INVALID_KEY padding
+    points: torch.Tensor     # [N, 3] sorted to match keys, padded with PAD_VALUE
+    order: torch.Tensor      # [N] int64 original row index of each sorted row
+
+
+def _sort_by_cell(points: torch.Tensor, mask: torch.Tensor, cell_size):
+    """(CellSort, origin [3], cell_size 0-d): the cell frame and the rows sorted in it."""
     cell_size = as_f32(cell_size, points)
     origin = min_corner(points, mask) - cell_size
     keys = pack_key(voxel_coords(points, origin, 1.0 / cell_size))
     keys = torch.where(mask, keys, INVALID_KEY)
-    n = keys.shape[0]
     keys_sorted, order = torch.sort(keys, stable=True)
+    pts_sorted = pad_points(points[order], keys_sorted != INVALID_KEY)
+    return CellSort(keys=keys_sorted, points=pts_sorted, order=order), origin, cell_size
+
+
+def sort_by_cell(points: torch.Tensor, mask: torch.Tensor, cell_size) -> CellSort:
+    """The key-and-sort part of `build_hash_grid`: keys, sorted points and order, equal to
+    that grid's bit for bit."""
+    return _sort_by_cell(points, mask, cell_size)[0]
+
+
+def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> HashGrid:
+    cells, origin, cell_size = _sort_by_cell(points, mask, cell_size)
+    keys_sorted = cells.keys
+    n = keys_sorted.shape[0]
     valid = keys_sorted != INVALID_KEY
-    pts_sorted = pad_points(points[order], valid)
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=points.device),
                        keys_sorted[1:] != keys_sorted[:-1]])
     idx = torch.arange(n, device=points.device)
     # starts[i] = index of the first row sharing keys_sorted[i]'s cell (running max).
     starts = torch.cummax(torch.where(first, idx, 0), dim=0).values
-    packed = torch.cat([pts_sorted, keys_sorted.view(torch.float32)[:, None]], dim=1)
+    packed = torch.cat([cells.points, keys_sorted.view(torch.float32)[:, None]], dim=1)
     return HashGrid(
         keys=keys_sorted,
-        points=pts_sorted,
+        points=cells.points,
         packed=packed,
-        order=order,
+        order=cells.order,
         starts=starts,
         origin=origin,
         cell_size=cell_size,
@@ -151,9 +178,10 @@ def knn(grid: HashGrid, queries: torch.Tensor, k: int, bucket_cap: int = 32,
     return idx, top_d2, torch.isfinite(top_d2)
 
 
-def window_neighbor_d2(grid: HashGrid, window: int) -> torch.Tensor:
-    """Squared distances from every sorted row to its +-window sorted neighbors, masked to
-    same-cell pairs: [N, 2*window], +inf where invalid.
+def window_neighbor_d2(grid, window: int) -> torch.Tensor:
+    """Squared distances from every sorted row of `grid` (it reads `grid.keys` and
+    `grid.points`: a `HashGrid`, as in the reference, or a `CellSort`) to its +-window
+    sorted neighbors, masked to same-cell pairs: [N, 2*window], +inf where invalid.
 
     Column order is the reference's (shift +1, -1, +2, -2, ...), and row i's shift-s
     neighbor is row (i - s) mod N, as `roll` gives it; one gather builds all columns.
@@ -171,15 +199,39 @@ def window_neighbor_d2(grid: HashGrid, window: int) -> torch.Tensor:
     return torch.where(same, d2, torch.inf)
 
 
-def window_mean_knn_distance(grid: HashGrid, k: int, window: int = 24):
+def window_mean_knn_distance(grid, k: int, window: int = 24):
     """Per sorted row: mean distance to its k nearest window neighbors and the neighbor
-    count: (mean_d [N], n_found [N])."""
+    count: (mean_d [N], n_found [N] int64). The k roots are added in ascending order, one
+    column at a time from 0.0 (the `sor_window_stats` kernel's order: equal distances give
+    equal roots, and the +inf columns add 0.0 at the end). Each root is taken in float64
+    and rounded once to float32, which is the correctly rounded float32 root on every
+    device (the CPU's vectorized float32 `sqrt` is not always, and which rows take it
+    varies from call to call)."""
     d2 = window_neighbor_d2(grid, window)
     d2_sorted = torch.sort(d2, dim=1).values[:, :k]
     found = torch.isfinite(d2_sorted)
-    dk = torch.sqrt(torch.where(found, d2_sorted, 0.0))
+    dk = torch.sqrt(torch.where(found, d2_sorted, 0.0).double()).float()
     n_found = torch.sum(found.to(torch.int32), dim=1)
-    mean_d = torch.sum(dk, dim=1) / torch.clamp(n_found, min=1)
+    total = dk.new_zeros(dk.shape[0])
+    for j in range(dk.shape[1]):
+        total = total + dk[:, j]
+    mean_d = total / torch.clamp(n_found, min=1)
+    return mean_d, n_found
+
+
+def sor_window_stats_plain(keys: torch.Tensor, points: torch.Tensor, order: torch.Tensor,
+                           k: int):
+    """Plain version of the `sor_window_stats` kernel (`ops/kernels.py`): the window
+    statistics (+-SOR_WINDOW rows) of rows sorted by cell key (`window_mean_knn_distance`),
+    scattered back to the original row order `order` (a permutation): (mean_d [N] f32,
+    n_found [N] int64)."""
+    mean_sorted, found_sorted = window_mean_knn_distance(
+        CellSort(keys=keys, points=points, order=order), k, SOR_WINDOW)
+    n = keys.shape[0]
+    mean_d = torch.zeros((n,), dtype=points.dtype, device=points.device)
+    mean_d[order] = mean_sorted
+    n_found = torch.zeros((n,), dtype=found_sorted.dtype, device=points.device)
+    n_found[order] = found_sorted
     return mean_d, n_found
 
 

@@ -15,8 +15,10 @@ An NDT map level goes from its rows sorted by voxel key to its finished rows thr
 runs itself, `ndt_finalize_plain` on the CPU (the run sums by `torch.segment_reduce` over
 the run lengths, then `_finalize_ndt_plain`, the reference's arithmetic op for op);
 `kernels.eigh3x3` serves `_eigh3x3` to GICP and the FPFH normals the same way. The centroid
-downsample (`voxel_downsample`) keeps `torch.segment_reduce`. `ops/kernels.py` imports this
-module, so the map builders import it inside.
+downsample (`voxel_downsample`) goes from its sorted rows to its centroids through
+`kernels.voxel_centroids` (one launch on the card; on the CPU `voxel_centroids_plain`, the
+run sums by `torch.segment_reduce`). `ops/kernels.py` imports this module, so the map
+builders and the downsample import it inside.
 
 Key packing uses (11, 11, 8) bits for (x, y, z) relative to the batch min corner; out-of-
 range points clamp to border cells. Key arithmetic stays in float32 tensors, as the
@@ -174,30 +176,52 @@ def _sort_points(points, mask, origin, inv_leaf):
     return keys_sorted, points[order]
 
 
-def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int) -> VoxelGrid:
-    """Centroid-per-voxel downsample of a masked cloud into `capacity` output slots."""
-    leaf = as_f32(leaf, points)
-    origin = min_corner(points, mask) - leaf
-    keys_sorted, pts_sorted = _sort_points(points, mask, origin, 1.0 / leaf)
+def voxel_centroids_plain(keys_sorted, pts_sorted, starts, lengths, origin, leaf):
+    """Plain version of the `voxel_centroids` kernel (`ops/kernels.py`): the centroid of
+    each voxel row r < C from the rows sorted by voxel key, the reference's arithmetic op
+    for op. keys_sorted [N] i32, pts_sorted [N, 3] f32, starts / lengths [C+1] i64
+    (`_sorted_runs`), origin [3] f32, leaf 0-d f32. Returns (points [C, 3] padded with
+    PAD_VALUE, mask [C] bool). Occupied rows are a prefix: row r < C has a run exactly
+    when r < min(num_voxels, C)."""
+    capacity = starts.shape[0] - 1
     valid_sorted = keys_sorted != INVALID_KEY
-    first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
-
     # Voxel-local accumulation: centroid sums of raw world coordinates lose precision
     # once |x| >> leaf; local offsets are bounded by the leaf.
     row_coords = torch.stack(unpack_key(torch.where(valid_sorted, keys_sorted, 0)), dim=-1)
-    row_corner = origin + row_coords.to(points.dtype) * leaf
-    cols = torch.cat([valid_sorted.to(points.dtype)[:, None],
+    row_corner = origin + row_coords.to(pts_sorted.dtype) * leaf
+    cols = torch.cat([valid_sorted.to(pts_sorted.dtype)[:, None],
                       torch.where(valid_sorted[:, None], pts_sorted - row_corner, 0.0)], dim=1)
     stats = _segment_sum(cols, lengths, capacity)
     counts, sums = stats[:, 0], stats[:, 1:4]
     seg_keys = _segment_keys(keys_sorted, starts, lengths, capacity)
-
-    num_voxels = torch.sum(first.to(torch.int32))
-    out_mask = torch.arange(capacity, device=points.device) < torch.clamp(num_voxels, max=capacity)
-    seg_corner = origin + torch.stack(unpack_key(seg_keys), dim=-1).to(points.dtype) * leaf
+    out_mask = lengths[:capacity] > 0
+    seg_corner = origin + torch.stack(unpack_key(seg_keys), dim=-1).to(pts_sorted.dtype) * leaf
     centroids = seg_corner + sums / torch.clamp(counts, min=1.0)[:, None]
+    return pad_points(centroids, out_mask), out_mask
+
+
+def centroid_runs(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int):
+    """The downsample's sort by voxel key and its runs: ((keys_sorted, pts_sorted, starts,
+    lengths, origin, leaf), num_voxels), the first being `kernels.voxel_centroids`'
+    arguments."""
+    leaf = as_f32(leaf, points)
+    origin = min_corner(points, mask) - leaf
+    keys_sorted, pts_sorted = _sort_points(points, mask, origin, 1.0 / leaf)
+    first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
+    return ((keys_sorted, pts_sorted, starts, lengths, origin, leaf),
+            torch.sum(first.to(torch.int32)))
+
+
+def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int) -> VoxelGrid:
+    """Centroid-per-voxel downsample of a masked cloud into `capacity` output slots: one
+    sort by voxel key, then the centroids by `kernels.voxel_centroids` (its kernel on the
+    card, `voxel_centroids_plain` on the CPU)."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    runs, num_voxels = centroid_runs(points, mask, leaf, capacity)
+    centroids, out_mask = kernels.voxel_centroids(*runs)
     return VoxelGrid(
-        points=pad_points(centroids, out_mask),
+        points=centroids,
         mask=out_mask,
         num_voxels=num_voxels,
         overflow=num_voxels > capacity,

@@ -53,7 +53,7 @@ from lidar_graph_slam_tpu_torch.core.config import (
     PipelineConfig,
     apply_cli_overrides,
 )
-from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
+from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher
 from lidar_graph_slam_tpu_torch.io.synthetic import (
@@ -2044,3 +2044,166 @@ def test_gicp_loop_carry_equals_the_parent_tree(cuda):
             out, ref = tk.gicp_align_loop(*args), parent.gicp_align_loop(*args)
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(out, ref)), (reciprocal, its)
+
+
+# -- the prefilter's kernels (`csrc/prefilter.cu`) ------------------------------------------
+
+
+def _prefilter_cloud(n, valid, seed=0, one_cell=False):
+    """A seeded ring of points 2-60 m out (the first `valid` of `n` rows), or with
+    `one_cell` every valid point inside one SOR cell; the rest PAD_VALUE."""
+    rng = np.random.default_rng(seed)
+    pts = np.full((n, 3), PAD_VALUE, np.float32)
+    if one_cell:
+        pts[:valid] = rng.uniform(0.05, 0.45, (valid, 3))
+    else:
+        r = 2.0 + 58.0 * rng.random(valid) ** 2
+        az = rng.uniform(-np.pi, np.pi, valid)
+        pts[:valid] = np.stack([r * np.cos(az), r * np.sin(az), rng.normal(0.0, 1.5, valid)], -1)
+    mask = np.zeros(n, bool)
+    mask[:valid] = True
+    return pts, mask
+
+
+# (rows N, valid rows, capacity C, leaf): the dense bucket, the drift bucket, more voxels
+# than C, no valid row, and an N and a C that are not multiples of the kernels' blocks.
+CENTROID_CASES = {"dense": (131072, 60000, 65536, 0.1), "drift": (16384, 9100, 65536, 0.1),
+                  "overflow": (16384, 12000, 2000, 0.1), "all_invalid": (8192, 0, 4096, 0.1),
+                  "ragged": (1000, 700, 777, 0.3), "coarse": (8192, 6000, 8192, 2.0)}
+
+
+def _centroid_inputs(device, case, seed=0):
+    """`voxel_centroids`' arguments as `voxel_downsample` makes them."""
+    from lidar_graph_slam_tpu_torch.ops import voxel as tv
+
+    n, valid, cap, leaf = CENTROID_CASES[case]
+    pts, mask = _prefilter_cloud(n, valid, seed)
+    return tv.centroid_runs(torch.as_tensor(pts, device=device),
+                            torch.as_tensor(mask, device=device), leaf, cap)[0]
+
+
+def _assert_bits(out, again, ref):
+    torch.cuda.synchronize()
+    for a, b, c in zip(out, again, ref):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(a.reshape(-1).view(torch.uint8), c.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("case", list(CENTROID_CASES))
+def test_voxel_centroids_bit_equal_to_plain(cuda, case):
+    """The kernel's centroids and mask equal `voxel_centroids_plain`'s bit for bit, a
+    rerun too, one launch a call: the dense (131,072) and drift (16,384) buckets at C =
+    65,536, more voxels than C, no valid row, ragged N and C, a 2 m leaf."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import voxel_centroids_plain
+
+    args = _centroid_inputs(cuda, case)
+    before = tk.voxel_centroids.launches
+    out, again = tk.voxel_centroids(*args), tk.voxel_centroids(*args)
+    assert tk.voxel_centroids.launches == before + 2
+    _assert_bits(out, again, voxel_centroids_plain(*args))
+    occupied = int(out[1].sum())
+    C = args[2].shape[0] - 1
+    if case == "all_invalid":
+        assert occupied == 0 and bool((out[0] == PAD_VALUE).all())
+    elif case == "overflow":
+        assert occupied == C
+    else:
+        assert 0 < occupied < C
+
+
+# (rows N, valid rows, one cell, SOR cell m): the SOR's shape N = 65,536 (the voxel
+# capacity) dense and sparse, no valid row, one cell whose window wraps, a full one-cell
+# cloud, a ragged N and a tiny one.
+SOR_CASES = {"dense": (65536, 60000, False, 1.0), "drift": (65536, 8000, False, 1.0),
+             "all_invalid": (65536, 0, False, 1.0), "one_cell": (600, 560, True, 1.0),
+             "one_cell_full": (300, 300, True, 1.0), "ragged": (1000, 900, False, 3.0),
+             "tiny": (5, 5, False, 100.0)}
+
+
+def _sor_inputs(device, case, seed=0):
+    from lidar_graph_slam_tpu_torch.ops.neighbors import sort_by_cell
+
+    n, valid, one_cell, cell = SOR_CASES[case]
+    pts, mask = _prefilter_cloud(n, valid, seed, one_cell)
+    cells = sort_by_cell(torch.as_tensor(pts, device=device),
+                         torch.as_tensor(mask, device=device), cell)
+    return cells.keys, cells.points, cells.order
+
+
+@pytest.mark.parametrize("k", [30, 10])
+@pytest.mark.parametrize("case", list(SOR_CASES))
+def test_sor_window_stats_bit_equal_to_plain(cuda, case, k):
+    """The kernel's mean distances and counts equal `sor_window_stats_plain`'s bit for bit
+    in the original row order, a rerun too, one launch a call."""
+    from lidar_graph_slam_tpu_torch.ops.neighbors import sor_window_stats_plain
+
+    args = _sor_inputs(cuda, case)
+    before = tk.sor_window_stats.launches
+    out, again = tk.sor_window_stats(*args, k), tk.sor_window_stats(*args, k)
+    assert tk.sor_window_stats.launches == before + 2
+    _assert_bits(out, again, sor_window_stats_plain(*args, k))
+    found = out[1]
+    if case == "all_invalid":
+        assert not bool(found.any())
+    elif case in ("one_cell_full", "tiny"):  # every window row is a same-cell row
+        assert bool((found == k).all())
+    else:
+        assert int(found.max()) > 1 and bool((found == 0).any())
+
+
+def test_prefilter_launches_each_kernel_once_without_a_read(cuda):
+    """The default prefilter on a dense bucket: each kernel launched once a call, no
+    synchronous read (`torch.cuda.set_sync_debug_mode("error")` after a warm-up call),
+    and the result equal to the plain path's bit for bit."""
+    from lidar_graph_slam_tpu_torch.core.config import PrefilterConfig
+    from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
+    from lidar_graph_slam_tpu_torch.ops import neighbors, voxel
+
+    pts, mask = _prefilter_cloud(131072, 73000, seed=4)
+    p, m = torch.as_tensor(pts, device=cuda), torch.as_tensor(mask, device=cuda)
+    prefilter = make_prefilter(PrefilterConfig(), 32768, 65536)
+    prefilter(p, m)
+    torch.cuda.synchronize()
+    before = (tk.voxel_centroids.launches, tk.sor_window_stats.launches)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        out = prefilter(p, m)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tk.voxel_centroids.launches, tk.sor_window_stats.launches) == (
+        before[0] + 1, before[1] + 1)
+    kernel_fns = (tk.voxel_centroids, tk.sor_window_stats)
+    try:
+        tk.voxel_centroids, tk.sor_window_stats = (voxel.voxel_centroids_plain,
+                                                   neighbors.sor_window_stats_plain)
+        plain = prefilter(p, m)
+    finally:
+        tk.voxel_centroids, tk.sor_window_stats = kernel_fns
+    assert torch.equal(out.points, plain.points) and torch.equal(out.mask, plain.mask)
+    assert 10000 < int(out.mask.sum()) <= 32768
+
+
+def test_prefilter_kernels_reject_bad_inputs(cuda):
+    keys, pts, starts, lengths, origin, leaf = _centroid_inputs(cuda, "ragged")
+    skeys, spts, order = _sor_inputs(cuda, "ragged")
+    bad_centroids = [
+        (keys.long(), pts, starts, lengths, origin, leaf),
+        (keys, pts.double(), starts, lengths, origin, leaf),
+        (keys, pts[:, :2], starts, lengths, origin, leaf),
+        (keys, pts, starts.int(), lengths, origin, leaf),
+        (keys, pts, starts, lengths[:-1], origin, leaf),
+        (keys, pts, starts, lengths, origin.cpu(), leaf),
+        (keys, pts, starts, lengths, origin, leaf[None]),
+    ]
+    bad_sor = [((skeys.long(), spts, order), {}), ((skeys, spts[:-1], order), {}),
+               ((skeys, spts, order.int()), {}), ((skeys, spts.t().contiguous().t(), order), {}),
+               ((skeys, spts, order[:-1]), {}), ((skeys, spts, order), {"k": -1})]
+    before = (tk.voxel_centroids.launches, tk.sor_window_stats.launches)
+    for args in bad_centroids:
+        with pytest.raises(ValueError):
+            tk.voxel_centroids(*args)
+    for args, kw in bad_sor:
+        with pytest.raises(ValueError):
+            tk.sor_window_stats(*args, **{"k": 30, **kw})
+    assert (tk.voxel_centroids.launches, tk.sor_window_stats.launches) == before
