@@ -75,8 +75,15 @@ of `bench.py:bench_e2e`. Phases:
      too: the first loop attempt's submap (0.5 m leaf, C = 131,072) and its FPFH
      keypoints (1.0 m leaf, C = 8,192); each kernel's device and host us, the plain
      version's ms, `torch.segment_reduce`'s ms on the same C runs (the centroid sums'
-     yardstick), the bound and its share; one
+     yardstick), the bound and its share (the SOR's bound counts the comparisons that
+     order a row's k smallest distances, whatever the design); with `--parent DIR` the
+     parent tree's kernels too, bit-equal to the plain versions and timed in turns with
+     this tree's at every shape, with their share of the same bound; one
      `prefilter` call under `torch.cuda.set_sync_debug_mode("error")`;
+     `scripts/torch_prefilter_split.py` in a subprocess: each kernel's launch split into
+     its parts (staging, d^2, selection, roots; index loads, point reads, sums, writes;
+     the launch floor) on the two buckets and the loop submap, for this tree and, with
+     `--parent DIR`, the parent's, in turns;
      `scripts/torch_profile_prefilter.py` in a subprocess: wall and enqueue ms a call on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
      turns, and each one's device launches, device ms, `segment_reduce` launches and
@@ -224,6 +231,7 @@ import dataclasses
 import importlib.util
 import inspect
 import json
+import math
 import os
 import re
 import shutil
@@ -873,36 +881,21 @@ PREFILTER_KERNELS = ("voxel_centroids", "sor_window_stats")
 CENTROID_POINT_BYTES, CENTROID_OCCUPIED_BYTES, CENTROID_ROW_BYTES = 12, 8 + 4, 8 + 13
 CENTROID_POINT_OPS, CENTROID_RUN_OPS = 7, 12
 # `sor_window_stats`' least traffic: every row's key and order read (12 B) and its mean_d
-# and n_found written (12 B), a valid row's xyz read (12 B). Its operations: a valid row's
-# 48 key tests and its mean (1), a same-cell pair's d^2 (8), a found neighbour's root and
-# add (2), and the k-smallest selection's compare-exchanges (2 each) that work on two of
-# the row's 48 distances (`sor_network_exchanges`).
+# and n_found written (12 B), a valid row's xyz read (12 B). Its operations, whatever the
+# design: a valid row's two key searches for the ends of its same-cell range (5 tests a
+# side for 25 places), its mean (1), a same-cell pair's d^2 (8), a found neighbour's root
+# and add (2), and the comparisons that order the k smallest of its f finite distances
+# (`sor_order_comparisons`, one operation each).
 SOR_ROW_BYTES, SOR_VALID_BYTES = 12 + 12, 12
+SOR_SEARCH_OPS = 2 * SOR_WINDOW.bit_length()  # ceil(log2(25)) = 5 a side
 SOR_PAIR_OPS, SOR_ROOT_OPS = 8, 2
 
 
-def sor_network_exchanges(width: int = 64, values: int = 48) -> int:
-    """The compare-exchanges of `sor_window_stats`' bitonic network (`csrc/prefilter.cu`,
-    `width` wide, `values` distances then +inf pads) whose two inputs can both hold a
-    distance: a pair of pads, or a distance and a pad, needs no work (the min is the
-    distance, the max the pad), and the pad's new slot is known when the kernel is built."""
-    pad = [i >= values for i in range(width)]
-    count, size = 0, 2
-    while size <= width:
-        stride = size // 2
-        while stride:
-            for a in range(width):
-                b = a ^ stride
-                if b < a or (pad[a] and pad[b]):
-                    continue
-                if not (pad[a] or pad[b]):
-                    count += 1
-                else:  # the distance goes to the min's slot, the pad to the max's
-                    up = (a & size) == 0
-                    pad[a], pad[b] = not up, up
-            stride //= 2
-        size *= 2
-    return count
+def sor_order_comparisons(f: int, k: int) -> int:
+    """The least comparisons that can order the k smallest of f distinct values:
+    ceil(log2(f! / max(f - k, 0)!)), the outcomes to tell apart."""
+    outcomes = math.factorial(f) // math.factorial(max(f - k, 0))
+    return (outcomes - 1).bit_length()
 
 
 def raw_bucket(scan: np.ndarray, raw_points: int) -> np.ndarray:
@@ -949,12 +942,13 @@ def prefilter_bound(name: str, args, clock_mhz: float) -> dict:
     finite = torch.isfinite(d2).sum(dim=1)
     valid = int((keys != voxel.INVALID_KEY).sum())
     pairs, roots = int(finite.sum()), int(finite.clamp(max=k).sum())
-    exchanges = sor_network_exchanges(2 * SOR_WINDOW + 16, 2 * SOR_WINDOW)
-    ops = (valid * (2 * SOR_WINDOW + 1 + 2 * exchanges) + pairs * SOR_PAIR_OPS
-           + roots * SOR_ROOT_OPS)
+    per_f = np.bincount(finite.cpu().numpy(), minlength=2 * SOR_WINDOW + 1)
+    comparisons = sum(int(c) * sor_order_comparisons(f, k) for f, c in enumerate(per_f))
+    ops = (valid * (SOR_SEARCH_OPS + 1) + pairs * SOR_PAIR_OPS + roots * SOR_ROOT_OPS
+           + comparisons)
     nbytes = keys.shape[0] * SOR_ROW_BYTES + valid * SOR_VALID_BYTES
     return dict(rows=keys.shape[0], valid_rows=valid, same_cell_pairs=pairs, roots=roots,
-                network_exchanges=exchanges, **bound_us(nbytes, ops, clock_mhz))
+                comparisons=comparisons, **bound_us(nbytes, ops, clock_mhz))
 
 
 def segment_sum_library_ms(runs) -> float:
@@ -992,22 +986,70 @@ def loop_centroid_inputs(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict) -
     return {"loop_submap": runs, "fpfh_keypoints": keypoints}
 
 
-def prefilter_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float) -> dict:
+def prefilter_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float,
+                            parent_kern=None) -> dict:
     """One prefilter kernel at one shape: against its plain version on the same card
     tensors bit for bit with a rerun, its device and host us (`split_times`), the plain
-    version's ms, the library yardstick's, the bound and its share."""
+    version's ms, the library yardstick's, the bound and its share. With `parent_kern`
+    (the parent tree's `ops.kernels`) that tree's kernel too, bit-equal to the plain
+    version, its device us in turns with this tree's (this, parent, parent, this: the
+    means of each tree's two turns) and its share of the same bound."""
     plain = {"voxel_centroids": voxel.voxel_centroids_plain,
              "sor_window_stats": sor_window_stats_plain}[name]
     kernel = getattr(kernels, name)
-    same_bits(f"{name} {label}", ("out", "mask_or_count"), kernel(*args), kernel(*args),
-              plain(*args))
+    ref = plain(*args)
+    same_bits(f"{name} {label}", ("out", "mask_or_count"), kernel(*args), kernel(*args), ref)
     t = split_times(kernel, *args)
     t.update(plain_ms=median_ms(plain, *args, calls=20),
              library_ms=segment_sum_library_ms(args) if name == "voxel_centroids" else None,
              **prefilter_bound(name, args, clock_mhz))
+    if parent_kern is not None:
+        pk = getattr(parent_kern, name)
+        same_bits(f"{name} {label} (parent)", ("out", "mask_or_count"), pk(*args), pk(*args),
+                  ref)
+        turns = {"this": [], "parent": []}
+        for tree, fn in (("this", kernel), ("parent", pk), ("parent", pk), ("this", kernel)):
+            turns[tree].append(split_times(fn, *args)["device_us"])
+        t.update(device_us=float(np.mean(turns["this"])),
+                 parent_device_us=float(np.mean(turns["parent"])),
+                 turns_us=json.dumps({k: [round(x, 3) for x in v] for k, v in turns.items()},
+                                     separators=(",", ":")))
+        t["parent_share_of_bound"] = t["bound_us"] / t["parent_device_us"]
     t["share_of_bound"] = t["bound_us"] / t["device_us"]
     say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
     return dict(kernel=name, **t)
+
+
+def prefilter_split(fixtures: dict, parent: str | None, card: str) -> list:
+    """`scripts/torch_prefilter_split.py` in a subprocess on `fixtures` ({shape: {kernel:
+    args}}), this tree's kernels and (with `parent`) the parent tree's in turns: one
+    `prefilter-split` line a tree, kernel and shape with each part's us. Returns the
+    split lines."""
+    scratch = os.path.join(REPO, ".chip_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    path = os.path.join(scratch, "prefilter_split_input.npz")
+    np.savez(path, **{f"{shape}__{name}__{i}": (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                                                 else np.asarray(a, np.int64))
+                      for shape, per in fixtures.items() for name, args in per.items()
+                      for i, a in enumerate(args)})
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_prefilter_split.py"),
+           "--input", path, "--root", REPO]
+    if parent is not None:
+        cmd += ["--root", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=400)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"prefilter split failed:\n{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    splits = [x for x in lines if "split" in x]
+    for x in splits:
+        for key, parts in x["split"].items():
+            say("prefilter-split", tree=x["tree"], design=json.dumps(x["design"]),
+                kernel_at_shape=key, **{k: round(v, 3) for k, v in parts.items()},
+                card=json.dumps(card))
+    return splits
 
 
 def profile_prefilter(raws: dict, parent: str | None, card: str) -> dict:
@@ -1052,22 +1094,27 @@ def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: s
                     parent: str | None, clock_mhz: float, dev=torch.device("cuda")) -> dict:
     """Phase 10c: the prefilter's kernels on the raw buckets of `scans` ({label: scan}),
     and `voxel_centroids` on the loop path's `loop_inputs` ({label: runs},
-    `loop_centroid_inputs`), each as `prefilter_kernel_timing` takes it; one `prefilter`
-    call a bucket under `torch.cuda.set_sync_debug_mode("error")`; the profile of
-    `profile_prefilter`. The SOR statistics have no one-call library equivalent.
-    Returns {"timing": {shape: {kernel: timing}}, "profile": ...}."""
+    `loop_centroid_inputs`), each as `prefilter_kernel_timing` takes it (with `parent`,
+    the parent commit unpacked by `git archive`, that tree's kernels in turns); one
+    `prefilter` call a bucket under `torch.cuda.set_sync_debug_mode("error")`; each
+    kernel's launch split into its parts on the buckets and the loop submap
+    (`prefilter_split`); the profile of `profile_prefilter`. The SOR statistics have no
+    one-call library equivalent. Returns {"timing": {shape: {kernel: timing}}, "split":
+    [...], "profile": ...}."""
     raws = {label: raw_bucket(scan, cfg.capacity.raw_points) for label, scan in scans.items()}
     prefilter = make_prefilter(cfg.prefilter, cfg.capacity.filtered_points,
                                min(cfg.capacity.raw_points, 2 * cfg.capacity.filtered_points))
-    timing = {}
+    parent_kern = None if parent is None else tree_kernels(parent, "parent_kernels_prefilter")
+    timing, fixtures = {}, {}
     for label, raw_np in raws.items():
         raw = torch.as_tensor(raw_np, device=dev)
         say("prefilter-bucket", frame=label, raw_rows=raw.shape[0],
             raw_points=int(min(len(scans[label]), cfg.capacity.raw_points)))
         inputs = prefilter_kernel_inputs(cfg, raw)
+        fixtures[f"prefilter_{label}"] = inputs
         timing[f"prefilter_{label}"] = {
             name: prefilter_kernel_timing(name, f"prefilter_{label}", inputs[name], card,
-                                          clock_mhz) for name in PREFILTER_KERNELS}
+                                          clock_mhz, parent_kern) for name in PREFILTER_KERNELS}
         mask = raw[:, 0] < 0.5 * PAD_VALUE
         sync = sync_sites(lambda raw=raw, mask=mask: prefilter(raw, mask))
         if not sync["sync_free"]:
@@ -1075,8 +1122,10 @@ def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: s
         say("prefilter-sync", frame=label, **sync, card=json.dumps(card))
     for label, runs in loop_inputs.items():
         timing[label] = {"voxel_centroids": prefilter_kernel_timing(
-            "voxel_centroids", label, runs, card, clock_mhz)}
-    return dict(timing=timing, profile=profile_prefilter(raws, parent, card))
+            "voxel_centroids", label, runs, card, clock_mhz, parent_kern)}
+    fixtures["loop_submap"] = {"voxel_centroids": loop_inputs["loop_submap"]}
+    split = prefilter_split(fixtures, parent, card)
+    return dict(timing=timing, split=split, profile=profile_prefilter(raws, parent, card))
 
 
 EIGH_CHUNK = 4096
@@ -4033,21 +4082,26 @@ def main(argv=None) -> int:
             path="every prefilter call: each frame of both drivers (phase 6 counts the fused "
                  "front end: once a frame)" + extra,
             ports=ports, launches_loop_course=launches_course[name],
-            bit_equal_plain=True,
+            bit_equal_plain=True, redesigned=True, design=design,
+            parent_ms=(lambda us: None if us is None else us / 1000)(
+                timing["prefilter_dense"][name].get("parent_device_us")),
             profile={label: {p_: {k: row[p_][k] for k in (
                 "launches", "device_ms", "wall_ms", "enqueue_ms", "segment_reduce_launches",
                 "row_sorts")} for p_ in ("kernel", "plain", "parent") if p_ in row}
                 for label, row in pf["profile"].items()})
-          for name, replaces, ports, extra in (
+          for name, replaces, ports, extra, design in (
               ("voxel_centroids", "lidar_graph_slam_tpu/ops/voxel.py:110",
                "the segment sums, segment_max and centroids of the jitted voxel_downsample "
                "(lidar_graph_slam_tpu/ops/voxel.py:110-157); no Pallas kernel",
-               ", the loop verifier's input, the map export, the FPFH keypoints"),
+               ", the loop verifier's input, the map export, the FPFH keypoints",
+               "a thread a run; a block whose span of sorted points is long stages it "
+               "in shared memory in rounds, a short one reads its runs directly"),
               ("sor_window_stats", "lidar_graph_slam_tpu/ops/neighbors.py:179",
                "window_neighbor_d2 + window_mean_knn_distance "
                "(lidar_graph_slam_tpu/ops/neighbors.py:179-209) and the scatter back "
                "(filters/prefilter.py:62-65) inside the jitted prefilter; no Pallas kernel",
-               ""))],
+               "", "the same-cell range by two key searches, an odd-even merge network "
+               "16, 32, 40 or 48 wide by the warp's largest count"))],
         kernel_record(
             "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
             shape="batch", launches=0,

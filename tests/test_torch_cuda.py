@@ -2072,12 +2072,40 @@ CENTROID_CASES = {"dense": (131072, 60000, 65536, 0.1), "drift": (16384, 9100, 6
                   "ragged": (1000, 700, 777, 0.3), "coarse": (8192, 6000, 8192, 2.0)}
 
 
+# (run lengths in sorted order, leaf, rows N, capacity C) for the kernel's staged rounds
+# of 3,840 points a block of 256 rows (`csrc/prefilter.cu`): a cloud all in one voxel (one
+# run over three rounds), a run that starts in one round and ends in the next, and a
+# block's span (200 runs of 21) longer than a round.
+CENTROID_RUN_CASES = {"one_voxel": ([8192], 2.0, 8192, 512),
+                      "run_across_rounds": ([3000, 1500, 300, 7, 1], 0.5, 8192, 256),
+                      "long_span": ([21] * 200, 0.25, 8192, 1024)}
+CENTROID_CASES.update(CENTROID_RUN_CASES)
+
+
+def _voxel_runs(run_lengths, leaf, n, seed=0):
+    """Runs of the given lengths, in this order after the sort: voxel v (along z) holds
+    run_lengths[v] points inside it, the rest of the n rows PAD_VALUE."""
+    rng = np.random.default_rng(seed)
+    total = int(sum(run_lengths))
+    v = np.repeat(np.arange(len(run_lengths)), run_lengths)
+    local = rng.uniform(0.1, 0.9, (total, 3))
+    local[0] = 0.1  # the cloud's min corner, so that the voxel frame is this one
+    local[:, 2] += v
+    pts = np.full((n, 3), PAD_VALUE, np.float32)
+    pts[:total] = local * leaf
+    return pts, np.arange(n) < total
+
+
 def _centroid_inputs(device, case, seed=0):
     """`voxel_centroids`' arguments as `voxel_downsample` makes them."""
     from lidar_graph_slam_tpu_torch.ops import voxel as tv
 
-    n, valid, cap, leaf = CENTROID_CASES[case]
-    pts, mask = _prefilter_cloud(n, valid, seed)
+    if case in CENTROID_RUN_CASES:
+        runs, leaf, n, cap = CENTROID_RUN_CASES[case]
+        pts, mask = _voxel_runs(runs, leaf, n, seed)
+    else:
+        n, valid, cap, leaf = CENTROID_CASES[case]
+        pts, mask = _prefilter_cloud(n, valid, seed)
     return tv.centroid_runs(torch.as_tensor(pts, device=device),
                             torch.as_tensor(mask, device=device), leaf, cap)[0]
 
@@ -2121,11 +2149,36 @@ SOR_CASES = {"dense": (65536, 60000, False, 1.0), "drift": (65536, 8000, False, 
              "tiny": (5, 5, False, 100.0)}
 
 
+# (cell sizes in sorted order, invalid rows after them), 1 m cells: cells at the window's
+# edges (24, 25, 48 and 49 rows), N at and past the window's 49 rows (a window meets a row
+# twice below it), and warps whose rows' counts straddle 16 and 32, 32 and 40, and 40 and
+# 48 (the kernel's network widths).
+SOR_CELL_CASES = {"cells_24_25_48_49": ([24, 25, 48, 49], 300), "n47": ([20, 27], 0),
+                  "n48": ([24, 24], 0), "n49": ([30, 19], 0), "n129": ([60, 40, 29], 0),
+                  "straddle": ([10, 30, 10, 40, 5, 17, 33, 2, 45, 1, 3], 250)}
+SOR_CASES.update(SOR_CELL_CASES)
+
+
+def _cells(sizes, invalid=0, seed=0):
+    """Cells of the given sizes, in this order after the sort (1 m cells two apart along
+    x), then `invalid` PAD_VALUE rows; the rows shuffled."""
+    rng = np.random.default_rng(seed)
+    c = np.repeat(np.arange(len(sizes)), sizes)
+    local = rng.uniform(0.05, 0.95, (len(c), 3))
+    local[:, 0] += 2 * c
+    pts = np.concatenate([local, np.full((invalid, 3), PAD_VALUE)]).astype(np.float32)
+    perm = rng.permutation(len(pts))
+    return pts[perm], (np.arange(len(pts)) < len(c))[perm]
+
+
 def _sor_inputs(device, case, seed=0):
     from lidar_graph_slam_tpu_torch.ops.neighbors import sort_by_cell
 
-    n, valid, one_cell, cell = SOR_CASES[case]
-    pts, mask = _prefilter_cloud(n, valid, seed, one_cell)
+    if case in SOR_CELL_CASES:
+        (pts, mask), cell = _cells(*SOR_CELL_CASES[case], seed), 1.0
+    else:
+        n, valid, one_cell, cell = SOR_CASES[case]
+        pts, mask = _prefilter_cloud(n, valid, seed, one_cell)
     cells = sort_by_cell(torch.as_tensor(pts, device=device),
                          torch.as_tensor(mask, device=device), cell)
     return cells.keys, cells.points, cells.order
@@ -2148,6 +2201,8 @@ def test_sor_window_stats_bit_equal_to_plain(cuda, case, k):
         assert not bool(found.any())
     elif case in ("one_cell_full", "tiny"):  # every window row is a same-cell row
         assert bool((found == k).all())
+    elif case in SOR_CELL_CASES:
+        assert int(found.max()) == min(k, 29) if case == "n49" else int(found.max()) > 1
     else:
         assert int(found.max()) > 1 and bool((found == 0).any())
 
