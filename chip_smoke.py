@@ -28,6 +28,17 @@ of `bench.py:bench_e2e`. Phases:
      memory and blocks; with `--parent DIR` the same times of that tree's kernel, in
      turns (this, parent, parent, this); then 5 dense frames of the fused step under
      `torch.cuda.set_sync_debug_mode("error")` (no synchronous read);
+ 3c. captured programs: the fused front end's step and keyframe insert-and-rebuild as
+     one CUDA graph each (`odometry/fused.py:FusedFrontEnd`, `utils/capture.py`), the
+     step one a raw-scan bucket: `SlamPipeline` on 40 dense frames (the 131,072 bucket)
+     with NDT and 10 each with GICP and ICP, its poses, keyframe flags, fitness,
+     iterations and inliers bit-equal to the same frames through the plain step and
+     insert-and-rebuild on the card (lagged as the runner lags them); captures = buckets
+     seen + 1 (the insert); the launches each replay counts, the host us of a frame's
+     dispatch and of a keyframe's, their device ms (CUDA events) and the device's idle
+     share over the frames, each graph pool's bytes; 20 frames of step and insert
+     replays under `torch.cuda.set_sync_debug_mode("error")` (phase 23 reads the replays'
+     runtime calls from the profiler);
   4. the target rebuild (`build_ndt_pyramid`) on a full 20 x 32,768 ring: twice,
      bit-identical maps; `ndt_finalize` on the ring's two levels (the fine one from the
      sorted points, C = 65,536; the coarse one from the merged fine moments, 32,768)
@@ -181,6 +192,10 @@ of `bench.py:bench_e2e`. Phases:
      output files;
  23. `trace("frame", profile_dir=...)` around a few frames in a subprocess
      (`scripts/torch_trace_frames.py`): a trace file exists and `trace.last_ms` is set;
+     the replayed frames' CUDA runtime calls from the profiler: one `cudaGraphLaunch` a
+     step and one a keyframe's insert-and-rebuild, and no kernel launch call of their
+     own; the device's idle share; the same frames' parts with the programs' bodies
+     called directly;
  24. the batched fused kernel (`ndt_direct7_accumulate_batched`) at B = 4, N = 32,768
      against four dense-course-like maps (the dense world at seeds 2-5, a full 20-frame
      ring each): against its plain version, and row b bit-equal to the single kernel on
@@ -239,6 +254,7 @@ import subprocess
 import sys
 import time
 import warnings
+from collections import deque
 
 import numpy as np
 import torch
@@ -270,7 +286,11 @@ from lidar_graph_slam_tpu_torch.io.synthetic import (
     make_world,
     simulate_scan,
 )
-from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+from lidar_graph_slam_tpu_torch.odometry.fused import (
+    FusedFrontEnd,
+    make_fused_frontend,
+    pack_scalars,
+)
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import assemble_submap, ring_insert
 from lidar_graph_slam_tpu_torch.ops import kernels
 from lidar_graph_slam_tpu_torch.ops import voxel
@@ -342,6 +362,11 @@ BATCH_SEEDS = (2, 3, 4, 5)
 # Phase 27's top-4 pair runs the drift course's first frames only, up to and past its
 # first loop, so that the whole run with phase 29 stays under 900 s (PERF.md section 4).
 TOPK_PAIR_FRAMES = 130
+# Phase 3c's courses: the dense course's first frames through each matcher.
+CAPTURED_COURSES = (("NDT", 40), ("GICP", 10), ("ICP", 10))
+# The columns of a `pack_scalars` row that phase 3c holds bit for bit: the pose (16),
+# converged, is_keyframe, fitness, iterations and num_inliers.
+CAPTURED_COLUMNS = list(range(16)) + [16, 17, 18, 19, 22]
 SLAM_SEEDS = (1, 6, 7, 8)
 
 
@@ -604,6 +629,11 @@ def map_build_twice(aux, ring, dev) -> dict:
     build_ms = 1000 * (time.perf_counter() - t0)
     second = aux["rebuild"](ring)
     sync()
+    # `rebuild` is the plain body: each call returns fresh tensors, so this compares two
+    # builds and never a fixed buffer with itself.
+    if any(getattr(a, name).data_ptr() == getattr(b, name).data_ptr()
+           for a, b in zip(first, second) for name in NdtVoxelMap.__dataclass_fields__):
+        raise AssertionError("map_build_twice: the two builds share a buffer")
     for a, b in zip(first, second):
         for name in NdtVoxelMap.__dataclass_fields__:
             if not torch.equal(getattr(a, name), getattr(b, name)):
@@ -1943,6 +1973,157 @@ def fused_steps_sync_free(cfg: PipelineConfig, scans, gt, target, dev, first: in
                 enqueue_ms_per_frame=enqueue_ms / frames, wall_ms_per_frame=total_ms / frames)
 
 
+# -- the step and the insert-and-rebuild as captured programs (phase 3c) -------------------
+
+def plain_front_rows(cfg: PipelineConfig, scans, dev) -> np.ndarray:
+    """The fused front end on `scans` through its plain bodies on `dev`
+    (`make_fused_frontend`'s step and insert_and_rebuild, not captured), lagged as
+    `SlamPipeline` lags them at pipeline depth 1 (frame 0 read at once, then each frame
+    read after the next one is dispatched): each frame's `pack_scalars` row."""
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=dev)
+    state, ring = init_state(), aux["init_ring"]()
+    target = aux["rebuild"](ring)
+    eye3, eye4 = torch.eye(3, device=dev), torch.eye(4, device=dev)
+    rows, pending = [], deque()
+
+    def consume(out):
+        nonlocal ring, target
+        if bool(out.is_keyframe):
+            ring, target = aux["insert_and_rebuild"](
+                ring, int(out.keyframe_id) % aux["window"], out.kf_cloud, out.kf_mask,
+                out.pose)
+        rows.append(pack_scalars(out).cpu().numpy())
+
+    for t, scan in enumerate(scans):
+        raw = torch.as_tensor(raw_bucket(scan, cfg.capacity.raw_points), device=dev)
+        state, out = step(state, raw, target, eye3, False, eye4, False)
+        pending.append(out)
+        while pending and (t == 0 or len(pending) > 1):
+            consume(pending.popleft())
+    while pending:
+        consume(pending.popleft())
+    return np.stack(rows)
+
+
+def captured_front(cfg: PipelineConfig, scans, dev) -> dict:
+    """Phase 3c for one matcher: `scans` through `SlamPipeline`, whose fused front end
+    runs as captured programs, against the same frames through the plain bodies on the
+    card (`plain_front_rows`): poses, flags, fitness, iterations and inliers bit for bit.
+    Captures = the buckets seen + 1. Numbers: the wrapper launches a replay counts
+    (`Program.tally`), host us of a frame's dispatch and of a keyframe's insert (p50),
+    their device ms (CUDA events around each call, p50), the device's idle share over
+    the frames after the first (1 - the summed device ms / their wall ms), each pool's
+    MB."""
+    pipe = SlamPipeline(cfg, device=dev)
+    front, infos, calls = pipe.fused_front, [], {"step": [], "insert": []}
+    consume = pipe._consume_fused
+
+    def read(item):
+        info = consume(item)
+        infos.append(info)
+        return info
+
+    def timed(name, fn):
+        def call(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            t0 = time.perf_counter()
+            fn(*a, **k)
+            host_us = 1e6 * (time.perf_counter() - t0)
+            e1.record()
+            calls[name].append((host_us, e0, e1))
+
+        return call
+
+    pipe._consume_fused = read
+    front.dispatch = timed("step", front.dispatch)
+    front.insert_and_rebuild = timed("insert", front.insert_and_rebuild)
+    pipe.process_scan(scans[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s_ in scans[1:]:
+        pipe.process_scan(s_)
+    pipe.flush()
+    torch.cuda.synchronize()
+    wall_ms = 1000 * (time.perf_counter() - t0)
+    got = np.stack([np.concatenate([i["pose"].reshape(16), [
+        i["converged"], i["is_keyframe"], i["fitness"], i["iterations"], i["num_inliers"]]])
+        for i in infos]).astype(np.float32)
+    want = plain_front_rows(cfg, scans, dev)[:, CAPTURED_COLUMNS]
+    buckets = {raw_bucket(s_, cfg.capacity.raw_points).shape[0] for s_ in scans}
+    step_ms = [e0.elapsed_time(e1) for _, e0, e1 in calls["step"]]
+    insert_ms = [e0.elapsed_time(e1) for _, e0, e1 in calls["insert"]]
+    # The frames after the first: the first dispatch of a bucket and the first insert
+    # run their bodies and capture.
+    replayed = [p.replays for p in front.programs.values()]
+    if not (got.shape == want.shape and np.array_equal(got.view(np.int32), want.view(np.int32))
+            and set(front.programs) == buckets and front.captures == len(buckets) + 1
+            and sum(replayed) == len(scans) - len(buckets)
+            and front.insert_program.replays == len(calls["insert"]) - 1):
+        bad = [] if got.shape != want.shape else np.flatnonzero((got != want).any(axis=1))
+        raise AssertionError(
+            f"captured front end ({cfg.scan_matcher.registration_method}): rows differ from "
+            f"the plain bodies' at frames {list(bad)[:8]}, captures {front.captures}, "
+            f"buckets {sorted(buckets)}, replays {replayed} / "
+            f"{front.insert_program.replays}")
+    device_ms = sum(step_ms[1:]) + sum(insert_ms[1:])
+    pools = {str(rows): p.pool_bytes() for rows, p in front.programs.items()}
+    pools["insert"] = front.insert_program.pool_bytes()
+    return dict(
+        method=cfg.scan_matcher.registration_method, frames=len(scans),
+        keyframes=int(got[:, 17].sum()), bit_equal=True, buckets=json.dumps(sorted(buckets)),
+        captures=front.captures,
+        step_launches_per_replay=json.dumps({w.__name__: n for w, n in next(
+            iter(front.programs.values())).tally.items()}, separators=(",", ":")),
+        insert_launches_per_replay=json.dumps({
+            w.__name__: n for w, n in front.insert_program.tally.items()},
+            separators=(",", ":")),
+        step_host_us_p50=float(np.median([h for h, _, _ in calls["step"][1:]])),
+        insert_host_us_p50=float(np.median([h for h, _, _ in calls["insert"][1:]])),
+        step_device_ms_p50=float(np.median(step_ms[1:])),
+        insert_device_ms_p50=float(np.median(insert_ms[1:])),
+        frames_wall_ms=wall_ms, device_idle_share=1.0 - device_ms / wall_ms,
+        pool_mb=json.dumps({k: None if v is None else round(v / 2**20, 3)
+                            for k, v in pools.items()}, separators=(",", ":")),
+        stage_p50_ms=json.dumps({k: round(float(np.median(v[1:])) * 1000, 3)
+                                 for k, v in pipe.timings.items() if len(v) > 1},
+                                separators=(",", ":")))
+
+
+def programs_sync_free(cfg: PipelineConfig, scans, dev, frames: int = 20) -> dict:
+    """`frames` dense frames of step and insert replays (every frame inserted, two output
+    slots) under `torch.cuda.set_sync_debug_mode("error")`, which raises at the first
+    synchronous call; the scans are padded first and the slots read after."""
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=dev)
+    raws = [raw_bucket(s_, cfg.capacity.raw_points) for s_ in scans[:frames + 1]]
+    front.dispatch(raws[0], None, None, 0)  # the captures
+    front.insert_and_rebuild(0)
+    torch.cuda.synchronize()
+    before = kernels.thread_launches()
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for t in range(1, frames + 1):
+            front.dispatch(raws[t], None, None, t % 2)
+            front.insert_and_rebuild(t % 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    enqueue_ms = 1000 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    total_ms = 1000 * (time.perf_counter() - t0)
+    per_replay = (sum(next(iter(front.programs.values())).tally.values())
+                  + sum(front.insert_program.tally.values()))
+    rows = front.slots.scalars.cpu().numpy()
+    if not (np.isfinite(rows).all() and (rows[:, 16] > 0.5).all()
+            and kernels.thread_launches() - before == frames * per_replay):
+        raise AssertionError(f"replays without a read: slots {rows}, launches "
+                             f"{kernels.thread_launches() - before} != {frames} x {per_replay}")
+    return dict(frames=frames, sync_reads=0, replays=2 * frames,
+                wrapper_launches_per_frame=per_replay,
+                enqueue_ms_per_frame=enqueue_ms / frames, wall_ms_per_frame=total_ms / frames)
+
+
 # -- the GICP loop on the device (the gicp-loop phase) -------------------------------------
 
 # The GICP loop kernel against its plain loop on the same card tensors, to the NDT loop's
@@ -2952,10 +3133,43 @@ def trace_frames(frames: int = 5) -> dict:
                 and os.path.getsize(rec["trace_file"]) == rec["trace_bytes"] > 0
                 and rec["device"] == "cuda" and rec["span_events"] >= 1):
             raise AssertionError(f"trace: {rec}")
+        # The replayed programs: one graph launch a step and one a keyframe's insert, and
+        # no kernel launched by a runtime call of their own.
+        for part in ("step", "insert_and_rebuild"):
+            st = rec["stages"][part]
+            graphs = st["runtime_calls_per_frame"].get("cudaGraphLaunch", 0.0) * frames
+            launches = sum(v for k, v in st["runtime_calls_per_frame"].items()
+                           if "LaunchKernel" in k)
+            if not ((st["calls"] > 0 or part != "step") and graphs == st["calls"]
+                    and launches == 0):
+                raise AssertionError(f"trace: the {part} replays' runtime calls: {st}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     rec["trace_file"] = os.path.relpath(rec["trace_file"], REPO)
     return rec
+
+
+def trace_numbers(rec: dict) -> dict:
+    """Phase 23's line: the replayed frames' runtime calls and idle share, and the host
+    and device ms of each part, replayed and (`body_`) with the bodies called directly."""
+    out = dict(ms_per_frame=rec["ms_per_frame"], body_ms_per_frame=rec["body_ms_per_frame"],
+               device_idle_share=rec["device_idle_share"],
+               body_device_idle_share=rec["body_window"]["device_idle_share"],
+               captures=rec["captures"], keyframes=rec["keyframes"],
+               runtime_calls_per_frame=json.dumps(rec["runtime_calls_per_frame"],
+                                                  separators=(",", ":")),
+               body_runtime_calls_per_frame=json.dumps(
+                   rec["body_window"]["runtime_calls_per_frame"], separators=(",", ":")),
+               pool_mb=json.dumps({k: None if v is None else round(v / 2**20, 3)
+                                   for k, v in rec["pool_bytes"].items()},
+                                  separators=(",", ":")))
+    for tag, stages in (("", rec["stages"]), ("body_", rec["body_stages"])):
+        for part, st in stages.items():
+            if st["calls"]:
+                out[f"{tag}{part}"] = json.dumps({k: st[k] for k in (
+                    "calls", "host_ms_per_frame", "device_ms_per_frame", "launches_per_frame",
+                    "kernel_ms_per_frame", "device_behind_ms")}, separators=(",", ":"))
+    return out
 
 
 def dense_courses(seeds, n_frames: int, max_points: int):
@@ -3558,6 +3772,14 @@ def main(argv=None) -> int:
     say("ndt-loop-fused-steps", **fused_steps_sync_free(cfg, scans, gt, (coarse, fine), dev),
         card=json.dumps(card))
 
+    # -- 3c. the step and the keyframe insert-and-rebuild as one captured program each -----
+    for method, frames in CAPTURED_COURSES:
+        say("captured-front", **captured_front(
+            loops_off_config([f"scan_matcher.registration_method={method}"]),
+            scans[:frames], dev), card=json.dumps(card))
+    say("captured-front-sync-free", **programs_sync_free(cfg, scans, dev),
+        card=json.dumps(card))
+
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
     rb = rebuild_phase(cfg, aux, ring, last, card, args.parent, sass, clock_mhz)
     timing.update(rb["timing"])
@@ -3629,6 +3851,12 @@ def main(argv=None) -> int:
     odom_diff = float(np.abs(res_on.odometry_poses - res_off.odometry_poses).max())
     if not launches_course["ndt_finalize"] > 0:
         raise AssertionError(f"loop course: no ndt_finalize launch: {launches_course}")
+    # One step program captured a raw-scan bucket the course used, and the insert's.
+    buckets = {raw_bucket(s_, cfg_on.capacity.raw_points).shape[0] for s_ in dscans}
+    front_on = pipe_on.fused_front
+    if not (set(front_on.programs) == buckets and front_on.captures == len(buckets) + 1):
+        raise AssertionError(f"loop course: captures {front_on.captures}, programs "
+                             f"{sorted(front_on.programs)}, buckets {sorted(buckets)}")
     say("loop-course", p50_frame_ms=on["p50_frame_ms"], p50_frame_ms_loops_off=off["p50_frame_ms"],
         backend_p50_ms_on=on["stage_p50_ms"]["backend"],
         backend_p50_ms_off=off["stage_p50_ms"]["backend"],
@@ -3636,6 +3864,7 @@ def main(argv=None) -> int:
         loops_accepted=on["loops_accepted"], loops_attempted=on["loops_attempted"],
         ate_keyframes_on_m=on["ate_keyframes_m"], ate_keyframes_off_m=off["ate_keyframes_m"],
         keyframes=on["keyframes"], iterations_mean_on=on["iterations_mean"],
+        buckets=json.dumps(sorted(buckets)), captures=front_on.captures,
         iterations_mean_off=off["iterations_mean"],
         stage_p50_ms_on=json.dumps(on["stage_p50_ms"], separators=(",", ":")),
         stage_p50_ms_off=json.dumps(off["stage_p50_ms"], separators=(",", ":")),
@@ -3656,9 +3885,10 @@ def main(argv=None) -> int:
     # -- 10b. `ndt_finalize` on the drift course's last ring (~28% of its rows valid) -------
     drift_parent = None if args.parent is None else tree_kernels(args.parent,
                                                                  "parent_kernels_drift")
-    timing.update(finalize_phase("drift", cfg_on, pipe_on._ring, card, drift_parent,
+    timing.update(finalize_phase("drift", cfg_on, pipe_on.fused_front.ring, card, drift_parent,
                                  sass["eigh3x3"]["instructions"], clock_mhz))
-    drift_prof = profile_rebuild(cfg_on, pipe_on._ring, args.parent, card, tag="drift")
+    drift_prof = profile_rebuild(cfg_on, pipe_on.fused_front.ring, args.parent, card,
+                                 tag="drift")
 
     # -- 10c. the prefilter's kernels on the dense course's first frame and a drift frame;
     # `voxel_centroids` on the first loop attempt's submap and its FPFH keypoints ---------
@@ -3877,7 +4107,7 @@ def main(argv=None) -> int:
         card=json.dumps(card))
 
     # -- 23. the profiler span, in a subprocess ----------------------------------------------
-    say("trace", **trace_frames())
+    say("trace", **trace_numbers(trace_frames()), card=json.dumps(card))
 
     # -- 24. the batched fused kernel at the multi-sequence shape ----------------------------
     t0 = time.perf_counter()

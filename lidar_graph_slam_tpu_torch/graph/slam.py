@@ -15,7 +15,10 @@ Concurrency, as in the reference's concurrent back end:
     which the reference reads its dispatched program's results (`loop_verify_lag_frames`),
     so which frame a loop factor lands on does not depend on timing. A failure in the
     thread is raised in the caller.
-  * The solve runs in a `threading.Thread` over numpy (f64), as in the reference.
+  * The solve runs in a `threading.Thread` over numpy (f64), as in the reference. A
+    frame harvests it once it has finished; a loop tick that finds it still running
+    waits for it (`on_frame`), so the ticks that attempt a loop are a function of the
+    frames, whatever the host's speed against the solve's.
   * `async_backend=False` runs the same verification inline — the deterministic path.
 
 With `use_global_init` each candidate's verification starts from its own FPFH+RANSAC
@@ -805,8 +808,8 @@ class GraphBasedSLAM:
         """Per-frame cadence hook: a loop check every `loop_search_period_frames` (<= 0
         derives it from `rate` at the nominal 10 Hz sensor). With `async_backend` the
         check only starts verification; factors land `loop_verify_lag_frames` later and
-        the solve overlaps later frames. Returns True the frame a solve's corrections
-        were applied."""
+        the solve overlaps later frames up to the next tick, which waits for it. Returns
+        True the frame a solve's corrections were applied."""
         closed_before = self._solve_epoch
         self.drain_lazy_clouds()
         if self.async_enabled:
@@ -819,8 +822,12 @@ class GraphBasedSLAM:
             self._frames_since_loop_check = 0
             if not self.async_enabled:
                 return self.try_close_loop()
-            # Skip the tick while the previous attempt is still in flight.
-            if self._pending_verify is None and self._solve_thread is None:
+            # A tick that finds the last solve still running waits for it (the
+            # reference's timer waits on its optimize mutex), so which ticks attempt a
+            # loop does not depend on how fast the host runs the frames.
+            if self._pending_verify is None:
+                if self._solve_thread is not None:
+                    self._finish_solve()
                 self._pending_verify = self.begin_loop_attempt()
         return self._solve_epoch != closed_before
 

@@ -65,11 +65,19 @@ def init_ring(window: int, n_points: int, device=None) -> SubmapRing:
     )
 
 
-def ring_insert(ring: SubmapRing, slot: int, points, mask, pose) -> SubmapRing:
+def ring_insert(ring: SubmapRing, slot, points, mask, pose) -> SubmapRing:
     """Write a keyframe into `slot` IN PLACE (the reference donates the ring to an
     out-of-place update; here the ring's buffers are updated and the same ring returned).
     The used flag is a fill on the device, as the reference's `.at[slot].set(True)`: an
-    assignment of a Python bool copies it in from the host and synchronizes."""
+    assignment of a Python bool copies it in from the host and synchronizes. `slot` is an
+    int, or a [1] int64 tensor on the ring's device (the captured insert takes it there,
+    so the host reads nothing)."""
+    if isinstance(slot, torch.Tensor):
+        ring.clouds.index_copy_(0, slot, points[None])
+        ring.masks.index_copy_(0, slot, mask[None])
+        ring.poses.index_copy_(0, slot, pose[None])
+        ring.used.index_fill_(0, slot, True)
+        return ring
     ring.clouds[slot] = points
     ring.masks[slot] = mask
     ring.poses[slot] = pose

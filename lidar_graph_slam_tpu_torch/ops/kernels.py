@@ -91,7 +91,9 @@ on the main thread and loop verification in its worker thread both launch), and
 `thread_launches()` the calling thread's, so a caller can tell the two paths apart. A loop
 wrapper counts every launch it enqueues; `worked_launches()` reads how many of them did
 work (a device counter per loop kernel, read with a device-wide synchronize: for
-measurement only).
+measurement only). A CUDA graph capture launches nothing: inside `recorded_launches()`
+the calling thread's wrapper calls are tallied and not counted, and `count_launches(tally)`
+counts the tally once for each replay of the graph (`utils/capture.py`).
 Scratch: a kernel's last block sums the per-block partials, through a partials buffer and
 a ticket counter (one per sequence of a batch); there is one such pair per CUDA stream,
 made at the stream's first launch (and grown for a larger batch), because the odometry
@@ -102,6 +104,7 @@ block per tile of 128 points, at most what the card holds at once (`loop_blocks`
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -160,9 +163,35 @@ def thread_launches() -> int:
 
 
 def _count(wrapper, n: int = 1) -> None:
+    tally = getattr(_thread_counts, "tally", None)
+    if tally is not None:  # a capture: the launches run at each replay, not now
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
     with _count_lock:
         wrapper.launches += n
     _thread_counts.launches = thread_launches() + n
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Inside, the calling thread's kernel launches are tallied into the yielded dict
+    (wrapper -> launches) and not counted: a stream capture enqueues nothing. Pass the
+    tally to `count_launches` at each replay of what was captured."""
+    if getattr(_thread_counts, "tally", None) is not None:
+        raise RuntimeError("recorded_launches: already recording on this thread")
+    tally: dict = {}
+    _thread_counts.tally = tally
+    try:
+        yield tally
+    finally:
+        _thread_counts.tally = None
+
+
+def count_launches(tally: dict) -> None:
+    """Count a recorded tally (`recorded_launches`) as launched, in the wrappers' counts
+    and the calling thread's: one replay of a captured graph."""
+    for wrapper, n in tally.items():
+        _count(wrapper, n)
 
 
 # -- plain versions ----------------------------------------------------------------------

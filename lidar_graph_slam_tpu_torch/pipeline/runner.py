@@ -4,9 +4,13 @@ Port of `lidar_graph_slam_tpu/pipeline/runner.py`, with its two front-end driver
 
   * fused (default): each frame runs the fused front-end step (`odometry/fused.py`) on
     the device, and the host reads frame t's outputs AFTER dispatching frame t+1
-    (lagged readback). A frame's outputs are copied to pinned host memory with
-    non-blocking copies started right after its step; the consume waits on that frame's
-    event only. `process_scan` therefore returns the PREVIOUS frame's record.
+    (lagged readback). The step and a keyframe's ring insert with its target rebuild
+    are one program each (`odometry/fused.py:FusedFrontEnd`, on the card a CUDA graph
+    a raw-scan bucket, replayed), as the reference jits them: a frame costs the host
+    one dispatch, a keyframe one more. Frame t writes output slot t % (depth + 1); its
+    outputs are copied from there to pinned host memory with non-blocking copies
+    started right after its step, and the consume waits on that frame's event only.
+    `process_scan` therefore returns the PREVIOUS frame's record.
   * classic (`fused_frontend=False`): stage by stage — prefilter, then
     `odometry/scan_matcher.py:ScanMatcher` (one batched read per frame, the target
     rebuilt at once on a keyframe), then the back end — with per-stage wall times; the
@@ -43,7 +47,7 @@ from lidar_graph_slam_tpu_torch.core.msgs import KeyFrame
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.graph.slam import GraphBasedSLAM
-from lidar_graph_slam_tpu_torch.odometry.fused import make_fused_frontend
+from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher, integrate_gyro
 from lidar_graph_slam_tpu_torch.parallel.distributed import make_mesh, process_count
 from lidar_graph_slam_tpu_torch.parallel.multihost import HostShardedKeyframeStore
@@ -63,12 +67,12 @@ class PipelineResult:
 class _HostCopy:
     """A frame's outputs on the host: non-blocking copies into pinned memory, started
     when the frame is dispatched, waited on (by event) when it is consumed. CPU tensors
-    are kept as they are."""
+    are cloned: they are views of an output slot, which a later frame overwrites."""
 
     def __init__(self, tensors: dict):
         self.event = None
         if all(t.device.type == "cpu" for t in tensors.values()):
-            self.host = tensors
+            self.host = {name: t.clone() for name, t in tensors.items()}
             return
         self.host = {}
         for name, t in tensors.items():
@@ -82,15 +86,6 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host
-
-
-def _pack_scalars(out) -> torch.Tensor:
-    """pose (16) | converged | is_keyframe | fitness | iterations | keyframe_id | accum —
-    one f32 row (ids and counts stay exact below 2^24), so one copy reads a frame."""
-    f32 = torch.float32
-    return torch.cat([out.pose.reshape(16), torch.stack([
-        out.converged.to(f32), out.is_keyframe.to(f32), out.fitness.to(f32),
-        out.iterations.to(f32), out.keyframe_id.to(f32), out.accum_distance.to(f32)])])
 
 
 class SlamPipeline:
@@ -136,23 +131,18 @@ class SlamPipeline:
             self._kf_consumed = 0
             return
         self.front = None
-        init_state, self._step, aux = make_fused_frontend(
-            cfg.scan_matcher, cfg.prefilter, cap, device=self.device)
-        self._state = init_state()
+        # One output slot for each frame in flight (`_process_fused` keeps
+        # max(1, pipeline_depth) frames dispatched ahead of the one it consumes).
+        self._slots = max(1, cfg.pipeline_depth) + 1
+        self.fused_front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cap, self._slots,
+                                         device=self.device)
         self._static_ext = None
         if any(abs(v) > 1e-12 for v in cfg.scan_matcher.extrinsic_xyzrpy):
             x, y, z, roll, pitch, yaw = cfg.scan_matcher.extrinsic_xyzrpy
             self._static_ext = se3.make_transform(
                 se3.so3_exp(torch.tensor([roll, pitch, yaw], dtype=torch.float32)),
                 torch.tensor([x, y, z], dtype=torch.float32)).numpy()
-        self._eye4 = torch.eye(4, dtype=torch.float32, device=self.device)
-        self._eye3 = torch.eye(3, dtype=torch.float32, device=self.device)
-        self._ring = aux["init_ring"]()
-        self._insert_and_rebuild = aux["insert_and_rebuild"]
-        self._rebuild = aux["rebuild"]
-        self._window = aux["window"]
-        self._target = self._rebuild(self._ring)  # empty map; frame 0 bootstraps
-        self._pending: deque = deque()  # (frame_idx, wall_t0, stamp, FrameOut, _HostCopy)
+        self._pending: deque = deque()  # (frame_idx, wall_t0, stamp, slot, _HostCopy)
         self._last_out: dict = {}
         # Gyro samples queue here and integrate host-side between consecutive scan
         # stamps; the result rides into the step as (imu_R, use_imu).
@@ -182,7 +172,7 @@ class SlamPipeline:
 
     def _consume_fused(self, item) -> dict:
         """Read one pending frame's outputs and run the back end."""
-        frame_idx, t0, stamp, out, host = item
+        frame_idx, t0, stamp, slot, host = item
         t1 = time.perf_counter()
         h = host.wait()
         s = h["scalars"].numpy()
@@ -195,12 +185,13 @@ class SlamPipeline:
             "converged": bool(s[16] > 0.5),
             "fitness": float(s[18]),
             "iterations": int(s[19]),
+            "num_inliers": int(s[22]),
         }
         if info["is_keyframe"]:
-            # Insert into the device-side submap ring and rebuild the registration
-            # target; it takes effect at the next dispatched frame (one-frame lag).
-            self._ring, self._target = self._insert_and_rebuild(
-                self._ring, kf_id % self._window, out.kf_cloud, out.kf_mask, out.pose)
+            # Insert this frame's keyframe (its own output slot) into the device-side
+            # submap ring and rebuild the registration target: one program, which takes
+            # effect at the next dispatched frame (one-frame lag).
+            self.fused_front.insert_and_rebuild(slot)
             self.back.add_keyframe(KeyFrame(
                 id=kf_id, pose=pose, accum_distance=float(s[21]),
                 cloud=h["kf_cloud"], cloud_mask=h["kf_mask"],  # tensors — lazy numpy
@@ -252,16 +243,10 @@ class SlamPipeline:
         out[:n] = scan[:n]
         return out
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _process_fused(self, scan: np.ndarray, stamp: Optional[float]) -> dict:
         t0 = time.perf_counter()
         frame_idx = len(self.odometry_poses) + len(self._pending)
-        raw_pts = self._upload(self._pad_bucket(np.asarray(scan, dtype=np.float32)))
+        raw = self._pad_bucket(np.asarray(scan, dtype=np.float32))
         # Gyro-integrated rotation since the previously DISPATCHED frame.
         imu_R = integrate_gyro(self._imu_queue, self._last_dispatch_stamp, stamp)
         self._last_dispatch_stamp = stamp
@@ -272,19 +257,14 @@ class SlamPipeline:
             T_ext = self.extrinsic_provider(stamp)
         if T_ext is None:
             T_ext = self._static_ext
-        self._state, out = self._step(
-            self._state, raw_pts, self._target,
-            torch.as_tensor(imu_R, dtype=torch.float32, device=self.device) if use_imu else self._eye3,
-            use_imu,
-            self._eye4 if T_ext is None else torch.as_tensor(
-                np.asarray(T_ext, np.float32), device=self.device),
-            T_ext is not None,
-        )
-        host = _HostCopy({"scalars": _pack_scalars(out), "kf_cloud": out.kf_cloud,
-                          "kf_mask": out.kf_mask})
+        slot = frame_idx % self._slots
+        self.fused_front.dispatch(raw, imu_R if use_imu else None,
+                                  None if T_ext is None else np.asarray(T_ext, np.float32),
+                                  slot)
+        host = _HostCopy(self.fused_front.outputs(slot))
         t1 = time.perf_counter()
         self.timings["prefilter"].append(t1 - t0)  # host pad + upload + step
-        self._pending.append((frame_idx, t0, stamp, out, host))
+        self._pending.append((frame_idx, t0, stamp, slot, host))
         if frame_idx == 0:
             # Bootstrap frame: consume immediately so keyframe 0 lands in the ring and the
             # target is real before frame 1 dispatches.

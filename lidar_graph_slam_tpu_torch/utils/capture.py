@@ -1,0 +1,95 @@
+"""One program, one dispatch: the port's counterpart of the JAX package's `jax.jit` with
+donated arguments (`lidar_graph_slam_tpu/odometry/fused.py:141,221-223`).
+
+A `Program` runs a body: a function of no arguments that reads its inputs from fixed
+buffers and writes every result into fixed buffers in place (the counterpart of
+donation: the next call finds its state where the last one left it).
+
+  * On a CUDA device the first call runs the body on the owner's capture stream. This
+    warm-up is that call's own run, and it makes what a capture may not: the kernel
+    library (built at first use), the stream's kernel scratch
+    (`ops/kernels.py:_stream_scratch`), its cuBLAS workspace and the cached constants.
+    Then the body is captured into a `torch.cuda.CUDAGraph` with a private memory pool,
+    and every later call replays the graph on the current stream: one `cudaGraphLaunch`
+    where the body enqueues hundreds of operators. A capture or a replay that fails
+    raises; nothing falls back to running the body eagerly.
+  * On the CPU every call runs the body on the same fixed buffers, so the CPU tests hold
+    the body to the discipline the graph needs.
+
+The wrappers' launch counts (`ops/kernels.py`) are host counters bumped when a wrapper is
+called. The capture records its tally instead (`kernels.recorded_launches`), and each
+replay counts it (`kernels.count_launches`), in the wrappers' counts and the calling
+thread's. Captures use `capture_error_mode="thread_local"`: the loop verifier's thread
+may launch and allocate on its own stream while the front end captures. The garbage
+collector is run before a capture and held off during it (a graph freed mid-capture
+invalidates the capture).
+"""
+
+from __future__ import annotations
+
+import gc
+from typing import Callable
+
+import torch
+
+from lidar_graph_slam_tpu_torch.ops import kernels
+
+
+class Program:
+    """`body` as one dispatch on `device`; `stream` (a `torch.cuda.Stream` of the card) is
+    where a CUDA program warms up and is captured."""
+
+    def __init__(self, body: Callable[[], None], device, stream=None):
+        self.body = body
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and stream is None:
+            raise ValueError("Program: a CUDA program needs its capture stream")
+        self.stream = stream
+        self.graph = None
+        self.tally: dict = {}  # wrapper -> kernel launches a replay
+        self.replays = 0
+
+    @property
+    def captured(self) -> bool:
+        return self.graph is not None
+
+    def __call__(self) -> None:
+        if self.device.type != "cuda":
+            self.body()
+        elif self.graph is None:
+            self._warm_up_and_capture()
+        else:
+            self.graph.replay()
+            kernels.count_launches(self.tally)
+            self.replays += 1
+
+    def _warm_up_and_capture(self) -> None:
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            self.body()
+        current.wait_stream(self.stream)
+        graph = torch.cuda.CUDAGraph()
+        # Garbage must not be freed while the stream captures: another program's graph
+        # among it would release its pool, a CUDA call a capture does not permit, which
+        # invalidates the capture. Collect it first, and hold the collector off until the
+        # capture ends.
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.recorded_launches() as tally, torch.cuda.graph(
+                    graph, stream=self.stream, capture_error_mode="thread_local"):
+                self.body()
+        finally:
+            if enabled:
+                gc.enable()
+        self.graph, self.tally = graph, tally
+
+    def pool_bytes(self) -> int | None:
+        """The bytes of the graph's private memory pool (None before the capture)."""
+        if self.graph is None:
+            return None
+        pool = tuple(self.graph.pool())
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)

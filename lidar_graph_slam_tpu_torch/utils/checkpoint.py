@@ -9,7 +9,9 @@ checkpoint written by either package loads in the other.
 With the classic driver the resume is exact. With the fused driver the one-frame submap
 lag collapses at the checkpoint (`flush()` drains the frames in flight and the target is
 rebuilt from the ring), so the resumed trajectory may differ by a small, damped amount;
-the keyframe schedule is the same.
+the keyframe schedule is the same. The fused driver's state and ring are copied into the
+fixed buffers its programs read (`odometry/fused.py:FusedFrontEnd.load`), so a resumed
+run equals a run flushed at the same frame and continued.
 
 A multi-process pipeline (sharded keyframe store, `parallel/multihost.py`) is refused, as
 the reference refuses it: each process holds only its share of the clouds.
@@ -101,7 +103,7 @@ def save_pipeline(pipe: SlamPipeline, path: str) -> None:
 
 def _front_state_arrays(pipe: SlamPipeline) -> dict:
     if pipe.fused:
-        st, ring = pipe._state, pipe._ring
+        st, ring = pipe.fused_front.state, pipe.fused_front.ring
         front = dict(
             front_pose=_np(st.pose),
             front_last_motion=_np(st.last_motion),
@@ -170,9 +172,8 @@ def load_pipeline(path: str, device=None) -> SlamPipeline:
     # Front end.
     ring = state_mod.ring_from_numpy(z, device=dev)
     if pipe.fused:
-        pipe._state = state_mod.front_end_state_from_numpy(z, device=dev)
-        pipe._ring = ring
-        pipe._target = pipe._rebuild(ring)
+        # Into the fixed buffers the front end's captured programs read and write.
+        pipe.fused_front.load(state_mod.front_end_state_from_numpy(z, device=dev), ring)
     else:
         front = pipe.front
         front.pose = np.asarray(z["front_pose"], np.float32)

@@ -5,7 +5,11 @@
 
 Runs `--warmup` frames of a synthetic course at the default capacities, then `--frames`
 more inside `trace("frame", profile_dir=DIR)`, which writes `DIR/frame.trace.json` (a
-Chrome trace of the CPU and CUDA activity). `--course cli` (the default) is the CLI's
+Chrome trace of the CPU and CUDA activity). On a tree whose fused front end runs as
+captured programs (`odometry/fused.py:FusedFrontEnd`), a replayed program has no parts:
+`--frames` more frames then run with the programs' bodies called directly (the same work
+on the same buffers, not captured) inside `trace("body", ...)` (`DIR/body.trace.json`),
+and their parts are `body_stages`. `--course cli` (the default) is the CLI's
 synthetic course with loop closure off; `--course drift` is `chip_smoke.py`'s 360-frame
 drift course (`bench.py:bench_e2e`, every frame a keyframe) with the default config, loop
 closure on; `--course dense` is `chip_smoke.py`'s 40-frame dense course
@@ -13,12 +17,17 @@ closure on; `--course dense` is `chip_smoke.py`'s 40-frame dense course
 runs the package and `chip_smoke.py` of another tree (a parent commit unpacked with
 `git archive`), so that two trees can be traced in turns. Prints one JSON line: the
 span's wall ms (`trace.last_ms`), ms per frame, the trace file, its size, the number of
-events named after the span, the number of CUDA kernel events, and `stages`: each part
-of the fused driver's frame — the fused step (`step`) and its parts, the prefilter, the
-registration and the health gate with the state update (`step.prefilter`,
-`step.register`, `step.gate`: the step's functions wrapped by this script before the
-pipeline is built, so the program carries no marks of its own), and the back-end
-stage's parts: the ring insert and target rebuild, the keyframe hand-over
+events named after the span, the number of CUDA kernel events, `runtime_calls_per_frame`
+(the CUDA runtime calls of the traced frames by name, a frame: `cudaGraphLaunch` against
+`cudaLaunchKernel` / `cudaLaunchKernelExC`), `device_idle_share` (the share of the
+traced frames' device span, first kernel to last, in which no kernel ran), and `stages`:
+each part of the fused driver's frame — the fused step (`step`: its dispatch, one replay
+on a tree with captured programs) and its parts, the prefilter, the registration and the
+health gate with the state update (`step.prefilter`, `step.register`, `step.gate`: the
+step's functions wrapped by this script before the pipeline is built, so the program
+carries no marks of its own; on a tree with captured programs they are in
+`body_stages`), and the back-end stage's parts: the ring insert and target rebuild, the
+keyframe hand-over
 (`add_keyframe`), the loop tick (`on_frame`) and the rest — each part's host ms a frame
 (marked in the trace with `record_function`), the kernels it launched (their number, own
 ms and the device ms from the first to the last; the kernels that take most named), how
@@ -64,11 +73,34 @@ STAGE_PARTS = {"insert_and_rebuild": "_insert_and_rebuild", "add_keyframe": "add
 WAITS = ("Synchronize", "cudaMemcpy", "cudaFree", "cudaMalloc")
 
 
-def annotate(pipe: SlamPipeline) -> None:
+class Eager:
+    """A captured program's body called directly, not replayed (for the body's parts;
+    measurement only)."""
+
+    def __init__(self, program):
+        self.body, self.captured = program.body, program.captured
+
+    def __call__(self):
+        self.body()
+
+
+def run_bodies(front) -> None:
+    """From now on `front`'s programs (a `FusedFrontEnd`) run their bodies directly."""
+    front.programs = {rows: Eager(p) for rows, p in front.programs.items()}
+    front.insert_program = Eager(front.insert_program)
+
+
+def annotate(pipe: SlamPipeline, close_gate) -> None:
     """Wrap each back-end part of `pipe` (an instance attribute over the method) in a
-    `record_function` named `stage.<part>`, so the trace marks it."""
+    `record_function` named `stage.<part>`, so the trace marks it; with captured programs
+    (`pipe.fused_front`), the insert program's call is `stage.insert_and_rebuild` and the
+    step's dispatch is `step` (which then closes `step.gate`)."""
+    front = getattr(pipe, "fused_front", None)
     for part, attr in STAGE_PARTS.items():
-        owner = pipe if hasattr(pipe, attr) and attr.startswith("_") else pipe.back
+        if part == "insert_and_rebuild" and front is not None:
+            owner, attr = front, "insert_and_rebuild"
+        else:
+            owner = pipe if hasattr(pipe, attr) and attr.startswith("_") else pipe.back
         fn = getattr(owner, attr)
 
         def wrapped(*a, _fn=fn, _name=f"stage.{part}", **k):
@@ -76,14 +108,30 @@ def annotate(pipe: SlamPipeline) -> None:
                 return _fn(*a, **k)
 
         setattr(owner, attr, wrapped)
+    if front is not None:
+        dispatch = front.dispatch
+
+        def step(*a, **k):
+            with torch.profiler.record_function("step"):
+                try:
+                    return dispatch(*a, **k)
+                finally:
+                    close_gate()
+
+        front.dispatch = step
 
 
-def annotate_step() -> None:
+def annotate_step():
     """Wrap the fused step's functions before a pipeline is built: `make_prefilter`'s and
     `make_register`'s results in `record_function` spans `step.prefilter` and
-    `step.register`, and the step `make_fused_frontend` returns in `step`; `step.gate`
-    opens when the registration returns and closes when the step does."""
+    `step.register`, and (on a tree without captured programs) the step
+    `make_fused_frontend` returns in `step`; `step.gate` opens when the registration
+    returns and closes when the step does. Returns the function that closes it."""
     open_gate = []
+
+    def close_gate():
+        while open_gate:
+            open_gate.pop().__exit__(None, None, None)
 
     def marked(make, name, then=None):
         def make_marked(*a, **k):
@@ -113,15 +161,16 @@ def annotate_step() -> None:
                 try:
                     return step(*args, **kw)
                 finally:
-                    while open_gate:
-                        open_gate.pop().__exit__(None, None, None)
+                    close_gate()
 
         return init_state, run, aux
 
     make_fused = fused.make_fused_frontend
     fused.make_prefilter = marked(fused.make_prefilter, "step.prefilter")
     fused.make_register = marked(fused.make_register, "step.register", then=gate_opens)
-    runner.make_fused_frontend = make_frontend
+    if not hasattr(fused, "FusedFrontEnd"):
+        runner.make_fused_frontend = make_frontend
+    return close_gate
 
 
 def stage_breakdown(events: list, frames: int) -> dict:
@@ -155,12 +204,15 @@ def stage_breakdown(events: list, frames: int) -> dict:
     timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
     runtime = [e for e in timed if e.get("cat") == "cuda_runtime"]
     ops = [e for e in timed if e.get("cat") == "cpu_op"]
-    by_correlation = {e["args"]["correlation"]: e for e in timed
-                      if e.get("cat") == "kernel" and "correlation" in e.get("args", {})}
+    # A graph launch's kernels all carry its runtime call's correlation id.
+    by_correlation: dict = {}
+    for e in timed:
+        if e.get("cat") == "kernel" and "correlation" in e.get("args", {}):
+            by_correlation.setdefault(e["args"]["correlation"], []).append(e)
 
     def launched(calls):
-        return [by_correlation[c["args"]["correlation"]] for c in calls
-                if c.get("args", {}).get("correlation") in by_correlation]
+        return [k for c in calls for k in by_correlation.get(
+            c.get("args", {}).get("correlation"), ())]
 
     out = {}
     for part, name in [(p, p) for p in STEP_PARTS] + [(p, f"stage.{p}") for p in STAGE_PARTS]:
@@ -185,8 +237,38 @@ def stage_breakdown(events: list, frames: int) -> dict:
             "wait_ms_per_frame": per_frame(waits),
             "waits_by_op_ms_per_frame": top(waits, op_chain, 4),
             "runtime_ms_per_frame": top(calls, lambda e: e["name"]),
+            "runtime_calls_per_frame": calls_by_name(calls, frames),
             "cpu_ops_per_frame": sum(inside(e, host) for e in ops) / frames}
     return out
+
+
+def calls_by_name(calls: list, frames: int) -> dict:
+    """The number of runtime calls a frame, by name."""
+    out: dict = {}
+    for e in calls:
+        out[e["name"]] = out.get(e["name"], 0) + 1
+    return {k: v / frames for k, v in sorted(out.items(), key=lambda kv: -kv[1])}
+
+
+def window_numbers(events: list, frames: int) -> dict:
+    """The traced frames' CUDA runtime calls by name, a frame, and the device's idle
+    share: the part of the span from the first kernel's start to the last one's end in
+    which no kernel ran (the union of the kernels' intervals against that span)."""
+    timed = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in timed if e.get("cat") == "kernel")
+    busy, end = 0.0, None
+    for a, b in kernels:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span = kernels[-1][1] - kernels[0][0] if kernels else 0.0
+    return {"runtime_calls_per_frame": calls_by_name(
+                [e for e in timed if e.get("cat") == "cuda_runtime"], frames),
+            "device_span_ms": span / 1000, "device_busy_ms": busy / 1000,
+            "device_idle_share": 1.0 - busy / span if span else None}
 
 
 def main(argv=None) -> int:
@@ -214,30 +296,55 @@ def main(argv=None) -> int:
     else:
         cfg = apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=False", *args.set])
         scans = [s for s, _ in SyntheticSequence(n_frames=n, seed=0, laps=1.08 * n / 100.0)]
-    annotate_step()
+    close_gate = annotate_step()
     pipe = SlamPipeline(cfg, device=args.device)
-    annotate(pipe)
+    annotate(pipe, close_gate)
+    front = getattr(pipe, "fused_front", None)
+    if front is not None:
+        n += args.frames
+        scans = scans + scans[args.warmup:]  # the body's frames: the course once more
     for s in scans[: args.warmup]:
         pipe.process_scan(s)
     stage_before = {k: len(v) for k, v in pipe.timings.items()}
     with trace("frame", profile_dir=args.profile_dir):
-        for s in scans[args.warmup:]:
+        for s in scans[args.warmup:args.warmup + args.frames]:
             pipe.process_scan(s)
         pipe.flush()
     path = os.path.join(args.profile_dir, "frame.trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
+    frame_ms, body = trace.last_ms, {}
+    if front is not None:
+        # Each program's pool, then the same parts with the programs' bodies called
+        # directly on the same buffers.
+        pools = {str(rows): p.pool_bytes() for rows, p in front.programs.items()}
+        pools["insert"] = front.insert_program.pool_bytes()
+        captures = front.captures
+        run_bodies(front)
+        with trace("body", profile_dir=args.profile_dir):
+            for s in scans[args.warmup + args.frames:]:
+                pipe.process_scan(s)
+            pipe.flush()
+        with open(os.path.join(args.profile_dir, "body.trace.json")) as f:
+            body_events = json.load(f)["traceEvents"]
+        body = {"body_ms_per_frame": trace.last_ms / args.frames,
+                "body_window": window_numbers(body_events, args.frames),
+                "body_stages": stage_breakdown(body_events, args.frames),
+                "captures": captures, "pool_bytes": pools}
+        del body_events
     print(json.dumps({
         "course": args.course, "root": ROOT, "frames": args.frames,
         "device": str(pipe.device),
-        "last_ms": trace.last_ms, "ms_per_frame": trace.last_ms / args.frames,
+        "last_ms": frame_ms, "ms_per_frame": frame_ms / args.frames,
         "trace_file": os.path.abspath(path), "trace_bytes": os.path.getsize(path),
         "span_events": sum(e.get("name") == "frame" for e in events),
         "kernel_events": sum(e.get("cat") == "kernel" for e in events),
         "keyframes": len(pipe.kf_frame_indices),
         "stage_p50_ms": {k: 1000 * float(np.median(v[stage_before[k]:]))
                          for k, v in pipe.timings.items() if len(v) > stage_before[k]},
+        **window_numbers(events, args.frames),
         "stages": stage_breakdown(events, args.frames),
+        **body,
     }))
     return 0
 

@@ -14,7 +14,9 @@ attempts (candidate, accepted, fitness), its keyframe ATE, the loop kernels' lau
 that did work, the p50 ms of the frame and of the pipeline's stages (`prefilter`: the
 host's enqueue of the fused step; `register`: the classic driver's align; `backend`: the
 ring insert and target rebuild of a keyframe and the loop back end), and the p50 and max
-ms of the loop verifications (`GraphBasedSLAM.verify_seconds`). With
+ms of the loop verifications (`GraphBasedSLAM.verify_seconds`), and the programs the
+fused front end captured (`FusedFrontEnd.captures`: 0 on a tree that dispatches its
+operators one by one, or with the classic driver). With
 `--compare`, per course and file: whether its poses and loop attempts equal the first
 file's bit for bit, the poses' largest difference from them, and its numbers; one JSON
 line. Trees in turns (this, parent, parent, this) give the stage times a pairing.
@@ -30,7 +32,7 @@ import time
 
 COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
 EXTRA = ("dense_icp_classic",)
-NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked")
+NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked", "captures")
 STAGES = ("frame", "prefilter", "register", "backend")
 
 
@@ -83,7 +85,8 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
             f"{name}_numbers": np.array([
                 ate_rmse(res.keyframe_poses, gt[kf], align=False), res.num_loop_closures,
                 kernels.worked_launches(kernel="ndt_iteration"),
-                kernels.worked_launches(kernel="gicp_iteration")], np.float64),
+                kernels.worked_launches(kernel="gicp_iteration"),
+                getattr(getattr(pipe, "fused_front", None), "captures", 0)], np.float64),
             f"{name}_ms": np.array([1000 * np.median(walls[1:])] + [
                 res.metrics[k]["p50_ms"] if k in res.metrics else np.nan
                 for k in STAGES[1:]], np.float64),

@@ -24,7 +24,10 @@ them; refusals, no synchronous read, two streams at once. The ICP kernels (`icp_
 instantiation, the verifier's and the front end's shapes, 1 km from the origin, ragged
 sizes, no inliers; two aligns and a fitness back to back on one stream, and the fitness
 right after each loop kernel, bit for bit as each alone (their loads before the
-programmatic wait read nothing a launch before them writes).
+programmatic wait read nothing a launch before them writes). The fused front end's
+captured programs (`odometry/fused.py:FusedFrontEnd`, CUDA graphs after the first call):
+a lagged course with NDT, GICP and ICP bit for bit against the plain step and
+insert-and-rebuild, the launches a replay counts, and replays without a synchronous read.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -638,6 +641,124 @@ def test_fused_step_makes_no_synchronous_read(cuda):
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(o.converged) for o in outs)
     assert all(int(o.iterations) > 0 for o in outs)
+
+
+def _capture_course(cuda, method):
+    """A small config with `method`, and 5 frames of a synthetic course in their bucket."""
+    cfg = apply_cli_overrides(PipelineConfig(), [
+        "prefilter.leaf_size=0.3", "prefilter.mean_k=10", "capacity.raw_points=16384",
+        "capacity.filtered_points=4096", "capacity.voxel_capacity=32768",
+        "scan_matcher.max_scan_accumulate_num=5",
+        f"scan_matcher.registration_method={method}"])
+    seq = SyntheticSequence(n_frames=5, seed=3, max_points=8192, radius=30.0,
+                            laps=1.1 * 5 / 90)
+    raws = []
+    for scan, _ in seq:
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:len(scan)] = scan
+        raws.append(raw)
+    return cfg, raws
+
+
+@pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
+def test_captured_programs_equal_the_bodies(cuda, method):
+    """`FusedFrontEnd`'s programs (CUDA graphs after the first call) against the plain
+    step and insert-and-rebuild on the card, lagged as the runner lags them: every
+    frame's outputs, the ring and the target bit for bit; one capture a bucket and one
+    for the insert."""
+    from collections import deque
+
+    from lidar_graph_slam_tpu_torch.odometry.fused import (
+        FusedFrontEnd,
+        make_fused_frontend,
+        pack_scalars,
+    )
+
+    cfg, raws = _capture_course(cuda, method)
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=cuda)
+    state, ring = init_state(), aux["init_ring"]()
+    target = aux["rebuild"](ring)
+    eye3, eye4 = torch.eye(3, device=cuda), torch.eye(4, device=cuda)
+    got, want, pending = [], [], deque()
+    for t, raw in enumerate(raws):
+        front.dispatch(raw, None, None, t % 2)
+        state, out = step(state, torch.as_tensor(raw, device=cuda), target, eye3, False,
+                          eye4, False)
+        pending.append((t % 2, out))
+        while pending and (t == 0 or len(pending) > 1):
+            slot, out = pending.popleft()
+            got.append(front.slots.scalars[slot].clone())
+            want.append(pack_scalars(out))
+            if bool(out.is_keyframe):
+                front.insert_and_rebuild(slot)
+                ring, target = aux["insert_and_rebuild"](
+                    ring, int(out.keyframe_id) % aux["window"], out.kf_cloud, out.kf_mask,
+                    out.pose)
+    while pending:
+        slot, out = pending.popleft()
+        got.append(front.slots.scalars[slot].clone())
+        want.append(pack_scalars(out))
+
+    def bits(x):
+        leaves = [x] if isinstance(x, torch.Tensor) else (
+            [t for item in x for t in bits(item)] if isinstance(x, tuple) else
+            [t for f in dataclasses.fields(x) for t in bits(getattr(x, f.name))])
+        return leaves
+
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    for a, b in zip(bits((front.ring, front.target)), bits((ring, target))):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    assert front.captures == 2 and front.programs[16384].replays == len(raws) - 1
+
+
+def test_captured_program_counts_its_launches_at_each_replay(cuda):
+    """A replay counts the launches its capture recorded, in the wrappers' counts and the
+    calling thread's; the warm-up counted its own, the capture none."""
+    from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd
+
+    cfg, raws = _capture_course(cuda, "NDT")
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    before = (tk.ndt_align_loop.launches, tk.voxel_centroids.launches,
+              tk.ndt_finalize.launches, tk.thread_launches())
+    front.dispatch(raws[0], None, None, 0)
+    front.insert_and_rebuild(0)
+    per_step = cfg.scan_matcher.ndt.coarse_iterations + cfg.scan_matcher.ndt.max_iterations + 2
+    step_tally = front.programs[16384].tally
+    assert step_tally[tk.ndt_align_loop] == per_step and step_tally[tk.voxel_centroids] == 1
+    assert front.insert_program.tally == {tk.ndt_finalize: 2}
+    for t in range(1, 4):
+        front.dispatch(raws[t], None, None, t % 2)
+        front.insert_and_rebuild(t % 2)
+    torch.cuda.synchronize()
+    assert tk.ndt_align_loop.launches - before[0] == 4 * per_step
+    assert tk.voxel_centroids.launches - before[1] == 4
+    assert tk.ndt_finalize.launches - before[2] == 4 * 2
+    assert tk.thread_launches() - before[3] == 4 * (sum(step_tally.values()) + 2)
+
+
+@pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
+def test_captured_programs_make_no_synchronous_read(cuda, method):
+    """After the captures, step and insert replays (their uploads included) under
+    `torch.cuda.set_sync_debug_mode("error")`."""
+    from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd
+
+    cfg, raws = _capture_course(cuda, method)
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    front.dispatch(raws[0], None, None, 0)
+    front.insert_and_rebuild(0)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        for t in range(1, len(raws)):
+            front.dispatch(raws[t], None, None, t % 2)
+            front.insert_and_rebuild(t % 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows = front.slots.scalars.cpu()
+    assert torch.isfinite(rows).all() and bool((rows[:, 16] > 0.5).all())
+    assert front.programs[16384].replays == len(raws) - 1
 
 
 def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
