@@ -43,14 +43,11 @@ of `bench.py:bench_e2e`. Phases:
      bit-identical maps; `ndt_finalize` on the ring's two levels (the fine one from the
      sorted points, C = 65,536; the coarse one from the merged fine moments, 32,768)
      against `ndt_finalize_plain`, moments and rows bit for bit with reruns, and its rows
-     against the parent tree's moments-plus-finalize on the same rows (`--parent`);
-     `eigh3x3` against `_eigh3x3` on GICP's window covariances (the ring's 655,360
-     points, the last ring scan's 32,768), bit for bit with reruns; each kernel's device
-     and host us (with `--parent`, `ndt_finalize`'s in turns with the parent's
-     moments-plus-finalize), the plain version's ms, `torch.linalg.eigh`'s ms on the same
-     matrices (where cuSOLVER takes the batch), the bound (bytes, and issue slots: the
-     summed points or rows, and `eigh3x3`'s SASS instructions a matrix, `sass_fast_path`,
-     for each valid row); the wrappers' launches a rebuild; the rebuild and
+     against the parent tree's moments-plus-finalize on the same rows (`--parent`); its
+     device and host us (with `--parent`, in turns with the parent's
+     moments-plus-finalize), the plain version's ms, the bound (bytes, and issue slots:
+     the summed points or rows, and `eigh3x3`'s SASS instructions a matrix,
+     `sass_fast_path`, for each valid row); the wrappers' launches a rebuild; the rebuild and
      `insert_and_rebuild` under `torch.cuda.set_sync_debug_mode("error")`, both
      sync-free; `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
@@ -149,12 +146,25 @@ of `bench.py:bench_e2e`. Phases:
      transform), and `scripts/torch_sass_diff.py`'s check that every NDT and GICP loop
      kernel's SASS is the parent's; then one whole verification and 5 dense frames of the
      fused ICP step under `torch.cuda.set_sync_debug_mode("error")`;
+ 14d. GICP's covariances: `window_covariances` and `plane_covariances`
+     (`csrc/covariances.cu`) against their plain versions on the same card tensors, bit
+     for bit with reruns, at the path's three shapes: the dense ring's target build
+     (655,360 grid rows), the last ring scan (32,768, a frame's source) and the GICP
+     verifier's cloud (16,384); each kernel's device and host us, the plain version's ms,
+     the bound (bytes, or the window sums' float32 <-> float64 conversions, or the plane
+     kernel's issue slots, counted from the run's data) and its share, the window
+     kernel's SASS conversions; `estimate_covariances` and `build_gicp_target` without a
+     synchronous read; `scripts/torch_profile_gicp_build.py` in a subprocess: the target
+     build and a source's covariances on the kernel path, the plain path and, with
+     `--parent DIR`, the parent tree's, wall ms in turns, device launches and ms;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
-     loop kernel launched 64 times a frame (and how many did work), `eigh3x3` at least
-     once a frame, `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize` and the NDT
-     loop kernel not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter`
-     stage p50 (the host's enqueue of the step);
+     loop kernel launched 64 times a frame (and how many did work), `window_covariances`
+     and `plane_covariances` once a frame and once a target build, `eigh3x3`,
+     `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize` and the NDT loop kernel
+     not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter` stage p50 (the
+     host's enqueue of the step); the course again with the covariances' plain versions,
+     every pose bit for bit;
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
      then ICP, each with phase 6's assertions, ICP launching `icp_iteration`; each
      stage's p50 for both; with `--parent DIR`, phase 10's course (verify p50 and max)
@@ -163,11 +173,13 @@ of `bench.py:bench_e2e`. Phases:
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
      ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
-     thread (the odometry launches only the NDT loop kernel) and `ndt_accumulate` not;
-     verify p50;
+     thread (the odometry launches only the NDT loop kernel), each covariance kernel
+     twice an attempt, and `ndt_accumulate` not; verify p50; the course again with the
+     covariances' plain versions, every pose and loop attempt bit for bit;
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
      60 frames: it runs on the card, with that driver and matcher, launching the GICP
-     loop kernel and not `ndt_accumulate`;
+     loop kernel and the covariance kernels (as often as each other, at least once a
+     frame) and not `ndt_accumulate` or `eigh3x3`;
  19. `global_register` (FPFH + RANSAC, default `GlobalRegConfig`: 8,192 keypoints, 2,048
      hypotheses, fpfh_k 32) on an 8,192-point scan moved by 150 deg / (18, -9, 0.3) m and
      by 75 deg / (-12, 20, -0.2) m: ok, rotation error < 5 deg, translation error < 1 m, on
@@ -181,6 +193,11 @@ of `bench.py:bench_e2e`. Phases:
      built in the verify worker; `ransac_families` is in the log. Then the
      default pipeline with `graph_slam.use_global_init=true` on the drift course: loops
      accepted, keyframe ATE below phase 10's loops-off ATE, verify p50 beside phase 10's;
+     `eigh3x3` (which only the FPFH normals launch) against `_eigh3x3` on every [Q, 3, 3]
+     input the normals handed it in that run, bit for bit with reruns, and on the first
+     one its device and host us, the plain version's ms, `torch.linalg.eigh`'s ms, the
+     bound (bytes, and `eigh3x3`'s SASS instructions a matrix for each matrix that is
+     not the identity: the normals' guarded rows are);
  21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
      continued — the classic driver equals the uninterrupted run to 1e-4 with the same
      keyframe schedule, the fused driver to 5e-2 with the same schedule; file size, save
@@ -242,6 +259,7 @@ max_points=12000), "cpu")`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import inspect
@@ -299,8 +317,10 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import (
     CellSort,
     build_hash_grid,
     nearest,
+    plane_covariances_plain,
     sor_window_stats_plain,
     sort_by_cell,
+    window_covariances_plain,
     window_neighbor_d2,
 )
 from lidar_graph_slam_tpu_torch.ops.voxel import (
@@ -341,7 +361,8 @@ REL, ABS = 1e-5, 2e-3
 DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
-           "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats")
+           "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats",
+           "window_covariances", "plane_covariances")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -1184,14 +1205,56 @@ def eigh_library_ms(A) -> tuple:
     return None, None, errors
 
 
-def rebuild_phase(cfg: PipelineConfig, aux, ring, last, card: str,
-                  parent: str | None, sass: dict, clock_mhz: float) -> dict:
+@contextlib.contextmanager
+def recording_eigh3x3(inputs: list):
+    """Inside, each `kernels.eigh3x3` call (the FPFH normals call it through the module)
+    also appends a copy of its input to `inputs`; the wrapper itself runs and counts as
+    it does outside."""
+    wrapper = kernels.eigh3x3
+
+    def recorded(A):
+        inputs.append(A.clone())
+        return wrapper(A)
+
+    kernels.eigh3x3 = recorded
+    try:
+        yield inputs
+    finally:
+        kernels.eigh3x3 = wrapper
+
+
+def eigh_normals_check(inputs: list, card: str, eigh_instructions: int,
+                       clock_mhz: float) -> dict:
+    """`eigh3x3` against `_eigh3x3` on every input the FPFH normals handed it on a course
+    (`recording_eigh3x3`), bit for bit with a rerun; on the first one its device and host
+    us, the plain version's ms, `torch.linalg.eigh`'s ms and the bound: bytes for every
+    matrix, `eigh_instructions` for each matrix that is not the identity (the normals
+    guard a row with fewer than 3 neighbours, or masked out, as the identity). Returns
+    the timing record."""
+    if not inputs:
+        raise AssertionError("eigh3x3: the normals made no call to record")
+    for k, A in enumerate(inputs):
+        same_bits(f"eigh_normals {k}", ("w", "V"), kernels.eigh3x3(A), kernels.eigh3x3(A),
+                  voxel._eigh3x3(A))
+    A = inputs[0]
+    rows = A.shape[0]
+    eye = torch.eye(3, dtype=A.dtype, device=A.device)
+    solved = int((A != eye).any(dim=2).any(dim=1).sum())
+    t = split_times(kernels.eigh3x3, A)
+    library_ms, route, errors = eigh_library_ms(A)
+    t.update(library_route=route, library_errors=json.dumps(errors))
+    t.update(plain_ms=median_ms(voxel._eigh3x3, A, calls=20), library_ms=library_ms,
+             rows=rows, solved_rows=solved, inputs_bit_equal=len(inputs),
+             **bound_us(rows * EIGH_BYTES_PER_MATRIX, solved * eigh_instructions, clock_mhz))
+    t["share_of_bound"] = t["bound_us"] / t["device_us"]
+    say("kernel-time", kernel="eigh3x3", shape="eigh_normals", **t, card=json.dumps(card))
+    return dict(kernel="eigh3x3", shape="eigh_normals", **t)
+
+
+def rebuild_phase(cfg: PipelineConfig, aux, ring, card: str, parent: str | None,
+                  sass: dict, clock_mhz: float) -> dict:
     """Phase 4: the full ring's target rebuilt twice, bit-identical; `ndt_finalize` on the
-    ring's two levels (`finalize_phase`); `eigh3x3` against `_eigh3x3` on GICP's matrices
-    at the front end's shapes (the ring's 655,360-point target, the last ring scan's
-    32,768), bit for bit, with reruns, its device and host us, the plain version's ms,
-    torch.linalg.eigh's ms on the same matrices, the bound (bytes, and `sass`'s
-    instructions a matrix); the wrappers' launches a rebuild; the rebuild and
+    ring's two levels (`finalize_phase`); the wrappers' launches a rebuild; the rebuild and
     `insert_and_rebuild` make no synchronous read; the profile of `profile_rebuild`:
     fewer than 216 device launches a rebuild (the moments-in build's count), none of them
     `segment_reduce`.
@@ -1204,22 +1267,6 @@ def rebuild_phase(cfg: PipelineConfig, aux, ring, last, card: str,
     parent_kern = None if parent is None else tree_kernels(parent, "parent_kernels_finalize")
     timing = finalize_phase("dense", cfg, ring, card, parent_kern,
                             sass["eigh3x3"]["instructions"], clock_mhz)
-    cell = cfg.scan_matcher.gicp.max_correspondence_distance
-    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
-    eigh_in = {"eigh_target": gicp.safe_window_covariances(points, mask, cell)[1],
-               "eigh_source": gicp.safe_window_covariances(last.points, last.mask, cell)[1]}
-    for label, A in eigh_in.items():
-        same_bits(label, ("w", "V"), kernels.eigh3x3(A), kernels.eigh3x3(A), voxel._eigh3x3(A))
-        rows = A.shape[0]
-        t = split_times(kernels.eigh3x3, A)
-        library_ms, route, errors = eigh_library_ms(A)
-        t.update(library_route=route, library_errors=json.dumps(errors))
-        t.update(plain_ms=median_ms(voxel._eigh3x3, A, calls=20), library_ms=library_ms,
-                 rows=rows, **bound_us(rows * EIGH_BYTES_PER_MATRIX,
-                                       rows * sass["eigh3x3"]["instructions"], clock_mhz))
-        t["share_of_bound"] = t["bound_us"] / t["device_us"]
-        say("kernel-time", kernel="eigh3x3", shape=label, **t, card=json.dumps(card))
-        timing[label] = {"eigh3x3": dict(kernel="eigh3x3", shape=label, **t)}
     out["bit_equal"] = True
     # The rebuild, and the whole keyframe step the back end calls (slot 0 written again
     # with its own contents, which leaves the ring as it was).
@@ -1268,9 +1315,10 @@ def first_frames_agree(cfg: PipelineConfig, scans, devices, n: int = 3) -> dict:
     return dict(frames=n, max_trans_m=dt, max_rot_rad=dr)
 
 
-def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
+def run_pipeline(cfg: PipelineConfig, scans, gt, device, result: dict | None = None) -> dict:
     """A front-end path: every scan through `SlamPipeline` (either driver); all frames
-    must converge and the keyframe ATE stay within max(0.05 x travelled, 0.35) m."""
+    must converge and the keyframe ATE stay within max(0.05 x travelled, 0.35) m. With
+    `result` (a dict), the pipeline's result is left there under "result"."""
     pipe = SlamPipeline(cfg, device=device)
     walls = []
     for s in scans:
@@ -1278,6 +1326,8 @@ def run_pipeline(cfg: PipelineConfig, scans, gt, device) -> dict:
         pipe.process_scan(s)
         walls.append(time.perf_counter() - a)
     res = pipe.result()
+    if result is not None:
+        result["result"] = res
     frames = [r for r in pipe.metrics_writer.records if "frame" in r and "event" not in r]
     if len(frames) != len(scans) or not all(r["converged"] for r in frames):
         raise AssertionError(f"not all frames converged: {[r['converged'] for r in frames]}")
@@ -1534,6 +1584,205 @@ def gicp_verify_rows(inputs):
     src_p, src_m = src_p.clone(), src_m.clone()
     src_p[-512:], src_m[-512:] = PAD_VALUE, False
     return gicp_rows(target, src_p, src_m, src_covs, T_pre, g.max_correspondence_distance)
+
+
+# -- GICP's covariances (phase 14d) ---------------------------------------------------------
+
+COV_KERNELS = ("window_covariances", "plane_covariances")
+# `window_covariances`' least traffic: a row's key and xyz read (16 B), its mean,
+# covariance and count written (52 B). Its arithmetic, fixed by the plain version's
+# rounding: for a valid row and each of its window rows of the same cell (cnt - 1 of
+# them, wraps included), each of the 6 second moments taken from float32 to float64 and
+# back (12 conversions); a window row of another cell adds w x_i x_j = +-0 (or NaN), which
+# a float32 add gives bit for bit, so it needs none. For a valid row its xyz to float64
+# once (3), its mean (3), the 6 quotients s2 / n (6) and the 6 results (6). The H100
+# converts to and from float64 at 16 a clock on each SM.
+COV_ROW_BYTES, COV_PAIR_CONVERSIONS, COV_ROW_CONVERSIONS = 16 + 52, 12, 18
+CONVERSIONS_PER_CLOCK_PER_SM = 16
+# `plane_covariances`' least traffic: a row's covariance, count, order and mask read
+# (36 + 4 + 8 + 1 B) and its covariance and ok written (36 + 1 B). Its instructions: for
+# a row of 5 or more points, the eigensolve (`eigh3x3`'s SASS instructions a matrix) and
+# V diag(d) V^T (9 products, then 9 entries of 3 products and 2 adds).
+PLANE_ROW_BYTES, PLANE_PRODUCT_OPS = 49 + 37, 9 + 9 * 5
+
+
+@contextlib.contextmanager
+def plain_covariances():
+    """Inside, GICP's covariances run their plain versions (`kernels.window_covariances`
+    and `plane_covariances` replaced; `registration/gicp.py` calls them through the
+    module), as the port ran them before the kernels. Count launches outside only."""
+    saved = kernels.window_covariances, kernels.plane_covariances
+    kernels.window_covariances = window_covariances_plain
+    kernels.plane_covariances = plane_covariances_plain
+    try:
+        yield
+    finally:
+        kernels.window_covariances, kernels.plane_covariances = saved
+
+
+def same_course(label: str, ref, res) -> dict:
+    """Two pipeline results of one course bit for bit: odometry and keyframe poses, loop
+    attempts, decisions and fitness. Raises at the first frame that parts."""
+    a, b = ref.odometry_poses, res.odometry_poses
+    if a.shape != b.shape:
+        raise AssertionError(f"{label}: {a.shape[0]} frames against {b.shape[0]}")
+    parts = np.flatnonzero((a.view(np.int32) != b.view(np.int32)).reshape(len(a), -1)
+                           .any(axis=1))
+    loops = [[(r["candidate"], r["accepted"], r["fitness"]) for r in x.loop_log]
+             for x in (ref, res)]
+    same_kf = (ref.keyframe_poses.shape == res.keyframe_poses.shape
+               and np.array_equal(ref.keyframe_poses.view(np.int32),
+                                  res.keyframe_poses.view(np.int32)))
+    if len(parts) or not same_kf or loops[0] != loops[1]:
+        raise AssertionError(f"{label}: frames part from {parts[:1]}, keyframes equal "
+                             f"{same_kf}, loop attempts equal {loops[0] == loops[1]}")
+    return dict(frames=len(a), keyframes=len(ref.keyframe_poses),
+                loop_attempts=len(loops[0]), bit_equal=True)
+
+
+def covariance_inputs(cfg: PipelineConfig, ring, last, verify_in) -> dict:
+    """Both covariance kernels' arguments at the path's three shapes: the dense ring's
+    target build (its 655,360 grid rows, as `build_gicp_target` hands them over: the
+    grid's own rows, the identity order, the grid's validity), the last ring scan's
+    32,768 (a frame's source, `estimate_covariances`: the rows sorted by cell) and the
+    GICP verifier's 16,384-row cloud. Returns {shape: {kernel: args}}; the plane args
+    come from the plain window sums."""
+    cell = cfg.scan_matcher.gicp.max_correspondence_distance
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    grid = build_hash_grid(points, mask, cell)
+    sets = {"cov_ring": (grid.keys, grid.points,
+                         torch.arange(grid.keys.shape[0], device=points.device),
+                         grid.keys != voxel.INVALID_KEY)}
+    for label, (p, m) in (("cov_source", (last.points, last.mask)),
+                          ("cov_verify", (verify_in[1], verify_in[2]))):
+        cells = sort_by_cell(p, m, cell)
+        sets[label] = (cells.keys, cells.points, cells.order, m)
+    out = {}
+    for label, (keys, pts, order, m) in sets.items():
+        _, cov, cnt = window_covariances_plain(keys, pts)
+        out[label] = {"window_covariances": (keys, pts),
+                      "plane_covariances": (cov, cnt, order, m)}
+    return out
+
+
+def conversions_us(conversions: float, clock_mhz: float) -> float:
+    """The least time for `conversions` float32 <-> float64 conversions on the card."""
+    return conversions / (SMS * CONVERSIONS_PER_CLOCK_PER_SM * clock_mhz)
+
+
+def covariance_bound(name: str, per: dict, eigh_instructions: int, clock_mhz: float) -> dict:
+    """The least time for one call of `name` on its arguments in `per` (one shape of
+    `covariance_inputs`), counted from this run's data: `window_covariances` by its bytes
+    or its conversions (of the same-cell window rows of the valid rows, from the plain
+    window sums' counts), `plane_covariances` by its bytes or its issue slots (the
+    eigensolve and the product of the rows of 5 or more points)."""
+    if name == "window_covariances":
+        keys, cnt = per[name][0], per["plane_covariances"][1]
+        rows, valid = keys.shape[0], int((keys != voxel.INVALID_KEY).sum())
+        pairs = int(cnt.double().sum()) - valid  # an invalid row counts 0, a valid one itself
+        conv = pairs * COV_PAIR_CONVERSIONS + valid * COV_ROW_CONVERSIONS
+        t_bytes, t_conv = 1e6 * rows * COV_ROW_BYTES / HBM_BYTES_PER_S, conversions_us(
+            conv, clock_mhz)
+        return dict(rows=rows, valid_rows=valid, same_cell_pairs=pairs,
+                    bound_us=max(t_bytes, t_conv),
+                    bytes=rows * COV_ROW_BYTES, conversions=conv, bytes_us=t_bytes,
+                    conversions_us=t_conv,
+                    bound_by="bytes" if t_bytes >= t_conv else "operations")
+    cov, cnt = per[name][0], per[name][1]
+    rows, ok = cov.shape[0], int((cnt >= 5.0).sum())
+    return dict(rows=rows, ok_rows=ok, **bound_us(
+        rows * PLANE_ROW_BYTES, ok * (eigh_instructions + PLANE_PRODUCT_OPS), clock_mhz))
+
+
+def sass_opcodes(sass: str, kernel: str, prefix: str) -> int:
+    """How many SASS instructions of `kernel` (part of a function name in `sass`, the
+    output of `cuobjdump -sass`) start with the opcode `prefix` (static count)."""
+    funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise AssertionError(f"sass: {len(funcs)} functions named like {kernel}")
+    return sum(op.strip().lstrip("@!P0123456789T ").startswith(prefix)
+               for _, op in ((m.group(1), m.group(2))
+                             for m in SASS_INSTRUCTION.finditer(funcs[0])))
+
+
+def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
+                       card: str) -> dict:
+    """`scripts/torch_profile_gicp_build.py` in a subprocess: the dense ring's GICP target
+    build and the last ring scan's covariances on the kernel path, the plain path and
+    (with `parent`) the parent tree's, wall ms in turns, device launches, device ms and
+    wrapper launches under torch.profiler; one `gicp-build-profile` line a call and path.
+    The kernel path must equal the plain path bit for bit, launch each kernel once a call
+    and fewer device kernels than the plain path."""
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "gicp_build_profile_input.npz")
+    np.savez(path, points=points.cpu().numpy(), mask=mask.cpu().numpy(),
+             src_points=last.points.cpu().numpy(), src_mask=last.mask.cpu().numpy())
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_gicp_build.py"),
+           "--input", path]
+    if parent is not None:
+        cmd += ["--parent", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"GICP build profile failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    for call, row in rec.items():
+        if not (row["bit_equal_kernel_plain"] and row["kernel"]["wrapper_launches"] == 2
+                and row["kernel"]["launches"] < row["plain"]["launches"]):
+            raise AssertionError(f"GICP build profile, {call}: {row}")
+        for name in ("kernel", "plain", "parent"):
+            if name in row:
+                say("gicp-build-profile", call=call, path=name, rows=row["rows"],
+                    valid_rows=row["valid_rows"],
+                    **{k: v for k, v in row.items() if k.startswith("parent_")},
+                    **{k: json.dumps(v, separators=(",", ":")) if isinstance(v, list) else v
+                       for k, v in row[name].items()}, card=json.dumps(card))
+    return rec
+
+
+def covariance_phase(cfg: PipelineConfig, ring, last, verify_in, card: str,
+                     eigh_instructions: int, clock_mhz: float, sass: str,
+                     parent: str | None) -> dict:
+    """Phase 14d: `window_covariances` and `plane_covariances` at the path's three shapes
+    (`covariance_inputs`) against their plain versions on the same card tensors, bit for
+    bit with a rerun; each one's device and host us (`split_times`), the plain version's
+    ms, the bound (`covariance_bound`) and its share; the window kernel's SASS
+    conversions; `estimate_covariances` and `build_gicp_target` without a synchronous
+    read; the profile of `profile_gicp_build`. No one library call computes either.
+    Returns {"timing": {shape: {kernel: timing}}, "profile": ...}."""
+    plain = {"window_covariances": window_covariances_plain,
+             "plane_covariances": plane_covariances_plain}
+    timing = {}
+    for label, per in covariance_inputs(cfg, ring, last, verify_in).items():
+        timing[label] = {}
+        for name in COV_KERNELS:
+            args, kernel = per[name], getattr(kernels, name)
+            names = (("mu", "cov", "cnt") if name == "window_covariances" else ("covs", "ok"))
+            same_bits(f"{name} {label}", names, kernel(*args), kernel(*args), plain[name](*args))
+            t = split_times(kernel, *args)
+            t.update(plain_ms=median_ms(plain[name], *args, calls=10, warmup=2),
+                     library_ms=None,
+                     **covariance_bound(name, per, eigh_instructions, clock_mhz))
+            t["share_of_bound"] = t["bound_us"] / t["device_us"]
+            say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
+            timing[label][name] = dict(kernel=name, shape=label, **t)
+    cell = cfg.scan_matcher.gicp.max_correspondence_distance
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    sync = {}
+    for label, fn in (("estimate_covariances",
+                       lambda: gicp.estimate_covariances(last.points, last.mask, cell)),
+                      ("build_gicp_target", lambda: gicp.build_gicp_target(points, mask, cell))):
+        sync[label] = sync_sites(fn)
+        if not sync[label]["sync_free"]:
+            raise AssertionError(f"{label} reads the device: {sync[label]}")
+    conv = sass_opcodes(sass, "window_covariances_kernel", "F2F")
+    say("covariances-sync", **{f"{k}_sync_free": v["sync_free"] for k, v in sync.items()},
+        window_kernel_sass_conversions=conv, card=json.dumps(card))
+    return dict(timing=timing, profile=profile_gicp_build(cfg, ring, last, parent, card),
+                sass_conversions=conv)
 
 
 def reset_counts() -> None:
@@ -2854,7 +3103,9 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 icp_fitness_launches=summary["kernel_launches"]["icp_fitness"],
                 ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"],
                 finalize_launches=summary["kernel_launches"]["ndt_finalize"],
-                eigh3x3_launches=summary["kernel_launches"]["eigh3x3"])
+                eigh3x3_launches=summary["kernel_launches"]["eigh3x3"],
+                window_covariances_launches=summary["kernel_launches"]["window_covariances"],
+                plane_covariances_launches=summary["kernel_launches"]["plane_covariances"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -3728,7 +3979,8 @@ def main(argv=None) -> int:
     clock_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-    sass = {"eigh3x3": sass_fast_path(library_sass(), "eigh3x3_kernel", 6)}
+    sass_text = library_sass()
+    sass = {"eigh3x3": sass_fast_path(sass_text, "eigh3x3_kernel", 6)}
     say("sass", clock_max_sm_mhz=clock_mhz,
         **{f"eigh3x3_{k}": v for k, v in sass["eigh3x3"].items()})
 
@@ -3781,7 +4033,7 @@ def main(argv=None) -> int:
         card=json.dumps(card))
 
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
-    rb = rebuild_phase(cfg, aux, ring, last, card, args.parent, sass, clock_mhz)
+    rb = rebuild_phase(cfg, aux, ring, card, args.parent, sass, clock_mhz)
     timing.update(rb["timing"])
     say("map-build", **rb["numbers"], card=json.dumps(card))
 
@@ -3920,6 +4172,11 @@ def main(argv=None) -> int:
                         ("gicp_verify", gicp_verify_rows(verify_in))):
         err, timing[label] = gicp_rows_check(label, rows, card)
         max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"], err)
+
+    # -- 14d. GICP's covariance kernels at the path's three shapes; the target build's profile
+    cov = covariance_phase(cfg, ring, last, verify_in, card, sass["eigh3x3"]["instructions"],
+                           clock_mhz, sass_text, args.parent)
+    timing.update(cov["timing"])
     del ring
 
     # -- 14b. gicp-loop: the GICP loop kernel against the plain loop; the step without a read
@@ -3952,23 +4209,38 @@ def main(argv=None) -> int:
     reset_counts()
     # The JAX package holds phase 6's bound with GICP and with classic ICP on this
     # course (`scripts/jax_reference_dense.py`), so phases 15-16 assert it too.
-    gicp_front = run_pipeline(cfg_gicp, scans, gt, "cuda")
+    gicp_res = {}
+    gicp_front = run_pipeline(cfg_gicp, scans, gt, "cuda", result=gicp_res)
     launches_gicp = read_counts()
     # The GICP loop kernel is this path's: max_iterations launches a frame (the
     # bootstrap frame's too, whose empty target matches nothing), none of the NDT kernels.
     g_its = cfg_gicp.scan_matcher.gicp.max_iterations
-    # `eigh3x3` once a frame for the source's covariances and once a target rebuild.
+    # The covariance kernels once each a frame for the source and once a target build (the
+    # empty ring's at construction and each keyframe's); their eigensolve is
+    # `plane_covariances`' own, so no `eigh3x3`.
+    builds = gicp_front["frames"] + gicp_front["keyframes"] + 1
     if not (launches_gicp["gicp_align_loop"] == g_its * gicp_front["frames"]
             and 0 < launches_gicp["gicp_iteration_worked"] < launches_gicp["gicp_align_loop"]
             and launches_gicp["ndt_accumulate"] == launches_gicp["ndt_direct7_accumulate"]
-            == launches_gicp["ndt_align_loop"] == launches_gicp["ndt_finalize"] == 0
-            and launches_gicp["eigh3x3"] >= gicp_front["frames"]):
+            == launches_gicp["ndt_align_loop"] == launches_gicp["ndt_finalize"]
+            == launches_gicp["eigh3x3"] == 0
+            and launches_gicp["window_covariances"] == launches_gicp["plane_covariances"]
+            == builds):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
+    # The same course with the covariances' plain versions: every pose bit for bit.
+    with plain_covariances():
+        plain_res = {}
+        run_pipeline(cfg_gicp, scans, gt, "cuda", result=plain_res)
+    same_gicp = same_course("the fused GICP course, kernels against plain covariances",
+                            gicp_res["result"], plain_res["result"])
     say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["gicp_align_loop"],
         kernel_launches_worked=launches_gicp["gicp_iteration_worked"],
-        eigh3x3_launches=launches_gicp["eigh3x3"],
+        window_covariances_launches=launches_gicp["window_covariances"],
+        plane_covariances_launches=launches_gicp["plane_covariances"],
+        bit_equal_plain_covariances=same_gicp["bit_equal"],
         prefilter_p50_ms=gicp_front["stage_p50_ms"]["prefilter"],
         card=json.dumps(card))
+    del gicp_res, plain_res
 
     # -- 16. the classic driver: NDT (phase 6's assertions), then ICP --------------------
     reset_counts()
@@ -4013,13 +4285,26 @@ def main(argv=None) -> int:
         dscans, dgt, "cuda")
     launches_gv = read_counts()
     # The odometry (NDT) launches only the NDT loop kernel: every GICP loop launch of this
-    # run is the verify thread's, and nothing launches ndt_accumulate.
+    # run is the verify thread's, and nothing launches ndt_accumulate. Each attempt builds
+    # its candidate's target and its source's covariances: two launches of each
+    # covariance kernel.
     if not (gv["loops_accepted"] >= 1 and gv["ate_keyframes_m"] < off["ate_keyframes_m"]
             and launches_gv["gicp_align_loop"] > 0 and launches_gv["gicp_iteration_worked"] > 0
             and launches_gv["ndt_accumulate"] == 0
+            and launches_gv["window_covariances"] == launches_gv["plane_covariances"]
+            == 2 * gv["loops_attempted"] > 0
             and pipe_g.back.verify_launches >= launches_gv["gicp_align_loop"]):
         raise AssertionError(f"GICP verifier: {gv}, loops off {off['ate_keyframes_m']}, "
                              f"launches {launches_gv}, verify {pipe_g.back.verify_launches}")
+    # The same course with the covariances' plain versions: every pose and loop attempt
+    # bit for bit.
+    with plain_covariances():
+        _, res_gp, _ = run_loop_course(
+            apply_cli_overrides(PipelineConfig(), ["graph_slam.registration_method=GICP"]),
+            dscans, dgt, "cuda")
+    same_gv = same_course("the drift course with the GICP verifier, kernels against plain "
+                          "covariances", res_g, res_gp)
+    del res_gp
     say("gicp-verify", loops_accepted=gv["loops_accepted"],
         loops_attempted=gv["loops_attempted"], ate_keyframes_m=gv["ate_keyframes_m"],
         ate_keyframes_off_m=off["ate_keyframes_m"], ate_keyframes_icp_m=on["ate_keyframes_m"],
@@ -4029,6 +4314,9 @@ def main(argv=None) -> int:
         verify_ms_max=1000 * float(np.max(pipe_g.back.verify_seconds)),
         gicp_loop_launches_verify=launches_gv["gicp_align_loop"],
         gicp_loop_launches_verify_worked=launches_gv["gicp_iteration_worked"],
+        window_covariances_launches_verify=launches_gv["window_covariances"],
+        plane_covariances_launches_verify=launches_gv["plane_covariances"],
+        bit_equal_plain_covariances=same_gv["bit_equal"],
         ndt_accumulate_launches=launches_gv["ndt_accumulate"],
         verify_launches_all=pipe_g.back.verify_launches,
         odometry_vs_loops_off_max_diff=float(
@@ -4041,7 +4329,9 @@ def main(argv=None) -> int:
     if not (cli_g["device"] == "cuda" and cli_g["fused_frontend"] is False
             and cli_g["registration_method"] == "GICP" and cli_g["gicp_loop_launches"] > 0
             and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0
-            and cli_g["eigh3x3_launches"] > 0):
+            and cli_g["eigh3x3_launches"] == 0
+            and cli_g["window_covariances_launches"] == cli_g["plane_covariances_launches"]
+            >= cli_g["frames"]):
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
 
@@ -4051,11 +4341,19 @@ def main(argv=None) -> int:
     # -- 20. loop verification from the global guess; launches counted inside ---------------
     gl = global_init_loop("cuda")
     say("global-init-loop", **gl, card=json.dumps(card))
-    reset_counts()
-    pipe_gi, res_gi, gi = run_loop_course(
-        apply_cli_overrides(PipelineConfig(), ["graph_slam.use_global_init=true"]),
-        dscans, dgt, "cuda")
-    launches_gi = read_counts()
+    eigh_inputs = []
+    with recording_eigh3x3(eigh_inputs):
+        reset_counts()
+        pipe_gi, res_gi, gi = run_loop_course(
+            apply_cli_overrides(PipelineConfig(), ["graph_slam.use_global_init=true"]),
+            dscans, dgt, "cuda")
+        launches_gi = read_counts()
+    if len(eigh_inputs) != launches_gi["eigh3x3"]:
+        raise AssertionError(f"eigh3x3: {len(eigh_inputs)} recorded calls, "
+                             f"{launches_gi['eigh3x3']} launches")
+    timing["eigh_normals"] = {"eigh3x3": eigh_normals_check(
+        eigh_inputs, card, sass["eigh3x3"]["instructions"], clock_mhz)}
+    del eigh_inputs
     gi_log = [r for r in res_gi.loop_log if r["candidate"] >= 0]
     if not (gi["loops_accepted"] >= 1 and gi["ate_keyframes_m"] < off["ate_keyframes_m"]
             and pipe_gi.back.verify_launches > 0 and launches_gi["ndt_accumulate"] == 0
@@ -4295,16 +4593,41 @@ def main(argv=None) -> int:
             drift_parent_rebuild_device_ms=drift_prof.get("parent", {}).get("device_ms"),
             drift_launches_per_rebuild=drift_prof["kernel"]["launches"]),
         kernel_record(
-            "eigh3x3", timing, max_err["eigh3x3"], shape="eigh_target", source=finalize_src,
+            "eigh3x3", timing, max_err["eigh3x3"], shape="eigh_normals", source=finalize_src,
             replaces="lidar_graph_slam_tpu/ops/voxel.py:182", replaces_commit=None,
-            launches=launches_gicp["eigh3x3"],
-            path="GICP's covariances (each frame's source, each target build) and the FPFH "
-                 "normals (phase 15 counts the fused GICP front end)",
-            ports="_eigh3x3 (lidar_graph_slam_tpu/ops/voxel.py:182) inside the jitted "
-                  "estimate_covariances (registration/gicp.py:61) and the FPFH normals "
+            launches=launches_gi["eigh3x3"],
+            path="the FPFH normals of the global guess (phase 20 counts the drift course "
+                 "with use_global_init); GICP's covariances run the same eigensolve inside "
+                 "plane_covariances (phase 15 counts no eigh3x3)",
+            ports="_eigh3x3 (lidar_graph_slam_tpu/ops/voxel.py:182) inside the FPFH normals "
                   "(registration/features.py:58); no Pallas kernel",
             launches_global_init_loop=gl["eigh3x3_launches"],
+            launches_gicp_front_end=launches_gicp["eigh3x3"],
             launches_cli_classic_gicp=cli_g["eigh3x3_launches"], bit_equal_plain=True),
+        *[kernel_record(
+            name, timing, max_err[name], shape="cov_ring",
+            source="lidar_graph_slam_tpu_torch/csrc/covariances.cu",
+            replaces=replaces, replaces_commit=None, launches=launches_gicp[name],
+            path="every GICP covariance estimate: each GICP frame's source and each GICP "
+                 "target build of both drivers, each GICP verification (phase 15 counts the "
+                 "fused GICP front end: frames + keyframes + 1)",
+            ports=ports, launches_gicp_verify=launches_gv[name],
+            launches_cli_classic_gicp=cli_g[f"{name}_launches"], bit_equal_plain=True,
+            courses_bit_equal_plain=same_gicp["bit_equal"] and same_gv["bit_equal"],
+            **extra)
+          for name, replaces, ports, extra in (
+              ("window_covariances", "lidar_graph_slam_tpu/ops/neighbors.py:212",
+               "window_covariances (lidar_graph_slam_tpu/ops/neighbors.py:212-245) inside "
+               "the jitted estimate_covariances (registration/gicp.py:61); no Pallas kernel",
+               {"sass_conversions": cov["sass_conversions"]}),
+              ("plane_covariances", "lidar_graph_slam_tpu/registration/gicp.py:77",
+               "the rest of the jitted estimate_covariances (lidar_graph_slam_tpu/"
+               "registration/gicp.py:77-90: the identity below 5 points, _eigh3x3, "
+               "V diag(1e-3, 1, 1) V^T, the scatter to the original rows); no Pallas kernel",
+               {"build_profile": {call: {p_: {k: row[p_][k] for k in (
+                   "launches", "device_ms", "wall_ms", "wrapper_launches")}
+                   for p_ in ("kernel", "plain", "parent") if p_ in row}
+                   for call, row in cov["profile"].items()}}))],
         *[kernel_record(
             name, timing, max_err[name], shape="prefilter_dense",
             source="lidar_graph_slam_tpu_torch/csrc/prefilter.cu",

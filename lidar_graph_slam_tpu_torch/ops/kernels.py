@@ -6,12 +6,13 @@ The wrappers port the TPU kernel `ndt_accumulate` of
 `ndt_accumulate_xla`, same file), the `lax.while_loop`s around it
 (`lidar_graph_slam_tpu/registration/ndt.py:81-147`, `registration/gicp.py:146-191`), ICP's
 (`registration/icp.py:47-122`) and its fitness (`:155-188`), the voxel finalize of the
-jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`), and the centroid sums
+jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`), the centroid sums
 and the outlier filter's window statistics of the jitted prefilter
-(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`) as hand-written CUDA kernels for
-Hopper in six sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
-`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`, `csrc/prefilter.cu`;
-the headers
+(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`), and GICP's jitted covariances
+(`lidar_graph_slam_tpu/registration/gicp.py:61-90`) as hand-written CUDA kernels for
+Hopper in seven sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
+`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`, `csrc/prefilter.cu`,
+`csrc/covariances.cu`; the headers
 `csrc/ndt_common.cuh`, `csrc/loop_common.cuh`, `csrc/nn_stage.cuh` (the grid-NN query)
 and `csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
 kernels), compiled with nvcc (one process a source, all at once) into one library at
@@ -58,8 +59,8 @@ first use in `build/` and bound with ctypes:
   in order (the fine level's points, or a coarse level's shifted fine moments), then the
   sample covariance, the Jacobi eigensolve, the floored inverse and the packed row; what
   `ops/voxel.py:build_ndt_map` and `build_ndt_pyramid` build every target from.
-* `eigh3x3(A)`: the batched symmetric 3x3 eigensolve in one launch, for GICP's
-  covariances and the FPFH normals.
+* `eigh3x3(A)`: the batched symmetric 3x3 eigensolve in one launch, for the FPFH
+  normals.
 * `voxel_centroids(keys_sorted, pts_sorted, starts, lengths, origin, leaf)`: the
   centroid of each voxel from the rows sorted by voxel key in one launch, for every
   `ops/voxel.py:voxel_downsample` (the prefilter, the loop verifier's input, the map
@@ -67,6 +68,10 @@ first use in `build/` and bound with ctypes:
 * `sor_window_stats(keys, points, order, k)`: the outlier filter's per-row mean
   distance to its k nearest same-cell rows within +-`SOR_WINDOW` sorted rows and their
   count, in the original row order, in one launch.
+* `window_covariances(keys, points)` and `plane_covariances(cov, cnt, order, mask)`: GICP's covariances (`registration/gicp.py:estimate_covariances`,
+  `build_gicp_target`) in two launches: each sorted row's count, mean and covariance over
+  its same-cell rows within +-16 sorted rows, then the identity below 5 points, the
+  eigensolve, the (1e-3, 1, 1) plane regularization and the scatter to the original rows.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
@@ -82,7 +87,9 @@ batch;
 `ops/voxel.py:ndt_finalize_plain` (the sorted rows' run sums by `torch.segment_reduce`,
 then `_finalize_ndt_plain`) and `_eigh3x3` are the finalize's and the eigensolve's,
 `ops/voxel.py:voxel_centroids_plain` and `ops/neighbors.py:sor_window_stats_plain` the
-prefilter kernels', all bit for bit on the card. A
+prefilter kernels', `ops/neighbors.py:window_covariances_plain` (`window_covariances` of
+the sorted rows) and `plane_covariances_plain` the covariance kernels', all bit for bit on
+the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -116,7 +123,13 @@ import time
 import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
-from lidar_graph_slam_tpu_torch.ops.neighbors import SOR_WINDOW, nearest, sor_window_stats_plain
+from lidar_graph_slam_tpu_torch.ops.neighbors import (
+    SOR_WINDOW,
+    nearest,
+    plane_covariances_plain,
+    sor_window_stats_plain,
+    window_covariances_plain,
+)
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     _BITS_Y,
     _BITS_Z,
@@ -135,7 +148,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 # Built together into one library; the headers are part of the digest too.
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
                                               "gicp_loop.cu", "icp_loop.cu",
-                                              "voxel_finalize.cu", "prefilter.cu")]
+                                              "voxel_finalize.cu", "prefilter.cu",
+                                              "covariances.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
                                               "nn_stage.cuh", "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -798,11 +812,14 @@ def _load_library_locked():
     lib.lgs_voxel_centroids.argtypes = [vp, vp, vp, vp, i64, vp, vp, i32, i32, i32, i32, vp,
                                         vp, vp]
     lib.lgs_sor_window_stats.argtypes = [vp, vp, vp, i64, i32, vp, vp, vp]
+    lib.lgs_window_covariances.argtypes = [vp, vp, i64, vp, vp, vp, vp]
+    lib.lgs_plane_covariances.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
                lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
                lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3,
-               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats):
+               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_window_covariances,
+               lib.lgs_plane_covariances):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
                lib.lgs_icp_worked_launches):
@@ -1581,6 +1598,78 @@ def sor_window_stats(keys, points, order, k: int):
     return mean_d, n_found
 
 
+def window_covariances(keys, points):
+    """GICP's window sums in one launch: for each row sorted by cell key, the count, mean
+    and covariance of the same-cell rows among the +-16 sorted rows around it, itself
+    included (wrapping at the ends, as `torch.roll` does).
+
+    keys:   [N] i32 ascending cell keys (INVALID_KEY rows last)
+    points: [N, 3] f32 in the keys' order
+    Returns (mu [N, 3] f32, cov [N, 3, 3] f32, cnt [N] f32), as
+    `ops/neighbors.py:window_covariances_plain` at its default window of 16 (the
+    reference's, which every caller uses), bit for bit on the card.
+
+    CPU tensors take `window_covariances_plain`; CUDA tensors launch the
+    `window_covariances` kernel (`csrc/covariances.cu`, counted in
+    `window_covariances.launches`; none for N = 0) or raise. Nothing is read back.
+    """
+    dev = keys.device
+    if dev.type == "cpu":
+        return window_covariances_plain(keys, points)
+    if dev.type != "cuda":
+        raise ValueError(f"window_covariances: unsupported device {dev}")
+    N = keys.shape[0] if keys.dim() == 1 else -1
+    _check("window_covariances", dev, keys=(keys, (N,), torch.int32),
+           points=(points, (N, 3), torch.float32))
+    mu = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    cov = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
+    cnt = torch.empty((N,), dtype=torch.float32, device=dev)
+    if N:
+        lib = load_library()
+        _raise_on(lib.lgs_window_covariances(
+            keys.data_ptr(), points.data_ptr(), N, mu.data_ptr(), cov.data_ptr(),
+            cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "window_covariances")
+        _count(window_covariances)
+    return mu, cov, cnt
+
+
+def plane_covariances(cov, cnt, order, mask):
+    """GICP's plane regularization in one launch: from the window covariances and counts
+    of rows sorted by cell key (`window_covariances`), the identity where fewer than 5
+    points were summed, else V diag(1e-3, 1, 1) V^T of the eigenvectors V of the
+    covariance, written at each row's original index.
+
+    cov:   [N, 3, 3] f32 and cnt: [N] f32 in sorted order
+    order: [N] i64 each sorted row's original index (a permutation)
+    mask:  [N] bool in the original order
+    Returns (covs [N, 3, 3] f32, ok [N] bool: cnt >= 5 and mask) in the original order, as
+    `ops/neighbors.py:plane_covariances_plain`, bit for bit on the card.
+
+    CPU tensors take `plane_covariances_plain`; CUDA tensors launch the
+    `plane_covariances` kernel (`csrc/covariances.cu`, counted in
+    `plane_covariances.launches`; none for N = 0) or raise. Nothing is read back.
+    """
+    dev = cov.device
+    if dev.type == "cpu":
+        return plane_covariances_plain(cov, cnt, order, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"plane_covariances: unsupported device {dev}")
+    N = cov.shape[0] if cov.dim() == 3 else -1
+    _check("plane_covariances", dev, cov=(cov, (N, 3, 3), torch.float32),
+           cnt=(cnt, (N,), torch.float32), order=(order, (N,), torch.int64),
+           mask=(mask, (N,), torch.bool))
+    covs = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
+    ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        lib = load_library()
+        _raise_on(lib.lgs_plane_covariances(
+            cov.data_ptr(), cnt.data_ptr(), order.data_ptr(), mask.data_ptr(), N,
+            covs.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+            "plane_covariances")
+        _count(plane_covariances)
+    return covs, ok
+
+
 def loop_kernel_attributes(device, gicp=None, icp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
@@ -1640,3 +1729,5 @@ ndt_finalize.launches = 0
 eigh3x3.launches = 0
 voxel_centroids.launches = 0
 sor_window_stats.launches = 0
+window_covariances.launches = 0
+plane_covariances.launches = 0

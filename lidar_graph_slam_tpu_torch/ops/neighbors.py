@@ -4,11 +4,13 @@ Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
 `build_hash_grid`), the grid queries (`_candidate_scan`, `nearest` for ICP, GICP and the
 loop fitness, `knn`), the same-cloud sliding-window neighborhoods that statistical outlier
 removal (over `sort_by_cell`'s rows: the grid's keys, points and order without its lookup
-structures) and GICP's covariances use, and the dense `radius_mask`. Points are keyed by cell
-and stably sorted, so the points of one cell are consecutive: a query gathers a bounded
-bucket of consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over
-the sorted order covers each cell's neighborhood (up to window truncation in very dense
-cells) — a sorted-window approximation of kNN that the port reproduces as it is.
+structures) and GICP's covariances use (`window_covariances` and `plane_covariances_plain`,
+the plain versions of the `window_covariances` and `plane_covariances` kernels of
+`ops/kernels.py`), and the dense `radius_mask`. Points are keyed by cell and stably
+sorted, so the points of one cell are consecutive: a query gathers a bounded bucket of
+consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over the sorted
+order covers each cell's neighborhood (up to window truncation in very dense cells) — a
+sorted-window approximation of kNN that the port reproduces as it is.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     _NX,
     _NY,
     _NZ,
+    _eigh3x3,
     _flat_table_index,
+    _scaled_gram,
     as_f32,
     build_dense_table,
     const,
@@ -235,9 +239,11 @@ def sor_window_stats_plain(keys: torch.Tensor, points: torch.Tensor, order: torc
     return mean_d, n_found
 
 
-def window_covariances(grid: HashGrid, window: int = 16):
+def window_covariances(grid, window: int = 16):
     """Per sorted row: mean/covariance over its same-cell window neighborhood (self
-    included): (mu [N, 3], cov [N, 3, 3], count [N]).
+    included): (mu [N, 3], cov [N, 3, 3], count [N]). It reads `grid.keys` and
+    `grid.points` (a `HashGrid` or a `CellSort`). The plain version of the
+    `window_covariances` kernel (`ops/kernels.py`), bit for bit on the card.
 
     The reference's arithmetic, in its order: raw first and second moments in world
     coordinates, the row itself first, then shifts +1, -1, +2, -2, ... (row i's shift-s
@@ -278,6 +284,40 @@ def window_covariances(grid: HashGrid, window: int = 16):
         cov[:, i, j] = cij
         cov[:, j, i] = cij
     return mu, cov, cnt
+
+
+def window_covariances_plain(keys: torch.Tensor, points: torch.Tensor, window: int = 16):
+    """Plain version of the `window_covariances` kernel (`ops/kernels.py`) under its
+    signature: `window_covariances` of the rows sorted by cell (`keys`, `points`)."""
+    return window_covariances(CellSort(keys=keys, points=points, order=None), window)
+
+
+def plane_covariances_plain(cov: torch.Tensor, cnt: torch.Tensor, order: torch.Tensor,
+                            mask: torch.Tensor):
+    """Plain version of the `plane_covariances` kernel (`ops/kernels.py`): what
+    `estimate_covariances` does after the window sums. From the window covariances and
+    counts of rows sorted by cell (`window_covariances`): the identity where fewer than 5
+    points were summed, else fast_gicp's PLANE regularization V diag(1e-3, 1, 1) V^T of
+    the eigenvectors V (`_eigh3x3`), scattered back to the original row order by `order`
+    (a permutation). Returns (covs [N, 3, 3], ok [N]: count >= 5 and `mask`, in the
+    original order). The product is `_scaled_gram`'s sum k = 0, 1, 2 of mul-then-add,
+    the kernel's order on every device: the reference's batched `@` sums in its
+    library's order, which on the card is cuBLAS's and changes with the batch (an FMA
+    chain at N >= 5, another order at N = 1)."""
+    ok_s = cnt >= 5.0
+    eye = torch.eye(3, dtype=cov.dtype, device=cov.device).expand(cov.shape)
+    cov_safe = torch.where(ok_s[:, None, None], cov, eye)
+    _w, V = _eigh3x3(cov_safe)
+    target = const((1e-3, 1.0, 1.0), cov.dtype, cov.device)  # ascending eigenvalues
+    cov_reg = _scaled_gram(V, target)
+    cov_reg = torch.where(ok_s[:, None, None], cov_reg, cov_safe)  # the identity where not ok
+    # Back to the original row order: `order` is a permutation, so this is exact.
+    n = cov.shape[0]
+    covs = torch.empty((n, 3, 3), dtype=cov.dtype, device=cov.device)
+    covs[order] = cov_reg
+    ok = torch.empty((n,), dtype=torch.bool, device=cov.device)
+    ok[order] = ok_s
+    return covs, ok & mask
 
 
 def radius_mask(positions: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,

@@ -3,10 +3,12 @@
 Port of `lidar_graph_slam_tpu/registration/gicp.py`: per-point covariances from the
 sorted-grid sliding window (computed once per cloud, not per iteration), regularized
 fast_gicp-style by snapping the eigenvalues to (1e-3, 1, 1) so every surface patch is a
-plane of fixed conditioning; correspondences from the grid NN, gated by the maximum
-distance; the plane-to-plane metric M = (C_q + R C_p R^T)^-1 as a closed-form batched
-3x3 inverse; the normal equations of NDT's accumulation with d2 = 0 and w_scale = 1,
-where the Magnusson weight degenerates to the match mask.
+plane of fixed conditioning (on the card two launches after the cells' sort,
+`ops.kernels.window_covariances` and `plane_covariances`; on the CPU their plain
+versions); correspondences from the grid NN, gated by the maximum distance; the
+plane-to-plane metric M = (C_q + R C_p R^T)^-1 as a closed-form batched 3x3 inverse; the
+normal equations of NDT's accumulation with d2 = 0 and w_scale = 1, where the Magnusson
+weight degenerates to the match mask.
 
 Loop structure: the reference's `lax.while_loop` is `ops.kernels.gicp_align_loop`, one
 call an alignment. On the card it enqueues one launch of the `gicp_iteration` kernel an
@@ -29,48 +31,33 @@ from lidar_graph_slam_tpu_torch.ops.kernels import (  # noqa: F401  (the body's 
     gicp_residual_rows as residual_rows,
     inv3x3 as _inv3x3,
 )
-from lidar_graph_slam_tpu_torch.ops.neighbors import (
-    HashGrid,
-    build_hash_grid,
-    window_covariances,
-)
-from lidar_graph_slam_tpu_torch.ops.voxel import INVALID_KEY, as_f32, const
+from lidar_graph_slam_tpu_torch.ops.neighbors import HashGrid, build_hash_grid, sort_by_cell
+from lidar_graph_slam_tpu_torch.ops.voxel import INVALID_KEY, as_f32
 from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
 
 
-def safe_window_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size,
-                            window: int = 16):
-    """The matrices `estimate_covariances` hands the eigensolve: the sorted-grid window
-    covariances of a cloud, the identity where the window holds fewer than 5 points.
-    Returns (grid, covariances [N, 3, 3], ok [N]) in the grid's sorted order."""
-    grid = build_hash_grid(points, mask, cell_size)
-    _mu, cov_s, cnt_s = window_covariances(grid, window=window)
-    ok_s = cnt_s >= 5.0
-    eye = torch.eye(3, dtype=points.dtype, device=points.device).expand(cov_s.shape)
-    return grid, torch.where(ok_s[:, None, None], cov_s, eye), ok_s
+def _covariances(keys: torch.Tensor, points: torch.Tensor, order: torch.Tensor,
+                 mask: torch.Tensor):
+    """The covariances of rows sorted by cell (`keys`, `points`): their window sums
+    (`kernels.window_covariances`, +-16 sorted rows, the reference's default), then the
+    plane regularization written at each row's index in `order`, valid where `mask`
+    (`kernels.plane_covariances`); one launch each on the card."""
+    _mu, cov_s, cnt_s = kernels.window_covariances(keys, points)
+    return kernels.plane_covariances(cov_s, cnt_s, order, mask)
 
 
-def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size, k: int = 20,
-                         window: int = 16):
+def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size, k: int = 20):
     """fast_gicp 'PLANE'-regularized covariances, eigenvalues snapped to (1e-3, 1, 1).
 
-    The scatter matrix comes from the sorted-grid sliding window rather than an exact
-    k-NN set; the regularization keeps only the principal directions. `k` is kept for
-    interface parity with fast_gicp's correspondence_randomness. Returns (covs [N, 3, 3]
-    in the ORIGINAL row order, valid [N])."""
+    The scatter matrix comes from the sorted-grid sliding window (+-16 sorted rows, the
+    reference's default window, which every caller uses) rather than an exact k-NN set;
+    the regularization keeps only the principal directions. The rows sorted by cell (the
+    grid's keys, points and order, without its lookup table), then `_covariances`. `k`
+    is kept for interface parity with fast_gicp's correspondence_randomness. Returns
+    (covs [N, 3, 3] in the ORIGINAL row order, valid [N])."""
     del k
-    grid, cov_safe, ok_s = safe_window_covariances(points, mask, cell_size, window)
-    _w, V = kernels.eigh3x3(cov_safe)
-    target = const((1e-3, 1.0, 1.0), points.dtype, points.device)  # ascending eigenvalues
-    cov_reg = (V * target[None, None, :]) @ V.transpose(-1, -2)
-    cov_reg = torch.where(ok_s[:, None, None], cov_reg, cov_safe)  # the identity where not ok
-    # Back to the original row order: `order` is a permutation, so this is exact.
-    n = points.shape[0]
-    covs = torch.empty((n, 3, 3), dtype=points.dtype, device=points.device)
-    covs[grid.order] = cov_reg
-    ok = torch.empty((n,), dtype=torch.bool, device=points.device)
-    ok[grid.order] = ok_s
-    return covs, ok & mask
+    cells = sort_by_cell(points, mask, cell_size)
+    return _covariances(cells.keys, cells.points, cells.order, mask)
 
 
 @dataclass
@@ -83,9 +70,15 @@ class GicpTarget:
 
 
 def build_gicp_target(points, mask, cell_size, k: int = 20) -> GicpTarget:
+    """The grid of `points`, and `estimate_covariances` of its sorted points, as the
+    reference builds them. Sorting the grid's points by cell again (the reference's second
+    `build_hash_grid`) gives the grid's own keys and the identity order (the same origin,
+    keys already in order, a stable sort), so the window sums read the grid's rows
+    directly and the covariances stay in its order. `k` is kept for interface parity."""
+    del k
     grid = build_hash_grid(points, mask, cell_size)
-    sorted_mask = grid.keys != INVALID_KEY
-    covs, ok = estimate_covariances(grid.points, sorted_mask, cell_size, k=k)
+    identity = torch.arange(grid.keys.shape[0], device=points.device)
+    covs, ok = _covariances(grid.keys, grid.points, identity, grid.keys != INVALID_KEY)
     return GicpTarget(grid=grid, covs=covs, valid=ok)
 
 

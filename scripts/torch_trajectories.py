@@ -9,7 +9,9 @@ the default config: the 40-frame dense course through the fused front end with l
 off, NDT (phase 6) and GICP (phase 15), and the 360-frame drift course with loops on,
 with the ICP verifier (phase 10) and with the GICP verifier (phase 17); `--courses` runs
 those named instead, among them `dense_icp_classic`, the dense course through the classic
-driver with ICP (phase 16). It writes each run's odometry and keyframe poses, its loop
+driver with ICP (phase 16), and `cli_gicp_classic`, the CLI's 60-frame synthetic course
+(seed 0) through the classic driver with GICP and loops on, as phase 18 runs the CLI. It
+writes each run's odometry and keyframe poses, its loop
 attempts (candidate, accepted, fitness), its keyframe ATE, the loop kernels' launches
 that did work, the p50 ms of the frame and of the pipeline's stages (`prefilter`: the
 host's enqueue of the fused step; `register`: the classic driver's align; `backend`: the
@@ -18,8 +20,10 @@ ms of the loop verifications (`GraphBasedSLAM.verify_seconds`), and the programs
 fused front end captured (`FusedFrontEnd.captures`: 0 on a tree that dispatches its
 operators one by one, or with the classic driver). With
 `--compare`, per course and file: whether its poses and loop attempts equal the first
-file's bit for bit, the poses' largest difference from them, and its numbers; one JSON
-line. Trees in turns (this, parent, parent, this) give the stage times a pairing.
+file's bit for bit, the poses' largest difference from them, the first frame whose
+odometry pose differs from theirs and the first whose position is 5 cm or more away, and
+its numbers; one JSON line. Trees in turns (this, parent, parent, this) give the stage
+times a pairing.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import sys
 import time
 
 COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
-EXTRA = ("dense_icp_classic",)
+EXTRA = ("dense_icp_classic", "cli_gicp_classic")
 NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked", "captures")
 STAGES = ("frame", "prefilter", "register", "backend")
 
@@ -53,6 +57,15 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
     dense = chip_smoke.dense_course(40)
     drift = (chip_smoke.drift_course() if any(c.startswith("drift") for c in courses)
              else None)
+    cli = None
+    if "cli_gicp_classic" in courses:
+        from lidar_graph_slam_tpu_torch.io.synthetic import SyntheticSequence
+
+        # `pipeline/cli.py --dataset synthetic --frames 60`'s sequence.
+        seq = SyntheticSequence(n_frames=60, seed=0, laps=min(1.08, 1.08 * 60 / 100.0))
+        T0_inv = np.linalg.inv(seq.poses[0])
+        cli = ([scan for scan, _ in seq],
+               np.stack([(T0_inv @ p).astype(np.float32) for p in seq.poses]))
     runs = {"dense": (chip_smoke.loops_off_config(), dense),
             "dense_icp_classic": (chip_smoke.loops_off_config(
                 ["fused_frontend=False", "scan_matcher.registration_method=ICP"]), dense),
@@ -61,7 +74,9 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
             "drift_icp": (PipelineConfig(), drift),
             "drift_gicp": (apply_cli_overrides(PipelineConfig(),
                                                ["graph_slam.registration_method=GICP"]),
-                           drift)}
+                           drift),
+            "cli_gicp_classic": (apply_cli_overrides(PipelineConfig(), [
+                "fused_frontend=False", "scan_matcher.registration_method=GICP"]), cli)}
     arrays = {}
     for name in courses:
         cfg, (scans, gt) = runs[name]
@@ -110,10 +125,16 @@ def compare(paths) -> int:
                        and np.array_equal(f[f"{name}_{k}"], first[f"{name}_{k}"])
                        for k in ("odometry", "keyframes", "loops"))
             a, b = f[f"{name}_odometry"], first[f"{name}_odometry"]
+            parts, far = [], []
+            if a.shape == b.shape:
+                parts = np.flatnonzero((a != b).reshape(len(a), -1).any(axis=1))
+                far = np.flatnonzero(np.linalg.norm(a[:, :3, 3] - b[:, :3, 3], axis=1) >= 0.05)
             rows[label] = {
                 "bit_equal_first": bool(same),
                 "odometry_max_diff_first": (float(np.abs(a - b).max())
                                             if a.shape == b.shape else None),
+                "first_frame_parting": int(parts[0]) if len(parts) else None,
+                "first_frame_5cm_apart": int(far[0]) if len(far) else None,
                 **{k: float(v) for k, v in zip(NUMBERS, f[f"{name}_numbers"])},
                 **{f"{k}_p50_ms": round(float(v), 3) for k, v in zip(STAGES, f[f"{name}_ms"])},
                 **({f"verify_{k}_ms": round(float(v), 3) for k, v in zip(

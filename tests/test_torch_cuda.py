@@ -28,6 +28,10 @@ programmatic wait read nothing a launch before them writes). The fused front end
 captured programs (`odometry/fused.py:FusedFrontEnd`, CUDA graphs after the first call):
 a lagged course with NDT, GICP and ICP bit for bit against the plain step and
 insert-and-rebuild, the launches a replay counts, and replays without a synchronous read.
+GICP's covariance kernels (`window_covariances`, `plane_covariances`,
+`csrc/covariances.cu`) against their plain versions bit for bit, from the dense ring's
+655,360 rows down to N = 0, one launch a call, their refusals, no synchronous read, and
+inside the captured GICP insert.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -1637,14 +1641,19 @@ def test_pyramid_on_the_card_equals_its_plain_rows(cuda, monkeypatch):
 
 
 def _window_covariances(device, n=32768, seed=3):
-    """GICP's matrices for the eigensolve (`gicp.safe_window_covariances`) of a
-    synthetic scan."""
+    """GICP's window covariances of a synthetic scan as the parent handed them to the
+    eigensolve: the rows sorted by cell, their window sums, the identity where the window
+    holds fewer than 5 points."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+
     rng = np.random.default_rng(seed)
     world = make_world(rng, extent=40.0, density=20.0)
     scan = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=n)
     p = torch.as_tensor(scan, device=device)
-    return gicp.safe_window_covariances(
-        p, torch.ones(p.shape[0], dtype=torch.bool, device=device), 2.0)[1]
+    cells = tnb.sort_by_cell(p, torch.ones(p.shape[0], dtype=torch.bool, device=device), 2.0)
+    _, cov, cnt = tk.window_covariances(cells.keys, cells.points)
+    eye = torch.eye(3, dtype=cov.dtype, device=device).expand(cov.shape)
+    return torch.where((cnt >= 5.0)[:, None, None], cov, eye)
 
 
 def test_eigh3x3_bit_equal_to_plain(cuda):
@@ -1674,8 +1683,11 @@ def test_eigh3x3_bit_equal_to_plain(cuda):
 
 
 def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
-    """`estimate_covariances` and the FPFH normals launch `eigh3x3` once a call on the
-    card, and equal the same calls with the plain eigensolve bit for bit."""
+    """The FPFH normals launch `eigh3x3` once a call on the card; `estimate_covariances`
+    launches `window_covariances` and `plane_covariances` once each (its eigensolve runs
+    inside `plane_covariances`) and no `eigh3x3`. Both equal the same calls with the
+    plain versions bit for bit."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
     from lidar_graph_slam_tpu_torch.ops.voxel import _eigh3x3
     from lidar_graph_slam_tpu_torch.registration import features
 
@@ -1690,13 +1702,178 @@ def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
         normals, nok = features.estimate_normals(build_hash_grid(p, m, 1.0), p[:2048], m[:2048])
         return covs, ok, normals, nok
 
-    before = tk.eigh3x3.launches
+    before = (tk.eigh3x3.launches, tk.window_covariances.launches,
+              tk.plane_covariances.launches)
     out = run()
-    assert tk.eigh3x3.launches == before + 2
+    assert (tk.eigh3x3.launches, tk.window_covariances.launches,
+            tk.plane_covariances.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     monkeypatch.setattr(tk, "eigh3x3", _eigh3x3)
+    monkeypatch.setattr(tk, "window_covariances", tnb.window_covariances_plain)
+    monkeypatch.setattr(tk, "plane_covariances", tnb.plane_covariances_plain)
     for a, b in zip(out, run()):
         assert torch.equal(a, b)
     assert bool(out[1].any()) and bool(out[3].any())
+
+
+# -- GICP's covariances (`csrc/covariances.cu`) -----------------------------------------------
+# `window_covariances` and `plane_covariances` against their plain versions
+# (`neighbors.window_covariances`, `plane_covariances_plain`) on the same card tensors, bit
+# for bit, with a rerun: the dense ring's 655,360 rows, a 32,768-row source, the
+# 16,384-row verifier cloud, N whose window wraps several times, an all-invalid tail and
+# an all-invalid cloud, one cell filling the window, and axis-aligned planes (exact zeros
+# in the covariances and the eigenvectors, where a product's signed zero shows).
+
+COV_CASES = ["ring", "source", "verifier", "n1", "n5", "n32", "n33", "n257", "one_cell",
+             "planes", "all_invalid", "empty"]
+
+
+def _cov_cloud(case, device, seed=0):
+    """(points [N, 3], mask [N]) of a covariance case (`COV_CASES`)."""
+    rng = np.random.default_rng(seed)
+    if case in ("ring", "source", "verifier"):
+        # The dense course's world (`chip_smoke.py:dense_course`): ~73k points a scan.
+        n, scans, keep = {"ring": (655360, 9, 131072), "source": (32768, 1, 32768),
+                          "verifier": (16384, 1, 9000)}[case]
+        world = make_world(rng, extent=60.0, density=60.0, wall_height=12.0,
+                           box_height=(6.0, 25.0), n_boxes=60)
+        parts = []
+        for k in range(scans):
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = [2.0 * k, 0.5 * k, 0.0]
+            parts.append(simulate_scan(world, pose, rng, max_points=keep, n_azimuth=2048,
+                                       n_elevation=64))
+        scan = np.concatenate(parts)[:n]
+        pts = np.full((n, 3), PAD_VALUE, np.float32)
+        pts[:len(scan)] = scan
+        mask = np.arange(n) < len(scan)
+    elif case == "planes":  # z = 0 and x = 10 exactly
+        n = 4096
+        pts = rng.uniform(0.0, 8.0, (n, 3)).astype(np.float32)
+        pts[: n // 2, 2] = 0.0
+        pts[n // 2:, 0] = 10.0
+        mask = np.ones(n, bool)
+    else:
+        n = {"n1": 1, "n5": 5, "n32": 32, "n33": 33, "n257": 257, "one_cell": 300,
+             "all_invalid": 512, "empty": 0}[case]
+        spread = 0.25 if case == "one_cell" else 1.5
+        pts = (np.array([40.3, -25.1, 1.2]) + rng.uniform(0.0, spread, (n, 3))).astype(
+            np.float32)
+        mask = np.ones(n, bool)
+        if case == "all_invalid":
+            mask[:] = False
+        elif case == "n257":
+            mask[200:] = False
+    p, m = torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device)
+    return torch.where(m[:, None], p, PAD_VALUE), m
+
+
+def _same_bits(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("case", COV_CASES)
+def test_covariance_kernels_bit_equal_to_plain(cuda, case):
+    """Both kernels against their plain versions, twice, one launch a call (none at N =
+    0); the plane kernel's V diag(1e-3, 1, 1) V^T against `_scaled_gram`'s order."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+
+    p, m = _cov_cloud(case, cuda)
+    n = p.shape[0]
+    cells = (tnb.sort_by_cell(p, m, 2.0) if n else tnb.CellSort(
+        keys=torch.empty(0, dtype=torch.int32, device=cuda), points=p,
+        order=torch.empty(0, dtype=torch.int64, device=cuda)))
+    before = (tk.window_covariances.launches, tk.plane_covariances.launches)
+    win = tk.window_covariances(cells.keys, cells.points)
+    win2 = tk.window_covariances(cells.keys, cells.points)
+    ref = tnb.window_covariances(cells)
+    _same_bits(win, ref)
+    _same_bits(win2, ref)
+    plane = tk.plane_covariances(win[1], win[2], cells.order, m)
+    plane2 = tk.plane_covariances(win[1], win[2], cells.order, m)
+    pref = tnb.plane_covariances_plain(ref[1], ref[2], cells.order, m)
+    torch.cuda.synchronize()
+    _same_bits(plane, pref)
+    _same_bits(plane2, pref)
+    launched = int(n > 0)
+    assert (tk.window_covariances.launches - before[0],
+            tk.plane_covariances.launches - before[1]) == (2 * launched, 2 * launched)
+    if case in ("ring", "source", "verifier", "one_cell", "planes"):
+        assert float(pref[1].sum()) > 0.5 * float(m.sum())
+    if case in ("all_invalid", "empty"):
+        assert not bool(pref[1].any())
+
+
+def test_covariance_kernels_reject_bad_inputs(cuda):
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+
+    p, m = _cov_cloud("n257", cuda)
+    cells = tnb.sort_by_cell(p, m, 2.0)
+    keys, pts, order = cells.keys, cells.points, cells.order
+    _, cov, cnt = tk.window_covariances(keys, pts)
+    before = (tk.window_covariances.launches, tk.plane_covariances.launches)
+    for bad in ((keys.long(), pts), (keys, pts.double()), (keys[:-1], pts),
+                (keys, pts[:, :2]), (keys, pts.cpu()), (keys, pts.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            tk.window_covariances(*bad)
+    for bad in ((cov.double(), cnt, order, m), (cov, cnt.int(), order, m),
+                (cov, cnt, order.int(), m), (cov, cnt, order, m.int()),
+                (cov[:-1], cnt, order, m), (cov.reshape(-1, 9), cnt, order, m),
+                (cov, cnt, order.cpu(), m), (cov.transpose(1, 2), cnt, order, m)):
+        with pytest.raises(ValueError):
+            tk.plane_covariances(*bad)
+    assert (tk.window_covariances.launches, tk.plane_covariances.launches) == before
+
+
+def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
+    """`estimate_covariances` and `build_gicp_target` on the card: one launch of each
+    kernel a call, no `eigh3x3`, and no synchronous read under
+    `torch.cuda.set_sync_debug_mode("error")` (after a warm-up call)."""
+    p, m = _cov_cloud("source", cuda)
+    gicp.estimate_covariances(p, m, 2.0)
+    gicp.build_gicp_target(p, m, 2.0)
+    torch.cuda.synchronize()
+    before = (tk.window_covariances.launches, tk.plane_covariances.launches,
+              tk.eigh3x3.launches)
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        covs, ok = gicp.estimate_covariances(p, m, 2.0)
+        target = gicp.build_gicp_target(p, m, 2.0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tk.window_covariances.launches - before[0], tk.plane_covariances.launches
+            - before[1], tk.eigh3x3.launches - before[2]) == (2, 2, 0)
+    assert bool(torch.isfinite(covs).all()) and bool(target.valid.any()) and bool(ok.any())
+
+
+def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
+    """The GICP front end's captured programs record one launch of each covariance
+    kernel (the step's source, the insert's target) and no `eigh3x3`; a replayed insert's
+    target equals the plain insert-and-rebuild body, run with the covariances' plain
+    versions, bit for bit."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+    from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd, make_fused_frontend
+
+    cfg, raws = _capture_course(cuda, "GICP")
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    for t, raw in enumerate(raws):
+        front.dispatch(raw, None, None, t % 2)
+        front.insert_and_rebuild(t % 2)
+    torch.cuda.synchronize()
+    step_tally = front.programs[16384].tally
+    assert front.insert_program.tally == {tk.window_covariances: 1, tk.plane_covariances: 1}
+    assert step_tally[tk.window_covariances] == step_tally[tk.plane_covariances] == 1
+    assert tk.eigh3x3 not in step_tally and front.insert_program.replays == len(raws) - 1
+    monkeypatch.setattr(tk, "window_covariances", tnb.window_covariances_plain)
+    monkeypatch.setattr(tk, "plane_covariances", tnb.plane_covariances_plain)
+    _, _, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
+                                    device=cuda)
+    want = aux["rebuild"](front.ring)
+    for name in ("covs", "valid"):
+        a, b = getattr(front.target, name), getattr(want, name)
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    assert bool(want.valid.any())
 
 
 def test_voxel_finalize_kernels_reject_bad_inputs(cuda):
