@@ -146,24 +146,28 @@ of `bench.py:bench_e2e`. Phases:
      transform), and `scripts/torch_sass_diff.py`'s check that every NDT and GICP loop
      kernel's SASS is the parent's; then one whole verification and 5 dense frames of the
      fused ICP step under `torch.cuda.set_sync_debug_mode("error")`;
- 14d. GICP's covariances: `window_covariances` and `plane_covariances`
-     (`csrc/covariances.cu`) against their plain versions on the same card tensors, bit
+ 14d. GICP's covariances: `gicp_covariances` (`csrc/covariances.cu`, one launch a
+     covariance estimate) against `gicp_covariances_plain` on the same card tensors, bit
      for bit with reruns, at the path's three shapes: the dense ring's target build
      (655,360 grid rows), the last ring scan (32,768, a frame's source) and the GICP
-     verifier's cloud (16,384); each kernel's device and host us, the plain version's ms,
-     the bound (bytes, or the window sums' float32 <-> float64 conversions, or the plane
-     kernel's issue slots, counted from the run's data) and its share, the window
-     kernel's SASS conversions; `estimate_covariances` and `build_gicp_target` without a
-     synchronous read; `scripts/torch_profile_gicp_build.py` in a subprocess: the target
+     verifier's cloud (16,384); its device and host us, the plain version's ms, the bound
+     (the largest of the bytes, the same-cell window rows' float32 <-> float64
+     conversions and the other instructions' issue slots, counted from the run's data)
+     and its share, the kernel's SASS conversions; with `--parent DIR` the parent tree's
+     two launches (`window_covariances` + `plane_covariances`) on the same inputs, summed,
+     in turns with it, and `scripts/torch_covariances_split.py` in a subprocess: a launch
+     split into its parts (floor, stage, window sums, eigensolve, scatter store) and one
+     tile's chain; `estimate_covariances` and `build_gicp_target` without a synchronous
+     read; `scripts/torch_profile_gicp_build.py` in a subprocess: the target
      build and a source's covariances on the kernel path, the plain path and, with
      `--parent DIR`, the parent tree's, wall ms in turns, device launches and ms;
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
-     loop kernel launched 64 times a frame (and how many did work), `window_covariances`
-     and `plane_covariances` once a frame and once a target build, `eigh3x3`,
+     loop kernel launched 64 times a frame (and how many did work), `gicp_covariances`
+     once a frame and once a target build, `eigh3x3`,
      `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize` and the NDT loop kernel
      not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter` stage p50 (the
-     host's enqueue of the step); the course again with the covariances' plain versions,
+     host's enqueue of the step); the course again with the covariances' plain version,
      every pose bit for bit;
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
      then ICP, each with phase 6's assertions, ICP launching `icp_iteration`; each
@@ -173,13 +177,15 @@ of `bench.py:bench_e2e`. Phases:
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
      ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
-     thread (the odometry launches only the NDT loop kernel), each covariance kernel
-     twice an attempt, and `ndt_accumulate` not; verify p50; the course again with the
-     covariances' plain versions, every pose and loop attempt bit for bit;
+     thread (the odometry launches only the NDT loop kernel), `gicp_covariances` twice
+     an attempt, and `ndt_accumulate` not; verify p50; the course again with the
+     covariances' plain version, every pose and loop attempt bit for bit;
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
      60 frames: it runs on the card, with that driver and matcher, launching the GICP
-     loop kernel and the covariance kernels (as often as each other, at least once a
-     frame) and not `ndt_accumulate` or `eigh3x3`;
+     loop kernel and `gicp_covariances` (at least once a frame) and not
+     `ndt_accumulate` or `eigh3x3`; with `--parent DIR`, the GICP courses of phases 15,
+     17 and 18 through `scripts/torch_trajectories.py` for this tree and that one in
+     turns, every pose and loop attempt bit-equal to the parent's;
  19. `global_register` (FPFH + RANSAC, default `GlobalRegConfig`: 8,192 keypoints, 2,048
      hypotheses, fpfh_k 32) on an 8,192-point scan moved by 150 deg / (18, -9, 0.3) m and
      by 75 deg / (-12, 20, -0.2) m: ok, rotation error < 5 deg, translation error < 1 m, on
@@ -316,8 +322,8 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import (
     SOR_WINDOW,
     CellSort,
     build_hash_grid,
+    gicp_covariances_plain,
     nearest,
-    plane_covariances_plain,
     sor_window_stats_plain,
     sort_by_cell,
     window_covariances_plain,
@@ -362,7 +368,7 @@ DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
            "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats",
-           "window_covariances", "plane_covariances")
+           "gicp_covariances")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -1588,36 +1594,35 @@ def gicp_verify_rows(inputs):
 
 # -- GICP's covariances (phase 14d) ---------------------------------------------------------
 
-COV_KERNELS = ("window_covariances", "plane_covariances")
-# `window_covariances`' least traffic: a row's key and xyz read (16 B), its mean,
-# covariance and count written (52 B). Its arithmetic, fixed by the plain version's
-# rounding: for a valid row and each of its window rows of the same cell (cnt - 1 of
-# them, wraps included), each of the 6 second moments taken from float32 to float64 and
-# back (12 conversions); a window row of another cell adds w x_i x_j = +-0 (or NaN), which
-# a float32 add gives bit for bit, so it needs none. For a valid row its xyz to float64
-# once (3), its mean (3), the 6 quotients s2 / n (6) and the 6 results (6). The H100
-# converts to and from float64 at 16 a clock on each SM.
-COV_ROW_BYTES, COV_PAIR_CONVERSIONS, COV_ROW_CONVERSIONS = 16 + 52, 12, 18
-CONVERSIONS_PER_CLOCK_PER_SM = 16
-# `plane_covariances`' least traffic: a row's covariance, count, order and mask read
-# (36 + 4 + 8 + 1 B) and its covariance and ok written (36 + 1 B). Its instructions: for
-# a row of 5 or more points, the eigensolve (`eigh3x3`'s SASS instructions a matrix) and
+# `gicp_covariances`' least traffic: a row's key, xyz, order and mask read (4 + 12 + 8 +
+# 1 B), its covariance and ok written (36 + 1 B). Its conversions, fixed by the plain
+# version's rounding: for a valid row and each of its window rows of the same cell (cnt -
+# 1 of them, wraps included), each of the 6 second moments taken from float32 to float64
+# and back (12 conversions); a window row of another cell adds w x_i x_j = +-0, which a
+# float32 add gives bit for bit, so it needs none. For a valid row its xyz to float64 once
+# (3), its mean (3), the 6 quotients s2 / n (6) and the 6 results (6). The H100 converts
+# to and from float64 at 16 a clock on each SM. Its other instructions, the least a
+# thread issues: for each same-cell window row the 6 float64 products and adds and the 4
+# float32 adds of the count and the first moments (16); for a valid row its own 6
+# products, the 9 quotients and the covariance's 6 float64 products and adds (27); for a
+# row of 5 or more points the eigensolve (`eigh3x3`'s SASS instructions a matrix) and
 # V diag(d) V^T (9 products, then 9 entries of 3 products and 2 adds).
-PLANE_ROW_BYTES, PLANE_PRODUCT_OPS = 49 + 37, 9 + 9 * 5
+COV_ROW_BYTES, COV_PAIR_CONVERSIONS, COV_ROW_CONVERSIONS = 25 + 37, 12, 18
+CONVERSIONS_PER_CLOCK_PER_SM = 16
+COV_PAIR_OPS, COV_ROW_OPS, PLANE_PRODUCT_OPS = 16, 27, 9 + 9 * 5
 
 
 @contextlib.contextmanager
 def plain_covariances():
-    """Inside, GICP's covariances run their plain versions (`kernels.window_covariances`
-    and `plane_covariances` replaced; `registration/gicp.py` calls them through the
-    module), as the port ran them before the kernels. Count launches outside only."""
-    saved = kernels.window_covariances, kernels.plane_covariances
-    kernels.window_covariances = window_covariances_plain
-    kernels.plane_covariances = plane_covariances_plain
+    """Inside, GICP's covariances run their plain version (`kernels.gicp_covariances`
+    replaced; `registration/gicp.py` calls it through the module), as the port ran them
+    before the kernels. Count launches outside only."""
+    saved = kernels.gicp_covariances
+    kernels.gicp_covariances = gicp_covariances_plain
     try:
         yield
     finally:
-        kernels.window_covariances, kernels.plane_covariances = saved
+        kernels.gicp_covariances = saved
 
 
 def same_course(label: str, ref, res) -> dict:
@@ -1641,27 +1646,21 @@ def same_course(label: str, ref, res) -> dict:
 
 
 def covariance_inputs(cfg: PipelineConfig, ring, last, verify_in) -> dict:
-    """Both covariance kernels' arguments at the path's three shapes: the dense ring's
-    target build (its 655,360 grid rows, as `build_gicp_target` hands them over: the
-    grid's own rows, the identity order, the grid's validity), the last ring scan's
-    32,768 (a frame's source, `estimate_covariances`: the rows sorted by cell) and the
-    GICP verifier's 16,384-row cloud. Returns {shape: {kernel: args}}; the plane args
-    come from the plain window sums."""
+    """`gicp_covariances`' arguments (keys, points, order, mask) at the path's three
+    shapes: the dense ring's target build (its 655,360 grid rows, as `build_gicp_target`
+    hands them over: the grid's own rows, the identity order, the grid's validity), the
+    last ring scan's 32,768 (a frame's source, `estimate_covariances`: the rows sorted by
+    cell) and the GICP verifier's 16,384-row cloud."""
     cell = cfg.scan_matcher.gicp.max_correspondence_distance
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     grid = build_hash_grid(points, mask, cell)
-    sets = {"cov_ring": (grid.keys, grid.points,
-                         torch.arange(grid.keys.shape[0], device=points.device),
-                         grid.keys != voxel.INVALID_KEY)}
+    out = {"cov_ring": (grid.keys, grid.points,
+                        torch.arange(grid.keys.shape[0], device=points.device),
+                        grid.keys != voxel.INVALID_KEY)}
     for label, (p, m) in (("cov_source", (last.points, last.mask)),
                           ("cov_verify", (verify_in[1], verify_in[2]))):
         cells = sort_by_cell(p, m, cell)
-        sets[label] = (cells.keys, cells.points, cells.order, m)
-    out = {}
-    for label, (keys, pts, order, m) in sets.items():
-        _, cov, cnt = window_covariances_plain(keys, pts)
-        out[label] = {"window_covariances": (keys, pts),
-                      "plane_covariances": (cov, cnt, order, m)}
+        out[label] = (cells.keys, cells.points, cells.order, m)
     return out
 
 
@@ -1670,28 +1669,29 @@ def conversions_us(conversions: float, clock_mhz: float) -> float:
     return conversions / (SMS * CONVERSIONS_PER_CLOCK_PER_SM * clock_mhz)
 
 
-def covariance_bound(name: str, per: dict, eigh_instructions: int, clock_mhz: float) -> dict:
-    """The least time for one call of `name` on its arguments in `per` (one shape of
-    `covariance_inputs`), counted from this run's data: `window_covariances` by its bytes
-    or its conversions (of the same-cell window rows of the valid rows, from the plain
-    window sums' counts), `plane_covariances` by its bytes or its issue slots (the
-    eigensolve and the product of the rows of 5 or more points)."""
-    if name == "window_covariances":
-        keys, cnt = per[name][0], per["plane_covariances"][1]
-        rows, valid = keys.shape[0], int((keys != voxel.INVALID_KEY).sum())
-        pairs = int(cnt.double().sum()) - valid  # an invalid row counts 0, a valid one itself
-        conv = pairs * COV_PAIR_CONVERSIONS + valid * COV_ROW_CONVERSIONS
-        t_bytes, t_conv = 1e6 * rows * COV_ROW_BYTES / HBM_BYTES_PER_S, conversions_us(
-            conv, clock_mhz)
-        return dict(rows=rows, valid_rows=valid, same_cell_pairs=pairs,
-                    bound_us=max(t_bytes, t_conv),
-                    bytes=rows * COV_ROW_BYTES, conversions=conv, bytes_us=t_bytes,
-                    conversions_us=t_conv,
-                    bound_by="bytes" if t_bytes >= t_conv else "operations")
-    cov, cnt = per[name][0], per[name][1]
-    rows, ok = cov.shape[0], int((cnt >= 5.0).sum())
-    return dict(rows=rows, ok_rows=ok, **bound_us(
-        rows * PLANE_ROW_BYTES, ok * (eigh_instructions + PLANE_PRODUCT_OPS), clock_mhz))
+def covariance_bound(args, eigh_instructions: int, clock_mhz: float) -> dict:
+    """The least time for one `gicp_covariances` call on `args` (one shape of
+    `covariance_inputs`), counted from this run's data: the largest of its bytes, its
+    float32 <-> float64 conversions (of the same-cell window rows of the valid rows, from
+    the plain window sums' counts) and its other instructions over the issue rate (the
+    same-cell window rows, the valid rows and the rows of 5 or more points, each with
+    what it takes)."""
+    keys, pts = args[:2]
+    _, _, cnt = window_covariances_plain(keys, pts)
+    rows, valid = keys.shape[0], int((keys != voxel.INVALID_KEY).sum())
+    ok = int((cnt >= 5.0).sum())
+    pairs = int(cnt.double().sum()) - valid  # an invalid row counts 0, a valid one itself
+    conv = pairs * COV_PAIR_CONVERSIONS + valid * COV_ROW_CONVERSIONS
+    ops = (pairs * COV_PAIR_OPS + valid * COV_ROW_OPS
+           + ok * (eigh_instructions + PLANE_PRODUCT_OPS))
+    t = bound_us(rows * COV_ROW_BYTES, ops, clock_mhz)
+    t_conv = conversions_us(conv, clock_mhz)
+    if t_conv > t["bound_us"]:
+        t.update(bound_us=t_conv, bound_by="operations")
+    return dict(rows=rows, valid_rows=valid, ok_rows=ok, same_cell_pairs=pairs,
+                conversions=conv, conversions_us=t_conv,
+                bound_part=max(("bytes", t["bytes_us"]), ("conversions", t_conv),
+                               ("issue", t["issue_us"]), key=lambda x: x[1])[0], **t)
 
 
 def sass_opcodes(sass: str, kernel: str, prefix: str) -> int:
@@ -1705,13 +1705,44 @@ def sass_opcodes(sass: str, kernel: str, prefix: str) -> int:
                              for m in SASS_INSTRUCTION.finditer(funcs[0])))
 
 
+def write_covariance_inputs(inputs: dict) -> str:
+    """`covariance_inputs` as an NPZ of `<shape>__<i>` arrays, for the scripts that take
+    them (`scripts/torch_covariances_split.py --input`); returns its path."""
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "covariance_inputs.npz")
+    np.savez(path, **{f"{shape}__{i}": a.cpu().numpy() for shape, args in inputs.items()
+                      for i, a in enumerate(args)})
+    return path
+
+
+def covariance_split(inputs: dict, parent: str, card: str) -> dict:
+    """`scripts/torch_covariances_split.py` in a subprocess on `inputs`: a launch split into
+    its parts at each shape (the floor, the stage, the window sums, the eigensolve, the
+    scatter store), one tile's chain, and the `parent` tree's two launches; one
+    `covariance-split` line a shape."""
+    path = write_covariance_inputs(inputs)
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_covariances_split.py"),
+           "--input", path, "--json", os.path.join(OUT_DIR, "covariance_split.jsonl"),
+           "--parent", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=400)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"covariance split failed:\n{proc.stderr[-3000:]}")
+    split = json.loads(proc.stdout.strip().splitlines()[-1])["split"]
+    for shape, row in split.items():
+        say("covariance-split", shape=shape, **row, card=json.dumps(card))
+    return split
+
+
 def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
                        card: str) -> dict:
     """`scripts/torch_profile_gicp_build.py` in a subprocess: the dense ring's GICP target
     build and the last ring scan's covariances on the kernel path, the plain path and
     (with `parent`) the parent tree's, wall ms in turns, device launches, device ms and
     wrapper launches under torch.profiler; one `gicp-build-profile` line a call and path.
-    The kernel path must equal the plain path bit for bit, launch each kernel once a call
+    The kernel path must equal the plain path bit for bit, launch the kernel once a call
     and fewer device kernels than the plain path."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
@@ -1730,7 +1761,7 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
         raise AssertionError(f"GICP build profile failed:\n{proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     for call, row in rec.items():
-        if not (row["bit_equal_kernel_plain"] and row["kernel"]["wrapper_launches"] == 2
+        if not (row["bit_equal_kernel_plain"] and row["kernel"]["wrapper_launches"] == 1
                 and row["kernel"]["launches"] < row["plain"]["launches"]):
             raise AssertionError(f"GICP build profile, {call}: {row}")
         for name in ("kernel", "plain", "parent"):
@@ -1743,32 +1774,55 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
     return rec
 
 
+def covariance_turns(args, parent_kern) -> dict:
+    """Device us of `gicp_covariances` on `args` and of the parent tree's two launches
+    (`parent_kern`: its `ops.kernels`, with `window_covariances` and `plane_covariances`)
+    on the same inputs, summed, in turns (this, parent, parent, this), `split_times`
+    each; the parent's results bit-equal to this tree's first."""
+    keys, pts, order, mask = args
+
+    def parent_call():
+        _, cov, cnt = parent_kern.window_covariances(keys, pts)
+        return parent_kern.plane_covariances(cov, cnt, order, mask)
+
+    same_bits("parent window + plane covariances", ("covs", "ok"), parent_call(),
+              parent_call(), kernels.gicp_covariances(*args))
+    runs = {"this": [], "parent": []}
+    for tree in ("this", "parent", "parent", "this"):
+        fn = parent_call if tree == "parent" else (lambda: kernels.gicp_covariances(*args))
+        runs[tree].append(split_times(fn)["device_us"])
+    return dict(device_us_in_turns=float(np.mean(runs["this"])),
+                parent_device_us=float(np.mean(runs["parent"])),
+                turns_this=json.dumps([round(t, 3) for t in runs["this"]]),
+                turns_parent=json.dumps([round(t, 3) for t in runs["parent"]]))
+
+
 def covariance_phase(cfg: PipelineConfig, ring, last, verify_in, card: str,
                      eigh_instructions: int, clock_mhz: float, sass: str,
                      parent: str | None) -> dict:
-    """Phase 14d: `window_covariances` and `plane_covariances` at the path's three shapes
-    (`covariance_inputs`) against their plain versions on the same card tensors, bit for
-    bit with a rerun; each one's device and host us (`split_times`), the plain version's
-    ms, the bound (`covariance_bound`) and its share; the window kernel's SASS
-    conversions; `estimate_covariances` and `build_gicp_target` without a synchronous
-    read; the profile of `profile_gicp_build`. No one library call computes either.
-    Returns {"timing": {shape: {kernel: timing}}, "profile": ...}."""
-    plain = {"window_covariances": window_covariances_plain,
-             "plane_covariances": plane_covariances_plain}
+    """Phase 14d: `gicp_covariances` at the path's three shapes (`covariance_inputs`)
+    against `gicp_covariances_plain` on the same card tensors, bit for bit with a rerun;
+    its device and host us (`split_times`), the plain version's ms, the bound
+    (`covariance_bound`) and its share; with `parent` the parent tree's two launches on
+    the same inputs, summed, in turns (`covariance_turns`), and the split of a launch
+    (`covariance_split`); the kernel's SASS conversions; `estimate_covariances` and
+    `build_gicp_target` without a synchronous read; the profile of `profile_gicp_build`.
+    No one library call computes the function. Returns {"timing": {shape: {kernel:
+    timing}}, "profile": ..., "split": ..., "sass_conversions": ...}."""
+    parent_kern = tree_kernels(parent) if parent is not None else None
+    inputs = covariance_inputs(cfg, ring, last, verify_in)
     timing = {}
-    for label, per in covariance_inputs(cfg, ring, last, verify_in).items():
-        timing[label] = {}
-        for name in COV_KERNELS:
-            args, kernel = per[name], getattr(kernels, name)
-            names = (("mu", "cov", "cnt") if name == "window_covariances" else ("covs", "ok"))
-            same_bits(f"{name} {label}", names, kernel(*args), kernel(*args), plain[name](*args))
-            t = split_times(kernel, *args)
-            t.update(plain_ms=median_ms(plain[name], *args, calls=10, warmup=2),
-                     library_ms=None,
-                     **covariance_bound(name, per, eigh_instructions, clock_mhz))
-            t["share_of_bound"] = t["bound_us"] / t["device_us"]
-            say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
-            timing[label][name] = dict(kernel=name, shape=label, **t)
+    for label, args in inputs.items():
+        same_bits(f"gicp_covariances {label}", ("covs", "ok"), kernels.gicp_covariances(*args),
+                  kernels.gicp_covariances(*args), gicp_covariances_plain(*args))
+        t = split_times(kernels.gicp_covariances, *args)
+        t.update(plain_ms=median_ms(gicp_covariances_plain, *args, calls=10, warmup=2),
+                 library_ms=None, **covariance_bound(args, eigh_instructions, clock_mhz))
+        t["share_of_bound"] = t["bound_us"] / t["device_us"]
+        if parent_kern is not None:
+            t.update(covariance_turns(args, parent_kern))
+        say("kernel-time", kernel="gicp_covariances", shape=label, **t, card=json.dumps(card))
+        timing[label] = {"gicp_covariances": dict(kernel="gicp_covariances", shape=label, **t)}
     cell = cfg.scan_matcher.gicp.max_correspondence_distance
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     sync = {}
@@ -1778,10 +1832,11 @@ def covariance_phase(cfg: PipelineConfig, ring, last, verify_in, card: str,
         sync[label] = sync_sites(fn)
         if not sync[label]["sync_free"]:
             raise AssertionError(f"{label} reads the device: {sync[label]}")
-    conv = sass_opcodes(sass, "window_covariances_kernel", "F2F")
+    conv = sass_opcodes(sass, "gicp_covariances_kernel", "F2F")
     say("covariances-sync", **{f"{k}_sync_free": v["sync_free"] for k, v in sync.items()},
-        window_kernel_sass_conversions=conv, card=json.dumps(card))
+        kernel_sass_conversions=conv, card=json.dumps(card))
     return dict(timing=timing, profile=profile_gicp_build(cfg, ring, last, parent, card),
+                split=covariance_split(inputs, parent, card) if parent is not None else None,
                 sass_conversions=conv)
 
 
@@ -2338,6 +2393,34 @@ def captured_front(cfg: PipelineConfig, scans, dev) -> dict:
         stage_p50_ms=json.dumps({k: round(float(np.median(v[1:])) * 1000, 3)
                                  for k, v in pipe.timings.items() if len(v) > 1},
                                 separators=(",", ":")))
+
+
+def captured_in_turns(parent: str, method: str, frames: int, card: str) -> dict:
+    """`scripts/torch_captured_replays.py` for this tree and `parent` (the parent commit
+    unpacked by `git archive`) in turns (this, parent, parent, this), each in a
+    subprocess: the p50 device ms of a step replay and of an insert replay on the dense
+    course's first `frames` frames with `method`, and whether the two trees' rows are
+    bit-equal. One `captured-turns` line a run; returns the means per tree."""
+    script = os.path.join(REPO, "scripts", "torch_captured_replays.py")
+    runs = {"this": [], "parent": []}
+    for tree, root in (("this", REPO), ("parent", parent), ("parent", parent),
+                       ("this", REPO)):
+        proc = subprocess.run([sys.executable, script, "--root", os.path.abspath(root),
+                               "--method", method, "--frames", str(frames)],
+                              cwd=os.path.abspath(root), capture_output=True, text=True,
+                              timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"captured replays ({tree}) failed:\n{proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        say("captured-turns", tree=tree, **{k: v for k, v in rec.items() if k != "root"})
+        runs[tree].append(rec)
+    keys = ("step_device_ms_p50", "insert_device_ms_p50", "step_host_us_p50",
+            "insert_host_us_p50")
+    out = {f"{tree}_{k}": float(np.mean([r[k] for r in rs])) for tree, rs in runs.items()
+           for k in keys}
+    out["rows_bit_equal_parent"] = len({r["rows_digest"] for rs in runs.values()
+                                        for r in rs}) == 1
+    return out
 
 
 def programs_sync_free(cfg: PipelineConfig, scans, dev, frames: int = 20) -> dict:
@@ -3104,8 +3187,7 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"],
                 finalize_launches=summary["kernel_launches"]["ndt_finalize"],
                 eigh3x3_launches=summary["kernel_launches"]["eigh3x3"],
-                window_covariances_launches=summary["kernel_launches"]["window_covariances"],
-                plane_covariances_launches=summary["kernel_launches"]["plane_covariances"])
+                gicp_covariances_launches=summary["kernel_launches"]["gicp_covariances"])
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -4031,6 +4113,14 @@ def main(argv=None) -> int:
             scans[:frames], dev), card=json.dumps(card))
     say("captured-front-sync-free", **programs_sync_free(cfg, scans, dev),
         card=json.dumps(card))
+    if args.parent:
+        # The GICP step and insert replays' device ms against the parent tree's, in turns,
+        # on the whole dense course (the p50 of 39 replays each).
+        captured_turns = captured_in_turns(args.parent, "GICP", len(scans), card)
+        if not captured_turns["rows_bit_equal_parent"]:
+            raise AssertionError(f"captured GICP front end against the parent: {captured_turns}")
+        say("captured-vs-parent", method="GICP", frames=len(scans), **captured_turns,
+            card=json.dumps(card))
 
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
     rb = rebuild_phase(cfg, aux, ring, card, args.parent, sass, clock_mhz)
@@ -4215,17 +4305,16 @@ def main(argv=None) -> int:
     # The GICP loop kernel is this path's: max_iterations launches a frame (the
     # bootstrap frame's too, whose empty target matches nothing), none of the NDT kernels.
     g_its = cfg_gicp.scan_matcher.gicp.max_iterations
-    # The covariance kernels once each a frame for the source and once a target build (the
-    # empty ring's at construction and each keyframe's); their eigensolve is
-    # `plane_covariances`' own, so no `eigh3x3`.
+    # The covariance kernel once a frame for the source and once a target build (the empty
+    # ring's at construction and each keyframe's); its eigensolve is its own, so no
+    # `eigh3x3`.
     builds = gicp_front["frames"] + gicp_front["keyframes"] + 1
     if not (launches_gicp["gicp_align_loop"] == g_its * gicp_front["frames"]
             and 0 < launches_gicp["gicp_iteration_worked"] < launches_gicp["gicp_align_loop"]
             and launches_gicp["ndt_accumulate"] == launches_gicp["ndt_direct7_accumulate"]
             == launches_gicp["ndt_align_loop"] == launches_gicp["ndt_finalize"]
             == launches_gicp["eigh3x3"] == 0
-            and launches_gicp["window_covariances"] == launches_gicp["plane_covariances"]
-            == builds):
+            and launches_gicp["gicp_covariances"] == builds):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
     # The same course with the covariances' plain versions: every pose bit for bit.
     with plain_covariances():
@@ -4235,8 +4324,7 @@ def main(argv=None) -> int:
                             gicp_res["result"], plain_res["result"])
     say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["gicp_align_loop"],
         kernel_launches_worked=launches_gicp["gicp_iteration_worked"],
-        window_covariances_launches=launches_gicp["window_covariances"],
-        plane_covariances_launches=launches_gicp["plane_covariances"],
+        gicp_covariances_launches=launches_gicp["gicp_covariances"],
         bit_equal_plain_covariances=same_gicp["bit_equal"],
         prefilter_p50_ms=gicp_front["stage_p50_ms"]["prefilter"],
         card=json.dumps(card))
@@ -4286,13 +4374,12 @@ def main(argv=None) -> int:
     launches_gv = read_counts()
     # The odometry (NDT) launches only the NDT loop kernel: every GICP loop launch of this
     # run is the verify thread's, and nothing launches ndt_accumulate. Each attempt builds
-    # its candidate's target and its source's covariances: two launches of each
-    # covariance kernel.
+    # its candidate's target and its source's covariances: two launches of the covariance
+    # kernel.
     if not (gv["loops_accepted"] >= 1 and gv["ate_keyframes_m"] < off["ate_keyframes_m"]
             and launches_gv["gicp_align_loop"] > 0 and launches_gv["gicp_iteration_worked"] > 0
             and launches_gv["ndt_accumulate"] == 0
-            and launches_gv["window_covariances"] == launches_gv["plane_covariances"]
-            == 2 * gv["loops_attempted"] > 0
+            and launches_gv["gicp_covariances"] == 2 * gv["loops_attempted"] > 0
             and pipe_g.back.verify_launches >= launches_gv["gicp_align_loop"]):
         raise AssertionError(f"GICP verifier: {gv}, loops off {off['ate_keyframes_m']}, "
                              f"launches {launches_gv}, verify {pipe_g.back.verify_launches}")
@@ -4314,8 +4401,7 @@ def main(argv=None) -> int:
         verify_ms_max=1000 * float(np.max(pipe_g.back.verify_seconds)),
         gicp_loop_launches_verify=launches_gv["gicp_align_loop"],
         gicp_loop_launches_verify_worked=launches_gv["gicp_iteration_worked"],
-        window_covariances_launches_verify=launches_gv["window_covariances"],
-        plane_covariances_launches_verify=launches_gv["plane_covariances"],
+        gicp_covariances_launches_verify=launches_gv["gicp_covariances"],
         bit_equal_plain_covariances=same_gv["bit_equal"],
         ndt_accumulate_launches=launches_gv["ndt_accumulate"],
         verify_launches_all=pipe_g.back.verify_launches,
@@ -4330,10 +4416,20 @@ def main(argv=None) -> int:
             and cli_g["registration_method"] == "GICP" and cli_g["gicp_loop_launches"] > 0
             and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0
             and cli_g["eigh3x3_launches"] == 0
-            and cli_g["window_covariances_launches"] == cli_g["plane_covariances_launches"]
-            >= cli_g["frames"]):
+            and cli_g["gicp_covariances_launches"] >= cli_g["frames"]):
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
+    if args.parent:
+        # Every GICP course (phases 15, 17, 18) against the parent tree's, in turns.
+        turns = trajectories_in_turns(args.parent, ("dense_gicp", "drift_gicp",
+                                                    "cli_gicp_classic"))
+        for course, row in turns.items():
+            if not all(v["bit_equal_first"] for v in row.values()):
+                raise AssertionError(f"{course} parts from the parent tree's: {row}")
+            say("gicp-vs-parent", course=course, **{
+                f"{k}_{run}": v[k] for run, v in row.items()
+                for k in ("ate_keyframes_m", "loops_accepted", "frame_p50_ms",
+                          "bit_equal_first") if k in v}, card=json.dumps(card))
 
     # -- 19. FPFH + RANSAC global registration, card and CPU --------------------------------
     say("global-register", **global_register_check(dev, card))
@@ -4598,36 +4694,37 @@ def main(argv=None) -> int:
             launches=launches_gi["eigh3x3"],
             path="the FPFH normals of the global guess (phase 20 counts the drift course "
                  "with use_global_init); GICP's covariances run the same eigensolve inside "
-                 "plane_covariances (phase 15 counts no eigh3x3)",
+                 "gicp_covariances (phase 15 counts no eigh3x3)",
             ports="_eigh3x3 (lidar_graph_slam_tpu/ops/voxel.py:182) inside the FPFH normals "
                   "(registration/features.py:58); no Pallas kernel",
             launches_global_init_loop=gl["eigh3x3_launches"],
             launches_gicp_front_end=launches_gicp["eigh3x3"],
             launches_cli_classic_gicp=cli_g["eigh3x3_launches"], bit_equal_plain=True),
-        *[kernel_record(
-            name, timing, max_err[name], shape="cov_ring",
+        kernel_record(
+            "gicp_covariances", timing, max_err["gicp_covariances"], shape="cov_ring",
             source="lidar_graph_slam_tpu_torch/csrc/covariances.cu",
-            replaces=replaces, replaces_commit=None, launches=launches_gicp[name],
+            replaces="lidar_graph_slam_tpu/registration/gicp.py:61", replaces_commit=None,
+            launches=launches_gicp["gicp_covariances"],
             path="every GICP covariance estimate: each GICP frame's source and each GICP "
                  "target build of both drivers, each GICP verification (phase 15 counts the "
                  "fused GICP front end: frames + keyframes + 1)",
-            ports=ports, launches_gicp_verify=launches_gv[name],
-            launches_cli_classic_gicp=cli_g[f"{name}_launches"], bit_equal_plain=True,
+            ports="the jitted estimate_covariances (lidar_graph_slam_tpu/registration/"
+                  "gicp.py:61-90): window_covariances (ops/neighbors.py:212-245), the "
+                  "identity below 5 points, _eigh3x3, V diag(1e-3, 1, 1) V^T, the scatter "
+                  "to the original rows; no Pallas kernel",
+            launches_gicp_verify=launches_gv["gicp_covariances"],
+            launches_cli_classic_gicp=cli_g["gicp_covariances_launches"],
+            bit_equal_plain=True,
             courses_bit_equal_plain=same_gicp["bit_equal"] and same_gv["bit_equal"],
-            **extra)
-          for name, replaces, ports, extra in (
-              ("window_covariances", "lidar_graph_slam_tpu/ops/neighbors.py:212",
-               "window_covariances (lidar_graph_slam_tpu/ops/neighbors.py:212-245) inside "
-               "the jitted estimate_covariances (registration/gicp.py:61); no Pallas kernel",
-               {"sass_conversions": cov["sass_conversions"]}),
-              ("plane_covariances", "lidar_graph_slam_tpu/registration/gicp.py:77",
-               "the rest of the jitted estimate_covariances (lidar_graph_slam_tpu/"
-               "registration/gicp.py:77-90: the identity below 5 points, _eigh3x3, "
-               "V diag(1e-3, 1, 1) V^T, the scatter to the original rows); no Pallas kernel",
-               {"build_profile": {call: {p_: {k: row[p_][k] for k in (
-                   "launches", "device_ms", "wall_ms", "wrapper_launches")}
-                   for p_ in ("kernel", "plain", "parent") if p_ in row}
-                   for call, row in cov["profile"].items()}}))],
+            redesigned=True, sass_conversions=cov["sass_conversions"],
+            parent_ms={s_: (lambda us: None if us is None else us / 1000)(
+                t_["gicp_covariances"].get("parent_device_us"))
+                for s_, t_ in timing.items() if s_.startswith("cov_")},
+            split=cov["split"],
+            build_profile={call: {p_: {k: row[p_][k] for k in (
+                "launches", "device_ms", "wall_ms", "wrapper_launches")}
+                for p_ in ("kernel", "plain", "parent") if p_ in row}
+                for call, row in cov["profile"].items()}),
         *[kernel_record(
             name, timing, max_err[name], shape="prefilter_dense",
             source="lidar_graph_slam_tpu_torch/csrc/prefilter.cu",

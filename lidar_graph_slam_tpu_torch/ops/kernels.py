@@ -68,9 +68,9 @@ first use in `build/` and bound with ctypes:
 * `sor_window_stats(keys, points, order, k)`: the outlier filter's per-row mean
   distance to its k nearest same-cell rows within +-`SOR_WINDOW` sorted rows and their
   count, in the original row order, in one launch.
-* `window_covariances(keys, points)` and `plane_covariances(cov, cnt, order, mask)`: GICP's covariances (`registration/gicp.py:estimate_covariances`,
-  `build_gicp_target`) in two launches: each sorted row's count, mean and covariance over
-  its same-cell rows within +-16 sorted rows, then the identity below 5 points, the
+* `gicp_covariances(keys, points, order, mask)`: GICP's covariances
+  (`registration/gicp.py:estimate_covariances`, `build_gicp_target`) in one launch: each
+  sorted row's same-cell window over +-16 sorted rows, the identity below 5 points, the
   eigensolve, the (1e-3, 1, 1) plane regularization and the scatter to the original rows.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
@@ -87,9 +87,9 @@ batch;
 `ops/voxel.py:ndt_finalize_plain` (the sorted rows' run sums by `torch.segment_reduce`,
 then `_finalize_ndt_plain`) and `_eigh3x3` are the finalize's and the eigensolve's,
 `ops/voxel.py:voxel_centroids_plain` and `ops/neighbors.py:sor_window_stats_plain` the
-prefilter kernels', `ops/neighbors.py:window_covariances_plain` (`window_covariances` of
-the sorted rows) and `plane_covariances_plain` the covariance kernels', all bit for bit on
-the card. A
+prefilter kernels', `ops/neighbors.py:gicp_covariances_plain` (`window_covariances` of
+the sorted rows, then `plane_covariances_plain`) the covariance kernel's, all bit for bit
+on the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -125,10 +125,9 @@ import torch
 from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.ops.neighbors import (
     SOR_WINDOW,
+    gicp_covariances_plain,
     nearest,
-    plane_covariances_plain,
     sor_window_stats_plain,
-    window_covariances_plain,
 )
 from lidar_graph_slam_tpu_torch.ops.voxel import (
     _BITS_Y,
@@ -812,14 +811,12 @@ def _load_library_locked():
     lib.lgs_voxel_centroids.argtypes = [vp, vp, vp, vp, i64, vp, vp, i32, i32, i32, i32, vp,
                                         vp, vp]
     lib.lgs_sor_window_stats.argtypes = [vp, vp, vp, i64, i32, vp, vp, vp]
-    lib.lgs_window_covariances.argtypes = [vp, vp, i64, vp, vp, vp, vp]
-    lib.lgs_plane_covariances.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
+    lib.lgs_gicp_covariances.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
                lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
                lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3,
-               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_window_covariances,
-               lib.lgs_plane_covariances):
+               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_gicp_covariances):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
                lib.lgs_icp_worked_launches):
@@ -1598,75 +1595,43 @@ def sor_window_stats(keys, points, order, k: int):
     return mean_d, n_found
 
 
-def window_covariances(keys, points):
-    """GICP's window sums in one launch: for each row sorted by cell key, the count, mean
-    and covariance of the same-cell rows among the +-16 sorted rows around it, itself
-    included (wrapping at the ends, as `torch.roll` does).
+def gicp_covariances(keys, points, order, mask):
+    """GICP's covariances of rows sorted by cell key, in one launch: for each row, the
+    count, mean and covariance of the same-cell rows among the +-16 sorted rows around it,
+    itself included (wrapping at the ends, as `torch.roll` does); the identity where
+    fewer than 5 points were summed, else V diag(1e-3, 1, 1) V^T of the covariance's
+    eigenvectors V; written at the row's original index.
 
     keys:   [N] i32 ascending cell keys (INVALID_KEY rows last)
     points: [N, 3] f32 in the keys' order
-    Returns (mu [N, 3] f32, cov [N, 3, 3] f32, cnt [N] f32), as
-    `ops/neighbors.py:window_covariances_plain` at its default window of 16 (the
+    order:  [N] i64 each sorted row's original index (a permutation)
+    mask:   [N] bool in the original order
+    Returns (covs [N, 3, 3] f32, ok [N] bool: 5 or more points and mask) in the original
+    order, as `ops/neighbors.py:gicp_covariances_plain` at its window of 16 (the
     reference's, which every caller uses), bit for bit on the card.
 
-    CPU tensors take `window_covariances_plain`; CUDA tensors launch the
-    `window_covariances` kernel (`csrc/covariances.cu`, counted in
-    `window_covariances.launches`; none for N = 0) or raise. Nothing is read back.
+    CPU tensors take `gicp_covariances_plain`; CUDA tensors launch the `gicp_covariances`
+    kernel (`csrc/covariances.cu`, counted in `gicp_covariances.launches`; none for N = 0)
+    or raise. Nothing is read back.
     """
     dev = keys.device
     if dev.type == "cpu":
-        return window_covariances_plain(keys, points)
+        return gicp_covariances_plain(keys, points, order, mask)
     if dev.type != "cuda":
-        raise ValueError(f"window_covariances: unsupported device {dev}")
+        raise ValueError(f"gicp_covariances: unsupported device {dev}")
     N = keys.shape[0] if keys.dim() == 1 else -1
-    _check("window_covariances", dev, keys=(keys, (N,), torch.int32),
-           points=(points, (N, 3), torch.float32))
-    mu = torch.empty((N, 3), dtype=torch.float32, device=dev)
-    cov = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
-    cnt = torch.empty((N,), dtype=torch.float32, device=dev)
-    if N:
-        lib = load_library()
-        _raise_on(lib.lgs_window_covariances(
-            keys.data_ptr(), points.data_ptr(), N, mu.data_ptr(), cov.data_ptr(),
-            cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "window_covariances")
-        _count(window_covariances)
-    return mu, cov, cnt
-
-
-def plane_covariances(cov, cnt, order, mask):
-    """GICP's plane regularization in one launch: from the window covariances and counts
-    of rows sorted by cell key (`window_covariances`), the identity where fewer than 5
-    points were summed, else V diag(1e-3, 1, 1) V^T of the eigenvectors V of the
-    covariance, written at each row's original index.
-
-    cov:   [N, 3, 3] f32 and cnt: [N] f32 in sorted order
-    order: [N] i64 each sorted row's original index (a permutation)
-    mask:  [N] bool in the original order
-    Returns (covs [N, 3, 3] f32, ok [N] bool: cnt >= 5 and mask) in the original order, as
-    `ops/neighbors.py:plane_covariances_plain`, bit for bit on the card.
-
-    CPU tensors take `plane_covariances_plain`; CUDA tensors launch the
-    `plane_covariances` kernel (`csrc/covariances.cu`, counted in
-    `plane_covariances.launches`; none for N = 0) or raise. Nothing is read back.
-    """
-    dev = cov.device
-    if dev.type == "cpu":
-        return plane_covariances_plain(cov, cnt, order, mask)
-    if dev.type != "cuda":
-        raise ValueError(f"plane_covariances: unsupported device {dev}")
-    N = cov.shape[0] if cov.dim() == 3 else -1
-    _check("plane_covariances", dev, cov=(cov, (N, 3, 3), torch.float32),
-           cnt=(cnt, (N,), torch.float32), order=(order, (N,), torch.int64),
+    _check("gicp_covariances", dev, keys=(keys, (N,), torch.int32),
+           points=(points, (N, 3), torch.float32), order=(order, (N,), torch.int64),
            mask=(mask, (N,), torch.bool))
     covs = torch.empty((N, 3, 3), dtype=torch.float32, device=dev)
     ok = torch.empty((N,), dtype=torch.bool, device=dev)
     if N:
         lib = load_library()
-        _raise_on(lib.lgs_plane_covariances(
-            cov.data_ptr(), cnt.data_ptr(), order.data_ptr(), mask.data_ptr(), N,
+        _raise_on(lib.lgs_gicp_covariances(
+            keys.data_ptr(), points.data_ptr(), order.data_ptr(), mask.data_ptr(), N,
             covs.data_ptr(), ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
-            "plane_covariances")
-        _count(plane_covariances)
+            "gicp_covariances")
+        _count(gicp_covariances)
     return covs, ok
 
 
@@ -1729,5 +1694,4 @@ ndt_finalize.launches = 0
 eigh3x3.launches = 0
 voxel_centroids.launches = 0
 sor_window_stats.launches = 0
-window_covariances.launches = 0
-plane_covariances.launches = 0
+gicp_covariances.launches = 0

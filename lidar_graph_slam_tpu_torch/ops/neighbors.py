@@ -4,9 +4,9 @@ Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
 `build_hash_grid`), the grid queries (`_candidate_scan`, `nearest` for ICP, GICP and the
 loop fitness, `knn`), the same-cloud sliding-window neighborhoods that statistical outlier
 removal (over `sort_by_cell`'s rows: the grid's keys, points and order without its lookup
-structures) and GICP's covariances use (`window_covariances` and `plane_covariances_plain`,
-the plain versions of the `window_covariances` and `plane_covariances` kernels of
-`ops/kernels.py`), and the dense `radius_mask`. Points are keyed by cell and stably
+structures) and GICP's covariances use (`window_covariances`, then
+`plane_covariances_plain`: `gicp_covariances_plain`, the plain version of the
+`gicp_covariances` kernel of `ops/kernels.py`), and the dense `radius_mask`. Points are keyed by cell and stably
 sorted, so the points of one cell are consecutive: a query gathers a bounded bucket of
 consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over the sorted
 order covers each cell's neighborhood (up to window truncation in very dense cells) — a
@@ -242,8 +242,8 @@ def sor_window_stats_plain(keys: torch.Tensor, points: torch.Tensor, order: torc
 def window_covariances(grid, window: int = 16):
     """Per sorted row: mean/covariance over its same-cell window neighborhood (self
     included): (mu [N, 3], cov [N, 3, 3], count [N]). It reads `grid.keys` and
-    `grid.points` (a `HashGrid` or a `CellSort`). The plain version of the
-    `window_covariances` kernel (`ops/kernels.py`), bit for bit on the card.
+    `grid.points` (a `HashGrid` or a `CellSort`). The window sums of the
+    `gicp_covariances` kernel (`ops/kernels.py`), bit for bit on the card.
 
     The reference's arithmetic, in its order: raw first and second moments in world
     coordinates, the row itself first, then shifts +1, -1, +2, -2, ... (row i's shift-s
@@ -287,15 +287,14 @@ def window_covariances(grid, window: int = 16):
 
 
 def window_covariances_plain(keys: torch.Tensor, points: torch.Tensor, window: int = 16):
-    """Plain version of the `window_covariances` kernel (`ops/kernels.py`) under its
-    signature: `window_covariances` of the rows sorted by cell (`keys`, `points`)."""
+    """`window_covariances` of the rows sorted by cell (`keys`, `points`)."""
     return window_covariances(CellSort(keys=keys, points=points, order=None), window)
 
 
 def plane_covariances_plain(cov: torch.Tensor, cnt: torch.Tensor, order: torch.Tensor,
                             mask: torch.Tensor):
-    """Plain version of the `plane_covariances` kernel (`ops/kernels.py`): what
-    `estimate_covariances` does after the window sums. From the window covariances and
+    """What `estimate_covariances` does after the window sums (the rest of the
+    `gicp_covariances` kernel of `ops/kernels.py`). From the window covariances and
     counts of rows sorted by cell (`window_covariances`): the identity where fewer than 5
     points were summed, else fast_gicp's PLANE regularization V diag(1e-3, 1, 1) V^T of
     the eigenvectors V (`_eigh3x3`), scattered back to the original row order by `order`
@@ -318,6 +317,14 @@ def plane_covariances_plain(cov: torch.Tensor, cnt: torch.Tensor, order: torch.T
     ok = torch.empty((n,), dtype=torch.bool, device=cov.device)
     ok[order] = ok_s
     return covs, ok & mask
+
+
+def gicp_covariances_plain(keys: torch.Tensor, points: torch.Tensor, order: torch.Tensor,
+                           mask: torch.Tensor):
+    """Plain version of the `gicp_covariances` kernel (`ops/kernels.py`): the window sums
+    of the rows sorted by cell (`keys`, `points`), then their plane regularization at each
+    row's index in `order`, valid where `mask`. Returns (covs [N, 3, 3], ok [N])."""
+    return plane_covariances_plain(*window_covariances_plain(keys, points)[1:], order, mask)
 
 
 def radius_mask(positions: torch.Tensor, mask: torch.Tensor, query: torch.Tensor,

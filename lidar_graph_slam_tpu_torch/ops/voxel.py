@@ -15,7 +15,7 @@ An NDT map level goes from its rows sorted by voxel key to its finished rows thr
 runs itself, `ndt_finalize_plain` on the CPU (the run sums by `torch.segment_reduce` over
 the run lengths, then `_finalize_ndt_plain`, the reference's arithmetic op for op);
 `kernels.eigh3x3` serves `_eigh3x3` to the FPFH normals the same way (GICP's covariances
-run it inside `kernels.plane_covariances`, the product in `_scaled_gram`'s order). The
+run it inside `kernels.gicp_covariances`, the product in `_scaled_gram`'s order). The
 centroid downsample (`voxel_downsample`) goes from its sorted rows to its centroids through
 `kernels.voxel_centroids` (one launch on the card; on the CPU `voxel_centroids_plain`, the
 run sums by `torch.segment_reduce`). `ops/kernels.py` imports this module, so the map

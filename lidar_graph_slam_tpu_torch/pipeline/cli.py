@@ -171,8 +171,7 @@ def main(argv=None) -> int:
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
             "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
             "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
-            "icp_fitness", "ndt_finalize", "eigh3x3", "window_covariances",
-            "plane_covariances")},
+            "icp_fitness", "ndt_finalize", "eigh3x3", "gicp_covariances")},
         "processes": process_count(),
     }
     # How many of each loop kernel's launches did work (a device count; 0 without a loop).

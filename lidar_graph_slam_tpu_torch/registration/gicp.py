@@ -3,9 +3,8 @@
 Port of `lidar_graph_slam_tpu/registration/gicp.py`: per-point covariances from the
 sorted-grid sliding window (computed once per cloud, not per iteration), regularized
 fast_gicp-style by snapping the eigenvalues to (1e-3, 1, 1) so every surface patch is a
-plane of fixed conditioning (on the card two launches after the cells' sort,
-`ops.kernels.window_covariances` and `plane_covariances`; on the CPU their plain
-versions); correspondences from the grid NN, gated by the maximum distance; the
+plane of fixed conditioning (on the card one launch after the cells' sort,
+`ops.kernels.gicp_covariances`; on the CPU its plain version); correspondences from the grid NN, gated by the maximum distance; the
 plane-to-plane metric M = (C_q + R C_p R^T)^-1 as a closed-form batched 3x3 inverse; the
 normal equations of NDT's accumulation with d2 = 0 and w_scale = 1, where the Magnusson
 weight degenerates to the match mask.
@@ -38,12 +37,11 @@ from lidar_graph_slam_tpu_torch.registration.base import RegistrationResult
 
 def _covariances(keys: torch.Tensor, points: torch.Tensor, order: torch.Tensor,
                  mask: torch.Tensor):
-    """The covariances of rows sorted by cell (`keys`, `points`): their window sums
-    (`kernels.window_covariances`, +-16 sorted rows, the reference's default), then the
-    plane regularization written at each row's index in `order`, valid where `mask`
-    (`kernels.plane_covariances`); one launch each on the card."""
-    _mu, cov_s, cnt_s = kernels.window_covariances(keys, points)
-    return kernels.plane_covariances(cov_s, cnt_s, order, mask)
+    """The covariances of rows sorted by cell (`keys`, `points`): their window sums (+-16
+    sorted rows, the reference's default), then the plane regularization written at each
+    row's index in `order`, valid where `mask` (`kernels.gicp_covariances`: one launch on
+    the card)."""
+    return kernels.gicp_covariances(keys, points, order, mask)
 
 
 def estimate_covariances(points: torch.Tensor, mask: torch.Tensor, cell_size, k: int = 20):

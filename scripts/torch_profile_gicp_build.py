@@ -12,13 +12,14 @@ last ring scan. Two calls, each on three paths:
           regularization;
   source  `estimate_covariances` of the source scan (the fused step's, every frame);
 
-  kernel  this checkout: `window_covariances` and `plane_covariances` launched once a
-          call (`csrc/covariances.cu`);
-  plain   this checkout with those two wrappers replaced by their plain versions
-          (`ops/neighbors.py:window_covariances`: ~800 ATen operations a cloud, and
-          `plane_covariances_plain`);
+  kernel  this checkout: `gicp_covariances` launched once a call
+          (`csrc/covariances.cu`);
+  plain   this checkout with that wrapper replaced by its plain version
+          (`ops/neighbors.py:gicp_covariances_plain`: the window sums' ~800 ATen
+          operations a cloud, then `plane_covariances_plain`);
   parent  with `--parent DIR`, that tree's `registration/gicp.py` (a parent commit
-          unpacked with `git archive`), loaded beside this checkout's: its own
+          unpacked with `git archive`), loaded beside this checkout's and bound to that
+          tree's `ops/kernels.py` (which builds that tree's `csrc/`): its own
           covariances, whatever they call.
 
 Wall ms a call (host clock between synchronizes, the median of `--repeats`), in turns
@@ -34,7 +35,6 @@ bits). Prints one JSON line.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import os
 import sys
@@ -70,19 +70,15 @@ def main() -> int:
     cell = 2.0
     modules = {"kernel": gicp, "plain": gicp}
     if args.parent:
-        path = os.path.join(os.path.abspath(args.parent), "lidar_graph_slam_tpu_torch",
-                            "registration", "gicp.py")
-        spec = importlib.util.spec_from_file_location("parent_gicp", path)
-        parent = importlib.util.module_from_spec(spec)
-        sys.modules["parent_gicp"] = parent  # its dataclasses look their module up
-        spec.loader.exec_module(parent)
-        modules["parent"] = parent
-    wrappers = (kernels.window_covariances, kernels.plane_covariances)
+        import chip_smoke
+
+        modules["parent"] = chip_smoke.tree_registration(
+            args.parent, "gicp", chip_smoke.tree_kernels(args.parent), "parent_gicp")
+    kernel_path = kernels.gicp_covariances
 
     def on_path(name):
-        kernels.window_covariances, kernels.plane_covariances = (
-            (neighbors.window_covariances_plain, neighbors.plane_covariances_plain)
-            if name == "plain" else wrappers)
+        kernels.gicp_covariances = (neighbors.gicp_covariances_plain if name == "plain"
+                                    else kernel_path)
 
     calls = {"target": lambda mod: mod.build_gicp_target(*tgt, cell),
              "source": lambda mod: mod.estimate_covariances(*src, cell)}
@@ -129,11 +125,11 @@ def main() -> int:
             # Twice, the first session thrown away: a process's first session can miss
             # kernel events.
             for _ in range(2):
-                before = kernels.thread_launches()
+                before = modules[name].kernels.thread_launches()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     run(name, call)
                     torch.cuda.synchronize()
-                wrapper = kernels.thread_launches() - before
+                wrapper = modules[name].kernels.thread_launches() - before
             ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not e.key.startswith(("Memcpy", "Memset"))]
             device_ms = sum(e.self_device_time_total for e in ka) / 1000

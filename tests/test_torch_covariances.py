@@ -1,20 +1,20 @@
-"""GICP's covariances: the plain versions of the `window_covariances` and
-`plane_covariances` kernels (`ops/neighbors.py:window_covariances`,
+"""GICP's covariances: the plain version of the `gicp_covariances` kernel
+(`ops/neighbors.py:gicp_covariances_plain`, i.e. `window_covariances` then
 `plane_covariances_plain`) and the rerouted `estimate_covariances` / `build_gicp_target`
-against the JAX `estimate_covariances`, and a float32/float64 numpy model of the
-`window_covariances` kernel's staged tile (`csrc/covariances.cu`) against the plain window
-sums.
+against the JAX `estimate_covariances`, and a float32/float64 numpy model of the kernel's
+window sums (`csrc/covariances.cu`: warp tiles, an all-invalid tile skipped) against the
+plain window sums.
 
 Inputs are made with numpy from a seed. Tolerances:
   * the numpy model bit for bit: each float32 operation and each float64 one of the
-    plain version, in its order, over the kernel's block of 128 rows staged with 16 rows
+    plain version, in its order, over the kernel's tiles of 32 rows staged with 16 rows
     on each side, wrapping mod N as `torch.roll` does;
   * against the JAX package, those of `tests/test_torch_gicp.py`: valid exact; the
     covariances to 1e-4 of each matrix's largest entry where the eigen-gap is clear
     ((l1 - l0) / l2 > 0.05 of the raw window covariance: only the smallest eigenvector
     survives the regularization); the identity exact where the window is too thin;
   * the target build's one sort against the reference's two (`build_gicp_target`), and
-    the CPU wrappers against the plain versions, bit for bit.
+    the CPU wrapper against the plain version, bit for bit.
 """
 
 import numpy as np
@@ -33,8 +33,8 @@ from lidar_graph_slam_tpu_torch.registration import gicp as tgicp
 
 INVALID = np.iinfo(np.int32).max
 PAD = np.float32(1.0e6)
-# `csrc/covariances.cu`: kCovThreads rows a block, kCovWindow rows on each side.
-COV_THREADS, COV_WINDOW = 128, 16
+# `csrc/covariances.cu`: kTileRows rows a warp's tile, kCovWindow rows on each side.
+TILE_ROWS, COV_WINDOW = 32, 16
 MOMENTS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 F32, F64 = np.float32, np.float64
 
@@ -50,36 +50,39 @@ def one_intra_op_thread():
 
 
 def _window_model(keys: np.ndarray, pts: np.ndarray):
-    """The `window_covariances` kernel's arithmetic in numpy: each block of COV_THREADS
-    sorted rows stages slots t = 0 .. COV_THREADS + 2 COV_WINDOW - 1, slot t holding row
-    (i0 - COV_WINDOW + t) mod N (keys, xyz and xyz in float64); row i at slot me = i - i0 +
-    COV_WINDOW adds slot me - s (shift +s), then me + s (shift -s), s = 1 .. COV_WINDOW.
-    Returns (mu, cov, cnt) as `neighbors.window_covariances`."""
+    """The `gicp_covariances` kernel's window sums in numpy: each tile of TILE_ROWS sorted
+    rows stages slots t = 0 .. TILE_ROWS + 2 COV_WINDOW - 1, slot t holding row
+    (t0 - COV_WINDOW + t) mod N (keys, xyz and xyz in float64); row i at slot me = i - t0
+    + COV_WINDOW adds slot me - s (shift +s), then me + s (shift -s), s = 1 .. COV_WINDOW,
+    each second moment through float64; a tile with no valid row is skipped (its rows keep
+    zero sums). Returns (mu, cov, cnt) as `neighbors.window_covariances`."""
     n = keys.shape[0]
     mu, cov, cnt = np.zeros((n, 3), F32), np.zeros((n, 3, 3), F32), np.zeros(n, F32)
-    staged = COV_THREADS + 2 * COV_WINDOW
-    for i0 in range(0, n, COV_THREADS):
-        g = (i0 - COV_WINDOW + np.arange(staged)) % n
+    staged = TILE_ROWS + 2 * COV_WINDOW
+    for t0 in range(0, n, TILE_ROWS):
+        g = (t0 - COV_WINDOW + np.arange(staged)) % n
         skey, sx = keys[g], pts[g]
         sd = sx.astype(F64)
-        me = np.arange(min(COV_THREADS, n - i0)) + COV_WINDOW
+        me = np.arange(min(TILE_ROWS, n - t0)) + COV_WINDOW
         key = skey[me]
         valid = key != INVALID
+        if not valid.any():
+            continue
         c = np.where(valid, F32(1), F32(0))
         s1 = np.where(valid[:, None], sx[me], F32(0))
         s2 = [np.where(valid, sx[me, a] * sx[me, b], F32(0)) for a, b in MOMENTS]
         for s in range(1, COV_WINDOW + 1):
             for slot in (me - s, me + s):
                 same = valid & (skey[slot] == key)
-                w, wd = same.astype(F32), same.astype(F64)
+                w = same.astype(F32)
                 c = c + w
                 s1 = s1 + w[:, None] * sx[slot]
-                ws = wd[:, None] * sd[slot]
+                ws = same.astype(F64)[:, None] * sd[slot]
                 s2 = [(m.astype(F64) + ws[:, a] * sd[slot, b]).astype(F32)
                       for m, (a, b) in zip(s2, MOMENTS)]
         denom = np.maximum(c, F32(1))
         m_ = s1 / denom[:, None]
-        rows = slice(i0, i0 + len(me))
+        rows = slice(t0, t0 + len(me))
         mu[rows], cnt[rows] = m_, c
         for m, (a, b) in zip(s2, MOMENTS):
             cij = ((m / denom).astype(F64) - m_[:, a].astype(F64) * m_[:, b].astype(F64))
@@ -87,19 +90,35 @@ def _window_model(keys: np.ndarray, pts: np.ndarray):
     return mu, cov, cnt
 
 
+WINDOW_CASES = ["n0", "n1", "n5", "n32", "n33", "n257", "tile_boundary", "invalid_tail",
+                "one_cell", "all_invalid", "mixed_warp", "neg_zero", "n100", "n40",
+                "invalid_warps"]
+
+
 def _window_case(name: str):
     """Sorted cell keys [N] i32 and points [N, 3] f32 (INVALID_KEY / PAD_VALUE rows last).
     The points sit ~40 m out, so E[x x^T] - mu mu^T cancels as on a real scan; some
-    coordinates are exactly 0.0 (signed zeros)."""
+    coordinates are exactly 0.0 (signed zeros). `mixed_warp`: cells of 1 to 3 rows beside
+    cells of 6 to 20, so rows that share a window column sit beside rows that do not;
+    `neg_zero`: cells of 6 rows whose x y are all -0 and whose mean is +0, beside every
+    fourth cell's +0 products, so a row's second moment xy is -0 until it meets a +0
+    product; `invalid_warps`: 64 valid rows, then eight tiles of INVALID_KEY rows."""
     rng = np.random.default_rng(sum(map(ord, name)))
     n, valid = {"n0": (0, 0), "n1": (1, 1), "n5": (5, 5), "n32": (32, 29), "n33": (33, 33),
                 "n257": (257, 231), "tile_boundary": (384, 384), "invalid_tail": (257, 100),
-                "one_cell": (200, 200), "all_invalid": (64, 0)}[name]
+                "one_cell": (200, 200), "all_invalid": (64, 0), "mixed_warp": (320, 320),
+                "neg_zero": (192, 192), "n100": (100, 97), "n40": (40, 40),
+                "invalid_warps": (320, 64)}[name]
     if name == "one_cell":
         cells = np.zeros(valid, np.int64)
     elif name == "tile_boundary":  # a 41-row cell across the first blocks' boundary
         cells = np.concatenate([np.repeat(np.arange(9), 12), np.full(41, 9),
                                 np.repeat(np.arange(10, 10 + 235 // 5), 5)])[:valid]
+    elif name == "mixed_warp":
+        sizes = rng.choice([1, 2, 3, 6, 11, 20], size=valid, p=[.3, .2, .15, .15, .1, .1])
+        cells = np.repeat(np.arange(valid), sizes)[:valid]
+    elif name == "neg_zero":
+        cells = np.repeat(np.arange(valid // 6), 6)
     else:
         cells = np.sort(rng.integers(0, max(valid // 6, 1), valid))
     keys = np.full(n, INVALID, np.int32)
@@ -109,11 +128,17 @@ def _window_case(name: str):
     pts[:valid] = (centre + rng.normal(0.0, 0.3, (valid, 3))).astype(F32)
     pts[:valid:7, 2] = 0.0
     pts[1:valid:11, 1] = -0.0
+    if name == "neg_zero":  # x = +-0 and y = -+|y| in turn: every x y is -0, the y cancel
+        pos = np.arange(valid) % 2 == 0
+        y = np.repeat(np.abs(pts[:valid:2, 1]), 2)[:valid]
+        pts[:valid, 0] = np.where(pos, F32(0.0), F32(-0.0))
+        pts[:valid, 1] = np.where(pos, -y, y)
+        last = cells % 4 == 3  # every fourth cell: x = +0, y > 0, so x y = +0
+        pts[:valid, 0][last], pts[:valid, 1][last] = F32(0.0), y[last]
     return keys, pts
 
 
-@pytest.mark.parametrize("name", ["n0", "n1", "n5", "n32", "n33", "n257", "tile_boundary",
-                                  "invalid_tail", "one_cell", "all_invalid"])
+@pytest.mark.parametrize("name", WINDOW_CASES)
 def test_window_model_bit_equal_to_plain(name):
     keys, pts = _window_case(name)
     want = tnb.window_covariances(tnb.CellSort(torch.as_tensor(keys), torch.as_tensor(pts),
@@ -127,7 +152,7 @@ def test_window_model_bit_equal_to_plain(name):
         assert (cnt == 2 * COV_WINDOW + 1).all()
     if name == "n1":  # the row meets itself in every column
         np.testing.assert_array_equal(cnt, [2 * COV_WINDOW + 1])
-    if name in ("invalid_tail", "all_invalid"):
+    if name in ("invalid_tail", "all_invalid", "invalid_warps"):
         valid = keys != INVALID
         assert (cnt[~valid] == 0).all() and (want[1].numpy()[~valid] == 0).all()
 
@@ -211,6 +236,16 @@ def test_plane_covariances_plain_matches_reference(clouds, cloud):
 
 
 @pytest.mark.parametrize("cloud", ["scan", "padded"])
+def test_gicp_covariances_plain_matches_reference(clouds, cloud):
+    """`gicp_covariances_plain` of the cells' rows against the JAX `estimate_covariances`."""
+    pts, mask = clouds[cloud]
+    cells = tnb.sort_by_cell(torch.as_tensor(pts), torch.as_tensor(mask), 2.0)
+    tc, tok = (x.numpy() for x in tnb.gicp_covariances_plain(
+        cells.keys, cells.points, cells.order, torch.as_tensor(mask)))
+    _assert_matches_reference(tc, tok, *_reference(pts, mask), mask)
+
+
+@pytest.mark.parametrize("cloud", ["scan", "padded"])
 def test_estimate_covariances_matches_reference(clouds, cloud):
     pts, mask = clouds[cloud]
     tc, tok = (x.numpy() for x in tgicp.estimate_covariances(
@@ -248,20 +283,17 @@ def test_build_gicp_target_equals_the_two_sort_route(clouds, cloud):
 
 
 def test_cpu_wrappers_take_the_plain_versions(clouds):
-    """On CPU tensors the two wrappers are the plain versions (the window sums at the
-    default window of 16), and count no launch; N = 0 gives empty outputs."""
+    """On CPU tensors the wrapper is the plain version (the window sums at the default
+    window of 16, then the regularization), and counts no launch; N = 0 gives empty
+    outputs."""
     pts, mask = (torch.as_tensor(a) for a in clouds["padded"])
     cells = tnb.sort_by_cell(pts, mask, 2.0)
-    before = (tk.window_covariances.launches, tk.plane_covariances.launches)
-    got = tk.window_covariances(cells.keys, cells.points)
-    want = tnb.window_covariances(cells, 16)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    _, cov, cnt = got
-    got = tk.plane_covariances(cov, cnt, cells.order, mask)
+    before = tk.gicp_covariances.launches
+    got = tk.gicp_covariances(cells.keys, cells.points, cells.order, mask)
+    _, cov, cnt = tnb.window_covariances(cells, 16)
     want = tnb.plane_covariances_plain(cov, cnt, cells.order, mask)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    empty = tk.window_covariances(cells.keys[:0], cells.points[:0])
-    assert [tuple(t.shape) for t in empty] == [(0, 3), (0, 3, 3), (0,)]
-    covs, ok = tk.plane_covariances(*empty[1:], cells.order[:0], mask[:0])
+    covs, ok = tk.gicp_covariances(cells.keys[:0], cells.points[:0], cells.order[:0],
+                                   mask[:0])
     assert covs.shape == (0, 3, 3) and ok.shape == (0,)
-    assert (tk.window_covariances.launches, tk.plane_covariances.launches) == before
+    assert tk.gicp_covariances.launches == before

@@ -28,10 +28,9 @@ programmatic wait read nothing a launch before them writes). The fused front end
 captured programs (`odometry/fused.py:FusedFrontEnd`, CUDA graphs after the first call):
 a lagged course with NDT, GICP and ICP bit for bit against the plain step and
 insert-and-rebuild, the launches a replay counts, and replays without a synchronous read.
-GICP's covariance kernels (`window_covariances`, `plane_covariances`,
-`csrc/covariances.cu`) against their plain versions bit for bit, from the dense ring's
-655,360 rows down to N = 0, one launch a call, their refusals, no synchronous read, and
-inside the captured GICP insert.
+GICP's covariance kernel (`gicp_covariances`, `csrc/covariances.cu`) against its plain
+version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launch a call,
+its refusals, no synchronous read, and inside the captured GICP step and insert.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -1641,9 +1640,9 @@ def test_pyramid_on_the_card_equals_its_plain_rows(cuda, monkeypatch):
 
 
 def _window_covariances(device, n=32768, seed=3):
-    """GICP's window covariances of a synthetic scan as the parent handed them to the
-    eigensolve: the rows sorted by cell, their window sums, the identity where the window
-    holds fewer than 5 points."""
+    """GICP's window covariances of a synthetic scan as the eigensolve is handed them: the
+    rows sorted by cell, their window sums (the plain version), the identity where the
+    window holds fewer than 5 points."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
 
     rng = np.random.default_rng(seed)
@@ -1651,7 +1650,7 @@ def _window_covariances(device, n=32768, seed=3):
     scan = simulate_scan(world, np.eye(4, dtype=np.float32), rng, max_points=n)
     p = torch.as_tensor(scan, device=device)
     cells = tnb.sort_by_cell(p, torch.ones(p.shape[0], dtype=torch.bool, device=device), 2.0)
-    _, cov, cnt = tk.window_covariances(cells.keys, cells.points)
+    _, cov, cnt = tnb.window_covariances(cells)
     eye = torch.eye(3, dtype=cov.dtype, device=device).expand(cov.shape)
     return torch.where((cnt >= 5.0)[:, None, None], cov, eye)
 
@@ -1684,9 +1683,8 @@ def test_eigh3x3_bit_equal_to_plain(cuda):
 
 def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
     """The FPFH normals launch `eigh3x3` once a call on the card; `estimate_covariances`
-    launches `window_covariances` and `plane_covariances` once each (its eigensolve runs
-    inside `plane_covariances`) and no `eigh3x3`. Both equal the same calls with the
-    plain versions bit for bit."""
+    launches `gicp_covariances` once (its eigensolve runs inside it) and no `eigh3x3`.
+    Both equal the same calls with the plain versions bit for bit."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
     from lidar_graph_slam_tpu_torch.ops.voxel import _eigh3x3
     from lidar_graph_slam_tpu_torch.registration import features
@@ -1702,29 +1700,28 @@ def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
         normals, nok = features.estimate_normals(build_hash_grid(p, m, 1.0), p[:2048], m[:2048])
         return covs, ok, normals, nok
 
-    before = (tk.eigh3x3.launches, tk.window_covariances.launches,
-              tk.plane_covariances.launches)
+    before = (tk.eigh3x3.launches, tk.gicp_covariances.launches)
     out = run()
-    assert (tk.eigh3x3.launches, tk.window_covariances.launches,
-            tk.plane_covariances.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
+    assert (tk.eigh3x3.launches, tk.gicp_covariances.launches) == (before[0] + 1,
+                                                                    before[1] + 1)
     monkeypatch.setattr(tk, "eigh3x3", _eigh3x3)
-    monkeypatch.setattr(tk, "window_covariances", tnb.window_covariances_plain)
-    monkeypatch.setattr(tk, "plane_covariances", tnb.plane_covariances_plain)
+    monkeypatch.setattr(tk, "gicp_covariances", tnb.gicp_covariances_plain)
     for a, b in zip(out, run()):
         assert torch.equal(a, b)
     assert bool(out[1].any()) and bool(out[3].any())
 
 
 # -- GICP's covariances (`csrc/covariances.cu`) -----------------------------------------------
-# `window_covariances` and `plane_covariances` against their plain versions
-# (`neighbors.window_covariances`, `plane_covariances_plain`) on the same card tensors, bit
-# for bit, with a rerun: the dense ring's 655,360 rows, a 32,768-row source, the
-# 16,384-row verifier cloud, N whose window wraps several times, an all-invalid tail and
-# an all-invalid cloud, one cell filling the window, and axis-aligned planes (exact zeros
-# in the covariances and the eigenvectors, where a product's signed zero shows).
+# `gicp_covariances` against its plain version (`neighbors.gicp_covariances_plain`: the
+# window sums, then `plane_covariances_plain`) on the same card tensors, bit for bit, with
+# a rerun: the dense ring's 655,360 rows, a 32,768-row source, the 16,384-row verifier
+# cloud, N whose window wraps several times or ends inside a warp's tile, an all-invalid
+# tail and an all-invalid cloud, one cell filling the window, and axis-aligned planes
+# (exact zeros in the covariances and the eigenvectors, where a product's signed zero
+# shows).
 
-COV_CASES = ["ring", "source", "verifier", "n1", "n5", "n32", "n33", "n257", "one_cell",
-             "planes", "all_invalid", "empty"]
+COV_CASES = ["ring", "source", "verifier", "n1", "n5", "n31", "n32", "n33", "n257",
+             "one_cell", "planes", "all_invalid", "empty"]
 
 
 def _cov_cloud(case, device, seed=0):
@@ -1753,8 +1750,8 @@ def _cov_cloud(case, device, seed=0):
         pts[n // 2:, 0] = 10.0
         mask = np.ones(n, bool)
     else:
-        n = {"n1": 1, "n5": 5, "n32": 32, "n33": 33, "n257": 257, "one_cell": 300,
-             "all_invalid": 512, "empty": 0}[case]
+        n = {"n1": 1, "n5": 5, "n31": 31, "n32": 32, "n33": 33, "n257": 257,
+             "one_cell": 300, "all_invalid": 512, "empty": 0}[case]
         spread = 0.25 if case == "one_cell" else 1.5
         pts = (np.array([40.3, -25.1, 1.2]) + rng.uniform(0.0, spread, (n, 3))).astype(
             np.float32)
@@ -1775,8 +1772,8 @@ def _same_bits(got, want):
 
 @pytest.mark.parametrize("case", COV_CASES)
 def test_covariance_kernels_bit_equal_to_plain(cuda, case):
-    """Both kernels against their plain versions, twice, one launch a call (none at N =
-    0); the plane kernel's V diag(1e-3, 1, 1) V^T against `_scaled_gram`'s order."""
+    """`gicp_covariances` against its plain version, twice, one launch a call (none at N
+    = 0); the product V diag(1e-3, 1, 1) V^T against `_scaled_gram`'s order."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
 
     p, m = _cov_cloud(case, cuda)
@@ -1784,25 +1781,19 @@ def test_covariance_kernels_bit_equal_to_plain(cuda, case):
     cells = (tnb.sort_by_cell(p, m, 2.0) if n else tnb.CellSort(
         keys=torch.empty(0, dtype=torch.int32, device=cuda), points=p,
         order=torch.empty(0, dtype=torch.int64, device=cuda)))
-    before = (tk.window_covariances.launches, tk.plane_covariances.launches)
-    win = tk.window_covariances(cells.keys, cells.points)
-    win2 = tk.window_covariances(cells.keys, cells.points)
-    ref = tnb.window_covariances(cells)
-    _same_bits(win, ref)
-    _same_bits(win2, ref)
-    plane = tk.plane_covariances(win[1], win[2], cells.order, m)
-    plane2 = tk.plane_covariances(win[1], win[2], cells.order, m)
-    pref = tnb.plane_covariances_plain(ref[1], ref[2], cells.order, m)
+    args = (cells.keys, cells.points, cells.order, m)
+    before = tk.gicp_covariances.launches
+    got = tk.gicp_covariances(*args)
+    again = tk.gicp_covariances(*args)
+    want = tnb.gicp_covariances_plain(*args)
     torch.cuda.synchronize()
-    _same_bits(plane, pref)
-    _same_bits(plane2, pref)
-    launched = int(n > 0)
-    assert (tk.window_covariances.launches - before[0],
-            tk.plane_covariances.launches - before[1]) == (2 * launched, 2 * launched)
+    _same_bits(got, want)
+    _same_bits(again, want)
+    assert tk.gicp_covariances.launches - before == 2 * int(n > 0)
     if case in ("ring", "source", "verifier", "one_cell", "planes"):
-        assert float(pref[1].sum()) > 0.5 * float(m.sum())
+        assert float(want[1].sum()) > 0.5 * float(m.sum())
     if case in ("all_invalid", "empty"):
-        assert not bool(pref[1].any())
+        assert not bool(want[1].any())
 
 
 def test_covariance_kernels_reject_bad_inputs(cuda):
@@ -1811,47 +1802,44 @@ def test_covariance_kernels_reject_bad_inputs(cuda):
     p, m = _cov_cloud("n257", cuda)
     cells = tnb.sort_by_cell(p, m, 2.0)
     keys, pts, order = cells.keys, cells.points, cells.order
-    _, cov, cnt = tk.window_covariances(keys, pts)
-    before = (tk.window_covariances.launches, tk.plane_covariances.launches)
-    for bad in ((keys.long(), pts), (keys, pts.double()), (keys[:-1], pts),
-                (keys, pts[:, :2]), (keys, pts.cpu()), (keys, pts.t().contiguous().t())):
+    before = tk.gicp_covariances.launches
+    for bad in ((keys.long(), pts, order, m), (keys, pts.double(), order, m),
+                (keys[:-1], pts, order, m), (keys, pts[:, :2], order, m),
+                (keys, pts.cpu(), order, m), (keys, pts.t().contiguous().t(), order, m),
+                (keys, pts, order.int(), m), (keys, pts, order, m.int()),
+                (keys, pts, order[:-1], m), (keys, pts, order.cpu(), m),
+                (keys, pts, order, m[:-1])):
         with pytest.raises(ValueError):
-            tk.window_covariances(*bad)
-    for bad in ((cov.double(), cnt, order, m), (cov, cnt.int(), order, m),
-                (cov, cnt, order.int(), m), (cov, cnt, order, m.int()),
-                (cov[:-1], cnt, order, m), (cov.reshape(-1, 9), cnt, order, m),
-                (cov, cnt, order.cpu(), m), (cov.transpose(1, 2), cnt, order, m)):
-        with pytest.raises(ValueError):
-            tk.plane_covariances(*bad)
-    assert (tk.window_covariances.launches, tk.plane_covariances.launches) == before
+            tk.gicp_covariances(*bad)
+    assert tk.gicp_covariances.launches == before
 
 
 def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
-    """`estimate_covariances` and `build_gicp_target` on the card: one launch of each
-    kernel a call, no `eigh3x3`, and no synchronous read under
-    `torch.cuda.set_sync_debug_mode("error")` (after a warm-up call)."""
+    """`estimate_covariances` and `build_gicp_target` on the card: one launch of
+    `gicp_covariances` a call and no other kernel of `ops/kernels.py` (no `eigh3x3`), and
+    no synchronous read under `torch.cuda.set_sync_debug_mode("error")` (after a warm-up
+    call)."""
     p, m = _cov_cloud("source", cuda)
     gicp.estimate_covariances(p, m, 2.0)
     gicp.build_gicp_target(p, m, 2.0)
     torch.cuda.synchronize()
-    before = (tk.window_covariances.launches, tk.plane_covariances.launches,
-              tk.eigh3x3.launches)
+    before = (tk.gicp_covariances.launches, tk.eigh3x3.launches, tk.thread_launches())
     try:
         torch.cuda.set_sync_debug_mode("error")
         covs, ok = gicp.estimate_covariances(p, m, 2.0)
         target = gicp.build_gicp_target(p, m, 2.0)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert (tk.window_covariances.launches - before[0], tk.plane_covariances.launches
-            - before[1], tk.eigh3x3.launches - before[2]) == (2, 2, 0)
+    assert (tk.gicp_covariances.launches - before[0], tk.eigh3x3.launches - before[1],
+            tk.thread_launches() - before[2]) == (2, 0, 2)
     assert bool(torch.isfinite(covs).all()) and bool(target.valid.any()) and bool(ok.any())
 
 
 def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
-    """The GICP front end's captured programs record one launch of each covariance
-    kernel (the step's source, the insert's target) and no `eigh3x3`; a replayed insert's
+    """The GICP front end's captured programs record one launch of `gicp_covariances`
+    each (the step's source, the insert's target) and no `eigh3x3`; a replayed insert's
     target equals the plain insert-and-rebuild body, run with the covariances' plain
-    versions, bit for bit."""
+    version, bit for bit."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
     from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd, make_fused_frontend
 
@@ -1862,11 +1850,10 @@ def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
         front.insert_and_rebuild(t % 2)
     torch.cuda.synchronize()
     step_tally = front.programs[16384].tally
-    assert front.insert_program.tally == {tk.window_covariances: 1, tk.plane_covariances: 1}
-    assert step_tally[tk.window_covariances] == step_tally[tk.plane_covariances] == 1
+    assert front.insert_program.tally == {tk.gicp_covariances: 1}
+    assert step_tally[tk.gicp_covariances] == 1
     assert tk.eigh3x3 not in step_tally and front.insert_program.replays == len(raws) - 1
-    monkeypatch.setattr(tk, "window_covariances", tnb.window_covariances_plain)
-    monkeypatch.setattr(tk, "plane_covariances", tnb.plane_covariances_plain)
+    monkeypatch.setattr(tk, "gicp_covariances", tnb.gicp_covariances_plain)
     _, _, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
                                     device=cuda)
     want = aux["rebuild"](front.ring)
