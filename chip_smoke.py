@@ -38,7 +38,9 @@ of `bench.py:bench_e2e`. Phases:
      dispatch and of a keyframe's, their device ms (CUDA events) and the device's idle
      share over the frames, each graph pool's bytes; 20 frames of step and insert
      replays under `torch.cuda.set_sync_debug_mode("error")` (phase 23 reads the replays'
-     runtime calls from the profiler);
+     runtime calls from the profiler); with `--parent DIR` each matcher's step and insert
+     replays on the 40 frames against the parent tree's, in turns
+     (`scripts/torch_captured_replays.py`), the rows bit-equal;
   4. the target rebuild (`build_ndt_pyramid`) on a full 20 x 32,768 ring: twice,
      bit-identical maps; `ndt_finalize` on the ring's two levels (the fine one from the
      sorted points, C = 65,536; the coarse one from the merged fine moments, 32,768)
@@ -52,15 +54,15 @@ of `bench.py:bench_e2e`. Phases:
      sync-free; `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
      turns, and each one's device kernel launches (fewer than 216 on the kernel path),
-     `segment_reduce` launches (none on the kernel path) and device ms under
-     torch.profiler;
+     wrapper launches (`ndt_finalize` and `dense_table` once a map), `segment_reduce`
+     and scatter launches (none on the kernel path) and device ms under torch.profiler;
   5. the first 3 frames through the card and through the CPU plain path: poses agree to
      1 cm / 1 mrad;
   6. `SlamPipeline` on the 40-frame course: all frames converge, keyframe ATE within
      max(0.05 x travelled, 0.35) m, the NDT loop kernel launched 16 + 64 + 2 times a
      frame (and how many of those did work), the accumulate kernels not, `ndt_finalize`
-     twice a target build, `eigh3x3` not, `voxel_centroids` and `sor_window_stats` once
-     a frame (the prefilter); p50 frame ms;
+     and `dense_table` twice a target build, `eigh3x3` and `grid_rows` not,
+     `voxel_centroids` and `sor_window_stats` once a frame (the prefilter); p50 frame ms;
   7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
      device kernel launches, device ms and wall ms per align and per NDT body; with
      `--parent DIR` (the parent commit unpacked by `git archive`) also that tree's, on the
@@ -71,8 +73,9 @@ of `bench.py:bench_e2e`. Phases:
      course, then again with loops off — all frames converge, loops are accepted, and
      keyframe ATE with loops on is below ATE with loops off; the loop kernels' launches
      on the verify path are counted (the NDT pre-align's, `icp_iteration`'s — and how
-     many of those did work — and `icp_fitness`'s); the back-end stage p50 with loops on
-     and off, verify p50 and max;
+     many of those did work — and `icp_fitness`'s; the loop inputs' `grid_rows` and
+     `dense_table`, one table a map); the back-end stage p50 with loops on and off,
+     verify p50 and max;
  10b. `ndt_finalize` on the course's last ring (~28% of its rows valid) as in phase 4,
      and its rebuild profile;
  10c. the prefilter's kernels on the dense course's first frame (its 131,072-row bucket)
@@ -98,6 +101,15 @@ of `bench.py:bench_e2e`. Phases:
      [N, 48] row sorts (none of either on the kernel path);
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
+ 11b. the hash grid's kernels (`csrc/grid.cu`): `grid_rows` against `grid_rows_plain` on
+     the rows sorted at 2 m of the dense ring (655,360 rows), of that loop submap
+     (131,072) and of the last ring scan (32,768, a source grid), and `dense_table`
+     against `build_dense_table_plain` on the dense ring's NDT levels (65,536 and 32,768
+     rows), bit for bit with reruns; each one's device and host us, the plain version's
+     ms, the library yardsticks on the same rows (`torch.cummax` for the starts,
+     `scatter_reduce_("amin")` for the table), the bound (bytes: the table's 16 MiB clear
+     and the rows) and its share; `build_hash_grid` and `build_dense_table` without a
+     synchronous read (phase 20 adds `dense_table` on its occupancy table);
  12. one verification, card against CPU, from the same keyframes: the same decision, and
      its coarse NDT pre-align alone: the same iteration count and transform; both kernels
      against their plain versions on the pre-align's own inputs (16,384 points, K =
@@ -154,23 +166,26 @@ of `bench.py:bench_e2e`. Phases:
      (the largest of the bytes, the same-cell window rows' float32 <-> float64
      conversions and the other instructions' issue slots, counted from the run's data)
      and its share, the kernel's SASS conversions; with `--parent DIR` the parent tree's
-     two launches (`window_covariances` + `plane_covariances`) on the same inputs, summed,
-     in turns with it, and `scripts/torch_covariances_split.py` in a subprocess: a launch
+     `gicp_covariances` on the same inputs in turns with it, and
+     `scripts/torch_covariances_split.py` in a subprocess: a launch
      split into its parts (floor, stage, window sums, eigensolve, scatter store) and one
      tile's chain; `estimate_covariances` and `build_gicp_target` without a synchronous
      read; `scripts/torch_profile_gicp_build.py` in a subprocess: the target
      build and a source's covariances on the kernel path, the plain path and, with
-     `--parent DIR`, the parent tree's, wall ms in turns, device launches and ms;
+     `--parent DIR`, the parent tree's (its own grid build), wall ms in turns, device
+     launches and ms, `torch.cummax` scans and scatters (none on the kernel path);
  15. the GICP front end (fused driver, loops off) on the 40-frame dense course: the
      first 3 frames card against CPU (1 cm / 1 mrad), then the whole course — the GICP
      loop kernel launched 64 times a frame (and how many did work), `gicp_covariances`
-     once a frame and once a target build, `eigh3x3`,
-     `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize` and the NDT loop kernel
-     not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter` stage p50 (the
+     once a frame and once a target build, `grid_rows` once a target build, `eigh3x3`,
+     `ndt_accumulate`, `ndt_direct7_accumulate`, `ndt_finalize`, `dense_table` and the
+     NDT loop kernel not; phase 6's assertions; keyframe ATE, p50 frame, the `prefilter`
+     stage p50 (the
      host's enqueue of the step); the course again with the covariances' plain version,
      every pose bit for bit;
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
-     then ICP, each with phase 6's assertions, ICP launching `icp_iteration`; each
+     then ICP, each with phase 6's assertions, ICP launching `icp_iteration` and
+     `grid_rows` (NDT `dense_table` once a map, ICP not); each
      stage's p50 for both; with `--parent DIR`, phase 10's course (verify p50 and max)
      and this classic ICP run (register p50) through `scripts/torch_trajectories.py` for
      this tree and that one in turns;
@@ -203,7 +218,8 @@ of `bench.py:bench_e2e`. Phases:
      input the normals handed it in that run, bit for bit with reruns, and on the first
      one its device and host us, the plain version's ms, `torch.linalg.eigh`'s ms, the
      bound (bytes, and `eigh3x3`'s SASS instructions a matrix for each matrix that is
-     not the identity: the normals' guarded rows are);
+     not the identity: the normals' guarded rows are); `dense_table` on the course's
+     first RANSAC occupancy table (recorded in the verify worker) as in phase 11b;
  21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
      continued — the classic driver equals the uninterrupted run to 1e-4 with the same
      keyframe schedule, the fused driver to 5e-2 with the same schedule; file size, save
@@ -253,10 +269,12 @@ device's count of the loop kernels' launches that did work).
 Every phase prints one line of its numbers; a failure raises (exit code != 0, no
 result). The line before the last is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Needs one card; runs in a checkout of the repo.
-`python3 chip_smoke.py --parent DIR` adds the parent tree's loop-kernel timings to phase
-3b, its profile to phase 7, its GICP loop kernel to phase 14b (the carry bit for bit,
-the times in turns with this tree's), its ICP kernels' times, aligns and SASS check to
-phase 14c and its verifications and classic ICP front end to phase 16 (in turns).
+`python3 chip_smoke.py --parent DIR` adds the parent tree's step and insert replays to
+phase 3c, its loop-kernel timings to phase 3b, its rebuild to phase 4, its profile to
+phase 7, its GICP target build (its own grid) to phase 14d, its GICP loop kernel to
+phase 14b (the carry bit for bit, the times in turns with this tree's), its ICP kernels'
+times, aligns and SASS check to phase 14c, its verifications and classic ICP front end to
+phase 16 and its GICP courses to phase 18 (in turns, every course bit-equal).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -276,6 +294,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from collections import deque
@@ -323,6 +342,7 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import (
     CellSort,
     build_hash_grid,
     gicp_covariances_plain,
+    grid_rows_plain,
     nearest,
     sor_window_stats_plain,
     sort_by_cell,
@@ -368,7 +388,7 @@ DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
            "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats",
-           "gicp_covariances")
+           "gicp_covariances", "dense_table", "grid_rows")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -897,7 +917,8 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
     tree's, in turns; device kernel launches, device ms, `segment_reduce`'s launches and
     wrapper launches of one build of each under torch.profiler, one `rebuild-profile` line
     a path. The kernel path must launch fewer device kernels than the plain path, no
-    `segment_reduce`, and build the same maps bit for bit (the parent's too)."""
+    `segment_reduce` and no scatter, and build the same maps bit for bit (the parent's
+    too)."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", f"rebuild_profile_input_{tag}.npz")
@@ -913,9 +934,11 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
     if proc.returncode != 0:
         raise AssertionError(f"rebuild profile failed:\n{proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 2
+    # Two maps: each one `ndt_finalize` and one `dense_table`.
+    if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 4
             and rec["kernel"]["launches"] < rec["plain"]["launches"]
-            and rec["kernel"]["segment_reduce_launches"] == 0):
+            and rec["kernel"]["segment_reduce_launches"] == 0
+            and rec["kernel"]["scatter_launches"] == 0):
         raise AssertionError(f"rebuild profile: {rec}")
     for name in ("kernel", "plain", "parent"):
         if name in rec:
@@ -1398,17 +1421,13 @@ def grid_nn_card_vs_cpu(back: GraphBasedSLAM, rec: dict, devices=("cuda", "cpu")
     16) on the loop submap of attempt `rec`, queried with its latest keyframe's cloud:
     the same filtered submap goes to both devices; idx and found must be equal."""
     cap = back.capacity
-    submap = back._assemble_submap(rec["candidate"], back.cfg.search_key_frame_num,
-                                   max_points=cap.loop_submap_points)
-    sub = PointCloud.from_array(submap, capacity=cap.loop_submap_points)
-    filt = voxel_downsample(sub.points, sub.mask, back.cfg.loop_submap_leaf,
-                            capacity=cap.loop_submap_points)
+    filt_points, filt_mask = loop_submap_cloud(back, rec)
     T = back._poses_host[rec["latest"]]
     src = PointCloud.from_array(back._cloud(rec["latest"]) @ T[:3, :3].T + T[:3, 3],
                                 capacity=cap.keyframe_points)
     out, ms = [], []
     for device in devices:
-        grid = build_hash_grid(filt.points.to(device), filt.mask.to(device), 2.0)
+        grid = build_hash_grid(filt_points.to(device), filt_mask.to(device), 2.0)
         q = src.points.to(device)
         out.append([t.cpu() for t in nearest(grid, q, bucket_cap=16, neighborhood=7)])
         if device == "cuda":
@@ -1424,7 +1443,7 @@ def grid_nn_card_vs_cpu(back: GraphBasedSLAM, rec: dict, devices=("cuda", "cpu")
     rel = float(((cd[cf] - pd[pf]).abs() / pd[pf].abs().clamp(min=1e-12)).max())
     if not rel <= NN_RTOL:
         raise AssertionError(f"grid NN: d2 relative error {rel} > {NN_RTOL}")
-    return dict(submap_points=int(filt.mask.sum()), queries=int(src.mask.sum()),
+    return dict(submap_points=int(filt_mask.sum()), queries=int(src.mask.sum()),
                 found=int(cf.sum()), candidates_per_query=7 * 16, d2_max_rel_err=rel,
                 card_ms=ms[0], cpu_ms=round(ms[1], 3))
 
@@ -1718,7 +1737,7 @@ def write_covariance_inputs(inputs: dict) -> str:
 def covariance_split(inputs: dict, parent: str, card: str) -> dict:
     """`scripts/torch_covariances_split.py` in a subprocess on `inputs`: a launch split into
     its parts at each shape (the floor, the stage, the window sums, the eigensolve, the
-    scatter store), one tile's chain, and the `parent` tree's two launches; one
+    scatter store), one tile's chain, and the `parent` tree's kernel; one
     `covariance-split` line a shape."""
     path = write_covariance_inputs(inputs)
     cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_covariances_split.py"),
@@ -1741,9 +1760,10 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
     """`scripts/torch_profile_gicp_build.py` in a subprocess: the dense ring's GICP target
     build and the last ring scan's covariances on the kernel path, the plain path and
     (with `parent`) the parent tree's, wall ms in turns, device launches, device ms and
-    wrapper launches under torch.profiler; one `gicp-build-profile` line a call and path.
-    The kernel path must equal the plain path bit for bit, launch the kernel once a call
-    and fewer device kernels than the plain path."""
+    wrapper launches, `torch.cummax` scans and scatters under torch.profiler; one
+    `gicp-build-profile` line a call and path. The kernel path must equal the plain path
+    bit for bit, launch `gicp_covariances` once a call (the target's grid `grid_rows` once
+    more), no cummax scan and no scatter, and fewer device kernels than the plain path."""
     points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", "gicp_build_profile_input.npz")
@@ -1761,8 +1781,11 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
         raise AssertionError(f"GICP build profile failed:\n{proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     for call, row in rec.items():
-        if not (row["bit_equal_kernel_plain"] and row["kernel"]["wrapper_launches"] == 1
-                and row["kernel"]["launches"] < row["plain"]["launches"]):
+        k = row["kernel"]
+        if not (row["bit_equal_kernel_plain"]
+                and k["wrapper_launches"] == (2 if call == "target" else 1)
+                and k["cummax_launches"] == k["scatter_launches"] == 0
+                and k["launches"] < row["plain"]["launches"]):
             raise AssertionError(f"GICP build profile, {call}: {row}")
         for name in ("kernel", "plain", "parent"):
             if name in row:
@@ -1775,18 +1798,16 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
 
 
 def covariance_turns(args, parent_kern) -> dict:
-    """Device us of `gicp_covariances` on `args` and of the parent tree's two launches
-    (`parent_kern`: its `ops.kernels`, with `window_covariances` and `plane_covariances`)
-    on the same inputs, summed, in turns (this, parent, parent, this), `split_times`
-    each; the parent's results bit-equal to this tree's first."""
-    keys, pts, order, mask = args
+    """Device us of `gicp_covariances` on `args` and of the parent tree's
+    (`parent_kern`: its `ops.kernels`) on the same inputs, in turns (this, parent,
+    parent, this), `split_times` each; the parent's results bit-equal to this tree's
+    first."""
 
     def parent_call():
-        _, cov, cnt = parent_kern.window_covariances(keys, pts)
-        return parent_kern.plane_covariances(cov, cnt, order, mask)
+        return parent_kern.gicp_covariances(*args)
 
-    same_bits("parent window + plane covariances", ("covs", "ok"), parent_call(),
-              parent_call(), kernels.gicp_covariances(*args))
+    same_bits("parent gicp_covariances", ("covs", "ok"), parent_call(), parent_call(),
+              kernels.gicp_covariances(*args))
     runs = {"this": [], "parent": []}
     for tree in ("this", "parent", "parent", "this"):
         fn = parent_call if tree == "parent" else (lambda: kernels.gicp_covariances(*args))
@@ -1803,8 +1824,8 @@ def covariance_phase(cfg: PipelineConfig, ring, last, verify_in, card: str,
     """Phase 14d: `gicp_covariances` at the path's three shapes (`covariance_inputs`)
     against `gicp_covariances_plain` on the same card tensors, bit for bit with a rerun;
     its device and host us (`split_times`), the plain version's ms, the bound
-    (`covariance_bound`) and its share; with `parent` the parent tree's two launches on
-    the same inputs, summed, in turns (`covariance_turns`), and the split of a launch
+    (`covariance_bound`) and its share; with `parent` the parent tree's kernel on the
+    same inputs in turns (`covariance_turns`), and the split of a launch
     (`covariance_split`); the kernel's SASS conversions; `estimate_covariances` and
     `build_gicp_target` without a synchronous read; the profile of `profile_gicp_build`.
     No one library call computes the function. Returns {"timing": {shape: {kernel:
@@ -1838,6 +1859,177 @@ def covariance_phase(cfg: PipelineConfig, ring, last, verify_in, card: str,
     return dict(timing=timing, profile=profile_gicp_build(cfg, ring, last, parent, card),
                 split=covariance_split(inputs, parent, card) if parent is not None else None,
                 sass_conversions=conv)
+
+
+# -- the hash grid's kernels (phase 11b) ----------------------------------------------------
+
+# The grid kernels' least traffic. `grid_rows`: a row's key and xyz read (4 + 12 B), its
+# packed row and start written (16 + 8 B), and a stored row's index (4 B). `dense_table`:
+# a row's key and flag read (4 + 1 B), and a passing row's index (4 B). Both write the
+# whole table once (its clear). Neither does work worth counting beside its bytes.
+GRID_ROW_BYTES, TABLE_ROW_BYTES, TABLE_SLOT_BYTES = 40, 5, 4
+TABLE_BYTES = 4 * TABLE_DIMS[0] * TABLE_DIMS[1] * TABLE_DIMS[2]
+
+
+def loop_submap_cloud(back: GraphBasedSLAM, rec: dict):
+    """The filtered loop submap of attempt `rec` on the CPU (points [131,072, 3], mask):
+    the cloud whose grid is that attempt's verify input."""
+    cap = back.capacity
+    submap = back._assemble_submap(rec["candidate"], back.cfg.search_key_frame_num,
+                                   max_points=cap.loop_submap_points)
+    sub = PointCloud.from_array(submap, capacity=cap.loop_submap_points)
+    filt = voxel_downsample(sub.points, sub.mask, back.cfg.loop_submap_leaf,
+                            capacity=cap.loop_submap_points)
+    return filt.points, filt.mask
+
+
+def in_table(keys: torch.Tensor) -> torch.Tensor:
+    """Which keys unpack inside the dense table (`voxel._flat_table_index`)."""
+    return voxel._flat_table_index(torch.stack(voxel.unpack_key(keys), dim=-1), TABLE_DIMS)[1]
+
+
+def first_of_run(keys: torch.Tensor) -> torch.Tensor:
+    """The first row of each run of equal sorted keys."""
+    return torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device),
+                      keys[1:] != keys[:-1]])
+
+
+def grid_inputs(cfg: PipelineConfig, ring, last, loop_cloud, maps) -> dict:
+    """The grid kernels' arguments at the path's shapes, {shape: (kernel, args)}:
+    `grid_rows`' (the rows sorted at 2 m) for the dense ring's GICP and ICP target grid
+    (655,360 rows), the loop submap's verify-input grid (131,072 rows, `loop_cloud`) and a
+    source grid (the last ring scan, 32,768 rows: GICP's reciprocal source grid);
+    `dense_table`'s (keys, valid) for the dense ring's NDT levels (`maps`: fine, coarse;
+    65,536 and 32,768 rows)."""
+    cell = cfg.scan_matcher.gicp.max_correspondence_distance
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    dev = points.device
+    out = {}
+    for label, (p, m) in (("grid_ring", (points, mask)),
+                          ("grid_loop", tuple(t.to(dev) for t in loop_cloud)),
+                          ("grid_source", (last.points, last.mask))):
+        cells = sort_by_cell(p, m, cell)
+        out[label] = ("grid_rows", (cells.keys, cells.points))
+    for label, vmap in zip(("table_fine", "table_coarse"), maps):
+        out[label] = ("dense_table", (vmap.keys, vmap.valid))
+    return out
+
+
+def grid_bound(name: str, args) -> dict:
+    """The least time for one call of `name` on `args`: its bytes (`GRID_ROW_BYTES` or
+    `TABLE_ROW_BYTES` a row, `TABLE_SLOT_BYTES` a row the table stores, the table's clear)
+    over the HBM rate, counted from this run's data."""
+    keys = args[0]
+    if name == "grid_rows":
+        stored = first_of_run(keys) & (keys != voxel.INVALID_KEY) & in_table(keys)
+        row_bytes = GRID_ROW_BYTES
+    else:
+        stored = args[1] & in_table(keys)
+        row_bytes = TABLE_ROW_BYTES
+    n, k = keys.shape[0], int(stored.sum())
+    nbytes = TABLE_BYTES + n * row_bytes + k * TABLE_SLOT_BYTES
+    return dict(rows=n, stored_rows=k, bytes=nbytes,
+                bound_us=1e6 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+
+
+def grid_library_ms(name: str, args) -> dict:
+    """The library yardsticks on the same rows, one PyTorch call each: `torch.cummax` of
+    the first-of-run rows' indices (`starts`, `grid_rows` only) and the table's
+    `scatter_reduce_("amin")` of the rows that pass, the others sent to an overflow slot,
+    into a table filled beforehand. `library_ms` is the call that computes the most of the
+    kernel's function: the cummax for `grid_rows`, the scatter for `dense_table`."""
+    keys = args[0]
+    n, dev = keys.shape[0], keys.device
+    idx = torch.arange(n, device=dev)
+    size = TABLE_BYTES // 4
+    if name == "grid_rows":
+        first = first_of_run(keys)
+        runs = torch.where(first, idx, 0)
+        passing = first & (keys != voxel.INVALID_KEY)
+        cummax_ms = median_ms(lambda: torch.cummax(runs, dim=0), calls=20)
+    else:
+        passing, cummax_ms = args[1], None
+    flat, inside = voxel._flat_table_index(torch.stack(voxel.unpack_key(keys), dim=-1),
+                                           TABLE_DIMS)
+    flat = torch.where(passing & inside, flat, size).long()
+    src = idx.to(torch.int32)
+    table = torch.full((size + 1,), voxel.INVALID_KEY, dtype=torch.int32, device=dev)
+    scatter_ms = median_ms(lambda: table.scatter_reduce_(0, flat, src, reduce="amin",
+                                                         include_self=True), calls=20)
+    return dict(library_ms=cummax_ms if name == "grid_rows" else scatter_ms,
+                library_cummax_ms=cummax_ms, library_scatter_ms=scatter_ms)
+
+
+def grid_kernel_timing(label: str, name: str, args, card: str) -> dict:
+    """One grid kernel at one shape: against its plain version on the same card tensors
+    bit for bit with a rerun, its device and host us (`split_times`), the plain version's
+    ms (the parent tree's grid build ran it), the library yardsticks' (`grid_library_ms`),
+    the bound (`grid_bound`) and its share."""
+    if name == "grid_rows":
+        # The packed rows' bits (an INVALID_KEY row's fourth word is a NaN's bits).
+        def plain(keys, points):
+            starts, packed, table = grid_rows_plain(keys, points)
+            return starts, packed.view(torch.int32), table
+
+        def kernel(keys, points):
+            starts, packed, table = kernels.grid_rows(keys, points)
+            return starts, packed.view(torch.int32), table
+
+        names = ("starts", "packed", "table")
+    else:
+        def plain(keys, valid):
+            return (voxel.build_dense_table_plain(keys, valid, TABLE_DIMS),)
+
+        def kernel(keys, valid):
+            return (kernels.dense_table(keys, valid),)
+
+        names = ("table",)
+    same_bits(f"{name} {label}", names, kernel(*args), kernel(*args), plain(*args))
+    t = split_times(getattr(kernels, name), *args)
+    t.update(plain_ms=median_ms(plain, *args, calls=20), **grid_library_ms(name, args),
+             **grid_bound(name, args))
+    t["share_of_bound"] = t["bound_us"] / t["device_us"]
+    say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
+    return {name: dict(kernel=name, shape=label, **t)}
+
+
+def grid_phase(cfg: PipelineConfig, ring, last, loop_cloud, maps, card: str) -> dict:
+    """Phase 11b: `grid_rows` and `dense_table` at the path's shapes (`grid_inputs`)
+    against their plain versions, bit for bit with reruns, with their times, yardsticks
+    and bounds (`grid_kernel_timing`); `build_hash_grid` and `build_dense_table` without a
+    synchronous read. Returns {shape: {kernel: timing}}."""
+    timing = {label: grid_kernel_timing(label, name, args, card)
+              for label, (name, args) in grid_inputs(cfg, ring, last, loop_cloud,
+                                                     maps).items()}
+    p, m = (t.to(ring.masks.device) for t in loop_cloud)
+    fine = maps[0]
+    sync = {"build_hash_grid": sync_sites(lambda: build_hash_grid(p, m, 2.0)),
+            "build_dense_table": sync_sites(lambda: voxel.build_dense_table(
+                fine.keys, fine.valid, TABLE_DIMS))}
+    if not all(v["sync_free"] for v in sync.values()):
+        raise AssertionError(f"the grid build reads the device: {sync}")
+    say("grid-sync", **{f"{k}_sync_free": v["sync_free"] for k, v in sync.items()},
+        card=json.dumps(card))
+    return timing
+
+
+@contextlib.contextmanager
+def recording_off_main_dense_tables(inputs: list):
+    """Inside, each `kernels.dense_table` call made off the main thread (the verify
+    worker's: the RANSAC occupancy table of a global guess) also appends copies of its
+    keys and flags to `inputs`; the wrapper itself runs and counts as it does outside."""
+    wrapper = kernels.dense_table
+
+    def recorded(keys, row_valid, dims=TABLE_DIMS):
+        if threading.current_thread() is not threading.main_thread():
+            inputs.append((keys.clone(), row_valid.clone()))
+        return wrapper(keys, row_valid, dims)
+
+    kernels.dense_table = recorded
+    try:
+        yield inputs
+    finally:
+        kernels.dense_table = wrapper
 
 
 def reset_counts() -> None:
@@ -2027,30 +2219,52 @@ def loop_bound_us(args) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def tree_module(root: str, rel: str, name: str):
+    """The module at `lidar_graph_slam_tpu_torch/<rel>` of another tree, loaded beside this
+    tree's under `name` (registered, so that its dataclasses find their module); its own
+    imports are this tree's."""
+    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", rel)
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def tree_kernels(root: str, name: str = "parent_kernels"):
     """The `ops.kernels` module of another tree of the package (such as the parent commit
     unpacked by `git archive`), loaded beside this tree's under `name`: it builds that
     tree's `csrc/` into that tree's `build/`, and its other imports are this tree's."""
-    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "ops",
-                        "kernels.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return tree_module(root, os.path.join("ops", "kernels.py"), name)
 
 
 def tree_registration(root: str, module: str, kern, name: str):
     """The `registration.<module>` module (`ndt`, `gicp`) of another tree, loaded beside
     this tree's under `name`, its kernel calls bound to `kern` (that tree's `ops.kernels`,
     `tree_kernels`); its other imports are this tree's."""
-    path = os.path.join(os.path.abspath(root), "lidar_graph_slam_tpu_torch", "registration",
-                        f"{module}.py")
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod  # its dataclasses look their module up while they are made
-    spec.loader.exec_module(mod)
+    mod = tree_module(root, os.path.join("registration", f"{module}.py"), name)
     mod.kernels = kern
     return mod
+
+
+def tree_grid_builder(root: str, kern, name: str = "parent_neighbors"):
+    """`build_hash_grid` of another tree: its `ops/neighbors.py` with its own dense table
+    (its `ops/voxel.py:build_dense_table`), and while it runs the `ops.kernels` that its
+    functions import when they run is `kern` (that tree's, `tree_kernels`)."""
+    vox = tree_module(root, os.path.join("ops", "voxel.py"), f"{name}_voxel")
+    nb = tree_module(root, os.path.join("ops", "neighbors.py"), name)
+    nb.build_dense_table = vox.build_dense_table
+    ops_pkg = sys.modules["lidar_graph_slam_tpu_torch.ops"]
+
+    def build(points, mask, cell_size):
+        saved = ops_pkg.kernels
+        ops_pkg.kernels = kern
+        try:
+            return nb.build_hash_grid(points, mask, cell_size)
+        finally:
+            ops_pkg.kernels = saved
+
+    return build
 
 
 def loop_timings(args, align, batched: bool = False, kern=kernels, ndt=ndt_module) -> dict:
@@ -3284,8 +3498,8 @@ def global_init_loop(device) -> dict:
     guess and from the FPFH+RANSAC guess, at the fixture's capacities and the default
     `GlobalRegConfig`. The loop kernel's launches on the global-init path (the pre-align
     from the global guess) are counted from 0 just before it and read just after, with
-    how many of them did work; the verify thread launches those and the FPFH normals'
-    `eigh3x3`, nothing else."""
+    how many of them did work; the verify thread launches those, the FPFH normals'
+    `eigh3x3`, the keypoint downsamples and grids and the occupancy table, nothing else."""
     records, true_last = loop_fixture_keyframes()
     cap = CapacityConfig(max_keyframes=64, max_loop_factors=8, keyframe_points=4096,
                          loop_submap_points=65536, voxel_capacity=32768)
@@ -3310,8 +3524,10 @@ def global_init_loop(device) -> dict:
     counts = read_counts() if torch.device(device).type == "cuda" else dict.fromkeys(KERNELS, 0)
     rec = glob.loop_log[-1]
     # Each verified candidate's global guess downsamples the source and the target to
-    # their FPFH keypoints in the verify thread (`voxel_centroids` twice); its input
-    # build's filter launches it once more on the calling thread.
+    # their FPFH keypoints in the verify thread (`voxel_centroids` twice), builds both
+    # keypoint grids (`grid_rows` twice) and the RANSAC occupancy table (`dense_table`
+    # once); its input build's filter, grid and pre-align map launch each once more on the
+    # calling thread.
     verified = sum(r["candidate"] >= 0 for r in glob.loop_log[logged:])
     err = float(np.linalg.norm((rec["transform"] @ drifted)[:3, 3] - true_last[:3, 3]))
     plain_fit = plain.loop_log[-1]["fitness"]
@@ -3324,8 +3540,9 @@ def global_init_loop(device) -> dict:
             counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
             and counts["ndt_direct7_accumulate"] == 0
             and glob.verify_launches == counts["ndt_align_loop"] + counts["eigh3x3"]
-            + counts["icp_align_loop"] + counts["icp_fitness"] + 2 * verified
-            and counts["voxel_centroids"] == 3 * verified and counts["sor_window_stats"] == 0
+            + counts["icp_align_loop"] + counts["icp_fitness"] + 5 * verified
+            and counts["voxel_centroids"] == counts["grid_rows"] == 3 * verified
+            and counts["dense_table"] == 2 * verified and counts["sor_window_stats"] == 0
             and counts["eigh3x3"] > 0 and counts["icp_align_loop"] > 0
             and counts["icp_fitness"] == 1
             and 0 < counts["ndt_iteration_worked"] <= counts["ndt_align_loop"]):
@@ -4029,8 +4246,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
-                    help="a tree of the parent commit (git archive): phases 3b, 7, 14b, 14c "
-                         "and 16 time and profile it too, in turns")
+                    help="a tree of the parent commit (git archive): phases 3b, 3c, 4, 7, "
+                         "14b, 14c, 14d, 16 and 18 time and profile it too, in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
@@ -4114,13 +4331,15 @@ def main(argv=None) -> int:
     say("captured-front-sync-free", **programs_sync_free(cfg, scans, dev),
         card=json.dumps(card))
     if args.parent:
-        # The GICP step and insert replays' device ms against the parent tree's, in turns,
-        # on the whole dense course (the p50 of 39 replays each).
-        captured_turns = captured_in_turns(args.parent, "GICP", len(scans), card)
-        if not captured_turns["rows_bit_equal_parent"]:
-            raise AssertionError(f"captured GICP front end against the parent: {captured_turns}")
-        say("captured-vs-parent", method="GICP", frames=len(scans), **captured_turns,
-            card=json.dumps(card))
+        # Each matcher's step and insert replays' device ms against the parent tree's, in
+        # turns, on the whole dense course (the p50 of 39 replays each).
+        for method in ("NDT", "GICP", "ICP"):
+            captured_turns = captured_in_turns(args.parent, method, len(scans), card)
+            if not captured_turns["rows_bit_equal_parent"]:
+                raise AssertionError(f"captured {method} front end against the parent: "
+                                     f"{captured_turns}")
+            say("captured-vs-parent", method=method, frames=len(scans), **captured_turns,
+                card=json.dumps(card))
 
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
     rb = rebuild_phase(cfg, aux, ring, card, args.parent, sass, clock_mhz)
@@ -4144,11 +4363,15 @@ def main(argv=None) -> int:
             and launches["ndt_finalize"] == 2 * (stats["keyframes"] + 1)
             and launches["eigh3x3"] == 0
             # The prefilter launches each of its kernels once a frame.
-            and launches["voxel_centroids"] == launches["sor_window_stats"] == stats["frames"]):
+            and launches["voxel_centroids"] == launches["sor_window_stats"] == stats["frames"]
+            # Each map's dense table; NDT builds no hash grid.
+            and launches["dense_table"] == launches["ndt_finalize"]
+            and launches["grid_rows"] == 0):
         raise AssertionError(f"the main path's kernel launches: {launches}")
     say("pipeline", **stats, kernel_launches=launches["ndt_align_loop"],
         kernel_launches_worked=launches["ndt_iteration_worked"],
         kernel_launches_per_frame=per_frame, finalize_launches=launches["ndt_finalize"],
+        dense_table_launches=launches["dense_table"],
         voxel_centroids_launches=launches["voxel_centroids"],
         sor_window_stats_launches=launches["sor_window_stats"], card=json.dumps(card))
 
@@ -4191,8 +4414,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"loop course: loops on {on}, off {off}, launches "
                              f"{launches_course}, verify {launches_verify}")
     odom_diff = float(np.abs(res_on.odometry_poses - res_off.odometry_poses).max())
-    if not launches_course["ndt_finalize"] > 0:
-        raise AssertionError(f"loop course: no ndt_finalize launch: {launches_course}")
+    # Each loop attempt's verify input builds a grid and maps (their dense tables).
+    if not (launches_course["ndt_finalize"] > 0 and launches_course["grid_rows"] > 0
+            and launches_course["dense_table"] == launches_course["ndt_finalize"]):
+        raise AssertionError(f"loop course: the map and grid kernels: {launches_course}")
     # One step program captured a raw-scan bucket the course used, and the insert's.
     buckets = {raw_bucket(s_, cfg_on.capacity.raw_points).shape[0] for s_ in dscans}
     front_on = pipe_on.fused_front
@@ -4203,6 +4428,8 @@ def main(argv=None) -> int:
         backend_p50_ms_on=on["stage_p50_ms"]["backend"],
         backend_p50_ms_off=off["stage_p50_ms"]["backend"],
         finalize_launches=launches_course["ndt_finalize"],
+        grid_rows_launches=launches_course["grid_rows"],
+        dense_table_launches=launches_course["dense_table"],
         loops_accepted=on["loops_accepted"], loops_attempted=on["loops_attempted"],
         ate_keyframes_on_m=on["ate_keyframes_m"], ate_keyframes_off_m=off["ate_keyframes_m"],
         keyframes=on["keyframes"], iterations_mean_on=on["iterations_mean"],
@@ -4242,6 +4469,11 @@ def main(argv=None) -> int:
 
     # -- 11-12. grid NN and one verification, card against CPU ------------------------------
     say("grid-nn", **grid_nn_card_vs_cpu(back, first))
+    loop_cloud = loop_submap_cloud(back, first)
+
+    # -- 11b. the grid kernels at the path's shapes, against their plain versions ----------
+    timing.update(grid_phase(cfg, ring, last, loop_cloud, (fine, coarse), card))
+    max_err.update(grid_rows=0.0, dense_table=0.0)  # bit-equal, or the phase raised
     ver = verify_card_vs_cpu(cfg_on, back, first, card)
     timing["verify"] = ver.pop("timing")
     for name, err in ver.pop("kernel_max_abs_err").items():
@@ -4313,8 +4545,10 @@ def main(argv=None) -> int:
             and 0 < launches_gicp["gicp_iteration_worked"] < launches_gicp["gicp_align_loop"]
             and launches_gicp["ndt_accumulate"] == launches_gicp["ndt_direct7_accumulate"]
             == launches_gicp["ndt_align_loop"] == launches_gicp["ndt_finalize"]
-            == launches_gicp["eigh3x3"] == 0
-            and launches_gicp["gicp_covariances"] == builds):
+            == launches_gicp["eigh3x3"] == launches_gicp["dense_table"] == 0
+            and launches_gicp["gicp_covariances"] == builds
+            # One grid a target build (no reciprocal source grid by default).
+            and launches_gicp["grid_rows"] == builds - gicp_front["frames"]):
         raise AssertionError(f"the GICP front end's kernel launches: {launches_gicp}")
     # The same course with the covariances' plain versions: every pose bit for bit.
     with plain_covariances():
@@ -4325,6 +4559,7 @@ def main(argv=None) -> int:
     say("gicp-front-end", **gicp_front, kernel_launches=launches_gicp["gicp_align_loop"],
         kernel_launches_worked=launches_gicp["gicp_iteration_worked"],
         gicp_covariances_launches=launches_gicp["gicp_covariances"],
+        grid_rows_launches=launches_gicp["grid_rows"],
         bit_equal_plain_covariances=same_gicp["bit_equal"],
         prefilter_p50_ms=gicp_front["stage_p50_ms"]["prefilter"],
         card=json.dumps(card))
@@ -4344,11 +4579,14 @@ def main(argv=None) -> int:
             and launches_classic["ndt_direct7_accumulate"] == 0
             and launches_cicp["icp_align_loop"] > 0
             and 0 < launches_cicp["icp_iteration_worked"] < launches_cicp["icp_align_loop"]
-            and launches_cicp["gicp_align_loop"] == 0):
+            and launches_cicp["gicp_align_loop"] == 0
+            and launches_classic["dense_table"] == launches_classic["ndt_finalize"] > 0
+            and launches_cicp["grid_rows"] > 0 and launches_cicp["dense_table"] == 0):
         raise AssertionError(f"classic driver: {classic_ndt}, {classic_icp}, launches "
                              f"{launches_classic}, {launches_cicp}")
     classic_icp.update(icp_iteration_launches=launches_cicp["icp_align_loop"],
-                       icp_iteration_launches_worked=launches_cicp["icp_iteration_worked"])
+                       icp_iteration_launches_worked=launches_cicp["icp_iteration_worked"],
+                       grid_rows_launches=launches_cicp["grid_rows"])
     for name, st in (("ndt", classic_ndt), ("icp", classic_icp)):
         say("classic", method=name, **{k: json.dumps(v, separators=(",", ":"))
                                        if isinstance(v, dict) else v for k, v in st.items()},
@@ -4357,6 +4595,9 @@ def main(argv=None) -> int:
         # Phase 10's verifications and phase 16's classic ICP against the parent tree's
         # (its ICP loop on the host), in turns.
         turns = trajectories_in_turns(args.parent, ("drift_icp", "dense_icp_classic"))
+        for course, row in turns.items():
+            if not all(v["bit_equal_first"] for v in row.values()):
+                raise AssertionError(f"{course} parts from the parent tree's: {row}")
         for course, keys in (("drift_icp", ("verify_p50_ms", "verify_max_ms", "frame_p50_ms",
                                              "backend_p50_ms", "loops_accepted",
                                              "ate_keyframes_m", "bit_equal_first")),
@@ -4437,8 +4678,8 @@ def main(argv=None) -> int:
     # -- 20. loop verification from the global guess; launches counted inside ---------------
     gl = global_init_loop("cuda")
     say("global-init-loop", **gl, card=json.dumps(card))
-    eigh_inputs = []
-    with recording_eigh3x3(eigh_inputs):
+    eigh_inputs, occupancy_inputs = [], []
+    with recording_eigh3x3(eigh_inputs), recording_off_main_dense_tables(occupancy_inputs):
         reset_counts()
         pipe_gi, res_gi, gi = run_loop_course(
             apply_cli_overrides(PipelineConfig(), ["graph_slam.use_global_init=true"]),
@@ -4450,6 +4691,12 @@ def main(argv=None) -> int:
     timing["eigh_normals"] = {"eigh3x3": eigh_normals_check(
         eigh_inputs, card, sass["eigh3x3"]["instructions"], clock_mhz)}
     del eigh_inputs
+    # The RANSAC occupancy table of the course's first global guess (the verify worker's).
+    if not occupancy_inputs:
+        raise AssertionError("dense_table: the global guesses made no occupancy table")
+    timing["table_occupancy"] = grid_kernel_timing("table_occupancy", "dense_table",
+                                                   occupancy_inputs[0], card)
+    del occupancy_inputs
     gi_log = [r for r in res_gi.loop_log if r["candidate"] >= 0]
     if not (gi["loops_accepted"] >= 1 and gi["ate_keyframes_m"] < off["ate_keyframes_m"]
             and pipe_gi.back.verify_launches > 0 and launches_gi["ndt_accumulate"] == 0
@@ -4467,8 +4714,7 @@ def main(argv=None) -> int:
         attempts_with_hypotheses=sum(r["ransac_families"]["n_3pt_valid"] + r["ransac_families"]["n_yaw_valid"]
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
-        ndt_launches_verify=pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
-        - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"] - 2 * len(gi_log),
+        ndt_launches_verify=launches_gi["ndt_align_loop"] - per_frame * gi["frames"],
         icp_iteration_launches_verify=launches_gi["icp_align_loop"],
         eigh3x3_launches_verify=launches_gi["eigh3x3"],
         ndt_launches_total=launches_gi["ndt_align_loop"],
@@ -4476,12 +4722,9 @@ def main(argv=None) -> int:
         odometry_vs_loops_off_max_diff=float(
             np.abs(res_gi.odometry_poses - res_off.odometry_poses).max()),
         card=json.dumps(card))
-    # The verify thread's NDT loop launches: all of its launches but the FPFH normals'
-    # `eigh3x3`, the ICP verifier's kernels (launched nowhere else on this NDT course) and
-    # each verified candidate's two keypoint downsamples (`voxel_centroids`).
-    pipe_gi_verify_launches = (pipe_gi.back.verify_launches - launches_gi["eigh3x3"]
-                               - launches_gi["icp_align_loop"] - launches_gi["icp_fitness"]
-                               - 2 * len(gi_log))
+    # The verify thread's NDT loop launches: the course's, less the fused front end's
+    # (per_frame a frame, phase 6).
+    pipe_gi_verify_launches = launches_gi["ndt_align_loop"] - per_frame * gi["frames"]
     del pipe_gi, res_gi
 
     # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
@@ -4752,6 +4995,43 @@ def main(argv=None) -> int:
                "(filters/prefilter.py:62-65) inside the jitted prefilter; no Pallas kernel",
                "", "the same-cell range by two key searches, an odd-even merge network "
                "16, 32, 40 or 48 wide by the warp's largest count"))],
+        kernel_record(
+            "grid_rows", timing, max_err["grid_rows"], shape="grid_ring",
+            source="lidar_graph_slam_tpu_torch/csrc/grid.cu",
+            replaces="lidar_graph_slam_tpu/ops/neighbors.py:68", replaces_commit=None,
+            launches=launches_gicp["grid_rows"],
+            path="every hash grid build: each GICP and ICP target build of both drivers, "
+                 "each loop attempt's verify input, GICP's reciprocal source grid, the FPFH "
+                 "keypoint grid (phase 15 counts the fused GICP front end: keyframes + 1)",
+            ports="the jitted build_hash_grid after its sort (lidar_graph_slam_tpu/ops/"
+                  "neighbors.py:68-100): the first-of-run flags, starts "
+                  "(associative_scan(max)), the packed rows, and build_dense_table "
+                  "(ops/voxel.py:60-76) of the first valid rows; no Pallas kernel",
+            launches_loop_course=launches_course["grid_rows"],
+            launches_classic_icp=launches_cicp["grid_rows"],
+            launches_global_init_course=launches_gi["grid_rows"],
+            bit_equal_plain=True,
+            library_scatter_ms={s_: t_["grid_rows"]["library_scatter_ms"]
+                                for s_, t_ in timing.items() if "grid_rows" in t_},
+            build_profile={call: {p_: {k: row[p_][k] for k in (
+                "launches", "device_ms", "wall_ms", "wrapper_launches", "cummax_launches",
+                "scatter_launches")} for p_ in ("kernel", "plain", "parent") if p_ in row}
+                for call, row in cov["profile"].items()}),
+        kernel_record(
+            "dense_table", timing, max_err["dense_table"], shape="table_fine",
+            source="lidar_graph_slam_tpu_torch/csrc/grid.cu",
+            replaces="lidar_graph_slam_tpu/ops/voxel.py:60", replaces_commit=None,
+            launches=launches["dense_table"],
+            path="every dense cell table: each NDT map level of both drivers' target "
+                 "builds, each loop attempt's maps, the RANSAC occupancy table (phase 6 "
+                 "counts the fused front end: two a target build)",
+            ports="build_dense_table (lidar_graph_slam_tpu/ops/voxel.py:60-76) inside the "
+                  "jitted map builds and global registration; no Pallas kernel",
+            launches_loop_course=launches_course["dense_table"],
+            launches_classic_ndt=launches_classic["dense_table"],
+            launches_global_init_course=launches_gi["dense_table"],
+            bit_equal_plain=True, **{k: rb["numbers"][k] for k in (
+                "launches_per_rebuild", "rebuild_device_ms", "parent_rebuild_device_ms")}),
         kernel_record(
             "ndt_direct7_accumulate_batched", timing, max_err["ndt_direct7_accumulate_batched"],
             shape="batch", launches=0,

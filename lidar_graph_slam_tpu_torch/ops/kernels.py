@@ -8,11 +8,12 @@ The wrappers port the TPU kernel `ndt_accumulate` of
 (`registration/icp.py:47-122`) and its fitness (`:155-188`), the voxel finalize of the
 jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`), the centroid sums
 and the outlier filter's window statistics of the jitted prefilter
-(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`), and GICP's jitted covariances
-(`lidar_graph_slam_tpu/registration/gicp.py:61-90`) as hand-written CUDA kernels for
-Hopper in seven sources (`csrc/ndt_accumulate.cu`, `csrc/ndt_loop.cu`,
-`csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`, `csrc/prefilter.cu`,
-`csrc/covariances.cu`; the headers
+(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`), GICP's jitted covariances
+(`lidar_graph_slam_tpu/registration/gicp.py:61-90`) and the jitted hash grid build with
+its dense table (`lidar_graph_slam_tpu/ops/neighbors.py:68-100`, `ops/voxel.py:60-76`)
+as hand-written CUDA kernels for Hopper in eight sources (`csrc/ndt_accumulate.cu`,
+`csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`,
+`csrc/prefilter.cu`, `csrc/covariances.cu`, `csrc/grid.cu`; the headers
 `csrc/ndt_common.cuh`, `csrc/loop_common.cuh`, `csrc/nn_stage.cuh` (the grid-NN query)
 and `csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
 kernels), compiled with nvcc (one process a source, all at once) into one library at
@@ -72,6 +73,12 @@ first use in `build/` and bound with ctypes:
   (`registration/gicp.py:estimate_covariances`, `build_gicp_target`) in one launch: each
   sorted row's same-cell window over +-16 sorted rows, the identity below 5 points, the
   eigensolve, the (1e-3, 1, 1) plane regularization and the scatter to the original rows.
+* `dense_table(keys, row_valid, dims)`: a dense cell table (each cell's smallest valid
+  row, -1 where none) in one clear and one launch, for every `ops/voxel.py:
+  build_dense_table` (each NDT map level, the RANSAC occupancy table).
+* `grid_rows(keys_sorted, points_sorted)`: the rest of `ops/neighbors.py:build_hash_grid`
+  after the sort by cell in one clear and one launch: each row's run start, the packed
+  rows and the table of the runs' first valid rows.
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
@@ -88,8 +95,10 @@ batch;
 then `_finalize_ndt_plain`) and `_eigh3x3` are the finalize's and the eigensolve's,
 `ops/voxel.py:voxel_centroids_plain` and `ops/neighbors.py:sor_window_stats_plain` the
 prefilter kernels', `ops/neighbors.py:gicp_covariances_plain` (`window_covariances` of
-the sorted rows, then `plane_covariances_plain`) the covariance kernel's, all bit for bit
-on the card. A
+the sorted rows, then `plane_covariances_plain`) the covariance kernel's,
+`ops/voxel.py:build_dense_table_plain` (the reference's scatter-min) and
+`ops/neighbors.py:grid_rows_plain` (its running max of the first-of-run rows) the grid
+kernels', all bit for bit on the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -126,6 +135,7 @@ from lidar_graph_slam_tpu_torch.core import se3
 from lidar_graph_slam_tpu_torch.ops.neighbors import (
     SOR_WINDOW,
     gicp_covariances_plain,
+    grid_rows_plain,
     nearest,
     sor_window_stats_plain,
 )
@@ -136,6 +146,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     TABLE_DIMS,
     NdtVoxelMap,
     _eigh3x3,
+    build_dense_table_plain,
     lookup_direct7,
     ndt_finalize_plain,
     voxel_centroids_plain,
@@ -148,7 +159,7 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
                                               "gicp_loop.cu", "icp_loop.cu",
                                               "voxel_finalize.cu", "prefilter.cu",
-                                              "covariances.cu")]
+                                              "covariances.cu", "grid.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
                                               "nn_stage.cuh", "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -812,11 +823,15 @@ def _load_library_locked():
                                         vp, vp]
     lib.lgs_sor_window_stats.argtypes = [vp, vp, vp, i64, i32, vp, vp, vp]
     lib.lgs_gicp_covariances.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp]
+    lib.lgs_dense_table.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
+    lib.lgs_grid_rows.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,
+                                  vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
                lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
                lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3,
-               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_gicp_covariances):
+               lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_gicp_covariances,
+               lib.lgs_dense_table, lib.lgs_grid_rows):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
                lib.lgs_icp_worked_launches):
@@ -1635,6 +1650,96 @@ def gicp_covariances(keys, points, order, mask):
     return covs, ok
 
 
+def _table_args(dims) -> list:
+    """The C entries' table arguments: its cells (dx, dy, dz) and `unpack_key`'s shifts
+    and masks."""
+    dx, dy, dz = (int(x) for x in dims)
+    if min(dx, dy, dz) < 1 or dx * dy * dz >= 2**31:
+        raise ValueError(f"dense table: dims must be positive with fewer than 2**31 cells, "
+                         f"got {dims}")
+    return [dx, dy, dz, _BITS_Y + _BITS_Z, _BITS_Z, COORD_MAX[1], COORD_MAX[2]]
+
+
+def _check_rows(wrapper: str, n: int) -> None:
+    if n >= 2**31 - 1:
+        raise ValueError(f"{wrapper}: a row index must fit the int32 table, got N = {n}")
+
+
+def dense_table(keys, row_valid, dims=TABLE_DIMS):
+    """A dense cell table in one clear and one launch: for each of the prod(dims) cells,
+    the smallest index among the rows that are `row_valid` and whose unpacked key lies in
+    that cell inside `dims`, -1 where there is none.
+
+    keys:      [N] i32 packed cell keys, in any order, repeats allowed
+    row_valid: [N] bool
+    Returns table [prod(dims)] i32, as `ops/voxel.py:build_dense_table_plain`, bit for bit
+    on the card.
+
+    CPU tensors take `build_dense_table_plain`; CUDA tensors clear the table on the
+    current stream and launch the `dense_table` kernel (`csrc/grid.cu`, counted in
+    `dense_table.launches`; no launch for N = 0, only the clear) or raise. Nothing is read
+    back.
+    """
+    dev = keys.device
+    if dev.type == "cpu":
+        return build_dense_table_plain(keys, row_valid, dims)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_table: unsupported device {dev}")
+    N = keys.shape[0] if keys.dim() == 1 else -1
+    _check("dense_table", dev, keys=(keys, (N,), torch.int32),
+           row_valid=(row_valid, (N,), torch.bool))
+    _check_rows("dense_table", N)
+    table_args = _table_args(dims)
+    table = torch.empty((table_args[0] * table_args[1] * table_args[2],), dtype=torch.int32,
+                        device=dev)
+    lib = load_library()
+    _raise_on(lib.lgs_dense_table(keys.data_ptr(), row_valid.data_ptr(), N, *table_args,
+                                  table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+              "dense_table")
+    if N:
+        _count(dense_table)
+    return table
+
+
+def grid_rows(keys_sorted, points_sorted):
+    """What `build_hash_grid` makes from the rows sorted by cell, in one clear and one
+    launch: each row's first row of its run of equal keys, the packed rows and the dense
+    table of the runs' first valid rows.
+
+    keys_sorted:   [N] i32 ascending cell keys (INVALID_KEY rows last)
+    points_sorted: [N, 3] f32 in the keys' order
+    Returns (starts [N] i64, packed [N, 4] f32: x, y, z and the key's bits, table
+    [prod(TABLE_DIMS)] i32), as `ops/neighbors.py:grid_rows_plain`, bit for bit on the
+    card. The keys must ascend, as the sort leaves them: `starts` is each row's lower
+    bound among them.
+
+    CPU tensors take `grid_rows_plain`; CUDA tensors clear the table on the current
+    stream and launch the `grid_rows` kernel (`csrc/grid.cu`, counted in
+    `grid_rows.launches`; no launch for N = 0, only the clear) or raise. Nothing is read
+    back.
+    """
+    dev = keys_sorted.device
+    if dev.type == "cpu":
+        return grid_rows_plain(keys_sorted, points_sorted)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_rows: unsupported device {dev}")
+    N = keys_sorted.shape[0] if keys_sorted.dim() == 1 else -1
+    _check("grid_rows", dev, keys_sorted=(keys_sorted, (N,), torch.int32),
+           points_sorted=(points_sorted, (N, 3), torch.float32))
+    _check_rows("grid_rows", N)
+    starts = torch.empty((N,), dtype=torch.int64, device=dev)
+    packed = torch.empty((N, 4), dtype=torch.float32, device=dev)
+    table = torch.empty((_TABLE_SIZE,), dtype=torch.int32, device=dev)
+    lib = load_library()
+    _raise_on(lib.lgs_grid_rows(keys_sorted.data_ptr(), points_sorted.data_ptr(), N,
+                                *_table_args(TABLE_DIMS), starts.data_ptr(), packed.data_ptr(),
+                                table.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
+              "grid_rows")
+    if N:
+        _count(grid_rows)
+    return starts, packed, table
+
+
 def loop_kernel_attributes(device, gicp=None, icp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
@@ -1695,3 +1800,5 @@ eigh3x3.launches = 0
 voxel_centroids.launches = 0
 sor_window_stats.launches = 0
 gicp_covariances.launches = 0
+dense_table.launches = 0
+grid_rows.launches = 0

@@ -1,16 +1,18 @@
 """Sorted-grid neighborhoods — the engine's replacement for kd-trees.
 
 Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
-`build_hash_grid`), the grid queries (`_candidate_scan`, `nearest` for ICP, GICP and the
-loop fitness, `knn`), the same-cloud sliding-window neighborhoods that statistical outlier
-removal (over `sort_by_cell`'s rows: the grid's keys, points and order without its lookup
-structures) and GICP's covariances use (`window_covariances`, then
-`plane_covariances_plain`: `gicp_covariances_plain`, the plain version of the
-`gicp_covariances` kernel of `ops/kernels.py`), and the dense `radius_mask`. Points are keyed by cell and stably
-sorted, so the points of one cell are consecutive: a query gathers a bounded bucket of
-consecutive rows from each of its 7 or 27 neighbor cells, and a +-window over the sorted
-order covers each cell's neighborhood (up to window truncation in very dense cells) — a
-sorted-window approximation of kNN that the port reproduces as it is.
+`build_hash_grid`: the sort by cell, then the `grid_rows` kernel of `ops/kernels.py`,
+whose plain version is `grid_rows_plain`), the grid queries (`_candidate_scan`, `nearest`
+for ICP, GICP and the loop fitness, `knn`), the same-cloud sliding-window neighborhoods
+that statistical outlier removal (over `sort_by_cell`'s rows: the grid's keys, points and
+order without its lookup structures) and GICP's covariances use (`window_covariances`,
+then `plane_covariances_plain`: `gicp_covariances_plain`, the plain version of the
+`gicp_covariances` kernel of `ops/kernels.py`), and the dense `radius_mask`. Points are
+keyed by cell and stably sorted, so the points of one cell are consecutive: a query
+gathers a bounded bucket of consecutive rows from each of its 7 or 27 neighbor cells, and
+a +-window over the sorted order covers each cell's neighborhood (up to window truncation
+in very dense cells) — a sorted-window approximation of kNN that the port reproduces as it
+is.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     _flat_table_index,
     _scaled_gram,
     as_f32,
-    build_dense_table,
+    build_dense_table_plain,
     const,
     min_corner,
     pack_key,
@@ -86,19 +88,35 @@ def sort_by_cell(points: torch.Tensor, mask: torch.Tensor, cell_size) -> CellSor
     return _sort_by_cell(points, mask, cell_size)[0]
 
 
-def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> HashGrid:
-    cells, origin, cell_size = _sort_by_cell(points, mask, cell_size)
-    keys_sorted = cells.keys
+def grid_rows_plain(keys_sorted: torch.Tensor, points_sorted: torch.Tensor):
+    """Plain version of the `grid_rows` kernel (`ops/kernels.py`): what `build_hash_grid`
+    makes from the rows sorted by cell (`keys_sorted` ascending, `points_sorted` in their
+    order). Returns (starts [N] int64: each row's first row of its run of equal keys, the
+    running max of the first-of-run rows; packed [N, 4] f32: x, y, z and the key's bits;
+    table: `build_dense_table_plain` of the first-of-run valid rows)."""
     n = keys_sorted.shape[0]
+    dev = keys_sorted.device
     valid = keys_sorted != INVALID_KEY
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=points.device),
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                        keys_sorted[1:] != keys_sorted[:-1]])
-    idx = torch.arange(n, device=points.device)
+    idx = torch.arange(n, device=dev)
     # starts[i] = index of the first row sharing keys_sorted[i]'s cell (running max).
     starts = torch.cummax(torch.where(first, idx, 0), dim=0).values
-    packed = torch.cat([cells.points, keys_sorted.view(torch.float32)[:, None]], dim=1)
+    packed = torch.cat([points_sorted, keys_sorted.view(torch.float32)[:, None]], dim=1)
+    return starts, packed, build_dense_table_plain(keys_sorted, first & valid, TABLE_DIMS)
+
+
+def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> HashGrid:
+    """The grid of `points` (valid where `mask`) at `cell_size`: the rows sorted by cell
+    (`sort_by_cell`'s), then their run starts, packed rows and dense table from
+    `kernels.grid_rows` (one clear and one launch on the card, `grid_rows_plain` on the
+    CPU)."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    cells, origin, cell_size = _sort_by_cell(points, mask, cell_size)
+    starts, packed, table = kernels.grid_rows(cells.keys, cells.points)
     return HashGrid(
-        keys=keys_sorted,
+        keys=cells.keys,
         points=cells.points,
         packed=packed,
         order=cells.order,
@@ -106,7 +124,7 @@ def build_hash_grid(points: torch.Tensor, mask: torch.Tensor, cell_size) -> Hash
         origin=origin,
         cell_size=cell_size,
         num=torch.sum(mask.to(torch.int32)),
-        table=build_dense_table(keys_sorted, first & valid, TABLE_DIMS),
+        table=table,
     )
 
 

@@ -8,7 +8,7 @@ Determinism: the per-voxel sums add each run's rows in order on every device —
 `index_add_` / `scatter_add_` atomics, whose order (and so whose map) would change from run
 to run and feed FP-level noise into the odometry loop
 (`lidar_graph_slam_tpu/odometry/fused.py` docstring). The dense table is an integer
-scatter-min, whose result does not depend on order.
+min, whose result does not depend on order.
 
 An NDT map level goes from its rows sorted by voxel key to its finished rows through
 `ops/kernels.py:ndt_finalize`: one hand-written kernel launch on the card that sums the
@@ -18,8 +18,11 @@ the run lengths, then `_finalize_ndt_plain`, the reference's arithmetic op for o
 run it inside `kernels.gicp_covariances`, the product in `_scaled_gram`'s order). The
 centroid downsample (`voxel_downsample`) goes from its sorted rows to its centroids through
 `kernels.voxel_centroids` (one launch on the card; on the CPU `voxel_centroids_plain`, the
-run sums by `torch.segment_reduce`). `ops/kernels.py` imports this module, so the map
-builders and the downsample import it inside.
+run sums by `torch.segment_reduce`). A dense cell table (`build_dense_table`: every NDT
+map level, the RANSAC occupancy table) is `kernels.dense_table` (one clear and one launch
+on the card; `build_dense_table_plain`, the reference's scatter-min, on the CPU).
+`ops/kernels.py` imports this module, so the map builders, the downsample and the table
+import it inside.
 
 Key packing uses (11, 11, 8) bits for (x, y, z) relative to the batch min corner; out-of-
 range points clamp to border cells. Key arithmetic stays in float32 tensors, as the
@@ -88,8 +91,9 @@ def _flat_table_index(coords: torch.Tensor, dims):
     return torch.where(in_range, flat, dx * dy * dz), in_range
 
 
-def build_dense_table(keys: torch.Tensor, row_valid: torch.Tensor, dims) -> torch.Tensor:
-    """Scatter row indices into a dense [prod(dims)] int32 table (-1 = empty).
+def build_dense_table_plain(keys: torch.Tensor, row_valid: torch.Tensor, dims) -> torch.Tensor:
+    """Plain version of the `dense_table` kernel (`ops/kernels.py`): scatter row indices
+    into a dense [prod(dims)] int32 table (-1 = empty).
 
     Rows with row_valid=False (or out of table range) park in an overflow slot that is
     cut off. When several rows share a cell, the FIRST row wins via scatter-min.
@@ -105,6 +109,16 @@ def build_dense_table(keys: torch.Tensor, row_valid: torch.Tensor, dims) -> torc
                           reduce="amin", include_self=True)
     table = torch.where(table == INVALID_KEY, -1, table)
     return table[:size]
+
+
+def build_dense_table(keys: torch.Tensor, row_valid: torch.Tensor, dims) -> torch.Tensor:
+    """A dense [prod(dims)] int32 table of each cell's smallest row index among the rows
+    that are `row_valid` and whose unpacked key lies inside `dims` (-1 = empty): the
+    `dense_table` kernel on the card (one clear and one launch), `build_dense_table_plain`
+    on the CPU."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    return kernels.dense_table(keys, row_valid, dims)
 
 
 def voxel_coords(points: torch.Tensor, origin: torch.Tensor, inv_leaf) -> torch.Tensor:

@@ -23,9 +23,9 @@ to the one above it (so each part is the difference of two neighbours):
     store = full - solve.
 
 Also: the kernel's launch on each shape's first 32 rows (one tile, one block) less the
-floor of that launch, the latency of one tile's chain. With `--parent DIR` (the parent commit unpacked by `git archive`), that tree's
-`window_covariances` and `plane_covariances` (its `ops/kernels.py`, building its own
-`csrc/`) on the same inputs, summed, in the same rounds.
+floor of that launch, the latency of one tile's chain. With `--parent DIR` (the parent
+commit unpacked by `git archive`), that tree's `gicp_covariances` (its `ops/kernels.py`,
+building its own `csrc/`) on the same inputs, in the same rounds.
 
 Fixtures: with `--input`, the kernel's arguments as `chip_smoke.py`'s phase 14d writes
 them (`<shape>__<i>` arrays: keys, points, order, mask); without it, built here as that
@@ -146,7 +146,7 @@ def main() -> int:
     ap.add_argument("--input", default=None,
                     help="the kernel's arguments as chip_smoke.py's phase 14d writes them")
     ap.add_argument("--parent", default=None,
-                    help="a tree whose window_covariances + plane_covariances are timed too")
+                    help="a tree whose gicp_covariances is timed too")
     ap.add_argument("--json", default=None, help="also write the lines to this file")
     args = ap.parse_args()
     import numpy as np
@@ -190,12 +190,7 @@ def main() -> int:
         calls["tile_full", shape] = launcher(built["full"][0], tile)
         calls["tile_floor", shape] = launcher(built["floor"][0], tile)
         if parent is not None:
-            keys, pts, order, mask = a
-
-            def both(keys=keys, pts=pts, order=order, mask=mask):
-                _, cov, cnt = parent.window_covariances(keys, pts)
-                return parent.plane_covariances(cov, cnt, order, mask)
-            calls["parent_two_launches", shape] = both
+            calls["parent", shape] = (lambda a=a: parent.gicp_covariances(*a))
     names = list(dict.fromkeys(k[0] for k in calls))
     runs = {key: [] for key in calls}
     for r in range(ROUNDS):
@@ -216,8 +211,8 @@ def main() -> int:
         row = dict(meta[shape], full_us=med["full", shape], floor_us=med["floor", shape],
                    **{p: med[a, shape] - med[b, shape] for p, (a, b) in PARTS.items()},
                    one_tile_chain_us=med["tile_full", shape] - med["tile_floor", shape])
-        if ("parent_two_launches", shape) in med:
-            row["parent_two_launches_us"] = med["parent_two_launches", shape]
+        if ("parent", shape) in med:
+            row["parent_us"] = med["parent", shape]
         split[shape] = row
     lines.append(dict(split=split, card=card))
     print(json.dumps(lines[-1]), flush=True)

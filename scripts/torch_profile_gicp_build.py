@@ -13,20 +13,24 @@ last ring scan. Two calls, each on three paths:
   source  `estimate_covariances` of the source scan (the fused step's, every frame);
 
   kernel  this checkout: `gicp_covariances` launched once a call
-          (`csrc/covariances.cu`);
-  plain   this checkout with that wrapper replaced by its plain version
-          (`ops/neighbors.py:gicp_covariances_plain`: the window sums' ~800 ATen
-          operations a cloud, then `plane_covariances_plain`);
+          (`csrc/covariances.cu`), and the target's grid by `grid_rows`
+          (`csrc/grid.cu`);
+  plain   this checkout with those wrappers (and `dense_table`) replaced by their
+          plain versions (`ops/neighbors.py:gicp_covariances_plain`: the window sums'
+          ~800 ATen operations a cloud, then `plane_covariances_plain`;
+          `grid_rows_plain`: the cummax, the packed rows and the scatter-min table);
   parent  with `--parent DIR`, that tree's `registration/gicp.py` (a parent commit
           unpacked with `git archive`), loaded beside this checkout's and bound to that
-          tree's `ops/kernels.py` (which builds that tree's `csrc/`): its own
-          covariances, whatever they call.
+          tree's `ops/kernels.py` (which builds that tree's `csrc/`) and to that tree's
+          grid build (`ops/neighbors.py:build_hash_grid` with its `ops/voxel.py`):
+          its own covariances and grid, whatever they call.
 
 Wall ms a call (host clock between synchronizes, the median of `--repeats`), in turns
 (kernel, plain, parent, parent, plain, kernel); then one call of each under
 `torch.profiler` (after a session thrown away): device kernel launches (copies and
-memsets not counted), device ms, the kernel wrappers' launches (`thread_launches`), and
-the kernels that took most device time. The kernel path must equal the plain path bit for
+memsets not counted), device ms, the kernel wrappers' launches (`thread_launches`), the
+launches of `torch.cummax`'s scan and of scatters, and the kernels that took most device
+time. The kernel path must equal the plain path bit for
 bit; against the parent it reports the valid rows' agreement and how many covariance
 entries differ (a tree whose product V diag V^T summed in cuBLAS's order parts in the last
 bits). Prints one JSON line.
@@ -58,6 +62,7 @@ def main() -> int:
 
     from lidar_graph_slam_tpu_torch.ops import kernels
     from lidar_graph_slam_tpu_torch.ops import neighbors
+    from lidar_graph_slam_tpu_torch.ops import voxel
     from lidar_graph_slam_tpu_torch.registration import gicp
 
     if not torch.cuda.is_available():
@@ -72,13 +77,18 @@ def main() -> int:
     if args.parent:
         import chip_smoke
 
-        modules["parent"] = chip_smoke.tree_registration(
-            args.parent, "gicp", chip_smoke.tree_kernels(args.parent), "parent_gicp")
-    kernel_path = kernels.gicp_covariances
+        parent_kern = chip_smoke.tree_kernels(args.parent)
+        modules["parent"] = chip_smoke.tree_registration(args.parent, "gicp", parent_kern,
+                                                         "parent_gicp")
+        modules["parent"].build_hash_grid = chip_smoke.tree_grid_builder(args.parent,
+                                                                         parent_kern)
+    kernel_path = (kernels.gicp_covariances, kernels.grid_rows, kernels.dense_table)
+    plain_path = (neighbors.gicp_covariances_plain, neighbors.grid_rows_plain,
+                  voxel.build_dense_table_plain)
 
     def on_path(name):
-        kernels.gicp_covariances = (neighbors.gicp_covariances_plain if name == "plain"
-                                    else kernel_path)
+        kernels.gicp_covariances, kernels.grid_rows, kernels.dense_table = (
+            plain_path if name == "plain" else kernel_path)
 
     calls = {"target": lambda mod: mod.build_gicp_target(*tgt, cell),
              "source": lambda mod: mod.estimate_covariances(*src, cell)}
@@ -138,6 +148,9 @@ def main() -> int:
                 wall_ms=wall, wall_ms_turns=[round(w, 3) for w in walls[name]],
                 launches=sum(e.count for e in ka), device_ms=device_ms,
                 idle_share=1.0 - device_ms / wall, wrapper_launches=wrapper,
+                cummax_launches=sum(e.count for e in ka if "cummax" in e.key
+                                    or "dim_with_indices" in e.key),
+                scatter_launches=sum(e.count for e in ka if "scatter" in e.key.lower()),
                 top_device_ms=[[e.key[:60], round(e.self_device_time_total / 1000, 4), e.count]
                                for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:5]])
         out[call] = rec

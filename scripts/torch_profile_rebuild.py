@@ -8,9 +8,10 @@ config's target (`make_ndt_matcher`'s `build_target`: `build_ndt_pyramid`, a 2 m
 of 65,536 voxels and a 4 m coarse one of 32,768) is built on three paths:
 
   kernel  this checkout: `ndt_finalize` launched once a map, from the sorted rows;
-  plain   this checkout with `ops.kernels.ndt_finalize` replaced by its plain version
-          (`ops/voxel.py:ndt_finalize_plain`: the run sums by `torch.segment_reduce`,
-          then ~1,050 ATen operations a map);
+  plain   this checkout with `ops.kernels.ndt_finalize` and `ops.kernels.dense_table`
+          replaced by their plain versions (`ops/voxel.py:ndt_finalize_plain`: the run
+          sums by `torch.segment_reduce`, then ~1,050 ATen operations a map;
+          `build_dense_table_plain`: the scatter-min);
   parent  with `--parent DIR`, that tree's `ops/voxel.py:build_ndt_pyramid` and
           `ops/kernels.py` (a parent commit unpacked with `git archive`), loaded beside
           this checkout's; the parent's target build calls its own kernels.
@@ -19,7 +20,8 @@ Wall ms a build (host clock between synchronizes, the median of `--repeats`), in
 (kernel, plain, parent, parent, plain, kernel); then one build of each under
 `torch.profiler` (after a session thrown away): device kernel launches (the profiler's kernel events; copies and
 memsets not counted), device ms, the device's idle share, the kernel wrappers' launches
-(`thread_launches`), the launches and device ms of `segment_reduce`, and the kernels
+(`thread_launches`), the launches and device ms of `segment_reduce`, the scatters'
+launches (the plain dense table's `scatter_reduce_`), and the kernels
 launched most and those that took most device time. The kernel path's maps must equal the
 plain path's, and the parent's, bit for bit. Prints one JSON line.
 """
@@ -64,7 +66,7 @@ def main() -> int:
     cfg, capacity = NdtConfig(), CapacityConfig().voxel_capacity
     build_target, _ = make_ndt_matcher(cfg, capacity)
     factor = round(cfg.coarse_resolution / cfg.resolution)
-    kernel_finalize = kernels.ndt_finalize
+    kernel_finalize, kernel_table = kernels.ndt_finalize, kernels.dense_table
 
     builds = {"kernel": lambda: build_target(points, mask),
               "plain": lambda: build_target(points, mask)}
@@ -88,6 +90,8 @@ def main() -> int:
         # attribute names the parent tree's module while the parent builds.
         ops_pkg.kernels = parent_kernels if name == "parent" else kernels
         kernels.ndt_finalize = voxel.ndt_finalize_plain if name == "plain" else kernel_finalize
+        kernels.dense_table = (voxel.build_dense_table_plain if name == "plain"
+                               else kernel_table)
 
     def run(name):
         on_path(name)
@@ -132,12 +136,14 @@ def main() -> int:
         device_ms = sum(e.self_device_time_total for e in ka) / 1000
         wall = float(np.median(walls[name]))
         segment = [e for e in ka if "segment_reduce" in e.key]
+        scatter = [e for e in ka if "scatter" in e.key.lower()]
         out[name] = dict(wall_ms=wall, wall_ms_turns=[round(w, 3) for w in walls[name]],
                          launches=sum(e.count for e in ka), device_ms=device_ms,
                          idle_share=1.0 - device_ms / wall, wrapper_launches=wrapper,
                          segment_reduce_launches=sum(e.count for e in segment),
                          segment_reduce_device_ms=sum(e.self_device_time_total
                                                       for e in segment) / 1000,
+                         scatter_launches=sum(e.count for e in scatter),
                          top=[[e.key[:60], e.count] for e in sorted(ka, key=lambda e: -e.count)[:6]],
                          top_device_ms=[[e.key[:60], e.self_device_time_total / 1000]
                                         for e in sorted(ka, key=lambda e: -e.self_device_time_total)[:4]])

@@ -724,13 +724,14 @@ def test_captured_program_counts_its_launches_at_each_replay(cuda):
     cfg, raws = _capture_course(cuda, "NDT")
     front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
     before = (tk.ndt_align_loop.launches, tk.voxel_centroids.launches,
-              tk.ndt_finalize.launches, tk.thread_launches())
+              tk.ndt_finalize.launches, tk.dense_table.launches, tk.thread_launches())
     front.dispatch(raws[0], None, None, 0)
     front.insert_and_rebuild(0)
     per_step = cfg.scan_matcher.ndt.coarse_iterations + cfg.scan_matcher.ndt.max_iterations + 2
     step_tally = front.programs[16384].tally
     assert step_tally[tk.ndt_align_loop] == per_step and step_tally[tk.voxel_centroids] == 1
-    assert front.insert_program.tally == {tk.ndt_finalize: 2}
+    # Each map level's finalize and its dense table.
+    assert front.insert_program.tally == {tk.ndt_finalize: 2, tk.dense_table: 2}
     for t in range(1, 4):
         front.dispatch(raws[t], None, None, t % 2)
         front.insert_and_rebuild(t % 2)
@@ -738,7 +739,8 @@ def test_captured_program_counts_its_launches_at_each_replay(cuda):
     assert tk.ndt_align_loop.launches - before[0] == 4 * per_step
     assert tk.voxel_centroids.launches - before[1] == 4
     assert tk.ndt_finalize.launches - before[2] == 4 * 2
-    assert tk.thread_launches() - before[3] == 4 * (sum(step_tally.values()) + 2)
+    assert tk.dense_table.launches - before[3] == 4 * 2
+    assert tk.thread_launches() - before[4] == 4 * (sum(step_tally.values()) + 4)
 
 
 @pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
@@ -1816,14 +1818,15 @@ def test_covariance_kernels_reject_bad_inputs(cuda):
 
 def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
     """`estimate_covariances` and `build_gicp_target` on the card: one launch of
-    `gicp_covariances` a call and no other kernel of `ops/kernels.py` (no `eigh3x3`), and
-    no synchronous read under `torch.cuda.set_sync_debug_mode("error")` (after a warm-up
-    call)."""
+    `gicp_covariances` a call, the target's grid one of `grid_rows`, and no other kernel of
+    `ops/kernels.py` (no `eigh3x3`), and no synchronous read under
+    `torch.cuda.set_sync_debug_mode("error")` (after a warm-up call)."""
     p, m = _cov_cloud("source", cuda)
     gicp.estimate_covariances(p, m, 2.0)
     gicp.build_gicp_target(p, m, 2.0)
     torch.cuda.synchronize()
-    before = (tk.gicp_covariances.launches, tk.eigh3x3.launches, tk.thread_launches())
+    before = (tk.gicp_covariances.launches, tk.eigh3x3.launches, tk.grid_rows.launches,
+              tk.thread_launches())
     try:
         torch.cuda.set_sync_debug_mode("error")
         covs, ok = gicp.estimate_covariances(p, m, 2.0)
@@ -1831,15 +1834,15 @@ def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (tk.gicp_covariances.launches - before[0], tk.eigh3x3.launches - before[1],
-            tk.thread_launches() - before[2]) == (2, 0, 2)
+            tk.grid_rows.launches - before[2], tk.thread_launches() - before[3]) == (2, 0, 1, 3)
     assert bool(torch.isfinite(covs).all()) and bool(target.valid.any()) and bool(ok.any())
 
 
 def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
     """The GICP front end's captured programs record one launch of `gicp_covariances`
-    each (the step's source, the insert's target) and no `eigh3x3`; a replayed insert's
-    target equals the plain insert-and-rebuild body, run with the covariances' plain
-    version, bit for bit."""
+    each (the step's source, the insert's target; the insert's grid one of `grid_rows`)
+    and no `eigh3x3`; a replayed insert's target equals the plain insert-and-rebuild
+    body, run with the covariances' and the grid's plain versions, bit for bit."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
     from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd, make_fused_frontend
 
@@ -1850,10 +1853,11 @@ def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
         front.insert_and_rebuild(t % 2)
     torch.cuda.synchronize()
     step_tally = front.programs[16384].tally
-    assert front.insert_program.tally == {tk.gicp_covariances: 1}
+    assert front.insert_program.tally == {tk.gicp_covariances: 1, tk.grid_rows: 1}
     assert step_tally[tk.gicp_covariances] == 1
     assert tk.eigh3x3 not in step_tally and front.insert_program.replays == len(raws) - 1
     monkeypatch.setattr(tk, "gicp_covariances", tnb.gicp_covariances_plain)
+    monkeypatch.setattr(tk, "grid_rows", tnb.grid_rows_plain)
     _, _, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
                                     device=cuda)
     want = aux["rebuild"](front.ring)
@@ -2547,3 +2551,195 @@ def test_prefilter_kernels_reject_bad_inputs(cuda):
         with pytest.raises(ValueError):
             tk.sor_window_stats(*args, **{"k": 30, **kw})
     assert (tk.voxel_centroids.launches, tk.sor_window_stats.launches) == before
+
+
+# -- the hash grid's kernels (`csrc/grid.cu`) --------------------------------------------------
+# `grid_rows` against `neighbors.grid_rows_plain` and `dense_table` against
+# `voxel.build_dense_table_plain` on the same card tensors, bit for bit, with a rerun: the
+# dense ring's 655,360 grid rows, a loop-submap-like grid (131,072 rows, most of them
+# padding: a ~118,000-row INVALID_KEY tail), a 32,768-row source, small and degenerate
+# grids; the NDT map levels' tables (65,536 and 32,768 rows), an occupancy table of
+# unsorted repeating keys, keys outside the table or below zero, N = 0.
+
+GRID_CASES = ["ring", "loop_submap", "source", "n1", "n257", "one_cell", "all_invalid",
+              "empty"]
+TABLE_CASES = ["fine_level", "coarse_level", "occupancy", "mixed", "empty"]
+
+
+def _grid_rows_args(case, device):
+    """(keys_sorted, points_sorted) of a grid case (`GRID_CASES`), sorted at 2 m."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+    from lidar_graph_slam_tpu_torch.ops.voxel import voxel_downsample
+
+    if case == "loop_submap":  # a 0.5 m downsample into 131,072 rows, as a loop input
+        p, m = _cov_cloud("ring", device)
+        filt = voxel_downsample(p[:40000], m[:40000], 0.5, capacity=131072)
+        p, m = filt.points, filt.mask
+    else:
+        p, m = _cov_cloud(case, device)
+    cells = tnb.sort_by_cell(p, m, 2.0) if p.shape[0] else tnb.CellSort(
+        keys=torch.empty(0, dtype=torch.int32, device=device), points=p,
+        order=torch.empty(0, dtype=torch.int64, device=device))
+    return cells.keys, cells.points
+
+
+def _dense_table_args(case, device, seed=0):
+    """(keys, row_valid) of a table case (`TABLE_CASES`)."""
+    rng = np.random.default_rng(seed)
+    if case in ("fine_level", "coarse_level"):
+        p, m = _cov_cloud("ring", device)
+        res, cap = (2.0, 65536) if case == "fine_level" else (4.0, 32768)
+        vmap = build_ndt_map(p, m, res, capacity=cap)
+        return vmap.keys, vmap.valid
+    if case == "occupancy":
+        kp = torch.as_tensor(rng.normal(0.0, 25.0, (8192, 3)).astype(np.float32),
+                             device=device)
+        valid = torch.as_tensor(rng.random(8192) < 0.85, device=device)
+        leaf = torch.tensor(2.0, device=device)
+        origin = torch.where(valid[:, None], kp, PAD_VALUE).amin(dim=0) - leaf
+        keys = pack_key(voxel_coords(kp, origin, 1.0 / leaf))
+        return torch.where(valid, keys, INVALID_KEY), valid
+    if case == "mixed":
+        n = 20000
+        cx, cy, cz = rng.integers(0, 300, n), rng.integers(0, 300, n), rng.integers(0, 80, n)
+        keys = ((cx << 19) | (cy << 8) | cz).astype(np.int64)
+        keys[n // 2:] = rng.permutation(keys[: n - n // 2])
+        keys[::11] = 2**31 - 1
+        keys[5::97] = -rng.integers(1, 2**31 - 1, len(keys[5::97]))
+        return (torch.as_tensor(keys.astype(np.int32), device=device),
+                torch.as_tensor(rng.random(n) < 0.8, device=device))
+    return (torch.empty(0, dtype=torch.int32, device=device),
+            torch.empty(0, dtype=torch.bool, device=device))
+
+
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_grid_rows_bit_equal_to_plain(cuda, case):
+    """`grid_rows` twice against `grid_rows_plain` (the running max, the packed rows and
+    the scatter-min table), one launch a call (none at N = 0)."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+
+    keys, pts = _grid_rows_args(case, cuda)
+    n = keys.shape[0]
+    before = tk.grid_rows.launches
+    got = tk.grid_rows(keys, pts)
+    again = tk.grid_rows(keys, pts)
+    want = tnb.grid_rows_plain(keys, pts)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+    _same_bits(again, want)
+    assert tk.grid_rows.launches - before == 2 * int(n > 0)
+    if case == "loop_submap":
+        assert n == 131072 and int((keys == INVALID_KEY).sum()) > 90000
+    if case in ("ring", "source", "loop_submap", "one_cell"):
+        assert bool((want[2] >= 0).any())
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_dense_table_bit_equal_to_plain(cuda, case):
+    """`dense_table` twice against `build_dense_table_plain`, one launch a call (none at N
+    = 0); also at other dims."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import build_dense_table_plain
+
+    keys, valid = _dense_table_args(case, cuda)
+    before = tk.dense_table.launches
+    got, again = tk.dense_table(keys, valid), tk.dense_table(keys, valid)
+    want = build_dense_table_plain(keys, valid, TABLE_DIMS)
+    small = tk.dense_table(keys, valid, (64, 32, 16))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert torch.equal(small, build_dense_table_plain(keys, valid, (64, 32, 16)))
+    assert tk.dense_table.launches - before == 3 * int(keys.shape[0] > 0)
+    assert bool((want >= 0).any()) == (case != "empty")
+
+
+def test_grid_kernels_in_a_cuda_graph_and_without_a_read(cuda):
+    """Both wrappers under `torch.cuda.set_sync_debug_mode("error")`, and captured in one
+    CUDA graph: replays on new inputs copied into the captured ones equal the plain
+    versions on those inputs (the table cleared at each replay)."""
+    from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
+    from lidar_graph_slam_tpu_torch.ops.voxel import build_dense_table_plain
+
+    keys, pts = (t.clone() for t in _grid_rows_args("source", cuda))
+    tkeys, tvalid = (t.clone() for t in _dense_table_args("occupancy", cuda))
+    tk.grid_rows(keys, pts)
+    tk.dense_table(tkeys, tvalid)
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        tk.grid_rows(keys, pts)
+        tk.dense_table(tkeys, tvalid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tk.grid_rows(keys, pts)
+        tk.dense_table(tkeys, tvalid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (tk.grid_rows.launches, tk.dense_table.launches)
+    with tk.recorded_launches() as tally, torch.cuda.graph(graph):
+        rows = tk.grid_rows(keys, pts)
+        table = tk.dense_table(tkeys, tvalid)
+    assert tally == {tk.grid_rows: 1, tk.dense_table: 1}
+    assert (tk.grid_rows.launches, tk.dense_table.launches) == before
+    for seed in (1, 2):
+        p2, m2 = _cov_cloud("source", cuda, seed=seed)
+        cells = tnb.sort_by_cell(p2, m2, 2.0)
+        k2, v2 = _dense_table_args("occupancy", cuda, seed=seed)
+        keys.copy_(cells.keys)
+        pts.copy_(cells.points)
+        tkeys.copy_(k2)
+        tvalid.copy_(v2)
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_bits(rows, tnb.grid_rows_plain(keys, pts))
+        assert torch.equal(table, build_dense_table_plain(tkeys, tvalid, TABLE_DIMS))
+
+
+def test_grid_kernels_reject_bad_inputs(cuda):
+    keys, pts = _grid_rows_args("n257", cuda)
+    tkeys, tvalid = _dense_table_args("occupancy", cuda)
+    before = (tk.grid_rows.launches, tk.dense_table.launches)
+    for bad in ((keys.long(), pts), (keys, pts.double()), (keys[:-1], pts),
+                (keys, pts[:, :2]), (keys, pts.cpu()), (keys, pts.t().contiguous().t())):
+        with pytest.raises(ValueError):
+            tk.grid_rows(*bad)
+    for bad, kw in (((tkeys.long(), tvalid), {}), ((tkeys, tvalid.int()), {}),
+                    ((tkeys[:-1], tvalid), {}), ((tkeys, tvalid.cpu()), {}),
+                    ((tkeys[::2], tvalid[::2]), {}), ((tkeys, tvalid), {"dims": (0, 4, 4)}),
+                    ((tkeys, tvalid), {"dims": (4096, 4096, 256)})):
+        with pytest.raises(ValueError):
+            tk.dense_table(*bad, **kw)
+    assert (tk.grid_rows.launches, tk.dense_table.launches) == before
+
+
+@pytest.mark.parametrize("method", ["GICP", "ICP"])
+def test_captured_inserts_build_the_grid_with_its_kernel(cuda, method):
+    """The GICP and ICP front ends' insert programs record one `grid_rows` launch (and
+    GICP's one `gicp_covariances`); the target build they capture launches
+    `grid_rows_kernel` and no `torch.cummax` scan and no scatter (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd, make_fused_frontend
+
+    cfg, raws = _capture_course(cuda, method)
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    for t, raw in enumerate(raws[:3]):
+        front.dispatch(raw, None, None, t % 2)
+        front.insert_and_rebuild(t % 2)
+    torch.cuda.synchronize()
+    want = {tk.grid_rows: 1, **({tk.gicp_covariances: 1} if method == "GICP" else {})}
+    assert front.insert_program.tally == want and front.insert_program.replays == 2
+    _, _, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
+                                    device=cuda)
+    aux["rebuild"](front.ring)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        aux["rebuild"](front.ring)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert any("grid_rows_kernel" in k for k in names), names
+    assert not [k for k in names if "cummax" in k or "dim_with_indices" in k
+                or "scatter" in k.lower()], names
