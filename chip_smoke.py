@@ -9,8 +9,9 @@ of `bench.py:bench_e2e`. Phases:
 
   1. refuse without CUDA; print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from `lidar_graph_slam_tpu_torch/csrc/` (nvcc), print seconds
-     and ptxas's registers per kernel; the SM clock and `eigh3x3`'s SASS instructions a
-     matrix (`cuobjdump -sass`);
+     and ptxas's registers per kernel; the SM clock; for the kernels that run the 3x3
+     eigensolve (`eigh3x3_kernel`, `ndt_finalize_kernel`, `gicp_covariances`) their
+     registers and spills and their SASS instructions and `CALL`s (`cuobjdump -sass`);
   3. both kernels against their plain PyTorch versions on the card at the main path's
      shapes: `ndt_accumulate` on random rows (K = 229,376 fine, 57,344 coarse) and on a
      real map's correspondences, `ndt_direct7_accumulate` on the same map and source (N =
@@ -48,8 +49,8 @@ of `bench.py:bench_e2e`. Phases:
      against the parent tree's moments-plus-finalize on the same rows (`--parent`); its
      device and host us (with `--parent`, in turns with the parent's
      moments-plus-finalize), the plain version's ms, the bound (bytes, and issue slots:
-     the summed points or rows, and `eigh3x3`'s SASS instructions a matrix,
-     `sass_fast_path`, for each valid row); the wrappers' launches a rebuild; the rebuild and
+     the summed points or rows, and EIGH_INSTRUCTIONS for each valid row); the wrappers'
+     launches a rebuild; the rebuild and
      `insert_and_rebuild` under `torch.cuda.set_sync_debug_mode("error")`, both
      sync-free; `scripts/torch_profile_rebuild.py` in a subprocess: wall ms a rebuild on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
@@ -217,8 +218,11 @@ of `bench.py:bench_e2e`. Phases:
      `eigh3x3` (which only the FPFH normals launch) against `_eigh3x3` on every [Q, 3, 3]
      input the normals handed it in that run, bit for bit with reruns, and on the first
      one its device and host us, the plain version's ms, `torch.linalg.eigh`'s ms, the
-     bound (bytes, and `eigh3x3`'s SASS instructions a matrix for each matrix that is
-     not the identity: the normals' guarded rows are); `dense_table` on the course's
+     bound (bytes, and EIGH_INSTRUCTIONS for each matrix that is not the identity: the
+     normals' guarded rows are); with `--parent DIR` that tree's `eigh3x3` bit-equal on
+     every input and timed in turns, and `scripts/torch_eigh3x3_split.py` in a subprocess
+     on the recorded inputs (the launch's parts at 32, 64 and 256 threads a block, the
+     rotations' routes, the parent's kernel); `dense_table` on the course's
      first RANSAC occupancy table (recorded in the verify worker) as in phase 11b;
  21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
      continued — the classic driver equals the uninterrupted run to 1e-4 with the same
@@ -274,7 +278,8 @@ phase 3c, its loop-kernel timings to phase 3b, its rebuild to phase 4, its profi
 phase 7, its GICP target build (its own grid) to phase 14d, its GICP loop kernel to
 phase 14b (the carry bit for bit, the times in turns with this tree's), its ICP kernels'
 times, aligns and SASS check to phase 14c, its verifications and classic ICP front end to
-phase 16 and its GICP courses to phase 18 (in turns, every course bit-equal).
+phase 16, its GICP courses to phase 18 (in turns, every course bit-equal) and its
+`eigh3x3` to phase 20 (in turns, with the split).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -701,12 +706,17 @@ MIN_POINTS = 6
 # row written (seg_key, 13 moments, key, mean, inverse, valid and the 64 B packed row:
 # 173 B). Float instructions a summed point (3 subtractions, 6 products, 10 adds) and a
 # merged fine row (the shift: 3 + 6 + 63, and 13 adds); a valid row's eigensolve takes
-# `eigh3x3`'s SASS instructions a matrix (`sass_fast_path`). `eigh3x3` reads 36 B and
-# writes 48 B a matrix.
+# EIGH_INSTRUCTIONS. `eigh3x3` reads 36 B and writes 48 B a matrix.
 FINALIZE_POINT_BYTES, FINALIZE_MERGED_ROW_BYTES = 12, 64
 FINALIZE_RUN_BYTES, FINALIZE_RUN_KEY_BYTES, FINALIZE_ROW_BYTES = 16, 4, 173
 FINALIZE_POINT_OPS, FINALIZE_MERGED_ROW_OPS = 19, 85
 EIGH_BYTES_PER_MATRIX = 36 + 48
+# The eigensolve's work a solved matrix, a fixed yardstick whatever implements it: the
+# SASS instructions a thread of the first `eigh3x3_kernel` issued on its fast path (its
+# own code up to the divide's and roots' slow paths, the sweep loop counted 6 times; 18
+# rotations, each with its divide, two roots and two reciprocals), as counted from its
+# `cuobjdump -sass` on an H100.
+EIGH_INSTRUCTIONS = 1737
 # The issue rate of the H100 SXM: one warp instruction a cycle on each of 4 schedulers of
 # each of its 132 SMs, at the SM clock (`nvidia-smi --query-gpu=clocks.max.sm`).
 SMS, SCHEDULERS_PER_SM, WARP = 132, 4, 32
@@ -728,51 +738,46 @@ def bound_us(nbytes: float, instructions: float, clock_mhz: float) -> dict:
 
 
 SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
-SASS_TARGET = re.compile(r"(0x[0-9a-f]+)\s*$")
 
 
-def sass_fast_path(sass: str, kernel: str, trips: int) -> dict:
-    """The SASS instructions a thread of `kernel` (part of a function name in `sass`, the
-    output of `cuobjdump -sass`) issues on its fast path: the function's own code (up to
-    its first called subroutine, the IEEE divide's and square root's slow paths), its one
-    loop counted `trips` times, and the code a conditional forward branch skips to call a
-    slow path left out. Raises if the function has no loop or more than one."""
-    funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
-    if len(funcs) != 1:
-        raise AssertionError(f"sass: {len(funcs)} functions named like {kernel}")
-    ops = [(int(m.group(1), 16), m.group(2).strip())
-           for m in SASS_INSTRUCTION.finditer(funcs[0])]
-    index = {addr: i for i, (addr, _) in enumerate(ops)}
-
-    def target(op):
-        t = SASS_TARGET.search(op)
-        return None if t is None else index.get(int(t.group(1), 16))
-
-    ends = [target(op) for _, op in ops if "CALL" in op]
-    ends += [i for i, (_, op) in enumerate(ops) if "BRA" in op and target(op) == i]
-    end = min([e for e in ends if e is not None] + [len(ops)])
-    counted, loops = [True] * end, []
-    for i in range(end):
-        op = ops[i][1]
-        j = target(op) if "BRA" in op else None
-        if j is None:
-            continue
-        if j <= i:
-            loops.append((j, i))
-        elif op.startswith("@") and any("CALL" in o for _, o in ops[i + 1:j]):
-            counted[i + 1:j] = [False] * (j - i - 1)
-    if len(loops) != 1:
-        raise AssertionError(f"sass: {kernel} has {len(loops)} loops: {loops}")
-    j, i = loops[0]
-    return dict(instructions=sum(counted) + (trips - 1) * sum(counted[j:i + 1]),
-                static=end, loop_body=sum(counted[j:i + 1]), skipped=end - sum(counted))
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """Registers, stack and spill bytes of the entry functions named like `kernel` in a
+    `ptxas -v` log: {entry: {registers, stack_bytes, spill_stores, spill_loads}}."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if kernel in name else None
+            if entry:
+                out[entry] = {}
+        elif entry and "spill stores" in line:
+            f = [x.strip().split(" ")[0] for x in line.split(",")]
+            out[entry].update(stack_bytes=int(f[0]), spill_stores=int(f[1]),
+                              spill_loads=int(f[2]))
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(line.split("Used")[1].split("registers")[0])
+    return out
 
 
-def library_sass() -> str:
-    """`cuobjdump -sass` of the kernel library this process built or loaded."""
+def sass_counts(sass: str, kernel: str) -> dict:
+    """The SASS instructions and `CALL`s (the IEEE divide's, roots' and reciprocals' slow
+    paths) of the functions named like `kernel` in `sass` (`cuobjdump -sass`'s output):
+    {function: {instructions, calls}}."""
+    out = {}
+    for f in sass.split("Function : ")[1:]:
+        name = f.split("\n", 1)[0].strip()
+        if kernel in name:
+            ops = [m.group(2) for m in SASS_INSTRUCTION.finditer(f)]
+            out[name] = dict(instructions=len(ops), calls=sum("CALL" in o for o in ops))
+    return out
+
+
+def library_sass(path: str | None = None) -> str:
+    """`cuobjdump -sass` of a library: by default the kernel library this process built or
+    loaded."""
     tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    return subprocess.run([tool, "-sass", kernels.build_info["path"]], capture_output=True,
-                          text=True, check=True).stdout
+    return subprocess.run([tool, "-sass", path or kernels.build_info["path"]],
+                          capture_output=True, text=True, check=True).stdout
 
 
 def flat(out):
@@ -1252,24 +1257,38 @@ def recording_eigh3x3(inputs: list):
         kernels.eigh3x3 = wrapper
 
 
-def eigh_normals_check(inputs: list, card: str, eigh_instructions: int,
-                       clock_mhz: float) -> dict:
+def eigh_normals_check(inputs: list, card: str, eigh_instructions: int, clock_mhz: float,
+                       parent_kern=None) -> dict:
     """`eigh3x3` against `_eigh3x3` on every input the FPFH normals handed it on a course
     (`recording_eigh3x3`), bit for bit with a rerun; on the first one its device and host
     us, the plain version's ms, `torch.linalg.eigh`'s ms and the bound: bytes for every
     matrix, `eigh_instructions` for each matrix that is not the identity (the normals
-    guard a row with fewer than 3 neighbours, or masked out, as the identity). Returns
+    guard a row with fewer than 3 neighbours, or masked out, as the identity). With
+    `parent_kern` (the parent tree's `ops.kernels`) its `eigh3x3` bit-equal on every input
+    and timed in turns with this tree's on the first (this, parent, parent, this). Returns
     the timing record."""
     if not inputs:
         raise AssertionError("eigh3x3: the normals made no call to record")
     for k, A in enumerate(inputs):
-        same_bits(f"eigh_normals {k}", ("w", "V"), kernels.eigh3x3(A), kernels.eigh3x3(A),
-                  voxel._eigh3x3(A))
+        out = kernels.eigh3x3(A)
+        same_bits(f"eigh_normals {k}", ("w", "V"), out, kernels.eigh3x3(A), voxel._eigh3x3(A))
+        if parent_kern is not None:
+            same_bits(f"eigh_normals {k} parent", ("w", "V"), out, parent_kern.eigh3x3(A),
+                      out)
     A = inputs[0]
     rows = A.shape[0]
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     solved = int((A != eye).any(dim=2).any(dim=1).sum())
     t = split_times(kernels.eigh3x3, A)
+    if parent_kern is not None:
+        runs = {"this": [], "parent": []}
+        for tree in ("this", "parent", "parent", "this"):
+            kern = parent_kern if tree == "parent" else kernels
+            runs[tree].append(split_times(kern.eigh3x3, A)["device_us"])
+        t.update(device_us_in_turns=float(np.mean(runs["this"])),
+                 parent_device_us=float(np.mean(runs["parent"])),
+                 turns_this=json.dumps([round(x, 3) for x in runs["this"]]),
+                 turns_parent=json.dumps([round(x, 3) for x in runs["parent"]]))
     library_ms, route, errors = eigh_library_ms(A)
     t.update(library_route=route, library_errors=json.dumps(errors))
     t.update(plain_ms=median_ms(voxel._eigh3x3, A, calls=20), library_ms=library_ms,
@@ -1280,8 +1299,31 @@ def eigh_normals_check(inputs: list, card: str, eigh_instructions: int,
     return dict(kernel="eigh3x3", shape="eigh_normals", **t)
 
 
+def eigh_split(inputs: list, parent: str, card: str) -> dict:
+    """`scripts/torch_eigh3x3_split.py` in a subprocess on the normals' recorded inputs: a
+    launch split into its parts (the floor, load and store, each sweep) at 32, 64 and
+    256 threads a block, one warp's chain, the rotations' routes and the `parent` tree's
+    kernel in the same rounds; one `eigh3x3-split` line a thread count."""
+    os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
+    path = os.path.join(REPO, ".chip_scratch", "eigh3x3_split_input.npz")
+    np.savez(path, **{f"eigh_normals__{k}": A.cpu().numpy() for k, A in enumerate(inputs)})
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_eigh3x3_split.py"),
+           "--input", path, "--json", os.path.join(OUT_DIR, "eigh3x3_split.jsonl"),
+           "--parent", os.path.abspath(parent)]
+    try:
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=400)
+    finally:
+        os.remove(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"eigh3x3 split failed:\n{proc.stderr[-3000:]}")
+    split = json.loads(proc.stdout.strip().splitlines()[-1])["split"]
+    for variant, row in split.items():
+        say("eigh3x3-split", variant=variant, **row, card=json.dumps(card))
+    return split
+
+
 def rebuild_phase(cfg: PipelineConfig, aux, ring, card: str, parent: str | None,
-                  sass: dict, clock_mhz: float) -> dict:
+                  clock_mhz: float) -> dict:
     """Phase 4: the full ring's target rebuilt twice, bit-identical; `ndt_finalize` on the
     ring's two levels (`finalize_phase`); the wrappers' launches a rebuild; the rebuild and
     `insert_and_rebuild` make no synchronous read; the profile of `profile_rebuild`:
@@ -1295,7 +1337,7 @@ def rebuild_phase(cfg: PipelineConfig, aux, ring, card: str, parent: str | None,
     out["wrapper_launches_per_rebuild"] = kernels.thread_launches() - before
     parent_kern = None if parent is None else tree_kernels(parent, "parent_kernels_finalize")
     timing = finalize_phase("dense", cfg, ring, card, parent_kern,
-                            sass["eigh3x3"]["instructions"], clock_mhz)
+                            EIGH_INSTRUCTIONS, clock_mhz)
     out["bit_equal"] = True
     # The rebuild, and the whole keyframe step the back end calls (slot 0 written again
     # with its own contents, which leaves the ring as it was).
@@ -4279,9 +4321,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     sass_text = library_sass()
-    sass = {"eigh3x3": sass_fast_path(sass_text, "eigh3x3_kernel", 6)}
-    say("sass", clock_max_sm_mhz=clock_mhz,
-        **{f"eigh3x3_{k}": v for k, v in sass["eigh3x3"].items()})
+    eigh_users = ("eigh3x3_kernel", "ndt_finalize_kernel", "gicp_covariances")
+    say("sass", clock_max_sm_mhz=clock_mhz, eigh_instructions_yardstick=EIGH_INSTRUCTIONS,
+        **{k: json.dumps(sass_counts(sass_text, k), separators=(",", ":"))
+           for k in eigh_users})
+    say("ptxas", **{k: json.dumps(ptxas_usage(kernels.build_info["log"], k),
+                                  separators=(",", ":")) for k in eigh_users})
 
     # -- 3. both kernels vs their plain versions at the main path's shapes, and times -----
     cfg = loops_off_config()
@@ -4342,7 +4387,7 @@ def main(argv=None) -> int:
                 card=json.dumps(card))
 
     # -- 4. the target rebuild on the full ring: bit-identical, its kernels vs plain -------
-    rb = rebuild_phase(cfg, aux, ring, card, args.parent, sass, clock_mhz)
+    rb = rebuild_phase(cfg, aux, ring, card, args.parent, clock_mhz)
     timing.update(rb["timing"])
     say("map-build", **rb["numbers"], card=json.dumps(card))
 
@@ -4455,7 +4500,7 @@ def main(argv=None) -> int:
     drift_parent = None if args.parent is None else tree_kernels(args.parent,
                                                                  "parent_kernels_drift")
     timing.update(finalize_phase("drift", cfg_on, pipe_on.fused_front.ring, card, drift_parent,
-                                 sass["eigh3x3"]["instructions"], clock_mhz))
+                                 EIGH_INSTRUCTIONS, clock_mhz))
     drift_prof = profile_rebuild(cfg_on, pipe_on.fused_front.ring, args.parent, card,
                                  tag="drift")
 
@@ -4496,7 +4541,7 @@ def main(argv=None) -> int:
         max_err["ndt_accumulate"] = max(max_err["ndt_accumulate"], err)
 
     # -- 14d. GICP's covariance kernels at the path's three shapes; the target build's profile
-    cov = covariance_phase(cfg, ring, last, verify_in, card, sass["eigh3x3"]["instructions"],
+    cov = covariance_phase(cfg, ring, last, verify_in, card, EIGH_INSTRUCTIONS,
                            clock_mhz, sass_text, args.parent)
     timing.update(cov["timing"])
     del ring
@@ -4689,7 +4734,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"eigh3x3: {len(eigh_inputs)} recorded calls, "
                              f"{launches_gi['eigh3x3']} launches")
     timing["eigh_normals"] = {"eigh3x3": eigh_normals_check(
-        eigh_inputs, card, sass["eigh3x3"]["instructions"], clock_mhz)}
+        eigh_inputs, card, EIGH_INSTRUCTIONS, clock_mhz,
+        None if args.parent is None else tree_kernels(args.parent, "parent_kernels_eigh"))}
+    if args.parent:
+        eigh_split(eigh_inputs, args.parent, card)
     del eigh_inputs
     # The RANSAC occupancy table of the course's first global guess (the verify worker's).
     if not occupancy_inputs:

@@ -44,8 +44,9 @@
 //    t = 0, c = 1, w = 1, V = I, the floor 0.01, the inverse I). The moments (seg_keys,
 //    [C, 13] stats) and the map's rows (keys, means, inv_covs, valid, packed) are staged
 //    in shared memory and written coalesced, the float rows as 16-byte stores.
-//  * `eigh3x3_kernel`, one thread a matrix: w ascending and V (eigenvector columns) of
-//    `_eigh3x3`, for GICP's covariances and the FPFH normals.
+//  * `eigh3x3_kernel`, one thread a matrix, 32 a block: w ascending and V (eigenvector
+//    columns) of `_eigh3x3`, for the FPFH normals (8,192 matrices: 256 blocks over all
+//    132 SMs).
 //
 // Bit-equal to the plain versions: each float operation is theirs, in their order,
 // rounded once (`__f*_rn`, so nvcc contracts nothing into an FMA), from the same 0.0; no
@@ -61,13 +62,31 @@
 // (1, p - corner) pass) and ~20 cycles a point, beside the other summing warps
 // of its SM. The eigensolve's IEEE divides and square roots take issue slots only for
 // the valid rows, packed into full warps. Tensor cores and TMA have nothing to offer a
-// per-row 3x3 eigensolve. `eigh3x3` reads 36 B and writes 48 B a matrix for ~1,740 SASS
-// instructions: issue slots.
+// per-row 3x3 eigensolve. `eigh3x3` reads 36 B and writes 48 B a matrix, 0.21 us at the
+// normals' 8,192; what bounds it there is one warp's dependent chain of rotations, not
+// bytes or issue slots (`scripts/torch_eigh3x3_split.py` on the normals' inputs, one
+// H100 at 700 W: a 1.80 us launch floor, 0.35 us of loads and stores and 3.19 us of one
+// solved warp's 18 rotations make the 5.11 us launch; sweep 1, three general rotations,
+// takes 0.74 us). The normals' 1,599 solved matrices already sit in 51 of the 256
+// warps, so packing them into full warps would leave that chain as it is. What shortens
+// it is the header's shortcuts: the converged rotations of sweeps 3-6 take no divide or
+// root (10.24 -> 5.65 us at 256 threads a block). Fewer threads a block spread the
+// launch over all SMs: 5.11 us at 32, 5.22 at 64 and 5.65 at 256, where 32 blocks on 32
+// SMs take 1.84 us to load and store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "eigh3x3.cuh"
+
+// `scripts/torch_eigh3x3_split.py` builds this file with -DLGS_EIGH_STEPS=-1..5 (the
+// `eigh3x3_kernel`'s kSteps) and -DLGS_EIGH_THREADS to time a launch cut after each part.
+#ifndef LGS_EIGH_STEPS
+#define LGS_EIGH_STEPS 6
+#endif
+#ifndef LGS_EIGH_THREADS
+#define LGS_EIGH_THREADS 32
+#endif
 
 namespace {
 
@@ -89,7 +108,7 @@ constexpr int kStageBytes = kPointWarps * (kStages * 3 + 4) * kChunk * 4;
 constexpr int kColumns = 10;        // a run's summing lanes: the count, 3 sums, 6 products
 constexpr int kStats = 13;          // a row's moments: count | sums (3) | outer sums (9)
 constexpr int kRowStride = 17;      // a staged output row: mean | inverse | valid | 0 0 0, + 1
-constexpr int kEighThreads = 256;
+constexpr int kEighThreads = LGS_EIGH_THREADS;
 constexpr int kInvalidKey = 0x7fffffff;                 // ops/voxel.py:INVALID_KEY
 constexpr int kEmptyKey = static_cast<int>(0x80000000);  // an empty segment's segment_max
 constexpr float kPadValue = 1.0e6f;                     // core/pointcloud.py:PAD_VALUE
@@ -476,15 +495,18 @@ ndt_finalize_kernel(Runs runs, const float* __restrict__ pts, Merge merge,
   }
 }
 
+// kSteps < 0: return at once (the launch floor); 0: load and store, w = the diagonal and V
+// = I; 1-6: that many sweeps (6 is the kernel).
+template <int kSteps>
 __global__ void __launch_bounds__(kEighThreads)
 eigh3x3_kernel(const float* __restrict__ A, long long M, float* __restrict__ w_out,
                float* __restrict__ V_out) {
   const long long r = static_cast<long long>(blockIdx.x) * kEighThreads + threadIdx.x;
-  if (r >= M) return;
+  if (kSteps < 0 || r >= M) return;
   const float* m = A + 9 * r;
   float a[6] = {m[0], m[4], m[8], m[1], m[2], m[5]};
   float w[3], v[3][3];
-  eigh3x3(a, w, v);
+  eigh3x3<(kSteps < 0 ? 0 : kSteps)>(a, w, v);
 #pragma unroll
   for (int k = 0; k < 3; ++k) w_out[3 * r + k] = w[k];
 #pragma unroll
@@ -541,8 +563,8 @@ int lgs_ndt_finalize(const int* keys, const long long* starts, const long long* 
 // One launch on `stream` over M >= 1 matrices: A [M, 3, 3] f32 (its upper triangle is
 // read); w [M, 3] ascending, V [M, 3, 3] with eigenvector columns.
 int lgs_eigh3x3(const float* A, long long M, float* w, float* V, void* stream) {
-  eigh3x3_kernel<<<blocks(M, kEighThreads), kEighThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(A, M, w, V);
+  eigh3x3_kernel<LGS_EIGH_STEPS><<<blocks(M, kEighThreads), kEighThreads, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(A, M, w, V);
   return static_cast<int>(cudaGetLastError());
 }
 

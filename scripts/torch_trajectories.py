@@ -10,7 +10,8 @@ off, NDT (phase 6) and GICP (phase 15), and the 360-frame drift course with loop
 with the ICP verifier (phase 10) and with the GICP verifier (phase 17); `--courses` runs
 those named instead, among them `dense_icp_classic`, the dense course through the classic
 driver with ICP (phase 16), and `cli_gicp_classic`, the CLI's 60-frame synthetic course
-(seed 0) through the classic driver with GICP and loops on, as phase 18 runs the CLI. It
+(seed 0) through the classic driver with GICP and loops on, as phase 18 runs the CLI, and
+`drift_global`, the drift course with `graph_slam.use_global_init=true` (phase 20). It
 writes each run's odometry and keyframe poses, its loop
 attempts (candidate, accepted, fitness), its keyframe ATE, the loop kernels' launches
 that did work, the p50 ms of the frame and of the pipeline's stages (`prefilter`: the
@@ -35,7 +36,7 @@ import sys
 import time
 
 COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
-EXTRA = ("dense_icp_classic", "cli_gicp_classic")
+EXTRA = ("dense_icp_classic", "cli_gicp_classic", "drift_global")
 NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked", "captures")
 STAGES = ("frame", "prefilter", "register", "backend")
 
@@ -76,7 +77,9 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
                                                ["graph_slam.registration_method=GICP"]),
                            drift),
             "cli_gicp_classic": (apply_cli_overrides(PipelineConfig(), [
-                "fused_frontend=False", "scan_matcher.registration_method=GICP"]), cli)}
+                "fused_frontend=False", "scan_matcher.registration_method=GICP"]), cli),
+            "drift_global": (apply_cli_overrides(PipelineConfig(),
+                                                 ["graph_slam.use_global_init=true"]), drift)}
     arrays = {}
     for name in courses:
         cfg, (scans, gt) = runs[name]

@@ -46,6 +46,8 @@ iterations and converged equal, num_inliers within 1%.
 """
 
 import dataclasses
+import importlib.util
+import os
 import threading
 
 import numpy as np
@@ -1658,29 +1660,50 @@ def _window_covariances(device, n=32768, seed=3):
 
 
 def test_eigh3x3_bit_equal_to_plain(cuda):
-    """`eigh3x3` equals `_eigh3x3` on the card bit for bit: GICP's window covariances,
-    random symmetric matrices (non-symmetric input: only the upper triangle is read),
-    diagonal and tau = 0 ones, and a single matrix."""
+    """`eigh3x3` equals `_eigh3x3` on the card bit for bit (compared through int32 views,
+    signed zeros and NaNs included): GICP's window covariances, random symmetric matrices
+    (non-symmetric input: only the upper triangle is read), diagonal and tau = 0 ones, a
+    single matrix, and the structured cases of `tests/torch_eigh3x3_cases.py` that reach
+    each of the rotation's routes (identity, diagonal, -0, NaN and inf entries,
+    subnormal and 1e-30 couplings, tau^2 overflow, tau = 0), random SPD matrices scaled
+    over 12 orders of magnitude. The float32 model of the routes equals both."""
     from lidar_graph_slam_tpu_torch.ops.voxel import _eigh3x3
+
+    # By path: on the card's machine another installed package is named `tests`.
+    spec = importlib.util.spec_from_file_location(
+        "torch_eigh3x3_cases", os.path.join(os.path.dirname(__file__), "torch_eigh3x3_cases.py"))
+    ec = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ec)
 
     rng = np.random.default_rng(0)
     A = rng.normal(size=(4096, 3, 3)).astype(np.float32)
     tau0 = np.array([[2.0, 1.0, 0.0], [1.0, 2.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    S = ec.spd(4096, 7)
+    scale = np.float32(10.0) ** rng.uniform(-6, 6, size=(4096, 1, 1))
     cases = [_window_covariances(cuda), torch.as_tensor(A @ A.transpose(0, 2, 1), device=cuda),
              torch.as_tensor(A, device=cuda),
              torch.as_tensor(np.stack([np.diag(rng.normal(size=3)) for _ in range(64)]
                                       + [tau0] * 4).astype(np.float32), device=cuda),
-             torch.as_tensor(tau0[None], device=cuda)]
+             torch.as_tensor(tau0[None], device=cuda),
+             torch.as_tensor((S * scale).astype(np.float32), device=cuda)]
+    structured = ec.structured()
+    cases += [torch.as_tensor(structured[k], device=cuda) for k in sorted(structured)]
+    cases.append(torch.as_tensor(np.concatenate(list(structured.values())), device=cuda))
+    split = ec.split_module()
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
     for M in cases:
         before = tk.eigh3x3.launches
         w, V = tk.eigh3x3(M)
         w2, V2 = tk.eigh3x3(M)
         rw, rV = _eigh3x3(M)
+        mw, mV, _ = split.shortcut_eigh3x3(M)
         torch.cuda.synchronize()
         assert tk.eigh3x3.launches == before + 2
-        assert torch.equal(w, w2) and torch.equal(V, V2)
-        assert torch.equal(w, rw) and torch.equal(V, rV)
-        assert torch.equal(V.view(torch.int32), rV.view(torch.int32))
+        for got in ((w2, V2), (rw, rV), (mw, mV)):
+            assert torch.equal(bits(w), bits(got[0])) and torch.equal(bits(V), bits(got[1]))
 
 
 def test_gicp_covariances_and_normals_launch_eigh3x3(cuda, monkeypatch):
