@@ -244,10 +244,15 @@ of `bench.py:bench_e2e`. Phases:
      ring each): against its plain version, and row b bit-equal to the single kernel on
      sequence b; device and host time beside four single launches', the bound;
  25. `parallel.multi_sequence.batch_odometry` on those four 40-frame sequences at the
-     default `ScanMatcherConfig` (20 x 32,768 ring points a sequence): ATE within the
-     dense bound each, keyframes, the batch equal to four runs of one bit for bit, the
-     first 3 frames card against CPU to 1e-4; frames per second, launches, and the
-     device's idle share (`scripts/torch_profile_batch.py` in a subprocess);
+     default `ScanMatcherConfig` (20 x 32,768 ring points a sequence), a batch frame one
+     replay of its frame program's CUDA graph: one capture and 39 replays, the graph
+     pool's bytes; ATE within the dense bound each, keyframes, the outputs and final
+     state bit for bit against the program's body run eagerly, the batch equal to four
+     runs of one bit for bit, the first 3 frames card against CPU to 1e-4; frames per
+     second, and a batch frame's graph and host launches, wall and device ms and the
+     device's idle share (`scripts/torch_profile_batch.py` in a subprocess; with
+     `--parent`, in turns with the parent tree's op-by-op run, whose outputs and final
+     state must have the same bits);
  26. the mesh solves on `Mesh((cuda:0,) * 4)` at the capacity K = 4096: Schur and chain
      steps against the single-device step, `mesh_optimize` (both) against `optimize`
      (the slots run one after another on one card: no multi-card speed);
@@ -380,6 +385,7 @@ from lidar_graph_slam_tpu_torch.parallel.distributed import (
     distributed_graph_step,
     mesh_optimize,
 )
+from lidar_graph_slam_tpu_torch.parallel import multi_sequence
 from lidar_graph_slam_tpu_torch.parallel.multi_sequence import batch_odometry, batch_slam
 from lidar_graph_slam_tpu_torch.parallel.schur import schur_graph_step
 
@@ -3860,21 +3866,47 @@ def batched_kernel_check(scans, masks, gts, card: str, dev=torch.device("cuda"))
     return err, rec
 
 
-def batch_odometry_check(scans, masks, gts, card: str) -> dict:
+def batch_digest(final, outs) -> str:
+    """`scripts/torch_profile_batch.py:digest` of a `batch_odometry` return."""
+    script = os.path.join(REPO, "scripts", "torch_profile_batch.py")
+    spec = importlib.util.spec_from_file_location("torch_profile_batch", script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.digest(final, outs)
+
+
+def eager_batch_body(scans, masks, cfg, map_capacity: int, dev):
+    """`batch_odometry`'s frame program body run eagerly on `dev`, frame after frame, on
+    its own buffers (no capture): (final state, outputs)."""
+    buf = multi_sequence._buffers(torch.as_tensor(scans, device=dev),
+                                  torch.as_tensor(masks, device=dev),
+                                  cfg.max_scan_accumulate_num)
+    for _ in range(scans.shape[1]):
+        multi_sequence._frame_body(buf, cfg, map_capacity)
+    return buf.state, buf.outs
+
+
+def batch_odometry_check(scans, masks, gts, card: str, parent: str | None = None) -> dict:
     """`batch_odometry` at full width: B sequences of F frames of N points under the default
     `ScanMatcherConfig` (20-keyframe ring, 2 m / 4 m), map capacity 32,768, counts set to 0
-    just before and read just after (the batched loop kernel's). Every sequence's ATE
-    within max(0.05 x travelled, 0.35) m, frame 0 a keyframe, >= 2 keyframes; the batch
-    equals B runs of one bit for bit; the first 3 frames agree with the CPU's to 1e-4
-    (`tests/test_torch_multi_sequence.py` against the reference). Frames per second over
-    the batch, and the device's idle share from `scripts/torch_profile_batch.py` in a
-    subprocess."""
+    just before and read just after (the batched loop kernel's). One frame program: one
+    capture, at frame 0, and F - 1 replays; its pool's bytes. Every sequence's ATE within
+    max(0.05 x travelled, 0.35) m, frame 0 a keyframe, >= 2 keyframes; every output and
+    final state field bit for bit against the program's body run eagerly on the same
+    frames; the batch equals B runs of one bit for bit (each its own program); the first
+    3 frames agree with the CPU's to 1e-4 (`tests/test_torch_multi_sequence.py` against
+    the reference). Frames per second over the batch; a batch frame's launches, wall and
+    device ms and the device's idle share from `scripts/torch_profile_batch.py` in a
+    subprocess, with `parent` in turns with the parent tree's op-by-op run, whose outputs
+    and final state must have the same bits."""
     cfg = PipelineConfig().scan_matcher
     B, F = scans.shape[:2]
     torch.cuda.synchronize()
+    log: list = []
     reset_counts()
     t0 = time.perf_counter()
-    final, outs = batch_odometry(scans, masks, cfg, map_capacity=32768, device="cuda")
+    final, outs = batch_odometry(scans, masks, cfg, map_capacity=32768, device="cuda",
+                                 program_log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -3882,6 +3914,8 @@ def batch_odometry_check(scans, masks, gts, card: str) -> dict:
             and counts["ndt_direct7_accumulate_batched"] == 0
             and counts["ndt_direct7_accumulate"] == counts["ndt_accumulate"] == 0):
         raise AssertionError(f"batch odometry: launches {counts}")
+    if not (len(log) == 1 and log[0]["captures"] == 1 and log[0]["replays"] == F - 1):
+        raise AssertionError(f"batch odometry: programs {log}")
     poses = outs["pose"].cpu().numpy()
     ates, bounds = [], []
     for b in range(B):
@@ -3893,11 +3927,23 @@ def batch_odometry_check(scans, masks, gts, card: str) -> dict:
             and bool((final.kf_count >= 2).all()) and bool(outs["converged"][:, 1:].all())):
         raise AssertionError(f"batch odometry: ATE {ates} (bounds {bounds}), keyframes "
                              f"{kf.sum(axis=1)}, converged {outs['converged'].sum(dim=1)}")
+    t0 = time.perf_counter()
+    eager = eager_batch_body(scans, masks, cfg, 32768, outs["pose"].device)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    run_digest = batch_digest(final, outs)
+    if batch_digest(*eager) != run_digest:
+        raise AssertionError("batch odometry: the captured run differs from its body run "
+                             "eagerly")
+    del eager
+    singles = []
     for b in range(B):
         _, one = batch_odometry(scans[b:b + 1], masks[b:b + 1], cfg, map_capacity=32768,
-                                device="cuda")
+                                device="cuda", program_log=singles)
         if not all(torch.equal(v[b], one[k][0]) for k, v in outs.items()):
             raise AssertionError(f"batch odometry: sequence {b} differs from its run alone")
+    if [(r["captures"], r["replays"]) for r in singles] != [(1, F - 1)] * B:
+        raise AssertionError(f"batch odometry: single-sequence programs {singles}")
     t0 = time.perf_counter()
     _, cpu = batch_odometry(scans[:, :3], masks[:, :3], cfg, map_capacity=32768, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -3906,25 +3952,40 @@ def batch_odometry_check(scans, masks, gts, card: str) -> dict:
         raise AssertionError(f"batch odometry: card vs CPU first 3 frames {dpose}")
     path = os.path.join(REPO, ".chip_scratch", "batch_profile_input.npz")
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path, scans=scans[:, :6], masks=masks[:, :6])
+    np.savez(path, scans=scans, masks=masks)
     try:
-        proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts",
-                                                            "torch_profile_batch.py"),
-                               "--input", path], cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
+        cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_batch.py"),
+               "--input", path]
+        proc = subprocess.run(cmd + (["--parent", os.path.abspath(parent)] if parent else []),
+                              cwd=REPO, capture_output=True, text=True, timeout=900)
     finally:
         os.remove(path)
     if proc.returncode != 0:
         raise AssertionError(f"batch profile failed:\n{proc.stderr[-3000:]}")
-    prof = json.loads(proc.stdout.strip().splitlines()[-1])
+    lines = [json.loads(x) for x in proc.stdout.strip().splitlines()]
+    for rec in lines[:-1]:
+        say("batch-profile-turn", **{k: json.dumps(v, separators=(",", ":"))
+                                     if isinstance(v, (list, dict)) else v
+                                     for k, v in rec.items() if k != "root"})
+    prof = lines[-1]
+    if prof["digest"] != run_digest or (parent and not prof["bit_equal_parent"]):
+        raise AssertionError(f"batch odometry: the profile's runs differ from this run or "
+                             f"from the parent's: {prof}")
     return dict(B=B, frames=F, points=scans.shape[2], ring_points=20 * scans.shape[2],
                 ate_m=json.dumps([round(a, 5) for a in ates]),
                 ate_bound_m=json.dumps([round(x, 3) for x in bounds]),
                 keyframes=json.dumps(kf.sum(axis=1).tolist()),
                 seconds=round(wall, 3), fps_over_batch=B * F / wall,
                 frames_per_second_per_sequence=F / wall,
+                captures=log[0]["captures"], replays=log[0]["replays"],
+                pool_bytes=log[0]["pool_bytes"],
+                single_pool_bytes=json.dumps([r["pool_bytes"] for r in singles]),
+                eager_body_seconds=round(eager_s, 3), bit_equal_eager_body=True,
+                bit_equal_parent=bool(parent) or None,
                 launches=counts["ndt_align_loop_batched"],
                 launches_worked=counts["ndt_iteration_worked"],
+                launches_finalize=counts["ndt_finalize"],
+                launches_dense_table=counts["dense_table"],
                 card_vs_cpu_first3_max=dpose, cpu_first3_s=round(cpu_s, 3),
                 batch_equals_single_runs=True, profile=json.dumps(prof, separators=(",", ":")))
 
@@ -4289,7 +4350,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
                     help="a tree of the parent commit (git archive): phases 3b, 3c, 4, 7, "
-                         "14b, 14c, 14d, 16 and 18 time and profile it too, in turns")
+                         "14b, 14c, 14d, 16, 18 and 25 time and profile it too, in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
@@ -4804,7 +4865,7 @@ def main(argv=None) -> int:
     timing["batch"] = {"ndt_direct7_accumulate_batched": rec}
 
     # -- 25. batch_odometry at full width; launches counted inside ---------------------------
-    bo = batch_odometry_check(bscans, bmasks, bgts, card)
+    bo = batch_odometry_check(bscans, bmasks, bgts, card, args.parent)
     say("batch-odometry", **bo, card=json.dumps(card))
     del bscans, bmasks
 
@@ -4971,6 +5032,7 @@ def main(argv=None) -> int:
                   ":300 with regularize_covariance :246 and _eigh3x3 :182; no Pallas kernel",
             launches_loop_course=launches_course["ndt_finalize"],
             launches_cli_loops=cli_on["finalize_launches"],
+            launches_batch_odometry=bo["launches_finalize"],
             bit_equal_plain=True, **{k: rb["numbers"][k] for k in (
                 "wrapper_launches_per_rebuild", "launches_per_rebuild",
                 "plain_launches_per_rebuild", "rebuild_wall_ms", "rebuild_device_ms",
@@ -5077,6 +5139,7 @@ def main(argv=None) -> int:
                   "jitted map builds and global registration; no Pallas kernel",
             launches_loop_course=launches_course["dense_table"],
             launches_classic_ndt=launches_classic["dense_table"],
+            launches_batch_odometry=bo["launches_dense_table"],
             launches_global_init_course=launches_gi["dense_table"],
             bit_equal_plain=True, **{k: rb["numbers"][k] for k in (
                 "launches_per_rebuild", "rebuild_device_ms", "parent_rebuild_device_ms")}),

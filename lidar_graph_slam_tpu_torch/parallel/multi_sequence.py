@@ -1,20 +1,24 @@
 """Batched multi-sequence odometry and SLAM: several scan streams at once.
 
 Port of `lidar_graph_slam_tpu/parallel/multi_sequence.py`. The reference runs the whole
-front end — align, keyframe trigger, submap-ring update, NDT map rebuild — as a
-`lax.scan` over frames with the batch axis vmapped over sequences. Here a frame is one
-step of a Python loop over frames for the whole batch:
+front end — align, keyframe trigger, submap-ring update, NDT map rebuild — as one jitted
+`lax.scan` over frames with the batch axis vmapped over sequences. Here a batch frame is
+one `utils/capture.py:Program` run over fixed buffers (`BatchBuffers`): the state and the
+ring as [B, ...] tensors updated in place (the scan's carry), the [B, F, ...] scans and
+masks read at a device frame counter (its xs), and [B, F, ...] outputs written at it (its
+ys). On the card the first frame warms the body up and captures it as a CUDA graph, and
+every later frame is one replay; on the CPU the body runs eagerly on the same buffers.
+The body:
 
   * each sequence's two NDT maps (coarse and fine) are rebuilt from its ring every frame,
     with two `build_ndt_map` calls as in the reference (not the pyramid), one sequence
-    after another, and stacked for the batched kernel; a frame's maps are dropped when
-    it ends;
+    after another, and stacked for the batched kernel;
   * the coarse and the fine alignment run for the whole batch at once
     (`registration/ndt.py:ndt_align_batched`: one launch of the batched NDT iteration
     kernel per iteration, no host read; a finished sequence's blocks exit on its own
     `done`);
-  * keyframing is a masked state update, per sequence: every frame computes the would-be
-    ring insert and applies it behind the displacement trigger.
+  * keyframing is a masked state update, per sequence; the ring insert writes only the
+    slot kf_count % window of each sequence, behind the displacement trigger.
 
 A sequence's result does not depend on the others in its batch: on the card, a batch of
 B equals B runs of one, bit for bit.
@@ -26,6 +30,7 @@ loop verifications as one batch over the mesh and one block-diagonal f64 solve.
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
+from functools import partial
 
 import numpy as np
 import torch
@@ -49,6 +54,7 @@ from lidar_graph_slam_tpu_torch.parallel.distributed import (
 )
 from lidar_graph_slam_tpu_torch.registration.base import norm
 from lidar_graph_slam_tpu_torch.registration.ndt import ndt_align_batched
+from lidar_graph_slam_tpu_torch.utils.capture import Program
 
 
 @dataclass
@@ -82,6 +88,36 @@ def _init_state(batch: int, window: int, n: int, device) -> BatchFrontState:
     )
 
 
+@dataclass
+class BatchBuffers:
+    """The fixed buffers of a batched run, which the frame program reads and writes in
+    place: the carry (`state`), the frames in (`scans` [B, F, N, 3], `masks` [B, F, N]),
+    the frame they are read at (`frame`, [1] int64), and the outputs written at it
+    (`outs`: "pose" [B, F, 4, 4], "is_keyframe", "converged", "fitness", "accum_dist"
+    [B, F])."""
+
+    state: BatchFrontState
+    scans: torch.Tensor
+    masks: torch.Tensor
+    frame: torch.Tensor
+    outs: dict
+
+
+def _buffers(scans, masks, window: int) -> BatchBuffers:
+    """A batched run's buffers on the device of `scans`, the state at its start."""
+    B, F, N = scans.shape[:3]
+    dev = scans.device
+    f32, flag = dict(dtype=torch.float32, device=dev), dict(dtype=torch.bool, device=dev)
+    return BatchBuffers(
+        state=_init_state(B, window, N, dev), scans=scans, masks=masks,
+        frame=torch.zeros(1, dtype=torch.int64, device=dev),
+        outs={"pose": torch.zeros((B, F, 4, 4), **f32),
+              "is_keyframe": torch.zeros((B, F), **flag),
+              "converged": torch.zeros((B, F), **flag),
+              "fitness": torch.zeros((B, F), **f32),
+              "accum_dist": torch.zeros((B, F), **f32)})
+
+
 def _lane_maps(state: BatchFrontState, b: int, cfg: ScanMatcherConfig, map_capacity: int):
     """Sequence b's target maps from its current ring: (fine, coarse or None)."""
     world = se3.transform_points(state.ring_poses[b], state.ring_clouds[b])
@@ -96,11 +132,11 @@ def _lane_maps(state: BatchFrontState, b: int, cfg: ScanMatcherConfig, map_capac
     return fine, coarse
 
 
-def _lane_update(state: BatchFrontState, b: int, scan, scan_mask, res, cfg, window: int):
+def _lane_update(state: BatchFrontState, b: int, res, cfg):
     """Sequence b's masked state update after its alignment `res` (lane b of the batched
-    result). Returns (its new state fields, its frame outputs)."""
-    dev = scan.device
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    result). Returns (its new pose, motion, keyframe position, distance and count, its
+    frame outputs); the ring insert is `_ring_insert`'s."""
+    eye = torch.eye(4, dtype=torch.float32, device=state.pose.device)
     pose, kf_count = state.pose[b], state.kf_count[b]
     healthy = res.converged[b] & (res.num_inliers[b] > 0)
     is_first = kf_count == 0
@@ -109,7 +145,6 @@ def _lane_update(state: BatchFrontState, b: int, scan, scan_mask, res, cfg, wind
                               state.last_motion[b])
     delta = norm(new_pose[:3, 3] - state.last_kf_pos[b])
     trigger = is_first | (healthy & (delta >= cfg.displacement))
-    sel = (torch.arange(window, device=dev) == kf_count % window) & trigger  # the ring slot
     accum = state.accum_dist[b] + torch.where(trigger & ~is_first, delta, 0.0)
     lane = dict(
         pose=new_pose,
@@ -117,19 +152,32 @@ def _lane_update(state: BatchFrontState, b: int, scan, scan_mask, res, cfg, wind
         last_kf_pos=torch.where(trigger, new_pose[:3, 3], state.last_kf_pos[b]),
         accum_dist=accum,
         kf_count=kf_count + trigger.to(torch.int32),
-        ring_clouds=torch.where(sel[:, None, None], scan[None], state.ring_clouds[b]),
-        ring_masks=torch.where(sel[:, None], scan_mask[None], state.ring_masks[b]),
-        ring_poses=torch.where(sel[:, None, None], new_pose[None], state.ring_poses[b]),
-        ring_used=state.ring_used[b] | sel,
     )
     out = {"pose": new_pose, "is_keyframe": trigger, "converged": healthy,
            "fitness": res.fitness[b], "accum_dist": accum}
     return lane, out
 
 
+def _ring_insert(state: BatchFrontState, trigger, scans, masks, poses) -> None:
+    """Each sequence's frame into its ring slot kf_count % window where `trigger` [B]
+    holds, in place: the reference's `jnp.where(trigger, ring.at[slot].set(x), ring)`,
+    written to that slot alone. Reads `state.kf_count` before the frame's update."""
+    B, W = state.ring_used.shape
+    rows = (torch.arange(B, device=trigger.device) * W
+            + torch.remainder(state.kf_count, W).to(torch.int64))
+    for ring, value in ((state.ring_clouds, scans), (state.ring_masks, masks),
+                        (state.ring_poses, poses),
+                        (state.ring_used, torch.ones_like(trigger))):
+        flat = ring.view(B * W, *ring.shape[2:])
+        keep = flat.index_select(0, rows)
+        put = trigger.view(B, *(1,) * (keep.dim() - 1))
+        flat.index_copy_(0, rows, torch.where(put, value, keep))
+
+
 def _step(state: BatchFrontState, scans, masks, cfg: ScanMatcherConfig, map_capacity: int):
-    """One front-end frame for the whole batch: scans [B, N, 3], masks [B, N]."""
-    B, window = scans.shape[0], state.ring_clouds.shape[1]
+    """One front-end frame for the whole batch, the state updated in place: scans
+    [B, N, 3], masks [B, N]. Returns the frame's outputs [B, ...]."""
+    B = scans.shape[0]
     fines, coarses = zip(*(_lane_maps(state, b, cfg, map_capacity) for b in range(B)))
     # Initial-guess model as the live front end: the reference's constant pose by default;
     # constant velocity extrapolates the last accepted motion once a keyframe exists.
@@ -157,28 +205,55 @@ def _step(state: BatchFrontState, scans, masks, cfg: ScanMatcherConfig, map_capa
                             transform_epsilon=ndt.transform_epsilon,
                             outlier_ratio=ndt.outlier_ratio, max_iterations=ndt.max_iterations)
     del vm
-    lanes, outs = zip(*(_lane_update(state, b, scans[b], masks[b], res, cfg, window)
-                        for b in range(B)))
-    new_state = BatchFrontState(**{f.name: torch.stack([ln[f.name] for ln in lanes])
-                                   for f in fields(BatchFrontState)})
-    return new_state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    lanes, outs = zip(*(_lane_update(state, b, res, cfg) for b in range(B)))
+    out = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    _ring_insert(state, out["is_keyframe"], scans, masks, out["pose"])
+    for name in lanes[0]:
+        getattr(state, name).copy_(torch.stack([ln[name] for ln in lanes]))
+    return out
 
 
-def _run_batch(scans, masks, cfg: ScanMatcherConfig, map_capacity: int):
-    """Frames 0..F-1 of [B, F, N, 3] scans on their device. Returns (final state, outputs
-    [B, F, ...])."""
-    B, F, N = scans.shape[:3]
-    state = _init_state(B, cfg.max_scan_accumulate_num, N, scans.device)
-    outs = []
-    for f in range(F):
-        state, out = _step(state, scans[:, f].contiguous(), masks[:, f].contiguous(), cfg,
-                           map_capacity)
-        outs.append(out)
-    return state, {k: torch.stack([o[k] for o in outs], dim=1) for k in outs[0]}
+def _frame_body(buf: BatchBuffers, cfg: ScanMatcherConfig, map_capacity: int) -> None:
+    """The frame program: frame `buf.frame` of the scans through `_step`, its outputs
+    into column `buf.frame` of `buf.outs`, then the counter moved on, all in place."""
+    f = buf.frame
+    out = _step(buf.state, buf.scans.index_select(1, f)[:, 0],
+                buf.masks.index_select(1, f)[:, 0], cfg, map_capacity)
+    for k, v in out.items():
+        buf.outs[k].index_copy_(1, f, v[:, None])
+    f.add_(1)
+
+
+def _run_frames(program: Program, frames: int, program_log: list | None) -> None:
+    """`frames` runs of the frame program, then its graph and pool released; a failed
+    capture or replay raises and nothing runs after it. Appends the program's record
+    (device, captures, replays, pool bytes) to `program_log` if one is given."""
+    try:
+        for _ in range(frames):
+            program()
+        if program_log is not None:
+            program_log.append({"device": str(program.device), "captures": program.captures,
+                                "replays": program.replays,
+                                "pool_bytes": program.pool_bytes()})
+    finally:
+        program.release()
+
+
+def _run_batch(scans, masks, cfg: ScanMatcherConfig, map_capacity: int,
+               program_log: list | None = None):
+    """Frames 0..F-1 of [B, F, N, 3] scans on their device, one run of the frame program
+    each (on the card: a capture at frame 0, a replay after, on a stream of its own).
+    Returns (final state, outputs [B, F, ...])."""
+    buf = _buffers(scans, masks, cfg.max_scan_accumulate_num)
+    dev = scans.device
+    program = Program(partial(_frame_body, buf, cfg, map_capacity), dev,
+                      torch.cuda.Stream(dev) if dev.type == "cuda" else None)
+    _run_frames(program, scans.shape[1], program_log)
+    return buf.state, buf.outs
 
 
 def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 32768,
-                   mesh: Mesh | None = None, device=None):
+                   mesh: Mesh | None = None, device=None, program_log: list | None = None):
     """Run NDT front-end odometry on [B, F, N, 3] scan batches (numpy or tensors) with
     [B, F, N] masks, on the card unless `device` names another.
 
@@ -186,7 +261,9 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
     as the reference's sharded inputs must), each slot's sequences on its device; slots
     that share a device run as one batch there, which gives the same answer. On a mesh
     that spans processes each process runs its own slots' sequences and the results are
-    all-gathered (`all_slots`), so every process returns the whole batch. Returns
+    all-gathered (`all_slots`), so every process returns the whole batch. Each device's
+    sequences run as one frame program (`_run_batch`); `program_log`, a list, gets one
+    record a program: its device, captures, replays and pool bytes. Returns
     (final_state, outs): outs["pose"] [B, F, 4, 4], "is_keyframe", "converged",
     "fitness", "accum_dist" [B, F].
     """
@@ -196,7 +273,7 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
         masks, torch.Tensor) else masks)
     if mesh is None:
         dev = resolve_device(device)
-        return _run_batch(scans.to(dev), masks.to(dev), cfg, map_capacity)
+        return _run_batch(scans.to(dev), masks.to(dev), cfg, map_capacity, program_log)
     B = scans.shape[0]
     if B % mesh.size:
         raise ValueError(f"a batch of {B} sequences does not divide the mesh's {mesh.size} "
@@ -210,7 +287,7 @@ def batch_odometry(scans, masks, cfg: ScanMatcherConfig, map_capacity: int = 327
     for dev, seqs in groups.items():
         idx = torch.as_tensor(seqs)
         parts.append((seqs, _run_batch(scans[idx].to(dev), masks[idx].to(dev), cfg,
-                                       map_capacity)))
+                                       map_capacity, program_log)))
     order = torch.as_tensor(np.argsort(np.concatenate([s for s, _ in parts])))
     final = BatchFrontState(**{
         f.name: torch.cat([getattr(st, f.name).to(dev0) for _, (st, _) in parts])[order.to(dev0)]

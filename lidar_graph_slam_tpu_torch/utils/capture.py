@@ -12,7 +12,8 @@ donation: the next call finds its state where the last one left it).
     Then the body is captured into a `torch.cuda.CUDAGraph` with a private memory pool,
     and every later call replays the graph on the current stream: one `cudaGraphLaunch`
     where the body enqueues hundreds of operators. A capture or a replay that fails
-    raises; nothing falls back to running the body eagerly.
+    raises; nothing falls back to running the body eagerly. `release` frees the graph and
+    its pool when the owner is done with them.
   * On the CPU every call runs the body on the same fixed buffers, so the CPU tests hold
     the body to the discipline the graph needs.
 
@@ -47,6 +48,7 @@ class Program:
         self.stream = stream
         self.graph = None
         self.tally: dict = {}  # wrapper -> kernel launches a replay
+        self.captures = 0
         self.replays = 0
 
     @property
@@ -85,6 +87,13 @@ class Program:
             if enabled:
                 gc.enable()
         self.graph, self.tally = graph, tally
+        self.captures += 1
+
+    def release(self) -> None:
+        """Free the graph and its private pool now; a later call captures anew."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph, self.tally = None, {}
 
     def pool_bytes(self) -> int | None:
         """The bytes of the graph's private memory pool (None before the capture)."""

@@ -14,6 +14,11 @@ same fixed buffers the card's CUDA graphs read and write.
       same frame does, bit for bit, and the buffers keep their storage.
   (e) The launch tally a capture records is counted at each replay (a stand-in graph:
       this machine has no card), on the capturing thread only; a failed capture raises.
+  (f) `batch_odometry`'s frame program (`parallel/multi_sequence.py`), built from its
+      body and buffers on CPU tensors and given to a `Program` on a stand-in card:
+      captured once, on frame 0, and replayed at every later frame, with the kernel
+      wrappers' launch counts those of its body run eagerly on the same frames; a failed
+      capture raises, and the body runs no more after it.
 
 Tolerances: the programs against the plain bodies bit for bit (the same operators on the
 same values). Against the JAX package, those of `tests/test_torch_pipeline.py` and
@@ -26,6 +31,7 @@ import dataclasses
 import threading
 from collections import deque
 from dataclasses import replace
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +49,7 @@ from lidar_graph_slam_tpu_torch.odometry.fused import (
     pack_scalars,
 )
 from lidar_graph_slam_tpu_torch.ops import kernels
+from lidar_graph_slam_tpu_torch.parallel import multi_sequence as tms
 from lidar_graph_slam_tpu_torch.pipeline.runner import SlamPipeline
 from lidar_graph_slam_tpu_torch.utils import capture
 from lidar_graph_slam_tpu_torch.utils import checkpoint as tckpt
@@ -361,19 +368,23 @@ class _FakeGraph:
     def pool(self):
         return (0, 1)
 
+    def reset(self):
+        pass
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
     """`torch.cuda`'s stream and graph calls replaced by stand-ins; `fail` makes the next
     capture raise, as a refused capture does."""
     state = {"modes": [], "fail": False, "other_thread": None}
+    finalize = kernels.ndt_finalize
 
     @contextlib.contextmanager
     def graph(g, stream=None, capture_error_mode="global"):
         state["modes"].append(capture_error_mode)
         yield
         # Another thread launches while this one captures: counted at once.
-        worker = threading.Thread(target=kernels._count, args=(kernels.ndt_finalize, 5))
+        worker = threading.Thread(target=kernels._count, args=(finalize, 5))
         worker.start()
         worker.join(timeout=10)
         state["other_thread"] = not worker.is_alive()
@@ -384,6 +395,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
     return state
 
 
@@ -421,3 +433,83 @@ def test_a_failed_capture_raises(fake_card):
     assert not program.captured and len(runs) == 2
     with pytest.raises(ValueError, match="capture stream"):
         capture.Program(lambda: None, "cuda")
+
+
+# -- (f) batch_odometry's frame program ------------------------------------------------------
+
+B_PROG, F_PROG, N_PROG, CAP_PROG = 2, 3, 512, 2048
+BATCH_CFG = tcfg.ScanMatcherConfig(max_scan_accumulate_num=2,
+                                   ndt=tcfg.NdtConfig(resolution=2.0, max_iterations=8))
+
+
+@pytest.fixture(scope="module")
+def batch_frames():
+    """[B, F, N, 3] scans and [B, F, N] masks of two short synthetic sequences."""
+    scans = np.full((B_PROG, F_PROG, N_PROG, 3), PAD_VALUE, np.float32)
+    masks = np.zeros((B_PROG, F_PROG, N_PROG), bool)
+    for b in range(B_PROG):
+        seq = SyntheticSequence(n_frames=F_PROG, seed=10 + b, max_points=N_PROG, laps=0.1,
+                                radius=30.0 + 2 * b)
+        for f, (scan, _) in enumerate(seq):
+            scans[b, f, :len(scan)], masks[b, f, :len(scan)] = scan, True
+    return torch.as_tensor(scans), torch.as_tensor(masks)
+
+
+def _batch_program(buf, body=None):
+    return capture.Program(body or partial(tms._frame_body, buf, BATCH_CFG, CAP_PROG),
+                           "cuda", stream=_FakeStream())
+
+
+@pytest.fixture
+def counted_launches(monkeypatch):
+    """The batch body's kernel wrappers count on CPU tensors what they launch on the card
+    (their plain versions count nothing); returns a reader of their counts."""
+    def counting(wrapper, launches):
+        def call(*a, **k):
+            kernels._count(wrapper, launches(a))
+            return wrapper(*a, **k)
+        return call
+
+    wrappers = (kernels.ndt_align_loop_batched, kernels.ndt_finalize, kernels.dense_table)
+    monkeypatch.setattr(kernels, "ndt_align_loop_batched",
+                        counting(wrappers[0], lambda a: a[-2] + a[-1]))  # iterations + polish
+    monkeypatch.setattr(kernels, "ndt_finalize", counting(wrappers[1], lambda a: 1))
+    monkeypatch.setattr(kernels, "dense_table", counting(wrappers[2], lambda a: 1))
+    return lambda: np.array([w.launches for w in wrappers] + [kernels.thread_launches()])
+
+
+def test_batch_frame_program_captures_once_and_replays(fake_card, counted_launches,
+                                                       batch_frames):
+    scans, masks = batch_frames
+    window = BATCH_CFG.max_scan_accumulate_num
+    eager = tms._buffers(scans, masks, window)
+    before = counted_launches()
+    for _ in range(F_PROG):
+        tms._frame_body(eager, BATCH_CFG, CAP_PROG)
+    want = counted_launches() - before
+    assert (want[:3] > 0).all() and int(eager.frame) == F_PROG
+
+    buf = tms._buffers(scans, masks, window)
+    program, log = _batch_program(buf), []
+    before = counted_launches()
+    tms._run_frames(program, F_PROG, log)
+    # The stand-in capture's other thread counted 5 finalizes of its own.
+    assert (counted_launches() - before - want == [0, 5, 0, 0]).all()
+    assert log == [{"device": "cuda", "captures": 1, "replays": F_PROG - 1, "pool_bytes": 0}]
+    assert fake_card["modes"] == ["thread_local"] and not program.captured  # released
+
+
+def test_failed_batch_capture_raises_and_runs_no_more(fake_card, batch_frames):
+    fake_card["fail"] = True
+    buf = tms._buffers(*batch_frames, BATCH_CFG.max_scan_accumulate_num)
+    runs = []
+
+    def body():
+        runs.append(1)
+        tms._frame_body(buf, BATCH_CFG, CAP_PROG)
+
+    program = _batch_program(buf, body)
+    with pytest.raises(RuntimeError, match="capturing"):
+        tms._run_frames(program, F_PROG, [])
+    # The warm-up and the capture ran the body; no frame ran eagerly after the failure.
+    assert len(runs) == 2 and int(buf.frame) == 2 and not program.captured

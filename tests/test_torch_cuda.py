@@ -27,7 +27,9 @@ right after each loop kernel, bit for bit as each alone (their loads before the
 programmatic wait read nothing a launch before them writes). The fused front end's
 captured programs (`odometry/fused.py:FusedFrontEnd`, CUDA graphs after the first call):
 a lagged course with NDT, GICP and ICP bit for bit against the plain step and
-insert-and-rebuild, the launches a replay counts, and replays without a synchronous read.
+insert-and-rebuild, the launches a replay counts, and replays without a synchronous read;
+`batch_odometry`'s frame program (one capture, then a replay a batch frame) bit for bit
+against its body run eagerly, without a synchronous read.
 GICP's covariance kernel (`gicp_covariances`, `csrc/covariances.cu`) against its plain
 version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launch a call,
 its refusals, no synchronous read, and inside the captured GICP step and insert.
@@ -795,6 +797,44 @@ def test_batch_odometry_card_matches_cpu_and_single_runs(cuda):
                                 device=cuda)
         assert all(torch.equal(v[b], one[k][0]) for k, v in card.items())
 
+
+
+def test_captured_batch_odometry_equals_its_eager_body(cuda):
+    """`batch_odometry` on the card (B = 2, 3 frames of 2,048 points, a 2-slot ring) as its
+    frame program: one capture, at frame 0, and a replay at each later frame, the whole
+    call under `torch.cuda.set_sync_debug_mode("error")` after the body has warmed the
+    card up; every output and final state field bit for bit against the program's body
+    run eagerly on the card on the same frames."""
+    from lidar_graph_slam_tpu_torch.core.config import NdtConfig, ScanMatcherConfig
+    from lidar_graph_slam_tpu_torch.parallel import multi_sequence as ms
+
+    B, F, N, window = 2, 3, 2048, 2
+    scans = np.full((B, F, N, 3), PAD_VALUE, np.float32)
+    masks = np.zeros((B, F, N), bool)
+    for b in range(B):
+        for f, (scan, _) in enumerate(SyntheticSequence(n_frames=F, seed=10 + b, max_points=N,
+                                                        laps=0.1, radius=30.0 + 2 * b)):
+            scans[b, f, :len(scan)], masks[b, f, :len(scan)] = scan, True
+    scans, masks = torch.as_tensor(scans, device=cuda), torch.as_tensor(masks, device=cuda)
+    cfg = ScanMatcherConfig(max_scan_accumulate_num=window, ndt=NdtConfig(max_iterations=32))
+    eager = ms._buffers(scans, masks, window)
+    for _ in range(F):
+        ms._frame_body(eager, cfg, 8192)
+    torch.cuda.synchronize()
+    log = []
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        final, outs = ms.batch_odometry(scans, masks, cfg, map_capacity=8192, device=cuda,
+                                        program_log=log)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [(r["captures"], r["replays"]) for r in log] == [(1, F - 1)]
+    assert log[0]["pool_bytes"] > 0
+    for k, v in outs.items():
+        assert torch.equal(v, eager.outs[k]), k
+    for f in dataclasses.fields(final):
+        assert torch.equal(getattr(final, f.name), getattr(eager.state, f.name)), f.name
+    assert bool(outs["is_keyframe"][:, 0].all()) and bool(outs["converged"][:, 1:].all())
 
 def test_pipeline_card_matches_cpu(cuda):
     """Five frames of the loops-off pipeline at a small capacity on the card and on the
