@@ -186,10 +186,18 @@ of `bench.py:bench_e2e`. Phases:
      every pose bit for bit;
  16. the classic stage-by-stage driver (`fused_frontend=False`) on the same course: NDT,
      then ICP, each with phase 6's assertions, ICP launching `icp_iteration` and
-     `grid_rows` (NDT `dense_table` once a map, ICP not); each
-     stage's p50 for both; with `--parent DIR`, phase 10's course (verify p50 and max)
-     and this classic ICP run (register p50) through `scripts/torch_trajectories.py` for
-     this tree and that one in turns;
+     `grid_rows` (NDT `dense_table` once a map, ICP not); its three programs (prefilter,
+     register, insert: `SlamPipeline.program_log`) captured once each, then replayed at
+     every later frame (the register from frame 2, the insert from the second keyframe),
+     their graph pools and their first calls' parts (warm-up, drain, collection,
+     capture); each stage's p50 for both; then frames 3-7 of each under the profiler in a
+     subprocess (`scripts/torch_trace_frames.py --course dense --set
+     fused_frontend=false`): one `cudaGraphLaunch` for the prefilter and one for the
+     register a frame, one more a keyframe, and no kernel launch call; the device's idle
+     share and busy ms, and the same frames with the bodies called directly; with
+     `--parent DIR`, phase 10's course (verify p50 and max) and these classic ICP and NDT
+     courses (stage p50s) through `scripts/torch_trajectories.py` for this tree and that
+     one in turns, every pose bit-equal;
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
      ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
@@ -199,7 +207,8 @@ of `bench.py:bench_e2e`. Phases:
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
      60 frames: it runs on the card, with that driver and matcher, launching the GICP
      loop kernel and `gicp_covariances` (at least once a frame) and not
-     `ndt_accumulate` or `eigh3x3`; with `--parent DIR`, the GICP courses of phases 15,
+     `ndt_accumulate` or `eigh3x3`, its three programs captured once each and replayed
+     after (the CLI's `metrics.json`); with `--parent DIR`, the GICP courses of phases 15,
      17 and 18 through `scripts/torch_trajectories.py` for this tree and that one in
      turns, every pose and loop attempt bit-equal to the parent's;
  19. `global_register` (FPFH + RANSAC, default `GlobalRegConfig`: 8,192 keypoints, 2,048
@@ -282,8 +291,8 @@ result). The line before the last is the kernels' JSON record, the last line
 phase 3c, its loop-kernel timings to phase 3b, its rebuild to phase 4, its profile to
 phase 7, its GICP target build (its own grid) to phase 14d, its GICP loop kernel to
 phase 14b (the carry bit for bit, the times in turns with this tree's), its ICP kernels'
-times, aligns and SASS check to phase 14c, its verifications and classic ICP front end to
-phase 16, its GICP courses to phase 18 (in turns, every course bit-equal) and its
+times, aligns and SASS check to phase 14c, its verifications and classic ICP and NDT front
+ends to phase 16, its GICP courses to phase 18 (in turns, every course bit-equal) and its
 `eigh3x3` to phase 20 (in turns, with the split).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
@@ -436,17 +445,20 @@ def loops_off_config(overrides=()) -> PipelineConfig:
     return apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=False", *overrides])
 
 
-def dense_course(n_frames: int, max_points: int = 131072, seed: int = 2):
+def dense_course(n_frames: int, max_points: int = 131072, seed: int = 2,
+                 first: int | None = None):
     """The HDL-64-class urban-canyon course of `bench.py:bench_e2e_dense`, seed 2 (another
     seed: another world, the same trajectory). Returns (scans, ground-truth poses relative
-    to the first)."""
+    to the first); with `first`, the scans of the first `first` frames only (the same
+    scans: each frame's draws follow the frames before it)."""
     rng = np.random.default_rng(seed)
     world = make_world(rng, extent=60.0, density=60.0, wall_height=12.0,
                        box_height=(6.0, 25.0), n_boxes=60)
     seq = SyntheticSequence(n_frames=n_frames, seed=seed, radius=35.0, laps=0.25,
                             max_points=max_points, n_azimuth=2048, n_elevation=64)
     scans = [simulate_scan(world, seq.poses[i], rng, max_points=max_points,
-                           n_azimuth=2048, n_elevation=64) for i in range(n_frames)]
+                           n_azimuth=2048, n_elevation=64)
+             for i in range(n_frames if first is None else min(first, n_frames))]
     T0_inv = np.linalg.inv(seq.poses[0])
     gt = np.stack([(T0_inv @ p).astype(np.float32) for p in seq.poses])
     return scans, gt
@@ -1395,7 +1407,8 @@ def first_frames_agree(cfg: PipelineConfig, scans, devices, n: int = 3) -> dict:
 def run_pipeline(cfg: PipelineConfig, scans, gt, device, result: dict | None = None) -> dict:
     """A front-end path: every scan through `SlamPipeline` (either driver); all frames
     must converge and the keyframe ATE stay within max(0.05 x travelled, 0.35) m. With
-    `result` (a dict), the pipeline's result is left there under "result"."""
+    `result` (a dict), the pipeline's result is left there under "result" and its
+    programs' log (`SlamPipeline.program_log`) under "programs"."""
     pipe = SlamPipeline(cfg, device=device)
     walls = []
     for s in scans:
@@ -1405,6 +1418,7 @@ def run_pipeline(cfg: PipelineConfig, scans, gt, device, result: dict | None = N
     res = pipe.result()
     if result is not None:
         result["result"] = res
+        result["programs"] = pipe.program_log()
     frames = [r for r in pipe.metrics_writer.records if "frame" in r and "event" not in r]
     if len(frames) != len(scans) or not all(r["converged"] for r in frames):
         raise AssertionError(f"not all frames converged: {[r['converged'] for r in frames]}")
@@ -3449,7 +3463,12 @@ def run_cli(out_dir: str, frames: int, loops: bool = False, sets=()) -> dict:
                 ndt_accumulate_launches=summary["kernel_launches"]["ndt_accumulate"],
                 finalize_launches=summary["kernel_launches"]["ndt_finalize"],
                 eigh3x3_launches=summary["kernel_launches"]["eigh3x3"],
-                gicp_covariances_launches=summary["kernel_launches"]["gicp_covariances"])
+                gicp_covariances_launches=summary["kernel_launches"]["gicp_covariances"],
+                programs=json.dumps({k: [v["captures"], v["replays"], v["pool_bytes"]]
+                                     for k, v in summary["programs"].items()},
+                                    separators=(",", ":")),
+                launches=json.dumps({k: v for k, v in summary["kernel_launches"].items() if v},
+                                    separators=(",", ":")))
 
 
 def global_register_check(dev, card: str) -> dict:
@@ -3712,17 +3731,16 @@ def kitti_cli_run(scans, gt, out_dir: str) -> dict:
                 seconds=round(seconds, 3))
 
 
-def trace_frames(frames: int = 5) -> dict:
-    """`utils.telemetry.trace("frame", profile_dir=...)` round a few frames, in a
-    subprocess (`scripts/torch_trace_frames.py`): a profiler session can leave its
-    process slower, and this process's frame times are read. The trace (tens of MB) is
-    checked and removed."""
+def run_trace(frames: int, extra=()) -> dict:
+    """`scripts/torch_trace_frames.py --frames N ... extra` in a subprocess: a profiler
+    session can leave its process slower, and this process's frame times are read. The
+    trace (tens of MB) is checked and removed."""
     out_dir = os.path.join(REPO, ".chip_scratch", "trace")
     shutil.rmtree(out_dir, ignore_errors=True)
     try:
         proc = subprocess.run(
             [sys.executable, os.path.join(REPO, "scripts", "torch_trace_frames.py"),
-             "--frames", str(frames), "--profile-dir", out_dir],
+             "--frames", str(frames), "--profile-dir", out_dir, *extra],
             cwd=REPO, capture_output=True, text=True, timeout=300)
         if proc.returncode != 0:
             raise AssertionError(f"trace failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
@@ -3731,20 +3749,63 @@ def trace_frames(frames: int = 5) -> dict:
                 and os.path.getsize(rec["trace_file"]) == rec["trace_bytes"] > 0
                 and rec["device"] == "cuda" and rec["span_events"] >= 1):
             raise AssertionError(f"trace: {rec}")
-        # The replayed programs: one graph launch a step and one a keyframe's insert, and
-        # no kernel launched by a runtime call of their own.
-        for part in ("step", "insert_and_rebuild"):
-            st = rec["stages"][part]
-            graphs = st["runtime_calls_per_frame"].get("cudaGraphLaunch", 0.0) * frames
-            launches = sum(v for k, v in st["runtime_calls_per_frame"].items()
-                           if "LaunchKernel" in k)
-            if not ((st["calls"] > 0 or part != "step") and graphs == st["calls"]
-                    and launches == 0):
-                raise AssertionError(f"trace: the {part} replays' runtime calls: {st}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     rec["trace_file"] = os.path.relpath(rec["trace_file"], REPO)
     return rec
+
+
+def trace_frames(frames: int = 5) -> dict:
+    """`utils.telemetry.trace("frame", profile_dir=...)` round a few frames of the fused
+    driver (`run_trace`): the replayed programs make one graph launch a step and one a
+    keyframe's insert, and no kernel launch call of their own."""
+    rec = run_trace(frames)
+    for part in ("step", "insert_and_rebuild"):
+        st = rec["stages"][part]
+        graphs = st["runtime_calls_per_frame"].get("cudaGraphLaunch", 0.0) * frames
+        launches = sum(v for k, v in st["runtime_calls_per_frame"].items()
+                       if "LaunchKernel" in k)
+        if not ((st["calls"] > 0 or part != "step") and graphs == st["calls"]
+                and launches == 0):
+            raise AssertionError(f"trace: the {part} replays' runtime calls: {st}")
+    return rec
+
+
+def classic_trace(method: str, frames: int = 5) -> dict:
+    """Phase 16's dense course through the classic driver with `method` under the
+    profiler (`run_trace`), frames 3-7 after three warm-up frames (the captures): a
+    frame's CUDA runtime calls are one `cudaGraphLaunch` for the prefilter and one for the
+    register, one more a keyframe, and no kernel launch call; the device's idle share and
+    busy ms, the parts' host ms, and the same frames with the programs' bodies called
+    directly."""
+    rec = run_trace(frames, ("--course", "dense", "--warmup", "3", "--set",
+                             "fused_frontend=false", "--set",
+                             f"scan_matcher.registration_method={method}"))
+    calls = rec["runtime_calls_per_frame"]
+    graphs = round(calls.get("cudaGraphLaunch", 0.0) * frames)
+    launches = round(sum(v for k, v in calls.items() if "LaunchKernel" in k) * frames)
+    if graphs != 2 * frames + rec["window_keyframes"] or launches:
+        raise AssertionError(f"classic {method} trace: {graphs} graph launches and "
+                             f"{launches} kernel launch calls over {frames} frames with "
+                             f"{rec['window_keyframes']} keyframes: {calls}")
+    body = rec["body_window"]
+    return dict(
+        method=method, frames=frames, window_keyframes=rec["window_keyframes"],
+        graph_launches=graphs, kernel_launch_calls=launches,
+        runtime_calls_per_frame=json.dumps(calls, separators=(",", ":")),
+        ms_per_frame=rec["ms_per_frame"], device_busy_ms_per_frame=rec["device_busy_ms"] / frames,
+        device_span_ms_per_frame=rec["device_span_ms"] / frames,
+        device_idle_share=rec["device_idle_share"],
+        body_ms_per_frame=rec["body_ms_per_frame"],
+        body_device_busy_ms_per_frame=body["device_busy_ms"] / frames,
+        body_device_idle_share=body["device_idle_share"],
+        body_kernel_launch_calls_per_frame=sum(
+            v for k, v in body["runtime_calls_per_frame"].items() if "LaunchKernel" in k),
+        parts_host_ms_per_frame=json.dumps({k[len("classic."):]: round(
+            v["host_ms_per_frame"], 3) for k, v in rec["stages"].items()
+            if k.startswith("classic.") and v["calls"]}, separators=(",", ":")),
+        first_call_ms=json.dumps({k: {p: round(t, 3) for p, t in v["first_call_ms"].items()}
+                                  for k, v in rec["programs"].items()}, separators=(",", ":")))
 
 
 def trace_numbers(rec: dict) -> dict:
@@ -4671,15 +4732,32 @@ def main(argv=None) -> int:
         card=json.dumps(card))
     del gicp_res, plain_res
 
-    # -- 16. the classic driver: NDT (phase 6's assertions), then ICP --------------------
+    # -- 16. the classic driver as three programs: NDT (phase 6's assertions), then ICP ---
     reset_counts()
-    classic_ndt = run_pipeline(loops_off_config(["fused_frontend=False"]), scans, gt, "cuda")
+    ndt_run, icp_run = {}, {}
+    classic_ndt = run_pipeline(loops_off_config(["fused_frontend=False"]), scans, gt, "cuda",
+                               ndt_run)
     launches_classic = read_counts()
     reset_counts()
     classic_icp = run_pipeline(loops_off_config(["fused_frontend=False",
                                                  "scan_matcher.registration_method=ICP"]),
-                               scans, gt, "cuda")
+                               scans, gt, "cuda", icp_run)
     launches_cicp = read_counts()
+    for st, run in ((classic_ndt, ndt_run), (classic_icp, icp_run)):
+        # One capture a program, then replays: the prefilter from frame 1, the register
+        # from frame 2 (frame 0 bootstraps), the insert from the second keyframe.
+        log = run["programs"]
+        want = {"prefilter": (1, len(scans) - 1), "register": (1, len(scans) - 2),
+                "insert": (1, st["keyframes"] - 1)}
+        if ({k: (v["captures"], v["replays"]) for k, v in log.items()} != want
+                or not all(v["pool_bytes"] > 0 for v in log.values())):
+            raise AssertionError(f"classic programs: {log}, want {want}")
+        st["programs"] = {k: dict(captures=v["captures"], replays=v["replays"],
+                                  pool_mb=round(v["pool_bytes"] / 2**20, 3),
+                                  first_call_ms={p: round(t, 3)
+                                                 for p, t in v["first_call_ms"].items()})
+                          for k, v in log.items()}
+    del ndt_run, icp_run
     if not (classic_ndt["driver"] == classic_icp["driver"] == "classic"
             and launches_classic["ndt_align_loop"] > 0
             and launches_classic["ndt_direct7_accumulate"] == 0
@@ -4693,23 +4771,31 @@ def main(argv=None) -> int:
     classic_icp.update(icp_iteration_launches=launches_cicp["icp_align_loop"],
                        icp_iteration_launches_worked=launches_cicp["icp_iteration_worked"],
                        grid_rows_launches=launches_cicp["grid_rows"])
+    for st, counts in ((classic_ndt, launches_classic), (classic_icp, launches_cicp)):
+        st["launches"] = {k: v for k, v in counts.items() if v}
     for name, st in (("ndt", classic_ndt), ("icp", classic_icp)):
         say("classic", method=name, **{k: json.dumps(v, separators=(",", ":"))
                                        if isinstance(v, dict) else v for k, v in st.items()},
             card=json.dumps(card))
+    # A replayed classic frame's runtime calls, under the profiler in a subprocess.
+    for method in ("NDT", "ICP"):
+        say("classic-trace", **classic_trace(method), card=json.dumps(card))
     if args.parent:
-        # Phase 10's verifications and phase 16's classic ICP against the parent tree's
-        # (its ICP loop on the host), in turns.
-        turns = trajectories_in_turns(args.parent, ("drift_icp", "dense_icp_classic"))
+        # Phase 10's verifications and phase 16's classic courses against the parent
+        # tree's, in turns: every pose bit-equal.
+        classic_stages = ("prefilter_p50_ms", "register_p50_ms", "backend_p50_ms",
+                          "frame_p50_ms", "ate_keyframes_m", "captures", "bit_equal_first")
+        turns = trajectories_in_turns(args.parent, ("drift_icp", "dense_icp_classic",
+                                                    "dense_ndt_classic"))
         for course, row in turns.items():
             if not all(v["bit_equal_first"] for v in row.values()):
                 raise AssertionError(f"{course} parts from the parent tree's: {row}")
         for course, keys in (("drift_icp", ("verify_p50_ms", "verify_max_ms", "frame_p50_ms",
                                              "backend_p50_ms", "loops_accepted",
                                              "ate_keyframes_m", "bit_equal_first")),
-                             ("dense_icp_classic", ("register_p50_ms", "frame_p50_ms",
-                                                    "ate_keyframes_m", "bit_equal_first"))):
-            say("icp-vs-parent", course=course, **{
+                             ("dense_icp_classic", classic_stages),
+                             ("dense_ndt_classic", classic_stages)):
+            say("classic-vs-parent", course=course, **{
                 f"{k}_{run}": v[k] for run, v in turns[course].items() for k in keys},
                 card=json.dumps(card))
 
@@ -4759,11 +4845,17 @@ def main(argv=None) -> int:
     # -- 18. the CLI: classic driver, GICP front end --------------------------------------
     cli_g = run_cli(os.path.join(OUT_DIR, "cli_classic_gicp"), 60, loops=True,
                     sets=("fused_frontend=false", "scan_matcher.registration_method=GICP"))
+    # Its three programs: one capture each, then replays (`classic_programs`).
+    programs_g = json.loads(cli_g["programs"])
     if not (cli_g["device"] == "cuda" and cli_g["fused_frontend"] is False
             and cli_g["registration_method"] == "GICP" and cli_g["gicp_loop_launches"] > 0
             and cli_g["gicp_loop_worked"] > 0 and cli_g["ndt_accumulate_launches"] == 0
             and cli_g["eigh3x3_launches"] == 0
-            and cli_g["gicp_covariances_launches"] >= cli_g["frames"]):
+            and cli_g["gicp_covariances_launches"] >= cli_g["frames"]
+            and {k: v[:2] for k, v in programs_g.items()} == {
+                "prefilter": [1, cli_g["frames"] - 1], "register": [1, cli_g["frames"] - 2],
+                "insert": [1, cli_g["keyframes"] - 1]}
+            and all(v[2] > 0 for v in programs_g.values())):
         raise AssertionError(f"CLI classic GICP: {cli_g}")
     say("cli-classic-gicp", **cli_g)
     if args.parent:

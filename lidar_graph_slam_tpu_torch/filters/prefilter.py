@@ -70,10 +70,15 @@ def random_sample_mask(points: torch.Tensor, mask: torch.Tensor, num: int,
     `random_sampling`) by ranking uniform scores. The generator's numbers differ from
     the reference's threefry bits; the distribution is the same."""
     scores = torch.rand(points.shape[0], generator=generator, device=points.device)
-    scores = torch.where(mask, scores, 2.0)  # invalid rows rank last
-    order = torch.argsort(scores)
+    return sample_by_scores(mask, num, scores)
+
+
+def sample_by_scores(mask: torch.Tensor, num: int, scores: torch.Tensor) -> torch.Tensor:
+    """`mask` cut to the `num` valid rows of least `scores` ([N] uniform draws)."""
+    ranked = torch.where(mask, scores, 2.0)  # invalid rows rank last
+    order = torch.argsort(ranked)
     rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.shape[0], device=points.device)
+    rank[order] = torch.arange(order.shape[0], device=scores.device)
     return mask & (rank < num)
 
 
@@ -87,7 +92,21 @@ def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int)
     """Build a scan -> filtered-scan function for a fixed config.
 
     Returns fn(points [N,3], mask [N]) -> PointCloud with capacity_out rows.
+
+    With `use_random_sampling` every scan ranks its rows by the draws of a generator
+    seeded anew (with 0), as the reference's fixed PRNGKey(0); those draws are the same
+    for every scan, so they are drawn once, at the first call, and kept: a captured
+    program (`utils/capture.py`) reads them as it reads any other constant, where a draw
+    inside its graph would advance the generator at each replay.
     """
+    draws: dict = {}  # (rows, device) -> the per-scan draws
+
+    def per_scan_draws(n: int, device) -> torch.Tensor:
+        key = (n, str(device))
+        if key not in draws:
+            gen = torch.Generator(device=device).manual_seed(0)
+            draws[key] = torch.rand(n, generator=gen, device=device)
+        return draws[key]
 
     def prefilter(points: torch.Tensor, mask: torch.Tensor) -> PointCloud:
         mask = distance_filter(points, mask, cfg.min_distance, cfg.max_distance)
@@ -105,9 +124,8 @@ def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int)
             pts = pad_points(pts, msk)
 
         if cfg.use_random_sampling:
-            # Seeded anew per scan, as the reference's fixed PRNGKey(0) is.
-            gen = torch.Generator(device=pts.device).manual_seed(0)
-            msk = random_sample_mask(pts, msk, cfg.random_sample_num, gen)
+            msk = sample_by_scores(msk, cfg.random_sample_num,
+                                   per_scan_draws(pts.shape[0], pts.device))
             pts = pad_points(pts, msk)
 
         out_pts, out_mask = compact(pts, msk, capacity_out)

@@ -31,7 +31,6 @@ bucket for the step and once for the insert, then replayed. `make_fused_frontend
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Optional, Tuple
@@ -46,14 +45,14 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE
 from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import (
     SubmapRing,
-    assemble_submap,
     init_ring,
     make_matcher,
     make_register,
+    rebuild_target,
     ring_insert,
 )
 from lidar_graph_slam_tpu_torch.registration.base import norm
-from lidar_graph_slam_tpu_torch.utils.capture import Program
+from lidar_graph_slam_tpu_torch.utils.capture import Program, copy_into
 
 
 @dataclass
@@ -187,8 +186,7 @@ def make_fused_frontend(
         )
         return new_state, out
 
-    def rebuild(ring):
-        return build_target(*assemble_submap(ring, stride=cfg.map_build_stride))
+    rebuild = partial(rebuild_target, build_target, cfg.map_build_stride)
 
     def insert_and_rebuild(ring, slot: int, points, mask, pose):
         ring = ring_insert(ring, slot, points, mask, pose)
@@ -222,19 +220,6 @@ def pack_scalars(out: FrameOut) -> torch.Tensor:
         out.converged.to(f32), out.is_keyframe.to(f32), out.fitness.to(f32),
         out.iterations.to(f32), out.keyframe_id.to(f32), out.accum_distance.to(f32),
         out.num_inliers.to(f32)])])
-
-
-def copy_into(dst, src) -> None:
-    """Copy every tensor of `src` into the same place of `dst` (tensors, tuples of them,
-    or dataclasses of them, nested), in place."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, tuple):
-        for d, s in zip(dst, src):
-            copy_into(d, s)
-    else:
-        for f in dataclasses.fields(dst):
-            copy_into(getattr(dst, f.name), getattr(src, f.name))
 
 
 @dataclass

@@ -12,11 +12,30 @@ factory shared with the fused front end (`make_matcher`, `make_register`), and t
 Unlike the fused driver, the target is rebuilt before the next scan is registered (no
 one-frame lag), so its trajectory is held against the reference's `ScanMatcher`, not
 against the fused front end.
+
+Dispatch. The reference jits the align (`ndt_align`, `icp_align`, GICP's
+`estimate_covariances` then `gicp_align`) and a keyframe's `ring_insert` (donated) and
+assemble-and-build, so a frame costs it a few dispatches and one batched read. The port's
+`ScanMatcher` runs the same stages as two `utils/capture.py:Program`s over fixed buffers
+(on the card a CUDA graph each, captured at first use and replayed after):
+
+  * the register program: the input cloud `cloud_in` moved by the frame's extrinsic
+    under its device flag into the frame's cloud `cloud`, the registration from the guess
+    in `frame_in`, and its outputs in the one row `row` (`ROW`), which the host reads once;
+  * the insert program: `cloud` into the ring slot `kf_slot` with the pose `kf_pose`, and
+    the target rebuilt from the ring in place (`copy_into`).
+
+The ring and the target are updated in place, and the target is first built from the
+empty ring. The host logic (the guess, the gyro rotation, the health gate, the keyframe
+decision) is the reference's. A keyframe's payload is copied to the host from `cloud`
+before the insert is enqueued and waited for alone, so the rebuild runs on the card while
+the host goes on, as the reference reads the cloud before it rebuilds.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -28,6 +47,7 @@ from lidar_graph_slam_tpu_torch.core.device import resolve_device
 from lidar_graph_slam_tpu_torch.core.msgs import KeyFrame
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud, pad_points
 from lidar_graph_slam_tpu_torch.registration import gicp, icp, ndt
+from lidar_graph_slam_tpu_torch.utils.capture import Program, copy_into
 
 
 def integrate_gyro(queue, t0: Optional[float], t1: Optional[float]) -> Optional[np.ndarray]:
@@ -128,17 +148,62 @@ def make_register(cfg: ScanMatcherConfig, align):
     return register
 
 
+# The register program's inputs in one float32 row: the guess (16) | T_ext (16) | use_ext.
+FRAME_INPUTS = 33
+# Its outputs in one float32 row (the counts stay exact below 2^24): the pose (16) |
+# converged | fitness | iterations | num_inliers | n_valid.
+ROW = 21
+
+
+def rebuild_target(build_target, stride: int, ring: SubmapRing):
+    """Ring -> map-frame submap -> registration target."""
+    return build_target(*assemble_submap(ring, stride=stride))
+
+
+def place(cloud_in: PointCloud, cloud: PointCloud, frame_in: torch.Tensor) -> None:
+    """`cloud`'s points := `cloud_in`'s, moved by `frame_in`'s T_ext where its flag is on
+    (padded rows at PAD_VALUE); with the flag off, `cloud_in`'s own bits."""
+    moved = pad_points(se3.transform_points(frame_in[16:32].view(4, 4), cloud_in.points),
+                       cloud_in.mask)
+    cloud.points.copy_(torch.where(frame_in[32] > 0.5, moved, cloud_in.points))
+
+
+def _register_body(register, target, cloud_in: PointCloud, cloud: PointCloud,
+                   frame_in: torch.Tensor, row: torch.Tensor) -> None:
+    """The register program: the frame's cloud placed, registered against `target` from
+    `frame_in`'s guess, and the result packed into `row` (`ROW`). (The bodies take their
+    buffers as arguments: a body bound to the matcher would make a cycle that only the
+    garbage collector frees.)"""
+    place(cloud_in, cloud, frame_in)
+    res = register(target, cloud.points, cloud.mask, frame_in[0:16].view(4, 4))
+    f32 = torch.float32
+    row.copy_(torch.cat([res.transform.reshape(16).to(f32), torch.stack([
+        res.converged.to(f32), res.fitness.to(f32), res.iterations.to(f32),
+        res.num_inliers.to(f32), torch.sum(cloud.mask.to(f32))])]))
+
+
+def _insert_body(rebuild_fn, ring: SubmapRing, target, cloud: PointCloud,
+                 kf_slot: torch.Tensor, kf_pose: torch.Tensor) -> None:
+    """The insert program: the frame's cloud into ring slot `kf_slot` ([1] int64) with pose
+    `kf_pose`, then the target rebuilt from the ring, in place (the reference's donated
+    `ring_insert` and its jitted assemble-and-build)."""
+    ring_insert(ring, kf_slot, cloud.points, cloud.mask, kf_pose)
+    copy_into(target, rebuild_fn(ring))
+
+
 class ScanMatcher:
     """Host-side front-end driver over device tensors on `device` (None: the CUDA card,
-    `core/device.py`).
+    `core/device.py`), its stages two programs over fixed buffers (module docstring).
 
     process(cloud, stamp) -> dict with pose [4,4] np, is_keyframe, converged, fitness,
-    iterations — what the reference publishes per frame.
+    iterations — what the reference publishes per frame. `cloud` may be any
+    `PointCloud` of `scan_capacity` rows; `cloud_in` itself (where the runner's prefilter
+    program writes) is taken without a copy.
     """
 
     def __init__(self, cfg: ScanMatcherConfig, scan_capacity: int,
                  map_voxel_capacity: int = 65536, device=None):
-        self.device = resolve_device(device)
+        self.device = dev = resolve_device(device)
         self.cfg = cfg
         self.scan_capacity = scan_capacity
         self.map_voxel_capacity = map_voxel_capacity
@@ -146,7 +211,7 @@ class ScanMatcher:
         if self.method not in ("NDT", "GICP", "ICP"):
             raise ValueError(f"unknown registration_method {cfg.registration_method!r}")
 
-        self.ring = init_ring(cfg.max_scan_accumulate_num, scan_capacity, device=self.device)
+        self.ring = init_ring(cfg.max_scan_accumulate_num, scan_capacity, device=dev)
         self.pose = np.eye(4, dtype=np.float32)
         self.last_motion = np.eye(4, dtype=np.float32)  # T_{t-1}^{-1} T_t
         self.last_kf_pose = np.eye(4, dtype=np.float32)
@@ -160,43 +225,87 @@ class ScanMatcher:
         self.accum_distance = 0.0
         self.n_keyframes = 0
         self.n_frames = 0
-        self.target = None
         self.keyframe_log: list[KeyFrame] = []  # host-side keyframe records for the back end
         self._build_target, align = make_matcher(cfg, map_voxel_capacity)
         self._register_fn = make_register(cfg, align)
+        self._rebuild = partial(rebuild_target, self._build_target, cfg.map_build_stride)
+
+        # The fixed buffers (module docstring); the frame's cloud shares the input's mask.
+        n = scan_capacity
+        self.cloud_in = PointCloud(
+            points=torch.full((n, 3), PAD_VALUE, dtype=torch.float32, device=dev),
+            mask=torch.zeros((n,), dtype=torch.bool, device=dev))
+        self.cloud = PointCloud(points=torch.full((n, 3), PAD_VALUE, dtype=torch.float32,
+                                                  device=dev), mask=self.cloud_in.mask)
+        self.frame_in = torch.zeros(FRAME_INPUTS, dtype=torch.float32, device=dev)
+        self.row = torch.zeros(ROW, dtype=torch.float32, device=dev)
+        self.kf_slot = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.kf_pose = torch.eye(4, dtype=torch.float32, device=dev)
+        self.target = self._rebuild(self.ring)  # the empty map; frame 0 bootstraps
+        # Their host sides: pinned on the card, so that the uploads and reads are
+        # asynchronous copies; each is rewritten only after the stream passed its copy.
+        pin = dev.type == "cuda"
+        self._host = {name: torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                      for name, t in (("frame_in", self.frame_in), ("row", self.row),
+                                      ("kf_slot", self.kf_slot), ("kf_pose", self.kf_pose),
+                                      ("kf_points", self.cloud.points),
+                                      ("kf_mask", self.cloud.mask))}
+        self.stream = torch.cuda.Stream(dev) if pin else None
+        self.register_program = Program(
+            partial(_register_body, self._register_fn, self.target, self.cloud_in,
+                    self.cloud, self.frame_in, self.row), dev, self.stream)
+        self.insert_program = Program(
+            partial(_insert_body, self._rebuild, self.ring, self.target, self.cloud,
+                    self.kf_slot, self.kf_pose), dev, self.stream)
+
+    @property
+    def programs(self) -> dict:
+        return {"register": self.register_program, "insert": self.insert_program}
 
     # -- device-side helpers ------------------------------------------------------------
 
-    def _rebuild_target(self):
-        """Ring -> map-frame submap -> registration target, at once (no lag)."""
-        self.target = self._build_target(
-            *assemble_submap(self.ring, stride=self.cfg.map_build_stride))
+    def _upload(self, name: str, dst: torch.Tensor, values) -> None:
+        host = self._host[name]
+        host.numpy()[...] = values
+        dst.copy_(host, non_blocking=True)
 
-    def _register(self, cloud: PointCloud, init_T):
-        return self._register_fn(self.target, cloud.points, cloud.mask, init_T)
+    def load(self, ring: SubmapRing) -> None:
+        """Copy a resumed ring into the fixed ring and rebuild the target there; the
+        programs go on reading the same buffers."""
+        copy_into(self.ring, ring)
+        copy_into(self.target, self._rebuild(self.ring))
 
-    def _add_keyframe(self, cloud: PointCloud, pose: np.ndarray, delta: float):
+    def _add_keyframe(self, pose: np.ndarray, delta: float):
+        """`cloud` into the ring as keyframe `n_keyframes`, the target rebuilt at once."""
         slot = self.n_keyframes % self.cfg.max_scan_accumulate_num
-        ring_insert(self.ring, slot, cloud.points, cloud.mask,
-                    torch.as_tensor(pose, device=self.device))
         self.accum_distance += float(delta)
-        # The keyframe payload in one copy: x, y, z and the mask as a fourth column.
-        payload = torch.cat([cloud.points, cloud.mask[:, None].to(cloud.points.dtype)],
-                            dim=1).cpu().numpy()
+        # The payload leaves the fixed cloud buffer before the insert is enqueued, and
+        # only its copies are waited for: the rebuild runs on while the host goes on.
+        points, mask = self._host["kf_points"], self._host["kf_mask"]
+        points.copy_(self.cloud.points, non_blocking=True)
+        mask.copy_(self.cloud.mask, non_blocking=True)
+        copied = None
+        if self.device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record()
+        self._upload("kf_slot", self.kf_slot, slot)
+        self._upload("kf_pose", self.kf_pose, pose)
+        self.insert_program()
+        if copied is not None:
+            copied.synchronize()
         self.keyframe_log.append(
             KeyFrame(
                 id=self.n_keyframes,
                 pose=pose.copy(),
                 accum_distance=self.accum_distance,
-                cloud=np.ascontiguousarray(payload[:, :3]),
-                cloud_mask=payload[:, 3] > 0.5,
+                cloud=points.numpy().copy(),
+                cloud_mask=mask.numpy().copy(),
                 frame_index=self.n_frames - 1,  # n_frames is incremented before keyframing
                 stamp=self.last_scan_stamp,
             )
         )
         self.n_keyframes += 1
         self.last_kf_pose = pose.copy()
-        self._rebuild_target()
 
     # -- public API ---------------------------------------------------------------------
 
@@ -235,13 +344,19 @@ class ScanMatcher:
         """Feed one prefiltered scan (sensor frame); returns per-frame odometry outputs."""
         self.n_frames += 1
         T_ext = self.resolve_extrinsic(stamp)
-        if T_ext is not None:
-            pts = se3.transform_points(torch.as_tensor(T_ext, device=self.device), cloud.points)
-            cloud = PointCloud(points=pad_points(pts, cloud.mask), mask=cloud.mask)
+        if cloud.points is not self.cloud_in.points:
+            self.cloud_in.points.copy_(cloud.points)
+            self.cloud_in.mask.copy_(cloud.mask)
+        frame_in = self._host["frame_in"].numpy()
+        frame_in[16:32] = (np.eye(4) if T_ext is None else T_ext).reshape(16)
+        frame_in[32] = T_ext is not None
         if self.n_keyframes == 0:
             # First-scan bootstrap: identity pose, keyframe 0, target := the scan itself.
+            # Nothing registers: the cloud is placed once, outside the programs.
             self.last_scan_stamp = stamp
-            self._add_keyframe(cloud, self.pose, 0.0)
+            self._upload("frame_in", self.frame_in, frame_in)
+            place(self.cloud_in, self.cloud, self.frame_in)
+            self._add_keyframe(self.pose, 0.0)
             return {"pose": self.pose.copy(), "is_keyframe": True, "converged": True,
                     "fitness": 0.0, "iterations": 0}
 
@@ -255,13 +370,14 @@ class ScanMatcher:
             guess = guess.copy()
             guess[:3, :3] = self.pose[:3, :3] @ imu_delta[:3, :3]
         self.last_scan_stamp = stamp
-        res = self._register(cloud, torch.as_tensor(guess, device=self.device))
-        # ONE batched device->host read per frame: the pose and the five scalars in one
-        # float32 row (the counts stay exact below 2^24).
-        f32 = torch.float32
-        row = torch.cat([res.transform.reshape(16).to(f32), torch.stack([
-            res.converged.to(f32), res.fitness.to(f32), res.iterations.to(f32),
-            res.num_inliers.to(f32), torch.sum(cloud.mask.to(f32))])]).cpu().numpy()
+        frame_in[0:16] = np.asarray(guess, np.float32).reshape(16)
+        self._upload("frame_in", self.frame_in, frame_in)
+        self.register_program()
+        # ONE device->host read per frame: the pose and the five scalars in one float32
+        # row (the counts stay exact below 2^24).
+        row = self._host["row"]
+        row.copy_(self.row)
+        row = row.numpy()
         transform = row[:16].reshape(4, 4).copy()
         converged = bool(row[16] > 0.5)
         fitness, iters, inliers, n_valid = float(row[17]), int(row[18]), int(row[19]), int(row[20])
@@ -281,6 +397,6 @@ class ScanMatcher:
         delta = float(np.linalg.norm(self.pose[:3, 3] - self.last_kf_pose[:3, 3]))
         is_keyframe = delta >= self.cfg.displacement
         if is_keyframe:
-            self._add_keyframe(cloud, self.pose, delta)
+            self._add_keyframe(self.pose, delta)
         return {"pose": self.pose.copy(), "is_keyframe": is_keyframe, "converged": True,
                 "fitness": fitness, "iterations": iters}

@@ -171,8 +171,11 @@ def main(argv=None) -> int:
         "kernel_launches": {name: getattr(kernels, name).launches for name in (
             "ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
             "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
-            "icp_fitness", "ndt_finalize", "eigh3x3", "gicp_covariances")},
+            "icp_fitness", "ndt_finalize", "eigh3x3", "gicp_covariances", "voxel_centroids",
+            "sor_window_stats", "grid_rows", "dense_table")},
         "processes": process_count(),
+        # The front end's programs: captures, replays, graph pool bytes, first call's ms.
+        "programs": pipe.program_log(),
     }
     # How many of each loop kernel's launches did work (a device count; 0 without a loop).
     looped = {"ndt_iteration": kernels.ndt_align_loop.launches

@@ -15,6 +15,11 @@ Port of `lidar_graph_slam_tpu/pipeline/runner.py`, with its two front-end driver
     `odometry/scan_matcher.py:ScanMatcher` (one batched read per frame, the target
     rebuilt at once on a keyframe), then the back end — with per-stage wall times; the
     prefilter stage waits for the card's stream, as the reference blocks on its output.
+    The reference pads a classic scan to `capacity.raw_points` and jits its prefilter, so
+    the stage is one program (`utils/capture.py:Program`) over a fixed raw buffer, filled
+    from a pinned host copy, which writes the filtered cloud into the matcher's input
+    buffer; with `ScanMatcher`'s register and insert programs a classic frame is two
+    replays and a keyframe one more.
 
 `flush()` / `result()` drain the frames in flight and settle the concurrent back end
 (loop verification and solve, `graph/slam.py`). `utils/checkpoint.py` saves a pipeline and
@@ -35,6 +40,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Iterable, Optional
 
 import numpy as np
@@ -51,6 +57,7 @@ from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd
 from lidar_graph_slam_tpu_torch.odometry.scan_matcher import ScanMatcher, integrate_gyro
 from lidar_graph_slam_tpu_torch.parallel.distributed import make_mesh, process_count
 from lidar_graph_slam_tpu_torch.parallel.multihost import HostShardedKeyframeStore
+from lidar_graph_slam_tpu_torch.utils.capture import Program
 from lidar_graph_slam_tpu_torch.utils.telemetry import MetricsWriter
 
 
@@ -86,6 +93,13 @@ class _HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host
+
+
+def _prefilter_body(prefilter, raw: PointCloud, out: PointCloud) -> None:
+    """The classic prefilter program: the fixed raw scan filtered into `out` in place."""
+    filtered = prefilter(raw.points, raw.mask)
+    out.points.copy_(filtered.points)
+    out.mask.copy_(filtered.mask)
 
 
 class SlamPipeline:
@@ -129,6 +143,21 @@ class SlamPipeline:
                                      device=self.device)
             self.front.extrinsic_provider = extrinsic_provider
             self._kf_consumed = 0
+            # The raw scan's fixed buffer and its pinned host side, rewritten only after
+            # the stage's wait (the upload is done by then); `_raw_rows` rows of it hold
+            # the last scan, the rest padding.
+            dev, rows = self.device, cap.raw_points
+            self._raw = PointCloud(
+                points=torch.full((rows, 3), PAD_VALUE, dtype=torch.float32, device=dev),
+                mask=torch.zeros((rows,), dtype=torch.bool, device=dev))
+            pin = dev.type == "cuda"
+            self._raw_host = PointCloud(
+                points=torch.full((rows, 3), PAD_VALUE, dtype=torch.float32, pin_memory=pin),
+                mask=torch.zeros((rows,), dtype=torch.bool, pin_memory=pin))
+            self._raw_rows = 0
+            self.prefilter_program = Program(
+                partial(_prefilter_body, self.prefilter, self._raw, self.front.cloud_in),
+                dev, self.front.stream)
             return
         self.front = None
         # One output slot for each frame in flight (`_process_fused` keeps
@@ -288,16 +317,30 @@ class SlamPipeline:
 
     # -- classic driver -----------------------------------------------------------------
 
+    def _stage_raw(self, scan: np.ndarray) -> None:
+        """`scan` into the raw buffer as `PointCloud.from_array` pads it (truncated to
+        `capacity.raw_points`, PAD_VALUE rows after it), through the pinned host side:
+        only the rows the last scan held beyond this one are padded anew."""
+        xyz = np.asarray(scan, dtype=np.float32).reshape(-1, 3)
+        n = min(xyz.shape[0], self._raw.capacity)
+        points, mask = self._raw_host.points.numpy(), self._raw_host.mask.numpy()
+        points[:n] = xyz[:n]
+        mask[:n] = True
+        points[n:self._raw_rows] = PAD_VALUE
+        mask[n:self._raw_rows] = False
+        self._raw_rows = n
+        self._raw.points.copy_(self._raw_host.points, non_blocking=True)
+        self._raw.mask.copy_(self._raw_host.mask, non_blocking=True)
+
     def _process_classic(self, scan: np.ndarray, stamp: Optional[float]) -> dict:
         t0 = time.perf_counter()
-        raw = PointCloud.from_array(scan, capacity=self.cfg.capacity.raw_points,
-                                    device=self.device)
-        filtered = self.prefilter(raw.points, raw.mask)
+        self._stage_raw(scan)
+        self.prefilter_program()
         if self.device.type == "cuda":  # the stage's time includes its device work
             torch.cuda.current_stream(self.device).synchronize()
         t1 = time.perf_counter()
 
-        out = self.front.process(filtered, stamp=stamp)
+        out = self.front.process(self.front.cloud_in, stamp=stamp)
         t2 = time.perf_counter()
 
         # Hand new keyframes to the back end.
@@ -330,6 +373,24 @@ class SlamPipeline:
         return out
 
     # -- public API ---------------------------------------------------------------------
+
+    @property
+    def programs(self) -> dict:
+        """The front end's programs by name: the classic driver's `prefilter`, `register`
+        and `insert`; the fused driver's `step_<rows>` (one a raw-scan bucket) and
+        `insert`."""
+        if not self.fused:
+            return {"prefilter": self.prefilter_program, **self.front.programs}
+        front = self.fused_front
+        return {**{f"step_{rows}": p for rows, p in front.programs.items()},
+                "insert": front.insert_program}
+
+    def program_log(self) -> dict:
+        """Each program's captures, replays, graph pool bytes and first call's parts (ms:
+        `Program.first_call_ms`)."""
+        return {name: {"captures": p.captures, "replays": p.replays,
+                       "pool_bytes": p.pool_bytes(), "first_call_ms": p.first_call_ms}
+                for name, p in self.programs.items()}
 
     def add_imu(self, stamp: float, angular_velocity, linear_acceleration=None) -> None:
         """Queue an IMU sample; only the gyro is used (rotation prediction). The classic

@@ -23,12 +23,17 @@ replay counts it (`kernels.count_launches`), in the wrappers' counts and the cal
 thread's. Captures use `capture_error_mode="thread_local"`: the loop verifier's thread
 may launch and allocate on its own stream while the front end captures. The garbage
 collector is run before a capture and held off during it (a graph freed mid-capture
-invalidates the capture).
+invalidates the capture). A CUDA program's first call is timed in its parts
+(`first_call_ms`): the warm-up's enqueue, the wait for its device work (the capture would
+wait for it anyway: `torch.cuda.graph` synchronizes the card on entry), the collection,
+and the capture with its instantiation.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import time
 from typing import Callable
 
 import torch
@@ -50,6 +55,7 @@ class Program:
         self.tally: dict = {}  # wrapper -> kernel launches a replay
         self.captures = 0
         self.replays = 0
+        self.first_call_ms: dict = {}  # warm_up, drain, collect, capture (the last capture)
 
     @property
     def captured(self) -> bool:
@@ -66,17 +72,22 @@ class Program:
             self.replays += 1
 
     def _warm_up_and_capture(self) -> None:
+        clock = [time.perf_counter()]
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             self.body()
         current.wait_stream(self.stream)
+        clock.append(time.perf_counter())
+        torch.cuda.synchronize(self.device)
+        clock.append(time.perf_counter())
         graph = torch.cuda.CUDAGraph()
         # Garbage must not be freed while the stream captures: another program's graph
         # among it would release its pool, a CUDA call a capture does not permit, which
         # invalidates the capture. Collect it first, and hold the collector off until the
         # capture ends.
         gc.collect()
+        clock.append(time.perf_counter())
         enabled = gc.isenabled()
         gc.disable()
         try:
@@ -86,8 +97,11 @@ class Program:
         finally:
             if enabled:
                 gc.enable()
+        clock.append(time.perf_counter())
         self.graph, self.tally = graph, tally
         self.captures += 1
+        self.first_call_ms = {part: 1000 * (b - a) for part, a, b in zip(
+            ("warm_up", "drain", "collect", "capture"), clock, clock[1:])}
 
     def release(self) -> None:
         """Free the graph and its private pool now; a later call captures anew."""
@@ -102,3 +116,16 @@ class Program:
         pool = tuple(self.graph.pool())
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of `src` into the same place of `dst` (tensors, tuples of them,
+    or dataclasses of them, nested), in place."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
+    else:
+        for f in dataclasses.fields(dst):
+            copy_into(getattr(dst, f.name), getattr(src, f.name))

@@ -9,9 +9,10 @@ checkpoint written by either package loads in the other.
 With the classic driver the resume is exact. With the fused driver the one-frame submap
 lag collapses at the checkpoint (`flush()` drains the frames in flight and the target is
 rebuilt from the ring), so the resumed trajectory may differ by a small, damped amount;
-the keyframe schedule is the same. The fused driver's state and ring are copied into the
-fixed buffers its programs read (`odometry/fused.py:FusedFrontEnd.load`), so a resumed
-run equals a run flushed at the same frame and continued.
+the keyframe schedule is the same. Either driver's ring (and the fused driver's state) is
+copied into the fixed buffers its programs read (`odometry/fused.py:FusedFrontEnd.load`,
+`odometry/scan_matcher.py:ScanMatcher.load`), so a resumed run equals a run flushed at
+the same frame and continued.
 
 A multi-process pipeline (sharded keyframe store, `parallel/multihost.py`) is refused, as
 the reference refuses it: each process holds only its share of the clouds.
@@ -182,9 +183,8 @@ def load_pipeline(path: str, device=None) -> SlamPipeline:
         front.accum_distance = float(z["front_accum"])
         front.n_keyframes = int(z["front_n_keyframes"])
         front.n_frames = int(z["front_n_frames"])
-        front.ring = ring
-        if front.n_keyframes > 0:
-            front._rebuild_target()
+        # Into the fixed ring and target the matcher's programs read and write.
+        front.load(ring)
         # Historical keyframes live in the back end; the front-end log restarts empty, so
         # the runner's consumption cursor restarts at 0 alongside it.
         front.keyframe_log = []

@@ -28,7 +28,14 @@ step's functions wrapped by this script before the pipeline is built, so the pro
 carries no marks of its own; on a tree with captured programs they are in
 `body_stages`), and the back-end stage's parts: the ring insert and target rebuild, the
 keyframe hand-over
-(`add_keyframe`), the loop tick (`on_frame`) and the rest — each part's host ms a frame
+(`add_keyframe`), the loop tick (`on_frame`) and the rest. With `--set
+fused_frontend=false` the parts are the classic driver's (`classic.*`): the prefilter
+stage's program, the matcher's `process` and inside it the register program and the
+keyframe (`keyframe`: the payload's copy and wait, and the insert program, `insert`), the
+keyframe hand-over and the rest; on a tree whose classic driver runs its operators one by
+one, its prefilter, `_register`, `_add_keyframe` and `_rebuild_target` take those parts'
+places, and on a tree with the classic programs their bodies are called directly for
+`body_stages` as the fused ones are. Each part's host ms a frame
 (marked in the trace with `record_function`), the kernels it launched (their number, own
 ms and the device ms from the first to the last; the kernels that take most named), how
 far its last kernel ends after the host's span (`device_behind_ms`: > 0 when the device
@@ -68,6 +75,16 @@ STEP_PARTS = ("step", "step.prefilter", "step.register", "step.gate")
 STAGE_PARTS = {"insert_and_rebuild": "_insert_and_rebuild", "add_keyframe": "add_keyframe",
                "on_frame": "on_frame", "drain_lazy_clouds": "drain_lazy_clouds",
                "emit_loop_attempts": "_emit_loop_attempts"}
+# The classic driver's parts: (part, owner, attribute on a tree with the classic programs,
+# attribute on a tree without them); the owner is the pipeline, its matcher or its back end.
+CLASSIC_PARTS = (("prefilter", "pipe", "prefilter_program", "prefilter"),
+                 ("process", "front", "process", "process"),
+                 ("register", "front", "register_program", "_register"),
+                 ("keyframe", "front", "_add_keyframe", "_add_keyframe"),
+                 ("insert", "front", "insert_program", "_rebuild_target"),
+                 ("add_keyframe", "back", "add_keyframe", "add_keyframe"),
+                 ("emit_loop_attempts", "pipe", "_emit_loop_attempts", "_emit_loop_attempts"))
+CLASSIC_PROGRAMS = ("prefilter_program", "register_program", "insert_program")
 # CUDA runtime calls in which the host waits for the device (cudaFree and cudaMalloc
 # can too).
 WAITS = ("Synchronize", "cudaMemcpy", "cudaFree", "cudaMalloc")
@@ -88,6 +105,42 @@ def run_bodies(front) -> None:
     """From now on `front`'s programs (a `FusedFrontEnd`) run their bodies directly."""
     front.programs = {rows: Eager(p) for rows, p in front.programs.items()}
     front.insert_program = Eager(front.insert_program)
+
+
+def mark(owner, attr: str, name: str) -> None:
+    """Wrap `owner.attr` (an instance attribute over the method or program) in a
+    `record_function` named `name`."""
+    fn = getattr(owner, attr)
+
+    def wrapped(*a, _fn=fn, **k):
+        with torch.profiler.record_function(name):
+            return _fn(*a, **k)
+
+    setattr(owner, attr, wrapped)
+
+
+def annotate_classic(pipe: SlamPipeline, originals: dict | None = None,
+                     bodies: bool = False) -> dict:
+    """Mark each of the classic driver's parts (`CLASSIC_PARTS`) as `classic.<part>`; with
+    `bodies`, the programs give way to their bodies, called directly. Returns what it
+    replaced by (owner, attribute); given back as `originals`, the marks are made anew
+    over those."""
+    programs = hasattr(pipe, "prefilter_program")
+    owners = {"pipe": pipe, "front": pipe.front, "back": pipe.back}
+    originals = {} if originals is None else originals
+    for part, owner, attr, old_attr in CLASSIC_PARTS:
+        attr = attr if programs else old_attr
+        fn = originals.setdefault((owner, attr), getattr(owners[owner], attr))
+        setattr(owners[owner], attr, Eager(fn) if bodies and attr in CLASSIC_PROGRAMS else fn)
+        mark(owners[owner], attr, f"classic.{part}")
+    return originals
+
+
+def unmark_classic(pipe: SlamPipeline, originals: dict) -> None:
+    """Put back what `annotate_classic` replaced."""
+    owners = {"pipe": pipe, "front": pipe.front, "back": pipe.back}
+    for (owner, attr), fn in originals.items():
+        setattr(owners[owner], attr, fn)
 
 
 def annotate(pipe: SlamPipeline, close_gate) -> None:
@@ -215,7 +268,9 @@ def stage_breakdown(events: list, frames: int) -> dict:
             c.get("args", {}).get("correlation"), ())]
 
     out = {}
-    for part, name in [(p, p) for p in STEP_PARTS] + [(p, f"stage.{p}") for p in STAGE_PARTS]:
+    names = ([(p, p) for p in STEP_PARTS] + [(p, f"stage.{p}") for p in STAGE_PARTS]
+             + [(f"classic.{p[0]}", f"classic.{p[0]}") for p in CLASSIC_PARTS])
+    for part, name in names:
         host = [e for e in timed if e["name"] == name and e.get("cat") == "user_annotation"]
         calls = [e for e in runtime if inside(e, host)]
         waits = [e for e in calls if any(w in e["name"] for w in WAITS)]
@@ -292,42 +347,58 @@ def main(argv=None) -> int:
         import chip_smoke
 
         cfg = apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=False", *args.set])
-        scans = chip_smoke.dense_course(40)[0][:n]  # the 40-frame course's first frames
+        # The 40-frame course's first frames (bodies: those after the warm-up again).
+        try:
+            scans = chip_smoke.dense_course(40, first=n)[0]
+        except TypeError:  # a tree whose `dense_course` simulates every frame
+            scans = chip_smoke.dense_course(40)[0][:n]
     else:
         cfg = apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=False", *args.set])
         scans = [s for s, _ in SyntheticSequence(n_frames=n, seed=0, laps=1.08 * n / 100.0)]
     close_gate = annotate_step()
     pipe = SlamPipeline(cfg, device=args.device)
-    annotate(pipe, close_gate)
     front = getattr(pipe, "fused_front", None)
-    if front is not None:
-        n += args.frames
-        scans = scans + scans[args.warmup:]  # the body's frames: the course once more
+    classic_programs = not pipe.fused and hasattr(pipe, "prefilter_program")
+    if pipe.fused:
+        annotate(pipe, close_gate)
+    else:
+        originals = annotate_classic(pipe)
     for s in scans[: args.warmup]:
         pipe.process_scan(s)
     stage_before = {k: len(v) for k, v in pipe.timings.items()}
+    kf_before = len(pipe.kf_frame_indices)
     with trace("frame", profile_dir=args.profile_dir):
         for s in scans[args.warmup:args.warmup + args.frames]:
             pipe.process_scan(s)
         pipe.flush()
+    window_keyframes = len(pipe.kf_frame_indices) - kf_before
     path = os.path.join(args.profile_dir, "frame.trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     frame_ms, body = trace.last_ms, {}
-    if front is not None:
+    if front is not None or classic_programs:
         # Each program's pool, then the same parts with the programs' bodies called
-        # directly on the same buffers.
-        pools = {str(rows): p.pool_bytes() for rows, p in front.programs.items()}
-        pools["insert"] = front.insert_program.pool_bytes()
-        captures = front.captures
-        run_bodies(front)
+        # directly on the same buffers, over the same frames once more.
+        if classic_programs:
+            unmark_classic(pipe, originals)
+            log = pipe.program_log()
+            pools = {name: rec["pool_bytes"] for name, rec in log.items()}
+            captures = sum(rec["captures"] for rec in log.values())
+            body = {"programs": log}
+            annotate_classic(pipe, originals, bodies=True)
+        else:
+            pools = {str(rows): p.pool_bytes() for rows, p in front.programs.items()}
+            pools["insert"] = front.insert_program.pool_bytes()
+            captures = front.captures
+            run_bodies(front)
+        scans = scans + scans[args.warmup:]
         with trace("body", profile_dir=args.profile_dir):
             for s in scans[args.warmup + args.frames:]:
                 pipe.process_scan(s)
             pipe.flush()
         with open(os.path.join(args.profile_dir, "body.trace.json")) as f:
             body_events = json.load(f)["traceEvents"]
-        body = {"body_ms_per_frame": trace.last_ms / args.frames,
+        body = {**body, "body_ms_per_frame": trace.last_ms / args.frames,
                 "body_window": window_numbers(body_events, args.frames),
                 "body_stages": stage_breakdown(body_events, args.frames),
                 "captures": captures, "pool_bytes": pools}
@@ -339,7 +410,7 @@ def main(argv=None) -> int:
         "trace_file": os.path.abspath(path), "trace_bytes": os.path.getsize(path),
         "span_events": sum(e.get("name") == "frame" for e in events),
         "kernel_events": sum(e.get("cat") == "kernel" for e in events),
-        "keyframes": len(pipe.kf_frame_indices),
+        "keyframes": len(pipe.kf_frame_indices), "window_keyframes": window_keyframes,
         "stage_p50_ms": {k: 1000 * float(np.median(v[stage_before[k]:]))
                          for k, v in pipe.timings.items() if len(v) > stage_before[k]},
         **window_numbers(events, args.frames),

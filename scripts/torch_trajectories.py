@@ -8,8 +8,8 @@ commit unpacked with `git archive`) run four of `chip_smoke.py`'s courses on the
 the default config: the 40-frame dense course through the fused front end with loops
 off, NDT (phase 6) and GICP (phase 15), and the 360-frame drift course with loops on,
 with the ICP verifier (phase 10) and with the GICP verifier (phase 17); `--courses` runs
-those named instead, among them `dense_icp_classic`, the dense course through the classic
-driver with ICP (phase 16), and `cli_gicp_classic`, the CLI's 60-frame synthetic course
+those named instead, among them `dense_icp_classic` and `dense_ndt_classic`, the dense
+course through the classic driver with ICP and with NDT (phase 16), and `cli_gicp_classic`, the CLI's 60-frame synthetic course
 (seed 0) through the classic driver with GICP and loops on, as phase 18 runs the CLI, and
 `drift_global`, the drift course with `graph_slam.use_global_init=true` (phase 20). It
 writes each run's odometry and keyframe poses, its loop
@@ -18,8 +18,8 @@ that did work, the p50 ms of the frame and of the pipeline's stages (`prefilter`
 host's enqueue of the fused step; `register`: the classic driver's align; `backend`: the
 ring insert and target rebuild of a keyframe and the loop back end), and the p50 and max
 ms of the loop verifications (`GraphBasedSLAM.verify_seconds`), and the programs the
-fused front end captured (`FusedFrontEnd.captures`: 0 on a tree that dispatches its
-operators one by one, or with the classic driver). With
+front end captured (`SlamPipeline.programs`, or on an older tree the fused front end's
+`FusedFrontEnd.captures`: 0 on a tree that dispatches its operators one by one). With
 `--compare`, per course and file: whether its poses and loop attempts equal the first
 file's bit for bit, the poses' largest difference from them, the first frame whose
 odometry pose differs from theirs and the first whose position is 5 cm or more away, and
@@ -36,9 +36,17 @@ import sys
 import time
 
 COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
-EXTRA = ("dense_icp_classic", "cli_gicp_classic", "drift_global")
+EXTRA = ("dense_icp_classic", "dense_ndt_classic", "cli_gicp_classic", "drift_global")
 NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked", "captures")
 STAGES = ("frame", "prefilter", "register", "backend")
+
+
+def captures(pipe) -> int:
+    """The programs `pipe`'s front end captured (a tree before `SlamPipeline.programs`:
+    its fused front end's, or none)."""
+    if hasattr(pipe, "programs"):
+        return sum(p.captured for p in pipe.programs.values())
+    return getattr(getattr(pipe, "fused_front", None), "captures", 0)
 
 
 def run_tree(root: str, out: str, courses=COURSES) -> int:
@@ -70,6 +78,7 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
     runs = {"dense": (chip_smoke.loops_off_config(), dense),
             "dense_icp_classic": (chip_smoke.loops_off_config(
                 ["fused_frontend=False", "scan_matcher.registration_method=ICP"]), dense),
+            "dense_ndt_classic": (chip_smoke.loops_off_config(["fused_frontend=False"]), dense),
             "dense_gicp": (chip_smoke.loops_off_config(
                 ["scan_matcher.registration_method=GICP"]), dense),
             "drift_icp": (PipelineConfig(), drift),
@@ -104,7 +113,7 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
                 ate_rmse(res.keyframe_poses, gt[kf], align=False), res.num_loop_closures,
                 kernels.worked_launches(kernel="ndt_iteration"),
                 kernels.worked_launches(kernel="gicp_iteration"),
-                getattr(getattr(pipe, "fused_front", None), "captures", 0)], np.float64),
+                captures(pipe)], np.float64),
             f"{name}_ms": np.array([1000 * np.median(walls[1:])] + [
                 res.metrics[k]["p50_ms"] if k in res.metrics else np.nan
                 for k in STAGES[1:]], np.float64),

@@ -374,8 +374,8 @@ class _FakeGraph:
 
 @pytest.fixture
 def fake_card(monkeypatch):
-    """`torch.cuda`'s stream and graph calls replaced by stand-ins; `fail` makes the next
-    capture raise, as a refused capture does."""
+    """`torch.cuda`'s stream, graph and synchronize calls replaced by stand-ins; `fail`
+    makes the next capture raise, as a refused capture does."""
     state = {"modes": [], "fail": False, "other_thread": None}
     finalize = kernels.ndt_finalize
 
@@ -396,6 +396,7 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", graph)
     monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     return state
 
 

@@ -29,7 +29,11 @@ captured programs (`odometry/fused.py:FusedFrontEnd`, CUDA graphs after the firs
 a lagged course with NDT, GICP and ICP bit for bit against the plain step and
 insert-and-rebuild, the launches a replay counts, and replays without a synchronous read;
 `batch_odometry`'s frame program (one capture, then a replay a batch frame) bit for bit
-against its body run eagerly, without a synchronous read.
+against its body run eagerly, without a synchronous read. The classic driver's three
+programs (prefilter, register, insert) over 12 dense frames bit for bit against their
+bodies run eagerly with NDT, ICP and GICP, one capture each; the random sample's draws in
+the classic and fused programs; and no kernel launch call from a classic frame after
+frame 2 (torch.profiler).
 GICP's covariance kernel (`gicp_covariances`, `csrc/covariances.cu`) against its plain
 version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launch a call,
 its refusals, no synchronous read, and inside the captured GICP step and insert.
@@ -2806,3 +2810,147 @@ def test_captured_inserts_build_the_grid_with_its_kernel(cuda, method):
     assert any("grid_rows_kernel" in k for k in names), names
     assert not [k for k in names if "cummax" in k or "dim_with_indices" in k
                 or "scatter" in k.lower()], names
+
+
+# -- the classic driver as three programs --------------------------------------------------
+
+CLASSIC_FRAMES = 12
+
+
+@pytest.fixture(scope="module")
+def dense_frames():
+    """The first 12 frames of `chip_smoke.py:dense_course(40)` (~73k points a scan)."""
+    rng = np.random.default_rng(2)
+    world = make_world(rng, extent=60.0, density=60.0, wall_height=12.0,
+                       box_height=(6.0, 25.0), n_boxes=60)
+    seq = SyntheticSequence(n_frames=40, seed=2, radius=35.0, laps=0.25, max_points=131072,
+                            n_azimuth=2048, n_elevation=64)
+    return [simulate_scan(world, seq.poses[i], rng, max_points=131072, n_azimuth=2048,
+                          n_elevation=64) for i in range(CLASSIC_FRAMES)]
+
+
+def _classic(method, extra=()):
+    return apply_cli_overrides(PipelineConfig(), [
+        "enable_loop_closure=false", "fused_frontend=false",
+        f"scan_matcher.registration_method={method}", *extra])
+
+
+def _run_bodies(pipe):
+    """From now on `pipe`'s classic programs run their bodies directly, not captured."""
+    pipe.prefilter_program = pipe.prefilter_program.body
+    pipe.front.register_program = pipe.front.register_program.body
+    pipe.front.insert_program = pipe.front.insert_program.body
+
+
+def _classic_pair(cuda, cfg, scans):
+    """The classic pipeline through its programs and with their bodies run eagerly, on
+    the same scans: (captured, eager)."""
+    pipes = SlamPipeline(cfg, device=cuda), SlamPipeline(cfg, device=cuda)
+    _run_bodies(pipes[1])
+    for pipe in pipes:
+        for t, scan in enumerate(scans):
+            pipe.process_scan(scan, stamp=0.1 * t)
+    torch.cuda.synchronize()
+    return pipes
+
+
+def _same_classic(a, b):
+    ra, rb = a.result(), b.result()
+    np.testing.assert_array_equal(ra.odometry_poses, rb.odometry_poses)
+    np.testing.assert_array_equal(ra.keyframe_poses, rb.keyframe_poses)
+    np.testing.assert_array_equal(ra.keyframe_frame_indices, rb.keyframe_frame_indices)
+    for k in range(a.back.n_keyframes):
+        np.testing.assert_array_equal(a.back._cloud(k), b.back._cloud(k))
+    leaves = {"ring": (a.front.ring, b.front.ring), "target": (a.front.target, b.front.target)}
+    for name, (x, y) in leaves.items():
+        for u, v in zip(_bits_of(x), _bits_of(y)):
+            assert torch.equal(u.reshape(-1).view(torch.uint8),
+                               v.reshape(-1).view(torch.uint8)), name
+    return ra
+
+
+def _bits_of(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for item in x for t in _bits_of(item)]
+    return [t for f in dataclasses.fields(x) for t in _bits_of(getattr(x, f.name))]
+
+
+@pytest.mark.parametrize("method", ["NDT", "ICP", "GICP"])
+def test_captured_classic_driver_equals_its_bodies(cuda, dense_frames, method):
+    """12 dense frames through the classic driver's three programs (CUDA graphs after the
+    first call) and through the same bodies run eagerly on the card: every pose, keyframe
+    and keyframe cloud, the ring and the target bit for bit; one capture a program, then
+    replays only (the prefilter from frame 1, the register from frame 2)."""
+    captured, eager = _classic_pair(cuda, _classic(method), dense_frames)
+    res = _same_classic(captured, eager)
+    n_kf = len(res.keyframe_frame_indices)
+    log = captured.program_log()
+    assert {k: (v["captures"], v["replays"]) for k, v in log.items()} == {
+        "prefilter": (1, CLASSIC_FRAMES - 1), "register": (1, CLASSIC_FRAMES - 2),
+        "insert": (1, n_kf - 1)}
+    assert n_kf >= 3 and all(v["pool_bytes"] > 0 for v in log.values())
+    assert all(r["converged"] for r in captured.metrics_writer.records if "frame" in r)
+
+
+def test_captured_classic_prefilter_draws_as_its_body(cuda, dense_frames):
+    """With `prefilter.use_random_sampling`, the classic prefilter program and the fused
+    step program (their draws made once, at the first call) give what their bodies give
+    eagerly, bit for bit, at every replay."""
+    from lidar_graph_slam_tpu_torch.odometry.fused import (
+        FusedFrontEnd,
+        make_fused_frontend,
+        pack_scalars,
+    )
+
+    sample = ["prefilter.use_random_sampling=true", "prefilter.random_sample_num=20000"]
+    captured, eager = _classic_pair(cuda, _classic("NDT", sample), dense_frames[:5])
+    _same_classic(captured, eager)
+    assert captured.program_log()["prefilter"]["replays"] == 4
+    assert int(captured.front.cloud_in.mask.sum()) == 20000
+
+    cfg = apply_cli_overrides(PipelineConfig(), ["enable_loop_closure=false", *sample])
+    front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
+    init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
+                                                cfg.capacity, device=cuda)
+    state, ring = init_state(), aux["init_ring"]()
+    target = aux["rebuild"](ring)
+    eye3, eye4 = torch.eye(3, device=cuda), torch.eye(4, device=cuda)
+    for t, scan in enumerate(dense_frames[:4]):
+        raw = np.full((cfg.capacity.raw_points, 3), PAD_VALUE, np.float32)
+        raw[:len(scan)] = scan[:cfg.capacity.raw_points]
+        front.dispatch(raw, None, None, 0)
+        state, out = step(state, torch.as_tensor(raw, device=cuda), target, eye3, False,
+                          eye4, False)
+        assert torch.equal(front.slots.scalars[0], pack_scalars(out)), t
+        assert torch.equal(front.slots.kf_mask[0], out.kf_mask), t
+        if bool(out.is_keyframe):
+            front.insert_and_rebuild(0)
+            ring, target = aux["insert_and_rebuild"](
+                ring, int(out.keyframe_id) % aux["window"], out.kf_cloud, out.kf_mask,
+                out.pose)
+    assert front.captures == 2
+
+
+@pytest.mark.parametrize("method", ["NDT", "ICP", "GICP"])
+def test_classic_frames_launch_no_kernel_from_their_thread(cuda, dense_frames, method):
+    """After frame 2, a classic frame's CUDA runtime calls (torch.profiler) are one
+    `cudaGraphLaunch` for the prefilter, one for the register and one for a keyframe's
+    insert, with its copies and waits, and no kernel launch call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pipe = SlamPipeline(_classic(method), device=cuda)
+    for scan in dense_frames[:3]:
+        pipe.process_scan(scan)
+    torch.cuda.synchronize()
+    kf_before = len(pipe.kf_frame_indices)
+    frames = dense_frames[3:8]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for scan in frames:
+            pipe.process_scan(scan)
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages() if e.key.startswith("cuda")}
+    keyframes = len(pipe.kf_frame_indices) - kf_before
+    assert calls.get("cudaGraphLaunch", 0) == 2 * len(frames) + keyframes, calls
+    assert not [k for k in calls if "LaunchKernel" in k], calls
