@@ -76,7 +76,16 @@ of `bench.py:bench_e2e`. Phases:
      on the verify path are counted (the NDT pre-align's, `icp_iteration`'s — and how
      many of those did work — and `icp_fitness`'s; the loop inputs' `grid_rows` and
      `dense_table`, one table a map); the back-end stage p50 with loops on and off,
-     verify p50 and max;
+     verify p50 and max; the loop attempt's two programs (`graph/slam.py:LoopPrograms`:
+     the inputs' build and the verification), each captured once at the first attempt
+     and replayed at every later one, their pools and first calls' parts, no kernel
+     launched by the frame's thread at a tick, and the tick frames' `backend` p50 and
+     max; then `scripts/torch_profile_verify.py` in a subprocess on the course's
+     keyframes up to its first attempt: the frame thread's and the worker's ms of six
+     attempts and, for one replayed attempt under the profiler, the runtime calls by
+     thread (two `cudaGraphLaunch` in the worker and no kernel launch call asserted),
+     the device's busy ms and idle share (with `--parent DIR`, in turns with that tree's
+     attempt, operator by operator);
  10b. `ndt_finalize` on the course's last ring (~28% of its rows valid) as in phase 4,
      and its rebuild profile;
  10c. the prefilter's kernels on the dense course's first frame (its 131,072-row bucket)
@@ -157,8 +166,10 @@ of `bench.py:bench_e2e`. Phases:
      under torch.profiler (`scripts/torch_profile_icp.py`); with `--parent DIR` all of
      these in turns with that tree's (wall and device ms, launches, its iterations and
      transform), and `scripts/torch_sass_diff.py`'s check that every NDT and GICP loop
-     kernel's SASS is the parent's; then one whole verification and 5 dense frames of the
-     fused ICP step under `torch.cuda.set_sync_debug_mode("error")`;
+     kernel's SASS is the parent's; then one whole verification as the back end runs it
+     (its two programs replayed and the rows' copy to pinned memory, after a first
+     attempt that captured them, its rows bit-equal to that attempt's) and 5 dense
+     frames of the fused ICP step under `torch.cuda.set_sync_debug_mode("error")`;
  14d. GICP's covariances: `gicp_covariances` (`csrc/covariances.cu`, one launch a
      covariance estimate) against `gicp_covariances_plain` on the same card tensors, bit
      for bit with reruns, at the path's three shapes: the dense ring's target build
@@ -195,15 +206,17 @@ of `bench.py:bench_e2e`. Phases:
      fused_frontend=false`): one `cudaGraphLaunch` for the prefilter and one for the
      register a frame, one more a keyframe, and no kernel launch call; the device's idle
      share and busy ms, and the same frames with the bodies called directly; with
-     `--parent DIR`, phase 10's course (verify p50 and max) and these classic ICP and NDT
+     `--parent DIR`, phase 10's course (verify p50 and max, the tick frames' `backend`
+     p50 and max) and these classic ICP and NDT
      courses (stage p50s) through `scripts/torch_trajectories.py` for this tree and that
      one in turns, every pose bit-equal;
  17. the GICP loop verifier: the default pipeline with
      `graph_slam.registration_method=GICP` on the drift course — loops accepted, keyframe
      ATE below phase 10's loops-off ATE, the GICP loop kernel launched by the verify
      thread (the odometry launches only the NDT loop kernel), `gicp_covariances` twice
-     an attempt, and `ndt_accumulate` not; verify p50; the course again with the
-     covariances' plain version, every pose and loop attempt bit for bit;
+     an attempt, and `ndt_accumulate` not; the loop programs as in phase 10; verify p50,
+     the tick frames' `backend` p50; the course again with the covariances' plain
+     version, every pose and loop attempt bit for bit;
  18. the CLI with `--set fused_frontend=false --set scan_matcher.registration_method=GICP`,
      60 frames: it runs on the card, with that driver and matcher, launching the GICP
      loop kernel and `gicp_covariances` (at least once a frame) and not
@@ -223,7 +236,8 @@ of `bench.py:bench_e2e`. Phases:
      from the global guess) are counted from 0, with those that did work; the guess is
      built in the verify worker; `ransac_families` is in the log. Then the
      default pipeline with `graph_slam.use_global_init=true` on the drift course: loops
-     accepted, keyframe ATE below phase 10's loops-off ATE, verify p50 beside phase 10's;
+     accepted, keyframe ATE below phase 10's loops-off ATE, verify p50 beside phase 10's,
+     the loop programs as in phase 10 (the guess written between them, eagerly);
      `eigh3x3` (which only the FPFH normals launch) against `_eigh3x3` on every [Q, 3, 3]
      input the normals handed it in that run, bit for bit with reruns, and on the first
      one its device and host us, the plain version's ms, `torch.linalg.eigh`'s ms, the
@@ -232,7 +246,10 @@ of `bench.py:bench_e2e`. Phases:
      every input and timed in turns, and `scripts/torch_eigh3x3_split.py` in a subprocess
      on the recorded inputs (the launch's parts at 32, 64 and 256 threads a block, the
      rotations' routes, the parent's kernel); `dense_table` on the course's
-     first RANSAC occupancy table (recorded in the verify worker) as in phase 11b;
+     first RANSAC occupancy table (recorded in the verify worker) as in phase 11b; with
+     `--parent DIR` the `use_global_init` course and phase 27's unmeshed top-4 run
+     (`scripts/torch_trajectories.py --courses drift_global drift_topk4`) for this tree
+     and that one in turns, every pose and loop attempt bit-equal;
  21. checkpoint: the dense course cut at frame 20 of 40, saved, loaded onto the card and
      continued — the classic driver equals the uninterrupted run to 1e-4 with the same
      keyframe schedule, the fused driver to 5e-2 with the same schedule; file size, save
@@ -292,8 +309,9 @@ phase 3c, its loop-kernel timings to phase 3b, its rebuild to phase 4, its profi
 phase 7, its GICP target build (its own grid) to phase 14d, its GICP loop kernel to
 phase 14b (the carry bit for bit, the times in turns with this tree's), its ICP kernels'
 times, aligns and SASS check to phase 14c, its verifications and classic ICP and NDT front
-ends to phase 16, its GICP courses to phase 18 (in turns, every course bit-equal) and its
-`eigh3x3` to phase 20 (in turns, with the split).
+ends to phase 16, its GICP courses to phase 18 (in turns, every course bit-equal), its
+`eigh3x3` to phase 20 (in turns, with the split), its global-init and top-4 courses to
+phase 20 (in turns, bit-equal) and its loop attempt to phase 10's profile (in turns).
 
 CPU rehearsal: import this module and call the phase functions with device "cpu" at a
 small config, e.g. `run_pipeline(loops_off_config([...]), *dense_course(40,
@@ -387,6 +405,7 @@ from lidar_graph_slam_tpu_torch.registration.ndt import (
 from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
 from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.graph import slam as slam_module
 from lidar_graph_slam_tpu_torch.graph import solver as gsolver
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
 from lidar_graph_slam_tpu_torch.parallel.distributed import (
@@ -1452,17 +1471,55 @@ def drift_course(n_frames: int = 360, max_points: int = 131072, seed: int = 1,
     return scans, np.stack([(T0_inv @ p).astype(np.float32) for p in seq.poses])
 
 
+def tick_recorder(pipe):
+    """Wraps `pipe.back.begin_loop_attempt` (an instance attribute, taken away by calling
+    the returned `stop`): for each tick that starts an attempt, the index of the frame's
+    `backend` stage time, the kernel launches this thread made in it and its ms. Returns
+    (ticks, stop)."""
+    back, backend, ticks = pipe.back, pipe.timings["backend"], []
+    begin = back.begin_loop_attempt
+
+    def recorded():
+        before, t0 = kernels.thread_launches(), time.perf_counter()
+        pending = begin()
+        if pending is not None:
+            ticks.append((len(backend), kernels.thread_launches() - before,
+                          1000 * (time.perf_counter() - t0)))
+        return pending
+
+    back.begin_loop_attempt = recorded
+
+    def stop():
+        del back.begin_loop_attempt  # no cycle through the wrapper stays behind
+    return ticks, stop
+
+
+def tick_numbers(pipe, ticks) -> dict:
+    """The tick frames' `backend` stage ms (p50, max), how many, the kernel launches the
+    frame's thread made while starting their attempts, and the ms it spent there."""
+    ms = [1000 * pipe.timings["backend"][i] for i, _, _ in ticks]
+    return dict(ticks=len(ticks),
+                tick_backend_p50_ms=float(np.median(ms)) if ms else None,
+                tick_backend_max_ms=max(ms) if ms else None,
+                tick_frame_launches=sum(n for _, n, _ in ticks),
+                tick_begin_p50_ms=float(np.median([t for _, _, t in ticks])) if ticks else None)
+
+
 def run_loop_course(cfg: PipelineConfig, scans, gt, device, mesh=None):
     """Every scan through `SlamPipeline` (with `mesh`, that mesh in place of the one
     `cfg.parallel` would build); all frames must converge. Returns (pipeline, result,
-    numbers)."""
+    numbers), the numbers with the tick frames' (`tick_numbers`)."""
     pipe = SlamPipeline(cfg, device=device, mesh=mesh)
+    ticks, stop = tick_recorder(pipe)
     walls = []
-    for s in scans:
-        a = time.perf_counter()
-        pipe.process_scan(s)
-        walls.append(time.perf_counter() - a)
-    res = pipe.result()
+    try:
+        for s in scans:
+            a = time.perf_counter()
+            pipe.process_scan(s)
+            walls.append(time.perf_counter() - a)
+        res = pipe.result()
+    finally:
+        stop()
     frames = [r for r in pipe.metrics_writer.records if "frame" in r and "event" not in r]
     if len(frames) != len(scans) or not all(r["converged"] for r in frames):
         raise AssertionError(f"loop course: {sum(not r['converged'] for r in frames)} frames "
@@ -1475,7 +1532,57 @@ def run_loop_course(cfg: PipelineConfig, scans, gt, device, mesh=None):
         loops_attempted=sum(r["candidate"] >= 0 for r in res.loop_log),
         loops_accepted=res.num_loop_closures,
         iterations_mean=float(np.mean([r["iterations"] for r in frames])),
-        stage_p50_ms={k: round(v["p50_ms"], 3) for k, v in res.metrics.items()})
+        stage_p50_ms={k: round(v["p50_ms"], 3) for k, v in res.metrics.items()},
+        **tick_numbers(pipe, ticks))
+
+
+def loop_programs_check(label: str, back: GraphBasedSLAM, key: str, numbers: dict) -> dict:
+    """A loop course's programs (`graph/slam.py:LoopPrograms`): the one key `key`, each
+    program captured once at the first attempt and replayed at every later one, and no
+    kernel launched by the frame's thread at a tick. Returns each program's captures,
+    replays, pool MiB and first call's parts (ms)."""
+    log = back.loop_programs.log()
+    attempts = len(back.verify_seconds)
+    want = {key: {"inputs": (1, attempts - 1), "verify": (1, attempts - 1)}}
+    got = {k: {p: (v["captures"], v["replays"]) for p, v in progs.items()}
+           for k, progs in log.items()}
+    if (got != want or numbers["tick_frame_launches"] != 0 or numbers["ticks"] != attempts
+            or not all(v["pool_bytes"] > 0 for progs in log.values() for v in progs.values())):
+        raise AssertionError(f"{label}: loop programs {log}, want {want}, ticks {numbers}")
+    return {p: dict(captures=v["captures"], replays=v["replays"],
+                    pool_mb=round(v["pool_bytes"] / 2**20, 3),
+                    first_call_ms={k: round(t, 3) for k, t in v["first_call_ms"].items()})
+            for p, v in log[key].items()}
+
+
+def profile_verify(back: GraphBasedSLAM, rec: dict, parent: str | None) -> dict:
+    """`scripts/torch_profile_verify.py` in a subprocess on this course's keyframes up to
+    attempt `rec`'s latest (with `parent`, in turns with that tree): a replayed attempt's
+    runtime calls by thread, device busy ms and idle share, and the attempts' times. This
+    tree's profiled attempt must be two graph launches in the worker and no kernel launch
+    call on either thread."""
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_profile_verify
+
+    path = os.path.join(REPO, ".chip_scratch", "profile_verify", "keyframes.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch_profile_verify.save_keyframes(path, back, rec["latest"])
+    cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_verify.py"),
+           "--input", path, "--attempts", "6"]
+    if parent:
+        cmd += ["--parent", parent]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_profile_verify.py failed:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    mine = [v for k, v in out.items() if k.endswith("_this")] if parent else [out]
+    for run in mine:
+        prof = run["profiled"]
+        if not (prof["graph_launches"].get("worker") == 2
+                and not any(prof["kernel_launch_calls"].values())
+                and not prof["graph_launches"].get("frame")):
+            raise AssertionError(f"a replayed loop attempt's runtime calls: {prof}")
+    return out
 
 
 def grid_nn_card_vs_cpu(back: GraphBasedSLAM, rec: dict, devices=("cuda", "cpu")) -> dict:
@@ -2076,22 +2183,31 @@ def grid_phase(cfg: PipelineConfig, ring, last, loop_cloud, maps, card: str) -> 
 
 
 @contextlib.contextmanager
-def recording_off_main_dense_tables(inputs: list):
-    """Inside, each `kernels.dense_table` call made off the main thread (the verify
-    worker's: the RANSAC occupancy table of a global guess) also appends copies of its
-    keys and flags to `inputs`; the wrapper itself runs and counts as it does outside."""
-    wrapper = kernels.dense_table
+def recording_guess_dense_tables(inputs: list):
+    """Inside, each `kernels.dense_table` call made by a global guess
+    (`graph/slam.py:global_register`, run eagerly in the verify worker: the RANSAC
+    occupancy table) also appends copies of its keys and flags to `inputs`; the wrapper
+    itself runs and counts as it does outside. The loop inputs' maps, which the inputs
+    program builds in the same worker, are not recorded."""
+    wrapper, guess, local = kernels.dense_table, slam_module.global_register, threading.local()
 
     def recorded(keys, row_valid, dims=TABLE_DIMS):
-        if threading.current_thread() is not threading.main_thread():
+        if getattr(local, "inside", False):
             inputs.append((keys.clone(), row_valid.clone()))
         return wrapper(keys, row_valid, dims)
 
-    kernels.dense_table = recorded
+    def in_guess(*a, **k):
+        local.inside = True
+        try:
+            return guess(*a, **k)
+        finally:
+            local.inside = False
+
+    kernels.dense_table, slam_module.global_register = recorded, in_guess
     try:
         yield inputs
     finally:
-        kernels.dense_table = wrapper
+        kernels.dense_table, slam_module.global_register = wrapper, guess
 
 
 def reset_counts() -> None:
@@ -3071,7 +3187,7 @@ def icp_verify_inputs(back: GraphBasedSLAM, rec: dict) -> dict:
     mask = grid.keys != voxel.INVALID_KEY
     return dict(grid=grid, pre_map=pre_map, cloud=(grid.points, mask), points=src_p,
                 mask=src_m, T_pre=pre.transform, cfg=cfg,
-                cell=min(cfg.icp.max_correspondence_distance, 2.0))
+                cell=min(cfg.icp.max_correspondence_distance, 2.0), back=b)
 
 
 def icp_verify_args(inputs: dict, max_iterations: int | None = None):
@@ -3288,31 +3404,42 @@ def trajectories_in_turns(parent: str, courses) -> dict:
 
 
 def verification_sync_free(inputs: dict) -> dict:
-    """One whole verification with the ICP verifier (`graph/slam.py:make_verify_one`: the
-    coarse NDT pre-align, the ICP loop, the gate's fitness) on phase 12's inputs from the
-    identity, after a warm-up one, under `torch.cuda.set_sync_debug_mode("error")`, which
-    raises at the first synchronous read; its launches counted there."""
-    from lidar_graph_slam_tpu_torch.graph.slam import make_verify_one
-
-    verify = make_verify_one(inputs["cfg"], "ICP")
-    call = (inputs["grid"], inputs["pre_map"], None,
-            torch.eye(4, device=inputs["points"].device), inputs["points"], inputs["mask"])
-    verify(*call)
+    """One whole verification with the ICP verifier as the back end runs it: its two
+    programs (`graph/slam.py:LoopPrograms`), the inputs' build and the verification
+    (`make_verify_one`: the coarse NDT pre-align, the ICP loop, the gate's fitness), on
+    phase 12's keyframes (`icp_verify_inputs`' synchronous back end). A first attempt
+    captures both; the attempt staged again then replays them and copies its rows to
+    pinned memory under `torch.cuda.set_sync_debug_mode("error")`, which raises at the
+    first synchronous read; its launches counted there, and its rows bit-equal to the
+    first attempt's."""
+    b = inputs["back"]
+    _, inp = b._stage_attempt()
+    first = b._verify(inp)
+    progs = inp["programs"]
+    b._stage_attempt()
     torch.cuda.synchronize()
-    before = (kernels.icp_align_loop.launches, kernels.icp_fitness.launches)
+    before = (kernels.icp_align_loop.launches, kernels.icp_fitness.launches,
+              progs.inputs.replays + progs.verify.replays)
     t0 = time.perf_counter()
     try:
         torch.cuda.set_sync_debug_mode("error")
-        T, score, ok = verify(*call)
+        progs.inputs()
+        progs.verify()
+        progs.host_out.copy_(progs.out, non_blocking=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     enqueue_ms = 1000 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
     total_ms = 1000 * (time.perf_counter() - t0)
-    return dict(sync_reads=0, ok=bool(ok), fitness=float(score),
+    progs.in_flight = False
+    rows = progs.host_out.numpy()
+    same = bool(np.array_equal(rows[:, :16].reshape(-1, 4, 4), first["Ts"])
+                and np.array_equal(rows[:, 16], first["scores"]))
+    return dict(sync_reads=0, ok=bool(rows[0, 17] > 0.5), fitness=float(rows[0, 16]),
                 icp_iteration_launches=kernels.icp_align_loop.launches - before[0],
                 icp_fitness_launches=kernels.icp_fitness.launches - before[1],
-                enqueue_ms=enqueue_ms, wall_ms=total_ms)
+                graph_launches=progs.inputs.replays + progs.verify.replays - before[2],
+                bit_equal_first_attempt=same, enqueue_ms=enqueue_ms, wall_ms=total_ms)
 
 
 def align_and_gate(mod, a, cell: float):
@@ -3591,10 +3718,11 @@ def global_init_loop(device) -> dict:
     counts = read_counts() if torch.device(device).type == "cuda" else dict.fromkeys(KERNELS, 0)
     rec = glob.loop_log[-1]
     # Each verified candidate's global guess downsamples the source and the target to
-    # their FPFH keypoints in the verify thread (`voxel_centroids` twice), builds both
-    # keypoint grids (`grid_rows` twice) and the RANSAC occupancy table (`dense_table`
-    # once); its input build's filter, grid and pre-align map launch each once more on the
-    # calling thread.
+    # their FPFH keypoints (`voxel_centroids` twice), builds both keypoint grids
+    # (`grid_rows` twice) and the RANSAC occupancy table (`dense_table` once); its input
+    # build's filter, grid and pre-align map launch each once more. All of it runs in the
+    # attempt's verification (the inputs program, the guess, the verify program), so the
+    # verify thread's count is every launch of the attempt.
     verified = sum(r["candidate"] >= 0 for r in glob.loop_log[logged:])
     err = float(np.linalg.norm((rec["transform"] @ drifted)[:3, 3] - true_last[:3, 3]))
     plain_fit = plain.loop_log[-1]["fitness"]
@@ -3606,8 +3734,7 @@ def global_init_loop(device) -> dict:
     if torch.device(device).type == "cuda" and not (
             counts["ndt_align_loop"] > 0 and counts["ndt_accumulate"] == 0
             and counts["ndt_direct7_accumulate"] == 0
-            and glob.verify_launches == counts["ndt_align_loop"] + counts["eigh3x3"]
-            + counts["icp_align_loop"] + counts["icp_fitness"] + 5 * verified
+            and glob.verify_launches == sum(counts[k] for k in KERNELS)
             and counts["voxel_centroids"] == counts["grid_rows"] == 3 * verified
             and counts["dense_table"] == 2 * verified and counts["sor_window_stats"] == 0
             and counts["eigh3x3"] > 0 and counts["icp_align_loop"] > 0
@@ -4411,7 +4538,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one card.")
     ap.add_argument("--parent", default=None,
                     help="a tree of the parent commit (git archive): phases 3b, 3c, 4, 7, "
-                         "14b, 14c, 14d, 16, 18 and 25 time and profile it too, in turns")
+                         "10, 14b, 14c, 14d, 16, 18, 20 and 25 time and profile it too, "
+                         "in turns")
     ap.add_argument("--mesh-worker", nargs=3, default=None, metavar=("OUT", "DEVICE", "K"),
                     help=argparse.SUPPRESS)  # one process of phase 29 (b)
     args = ap.parse_args(argv)
@@ -4585,6 +4713,11 @@ def main(argv=None) -> int:
     if not (launches_course["ndt_finalize"] > 0 and launches_course["grid_rows"] > 0
             and launches_course["dense_table"] == launches_course["ndt_finalize"]):
         raise AssertionError(f"loop course: the map and grid kernels: {launches_course}")
+    # A loop attempt is two programs: captured at the first attempt, replayed after;
+    # the frame's thread launches nothing at a tick.
+    loop_programs = loop_programs_check("loop course", back, "ICP_1", on)
+    # The verify thread's NDT loop launches: the course's, less the fused front end's.
+    ndt_launches_verify = launches_course["ndt_align_loop"] - per_frame * on["frames"]
     # One step program captured a raw-scan bucket the course used, and the insert's.
     buckets = {raw_bucket(s_, cfg_on.capacity.raw_points).shape[0] for s_ in dscans}
     front_on = pipe_on.fused_front
@@ -4609,14 +4742,36 @@ def main(argv=None) -> int:
         solve_ms_p50=1000 * float(np.median([r["seconds"] for r in back.solve_log])),
         solve_ms_max=1000 * float(np.max([r["seconds"] for r in back.solve_log])),
         solves=len(back.solve_log), solves_device_lm=sum(r["device_lm"] for r in back.solve_log),
-        ndt_launches_verify=launches_verify - launches_course["icp_align_loop"]
-        - launches_course["icp_fitness"],
+        ndt_launches_verify=ndt_launches_verify,
+        verify_launches_all=launches_verify,
+        ticks=on["ticks"], tick_backend_p50_ms=on["tick_backend_p50_ms"],
+        tick_backend_max_ms=on["tick_backend_max_ms"],
+        tick_frame_launches=on["tick_frame_launches"],
+        tick_begin_p50_ms=on["tick_begin_p50_ms"],
+        loop_programs=json.dumps(loop_programs, separators=(",", ":")),
         icp_iteration_launches_verify=launches_course["icp_align_loop"],
         icp_iteration_launches_verify_worked=launches_course["icp_iteration_worked"],
         icp_fitness_launches_verify=launches_course["icp_fitness"],
         ndt_launches_total=launches_course["ndt_align_loop"],
         ndt_launches_worked=launches_course["ndt_iteration_worked"],
         odometry_on_vs_off_max_diff=odom_diff, card=json.dumps(card))
+
+    # A replayed attempt under the profiler, in a subprocess (with --parent, in turns).
+    first = next(r for r in back.loop_log if r["candidate"] >= 0)
+    pv = profile_verify(back, first, args.parent)
+    for run, v in (pv.items() if args.parent else (("this", pv),)):
+        attempt = v["profiled"]
+        say("loop-attempt-profile", run=run, latest=v["latest"],
+            stage_p50_ms=v["stage_p50_ms"], stage_max_ms=v["stage_max_ms"],
+            stage_parts_p50_ms=json.dumps(v["stage_parts_p50_ms"], separators=(",", ":")),
+            verify_p50_ms=v["verify_p50_ms"], verify_max_ms=v["verify_max_ms"],
+            first_verify_ms=v["first_verify_ms"], profiled_wall_ms=attempt["wall_ms"],
+            graph_launches=json.dumps(attempt["graph_launches"], separators=(",", ":")),
+            kernel_launch_calls=json.dumps(attempt["kernel_launch_calls"], separators=(",", ":")),
+            runtime_calls=json.dumps(attempt["runtime_calls"], separators=(",", ":")),
+            device_busy_ms=attempt["device_busy_ms"], device_span_ms=attempt["device_span_ms"],
+            device_idle_share=attempt["device_idle_share"], kernels=attempt["kernels"],
+            card=json.dumps(card))
 
     # -- 10b. `ndt_finalize` on the drift course's last ring (~28% of its rows valid) -------
     drift_parent = None if args.parent is None else tree_kernels(args.parent,
@@ -4628,7 +4783,6 @@ def main(argv=None) -> int:
 
     # -- 10c. the prefilter's kernels on the dense course's first frame and a drift frame;
     # `voxel_centroids` on the first loop attempt's submap and its FPFH keypoints ---------
-    first = next(r for r in back.loop_log if r["candidate"] >= 0)
     pf = prefilter_phase(cfg, {"dense": scans[0], "drift": dscans[PREFILTER_DRIFT_FRAME]},
                          loop_centroid_inputs(cfg_on, back, first), card, args.parent,
                          clock_mhz)
@@ -4685,7 +4839,8 @@ def main(argv=None) -> int:
     timing.update(iloop["timing"])
     ver_sync = verification_sync_free(icp_verify)
     if not (ver_sync["ok"] and ver_sync["icp_fitness_launches"] == 1
-            and ver_sync["icp_iteration_launches"] == icp_verify["cfg"].icp.max_iterations):
+            and ver_sync["icp_iteration_launches"] == icp_verify["cfg"].icp.max_iterations
+            and ver_sync["graph_launches"] == 2 and ver_sync["bit_equal_first_attempt"]):
         raise AssertionError(f"icp verification without a read: {ver_sync}")
     say("icp-loop-verification", **ver_sync, card=json.dumps(card))
     cfg_icp = loops_off_config(["scan_matcher.registration_method=ICP"])
@@ -4791,7 +4946,8 @@ def main(argv=None) -> int:
             if not all(v["bit_equal_first"] for v in row.values()):
                 raise AssertionError(f"{course} parts from the parent tree's: {row}")
         for course, keys in (("drift_icp", ("verify_p50_ms", "verify_max_ms", "frame_p50_ms",
-                                             "backend_p50_ms", "loops_accepted",
+                                             "backend_p50_ms", "tick_backend_p50_ms",
+                                             "tick_backend_max_ms", "loops_accepted",
                                              "ate_keyframes_m", "bit_equal_first")),
                              ("dense_icp_classic", classic_stages),
                              ("dense_ndt_classic", classic_stages)):
@@ -4816,6 +4972,7 @@ def main(argv=None) -> int:
             and pipe_g.back.verify_launches >= launches_gv["gicp_align_loop"]):
         raise AssertionError(f"GICP verifier: {gv}, loops off {off['ate_keyframes_m']}, "
                              f"launches {launches_gv}, verify {pipe_g.back.verify_launches}")
+    gicp_programs = loop_programs_check("GICP verifier", pipe_g.back, "GICP_1", gv)
     # The same course with the covariances' plain versions: every pose and loop attempt
     # bit for bit.
     with plain_covariances():
@@ -4832,6 +4989,8 @@ def main(argv=None) -> int:
         stage_p50_ms=json.dumps(gv["stage_p50_ms"], separators=(",", ":")),
         verify_ms_p50=1000 * float(np.median(pipe_g.back.verify_seconds)),
         verify_ms_max=1000 * float(np.max(pipe_g.back.verify_seconds)),
+        tick_backend_p50_ms=gv["tick_backend_p50_ms"], ticks=gv["ticks"],
+        loop_programs=json.dumps(gicp_programs, separators=(",", ":")),
         gicp_loop_launches_verify=launches_gv["gicp_align_loop"],
         gicp_loop_launches_verify_worked=launches_gv["gicp_iteration_worked"],
         gicp_covariances_launches_verify=launches_gv["gicp_covariances"],
@@ -4868,7 +5027,9 @@ def main(argv=None) -> int:
             say("gicp-vs-parent", course=course, **{
                 f"{k}_{run}": v[k] for run, v in row.items()
                 for k in ("ate_keyframes_m", "loops_accepted", "frame_p50_ms",
-                          "bit_equal_first") if k in v}, card=json.dumps(card))
+                          "verify_p50_ms", "verify_max_ms", "tick_backend_p50_ms",
+                          "tick_backend_max_ms", "bit_equal_first") if k in v},
+                card=json.dumps(card))
 
     # -- 19. FPFH + RANSAC global registration, card and CPU --------------------------------
     say("global-register", **global_register_check(dev, card))
@@ -4877,7 +5038,7 @@ def main(argv=None) -> int:
     gl = global_init_loop("cuda")
     say("global-init-loop", **gl, card=json.dumps(card))
     eigh_inputs, occupancy_inputs = [], []
-    with recording_eigh3x3(eigh_inputs), recording_off_main_dense_tables(occupancy_inputs):
+    with recording_eigh3x3(eigh_inputs), recording_guess_dense_tables(occupancy_inputs):
         reset_counts()
         pipe_gi, res_gi, gi = run_loop_course(
             apply_cli_overrides(PipelineConfig(), ["graph_slam.use_global_init=true"]),
@@ -4898,6 +5059,7 @@ def main(argv=None) -> int:
     timing["table_occupancy"] = grid_kernel_timing("table_occupancy", "dense_table",
                                                    occupancy_inputs[0], card)
     del occupancy_inputs
+    gi_programs = loop_programs_check("global-init course", pipe_gi.back, "ICP_1_global", gi)
     gi_log = [r for r in res_gi.loop_log if r["candidate"] >= 0]
     if not (gi["loops_accepted"] >= 1 and gi["ate_keyframes_m"] < off["ate_keyframes_m"]
             and pipe_gi.back.verify_launches > 0 and launches_gi["ndt_accumulate"] == 0
@@ -4912,6 +5074,8 @@ def main(argv=None) -> int:
         verify_ms_p50=1000 * float(np.median(pipe_gi.back.verify_seconds)),
         verify_ms_max=1000 * float(np.max(pipe_gi.back.verify_seconds)),
         verify_ms_p50_identity=1000 * float(np.median(back.verify_seconds)),
+        tick_backend_p50_ms=gi["tick_backend_p50_ms"], ticks=gi["ticks"],
+        loop_programs=json.dumps(gi_programs, separators=(",", ":")),
         attempts_with_hypotheses=sum(r["ransac_families"]["n_3pt_valid"] + r["ransac_families"]["n_yaw_valid"]
                        > 0 for r in gi_log),
         best_is_yaw=sum(r["ransac_families"]["best_is_yaw"] for r in gi_log),
@@ -4927,6 +5091,18 @@ def main(argv=None) -> int:
     # (per_frame a frame, phase 6).
     pipe_gi_verify_launches = launches_gi["ndt_align_loop"] - per_frame * gi["frames"]
     del pipe_gi, res_gi
+    if args.parent:
+        # The global-init course and phase 27's unmeshed top-4 run against the parent
+        # tree's, in turns: every pose and loop attempt bit-equal.
+        turns = trajectories_in_turns(args.parent, ("drift_global", "drift_topk4"))
+        for course, row in turns.items():
+            if not all(v["bit_equal_first"] for v in row.values()):
+                raise AssertionError(f"{course} parts from the parent tree's: {row}")
+            say("loops-vs-parent", course=course, **{
+                f"{k}_{run}": v[k] for run, v in row.items()
+                for k in ("ate_keyframes_m", "loops_accepted", "verify_p50_ms",
+                          "verify_max_ms", "tick_backend_p50_ms", "tick_backend_max_ms",
+                          "bit_equal_first") if k in v}, card=json.dumps(card))
 
     # -- 21. checkpoint: cut at frame 20 of 40, saved, loaded onto the card, continued -------
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -5009,7 +5185,7 @@ def main(argv=None) -> int:
             launches_worked=launches["ndt_iteration_worked"],
             path="every NDT iteration: fused and classic front ends, verify pre-align "
                  "(phase 6 counts the fused front end)",
-            launches_verify=launches_verify,
+            launches_verify=ndt_launches_verify,
             launches_loop_course=launches_course["ndt_align_loop"],
             launches_loop_course_worked=launches_course["ndt_iteration_worked"],
             launches_cli_loops=cli_on["ndt_loop_launches"],

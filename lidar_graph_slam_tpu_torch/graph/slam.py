@@ -6,15 +6,26 @@ Euclidean gate; the dormant radius and accum detectors), loop verification (coar
 pre-align, then the ICP, NDT or GICP verifier, then the PCL fitness gate), loop factors, the
 hybrid f64-host / f32-device pose-graph solve, and map assembly.
 
+A loop attempt runs as the reference dispatches it (`lidar_graph_slam_tpu/graph/slam.py:
+423-584`): the frame's thread does the host part (detection, the keyframe clouds, the
+submaps, the source moved by its estimate) and writes the padded clouds into pinned host
+buffers (`VerifyPrograms.stage`); the verification inputs' build (`candidate_targets`, the
+source's GICP covariances) and the verification (`make_verify_one` a candidate) then run as
+two programs (`utils/capture.py:Program`) over fixed buffers, kept in `LoopPrograms` one
+pair a key (method, candidates, `use_global_init`): on a card each is captured into a CUDA
+graph at its key's first attempt and replayed at every later one. The mesh path and
+multi-process runs build and verify operator by operator (`_build_verify_inputs`).
+
 Concurrency, as in the reference's concurrent back end:
-  * Verification runs in a worker thread on its own CUDA stream (on a CUDA device),
-    which waits on the main stream's input builds. Its loops (the NDT pre-align, then the
-    ICP, NDT or GICP verifier) and the fitness read nothing back; the thread's one wait is
-    the read of its results, which would otherwise block the frame for the whole
-    verification. `_consume_verify` joins the thread at the frame at
-    which the reference reads its dispatched program's results (`loop_verify_lag_frames`),
-    so which frame a loop factor lands on does not depend on timing. A failure in the
-    thread is raised in the caller.
+  * Verification runs in a worker thread on its own CUDA stream (on a CUDA device). With
+    the programs its inputs come from pinned host memory, so that stream waits for
+    nothing of the frame's; operator by operator it waits on the main stream's input
+    builds. Its loops (the NDT pre-align, then the ICP, NDT or GICP verifier) and the
+    fitness read nothing back; the thread's one wait is the read of its results, which
+    would otherwise block the frame for the whole verification. `_consume_verify` joins
+    the thread at the frame at which the reference reads its dispatched program's results
+    (`loop_verify_lag_frames`), so which frame a loop factor lands on does not depend on
+    timing. A failure in the thread, a failed capture among them, is raised in the caller.
   * The solve runs in a `threading.Thread` over numpy (f64), as in the reference. A
     frame harvests it once it has finished; a loop tick that finds it still running
     waits for it (`on_frame`), so the ticks that attempt a loop are a function of the
@@ -24,9 +35,11 @@ Concurrency, as in the reference's concurrent back end:
 With `use_global_init` each candidate's verification starts from its own FPFH+RANSAC
 guess (`registration/features.py`), built by `_verify` ahead of the pre-align: in the
 worker thread, on the candidate's stream, with the asynchronous back end (inline with the
-synchronous one). On a CUDA device `torch.linalg.svd` reads its status on the host (three
-calls a guess), so that wait falls on the worker, inside `verify_seconds`, and not on the
-frame's thread. The RANSAC family counts are read with the results, on the same stream.
+synchronous one); between the two programs, which it cannot join: on a CUDA device
+`torch.linalg.svd` reads its status on the host (three calls a guess). That wait falls on
+the worker, inside `verify_seconds`, and not on the frame's thread. The guess and the
+RANSAC family counts are written into the verify program's fixed buffers and read with the
+results, on the same stream.
 
 With a mesh (`parallel/distributed.py:Mesh`, from `ParallelConfig.use_mesh`), the top-k
 candidates are laid out over the mesh's slots (`shard_batch`) and each slot's candidates
@@ -48,6 +61,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -55,7 +69,7 @@ import torch
 
 from lidar_graph_slam_tpu_torch.core.config import CapacityConfig, GraphSlamConfig
 from lidar_graph_slam_tpu_torch.core.device import resolve_device
-from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud
+from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud
 from lidar_graph_slam_tpu_torch.graph import refine64, solver
 from lidar_graph_slam_tpu_torch.io.pcd import write_pcd
 from lidar_graph_slam_tpu_torch.ops import kernels
@@ -71,6 +85,7 @@ from lidar_graph_slam_tpu_torch.registration import gicp as gicp_mod
 from lidar_graph_slam_tpu_torch.registration import icp as icp_mod
 from lidar_graph_slam_tpu_torch.registration.features import global_register
 from lidar_graph_slam_tpu_torch.registration import ndt as ndt_mod
+from lidar_graph_slam_tpu_torch.utils.capture import Program
 
 
 class _LazyCloud:
@@ -175,6 +190,201 @@ def host_results(host) -> dict:
     return out
 
 
+def candidate_targets(cfg: GraphSlamConfig, capacity: CapacityConfig, method: str, points,
+                      mask):
+    """One candidate's verification inputs from its padded loop submap, as the reference
+    builds them: the submap filtered at `loop_submap_leaf`, its NN grid at the
+    correspondence distance capped at 2 m, the 4 m pre-align map, and the verifier's own
+    target (the NDT map, the `GicpTarget`, None for ICP). Returns (grid, pre_map, extra,
+    filtered)."""
+    corr_dist = min(cfg.icp.max_correspondence_distance, 2.0)
+    filtered = voxel_downsample(points, mask, cfg.loop_submap_leaf,
+                                capacity=capacity.loop_submap_points)
+    grid = build_hash_grid(filtered.points, filtered.mask, corr_dist)
+    pre_map = build_ndt_map(filtered.points, filtered.mask, 4.0,
+                            capacity=capacity.voxel_capacity // 4)
+    extra = None
+    if method == "NDT":
+        extra = build_ndt_map(filtered.points, filtered.mask, cfg.ndt.resolution,
+                              capacity=capacity.voxel_capacity // 4)
+    elif method == "GICP":
+        extra = gicp_mod.build_gicp_target(
+            filtered.points, filtered.mask, cfg.gicp.max_correspondence_distance,
+            k=cfg.gicp.correspondence_randomness)
+    return grid, pre_map, extra, filtered
+
+
+def source_covariances(cfg: GraphSlamConfig, method: str, points, mask):
+    """The source's GICP covariances, once an attempt and shared by every candidate (None
+    for the other verifiers)."""
+    if method != "GICP":
+        return None
+    covs, _ = gicp_mod.estimate_covariances(points, mask, cfg.gicp.max_correspondence_distance,
+                                            k=cfg.gicp.correspondence_randomness)
+    return covs
+
+
+# The verify program's row a candidate (`VerifyPrograms.out`): the transform [4, 4]
+# row-major, the fitness, the gate's ok, then with `use_global_init` the RANSAC family
+# counts (`_RANSAC_COUNTS`, written with the guess; at most `hypotheses`, exact in f32).
+_ROW_T, _ROW_FITNESS, _ROW_OK, _ROW_COUNTS = slice(0, 16), 16, 17, slice(18, 21)
+_ROW = 21
+
+
+def _staging_cloud(rows: int, device, pin: bool = False) -> PointCloud:
+    """A [rows, 3] cloud of padding, every row masked out."""
+    return PointCloud(
+        points=torch.full((rows, 3), PAD_VALUE, dtype=torch.float32, device=device,
+                          pin_memory=pin),
+        mask=torch.zeros((rows,), dtype=torch.bool, device=device, pin_memory=pin))
+
+
+def _stage_rows(host: PointCloud, xyz: np.ndarray, rows: int) -> int:
+    """`xyz` into the host cloud as `PointCloud.from_array` pads it (cut to its capacity);
+    only the rows that the last staging held beyond these are padded again. Returns the
+    rows it holds now."""
+    pts, mask = host.points.numpy(), host.mask.numpy()
+    n = min(xyz.shape[0], pts.shape[0])
+    pts[:n] = xyz[:n]
+    pts[n:rows] = PAD_VALUE
+    mask[:n] = True
+    mask[n:rows] = False
+    return n
+
+
+def _inputs_body(cfg: GraphSlamConfig, capacity: CapacityConfig, method: str, host: list,
+                 dev: list, source: PointCloud, submaps: tuple) -> tuple:
+    """The inputs program: the staged tensors `host` uploaded into their fixed device
+    buffers `dev` (asynchronous copies from pinned memory on a card), then each candidate
+    slot's `candidate_targets` and the source's covariances. Returns (targets,
+    covariances), which the verify program reads where they lie."""
+    for d, h in zip(dev, host):
+        d.copy_(h, non_blocking=True)
+    targets = tuple(candidate_targets(cfg, capacity, method, sub.points, sub.mask)
+                    for sub in submaps)
+    return targets, source_covariances(cfg, method, source.points, source.mask)
+
+
+def _verify_body(verifier: list, inputs: Program, source: PointCloud, guess: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """The verify program: each candidate's verification (`verifier[0]`, the back end's
+    `make_verify_one`), from its guess in `guess`, on the inputs program's outputs; its
+    row into `out`. (The verifier sits in a list the back end sets at each attempt: a body
+    bound to the back end would make a cycle that only the garbage collector frees.)"""
+    targets, src_covs = inputs.outputs
+    f32 = torch.float32
+    for i, (grid, pre_map, extra, _filtered) in enumerate(targets):
+        T, score, ok = verifier[0](grid, pre_map, extra, guess[i], source.points,
+                                   source.mask, src_covs)
+        out[i, :_ROW_OK + 1].copy_(torch.cat([T.reshape(16).to(f32), score.reshape(1).to(f32),
+                                              ok.reshape(1).to(f32)]))
+
+
+class VerifyPrograms:
+    """A loop attempt's two programs for one key of `LoopPrograms` (`n` candidates), and
+    their fixed buffers.
+
+    The frame's thread writes the attempt's padded clouds into the pinned host side
+    (`stage`). In the verify worker, the inputs program uploads them into the fixed device
+    buffers and builds every candidate's targets; with `use_global_init` the back end then
+    writes each candidate's guess (and RANSAC counts) into `guess` (and `out`); the verify
+    program verifies each candidate and writes its row of `out`, which the worker reads
+    once (`host_out`). The device side and the programs are made at the key's first
+    attempt, in the worker (`prepare`), so the frame's thread enqueues nothing on the
+    card."""
+
+    def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, method: str, n: int,
+                 device, stream):
+        self.n = n
+        self.device = device
+        pin = device.type == "cuda"
+        self.host_source = _staging_cloud(capacity.keyframe_points, "cpu", pin)
+        self.host_submaps = tuple(_staging_cloud(capacity.loop_submap_points, "cpu", pin)
+                                  for _ in range(n))
+        # The latest keyframe's position, then each candidate's: the FPFH normals' viewpoints.
+        self.host_viewpoints = (torch.zeros((n + 1, 3), dtype=torch.float32, pin_memory=pin)
+                                if cfg.use_global_init else None)
+        # The rows' host side: read once an attempt, after an asynchronous copy.
+        self.host_out = torch.zeros((n, _ROW), dtype=torch.float32, pin_memory=pin)
+        self._rows = [0] * (n + 1)  # staged rows of the source, then of each submap
+        self.in_flight = False      # a copy may still read the host side
+        self.verifier: list = [None]
+        self._made = (cfg, capacity, method, stream)
+        self.source = self.submaps = self.viewpoints = self.guess = self.out = None
+        self.inputs = self.verify = None
+
+    def stage(self, source: np.ndarray, submaps, viewpoints=None) -> None:
+        """The attempt's clouds (and viewpoints), padded, into the pinned host side. The
+        back end stages an attempt only after the last one was joined and its stream
+        synchronized (`on_frame`, `_replay_attempt`), so no copy reads them any more."""
+        if self.in_flight:
+            raise RuntimeError("VerifyPrograms.stage: the last attempt's copies may still "
+                               "read the staging buffers")
+        hosts = (self.host_source,) + self.host_submaps
+        self._rows = [_stage_rows(h, np.asarray(xyz, np.float32), rows)
+                      for h, xyz, rows in zip(hosts, (source, *submaps), self._rows)]
+        if viewpoints is not None:
+            self.host_viewpoints.numpy()[:] = viewpoints
+        self.in_flight = True
+
+    def prepare(self) -> None:
+        """The device side and the two programs, at the first attempt (in the worker)."""
+        if self.out is not None:
+            return
+        cfg, capacity, method, stream = self._made
+        dev = self.device
+        self.source = _staging_cloud(capacity.keyframe_points, dev)
+        self.submaps = tuple(_staging_cloud(capacity.loop_submap_points, dev)
+                             for _ in range(self.n))
+        host = [self.host_source.points, self.host_source.mask]
+        buffers = [self.source.points, self.source.mask]
+        for h, d in zip(self.host_submaps, self.submaps):
+            host += [h.points, h.mask]
+            buffers += [d.points, d.mask]
+        if self.host_viewpoints is not None:
+            self.viewpoints = torch.zeros((self.n + 1, 3), dtype=torch.float32, device=dev)
+            host.append(self.host_viewpoints)
+            buffers.append(self.viewpoints)
+        # Without `use_global_init` every verification starts from the identity.
+        self.guess = torch.eye(4, dtype=torch.float32, device=dev).repeat(self.n, 1, 1)
+        self.out = torch.zeros((self.n, _ROW), dtype=torch.float32, device=dev)
+        self.inputs = Program(partial(_inputs_body, cfg, capacity, method, host, buffers,
+                                      self.source, self.submaps), dev, stream)
+        self.verify = Program(partial(_verify_body, self.verifier, self.inputs, self.source,
+                                      self.guess, self.out), dev, stream)
+
+    def log(self) -> dict:
+        """Each program's captures, replays, graph pool bytes and first call's parts (ms)."""
+        return {name: {"captures": p.captures, "replays": p.replays,
+                       "pool_bytes": p.pool_bytes(), "first_call_ms": p.first_call_ms}
+                for name, p in (("inputs", self.inputs), ("verify", self.verify))
+                if p is not None}
+
+
+class LoopPrograms:
+    """The loop attempt's programs, a `VerifyPrograms` a key (method, candidates,
+    `use_global_init`): the reference compiles its vmapped verification once a batch size
+    (`lidar_graph_slam_tpu/graph/slam.py:423-430`), and `loop_topk=1` gives one key.
+    `stream` is the programs' capture stream."""
+
+    def __init__(self, cfg: GraphSlamConfig, capacity: CapacityConfig, method: str, device):
+        self.cfg, self.capacity, self.method, self.device = cfg, capacity, method, device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.keys: dict = {}
+
+    def get(self, n: int) -> VerifyPrograms:
+        key = (self.method, n, bool(self.cfg.use_global_init))
+        if key not in self.keys:
+            self.keys[key] = VerifyPrograms(self.cfg, self.capacity, self.method, n,
+                                            self.device, self.stream)
+        return self.keys[key]
+
+    def log(self) -> dict:
+        """`VerifyPrograms.log` by key, named `<method>_<candidates>[_global]`."""
+        return {f"{m}_{n}" + ("_global" if g else ""): progs.log()
+                for (m, n, g), progs in self.keys.items()}
+
+
 class GraphBasedSLAM:
     """Host-side back end. Keyframe clouds are kept host-side (numpy) and shipped to the
     device only for loop verification and map assembly. The pose graph lives twice: on
@@ -236,6 +446,11 @@ class GraphBasedSLAM:
         # liveness, which differs between processes. So with more than one process the
         # synchronous path runs.
         self.async_enabled = cfg.async_backend and process_count() == 1
+        # A loop attempt as two programs (`LoopPrograms`), except on a mesh or across
+        # processes, which build and verify operator by operator.
+        self.loop_programs = LoopPrograms(cfg, capacity, self.method, self.device)
+        self.programs_enabled = (mesh is None and cloud_store is None
+                                 and process_count() == 1)
         self._pending_verify = None
         self._verify_streams: dict = {}  # device -> the verification worker's stream
         self._solve_thread = None
@@ -428,13 +643,11 @@ class GraphBasedSLAM:
         self.is_loop_closed = True
         return True
 
-    def _build_verify_inputs(self):
-        """Detection + verification-input builds for the latest keyframe (on the back
-        end's device, on the calling thread's stream). Returns None (gated/capacity) or a
-        dict with the per-candidate `targets` (grid, pre-align map, verifier map, initial
-        guess's inputs: None, or with `use_global_init` the candidate's filtered submap
-        and viewpoint, from which `_verify` builds the FPFH+RANSAC guess), the source
-        cloud and attempt metadata."""
+    def _plan_attempt(self):
+        """The host part of a loop attempt for the latest keyframe, on the calling thread:
+        the capacity refusal, detection, the latest keyframe's cloud in the map frame under
+        its estimate and each candidate's submap (numpy). Returns None (gated/capacity) or
+        a dict of cands, latest, T_latest, source and submaps."""
         if self.n_loops >= self.capacity.max_loop_factors:
             # Refuse at capacity and surface it (the device graph drops the write).
             if not self.loop_overflow:
@@ -448,49 +661,45 @@ class GraphBasedSLAM:
         if not cands:
             return None
         latest = self.n_keyframes - 1
-        dev = self.device
-
         # Latest keyframe cloud in the map frame under the current estimate.
         T_latest = self._poses_host[latest]
-        src = self._cloud(latest) @ T_latest[:3, :3].T + T_latest[:3, 3]
-        src_cloud = PointCloud.from_array(src, capacity=self.capacity.keyframe_points,
+        source = self._cloud(latest) @ T_latest[:3, :3].T + T_latest[:3, 3]
+        submaps = [self._assemble_submap(cand, self.cfg.search_key_frame_num,
+                                         max_points=self.capacity.loop_submap_points)
+                   for cand in cands]
+        return {"cands": cands, "latest": latest, "T_latest": T_latest, "source": source,
+                "submaps": submaps}
+
+    def _build_verify_inputs(self):
+        """Detection + verification-input builds for the latest keyframe, operator by
+        operator (on the back end's device, on the calling thread's stream): the mesh
+        path's and multi-process runs' inputs, and `parallel/multi_sequence.py`'s. Returns
+        None (gated/capacity) or a dict with the per-candidate `targets` (grid, pre-align
+        map, verifier map, initial guess's inputs: None, or with `use_global_init` the
+        candidate's filtered submap and viewpoint, from which `_verify` builds the
+        FPFH+RANSAC guess), the source cloud and attempt metadata."""
+        plan = self._plan_attempt()
+        if plan is None:
+            return None
+        dev = self.device
+        src_cloud = PointCloud.from_array(plan["source"], capacity=self.capacity.keyframe_points,
                                           device=dev)
-        corr_dist = min(self.cfg.icp.max_correspondence_distance, 2.0)
         targets = []
-        for cand in cands:
-            submap = self._assemble_submap(cand, self.cfg.search_key_frame_num,
-                                           max_points=self.capacity.loop_submap_points)
+        for cand, submap in zip(plan["cands"], plan["submaps"]):
             sub_cloud = PointCloud.from_array(submap, capacity=self.capacity.loop_submap_points,
                                               device=dev)
-            filtered = voxel_downsample(sub_cloud.points, sub_cloud.mask,
-                                        self.cfg.loop_submap_leaf,
-                                        capacity=self.capacity.loop_submap_points)
+            grid, pre_map, extra, filtered = candidate_targets(
+                self.cfg, self.capacity, self.method, sub_cloud.points, sub_cloud.mask)
             # Stage 0's inputs (optional): the FPFH+RANSAC global guess is built by
             # `_verify`, off the frame's thread when the back end is asynchronous.
             glob = None
             if self.cfg.use_global_init:
                 glob = (filtered.points, filtered.mask, self._poses_host[cand][:3, 3])
-            grid = build_hash_grid(filtered.points, filtered.mask, corr_dist)
-            pre_map = build_ndt_map(filtered.points, filtered.mask, 4.0,
-                                    capacity=self.capacity.voxel_capacity // 4)
-            extra = None
-            if self.method == "NDT":
-                extra = build_ndt_map(filtered.points, filtered.mask, self.cfg.ndt.resolution,
-                                      capacity=self.capacity.voxel_capacity // 4)
-            elif self.method == "GICP":
-                extra = gicp_mod.build_gicp_target(
-                    filtered.points, filtered.mask, self.cfg.gicp.max_correspondence_distance,
-                    k=self.cfg.gicp.correspondence_randomness)
             targets.append((grid, pre_map, extra, glob))
-        src_covs = None
-        if self.method == "GICP":
-            # The source's covariances, once per attempt, shared by every candidate.
-            src_covs, _ = gicp_mod.estimate_covariances(
-                src_cloud.points, src_cloud.mask, self.cfg.gicp.max_correspondence_distance,
-                k=self.cfg.gicp.correspondence_randomness)
+        src_covs = source_covariances(self.cfg, self.method, src_cloud.points, src_cloud.mask)
         return {
-            "cands": cands, "latest": latest, "T_latest": T_latest, "targets": targets,
-            "source": (src_cloud.points, src_cloud.mask, src_covs),
+            "cands": plan["cands"], "latest": plan["latest"], "T_latest": plan["T_latest"],
+            "targets": targets, "source": (src_cloud.points, src_cloud.mask, src_covs),
         }
 
     def _verify_candidate(self, target, source, T_latest):
@@ -500,16 +709,18 @@ class GraphBasedSLAM:
         with `use_global_init`."""
         grid, pre_map, extra, glob = target
         src_p, src_m, src_covs = source
-        guess, counts = self._initial_guess(glob, src_p, src_m, T_latest)
+        guess, counts = self._initial_guess(glob, src_p, src_m, T_latest[:3, 3])
         return (*self._verify_one(grid, pre_map, extra, guess, src_p, src_m, src_covs),
                 *counts)
 
-    def _initial_guess(self, glob, src_p, src_m, T_latest):
+    def _initial_guess(self, glob, src_p, src_m, src_viewpoint):
         """Stage 0 of a verification, on the caller's thread and stream: the identity, or
         with `use_global_init` the FPFH+RANSAC global initial guess — it recovers
-        candidates whose drift lies far outside any local verifier's basin. The select
-        stays on the device: no host branch on `ok`. Returns (guess [4,4], the RANSAC
-        family counts as a tuple of one int64 [3] tensor, empty without the option)."""
+        candidates whose drift lies far outside any local verifier's basin. `glob` is
+        (the candidate's filtered submap points, mask, viewpoint), `src_viewpoint` the
+        latest keyframe's position. The select stays on the device: no host branch on
+        `ok`. Returns (guess [4,4], the RANSAC family counts as a tuple of one int64 [3]
+        tensor, empty without the option)."""
         eye = torch.eye(4, dtype=torch.float32, device=src_p.device)
         if glob is None:
             return eye, ()
@@ -519,17 +730,64 @@ class GraphBasedSLAM:
             src_p, src_m, tgt_p, tgt_m, keypoint_leaf=gr.keypoint_leaf,
             normal_k=gr.normal_k, fpfh_k=gr.fpfh_k, hypotheses=gr.hypotheses,
             inlier_threshold=gr.inlier_threshold, min_occupancy=gr.min_occupancy,
-            max_keypoints=gr.max_keypoints, src_viewpoint=T_latest[:3, 3],
+            max_keypoints=gr.max_keypoints, src_viewpoint=src_viewpoint,
             tgt_viewpoint=tgt_viewpoint, return_diag=True)
         counts = torch.stack([diag[k].to(torch.int64) for k in _RANSAC_COUNTS])
         return torch.where(g_ok, T_g, eye), (counts,)
 
+    def _write_guesses(self, progs: VerifyPrograms) -> None:
+        """`_initial_guess` of each candidate slot, from the inputs program's filtered
+        submaps and the staged viewpoints, into the verify program's `guess` and the
+        counts into its rows: eagerly, between the two programs."""
+        targets, _ = progs.inputs.outputs
+        src = progs.source
+        for i, (_, _, _, filtered) in enumerate(targets):
+            guess, (counts,) = self._initial_guess(
+                (filtered.points, filtered.mask, progs.viewpoints[1 + i]), src.points,
+                src.mask, progs.viewpoints[0])
+            progs.guess[i].copy_(guess)
+            progs.out[i, _ROW_COUNTS].copy_(counts)
+
+    def _replay_attempt(self, progs: VerifyPrograms) -> dict:
+        """One attempt through `progs` on the calling thread's stream: the inputs program,
+        the guesses (`use_global_init`), the verify program, then one read of the rows.
+        At the key's first attempt (and on the CPU, every attempt) each program warms up,
+        the verify program on the inputs program's warm-up outputs; then both are captured
+        (a capture that fails raises) and the rows read are the warm-ups'. Returns the
+        results as `host_results` gives them."""
+        progs.verifier[0] = self._verify_one
+        try:
+            progs.prepare()
+            fresh = not (progs.inputs.captured and progs.verify.captured)
+            (progs.inputs.warm_up if fresh else progs.inputs)()
+            if self.cfg.use_global_init:
+                self._write_guesses(progs)
+            (progs.verify.warm_up if fresh else progs.verify)()
+            if fresh:
+                progs.inputs.capture()
+                progs.verify.capture()
+            progs.host_out.copy_(progs.out, non_blocking=True)
+        finally:
+            if self.device.type == "cuda":
+                # The rows are read, and the staging buffers free again, only once the
+                # stream has passed its copies.
+                torch.cuda.current_stream(self.device).synchronize()
+            progs.in_flight = False
+        rows = progs.host_out.numpy()
+        counts = rows[:, _ROW_COUNTS] if self.cfg.use_global_init else ()
+        return {"Ts": rows[:, _ROW_T].reshape(-1, 4, 4).copy(),
+                "scores": rows[:, _ROW_FITNESS].copy(), "convs": rows[:, _ROW_OK] > 0.5,
+                "global_diags": [{"n_3pt_valid": int(c[0]), "n_yaw_valid": int(c[1]),
+                                  "best_is_yaw": bool(c[2])} for c in counts]}
+
     def _verify(self, inp, streams=None) -> dict:
         """Run every candidate's verification (the reference's vmap over candidates: each
-        one is independent), each on its own device (`inp["sources"]` holds its source
-        there) and, given `streams`, on that device's stream. On a mesh that spans
-        processes this process verifies its own slots' candidates and the others' results
-        are all-gathered. Each verification starts from `_initial_guess` (with
+        one is independent). With `inp["programs"]` (a staged `VerifyPrograms`) through
+        its two programs (`_replay_attempt`), on the back end's device; otherwise operator
+        by operator, each candidate on its own device (`inp["sources"]` holds its source
+        there), and on a mesh that spans processes this process verifies its own slots'
+        candidates and the others' results are all-gathered. Given `streams`, each device
+        runs on its stream. Each verification starts from `_initial_guess` (with
         `use_global_init`, the FPFH+RANSAC guess, built here on the candidate's stream).
         Returns host results and this thread's kernel launches."""
         t0 = time.perf_counter()
@@ -538,6 +796,12 @@ class GraphBasedSLAM:
         def on_stream(dev):
             return torch.cuda.stream(streams[dev]) if streams else contextlib.nullcontext()
 
+        if "programs" in inp:
+            with on_stream(self.device):
+                out = self._replay_attempt(inp["programs"])
+            out["launches"] = kernels.thread_launches() - before
+            out["seconds"] = time.perf_counter() - t0
+            return out
         n = len(inp["targets"])
         sources = inp.get("sources") or [inp["source"]] * n
         slots = inp.get("slots") or [None] * n
@@ -560,36 +824,67 @@ class GraphBasedSLAM:
         out["seconds"] = time.perf_counter() - t0
         return out
 
+    def _verify_stream(self, dev):
+        if dev not in self._verify_streams:
+            self._verify_streams[dev] = torch.cuda.Stream(dev)
+        return self._verify_streams[dev]
+
+    def _stage_attempt(self):
+        """The frame's part of an attempt through the programs: `_plan_attempt`, then its
+        clouds (and with `use_global_init` the viewpoints) into the key's pinned staging
+        buffers. Returns (pending, inp) or None; nothing is enqueued on the card."""
+        plan = self._plan_attempt()
+        if plan is None:
+            return None
+        cands = plan["cands"]
+        progs = self.loop_programs.get(len(cands))
+        viewpoints = None
+        if self.cfg.use_global_init:
+            viewpoints = np.stack([plan["T_latest"][:3, 3]]
+                                  + [self._poses_host[c][:3, 3] for c in cands])
+        progs.stage(plan["source"], plan["submaps"], viewpoints)
+        return {k: plan[k] for k in ("cands", "latest", "T_latest")}, {"programs": progs}
+
     def begin_loop_attempt(self):
         """Detect + start verification for the latest keyframe; returns a pending record
         (or None if gated/at capacity). With `async_enabled` the verification runs in a
         worker thread (on its own CUDA stream on a card) and `_consume_verify` joins it;
-        otherwise it runs inline here."""
-        inp = self._build_verify_inputs()
-        if inp is None:
-            return None
-        pending = {k: inp[k] for k in ("cands", "latest", "T_latest")}
+        otherwise it runs inline here. Through the programs (`programs_enabled`) this
+        thread only stages the attempt's clouds; otherwise it builds the inputs."""
+        streams = {}
+        if self.programs_enabled:
+            staged = self._stage_attempt()
+            if staged is None:
+                return None
+            pending, inp = staged
+            if self.device.type == "cuda":
+                # Its inputs come from pinned host memory (`_cloud`'s reads of the lazy
+                # keyframe clouds completed on the host), so the worker's stream waits
+                # for nothing of this thread's.
+                streams[self.device] = self._verify_stream(self.device)
+        else:
+            inp = self._build_verify_inputs()
+            if inp is None:
+                return None
+            pending = {k: inp[k] for k in ("cands", "latest", "T_latest")}
+            if self.mesh is not None:
+                # Each slot's candidates (and a copy of the source) on the slot's device.
+                inp["targets"], inp["sources"], inp["slots"] = shard_batch(
+                    self.mesh, inp["targets"], inp["source"])
+                pending["slots"] = inp["slots"]
+            for src in inp.get("sources") or [inp["source"]]:
+                dev = src[0].device
+                if dev.type == "cuda" and dev not in streams:
+                    streams[dev] = self._verify_stream(dev)
+                    # The inputs were built (or placed) on this thread's stream. The worker
+                    # holds `inp` until its streams are synchronized, so no input buffer
+                    # is freed (and reused by that stream) while the verification may
+                    # read it.
+                    streams[dev].wait_stream(torch.cuda.current_stream(dev))
         pending["age"] = 0
-        if self.mesh is not None:
-            # Each slot's candidates (and a copy of the source) on the slot's device.
-            inp["targets"], inp["sources"], inp["slots"] = shard_batch(
-                self.mesh, inp["targets"], inp["source"])
-            pending["slots"] = inp["slots"]
         if not self.async_enabled:
             pending["results"] = self._verify(inp)
             return pending
-
-        streams = {}
-        for src in inp.get("sources") or [inp["source"]]:
-            dev = src[0].device
-            if dev.type == "cuda" and dev not in streams:
-                if dev not in self._verify_streams:
-                    self._verify_streams[dev] = torch.cuda.Stream(dev)
-                streams[dev] = self._verify_streams[dev]
-                # The inputs were built (or placed) on this thread's stream. The worker
-                # holds `inp` until its streams are synchronized, so no input buffer is
-                # freed (and reused by that stream) while the verification may read it.
-                streams[dev].wait_stream(torch.cuda.current_stream(dev))
 
         def run():
             if not streams:

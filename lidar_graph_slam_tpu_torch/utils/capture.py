@@ -16,6 +16,14 @@ donation: the next call finds its state where the last one left it).
     its pool when the owner is done with them.
   * On the CPU every call runs the body on the same fixed buffers, so the CPU tests hold
     the body to the discipline the graph needs.
+  * A body may return tensors it made (nested in tuples, lists or dataclasses): the
+    program keeps them as `outputs`. On a card those of the capture live in the graph's
+    pool and every replay rewrites them in place, so another program may read them where
+    they lie; on the CPU each call's are copied into the first call's, which keeps their
+    addresses as the graph does. A capture records without running: the first call's
+    results are its warm-up's, and `warm_up` and `capture` may be called apart, so that
+    a program reading another's outputs warms up on that one's warm-up results and is
+    captured on its captured ones (`graph/slam.py:LoopPrograms`).
 
 The wrappers' launch counts (`ops/kernels.py`) are host counters bumped when a wrapper is
 called. The capture records its tally instead (`kernels.recorded_launches`), and each
@@ -45,7 +53,7 @@ class Program:
     """`body` as one dispatch on `device`; `stream` (a `torch.cuda.Stream` of the card) is
     where a CUDA program warms up and is captured."""
 
-    def __init__(self, body: Callable[[], None], device, stream=None):
+    def __init__(self, body: Callable[[], object], device, stream=None):
         self.body = body
         self.device = torch.device(device)
         if self.device.type == "cuda" and stream is None:
@@ -55,7 +63,9 @@ class Program:
         self.tally: dict = {}  # wrapper -> kernel launches a replay
         self.captures = 0
         self.replays = 0
+        self.outputs = None  # what the body returned, at fixed addresses
         self.first_call_ms: dict = {}  # warm_up, drain, collect, capture (the last capture)
+        self._clock: list = []
 
     @property
     def captured(self) -> bool:
@@ -63,22 +73,42 @@ class Program:
 
     def __call__(self) -> None:
         if self.device.type != "cuda":
-            self.body()
+            self._keep(self.body())
         elif self.graph is None:
-            self._warm_up_and_capture()
+            self.warm_up()
+            self.capture()
         else:
             self.graph.replay()
             kernels.count_launches(self.tally)
             self.replays += 1
 
-    def _warm_up_and_capture(self) -> None:
-        clock = [time.perf_counter()]
+    def _keep(self, out) -> None:
+        if out is None:
+            return
+        if self.outputs is None or self.device.type == "cuda":
+            self.outputs = out
+        else:
+            copy_into(self.outputs, out)
+
+    def warm_up(self) -> None:
+        """The first call's own run: on a card, the body on the capture stream (the
+        current stream waits for it); on the CPU, a call."""
+        if self.device.type != "cuda":
+            self._keep(self.body())
+            return
+        self._clock = [time.perf_counter()]
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            self.body()
+            self._keep(self.body())
         current.wait_stream(self.stream)
-        clock.append(time.perf_counter())
+        self._clock.append(time.perf_counter())
+
+    def capture(self) -> None:
+        """Capture the body into the graph after `warm_up` (nothing on the CPU)."""
+        if self.device.type != "cuda":
+            return
+        clock = self._clock
         torch.cuda.synchronize(self.device)
         clock.append(time.perf_counter())
         graph = torch.cuda.CUDAGraph()
@@ -93,11 +123,12 @@ class Program:
         try:
             with kernels.recorded_launches() as tally, torch.cuda.graph(
                     graph, stream=self.stream, capture_error_mode="thread_local"):
-                self.body()
+                out = self.body()
         finally:
             if enabled:
                 gc.enable()
         clock.append(time.perf_counter())
+        self._keep(out)
         self.graph, self.tally = graph, tally
         self.captures += 1
         self.first_call_ms = {part: 1000 * (b - a) for part, a, b in zip(
@@ -119,11 +150,13 @@ class Program:
 
 
 def copy_into(dst, src) -> None:
-    """Copy every tensor of `src` into the same place of `dst` (tensors, tuples of them,
-    or dataclasses of them, nested), in place."""
+    """Copy every tensor of `src` into the same place of `dst` (tensors, tuples or lists
+    of them, or dataclasses of them, nested; None where both hold none), in place."""
+    if dst is None:
+        return
     if isinstance(dst, torch.Tensor):
         dst.copy_(src)
-    elif isinstance(dst, tuple):
+    elif isinstance(dst, (tuple, list)):
         for d, s in zip(dst, src):
             copy_into(d, s)
     else:

@@ -11,13 +11,16 @@ with the ICP verifier (phase 10) and with the GICP verifier (phase 17); `--cours
 those named instead, among them `dense_icp_classic` and `dense_ndt_classic`, the dense
 course through the classic driver with ICP and with NDT (phase 16), and `cli_gicp_classic`, the CLI's 60-frame synthetic course
 (seed 0) through the classic driver with GICP and loops on, as phase 18 runs the CLI, and
-`drift_global`, the drift course with `graph_slam.use_global_init=true` (phase 20). It
+`drift_global`, the drift course with `graph_slam.use_global_init=true` (phase 20), and
+`drift_topk4`, the drift course's first 130 frames with `graph_slam.loop_topk=4` (phase
+27's unmeshed run). It
 writes each run's odometry and keyframe poses, its loop
 attempts (candidate, accepted, fitness), its keyframe ATE, the loop kernels' launches
 that did work, the p50 ms of the frame and of the pipeline's stages (`prefilter`: the
 host's enqueue of the fused step; `register`: the classic driver's align; `backend`: the
 ring insert and target rebuild of a keyframe and the loop back end), and the p50 and max
-ms of the loop verifications (`GraphBasedSLAM.verify_seconds`), and the programs the
+ms of the loop verifications (`GraphBasedSLAM.verify_seconds`), the p50 and max of the
+`backend` stage at the tick frames that start an attempt (`tick_backend`), and the programs the
 front end captured (`SlamPipeline.programs`, or on an older tree the fused front end's
 `FusedFrontEnd.captures`: 0 on a tree that dispatches its operators one by one). With
 `--compare`, per course and file: whether its poses and loop attempts equal the first
@@ -36,7 +39,9 @@ import sys
 import time
 
 COURSES = ("dense", "dense_gicp", "drift_icp", "drift_gicp")
-EXTRA = ("dense_icp_classic", "dense_ndt_classic", "cli_gicp_classic", "drift_global")
+TOPK_FRAMES = 130  # `chip_smoke.py`'s TOPK_PAIR_FRAMES
+EXTRA = ("dense_icp_classic", "dense_ndt_classic", "cli_gicp_classic", "drift_global",
+         "drift_topk4")
 NUMBERS = ("ate_keyframes_m", "loops_accepted", "ndt_worked", "gicp_worked", "captures")
 STAGES = ("frame", "prefilter", "register", "backend")
 
@@ -88,21 +93,34 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
             "cli_gicp_classic": (apply_cli_overrides(PipelineConfig(), [
                 "fused_frontend=False", "scan_matcher.registration_method=GICP"]), cli),
             "drift_global": (apply_cli_overrides(PipelineConfig(),
-                                                 ["graph_slam.use_global_init=true"]), drift)}
+                                                 ["graph_slam.use_global_init=true"]), drift),
+            "drift_topk4": (apply_cli_overrides(PipelineConfig(), ["graph_slam.loop_topk=4"]),
+                            drift and (drift[0][:TOPK_FRAMES], drift[1][:TOPK_FRAMES]))}
     arrays = {}
     for name in courses:
         cfg, (scans, gt) = runs[name]
         kernels.load_library()
         kernels.worked_launches(reset=True)
         pipe = SlamPipeline(cfg, device="cuda")
+        ticks, begin = [], pipe.back.begin_loop_attempt
+
+        def recorded(backend=pipe.timings["backend"], begin=begin, ticks=ticks):
+            pending = begin()
+            if pending is not None:
+                ticks.append(len(backend))  # the index of this frame's backend time
+            return pending
+
+        pipe.back.begin_loop_attempt = recorded
         walls = []
         for scan in scans:
             t0 = time.perf_counter()
             pipe.process_scan(scan)
             walls.append(time.perf_counter() - t0)
         res = pipe.result()
+        del pipe.back.begin_loop_attempt
         torch.cuda.synchronize()
         ver = 1000 * np.asarray(pipe.back.verify_seconds, np.float64)
+        tick = 1000 * np.asarray([pipe.timings["backend"][i] for i in ticks], np.float64)
         kf = np.asarray(res.keyframe_frame_indices)
         loops = np.array([(r["candidate"], r["accepted"], r["fitness"]) for r in res.loop_log
                           if r["candidate"] >= 0], np.float64).reshape(-1, 3)
@@ -118,7 +136,10 @@ def run_tree(root: str, out: str, courses=COURSES) -> int:
                 res.metrics[k]["p50_ms"] if k in res.metrics else np.nan
                 for k in STAGES[1:]], np.float64),
             f"{name}_verify_ms": np.array([np.median(ver), ver.max(), ver.size] if ver.size
-                                          else [np.nan, np.nan, 0], np.float64)})
+                                          else [np.nan, np.nan, 0], np.float64),
+            f"{name}_tick_backend_ms": np.array([np.median(tick), tick.max(), tick.size]
+                                                if tick.size else [np.nan, np.nan, 0],
+                                                np.float64)})
     np.savez(out, **arrays)
     return 0
 
@@ -150,7 +171,10 @@ def compare(paths) -> int:
                 **{k: float(v) for k, v in zip(NUMBERS, f[f"{name}_numbers"])},
                 **{f"{k}_p50_ms": round(float(v), 3) for k, v in zip(STAGES, f[f"{name}_ms"])},
                 **({f"verify_{k}_ms": round(float(v), 3) for k, v in zip(
-                    ("p50", "max"), f[f"{name}_verify_ms"])} if f"{name}_verify_ms" in f else {})}
+                    ("p50", "max"), f[f"{name}_verify_ms"])} if f"{name}_verify_ms" in f else {}),
+                **({f"tick_backend_{k}_ms": round(float(v), 3) for k, v in zip(
+                    ("p50", "max"), f[f"{name}_tick_backend_ms"])}
+                   if f"{name}_tick_backend_ms" in f else {})}
         out[name] = rows
     print(json.dumps(out), flush=True)
     return 0

@@ -33,7 +33,9 @@ against its body run eagerly, without a synchronous read. The classic driver's t
 programs (prefilter, register, insert) over 12 dense frames bit for bit against their
 bodies run eagerly with NDT, ICP and GICP, one capture each; the random sample's draws in
 the classic and fused programs; and no kernel launch call from a classic frame after
-frame 2 (torch.profiler).
+frame 2 (torch.profiler). A loop attempt's two programs (the inputs' build and the
+verification) over three attempts with ICP, NDT and GICP, bit for bit against the same
+attempts operator by operator, one capture each.
 GICP's covariance kernel (`gicp_covariances`, `csrc/covariances.cu`) against its plain
 version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launch a call,
 its refusals, no synchronous read, and inside the captured GICP step and insert.
@@ -1330,6 +1332,28 @@ def _loop_backend(device, async_backend, method="ICP", mesh=None):
                            "cloud": scan, "cloud_mask": np.ones(scan.shape[0], bool),
                            "accum_distance": accum if k < 30 else accum + 110.0})
     return back
+
+
+@pytest.mark.parametrize("method", ["ICP", "NDT", "GICP"])
+def test_loop_programs_equal_the_operator_path(cuda, method):
+    """A loop attempt's two programs (`graph/slam.py:LoopPrograms`, CUDA graphs after
+    the first attempt) on the card: three attempts, each program captured once and
+    replayed at the two later attempts, every loop record and the solved poses bit for
+    bit those of the same attempts built and verified operator by operator."""
+    backs = _loop_backend(cuda, True, method), _loop_backend(cuda, True, method)
+    backs[1].programs_enabled = False
+    for _ in range(3):
+        assert backs[0].try_close_loop() == backs[1].try_close_loop()
+    for a, b in zip(*(b.loop_log for b in backs)):
+        assert (a["candidate"], a["accepted"], a["converged"], a["fitness"]) == (
+            b["candidate"], b["accepted"], b["converged"], b["fitness"])
+        np.testing.assert_array_equal(a["transform"], b["transform"])
+    assert len(backs[0].loop_log) == 3 and backs[0].loop_log[0]["accepted"]
+    np.testing.assert_array_equal(backs[0].optimized_poses(), backs[1].optimized_poses())
+    log = backs[0].loop_programs.log()
+    assert list(log) == [f"{method}_1"] and not backs[1].loop_programs.log()
+    assert all((v["captures"], v["replays"]) == (1, 2) and v["pool_bytes"] > 0
+               for v in log[f"{method}_1"].values())
 
 
 @pytest.mark.parametrize("method", ["ICP", "GICP"])
