@@ -63,7 +63,9 @@ of `bench.py:bench_e2e`. Phases:
      max(0.05 x travelled, 0.35) m, the NDT loop kernel launched 16 + 64 + 2 times a
      frame (and how many of those did work), the accumulate kernels not, `ndt_finalize`
      and `dense_table` twice a target build, `eigh3x3` and `grid_rows` not,
-     `voxel_centroids` and `sor_window_stats` once a frame (the prefilter); p50 frame ms;
+     `voxel_centroids` and `sor_window_stats` once a frame (the prefilter), its passes
+     `cell_keys` 4, `sorted_runs` 3, `sor_threshold` 3 and `compact_rows` 2 launches a
+     frame, and a target build's `cell_keys` 2 and `sorted_runs` 4; p50 frame ms;
   7. one fine-stage `ndt_align` under torch.profiler (`scripts/torch_profile_ndt.py`):
      device kernel launches, device ms and wall ms per align and per NDT body; with
      `--parent DIR` (the parent commit unpacked by `git archive`) also that tree's, on the
@@ -105,10 +107,20 @@ of `bench.py:bench_e2e`. Phases:
      its parts (staging, d^2, selection, roots; index loads, point reads, sums, writes;
      the launch floor) on the two buckets and the loop submap, for this tree and, with
      `--parent DIR`, the parent's, in turns;
+     the prefilter's passes (`csrc/prefilter_pass.cu`) at the same buckets — `cell_keys`
+     with the distance filter (N = the bucket) and on the SOR's 65,536 rows,
+     `sorted_runs` with the runs (C = 65,536) and the SOR's gather alone,
+     `sor_threshold` and `compact_rows` (65,536 -> 32,768) — and `cell_keys` and
+     `sorted_runs` on the loop submap (N = C = 131,072): against their plain versions
+     bit for bit with reruns, device and host us, the plain version's ms, the bound
+     (bytes) and its share, and the library yardsticks (a stable `torch.argsort` and its
+     gathers for `compact_rows`, `cumsum` + `searchsorted` for `sorted_runs`' runs);
      `scripts/torch_profile_prefilter.py` in a subprocess: wall and enqueue ms a call on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
-     turns, and each one's device launches, device ms, `segment_reduce` launches and
-     [N, 48] row sorts (none of either on the kernel path);
+     turns, a graph replay's device us, and each one's device launches, device ms, the
+     launch split by function, `segment_reduce`, `cumsum`, `searchsorted` and argsort
+     launches, [N, 48] row sorts and `aten::sort` calls (none but two sorts on the kernel
+     path), also for the loop submap's downsample;
  11. grid NN, card against CPU: `build_hash_grid` + `nearest` on a loop submap of that
      course at the verifier's shapes (2 m cells, 7 cells, bucket 16);
  11b. the hash grid's kernels (`csrc/grid.cu`): `grid_rows` against `grid_rows_plain` on
@@ -350,7 +362,7 @@ from lidar_graph_slam_tpu_torch.core.config import (
 )
 from lidar_graph_slam_tpu_torch.core.pointcloud import PAD_VALUE, PointCloud, pad_points
 from lidar_graph_slam_tpu_torch.filters.prefilter import (
-    distance_filter,
+    filter_bounds,
     make_prefilter,
     sor_cell_size,
 )
@@ -381,6 +393,7 @@ from lidar_graph_slam_tpu_torch.ops.neighbors import (
     gicp_covariances_plain,
     grid_rows_plain,
     nearest,
+    sor_threshold_plain,
     sor_window_stats_plain,
     sort_by_cell,
     window_covariances_plain,
@@ -404,7 +417,7 @@ from lidar_graph_slam_tpu_torch.registration.ndt import (
 )
 from lidar_graph_slam_tpu_torch.utils import checkpoint
 from lidar_graph_slam_tpu_torch.utils.evaluation import ate_rmse
-from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.core import pointcloud, se3
 from lidar_graph_slam_tpu_torch.graph import slam as slam_module
 from lidar_graph_slam_tpu_torch.graph import solver as gsolver
 from lidar_graph_slam_tpu_torch.ops.voxel import build_ndt_map
@@ -427,7 +440,8 @@ DIRECT7_OUT = ("H", "g", "sum_w", "n_hit", "centre_d2", "centre_count")
 KERNELS = ("ndt_direct7_accumulate", "ndt_accumulate", "ndt_direct7_accumulate_batched",
            "ndt_align_loop", "ndt_align_loop_batched", "gicp_align_loop", "icp_align_loop",
            "icp_fitness", "ndt_finalize", "eigh3x3", "voxel_centroids", "sor_window_stats",
-           "gicp_covariances", "dense_table", "grid_rows")
+           "gicp_covariances", "dense_table", "grid_rows", "cell_keys", "sorted_runs",
+           "sor_threshold", "compact_rows")
 POSE_TRANS_M, POSE_ROT_RAD = 0.01, 1e-3
 # Grid NN, card vs CPU: idx and found equal, d2 to this relative tolerance.
 NN_RTOL = 1e-6
@@ -976,8 +990,9 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
     if proc.returncode != 0:
         raise AssertionError(f"rebuild profile failed:\n{proc.stderr[-3000:]}")
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
-    # Two maps: each one `ndt_finalize` and one `dense_table`.
-    if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 4
+    # Two maps: each one `ndt_finalize` and one `dense_table`; the fine level's keys (2)
+    # and runs (2), the coarse level's runs (2).
+    if not (rec["bit_equal_kernel_plain"] and rec["kernel"]["wrapper_launches"] == 4 + 6
             and rec["kernel"]["launches"] < rec["plain"]["launches"]
             and rec["kernel"]["segment_reduce_launches"] == 0
             and rec["kernel"]["scatter_launches"] == 0):
@@ -996,6 +1011,11 @@ def profile_rebuild(cfg: PipelineConfig, ring, parent: str | None, card: str,
 # 8,192-row bucket).
 PREFILTER_DRIFT_FRAME = 100
 PREFILTER_KERNELS = ("voxel_centroids", "sor_window_stats")
+# The prefilter's passes (`csrc/prefilter_pass.cu`), each timed at its shapes.
+PASS_KERNELS = ("cell_keys", "sorted_runs", "sor_threshold", "compact_rows")
+PASS_PLAIN = {"cell_keys": voxel.cell_keys_plain, "sorted_runs": voxel.sorted_runs_plain,
+              "sor_threshold": sor_threshold_plain,
+              "compact_rows": pointcloud.compact_rows_plain}
 # `voxel_centroids`' least traffic: each summed point read once (12 B); an occupied row's
 # start and its run's key (8 + 4 B); every row's length (8 B), its centroid and mask
 # written (13 B). Its operations: per summed point the count and 3 offsets added, 3
@@ -1011,6 +1031,11 @@ CENTROID_POINT_OPS, CENTROID_RUN_OPS = 7, 12
 SOR_ROW_BYTES, SOR_VALID_BYTES = 12 + 12, 12
 SOR_SEARCH_OPS = 2 * SOR_WINDOW.bit_length()  # ceil(log2(25)) = 5 a side
 SOR_PAIR_OPS, SOR_ROOT_OPS = 8, 2
+# The passes' operations a row (each far under its bytes): `cell_keys` the range (6), its
+# tests (4), the corner's three minima (3) and a valid row's key (3 x (sub, mul, floor,
+# convert, 2 clamps) + 4 = 22); `sorted_runs` the flags and the scan (~8);
+# `sor_threshold` the two sums and the test (~6); `compact_rows` the scan (~4).
+PASS_ROW_OPS = {"cell_keys": 35, "sorted_runs": 8, "sor_threshold": 6, "compact_rows": 4}
 
 
 def sor_order_comparisons(f: int, k: int) -> int:
@@ -1032,19 +1057,118 @@ def raw_bucket(scan: np.ndarray, raw_points: int) -> np.ndarray:
     return out
 
 
+def key_sort_inputs(points, mask, leaf, capacity, bounds=None) -> dict:
+    """`cell_keys`' and `sorted_runs`' arguments as `ops/voxel.py:_key_sort` makes them
+    (built with the plain versions), and the plain results after them: {"cell_keys":
+    args, "sorted_runs": args, "runs": `voxel_centroids`' args, "kept": (points,
+    mask)}."""
+    leaf = voxel.as_f32(leaf, points)
+    keys, origin, *kept = voxel.cell_keys_plain(points, mask, leaf, bounds)
+    kp, km = (kept[1], kept[0]) if kept else (points, mask)
+    keys_sorted, order = torch.sort(keys, stable=True)
+    pts_sorted, runs = voxel.sorted_runs_plain(keys_sorted, order, kp, capacity)
+    return {"cell_keys": (points, mask, leaf, bounds),
+            "sorted_runs": (keys_sorted, order, kp, capacity),
+            "runs": None if runs is None else (keys_sorted, pts_sorted, *runs[:2], origin,
+                                               leaf),
+            "kept": (kp, km)}
+
+
 def prefilter_kernel_inputs(cfg: PipelineConfig, raw: torch.Tensor) -> dict:
     """Each prefilter kernel's arguments as the default prefilter (`make_prefilter`) makes
-    them from the raw bucket `raw`: the downsample's sorted runs, and the SOR's rows sorted
-    by cell (from the plain downsample's output)."""
+    them from the raw bucket `raw` (built with the plain versions): {shape: {kernel:
+    args}}, shape "voxel" for the downsample's keys, runs and centroids, "sor" for the
+    SOR's keys and gather, its window statistics, its threshold and the compaction."""
     pf, cap = cfg.prefilter, cfg.capacity
-    mask = distance_filter(raw, raw[:, 0] < 0.5 * PAD_VALUE, pf.min_distance, pf.max_distance)
-    points = pad_points(raw, mask)
-    voxel_capacity = min(cap.raw_points, 2 * cap.filtered_points)
-    runs, _ = voxel.centroid_runs(points, mask, pf.leaf_size, voxel_capacity)
-    grid_pts, grid_mask = voxel.voxel_centroids_plain(*runs)
-    cells = sort_by_cell(grid_pts, grid_mask, sor_cell_size(pf))
-    return {"voxel_centroids": runs, "sor_window_stats": (cells.keys, cells.points,
-                                                          cells.order, pf.mean_k)}
+    C = min(cap.raw_points, 2 * cap.filtered_points)
+    vx = key_sort_inputs(raw, raw[:, 0] < 0.5 * PAD_VALUE, pf.leaf_size, C, filter_bounds(pf))
+    grid_pts, grid_mask = voxel.voxel_centroids_plain(*vx["runs"])
+    sor = key_sort_inputs(grid_pts, grid_mask, sor_cell_size(pf), None)
+    keys, order = sor["sorted_runs"][:2]
+    cell_pts, _ = voxel.sorted_runs_plain(keys, order, grid_pts)
+    mean_d, n_found = sor_window_stats_plain(keys, cell_pts, order, pf.mean_k)
+    th = (mean_d, n_found, grid_mask, grid_pts, voxel.as_f32(pf.stddev, grid_pts))
+    kept, kept_pts = sor_threshold_plain(*th)
+    return {"voxel": {"cell_keys": vx["cell_keys"], "sorted_runs": vx["sorted_runs"],
+                      "voxel_centroids": vx["runs"]},
+            "sor": {"cell_keys": sor["cell_keys"], "sorted_runs": sor["sorted_runs"],
+                    "sor_window_stats": (keys, cell_pts, order, pf.mean_k),
+                    "sor_threshold": th,
+                    "compact_rows": (kept_pts, kept, cap.filtered_points)}}
+
+
+def pass_bound(name: str, args, clock_mhz: float) -> dict:
+    """The least time for one call of a prefilter pass on `args`: each input read once and
+    each output written once over the HBM rate (a gather reads only the rows it moves; a
+    row that the input mask drops reads its mask byte alone), or its operations
+    (PASS_ROW_OPS a row) over the issue rate."""
+    if name == "cell_keys":
+        points, mask, _, bounds = args
+        n = points.shape[0]
+        nbytes = n + 12 * int(mask.sum()) + 4 + n * 4 + 12 + (n * 13 if bounds is not None
+                                                               else 0)
+    elif name == "sorted_runs":
+        keys, order, points, C = args
+        n = keys.shape[0]
+        nbytes = n * 4 + (n * (8 + 12 + 12) if points is not None else 0)
+        nbytes += 0 if C is None else 16 * (C + 1) + 8
+    elif name == "sor_threshold":
+        n = args[0].shape[0]
+        nbytes = n + (4 + 8 + 12) * int(args[2].sum()) + 4 + n * (1 + 12)
+    else:  # compact_rows
+        points, mask, capacity = args
+        n, rows = points.shape[0], min(points.shape[0], capacity)
+        nbytes = n + 12 * min(int(mask.sum()), rows) + 13 * rows
+    return dict(rows=n, **bound_us(nbytes, PASS_ROW_OPS[name] * n, clock_mhz))
+
+
+def pass_library_ms(name: str, args):
+    """One library call's ms computing a pass's function, where one does: for
+    `compact_rows` a stable argsort of the inverted mask and its gathers, for
+    `sorted_runs` with runs the cumsum of the first-of-run flags and the searchsorted of
+    C + 2 queries (its gather not timed); else None."""
+    if name == "compact_rows":
+        points, mask, capacity = args
+
+        def compact():
+            order = torch.argsort(torch.logical_not(mask).to(torch.uint8), stable=True)
+            order = order[:capacity]
+            return points[order], mask[order]
+
+        return median_ms(compact, calls=20)
+    if name == "sorted_runs" and args[3] is not None:
+        keys, C = args[0], args[3]
+        first = torch.cat([keys[:1] != voxel.INVALID_KEY, (keys[1:] != keys[:-1])
+                           & (keys[1:] != voxel.INVALID_KEY)]).to(torch.int64)
+        queries = torch.arange(C + 2, dtype=torch.int64, device=keys.device)
+        return median_ms(lambda: torch.searchsorted(torch.cumsum(first, 0), queries),
+                         calls=20)
+    return None
+
+
+def flat_pass(out) -> list:
+    """A pass's outputs as a flat list of tensors (`sorted_runs`' Nones dropped)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out if o is not None for t in flat_pass(o)]
+
+
+def pass_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float) -> dict:
+    """One prefilter pass at one shape: bit for bit against its plain version on the same
+    card tensors with a rerun, its device and host us (`split_times`), the plain
+    version's ms, the library yardstick's (`pass_library_ms`), the bound and its share."""
+    kernel, plain = getattr(kernels, name), PASS_PLAIN[name]
+    ref = flat_pass(plain(*args))
+    out, again = flat_pass(kernel(*args)), flat_pass(kernel(*args))
+    same_bits(f"{name} {label}", [f"out{i}" for i in range(len(ref))], out, again, ref)
+    if not len(out) == len(again) == len(ref):
+        raise AssertionError(f"{name} {label}: {len(out)} outputs against {len(ref)}")
+    t = split_times(kernel, *args)
+    t.update(plain_ms=median_ms(plain, *args, calls=10), library_ms=pass_library_ms(
+        name, args), **pass_bound(name, args, clock_mhz))
+    t["share_of_bound"] = t["bound_us"] / t["device_us"]
+    say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
+    return dict(kernel=name, **t)
 
 
 def prefilter_bound(name: str, args, clock_mhz: float) -> dict:
@@ -1100,12 +1224,13 @@ def loop_centroid_inputs(cfg: PipelineConfig, back: GraphBasedSLAM, rec: dict) -
     submap = b._assemble_submap(rec["candidate"], gs.search_key_frame_num,
                                 max_points=cap.loop_submap_points)
     sub = PointCloud.from_array(submap, capacity=cap.loop_submap_points, device=back.device)
-    runs, _ = voxel.centroid_runs(sub.points, sub.mask, gs.loop_submap_leaf,
-                                  cap.loop_submap_points)
-    filtered, mask = voxel.voxel_centroids_plain(*runs)
-    keypoints, _ = voxel.centroid_runs(filtered, mask, gs.global_reg.keypoint_leaf,
-                                       gs.global_reg.max_keypoints)
-    return {"loop_submap": runs, "fpfh_keypoints": keypoints}
+    ks = key_sort_inputs(sub.points, sub.mask, gs.loop_submap_leaf, cap.loop_submap_points)
+    filtered, mask = voxel.voxel_centroids_plain(*ks["runs"])
+    keypoints = key_sort_inputs(filtered, mask, gs.global_reg.keypoint_leaf,
+                                gs.global_reg.max_keypoints)["runs"]
+    return {"loop_submap": ks["runs"], "fpfh_keypoints": keypoints,
+            "passes": {"cell_keys": ks["cell_keys"], "sorted_runs": ks["sorted_runs"]},
+            "cloud": (sub.points, sub.mask)}
 
 
 def prefilter_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float,
@@ -1174,23 +1299,27 @@ def prefilter_split(fixtures: dict, parent: str | None, card: str) -> list:
     return splits
 
 
-def profile_prefilter(raws: dict, parent: str | None, card: str) -> dict:
+def profile_prefilter(raws: dict, cloud, parent: str | None, card: str) -> dict:
     """`scripts/torch_profile_prefilter.py` in a subprocess on the raw buckets `raws`
-    ({label: [R, 3] array}): wall and enqueue ms a call on the kernel path, the plain path
-    and (with `parent`) the parent tree's, in turns; device kernel launches, device ms,
-    `segment_reduce` launches and the [N, 48] row sorts of one call of each under
-    torch.profiler, one `prefilter-profile` line a frame and path. The kernel path must
-    launch each kernel once, no `segment_reduce` and no row sort, fewer device kernels than
-    the plain path, and equal the plain path bit for bit."""
+    ({label: [R, 3] array}) and the loop submap's `cloud` (points, mask): wall and
+    enqueue ms a call on the kernel path, the plain path and (with `parent`) the parent
+    tree's, in turns, and a graph replay's device us; device kernel launches, device ms,
+    the `cumsum`, `searchsorted`, argsort and `aten::sort` calls and the launch split by
+    function of one call of each under torch.profiler, one `prefilter-profile` line a
+    frame and path. The kernel path must launch the two reductions once and the four
+    passes 2 + 2, 2 + 1, 3 and 2 times a prefilter call, run no `segment_reduce`, row
+    sort, cumsum, searchsorted or argsort and two `aten::sort`s, launch fewer device
+    kernels than the plain path, and equal the plain path bit for bit."""
     os.makedirs(os.path.join(REPO, ".chip_scratch"), exist_ok=True)
     path = os.path.join(REPO, ".chip_scratch", "prefilter_profile_input.npz")
-    np.savez(path, **{f"raw_{label}": raw for label, raw in raws.items()})
+    np.savez(path, **{f"raw_{label}": raw for label, raw in raws.items()},
+             sub_loop=cloud[0].cpu().numpy(), sub_mask_loop=cloud[1].cpu().numpy())
     cmd = [sys.executable, os.path.join(REPO, "scripts", "torch_profile_prefilter.py"),
            "--input", path]
     if parent is not None:
         cmd += ["--parent", os.path.abspath(parent)]
     try:
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=400)
     finally:
         os.remove(path)
     if proc.returncode != 0:
@@ -1198,14 +1327,17 @@ def profile_prefilter(raws: dict, parent: str | None, card: str) -> dict:
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     for label, row in rec.items():
         k = row["kernel"]
-        if not (row["bit_equal_kernel_plain"] and k["wrapper_launches"] == 2
-                and k["segment_reduce_launches"] == 0 and k["row_sorts"] == 0
-                and k["launches"] < row["plain"]["launches"]):
+        if not (row["bit_equal_kernel_plain"] and k["segment_reduce_launches"] == 0
+                and k["row_sorts"] == 0 and k["cumsum_launches"] == 0
+                and k["searchsorted_launches"] == 0 and k["argsort_calls"] == 0
+                and k["launches"] < row["plain"]["launches"]
+                and (label.startswith("sub_") or (k["wrapper_launches"] == 2 + 12
+                                                  and k["sort_calls"] == 2))):
             raise AssertionError(f"prefilter profile, {label}: {row}")
         for name in ("kernel", "plain", "parent"):
             if name in row:
-                say("prefilter-profile", frame=label, path=name, raw_points=row["raw_points"],
-                    filtered_points=row["filtered_points"],
+                say("prefilter-profile", input=label, path=name, rows=row["rows"],
+                    valid_out=row["valid_out"],
                     **{key: json.dumps(v, separators=(",", ":"))
                        if isinstance(v, (list, dict)) else v
                        for key, v in row[name].items()}, card=json.dumps(card))
@@ -1215,14 +1347,15 @@ def profile_prefilter(raws: dict, parent: str | None, card: str) -> dict:
 def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: str,
                     parent: str | None, clock_mhz: float, dev=torch.device("cuda")) -> dict:
     """Phase 10c: the prefilter's kernels on the raw buckets of `scans` ({label: scan}),
-    and `voxel_centroids` on the loop path's `loop_inputs` ({label: runs},
-    `loop_centroid_inputs`), each as `prefilter_kernel_timing` takes it (with `parent`,
-    the parent commit unpacked by `git archive`, that tree's kernels in turns); one
-    `prefilter` call a bucket under `torch.cuda.set_sync_debug_mode("error")`; each
-    kernel's launch split into its parts on the buckets and the loop submap
-    (`prefilter_split`); the profile of `profile_prefilter`. The SOR statistics have no
-    one-call library equivalent. Returns {"timing": {shape: {kernel: timing}}, "split":
-    [...], "profile": ...}."""
+    and `voxel_centroids`, `cell_keys` and `sorted_runs` on the loop path's `loop_inputs`
+    (`loop_centroid_inputs`): the two reductions as `prefilter_kernel_timing` takes them
+    (with `parent`, the parent commit unpacked by `git archive`, that tree's kernels in
+    turns), the four passes as `pass_kernel_timing` does; one `prefilter` call a bucket
+    under `torch.cuda.set_sync_debug_mode("error")`; the reductions' launch split into
+    parts on the buckets and the loop submap (`prefilter_split`); the profile of
+    `profile_prefilter`, the loop submap's downsample among it. The SOR statistics have
+    no one-call library equivalent. Returns {"timing": {shape: {kernel: timing}},
+    "split": [...], "profile": ...}."""
     raws = {label: raw_bucket(scan, cfg.capacity.raw_points) for label, scan in scans.items()}
     prefilter = make_prefilter(cfg.prefilter, cfg.capacity.filtered_points,
                                min(cfg.capacity.raw_points, 2 * cfg.capacity.filtered_points))
@@ -1233,21 +1366,33 @@ def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: s
         say("prefilter-bucket", frame=label, raw_rows=raw.shape[0],
             raw_points=int(min(len(scans[label]), cfg.capacity.raw_points)))
         inputs = prefilter_kernel_inputs(cfg, raw)
-        fixtures[f"prefilter_{label}"] = inputs
+        merged = {**inputs["voxel"], **{k: v for k, v in inputs["sor"].items()
+                                        if k in PREFILTER_KERNELS}}
+        fixtures[f"prefilter_{label}"] = {k: merged[k] for k in PREFILTER_KERNELS}
         timing[f"prefilter_{label}"] = {
-            name: prefilter_kernel_timing(name, f"prefilter_{label}", inputs[name], card,
+            name: prefilter_kernel_timing(name, f"prefilter_{label}", merged[name], card,
                                           clock_mhz, parent_kern) for name in PREFILTER_KERNELS}
+        for stage, per in inputs.items():
+            shape = f"prefilter_{label}" if stage == "voxel" else f"prefilter_{label}_sor"
+            for name in PASS_KERNELS:
+                if name in per:
+                    timing.setdefault(shape, {})[name] = pass_kernel_timing(
+                        name, shape, per[name], card, clock_mhz)
         mask = raw[:, 0] < 0.5 * PAD_VALUE
         sync = sync_sites(lambda raw=raw, mask=mask: prefilter(raw, mask))
         if not sync["sync_free"]:
             raise AssertionError(f"prefilter on the {label} frame reads the device: {sync}")
         say("prefilter-sync", frame=label, **sync, card=json.dumps(card))
-    for label, runs in loop_inputs.items():
+    for label in ("loop_submap", "fpfh_keypoints"):
         timing[label] = {"voxel_centroids": prefilter_kernel_timing(
-            "voxel_centroids", label, runs, card, clock_mhz, parent_kern)}
+            "voxel_centroids", label, loop_inputs[label], card, clock_mhz, parent_kern)}
+    for name, args in loop_inputs["passes"].items():
+        timing["loop_submap"][name] = pass_kernel_timing(name, "loop_submap", args, card,
+                                                         clock_mhz)
     fixtures["loop_submap"] = {"voxel_centroids": loop_inputs["loop_submap"]}
     split = prefilter_split(fixtures, parent, card)
-    return dict(timing=timing, split=split, profile=profile_prefilter(raws, parent, card))
+    return dict(timing=timing, split=split,
+                profile=profile_prefilter(raws, loop_inputs["cloud"], parent, card))
 
 
 EIGH_CHUNK = 4096
@@ -1952,7 +2097,9 @@ def profile_gicp_build(cfg: PipelineConfig, ring, last, parent: str | None,
     for call, row in rec.items():
         k = row["kernel"]
         if not (row["bit_equal_kernel_plain"]
-                and k["wrapper_launches"] == (2 if call == "target" else 1)
+                # `grid_rows` for the target, and for both the covariances and the sort
+                # by cell's keys (2) and gather (1).
+                and k["wrapper_launches"] == (2 if call == "target" else 1) + 3
                 and k["cummax_launches"] == k["scatter_launches"] == 0
                 and k["launches"] < row["plain"]["launches"]):
             raise AssertionError(f"GICP build profile, {call}: {row}")
@@ -4657,8 +4804,14 @@ def main(argv=None) -> int:
             and launches["ndt_direct7_accumulate"] == launches["ndt_accumulate"] == 0
             and launches["ndt_finalize"] == 2 * (stats["keyframes"] + 1)
             and launches["eigh3x3"] == 0
-            # The prefilter launches each of its kernels once a frame.
+            # The prefilter launches each of its reductions once a frame, and its passes
+            # 2 + 2 (`cell_keys`), 2 + 1 (`sorted_runs`), 3 and 2 launches; a target build
+            # its fine level's keys (2) and both levels' runs (2 + 2).
             and launches["voxel_centroids"] == launches["sor_window_stats"] == stats["frames"]
+            and launches["sor_threshold"] == 3 * stats["frames"]
+            and launches["compact_rows"] == 2 * stats["frames"]
+            and launches["cell_keys"] == 4 * stats["frames"] + launches["ndt_finalize"]
+            and launches["sorted_runs"] == 3 * stats["frames"] + 2 * launches["ndt_finalize"]
             # Each map's dense table; NDT builds no hash grid.
             and launches["dense_table"] == launches["ndt_finalize"]
             and launches["grid_rows"] == 0):
@@ -4668,7 +4821,9 @@ def main(argv=None) -> int:
         kernel_launches_per_frame=per_frame, finalize_launches=launches["ndt_finalize"],
         dense_table_launches=launches["dense_table"],
         voxel_centroids_launches=launches["voxel_centroids"],
-        sor_window_stats_launches=launches["sor_window_stats"], card=json.dumps(card))
+        sor_window_stats_launches=launches["sor_window_stats"],
+        **{f"{name}_launches": launches[name] for name in PASS_KERNELS},
+        card=json.dumps(card))
 
     # -- 7. one ndt_align under the profiler (and the parent's, given --parent) ----------
     prof = profile_ndt_align(cfg, ring, last, T_last, args.parent)
@@ -5373,6 +5528,41 @@ def main(argv=None) -> int:
                "(filters/prefilter.py:62-65) inside the jitted prefilter; no Pallas kernel",
                "", "the same-cell range by two key searches, an odd-even merge network "
                "16, 32, 40 or 48 wide by the warp's largest count"))],
+        *[kernel_record(
+            name, timing, max_err[name], shape=shape,
+            source="lidar_graph_slam_tpu_torch/csrc/prefilter_pass.cu",
+            replaces=replaces, replaces_commit=None, launches=launches[name],
+            path=path + " (phase 6 counts the fused NDT front end)", ports=ports,
+            launches_loop_course=launches_course[name], bit_equal_plain=True,
+            profile={label: {p_: {k: row[p_][k] for k in (
+                "launches", "device_ms", "replay_device_us", "wall_ms", "enqueue_ms",
+                "sort_calls", "cumsum_launches", "searchsorted_launches", "argsort_calls")}
+                for p_ in ("kernel", "plain", "parent") if p_ in row}
+                for label, row in pf["profile"].items()})
+          for name, shape, replaces, ports, path in (
+              ("cell_keys", "prefilter_dense", "lidar_graph_slam_tpu/ops/voxel.py:79",
+               "min_corner, voxel_coords, pack_key and the INVALID_KEY where "
+               "(lidar_graph_slam_tpu/ops/voxel.py:79-97,114-116, ops/neighbors.py:70-73) "
+               "with the distance filter, crop and pad (filters/prefilter.py:27-40,114-116) "
+               "inside the jitted prefilter and map builds; no Pallas kernel",
+               "every sort by key: the prefilter's two, each target build's fine level, "
+               "each hash grid, each GICP covariance estimate"),
+              ("sorted_runs", "prefilter_dense", "lidar_graph_slam_tpu/ops/voxel.py:124",
+               "the sorted gather and the segment ids (first-of-run flags, cumsum) of the "
+               "jitted voxel_downsample and map builds (lidar_graph_slam_tpu/ops/"
+               "voxel.py:118-128,274-278) and the hash grid's gather and pad "
+               "(ops/neighbors.py:74-81); no Pallas kernel",
+               "after every sort by key: the prefilter's two, each target build's two "
+               "levels, each hash grid, each GICP covariance estimate"),
+              ("sor_threshold", "prefilter_dense_sor",
+               "lidar_graph_slam_tpu/filters/prefilter.py:66",
+               "the tail of statistical_outlier_mask (lidar_graph_slam_tpu/filters/"
+               "prefilter.py:66-73) and the pad after it (:115); no Pallas kernel",
+               "every prefilter call with the outlier filter on (the default)"),
+              ("compact_rows", "prefilter_dense_sor",
+               "lidar_graph_slam_tpu/core/pointcloud.py:67",
+               "compact (lidar_graph_slam_tpu/core/pointcloud.py:67-78) inside the jitted "
+               "prefilter; no Pallas kernel", "every prefilter call, every concat_clouds"))],
         kernel_record(
             "grid_rows", timing, max_err["grid_rows"], shape="grid_ring",
             source="lidar_graph_slam_tpu_torch/csrc/grid.cu",

@@ -62,18 +62,28 @@ def pad_points(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None], points, torch.full_like(points, PAD_VALUE))
 
 
-def compact(points: torch.Tensor, mask: torch.Tensor, capacity: int):
-    """Stable-compact valid rows to the front, emitting `capacity` rows (fewer when the
-    input has fewer rows, as the reference's slice does).
-
-    A filter marks rows invalid, then compaction produces the next stage's fixed-shape
-    input: a stable argsort on the inverted mask (valid-first), with no count read back.
-    """
+def compact_rows_plain(points: torch.Tensor, mask: torch.Tensor, capacity: int):
+    """Plain version of the `compact_rows` kernel (`ops/kernels.py`): a stable argsort on
+    the inverted mask (valid-first), cut to `capacity` rows, and its gathers."""
     order = torch.argsort(torch.logical_not(mask).to(torch.uint8), stable=True)
     order = order[:capacity]
     new_mask = mask[order]
     new_points = pad_points(points[order], new_mask)
     return new_points, new_mask
+
+
+def compact(points: torch.Tensor, mask: torch.Tensor, capacity: int):
+    """Stable-compact valid rows to the front, emitting `capacity` rows (fewer when the
+    input has fewer rows, as the reference's slice does), the rows past the valid ones
+    at PAD_VALUE and False.
+
+    A filter marks rows invalid, then compaction produces the next stage's fixed-shape
+    input, with no count read back: `kernels.compact_rows` (two launches on the card,
+    `compact_rows_plain` on the CPU).
+    """
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    return kernels.compact_rows(points, mask, capacity)
 
 
 def concat_clouds(points_list, masks_list, capacity: int):

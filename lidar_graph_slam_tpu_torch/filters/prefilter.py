@@ -4,10 +4,12 @@ Port of `lidar_graph_slam_tpu/filters/prefilter.py`: min-distance filter -> [opt
 crop box] -> voxel-grid downsample -> statistical outlier removal (SOR) -> [optional
 random sample] -> compaction. Filters mark rows invalid in the mask; one stable
 compaction hands the next stage a fixed-capacity cloud, so nothing here reads a count
-back from the device. The downsample's centroid sums and the SOR's window statistics are
-hand-written kernels on the card (`ops/kernels.py:voxel_centroids`, `sor_window_stats`);
-the sorts, the SOR's threshold (two global sums), the masks and the compaction are
-PyTorch operators.
+back from the device. The reference compiles it all as one program; on the card the
+port runs it as hand-written kernels around the library's two stable key sorts
+(`ops/kernels.py`): `cell_keys` (the distance filter and crop, the pad and the voxel
+keys), `sorted_runs`, `voxel_centroids`, then the SOR's `cell_keys`, `sorted_runs`
+(the gather alone), `sor_window_stats` and `sor_threshold` (mu, sigma, the mask and the
+pad), and `compact_rows`. On the CPU each takes its plain version.
 """
 
 from __future__ import annotations
@@ -19,49 +21,36 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud, compact, pad_
 from lidar_graph_slam_tpu_torch.ops import kernels, neighbors, voxel
 
 
-def _range(points: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(points * points, dim=-1))
+def filter_bounds(cfg: PrefilterConfig) -> tuple:
+    """The distance filter's and the crop's bounds as `kernels.cell_keys` takes them."""
+    crop = cfg.use_crop
+    return (cfg.min_distance, cfg.max_distance, cfg.min_xyz if crop else None,
+            cfg.max_xyz if crop else None)
 
 
-def distance_filter(points: torch.Tensor, mask: torch.Tensor, min_distance,
-                    max_distance=0.0) -> torch.Tensor:
-    """Drop points with range <= min_distance (and >= max_distance when enabled)."""
-    r = _range(points)
-    keep = mask & (r > min_distance)
-    if max_distance > 0.0:
-        keep = keep & (r < max_distance)
-    return keep
+def statistical_outlier_filter(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
+                               stddev_mult, cell_size=1.0):
+    """pcl::StatisticalOutlierRemoval semantics: mean distance to k nearest neighbors,
+    global mean/std over the cloud, drop points above mean + stddev_mult * std. Returns
+    (mask, points with the dropped rows at PAD_VALUE).
 
-
-def crop_filter(points: torch.Tensor, mask: torch.Tensor, min_xyz, max_xyz) -> torch.Tensor:
-    """Axis-aligned crop box (the reference's dormant `crop`)."""
-    lo = voxel.const(tuple(min_xyz), points.dtype, points.device)
-    hi = voxel.const(tuple(max_xyz), points.dtype, points.device)
-    inside = torch.all((points >= lo) & (points <= hi), dim=-1)
-    return mask & inside
+    Neighborhoods come from the sorted-grid sliding window (+-`neighbors.SOR_WINDOW` rows,
+    the reference's default) over the rows sorted by cell (`neighbors.sort_by_cell`);
+    `kernels.sor_window_stats` gives each row's statistics in the original row order, and
+    `kernels.sor_threshold` the mean, the deviation, the mask and the pad (one and three
+    launches on the card; on the CPU `sor_window_stats_plain` and `sor_threshold_plain`).
+    Points with < 2 window neighbors are outliers outright.
+    """
+    cells = neighbors.sort_by_cell(points, mask, cell_size)
+    mean_d, n_found = kernels.sor_window_stats(cells.keys, cells.points, cells.order, mean_k)
+    return kernels.sor_threshold(mean_d, n_found, mask, points,
+                                 voxel.as_f32(stddev_mult, points))
 
 
 def statistical_outlier_mask(points: torch.Tensor, mask: torch.Tensor, mean_k: int,
                              stddev_mult, cell_size=1.0) -> torch.Tensor:
-    """pcl::StatisticalOutlierRemoval semantics: mean distance to k nearest neighbors,
-    global mean/std over the cloud, drop points above mean + stddev_mult * std.
-
-    Neighborhoods come from the sorted-grid sliding window (+-`neighbors.SOR_WINDOW` rows,
-    the reference's default) over the rows sorted by cell (`neighbors.sort_by_cell`); `kernels.sor_window_stats` gives each row's statistics in
-    the original row order (one launch on the card; on the CPU `sor_window_stats_plain`:
-    `window_mean_knn_distance` and the scatter back). Points with < 2 window neighbors are
-    outliers outright.
-    """
-    cells = neighbors.sort_by_cell(points, mask, cell_size)
-    mean_d, n_found = kernels.sor_window_stats(cells.keys, cells.points, cells.order, mean_k)
-    has_neighbors = n_found >= 2
-
-    contributes = mask & has_neighbors
-    n_total = torch.clamp(torch.sum(contributes.to(torch.int32)), min=1)
-    mu = torch.sum(torch.where(contributes, mean_d, 0.0)) / n_total
-    var = torch.sum(torch.where(contributes, (mean_d - mu) ** 2, 0.0)) / n_total
-    thresh = mu + stddev_mult * torch.sqrt(var)
-    return mask & has_neighbors & (mean_d <= thresh)
+    """The mask of `statistical_outlier_filter`."""
+    return statistical_outlier_filter(points, mask, mean_k, stddev_mult, cell_size)[0]
 
 
 def random_sample_mask(points: torch.Tensor, mask: torch.Tensor, num: int,
@@ -108,20 +97,17 @@ def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int)
             draws[key] = torch.rand(n, generator=gen, device=device)
         return draws[key]
 
-    def prefilter(points: torch.Tensor, mask: torch.Tensor) -> PointCloud:
-        mask = distance_filter(points, mask, cfg.min_distance, cfg.max_distance)
-        if cfg.use_crop:
-            mask = crop_filter(points, mask, cfg.min_xyz, cfg.max_xyz)
-        points = pad_points(points, mask)
+    bounds = filter_bounds(cfg)
 
-        grid = voxel.voxel_downsample(points, mask, cfg.leaf_size, capacity=voxel_capacity)
+    def prefilter(points: torch.Tensor, mask: torch.Tensor) -> PointCloud:
+        # The distance filter (and crop) and the pad run in the voxel keys' kernel.
+        grid = voxel.voxel_downsample(points, mask, cfg.leaf_size, capacity=voxel_capacity,
+                                      bounds=bounds)
         pts, msk = grid.points, grid.mask
 
         if cfg.use_outlier_filter:
-            msk = statistical_outlier_mask(pts, msk, cfg.mean_k,
-                                           voxel.as_f32(cfg.stddev, pts),
-                                           cell_size=sor_cell_size(cfg))
-            pts = pad_points(pts, msk)
+            msk, pts = statistical_outlier_filter(pts, msk, cfg.mean_k, cfg.stddev,
+                                                  cell_size=sor_cell_size(cfg))
 
         if cfg.use_random_sampling:
             msk = sample_by_scores(msk, cfg.random_sample_num,

@@ -8,12 +8,15 @@ The wrappers port the TPU kernel `ndt_accumulate` of
 (`registration/icp.py:47-122`) and its fitness (`:155-188`), the voxel finalize of the
 jitted target build (`lidar_graph_slam_tpu/ops/voxel.py:182-339`), the centroid sums
 and the outlier filter's window statistics of the jitted prefilter
-(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`), GICP's jitted covariances
+(`lidar_graph_slam_tpu/filters/prefilter.py:94-117`) and its passes around the two sorts
+(the keys with the distance filter, the sorted runs, the SOR threshold, the compaction;
+`:88-119`), GICP's jitted covariances
 (`lidar_graph_slam_tpu/registration/gicp.py:61-90`) and the jitted hash grid build with
 its dense table (`lidar_graph_slam_tpu/ops/neighbors.py:68-100`, `ops/voxel.py:60-76`)
-as hand-written CUDA kernels for Hopper in eight sources (`csrc/ndt_accumulate.cu`,
+as hand-written CUDA kernels for Hopper in nine sources (`csrc/ndt_accumulate.cu`,
 `csrc/ndt_loop.cu`, `csrc/gicp_loop.cu`, `csrc/icp_loop.cu`, `csrc/voxel_finalize.cu`,
-`csrc/prefilter.cu`, `csrc/covariances.cu`, `csrc/grid.cu`; the headers
+`csrc/prefilter.cu`, `csrc/covariances.cu`, `csrc/grid.cu`, `csrc/prefilter_pass.cu`; the
+headers
 `csrc/ndt_common.cuh`, `csrc/loop_common.cuh`, `csrc/nn_stage.cuh` (the grid-NN query)
 and `csrc/eigh3x3.cuh` hold what they share; each source's header says what bounds its
 kernels), compiled with nvcc (one process a source, all at once) into one library at
@@ -79,6 +82,16 @@ first use in `build/` and bound with ctypes:
 * `grid_rows(keys_sorted, points_sorted)`: the rest of `ops/neighbors.py:build_hash_grid`
   after the sort by cell in one clear and one launch: each row's run start, the packed
   rows and the table of the runs' first valid rows.
+* `cell_keys(points, mask, leaf, bounds)`: every sort by key's keys in two launches (the
+  valid rows' minimum corner, then the clamped packed keys), with `bounds` after the
+  prefilter's distance filter, crop and pad.
+* `sorted_runs(keys_sorted, order, points, capacity)`: what follows the sort in two
+  launches (the gather and each block's record, then the runs' starts, lengths and
+  count), or the gather and pad alone in one.
+* `sor_threshold(mean_d, n_found, mask, points, stddev_mult)`: the outlier filter's mean,
+  deviation, mask and pad in three launches, summed in a fixed order.
+* `compact_rows(points, mask, capacity)`: the stable compaction in two launches (each
+  block's count, then the scan and scatter).
 
 Beside each, its plain PyTorch version: `ndt_accumulate_plain` is the port of
 `ndt_accumulate_xla` with `point_jacobian_blocks` and `accumulate_normal_equations`
@@ -98,7 +111,10 @@ prefilter kernels', `ops/neighbors.py:gicp_covariances_plain` (`window_covarianc
 the sorted rows, then `plane_covariances_plain`) the covariance kernel's,
 `ops/voxel.py:build_dense_table_plain` (the reference's scatter-min) and
 `ops/neighbors.py:grid_rows_plain` (its running max of the first-of-run rows) the grid
-kernels', all bit for bit on the card. A
+kernels', `ops/voxel.py:cell_keys_plain` and `sorted_runs_plain`,
+`ops/neighbors.py:sor_threshold_plain` (its sums in the kernel's order) and
+`core/pointcloud.py:compact_rows_plain` (a stable argsort) the prefilter passes', all bit
+for bit on the card. A
 wrapper takes its plain version for CPU tensors only; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -132,11 +148,14 @@ import time
 import torch
 
 from lidar_graph_slam_tpu_torch.core import se3
+from lidar_graph_slam_tpu_torch.core.pointcloud import compact_rows_plain
 from lidar_graph_slam_tpu_torch.ops.neighbors import (
+    SOR_SUM_ROWS,
     SOR_WINDOW,
     gicp_covariances_plain,
     grid_rows_plain,
     nearest,
+    sor_threshold_plain,
     sor_window_stats_plain,
 )
 from lidar_graph_slam_tpu_torch.ops.voxel import (
@@ -147,8 +166,10 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     NdtVoxelMap,
     _eigh3x3,
     build_dense_table_plain,
+    cell_keys_plain,
     lookup_direct7,
     ndt_finalize_plain,
+    sorted_runs_plain,
     voxel_centroids_plain,
 )
 from lidar_graph_slam_tpu_torch.registration.base import cap_step, norm, solve_damped
@@ -159,7 +180,8 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 _SOURCES = [os.path.join(_CSRC, f) for f in ("ndt_accumulate.cu", "ndt_loop.cu",
                                               "gicp_loop.cu", "icp_loop.cu",
                                               "voxel_finalize.cu", "prefilter.cu",
-                                              "covariances.cu", "grid.cu")]
+                                              "covariances.cu", "grid.cu",
+                                              "prefilter_pass.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("ndt_common.cuh", "loop_common.cuh",
                                               "nn_stage.cuh", "eigh3x3.cuh")]
 _BUILD_DIR = os.path.join(_PKG_DIR, "build")
@@ -826,12 +848,18 @@ def _load_library_locked():
     lib.lgs_dense_table.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
     lib.lgs_grid_rows.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp, vp,
                                   vp]
+    lib.lgs_cell_keys.argtypes = [vp, vp, i64, i32, f32, f32, i32, i32, f32, f32, f32, f32, f32,
+                                  f32, vp, i32, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp]
+    lib.lgs_sorted_runs.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, vp, vp]
+    lib.lgs_sor_threshold.argtypes = [vp, vp, vp, vp, i64, vp, vp, vp, vp, vp, vp]
+    lib.lgs_compact_rows.argtypes = [vp, vp, i64, i64, vp, vp, vp, vp]
     for fn in (lib.lgs_ndt_accumulate, lib.lgs_ndt_direct7_accumulate,
                lib.lgs_ndt_direct7_accumulate_batched, lib.lgs_ndt_align_loop,
                lib.lgs_ndt_align_loop_batched, lib.lgs_gicp_align_loop, lib.lgs_icp_align_loop,
                lib.lgs_icp_fitness, lib.lgs_ndt_finalize, lib.lgs_eigh3x3,
                lib.lgs_voxel_centroids, lib.lgs_sor_window_stats, lib.lgs_gicp_covariances,
-               lib.lgs_dense_table, lib.lgs_grid_rows):
+               lib.lgs_dense_table, lib.lgs_grid_rows, lib.lgs_cell_keys,
+               lib.lgs_sorted_runs, lib.lgs_sor_threshold, lib.lgs_compact_rows):
         fn.restype = ctypes.c_int
     for fn in (lib.lgs_ndt_worked_launches, lib.lgs_gicp_worked_launches,
                lib.lgs_icp_worked_launches):
@@ -850,6 +878,10 @@ def _load_library_locked():
         fn = getattr(lib, f"lgs_ndt_{name}")
         fn.argtypes, fn.restype = [], ctypes.c_int
         _consts[name] = fn()
+    lib.lgs_prefilter_pass_rows.argtypes, lib.lgs_prefilter_pass_rows.restype = [], i32
+    if lib.lgs_prefilter_pass_rows() != SOR_SUM_ROWS:
+        raise RuntimeError("csrc/prefilter_pass.cu: kRows differs from "
+                           "ops/neighbors.py:SOR_SUM_ROWS")
     lib.lgs_cuda_error_string.argtypes = [ctypes.c_int]
     lib.lgs_cuda_error_string.restype = ctypes.c_char_p
     build_info.update(path=so_path, seconds=seconds, log=log)
@@ -1740,6 +1772,203 @@ def grid_rows(keys_sorted, points_sorted):
     return starts, packed, table
 
 
+def _pass_blocks(n: int) -> int:
+    """Blocks of a launch of `csrc/prefilter_pass.cu` over n rows: SOR_SUM_ROWS rows a
+    block, at least one."""
+    return max(1, -(-n // SOR_SUM_ROWS))
+
+
+def cell_keys(points, mask, leaf, bounds=None):
+    """Each valid row's packed cell key at `leaf`, relative to origin = the valid rows'
+    minimum corner less one leaf, in two launches (the corner, then the keys).
+
+    points: [N, 3] f32; mask: [N] bool; leaf: 0-d f32 (read on the device)
+    bounds: None, or (min_distance, max_distance, min_xyz, max_xyz): the prefilter's
+            distance filter (range > min_distance, and < max_distance when that is > 0)
+            and, when min_xyz is not None, its crop box, applied to `mask` first
+    Returns (keys [N] i32: INVALID_KEY where not valid, origin [3] f32), with `bounds`
+    also (the kept mask [N] bool, the points [N, 3] f32 with the dropped rows at
+    PAD_VALUE), as `ops/voxel.py:cell_keys_plain`, bit for bit on the card.
+
+    CPU tensors take `cell_keys_plain`; CUDA tensors launch the `cell_corner` and
+    `cell_keys` kernels (`csrc/prefilter_pass.cu`, counted in `cell_keys.launches`) or
+    raise. Nothing is read back.
+    """
+    dev = points.device
+    if dev.type == "cpu":
+        return cell_keys_plain(points, mask, leaf, bounds)
+    if dev.type != "cuda":
+        raise ValueError(f"cell_keys: unsupported device {dev}")
+    N = points.shape[0] if points.dim() == 2 else -1
+    if not isinstance(leaf, torch.Tensor):
+        raise ValueError("cell_keys: leaf must be a 0-d float32 tensor on the card")
+    _check("cell_keys", dev, points=(points, (N, 3), torch.float32),
+           mask=(mask, (N,), torch.bool), leaf=(leaf, (), torch.float32))
+    _check_rows("cell_keys", N)
+    keys = torch.empty((N,), dtype=torch.int32, device=dev)
+    origin = torch.empty((3,), dtype=torch.float32, device=dev)
+    partials = torch.empty((3 * _pass_blocks(N),), dtype=torch.float32, device=dev)
+    kept = padded = None
+    filt = (0.0, 0.0, 0, 0, (0.0,) * 3, (0.0,) * 3)
+    if bounds is not None:
+        min_distance, max_distance, min_xyz, max_xyz = bounds
+        crop = min_xyz is not None
+        filt = (float(min_distance), float(max_distance), int(max_distance > 0.0), int(crop),
+                tuple(map(float, min_xyz)) if crop else (0.0,) * 3,
+                tuple(map(float, max_xyz)) if crop else (0.0,) * 3)
+        kept = torch.empty((N,), dtype=torch.bool, device=dev)
+        padded = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    lib = load_library()
+    _raise_on(lib.lgs_cell_keys(
+        points.data_ptr(), mask.data_ptr(), N, int(bounds is not None), *filt[:4], *filt[4],
+        *filt[5], leaf.data_ptr(), _BITS_Y + _BITS_Z, _BITS_Z, *COORD_MAX,
+        partials.data_ptr(), None if kept is None else kept.data_ptr(),
+        None if padded is None else padded.data_ptr(), keys.data_ptr(), origin.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "cell_keys")
+    _count(cell_keys, 2)
+    return (keys, origin) if bounds is None else (keys, origin, kept, padded)
+
+
+def sorted_runs(keys_sorted, order=None, points=None, capacity=None):
+    """What follows a sort by key, in one pass and a scan: with `points`, the sorted
+    points; with `capacity` = C, the runs of equal valid keys as `_sorted_runs` gives
+    them and their count.
+
+    keys_sorted: [N] i32 ascending (INVALID_KEY rows last)
+    order:       [N] i64, the sort's permutation (with `points`)
+    points:      [N, 3] f32 or None
+    capacity:    C >= 0 or None
+    Returns (pts_sorted [N, 3] f32 = points[order] or None, runs or None), runs =
+    (starts [C+1] i64, lengths [C+1] i64, num_voxels 0-d i64): row r < C is the r-th run,
+    empty past the last; row C holds the invalid rows and every run past C. Without
+    `capacity`, the rows whose key is INVALID_KEY are parked at PAD_VALUE (the SOR's cell
+    sort). As `ops/voxel.py:sorted_runs_plain`, bit for bit on the card.
+
+    CPU tensors take `sorted_runs_plain`; CUDA tensors launch the `runs_count` kernel (the
+    gather and each block's record) and, with `capacity`, the `runs_write` kernel
+    (`csrc/prefilter_pass.cu`, counted in `sorted_runs.launches`; no launch for the gather
+    alone at N = 0) or raise. Nothing is read back.
+    """
+    dev = keys_sorted.device
+    if dev.type == "cpu":
+        return sorted_runs_plain(keys_sorted, order, points, capacity)
+    if dev.type != "cuda":
+        raise ValueError(f"sorted_runs: unsupported device {dev}")
+    if points is None and capacity is None:
+        raise ValueError("sorted_runs: give points, capacity or both")
+    N = keys_sorted.shape[0] if keys_sorted.dim() == 1 else -1
+    _check("sorted_runs", dev, keys_sorted=(keys_sorted, (N,), torch.int32))
+    _check_rows("sorted_runs", N)
+    pts_sorted = runs = None
+    args = [None, None, None]
+    if points is not None:
+        _check("sorted_runs", dev, order=(order, (N,), torch.int64),
+               points=(points, (N, 3), torch.float32))
+        pts_sorted = torch.empty((N, 3), dtype=torch.float32, device=dev)
+        args = [order.data_ptr(), points.data_ptr(), pts_sorted.data_ptr()]
+    C, rec, launches = -1, None, int(N > 0)
+    if capacity is not None:
+        C = int(capacity)
+        if C < 0:
+            raise ValueError(f"sorted_runs: capacity must be >= 0, got {capacity}")
+        runs = (torch.empty((C + 1,), dtype=torch.int64, device=dev),
+                torch.empty((C + 1,), dtype=torch.int64, device=dev),
+                torch.empty((), dtype=torch.int64, device=dev))
+        rec = torch.empty((3 * _pass_blocks(N),), dtype=torch.int32, device=dev)
+        launches = 2
+    lib = load_library()
+    _raise_on(lib.lgs_sorted_runs(
+        keys_sorted.data_ptr(), args[0], args[1], N, C, args[2],
+        None if rec is None else rec.data_ptr(),
+        *(None,) * 3 if runs is None else (t.data_ptr() for t in runs),
+        torch.cuda.current_stream(dev).cuda_stream), "sorted_runs")
+    if launches:
+        _count(sorted_runs, launches)
+    return pts_sorted, runs
+
+
+def sor_threshold(mean_d, n_found, mask, points, stddev_mult):
+    """The statistical outlier filter after its window statistics, in three launches
+    (mu's sums, the variance's, the mask): the rows that `mask` keeps with 2 or more
+    neighbours contribute; a row is kept where `mask`, 2 or more neighbours and mean_d <=
+    mu + stddev_mult * sigma, the sums in a fixed order (a tree over each block's
+    SOR_SUM_ROWS rows, then the blocks in index order).
+
+    mean_d: [N] f32; n_found: [N] i64 (`sor_window_stats`, the original row order)
+    mask: [N] bool; points: [N, 3] f32; stddev_mult: 0-d f32 (read on the device)
+    Returns (kept [N] bool, points [N, 3] f32 with the other rows at PAD_VALUE), as
+    `ops/neighbors.py:sor_threshold_plain`, bit for bit on the card.
+
+    CPU tensors take `sor_threshold_plain`; CUDA tensors launch the `sor_threshold`
+    kernel's three passes (`csrc/prefilter_pass.cu`, counted in `sor_threshold.launches`;
+    none for N = 0) or raise. Nothing is read back.
+    """
+    dev = mean_d.device
+    if dev.type == "cpu":
+        return sor_threshold_plain(mean_d, n_found, mask, points, stddev_mult)
+    if dev.type != "cuda":
+        raise ValueError(f"sor_threshold: unsupported device {dev}")
+    N = mean_d.shape[0] if mean_d.dim() == 1 else -1
+    if not isinstance(stddev_mult, torch.Tensor):
+        raise ValueError("sor_threshold: stddev_mult must be a 0-d float32 tensor on the card")
+    _check("sor_threshold", dev, mean_d=(mean_d, (N,), torch.float32),
+           n_found=(n_found, (N,), torch.int64), mask=(mask, (N,), torch.bool),
+           points=(points, (N, 3), torch.float32),
+           stddev_mult=(stddev_mult, (), torch.float32))
+    _check_rows("sor_threshold", N)
+    kept = torch.empty((N,), dtype=torch.bool, device=dev)
+    padded = torch.empty((N, 3), dtype=torch.float32, device=dev)
+    if N:
+        blocks = _pass_blocks(N)
+        partials = torch.empty((2 * blocks,), dtype=torch.float32, device=dev)
+        counts = torch.empty((blocks,), dtype=torch.int32, device=dev)
+        lib = load_library()
+        _raise_on(lib.lgs_sor_threshold(
+            mean_d.data_ptr(), n_found.data_ptr(), mask.data_ptr(), points.data_ptr(), N,
+            stddev_mult.data_ptr(), partials.data_ptr(), counts.data_ptr(), kept.data_ptr(),
+            padded.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "sor_threshold")
+        _count(sor_threshold, 3)
+    return kept, padded
+
+
+def compact_rows(points, mask, capacity: int):
+    """A stable compaction in two launches (each block's valid rows counted, then the
+    counts scanned and the rows scattered): the valid rows to the front in their order,
+    the first `capacity` of them kept, the other rows PAD_VALUE and False.
+
+    points: [N, 3] f32; mask: [N] bool; capacity >= 0
+    Returns (points [min(N, capacity), 3] f32, mask [min(N, capacity)] bool), as
+    `core/pointcloud.py:compact_rows_plain` (a stable argsort of the inverted mask and its
+    gathers), bit for bit on the card.
+
+    CPU tensors take `compact_rows_plain`; CUDA tensors launch the `compact_count` and
+    `compact_write` kernels (`csrc/prefilter_pass.cu`, counted in
+    `compact_rows.launches`; none for N = 0) or raise. Nothing is read back.
+    """
+    dev = points.device
+    if dev.type == "cpu":
+        return compact_rows_plain(points, mask, capacity)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_rows: unsupported device {dev}")
+    N = points.shape[0] if points.dim() == 2 else -1
+    _check("compact_rows", dev, points=(points, (N, 3), torch.float32),
+           mask=(mask, (N,), torch.bool))
+    _check_rows("compact_rows", N)
+    if int(capacity) < 0:
+        raise ValueError(f"compact_rows: capacity must be >= 0, got {capacity}")
+    rows = min(N, int(capacity))
+    out = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    out_mask = torch.empty((rows,), dtype=torch.bool, device=dev)
+    if N:
+        rec = torch.empty((_pass_blocks(N),), dtype=torch.int32, device=dev)
+        lib = load_library()
+        _raise_on(lib.lgs_compact_rows(
+            points.data_ptr(), mask.data_ptr(), N, rows, rec.data_ptr(), out.data_ptr(),
+            out_mask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream), "compact_rows")
+        _count(compact_rows, 2)
+    return out, out_mask
+
+
 def loop_kernel_attributes(device, gicp=None, icp=None) -> dict:
     """The NDT loop kernel's registers per thread, shared memory bytes a block and local
     memory bytes per thread (`cudaFuncGetAttributes`), its tile of source points a block,
@@ -1802,3 +2031,7 @@ sor_window_stats.launches = 0
 gicp_covariances.launches = 0
 dense_table.launches = 0
 grid_rows.launches = 0
+cell_keys.launches = 0
+sorted_runs.launches = 0
+sor_threshold.launches = 0
+compact_rows.launches = 0

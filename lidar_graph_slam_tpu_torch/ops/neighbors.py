@@ -5,7 +5,8 @@ Port of `lidar_graph_slam_tpu/ops/neighbors.py`: the grid build (`HashGrid`,
 whose plain version is `grid_rows_plain`), the grid queries (`_candidate_scan`, `nearest`
 for ICP, GICP and the loop fitness, `knn`), the same-cloud sliding-window neighborhoods
 that statistical outlier removal (over `sort_by_cell`'s rows: the grid's keys, points and
-order without its lookup structures) and GICP's covariances use (`window_covariances`,
+order without its lookup structures; its threshold `sor_threshold_plain`, the plain
+version of the `sor_threshold` kernel) and GICP's covariances use (`window_covariances`,
 then `plane_covariances_plain`: `gicp_covariances_plain`, the plain version of the
 `gicp_covariances` kernel of `ops/kernels.py`), and the dense `radius_mask`. Points are
 keyed by cell and stably sorted, so the points of one cell are consecutive: a query
@@ -34,7 +35,6 @@ from lidar_graph_slam_tpu_torch.ops.voxel import (
     as_f32,
     build_dense_table_plain,
     const,
-    min_corner,
     pack_key,
     voxel_coords,
 )
@@ -44,6 +44,9 @@ _7_OFFSETS = ((0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1)
 # The statistical outlier filter's window: +-24 sorted rows (the reference's default; the
 # `sor_window_stats` kernel, `csrc/prefilter.cu:kWindow`, is built for it).
 SOR_WINDOW = 24
+# The rows of one block of the `sor_threshold` kernel's sums, added as a tree
+# (`csrc/prefilter_pass.cu:kRows`, the rows a block of every pass there).
+SOR_SUM_ROWS = 1024
 
 
 @dataclass
@@ -72,13 +75,15 @@ class CellSort:
 
 
 def _sort_by_cell(points: torch.Tensor, mask: torch.Tensor, cell_size):
-    """(CellSort, origin [3], cell_size 0-d): the cell frame and the rows sorted in it."""
+    """(CellSort, origin [3], cell_size 0-d): the cell frame and the rows sorted in it —
+    the keys by `kernels.cell_keys`, the library's stable sort, and the gather and pad by
+    `kernels.sorted_runs` (their plain versions on the CPU)."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
     cell_size = as_f32(cell_size, points)
-    origin = min_corner(points, mask) - cell_size
-    keys = pack_key(voxel_coords(points, origin, 1.0 / cell_size))
-    keys = torch.where(mask, keys, INVALID_KEY)
+    keys, origin = kernels.cell_keys(points, mask, cell_size)
     keys_sorted, order = torch.sort(keys, stable=True)
-    pts_sorted = pad_points(points[order], keys_sorted != INVALID_KEY)
+    pts_sorted, _ = kernels.sorted_runs(keys_sorted, order, points)
     return CellSort(keys=keys_sorted, points=pts_sorted, order=order), origin, cell_size
 
 
@@ -255,6 +260,49 @@ def sor_window_stats_plain(keys: torch.Tensor, points: torch.Tensor, order: torc
     n_found = torch.zeros((n,), dtype=found_sorted.dtype, device=points.device)
     n_found[order] = found_sorted
     return mean_d, n_found
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a float32 [N] in the `sor_threshold` kernel's order: each block of
+    SOR_SUM_ROWS rows (the last padded with 0.0) as a tree, x[i] + x[i + h] for h = half
+    the width down to 1, then the block sums added in index order from 0.0."""
+    n = x.shape[0]
+    blocks = max(1, -(-n // SOR_SUM_ROWS))
+    rows = torch.zeros(blocks * SOR_SUM_ROWS, dtype=x.dtype, device=x.device)
+    rows[:n] = x
+    rows = rows.reshape(blocks, SOR_SUM_ROWS)
+    while rows.shape[1] > 1:
+        h = rows.shape[1] // 2
+        rows = rows[:, :h] + rows[:, h:]
+    total = torch.zeros((), dtype=x.dtype, device=x.device)
+    for b in range(blocks):
+        total = total + rows[b, 0]
+    return total
+
+
+def sor_threshold_plain(mean_d: torch.Tensor, n_found: torch.Tensor, mask: torch.Tensor,
+                        points: torch.Tensor, stddev_mult):
+    """Plain version of the `sor_threshold` kernel (`ops/kernels.py`): the rest of the
+    statistical outlier filter after the window statistics (mean_d [N] f32, n_found [N]
+    i64 in the original row order). The rows with 2 or more neighbours that `mask` keeps
+    contribute; mu and the variance are their means (`sor_moments`, the kernel's order);
+    a row is kept where `mask`, 2 or more neighbours and mean_d <= mu + stddev_mult *
+    sigma, sigma's root taken in float64 and rounded once. Returns (kept [N] bool, points
+    [N, 3] with the other rows at PAD_VALUE)."""
+    mu, var = sor_moments(mean_d, n_found, mask)
+    thresh = mu + stddev_mult * torch.sqrt(var.double()).float()
+    kept = mask & (n_found >= 2) & (mean_d <= thresh)
+    return kept, pad_points(points, kept)
+
+
+def sor_moments(mean_d: torch.Tensor, n_found: torch.Tensor, mask: torch.Tensor):
+    """The mean and the variance (0-d f32) of mean_d over the rows that `mask` keeps with
+    2 or more neighbours, each sum in the `sor_threshold` kernel's order (`_tree_sum`)."""
+    contributes = mask & (n_found >= 2)
+    n_total = torch.clamp(torch.sum(contributes.to(torch.int32)), min=1)
+    mu = _tree_sum(torch.where(contributes, mean_d, 0.0)) / n_total
+    dev = mean_d - mu
+    return mu, _tree_sum(torch.where(contributes, dev * dev, 0.0)) / n_total
 
 
 def window_covariances(grid, window: int = 16):

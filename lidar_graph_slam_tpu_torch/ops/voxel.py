@@ -18,7 +18,12 @@ the run lengths, then `_finalize_ndt_plain`, the reference's arithmetic op for o
 run it inside `kernels.gicp_covariances`, the product in `_scaled_gram`'s order). The
 centroid downsample (`voxel_downsample`) goes from its sorted rows to its centroids through
 `kernels.voxel_centroids` (one launch on the card; on the CPU `voxel_centroids_plain`, the
-run sums by `torch.segment_reduce`). A dense cell table (`build_dense_table`: every NDT
+run sums by `torch.segment_reduce`). Every sort by key (`_key_sort`: the downsample, the
+map's fine level, and through `ops/neighbors.py` the hash grid and the SOR's cells) takes
+its keys from `kernels.cell_keys` (`cell_keys_plain`: the minimum corner, `voxel_coords`,
+`pack_key`; optionally the prefilter's distance filter first) and what follows the sort
+from `kernels.sorted_runs` (`sorted_runs_plain`: the gather and `_sorted_runs`), two
+launches each on the card. A dense cell table (`build_dense_table`: every NDT
 map level, the RANSAC occupancy table) is `kernels.dense_table` (one clear and one launch
 on the card; `build_dense_table_plain`, the reference's scatter-min, on the CPU).
 `ops/kernels.py` imports this module, so the map builders, the downsample and the table
@@ -142,6 +147,48 @@ def min_corner(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None], points, PAD_VALUE).amin(dim=0)
 
 
+def in_range(points: torch.Tensor, min_distance, max_distance=0.0) -> torch.Tensor:
+    """The prefilter's distance filter: range > min_distance (and < max_distance when that
+    is > 0), the range sqrt((x x + y y) + z z) with the sum in float32 in that order and
+    the root taken in float64 and rounded once — the correctly rounded float32 root, as
+    the `cell_keys` kernel's `__fsqrt_rn` (the CPU's float32 `torch.sqrt` is not always
+    correctly rounded)."""
+    x, y, z = points[:, 0], points[:, 1], points[:, 2]
+    r = torch.sqrt(((x * x + y * y) + z * z).double()).float()
+    keep = r > min_distance
+    if max_distance > 0.0:
+        keep = keep & (r < max_distance)
+    return keep
+
+
+def in_box(points: torch.Tensor, min_xyz, max_xyz) -> torch.Tensor:
+    """The prefilter's axis-aligned crop box."""
+    lo = const(tuple(min_xyz), points.dtype, points.device)
+    hi = const(tuple(max_xyz), points.dtype, points.device)
+    return torch.all((points >= lo) & (points <= hi), dim=-1)
+
+
+def cell_keys_plain(points: torch.Tensor, mask: torch.Tensor, leaf: torch.Tensor,
+                    bounds=None):
+    """Plain version of the `cell_keys` kernel (`ops/kernels.py`): each valid row's packed
+    cell key at `leaf` (0-d f32) relative to origin = the valid rows' minimum corner less
+    one leaf, INVALID_KEY for the other rows. Returns (keys [N] i32, origin [3] f32).
+
+    With `bounds` = (min_distance, max_distance, min_xyz, max_xyz) the prefilter's
+    distance filter (`in_range`) and, when min_xyz is not None, its crop (`in_box`) first
+    drop rows from `mask`, the dropped rows parked at PAD_VALUE, and the keys are those
+    of the kept rows: (keys, origin, kept mask [N] bool, padded points [N, 3] f32)."""
+    if bounds is not None:
+        min_distance, max_distance, min_xyz, max_xyz = bounds
+        mask = mask & in_range(points, min_distance, max_distance)
+        if min_xyz is not None:
+            mask = mask & in_box(points, min_xyz, max_xyz)
+        points = pad_points(points, mask)
+    origin = min_corner(points, mask) - leaf
+    keys = torch.where(mask, pack_key(voxel_coords(points, origin, 1.0 / leaf)), INVALID_KEY)
+    return (keys, origin) if bounds is None else (keys, origin, mask, points)
+
+
 def _sorted_runs(keys_sorted: torch.Tensor, capacity: int):
     """Per-row segment ids and per-segment run lengths of a sorted key array.
 
@@ -157,6 +204,22 @@ def _sorted_runs(keys_sorted: torch.Tensor, capacity: int):
     bounds = torch.searchsorted(
         seg, torch.arange(capacity + 2, dtype=torch.int64, device=seg.device))
     return first, seg, bounds[1:] - bounds[:-1], bounds[:-1]
+
+
+def sorted_runs_plain(keys_sorted: torch.Tensor, order=None, points=None, capacity=None):
+    """Plain version of the `sorted_runs` kernel (`ops/kernels.py`): what follows a sort by
+    key. With `points` (and `order`, the sort's permutation), pts_sorted = points[order];
+    with `capacity` = C, the runs of `_sorted_runs`: (starts [C+1] i64, lengths [C+1] i64,
+    num_voxels 0-d i64, the first-of-run rows). Without `capacity` the gather alone,
+    rows whose key is INVALID_KEY parked at PAD_VALUE (the SOR's cell sort). Returns
+    (pts_sorted or None, runs or None)."""
+    if points is None and capacity is None:
+        raise ValueError("sorted_runs: give points, capacity or both")
+    pts_sorted = None if points is None else points[order]
+    if capacity is None:
+        return pad_points(pts_sorted, keys_sorted != INVALID_KEY), None
+    first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
+    return pts_sorted, (starts, lengths, torch.sum(first.to(torch.int32)))
 
 
 def _segment_sum(data: torch.Tensor, lengths: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -184,13 +247,6 @@ class VoxelGrid:
     overflow: torch.Tensor    # 0-d bool — True if > capacity voxels were occupied
 
 
-def _sort_points(points, mask, origin, inv_leaf):
-    keys = pack_key(voxel_coords(points, origin, inv_leaf))
-    keys = torch.where(mask, keys, INVALID_KEY)
-    keys_sorted, order = torch.sort(keys, stable=True)
-    return keys_sorted, points[order]
-
-
 def voxel_centroids_plain(keys_sorted, pts_sorted, starts, lengths, origin, leaf):
     """Plain version of the `voxel_centroids` kernel (`ops/kernels.py`): the centroid of
     each voxel row r < C from the rows sorted by voxel key, the reference's arithmetic op
@@ -215,25 +271,42 @@ def voxel_centroids_plain(keys_sorted, pts_sorted, starts, lengths, origin, leaf
     return pad_points(centroids, out_mask), out_mask
 
 
-def centroid_runs(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int):
-    """The downsample's sort by voxel key and its runs: ((keys_sorted, pts_sorted, starts,
-    lengths, origin, leaf), num_voxels), the first being `kernels.voxel_centroids`'
-    arguments."""
-    leaf = as_f32(leaf, points)
-    origin = min_corner(points, mask) - leaf
-    keys_sorted, pts_sorted = _sort_points(points, mask, origin, 1.0 / leaf)
-    first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
-    return ((keys_sorted, pts_sorted, starts, lengths, origin, leaf),
-            torch.sum(first.to(torch.int32)))
-
-
-def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int) -> VoxelGrid:
-    """Centroid-per-voxel downsample of a masked cloud into `capacity` output slots: one
-    sort by voxel key, then the centroids by `kernels.voxel_centroids` (its kernel on the
-    card, `voxel_centroids_plain` on the CPU)."""
+def _key_sort(points, mask, leaf, capacity: int, bounds=None):
+    """One stable sort of a masked cloud by its cell keys at `leaf` (0-d f32), between the
+    `cell_keys` and `sorted_runs` kernels of `ops/kernels.py` (their plain versions on the
+    CPU): (origin, keys_sorted, pts_sorted, (starts, lengths, num_voxels)). `bounds` is
+    `cell_keys`' filter."""
     from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
 
-    runs, num_voxels = centroid_runs(points, mask, leaf, capacity)
+    keys, origin, *kept = kernels.cell_keys(points, mask, leaf, bounds)
+    if kept:
+        mask, points = kept
+    keys_sorted, order = torch.sort(keys, stable=True)
+    pts_sorted, runs = kernels.sorted_runs(keys_sorted, order, points, capacity)
+    return origin, keys_sorted, pts_sorted, runs
+
+
+def centroid_runs(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int,
+                  bounds=None):
+    """The downsample's sort by voxel key and its runs: ((keys_sorted, pts_sorted, starts,
+    lengths, origin, leaf), num_voxels), the first being `kernels.voxel_centroids`'
+    arguments. `bounds` is `cell_keys`' filter (the prefilter's distance filter)."""
+    leaf = as_f32(leaf, points)
+    origin, keys_sorted, pts_sorted, (starts, lengths, num_voxels) = _key_sort(
+        points, mask, leaf, capacity, bounds)
+    return (keys_sorted, pts_sorted, starts, lengths, origin, leaf), num_voxels
+
+
+def voxel_downsample(points: torch.Tensor, mask: torch.Tensor, leaf, capacity: int,
+                     bounds=None) -> VoxelGrid:
+    """Centroid-per-voxel downsample of a masked cloud into `capacity` output slots: the
+    keys and one sort by voxel key (`centroid_runs`; with `bounds`, the prefilter's
+    distance filter first, in the keys' kernel), then the centroids by
+    `kernels.voxel_centroids` (its kernel on the card, `voxel_centroids_plain` on the
+    CPU)."""
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
+    runs, num_voxels = centroid_runs(points, mask, leaf, capacity, bounds)
     centroids, out_mask = kernels.voxel_centroids(*runs)
     return VoxelGrid(
         points=centroids,
@@ -341,13 +414,11 @@ def regularize_covariance(cov: torch.Tensor, min_eig_ratio: float = 1e-2):
 
 
 def _sorted_points(points, mask, resolution, capacity: int):
-    """One stable sort of a masked cloud by voxel key: (origin, runs, pts_sorted,
-    num_voxels), with runs = (keys_sorted [N] i32, starts [capacity+1] i64, lengths
-    [capacity+1] i64) of `_sorted_runs`."""
-    origin = min_corner(points, mask) - resolution
-    keys_sorted, pts_sorted = _sort_points(points, mask, origin, 1.0 / resolution)
-    first, _, lengths, starts = _sorted_runs(keys_sorted, capacity)
-    num_voxels = torch.sum(first.to(torch.int32))
+    """One stable sort of a masked cloud by voxel key (`_key_sort`): (origin, runs,
+    pts_sorted, num_voxels), with runs = (keys_sorted [N] i32, starts [capacity+1] i64,
+    lengths [capacity+1] i64) of `_sorted_runs`."""
+    origin, keys_sorted, pts_sorted, (starts, lengths, num_voxels) = _key_sort(
+        points, mask, resolution, capacity)
     return origin, (keys_sorted, starts, lengths), pts_sorted, num_voxels
 
 
@@ -378,12 +449,15 @@ def _coarse_runs(fine_moments, occupied, factor: int, coarse_capacity: int):
     keyed by its parent coarse voxel, one stable sort. Returns ((ck_sorted, starts,
     lengths), order [C_f] i64, num_voxels)."""
     seg_keys, stats = fine_moments
+    from lidar_graph_slam_tpu_torch.ops import kernels  # it imports this module
+
     coords = torch.stack(unpack_key(torch.where(occupied, seg_keys, 0)), dim=-1)
     live = occupied & (stats[:, 0] > 0)
     ckeys = torch.where(live, pack_key(coords // factor), INVALID_KEY)
     ck_sorted, order = torch.sort(ckeys, stable=True)
-    first, _, lengths, starts = _sorted_runs(ck_sorted, coarse_capacity)
-    return (ck_sorted, starts, lengths), order, torch.sum(first.to(torch.int32))
+    _, (starts, lengths, num_voxels) = kernels.sorted_runs(ck_sorted,
+                                                           capacity=coarse_capacity)
+    return (ck_sorted, starts, lengths), order, num_voxels
 
 
 def _merged_moments(runs, order, fine_moments, fine_resolution, factor: int):

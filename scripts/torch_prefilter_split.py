@@ -296,7 +296,9 @@ def build_fixtures(chip_smoke, dev) -> dict:
     for label, scan in (("prefilter_dense", scans[0]),
                         ("prefilter_drift", dscans[chip_smoke.PREFILTER_DRIFT_FRAME])):
         raw = torch.as_tensor(chip_smoke.raw_bucket(scan, cfg.capacity.raw_points), device=dev)
-        out[label] = chip_smoke.prefilter_kernel_inputs(cfg, raw)
+        inputs = chip_smoke.prefilter_kernel_inputs(cfg, raw)
+        out[label] = {"voxel_centroids": inputs["voxel"]["voxel_centroids"],
+                      "sor_window_stats": inputs["sor"]["sor_window_stats"]}
     cfg_on = chip_smoke.PipelineConfig()
     pipe, _res, _numbers = chip_smoke.run_loop_course(cfg_on, dscans, dgt, "cuda")
     first = next(r for r in pipe.back.loop_log if r["candidate"] >= 0)

@@ -38,7 +38,12 @@ verification) over three attempts with ICP, NDT and GICP, bit for bit against th
 attempts operator by operator, one capture each.
 GICP's covariance kernel (`gicp_covariances`, `csrc/covariances.cu`) against its plain
 version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launch a call,
-its refusals, no synchronous read, and inside the captured GICP step and insert.
+its refusals, no synchronous read, and inside the captured GICP step and insert. The
+prefilter's passes (`cell_keys`, `sorted_runs`, `sor_threshold`, `compact_rows`,
+`csrc/prefilter_pass.cu`) against their plain versions bit for bit with reruns at the
+dense and drift buckets, the SOR's rows, the loop submap and edge cases, their refusals,
+and the default prefilter captured into a program, replayed bit-equal to its body without
+a synchronous read.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -740,8 +745,10 @@ def test_captured_program_counts_its_launches_at_each_replay(cuda):
     per_step = cfg.scan_matcher.ndt.coarse_iterations + cfg.scan_matcher.ndt.max_iterations + 2
     step_tally = front.programs[16384].tally
     assert step_tally[tk.ndt_align_loop] == per_step and step_tally[tk.voxel_centroids] == 1
-    # Each map level's finalize and its dense table.
-    assert front.insert_program.tally == {tk.ndt_finalize: 2, tk.dense_table: 2}
+    # Each map level's finalize and its dense table; the fine level's keys (two launches)
+    # and both levels' runs (two launches each).
+    assert front.insert_program.tally == {tk.ndt_finalize: 2, tk.dense_table: 2,
+                                          tk.cell_keys: 2, tk.sorted_runs: 4}
     for t in range(1, 4):
         front.dispatch(raws[t], None, None, t % 2)
         front.insert_and_rebuild(t % 2)
@@ -750,7 +757,8 @@ def test_captured_program_counts_its_launches_at_each_replay(cuda):
     assert tk.voxel_centroids.launches - before[1] == 4
     assert tk.ndt_finalize.launches - before[2] == 4 * 2
     assert tk.dense_table.launches - before[3] == 4 * 2
-    assert tk.thread_launches() - before[4] == 4 * (sum(step_tally.values()) + 4)
+    assert tk.thread_launches() - before[4] == 4 * (
+        sum(step_tally.values()) + sum(front.insert_program.tally.values()))
 
 
 @pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
@@ -1909,7 +1917,8 @@ def test_covariance_kernels_reject_bad_inputs(cuda):
 
 def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
     """`estimate_covariances` and `build_gicp_target` on the card: one launch of
-    `gicp_covariances` a call, the target's grid one of `grid_rows`, and no other kernel of
+    `gicp_covariances` a call, the target's grid one of `grid_rows`, each call's sort by
+    cell two of `cell_keys` and one of `sorted_runs`, and no other kernel of
     `ops/kernels.py` (no `eigh3x3`), and no synchronous read under
     `torch.cuda.set_sync_debug_mode("error")` (after a warm-up call)."""
     p, m = _cov_cloud("source", cuda)
@@ -1925,14 +1934,15 @@ def test_gicp_covariances_launch_once_and_make_no_synchronous_read(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (tk.gicp_covariances.launches - before[0], tk.eigh3x3.launches - before[1],
-            tk.grid_rows.launches - before[2], tk.thread_launches() - before[3]) == (2, 0, 1, 3)
+            tk.grid_rows.launches - before[2], tk.thread_launches() - before[3]) == (
+                2, 0, 1, 3 + 2 * 3)
     assert bool(torch.isfinite(covs).all()) and bool(target.valid.any()) and bool(ok.any())
 
 
 def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
     """The GICP front end's captured programs record one launch of `gicp_covariances`
-    each (the step's source, the insert's target; the insert's grid one of `grid_rows`)
-    and no `eigh3x3`; a replayed insert's target equals the plain insert-and-rebuild
+    each (the step's source, the insert's target; the insert's grid one of `grid_rows`
+    and its sort by cell two of `cell_keys` and one of `sorted_runs`) and no `eigh3x3`; a replayed insert's target equals the plain insert-and-rebuild
     body, run with the covariances' and the grid's plain versions, bit for bit."""
     from lidar_graph_slam_tpu_torch.ops import neighbors as tnb
     from lidar_graph_slam_tpu_torch.odometry.fused import FusedFrontEnd, make_fused_frontend
@@ -1944,7 +1954,8 @@ def test_captured_gicp_insert_runs_the_covariance_kernels(cuda, monkeypatch):
         front.insert_and_rebuild(t % 2)
     torch.cuda.synchronize()
     step_tally = front.programs[16384].tally
-    assert front.insert_program.tally == {tk.gicp_covariances: 1, tk.grid_rows: 1}
+    assert front.insert_program.tally == {tk.gicp_covariances: 1, tk.grid_rows: 1,
+                                          tk.cell_keys: 2, tk.sorted_runs: 1}
     assert step_tally[tk.gicp_covariances] == 1
     assert tk.eigh3x3 not in step_tally and front.insert_program.replays == len(raws) - 1
     monkeypatch.setattr(tk, "gicp_covariances", tnb.gicp_covariances_plain)
@@ -2644,6 +2655,232 @@ def test_prefilter_kernels_reject_bad_inputs(cuda):
     assert (tk.voxel_centroids.launches, tk.sor_window_stats.launches) == before
 
 
+# -- the prefilter's passes (`csrc/prefilter_pass.cu`) ----------------------------------------
+# `cell_keys`, `sorted_runs`, `sor_threshold` and `compact_rows` against their plain
+# versions on the same card tensors, bit for bit, with a rerun: the dense (131,072) and
+# drift (8,192) raw buckets with the distance filter, the SOR's 65,536 rows, the loop
+# submap (N = C = 131,072), the dense ring's 655,360 grid rows, a cloud ~1 km out, one
+# valid row, none, ragged sizes; the captured prefilter against its body run eagerly.
+
+PASS_KEY_CASES = {  # (rows, valid rows, leaf, bounds, far)
+    "dense_filtered": (131072, 73000, 0.1, (1.0, 0.0, None, None), False),
+    "drift_filtered": (8192, 7000, 0.1, (1.0, 0.0, None, None), False),
+    "crop_and_max": (16384, 12000, 0.1, (3.0, 40.0, (-30.0, -20.0, -2.0), (30.0, 35.0, 2.5)),
+                     False),
+    "sor": (65536, 60000, 1.0, None, False), "ring_grid": (655360, 600000, 2.0, None, False),
+    "far": (16384, 9000, 0.5, None, True), "one_valid": (4096, 1, 0.1, None, False),
+    "none_valid": (4096, 0, 0.1, (1.0, 0.0, None, None), False),
+    "ragged": (1000, 700, 0.3, (2.5, 0.0, None, None), False), "n1": (1, 1, 0.1, None, False),
+}
+
+
+def _pass_cloud(case, device, seed=0):
+    n, valid, leaf, bounds, far = PASS_KEY_CASES[case]
+    pts, mask = _prefilter_cloud(n, valid, seed)
+    if far:
+        pts[:valid] += np.float32([812.5, -433.0, 21.0])
+    leaf_t = torch.full((), leaf, dtype=torch.float32, device=device)
+    return torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device), leaf_t, bounds
+
+
+@pytest.mark.parametrize("case", list(PASS_KEY_CASES))
+def test_cell_keys_bit_equal_to_plain(cuda, case):
+    """Keys, origin and (with the distance filter) the kept mask and padded rows equal
+    `cell_keys_plain`'s bit for bit, a rerun too, two launches a call."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import INVALID_KEY, cell_keys_plain
+
+    pts, mask, leaf, bounds = _pass_cloud(case, cuda)
+    before = tk.cell_keys.launches
+    out, again = tk.cell_keys(pts, mask, leaf, bounds), tk.cell_keys(pts, mask, leaf, bounds)
+    assert tk.cell_keys.launches == before + 4
+    _assert_bits(out, again, cell_keys_plain(pts, mask, leaf, bounds))
+    kept = out[2] if bounds is not None else mask
+    assert torch.equal(out[0] != INVALID_KEY, kept)
+    if case == "none_valid":
+        assert not bool(kept.any())
+
+
+# (rows N, valid rows, capacity C or None, leaf, gather): the dense bucket's downsample
+# runs, the drift bucket's, the loop submap's (C = N), more voxels than C, exactly C, no
+# valid row, the SOR's gather alone, the runs alone (a coarse level), a ragged N and C.
+PASS_RUN_CASES = {"dense": (131072, 70000, 65536, 0.1, True),
+                  "drift": (8192, 7000, 65536, 0.1, True),
+                  "loop_submap": (131072, 40000, 131072, 0.5, True),
+                  "overflow": (16384, 12000, 2000, 0.1, True),
+                  "exact_c": (16384, 12000, None, 0.1, True),
+                  "all_invalid": (8192, 0, 4096, 0.1, True),
+                  "gather_only": (65536, 60000, None, 1.0, True),
+                  "runs_only": (65536, 30000, 32768, 0.4, False),
+                  "ragged": (1000, 700, 777, 0.3, True), "n1": (1, 1, 3, 0.1, True)}
+
+
+def _run_args(case, device, seed=0):
+    """(keys_sorted, order, points, C) as `_key_sort` makes them."""
+    n, valid, C, leaf, gather = PASS_RUN_CASES[case]
+    pts, mask = _prefilter_cloud(n, valid, seed)
+    p, m = torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device)
+    keys, _ = tk.cell_keys(p, m, torch.full((), leaf, device=device))
+    keys_sorted, order = torch.sort(keys, stable=True)
+    if case == "exact_c":  # C equal to the number of runs
+        valid_keys = keys_sorted[keys_sorted != 2**31 - 1]
+        C = int((valid_keys[1:] != valid_keys[:-1]).sum()) + 1
+    return keys_sorted, order if gather else None, p if gather else None, C
+
+
+@pytest.mark.parametrize("case", list(PASS_RUN_CASES))
+def test_sorted_runs_bit_equal_to_plain(cuda, case):
+    """The sorted points and the runs (starts, lengths, num_voxels) equal
+    `sorted_runs_plain`'s bit for bit, a rerun too: two launches with the runs, one for
+    the gather alone."""
+    from lidar_graph_slam_tpu_torch.ops.voxel import sorted_runs_plain
+
+    keys, order, points, C = _run_args(case, cuda)
+    before = tk.sorted_runs.launches
+    out = tk.sorted_runs(keys, order, points, C)
+    again = tk.sorted_runs(keys, order, points, C)
+    assert tk.sorted_runs.launches == before + 2 * (2 if C is not None else 1)
+    ref = sorted_runs_plain(keys, order, points, C)
+    flat = [lambda r: [r[0]] if r[0] is not None else [], lambda r: list(r[1] or ())]
+    _assert_bits(*([x for f in flat for x in f(r)] for r in (out, again, ref)))
+    if C is not None:
+        starts, lengths, nv = out[1]
+        assert int(lengths.sum()) == keys.shape[0]
+        if case == "overflow":
+            assert int(nv) > C
+        if case == "exact_c":
+            assert int(nv) == C
+
+
+# (rows N, valid rows, one cell, SOR cell m, stddev): the SOR's 65,536 rows dense and
+# sparse, no valid row, a ragged N across blocks, a tiny N, one cell.
+PASS_SOR_CASES = {"dense": (65536, 60000, False, 1.0, 1.2),
+                  "drift": (65536, 7000, False, 1.0, 1.2),
+                  "all_invalid": (65536, 0, False, 1.0, 1.2),
+                  "ragged": (3001, 2900, False, 3.0, 1.0), "tiny": (5, 5, False, 100.0, 2.0),
+                  "one_cell": (600, 560, True, 1.0, 0.5)}
+
+
+@pytest.mark.parametrize("case", list(PASS_SOR_CASES))
+def test_sor_threshold_bit_equal_to_plain(cuda, case):
+    """The kept mask and the padded rows equal `sor_threshold_plain`'s bit for bit (its
+    sums in the kernel's order), a rerun too, three launches a call."""
+    from lidar_graph_slam_tpu_torch.ops.neighbors import sor_threshold_plain, sort_by_cell
+
+    n, valid, one_cell, cell, stddev = PASS_SOR_CASES[case]
+    pts, mask = _prefilter_cloud(n, valid, 3, one_cell)
+    p, m = torch.as_tensor(pts, device=cuda), torch.as_tensor(mask, device=cuda)
+    cells = sort_by_cell(p, m, cell)
+    mean_d, n_found = tk.sor_window_stats(cells.keys, cells.points, cells.order, 30)
+    s = torch.full((), stddev, device=cuda)
+    before = tk.sor_threshold.launches
+    out = tk.sor_threshold(mean_d, n_found, m, p, s)
+    again = tk.sor_threshold(mean_d, n_found, m, p, s)
+    assert tk.sor_threshold.launches == before + 6
+    _assert_bits(out, again, sor_threshold_plain(mean_d, n_found, m, p, s))
+    if case == "tiny":  # every row finds the other four
+        assert int(out[0].sum()) > 0
+    elif case != "all_invalid":
+        assert 0 < int(out[0].sum()) < valid
+
+
+# (rows N, valid rows, capacity): the prefilter's 65,536 -> 32,768 with more valid rows
+# than the capacity and fewer, none valid, a capacity past N, ragged sizes, N = 1.
+PASS_COMPACT_CASES = {"over": (65536, 40000, 32768), "under": (65536, 9000, 32768),
+                      "none": (65536, 0, 32768), "capacity_past_n": (3000, 2000, 5000),
+                      "ragged": (2049, 1500, 1025), "n1": (1, 1, 4)}
+
+
+@pytest.mark.parametrize("case", list(PASS_COMPACT_CASES))
+def test_compact_rows_bit_equal_to_plain(cuda, case):
+    """The compacted rows and mask equal `compact_rows_plain`'s bit for bit (the valid
+    rows scattered through the whole cloud, not only a prefix), a rerun too, two launches
+    a call."""
+    from lidar_graph_slam_tpu_torch.core.pointcloud import compact_rows_plain
+
+    n, valid, capacity = PASS_COMPACT_CASES[case]
+    pts, _ = _prefilter_cloud(n, n, 5)
+    rng = np.random.default_rng(5)
+    mask = np.zeros(n, bool)
+    mask[rng.permutation(n)[:valid]] = True
+    p, m = torch.as_tensor(pts, device=cuda), torch.as_tensor(mask, device=cuda)
+    before = tk.compact_rows.launches
+    out, again = tk.compact_rows(p, m, capacity), tk.compact_rows(p, m, capacity)
+    assert tk.compact_rows.launches == before + 4
+    _assert_bits(out, again, compact_rows_plain(p, m, capacity))
+    assert int(out[1].sum()) == min(valid, capacity)
+
+
+def test_prefilter_pass_kernels_reject_bad_inputs(cuda):
+    pts, mask, leaf, _ = _pass_cloud("ragged", cuda)
+    keys, order, points, C = _run_args("ragged", cuda)
+    mean_d = torch.zeros(1000, device=cuda)
+    n_found = torch.zeros(1000, dtype=torch.int64, device=cuda)
+    s = torch.ones((), device=cuda)
+    bad = [
+        lambda: tk.cell_keys(pts.double(), mask, leaf),
+        lambda: tk.cell_keys(pts, mask[:-1], leaf),
+        lambda: tk.cell_keys(pts, mask, leaf[None]),
+        lambda: tk.cell_keys(pts, mask, leaf.cpu()),
+        lambda: tk.sorted_runs(keys.long(), order, points, C),
+        lambda: tk.sorted_runs(keys, order.int(), points, C),
+        lambda: tk.sorted_runs(keys, order, points[:-1], C),
+        lambda: tk.sorted_runs(keys, order, points, -1),
+        lambda: tk.sorted_runs(keys),
+        lambda: tk.sor_threshold(mean_d, n_found.int(), mask, pts, s),
+        lambda: tk.sor_threshold(mean_d, n_found, mask, pts, 1.2),
+        lambda: tk.sor_threshold(mean_d[:-1], n_found, mask, pts, s),
+        lambda: tk.compact_rows(pts, mask.int(), 10),
+        lambda: tk.compact_rows(pts.t().contiguous().t(), mask, 10),
+        lambda: tk.compact_rows(pts, mask, -1),
+    ]
+    counts = [f.launches for f in (tk.cell_keys, tk.sorted_runs, tk.sor_threshold,
+                                   tk.compact_rows)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert counts == [f.launches for f in (tk.cell_keys, tk.sorted_runs, tk.sor_threshold,
+                                           tk.compact_rows)]
+
+
+@pytest.mark.parametrize("rows,valid", [(131072, 73000), (8192, 7000)])
+def test_captured_prefilter_equals_its_body(cuda, rows, valid):
+    """The default prefilter captured into a `utils/capture.py:Program` (warm-up, then a
+    CUDA graph) and replayed on new scans equals its body run eagerly on the same scans
+    bit for bit; a replay counts the new kernels' launches (cell_keys 4, sorted_runs 3,
+    sor_threshold 3, compact_rows 2) and no replay reads the host."""
+    from lidar_graph_slam_tpu_torch.core.config import PrefilterConfig
+    from lidar_graph_slam_tpu_torch.filters.prefilter import make_prefilter
+    from lidar_graph_slam_tpu_torch.utils.capture import Program
+
+    prefilter = make_prefilter(PrefilterConfig(), 32768, 65536)
+    raw = torch.empty((rows, 3), device=cuda)
+    raw_mask = torch.empty((rows,), dtype=torch.bool, device=cuda)
+    program = Program(lambda: prefilter(raw, raw_mask), cuda, torch.cuda.Stream(cuda))
+    names = ("cell_keys", "sorted_runs", "sor_threshold", "compact_rows")
+    for seed in range(4):
+        pts, mask = _prefilter_cloud(rows, valid - 500 * seed, seed=10 + seed)
+        raw.copy_(torch.as_tensor(pts, device=cuda))
+        raw_mask.copy_(torch.as_tensor(mask, device=cuda))
+        torch.cuda.synchronize()
+        before = [getattr(tk, n).launches for n in names]
+        try:
+            if seed >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+            program()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if seed == 0:  # the warm-up's outputs; the capture's hold nothing until a replay
+            continue
+        assert [getattr(tk, n).launches - b for n, b in zip(names, before)] == [4, 3, 3, 2]
+        eager = prefilter(raw, raw_mask)
+        torch.cuda.synchronize()
+        assert torch.equal(program.outputs.points, eager.points)
+        assert torch.equal(program.outputs.mask, eager.mask)
+        assert int(eager.mask.sum()) > 500
+    assert program.captures == 1 and program.replays == 3
+
+
 # -- the hash grid's kernels (`csrc/grid.cu`) --------------------------------------------------
 # `grid_rows` against `neighbors.grid_rows_plain` and `dense_table` against
 # `voxel.build_dense_table_plain` on the same card tensors, bit for bit, with a rerun: the
@@ -2808,7 +3045,8 @@ def test_grid_kernels_reject_bad_inputs(cuda):
 @pytest.mark.parametrize("method", ["GICP", "ICP"])
 def test_captured_inserts_build_the_grid_with_its_kernel(cuda, method):
     """The GICP and ICP front ends' insert programs record one `grid_rows` launch (and
-    GICP's one `gicp_covariances`); the target build they capture launches
+    GICP's one `gicp_covariances`), and the grid's sort by cell its two `cell_keys`
+    launches and one `sorted_runs` gather; the target build they capture launches
     `grid_rows_kernel` and no `torch.cummax` scan and no scatter (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2821,7 +3059,8 @@ def test_captured_inserts_build_the_grid_with_its_kernel(cuda, method):
         front.dispatch(raw, None, None, t % 2)
         front.insert_and_rebuild(t % 2)
     torch.cuda.synchronize()
-    want = {tk.grid_rows: 1, **({tk.gicp_covariances: 1} if method == "GICP" else {})}
+    want = {tk.grid_rows: 1, tk.cell_keys: 2, tk.sorted_runs: 1,
+            **({tk.gicp_covariances: 1} if method == "GICP" else {})}
     assert front.insert_program.tally == want and front.insert_program.replays == 2
     _, _, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter, cfg.capacity,
                                     device=cuda)

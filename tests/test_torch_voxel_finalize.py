@@ -359,8 +359,9 @@ def _parent_composition(points, mask, capacity, coarse_capacity, min_points, fac
     sorted points summed by `_segment_sum`, the coarse merge of the fine stat rows, then
     `_finalize_ndt_plain` and the table on each level, written out step by step."""
     res = tv.as_f32(RES, points)
-    origin = tv.min_corner(points, mask) - res
-    keys_sorted, pts_sorted = tv._sort_points(points, mask, origin, 1.0 / res)
+    keys, origin = tv.cell_keys_plain(points, mask, res)
+    keys_sorted, order = torch.sort(keys, stable=True)
+    pts_sorted = points[order]
     valid_sorted = keys_sorted != tv.INVALID_KEY
     first, _, lengths, starts = tv._sorted_runs(keys_sorted, capacity)
     row_coords = torch.stack(tv.unpack_key(torch.where(valid_sorted, keys_sorted, 0)), dim=-1)
