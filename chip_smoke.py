@@ -111,10 +111,14 @@ of `bench.py:bench_e2e`. Phases:
      with the distance filter (N = the bucket) and on the SOR's 65,536 rows,
      `sorted_runs` with the runs (C = 65,536) and the SOR's gather alone,
      `sor_threshold` and `compact_rows` (65,536 -> 32,768) — and `cell_keys` and
-     `sorted_runs` on the loop submap (N = C = 131,072): against their plain versions
-     bit for bit with reruns, device and host us, the plain version's ms, the bound
-     (bytes) and its share, and the library yardsticks (a stable `torch.argsort` and its
-     gathers for `compact_rows`, `cumsum` + `searchsorted` for `sorted_runs`' runs);
+     `sorted_runs` on the loop submap (N = C = 131,072) and on the target build's shapes
+     of phase 4's dense ring and the drift course's last ring (`ring_pass_inputs`: the
+     fine level's keys and runs at 655,360 rows, C = 65,536; the coarse level's runs at
+     65,536 rows, C = 32,768): against their plain versions bit for bit with reruns,
+     launches a call, device and host us, the plain version's ms, the bound (bytes) and
+     its share, and the library yardsticks (a stable `torch.argsort` and its gathers for
+     `compact_rows`, `cumsum` + `searchsorted` for `sorted_runs`' runs); with `--parent
+     DIR` `cell_keys` and `sorted_runs` at every shape in turns with that tree's;
      `scripts/torch_profile_prefilter.py` in a subprocess: wall and enqueue ms a call on
      the kernel path, the plain path and, with `--parent DIR`, the parent tree's, in
      turns, a graph replay's device us, and each one's device launches, device ms, the
@@ -1013,6 +1017,8 @@ PREFILTER_DRIFT_FRAME = 100
 PREFILTER_KERNELS = ("voxel_centroids", "sor_window_stats")
 # The prefilter's passes (`csrc/prefilter_pass.cu`), each timed at its shapes.
 PASS_KERNELS = ("cell_keys", "sorted_runs", "sor_threshold", "compact_rows")
+# The two passes around each key sort, timed in turns with a parent tree's.
+KEY_PASSES = ("cell_keys", "sorted_runs")
 PASS_PLAIN = {"cell_keys": voxel.cell_keys_plain, "sorted_runs": voxel.sorted_runs_plain,
               "sor_threshold": sor_threshold_plain,
               "compact_rows": pointcloud.compact_rows_plain}
@@ -1072,6 +1078,29 @@ def key_sort_inputs(points, mask, leaf, capacity, bounds=None) -> dict:
             "runs": None if runs is None else (keys_sorted, pts_sorted, *runs[:2], origin,
                                                leaf),
             "kept": (kp, km)}
+
+
+def ring_pass_inputs(cfg: PipelineConfig, ring) -> dict:
+    """A target build's key passes on `ring`, as `build_ndt_pyramid` makes them (built
+    with the plain versions): {"ring": {"cell_keys": args, "sorted_runs": args} of the
+    fine level (the ring's rows at the NDT resolution, the runs with the gather, C =
+    voxel_capacity), "coarse": {"sorted_runs": args} of the coarse level (the fine level's
+    rows keyed by their parent voxel, sorted as `ops/voxel.py:_coarse_runs` sorts them, C
+    = voxel_capacity / 2, no gather)}."""
+    ndt_cfg, cap = cfg.scan_matcher.ndt, cfg.capacity.voxel_capacity
+    points, mask = assemble_submap(ring, stride=cfg.scan_matcher.map_build_stride)
+    fine = key_sort_inputs(points, mask, ndt_cfg.resolution, cap)
+    keys_sorted, pts_sorted, starts, lengths, origin, leaf = fine["runs"]
+    seg_keys, stats = voxel._point_moments((keys_sorted, starts, lengths), pts_sorted,
+                                           origin, leaf)
+    occupied = lengths[:cap] > 0
+    factor = round(ndt_cfg.coarse_resolution / ndt_cfg.resolution)
+    coords = torch.stack(voxel.unpack_key(torch.where(occupied, seg_keys, 0)), dim=-1)
+    live = occupied & (stats[:, 0] > 0)
+    ckeys = torch.where(live, voxel.pack_key(coords // factor), voxel.INVALID_KEY)
+    ck_sorted, _ = torch.sort(ckeys, stable=True)
+    return {"ring": {"cell_keys": fine["cell_keys"], "sorted_runs": fine["sorted_runs"]},
+            "coarse": {"sorted_runs": (ck_sorted, None, None, cap // 2)}}
 
 
 def prefilter_kernel_inputs(cfg: PipelineConfig, raw: torch.Tensor) -> dict:
@@ -1153,19 +1182,50 @@ def flat_pass(out) -> list:
     return [t for o in out if o is not None for t in flat_pass(o)]
 
 
-def pass_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float) -> dict:
+def parent_pass_args(name: str, args, parent_kern):
+    """`args` of a pass as another tree's wrapper takes them: a tree from before
+    `voxel.KeyFilter` takes `cell_keys`' filter as the tuple (min_distance, max_distance,
+    min_xyz, max_xyz)."""
+    if (name != "cell_keys" or args[3] is None
+            or "kernel_args" in inspect.getsource(parent_kern.cell_keys)):
+        return args
+    b = args[3]
+    return (*args[:3], (b.min_distance, b.max_distance, b.min_xyz, b.max_xyz))
+
+
+def pass_kernel_timing(name: str, label: str, args, card: str, clock_mhz: float,
+                       parent_kern=None) -> dict:
     """One prefilter pass at one shape: bit for bit against its plain version on the same
-    card tensors with a rerun, its device and host us (`split_times`), the plain
-    version's ms, the library yardstick's (`pass_library_ms`), the bound and its share."""
+    card tensors with a rerun, its launches a call, its device and host us
+    (`split_times`), the plain version's ms, the library yardstick's (`pass_library_ms`),
+    the bound and its share. With `parent_kern` (the parent tree's `ops.kernels`) that
+    tree's pass too, bit-equal to the plain version, its device us in turns with this
+    tree's (this, parent, parent, this: the means of each tree's two turns)."""
     kernel, plain = getattr(kernels, name), PASS_PLAIN[name]
     ref = flat_pass(plain(*args))
-    out, again = flat_pass(kernel(*args)), flat_pass(kernel(*args))
+    before = kernel.launches
+    out = flat_pass(kernel(*args))
+    launches = kernel.launches - before
+    again = flat_pass(kernel(*args))
     same_bits(f"{name} {label}", [f"out{i}" for i in range(len(ref))], out, again, ref)
     if not len(out) == len(again) == len(ref):
         raise AssertionError(f"{name} {label}: {len(out)} outputs against {len(ref)}")
     t = split_times(kernel, *args)
-    t.update(plain_ms=median_ms(plain, *args, calls=10), library_ms=pass_library_ms(
-        name, args), **pass_bound(name, args, clock_mhz))
+    t.update(launches_a_call=launches, plain_ms=median_ms(plain, *args, calls=10),
+             library_ms=pass_library_ms(name, args), **pass_bound(name, args, clock_mhz))
+    if parent_kern is not None:
+        pk, pargs = getattr(parent_kern, name), parent_pass_args(name, args, parent_kern)
+        same_bits(f"{name} {label} (parent)", [f"out{i}" for i in range(len(ref))],
+                  flat_pass(pk(*pargs)), flat_pass(pk(*pargs)), ref)
+        turns = {"this": [], "parent": []}
+        for tree, fn, a in (("this", kernel, args), ("parent", pk, pargs),
+                            ("parent", pk, pargs), ("this", kernel, args)):
+            turns[tree].append(split_times(fn, *a)["device_us"])
+        t.update(device_us=float(np.mean(turns["this"])),
+                 parent_device_us=float(np.mean(turns["parent"])),
+                 turns_us=json.dumps({k: [round(x, 3) for x in v] for k, v in turns.items()},
+                                     separators=(",", ":")))
+        t["parent_share_of_bound"] = t["bound_us"] / t["parent_device_us"]
     t["share_of_bound"] = t["bound_us"] / t["device_us"]
     say("kernel-time", kernel=name, shape=label, **t, card=json.dumps(card))
     return dict(kernel=name, **t)
@@ -1344,13 +1404,18 @@ def profile_prefilter(raws: dict, cloud, parent: str | None, card: str) -> dict:
     return rec
 
 
-def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: str,
-                    parent: str | None, clock_mhz: float, dev=torch.device("cuda")) -> dict:
+def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, rings: dict,
+                    card: str, parent: str | None, clock_mhz: float,
+                    dev=torch.device("cuda")) -> dict:
     """Phase 10c: the prefilter's kernels on the raw buckets of `scans` ({label: scan}),
-    and `voxel_centroids`, `cell_keys` and `sorted_runs` on the loop path's `loop_inputs`
-    (`loop_centroid_inputs`): the two reductions as `prefilter_kernel_timing` takes them
-    (with `parent`, the parent commit unpacked by `git archive`, that tree's kernels in
-    turns), the four passes as `pass_kernel_timing` does; one `prefilter` call a bucket
+    `voxel_centroids`, `cell_keys` and `sorted_runs` on the loop path's `loop_inputs`
+    (`loop_centroid_inputs`), and `cell_keys` and `sorted_runs` on the target build's
+    shapes of each of `rings` ({label: ring}, `ring_pass_inputs`: the fine level at
+    `ring_<label>`, the coarse level at `coarse_<label>`): the two reductions as
+    `prefilter_kernel_timing` takes them (with `parent`, the parent commit unpacked by `git
+    archive`, that tree's kernels in turns), the four passes as `pass_kernel_timing` does
+    (`cell_keys` and `sorted_runs` in turns with the parent tree's); one `prefilter` call a
+    bucket
     under `torch.cuda.set_sync_debug_mode("error")`; the reductions' launch split into
     parts on the buckets and the loop submap (`prefilter_split`); the profile of
     `profile_prefilter`, the loop submap's downsample among it. The SOR statistics have
@@ -1377,7 +1442,8 @@ def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: s
             for name in PASS_KERNELS:
                 if name in per:
                     timing.setdefault(shape, {})[name] = pass_kernel_timing(
-                        name, shape, per[name], card, clock_mhz)
+                        name, shape, per[name], card, clock_mhz,
+                        parent_kern if name in KEY_PASSES else None)
         mask = raw[:, 0] < 0.5 * PAD_VALUE
         sync = sync_sites(lambda raw=raw, mask=mask: prefilter(raw, mask))
         if not sync["sync_free"]:
@@ -1388,7 +1454,12 @@ def prefilter_phase(cfg: PipelineConfig, scans: dict, loop_inputs: dict, card: s
             "voxel_centroids", label, loop_inputs[label], card, clock_mhz, parent_kern)}
     for name, args in loop_inputs["passes"].items():
         timing["loop_submap"][name] = pass_kernel_timing(name, "loop_submap", args, card,
-                                                         clock_mhz)
+                                                         clock_mhz, parent_kern)
+    for label, ring in rings.items():
+        for level, per in ring_pass_inputs(cfg, ring).items():
+            for name, args in per.items():
+                timing.setdefault(f"{level}_{label}", {})[name] = pass_kernel_timing(
+                    name, f"{level}_{label}", args, card, clock_mhz, parent_kern)
     fixtures["loop_submap"] = {"voxel_centroids": loop_inputs["loop_submap"]}
     split = prefilter_split(fixtures, parent, card)
     return dict(timing=timing, split=split,
@@ -4674,7 +4745,8 @@ def kernel_record(name: str, timing: dict, max_err: float, shape: str = "fine",
         "shape": shape,
         "shapes": {s: {k: v[name][k] for k in ("device_us", "host_us", "single_ms",
                                                "plain_ms", "bound_us", "bytes",
-                                               "share_of_bound")}
+                                               "share_of_bound", "launches_a_call",
+                                               "parent_device_us") if k in v[name]}
                    for s, v in timing.items() if name in v},
     }
 
@@ -4939,8 +5011,9 @@ def main(argv=None) -> int:
     # -- 10c. the prefilter's kernels on the dense course's first frame and a drift frame;
     # `voxel_centroids` on the first loop attempt's submap and its FPFH keypoints ---------
     pf = prefilter_phase(cfg, {"dense": scans[0], "drift": dscans[PREFILTER_DRIFT_FRAME]},
-                         loop_centroid_inputs(cfg_on, back, first), card, args.parent,
-                         clock_mhz)
+                         loop_centroid_inputs(cfg_on, back, first),
+                         {"dense": ring, "drift": pipe_on.fused_front.ring}, card,
+                         args.parent, clock_mhz)
     timing.update(pf["timing"])
 
     # -- 11-12. grid NN and one verification, card against CPU ------------------------------

@@ -12,7 +12,7 @@
 //    `where` (lidar_graph_slam_tpu/ops/voxel.py:79-97,114-116, ops/neighbors.py:70-73),
 //    and with the filter on the prefilter's distance filter and crop with the pad of the
 //    rows they drop (filters/prefilter.py:27-40,114-116). Two launches: the first filters
-//    (a thread a row: r = sqrt((x x + y y) + z z) rounded once, r > min_distance, the
+//    (a thread a quad: r = sqrt((x x + y y) + z z) rounded once, r > min_distance, the
 //    crop, the mask and the padded row written) and writes its block's minimum corner of
 //    the kept rows; the second reduces the G block minima in every block (a minimum is
 //    exact in any order; NaN propagates as torch's amin does), takes origin = corner -
@@ -28,6 +28,16 @@
 //    run's first row), and a run's first row writes its start, its last row its length;
 //    the rows past the last voxel, up to C, are filled by all blocks (start = the valid
 //    rows, length 0; row C takes the invalid rows and every voxel past C).
+//
+//    Both take 4 consecutive rows (a quad) a thread: one 16-byte load of keys, three of
+//    xyz. The first launch lets the second start at once
+//    (`griddepcontrol.launch_dependents`); the second, a programmatic dependent, loads its
+//    quad (only the call's inputs: the filter is found again from the raw rows) before
+//    `griddepcontrol.wait` and reads the records after it, so its launch and its loads
+//    overlap the first. One launch of thread-block clusters exchanging the blocks'
+//    partials through distributed shared memory was slower at every shape of the path on
+//    the H100: a cluster's two barriers cost ~1.7 us over a plain launch, more than the
+//    second launch here (`scripts/torch_cluster_floor.py`, PERF.md).
 //  * `sor_threshold` ports the tail of `statistical_outlier_mask` (filters/
 //    prefilter.py:66-73): has_neighbors, contributes, n_total, mu, the variance, the
 //    threshold, the mask and the `pad_points` after it. Three launches: mu's partials,
@@ -44,12 +54,13 @@
 //    own) and scatters the kept rows, and all blocks fill the rows past the valid count.
 //
 // Every pass takes kRows = 1,024 consecutive rows a block of 256 threads, in 4 tiles of
-// 256 (a thread a row a tile, coalesced). Bit-equal to the plain versions: the keys, runs,
-// counts and copies are integer or copied words, and each float operation is the plain
-// version's, in its order, rounded once (`__f*_rn`, so nvcc contracts nothing into an
-// FMA). Nothing is read back, nothing but the given buffers is written, and no scratch
-// carries state from one launch to the next call, so a call captures into a CUDA graph
-// and two graphs replaying at once share nothing.
+// 256 (a thread a row a tile, coalesced; `cell_keys` and `sorted_runs` a quad a thread).
+// Bit-equal to the plain versions: the keys, runs, counts and copies are integer or
+// copied words, and each float operation is the plain version's, in its order, rounded
+// once (`__f*_rn`, so nvcc contracts nothing into an FMA). Nothing is read back, nothing
+// but the given buffers is written, and no scratch carries state from one launch to the
+// next call, so a call captures into a CUDA graph and two graphs replaying at once share
+// nothing.
 //
 // What bounds them on this card: bytes. `cell_keys` reads 13 B a row twice and writes 4 B
 // (and with the filter 13 B more); `sorted_runs` reads a key (and its neighbours, from
@@ -137,25 +148,33 @@ __device__ int block_scan(int v, int* warp_tot, int& total) {
   return v + before;
 }
 
-// Inclusive prefix maximum of v over the block's threads; `total` gets the block's max.
-__device__ int block_scan_max(int v, int* warp_tot, int& total) {
+// Over the block's threads: the exclusive prefix sum of a and the exclusive prefix
+// maximum of b (-1 before the first thread).
+__device__ void block_scan_sum_max(int a, int b, int (*warp_tot)[kWarps], int& excl_a,
+                                   int& excl_b) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int sa = a, sb = b;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(kFullMask, v, off);
-    if (lane >= off) v = max(v, u);
+    const int ua = __shfl_up_sync(kFullMask, sa, off);
+    const int ub = __shfl_up_sync(kFullMask, sb, off);
+    if (lane >= off) {
+      sa += ua;
+      sb = max(sb, ub);
+    }
   }
-  if (lane == 31) warp_tot[warp] = v;
-  __syncthreads();
-  int before = -1;
-  total = -1;
-  for (int w = 0; w < kWarps; ++w) {
-    const int t = warp_tot[w];
-    before = w < warp ? max(before, t) : before;
-    total = max(total, t);
+  const int prev_b = __shfl_up_sync(kFullMask, sb, 1);
+  if (lane == 31) {
+    warp_tot[0][warp] = sa;
+    warp_tot[1][warp] = sb;
   }
   __syncthreads();
-  return max(v, before);
+  excl_a = sa - a;
+  excl_b = lane > 0 ? prev_b : -1;
+  for (int w = 0; w < warp; ++w) {
+    excl_a += warp_tot[0][w];
+    excl_b = max(excl_b, warp_tot[1][w]);
+  }
 }
 
 // Sums (and with `kMax`, the max of the third) of up to 4 per-thread values over the
@@ -184,157 +203,256 @@ __device__ void block_totals(long long (&v)[4], long long* red /*[4][kWarps]*/,
   __syncthreads();
 }
 
-// -- cell_keys -----------------------------------------------------------------------
-
-template <bool kFilter>
-__global__ void __launch_bounds__(kThreads)
-cell_corner_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                   long long n, Filter f, uint8_t* __restrict__ mask_out,
-                   float* __restrict__ pts_out, float* __restrict__ partials) {
-  __shared__ float red[3][kWarps];
-  float m[3] = {kPadValue, kPadValue, kPadValue};  // where(mask, p, PAD_VALUE)
-  const long long b0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int t = 0; t < kTiles; ++t) {
-    const long long i = b0 + t * kThreads + threadIdx.x;
-    if (i >= n) break;
-    bool keep = mask[i] != 0;
-    const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
-    if (kFilter) {
-      const float r = __fsqrt_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z)));
-      keep = keep && r > f.min_distance && (!f.use_max || r < f.max_distance);
-      if (f.use_crop)
-        keep = keep && x >= f.lo[0] && y >= f.lo[1] && z >= f.lo[2] && x <= f.hi[0] &&
-               y <= f.hi[1] && z <= f.hi[2];
-      mask_out[i] = keep;
-      pts_out[3 * i] = keep ? x : kPadValue;
-      pts_out[3 * i + 1] = keep ? y : kPadValue;
-      pts_out[3 * i + 2] = keep ? z : kPadValue;
-    }
-    if (keep) {
-      m[0] = nan_min(m[0], x);
-      m[1] = nan_min(m[1], y);
-      m[2] = nan_min(m[2], z);
+// The rows 4q .. 4q + 3 below n of a [n, 3] f32 array: three 16-byte loads when the whole
+// quad lies below n and `vec` (every array 16-byte aligned), else a scalar load a value.
+__device__ __forceinline__ void load_xyz4(const float* __restrict__ pts, long long q,
+                                          long long n, bool vec, float (&x)[4],
+                                          float (&y)[4], float (&z)[4]) {
+  const long long r0 = 4 * q;
+  if (vec && r0 + 3 < n) {
+    const float4* p = reinterpret_cast<const float4*>(pts + 3 * r0);
+    const float4 a = p[0], b = p[1], c = p[2];
+    x[0] = a.x; y[0] = a.y; z[0] = a.z; x[1] = a.w;
+    y[1] = b.x; z[1] = b.y; x[2] = b.z; y[2] = b.w;
+    z[2] = c.x; x[3] = c.y; y[3] = c.z; z[3] = c.w;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long long i = r0 + r;
+      x[r] = i < n ? pts[3 * i] : 0.0f;
+      y[r] = i < n ? pts[3 * i + 1] : 0.0f;
+      z[r] = i < n ? pts[3 * i + 2] : 0.0f;
     }
   }
-  block_min3(m, red, partials + 3 * static_cast<long long>(blockIdx.x));
 }
 
-__global__ void __launch_bounds__(kThreads)
-cell_keys_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask, long long n,
-                 const float* __restrict__ partials, long long G,
-                 const float* __restrict__ leaf_p, KeyBits kb, int* __restrict__ keys,
-                 float* __restrict__ origin_out) {
-  __shared__ float red[3][kWarps];
-  __shared__ float corner[3];
-  float m[3] = {kPadValue, kPadValue, kPadValue};
-  for (long long g = threadIdx.x; g < G; g += kThreads) {
-    m[0] = nan_min(m[0], partials[3 * g]);
-    m[1] = nan_min(m[1], partials[3 * g + 1]);
-    m[2] = nan_min(m[2], partials[3 * g + 2]);
-  }
-  block_min3(m, red, corner);
-  const float leaf = *leaf_p;
-  const float inv = __fdiv_rn(1.0f, leaf);  // torch's 1.0 / leaf: a reciprocal, rounded once
-  const float org[3] = {__fsub_rn(corner[0], leaf), __fsub_rn(corner[1], leaf),
-                        __fsub_rn(corner[2], leaf)};
-  if (blockIdx.x == 0 && threadIdx.x < 3) origin_out[threadIdx.x] = org[threadIdx.x];
-  const long long b0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int t = 0; t < kTiles; ++t) {
-    const long long i = b0 + t * kThreads + threadIdx.x;
-    if (i >= n) break;
-    int key = kInvalidKey;
-    if (mask[i]) {
-      int c[3];
+// Stores rows 4q .. 4q + 3 below n of a [n, 3] f32 array, as `load_xyz4` loads them.
+__device__ __forceinline__ void store_xyz4(float* __restrict__ out, long long q, long long n,
+                                           bool vec, const float (&x)[4],
+                                           const float (&y)[4], const float (&z)[4]) {
+  const long long r0 = 4 * q;
+  if (vec && r0 + 3 < n) {
+    float4* p = reinterpret_cast<float4*>(out + 3 * r0);
+    p[0] = make_float4(x[0], y[0], z[0], x[1]);
+    p[1] = make_float4(y[1], z[1], x[2], y[2]);
+    p[2] = make_float4(z[2], x[3], y[3], z[3]);
+  } else {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        // floor((p - origin) * inv).to(int32), clamped to [0, COORD_MAX]; the conversion
-        // saturates, as torch's on the card.
-        const float u = __fmul_rn(__fsub_rn(pts[3 * i + a], org[a]), inv);
-        c[a] = min(max(__float2int_rz(floorf(u)), 0), kb.max_c[a]);
+    for (int r = 0; r < 4; ++r) {
+      const long long i = r0 + r;
+      if (i < n) {
+        out[3 * i] = x[r];
+        out[3 * i + 1] = y[r];
+        out[3 * i + 2] = z[r];
       }
-      key = (c[0] << kb.shift_x) | (c[1] << kb.shift_y) | c[2];
     }
-    keys[i] = key;
+  }
+}
+
+// -- cell_keys -----------------------------------------------------------------------
+
+// Quad q's points and its kept rows (bit r: row 4q + r kept): the mask and, with kFilter,
+// the distance filter and crop.
+template <bool kFilter>
+__device__ __forceinline__ unsigned load_kept4(
+    const float* __restrict__ pts, const uint8_t* __restrict__ mask, long long n,
+    const Filter& f, bool vec, long long q, float (&x)[4], float (&y)[4], float (&z)[4]) {
+  const long long r0 = 4 * q;
+  load_xyz4(pts, q, n, vec, x, y, z);
+  unsigned m4;
+  if (vec && r0 + 3 < n) {
+    m4 = *reinterpret_cast<const uint32_t*>(mask + r0);
+  } else {
+    m4 = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r0 + r < n) m4 |= static_cast<unsigned>(mask[r0 + r]) << (8 * r);
+  }
+  unsigned kept = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    bool keep = r0 + r < n && ((m4 >> (8 * r)) & 0xffu) != 0;
+    if (kFilter) {
+      const float rr = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(x[r], x[r]),
+                                                      __fmul_rn(y[r], y[r])),
+                                            __fmul_rn(z[r], z[r])));
+      keep = keep && rr > f.min_distance && (!f.use_max || rr < f.max_distance);
+      if (f.use_crop)
+        keep = keep && x[r] >= f.lo[0] && y[r] >= f.lo[1] && z[r] >= f.lo[2] &&
+               x[r] <= f.hi[0] && y[r] <= f.hi[1] && z[r] <= f.hi[2];
+    }
+    kept |= static_cast<unsigned>(keep) << r;
+  }
+  return kept;
+}
+
+// The filter's outputs of quad q: the kept mask and the points, PAD_VALUE where not kept.
+__device__ __forceinline__ void store_kept4(long long q, long long n, bool vec, unsigned kept,
+                                            const float (&x)[4], const float (&y)[4],
+                                            const float (&z)[4], uint8_t* __restrict__ mask_out,
+                                            float* __restrict__ pts_out) {
+  const long long r0 = 4 * q;
+  float px[4], py[4], pz[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const bool keep = (kept >> r) & 1u;
+    px[r] = keep ? x[r] : kPadValue;
+    py[r] = keep ? y[r] : kPadValue;
+    pz[r] = keep ? z[r] : kPadValue;
+  }
+  store_xyz4(pts_out, q, n, vec, px, py, pz);
+  if (vec && r0 + 3 < n) {
+    *reinterpret_cast<uint32_t*>(mask_out + r0) =
+        (kept & 1u) | ((kept >> 1) & 1u) << 8 | ((kept >> 2) & 1u) << 16 |
+        ((kept >> 3) & 1u) << 24;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r0 + r < n) mask_out[r0 + r] = (kept >> r) & 1u;
+  }
+}
+
+__device__ __forceinline__ void min_kept4(float (&m)[3], unsigned kept, const float (&x)[4],
+                                          const float (&y)[4], const float (&z)[4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if ((kept >> r) & 1u) {
+      m[0] = nan_min(m[0], x[r]);
+      m[1] = nan_min(m[1], y[r]);
+      m[2] = nan_min(m[2], z[r]);
+    }
+}
+
+// The clamped packed keys of quad q (INVALID_KEY where not kept), stored.
+__device__ __forceinline__ void store_keys4(int* __restrict__ keys, long long q, long long n,
+                                            bool vec, unsigned kept, const float (&x)[4],
+                                            const float (&y)[4], const float (&z)[4],
+                                            const float (&org)[3], float inv,
+                                            const KeyBits& kb) {
+  int key[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float p[3] = {x[r], y[r], z[r]};
+    int c[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      // floor((p - origin) * inv).to(int32), clamped to [0, COORD_MAX]; the conversion
+      // saturates, as torch's on the card.
+      const float u = __fmul_rn(__fsub_rn(p[a], org[a]), inv);
+      c[a] = min(max(__float2int_rz(floorf(u)), 0), kb.max_c[a]);
+    }
+    key[r] = ((kept >> r) & 1u) ? (c[0] << kb.shift_x) | (c[1] << kb.shift_y) | c[2]
+                                : kInvalidKey;
+  }
+  const long long r0 = 4 * q;
+  if (vec && r0 + 3 < n) {
+    *reinterpret_cast<int4*>(keys + r0) = make_int4(key[0], key[1], key[2], key[3]);
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r0 + r < n) keys[r0 + r] = key[r];
   }
 }
 
 // -- sorted_runs ---------------------------------------------------------------------
 
-// kRuns: count the runs; kGather: gather the sorted points. The gather alone (the SOR's
-// cell sort) parks the rows whose key is INVALID_KEY at PAD_VALUE; with the runs it copies.
-template <bool kRuns, bool kGather>
-__global__ void __launch_bounds__(kThreads)
-runs_count_kernel(const int* __restrict__ keys, const long long* __restrict__ order,
-                  const float* __restrict__ pts, long long n, float* __restrict__ pts_out,
-                  int* __restrict__ rec) {
-  __shared__ long long red[4 * kWarps];
-  __shared__ long long tot[4];
-  long long v[4] = {0, 0, 0, -1};  // first-of-run rows, valid rows, (unused), last first
-  const long long b0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int t = 0; t < kTiles; ++t) {
-    const long long i = b0 + t * kThreads + threadIdx.x;
-    if (i >= n) break;
-    const int key = keys[i];
-    if (kGather) {
-      const long long o = order[i];
-      const bool pad = !kRuns && key == kInvalidKey;
+// Quad q's first-of-run rows (bit r: row 4q + r) into `first`, its last-of-run rows into
+// `last`; returns its valid rows. A valid row is a row below n whose key is not
+// INVALID_KEY; it is the first of its run at row 0 or after another key, the last at
+// row n - 1 or before another key.
+__device__ __forceinline__ int run_flags4(const int* __restrict__ keys, long long q,
+                                          long long n, bool vec, unsigned& first,
+                                          unsigned& last) {
+  const long long r0 = 4 * q;
+  int k[6];  // the keys of rows r0 - 1 .. r0 + 4 (INVALID_KEY past either end)
+  k[0] = r0 > 0 ? keys[r0 - 1] : kInvalidKey;
+  if (vec && r0 + 3 < n) {
+    const int4 v = *reinterpret_cast<const int4*>(keys + r0);
+    k[1] = v.x; k[2] = v.y; k[3] = v.z; k[4] = v.w;
+  } else {
 #pragma unroll
-      for (int a = 0; a < 3; ++a) pts_out[3 * i + a] = pad ? kPadValue : pts[3 * o + a];
-    }
-    if (kRuns && key != kInvalidKey) {
-      v[1] += 1;
-      if (i == 0 || keys[i - 1] != key) {
-        v[0] += 1;
-        v[3] = i;
-      }
-    }
+    for (int r = 0; r < 4; ++r) k[r + 1] = r0 + r < n ? keys[r0 + r] : kInvalidKey;
   }
-  if (!kRuns) return;
-  block_totals(v, red, tot);
-  if (threadIdx.x == 0) {
-    rec[3 * blockIdx.x] = static_cast<int>(tot[0]);
-    rec[3 * blockIdx.x + 1] = static_cast<int>(tot[1]);
-    rec[3 * blockIdx.x + 2] = static_cast<int>(tot[3]);
+  k[5] = r0 + 4 < n ? keys[r0 + 4] : kInvalidKey;
+  first = last = 0;
+  int valid = 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long i = r0 + r;
+    const bool v = i < n && k[r + 1] != kInvalidKey;
+    valid += v;
+    first |= static_cast<unsigned>(v && (i == 0 || k[r] != k[r + 1])) << r;
+    last |= static_cast<unsigned>(v && (i == n - 1 || k[r + 2] != k[r + 1])) << r;
   }
+  return valid;
 }
 
-__global__ void __launch_bounds__(kThreads)
-runs_write_kernel(const int* __restrict__ keys, long long n, long long C,
-                    const int* __restrict__ rec, long long G, long long* __restrict__ starts,
-                    long long* __restrict__ lengths, long long* __restrict__ num_voxels) {
-  __shared__ long long red[4 * kWarps];
-  __shared__ long long tot[4];
-  __shared__ int warp_tot[kWarps];
-  // Over the records: the firsts before this block, all firsts, all valid rows, and the
-  // last first-of-run row before this block (the start of a run the block begins inside).
-  long long v[4] = {0, 0, 0, -1};
-  for (long long g = threadIdx.x; g < G; g += kThreads) {
-    const long long f = rec[3 * g];
-    v[1] += f;
-    v[2] += rec[3 * g + 1];
-    if (g < blockIdx.x) {
-      v[0] += f;
-      v[3] = max(v[3], static_cast<long long>(rec[3 * g + 2]));
+// pts_out rows 4q .. 4q + 3 below n = pts[order[row]]; with kPad, PAD_VALUE where the
+// row's key is INVALID_KEY (the SOR's cell sort).
+template <bool kPad>
+__device__ __forceinline__ void gather4(const int* __restrict__ keys,
+                                        const long long* __restrict__ order,
+                                        const float* __restrict__ pts, long long q,
+                                        long long n, bool vec, float* __restrict__ pts_out) {
+  const long long r0 = 4 * q;
+  long long o[4];
+  if (vec && r0 + 3 < n) {
+    const longlong2 a = reinterpret_cast<const longlong2*>(order + r0)[0];
+    const longlong2 b = reinterpret_cast<const longlong2*>(order + r0)[1];
+    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) o[r] = r0 + r < n ? order[r0 + r] : 0;
+  }
+  int k[4] = {0, 0, 0, 0};
+  if (kPad) {
+    if (vec && r0 + 3 < n) {
+      const int4 v = *reinterpret_cast<const int4*>(keys + r0);
+      k[0] = v.x; k[1] = v.y; k[2] = v.z; k[3] = v.w;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) k[r] = r0 + r < n ? keys[r0 + r] : 0;
     }
   }
-  block_totals(v, red, tot);
-  const long long nv = tot[1], nvalid = tot[2];
-  long long run = tot[0];                   // firsts before the current tile
-  int start = static_cast<int>(tot[3]);     // the latest first row before it (-1: none)
-  const long long b0 = static_cast<long long>(blockIdx.x) * kRows;
-  for (int t = 0; t < kTiles; ++t) {
-    const long long i = b0 + t * kThreads + threadIdx.x;
-    const bool live = i < n;
-    const int key = live ? keys[i] : kInvalidKey;
-    const bool valid = key != kInvalidKey;
-    const bool first = valid && (i == 0 || keys[i - 1] != key);
-    const bool last = valid && (i == n - 1 || keys[i + 1] != key);
-    int tile_firsts, tile_start;
-    const int incl = block_scan(first ? 1 : 0, warp_tot, tile_firsts);
-    const int s = block_scan_max(first ? static_cast<int>(i) : -1, warp_tot, tile_start);
-    const long long seg = run + incl - 1;  // a valid row's run
-    if (first) {
+  float x[4], y[4], z[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const bool live = r0 + r < n && !(kPad && k[r] == kInvalidKey);
+    x[r] = live ? pts[3 * o[r]] : kPadValue;
+    y[r] = live ? pts[3 * o[r] + 1] : kPadValue;
+    z[r] = live ? pts[3 * o[r] + 2] : kPadValue;
+  }
+  store_xyz4(pts_out, q, n, vec, x, y, z);
+}
+
+// The gather alone (C < 0): a thread a quad over a full grid of kThreads-thread blocks.
+__global__ void __launch_bounds__(kThreads)
+gather_pad_kernel(const int* __restrict__ keys, const long long* __restrict__ order,
+                  const float* __restrict__ pts, long long n, int vec_i,
+                  float* __restrict__ pts_out) {
+  const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (4 * q < n) gather4<true>(keys, order, pts, q, n, vec_i != 0, pts_out);
+}
+
+// The block's quads: each thread's quad q (first / last bits f4, l4; none past n) writes
+// the starts and lengths of its rows' runs; `run` is the runs before the block and
+// `start` the latest first-of-run row before it (-1: none).
+__device__ __forceinline__ void write_runs(unsigned f4, unsigned l4, long long q, long long n,
+                                           long long C, int (*scan_tot)[kWarps],
+                                           long long run, int start,
+                                           long long* __restrict__ starts,
+                                           long long* __restrict__ lengths) {
+  const int last_first = f4 ? static_cast<int>(4 * q) + 31 - __clz(f4) : -1;
+  int excl_runs, excl_start;
+  block_scan_sum_max(__popc(f4), last_first, scan_tot, excl_runs, excl_start);
+  long long seg = run + excl_runs - 1;  // the run of the row before the quad
+  int st = max(start, excl_start);      // its first row
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const long long i = 4 * q + r;
+    if ((f4 >> r) & 1u) {
+      ++seg;
+      st = static_cast<int>(i);
       if (seg < C) {
         starts[seg] = i;
       } else if (seg == C) {  // the first voxel past C opens the overflow run
@@ -342,10 +460,123 @@ runs_write_kernel(const int* __restrict__ keys, long long n, long long C,
         lengths[C] = n - i;
       }
     }
-    if (last && seg < C) lengths[seg] = i + 1 - max(s, start);
-    run += tile_firsts;
-    start = max(start, tile_start);
+    if (((l4 >> r) & 1u) && seg < C) lengths[seg] = i + 1 - st;
   }
+}
+
+// The keys' first launch over a full grid of kThreads threads a block, a quad a thread:
+// each block's corner into rec[3 * block] (with kFilter the kept mask and padded points
+// written). It lets the second launch start at once.
+template <bool kFilter>
+__global__ void __launch_bounds__(kThreads)
+cell_corner_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                   long long n, Filter f, int vec_i, uint8_t* __restrict__ mask_out,
+                   float* __restrict__ pts_out, float* __restrict__ rec) {
+  __shared__ float red[3][kWarps];
+  __shared__ float part[3];
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const bool vec = vec_i != 0;
+  const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float m[3] = {kPadValue, kPadValue, kPadValue};
+  if (4 * q < n) {
+    float x[4], y[4], z[4];
+    const unsigned kept = load_kept4<kFilter>(pts, mask, n, f, vec, q, x, y, z);
+    if (kFilter) store_kept4(q, n, vec, kept, x, y, z, mask_out, pts_out);
+    min_kept4(m, kept, x, y, z);
+  }
+  block_min3(m, red, part);
+  if (threadIdx.x < 3) rec[3 * static_cast<long long>(blockIdx.x) + threadIdx.x] =
+      part[threadIdx.x];
+}
+
+// The keys' second launch, a programmatic dependent of the first: its quad (the raw rows,
+// the filter found again) read before `griddepcontrol.wait`, the G = gridDim.x corners
+// after it.
+template <bool kFilter>
+__global__ void __launch_bounds__(kThreads)
+cell_keys_pair_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                      long long n, Filter f, int vec_i, const float* __restrict__ leaf_p,
+                      KeyBits kb, const float* __restrict__ rec, int* __restrict__ keys,
+                      float* __restrict__ origin_out) {
+  __shared__ float red[3][kWarps];
+  __shared__ float corner[3];
+  const bool vec = vec_i != 0;
+  const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  float x[4], y[4], z[4];
+  const unsigned kept = 4 * q < n ? load_kept4<kFilter>(pts, mask, n, f, vec, q, x, y, z) : 0u;
+  const float leaf = *leaf_p;
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the corners written
+  float m[3] = {kPadValue, kPadValue, kPadValue};
+  for (long long g = threadIdx.x; g < gridDim.x; g += kThreads) {
+    m[0] = nan_min(m[0], rec[3 * g]);
+    m[1] = nan_min(m[1], rec[3 * g + 1]);
+    m[2] = nan_min(m[2], rec[3 * g + 2]);
+  }
+  block_min3(m, red, corner);
+  const float inv = __fdiv_rn(1.0f, leaf);
+  const float org[3] = {__fsub_rn(corner[0], leaf), __fsub_rn(corner[1], leaf),
+                        __fsub_rn(corner[2], leaf)};
+  if (blockIdx.x == 0 && threadIdx.x < 3) origin_out[threadIdx.x] = org[threadIdx.x];
+  if (4 * q < n) store_keys4(keys, q, n, vec, kept, x, y, z, org, inv, kb);
+}
+
+// The runs' first launch over a full grid of kThreads threads a block, a quad a thread
+// (with kGather the gather): each block's record (first-of-run rows, valid rows, its last
+// first-of-run row) into rec[3 * block]. It lets the second launch start at once.
+template <bool kGather>
+__global__ void __launch_bounds__(kThreads)
+runs_record_kernel(const int* __restrict__ keys, const long long* __restrict__ order,
+                   const float* __restrict__ pts, long long n, int vec_i,
+                   float* __restrict__ pts_out, int* __restrict__ rec) {
+  __shared__ long long red[4 * kWarps];
+  __shared__ long long tot[4];
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const bool vec = vec_i != 0;
+  const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned f4 = 0, l4 = 0;
+  int valid = 0;
+  if (4 * q < n) {
+    valid = run_flags4(keys, q, n, vec, f4, l4);
+    if (kGather) gather4<false>(keys, order, pts, q, n, vec, pts_out);
+  }
+  long long v[4] = {__popc(f4), valid, 0, f4 ? 4 * q + 31 - __clz(f4) : -1};
+  block_totals(v, red, tot);
+  if (threadIdx.x == 0) {
+    rec[3 * static_cast<long long>(blockIdx.x)] = static_cast<int>(tot[0]);
+    rec[3 * static_cast<long long>(blockIdx.x) + 1] = static_cast<int>(tot[1]);
+    rec[3 * static_cast<long long>(blockIdx.x) + 2] = static_cast<int>(tot[3]);
+  }
+}
+
+// The runs' second launch, a programmatic dependent of the first: its quad's flags read
+// before `griddepcontrol.wait`, the G = gridDim.x records after it (the firsts before the
+// block, all firsts, all valid rows, the last first-of-run row before the block); then
+// the starts and lengths and the block's share of the fill.
+__global__ void __launch_bounds__(kThreads)
+runs_write_kernel(const int* __restrict__ keys, long long n, long long C, int vec_i,
+                  const int* __restrict__ rec, long long* __restrict__ starts,
+                  long long* __restrict__ lengths, long long* __restrict__ num_voxels) {
+  __shared__ long long red[4 * kWarps];
+  __shared__ long long tot[4];
+  __shared__ int scan_tot[2][kWarps];
+  const long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned f4 = 0, l4 = 0;
+  if (4 * q < n) run_flags4(keys, q, n, vec_i != 0, f4, l4);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // the records written
+  long long w[4] = {0, 0, 0, -1};
+  for (long long g = threadIdx.x; g < gridDim.x; g += kThreads) {
+    const long long firsts = rec[3 * g];
+    w[1] += firsts;
+    w[2] += rec[3 * g + 1];
+    if (g < blockIdx.x) {
+      w[0] += firsts;
+      w[3] = max(w[3], static_cast<long long>(rec[3 * g + 2]));
+    }
+  }
+  block_totals(w, red, tot);
+  const long long nv = tot[1], nvalid = tot[2];
+  write_runs(f4, l4, q, n, C, scan_tot, tot[0], static_cast<int>(tot[3]), starts,
+             lengths);
   if (nv <= C) {  // rows nv .. C: empty, and row C the invalid rows
     for (long long r = nv + static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
          r <= C; r += static_cast<long long>(gridDim.x) * kThreads) {
@@ -512,6 +743,30 @@ compact_write_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ 
   }
 }
 
+// -- launches -----------------------------------------------------------------------
+
+// One launch of `kernel` on `stream` over `grid` blocks of kThreads, a programmatic
+// dependent of the launch before it.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), unsigned grid, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -519,13 +774,14 @@ extern "C" {
 // Rows a block of every pass (the plain SOR threshold's tree width).
 int lgs_prefilter_pass_rows() { return kRows; }
 
-// Two launches on `stream` over n >= 0 rows. pts: [n, 3] f32; mask: [n] u8; leaf: one
-// f32 on the device. With `filter` (the prefilter's distance filter, and the crop with
-// use_crop), mask_out [n] u8 and pts_out [n, 3] f32 get the kept rows and the padded
-// points, and the keys are those of the kept rows. partials: [3 * blocks] f32 scratch
-// (blocks = max(1, ceil(n / rows))). Outputs (fresh, contiguous): keys [n] i32 (the
-// clamped packed key of each valid row, INVALID_KEY elsewhere), origin [3] f32 (the
-// valid rows' minimum corner less leaf). Returns cudaGetLastError() (0 = success).
+// Two launches on `stream` over n >= 0 rows, the second a programmatic dependent of the
+// first. pts: [n, 3] f32; mask: [n] u8; leaf: one f32 on the device. With `filter` (the
+// prefilter's distance filter, and the crop with use_crop), mask_out [n] u8 and pts_out
+// [n, 3] f32 get the kept rows and the padded points, and the keys are those of the kept
+// rows. partials: [3 * blocks] f32 scratch (blocks = max(1, ceil(n / rows))). Outputs
+// (fresh, contiguous): keys [n] i32 (the clamped packed key of each valid row, INVALID_KEY
+// elsewhere), origin [3] f32 (the valid rows' minimum corner less leaf). Returns
+// cudaGetLastError() (0 = success).
 int lgs_cell_keys(const float* pts, const uint8_t* mask, long long n, int filter,
                   float min_distance, float max_distance, int use_max, int use_crop,
                   float lo_x, float lo_y, float lo_z, float hi_x, float hi_y, float hi_z,
@@ -537,47 +793,52 @@ int lgs_cell_keys(const float* pts, const uint8_t* mask, long long n, int filter
   const Filter f{min_distance, max_distance, use_max, use_crop, {lo_x, lo_y, lo_z},
                  {hi_x, hi_y, hi_z}};
   const KeyBits kb{shift_x, shift_y, {max_x, max_y, max_z}};
+  const int vec = aligned(pts, 16) && aligned(mask, 4) && aligned(keys, 16) &&
+                  (!filter || (aligned(pts_out, 16) && aligned(mask_out, 4)));
   if (filter) {
-    cell_corner_kernel<true><<<G, kThreads, 0, s>>>(pts, mask, n, f, mask_out, pts_out,
+    cell_corner_kernel<true><<<G, kThreads, 0, s>>>(pts, mask, n, f, vec, mask_out, pts_out,
                                                     partials);
   } else {
-    cell_corner_kernel<false><<<G, kThreads, 0, s>>>(pts, mask, n, f, mask_out, pts_out,
+    cell_corner_kernel<false><<<G, kThreads, 0, s>>>(pts, mask, n, f, vec, mask_out, pts_out,
                                                      partials);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  cell_keys_kernel<<<G, kThreads, 0, s>>>(filter ? pts_out : pts, filter ? mask_out : mask, n,
-                                          partials, G, leaf, kb, keys, origin);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      filter ? launch_dependent(cell_keys_pair_kernel<true>, G, s, pts, mask, n, f, vec, leaf,
+                                kb, static_cast<const float*>(partials), keys, origin)
+             : launch_dependent(cell_keys_pair_kernel<false>, G, s, pts, mask, n, f, vec,
+                                leaf, kb, static_cast<const float*>(partials), keys, origin));
 }
 
 // Over n >= 0 rows sorted by key (keys [n] i32 ascending, INVALID_KEY rows last). With
 // pts (and order [n] i64, each sorted row's original index), pts_out [n, 3] f32 gets
 // pts[order]. With C >= 0, the runs: starts, lengths [C + 1] i64 and num_voxels (one i64)
-// as `_sorted_runs` gives them; rec: [3 * blocks] i32 scratch. With C < 0 the gather
-// alone, PAD_VALUE where the key is INVALID_KEY: one launch (none for n = 0). Two with
-// the runs. Returns cudaGetLastError() (0 = success).
+// as `_sorted_runs` gives them, in two launches, the second a programmatic dependent of
+// the first; rec: [3 * blocks] i32 scratch (blocks as `lgs_cell_keys`). With C < 0 the
+// gather alone, PAD_VALUE where the key is INVALID_KEY: one launch (none for n = 0).
+// Returns cudaGetLastError() (0 = success).
 int lgs_sorted_runs(const int* keys, const long long* order, const float* pts, long long n,
                     long long C, float* pts_out, int* rec, long long* starts,
                     long long* lengths, long long* num_voxels, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned G = blocks_for(n);
+  const int vec = aligned(keys, 16) &&
+                  (pts == nullptr || (aligned(order, 16) && aligned(pts_out, 16)));
   if (C < 0) {
-    if (n > 0) {
-      runs_count_kernel<false, true><<<G, kThreads, 0, s>>>(keys, order, pts, n, pts_out,
-                                                            rec);
-    }
+    if (n > 0) gather_pad_kernel<<<G, kThreads, 0, s>>>(keys, order, pts, n, vec, pts_out);
     return static_cast<int>(cudaGetLastError());
   }
   if (pts != nullptr) {
-    runs_count_kernel<true, true><<<G, kThreads, 0, s>>>(keys, order, pts, n, pts_out, rec);
+    runs_record_kernel<true><<<G, kThreads, 0, s>>>(keys, order, pts, n, vec, pts_out, rec);
   } else {
-    runs_count_kernel<true, false><<<G, kThreads, 0, s>>>(keys, order, pts, n, pts_out, rec);
+    runs_record_kernel<false><<<G, kThreads, 0, s>>>(keys, order, pts, n, vec, pts_out, rec);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  runs_write_kernel<<<G, kThreads, 0, s>>>(keys, n, C, rec, G, starts, lengths, num_voxels);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dependent(runs_write_kernel, G, s, keys, n, C, vec,
+                                           static_cast<const int*>(rec), starts, lengths,
+                                           num_voxels));
 }
 
 // Three launches on `stream` over n >= 1 rows: mean_d [n] f32 and n_found [n] i64 (the

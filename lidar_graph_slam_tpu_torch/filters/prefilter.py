@@ -21,11 +21,11 @@ from lidar_graph_slam_tpu_torch.core.pointcloud import PointCloud, compact, pad_
 from lidar_graph_slam_tpu_torch.ops import kernels, neighbors, voxel
 
 
-def filter_bounds(cfg: PrefilterConfig) -> tuple:
-    """The distance filter's and the crop's bounds as `kernels.cell_keys` takes them."""
+def filter_bounds(cfg: PrefilterConfig) -> voxel.KeyFilter:
+    """The distance filter and the crop as `kernels.cell_keys` applies them."""
     crop = cfg.use_crop
-    return (cfg.min_distance, cfg.max_distance, cfg.min_xyz if crop else None,
-            cfg.max_xyz if crop else None)
+    return voxel.KeyFilter(cfg.min_distance, cfg.max_distance, cfg.min_xyz if crop else None,
+                           cfg.max_xyz if crop else None)
 
 
 def statistical_outlier_filter(points: torch.Tensor, mask: torch.Tensor, mean_k: int,

@@ -83,11 +83,12 @@ first use in `build/` and bound with ctypes:
   after the sort by cell in one clear and one launch: each row's run start, the packed
   rows and the table of the runs' first valid rows.
 * `cell_keys(points, mask, leaf, bounds)`: every sort by key's keys in two launches (the
-  valid rows' minimum corner, then the clamped packed keys), with `bounds` after the
-  prefilter's distance filter, crop and pad.
+  valid rows' minimum corner, then the clamped packed keys; the second a programmatic
+  dependent of the first), with `bounds` after the prefilter's distance filter, crop and
+  pad.
 * `sorted_runs(keys_sorted, order, points, capacity)`: what follows the sort in two
-  launches (the gather and each block's record, then the runs' starts, lengths and
-  count), or the gather and pad alone in one.
+  launches likewise (the gather and each block's record, then the runs' starts, lengths
+  and count), or the gather and pad alone in one.
 * `sor_threshold(mean_d, n_found, mask, points, stddev_mult)`: the outlier filter's mean,
   deviation, mask and pad in three launches, summed in a fixed order.
 * `compact_rows(points, mask, capacity)`: the stable compaction in two launches (each
@@ -1780,19 +1781,18 @@ def _pass_blocks(n: int) -> int:
 
 def cell_keys(points, mask, leaf, bounds=None):
     """Each valid row's packed cell key at `leaf`, relative to origin = the valid rows'
-    minimum corner less one leaf, in two launches (the corner, then the keys).
+    minimum corner less one leaf.
 
     points: [N, 3] f32; mask: [N] bool; leaf: 0-d f32 (read on the device)
-    bounds: None, or (min_distance, max_distance, min_xyz, max_xyz): the prefilter's
-            distance filter (range > min_distance, and < max_distance when that is > 0)
-            and, when min_xyz is not None, its crop box, applied to `mask` first
+    bounds: None, or a `voxel.KeyFilter` (the prefilter's distance filter and crop), which
+            drops rows from `mask` first
     Returns (keys [N] i32: INVALID_KEY where not valid, origin [3] f32), with `bounds`
     also (the kept mask [N] bool, the points [N, 3] f32 with the dropped rows at
     PAD_VALUE), as `ops/voxel.py:cell_keys_plain`, bit for bit on the card.
 
-    CPU tensors take `cell_keys_plain`; CUDA tensors launch the `cell_corner` and
-    `cell_keys` kernels (`csrc/prefilter_pass.cu`, counted in `cell_keys.launches`) or
-    raise. Nothing is read back.
+    CPU tensors take `cell_keys_plain`; CUDA tensors launch the `cell_corner` kernel and
+    `cell_keys_pair`, a programmatic dependent of it (`csrc/prefilter_pass.cu`, counted in
+    `cell_keys.launches`) or raise. Nothing is read back.
     """
     dev = points.device
     if dev.type == "cpu":
@@ -1809,20 +1809,16 @@ def cell_keys(points, mask, leaf, bounds=None):
     origin = torch.empty((3,), dtype=torch.float32, device=dev)
     partials = torch.empty((3 * _pass_blocks(N),), dtype=torch.float32, device=dev)
     kept = padded = None
-    filt = (0.0, 0.0, 0, 0, (0.0,) * 3, (0.0,) * 3)
+    filt = (0.0, 0.0, 0, 0) + (0.0,) * 6
     if bounds is not None:
-        min_distance, max_distance, min_xyz, max_xyz = bounds
-        crop = min_xyz is not None
-        filt = (float(min_distance), float(max_distance), int(max_distance > 0.0), int(crop),
-                tuple(map(float, min_xyz)) if crop else (0.0,) * 3,
-                tuple(map(float, max_xyz)) if crop else (0.0,) * 3)
+        filt = bounds.kernel_args()
         kept = torch.empty((N,), dtype=torch.bool, device=dev)
         padded = torch.empty((N, 3), dtype=torch.float32, device=dev)
     lib = load_library()
     _raise_on(lib.lgs_cell_keys(
-        points.data_ptr(), mask.data_ptr(), N, int(bounds is not None), *filt[:4], *filt[4],
-        *filt[5], leaf.data_ptr(), _BITS_Y + _BITS_Z, _BITS_Z, *COORD_MAX,
-        partials.data_ptr(), None if kept is None else kept.data_ptr(),
+        points.data_ptr(), mask.data_ptr(), N, int(bounds is not None), *filt,
+        leaf.data_ptr(), _BITS_Y + _BITS_Z, _BITS_Z, *COORD_MAX, partials.data_ptr(),
+        None if kept is None else kept.data_ptr(),
         None if padded is None else padded.data_ptr(), keys.data_ptr(), origin.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream), "cell_keys")
     _count(cell_keys, 2)
@@ -1830,9 +1826,8 @@ def cell_keys(points, mask, leaf, bounds=None):
 
 
 def sorted_runs(keys_sorted, order=None, points=None, capacity=None):
-    """What follows a sort by key, in one pass and a scan: with `points`, the sorted
-    points; with `capacity` = C, the runs of equal valid keys as `_sorted_runs` gives
-    them and their count.
+    """What follows a sort by key: with `points`, the sorted points; with `capacity` = C,
+    the runs of equal valid keys as `_sorted_runs` gives them and their count.
 
     keys_sorted: [N] i32 ascending (INVALID_KEY rows last)
     order:       [N] i64, the sort's permutation (with `points`)
@@ -1844,10 +1839,10 @@ def sorted_runs(keys_sorted, order=None, points=None, capacity=None):
     `capacity`, the rows whose key is INVALID_KEY are parked at PAD_VALUE (the SOR's cell
     sort). As `ops/voxel.py:sorted_runs_plain`, bit for bit on the card.
 
-    CPU tensors take `sorted_runs_plain`; CUDA tensors launch the `runs_count` kernel (the
-    gather and each block's record) and, with `capacity`, the `runs_write` kernel
-    (`csrc/prefilter_pass.cu`, counted in `sorted_runs.launches`; no launch for the gather
-    alone at N = 0) or raise. Nothing is read back.
+    CPU tensors take `sorted_runs_plain`; CUDA tensors launch, with `capacity`, the
+    `runs_record` kernel and `runs_write`, a programmatic dependent of it, or without it
+    the `gather_pad` kernel (`csrc/prefilter_pass.cu`, counted in `sorted_runs.launches`;
+    no launch for the gather alone at N = 0) or raise. Nothing is read back.
     """
     dev = keys_sorted.device
     if dev.type == "cpu":

@@ -168,21 +168,48 @@ def in_box(points: torch.Tensor, min_xyz, max_xyz) -> torch.Tensor:
     return torch.all((points >= lo) & (points <= hi), dim=-1)
 
 
+@dataclass(frozen=True)
+class KeyFilter:
+    """The prefilter's distance filter and crop, as `cell_keys` applies them to its mask
+    before the keys: range > min_distance (and < max_distance when that is > 0) by
+    `in_range`, and, when min_xyz is not None, inside [min_xyz, max_xyz] by `in_box`.
+    `filters/prefilter.py:filter_bounds` builds it; only `cell_keys_plain` (`keep`) and
+    the `cell_keys` kernel wrapper (`kernel_args`) read it."""
+
+    min_distance: float
+    max_distance: float = 0.0
+    min_xyz: tuple | None = None
+    max_xyz: tuple | None = None
+
+    def keep(self, points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """`mask` with the rows the filter drops cleared."""
+        mask = mask & in_range(points, self.min_distance, self.max_distance)
+        if self.min_xyz is not None:
+            mask = mask & in_box(points, self.min_xyz, self.max_xyz)
+        return mask
+
+    def kernel_args(self) -> tuple:
+        """The kernel's filter arguments: min_distance, max_distance, whether the maximum
+        applies, whether the crop does, and the crop's lower and upper corners (zeros
+        without it)."""
+        crop = self.min_xyz is not None
+        corners = (tuple(map(float, self.min_xyz)) + tuple(map(float, self.max_xyz))
+                   if crop else (0.0,) * 6)
+        return (float(self.min_distance), float(self.max_distance),
+                int(self.max_distance > 0.0), int(crop), *corners)
+
+
 def cell_keys_plain(points: torch.Tensor, mask: torch.Tensor, leaf: torch.Tensor,
-                    bounds=None):
+                    bounds: KeyFilter | None = None):
     """Plain version of the `cell_keys` kernel (`ops/kernels.py`): each valid row's packed
     cell key at `leaf` (0-d f32) relative to origin = the valid rows' minimum corner less
     one leaf, INVALID_KEY for the other rows. Returns (keys [N] i32, origin [3] f32).
 
-    With `bounds` = (min_distance, max_distance, min_xyz, max_xyz) the prefilter's
-    distance filter (`in_range`) and, when min_xyz is not None, its crop (`in_box`) first
-    drop rows from `mask`, the dropped rows parked at PAD_VALUE, and the keys are those
-    of the kept rows: (keys, origin, kept mask [N] bool, padded points [N, 3] f32)."""
+    With `bounds` (a `KeyFilter`) the prefilter's distance filter and crop first drop
+    rows from `mask`, the dropped rows parked at PAD_VALUE, and the keys are those of the
+    kept rows: (keys, origin, kept mask [N] bool, padded points [N, 3] f32)."""
     if bounds is not None:
-        min_distance, max_distance, min_xyz, max_xyz = bounds
-        mask = mask & in_range(points, min_distance, max_distance)
-        if min_xyz is not None:
-            mask = mask & in_box(points, min_xyz, max_xyz)
+        mask = bounds.keep(points, mask)
         points = pad_points(points, mask)
     origin = min_corner(points, mask) - leaf
     keys = torch.where(mask, pack_key(voxel_coords(points, origin, 1.0 / leaf)), INVALID_KEY)

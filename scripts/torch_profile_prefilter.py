@@ -18,10 +18,10 @@ on each submap, on three paths:
   plain   this checkout with every kernel wrapper the prefilter calls replaced by its
           plain version;
   parent  with `--parent DIR`, that tree's `filters/prefilter.py`, `ops/voxel.py`,
-          `ops/neighbors.py` and `core/pointcloud.py` (a parent commit unpacked with `git
-          archive`), loaded beside this checkout's (their kernel wrappers are this
-          checkout's `ops/kernels.py`, whose `voxel_centroids` and `sor_window_stats` the
-          parent's call as they are).
+          `ops/neighbors.py`, `core/pointcloud.py` and `ops/kernels.py` (a parent commit
+          unpacked with `git archive`), loaded beside this checkout's; while a parent
+          call runs, its modules' kernel wrappers are that tree's `ops/kernels.py`
+          (which builds that tree's `csrc/`).
 
 Per input and path: wall ms a call (host clock between synchronizes, the median of
 `--repeats`) and the host's enqueue ms (the call's return, no synchronize), in turns
@@ -44,6 +44,7 @@ match. Prints one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import os
@@ -131,6 +132,12 @@ def tree_modules(root: str) -> dict:
     mods, saved = {}, {}
     saved_attrs = (ops_pkg.voxel, ops_pkg.neighbors)
     try:
+        spec = importlib.util.spec_from_file_location(
+            "parent_kernels", os.path.join(root, "lidar_graph_slam_tpu_torch", "ops",
+                                           "kernels.py"))
+        mods["kernels"] = importlib.util.module_from_spec(spec)
+        sys.modules["parent_kernels"] = mods["kernels"]
+        spec.loader.exec_module(mods["kernels"])
         for name, rel in names.items():
             spec = importlib.util.spec_from_file_location(
                 f"parent_{name}", os.path.join(root, "lidar_graph_slam_tpu_torch", *rel))
@@ -145,7 +152,27 @@ def tree_modules(root: str) -> dict:
     finally:
         sys.modules.update(saved)
         ops_pkg.voxel, ops_pkg.neighbors = saved_attrs
+    mods["prefilter"].kernels = mods["kernels"]
     return mods
+
+
+@contextlib.contextmanager
+def kernels_of(mods: dict):
+    """Inside, `from lidar_graph_slam_tpu_torch.ops import kernels` gives the tree's own
+    kernel module (`mods["kernels"]`, for a tree of `tree_modules`); this checkout's
+    outside."""
+    import lidar_graph_slam_tpu_torch.ops as ops_pkg
+
+    if "kernels" not in mods:
+        yield
+        return
+    full = "lidar_graph_slam_tpu_torch.ops.kernels"
+    saved = (ops_pkg.kernels, sys.modules[full])
+    ops_pkg.kernels = sys.modules[full] = mods["kernels"]
+    try:
+        yield
+    finally:
+        ops_pkg.kernels, sys.modules[full] = saved
 
 
 def main() -> int:
@@ -222,7 +249,8 @@ def main() -> int:
     def run(label, name):
         on_path(name)
         try:
-            return calls[label, name]()
+            with kernels_of(trees[name]):
+                return calls[label, name]()
         finally:
             on_path("kernel")
 
@@ -242,7 +270,7 @@ def main() -> int:
         graph = torch.cuda.CUDAGraph()
         on_path(name)
         try:
-            with torch.cuda.graph(graph, stream=s):
+            with kernels_of(trees[name]), torch.cuda.graph(graph, stream=s):
                 out = calls[label, name]()
         finally:
             on_path("kernel")
@@ -267,7 +295,7 @@ def main() -> int:
     def annotated(name):
         """Each function of GROUPS the `name` path calls, wrapped in a `record_function`
         range of its group, until the context ends."""
-        mods = dict(trees[name], kernels=kernels, torch=torch)
+        mods = {"kernels": kernels, **trees[name], "torch": torch}
         saved = []
         for group, targets in GROUPS.items():
             for mod, attr in targets:
@@ -347,25 +375,28 @@ def main() -> int:
                 torch.cuda.synchronize()
             replay_kernels = len(device_events(prof))
             on_path(name)
+            kern = trees[name].get("kernels", kernels)
             try:
-                # Twice, the first session thrown away (a process's first session can
-                # miss kernel events).
-                for _ in range(2):
-                    before = kernels.thread_launches()
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                 record_shapes=True) as prof:
-                        calls[label, name]()
-                        torch.cuda.synchronize()
-                    wrapper = kernels.thread_launches() - before
-                saved = annotated(name)
-                try:
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as grouped:
-                        calls[label, name]()
-                        torch.cuda.synchronize()
-                finally:
-                    for obj, attr, fn in reversed(saved):
-                        setattr(obj, attr, fn)
+                with kernels_of(trees[name]):
+                    # Twice, the first session thrown away (a process's first session can
+                    # miss kernel events).
+                    for _ in range(2):
+                        before = kern.thread_launches()
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA],
+                                     record_shapes=True) as prof:
+                            calls[label, name]()
+                            torch.cuda.synchronize()
+                        wrapper = kern.thread_launches() - before
+                    saved = annotated(name)
+                    try:
+                        with profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as grouped:
+                            calls[label, name]()
+                            torch.cuda.synchronize()
+                    finally:
+                        for obj, attr, fn in reversed(saved):
+                            setattr(obj, attr, fn)
             finally:
                 on_path("kernel")
             ka = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA

@@ -41,9 +41,10 @@ version bit for bit, from the dense ring's 655,360 rows down to N = 0, one launc
 its refusals, no synchronous read, and inside the captured GICP step and insert. The
 prefilter's passes (`cell_keys`, `sorted_runs`, `sor_threshold`, `compact_rows`,
 `csrc/prefilter_pass.cu`) against their plain versions bit for bit with reruns at the
-dense and drift buckets, the SOR's rows, the loop submap and edge cases, their refusals,
-and the default prefilter captured into a program, replayed bit-equal to its body without
-a synchronous read.
+dense and drift buckets, the SOR's rows, the loop submap, the ring's fine and coarse
+levels and edge cases (a NaN corner, N = 0), their refusals, the default prefilter
+captured into a program, replayed bit-equal to its body without a synchronous read, and
+the fused step's programs replayed while a loop attempt's replay in another thread.
 
 Every test here is marked `cuda` and skips without a card. This file imports no JAX
 (the card's machine has none), so it also runs there without the suite's conftest:
@@ -678,12 +679,11 @@ def _capture_course(cuda, method):
     return cfg, raws
 
 
-@pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
-def test_captured_programs_equal_the_bodies(cuda, method):
-    """`FusedFrontEnd`'s programs (CUDA graphs after the first call) against the plain
-    step and insert-and-rebuild on the card, lagged as the runner lags them: every
-    frame's outputs, the ring and the target bit for bit; one capture a bucket and one
-    for the insert."""
+def _lagged_course(cuda, cfg, raws, after_dispatch=None):
+    """`FusedFrontEnd`'s programs and the plain step and insert-and-rebuild on the card
+    over `raws`, lagged as the runner lags them (`after_dispatch(t)` called after frame
+    t's dispatch): (the programs' per-frame rows, the plain ones, the front end, the plain
+    ring and target)."""
     from collections import deque
 
     from lidar_graph_slam_tpu_torch.odometry.fused import (
@@ -692,7 +692,6 @@ def test_captured_programs_equal_the_bodies(cuda, method):
         pack_scalars,
     )
 
-    cfg, raws = _capture_course(cuda, method)
     front = FusedFrontEnd(cfg.scan_matcher, cfg.prefilter, cfg.capacity, 2, device=cuda)
     init_state, step, aux = make_fused_frontend(cfg.scan_matcher, cfg.prefilter,
                                                 cfg.capacity, device=cuda)
@@ -702,6 +701,8 @@ def test_captured_programs_equal_the_bodies(cuda, method):
     got, want, pending = [], [], deque()
     for t, raw in enumerate(raws):
         front.dispatch(raw, None, None, t % 2)
+        if after_dispatch is not None:
+            after_dispatch(t)
         state, out = step(state, torch.as_tensor(raw, device=cuda), target, eye3, False,
                           eye4, False)
         pending.append((t % 2, out))
@@ -718,17 +719,65 @@ def test_captured_programs_equal_the_bodies(cuda, method):
         slot, out = pending.popleft()
         got.append(front.slots.scalars[slot].clone())
         want.append(pack_scalars(out))
+    return got, want, front, ring, target
 
-    def bits(x):
-        leaves = [x] if isinstance(x, torch.Tensor) else (
-            [t for item in x for t in bits(item)] if isinstance(x, tuple) else
-            [t for f in dataclasses.fields(x) for t in bits(getattr(x, f.name))])
-        return leaves
 
+def _leaves(x):
+    """Every tensor of a tensor, a tuple or a dataclass, in order."""
+    return [x] if isinstance(x, torch.Tensor) else (
+        [t for item in x for t in _leaves(item)] if isinstance(x, tuple) else
+        [t for f in dataclasses.fields(x) for t in _leaves(getattr(x, f.name))])
+
+
+@pytest.mark.parametrize("method", ["NDT", "GICP", "ICP"])
+def test_captured_programs_equal_the_bodies(cuda, method):
+    """`FusedFrontEnd`'s programs (CUDA graphs after the first call) against the plain
+    step and insert-and-rebuild on the card, lagged as the runner lags them: every
+    frame's outputs, the ring and the target bit for bit; one capture a bucket and one
+    for the insert."""
+    cfg, raws = _capture_course(cuda, method)
+    got, want, front, ring, target = _lagged_course(cuda, cfg, raws)
     assert torch.equal(torch.stack(got), torch.stack(want))
-    for a, b in zip(bits((front.ring, front.target)), bits((ring, target))):
+    for a, b in zip(_leaves((front.ring, front.target)), _leaves((ring, target))):
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
     assert front.captures == 2 and front.programs[16384].replays == len(raws) - 1
+
+
+def test_captured_step_and_verify_inputs_replay_together(cuda):
+    """The fused front end's step and insert programs and a loop attempt's two programs
+    (the inputs' build, the verification) replayed at once, the attempts in a second
+    thread and its worker's stream: the frames' rows, the ring and the target equal the
+    plain step and insert-and-rebuild's bit for bit, and the attempts' records and solved
+    poses those of the same attempts operator by operator. The key passes inside both
+    graphs (`cell_keys` and `sorted_runs`, their records allocated in each graph's pool)
+    share no scratch."""
+    cfg, raws = _capture_course(cuda, "NDT")
+    backs = _loop_backend(cuda, True), _loop_backend(cuda, True)
+    backs[1].programs_enabled = False
+    want_loops = [backs[1].try_close_loop() for _ in range(3)]
+    got_loops = [backs[0].try_close_loop()]  # captures the attempt's programs
+    attempts = threading.Thread(
+        target=lambda: got_loops.extend(backs[0].try_close_loop() for _ in range(2)))
+
+    def after_dispatch(t):
+        if t == 1:  # the step captured at frame 0: from here its replays
+            attempts.start()
+
+    got, want, front, ring, target = _lagged_course(cuda, cfg, raws, after_dispatch)
+    attempts.join()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    for a, b in zip(_leaves((front.ring, front.target)), _leaves((ring, target))):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    assert got_loops == want_loops
+    for a, b in zip(*(b.loop_log for b in backs)):
+        assert (a["candidate"], a["accepted"], a["fitness"]) == (
+            b["candidate"], b["accepted"], b["fitness"])
+        np.testing.assert_array_equal(a["transform"], b["transform"])
+    np.testing.assert_array_equal(backs[0].optimized_poses(), backs[1].optimized_poses())
+    log = backs[0].loop_programs.log()["ICP_1"]
+    assert all((v["captures"], v["replays"]) == (1, 2) for v in log.values())
+    assert front.programs[16384].replays == len(raws) - 1
 
 
 def test_captured_program_counts_its_launches_at_each_replay(cuda):
@@ -2505,7 +2554,8 @@ def _assert_bits(out, again, ref):
     torch.cuda.synchronize()
     for a, b, c in zip(out, again, ref):
         assert a.dtype == c.dtype and a.shape == c.shape
-        assert torch.equal(a, b) and torch.equal(a, c)
+        # Bytes, not values: a NaN (the NaN corner's origin) equals itself bit for bit.
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
         assert torch.equal(a.reshape(-1).view(torch.uint8), c.reshape(-1).view(torch.uint8))
 
 
@@ -2659,8 +2709,9 @@ def test_prefilter_kernels_reject_bad_inputs(cuda):
 # `cell_keys`, `sorted_runs`, `sor_threshold` and `compact_rows` against their plain
 # versions on the same card tensors, bit for bit, with a rerun: the dense (131,072) and
 # drift (8,192) raw buckets with the distance filter, the SOR's 65,536 rows, the loop
-# submap (N = C = 131,072), the dense ring's 655,360 grid rows, a cloud ~1 km out, one
-# valid row, none, ragged sizes; the captured prefilter against its body run eagerly.
+# submap (N = C = 131,072), the dense ring's 655,360 grid rows, a cloud ~1 km out, a NaN
+# corner, one valid row, none, ragged sizes; the captured prefilter against its body run
+# eagerly.
 
 PASS_KEY_CASES = {  # (rows, valid rows, leaf, bounds, far)
     "dense_filtered": (131072, 73000, 0.1, (1.0, 0.0, None, None), False),
@@ -2671,16 +2722,22 @@ PASS_KEY_CASES = {  # (rows, valid rows, leaf, bounds, far)
     "far": (16384, 9000, 0.5, None, True), "one_valid": (4096, 1, 0.1, None, False),
     "none_valid": (4096, 0, 0.1, (1.0, 0.0, None, None), False),
     "ragged": (1000, 700, 0.3, (2.5, 0.0, None, None), False), "n1": (1, 1, 0.1, None, False),
+    "nan_corner": (16384, 9000, 0.5, None, False), "n5": (5, 4, 0.1, None, False),
 }
 
 
 def _pass_cloud(case, device, seed=0):
+    from lidar_graph_slam_tpu_torch.ops.voxel import KeyFilter
+
     n, valid, leaf, bounds, far = PASS_KEY_CASES[case]
     pts, mask = _prefilter_cloud(n, valid, seed)
     if far:
         pts[:valid] += np.float32([812.5, -433.0, 21.0])
+    if case == "nan_corner":  # a kept row's x, a dropped row's y
+        pts[4321, 0], pts[valid + 5, 1] = np.nan, np.nan
     leaf_t = torch.full((), leaf, dtype=torch.float32, device=device)
-    return torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device), leaf_t, bounds
+    return (torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device), leaf_t,
+            None if bounds is None else KeyFilter(*bounds))
 
 
 @pytest.mark.parametrize("case", list(PASS_KEY_CASES))
@@ -2698,11 +2755,15 @@ def test_cell_keys_bit_equal_to_plain(cuda, case):
     assert torch.equal(out[0] != INVALID_KEY, kept)
     if case == "none_valid":
         assert not bool(kept.any())
+    if case == "nan_corner":
+        assert bool(torch.isnan(out[1][0])) and not bool(torch.isnan(out[1][1:]).any())
 
 
 # (rows N, valid rows, capacity C or None, leaf, gather): the dense bucket's downsample
 # runs, the drift bucket's, the loop submap's (C = N), more voxels than C, exactly C, no
-# valid row, the SOR's gather alone, the runs alone (a coarse level), a ragged N and C.
+# valid row, the SOR's gather alone, the runs alone (a coarse level), a ragged N and C;
+# the target build's fine level on the ring's 655,360 rows and its coarse level (65,536
+# rows, C = 32,768, no gather), runs longer than 8,192 rows, N = 0 and 5.
 PASS_RUN_CASES = {"dense": (131072, 70000, 65536, 0.1, True),
                   "drift": (8192, 7000, 65536, 0.1, True),
                   "loop_submap": (131072, 40000, 131072, 0.5, True),
@@ -2711,7 +2772,11 @@ PASS_RUN_CASES = {"dense": (131072, 70000, 65536, 0.1, True),
                   "all_invalid": (8192, 0, 4096, 0.1, True),
                   "gather_only": (65536, 60000, None, 1.0, True),
                   "runs_only": (65536, 30000, 32768, 0.4, False),
-                  "ragged": (1000, 700, 777, 0.3, True), "n1": (1, 1, 3, 0.1, True)}
+                  "ragged": (1000, 700, 777, 0.3, True), "n1": (1, 1, 3, 0.1, True),
+                  "ring": (655360, 655360, 65536, 1.0, True),
+                  "coarse": (65536, 65536, 32768, 2.0, False),
+                  "long_runs": (131072, 131072, 4096, 16.0, True),
+                  "n0": (0, 0, 5, 0.1, True), "n5": (5, 4, 2, 0.1, True)}
 
 
 def _run_args(case, device, seed=0):
@@ -2719,7 +2784,10 @@ def _run_args(case, device, seed=0):
     n, valid, C, leaf, gather = PASS_RUN_CASES[case]
     pts, mask = _prefilter_cloud(n, valid, seed)
     p, m = torch.as_tensor(pts, device=device), torch.as_tensor(mask, device=device)
-    keys, _ = tk.cell_keys(p, m, torch.full((), leaf, device=device))
+    if n:
+        keys, _ = tk.cell_keys(p, m, torch.full((), leaf, device=device))
+    else:  # `cell_keys_plain` has no corner of no rows
+        keys = torch.zeros((0,), dtype=torch.int32, device=device)
     keys_sorted, order = torch.sort(keys, stable=True)
     if case == "exact_c":  # C equal to the number of runs
         valid_keys = keys_sorted[keys_sorted != 2**31 - 1]
@@ -2749,6 +2817,8 @@ def test_sorted_runs_bit_equal_to_plain(cuda, case):
             assert int(nv) > C
         if case == "exact_c":
             assert int(nv) == C
+        if case == "long_runs":
+            assert int(lengths[:C].max()) > 8192
 
 
 # (rows N, valid rows, one cell, SOR cell m, stddev): the SOR's 65,536 rows dense and

@@ -2,8 +2,10 @@
 versions `cell_keys_plain`, `sorted_runs_plain` (`ops/voxel.py`), `sor_threshold_plain`
 (`ops/neighbors.py`) and `compact_rows_plain` (`core/pointcloud.py`) against the JAX
 functions they port, and numpy models of the kernels' orders held to the plain versions
-bit for bit: the runs' block records, carry and fill; the compaction's block scan and
-fill; the threshold's block trees and partials in index order (float32).
+bit for bit: the runs' block records, carry and fill, a quad of rows a thread, and the
+keys' block minima; the
+compaction's block scan and fill; the threshold's block trees and partials in index order
+(float32).
 
 Inputs are made with numpy from a seed (the ring, far-away and run-length fixtures of
 `tests/test_torch_prefilter_kernels.py`). Tolerances: keys, origins, masks, runs, counts
@@ -84,7 +86,8 @@ def test_cell_keys_plain_matches_reference(case):
     make, leaf, bounds = KEY_CASES[case]
     pts, mask = make()
     out = tv.cell_keys_plain(torch.as_tensor(pts), torch.as_tensor(mask),
-                             torch.tensor(leaf, dtype=torch.float32), bounds)
+                             torch.tensor(leaf, dtype=torch.float32),
+                             None if bounds is None else tv.KeyFilter(*bounds))
     keys, origin, kept, padded = _jax_keys(pts, mask, leaf, bounds)
     np.testing.assert_array_equal(out[0].numpy(), keys)
     np.testing.assert_array_equal(out[1].numpy(), origin)
@@ -112,49 +115,64 @@ def test_range_is_the_correctly_rounded_root_of_the_ordered_sum():
     assert 0 < int(want.sum()) < 20000
 
 
+def _spans(n):
+    """The kernels' blocks: a quad (4 rows) a thread, ROWS rows a block; [lo, hi) rows of
+    each, at least one block."""
+    return [(lo, min(lo + ROWS, n)) for lo in range(0, max(n, 1), ROWS)]
+
+
 def _runs_model(keys, C):
-    """The `sorted_runs` kernel's two launches in numpy: each block's record (first-of-run
-    rows, valid rows, its last first-of-run row), then per block the records' totals,
-    the carry, a scan of each 256-row tile, the starts and lengths its rows write, and
-    the fill past the last voxel. Returns (starts, lengths, num_voxels)."""
+    """The `sorted_runs` kernels in numpy: the first launch's record of each block of ROWS
+    rows (first-of-run rows, valid rows, its last first-of-run row); then per block in the
+    second launch the carry from the records before it, the totals from all, a scan of
+    the block's quads (4 rows a thread, in row order), the starts and lengths its rows
+    write, and the fill past the last voxel. Returns (starts, lengths, num_voxels)."""
     n = len(keys)
-    G = max(1, -(-n // ROWS))
+    rows = np.arange(n)
     valid = keys != INVALID
     first = valid & np.concatenate([[True], keys[1:] != keys[:-1]])
     last = valid & np.concatenate([keys[1:] != keys[:-1], [True]])
+    spans = _spans(n)
     rec = []
-    for b in range(G):
-        sl = slice(b * ROWS, min((b + 1) * ROWS, n))
-        f = np.flatnonzero(first[sl])
-        rec.append((len(f), int(valid[sl].sum()), b * ROWS + f[-1] if len(f) else -1))
+    for lo, hi in spans:
+        f = np.flatnonzero(first[lo:hi])
+        rec.append((len(f), int(valid[lo:hi].sum()), lo + f[-1] if len(f) else -1))
     starts = np.full(C + 1, -7, np.int64)
     lengths = np.full(C + 1, -7, np.int64)
     nv, nvalid = sum(r[0] for r in rec), sum(r[1] for r in rec)
-    for b in range(G):
+    for b, (lo, hi) in enumerate(spans):
         run = sum(r[0] for r in rec[:b])
         start = max([r[2] for r in rec[:b]], default=-1)
-        for t in range(ROWS // THREADS):
-            lo = b * ROWS + t * THREADS
-            rows = np.arange(lo, min(lo + THREADS, n))
-            if not len(rows):
-                continue
-            incl = np.cumsum(first[rows])
-            smax = np.maximum.accumulate(np.where(first[rows], rows, -1))
-            for j, i in enumerate(rows):
-                seg = run + incl[j] - 1
-                if first[i] and seg < C:
-                    starts[seg] = i
-                elif first[i] and seg == C:
-                    starts[C], lengths[C] = i, n - i
-                if last[i] and seg < C:
-                    lengths[seg] = i + 1 - max(smax[j], start)
-            run += int(incl[-1])
-            start = max(start, int(smax[-1]))
+        block = rows[lo:hi]
+        seg = run + np.cumsum(first[block]) - 1
+        st = np.maximum(start, np.maximum.accumulate(np.where(first[block], block, -1)))
+        opens = first[block]
+        starts[seg[opens & (seg < C)]] = block[opens & (seg < C)]
+        if (opens & (seg == C)).any():
+            i = block[opens & (seg == C)][0]
+            starts[C], lengths[C] = i, n - i
+        closes = last[block] & (seg < C)
+        lengths[seg[closes]] = block[closes] + 1 - st[closes]
     if nv <= C:
         starts[nv:] = nvalid
         lengths[nv:] = 0
         lengths[C] = n - nvalid
     return starts, lengths, nv
+
+
+def _corner_model(pts, mask):
+    """The `cell_keys` kernels' corner in float32 numpy: each block's minimum over its
+    kept rows (PAD_VALUE where none; NaN wherever one takes part), then the blocks' minima
+    as the second launch reduces them (`nan_min`; a minimum is exact in any order)."""
+    def nan_min(m, v):
+        return np.where((v < m) | np.isnan(v), v, m)
+
+    corner = np.full(3, PAD, np.float32)
+    for lo, hi in _spans(len(pts)):
+        kept = pts[lo:hi][mask[lo:hi]]
+        if len(kept):  # np.min propagates NaN
+            corner = nan_min(corner, kept.min(axis=0))
+    return corner
 
 
 RUN_CASES = {  # name: (cloud, leaf, C)
@@ -209,6 +227,85 @@ def test_sorted_runs_plain_matches_reference_and_the_kernel_model(case):
     assert model[2] == jnv
     if case == "runs_past_c":
         assert jnv > C
+
+
+def _model_keys(case):
+    """(sorted keys [N] i32, C) of a runs model case: runs that cross blocks, voxels past
+    C, valid rows only in the first blocks, one run over every block, N = 13 (a ragged
+    last quad), N = 1 and 0, and 69 blocks of short runs."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def runs(n, lo, hi):
+        lens = rng.integers(lo, hi, n)
+        return np.repeat(np.cumsum(rng.integers(1, 5, n)), lens)[:n].astype(np.int32)
+
+    if case == "runs_across_blocks":
+        return runs(24000, 300, 3000), 4096
+    if case == "past_c":
+        return runs(6000, 1, 5), 500
+    if case == "valid_prefix":
+        return np.concatenate([runs(3000, 1, 9), np.full(13384, INVALID, np.int32)]), 4096
+    if case == "one_run":
+        return np.full(9000, 77, np.int32), 4
+    if case == "n13":
+        return np.int32([0, 0, 1, 2, 2, 2, 3, INVALID, INVALID, INVALID, INVALID, INVALID,
+                         INVALID]), 3
+    if case == "n1":
+        return np.int32([5]), 2
+    if case == "n0":
+        return np.zeros(0, np.int32), 3
+    return runs(70000, 1, 30), 65536  # "many_blocks"
+
+
+RUN_MODEL_CASES = ["runs_across_blocks", "past_c", "valid_prefix", "one_run", "n13", "n1",
+                   "n0", "many_blocks"]
+
+
+@pytest.mark.parametrize("case", RUN_MODEL_CASES)
+def test_runs_model_equals_plain(case):
+    """The runs kernels' decomposition (blocks of ROWS rows, the carry from the first
+    launch's records, a quad a thread) gives `sorted_runs_plain`'s starts, lengths and
+    count (`_model_keys`)."""
+    keys, C = _model_keys(case)
+    _, (starts, lengths, nv) = tv.sorted_runs_plain(torch.as_tensor(keys), capacity=C)
+    model = _runs_model(keys, C)
+    np.testing.assert_array_equal(starts.numpy(), model[0])
+    np.testing.assert_array_equal(lengths.numpy(), model[1])
+    assert model[2] == int(nv)
+    if case == "past_c":
+        assert int(nv) > C
+    if case in ("runs_across_blocks", "one_run"):  # a run crosses blocks
+        assert any(keys[lo - 1] == keys[lo] for lo, hi in _spans(len(keys))[1:])
+
+
+def _corner_cloud(case):
+    """(points [N, 3] f32, mask [N] bool) of a corner model case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    n = {"n5": 5, "nan_corner": 9000}.get(case, 10000)
+    pts = rng.uniform(-40.0, 40.0, (n, 3)).astype(np.float32)
+    mask = rng.random(n) < 0.7
+    if case == "far":
+        pts += np.float32([812.5, -433.0, 21.0])
+    if case == "none_kept":
+        mask[:] = False
+    if case == "nan_corner":  # a kept row with a NaN x, a dropped row with a NaN y
+        mask[4321], mask[77] = True, False
+        pts[4321, 0], pts[77, 1] = np.nan, np.nan
+    return pts, mask
+
+
+@pytest.mark.parametrize("case", ["spread", "far", "nan_corner", "none_kept", "n5"])
+def test_corner_model_equals_plain(case):
+    """The keys kernels' corner (each block's minimum, then the blocks') less one leaf is
+    `cell_keys_plain`'s origin bit for bit, NaN and the empty corner included."""
+    pts, mask = _corner_cloud(case)
+    leaf = np.float32(0.1)
+    _, origin = tv.cell_keys_plain(torch.as_tensor(pts), torch.as_tensor(mask),
+                                   torch.tensor(leaf))
+    want = _corner_model(pts, mask) - leaf
+    assert origin.numpy().tobytes() == want.astype(np.float32).tobytes()
+    if case == "nan_corner":
+        assert np.isnan(want[0]) and not np.isnan(want[1:]).any()
 
 
 def test_sorted_runs_plain_gathers_and_pads_the_sor_cells():
